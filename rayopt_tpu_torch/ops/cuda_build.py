@@ -1,0 +1,99 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+nvcc compiles the sources into a shared library with a plain C
+interface, which ctypes loads; nothing includes PyTorch's headers, so
+a build takes seconds.  It runs at first use, from the package's own
+sources, into build/torch_kernels/ beside the package, and is cached
+by a hash of the sources and flags.  Fast math stays off: the kernels
+rely on IEEE division, square root and NaN propagation.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
+SOURCES = ("trace.cu",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (put nvcc on PATH)")
+
+
+class KernelLibrary:
+    """The loaded kernel library, with how it was built.
+
+    build_seconds: wall time of the nvcc run (0 when it came from the
+    cache); build_log: nvcc's output, including the -Xptxas -v
+    register and spill lines of every kernel."""
+
+    def __init__(self, path, build_seconds, build_log):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self._lib = ctypes.CDLL(str(path))
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for dt in ("f32", "f64"):
+            fn = getattr(self._lib, "trace_final_" + dt)
+            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*13 + [i64, i32,
+                                                             i32, ptr]
+            fn.restype = i32
+            fn = getattr(self._lib, "trace_merit_" + dt)
+            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [i64, i32,
+                                                            i32, ptr]
+            fn.restype = i32
+        self._lib.trace_error_string.argtypes = [i32]
+        self._lib.trace_error_string.restype = ctypes.c_char_p
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def ptxas_lines(self):
+        """The register/shared-memory/spill lines of nvcc's -Xptxas -v
+        report."""
+        return [ln.strip() for ln in self.build_log.splitlines()
+                if "ptxas info" in ln or "bytes stack frame" in ln]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library():
+    """Build (if needed) and load the kernel library; raises
+    RuntimeError when nvcc is missing or the build fails."""
+    nvcc = _nvcc()
+    digest = hashlib.sha256()
+    for name in SOURCES:
+        digest.update((CSRC/name).read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / ("librayopt_trace_%s.so" % digest.hexdigest()[:16])
+    log_path = lib.with_suffix(".log")
+    if lib.exists() and log_path.exists():
+        return KernelLibrary(lib, 0., log_path.read_text())
+    tmp = lib.with_name(lib.name + ".%d.tmp" % os.getpid())
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC/name) for name in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode:
+        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s"
+                           % (proc.returncode, " ".join(cmd), log))
+    log_path.write_text(log)
+    os.replace(tmp, lib)
+    return KernelLibrary(lib, seconds, log)
