@@ -10,7 +10,12 @@ table, elements, pupils, conjugates, System with its paraxial solve
 and host pupil aiming, YAML round trip, the model prescriptions), the
 SurfaceTable lowering, the torch trace engines (flat, spherical and
 conic rows), and the fused trace (K1) and spot-moment merit (K2)
-kernels, hand-written in CUDA C++ for Hopper (ops.cuda_trace).
+kernels, hand-written in CUDA C++ for Hopper (ops.cuda_trace); the
+differentiable paraxial engine (ops.paraxial), the differentiable
+spot-RMS merit with its weighted-moment (K4) and analytic-adjoint (K5)
+kernels (ops.cuda_grad), and the lens optimizer (parallel.grad:
+spot_rms, bundles_from_system, optimize_grad with engines "xla" and
+"adjoint", optimize_system).
 
 Tables and traces default to float64 on the CPU; move a bundle to a
 CUDA device to run the kernels.

@@ -14,3 +14,7 @@ from .cuda_trace import (  # noqa: F401
     trace_final, trace_merit, trace_final_reference,
     trace_merit_reference, spot_rms_from_moments,
 )
+from .cuda_grad import (  # noqa: F401
+    weighted_moments, merit_adjoint, weighted_moments_reference,
+    merit_adjoint_reference, spot_moments, adjoint_spot_rms,
+)

@@ -19,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
-SOURCES = ("trace.cu",)
+SOURCES = ("trace.cu", "grad.cu")
+HEADERS = ("trace_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +58,18 @@ class KernelLibrary:
             fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [i64, i32,
                                                             i32, ptr]
             fn.restype = i32
+            # table, flags, nsurf, clip, 6 rays, w, partials, n, grid,
+            # block, stream
+            fn = getattr(self._lib, "weighted_moments_" + dt)
+            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*8 + [i64, i32,
+                                                            i32, ptr]
+            fn.restype = i32
+            # ... 6 rays, w, ct, partials, 6 ray + 1 weight cotangents,
+            # n, grid, block, stream
+            fn = getattr(self._lib, "merit_adjoint_" + dt)
+            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*16 + [i64, i32,
+                                                             i32, ptr]
+            fn.restype = i32
         self._lib.trace_error_string.argtypes = [i32]
         self._lib.trace_error_string.restype = ctypes.c_char_p
 
@@ -76,7 +89,7 @@ def load_library():
     RuntimeError when nvcc is missing or the build fails."""
     nvcc = _nvcc()
     digest = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC/name).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

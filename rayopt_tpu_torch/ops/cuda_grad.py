@@ -1,0 +1,562 @@
+"""The differentiable spot-RMS merit: weighted moments forward (K4) and
+its analytic adjoint (K5) on CUDA, with their plain versions.
+
+K4 `weighted_moments` traces six (N,) ray components through the
+specialized surface chain and reduces them to the five WEIGHTED spot
+moments (sum w, sum wx, sum wy, sum wx^2, sum wy^2) over the rays
+whose final local x, y and uz are finite.  It replaces the JAX
+package's Pallas kernel `pallas_grad._fwd_kernel`.
+
+K5 `merit_adjoint` is its backward: it traces each ray again, keeping
+the state that enters every surface, seeds the ray's cotangent from
+the five moment cotangents, and runs a hand-derived reverse of
+`kernels.surface_step_spec` over the rows from last to first.  It
+returns the parameter cotangents (per row: curvature, conic, offset
+x, y, z and mu; reduced over the rays), the six ray-state cotangents
+and the weight cotangent.  It replaces `pallas_grad._adjoint_kernel`.
+A dead (vignetted or missed) ray gets exact zeros everywhere; no VJP
+residual ever leaves the kernel.
+
+`spot_moments` and `adjoint_spot_rms` bind the two in one
+torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`):
+gradients flow to the table's curvature, conic, offset and mu (and
+through tables.lower_pose to decenter), to the ray state and to the
+weights.  n_before, which feeds only the optical path, receives a zero
+cotangent.  The gradient semantics are those of the SPECIALIZED
+engine: a parameter the static specs bake out (the conic of a
+spherical row, the transverse offset of an on-axis row, mu of a
+passthrough row) gets exactly zero gradient, and the call warns once
+when such a parameter is the one being optimized.  rot is not
+differentiated: a rot (or tilt) that requires grad while some spec row
+is rotated raises NotImplementedError.
+
+Both kernels are hand-written CUDA C++ (csrc/grad.cu), built with the
+K1/K2 library (ops.cuda_build).  A wrapper takes the plain PyTorch
+version (`weighted_moments_reference`, `merit_adjoint_reference`) only
+for a bundle on the CPU; for a CUDA bundle it launches its kernel or
+raises.  Each wrapper counts its launches in `<wrapper>.launches`.
+`_step_vjp_reference` and `_merit_adjoint_by_hand` write the kernel's
+hand-derived reverse in torch, line for line, so the CPU tests can
+hold it against autograd; nothing else calls them.
+"""
+
+import warnings
+
+import torch
+
+from . import kernels as K
+from .cuda_trace import (BLOCK, _check_state, _launch_setup, _raise_on,
+                         spot_rms_from_moments, trace_final_reference)
+from .tables import lower_pose
+
+MAX_ROWS = 32   # saved states a K5 thread keeps: keep in sync with grad.cu
+SLOTS = 6       # parameter cotangents a row: c, k, offset x/y/z, mu
+
+#: differentiable table fields the autograd Function carries
+_DIFF = ("curvature", "conic", "offset", "mu", "n_before")
+#: kernel-carried fields that never receive cotangents
+_NONDIFF = ("radius", "alternate")
+#: the fields the reference kernel carries (pallas_trace._FIELDS)
+_FIELDS = ("curvature", "conic", "aspherics", "aspherics_odd", "offset",
+           "rot", "radius", "alternate", "mu", "n_before", "n_after")
+
+
+# -- plain versions ------------------------------------------------------
+
+def _wmoments(x, y, w, good):
+    wg = torch.where(good, w, 0.)
+    xg = torch.where(good, x, 0.)
+    yg = torch.where(good, y, 0.)
+    return torch.stack([wg.sum(), (wg*xg).sum(), (wg*yg).sum(),
+                        (wg*xg*xg).sum(), (wg*yg*yg).sum()])
+
+
+def _live(out):
+    return (torch.isfinite(out[0]) & torch.isfinite(out[1])
+            & torch.isfinite(out[5]))
+
+
+def weighted_moments_reference(table, specs, state, w, clip=False):
+    """Plain PyTorch version of K4: the (5,) weighted moments of the K1
+    trace in the state's dtype."""
+    out, _ = trace_final_reference(table, specs, state, clip)
+    return _wmoments(out[0], out[1], w, _live(out))
+
+
+def _constant_table(table, like):
+    """The lowered table, detached, in `like`'s dtype and device."""
+    return type(table)(*(None if f is None
+                         else f.detach().to(device=like.device,
+                                            dtype=like.dtype)
+                         for f in lower_pose(table)))
+
+
+def _param_rows(tab):
+    """(S, SLOTS) view of the differentiated fields of a table."""
+    return torch.stack([tab.curvature, tab.conic, tab.offset[:, 0],
+                        tab.offset[:, 1], tab.offset[:, 2], tab.mu], 1)
+
+
+def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
+    """Plain PyTorch version of K5: torch autograd through the plain
+    trace.  A no-grad pre-trace finds the live rays; each dead ray is
+    traced as the first live one (so no NaN enters autograd) at zero
+    weight.  Returns (parameter cotangents (S, SLOTS) in the order c,
+    k, offset x, y, z, mu; the six state cotangents; the weight
+    cotangent), all in the state's dtype."""
+    x0 = state[0]
+    tab = _constant_table(table, x0)
+    with torch.no_grad():
+        out, _ = trace_final_reference(tab, specs, state, clip)
+        alive = _live(out)
+    pg = torch.zeros((tab.nsurfaces, SLOTS), dtype=x0.dtype,
+                     device=x0.device)
+    if not bool(alive.any()):
+        return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
+            torch.zeros_like(x0)
+    i0 = int(torch.argmax(alive.to(torch.uint8)))
+    leaves = [tab.curvature, tab.conic, tab.offset, tab.mu,
+              *state, w]
+    leaves = [v.detach().clone().requires_grad_() for v in leaves]
+    c, k, off, mu = leaves[:4]
+    st, wl = leaves[4:10], leaves[10]
+    with torch.enable_grad():
+        sub = tuple(torch.where(alive, s, s[i0]) for s in st)
+        t2 = tab.replace(curvature=c, conic=k, offset=off, mu=mu)
+        out, _ = trace_final_reference(t2, specs, sub, clip)
+        mom = _wmoments(out[0], out[1], wl, alive)
+        grads = torch.autograd.grad((mom*ct.to(mom.dtype)).sum(), leaves,
+                                    allow_unused=True)
+    grads = [torch.zeros_like(v) if g is None else g
+             for v, g in zip(leaves, grads)]
+    pg = _param_rows(tab.replace(curvature=grads[0], conic=grads[1],
+                                 offset=grads[2], mu=grads[3]))
+    return pg, tuple(grads[4:10]), grads[10]
+
+
+# -- the kernel's reverse, written by hand in torch (test-only) ----------
+
+def _step_vjp_reference(state, surf, spec, g):
+    """Hand-derived reverse of kernels.surface_step_spec for live rays,
+    the line-for-line model of `surface_step_vjp` in csrc/grad.cu.
+
+    state: the six components entering the row (global frame); g: the
+    cotangent of the six components leaving it.  Returns (cotangent of
+    the entering state, per-ray parameter cotangents (c, k, offset x,
+    y, z, mu)).  The aperture clip is a constant mask: a clipped ray is
+    dead, and dead rays never reach the reverse sweep."""
+    K.check_supported(spec)
+    x, y, z, ux, uy, uz = state
+    zero = torch.zeros_like(x)
+    c, k, mu = surf.curvature, surf.conic, surf.mu
+    # ---- forward recompute ----
+    if spec.off_axis:
+        x = x - surf.offset[0]
+        y = y - surf.offset[1]
+    z = z - surf.offset[2]
+    if spec.rotated:
+        r = surf.rot
+        x, y, z = K.rot_apply(r, x, y, z)
+        ux, uy, uz = K.rot_apply(r, ux, uy, uz)
+    if spec.flat:
+        uzs = torch.where(uz == 0, 1., uz)
+        t = -z/uzs
+    else:
+        k1 = 1. if spec.spherical else 1 + k
+        if spec.spherical:
+            uyd = ux*x + uy*y + uz*z
+            uu = 1.
+            yy = x*x + y*y + z*z
+        else:
+            uyd = ux*x + uy*y + k1*uz*z
+            uu = ux*ux + uy*uy + k1*uz*uz
+            yy = x*x + y*y + k1*z*z
+        d = c*uyd - uz
+        e = c*uu
+        f = c*yy - 2*z
+        disc = d*d - e*f
+        sg = -1. if spec.alternate else 1.
+        sq = K._sqrt0(disc)
+        q = sg*sq
+        if spec.spherical:
+            t = (d + q)*(-1./c)
+        else:
+            den = torch.where(q == d, 1., q - d)
+            e_safe = torch.where(e == 0, 1., e)
+            t = torch.where(e == 0, f/den, -(d + q)/e_safe)
+    x1, y1, z1 = x + t*ux, y + t*uy, z + t*uz
+    # ---- reverse: leave the row's frame ----
+    gx1, gy1, gz1, gvx, gvy, gvz = g
+    if spec.rotated:
+        gx1, gy1, gz1 = K.rot_apply(r, gx1, gy1, gz1)
+        gvx, gvy, gvz = K.rot_apply(r, gvx, gvy, gvz)
+    gc, gk, gmu = zero, zero, zero
+    # ---- reverse: refraction ----
+    if spec.kind == 0:
+        gux, guy, guz = gvx, gvy, gvz
+    elif spec.flat and spec.kind == 2:
+        gux, guy, guz = gvx, gvy, -gvz
+    elif spec.flat:
+        muf, sgmu = torch.abs(mu), torch.sign(mu)
+        a = muf*uz
+        sq2 = K._sqrt0(a*a - (mu*mu - 1))
+        gmuf = ux*gvx + uy*gvy + uz*gvz
+        gux, guy, guz = muf*gvx, muf*gvy, muf*gvz
+        gq2 = gvz
+        gdisc2 = gq2*sgmu*.5/sq2
+        ga = -gq2 + 2*a*gdisc2
+        gmu = -2*mu*gdisc2
+        gmuf = gmuf + uz*ga
+        guz = guz + muf*ga
+        gmu = gmu + sgmu*gmuf
+    else:
+        kc = c if spec.spherical else (1 + k)*c
+        nx, ny, nz = -c*x1, -c*y1, 1. - kc*z1
+        dot = ux*nx + uy*ny + uz*nz
+        if not spec.spherical:
+            ir2 = 1./(nx*nx + ny*ny + nz*nz)
+        gir2 = zero
+        if spec.kind == 2:
+            a2 = 2.*dot if spec.spherical else 2.*dot*ir2
+            gux, guy, guz = gvx, gvy, gvz
+            gnx, gny, gnz = -a2*gvx, -a2*gvy, -a2*gvz
+            ga2 = -(gvx*nx + gvy*ny + gvz*nz)
+            if spec.spherical:
+                gdot = 2.*ga2
+            else:
+                gdot = 2.*ir2*ga2
+                gir2 = 2.*dot*ga2
+        else:
+            muf, sgmu = torch.abs(mu), torch.sign(mu)
+            if spec.spherical:
+                a = muf*dot
+                disc2 = a*a - (mu*mu - 1)
+            else:
+                a = muf*dot*ir2
+                disc2 = a*a - (mu*mu - 1)*ir2
+            sq2 = K._sqrt0(disc2)
+            q2 = -a + sgmu*sq2
+            gmuf = ux*gvx + uy*gvy + uz*gvz
+            gux, guy, guz = muf*gvx, muf*gvy, muf*gvz
+            gq2 = gvx*nx + gvy*ny + gvz*nz
+            gnx, gny, gnz = q2*gvx, q2*gvy, q2*gvz
+            gdisc2 = gq2*sgmu*.5/sq2
+            ga = -gq2 + 2*a*gdisc2
+            if spec.spherical:
+                gmu = -2*mu*gdisc2
+                gmuf = gmuf + dot*ga
+                gdot = muf*ga
+            else:
+                gmu = -2*mu*ir2*gdisc2
+                gir2 = -(mu*mu - 1)*gdisc2 + muf*dot*ga
+                gmuf = gmuf + dot*ir2*ga
+                gdot = muf*ir2*ga
+            gmu = gmu + sgmu*gmuf
+        gux, guy, guz = gux + gdot*nx, guy + gdot*ny, guz + gdot*nz
+        gnx, gny, gnz = gnx + gdot*ux, gny + gdot*uy, gnz + gdot*uz
+        if not spec.spherical:
+            s = -2.*ir2*ir2*gir2
+            gnx, gny, gnz = gnx + s*nx, gny + s*ny, gnz + s*nz
+            gk = gk - c*z1*gnz
+        zc = z1 if spec.spherical else (1 + k)*z1
+        gc = gc - x1*gnx - y1*gny - zc*gnz
+        gx1, gy1, gz1 = gx1 - c*gnx, gy1 - c*gny, gz1 - kc*gnz
+    # ---- reverse: transfer x1 = x + t u ----
+    gx, gy, gz = gx1, gy1, gz1
+    gux, guy, guz = gux + t*gx1, guy + t*gy1, guz + t*gz1
+    gt = ux*gx1 + uy*gy1 + uz*gz1
+    # ---- reverse: intercept ----
+    if spec.flat:
+        gz = gz - gt/uzs
+        guz = guz + torch.where(uz == 0, 0., gt*z/(uzs*uzs))
+    else:
+        if spec.spherical:
+            gd = gq = gt*(-1./c)
+            gc = gc + gt*(d + q)/(c*c)
+            ge = gf = zero
+        else:
+            ge0 = e == 0
+            dd = torch.where(ge0 & (q != d), gt*f/(den*den), 0.)
+            gf = torch.where(ge0, gt/den, 0.)
+            gd = torch.where(ge0, dd, -gt/e_safe)
+            gq = torch.where(ge0, -dd, -gt/e_safe)
+            ge = torch.where(ge0, 0., gt*(d + q)/(e_safe*e_safe))
+        gdisc = gq*sg*.5/sq
+        gd = gd + 2*d*gdisc
+        ge = ge - f*gdisc
+        gf = gf - e*gdisc
+        gc = gc + yy*gf + uu*ge + uyd*gd
+        gyy = c*gf
+        guyd = c*gd
+        gz = gz - 2*gf
+        guz = guz - gd
+        gx = gx + 2*x*gyy + ux*guyd
+        gy = gy + 2*y*gyy + uy*guyd
+        gz = gz + 2*k1*z*gyy + k1*uz*guyd
+        gux = gux + x*guyd
+        guy = guy + y*guyd
+        guz = guz + k1*z*guyd
+        if not spec.spherical:
+            guu = c*ge
+            gux = gux + 2*ux*guu
+            guy = guy + 2*uy*guu
+            guz = guz + 2*k1*uz*guu
+            gk = gk + z*z*gyy + uz*uz*guu + uz*z*guyd
+    # ---- reverse: enter the row's frame ----
+    if spec.rotated:
+        gx, gy, gz = K.rot_apply_t(r, gx, gy, gz)
+        gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
+    gox = -gx if spec.off_axis else zero
+    goy = -gy if spec.off_axis else zero
+    return (gx, gy, gz, gux, guy, guz), (gc, gk, gox, goy, -gz, gmu)
+
+
+def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
+    """K5 written in torch with _step_vjp_reference, the model of
+    `merit_adjoint_kernel` in csrc/grad.cu: same outputs as
+    merit_adjoint_reference."""
+    x0 = state[0]
+    tab = _constant_table(table, x0)
+    nsurf = tab.nsurfaces
+    s = tuple(state)
+    if specs[0].rotated:
+        r0 = tab.rot[0]
+        s = (*K.rot_apply_t(r0, *s[:3]), *K.rot_apply_t(r0, *s[3:]))
+    saved = [None]
+    for j in range(1, nsurf):
+        saved.append(s)
+        s, _ = K.surface_step_spec(s, tab.row(j), specs[j], clip)
+    rl = tab.rot[nsurf - 1]
+    if specs[nsurf - 1].rotated:
+        s = (*K.rot_apply(rl, *s[:3]), *K.rot_apply(rl, *s[3:]))
+    x, y = s[0], s[1]
+    live = _live(s)
+    ct0, ct1, ct2, ct3, ct4 = ct
+    ctx = w*(ct1 + 2*x*ct3)
+    cty = w*(ct2 + 2*y*ct4)
+    ct_w = torch.where(live, ct0 + x*ct1 + y*ct2 + x*x*ct3 + y*y*ct4, 0.)
+    zero = torch.zeros_like(x0)
+    g3 = (K.rot_apply_t(rl, ctx, cty, zero)
+          if specs[nsurf - 1].rotated else (ctx, cty, zero))
+    g = tuple(torch.where(live, v, 0.) for v in (*g3, zero, zero, zero))
+    pg = torch.zeros((nsurf, SLOTS), dtype=x0.dtype, device=x0.device)
+    for j in range(nsurf - 1, 0, -1):
+        g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g)
+        g = tuple(torch.where(live, v, 0.) for v in g)
+        pg[j] = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+    if specs[0].rotated:
+        g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
+    return pg, g, ct_w
+
+
+# -- the CUDA wrappers ---------------------------------------------------
+
+def _check_vector(v, state, name, n=None):
+    x = state[0]
+    n = x.shape[0] if n is None else n
+    if v.device != x.device or v.dtype != x.dtype:
+        raise ValueError("%s must share the rays' device and dtype (%s %s "
+                         "vs %s %s)" % (name, v.device, v.dtype, x.device,
+                                        x.dtype))
+    if v.dim() != 1 or v.shape[0] != n or not v.is_contiguous():
+        raise ValueError("%s must be a contiguous (%d,) tensor, got %s"
+                         % (name, n, tuple(v.shape)))
+
+
+def weighted_moments(table, specs, state, w, clip=False):
+    """K4: the (5,) weighted moments (sum w, sum wx, sum wy, sum wx^2,
+    sum wy^2) over live rays, in the rays' dtype.  CUDA bundles launch
+    the kernel (block partial sums, then one torch sum over blocks);
+    CPU bundles take weighted_moments_reference."""
+    _check_state(state)
+    _check_vector(w, state, "w")
+    if state[0].device.type == "cpu":
+        return weighted_moments_reference(table, specs, state, w, clip)
+    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
+        table, specs, state, smem_extra_words=5*BLOCK)
+    partials = torch.zeros((grid, 5), dtype=state[0].dtype,
+                           device=state[0].device)
+    if n:
+        err = getattr(lib, "weighted_moments_" + suffix)(
+            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
+            *(c.data_ptr() for c in state), w.data_ptr(),
+            partials.data_ptr(), n, grid, BLOCK, stream)
+        _raise_on(lib, err, "weighted_moments")
+        weighted_moments.launches += 1
+    return partials.sum(0)
+
+
+weighted_moments.launches = 0
+
+
+def merit_adjoint(table, specs, state, w, ct, clip=False):
+    """K5: (parameter cotangents (S, SLOTS): c, k, offset x, y, z, mu;
+    the six state cotangents; the weight cotangent) of the weighted
+    moments dotted with `ct`, a (5,) tensor of moment cotangents on
+    the rays' device.  CUDA bundles launch the kernel (per-block
+    parameter partials, then one torch sum over blocks); CPU bundles
+    take merit_adjoint_reference."""
+    _check_state(state)
+    _check_vector(w, state, "w")
+    _check_vector(ct, state, "ct", 5)
+    if state[0].device.type == "cpu":
+        return merit_adjoint_reference(table, specs, state, w, ct, clip)
+    if len(specs) > MAX_ROWS:
+        raise ValueError("merit_adjoint keeps at most %d rows a ray, the "
+                         "table has %d" % (MAX_ROWS, len(specs)))
+    nsurf = len(specs)
+    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
+        table, specs, state,
+        smem_extra_words=(BLOCK // 32)*nsurf*SLOTS)
+    x = state[0]
+    partials = torch.zeros((grid, nsurf*SLOTS), dtype=x.dtype,
+                           device=x.device)
+    outs = [torch.zeros_like(x) for _ in range(7)]
+    if n:
+        err = getattr(lib, "merit_adjoint_" + suffix)(
+            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
+            *(c.data_ptr() for c in state), w.data_ptr(), ct.data_ptr(),
+            partials.data_ptr(), *(o.data_ptr() for o in outs), n, grid,
+            BLOCK, stream)
+        _raise_on(lib, err, "merit_adjoint")
+        merit_adjoint.launches += 1
+    return (partials.sum(0).reshape(nsurf, SLOTS), tuple(outs[:6]),
+            outs[6])
+
+
+merit_adjoint.launches = 0
+
+
+# -- the differentiable merit --------------------------------------------
+
+class _SpotMoments(torch.autograd.Function):
+    """K4 forward, K5 backward (the reference's custom_vjp _moments)."""
+
+    @staticmethod
+    def forward(ctx, table, specs, clip, *tensors):
+        params, state, w = tensors[:5], tensors[5:11], tensors[11]
+        ctx.table, ctx.specs, ctx.clip = table, specs, clip
+        ctx.save_for_backward(*tensors)
+        tab = table.replace(**dict(zip(_DIFF, params)))
+        return weighted_moments(tab, specs, state, w, clip)
+
+    @staticmethod
+    def backward(ctx, ct):
+        tensors = ctx.saved_tensors
+        params, state, w = tensors[:5], tensors[5:11], tensors[11]
+        tab = ctx.table.replace(**dict(zip(_DIFF, params)))
+        pg, ct_state, ct_w = merit_adjoint(tab, ctx.specs, state, w,
+                                           ct.contiguous(), ctx.clip)
+        grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
+                 torch.zeros_like(params[4]))
+        return (None, None, None, *grads, *ct_state, ct_w)
+
+
+def _baked_out_rows(specs, field):
+    """Surface rows (1-indexed into the chain) whose static
+    specialization never READS `field`, so its gradient there is
+    structurally zero (specialized-engine semantics).  Only flat,
+    spherical and conic rows reach the kernels (kernels.
+    check_supported), so no row carries a figure."""
+    baked = {"curvature": lambda sp: sp.flat,
+             "conic": lambda sp: sp.flat or sp.spherical,
+             "offset": lambda sp: not sp.off_axis,   # transverse x/y
+             "mu": lambda sp: sp.kind == 0,
+             "rot": lambda sp: not sp.rotated}.get(field)
+    if baked is None:
+        return []
+    return [j for j, sp in enumerate(specs) if j and baked(sp)]
+
+
+def _warn_baked_params(specs, params):
+    """When a table field the caller differentiates (it requires grad
+    while the rest of the table does not) has rows the static
+    specialization bakes out, say so once -- otherwise an optimizer
+    silently never moves that parameter there."""
+    traced = [f for f, v in params.items()
+              if f not in _NONDIFF and v.requires_grad]
+    if len(traced) == sum(1 for f in params if f not in _NONDIFF):
+        # EVERY float field is differentiated: a wholesale context
+        # (full-table jacobians), not a selection for optimization
+        return
+    for f in traced:
+        rows = _baked_out_rows(specs, f)
+        if f == "rot":
+            if len(rows) == len(specs) - 1:
+                warnings.warn(
+                    "adjoint kernel: 'rot' (pose/tilt) requires grad but "
+                    "no spec row is rotated -- pose gradients are "
+                    "structurally zero; pass diff_pose=True (or "
+                    "kernels.with_pose(specs)) to keep the nominal pose "
+                    "live", stacklevel=3)
+            continue
+        if rows:
+            detail = (" (transverse x/y components)"
+                      if f == "offset" else "")
+            warnings.warn(
+                "adjoint kernel: '%s' of surface row(s) %s is baked out "
+                "by the static specialization%s -- its gradient there is "
+                "structurally zero; seed it off the baked point "
+                "(respecialize) or use the generic engine"
+                % (f, rows, detail), stacklevel=3)
+
+
+def _resolve_specs(table, specs, diff_pose):
+    """Static specs: derived from the concrete table unless given.  A
+    pose that requires grad keeps every row's rotated/off_axis flags
+    live (kernels.with_pose), as the reference does for a traced pose;
+    diff_pose (True or a row iterable) forces that on given specs."""
+    pose_grad = any(f is not None and f.requires_grad
+                    for f in (table.tilt, table.decenter))
+    if specs is None:
+        specs = K.specialize(table)
+        if pose_grad and diff_pose is None:
+            diff_pose = True
+    if diff_pose is not None:
+        specs = K.with_pose(specs, None if diff_pose is True else diff_pose)
+    return tuple(specs)
+
+
+def spot_moments(table, state, w, specs=None, clip=False, diff_pose=None):
+    """Differentiable weighted spot moments (sum w, sum wx, sum wy,
+    sum wx^2, sum wy^2) of the fused trace: K4 forward, K5 backward on
+    a CUDA bundle, their plain versions on a CPU bundle.  state: six
+    contiguous (N,) components; w: (N,) weights.  Gradients reach the
+    table's curvature, conic, offset, mu (n_before: zero), the state
+    and the weights (see the module docstring)."""
+    specs = _resolve_specs(table, specs, diff_pose)
+    table = lower_pose(table)
+    if table.rot.requires_grad and any(s.rotated for s in specs):
+        raise NotImplementedError(
+            "the adjoint merit does not differentiate rot/tilt yet (the "
+            "rot cotangent, ROADMAP Queue 1 item 9); use the generic "
+            "engine (parallel.grad.spot_rms) for pose gradients")
+    params = {f: getattr(table, f) for f in _FIELDS
+              if f not in ("aspherics", "aspherics_odd")
+              or getattr(table, f).shape[1]}
+    _warn_baked_params(specs, params)
+    x = state[0]
+    diff = [getattr(table, f).to(device=x.device, dtype=x.dtype)
+            for f in _DIFF]
+    w = torch.as_tensor(w).to(device=x.device, dtype=x.dtype)
+    mom = _SpotMoments.apply(_constant_table(table, x), specs, bool(clip),
+                             *diff, *state, w)
+    return tuple(mom[i] for i in range(5))
+
+
+def adjoint_spot_rms(table, y0, u0, w=None, specs=None, clip=False,
+                     diff_pose=None):
+    """Weighted RMS spot radius through K4, differentiable through the
+    analytic adjoint K5 -- the production-scale counterpart of
+    parallel.grad.spot_rms (no autograd residuals on a CUDA bundle).
+    Semantics match spot_rms(nan_safe=True) with the same weights and
+    specs: vignetted rays drop out of the value and the gradient."""
+    y0 = torch.as_tensor(y0)
+    u0 = torch.as_tensor(u0)
+    if w is None:
+        w = torch.ones(y0.shape[0], dtype=y0.dtype,
+                       device=y0.device)/y0.shape[0]
+    state = tuple(c.contiguous() for c in (*K.split(y0), *K.split(u0)))
+    mom = spot_moments(table, state, w, specs=specs, clip=clip,
+                       diff_pose=diff_pose)
+    return spot_rms_from_moments(*mom)

@@ -178,17 +178,24 @@ def rodrigues(v):
             + b[..., None, None]*(kx @ kx))
 
 
+def _live_pose(f):
+    # a pose under autograd is folded even at zero, so its gradient
+    # (reference: a traced pose) reaches rot/offset
+    return f is not None and (f.requires_grad or bool(torch.any(f != 0)))
+
+
 def lower_pose(table):
     """Fold the pose deltas (tilt, decenter) into the baked rot/offset:
     rot_eff = rodrigues(tilt) @ rot, offset_eff = offset + decenter.
-    Returns a table with zero tilt/decenter (idempotent; a table with
-    all-zero poses is returned as it is)."""
+    Returns a table with zero tilt/decenter (idempotent).  A pose that
+    requires grad is always folded; a table whose poses are all zero
+    and need no grad is returned as it is."""
     tilt, dec = table.tilt, table.decenter
     kw = {}
-    if tilt is not None and bool(torch.any(tilt != 0)):
+    if _live_pose(tilt):
         kw["rot"] = rodrigues(tilt) @ table.rot
         kw["tilt"] = torch.zeros_like(tilt)
-    if dec is not None and bool(torch.any(dec != 0)):
+    if _live_pose(dec):
         kw["offset"] = table.offset + dec
         kw["decenter"] = torch.zeros_like(dec)
     return table.replace(**kw) if kw else table

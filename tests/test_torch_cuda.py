@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from rayopt_tpu_torch.models import double_gauss
+from rayopt_tpu_torch.ops import cuda_grad as CG
 from rayopt_tpu_torch.ops import cuda_trace as CT
 from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
 from rayopt_tpu_torch.ops.kernels import specialize
@@ -91,3 +92,92 @@ def test_wrapper_refuses_bad_bundles_on_card(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         CT.trace_merit(tab, specs, tuple(torch.stack([c, c], 1)[:, 0]
                                          for c in state))
+
+
+def _rms_cotangent(mom):
+    """d spot_rms / d moments at `mom` (a (5,) tensor)."""
+    m = mom.detach().double().cpu().requires_grad_()
+    CT.spot_rms_from_moments(*m).backward()
+    return m.grad.to(device=mom.device, dtype=mom.dtype)
+
+
+def _max_rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()/max(float(want.abs().max()),
+                                                1e-300))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grad_kernels_match_plain_on_card(cuda_device, dtype, clip):
+    tab = double_gauss().table()
+    specs = specialize(tab)
+    state = _bench_state(1 << 16, 4, cuda_device, dtype)
+    w = torch.from_numpy(np.random.RandomState(1).uniform(
+        .5, 1.5, 1 << 16)).to(cuda_device, dtype)
+    launches = CG.weighted_moments.launches, CG.merit_adjoint.launches
+    mom = CG.weighted_moments(tab, specs, state, w, clip)
+    mref = CG.weighted_moments_reference(tab, specs, state, w, clip)
+    ct = _rms_cotangent(mref)
+    pg, cst, cw = CG.merit_adjoint(tab, specs, state, w, ct, clip)
+    pref, sref, wref = CG.merit_adjoint_reference(tab, specs, state, w, ct,
+                                                  clip)
+    torch.cuda.synchronize()
+    assert (CG.weighted_moments.launches, CG.merit_adjoint.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    # the bench bundle is on axis: float32 sums of 2^16 rays hold 1e-3
+    # of each field's largest cotangent; float64 rounding only
+    tol = 1e-9 if dtype == torch.float64 else 1e-3
+    nptest.assert_allclose(float(CT.spot_rms_from_moments(*mom)),
+                           float(CT.spot_rms_from_moments(*mref)),
+                           rtol=1e-10 if dtype == torch.float64 else 1e-4)
+    for col in range(CG.SLOTS):
+        if float(pref[:, col].abs().max()):
+            assert _max_rel(pg[:, col], pref[:, col]) <= tol, col
+        assert torch.isfinite(pg[:, col]).all()
+    # the same rays are live (a dead ray's cotangents are all zero)
+    assert torch.equal(cw != 0, wref != 0)
+    # ray cotangents against the largest of their kind (positions,
+    # directions, weights): the initial z of a collimated ray has an
+    # analytically zero cotangent, so its own scale is rounding noise.
+    # A float32 image coordinate carries K1's ~2e-5 mm on a spot of
+    # ~0.03 mm (~1e-3 relative), twice that on the squares the weight
+    # cotangent holds: 1e-2 there
+    ray_tol = 1e-9 if dtype == torch.float64 else 1e-2
+    for got, want in (((cst[:3]), sref[:3]), (cst[3:], sref[3:]),
+                      ((cw,), (wref,))):
+        scale = max(float(r.abs().max()) for r in want)
+        for g, r in zip(got, want):
+            assert torch.isfinite(g).all()
+            assert float((g - r).abs().max()) <= ray_tol*scale
+
+
+@pytest.mark.cuda
+def test_adjoint_optimize_step_on_card(cuda_device):
+    from rayopt_tpu_torch.parallel import (bundles_from_system, bundles_to,
+                                           optimize_grad)
+    s = double_gauss()
+    tab = s.table()
+    bundles = bundles_from_system(s, fields=(0., 1.), nrays=2048,
+                                  distribution="hexapolar")
+    grads = {}
+
+    def keep(tag):
+        def callback(i, value, params):
+            grads[tag] = {k: v.grad.double().cpu() for k, v in params.items()}
+        return callback
+
+    before = CG.weighted_moments.launches, CG.merit_adjoint.launches
+    sel = ("curvature", "distance")
+    _, h_gpu = optimize_grad(tab, bundles_to(bundles, cuda_device),
+                             select=sel, steps=1, engine="adjoint",
+                             callback=keep("gpu"))
+    assert CG.weighted_moments.launches > before[0]
+    assert CG.merit_adjoint.launches > before[1]
+    _, h_cpu = optimize_grad(tab, bundles, select=sel, steps=1,
+                             engine="adjoint", callback=keep("cpu"))
+    nptest.assert_allclose(h_gpu, h_cpu, rtol=1e-9)
+    for k in sel:
+        g, r = grads["gpu"][k], grads["cpu"][k]
+        assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max()), k

@@ -34,7 +34,7 @@ def _pair(name):
 
 def test_import_leaves_jax_out():
     code = ("import sys, rayopt_tpu_torch, rayopt_tpu_torch.ops, "
-            "rayopt_tpu_torch.models; "
+            "rayopt_tpu_torch.models, rayopt_tpu_torch.parallel; "
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
