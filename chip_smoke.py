@@ -3,15 +3,20 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout, holds each
-against its plain PyTorch version on the card, drives the port's two
+against its plain PyTorch version on the card, drives the port's three
 main paths -- the forward path (double Gauss from YAML -> paraxial
 solve -> pupil aiming -> fused trace and fused spot-moment merit at
-three fields) and the designer loop (bundles at 3 fields x 3
+three fields), the designer loop (bundles at 3 fields x 3
 wavelengths -> optimize_grad on the weighted-moment and adjoint
-kernels -> write back) -- and times the kernels against their plain
-versions.  Every phase raises on a failure; the script exits non-zero
-and prints no result without a CUDA device.  The last line of stdout
-is the device JSON.
+kernels -> write back) and the achromatization path (stacked
+3-wavelength tables -> glass relaxation -> polychromatic union spot
+RMS on the stacked-wavelength kernels at 3 fields -> Adam over
+curvatures, distances and glasses, with the stacked trace reporting
+the spots) -- and times the kernels against their plain versions (the
+stacked-wavelength ones also against their monochromatic twins).
+Every phase raises on a failure; the script exits non-zero and prints
+no result without a CUDA device.  The last line of stdout is the
+device JSON, the line before it the kernels JSON.
 """
 
 import json
@@ -23,17 +28,24 @@ import warnings
 import numpy as np
 import torch
 
+DEVICE = "cuda"      # the card: every tensor but the CPU references
 N_CHECK = 1 << 20    # rays in the kernel-vs-plain checks
 N_AIMED = 1 << 22    # rays per field on the main path
 N_BENCH = 1 << 26    # rays in the throughput phase
 N_OPT = 1 << 20      # hexapolar nrays a bundle on the optimizer path
-N_GRAD_TIME = 1 << 22  # rays in the K4/K5 kernel-vs-plain timings
+N_GRAD_TIME = 1 << 22  # rays in the K3-K7 kernel-vs-plain timings
+N_GLASS = 1 << 20    # hexapolar nrays a field on the achromatization path
 FIELDS = (0., .7, 1.)
 SEED = 0
 OPT_SELECT = ("curvature", "distance")
 OPT_STEPS = 10
 OPT_LR = 1e-7        # Adam: the merit falls at every step on the CPU
 FD_STEP = {"curvature": 1e-8, "distance": 1e-6}   # 1/mm, mm
+FD_VD_STEP = 1e-3    # Abbe number
+GLASS_STEPS = 10
+# Adam on the achromatization path, per parameter group (1/mm, mm, and
+# the glass-box logits of nd and vd)
+GLASS_LR = {"curvature": 5e-8, "distance": 5e-8, "glass": 3e-5}
 
 # tolerances (kernel vs plain on the card, live rays)
 F64_REL = 1e-12      # float64: max |a - b| / max(1, max |b|) per output
@@ -86,8 +98,8 @@ def phase_build():
 
 def bench_bundle(n, dtype, seed):
     """The bench bundle: x, y uniform in +-11.6 mm, u = (0, 0, 1)."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.empty(n, dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.empty(n, dtype=torch.float64, device=DEVICE)
     y = torch.empty_like(x)
     x.uniform_(-11.6, 11.6, generator=gen)
     y.uniform_(-11.6, 11.6, generator=gen)
@@ -192,18 +204,21 @@ def phase_check(table, specs):
 
 def bench_weights(n, dtype, seed):
     """Seeded ray weights uniform in [0.5, 1.5], normalized to sum 1."""
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    w = torch.empty(n, dtype=torch.float64, device="cuda")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    w = torch.empty(n, dtype=torch.float64, device=DEVICE)
     w.uniform_(.5, 1.5, generator=gen)
     return (w/w.sum()).to(dtype)
 
 
 def rms_cotangent(mom):
-    """d spot_rms / d (the five weighted moments), in mom's dtype."""
+    """d spot_rms / d (the five weighted moments), in mom's dtype; for
+    (nlam, 5) moments d union_spot_rms / d moments."""
+    from rayopt_tpu_torch.ops.cuda_grad import union_spot_rms_from_moments
     from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
     m = mom.detach().double().requires_grad_()
-    spot_rms_from_moments(*m).backward()
-    return m.grad.to(mom.dtype)
+    (union_spot_rms_from_moments(m) if m.dim() == 2
+     else spot_rms_from_moments(*m)).backward()
+    return m.grad.to(mom.dtype).contiguous()
 
 
 def compare_wmoments(got, want, dtype):
@@ -390,7 +405,8 @@ def phase_main_path():
         % N_AIMED)
     t0 = time.perf_counter()
     s = double_gauss()
-    table = s.table()
+    table = s.table()                    # the default device: the card
+    table_cpu = s.table(device="cpu")    # the CPU reference
     specs = specialize(table)
     log("System: EFL %.8f, %d surfaces, %.2f s"
         % (s.paraxial.focal_length[1], len(s), time.perf_counter() - t0))
@@ -404,8 +420,8 @@ def phase_main_path():
         yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
         y0, u0 = s.aim((0., field), yp, z, p, filter=False)
         t_aim = time.perf_counter() - t0
-        yc = torch.from_numpy(y0).cuda()
-        uc = torch.from_numpy(u0).cuda()
+        yc = torch.from_numpy(y0).to(DEVICE)
+        uc = torch.from_numpy(u0).to(DEVICE)
         t0 = time.perf_counter()
         y64, u64, _ = trace_rays_final_fast(table, yc, uc, clip=False,
                                             specs=specs,
@@ -423,11 +439,11 @@ def phase_main_path():
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         t0 = time.perf_counter()
-        yh, uh, _ = trace_rays_final_fast(table, torch.from_numpy(y0),
+        yh, uh, _ = trace_rays_final_fast(table_cpu, torch.from_numpy(y0),
                                           torch.from_numpy(u0), clip=False)
         rms_cpu, live_cpu = spot_rms(yh, uh)
-        mom_cpu = trace_merit(table, specs, tuple(c.cpu() for c in state64),
-                              clip=False)
+        mom_cpu = trace_merit(table_cpu, specs,
+                              tuple(c.cpu() for c in state64), clip=False)
         t_cpu = time.perf_counter() - t0
         rel1 = abs(rms_k1 - rms_cpu)/rms_cpu
         mom_ok, mom_rel, _ = compare_moments(mom64, mom_cpu, torch.float64,
@@ -467,8 +483,7 @@ def phase_opt_path():
                                  len(s.wavelengths), bundles[0][0].shape[0],
                                  sum(b[0].shape[0] for b in bundles),
                                  time.perf_counter() - t0))
-    table = s.table()
-    on_card = bundles_to(bundles, "cuda")
+    table = s.table()        # the bundles and the table: the default device
     grads, ends = {}, []
 
     def keep(tag):
@@ -480,7 +495,7 @@ def phase_opt_path():
         return callback
     reset_launches()
     t0 = time.perf_counter()
-    tab_opt, hist = optimize_grad(table, on_card, select=OPT_SELECT,
+    tab_opt, hist = optimize_grad(table, bundles, select=OPT_SELECT,
                                   steps=OPT_STEPS, lr=OPT_LR,
                                   engine="adjoint", callback=keep("card"))
     torch.cuda.synchronize()
@@ -488,9 +503,10 @@ def phase_opt_path():
     steps = np.diff([t0] + ends[:OPT_STEPS])
     launches = read_launches()
     t0 = time.perf_counter()
-    _, hist_cpu = optimize_grad(table, bundles, select=OPT_SELECT, steps=1,
-                                lr=OPT_LR, engine="adjoint",
-                                callback=keep("cpu"))
+    _, hist_cpu = optimize_grad(s.table(device="cpu"),
+                                bundles_to(bundles, "cpu"),
+                                select=OPT_SELECT, steps=1, lr=OPT_LR,
+                                engine="adjoint", callback=keep("cpu"))
     t_cpu = time.perf_counter() - t0
     merit_rel = abs(hist[0] - hist_cpu[0])/abs(hist_cpu[0])
     grad_rel = {k: float((grads["card"][k] - grads["cpu"][k]).abs().max()
@@ -524,10 +540,289 @@ def phase_opt_path():
     return launches
 
 
+def phase_multi_check(tabs, specs):
+    """K3, K6 and K7 against their plain versions on the card."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        weighted_moments_multi, weighted_moments_multi_reference,
+        merit_adjoint_multi, merit_adjoint_multi_reference,
+        union_spot_rms_from_moments)
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        trace_multi, trace_multi_reference, spot_rms_from_moments)
+    nlam = tabs.curvature.shape[0]
+    log("== K3/K6/K7 vs plain on the card (double Gauss, %d wavelengths, "
+        "%d bench rays, weights uniform in [0.5, 1.5])" % (nlam, N_CHECK))
+    worst = {"trace_multi": 0., "weighted_moments_multi": 0.,
+             "merit_adjoint_multi": 0.}
+    failures = []
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        dt = str(dtype)[6:]
+        state = bench_bundle(N_CHECK, dtype, SEED)
+        w = bench_weights(N_CHECK, dtype, SEED + 2)
+        got = trace_multi(tabs, specs, state)
+        want = trace_multi_reference(tabs, specs, state)
+        mom = trace_multi(tabs, specs, state, merit=True)
+        mref = trace_multi_reference(tabs, specs, state, merit=True)
+        torch.cuda.synchronize()
+        for li in range(nlam):
+            ok, err, rel, masks = compare_final((*got[li][0], got[li][1]),
+                                                (*want[li][0], want[li][1]),
+                                                dtype)
+            ok = ok and masks == 0
+            mok, mrel, dcount = compare_moments(mom[li], mref[li], dtype,
+                                                N_CHECK)
+            log("K3 %s wavelength %d: trace max abs err %.3e, max rel err "
+                "%.3e, NaN masks differ on %d rays; moments rel err %.3e, "
+                "count diff %d, spot RMS kernel %.12g plain %.12g -> %s"
+                % (dt, li, err, rel, masks, mrel, dcount,
+                   float(spot_rms_from_moments(*mom[li])),
+                   float(spot_rms_from_moments(*mref[li])),
+                   "ok" if ok and mok else "FAIL"))
+            if not (ok and mok):
+                failures.append("K3 %s wavelength %d" % (dt, li))
+            if not f64:
+                worst["trace_multi"] = max(worst["trace_multi"], err)
+        for clip in (False, True):
+            tag = "%s clip=%s" % (dt, clip)
+            if clip:
+                # widen the bundle 1.5x so that the apertures vignette
+                state = tuple(c*1.5 if i < 2 else c
+                              for i, c in enumerate(state))
+            mom = weighted_moments_multi(tabs, specs, state, w, clip)
+            mref = weighted_moments_multi_reference(tabs, specs, state, w,
+                                                    clip)
+            rels = [compare_wmoments(mom[li], mref[li], dtype)
+                    for li in range(nlam)]
+            ug = float(union_spot_rms_from_moments(mom))
+            uw = float(union_spot_rms_from_moments(mref))
+            ok = (all(r[0] for r in rels)
+                  and abs(ug - uw) <= (1e-10 if f64 else 1e-4)*uw)
+            log("K6 %s: moments rel err %s, union spot RMS kernel %.12g "
+                "plain %.12g (rel %.2e) -> %s"
+                % (tag, " ".join("%.3e" % r[1] for r in rels), ug, uw,
+                   abs(ug - uw)/uw, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("K6 " + tag)
+            ct = rms_cotangent(mref)
+            pg, cst, cw = merit_adjoint_multi(tabs, specs, state, w, ct, clip)
+            pr, sr, wr = merit_adjoint_multi_reference(tabs, specs, state, w,
+                                                       ct, clip)
+            torch.cuda.synchronize()
+            lim = GRAD_F64_REL if f64 else GRAD_F32_REL
+            per_lam = [compare_param_grads(pg[li], pr[li], lim)
+                       for li in range(nlam)]
+            ray_rel, masks, finite = compare_ray_grads(cst, cw, sr, wr)
+            live = weighted_moments_multi_reference(
+                tabs, specs, state, torch.ones_like(w), clip)[:, 0]
+            dead = [N_CHECK - int(v) for v in live.tolist()]
+            ok = (all(v[2] for f in per_lam for v in f.values()) and finite
+                  and bool(torch.isfinite(pg).all()) and not pg[:, 0].any()
+                  and ray_rel <= (GRAD_F64_REL if f64 else F32_RAY_REL)
+                  and masks <= (0 if f64 else F32_NAN_FRAC*N_CHECK)
+                  and (sum(dead) > 0) == clip)
+            log("K7 %s: %s | rays and weights rel err %.3e, live masks "
+                "differ on %d rays, dead rays per wavelength %s, all finite "
+                "%s -> %s"
+                % (tag, " | ".join(
+                    "wavelength %d: %s" % (li, "; ".join(
+                        "%s err %.3e of max %.3e" % (k, *v[:2])
+                        for k, v in f.items()))
+                    for li, f in enumerate(per_lam)),
+                   ray_rel, masks, dead, finite, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("K7 " + tag)
+            if not f64:
+                worst["weighted_moments_multi"] = max(
+                    worst["weighted_moments_multi"], abs(ug - uw))
+                worst["merit_adjoint_multi"] = max(
+                    worst["merit_adjoint_multi"],
+                    *(v[0] for f in per_lam for v in f.values()))
+    if failures:
+        raise AssertionError("kernel disagrees with its plain version: "
+                             + ", ".join(failures))
+    return worst
+
+
+def phase_glass_fd_check(s, tabs, specs):
+    """K7's float64 gradient w.r.t. one glass slot's vd, through
+    glass_tables' Abbe model, against central differences of the K6
+    merit."""
+    from rayopt_tpu_torch import glass
+    asg = glass.glass_assignment(s)
+    nd0, vd0 = glass.initial_glass_params(s, asg[2])
+    log("== K7 vs central differences of the K6 merit w.r.t. vd (float64, "
+        "%d bench rays, no clip; step %g)" % (N_CHECK, FD_VD_STEP))
+    state = bench_bundle(N_CHECK, torch.float64, SEED)
+    w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+    y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+    nd = torch.tensor(nd0, device=DEVICE)
+
+    def merit(vd):
+        return glass.polychromatic_spot_rms(
+            glass.glass_tables(tabs, nd, vd, asg, s.wavelengths), y0, u0, w,
+            specs=specs, engine="adjoint")
+    vd = torch.tensor(vd0, device=DEVICE, requires_grad=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # mu of air/air rows: baked out
+        merit(vd).backward()
+    g = vd.grad.cpu()
+    j = int(torch.argmax(g.abs()))
+    side = []
+    with torch.no_grad():
+        for sgn in (1., -1.):
+            v = torch.tensor(vd0, device=DEVICE)
+            v[j] += sgn*FD_VD_STEP
+            side.append(float(merit(v)))
+    fd = (side[0] - side[1])/(2*FD_VD_STEP)
+    rel = abs(float(g[j]) - fd)/abs(fd)
+    log("vd of slot %d (element %d, vd %.4f): K7 %.12g, central difference "
+        "%.12g, rel %.2e -> %s" % (j, asg[2][j], vd0[j], float(g[j]), fd, rel,
+                                   "ok" if rel <= FD_REL else "FAIL"))
+    if not rel <= FD_REL:
+        raise AssertionError("K7 disagrees with finite differences of vd")
+
+
+def phase_glass_path():
+    """The achromatization path, through the entry points a user calls:
+    stacked tables, glass relaxation, the polychromatic adjoint merit at
+    three fields and torch.optim.Adam, with K3 reporting the spots."""
+    from rayopt_tpu_torch import glass
+    from rayopt_tpu_torch.models import double_gauss
+    from rayopt_tpu_torch.ops.cuda_grad import union_spot_rms_from_moments
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        multi_specs, spot_rms_from_moments, trace_multi)
+    from rayopt_tpu_torch.parallel import bundles_from_system, bundles_to
+    log("== achromatization path: double Gauss, System.tables -> "
+        "glass_assignment -> glass_tables(glass_box_decode(logits)) -> "
+        "glass.polychromatic_spot_rms(engine='adjoint') at fields %s, "
+        "float64, %d Adam steps, lr %s" % (FIELDS, GLASS_STEPS, GLASS_LR))
+    t0 = time.perf_counter()
+    s = double_gauss()
+    tabs = s.tables()            # the default device: the card
+    nlam = tabs.curvature.shape[0]
+    specs = multi_specs(tabs, None)
+    asg = glass.glass_assignment(s)
+    nd0, vd0 = glass.initial_glass_params(s, asg[2])
+    log("%d wavelengths %s; %d glass slots owned by elements %s: nd %s, "
+        "vd %s" % (nlam, s.wavelengths, len(asg[2]), asg[2],
+                   np.round(nd0, 6).tolist(), np.round(vd0, 4).tolist()))
+    if len(asg[2]) != 6:
+        raise AssertionError("expected 6 glass slots, got %s" % (asg[2],))
+    bundles = bundles_from_system(s, fields=FIELDS,
+                                  wavelengths=[s.wavelengths[0]],
+                                  nrays=N_GLASS, distribution="hexapolar")
+    log("bundles: distribution hexapolar, nrays %d -> %s rays at fields %s,"
+        " aimed at %g m in %.2f s" % (N_GLASS, [b[0].shape[0] for b in
+                                                  bundles], FIELDS,
+                                      s.wavelengths[0],
+                                      time.perf_counter() - t0))
+    # distance is optimized, the trace reads offset = unit * distance
+    # (as parallel.grad.optimize_grad ties them)
+    off0 = tabs.offset[0].detach().cpu().double().numpy()
+    d0 = tabs.distance[0].detach().cpu().double().numpy()
+    unit = torch.from_numpy(np.divide(
+        off0, d0[:, None], where=d0[:, None] != 0,
+        out=np.tile(np.array([0., 0., 1.]), (off0.shape[0], 1))))
+    xi_nd0, xi_vd0 = glass.glass_box_encode(nd0, vd0)
+
+    def start(device):
+        return {"curvature": tabs.curvature[0].detach().to(device).clone(),
+                "distance": torch.from_numpy(d0).to(device).clone(),
+                "xi_nd": torch.from_numpy(xi_nd0).to(device).clone(),
+                "xi_vd": torch.from_numpy(xi_vd0).to(device).clone()}
+
+    def relaxed(params, tables):
+        u = unit.to(params["distance"].device)
+        tb = tables.replace(
+            curvature=params["curvature"].expand(nlam, -1),
+            offset=(u*params["distance"][:, None]).expand(nlam, -1, -1))
+        nd, vd = glass.glass_box_decode(params["xi_nd"], params["xi_vd"])
+        return glass.glass_tables(tb, nd, vd, asg, s.wavelengths)
+
+    def merit(params, tables, bundles):
+        tb = relaxed(params, tables)
+        return sum(glass.polychromatic_spot_rms(tb, y0, u0, w, specs=specs,
+                                                engine="adjoint")
+                   for y0, u0, w, _ in bundles)
+
+    def report(params, when):
+        with torch.no_grad():
+            tb = relaxed(params, tabs)
+            for field, (y0, u0, _, _) in zip(FIELDS, bundles):
+                state = tuple(c.contiguous() for c in (*y0.T, *u0.T))
+                mom = trace_multi(tb, specs, state, merit=True)
+                per = [float(spot_rms_from_moments(*m)) for m in mom]
+                union = float(union_spot_rms_from_moments(
+                    torch.stack([torch.stack(m) for m in mom])))
+                log("K3 %s, field %.1f: spot RMS mm per wavelength %s, union "
+                    "%.9g, live rays %s" % (when, field, " ".join(
+                        "%.9g" % v for v in per), union,
+                        [int(m[0]) for m in mom]))
+            nd, vd = glass.glass_box_decode(params["xi_nd"],
+                                            params["xi_vd"])
+            log("relaxed glasses %s: nd %s, vd %s"
+                % (when, np.round(nd.cpu().numpy(), 6).tolist(),
+                   np.round(vd.cpu().numpy(), 4).tolist()))
+
+    params = {k: v.requires_grad_() for k, v in start(DEVICE).items()}
+    report(params, "before")
+    opt = torch.optim.Adam([
+        {"params": [params["curvature"]], "lr": GLASS_LR["curvature"]},
+        {"params": [params["distance"]], "lr": GLASS_LR["distance"]},
+        {"params": [params["xi_nd"], params["xi_vd"]],
+         "lr": GLASS_LR["glass"]}])
+    hist, grads0, ends = [], None, []
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        # flat rows bake out their curvature, air/air rows their mu
+        warnings.simplefilter("ignore")
+        for i in range(GLASS_STEPS):
+            opt.zero_grad()
+            value = merit(params, tabs, bundles)
+            value.backward()
+            if i == 0:
+                grads0 = {k: v.grad.detach().cpu().clone()
+                          for k, v in params.items()}
+            opt.step()
+            hist.append(float(value.detach()))
+            ends.append(time.perf_counter())
+        steps = np.diff([t0] + ends)
+        t0 = time.perf_counter()
+        cpu = {k: v.requires_grad_() for k, v in start("cpu").items()}
+        value = merit(cpu, s.tables(device="cpu"), bundles_to(bundles, "cpu"))
+        value.backward()
+        value = float(value.detach())
+        t_cpu = time.perf_counter() - t0
+    report(params, "after")
+    merit_rel = abs(hist[0] - value)/abs(value)
+    grad_rel = {k: float((grads0[k] - v.grad).abs().max()
+                         / v.grad.abs().max()) for k, v in cpu.items()}
+    log("merit history (sum of %d union spot RMS, mm): %s"
+        % (len(bundles), " ".join("%.12g" % v for v in hist)))
+    log("step 0 card vs CPU plain: merit %.15g vs %.15g (rel %.2e), "
+        "gradient rel to its max %s | card: step 0 %.3f s, later steps mean "
+        "%.4f s | CPU %.2f s for 1 merit and gradient"
+        % (hist[0], value, merit_rel,
+           {k: "%.2e" % v for k, v in grad_rel.items()}, steps[0],
+           steps[1:].mean(), t_cpu))
+    failures = []
+    if not hist[-1] < hist[0]:
+        failures.append("the merit did not fall")
+    if not merit_rel <= OPT_MERIT_REL:
+        failures.append("step 0 merit")
+    failures += ["step 0 gradient of " + k for k, v in grad_rel.items()
+                 if not v <= OPT_GRAD_REL]
+    if failures:
+        raise AssertionError("achromatization path failed: "
+                             + ", ".join(failures))
+
+
 def _wrappers():
     from rayopt_tpu_torch.ops import cuda_grad, cuda_trace
     return (cuda_trace.trace_final, cuda_trace.trace_merit,
-            cuda_grad.weighted_moments, cuda_grad.merit_adjoint)
+            cuda_grad.weighted_moments, cuda_grad.merit_adjoint,
+            cuda_trace.trace_multi, cuda_grad.weighted_moments_multi,
+            cuda_grad.merit_adjoint_multi)
 
 
 def reset_launches():
@@ -651,49 +946,223 @@ def phase_grad_throughput(table, specs, card):
     return times
 
 
+def phase_multi_throughput(tabs, specs, card):
+    """K3 (merit), K6 and K7 against their plain versions and against
+    nlam launches of their monochromatic twins (K2, K4, K5) on the same
+    bundle; then the three alone at N_BENCH rays in float32."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_multi, merit_adjoint_multi_reference,
+        weighted_moments, weighted_moments_multi,
+        weighted_moments_multi_reference)
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        trace_merit, trace_multi, trace_multi_reference)
+    from rayopt_tpu_torch.ops.tables import table_at
+    nlam = tabs.curvature.shape[0]
+    one = [table_at(tabs, li) for li in range(nlam)]
+    log("== K3/K6/K7 throughput: %d bench rays x %d wavelengths against the "
+        "plain versions and %d launches of the monochromatic twin, then %d "
+        "rays kernel alone (%s)" % (N_GRAD_TIME, nlam, nlam, N_BENCH, card))
+
+    def cases(state, w, ct):
+        return (
+            ("trace_multi",
+             lambda: trace_multi(tabs, specs, state, merit=True),
+             lambda: trace_multi_reference(tabs, specs, state, merit=True),
+             lambda: [trace_merit(t, specs, state) for t in one]),
+            ("weighted_moments_multi",
+             lambda: weighted_moments_multi(tabs, specs, state, w),
+             lambda: weighted_moments_multi_reference(tabs, specs, state, w),
+             lambda: [weighted_moments(t, specs, state, w) for t in one]),
+            ("merit_adjoint_multi",
+             lambda: merit_adjoint_multi(tabs, specs, state, w, ct),
+             lambda: merit_adjoint_multi_reference(tabs, specs, state, w,
+                                                   ct),
+             lambda: [merit_adjoint(t, specs, state, w, ct[li])
+                      for li, t in enumerate(one)]))
+    times, live = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        state = bench_bundle(N_GRAD_TIME, dtype, SEED + 1)
+        w = bench_weights(N_GRAD_TIME, dtype, SEED + 3)
+        ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
+        live[dtype] = sum(float(m[0]) for m in trace_multi(
+            tabs, specs, state, merit=True))
+        for name, kernel, plain, twin in cases(state, w, ct):
+            # in turns: plain, kernel, twin, kernel, twin, plain
+            p1 = cuda_ms(plain, 3)
+            k1 = cuda_ms(kernel, 20)
+            t1 = cuda_ms(twin, 20)
+            k2 = cuda_ms(kernel, 20)
+            t2 = cuda_ms(twin, 20)
+            p2 = cuda_ms(plain, 3)
+            k, p, t = (k1 + k2)/2, (p1 + p2)/2, (t1 + t2)/2
+            mem_k, mem_p = peak_gib(kernel), peak_gib(plain)
+            times[(name, dtype)] = (k, p, t)
+            log("%s %s: kernel %.4f ms (%.4f, %.4f), %d twin launches %.4f "
+                "ms (%.4f, %.4f), plain %.4f ms (%.4f, %.4f) | twins/kernel "
+                "%.2fx, plain/kernel %.2fx | peak memory %.3f vs %.3f GiB | "
+                "%s" % (name, str(dtype)[6:], k, k1, k2, nlam, t, t1, t2, p,
+                        p1, p2, t/k, p/k, mem_k, mem_p, card))
+        del state, w
+        torch.cuda.empty_cache()
+    state = bench_bundle(N_BENCH, torch.float32, SEED + 1)
+    w = bench_weights(N_BENCH, torch.float32, SEED + 3)
+    ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
+    live[N_BENCH] = sum(float(m[0]) for m in trace_multi(
+        tabs, specs, state, merit=True))
+    for name, kernel, _, twin in cases(state, w, ct):
+        k1 = cuda_ms(kernel, 10)
+        t1 = cuda_ms(twin, 10)
+        k2 = cuda_ms(kernel, 10)
+        t2 = cuda_ms(twin, 10)
+        k, t = (k1 + k2)/2, (t1 + t2)/2
+        times[(name, N_BENCH)] = k
+        times[(name, N_BENCH, "twin")] = t
+        log("%s float32 at %d rays x %d wavelengths: kernel %.4f ms (%.4f, "
+            "%.4f), %d twin launches %.4f ms (%.4f, %.4f), twins/kernel "
+            "%.2fx, peak memory %.3f GiB | plain: not run (memory) | %s"
+            % (name, N_BENCH, nlam, k, k1, k2, nlam, t, t1, t2, t/k,
+               peak_gib(kernel), card))
+    del state, w
+    torch.cuda.empty_cache()
+    return times, live
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
+# bytes/s, and flop/s outside the tensor cores by dtype
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def row_flops(spec):
+    """Arithmetic operations (one per add, multiply, divide or square
+    root) of one surface_step (csrc/trace_common.cuh) for a row of this
+    spec."""
+    f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0)
+    if spec.flat:
+        f += 2
+    elif spec.spherical:
+        f += 23
+    else:
+        f += 31
+    f += 8                                    # transfer and optical path
+    if spec.kind:
+        f += 13 if spec.flat else (27 if spec.spherical else 37)
+    return f
+
+
+def chain_flops(specs):
+    """Operations of one ray through the whole chain (trace_ray)."""
+    return (sum(row_flops(sp) for sp in specs[1:])
+            + 30*(int(specs[0].rotated) + int(specs[-1].rotated)))
+
+
+def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
+    """(bound_ms, bound_by) of one launch at n rays: the larger of the
+    bytes it must move (each input read once, each output written once)
+    over the HBM rate and its operations over the dtype's peak.  The
+    reverse sweeps of K5/K7 run only for live rays (`live`: live ray
+    traces, summed over wavelengths) and are counted as 3x the forward
+    chain (PERF.md's estimate for the adjoint) plus the seeding."""
+    word = 4 if dtype == torch.float32 else 8
+    chain = chain_flops(specs)
+    words_in, words_out, flops = {
+        "trace_final": (6, 7, n*chain),
+        "trace_merit": (6, 0, n*(chain + 7)),
+        "trace_multi": (6, 0, n*nlam*(chain + 7)),
+        "weighted_moments": (7, 0, n*(chain + 11)),
+        "weighted_moments_multi": (7, 0, n*nlam*(chain + 11)),
+        "merit_adjoint": (7, 7, n*chain + live*(3*chain + 11)),
+        "merit_adjoint_multi": (7, 7, n*nlam*chain + live*(3*chain + 11)),
+    }[name]
+    nbytes = (n*(words_in + words_out) + nlam*len(specs)*17)*word \
+        + 4*len(specs)
+    t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops)*1e3, ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+
 def main():
     name, card = phase_card()
     phase_build()
     from rayopt_tpu_torch.models import double_gauss
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs, trace_merit
     from rayopt_tpu_torch.ops.kernels import specialize
-    table = double_gauss().table()
+    s = double_gauss()
+    table = s.table()           # the default device: the card
     specs = specialize(table)   # from the float64 table
+    tabs = s.tables()           # 3 wavelengths
+    mspecs = multi_specs(tabs, None)
     worst = phase_check(table, specs)
     worst.update(phase_grad_check(table, specs))
     phase_fd_check(table, specs)
+    worst.update(phase_multi_check(tabs, mspecs))
+    phase_glass_fd_check(s, tabs, mspecs)
     reset_launches()
     phase_main_path()
     launches = read_launches()
-    log("== launch counts on the main path: %s" % launches)
+    log("== launch counts on the forward main path: %s" % launches)
     if not (launches["trace_final"] and launches["trace_merit"]):
         raise AssertionError("a kernel of the main path never launched: "
                              "%s" % launches)
     launches.update({k: v for k, v in phase_opt_path().items()
                      if k in ("weighted_moments", "merit_adjoint")})
+    reset_launches()
+    phase_glass_path()
+    glass_launches = read_launches()
+    log("== launch counts on the achromatization path: %s" % glass_launches)
+    multi = ("trace_multi", "weighted_moments_multi", "merit_adjoint_multi")
+    if not all(glass_launches[k] for k in multi):
+        raise AssertionError("a kernel of the achromatization path never "
+                             "launched: %s" % glass_launches)
+    launches.update({k: glass_launches[k] for k in multi})
     times = phase_throughput(table, specs, card)
     gtimes = phase_grad_throughput(table, specs, card)
-    sources = {"trace_final": ("rayopt_tpu_torch/csrc/trace.cu",
-                               "rayopt_tpu/ops/pallas_trace.py:82"),
-               "trace_merit": ("rayopt_tpu_torch/csrc/trace.cu",
-                               "rayopt_tpu/ops/pallas_trace.py:170"),
-               "weighted_moments": ("rayopt_tpu_torch/csrc/grad.cu",
-                                    "rayopt_tpu/ops/pallas_grad.py:236"),
-               "merit_adjoint": ("rayopt_tpu_torch/csrc/grad.cu",
-                                 "rayopt_tpu/ops/pallas_grad.py:395")}
+    mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
+    # live rays of the K5 timing bundle (its reverse runs for these only)
+    live_mono = float(trace_merit(table, specs, bench_bundle(
+        N_GRAD_TIME, torch.float32, SEED + 1))[0])
+    trace_cu, grad_cu = ("rayopt_tpu_torch/csrc/trace.cu",
+                         "rayopt_tpu_torch/csrc/grad.cu")
+    sources = {
+        "trace_final": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:82"),
+        "trace_merit": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:170"),
+        "weighted_moments": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:236"),
+        "merit_adjoint": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:395"),
+        "trace_multi": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:284"),
+        "weighted_moments_multi": (grad_cu,
+                                   "rayopt_tpu/ops/pallas_grad.py:248"),
+        "merit_adjoint_multi": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:421")}
+    nlam = tabs.curvature.shape[0]
     kernels = []
     for kname, (source, replaces) in sources.items():
-        grad = kname in ("weighted_moments", "merit_adjoint")
-        tt = gtimes if grad else times
-        k32, p32 = tt[(kname, torch.float32)]
-        k64, p64 = tt[(kname, torch.float64)]
+        if kname in multi:
+            tt, rays, lam, live = mtimes, N_GRAD_TIME, nlam, \
+                mlive[torch.float32]
+        elif kname in ("weighted_moments", "merit_adjoint"):
+            tt, rays, lam, live = gtimes, N_GRAD_TIME, 1, live_mono
+        else:
+            tt, rays, lam, live = times, N_BENCH, 1, 0
+        k32, p32 = tt[(kname, torch.float32)][:2]
+        k64, p64 = tt[(kname, torch.float64)][:2]
+        bound_ms, bound_by = kernel_bound(kname, rays, torch.float32,
+                                          mspecs if lam > 1 else specs, lam,
+                                          live)
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
             "max_abs_err": worst[kname], "ms": k32, "plain_ms": p32,
-            "ms_f64": k64, "plain_ms_f64": p64,
-            "rays": N_GRAD_TIME if grad else N_BENCH}
-        if grad:
-            entry["ms_f32_%d_rays" % N_BENCH] = gtimes[(kname, N_BENCH)]
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call computes a ray trace
+            "library_ms": None,
+            "ms_f64": k64, "plain_ms_f64": p64, "rays": rays,
+            "wavelengths": lam}
+        if kname in multi:
+            entry["twin_ms"] = tt[(kname, torch.float32)][2]
+            entry["twin_ms_f64"] = tt[(kname, torch.float64)][2]
+            entry["twin_ms_f32_%d_rays" % N_BENCH] = tt[(kname, N_BENCH,
+                                                         "twin")]
+        if tt is not times:
+            entry["ms_f32_%d_rays" % N_BENCH] = tt[(kname, N_BENCH)]
         kernels.append(entry)
     log(card)
     print(json.dumps({"kernels": kernels}))

@@ -15,11 +15,22 @@ differentiable paraxial engine (ops.paraxial), the differentiable
 spot-RMS merit with its weighted-moment (K4) and analytic-adjoint (K5)
 kernels (ops.cuda_grad), and the lens optimizer (parallel.grad:
 spot_rms, bundles_from_system, optimize_grad with engines "xla" and
-"adjoint", optimize_system).
+"adjoint", optimize_system); the polychromatic slice: stacked
+per-wavelength and per-configuration tables (System.tables,
+System.config_tables), the batched trace (ops.geometric.
+trace_rays_final_multi), the stacked-wavelength trace (K3,
+ops.cuda_trace.trace_multi), weighted moments (K6) and analytic
+adjoint (K7, ops.cuda_grad.polychromatic_spot_rms), and the glass
+relaxation (glass: glass_assignment, glass_tables,
+polychromatic_spot_rms, the glass box).
 
-Tables and traces default to float64 on the CPU; move a bundle to a
-CUDA device to run the kernels.
+Tables and bundles default to float64 on the CUDA card
+(`default_device()`), whatever the machine has; a machine without one
+asks for the CPU with `set_default_device("cpu")` (or `device="cpu"`),
+where every kernel wrapper runs its plain PyTorch version.
 """
+
+from .device import default_device, set_default_device  # noqa: F401
 
 from .utils.math import (  # noqa: F401
     sinarctan, tanarcsin, norm, normalize, normalize_z,
@@ -49,5 +60,7 @@ from .formats import (  # noqa: F401
     system_from_yaml, system_to_yaml, system_from_json, system_to_json,
     system_from_array, system_from_text,
 )
+
+from . import glass  # noqa: F401,E402
 
 __version__ = "0.1.0"

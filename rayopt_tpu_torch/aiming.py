@@ -117,7 +117,8 @@ class AimingMixin:
         last = self.stop if stop in (-1, None) else stop
         rad = self.aperture.radius
         assert rad
-        table = self.table(l)
+        # host root iteration around few-ray CPU traces
+        table = self.table(l, device="cpu")
         field = np.asarray(yo)
 
         @_single_eval_cache
@@ -155,7 +156,8 @@ class AimingMixin:
         elif stop is None:
             stop = self.stop + 1
         r2 = np.array([e.radius for e in self[1:stop]]) ** 2
-        table = self.table(l)
+        # host root iteration around few-ray CPU traces
+        table = self.table(l, device="cpu")
 
         @_single_eval_cache
         def edge_clearance(a):

@@ -1,13 +1,17 @@
 // Differentiable spot-RMS merit for NVIDIA Hopper (sm_90a), templated on
 // float and double: the weighted-moment forward (K4) and its analytic
-// adjoint (K5).
+// adjoint (K5), and their polychromatic twins over a wavelength stack
+// of tables (K6, K7).
 //
 // Replaces the JAX package's Pallas TPU kernels
-//   K4  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel     (_moments_impl)
-//   K5  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel (_moments_bwd)
-// The plain versions, and a torch model of K5's reverse written line for
-// line (_step_vjp_reference, _merit_adjoint_by_hand), live beside the
-// wrappers in rayopt_tpu_torch/ops/cuda_grad.py.
+//   K4  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel           (_moments_impl)
+//   K5  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel       (_moments_bwd)
+//   K6  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel_multi     (_moments_multi_impl)
+//   K7  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel_multi (_moments_multi_bwd)
+// The plain versions, and a torch model of K5's and K7's reverse written
+// line for line (_step_vjp_reference, _merit_adjoint_by_hand,
+// _merit_adjoint_multi_by_hand), live beside the wrappers in
+// rayopt_tpu_torch/ops/cuda_grad.py.
 //
 // What bounds them on the H100.  K4 is K2 with one more input stream
 // (the weight): 7 words read a ray, nothing written, bound by instruction
@@ -36,6 +40,19 @@
 //    given grid.
 //  * The moment cotangents arrive as a device (5,) tensor: no host sync.
 //  * IEEE division and square root, no fast math.
+//
+// K6 and K7 read each ray (and its weight) once into registers and run
+// K4's / K5's chain once per table of the stack (all staged together in
+// shared memory, sharing the first wavelength's flags).  K6 keeps each
+// thread's per-wavelength moments in its own shared-memory column and
+// writes (grid, nlam, 5) partials.  K7 reuses one saved-state array for
+// every wavelength (the states die after each chain's reverse sweep, as
+// on the TPU), judges a ray dead or live per wavelength, sums its seven
+// ray and weight cotangents over the wavelengths in registers and
+// writes them once, and keeps the parameter cotangents per wavelength:
+// (grid, nlam * rows * 6) partials from per-warp rows of dynamic shared
+// memory.  The rays are read once for all wavelengths, but the chains,
+// which bound K4/K5 on this card, run nlam times: expect ~nlam x K4/K5.
 //
 // Interface: plain extern "C" launchers, loaded with ctypes; each
 // launches on the given stream, synchronises nothing, allocates
@@ -289,17 +306,7 @@ __global__ void weighted_moments_kernel(
   }
   // block tree reduction (blockDim.x is a power of two)
   for (int q = 0; q < 5; ++q) s_red[q * blockDim.x + threadIdx.x] = m[q];
-  __syncthreads();
-  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h)
-      for (int q = 0; q < 5; ++q)
-        s_red[q * blockDim.x + threadIdx.x] +=
-            s_red[q * blockDim.x + threadIdx.x + h];
-    __syncthreads();
-  }
-  if (threadIdx.x < 5)
-    partials[int64_t(blockIdx.x) * 5 + threadIdx.x] =
-        s_red[threadIdx.x * blockDim.x];
+  block_sum_rows(s_red, 5, partials + int64_t(blockIdx.x) * 5);
 }
 
 // K5: the analytic adjoint of K4's moments dotted with ct (5 values).
@@ -403,6 +410,160 @@ __global__ void __launch_bounds__(MAX_BLOCK) merit_adjoint_kernel(
   }
 }
 
+// K6: K4's weighted moments for each table of an nlam stack, one ray
+// read once; partials[(blockIdx.x * nlam + l) * 5 + q].
+template <typename T>
+__global__ void weighted_moments_multi_kernel(
+    const T* __restrict__ table, const int* __restrict__ flags, int nsurf,
+    int nlam, int clip, const T* __restrict__ ix, const T* __restrict__ iy,
+    const T* __restrict__ iz, const T* __restrict__ iux,
+    const T* __restrict__ iuy, const T* __restrict__ iuz,
+    const T* __restrict__ w, T* __restrict__ partials, int64_t n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = blockDim.x;
+  T* s_tab = reinterpret_cast<T*>(smem);
+  T* s_red = s_tab + nlam * nsurf * ROW;          // 5 * nlam * nb
+  int* s_flags = reinterpret_cast<int*>(s_red + 5 * nlam * nb);
+  for (int r = 0; r < 5 * nlam; ++r) s_red[r * nb + threadIdx.x] = T(0);
+  stage_table(table, flags, nsurf, s_tab, s_flags, nlam);
+  const int64_t stride = int64_t(gridDim.x) * nb;
+  for (int64_t i = int64_t(blockIdx.x) * nb + threadIdx.x; i < n;
+       i += stride) {
+    const T x0 = ix[i], y0 = iy[i], z0 = iz[i];
+    const T ux0 = iux[i], uy0 = iuy[i], uz0 = iuz[i];
+    const T wi = w[i];
+    for (int l = 0; l < nlam; ++l) {
+      T x = x0, y = y0, z = z0, ux = ux0, uy = uy0, uz = uz0, tacc;
+      trace_ray(s_tab + l * nsurf * ROW, s_flags, nsurf, clip != 0, x, y, z,
+                ux, uy, uz, tacc);
+      if (isfinite(x) && isfinite(y) && isfinite(uz)) {
+        T* m = s_red + 5 * l * nb + threadIdx.x;
+        m[0] += wi;
+        m[nb] += wi * x;
+        m[2 * nb] += wi * y;
+        m[3 * nb] += wi * x * x;
+        m[4 * nb] += wi * y * y;
+      }
+    }
+  }
+  block_sum_rows(s_red, 5 * nlam, partials + int64_t(blockIdx.x) * 5 * nlam);
+}
+
+// K7: K5 for each table of an nlam stack.  ct holds nlam rows of the
+// five moment cotangents.  The ray and weight cotangents are summed over
+// the wavelengths; the parameter cotangents stay per wavelength:
+// partials[blockIdx.x * nlam * nsurf * SLOTS + (l * nsurf + j) * SLOTS + q].
+template <typename T>
+__global__ void __launch_bounds__(MAX_BLOCK) merit_adjoint_multi_kernel(
+    const T* __restrict__ table, const int* __restrict__ flags, int nsurf,
+    int nlam, int clip, const T* __restrict__ ix, const T* __restrict__ iy,
+    const T* __restrict__ iz, const T* __restrict__ iux,
+    const T* __restrict__ iuy, const T* __restrict__ iuz,
+    const T* __restrict__ w, const T* __restrict__ ct,
+    T* __restrict__ partials, T* __restrict__ ogx, T* __restrict__ ogy,
+    T* __restrict__ ogz, T* __restrict__ ogux, T* __restrict__ oguy,
+    T* __restrict__ oguz, T* __restrict__ ogw, int64_t n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int slots = nlam * nsurf * SLOTS;          // a warp's row
+  const int nwarps = blockDim.x >> 5;
+  T* s_tab = reinterpret_cast<T*>(smem);
+  T* s_acc = s_tab + nlam * nsurf * ROW;           // nwarps * slots
+  T* s_ct = s_acc + nwarps * slots;                // nlam * 5
+  int* s_flags = reinterpret_cast<int*>(s_ct + 5 * nlam);
+  for (int i = threadIdx.x; i < nwarps * slots; i += blockDim.x)
+    s_acc[i] = T(0);
+  for (int i = threadIdx.x; i < 5 * nlam; i += blockDim.x) s_ct[i] = ct[i];
+  stage_table(table, flags, nsurf, s_tab, s_flags, nlam);
+  const int lane = threadIdx.x & 31;
+  T* acc = s_acc + (threadIdx.x >> 5) * slots;
+  const bool first_rot = s_flags[0] & F_ROTATED;
+  const bool last_rot = s_flags[nsurf - 1] & F_ROTATED;
+  T saved[MAX_ROWS * 6];
+  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
+  for (int64_t base = int64_t(blockIdx.x) * blockDim.x; base < n;
+       base += stride) {
+    const int64_t i = base + threadIdx.x;
+    const bool active = i < n;
+    T s0[6] = {T(0), T(0), T(0), T(0), T(0), T(1)};
+    T wi = T(0);
+    if (active) {
+      s0[0] = ix[i]; s0[1] = iy[i]; s0[2] = iz[i];
+      s0[3] = iux[i]; s0[4] = iuy[i]; s0[5] = iuz[i];
+      wi = w[i];
+    }
+    T gsum[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+    T gwsum = T(0);
+    for (int l = 0; l < nlam; ++l) {
+      const T* tab = s_tab + l * nsurf * ROW;
+      const T* rl = tab + (nsurf - 1) * ROW + P_ROT;
+      T s[6];
+      for (int q = 0; q < 6; ++q) s[q] = s0[q];
+      // (a) forward recompute, keeping the state entering each row
+      if (first_rot) {
+        rot_apply_t(tab + P_ROT, s[0], s[1], s[2]);
+        rot_apply_t(tab + P_ROT, s[3], s[4], s[5]);
+      }
+      T tacc = T(0);
+      for (int j = 1; j < nsurf; ++j) {
+        for (int q = 0; q < 6; ++q) saved[j * 6 + q] = s[q];
+        surface_step(tab + j * ROW, s_flags[j], clip != 0, s[0], s[1], s[2],
+                     s[3], s[4], s[5], tacc);
+      }
+      T xl = s[0], yl = s[1], zl = s[2], uxl = s[3], uyl = s[4], uzl = s[5];
+      if (last_rot) {
+        rot_apply(rl, xl, yl, zl);
+        rot_apply(rl, uxl, uyl, uzl);
+      }
+      // (b) liveness at this wavelength; (c) seed from its cotangents
+      const bool live = active && isfinite(xl) && isfinite(yl) &&
+                        isfinite(uzl);
+      const T* c5 = s_ct + 5 * l;
+      T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      T gw = T(0);
+      if (live) {
+        T gx = wi * (c5[1] + T(2) * xl * c5[3]);
+        T gy = wi * (c5[2] + T(2) * yl * c5[4]);
+        T gz = T(0);
+        gw = c5[0] + xl * c5[1] + yl * c5[2] + xl * xl * c5[3] +
+             yl * yl * c5[4];
+        if (last_rot) rot_apply_t(rl, gx, gy, gz);
+        g[0] = gx; g[1] = gy; g[2] = gz;
+      }
+      // (d) reverse sweep, rows S-1 .. 1; (e) reduce each row's slots
+      T* acc_l = acc + l * nsurf * SLOTS;
+      for (int j = nsurf - 1; j >= 1; --j) {
+        T pg[SLOTS] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+        if (live) surface_step_vjp(tab + j * ROW, s_flags[j], saved + j * 6,
+                                   g, pg);
+        for (int q = 0; q < SLOTS; ++q) {
+          T v = pg[q];
+          for (int off = 16; off > 0; off >>= 1)
+            v += __shfl_down_sync(0xffffffffu, v, off);
+          if (lane == 0) acc_l[j * SLOTS + q] += v;
+        }
+      }
+      if (live && first_rot) {
+        rot_apply(tab + P_ROT, g[0], g[1], g[2]);
+        rot_apply(tab + P_ROT, g[3], g[4], g[5]);
+      }
+      // (f) sum over wavelengths (zeros where the ray is dead)
+      for (int q = 0; q < 6; ++q) gsum[q] += g[q];
+      gwsum += gw;
+    }
+    if (active) {
+      ogx[i] = gsum[0]; ogy[i] = gsum[1]; ogz[i] = gsum[2];
+      ogux[i] = gsum[3]; oguy[i] = gsum[4]; oguz[i] = gsum[5];
+      ogw[i] = gwsum;
+    }
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < slots; q += blockDim.x) {
+    T sum = T(0);
+    for (int wp = 0; wp < nwarps; ++wp) sum += s_acc[wp * slots + q];
+    partials[int64_t(blockIdx.x) * slots + q] = sum;
+  }
+}
+
 size_t moments_smem(int nsurf, int block, size_t word) {
   return (nsurf * ROW + 5 * size_t(block)) * word + nsurf * sizeof(int);
 }
@@ -410,6 +571,64 @@ size_t moments_smem(int nsurf, int block, size_t word) {
 size_t adjoint_smem(int nsurf, int block, size_t word) {
   return (nsurf * ROW + size_t(block / 32) * nsurf * SLOTS) * word +
          nsurf * sizeof(int);
+}
+
+size_t moments_multi_smem(int nsurf, int nlam, int block, size_t word) {
+  return size_t(nlam) * (nsurf * ROW + 5 * size_t(block)) * word +
+         nsurf * sizeof(int);
+}
+
+size_t adjoint_multi_smem(int nsurf, int nlam, int block, size_t word) {
+  return size_t(nlam) * (nsurf * ROW + size_t(block / 32) * nsurf * SLOTS + 5) *
+             word + nsurf * sizeof(int);
+}
+
+template <typename T>
+int launch_moments_multi(const void* table, const void* flags, int nsurf,
+                         int nlam, int clip, const void* x, const void* y,
+                         const void* z, const void* ux, const void* uy,
+                         const void* uz, const void* w, void* partials,
+                         long long n, int grid, int block, void* stream) {
+  if (block <= 0 || (block & (block - 1)) || nlam < 1)
+    return int(cudaErrorInvalidValue);
+  const size_t smem = moments_multi_smem(nsurf, nlam, block, sizeof(T));
+  cudaError_t err = allow_smem(weighted_moments_multi_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  weighted_moments_multi_kernel<T><<<grid, block, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(table), static_cast<const int*>(flags), nsurf,
+      nlam, clip, static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(z), static_cast<const T*>(ux),
+      static_cast<const T*>(uy), static_cast<const T*>(uz),
+      static_cast<const T*>(w), static_cast<T*>(partials), int64_t(n));
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int launch_adjoint_multi(const void* table, const void* flags, int nsurf,
+                         int nlam, int clip, const void* x, const void* y,
+                         const void* z, const void* ux, const void* uy,
+                         const void* uz, const void* w, const void* ct,
+                         void* partials, void* gx, void* gy, void* gz,
+                         void* gux, void* guy, void* guz, void* gw,
+                         long long n, int grid, int block, void* stream) {
+  if (block <= 0 || block > MAX_BLOCK || block % 32 || nsurf < 1 ||
+      nsurf > MAX_ROWS || nlam < 1)
+    return int(cudaErrorInvalidValue);
+  const size_t smem = adjoint_multi_smem(nsurf, nlam, block, sizeof(T));
+  cudaError_t err = allow_smem(merit_adjoint_multi_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  merit_adjoint_multi_kernel<T><<<grid, block, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(table), static_cast<const int*>(flags), nsurf,
+      nlam, clip, static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const T*>(z), static_cast<const T*>(ux),
+      static_cast<const T*>(uy), static_cast<const T*>(uz),
+      static_cast<const T*>(w), static_cast<const T*>(ct),
+      static_cast<T*>(partials), static_cast<T*>(gx), static_cast<T*>(gy),
+      static_cast<T*>(gz), static_cast<T*>(gux), static_cast<T*>(guy),
+      static_cast<T*>(guz), static_cast<T*>(gw), int64_t(n));
+  return int(cudaGetLastError());
 }
 
 }  // namespace
@@ -463,3 +682,37 @@ WEIGHTED_MOMENTS_LAUNCHER(weighted_moments_f32, float)
 WEIGHTED_MOMENTS_LAUNCHER(weighted_moments_f64, double)
 MERIT_ADJOINT_LAUNCHER(merit_adjoint_f32, float)
 MERIT_ADJOINT_LAUNCHER(merit_adjoint_f64, double)
+
+// K6 launchers: table (nlam, nsurf, ROW), flags (nsurf,), 6 rays, w,
+// partials (grid, nlam, 5).
+#define MOMENTS_MULTI_LAUNCHER(NAME, T)                                       \
+  extern "C" int NAME(const void* table, const void* flags, int nsurf,       \
+                      int nlam, int clip, const void* x, const void* y,      \
+                      const void* z, const void* ux, const void* uy,         \
+                      const void* uz, const void* w, void* partials,         \
+                      long long n, int grid, int block, void* stream) {      \
+    return launch_moments_multi<T>(table, flags, nsurf, nlam, clip, x, y, z, \
+                                   ux, uy, uz, w, partials, n, grid, block,  \
+                                   stream);                                  \
+  }
+
+// K7 launchers: ... w, ct (nlam, 5), partials (grid, nlam*nsurf*SLOTS),
+// 6 ray + 1 weight cotangents (n,).
+#define ADJOINT_MULTI_LAUNCHER(NAME, T)                                       \
+  extern "C" int NAME(const void* table, const void* flags, int nsurf,       \
+                      int nlam, int clip, const void* x, const void* y,      \
+                      const void* z, const void* ux, const void* uy,         \
+                      const void* uz, const void* w, const void* ct,         \
+                      void* partials, void* gx, void* gy, void* gz,          \
+                      void* gux, void* guy, void* guz, void* gw,             \
+                      long long n, int grid, int block, void* stream) {      \
+    return launch_adjoint_multi<T>(table, flags, nsurf, nlam, clip, x, y, z, \
+                                   ux, uy, uz, w, ct, partials, gx, gy, gz,  \
+                                   gux, guy, guz, gw, n, grid, block,        \
+                                   stream);                                  \
+  }
+
+MOMENTS_MULTI_LAUNCHER(weighted_moments_multi_f32, float)
+MOMENTS_MULTI_LAUNCHER(weighted_moments_multi_f64, double)
+ADJOINT_MULTI_LAUNCHER(merit_adjoint_multi_f32, float)
+ADJOINT_MULTI_LAUNCHER(merit_adjoint_multi_f64, double)

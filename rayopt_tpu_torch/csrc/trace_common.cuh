@@ -1,5 +1,5 @@
-// Device code shared by the trace kernels (trace.cu: K1, K2) and the
-// merit-gradient kernels (grad.cu: K4, K5): the packed table layout,
+// Device code shared by the trace kernels (trace.cu: K1, K2, K3) and the
+// merit-gradient kernels (grad.cu: K4-K7): the packed table layout,
 // the flag bits, the guarded math, one surface step, the whole chain
 // for one ray, and the staging of the table into shared memory.  Each
 // translation unit that includes it gets its own internal copies.
@@ -204,17 +204,46 @@ __device__ __forceinline__ void trace_ray(const T* tab, const int* flags,
   }
 }
 
-// Stage the packed table and flags into shared memory; returns the
-// first free T slot after them.
+// Stage the packed table (ntab tables of nsurf rows back to back: a
+// wavelength stack) and the flags they share into shared memory;
+// returns the first free T slot after the tables.
 template <typename T>
 __device__ __forceinline__ T* stage_table(const T* table, const int* flags,
-                                          int nsurf, T* s_tab, int* s_flags) {
-  for (int i = threadIdx.x; i < nsurf * ROW; i += blockDim.x)
+                                          int nsurf, T* s_tab, int* s_flags,
+                                          int ntab = 1) {
+  for (int i = threadIdx.x; i < ntab * nsurf * ROW; i += blockDim.x)
     s_tab[i] = table[i];
   for (int i = threadIdx.x; i < nsurf; i += blockDim.x)
     s_flags[i] = flags[i];
   __syncthreads();
-  return s_tab + nsurf * ROW;
+  return s_tab + ntab * nsurf * ROW;
+}
+
+// Tree sum of `rows` rows of blockDim.x values each (row r at
+// s_red[r * blockDim.x]; blockDim.x a power of two); thread t < rows
+// of the first pass writes row r's total to out[r] for r = t, t +
+// blockDim.x, ...  Every thread of the block must call it.
+template <typename T>
+__device__ __forceinline__ void block_sum_rows(T* s_red, int rows, T* out) {
+  const int nb = blockDim.x;
+  __syncthreads();
+  for (int h = nb / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h)
+      for (int r = 0; r < rows; ++r)
+        s_red[r * nb + threadIdx.x] += s_red[r * nb + threadIdx.x + h];
+    __syncthreads();
+  }
+  for (int r = threadIdx.x; r < rows; r += nb) out[r] = s_red[r * nb];
+}
+
+// Raise a kernel's dynamic shared memory limit above the default 48 KB
+// when a launch needs it (Hopper: up to 227 KB a block).
+template <typename K>
+__host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              int(bytes));
 }
 
 }  // namespace

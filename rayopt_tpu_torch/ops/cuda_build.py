@@ -2,7 +2,8 @@
 
 nvcc compiles the sources into a shared library with a plain C
 interface, which ctypes loads; nothing includes PyTorch's headers, so
-a build takes seconds.  It runs at first use, from the package's own
+a build takes seconds.  One nvcc per source runs in parallel, then one
+links the objects.  It runs at first use, from the package's own
 sources, into build/torch_kernels/ beside the package, and is cached
 by a hash of the sources and flags.  Fast math stays off: the kernels
 rely on IEEE division, square root and NaN propagation.
@@ -22,7 +23,7 @@ BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
 SOURCES = ("trace.cu", "grad.cu")
 HEADERS = ("trace_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc():
@@ -70,6 +71,25 @@ class KernelLibrary:
             fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*16 + [i64, i32,
                                                              i32, ptr]
             fn.restype = i32
+            # table, flags, nsurf, nlam, 6 rays, out, n, grid, block,
+            # stream
+            for name in ("trace_multi_", "trace_multi_merit_"):
+                fn = getattr(self._lib, name + dt)
+                fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [
+                    i64, i32, i32, ptr]
+                fn.restype = i32
+            # table, flags, nsurf, nlam, clip, 6 rays, w, partials, n,
+            # grid, block, stream
+            fn = getattr(self._lib, "weighted_moments_multi_" + dt)
+            fn.argtypes = [ptr, ptr, i32, i32, i32] + [ptr]*8 + [
+                i64, i32, i32, ptr]
+            fn.restype = i32
+            # ... 6 rays, w, ct, partials, 6 ray + 1 weight cotangents,
+            # n, grid, block, stream
+            fn = getattr(self._lib, "merit_adjoint_multi_" + dt)
+            fn.argtypes = [ptr, ptr, i32, i32, i32] + [ptr]*16 + [
+                i64, i32, i32, ptr]
+            fn.restype = i32
         self._lib.trace_error_string.argtypes = [i32]
         self._lib.trace_error_string.restype = ctypes.c_char_p
 
@@ -98,15 +118,34 @@ def load_library():
     if lib.exists() and log_path.exists():
         return KernelLibrary(lib, 0., log_path.read_text())
     tmp = lib.with_name(lib.name + ".%d.tmp" % os.getpid())
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC/name) for name in SOURCES)]
+    objs = [lib.with_name("%s.%s.%d.o" % (lib.stem, Path(name).stem,
+                                          os.getpid()))
+            for name in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc a source, all started together, then one link
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC/name)]
+            for name, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+            "-o", str(tmp), *map(str, objs)]
+    failed = [(cmd, p.returncode, lg) for cmd, p, lg in zip(cmds, procs, logs)
+              if p.returncode]
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode:
+            failed.append((link, proc.returncode, logs[-1]))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode:
-        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s"
-                           % (proc.returncode, " ".join(cmd), log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            "(exit %d) %s\n%s" % (rc, " ".join(cmd), lg)
+            for cmd, rc, lg in failed))
+    log = "".join(logs)
     log_path.write_text(log)
     os.replace(tmp, lib)
     return KernelLibrary(lib, seconds, log)

@@ -17,8 +17,21 @@ and the weight cotangent.  It replaces `pallas_grad._adjoint_kernel`.
 A dead (vignetted or missed) ray gets exact zeros everywhere; no VJP
 residual ever leaves the kernel.
 
-`spot_moments` and `adjoint_spot_rms` bind the two in one
-torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`):
+K6 `weighted_moments_multi` and K7 `merit_adjoint_multi` are their
+polychromatic twins (`pallas_grad._fwd_kernel_multi`,
+`_adjoint_kernel_multi`): a stacked table (leading wavelength axis,
+System.tables or glass.glass_tables) and ONE bundle, read once and run
+through every wavelength's chain.  K6 returns (nlam, 5) moments; K7
+takes (nlam, 5) moment cotangents, judges each ray dead or live per
+wavelength, sums the ray and weight cotangents over the wavelengths
+and returns the parameter cotangents per wavelength (nlam, S, SLOTS),
+so autograd through the stacking (glass_tables, a broadcast
+curvature) sums the shared geometry.
+
+`spot_moments` and `adjoint_spot_rms` bind K4/K5 in one
+torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`),
+`spot_moments_multi` and `polychromatic_spot_rms` bind K6/K7 in the
+same Function (`_moments_multi`):
 gradients flow to the table's curvature, conic, offset and mu (and
 through tables.lower_pose to decenter), to the ray state and to the
 weights.  n_before, which feeds only the optical path, receives a zero
@@ -30,14 +43,16 @@ when such a parameter is the one being optimized.  rot is not
 differentiated: a rot (or tilt) that requires grad while some spec row
 is rotated raises NotImplementedError.
 
-Both kernels are hand-written CUDA C++ (csrc/grad.cu), built with the
+The kernels are hand-written CUDA C++ (csrc/grad.cu), built with the
 K1/K2 library (ops.cuda_build).  A wrapper takes the plain PyTorch
-version (`weighted_moments_reference`, `merit_adjoint_reference`) only
-for a bundle on the CPU; for a CUDA bundle it launches its kernel or
-raises.  Each wrapper counts its launches in `<wrapper>.launches`.
-`_step_vjp_reference` and `_merit_adjoint_by_hand` write the kernel's
-hand-derived reverse in torch, line for line, so the CPU tests can
-hold it against autograd; nothing else calls them.
+version (`weighted_moments_reference`, `merit_adjoint_reference`,
+`weighted_moments_multi_reference`, `merit_adjoint_multi_reference`)
+only for a bundle on the CPU; for a CUDA bundle it launches its kernel
+or raises.  Each wrapper counts its launches in `<wrapper>.launches`.
+`_step_vjp_reference`, `_merit_adjoint_by_hand` and
+`_merit_adjoint_multi_by_hand` write the kernels' hand-derived reverse
+in torch, line for line, so the CPU tests can hold it against
+autograd; nothing else calls them.
 """
 
 import warnings
@@ -45,9 +60,10 @@ import warnings
 import torch
 
 from . import kernels as K
-from .cuda_trace import (BLOCK, _check_state, _launch_setup, _raise_on,
-                         spot_rms_from_moments, trace_final_reference)
-from .tables import lower_pose
+from .cuda_trace import (BLOCK, ROW, SMEM_OPTIN, _check_state, _launch_setup,
+                         _raise_on, spot_rms_from_moments,
+                         trace_final_reference)
+from .tables import lower_pose, table_at
 
 MAX_ROWS = 32   # saved states a K5 thread keeps: keep in sync with grad.cu
 SLOTS = 6       # parameter cotangents a row: c, k, offset x/y/z, mu
@@ -132,6 +148,40 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     pg = _param_rows(tab.replace(curvature=grads[0], conic=grads[1],
                                  offset=grads[2], mu=grads[3]))
     return pg, tuple(grads[4:10]), grads[10]
+
+
+def weighted_moments_multi_reference(tables, specs, state, w, clip=False):
+    """Plain PyTorch version of K6: weighted_moments_reference for each
+    table of the stack, stacked to (nlam, 5)."""
+    return torch.stack([
+        weighted_moments_reference(table_at(tables, li), specs, state, w,
+                                   clip)
+        for li in range(tables.curvature.shape[0])])
+
+
+def _sum_over_tables(one, tables, specs, state, w, ct, clip):
+    """K7's reduction of a per-table adjoint `one`: parameter
+    cotangents stacked per table, ray and weight cotangents summed over
+    the tables in order."""
+    pgs, st, gw = [], [torch.zeros_like(state[0]) for _ in range(6)], \
+        torch.zeros_like(state[0])
+    for li in range(tables.curvature.shape[0]):
+        pg, sl, wl = one(table_at(tables, li), specs, state, w, ct[li], clip)
+        pgs.append(pg)
+        st = [a + b for a, b in zip(st, sl)]
+        gw = gw + wl
+    return torch.stack(pgs), tuple(st), gw
+
+
+def merit_adjoint_multi_reference(tables, specs, state, w, ct, clip=False):
+    """Plain PyTorch version of K7: for each table of the stack,
+    torch autograd through the plain trace (merit_adjoint_reference,
+    re-traced under enable_grad) of that table's weighted moments
+    dotted with its row of the (nlam, 5) cotangents `ct`.  Returns
+    (parameter cotangents (nlam, S, SLOTS); the six state cotangents
+    and the weight cotangent, each summed over the tables)."""
+    return _sum_over_tables(merit_adjoint_reference, tables, specs, state,
+                            w, ct, clip)
 
 
 # -- the kernel's reverse, written by hand in torch (test-only) ----------
@@ -349,18 +399,27 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     return pg, g, ct_w
 
 
+def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False):
+    """K7 written in torch: the K5 model run once per table of the stack
+    on the same state (each table's dead rays zeroed for it alone), the
+    model of `merit_adjoint_multi_kernel` in csrc/grad.cu; same outputs
+    as merit_adjoint_multi_reference."""
+    return _sum_over_tables(_merit_adjoint_by_hand, tables, specs, state,
+                            w, ct, clip)
+
+
 # -- the CUDA wrappers ---------------------------------------------------
 
-def _check_vector(v, state, name, n=None):
+def _check_vector(v, state, name, shape=None):
     x = state[0]
-    n = x.shape[0] if n is None else n
+    shape = (x.shape[0],) if shape is None else tuple(shape)
     if v.device != x.device or v.dtype != x.dtype:
         raise ValueError("%s must share the rays' device and dtype (%s %s "
                          "vs %s %s)" % (name, v.device, v.dtype, x.device,
                                         x.dtype))
-    if v.dim() != 1 or v.shape[0] != n or not v.is_contiguous():
-        raise ValueError("%s must be a contiguous (%d,) tensor, got %s"
-                         % (name, n, tuple(v.shape)))
+    if tuple(v.shape) != shape or not v.is_contiguous():
+        raise ValueError("%s must be a contiguous %s tensor, got %s"
+                         % (name, shape, tuple(v.shape)))
 
 
 def weighted_moments(table, specs, state, w, clip=False):
@@ -398,7 +457,7 @@ def merit_adjoint(table, specs, state, w, ct, clip=False):
     take merit_adjoint_reference."""
     _check_state(state)
     _check_vector(w, state, "w")
-    _check_vector(ct, state, "ct", 5)
+    _check_vector(ct, state, "ct", (5,))
     if state[0].device.type == "cpu":
         return merit_adjoint_reference(table, specs, state, w, ct, clip)
     if len(specs) > MAX_ROWS:
@@ -427,29 +486,123 @@ def merit_adjoint(table, specs, state, w, ct, clip=False):
 merit_adjoint.launches = 0
 
 
+def weighted_moments_multi(tables, specs, state, w, clip=False):
+    """K6: the (nlam, 5) weighted moments of each table of a stack
+    (leading wavelength axis) over its live rays, one bundle read once,
+    in the rays' dtype.  CUDA bundles launch the kernel ((grid, nlam, 5)
+    block partial sums, then one torch sum); CPU bundles take
+    weighted_moments_multi_reference."""
+    _check_state(state)
+    _check_vector(w, state, "w")
+    if state[0].device.type == "cpu":
+        return weighted_moments_multi_reference(tables, specs, state, w,
+                                                clip)
+    nlam = tables.curvature.shape[0]
+    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
+        tables, specs, state, smem_extra_words=5*nlam*BLOCK)
+    partials = torch.zeros((grid, nlam, 5), dtype=state[0].dtype,
+                           device=state[0].device)
+    if n:
+        err = getattr(lib, "weighted_moments_multi_" + suffix)(
+            packed.data_ptr(), flags.data_ptr(), nsurf, nlam,
+            int(bool(clip)), *(c.data_ptr() for c in state), w.data_ptr(),
+            partials.data_ptr(), n, grid, BLOCK, stream)
+        _raise_on(lib, err, "weighted_moments_multi")
+        weighted_moments_multi.launches += 1
+    return partials.sum(0)
+
+
+weighted_moments_multi.launches = 0
+
+
+def _adjoint_multi_words(nsurf):
+    """Shared-memory words K7 needs a wavelength beside its table."""
+    return (BLOCK // 32)*nsurf*SLOTS + 5
+
+
+def max_adjoint_wavelengths(nsurf, dtype):
+    """The most wavelengths K7 holds for `nsurf` rows in `dtype`: its
+    per-warp parameter rows, the tables and the cotangents all live in
+    one block's shared memory (at most cuda_trace.SMEM_OPTIN bytes)."""
+    word = torch.tensor([], dtype=dtype).element_size()
+    return ((SMEM_OPTIN - 4*nsurf)
+            // ((nsurf*ROW + _adjoint_multi_words(nsurf))*word))
+
+
+def merit_adjoint_multi(tables, specs, state, w, ct, clip=False):
+    """K7: (parameter cotangents (nlam, S, SLOTS) per table of the
+    stack; the six state cotangents and the weight cotangent, each
+    summed over the tables) of the (nlam, 5) weighted moments dotted
+    with `ct`, an (nlam, 5) tensor of moment cotangents on the rays'
+    device.  CUDA bundles launch the kernel (per-block parameter
+    partials, then one torch sum over blocks); CPU bundles take
+    merit_adjoint_multi_reference."""
+    nlam = tables.curvature.shape[0]
+    _check_state(state)
+    _check_vector(w, state, "w")
+    _check_vector(ct, state, "ct", (nlam, 5))
+    if state[0].device.type == "cpu":
+        return merit_adjoint_multi_reference(tables, specs, state, w, ct,
+                                             clip)
+    nsurf = len(specs)
+    if nsurf > MAX_ROWS:
+        raise ValueError("merit_adjoint_multi keeps at most %d rows a ray, "
+                         "the table has %d" % (MAX_ROWS, nsurf))
+    most = max_adjoint_wavelengths(nsurf, state[0].dtype)
+    if nlam > most:
+        raise ValueError(
+            "merit_adjoint_multi holds at most %d wavelengths of %d rows in "
+            "%s (%d bytes of shared memory a block), got %d"
+            % (most, nsurf, state[0].dtype, SMEM_OPTIN, nlam))
+    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
+        tables, specs, state,
+        smem_extra_words=nlam*_adjoint_multi_words(nsurf))
+    x = state[0]
+    partials = torch.zeros((grid, nlam*nsurf*SLOTS), dtype=x.dtype,
+                           device=x.device)
+    outs = [torch.zeros_like(x) for _ in range(7)]
+    if n:
+        err = getattr(lib, "merit_adjoint_multi_" + suffix)(
+            packed.data_ptr(), flags.data_ptr(), nsurf, nlam,
+            int(bool(clip)), *(c.data_ptr() for c in state), w.data_ptr(),
+            ct.data_ptr(), partials.data_ptr(),
+            *(o.data_ptr() for o in outs), n, grid, BLOCK, stream)
+        _raise_on(lib, err, "merit_adjoint_multi")
+        merit_adjoint_multi.launches += 1
+    return (partials.sum(0).reshape(nlam, nsurf, SLOTS), tuple(outs[:6]),
+            outs[6])
+
+
+merit_adjoint_multi.launches = 0
+
+
 # -- the differentiable merit --------------------------------------------
 
 class _SpotMoments(torch.autograd.Function):
-    """K4 forward, K5 backward (the reference's custom_vjp _moments)."""
+    """K4 forward, K5 backward (the reference's custom_vjp _moments);
+    with `multi`, a stacked table and K6 forward, K7 backward
+    (`_moments_multi`)."""
 
     @staticmethod
-    def forward(ctx, table, specs, clip, *tensors):
+    def forward(ctx, table, specs, clip, multi, *tensors):
         params, state, w = tensors[:5], tensors[5:11], tensors[11]
-        ctx.table, ctx.specs, ctx.clip = table, specs, clip
+        ctx.table, ctx.specs, ctx.clip, ctx.multi = table, specs, clip, multi
         ctx.save_for_backward(*tensors)
         tab = table.replace(**dict(zip(_DIFF, params)))
-        return weighted_moments(tab, specs, state, w, clip)
+        fwd = weighted_moments_multi if multi else weighted_moments
+        return fwd(tab, specs, state, w, clip)
 
     @staticmethod
     def backward(ctx, ct):
         tensors = ctx.saved_tensors
         params, state, w = tensors[:5], tensors[5:11], tensors[11]
         tab = ctx.table.replace(**dict(zip(_DIFF, params)))
-        pg, ct_state, ct_w = merit_adjoint(tab, ctx.specs, state, w,
-                                           ct.contiguous(), ctx.clip)
-        grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
-                 torch.zeros_like(params[4]))
-        return (None, None, None, *grads, *ct_state, ct_w)
+        bwd = merit_adjoint_multi if ctx.multi else merit_adjoint
+        pg, ct_state, ct_w = bwd(tab, ctx.specs, state, w, ct.contiguous(),
+                                 ctx.clip)
+        grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
+                 pg[..., 5], torch.zeros_like(params[4]))
+        return (None, None, None, None, *grads, *ct_state, ct_w)
 
 
 def _baked_out_rows(specs, field):
@@ -488,7 +641,7 @@ def _warn_baked_params(specs, params):
                     "no spec row is rotated -- pose gradients are "
                     "structurally zero; pass diff_pose=True (or "
                     "kernels.with_pose(specs)) to keep the nominal pose "
-                    "live", stacklevel=3)
+                    "live", stacklevel=4)
             continue
         if rows:
             detail = (" (transverse x/y components)"
@@ -498,7 +651,7 @@ def _warn_baked_params(specs, params):
                 "by the static specialization%s -- its gradient there is "
                 "structurally zero; seed it off the baked point "
                 "(respecialize) or use the generic engine"
-                % (f, rows, detail), stacklevel=3)
+                % (f, rows, detail), stacklevel=4)
 
 
 def _resolve_specs(table, specs, diff_pose):
@@ -524,7 +677,27 @@ def spot_moments(table, state, w, specs=None, clip=False, diff_pose=None):
     contiguous (N,) components; w: (N,) weights.  Gradients reach the
     table's curvature, conic, offset, mu (n_before: zero), the state
     and the weights (see the module docstring)."""
-    specs = _resolve_specs(table, specs, diff_pose)
+    mom = _moments(table, _resolve_specs(table, specs, diff_pose), state, w,
+                   clip, False)
+    return tuple(mom[i] for i in range(5))
+
+
+def spot_moments_multi(tables, state, w, specs=None, clip=False,
+                       diff_pose=None):
+    """Differentiable per-wavelength weighted spot moments, (nlam, 5),
+    of a stacked table (leading wavelength axis): K6 forward, K7
+    backward on a CUDA bundle, their plain versions on a CPU bundle.
+    The specs are derived from the first table (in float64) unless
+    given.  Table-field cotangents stay per wavelength, so a stack
+    built differentiably from shared parameters (glass_tables, a
+    broadcast geometry) receives their sum through autograd."""
+    specs = _resolve_specs(table_at(tables, 0), specs, diff_pose)
+    return _moments(tables, specs, state, w, clip, True)
+
+
+def _moments(table, specs, state, w, clip, multi):
+    """The autograd call shared by spot_moments and spot_moments_multi
+    (a stacked table with `multi`)."""
     table = lower_pose(table)
     if table.rot.requires_grad and any(s.rotated for s in specs):
         raise NotImplementedError(
@@ -533,15 +706,14 @@ def spot_moments(table, state, w, specs=None, clip=False, diff_pose=None):
             "engine (parallel.grad.spot_rms) for pose gradients")
     params = {f: getattr(table, f) for f in _FIELDS
               if f not in ("aspherics", "aspherics_odd")
-              or getattr(table, f).shape[1]}
+              or getattr(table, f).shape[-1]}
     _warn_baked_params(specs, params)
     x = state[0]
     diff = [getattr(table, f).to(device=x.device, dtype=x.dtype)
             for f in _DIFF]
     w = torch.as_tensor(w).to(device=x.device, dtype=x.dtype)
-    mom = _SpotMoments.apply(_constant_table(table, x), specs, bool(clip),
-                             *diff, *state, w)
-    return tuple(mom[i] for i in range(5))
+    return _SpotMoments.apply(_constant_table(table, x), specs, bool(clip),
+                              multi, *diff, *state, w)
 
 
 def adjoint_spot_rms(table, y0, u0, w=None, specs=None, clip=False,
@@ -560,3 +732,35 @@ def adjoint_spot_rms(table, y0, u0, w=None, specs=None, clip=False,
     mom = spot_moments(table, state, w, specs=specs, clip=clip,
                        diff_pose=diff_pose)
     return spot_rms_from_moments(*mom)
+
+
+def union_spot_rms_from_moments(moments):
+    """ONE centroid-referenced RMS over the union of all wavelengths'
+    spot samples, from (nlam, 5) per-wavelength weighted moments (the
+    moment-space identity of glass.polychromatic_spot_rms's union
+    reduction: axial and lateral colour are penalized with the blur)."""
+    sw, sx, sy, sxx, syy = (moments[:, i].sum() for i in range(5))
+    cx, cy = sx/sw, sy/sw
+    var = (sxx + syy)/sw - (cx*cx + cy*cy)
+    return torch.sqrt(torch.clamp(var, min=0.) + 1e-30)
+
+
+def polychromatic_spot_rms(tables, y0, u0, w=None, specs=None, clip=False,
+                           tile=None, interpret=False, diff_pose=None):
+    """Polychromatic union spot RMS through K6, differentiable through
+    the analytic adjoint K7 -- the production-scale twin of
+    glass.polychromatic_spot_rms.  Every wavelength traces the same
+    (y0, u0) bundle at weight w/nlam (w defaults to 1/N), vignetted rays
+    drop out per wavelength, and the RMS is taken about the shared
+    union centroid.  `tile` and `interpret` (TPU options) are accepted
+    and ignored."""
+    y0 = torch.as_tensor(y0)
+    u0 = torch.as_tensor(u0)
+    nlam = tables.curvature.shape[0]
+    if w is None:
+        w = torch.ones(y0.shape[0], dtype=y0.dtype,
+                       device=y0.device)/y0.shape[0]
+    state = tuple(c.contiguous() for c in (*K.split(y0), *K.split(u0)))
+    mom = spot_moments_multi(tables, state, torch.as_tensor(w)/nlam,
+                             specs=specs, clip=clip, diff_pose=diff_pose)
+    return union_spot_rms_from_moments(mom)

@@ -10,13 +10,21 @@ reduces it to the five spot moments (count, sum x, sum y, sum x^2,
 sum y^2) over the rays whose x, y and uz are finite.  It replaces
 `pallas_trace._merit_kernel` + `_moment_row`; forward only.
 
-Both kernels are hand-written CUDA C++ (csrc/trace.cu), built with
+K3 `trace_multi` is their polychromatic twin: a stacked table (a
+leading wavelength axis, System.tables) and ONE bundle, read once and
+traced through every wavelength's chain with no aperture clip; it
+returns each wavelength's final state and path, or (merit=True) each
+wavelength's five count moments.  It replaces
+`pallas_trace._multi_kernel`.
+
+The kernels are hand-written CUDA C++ (csrc/trace.cu), built with
 nvcc for sm_90a at first use (ops.cuda_build) and launched on
 PyTorch's current stream through ctypes.  A wrapper takes the plain
 PyTorch version (`trace_final_reference`, `trace_merit_reference`,
-both built from kernels.surface_step_spec) only for a bundle on the
-CPU; for a CUDA bundle it launches its kernel or raises.  Each
-wrapper counts its launches in `<wrapper>.launches`.
+`trace_multi_reference`, all built from kernels.surface_step_spec)
+only for a bundle on the CPU; for a CUDA bundle it launches its
+kernel or raises.  Each wrapper counts its launches in
+`<wrapper>.launches`.
 
 The static `specs` select each row's branch; pass the same specs to
 every engine that is compared (derive them from the float64 table
@@ -27,7 +35,7 @@ import torch
 
 from . import kernels as K
 from .geometric import trace_components_final
-from .tables import lower_pose
+from .tables import lower_pose, table_at
 
 # packed row layout and flag bits: keep in sync with csrc/trace.cu
 P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
@@ -37,6 +45,7 @@ F_ALTERNATE, F_FINITE, KIND_SHIFT = 16, 32, 6
 BLOCK = 256          # threads a block (a power of two: K2's tree sum)
 BLOCKS_PER_SM = 8    # grid-stride grid: this many blocks on each SM
 SMEM_LIMIT = 48*1024  # dynamic shared memory without an opt-in
+SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (K3, K6, K7)
 
 
 def _moments(x, y, uz):
@@ -60,6 +69,32 @@ def trace_merit_reference(table, specs, state, clip=False):
     return _moments(out[0], out[1], out[5])
 
 
+def trace_multi_reference(tables, specs, state, merit=False):
+    """Plain PyTorch version of K3: each wavelength's table of the
+    stack traces the same state with no clip (trace_rays_final_multi
+    of the bundle, component by component).  Returns one ((x, y, z,
+    ux, uy, uz), t) a wavelength, or with merit one 5-tuple of count
+    moments a wavelength."""
+    specs = multi_specs(tables, specs)
+    outs = []
+    for li in range(tables.curvature.shape[0]):
+        out, t = trace_final_reference(table_at(tables, li), specs, state)
+        outs.append(_moments(out[0], out[1], out[5]) if merit
+                    else (out, t))
+    return tuple(outs)
+
+
+def multi_specs(tables, specs):
+    """The static specs a stacked table shares: given, or derived from
+    its first table (pallas_trace.pallas_trace_multi; specialize reads
+    the table in float64).  A row whose kind depends on the wavelength
+    (mu == 1 at one and not at another) is specialized as the first
+    wavelength has it."""
+    if specs is None:
+        specs = K.specialize(table_at(tables, 0))
+    return tuple(specs)
+
+
 def spot_rms_from_moments(count, sx, sy, sxx, syy):
     """Centroid-referenced spot RMS from the five moments."""
     cx, cy = sx/count, sy/count
@@ -79,20 +114,21 @@ def _flags(spec):
 
 def pack_table(table, specs, dtype, device):
     """The lowered table as one contiguous (S, ROW) tensor in `dtype`
-    on `device`, plus the (S,) int32 flags that encode each row's
+    on `device` -- (L, S, ROW) for a stacked table, whose tables share
+    the specs -- plus the (S,) int32 flags that encode each row's
     SurfaceSpec.  Rows that need the extended vocabulary raise
     NotImplementedError."""
     table = lower_pose(table)
-    nsurf = table.curvature.shape[0]
+    nsurf = table.curvature.shape[-1]
     if len(specs) != nsurf:
         raise ValueError("%d specs for a table of %d rows"
                          % (len(specs), nsurf))
     for j, spec in enumerate(specs[1:], 1):
         K.check_supported(spec, j)
     cols = torch.cat([
-        table.curvature[:, None], table.conic[:, None], table.offset,
-        table.rot.reshape(nsurf, 9), table.radius[:, None],
-        table.mu[:, None], table.n_before[:, None]], dim=1)
+        table.curvature[..., None], table.conic[..., None], table.offset,
+        table.rot.flatten(-2), table.radius[..., None],
+        table.mu[..., None], table.n_before[..., None]], dim=-1)
     # cast first (the kernel traces in `dtype`), then move
     packed = cols.to(dtype=dtype).to(device=device).contiguous()
     flags = torch.tensor([_flags(s) for s in specs], dtype=torch.int32,
@@ -122,7 +158,9 @@ def _check_state(state):
 
 
 def _launch_setup(table, specs, state, smem_extra_words=0):
-    """Checks, packing and launch shape for a CUDA bundle."""
+    """Checks, packing and launch shape for a CUDA bundle; a stacked
+    table (leading wavelength axis) packs to (L, S, ROW) and may use
+    Hopper's opt-in shared memory."""
     _check_state(state)
     x = state[0]
     if x.device.type != "cuda":
@@ -131,12 +169,14 @@ def _launch_setup(table, specs, state, smem_extra_words=0):
     from .cuda_build import load_library
     lib = load_library()
     packed, flags = pack_table(table, specs, x.dtype, x.device)
-    nsurf = packed.shape[0]
+    nsurf = packed.shape[-2]
     word = x.element_size()
-    smem = (nsurf*ROW + smem_extra_words)*word + nsurf*4
-    if smem > SMEM_LIMIT:
-        raise ValueError("%d surfaces need %d bytes of shared memory, "
-                         "above %d" % (nsurf, smem, SMEM_LIMIT))
+    smem = (packed[..., 0].numel()*ROW + smem_extra_words)*word + nsurf*4
+    limit = SMEM_OPTIN if packed.dim() == 3 else SMEM_LIMIT
+    if smem > limit:
+        raise ValueError("%d table(s) of %d surfaces need %d bytes of shared "
+                         "memory, above %d" % (packed[..., 0, 0].numel(),
+                                               nsurf, smem, limit))
     n = x.shape[0]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = max(1, min(-(-n // BLOCK), sms*BLOCKS_PER_SM))
@@ -201,3 +241,43 @@ def trace_merit(table, specs, state, clip=False):
 
 
 trace_merit.launches = 0
+
+
+def trace_multi(tables, specs, state, merit=False):
+    """K3: ONE bundle of six contiguous (N,) components (float32 or
+    float64) through every table of a stack (leading wavelength axis),
+    with no aperture clip and the specs of the first wavelength
+    (`specs=None` derives them, multi_specs).  Returns one ((x, y, z,
+    ux, uy, uz), t) a wavelength, or with merit=True one 5-tuple of
+    count moments (count, sum x, sum y, sum x^2, sum y^2) a wavelength
+    -- feed spot_rms_from_moments.  CUDA bundles launch the kernel;
+    CPU bundles take trace_multi_reference."""
+    _check_state(state)
+    if state[0].device.type == "cpu":
+        return trace_multi_reference(tables, specs, state, merit)
+    specs = multi_specs(tables, specs)
+    nlam = tables.curvature.shape[0]
+    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
+        tables, specs, state, smem_extra_words=5*nlam*BLOCK if merit else 0)
+    x = state[0]
+    if merit:
+        out = torch.zeros((grid, nlam, 5), dtype=x.dtype, device=x.device)
+    else:
+        out = torch.empty((nlam, 7, n), dtype=x.dtype, device=x.device)
+    if n:
+        name = ("trace_multi_merit_" if merit else "trace_multi_") + suffix
+        err = getattr(lib, name)(
+            packed.data_ptr(), flags.data_ptr(), nsurf, nlam,
+            *(c.data_ptr() for c in state), out.data_ptr(), n, grid, BLOCK,
+            stream)
+        _raise_on(lib, err, "trace_multi")
+        trace_multi.launches += 1
+    if merit:
+        tot = out.sum(0)
+        return tuple(tuple(tot[li, q] for q in range(5))
+                     for li in range(nlam))
+    return tuple((tuple(out[li, c] for c in range(6)), out[li, 6])
+                 for li in range(nlam))
+
+
+trace_multi.launches = 0

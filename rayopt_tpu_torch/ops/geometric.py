@@ -13,12 +13,15 @@ of elementwise torch operations on the whole bundle.
                            bundle the hand-written fused kernel
                            (ops.cuda_trace.trace_final), on the CPU the
                            plain walk.
+* trace_rays_final_multi -- the polychromatic/batched carry-only trace
+                           of a stacked table (System.tables), one
+                           bundle per table.
 """
 
 import torch
 
 from . import kernels as K
-from .tables import lower_pose
+from .tables import lower_pose, table_at
 
 
 def _entry(table, state, specs=None):
@@ -121,3 +124,22 @@ def trace_rays_final_fast(table, y0, u0, clip=False, specs=None,
     state = tuple(c.contiguous() for c in (*K.split(y0), *K.split(u0)))
     out, tacc = trace_final(table, specs, state, clip=clip)
     return K.join(*out[:3]), K.join(*out[3:]), tacc
+
+
+def trace_rays_final_multi(tables, y0, u0, clip=False, specs=None,
+                           unroll=False, biconic=False):
+    """Polychromatic/batched trace: `tables` is a SurfaceTable whose
+    fields carry a leading batch axis (e.g. one row per wavelength,
+    from System.tables), y0/u0 are (B, N, 3).  Each table traces its
+    own bundle with trace_rays_final; the static specs are shared (the
+    geometry is identical, only indices differ across wavelengths).
+    Returns (y (B, N, 3), u (B, N, 3), t (B, N)).  `unroll` (a JAX
+    compilation choice) is accepted and ignored; biconic=True raises
+    NotImplementedError (the extended vocabulary)."""
+    if biconic:
+        from ..parallel.grad import _no_biconic
+        _no_biconic(biconic)
+    outs = [trace_rays_final(table_at(tables, b), y0[b], u0[b], clip=clip,
+                             specs=specs)
+            for b in range(tables.curvature.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))

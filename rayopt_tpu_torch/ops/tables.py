@@ -9,13 +9,21 @@ by field (`table_from_numpy`).
 
 A table is built per trace wavelength (refractive indices and the
 refraction ratio mu are baked in).  Tables default to float64 on the
-CPU; `SurfaceTable.to` moves one to another device or dtype.
+package's default device (`rayopt_tpu_torch.default_device()`);
+`SurfaceTable.to` moves one to another device or dtype.
+
+A STACKED table (System.tables, System.config_tables, `stack_tables`)
+carries a leading wavelength or configuration axis on every field;
+`table_at` takes one table out of it.  `nsurfaces` and `row` assume
+the surface axis comes first: do not call them on a stacked table.
 """
 
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 
 class SurfaceTable(NamedTuple):
@@ -85,9 +93,11 @@ def make_table(curvature, conic=None, aspherics=None, offset=None,
                aspherics_odd=None, curvature_dx=None, conic_dx=None,
                toroidal=None, grating_dy=None, doe=None,
                xy_poly=None, tilt=None, decenter=None,
-               dtype=torch.float64, device="cpu"):
+               dtype=torch.float64, device=None):
     """Assemble a SurfaceTable from array-likes, filling defaults
-    exactly as the JAX package's make_table does."""
+    exactly as the JAX package's make_table does, on `device` (None:
+    the default device)."""
+    device = resolve_device(device)
     curvature = np.asarray(curvature, dtype=np.float64)
     s = curvature.shape[0]
 
@@ -142,17 +152,32 @@ def make_table(curvature, conic=None, aspherics=None, offset=None,
         for k, v in fields.items()})
 
 
-def table_from_numpy(tab, device="cpu", dtype=torch.float64):
+def table_from_numpy(tab, device=None, dtype=torch.float64):
     """A port SurfaceTable from any table-like with the same field
     names whose fields are array-likes (e.g. a JAX-package
-    SurfaceTable after np.asarray of each field).  Absent (None)
-    fields stay None."""
+    SurfaceTable after np.asarray of each field, stacked or not), on
+    `device` (None: the default device).  Absent (None) fields stay
+    None."""
+    device = resolve_device(device)
     return SurfaceTable(**{
         f: (None if getattr(tab, f, None) is None
             else torch.tensor(np.ascontiguousarray(
                 np.asarray(getattr(tab, f), dtype=np.float64)),
                 dtype=dtype, device=device))
         for f in SurfaceTable._fields})
+
+
+def stack_tables(tabs):
+    """One stacked table from equal-shape tables: every field gains a
+    leading axis (wavelength or configuration)."""
+    return SurfaceTable(*(None if fs[0] is None else torch.stack(fs)
+                          for fs in zip(*tabs)))
+
+
+def table_at(tables, i):
+    """Table i of a stacked table (every field indexed on its leading
+    axis)."""
+    return SurfaceTable(*(None if f is None else f[i] for f in tables))
 
 
 def rodrigues(v):

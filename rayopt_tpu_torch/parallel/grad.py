@@ -26,6 +26,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.geometric import trace_rays_final
 
 
@@ -86,10 +87,12 @@ def spot_rms(table, y0, u0, w=None, clip=False, nan_safe=True,
 
 
 def _bundle_table(table, bundle):
-    """(table with the bundle's wavelength overrides, y0, u0, w)."""
+    """(table with the bundle's wavelength overrides, y0, u0, w); the
+    overrides follow the table's device."""
     if len(bundle) == 4:
         y0, u0, w, chroma = bundle
-        overrides = {k: v for k, v in chroma.items() if k != "wavelength"}
+        overrides = {k: v.to(device=table.curvature.device)
+                     for k, v in chroma.items() if k != "wavelength"}
         return table.replace(**overrides), y0, u0, w
     y0, u0, w = bundle
     return table, y0, u0, w
@@ -189,14 +192,15 @@ def composite_merit(*parts):
 
 def bundles_from_system(system, fields=None, wavelengths=None,
                         nrays=32, distribution="radau",
-                        device_aim=False, pad_to=None):
+                        device_aim=False, pad_to=None, device=None):
     """Aim one weighted ray bundle per (field, wavelength) through the
     system's pupils: the standard multi-configuration merit input.
 
     Each bundle is (y0 (N, 3), u0 (N, 3), w (N,), chroma), float64 on
-    the CPU; chroma carries the wavelength's mu/n_before/n_after table
-    overrides and the wavelength.  Aiming runs on the host; the seeds
-    are constants of the merit.  pad_to: pad every bundle's ray count
+    `device` (None: the default device); chroma carries the
+    wavelength's mu/n_before/n_after table overrides and the
+    wavelength.  Aiming runs on the host; the seeds are constants of
+    the merit.  pad_to: pad every bundle's ray count
     up to a multiple of this, repeating the first ray at zero weight
     (the kernels take any count; the option keeps the reference's
     bundle shapes)."""
@@ -207,12 +211,17 @@ def bundles_from_system(system, fields=None, wavelengths=None,
         fields = system.fields
     if wavelengths is None:
         wavelengths = system.wavelengths
+    device = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float64)).to(
+            device)
     ref, yp, w = pupil_distribution(distribution, nrays)
     if w is None:
         w = np.ones(yp.shape[0])/yp.shape[0]
     out = []
     for l in wavelengths:
-        tab_l = system.table(l)
+        tab_l = system.table(l, device=device)
         chroma = {"mu": tab_l.mu, "n_before": tab_l.n_before,
                   "n_after": tab_l.n_after, "wavelength": l}
         for h in fields:
@@ -224,18 +233,18 @@ def bundles_from_system(system, fields=None, wavelengths=None,
                 y0 = np.concatenate([y0, np.repeat(y0[:1], pad, 0)])
                 u0 = np.concatenate([u0, np.repeat(u0[:1], pad, 0)])
                 wb = np.concatenate([w, np.zeros(pad)])
-            out.append((torch.from_numpy(np.ascontiguousarray(y0)),
-                        torch.from_numpy(np.ascontiguousarray(u0)),
-                        torch.from_numpy(np.asarray(wb, np.float64)),
-                        chroma))
+            out.append((tensor(y0), tensor(u0), tensor(wb), chroma))
     return out
 
 
-def bundles_from_numpy(bundles, device="cpu", dtype=torch.float64):
+def bundles_from_numpy(bundles, device=None, dtype=torch.float64):
     """The port's bundles from any (y0, u0, w[, chroma]) bundles whose
     arrays are array-likes (e.g. the JAX package's
-    bundles_from_system): tensors on `device` in `dtype`; a chroma
-    dict keeps its wavelength as a float."""
+    bundles_from_system): tensors on `device` (None: the default
+    device) in `dtype`; a chroma dict keeps its wavelength as a
+    float."""
+    device = resolve_device(device)
+
     def tensor(a):
         return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
                             device=device)
@@ -251,25 +260,29 @@ def bundles_from_numpy(bundles, device="cpu", dtype=torch.float64):
 
 def bundles_to(bundles, device=None, dtype=None):
     """The same bundles with their ray tensors on another device and/or
-    dtype (the chroma overrides stay with the table)."""
+    dtype (the chroma overrides follow the table they are applied
+    to)."""
     return [tuple(a.to(device=device, dtype=dtype) for a in b[:3])
             + tuple(b[3:]) for b in bundles]
 
 
 def optimize_system(system, select=("curvature",), fields=None,
                     wavelengths=None, nrays=32, steps=100, lr=None,
-                    cycles=1, **kw):
+                    cycles=1, device=None, **kw):
     """End-to-end differentiable lens optimization on a System: lower
     to the table, minimize summed weighted spot RMS over fields x
     wavelengths with torch autograd and Adam (lr 1e-4 when lr is not
     given), and write the optimized values back into the elements.
+    The table and the bundles live on `device` (None: the default
+    device).
 
     `cycles` re-aims the pupils between optimization macro-cycles.
     Returns the merit history."""
     history = []
     for _ in range(cycles):
-        bundles = bundles_from_system(system, fields, wavelengths, nrays)
-        table = system.table()
+        bundles = bundles_from_system(system, fields, wavelengths, nrays,
+                                      device=device)
+        table = system.table(device=device)
         tab_opt, hist = optimize_grad(table, bundles, select=select,
                                       steps=steps, lr=lr or 1e-4, **kw)
         history.extend(hist.tolist())

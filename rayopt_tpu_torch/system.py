@@ -6,10 +6,13 @@ products, pupil aiming).  `System.table` lowers the element list to
 the struct-of-arrays SurfaceTable of tensors, and the real-ray trace
 (reference system.py:444-464) runs through ops.geometric.trace_rays
 on the whole bundle at once; the `propagate*` generators wrap it for
-API compatibility.
+API compatibility.  `System.tables` and `System.config_tables` stack
+one table per wavelength or per configuration (a leading axis on every
+field) for the polychromatic engines.  Tables land on the package's
+default device unless a `device` is given; the host-side traces
+(`trace_table`, `propagate`, the aiming solvers) ask for the CPU.
 
-Not ported yet: multi-configuration tables (`config_tables`), stacked
-per-wavelength tables (`tables`) and the polynomial trace.
+Not ported yet: the polynomial trace.
 """
 
 import itertools
@@ -23,7 +26,7 @@ from .elements import Element
 from .conjugates import Conjugate, FiniteConjugate, InfiniteConjugate
 from .materials import fraunhofer
 from .pupils import RadiusPupil
-from .ops.tables import make_table
+from .ops.tables import make_table, stack_tables
 from .ops.geometric import trace_rays
 from .trace.paraxial import ParaxialTrace
 
@@ -118,6 +121,15 @@ class System(AimingMixin, list):
         dup = copy.deepcopy(self)
         dup._pupil_cache = {}
         return dup.apply_configuration(index, update)
+
+    def config_tables(self, wavelength=None, dtype=torch.float64,
+                      device=None):
+        """Stacked SurfaceTable over all configurations (leading
+        config axis) -- the batched input of
+        ops.geometric.trace_rays_final_multi and vmapped merits."""
+        return stack_tables([
+            self.at_configuration(i).table(wavelength, dtype, device)
+            for i in range(self.n_configurations)])
 
     # -- structure ---------------------------------------------------
 
@@ -496,8 +508,9 @@ class System(AimingMixin, list):
 
     # -- lowering to tensors ------------------------------------------
 
-    def table(self, wavelength=None, dtype=torch.float64, device="cpu"):
-        """Lower to a SurfaceTable for one trace wavelength."""
+    def table(self, wavelength=None, dtype=torch.float64, device=None):
+        """Lower to a SurfaceTable for one trace wavelength, on `device`
+        (None: the package's default device)."""
         if wavelength is None:
             wavelength = self.wavelengths[0]
         s = len(self)
@@ -543,6 +556,15 @@ class System(AimingMixin, list):
             n_before=n_before, n_after=n_after, distance=distance,
             dtype=dtype, device=device)
 
+    def tables(self, wavelengths=None, dtype=torch.float64, device=None):
+        """Stacked SurfaceTable with a leading wavelength axis, for
+        the polychromatic engines (ops.geometric.trace_rays_final_multi,
+        ops.cuda_trace.trace_multi, glass.polychromatic_spot_rms)."""
+        if wavelengths is None:
+            wavelengths = self.wavelengths
+        return stack_tables([self.table(l, dtype, device)
+                             for l in wavelengths])
+
     # -- propagation drivers (reference system.py:444-464) -------------
 
     def propagate_paraxial(self, yu, n, l, start=1, stop=None):
@@ -563,7 +585,8 @@ class System(AimingMixin, list):
         returns NumPy (y, u, i, t) stacked over surfaces
         start-1..stop-1 (row 0 = the given seed)."""
         if table is None:
-            table = self.table(l)
+            # host-side by design: numpy in and out, on `device`
+            table = self.table(l, device=device)
         sub = table.rows(start - 1, stop)
         y = torch.as_tensor(np.atleast_2d(np.asarray(y, dtype=float)),
                             device=device)
@@ -575,7 +598,8 @@ class System(AimingMixin, list):
     def propagate(self, y, u, n, l, start=1, stop=None, clip=False):
         """Generator API over the jitted trace (reference
         system.py:459): yields (y, u, n, i, t) per surface."""
-        table = self.table(l)
+        # host-side by design: numpy in and out of trace_table's CPU walk
+        table = self.table(l, device="cpu")
         ys, us, iis, ts = self.trace_table(y, u, l, start, stop,
                                            clip, table)
         n_after = table.n_after.cpu().numpy()

@@ -78,7 +78,8 @@ class GeometricTrace(Trace):
     def propagate(self, start=1, stop=None, clip=False):
         super().propagate()
         seed = start - 1
-        table = self.system.table(self.l)
+        # host-side by design: the trace fills numpy arrays
+        table = self.system.table(self.l, device="cpu")
         traced = self.system.trace_table(
             self.y[seed], self.u[seed], self.l, start, stop, clip,
             table=table)

@@ -11,11 +11,20 @@ from numpy import testing as nptest
 import pytest
 import torch
 
+from rayopt_tpu_torch import set_default_device
 from rayopt_tpu_torch.models import double_gauss
 from rayopt_tpu_torch.ops import cuda_grad as CG
 from rayopt_tpu_torch.ops import cuda_trace as CT
 from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
 from rayopt_tpu_torch.ops.kernels import specialize
+
+
+@pytest.fixture(autouse=True)
+def _cuda_default():
+    # the port's default device; a test that wants the CPU asks for it
+    old = set_default_device("cuda")
+    yield
+    set_default_device(old)
 
 
 @pytest.fixture
@@ -181,3 +190,134 @@ def test_adjoint_optimize_step_on_card(cuda_device):
     for k in sel:
         g, r = grads["gpu"][k], grads["cpu"][k]
         assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max()), k
+
+
+def _union_cotangent(mom):
+    """d union_spot_rms / d (nlam, 5) moments at `mom`."""
+    m = mom.detach().double().cpu().requires_grad_()
+    CG.union_spot_rms_from_moments(m).backward()
+    return m.grad.to(device=mom.device, dtype=mom.dtype).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_multi_kernels_match_plain_on_card(cuda_device, dtype, clip):
+    """K3 (no clip: traced once, at clip=False), K6 and K7 on the double
+    Gauss's 3-wavelength stack against their plain versions: the same
+    tolerances as K1/K2 and K4/K5 above, per wavelength."""
+    tabs = double_gauss().tables()
+    specs = CT.multi_specs(tabs, None)
+    nlam = tabs.curvature.shape[0]
+    state = _bench_state(1 << 16, 6, cuda_device, dtype)
+    w = torch.from_numpy(np.random.RandomState(2).uniform(
+        .5, 1.5, 1 << 16)).to(cuda_device, dtype)
+    f64 = dtype == torch.float64
+    if not clip:
+        before = CT.trace_multi.launches
+        got = CT.trace_multi(tabs, specs, state)
+        ref = CT.trace_multi_reference(tabs, specs, state)
+        mom = CT.trace_multi(tabs, specs, state, merit=True)
+        mref = CT.trace_multi_reference(tabs, specs, state, merit=True)
+        torch.cuda.synchronize()
+        assert CT.trace_multi.launches == before + 2
+        tol = 1e-12*30 if f64 else 5e-5
+        for (g, t), (r, tr) in zip(got, ref):
+            for a, b in zip((*g, t), (*r, tr)):
+                a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+                nptest.assert_array_equal(np.isnan(a), np.isnan(b))
+                nptest.assert_allclose(a, b, atol=tol, rtol=tol,
+                                       equal_nan=True)
+        for m, r in zip(mom, mref):
+            assert float(m[0]) == float(r[0])
+            nptest.assert_allclose(float(CT.spot_rms_from_moments(*m)),
+                                   float(CT.spot_rms_from_moments(*r)),
+                                   rtol=1e-10 if f64 else 1e-4)
+    launches = CG.weighted_moments_multi.launches, \
+        CG.merit_adjoint_multi.launches
+    mom = CG.weighted_moments_multi(tabs, specs, state, w, clip)
+    mref = CG.weighted_moments_multi_reference(tabs, specs, state, w, clip)
+    ct = _union_cotangent(mref)
+    pg, cst, cw = CG.merit_adjoint_multi(tabs, specs, state, w, ct, clip)
+    pref, sref, wref = CG.merit_adjoint_multi_reference(tabs, specs, state,
+                                                        w, ct, clip)
+    torch.cuda.synchronize()
+    assert (CG.weighted_moments_multi.launches,
+            CG.merit_adjoint_multi.launches) == (launches[0] + 1,
+                                                 launches[1] + 1)
+    assert mom.shape == (nlam, 5) and pg.shape == (nlam, len(specs),
+                                                   CG.SLOTS)
+    for li in range(nlam):
+        nptest.assert_allclose(float(CT.spot_rms_from_moments(*mom[li])),
+                               float(CT.spot_rms_from_moments(*mref[li])),
+                               rtol=1e-10 if f64 else 1e-4)
+        tol = 1e-9 if f64 else 1e-3
+        for col in range(CG.SLOTS):
+            if float(pref[li, :, col].abs().max()):
+                assert _max_rel(pg[li, :, col], pref[li, :, col]) <= tol
+            assert torch.isfinite(pg[li, :, col]).all()
+    assert not pg[:, 0].any()
+    assert torch.equal(cw != 0, wref != 0)
+    ray_tol = 1e-9 if f64 else 1e-2
+    for got, want in ((cst[:3], sref[:3]), (cst[3:], sref[3:]),
+                      ((cw,), (wref,))):
+        scale = max(float(r.abs().max()) for r in want)
+        for g, r in zip(got, want):
+            assert torch.isfinite(g).all()
+            assert float((g - r).abs().max()) <= ray_tol*scale
+
+
+@pytest.mark.cuda
+def test_polychromatic_glass_gradient_on_card(cuda_device):
+    """The achromatization merit (glass_tables -> polychromatic_spot_rms,
+    engine="adjoint") on CUDA tensors launches K6 and K7 and gives the
+    CPU plain versions' value (rtol 1e-9) and (nd, vd) gradient (1e-8
+    of its max), float64."""
+    from rayopt_tpu_torch import glass
+    from rayopt_tpu_torch.parallel import bundles_from_system
+    s = double_gauss()
+    asg = glass.glass_assignment(s)
+    nd0, vd0 = glass.initial_glass_params(s, asg[2])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tabs = s.tables(device=dev)
+        y0, u0, w, _ = bundles_from_system(
+            s, fields=(.7,), wavelengths=[s.wavelengths[0]], nrays=2048,
+            distribution="hexapolar", device=dev)[0]
+        nd = torch.tensor(nd0, device=dev, requires_grad=True)
+        vd = torch.tensor(vd0, device=dev, requires_grad=True)
+        before = CG.merit_adjoint_multi.launches
+        v = glass.polychromatic_spot_rms(
+            glass.glass_tables(tabs, nd, vd, asg, s.wavelengths), y0, u0, w,
+            engine="adjoint")
+        v.backward()
+        if dev != "cpu":
+            assert CG.merit_adjoint_multi.launches == before + 1
+        out[str(dev)] = (float(v.detach()), nd.grad.cpu(), vd.grad.cpu())
+    (v_c, gn_c, gv_c), (v_g, gn_g, gv_g) = out["cpu"], out["cuda"]
+    nptest.assert_allclose(v_g, v_c, rtol=1e-9)
+    for g, r in ((gn_g, gn_c), (gv_g, gv_c)):
+        assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max())
+
+
+@pytest.mark.cuda
+def test_default_device_entry_points_on_card(cuda_device):
+    """With the default device (the card), the host-side solvers keep
+    their CPU traces, and first_order_penalty and write_back_table take
+    a CUDA table."""
+    from rayopt_tpu_torch.parallel import (first_order_penalty,
+                                           paraxial_seed, write_back_table)
+    s = double_gauss()
+    tab = s.table()
+    assert tab.curvature.device.type == "cuda"
+    assert s.tables().curvature.device.type == "cuda"
+    z, p = s.pupil((0., 1.))
+    assert np.isfinite(z)
+    efl = float(s.paraxial.focal_length[1])
+    pen = first_order_penalty(tab, paraxial_seed(s),
+                              {"focal_length": (1, efl + 1.)})
+    assert pen.device.type == "cuda"
+    nptest.assert_allclose(float(pen), 1., rtol=1e-9)
+    write_back_table(s, tab, ("curvature", "distance"))
+    nptest.assert_allclose(float(s.paraxial.focal_length[1]), efl,
+                           rtol=1e-12)

@@ -14,6 +14,7 @@ import rayopt_tpu as J
 from rayopt_tpu import models as jmodels
 from rayopt_tpu.ops.kernels import specialize as jspecialize
 
+from rayopt_tpu_torch import set_default_device
 import rayopt_tpu_torch as T
 from rayopt_tpu_torch import models as tmodels
 from rayopt_tpu_torch.ops.kernels import specialize, specs_from_tuple
@@ -26,6 +27,15 @@ SYSTEMS = ["doublet", "cooke_triplet", "double_gauss"]
 def _one_thread():
     # several test workers import both frameworks at once
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    # the port's entry points default to the card: these tests ask for
+    # the CPU, where every wrapper runs its plain version
+    old = set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _pair(name):

@@ -25,6 +25,7 @@ from rayopt_tpu.ops.kernels import specialize as jspecialize
 from rayopt_tpu.ops.pallas_grad import pallas_spot_rms
 from rayopt_tpu.parallel import grad as JGR
 
+from rayopt_tpu_torch import set_default_device
 from rayopt_tpu_torch import models as tmodels
 from rayopt_tpu_torch.ops import cuda_grad as CG
 from rayopt_tpu_torch.ops import kernels as TK
@@ -42,6 +43,15 @@ SELECT = ("curvature", "conic", "offset", "mu")
 def _one_thread():
     # several test workers import both frameworks at once
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    # the port's entry points default to the card: these tests ask for
+    # the CPU, where every wrapper runs its plain version
+    old = set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _close(got, want, err_msg="", rtol=RTOL, atol=ATOL):

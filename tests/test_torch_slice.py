@@ -12,6 +12,7 @@ from rayopt_tpu import GeometricTrace as JGeometricTrace
 from rayopt_tpu import system_from_yaml as j_from_yaml
 from rayopt_tpu.ops.geometric import trace_rays_final_fast as j_fast
 
+from rayopt_tpu_torch import set_default_device
 import rayopt_tpu_torch as T
 from rayopt_tpu_torch.models import prescriptions as P
 from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
@@ -27,6 +28,15 @@ YAMLS = {"cooke": P.COOKE_YAML, "double_gauss": P.DOUBLE_GAUSS_YAML}
 def _one_thread():
     # several test workers import both frameworks at once
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    # the port's entry points default to the card: these tests ask for
+    # the CPU, where every wrapper runs its plain version
+    old = set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _systems(name):

@@ -19,6 +19,7 @@ from rayopt_tpu.ops.pallas_trace import (pallas_trace_final,
                                          pallas_trace_merit,
                                          spot_rms_from_moments as j_rms)
 
+from rayopt_tpu_torch import set_default_device
 from rayopt_tpu_torch.ops import kernels as TK
 from rayopt_tpu_torch.ops import geometric as TG
 from rayopt_tpu_torch.ops import tables as TT
@@ -31,6 +32,15 @@ RTOL = ATOL = 1e-12
 def _one_thread():
     # several test workers import both frameworks at once
     torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    # the port's entry points default to the card: these tests ask for
+    # the CPU, where every wrapper runs its plain version
+    old = set_default_device("cpu")
+    yield
+    set_default_device(old)
 
 
 def _bundle(n, seed, height, slope=.05):
