@@ -3,17 +3,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout, holds each
-against its plain PyTorch version on the card, drives the port's three
+against its plain PyTorch version on the card, drives the port's four
 main paths -- the forward path (double Gauss from YAML -> paraxial
 solve -> pupil aiming -> fused trace and fused spot-moment merit at
 three fields), the designer loop (bundles at 3 fields x 3
 wavelengths -> optimize_grad on the weighted-moment and adjoint
-kernels -> write back) and the achromatization path (stacked
+kernels -> write back), the achromatization path (stacked
 3-wavelength tables -> glass relaxation -> polychromatic union spot
 RMS on the stacked-wavelength kernels at 3 fields -> Adam over
 curvatures, distances and glasses, with the stacked trace reporting
-the spots) -- and times the kernels against their plain versions (the
-stacked-wavelength ones also against their monochromatic twins).
+the spots) and the design path (the composite merit of 9 spot
+bundles, 3 wavefront-RMS bundles on the OPD kernel and its adjoint,
+and a focal-length penalty -> optimize_grad -> write back -> Strehl,
+PSF, MTF and the host OPD/Zernike cross-check) -- and times the
+kernels against their plain versions (the stacked-wavelength ones
+also against their monochromatic twins).
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
@@ -42,6 +46,12 @@ OPT_STEPS = 10
 OPT_LR = 1e-7        # Adam: the merit falls at every step on the CPU
 FD_STEP = {"curvature": 1e-8, "distance": 1e-6}   # 1/mm, mm
 FD_VD_STEP = 1e-3    # Abbe number
+N_DESIGN = 1 << 20   # hexapolar nrays a bundle on the design path
+DESIGN_STEPS = 10
+DESIGN_LR = 1e-7     # Adam on the design path (curvature 1/mm, distance mm)
+DESIGN_PENALTY = 1e-4  # weight of the focal-length penalty (as the bench)
+N_HOST_OPD = 4000    # hexapolar nrays of the host OPD/Zernike cross-check
+BREAKDOWN_REPS = 5   # design-step parts timed after the path
 GLASS_STEPS = 10
 # Adam on the achromatization path, per parameter group (1/mm, mm, and
 # the glass-box logits of nd and vd)
@@ -62,6 +72,19 @@ F32_RAY_REL = 1e-2   # float32 K5 ray cotangents: a float32 image
 FD_REL = 1e-5        # float64 K5 vs central differences of the K4 merit
 OPT_MERIT_REL = 1e-9  # optimizer step 0 merit, card vs CPU plain
 OPT_GRAD_REL = 1e-8   # optimizer step 0 gradient, of its field's max
+OPD_F32_REL = 4e-6   # float32 K8 vs float32 plain, of max |k| (~1.1e5
+#                      waves on the double Gauss: a float32 ulp is
+#                      ~0.008); each is ~1e-6 of it off the float64 one
+OPD_F32_SUM_REL = 1e-2  # float32 K9 parameter/centre sums vs the float64
+#                        plain version, of its sum of |term|: each ray's
+#                        reverse cancels (the path is stationary, Fermat)
+#                        and the sums cancel; the plain float32 version
+#                        is ~2e-3 of it off on the mu column
+HOST_OPD_ATOL = 1e-7  # waves: K8 f64 on the card vs the host OPD (numpy);
+#                      K8 sums the absolute ~3.4e5-wave path before
+#                      subtracting the chief ray's, the host sums per-row
+#                      differences: a float64 ulp of the path is ~5e-11
+#                      waves, and the CPU plain K8 is ~5e-9 waves off
 
 
 def log(*args):
@@ -817,12 +840,497 @@ def phase_glass_path():
                              + ", ".join(failures))
 
 
+def opd_aux(s, table, specs, state):
+    """K8's aux vector for a bundle whose ray 0 is the chief ray: its
+    image point (the plain one-ray trace), the exit pupil's reference-
+    sphere radius and the first wavelength's scale, on the card."""
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    y0 = torch.stack([c[:1] for c in state[:3]], 1).double()
+    u0 = torch.stack([c[:1] for c in state[3:]], 1).double()
+    yr, _, _ = trace_rays_final(table, y0, u0, specs=specs)
+    return torch.cat([yr[0], torch.tensor(
+        [-s.image.pupil.distance, s.wavelengths[0]/s.scale],
+        dtype=torch.float64, device=DEVICE)]).to(state[0].dtype)
+
+
+def opd_bundle(n, dtype, seed, widen=1.):
+    """The bench bundle with ray 0 on axis (the chief ray); `widen`
+    scales the footprint."""
+    state = [c.clone() for c in bench_bundle(n, torch.float64, seed)]
+    for i in range(6):
+        if i < 2:
+            state[i] = state[i]*widen
+        state[i][0] = 1. if i == 5 else 0.
+    return tuple(c.to(dtype).contiguous() for c in state)
+
+
+def opd_cotangents(k, lx, ly, kind):
+    """(ct_k, ct_lx, ct_ly) in k's dtype of the wavefront RMS
+    (kind "wavefront": only k) or the tilt-removed Strehl ratio ("strehl":
+    k and the landing) of K8's outputs, ray 0 the reference; computed in
+    float64 by autograd.  The bench bundle's input-plane term is zero
+    (u0[0] = (0, 0, 1), z0 = 0)."""
+    from rayopt_tpu_torch.ops.cuda_grad import wavefront_rms_of
+    from rayopt_tpu_torch.parallel.diffraction import strehl_of_samples
+    leaves = [v.detach().double().requires_grad_() for v in (k, lx, ly)]
+    k64, lx64, ly64 = leaves
+    waves = k64 - k64[0]
+    if kind == "wavefront":
+        wavefront_rms_of(waves).backward()
+        leaves[1].grad = torch.zeros_like(k64)
+        leaves[2].grad = torch.zeros_like(k64)
+    else:
+        xy = torch.stack([lx64 - lx64[0], ly64 - ly64[0]], 1)
+        good = torch.isfinite(waves) & torch.isfinite(xy).all(1)
+        wg = torch.where(good, 1., 0.)
+        strehl_of_samples(torch.where(good, waves, 0.),
+                          torch.where(good[:, None], xy, 0.),
+                          wg/wg.sum()).backward()
+    return tuple(v.grad.to(k.dtype).contiguous() for v in leaves)
+
+
+# K9's parameter cotangent columns, by table field
+OPD_GRAD_FIELDS = GRAD_FIELDS + (("n_before", slice(6, 7)),)
+
+
+def phase_opd_check(s, table, specs):
+    """K8 and K9 against their plain versions on the card: K8's k and
+    landing; K9's parameter (n_before included), ray and centre
+    cotangents for the wavefront-RMS and the Strehl cotangents.  In
+    float64 against the plain version; in float32 K8 against the plain
+    float32 version, K9's sums against the float64 plain version on the
+    same inputs (see below)."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
+    log("== K8/K9 vs plain on the card (double Gauss, %d bench rays, ray 0 "
+        "the chief ray; reference sphere radius %.6f mm, wavelength %g m)"
+        % (N_CHECK, -s.image.pupil.distance, s.wavelengths[0]))
+    worst = {"opd_chain": 0., "opd_adjoint": 0.}
+    failures = []
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+    for dtype in (torch.float64, torch.float32):
+        f64 = dtype == torch.float64
+        dt = str(dtype)[6:]
+        for clip in (False, True):
+            tag = "%s clip=%s" % (dt, clip)
+            # clipped: 1.5x wider, so that the apertures vignette
+            state = opd_bundle(N_CHECK, dtype, SEED, 1.5 if clip else 1.)
+            aux = opd_aux(s, table, specs, state)
+            got = opd_chain(table, specs, state, aux, clip)
+            want = opd_chain_reference(table, specs, state, aux, clip)
+            # float32: the float64 plain version on the same inputs
+            state64 = tuple(c.double() for c in state)
+            aux64 = aux.double()
+            want64 = want if f64 else opd_chain_reference(
+                table, specs, state64, aux64, clip)
+            torch.cuda.synchronize()
+            live = torch.isfinite(want[0])
+            live_got = torch.isfinite(got[0])
+            masks = int((live_got != live).sum())
+            both = live & live_got
+            scale = max(float(want[0][both].double().abs().max()), 1.)
+            errs = [err(g[both], w[both]) for g, w in zip(got, want)]
+            rels = [e/max(float(w[both].double().abs().max()), 1.)
+                    for e, w in zip(errs, want)]
+            extra = ""
+            if f64:
+                ok = masks == 0 and max(rels) <= F64_REL
+            else:
+                ok = masks <= F32_NAN_FRAC*N_CHECK and max(rels) <= OPD_F32_REL
+                all3 = both & torch.isfinite(want64[0])
+                extra = (", kernel vs float64 plain %.3e, plain float32 vs "
+                         "float64 plain %.3e of max |k|"
+                         % (err(got[0][all3], want64[0][all3])/scale,
+                            err(want[0][all3], want64[0][all3])/scale))
+                worst["opd_chain"] = max(worst["opd_chain"], errs[0])
+            log("K8 %s: k max abs err %.3e waves (%.3e of max |k| %.6g%s), "
+                "landing %.3e / %.3e mm, NaN masks differ on %d rays, dead "
+                "rays %d -> %s" % (tag, errs[0], rels[0], scale, extra,
+                                   errs[1], errs[2], masks,
+                                   int((~live).sum()), "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("K8 " + tag)
+            # the rays live in all the versions compared carry cotangents
+            same = both & torch.isfinite(want64[0])
+            for kind in ("wavefront", "strehl"):
+                cts = tuple(torch.where(same, c, 0.)
+                            for c in opd_cotangents(*want, kind))
+                pg, cst, cc = opd_adjoint(table, specs, state, aux, cts, clip)
+                pr, sr, cr = opd_adjoint_reference(table, specs, state, aux,
+                                                   cts, clip)
+                if f64:
+                    lim, base, base_c = GRAD_F64_REL, pr, cr
+                    mass, mass_c = pr, cr
+                else:
+                    # float32 sums of terms that cancel: the kernel (and,
+                    # for the log, the plain float32 version) against the
+                    # float64 plain version on the same inputs, within
+                    # OPD_F32_SUM_REL of the sum of |term| (the float64
+                    # plain version with |ct|)
+                    cts64 = tuple(c.double() for c in cts)
+                    lim = OPD_F32_SUM_REL
+                    base, _, base_c = opd_adjoint_reference(
+                        table, specs, state64, aux64, cts64, clip)
+                    mass, _, mass_c = opd_adjoint_reference(
+                        table, specs, state64, aux64,
+                        tuple(c.abs() for c in cts64), clip)
+                torch.cuda.synchronize()
+                fields = {}
+                for name, cols in OPD_GRAD_FIELDS:
+                    e = err(pg[:, cols], base[:, cols])
+                    ep = 0. if f64 else err(pr[:, cols], base[:, cols])
+                    sc = float(mass[:, cols].double().abs().max())
+                    fields[name] = (e, ep, sc,
+                                    bool(torch.isfinite(pg[:, cols]).all())
+                                    and e <= lim*sc)
+                ce = err(cc, base_c)
+                cep = 0. if f64 else err(cr, base_c)
+                cscale = float(mass_c.double().abs().max())
+                ray_rel = 0.
+                for g3, w3 in ((cst[:3], sr[:3]), (cst[3:], sr[3:])):
+                    sc = max(float(c.double().abs().max()) for c in w3)
+                    e = max(err(a, b) for a, b in zip(g3, w3))
+                    ray_rel = max(ray_rel, e/sc if sc else e)
+                dead_zero = not any(bool(c[~live_got].any()) for c in cst)
+                finite = all(bool(torch.isfinite(c).all()) for c in cst)
+                ok = (all(v[3] for v in fields.values()) and finite
+                      and dead_zero and ce <= lim*cscale
+                      and ray_rel <= (GRAD_F64_REL if f64 else F32_RAY_REL)
+                      and not pg[0].any())
+                log("K9 %s %s: %s; centre err %.3e (plain %.3e) of scale "
+                    "%.3e | rays rel err %.3e, dead rays all zero %s, all "
+                    "finite %s -> %s"
+                    % (tag, kind, "; ".join(
+                        "%s err %.3e (plain %.3e) of scale %.3e" % (k, *v[:3])
+                        for k, v in fields.items()), ce, cep, cscale, ray_rel,
+                       dead_zero, finite, "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("K9 %s %s" % (tag, kind))
+                if not f64:
+                    worst["opd_adjoint"] = max(
+                        worst["opd_adjoint"],
+                        *(v[0] for v in fields.values()))
+    if failures:
+        raise AssertionError("kernel disagrees with its plain version: "
+                             + ", ".join(failures))
+    return worst
+
+
+def phase_opd_fd_check(s, table, specs):
+    """K9's float64 gradient of the K8 wavefront RMS against central
+    differences, w.r.t. the curvature and the distance (offset z) with
+    the largest gradients and one glass's vd through glass_tables (the
+    n_before and mu slots).  The vd merit is taken at the second
+    wavelength: at the first, the d line, the index is nd whatever
+    vd."""
+    from rayopt_tpu_torch import glass
+    from rayopt_tpu_torch.ops.cuda_grad import adjoint_wavefront_rms
+    from rayopt_tpu_torch.ops.tables import table_at
+    log("== K9 vs central differences of the K8 wavefront RMS (float64, %d "
+        "bench rays, ray 0 the chief ray; steps %s, vd %g)"
+        % (N_CHECK, FD_STEP, FD_VD_STEP))
+    state = opd_bundle(N_CHECK, torch.float64, SEED)
+    y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+    kw = dict(ref=0, radius=-s.image.pupil.distance,
+              wavelength=s.wavelengths[0], scale=s.scale,
+              finite=s.object.finite, specs=specs)
+    tabs = s.tables()
+    asg = glass.glass_assignment(s)
+    nd0, vd0 = glass.initial_glass_params(s, asg[2])
+    nd = torch.tensor(nd0, device=DEVICE)
+
+    def merit(tab=table, vd=None):
+        if vd is None:
+            return adjoint_wavefront_rms(tab, y0, u0, **kw)
+        tab = table_at(glass.glass_tables(tabs, nd, vd, asg, s.wavelengths),
+                       1)
+        return adjoint_wavefront_rms(tab, y0, u0, **dict(
+            kw, wavelength=s.wavelengths[1]))
+    c = table.curvature.clone().requires_grad_()
+    off = table.offset.clone().requires_grad_()
+    vd = torch.tensor(vd0, device=DEVICE, requires_grad=True)
+    with warnings.catch_warnings():
+        # flat rows' curvature, on-axis rows' offsets, air/air rows' mu:
+        # baked out by the specs, as intended
+        warnings.simplefilter("ignore")
+        value = merit(table.replace(curvature=c, offset=off))
+        value.backward()
+        merit(vd=vd).backward()
+    grads = {"curvature": c.grad.cpu(), "distance": off.grad[:, 2].cpu(),
+             "vd": vd.grad.cpu()}
+    picks = [(f, int(torch.argmax(grads[f].abs()))) for f in grads]
+    failures = []
+    with torch.no_grad():
+        for field, j in picks:
+            h = FD_VD_STEP if field == "vd" else FD_STEP[field]
+            side = []
+            for sgn in (1., -1.):
+                if field == "vd":
+                    v = torch.tensor(vd0, device=DEVICE)
+                    v[j] += sgn*h
+                    side.append(float(merit(vd=v)))
+                elif field == "curvature":
+                    v = table.curvature.clone()
+                    v[j] += sgn*h
+                    side.append(float(merit(table.replace(curvature=v))))
+                else:
+                    v = table.offset.clone()
+                    v[j, 2] += sgn*h
+                    side.append(float(merit(table.replace(offset=v))))
+            fd = (side[0] - side[1])/(2*h)
+            g = float(grads[field][j])
+            rel = abs(g - fd)/abs(fd)
+            ok = rel <= FD_REL
+            what = ("slot %d (element %d)" % (j, asg[2][j]) if field == "vd"
+                    else "row %d" % j)
+            log("%s of %s: K9 %.12g, central difference %.12g, rel %.2e -> %s"
+                % (field, what, g, fd, rel, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("%s %s" % (field, what))
+    log("wavefront RMS of the bench bundle: %.9g waves"
+        % float(value.detach()))
+    if failures:
+        raise AssertionError("K9 disagrees with finite differences: "
+                             + ", ".join(failures))
+
+
+def phase_design_path():
+    """The composite design step, through the entry points a user
+    calls: 9 spot bundles (K4/K5), 3 wavefront bundles (K8/K9) and a
+    focal-length penalty, optimize_grad, write_back_table; then the
+    Strehl, PSF and MTF report and the host OPD/Zernike cross-check."""
+    from rayopt_tpu_torch import GeometricTrace
+    from rayopt_tpu_torch.models import double_gauss
+    from rayopt_tpu_torch.ops.cuda_grad import (adjoint_opd_rays,
+                                                adjoint_spot_rms,
+                                                adjoint_wavefront_rms)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    from rayopt_tpu_torch.parallel import (
+        bundles_from_system, bundles_to, composite_merit, first_order_penalty,
+        mtf_radial, optimize_grad, paraxial_seed, psf_grid, psf_polychromatic,
+        strehl_marechal, strehl_ratio, write_back_table)
+    log("== design path: double Gauss, 9 spot bundles (3 fields x 3 "
+        "wavelengths, adjoint_spot_rms) + 3 wavefront bundles (fields %s at "
+        "%g m, adjoint_wavefront_rms) + %g x focal-length penalty -> "
+        "optimize_grad(select=%s), float64, %d Adam steps at lr %g"
+        % (FIELDS, 587.56e-9, DESIGN_PENALTY, OPT_SELECT, DESIGN_STEPS,
+           DESIGN_LR))
+    t0 = time.perf_counter()
+    s = double_gauss()
+    spot = bundles_from_system(s, fields=FIELDS, nrays=N_DESIGN,
+                               distribution="hexapolar")
+    wave = bundles_from_system(s, fields=FIELDS,
+                               wavelengths=[s.wavelengths[0]],
+                               nrays=N_DESIGN, distribution="hexapolar")
+    log("%d spot and %d wavefront bundles of %d rays (ray 0 the chief ray), "
+        "aimed in %.2f s" % (len(spot), len(wave), spot[0][0].shape[0],
+                             time.perf_counter() - t0))
+    table = s.table()
+    specs = specialize(table)
+    seed = paraxial_seed(s)
+    efl0 = float(s.paraxial.focal_length[1])
+    opd_kw = dict(ref=0, radius=-s.image.pupil.distance,
+                  wavelength=s.wavelengths[0], scale=s.scale,
+                  finite=s.object.finite, specs=specs)
+
+    def merit_parts(spot, wave):
+        def spots(tab):
+            total = 0.
+            for y0, u0, w, chroma in spot:
+                ov = {k: v.to(tab.curvature.device)
+                      for k, v in chroma.items() if k != "wavelength"}
+                total = total + adjoint_spot_rms(tab.replace(**ov), y0, u0, w,
+                                                 specs=specs)
+            return total
+
+        def wavefronts(tab):
+            return sum(adjoint_wavefront_rms(tab, y0, u0, w, **opd_kw)
+                       for y0, u0, w, _ in wave)
+
+        def penalty(tab):
+            return DESIGN_PENALTY*first_order_penalty(
+                tab, seed, {"focal_length": (1, efl0)})
+        return spots, wavefronts, penalty
+
+    def report(tab, when):
+        for field, (y0, u0, w, _) in zip(FIELDS, wave):
+            st = float(strehl_ratio(tab, y0, u0, w, engine="adjoint",
+                                    **opd_kw))
+            sm = float(strehl_marechal(tab, y0, u0, w, engine="adjoint",
+                                       **opd_kw))
+            wf = float(adjoint_wavefront_rms(tab, y0, u0, w, **opd_kw))
+            log("%s, field %.1f: wavefront RMS %.9g waves, Strehl %.9g, "
+                "Marechal %.9g" % (when, field, wf, st, sm))
+            if not (np.isfinite(st) and 0 <= st <= 1 + 1e-12
+                    and np.isfinite(sm) and np.isfinite(wf)):
+                raise AssertionError("Strehl report %s at field %.1f: %g %g"
+                                     % (when, field, st, sm))
+
+    grads, ends = {}, []
+
+    def keep(tag):
+        def callback(i, value, params):
+            ends.append(time.perf_counter())   # value synced the step
+            if i == 0:
+                grads[tag] = {k: v.grad.detach().double().cpu().clone()
+                              for k, v in params.items()}
+        return callback
+    with warnings.catch_warnings():
+        # flat rows bake out their curvature, on-axis rows their
+        # transverse offsets
+        warnings.simplefilter("ignore")
+        report(table, "before")
+        reset_launches()
+        t0 = time.perf_counter()
+        tab_opt, hist = optimize_grad(table, spot, select=OPT_SELECT,
+                                      steps=DESIGN_STEPS, lr=DESIGN_LR,
+                                      merit=composite_merit(
+                                          *merit_parts(spot, wave)),
+                                      callback=keep("card"))
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        launches = read_launches()
+        breakdown = step_breakdown(tab_opt, specs, wave,
+                                   merit_parts(spot, wave))
+        steps = np.diff([t0] + ends[:DESIGN_STEPS])
+        t0 = time.perf_counter()
+        spot_cpu, wave_cpu = bundles_to(spot, "cpu"), bundles_to(wave, "cpu")
+        _, hist_cpu = optimize_grad(s.table(device="cpu"), spot_cpu,
+                                    select=OPT_SELECT, steps=1, lr=DESIGN_LR,
+                                    merit=composite_merit(
+                                        *merit_parts(spot_cpu, wave_cpu)),
+                                    callback=keep("cpu"))
+        t_cpu = time.perf_counter() - t0
+        report(tab_opt, "after")
+    merit_rel = abs(hist[0] - hist_cpu[0])/abs(hist_cpu[0])
+    grad_rel = {k: float((grads["card"][k] - grads["cpu"][k]).abs().max()
+                         / grads["cpu"][k].abs().max())
+                for k in OPT_SELECT}
+    log("merit history (9 spot RMS mm + 3 wavefront RMS waves + penalty): %s"
+        % " ".join("%.12g" % v for v in hist))
+    log("step 0 card vs CPU plain: merit %.15g vs %.15g (rel %.2e), "
+        "gradient rel to its max %s | card %.2f s for %d steps (step 0 "
+        "%.3f s, later steps mean %.4f s, min %.4f s), CPU %.2f s for 1 step"
+        % (hist[0], hist_cpu[0], merit_rel,
+           {k: "%.2e" % v for k, v in grad_rel.items()}, t_card, DESIGN_STEPS,
+           steps[0], steps[1:].mean(), steps[1:].min(), t_cpu))
+    log("design step by part, forward and backward on the card (wall ms, "
+        "mean of %d after one warm-up; not counted as launches of the "
+        "path): %s" % (BREAKDOWN_REPS, ", ".join(
+            "%s %.3f" % kv for kv in breakdown.items())))
+    log("== launch counts on the design path: %s" % launches)
+    write_back_table(s, tab_opt, OPT_SELECT)
+    efl1 = float(s.paraxial.focal_length[1])
+    log("write_back_table: EFL %.8f -> %.8f mm" % (efl0, efl1))
+    # on axis after the steps: PSF, MTF, the polychromatic PSF
+    y0, u0, w, _ = wave[0]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        p, q, psf = psf_grid(tab_opt, y0, u0, w, ngrid=64, engine="adjoint",
+                             **opd_kw)
+        freq, mtf_x, mtf_y = mtf_radial(tab_opt, y0, u0, w, ngrid=64,
+                                        engine="adjoint", **opd_kw)
+        poly = [spot[li*len(FIELDS)] for li in range(len(s.wavelengths))]
+        kw_poly = {k: v for k, v in opd_kw.items() if k != "wavelength"}
+        pp, qp, psf_p = psf_polychromatic(tab_opt, poly, ngrid=64,
+                                          engine="adjoint", **kw_poly)
+    log("on axis after: PSF 128x128 peak %.6g (sum %.12g), MTF x at "
+        "index 4/8/16 %.6g %.6g %.6g, y %.6g %.6g %.6g; polychromatic PSF "
+        "(%d wavelengths) peak %.6g (sum %.12g)"
+        % (float(psf.max()), float(psf.sum()), *(float(mtf_x[i])
+                                                  for i in (4, 8, 16)),
+           *(float(mtf_y[i]) for i in (4, 8, 16)), len(poly),
+           float(psf_p.max()), float(psf_p.sum())))
+    failures = []
+    for name, v in (("PSF", psf), ("MTF x", mtf_x), ("MTF y", mtf_y),
+                    ("polychromatic PSF", psf_p)):
+        if not bool(torch.isfinite(v).all()):
+            failures.append(name + " not finite")
+    if abs(float(psf.sum()) - 1) > 1e-9 or abs(float(psf_p.sum()) - 1) > 1e-9:
+        failures.append("PSF sum")
+    if float(mtf_x[0]) != 1. or float(mtf_y[0]) != 1.:
+        failures.append("MTF(0)")
+    # the host OPD and Zernike fit on axis (numpy) against K8 on the card
+    g = GeometricTrace(s)
+    g.rays_point((0., 0.), nrays=N_HOST_OPD, distribution="hexapolar",
+                 filter=False)
+    hx, hy, hw = g.opd(resample=0)
+    coeff, resid = g.zernike(nterms=11)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        # the written-back system's own exit pupil and wavelength
+        kw_host = dict(opd_kw, specs=None, ref=g.ref, wavelength=g.l,
+                       radius=-s.image.pupil.distance)
+        cw, cl = adjoint_opd_rays(s.table(), torch.from_numpy(g.y[0]).to(DEVICE),
+                                  torch.from_numpy(g.u[0]).to(DEVICE),
+                                  with_pupil=True, **kw_host)
+    cw, cl = cw.detach().cpu().numpy(), cl.detach().cpu().numpy()
+    good = np.isfinite(hw)
+    host_err = float(np.abs(cw[good] - hw[good]).max())
+    land_err = float(max(np.abs(cl[good, 0] - hx[good]).max(),
+                         np.abs(cl[good, 1] - hy[good]).max()))
+    log("host cross-check on axis (%d rays): K8 f64 on the card vs "
+        "GeometricTrace.opd max |diff| %.3e waves (landing %.3e mm); host "
+        "wavefront peak-to-valley %.6g waves; Zernike (Noll) defocus %.6g, "
+        "spherical %.6g waves, fit residual %.3e"
+        % (int(good.sum()), host_err, land_err,
+           float(np.ptp(hw[good])), coeff[3], coeff[10], resid))
+    if not host_err <= HOST_OPD_ATOL:
+        failures.append("host OPD cross-check")
+    if not all(b < a for a, b in zip(hist[:-1], hist[1:])):
+        failures.append("the merit did not fall at every step")
+    if not merit_rel <= OPT_MERIT_REL:
+        failures.append("step 0 merit")
+    failures += ["step 0 gradient of " + k for k, v in grad_rel.items()
+                 if not v <= OPT_GRAD_REL]
+    if not np.isfinite(efl1):
+        failures.append("EFL after write-back")
+    path = ("weighted_moments", "merit_adjoint", "opd_chain", "opd_adjoint")
+    if not all(launches[k] for k in path):
+        failures.append("K4, K5, K8 or K9 never launched: %s" % launches)
+    if failures:
+        raise AssertionError("design path failed: " + ", ".join(failures))
+    return launches
+
+
+def step_breakdown(table, specs, wave, parts):
+    """Wall milliseconds of each part of the design merit's forward and
+    backward on the card (the gradients of curvature and offset), and
+    of the 3 one-ray sphere-centre traces the wavefront terms hold."""
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+
+    def centres(tab):
+        return sum(trace_rays_final(tab, y0[:1], u0[:1], clip=False,
+                                    specs=specs)[0].sum()
+                   for y0, u0, _, _ in wave)
+    named = dict(zip(("9 spot terms", "3 wavefront terms", "penalty",
+                      "3 sphere-centre traces"), (*parts, centres)))
+    out = {}
+    for name, part in named.items():
+        def run():
+            tab = table.replace(
+                curvature=table.curvature.detach().clone().requires_grad_(),
+                offset=table.offset.detach().clone().requires_grad_())
+            part(tab).backward()
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BREAKDOWN_REPS):
+            run()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0)/BREAKDOWN_REPS*1e3
+    return out
+
+
 def _wrappers():
     from rayopt_tpu_torch.ops import cuda_grad, cuda_trace
     return (cuda_trace.trace_final, cuda_trace.trace_merit,
             cuda_grad.weighted_moments, cuda_grad.merit_adjoint,
             cuda_trace.trace_multi, cuda_grad.weighted_moments_multi,
-            cuda_grad.merit_adjoint_multi)
+            cuda_grad.merit_adjoint_multi, cuda_grad.opd_chain,
+            cuda_grad.opd_adjoint)
 
 
 def reset_launches():
@@ -1027,6 +1535,65 @@ def phase_multi_throughput(tabs, specs, card):
     return times, live
 
 
+def phase_opd_throughput(s, table, specs, card):
+    """K8 and K9 (wavefront-RMS cotangents) against their plain versions
+    at N_GRAD_TIME rays in float32 and float64, then the two alone at
+    N_BENCH rays in float32.  Returns the times and the live rays of
+    the float32 timing bundle (K9's reverse runs for these only)."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
+    log("== K8/K9 throughput: %d bench rays (ray 0 the chief ray) against "
+        "the plain versions, then %d rays kernel alone (%s)"
+        % (N_GRAD_TIME, N_BENCH, card))
+
+    def setup(n, dtype):
+        state = opd_bundle(n, dtype, SEED + 1)
+        aux = opd_aux(s, table, specs, state)
+        k = opd_chain(table, specs, state, aux)
+        return state, aux, opd_cotangents(*k, "wavefront"), \
+            int(torch.isfinite(k[0]).sum())
+
+    def pairs(state, aux, cts):
+        return (
+            ("opd_chain",
+             lambda: opd_chain(table, specs, state, aux),
+             lambda: opd_chain_reference(table, specs, state, aux)),
+            ("opd_adjoint",
+             lambda: opd_adjoint(table, specs, state, aux, cts),
+             lambda: opd_adjoint_reference(table, specs, state, aux, cts)))
+    times, live = {}, 0
+    for dtype in (torch.float32, torch.float64):
+        state, aux, cts, nlive = setup(N_GRAD_TIME, dtype)
+        if dtype == torch.float32:
+            live = nlive
+        for name, kernel, plain in pairs(state, aux, cts):
+            # in turns: plain, kernel, kernel, plain
+            p1 = cuda_ms(plain, 3)
+            k1 = cuda_ms(kernel, 20)
+            k2 = cuda_ms(kernel, 20)
+            p2 = cuda_ms(plain, 3)
+            k, p = (k1 + k2)/2, (p1 + p2)/2
+            mem_k, mem_p = peak_gib(kernel), peak_gib(plain)
+            times[(name, dtype)] = (k, p)
+            log("%s %s: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
+                "(%.4f, %.4f), plain/kernel %.2fx | live rays %d | peak "
+                "memory %.3f vs %.3f GiB | %s"
+                % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k, nlive,
+                   mem_k, mem_p, card))
+        del state, cts
+        torch.cuda.empty_cache()
+    state, aux, cts, nlive = setup(N_BENCH, torch.float32)
+    for name, kernel, _ in pairs(state, aux, cts):
+        k = cuda_ms(kernel, 10)
+        times[(name, N_BENCH)] = k
+        log("%s float32 at %d rays: kernel %.4f ms, live rays %d, peak "
+            "memory %.3f GiB | plain: not run (memory) | %s"
+            % (name, N_BENCH, k, nlive, peak_gib(kernel), card))
+    del state, cts
+    torch.cuda.empty_cache()
+    return times, live
+
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s, and flop/s outside the tensor cores by dtype
 PEAK_BYTES = 3.35e12
@@ -1056,16 +1623,28 @@ def chain_flops(specs):
             + 30*(int(specs[0].rotated) + int(specs[-1].rotated)))
 
 
+# operations of K8's reference-sphere tail (image-row shift, the
+# intercept's dot products, square root and divisions, k, lx, ly) and
+# of its hand-written reverse
+OPD_TAIL_FLOPS = 40
+OPD_TAIL_VJP_FLOPS = 70
+
+
 def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
     """(bound_ms, bound_by) of one launch at n rays: the larger of the
     bytes it must move (each input read once, each output written once)
     over the HBM rate and its operations over the dtype's peak.  The
-    reverse sweeps of K5/K7 run only for live rays (`live`: live ray
+    reverse sweeps of K5/K7/K9 run only for live rays (`live`: live ray
     traces, summed over wavelengths) and are counted as 3x the forward
-    chain (PERF.md's estimate for the adjoint) plus the seeding."""
+    chain (PERF.md's estimate for the adjoint) plus the seeding (K9:
+    the tail's reverse)."""
     word = 4 if dtype == torch.float32 else 8
     chain = chain_flops(specs)
+    # K8's chain stops at row S-2 and adds the sphere tail
+    opd = chain - row_flops(specs[-1]) + OPD_TAIL_FLOPS
     words_in, words_out, flops = {
+        "opd_chain": (6, 3, n*opd),
+        "opd_adjoint": (9, 6, n*opd + live*(3*opd + OPD_TAIL_VJP_FLOPS)),
         "trace_final": (6, 7, n*chain),
         "trace_merit": (6, 0, n*(chain + 7)),
         "trace_multi": (6, 0, n*nlam*(chain + 7)),
@@ -1074,7 +1653,9 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
         "merit_adjoint": (7, 7, n*chain + live*(3*chain + 11)),
         "merit_adjoint_multi": (7, 7, n*nlam*chain + live*(3*chain + 11)),
     }[name]
-    nbytes = (n*(words_in + words_out) + nlam*len(specs)*17)*word \
+    # K9 also writes its parameter and centre cotangents
+    slots = len(specs)*7 + 3 if name == "opd_adjoint" else 0
+    nbytes = (n*(words_in + words_out) + nlam*len(specs)*17 + slots)*word \
         + 4*len(specs)
     t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops)*1e3, ("bytes" if t_bytes >= t_ops
@@ -1097,6 +1678,8 @@ def main():
     phase_fd_check(table, specs)
     worst.update(phase_multi_check(tabs, mspecs))
     phase_glass_fd_check(s, tabs, mspecs)
+    worst.update(phase_opd_check(s, table, specs))
+    phase_opd_fd_check(s, table, specs)
     reset_launches()
     phase_main_path()
     launches = read_launches()
@@ -1115,9 +1698,13 @@ def main():
         raise AssertionError("a kernel of the achromatization path never "
                              "launched: %s" % glass_launches)
     launches.update({k: glass_launches[k] for k in multi})
+    design_launches = phase_design_path()
+    opd = ("opd_chain", "opd_adjoint")
+    launches.update({k: design_launches[k] for k in opd})
     times = phase_throughput(table, specs, card)
     gtimes = phase_grad_throughput(table, specs, card)
     mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
+    otimes, olive = phase_opd_throughput(s, table, specs, card)
     # live rays of the K5 timing bundle (its reverse runs for these only)
     live_mono = float(trace_merit(table, specs, bench_bundle(
         N_GRAD_TIME, torch.float32, SEED + 1))[0])
@@ -1131,7 +1718,9 @@ def main():
         "trace_multi": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:284"),
         "weighted_moments_multi": (grad_cu,
                                    "rayopt_tpu/ops/pallas_grad.py:248"),
-        "merit_adjoint_multi": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:421")}
+        "merit_adjoint_multi": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:421"),
+        "opd_chain": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:1077"),
+        "opd_adjoint": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:1094")}
     nlam = tabs.curvature.shape[0]
     kernels = []
     for kname, (source, replaces) in sources.items():
@@ -1140,6 +1729,8 @@ def main():
                 mlive[torch.float32]
         elif kname in ("weighted_moments", "merit_adjoint"):
             tt, rays, lam, live = gtimes, N_GRAD_TIME, 1, live_mono
+        elif kname in opd:
+            tt, rays, lam, live = otimes, N_GRAD_TIME, 1, olive
         else:
             tt, rays, lam, live = times, N_BENCH, 1, 0
         k32, p32 = tt[(kname, torch.float32)][:2]

@@ -90,6 +90,18 @@ class KernelLibrary:
             fn.argtypes = [ptr, ptr, i32, i32, i32] + [ptr]*16 + [
                 i64, i32, i32, ptr]
             fn.restype = i32
+            # table, flags, nsurf, clip, 6 rays, aux, k, lx, ly, n, grid,
+            # block, stream
+            fn = getattr(self._lib, "opd_chain_" + dt)
+            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*10 + [i64, i32,
+                                                             i32, ptr]
+            fn.restype = i32
+            # ... 6 rays, aux, ct_k, ct_lx, ct_ly, partials, 6 ray
+            # cotangents, n, grid, block, stream
+            fn = getattr(self._lib, "opd_adjoint_" + dt)
+            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*17 + [i64, i32,
+                                                             i32, ptr]
+            fn.restype = i32
         self._lib.trace_error_string.argtypes = [i32]
         self._lib.trace_error_string.restype = ctypes.c_char_p
 

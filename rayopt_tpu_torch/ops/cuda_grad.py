@@ -43,19 +43,35 @@ when such a parameter is the one being optimized.  rot is not
 differentiated: a rot (or tilt) that requires grad while some spec row
 is rotated raises NotImplementedError.
 
+K8 `opd_chain` and K9 `opd_adjoint` are the exit-pupil wavefront
+plane (`pallas_grad._opd_kernel`, `_opd_adjoint_kernel`): K8 traces
+rows 1..S-2 summing the optical path, steps to the image row,
+intercepts the reference sphere (centre, radius and wavelength scale
+in a (5,) aux tensor) and returns k = -(path to the sphere)/lam_scale
+and the landing x, y per ray; K9 is its analytic adjoint, with the
+path cotangent feeding every row's t and n_before, so it returns
+OPD_SLOTS = 7 parameter cotangents a row (K5's six and n_before) and
+the centre's three.  `adjoint_opd_rays` and `adjoint_wavefront_rms`
+bind them in `_OpdRays` (the reference's custom_vjp `_opd`); the
+sphere centre, the input-plane term and k - k[ref] stay outside the
+kernel, in autograd.
+
 The kernels are hand-written CUDA C++ (csrc/grad.cu), built with the
 K1/K2 library (ops.cuda_build).  A wrapper takes the plain PyTorch
 version (`weighted_moments_reference`, `merit_adjoint_reference`,
-`weighted_moments_multi_reference`, `merit_adjoint_multi_reference`)
-only for a bundle on the CPU; for a CUDA bundle it launches its kernel
-or raises.  Each wrapper counts its launches in `<wrapper>.launches`.
-`_step_vjp_reference`, `_merit_adjoint_by_hand` and
-`_merit_adjoint_multi_by_hand` write the kernels' hand-derived reverse
-in torch, line for line, so the CPU tests can hold it against
-autograd; nothing else calls them.
+`weighted_moments_multi_reference`, `merit_adjoint_multi_reference`,
+`opd_chain_reference`, `opd_adjoint_reference`) only for a bundle on
+the CPU; for a CUDA bundle it launches its kernel or raises.  Each
+wrapper counts its launches in `<wrapper>.launches`.
+`_step_vjp_reference`, `_merit_adjoint_by_hand`,
+`_merit_adjoint_multi_by_hand`, `_opd_tail_vjp_reference` and
+`_opd_adjoint_by_hand` write the kernels' hand-derived reverse in
+torch, line for line, so the CPU tests can hold it against autograd;
+nothing else calls them.
 """
 
 import warnings
+from typing import NamedTuple
 
 import torch
 
@@ -67,6 +83,8 @@ from .tables import lower_pose, table_at
 
 MAX_ROWS = 32   # saved states a K5 thread keeps: keep in sync with grad.cu
 SLOTS = 6       # parameter cotangents a row: c, k, offset x/y/z, mu
+OPD_SLOTS = 7   # K9's a row: SLOTS and n_before
+AUX = 5         # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
 #: differentiable table fields the autograd Function carries
 _DIFF = ("curvature", "conic", "offset", "mu", "n_before")
@@ -184,17 +202,145 @@ def merit_adjoint_multi_reference(tables, specs, state, w, ct, clip=False):
                             w, ct, clip)
 
 
+class _Tail(NamedTuple):
+    """The reference-sphere tail's intermediates (SphereTail in
+    csrc/grad.cu)."""
+    px: torch.Tensor
+    py: torch.Tensor
+    pz: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    cc: torch.Tensor
+    d: torch.Tensor
+    e: torch.Tensor
+    f: torch.Tensor
+    sq: torch.Tensor
+    ti: torch.Tensor
+
+
+def _sphere_tail(state, surf, spec, aux):
+    """The state leaving row S-2 (global frame) stepped to the image row
+    `surf`, rotated into its frame, moved to the reference sphere's
+    centre aux[:3] and intercepted with the sphere of radius aux[3] in
+    closed form (pallas_grad._opd_tail; a miss is NaN)."""
+    px, py = state[0], state[1]
+    if spec.off_axis:
+        px = px - surf.offset[0]
+        py = py - surf.offset[1]
+    pz = state[2] - surf.offset[2]
+    dx, dy, dz = state[3], state[4], state[5]
+    if spec.rotated:
+        px, py, pz = K.rot_apply(surf.rot, px, py, pz)
+        dx, dy, dz = K.rot_apply(surf.rot, dx, dy, dz)
+    radius = aux[3]
+    px = px - aux[0]
+    py = py - aux[1]
+    pz = pz - aux[2] + radius
+    cc = 1./radius
+    uyd = dx*px + dy*py + dz*pz
+    uu = dx*dx + dy*dy + dz*dz
+    yy = px*px + py*py + pz*pz
+    d = cc*uyd - dz
+    e = cc*uu
+    f = cc*yy - 2*pz
+    sq = torch.sqrt(d*d - e*f)     # NaN on a miss, deliberately
+    return _Tail(px, py, pz, dx, dy, dz, cc, d, e, f, sq, -(d + sq)/e)
+
+
+def _opd_chain(tab, specs, state, aux, clip):
+    """K8's computation in torch: (k, lx, ly) per ray, and the states
+    entering rows 1..S-2 (index j; None at 0) with the tail's
+    intermediates for the hand-written reverse."""
+    nsurf = tab.nsurfaces
+    s = tuple(state)
+    if specs[0].rotated:
+        r0 = tab.rot[0]
+        s = (*K.rot_apply_t(r0, *s[:3]), *K.rot_apply_t(r0, *s[3:]))
+    path = torch.zeros_like(s[0])
+    saved = [None]
+    for j in range(1, nsurf - 1):
+        saved.append(s)
+        s, out = K.surface_step_spec(s, tab.row(j), specs[j], clip)
+        path = path + out[3]
+    img = tab.row(nsurf - 1)
+    o = _sphere_tail(s, img, specs[nsurf - 1], aux)
+    k = -(path + o.ti*img.n_before)/aux[4]
+    return (k, o.px + o.ti*o.dx, o.py + o.ti*o.dy), saved, o
+
+
+def _check_opd(table, specs, state, aux):
+    _check_state(state)
+    if len(specs) < 3:
+        raise ValueError("the OPD needs object, exit and image rows, got "
+                         "%d rows" % len(specs))
+    _check_vector(aux, state, "aux", (AUX,))
+
+
+def opd_chain_reference(table, specs, state, aux, clip=False):
+    """Plain PyTorch version of K8: (k, lx, ly), each (N,) in the state's
+    dtype -- k = -(optical path to the reference sphere)/lam_scale and
+    the landing coordinates on the sphere, for aux = (centre x, y, z,
+    radius, lam_scale)."""
+    tab = _constant_table(table, state[0])
+    return _opd_chain(tab, specs, state, aux, clip)[0]
+
+
+def _opd_cotangent_rows(tab, grads):
+    """(S, OPD_SLOTS) rows from the table-field gradients (c, k, offset,
+    mu, n_before)."""
+    return torch.stack([grads[0], grads[1], grads[2][:, 0], grads[2][:, 1],
+                        grads[2][:, 2], grads[3], grads[4]], 1)
+
+
+def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
+    """Plain PyTorch version of K9: torch autograd through the plain
+    chain and tail of K8 dotted with cts = (ct_k, ct_lx, ct_ly).  A
+    no-grad pre-trace finds the live rays (finite k); each dead ray is
+    traced as the first live one (no NaN enters autograd) with zero
+    cotangents.  Returns (parameter cotangents (S, OPD_SLOTS): c, k,
+    offset x, y, z, mu, n_before; the six state cotangents; the (3,)
+    centre cotangents), in the state's dtype."""
+    x0 = state[0]
+    tab = _constant_table(table, x0)
+    with torch.no_grad():
+        alive = torch.isfinite(_opd_chain(tab, specs, state, aux, clip)[0][0])
+    pg = torch.zeros((tab.nsurfaces, OPD_SLOTS), dtype=x0.dtype,
+                     device=x0.device)
+    if not bool(alive.any()):
+        return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
+            torch.zeros(3, dtype=x0.dtype, device=x0.device)
+    i0 = int(torch.argmax(alive.to(torch.uint8)))
+    leaves = [tab.curvature, tab.conic, tab.offset, tab.mu, tab.n_before,
+              *state, aux]
+    leaves = [v.detach().clone().requires_grad_() for v in leaves]
+    with torch.enable_grad():
+        sub = tuple(torch.where(alive, s, s[i0]) for s in leaves[5:11])
+        t2 = tab.replace(**dict(zip(_DIFF, leaves[:5])))
+        outs = _opd_chain(t2, specs, sub, leaves[11], clip)[0]
+        total = sum((o*torch.where(alive, c.to(o.dtype), 0.)).sum()
+                    for o, c in zip(outs, cts))
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(v) if g is None else g
+             for v, g in zip(leaves, grads)]
+    return (_opd_cotangent_rows(tab, grads), tuple(grads[5:11]),
+            grads[11][:3])
+
+
 # -- the kernel's reverse, written by hand in torch (test-only) ----------
 
-def _step_vjp_reference(state, surf, spec, g):
+def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     """Hand-derived reverse of kernels.surface_step_spec for live rays,
     the line-for-line model of `surface_step_vjp` in csrc/grad.cu.
 
     state: the six components entering the row (global frame); g: the
-    cotangent of the six components leaving it.  Returns (cotangent of
-    the entering state, per-ray parameter cotangents (c, k, offset x,
-    y, z, mu)).  The aperture clip is a constant mask: a clipped ray is
-    dead, and dead rays never reach the reverse sweep."""
+    cotangent of the six components leaving it; ct_path: the cotangent
+    of the row's optical path t * n_before (K9's PATH instantiation), or
+    None (K5's: the path has no cotangent).  Returns (cotangent of the
+    entering state, per-ray parameter cotangents (c, k, offset x, y, z,
+    mu, and with ct_path n_before)).  The aperture clip is a constant
+    mask: a clipped ray is dead, and dead rays never reach the reverse
+    sweep."""
     K.check_supported(spec)
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
@@ -315,6 +461,9 @@ def _step_vjp_reference(state, surf, spec, g):
     gx, gy, gz = gx1, gy1, gz1
     gux, guy, guz = gux + t*gx1, guy + t*gy1, guz + t*gz1
     gt = ux*gx1 + uy*gy1 + uz*gz1
+    if ct_path is not None:
+        gt = gt + ct_path*surf.n_before
+        gnb = ct_path*t
     # ---- reverse: intercept ----
     if spec.flat:
         gz = gz - gt/uzs
@@ -358,7 +507,10 @@ def _step_vjp_reference(state, surf, spec, g):
         gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
     gox = -gx if spec.off_axis else zero
     goy = -gy if spec.off_axis else zero
-    return (gx, gy, gz, gux, guy, guz), (gc, gk, gox, goy, -gz, gmu)
+    pg = (gc, gk, gox, goy, -gz, gmu)
+    if ct_path is not None:
+        pg = pg + (gnb,)
+    return (gx, gy, gz, gux, guy, guz), pg
 
 
 def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
@@ -406,6 +558,70 @@ def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False):
     as merit_adjoint_multi_reference."""
     return _sum_over_tables(_merit_adjoint_by_hand, tables, specs, state,
                             w, ct, clip)
+
+
+def _opd_tail_vjp_reference(surf, spec, o, ct_q, ct_lx, ct_ly):
+    """Hand-derived reverse of the sphere tail for live rays, the
+    line-for-line model of `sphere_tail_vjp` in csrc/grad.cu.  o: the
+    tail's intermediates (_sphere_tail); ct_q, ct_lx, ct_ly: the
+    cotangents of q = ti * n_image and of the landing x, y.  Returns
+    (cotangent of the state leaving row S-2, the image row's per-ray
+    parameter cotangents (OPD_SLOTS), the centre cotangents (3))."""
+    zero = torch.zeros_like(o.ti)
+    gti = ct_q*surf.n_before + ct_lx*o.dx + ct_ly*o.dy
+    gpx, gpy, gpz = ct_lx, ct_ly, zero
+    gdx, gdy, gdz = ct_lx*o.ti, ct_ly*o.ti, zero
+    gd = -gti/o.e
+    gsq = gd
+    ge = gti*(o.d + o.sq)/(o.e*o.e)
+    gdisc = gsq*.5/o.sq
+    gd = gd + 2*o.d*gdisc
+    ge = ge - o.f*gdisc
+    gf = -o.e*gdisc
+    guyd, guu, gyy = o.cc*gd, o.cc*ge, o.cc*gf
+    gdz = gdz - gd
+    gpz = gpz - 2*gf
+    gdx = gdx + o.px*guyd + 2*o.dx*guu
+    gdy = gdy + o.py*guyd + 2*o.dy*guu
+    gdz = gdz + o.pz*guyd + 2*o.dz*guu
+    gpx = gpx + o.dx*guyd + 2*o.px*gyy
+    gpy = gpy + o.dy*guyd + 2*o.py*gyy
+    gpz = gpz + o.dz*guyd + 2*o.pz*gyy
+    gc = (-gpx, -gpy, -gpz)
+    if spec.rotated:
+        gpx, gpy, gpz = K.rot_apply_t(surf.rot, gpx, gpy, gpz)
+        gdx, gdy, gdz = K.rot_apply_t(surf.rot, gdx, gdy, gdz)
+    pg = (zero, zero, -gpx if spec.off_axis else zero,
+          -gpy if spec.off_axis else zero, -gpz, zero, ct_q*o.ti)
+    return (gpx, gpy, gpz, gdx, gdy, gdz), pg, gc
+
+
+def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
+    """K9 written in torch with _opd_tail_vjp_reference and
+    _step_vjp_reference(ct_path=), the model of `opd_adjoint_kernel` in
+    csrc/grad.cu: same outputs as opd_adjoint_reference."""
+    x0 = state[0]
+    tab = _constant_table(table, x0)
+    nsurf = tab.nsurfaces
+    (k, _, _), saved, o = _opd_chain(tab, specs, state, aux, clip)
+    live = torch.isfinite(k)
+    ct_k, ct_lx, ct_ly = (torch.where(live, c, 0.) for c in cts)
+    ct_path = -ct_k/aux[4]
+    g, pj, gc = _opd_tail_vjp_reference(tab.row(nsurf - 1), specs[nsurf - 1],
+                                        o, ct_path, ct_lx, ct_ly)
+    g = tuple(torch.where(live, v, 0.) for v in g)
+    pg = torch.zeros((nsurf, OPD_SLOTS), dtype=x0.dtype, device=x0.device)
+    pg[nsurf - 1] = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+    gcen = torch.stack([torch.where(live, v, 0.).sum() for v in gc])
+    for j in range(nsurf - 2, 0, -1):
+        g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g,
+                                    ct_path=ct_path)
+        g = tuple(torch.where(live, v, 0.) for v in g)
+        pg[j] = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+    if specs[0].rotated:
+        r0 = tab.rot[0]
+        g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
+    return pg, g, gcen
 
 
 # -- the CUDA wrappers ---------------------------------------------------
@@ -574,6 +790,69 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False):
 
 
 merit_adjoint_multi.launches = 0
+
+
+def opd_chain(table, specs, state, aux, clip=False):
+    """K8: (k, lx, ly), each (N,) in the rays' dtype, for aux = (centre
+    x, y, z, radius, lam_scale), a (5,) tensor on the rays' device
+    (k = -(optical path to the reference sphere)/lam_scale; lx, ly the
+    landing on the sphere about its centre).  CUDA bundles launch the
+    kernel; CPU bundles take opd_chain_reference."""
+    _check_opd(table, specs, state, aux)
+    if state[0].device.type == "cpu":
+        return opd_chain_reference(table, specs, state, aux, clip)
+    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
+        table, specs, state, smem_extra_words=AUX)
+    outs = [torch.empty_like(state[0]) for _ in range(3)]
+    if n:
+        err = getattr(lib, "opd_chain_" + suffix)(
+            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
+            *(c.data_ptr() for c in state), aux.data_ptr(),
+            *(o.data_ptr() for o in outs), n, grid, BLOCK, stream)
+        _raise_on(lib, err, "opd_chain")
+        opd_chain.launches += 1
+    return tuple(outs)
+
+
+opd_chain.launches = 0
+
+
+def opd_adjoint(table, specs, state, aux, cts, clip=False):
+    """K9: (parameter cotangents (S, OPD_SLOTS): c, k, offset x, y, z,
+    mu, n_before; the six state cotangents; the (3,) centre cotangents)
+    of K8's outputs dotted with cts = (ct_k, ct_lx, ct_ly), three (N,)
+    tensors on the rays' device.  CUDA bundles launch the kernel
+    (per-block partials, then one torch sum over blocks); CPU bundles
+    take opd_adjoint_reference."""
+    _check_opd(table, specs, state, aux)
+    for name, c in zip(("ct_k", "ct_lx", "ct_ly"), cts):
+        _check_vector(c, state, name)
+    if state[0].device.type == "cpu":
+        return opd_adjoint_reference(table, specs, state, aux, cts, clip)
+    nsurf = len(specs)
+    if nsurf > MAX_ROWS:
+        raise ValueError("opd_adjoint keeps at most %d rows a ray, the "
+                         "table has %d" % (MAX_ROWS, nsurf))
+    slots = nsurf*OPD_SLOTS + 3
+    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
+        table, specs, state, smem_extra_words=AUX + (BLOCK // 32)*slots)
+    x = state[0]
+    partials = torch.zeros((grid, slots), dtype=x.dtype, device=x.device)
+    outs = [torch.zeros_like(x) for _ in range(6)]
+    if n:
+        err = getattr(lib, "opd_adjoint_" + suffix)(
+            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
+            *(c.data_ptr() for c in state), aux.data_ptr(),
+            *(c.data_ptr() for c in cts), partials.data_ptr(),
+            *(o.data_ptr() for o in outs), n, grid, BLOCK, stream)
+        _raise_on(lib, err, "opd_adjoint")
+        opd_adjoint.launches += 1
+    tot = partials.sum(0)
+    return (tot[:nsurf*OPD_SLOTS].reshape(nsurf, OPD_SLOTS), tuple(outs),
+            tot[nsurf*OPD_SLOTS:])
+
+
+opd_adjoint.launches = 0
 
 
 # -- the differentiable merit --------------------------------------------
@@ -764,3 +1043,116 @@ def polychromatic_spot_rms(tables, y0, u0, w=None, specs=None, clip=False,
     mom = spot_moments_multi(tables, state, torch.as_tensor(w)/nlam,
                              specs=specs, clip=clip, diff_pose=diff_pose)
     return union_spot_rms_from_moments(mom)
+
+
+# -- the differentiable per-ray OPD --------------------------------------
+
+class _OpdRays(torch.autograd.Function):
+    """K8 forward, K9 backward (the reference's custom_vjp `_opd`):
+    table fields, ray state and the aux vector in; k, lx, ly out."""
+
+    @staticmethod
+    def forward(ctx, table, specs, clip, *tensors):
+        params, state, aux = tensors[:5], tensors[5:11], tensors[11]
+        ctx.table, ctx.specs, ctx.clip = table, specs, clip
+        ctx.save_for_backward(*tensors)
+        tab = table.replace(**dict(zip(_DIFF, params)))
+        return opd_chain(tab, specs, state, aux, clip)
+
+    @staticmethod
+    def backward(ctx, ct_k, ct_lx, ct_ly):
+        tensors = ctx.saved_tensors
+        params, state, aux = tensors[:5], tensors[5:11], tensors[11]
+        tab = ctx.table.replace(**dict(zip(_DIFF, params)))
+        pg, ct_state, ct_c = opd_adjoint(
+            tab, ctx.specs, state, aux,
+            tuple(c.contiguous() for c in (ct_k, ct_lx, ct_ly)), ctx.clip)
+        grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
+                 pg[:, 6])
+        # radius and lam_scale are constants of the merit
+        ct_aux = torch.cat([ct_c, torch.zeros_like(ct_c[:2])])
+        return (None, None, None, *grads, *ct_state, ct_aux)
+
+
+def adjoint_opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
+                     scale=1e-3, finite=False, with_pupil=False, specs=None,
+                     clip=False, diff_pose=None):
+    """Per-ray optical path difference on the exit-pupil reference
+    sphere, in waves, through K8, differentiable through the analytic
+    adjoint K9 -- the production-scale counterpart of
+    parallel.grad.opd_rays (the JAX package's pallas_opd_rays).  With
+    with_pupil also the ref-centred landing coordinates (N, 2) on the
+    sphere (tilt removal, Strehl, pupil grids).
+
+    The reference ray `ref` must be alive.  Its image point, the sphere
+    centre, comes from a one-ray differentiable plain trace, and the
+    finite=False input-plane term -n0 (y0 . u0[ref])/lam_scale and the
+    k - k[ref] difference stay outside the kernel, so gradients reach
+    the sphere placement and the bundle exactly as in the plain engine.
+    Gradients reach curvature, conic, offset, mu and n_before (K9's
+    slots), the rays, and through tables.lower_pose decenter; a rot or
+    tilt that requires grad while a spec row is rotated raises
+    NotImplementedError."""
+    from .geometric import trace_rays_final
+    specs = _resolve_specs(table, specs, diff_pose)
+    table = lower_pose(table)
+    if table.rot.requires_grad and any(s.rotated for s in specs):
+        raise NotImplementedError(
+            "the adjoint OPD does not differentiate rot/tilt yet (the rot "
+            "cotangent, ROADMAP Queue 1 item 9); use parallel.grad.opd_rays "
+            "for pose gradients")
+    y0 = torch.as_tensor(y0)
+    u0 = torch.as_tensor(u0)
+    x = y0
+    params = {f: getattr(table, f) for f in _FIELDS
+              if f not in ("aspherics", "aspherics_odd")
+              or getattr(table, f).shape[-1]}
+    _warn_baked_params(specs, params)
+    # the sphere centre: the reference ray's image point (local frame),
+    # one differentiable ray through the plain trace
+    yr, _, _ = trace_rays_final(table, y0[ref:ref + 1], u0[ref:ref + 1],
+                                clip=False, specs=specs)
+    lam_scale = wavelength/scale
+    aux = torch.cat([yr[0], torch.as_tensor(
+        [float(radius), lam_scale], dtype=x.dtype).to(x.device)])
+    diff = [getattr(table, f).to(device=x.device, dtype=x.dtype)
+            for f in _DIFF]
+    state = tuple(c.contiguous() for c in (*K.split(y0), *K.split(u0)))
+    k, lx, ly = _OpdRays.apply(_constant_table(table, x), specs, bool(clip),
+                               *diff, *state, aux)
+    if not finite:
+        # the input reference plane normal to the chief ray: a linear
+        # term of the bundle, outside the kernel
+        k = k - diff[4][0]*(y0 @ u0[ref])/lam_scale
+    waves = k - k[ref]
+    if not with_pupil:
+        return waves
+    return waves, torch.stack([lx - lx[ref], ly - ly[ref]], 1)
+
+
+def adjoint_wavefront_rms(table, y0, u0, w=None, ref=0, radius=None,
+                          wavelength=None, scale=1e-3, finite=False,
+                          specs=None, clip=False, diff_pose=None):
+    """Weighted RMS wavefront error (waves, piston removed) through K8,
+    differentiable through K9 -- the production-scale counterpart of
+    parallel.grad.wavefront_rms (the JAX package's
+    pallas_wavefront_rms).  NaN (vignetted) rays drop out of the
+    moments and carry zero cotangent."""
+    opd = adjoint_opd_rays(table, y0, u0, ref=ref, radius=radius,
+                           wavelength=wavelength, scale=scale, finite=finite,
+                           specs=specs, clip=clip, diff_pose=diff_pose)
+    return wavefront_rms_of(opd, w)
+
+
+def wavefront_rms_of(opd, w=None):
+    """Weighted RMS about the weighted mean of per-ray OPD samples (in
+    waves), over the finite ones (w defaults to 1/N)."""
+    if w is None:
+        w = torch.ones(opd.shape[0], dtype=opd.dtype,
+                       device=opd.device)/opd.shape[0]
+    good = torch.isfinite(opd)
+    wg = torch.where(good, torch.as_tensor(w).to(opd), 0.)
+    o = torch.where(good, opd, 0.)
+    wsum = wg.sum()
+    mean = (wg*o).sum()/wsum
+    return torch.sqrt((wg*torch.square(o - mean)).sum()/wsum + 1e-30)

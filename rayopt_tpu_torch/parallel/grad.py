@@ -14,6 +14,11 @@ Two engines compute the spot-RMS merit:
   a CUDA bundle, their plain versions on a CPU bundle.  No autograd
   residuals; specialized-engine gradient semantics.
 
+The wavefront merits follow the same split: opd_rays/wavefront_rms
+here are autograd through the plain trace's full history, and
+ops.cuda_grad.adjoint_opd_rays/adjoint_wavefront_rms run the OPD
+kernel (K8) forward and its adjoint (K9) backward.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): ray sharding over a device mesh (`mesh`), checkpointed resume
 (`checkpoint_dir`), fused multi-step dispatch (`jit_steps`), and pose
@@ -188,6 +193,82 @@ def composite_merit(*parts):
     def merit(table):
         return sum(part(table) for part in parts)
     return merit
+
+
+def opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
+             scale=1e-3, finite=False, sphere_offset=None,
+             with_pupil=False, biconic=False, specs=None):
+    """Per-ray optical path difference on the exit-pupil reference
+    sphere, in waves -- the differentiable torch mirror of
+    GeometricTrace.opd without the grid resample (the "xla" engine:
+    autograd through the plain trace with its full history).
+
+    radius: reference-sphere radius (e.g. -image.pupil.distance);
+    sphere_offset: optional override for the lab-frame step from the
+    second-to-last surface to the image surface (a scalar axial
+    distance; defaults to the table's own offset, which also covers
+    decentered ends).  Tilted/decentered end elements are handled
+    exactly: the rays at the exit surface are rotated out of its normal
+    frame, shifted by the lab-frame gap and rotated into the image
+    surface's normal frame before the sphere intercept.  with_pupil
+    also returns the ref-centred landing coordinates (N, 2) on the
+    sphere."""
+    from ..ops.geometric import trace_rays
+    from ..ops.surfaces import intercept_conic
+    from ..ops.tables import lower_pose
+    _no_biconic(biconic)
+    y0 = torch.as_tensor(y0)
+    u0 = torch.as_tensor(u0)
+    # fold pose deltas here too: the exit/image frame reads below must
+    # see the same tilt/decenter the trace used
+    table = lower_pose(table).to(device=y0.device, dtype=y0.dtype)
+    y, u, i, t = trace_rays(table, y0, u0, specs=specs)
+    tsum = (t[:-1] - t[:-1, ref][:, None]).sum(0)
+    if not finite:
+        # input reference is a plane normal to the chief ray
+        tj = (u0[ref]*(y0[ref] - y0)).sum(-1)
+        tsum = tsum - tj*table.n_before[0]
+    if sphere_offset is None:
+        gap = -table.offset[-1]
+        if specs is not None and not specs[-1].off_axis:
+            # the specialized trace baked out the image row's transverse
+            # offset; the gap must see the same geometry
+            gap = gap*torch.tensor([0., 0., 1.], dtype=gap.dtype,
+                                   device=gap.device)
+    else:
+        sphere_offset = torch.as_tensor(sphere_offset).to(y)
+        gap = -torch.cat([torch.zeros(2, dtype=y.dtype, device=y.device),
+                          sphere_offset.reshape(1)])
+    # exit-surface normal frame -> lab frame -> image normal frame
+    rot_exit, rot_image = table.rot[-2], table.rot[-1]
+    ya = (y[-2] @ rot_exit + gap) @ rot_image.T - y[-1, ref]
+    ua = (u[-2] @ rot_exit) @ rot_image.T
+    ya = ya + ya.new_tensor([0., 0., float(radius)])
+    ti = intercept_conic(ya, ua, 1./radius, 0.*radius, 0.)
+    tsum = tsum + (ti - ti[ref])*table.n_before[-1]
+    waves = -tsum/(wavelength/scale)
+    if not with_pupil:
+        return waves
+    # transverse landing coordinates on the reference sphere, centred on
+    # the reference ray (the host opd's x, y)
+    landing = ya + ti[:, None]*ua
+    landing = landing - landing[ref]
+    return waves, landing[:, :2]
+
+
+def wavefront_rms(table, y0, u0, w=None, ref=0, radius=None,
+                  wavelength=None, scale=1e-3, finite=False, biconic=False,
+                  specs=None):
+    """Weighted RMS wavefront error (waves, piston removed) -- a
+    differentiable wavefront merit.  Pass specs for the statically
+    specialized engine (the parity twin of
+    ops.cuda_grad.adjoint_wavefront_rms, which shares its baked-out
+    gradient semantics)."""
+    from ..ops.cuda_grad import wavefront_rms_of
+    opd = opd_rays(table, y0, u0, ref=ref, radius=radius,
+                   wavelength=wavelength, scale=scale, finite=finite,
+                   biconic=biconic, specs=specs)
+    return wavefront_rms_of(opd, w)
 
 
 def bundles_from_system(system, fields=None, wavelengths=None,

@@ -13,9 +13,9 @@ surface's vertex-normal frame:
 * ``t``  path-length increment to reach the surface
 * ``n``  refractive index after the surface
 
-Analysis primitives (refocus/RMS) and bundle factories
-(rays_point/clipping) operate on that block.  The wavefront analyses
-(OPD/PSF/Zernike) and rays_line are not ported yet.
+Analysis primitives (refocus/OPD/PSF/RMS/Zernike) and bundle
+factories (rays_point/clipping) operate on that block.  rays_line is
+not ported yet.
 """
 
 import itertools
@@ -42,6 +42,47 @@ def _complete_bundle(y, u):
         aim[:, 2] = np.sqrt(1. - np.einsum("ij,ij->i", aim[:, :2],
                                            aim[:, :2]))
     return pos, aim
+
+
+def _grid_resample(x, y, t, samples):
+    """Scatter the (x, y, t) wavefront samples onto a square grid
+    spanning the pupil footprint (linear interpolation, NaN outside
+    the convex hull).  t may be (N,) or (N, m) (one shared
+    triangulation, vector-valued interpolation)."""
+    from scipy.interpolate import griddata
+    t = np.asarray(t)
+    tfin = (np.isfinite(t) if t.ndim == 1
+            else np.isfinite(t).all(axis=1))
+    finite = np.isfinite(x) & np.isfinite(y) & tfin
+    if not finite.any():
+        raise ValueError("no rays made it through")
+    x, y, t = x[finite], y[finite], t[finite]
+    half = max(np.abs(x).max(), np.abs(y).max())
+    axis = np.linspace(-half, half, samples)
+    gx, gy = np.meshgrid(axis, axis, indexing="ij")
+    gt = griddata((x, y), t, (gx, gy), method="linear",
+                  fill_value=np.nan)
+    return gx, gy, gt
+
+
+def _fraunhofer_psf(grids, step, wavelength, scale, radius, pad):
+    """Shared Fraunhofer tail: normalize the pupil grid(s) by the lit
+    sample count, zero-pad, FFT, and sum intensities incoherently
+    across grids.  Returns (p, q, psf) on the angular-frequency
+    conventions of GeometricTrace.psf."""
+    lit = np.zeros(grids[0].shape, bool)
+    for g in grids:
+        lit |= g != 0
+    norm = np.sqrt(np.count_nonzero(lit))
+    padded = tuple(pad*s for s in grids[0].shape)
+    psf = 0.
+    for g in grids:
+        field = np.fft.fft2(g/norm, padded)
+        psf = psf + np.abs(field)**2/field.size
+    cycles = scale/wavelength  # waves per unit length
+    freq = np.fft.fftfreq(padded[0], step*cycles/radius)
+    p, q = np.broadcast_arrays(freq[:, None], freq)
+    return p, q, psf
 
 
 class GeometricTrace(Trace):
@@ -108,6 +149,68 @@ class GeometricTrace(Trace):
         shift = -(w * xy * slope).sum() / (w * slope * slope).sum()
         self.system[at].distance += shift
         self.propagate()
+
+    def _sphere_radius(self, after, image):
+        """Exit-pupil reference-sphere radius: image-to-pupil distance,
+        or the axial gap for telecentric image space."""
+        if self.system.image.pupil.telecentric:
+            return self.track[image] - self.track[after]
+        return -self.system.image.pupil.distance
+
+    def opd(self, radius=None, after=-2, image=-1, resample=4):
+        """Optical path difference on the exit-pupil reference sphere,
+        in waves (reference geometric_trace.py:101).  With resample > 0
+        the samples are gridded for contouring."""
+        from ..elements import Spheroid
+        ref = self.ref
+        # accumulated optical path to the exit surface, relative to the
+        # reference ray
+        path = (self.t[:after + 1] - self.t[:after + 1, (ref,)]).sum(0)
+        if not self.system.object.finite:
+            # start from the wavefront plane through the chief ray
+            # instead of the (meaningless) infinite object
+            offset = (self.y[0] - self.y[0, ref]) @ self.u[0, ref]
+            path += offset * self.n[0]
+        if radius is None:
+            radius = self._sphere_radius(after, image)
+        # rays at `after`, re-expressed in the image frame and centered
+        # on the reference sphere (which touches the reference image)
+        ea, ei = self.system[after], self.system[image]
+        shift = self.origins[after] - self.origins[image]
+        pos = ei.to_normal(ea.from_normal(self.y[after]) + shift)
+        pos -= self.y[image, ref]
+        aim = ei.to_normal(ea.from_normal(self.u[after]))
+        pos[:, 2] += radius
+        extra = Spheroid(curvature=1. / radius).intercept(pos, aim)
+        path += (extra - extra[ref]) * self.n[after]
+        waves = -path / (self.l / self.system.scale)
+        landing = pos + extra[:, None] * aim
+        landing[:, 2] -= radius
+        landing -= landing[ref]
+        if not resample:
+            return landing[:, 0], landing[:, 1], waves
+        return _grid_resample(landing[:, 0], landing[:, 1], waves,
+                              int(resample * np.sqrt(self.nrays)))
+
+    def psf(self, pad=4, resample=4, **kwargs):
+        """Point spread function: |FFT of the pupil function
+        exp(-2 pi i OPD)|^2 (reference geometric_trace.py:146)."""
+        if not resample:
+            raise NotImplementedError("psf requires a resampled opd")
+        radius = self.system[-1].distance
+        x, _, o = self.opd(resample=resample, radius=radius, **kwargs)
+        lit = np.isfinite(o)
+        pupil = np.where(lit, np.exp(-2j * np.pi * o), 0.)
+        return _fraunhofer_psf([pupil], x[1, 0] - x[0, 0], self.l,
+                               self.system.scale, radius, pad)
+
+    def zernike(self, nterms=15, **kwargs):
+        """Noll-Zernike decomposition of the exit-pupil wavefront (in
+        waves): returns (coefficients, residual RMS)."""
+        from ..utils.zernike import fit_zernike
+        x, y, o = self.opd(resample=0, **kwargs)
+        h = np.nanmax(np.hypot(x, y))
+        return fit_zernike(x/h, y/h, o, nterms=nterms, w=self.w)
 
     def rms(self, i=-1, ref=None):
         """Weighted transverse spot RMS about the centroid (or a

@@ -321,3 +321,140 @@ def test_default_device_entry_points_on_card(cuda_device):
     write_back_table(s, tab, ("curvature", "distance"))
     nptest.assert_allclose(float(s.paraxial.focal_length[1]), efl,
                            rtol=1e-12)
+
+
+def _opd_setup(device, dtype, n, seed, widen=1.):
+    """The double Gauss's table and specs, a bench bundle (ray 0 the
+    chief ray, on axis; `widen` scales the footprint), K8's aux vector
+    (the chief ray's image point from the CPU plain trace, the exit
+    pupil's reference-sphere radius, the first wavelength's scale) and
+    seeded cotangents on k and both landing coordinates."""
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    s = double_gauss()
+    tab = s.table()
+    specs = specialize(tab)
+    state = list(_bench_state(n, seed, "cpu", torch.float64))
+    for i in range(6):
+        state[i] = state[i]*widen if i < 2 else state[i]
+        state[i][0] = 1. if i == 5 else 0.
+    y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+    yr, _, _ = trace_rays_final(s.table(device="cpu"), y0[:1], u0[:1],
+                                specs=specs)
+    aux = torch.cat([yr[0], torch.tensor([-s.image.pupil.distance,
+                                          s.wavelengths[0]/s.scale])])
+    rng = np.random.RandomState(seed + 1)
+    cts = tuple(torch.from_numpy(rng.normal(size=n)).to(device, dtype)
+                for _ in range(3))
+    state = tuple(c.to(device, dtype).contiguous() for c in state)
+    return tab, specs, state, aux.to(device, dtype), cts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_opd_kernels_match_plain_on_card(cuda_device, dtype, clip):
+    """K8 (opd_chain) and K9 (opd_adjoint) against their plain versions
+    on the double Gauss, 2^16 bench rays (x1.5 wider and clipped: some
+    rays vignette), seeded cotangents on k and both landing coordinates
+    for the rays live in every version compared.  K8: float64 1e-12 of
+    max(1, max |output|); float32 1e-5 of it (k is a ~1e5-wave path, so
+    a float32 ulp is ~0.008 waves), NaN masks differing on at most 1e-4
+    of the rays.  K9: float64 within 1e-9 of each kind's largest plain
+    cotangent (parameters by column, positions, directions, the
+    centre).  Float32: per-ray cotangents within 1e-3 of their kind's
+    largest; the parameter and centre sums are held against the float64
+    plain version on the same inputs within 1e-2 of the largest sum of
+    |term| (the float64 plain version with |ct|): each ray's reverse
+    cancels (the path is stationary) and so do the sums, and float32
+    holds them only that close, the plain float32 version included.
+    Dead rays get exact zeros."""
+    f64 = dtype == torch.float64
+    tab, specs, state, aux, cts = _opd_setup(cuda_device, dtype, 1 << 16, 7,
+                                             1.5 if clip else 1.)
+    state64 = tuple(c.double() for c in state)
+    launches = CG.opd_chain.launches, CG.opd_adjoint.launches
+    got = CG.opd_chain(tab, specs, state, aux, clip)
+    ref = CG.opd_chain_reference(tab, specs, state, aux, clip)
+    ref64 = CG.opd_chain_reference(tab, specs, state64, aux.double(), clip)
+    live = torch.isfinite(ref[0])
+    live_got = torch.isfinite(got[0])
+    same = live & live_got & torch.isfinite(ref64[0])
+    cts = tuple(torch.where(same, c, 0.) for c in cts)
+    pg, cst, cc = CG.opd_adjoint(tab, specs, state, aux, cts, clip)
+    pr, sr, cr = CG.opd_adjoint_reference(tab, specs, state, aux, cts, clip)
+    torch.cuda.synchronize()
+    assert (CG.opd_chain.launches, CG.opd_adjoint.launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert bool(live.all()) != clip
+    assert int((live != live_got).sum()) <= (0 if f64 else 1e-4*len(live))
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.device == state[0].device
+        scale = max(float(r[same].abs().max()), 1.)
+        tol = (1e-12 if f64 else 1e-5)*scale
+        assert float((g[same] - r[same]).abs().max()) <= tol
+    assert pg.shape == (len(specs), CG.OPD_SLOTS) and not pg[0].any()
+    if f64:
+        base, base_c, mass, mass_c = pr, cr, pr, cr
+    else:
+        cts64 = tuple(c.double() for c in cts)
+        base, _, base_c = CG.opd_adjoint_reference(
+            tab, specs, state64, aux.double(), cts64, clip)
+        mass, _, mass_c = CG.opd_adjoint_reference(
+            tab, specs, state64, aux.double(), tuple(c.abs() for c in cts64),
+            clip)
+    sum_tol = 1e-9 if f64 else 1e-2
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+    for col in range(CG.OPD_SLOTS):
+        limit = sum_tol*float(mass[:, col].abs().max())
+        assert err(pg[:, col], base[:, col]) <= limit, col
+        assert torch.isfinite(pg[:, col]).all()
+    assert err(cc, base_c) <= sum_tol*float(mass_c.abs().max())
+    assert not any(bool(c[~live_got].any()) for c in cst)
+    tol = 1e-9 if f64 else 1e-3
+    for got_k, want_k in ((cst[:3], sr[:3]), (cst[3:], sr[3:])):
+        scale = max(float(r.abs().max()) for r in want_k)
+        for g, r in zip(got_k, want_k):
+            assert torch.isfinite(g).all()
+            assert err(g, r) <= tol*scale
+
+
+@pytest.mark.cuda
+def test_adjoint_wavefront_and_strehl_on_card(cuda_device):
+    """adjoint_wavefront_rms and strehl_ratio(engine="adjoint") on CUDA
+    tensors launch K8 and K9 and give the CPU plain versions' value
+    (rtol 1e-9) and curvature, n_before and ray gradients (1e-8 of each
+    one's max), float64, on a hexapolar bundle of the double Gauss at
+    field .7."""
+    from rayopt_tpu_torch.ops.cuda_grad import adjoint_wavefront_rms
+    from rayopt_tpu_torch.parallel import bundles_from_system, strehl_ratio
+    s = double_gauss()
+    kw = dict(ref=0, radius=-s.image.pupil.distance,
+              wavelength=s.wavelengths[0], scale=s.scale,
+              finite=s.object.finite)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        tab = s.table(device=dev)
+        y0, u0, w, _ = bundles_from_system(
+            s, fields=(.7,), wavelengths=[s.wavelengths[0]], nrays=2048,
+            distribution="hexapolar", device=dev)[0]
+        for name, fn in (("wavefront", adjoint_wavefront_rms),
+                         ("strehl", lambda *a, **k: strehl_ratio(
+                             *a, engine="adjoint", **k))):
+            c = tab.curvature.clone().requires_grad_()
+            nb = tab.n_before.clone().requires_grad_()
+            y = y0.clone().requires_grad_()
+            before = CG.opd_chain.launches, CG.opd_adjoint.launches
+            v = fn(tab.replace(curvature=c, n_before=nb), y, u0, w, **kw)
+            v.backward()
+            if dev != "cpu":
+                assert (CG.opd_chain.launches, CG.opd_adjoint.launches) == (
+                    before[0] + 1, before[1] + 1)
+            out[name, str(dev)] = (float(v.detach()), c.grad.cpu(),
+                                   nb.grad.cpu(), y.grad.cpu())
+    for name in ("wavefront", "strehl"):
+        (v_c, *g_c), (v_g, *g_g) = out[name, "cpu"], out[name, "cuda"]
+        nptest.assert_allclose(v_g, v_c, rtol=1e-9)
+        for g, r in zip(g_g, g_c):
+            assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max())

@@ -203,8 +203,11 @@ def test_entry_points_follow_the_default_device():
 
 def test_import_leaves_jax_out_with_glass():
     code = ("import sys, rayopt_tpu_torch, rayopt_tpu_torch.glass, "
-            "rayopt_tpu_torch.ops, rayopt_tpu_torch.parallel; "
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            "rayopt_tpu_torch.ops, rayopt_tpu_torch.parallel, "
+            "rayopt_tpu_torch.parallel.diffraction, "
+            "rayopt_tpu_torch.utils.zernike; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'rayopt_tpu' not in sys.modules, 'rayopt_tpu imported'")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
