@@ -15,9 +15,12 @@ curvatures, distances and glasses, with the stacked trace reporting
 the spots) and the design path (the composite merit of 9 spot
 bundles, 3 wavefront-RMS bundles on the OPD kernel and its adjoint,
 and a focal-length penalty -> optimize_grad -> write back -> Strehl,
-PSF, MTF and the host OPD/Zernike cross-check) -- and times the
-kernels against their plain versions (the stacked-wavelength ones
-also against their monochromatic twins).
+PSF, MTF and the host OPD/Zernike cross-check) -- then the
+parity-grade df32 path (the forward path's aimed bundles -> df32.plan
+-> the df32 trace and moment merit, and their multi-wavelength twins,
+against the CPU float64 trace) -- and times the kernels against their
+plain versions (the stacked-wavelength ones also against their
+monochromatic twins).
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
@@ -64,6 +67,9 @@ F32_T_REL = 1e-5     # float32 optical path t (~200 mm) relative
 F32_NAN_FRAC = 1e-5  # float32: share of rays whose NaN masks differ
 F32_MOM_REL = 1e-4   # float32 moment sums, relative to their scale
 PARITY_REL = 1e-9    # float64 K1 spot RMS vs the CPU float64 trace
+DF32_REL = 1e-13     # df32 kernel vs plain: of max(1, |value|) per output
+#                      (words expected identical), moments of their scale
+DF32_F64_ATOL = 1e-10  # mm: df32 K10 image positions vs float64 K1
 GRAD_F64_REL = 1e-9  # float64 K5 cotangents, of their field's/kind's max
 GRAD_F32_REL = 1e-3  # float32 K5 on axis: sums of 2^20 float32 terms
 F32_RAY_REL = 1e-2   # float32 K5 ray cotangents: a float32 image
@@ -415,7 +421,9 @@ def spot_rms(y, u):
 
 
 def phase_main_path():
-    """The port's main path, through the entry points a user calls."""
+    """The port's main path, through the entry points a user calls.
+    Returns the aimed bundles (on the card), their float64 K1 image
+    positions and their CPU float64 spot RMS, for the df32 path."""
     from rayopt_tpu_torch.models import double_gauss
     from rayopt_tpu_torch.ops.kernels import specialize
     from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
@@ -434,7 +442,7 @@ def phase_main_path():
     log("System: EFL %.8f, %d surfaces, %.2f s"
         % (s.paraxial.focal_length[1], len(s), time.perf_counter() - t0))
     rng = np.random.RandomState(SEED)
-    failures = []
+    failures, aimed = [], []
     for field in FIELDS:
         t0 = time.perf_counter()
         z, p = s.pupil((0., field))
@@ -484,9 +492,12 @@ def phase_main_path():
                "ok" if ok else "FAIL"))
         if not ok:
             failures.append("field %.1f" % field)
+        aimed.append(dict(field=field, y=yc, u=uc, y64=y64,
+                          rms_cpu=rms_cpu, live_cpu=live_cpu))
     if failures:
         raise AssertionError("main path parity failed at " +
                              ", ".join(failures))
+    return aimed
 
 
 def phase_opt_path():
@@ -1324,13 +1335,235 @@ def step_breakdown(table, specs, wave, parts):
     return out
 
 
+DF32_NAMES = ("trace_final_df32", "trace_multi_df32", "trace_merit_df32",
+              "trace_merit_multi_df32")
+
+
+def df32_state(state64, widen=1.):
+    """The df32 state (ops.df32.state_from_f64) of six float64 (N,)
+    components, x and y scaled by `widen`, on their device."""
+    from rayopt_tpu_torch.ops.df32 import state_from_f64
+    x, y, z, ux, uy, uz = state64
+    return state_from_f64(torch.stack([x*widen, y*widen, z], 1),
+                          torch.stack([ux, uy, uz], 1))
+
+
+def df32_pairs(res, with_path):
+    """The (hi, lo) pairs of a K10 result (the path pair last)."""
+    return (*res[0], res[1]) if with_path else tuple(res)
+
+
+def compare_df32(got, want):
+    """Two lists of df32 (hi, lo) pairs: the words that differ (NaN
+    equal to NaN), the most rays whose NaN masks differ in one output,
+    and the max abs and max relative (of max(1, max |value|)) error of
+    the float64 values hi + lo over the rays live in both."""
+    words = masks = 0
+    err = rel = 0.
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            words += int((~((a == b) | (torch.isnan(a) & torch.isnan(b))))
+                         .sum())
+        va, vb = g[0].double() + g[1].double(), w[0].double() + w[1].double()
+        na, nb = torch.isnan(va), torch.isnan(vb)
+        masks = max(masks, int((na != nb).sum()))
+        live = ~(na | nb)
+        if bool(live.any()):
+            d = float((va[live] - vb[live]).abs().max())
+            err = max(err, d)
+            rel = max(rel, d/max(1., float(vb[live].abs().max())))
+    return words, masks, err, rel
+
+
+def phase_df32_check(s):
+    """K10-K13 against their plain versions on the card: the bench
+    bundle (1.5x wide when clipped), fast and exact plans, the optical
+    path off and on; K11/K13 at the 3 wavelengths.  The kernels round
+    every float32 operation as the plain versions do, so their words
+    should be identical (counted); moments are summed in another order."""
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    from rayopt_tpu_torch.ops.tables import table_at
+    table, tabs = s.table(), s.tables()
+    nlam = tabs.curvature.shape[0]
+    log("== K10-K13 vs plain on the card (double Gauss, %d bench rays, 1.5x "
+        "wide when clipped; K11/K13 at %d wavelengths)" % (N_CHECK, nlam))
+    worst = dict.fromkeys(DF32_NAMES, 0.)
+    failures = []
+    state64 = bench_bundle(N_CHECK, torch.float64, SEED)
+    for clip in (False, True):
+        state = df32_state(state64, 1.5 if clip else 1.)
+        for fast in (True, False):
+            tag = "clip=%s %s plan" % (clip, "fast" if fast else "exact")
+            steps = D.plan(table, clip=clip, fast=fast)
+            plans = [D.plan(table_at(tabs, li), clip=clip, fast=fast)
+                     for li in range(nlam)]
+            for wp in (False, True):
+                got = CD.trace_final_df32(steps, state, with_path=wp)
+                want = CD.trace_final_df32_reference(steps, state,
+                                                     with_path=wp)
+                words, masks, err, rel = compare_df32(df32_pairs(got, wp),
+                                                      df32_pairs(want, wp))
+                ok = masks == 0 and rel <= DF32_REL
+                worst["trace_final_df32"] = max(worst["trace_final_df32"],
+                                                err)
+                log("K10 %s path=%s: differing words %d, NaN masks differ "
+                    "on %d rays, NaN rays %d, max abs err %.3e, max rel err "
+                    "%.3e -> %s" % (tag, wp, words, masks,
+                                    int(torch.isnan(got[0][3][0] if wp
+                                                    else got[3][0]).sum()),
+                                    err, rel, "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("K10 %s path=%s" % (tag, wp))
+                got = CD.trace_multi_df32(plans, state, with_path=wp)
+                want = CD.trace_multi_df32_reference(plans, state,
+                                                     with_path=wp)
+                res = [compare_df32(df32_pairs(g, wp), df32_pairs(w, wp))
+                       for g, w in zip(got, want)]
+                words = sum(r[0] for r in res)
+                masks, err, rel = (max(r[i] for r in res) for i in (1, 2, 3))
+                ok = len(got) == nlam and masks == 0 and rel <= DF32_REL
+                worst["trace_multi_df32"] = max(worst["trace_multi_df32"],
+                                                err)
+                log("K11 %s path=%s: differing words %d over %d "
+                    "wavelengths, NaN masks differ on %d rays, max abs err "
+                    "%.3e, max rel err %.3e -> %s"
+                    % (tag, wp, words, nlam, masks, err, rel,
+                       "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("K11 %s path=%s" % (tag, wp))
+            moms = [(CD.trace_merit_df32(steps, state),
+                     CD.trace_merit_df32_reference(steps, state))]
+            moms += list(zip(CD.trace_merit_multi_df32(plans, state),
+                             CD.trace_merit_multi_df32_reference(plans,
+                                                                 state)))
+            for i, (mg, mw) in enumerate(moms):
+                name = "K12" if i == 0 else "K13 wavelength %d" % (i - 1)
+                key = DF32_NAMES[2 if i == 0 else 3]
+                _, rel, dcount = compare_moments(mg, mw, torch.float64,
+                                                 N_CHECK)
+                rg = float(spot_rms_from_moments(*mg))
+                rw = float(spot_rms_from_moments(*mw))
+                ok = dcount == 0 and rel <= DF32_REL
+                worst[key] = max(worst[key], abs(rg - rw))
+                log("%s %s: moments rel err %.3e, count %d (diff %d), spot "
+                    "RMS kernel %.15g plain %.15g -> %s"
+                    % (name, tag, rel, int(float(mw[0])), dcount, rg, rw,
+                       "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("%s %s" % (name, tag))
+        del state
+    if failures:
+        raise AssertionError("df32 kernel disagrees with its plain version: "
+                             + ", ".join(failures))
+    return worst
+
+
+def phase_df32_path(s, aimed):
+    """The parity-grade df32 path on the main path's aimed bundles:
+    df32.plan (fast and exact) -> state_from_f64 on the card -> K10 with
+    the optical path and K12; System.tables -> table_at -> one plan a
+    wavelength -> K11 (with the path) and K13.  Each spot RMS is held
+    against the CPU float64 plain trace, K10's image positions against
+    float64 K1 on the card."""
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final_multi
+    from rayopt_tpu_torch.ops.tables import table_at
+    table, tabs = s.table(), s.tables()
+    nlam = tabs.curvature.shape[0]
+    log("== parity-grade df32 path: double Gauss, the main path's %d aimed "
+        "rays per field -> df32.plan (fast and exact) -> state_from_f64 -> "
+        "K10 (with the path), K12; System.tables -> %d plans -> K11, K13"
+        % (N_AIMED, nlam))
+    plans = {fast: D.plan(table, fast=fast) for fast in (True, False)}
+    lam_plans = [D.plan(table_at(tabs, li), fast=True) for li in range(nlam)]
+    # the CPU float64 references of the other wavelengths (the first is
+    # the main path's: System.table() traces wavelengths[0])
+    tabs_cpu = s.tables(s.wavelengths[1:], device="cpu")
+    failures = []
+    for a in aimed:
+        field = a["field"]
+        state = D.state_from_f64(a["y"], a["u"])
+        for fast in (True, False):
+            t0 = time.perf_counter()
+            fin, path = CD.trace_final_df32(plans[fast], state,
+                                            with_path=True)
+            mom = CD.trace_merit_df32(plans[fast], state)
+            torch.cuda.synchronize()
+            t_gpu = time.perf_counter() - t0
+            xy = torch.stack([D.to_f64(fin[0]), D.to_f64(fin[1])], 1)
+            uz = D.to_f64(fin[5])
+            rms10, live = spot_rms(xy, uz[:, None].expand(-1, 3))
+            rms12 = float(spot_rms_from_moments(*mom))
+            good = torch.isfinite(a["y64"][:, 0])
+            same = torch.equal(good, torch.isfinite(xy[:, 0]))
+            pos = float((xy[good] - a["y64"][good, :2]).abs().max())
+            path_ok = bool(torch.isfinite(D.to_f64(path)[good]).all())
+            rel10 = abs(rms10 - a["rms_cpu"])/a["rms_cpu"]
+            rel12 = abs(rms12 - a["rms_cpu"])/a["rms_cpu"]
+            # K12's moments carry E[x^2] - c^2: off axis (centroid ~1e6
+            # spot RMS) their df32 precision is reported, not gated
+            ok = (same and live == a["live_cpu"] and pos <= DF32_F64_ATOL
+                  and path_ok and rel10 <= PARITY_REL
+                  and (field != 0. or rel12 <= PARITY_REL))
+            log("field %.1f %s plan: %d rays live | K10 image positions vs "
+                "f64 K1 max %.3e mm | spot RMS mm: CPU f64 %.15g | K10 "
+                "%.15g (rel %.3e) | K12 %.15g (rel %.3e) | card %.3f s -> %s"
+                % (field, "fast" if fast else "exact", live, pos,
+                   a["rms_cpu"], rms10, rel10, rms12, rel12, t_gpu,
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("field %.1f %s" % (
+                    field, "fast" if fast else "exact"))
+            del fin, path, xy, uz
+        t0 = time.perf_counter()
+        outs = CD.trace_multi_df32(lam_plans, state, with_path=True)
+        moms = CD.trace_merit_multi_df32(lam_plans, state)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ycpu, ucpu = a["y"].cpu(), a["u"].cpu()
+        yh, uh, _ = trace_rays_final_multi(
+            tabs_cpu, ycpu.expand(nlam - 1, -1, -1),
+            ucpu.expand(nlam - 1, -1, -1), clip=False)
+        ref = [a["rms_cpu"]] + [spot_rms(yh[li], uh[li])[0]
+                                for li in range(nlam - 1)]
+        t_cpu = time.perf_counter() - t0
+        del yh, uh
+        for li, ((fin, path), mom) in enumerate(zip(outs, moms)):
+            xy = torch.stack([D.to_f64(fin[0]), D.to_f64(fin[1])], 1)
+            rms11, live = spot_rms(xy, D.to_f64(fin[5])[:, None].expand(-1,
+                                                                        3))
+            rms13 = float(spot_rms_from_moments(*mom))
+            rel11 = abs(rms11 - ref[li])/ref[li]
+            rel13 = abs(rms13 - ref[li])/ref[li]
+            ok = rel11 <= PARITY_REL and (field != 0. or rel13 <= PARITY_REL)
+            log("field %.1f wavelength %d: %d rays live | spot RMS mm: CPU "
+                "f64 %.15g | K11 %.15g (rel %.3e) | K13 %.15g (rel %.3e) -> "
+                "%s" % (field, li, live, ref[li], rms11, rel11, rms13, rel13,
+                        "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("field %.1f wavelength %d" % (field, li))
+        log("field %.1f: K11 + K13 card %.3f s, CPU f64 trace of %d "
+            "wavelengths %.2f s" % (field, t_gpu, nlam - 1, t_cpu))
+        del outs, moms, state
+    if failures:
+        raise AssertionError("df32 path parity failed at " +
+                             ", ".join(failures))
+
+
 def _wrappers():
-    from rayopt_tpu_torch.ops import cuda_grad, cuda_trace
+    from rayopt_tpu_torch.ops import cuda_df32, cuda_grad, cuda_trace
     return (cuda_trace.trace_final, cuda_trace.trace_merit,
             cuda_grad.weighted_moments, cuda_grad.merit_adjoint,
             cuda_trace.trace_multi, cuda_grad.weighted_moments_multi,
             cuda_grad.merit_adjoint_multi, cuda_grad.opd_chain,
-            cuda_grad.opd_adjoint)
+            cuda_grad.opd_adjoint, cuda_df32.trace_final_df32,
+            cuda_df32.trace_multi_df32, cuda_df32.trace_merit_df32,
+            cuda_df32.trace_merit_multi_df32)
 
 
 def reset_launches():
@@ -1594,6 +1827,90 @@ def phase_opd_throughput(s, table, specs, card):
     return times, live
 
 
+def phase_df32_throughput(s, card):
+    """K10 (with the optical path), K12, K11 (with the path) and K13,
+    fast and exact plans, against their plain versions at N_GRAD_TIME
+    bench rays, K11/K13 also against nlam launches of K10/K12 (the
+    twin), beside float64 K1 on the same rays; then the kernels alone
+    at N_BENCH rays, beside float64 K1 again.  Returns the times and
+    the live rays of each bundle."""
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.cuda_trace import trace_final
+    from rayopt_tpu_torch.ops.kernels import specialize
+    from rayopt_tpu_torch.ops.tables import table_at
+    table, tabs = s.table(), s.tables()
+    specs = specialize(table)
+    nlam = tabs.curvature.shape[0]
+    log("== K10-K13 throughput: %d bench rays against the plain versions "
+        "and %d launches of K10/K12, then %d rays kernel alone, beside "
+        "float64 K1 (%s)" % (N_GRAD_TIME, nlam, N_BENCH, card))
+
+    def cases(state, fast):
+        one = D.plan(table, fast=fast)
+        lam = [D.plan(table_at(tabs, li), fast=fast) for li in range(nlam)]
+        return (
+            ("trace_final_df32",
+             lambda: CD.trace_final_df32(one, state, with_path=True),
+             lambda: CD.trace_final_df32_reference(one, state,
+                                                   with_path=True), None),
+            ("trace_merit_df32",
+             lambda: CD.trace_merit_df32(one, state),
+             lambda: CD.trace_merit_df32_reference(one, state), None),
+            ("trace_multi_df32",
+             lambda: CD.trace_multi_df32(lam, state, with_path=True),
+             lambda: CD.trace_multi_df32_reference(lam, state,
+                                                   with_path=True),
+             lambda: [CD.trace_final_df32(p, state, with_path=True)
+                      for p in lam]),
+            ("trace_merit_multi_df32",
+             lambda: CD.trace_merit_multi_df32(lam, state),
+             lambda: CD.trace_merit_multi_df32_reference(lam, state),
+             lambda: [CD.trace_merit_df32(p, state) for p in lam]))
+    times, live = {}, {}
+    for n in (N_GRAD_TIME, N_BENCH):
+        state64 = bench_bundle(n, torch.float64, SEED + 1)
+        state = df32_state(state64)
+        live[n] = float(CD.trace_merit_df32(D.plan(table, fast=True),
+                                            state)[0])
+        k64 = [cuda_ms(lambda: trace_final(table, specs, state64), 10)]
+        for fast in (True, False):
+            plan = "fast" if fast else "exact"
+            for name, kernel, plain, twin in cases(state, fast):
+                # in turns: plain, kernel, twin, kernel, twin, plain (no
+                # plain at N_BENCH: its temporaries outgrow the card)
+                big = n == N_BENCH
+                reps = 5 if big else 10
+                p1 = None if big else cuda_ms(plain, 2)
+                k1 = cuda_ms(kernel, reps)
+                t1 = cuda_ms(twin, reps) if twin else None
+                k2 = cuda_ms(kernel, reps)
+                t2 = cuda_ms(twin, reps) if twin else None
+                p2 = None if big else cuda_ms(plain, 2)
+                k = (k1 + k2)/2
+                p = None if big else (p1 + p2)/2
+                t = (t1 + t2)/2 if twin else None
+                times[(name, plan, n)] = (k, p, t)
+                log("%s %s plan at %d rays: kernel %.4f ms (%.4f, %.4f)%s%s "
+                    "| peak memory %.3f GiB | %s"
+                    % (name, plan, n, k, k1, k2,
+                       "" if twin is None else ", %d twin launches %.4f ms "
+                       "(%.4f, %.4f), twins/kernel %.2fx"
+                       % (nlam, t, t1, t2, t/k),
+                       " | plain: not run (memory)" if big else
+                       ", plain %.4f ms (%.4f, %.4f), plain/kernel %.2fx"
+                       % (p, p1, p2, p/k), peak_gib(kernel), card))
+        k64.append(cuda_ms(lambda: trace_final(table, specs, state64), 10))
+        times[("f64_trace_final", n)] = sum(k64)/2
+        log("float64 K1 at %d rays (before and after the df32 kernels): "
+            "%.4f ms (%.4f, %.4f); K10 fast plan / f64 K1 %.2fx | %s"
+            % (n, sum(k64)/2, k64[0], k64[1],
+               times[("trace_final_df32", "fast", n)][0]/(sum(k64)/2), card))
+        del state64, state
+        torch.cuda.empty_cache()
+    return times, live
+
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s, and flop/s outside the tensor cores by dtype
 PEAK_BYTES = 3.35e12
@@ -1662,6 +1979,152 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
                                      else "operations")
 
 
+# float32 operations of csrc/df32.cu's df32 functions as written (one per
+# add, subtract, multiply, divide or square root; a negation is a sign
+# flip and not counted): two_prod is 17 (Dekker's split 4 a factor), so
+# mul 24 and sqr 23; div and sqrt are the exact plan's two refinement
+# rounds, div1 and sqrt1 the fast plan's one
+DF_OPS = {"add": 11, "mul": 24, "sqr": 23, "scale": 2, "div": 89,
+          "div1": 41, "sqrt": 88, "sqrt1": 41}
+
+
+def df32_step_ops(step, path=False):
+    """float32 operations of one surface_df of csrc/df32.cu for a
+    planned step (ops.df32.plan), and of the path's s * n_before."""
+    o = DF_OPS
+    dv = o["div1"] if step["fast"] else o["div"]
+    sq = o["sqrt1"] if step["fast"] else o["sqrt"]
+    dot3 = 3*o["mul"] + 2*o["add"]
+    flat, conic = step["flat"], step["k1"] is not None
+    f = o["add"]                                    # z - dz
+    if step["dxy"] is not None:
+        f += 2*o["add"]
+    if step["rot_df"] is not None:                  # in and out of the frame
+        f += 4*3*dot3
+    if flat:
+        f += dv
+    else:
+        if conic:                                   # kz, u.y, y.y, u.u, e
+            f += 3*o["mul"] + 2*dot3 + 2*o["add"] + 3*o["sqr"]
+        else:
+            f += 2*dot3
+        f += (3*o["mul"] + 3*o["add"] + o["scale"] + o["sqr"]  # d, f, disc
+              + sq + o["add"] + dv)                 # g, num or den, s
+    f += 3*(o["mul"] + o["add"])                    # the transfer
+    if step["clip"] and step["radius"] is not None:
+        f += 3
+    if step["kind"]:
+        unit = flat or not conic
+        if not flat:                                # nx, ny, nz, u.N
+            f += 3*o["mul"] + o["add"] + dot3
+            if conic:
+                f += 3*o["sqr"] + 2*o["add"]        # |N|^2
+        if step["kind"] == 2:
+            f += o["scale"] + (0 if unit else dv)
+            f += o["add"] if flat else 3*(o["mul"] + o["add"])
+        else:
+            f += o["sqr"] + o["add"]                # mu^2 - 1
+            f += o["mul"] if unit else dv + 3*o["mul"]
+            f += o["sqr"] + 2*o["add"] + sq         # g
+            f += (3*o["mul"] + o["add"]) if flat else 3*(2*o["mul"]
+                                                         + o["add"])
+    if path:
+        f += o["mul"] + o["add"]
+    return f
+
+
+def df32_chain_ops(steps, path=False):
+    """float32 operations of one ray through a plan (trace_df), the last
+    frame's rotation included."""
+    last = 2*3*(3*DF_OPS["mul"] + 2*DF_OPS["add"]) \
+        if steps[-1]["rot_df"] is not None else 0
+    return sum(df32_step_ops(st, path) for st in steps) + last
+
+
+# a live ray's five df32 moments in K12/K13: count, x, y (an add each),
+# x^2 and y^2 (a mul and an add each)
+DF32_MOMENT_OPS = 3*DF_OPS["add"] + 2*(DF_OPS["mul"] + DF_OPS["add"])
+
+
+def df32_bound(name, n, plans, live):
+    """(bound_ms, bound_by) of one df32 launch at n rays through `plans`
+    (one plan for K10/K12, one a wavelength for K11/K13; K10/K11 with
+    the optical path): 12 float32 words read a ray, 14 written a ray and
+    plan (K10/K11) or 10 a block and plan (K12/K13, on the wrappers'
+    grid), the plans' words and flags, over the HBM rate; the float32
+    operations of df32_chain_ops (and DF32_MOMENT_OPS for each of the
+    `live` rays, summed over plans) over 67 TFLOP/s, the float32 peak
+    outside the tensor cores, as kernel_bound counts (one operation a
+    flop)."""
+    from rayopt_tpu_torch.ops.cuda_df32 import DW
+    from rayopt_tpu_torch.ops.cuda_trace import BLOCK, BLOCKS_PER_SM
+    merit = "merit" in name
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = max(1, min(-(-n // BLOCK), sms*BLOCKS_PER_SM))
+    nlam = len(plans)
+    out = grid*10*nlam if merit else n*14*nlam
+    nbytes = (n*12 + out + nlam*len(plans[0])*(DW + 1))*4
+    flops = n*sum(df32_chain_ops(p, path=not merit) for p in plans)
+    if merit:
+        flops += live*DF32_MOMENT_OPS
+    t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[torch.float32]
+    return max(t_bytes, t_ops)*1e3, ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+
+DF32_REPLACES = {
+    "trace_final_df32": "rayopt_tpu/ops/df32.py:1094",
+    "trace_multi_df32": "rayopt_tpu/ops/df32.py:1140",
+    "trace_merit_df32": "rayopt_tpu/ops/df32.py:1285",
+    "trace_merit_multi_df32": "rayopt_tpu/ops/df32.py:1321"}
+
+
+def df32_entries(s, launches, worst, times, live):
+    """The kernels-line entries of K10-K13: `ms`/`plain_ms` with the fast
+    plan at N_GRAD_TIME rays, `ms_exact`/`plain_ms_exact` with the exact
+    one, the N_BENCH times beside them; no float64 instance."""
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.tables import table_at
+    tabs = s.tables()
+    nlam = tabs.curvature.shape[0]
+    entries = []
+    for kname in DF32_NAMES:
+        multi = "multi" in kname
+        lam = nlam if multi else 1
+        entry = {"name": kname, "route": "cuda",
+                 "source": "rayopt_tpu_torch/csrc/df32.cu",
+                 "replaces": DF32_REPLACES[kname],
+                 "launches": launches[kname], "max_abs_err": worst[kname]}
+        for plan in ("fast", "exact"):
+            tabs_used = [table_at(tabs, li) for li in range(lam)] if multi \
+                else [s.table()]
+            plans = [D.plan(t, fast=plan == "fast") for t in tabs_used]
+            sfx = "" if plan == "fast" else "_exact"
+            k, p, t = times[(kname, plan, N_GRAD_TIME)]
+            bound_ms, bound_by = df32_bound(kname, N_GRAD_TIME, plans,
+                                            live[N_GRAD_TIME]*lam)
+            entry.update({"ms" + sfx: k, "plain_ms" + sfx: p,
+                          "bound_ms" + sfx: bound_ms})
+            if plan == "fast":
+                entry.update({"bound_by": bound_by, "library_ms": None,
+                              "ms_f64": None, "plain_ms_f64": None,
+                              "rays": N_GRAD_TIME, "wavelengths": lam})
+            big = times[(kname, plan, N_BENCH)]
+            entry["ms%s_%d_rays" % (sfx, N_BENCH)] = big[0]
+            entry["bound_ms%s_%d_rays" % (sfx, N_BENCH)] = df32_bound(
+                kname, N_BENCH, plans, live[N_BENCH]*lam)[0]
+            if multi:
+                entry["twin_ms" + sfx] = t
+                entry["twin_ms%s_%d_rays" % (sfx, N_BENCH)] = big[2]
+        if kname == "trace_final_df32":
+            entry["f64_trace_final_ms"] = times[("f64_trace_final",
+                                                 N_GRAD_TIME)]
+            entry["f64_trace_final_ms_%d_rays" % N_BENCH] = times[
+                ("f64_trace_final", N_BENCH)]
+        entries.append(entry)
+    return entries
+
+
 def main():
     name, card = phase_card()
     phase_build()
@@ -1680,13 +2143,24 @@ def main():
     phase_glass_fd_check(s, tabs, mspecs)
     worst.update(phase_opd_check(s, table, specs))
     phase_opd_fd_check(s, table, specs)
+    worst.update(phase_df32_check(s))
     reset_launches()
-    phase_main_path()
+    aimed = phase_main_path()
     launches = read_launches()
     log("== launch counts on the forward main path: %s" % launches)
     if not (launches["trace_final"] and launches["trace_merit"]):
         raise AssertionError("a kernel of the main path never launched: "
                              "%s" % launches)
+    reset_launches()
+    phase_df32_path(s, aimed)
+    df32_launches = read_launches()
+    log("== launch counts on the parity-grade df32 path: %s" % df32_launches)
+    if not all(df32_launches[k] for k in DF32_NAMES):
+        raise AssertionError("a kernel of the df32 path never launched: %s"
+                             % df32_launches)
+    launches.update({k: df32_launches[k] for k in DF32_NAMES})
+    del aimed
+    torch.cuda.empty_cache()
     launches.update({k: v for k, v in phase_opt_path().items()
                      if k in ("weighted_moments", "merit_adjoint")})
     reset_launches()
@@ -1705,6 +2179,7 @@ def main():
     gtimes = phase_grad_throughput(table, specs, card)
     mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
     otimes, olive = phase_opd_throughput(s, table, specs, card)
+    dtimes, dlive = phase_df32_throughput(s, card)
     # live rays of the K5 timing bundle (its reverse runs for these only)
     live_mono = float(trace_merit(table, specs, bench_bundle(
         N_GRAD_TIME, torch.float32, SEED + 1))[0])
@@ -1755,6 +2230,7 @@ def main():
         if tt is not times:
             entry["ms_f32_%d_rays" % N_BENCH] = tt[(kname, N_BENCH)]
         kernels.append(entry)
+    kernels += df32_entries(s, launches, worst, dtimes, dlive)
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

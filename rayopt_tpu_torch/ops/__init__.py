@@ -23,3 +23,8 @@ from .cuda_grad import (  # noqa: F401
     spot_moments_multi, union_spot_rms_from_moments,
     polychromatic_spot_rms,
 )
+from .cuda_df32 import (  # noqa: F401
+    trace_final_df32, trace_multi_df32, trace_merit_df32,
+    trace_merit_multi_df32, pack_plan,
+)
+from . import df32  # noqa: F401

@@ -6,7 +6,11 @@ a build takes seconds.  One nvcc per source runs in parallel, then one
 links the objects.  It runs at first use, from the package's own
 sources, into build/torch_kernels/ beside the package, and is cached
 by a hash of the sources and flags.  Fast math stays off: the kernels
-rely on IEEE division, square root and NaN propagation.
+rely on IEEE division, square root and NaN propagation.  The df32
+kernels (df32.cu) need every float32 operation rounded as written; they
+write each one with a round-to-nearest intrinsic, which nvcc never
+contracts into a fused multiply-add, so all sources share one set of
+flags.
 """
 
 import ctypes
@@ -20,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
-SOURCES = ("trace.cu", "grad.cu")
+SOURCES = ("trace.cu", "grad.cu", "df32.cu")
 HEADERS = ("trace_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -101,6 +105,14 @@ class KernelLibrary:
             fn = getattr(self._lib, "opd_adjoint_" + dt)
             fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*17 + [i64, i32,
                                                              i32, ptr]
+            fn.restype = i32
+        # df32 (K10-K13): plan words, flags, nsteps, [nplans,] [with_path,]
+        # the 12 input words, out or partials, n, grid, block, stream
+        for name, ints in (("df32_trace_final", 2), ("df32_trace_multi", 3),
+                           ("df32_merit", 1), ("df32_merit_multi", 2)):
+            fn = getattr(self._lib, name)
+            fn.argtypes = [ptr, ptr] + [i32]*ints + [ptr]*13 + [i64, i32,
+                                                               i32, ptr]
             fn.restype = i32
         self._lib.trace_error_string.argtypes = [i32]
         self._lib.trace_error_string.restype = ctypes.c_char_p

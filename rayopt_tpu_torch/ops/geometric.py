@@ -104,10 +104,14 @@ def trace_rays_final_fast(table, y0, u0, clip=False, specs=None,
     On a CUDA bundle the fused kernel ops.cuda_trace.trace_final runs
     the whole specialized surface chain in one pass over the rays:
     precision="fast" traces in the rays' dtype; precision="parity"
-    traces in float64 (the H100's native FP64 stands in for the JAX
-    package's double-single engine) and returns float64.  `specs`
-    default to kernels.specialize of the table.  On the CPU both
-    precisions take the plain generic walk (parity in float64).
+    traces in float64 and returns float64.  That is the JAX package's
+    own backend rule -- double-single (df32) only where float64 is
+    emulated, native float64 where it is not -- and the H100 has native
+    FP64.  The df32 engine itself is ops.df32 (plan, state_from_f64,
+    the plain trace and merit) with its kernels in ops.cuda_df32
+    (trace_final_df32, trace_merit_df32 and their multi-plan twins).
+    `specs` default to kernels.specialize of the table.  On the CPU
+    both precisions take the plain generic walk (parity in float64).
 
     Returns (y (N, 3), u (N, 3), t (N,)).  Not differentiable on the
     CUDA path."""

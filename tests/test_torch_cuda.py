@@ -14,7 +14,10 @@ import torch
 from rayopt_tpu_torch import set_default_device
 from rayopt_tpu_torch.models import double_gauss
 from rayopt_tpu_torch.ops import cuda_grad as CG
+from rayopt_tpu_torch.ops import cuda_df32 as CD
 from rayopt_tpu_torch.ops import cuda_trace as CT
+from rayopt_tpu_torch.ops import df32 as D
+from rayopt_tpu_torch.ops.tables import make_table, rodrigues
 from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
 from rayopt_tpu_torch.ops.kernels import specialize
 
@@ -458,3 +461,113 @@ def test_adjoint_wavefront_and_strehl_on_card(cuda_device):
         nptest.assert_allclose(v_g, v_c, rtol=1e-9)
         for g, r in zip(g_g, g_c):
             assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max())
+
+
+# -- the df32 kernels (K10-K13) ---------------------------------------------
+
+def vocabulary_table():
+    """Every branch of the K1 vocabulary in one chain, on the default
+    device (tests/test_torch_df32.py traces it on the CPU):
+    a sphere, a tilted and decentred conic (rot_df, off-axis), a
+    sphere under an exact signed-permutation fold (90 degrees about z),
+    a conic mirror, an alternate-root sphere behind it, and a tilted
+    flat image row (the last frame's rotation)."""
+    rot = torch.eye(3, dtype=torch.float64).repeat(7, 1, 1)
+    rot[2] = rodrigues(torch.tensor([.02, -.01, 0.], dtype=torch.float64))
+    rot[3] = torch.tensor([[0., 1., 0.], [-1., 0., 0.], [0., 0., 1.]],
+                          dtype=torch.float64)
+    rot[6] = rodrigues(torch.tensor([0., .03, .01], dtype=torch.float64))
+    off = np.zeros((7, 3))
+    off[:, 2] = [0., 5., 4., 3., 30., -10., -40.]
+    off[2, :2] = [.1, -.05]
+    return make_table(
+        curvature=[0., .02, -.03, .01, -.005, .004, 0.],
+        conic=[0., 0., -.5, 0., -1., 0., 0.],
+        offset=off, rot=rot.numpy(),
+        radius=[np.inf, 8., 7., 6., 20., 30., np.inf],
+        alternate=[0., 0., 0., 0., 0., 1., 0.],
+        mu=[1., 1/1.5, 1.5, 1., -1., 1., 1.],
+        n_before=[1., 1., 1.5, 1., 1., 1., 1.])
+
+
+def _df32_words(res, with_path):
+    comps = (*res[0], res[1]) if with_path else res
+    return [w for c in comps for w in c]
+
+
+def _differing_words(got, want):
+    """Words that differ (NaN equal to NaN) over two lists of tensors."""
+    return sum(int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+               for a, b in zip(got, want))
+
+
+def _moment_scale(m):
+    """Each df32 moment's scale, as chip_smoke.compare_moments: a sum of
+    x is held to count * sqrt(E[x^2]), floored at the count."""
+    cnt, sxx, syy = (float(m[i]) for i in (0, 3, 4))
+    return (1., max((cnt*sxx)**.5, cnt), max((cnt*syy)**.5, cnt),
+            max(sxx, cnt), max(syy, cnt))
+
+
+def _moments_rel(got, want):
+    return max(abs(float(g) - float(w))/s for g, w, s in
+               zip(got[1:], want[1:], _moment_scale(want)[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("fast", [True, False])
+def test_df32_kernels_match_plain_on_card(cuda_device, fast, clip):
+    """K10 (with and without the path) and K12 against their plain
+    versions on the card, on the double Gauss (the bench bundle, 1.5x
+    wide when clipped) and on the vocabulary table: identical words
+    (the kernel rounds every float32 operation as the plain version
+    does), the moments within 1e-13 of their scale (another order of
+    summation) and the same count."""
+    state64 = _bench_state(1 << 16, 3, cuda_device, torch.float64)
+    if clip:
+        state64 = tuple(c*1.5 if i < 2 else c for i, c in enumerate(state64))
+    y, u = torch.stack(state64[:3], 1), torch.stack(state64[3:], 1)
+    st = D.state_from_f64(y, u)
+    for tab in (double_gauss().table(), vocabulary_table()):
+        steps = D.plan(tab, clip=clip, fast=fast)
+        before = CD.trace_final_df32.launches, CD.trace_merit_df32.launches
+        for wp in (False, True):
+            got = CD.trace_final_df32(steps, st, with_path=wp)
+            want = CD.trace_final_df32_reference(steps, st, with_path=wp)
+            torch.cuda.synchronize()
+            assert got[0][0][0].device.type == "cuda" if wp else \
+                got[0][0].device.type == "cuda"
+            assert _differing_words(_df32_words(got, wp),
+                                    _df32_words(want, wp)) == 0
+        mom = CD.trace_merit_df32(steps, st)
+        mref = CD.trace_merit_df32_reference(steps, st)
+        assert float(mom[0]) == float(mref[0]) > 0
+        assert _moments_rel(mom, mref) <= 1e-13
+        assert (CD.trace_final_df32.launches,
+                CD.trace_merit_df32.launches) == (before[0] + 2,
+                                                  before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [True, False])
+def test_df32_multi_kernels_match_plain_on_card(cuda_device, fast):
+    """K11 and K13 at the double Gauss's 3 wavelengths against their
+    plain versions on the card, as K10/K12 are held."""
+    s = double_gauss()
+    plans = [D.plan(s.table(lam), fast=fast) for lam in s.wavelengths]
+    state64 = _bench_state(1 << 16, 4, cuda_device, torch.float64)
+    st = D.state_from_f64(torch.stack(state64[:3], 1),
+                          torch.stack(state64[3:], 1))
+    for wp in (False, True):
+        got = CD.trace_multi_df32(plans, st, with_path=wp)
+        want = CD.trace_multi_df32_reference(plans, st, with_path=wp)
+        torch.cuda.synchronize()
+        assert len(got) == 3
+        assert sum(_differing_words(_df32_words(g, wp), _df32_words(w, wp))
+                   for g, w in zip(got, want)) == 0
+    mom = CD.trace_merit_multi_df32(plans, st)
+    mref = CD.trace_merit_multi_df32_reference(plans, st)
+    for m, r in zip(mom, mref):
+        assert float(m[0]) == float(r[0]) > 0
+        assert _moments_rel(m, r) <= 1e-13
