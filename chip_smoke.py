@@ -2,8 +2,14 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the checkout, holds each
-against its plain PyTorch version on the card, drives the port's four
+Builds the hand-written CUDA kernels from the checkout (K4 and K5 once
+for each spec tuple, slot set and flag they run with, all keys in
+parallel, with their ptxas registers, stack and spills), holds each
+against its plain PyTorch version on the card (the specialized K5 for
+each slot set, with and without ray cotangents; the repaired
+cancellation-free intercept of K1, K2 and K4 on a paraboloid and on the
+double Gauss with near-flat rows against the CPU float64 generic
+trace), drives the port's four
 main paths -- the forward path (double Gauss from YAML -> paraxial
 solve -> pupil aiming -> fused trace and fused spot-moment merit at
 three fields), the designer loop (bundles at 3 fields x 3
@@ -41,10 +47,13 @@ N_AIMED = 1 << 22    # rays per field on the main path
 N_BENCH = 1 << 26    # rays in the throughput phase
 N_OPT = 1 << 20      # hexapolar nrays a bundle on the optimizer path
 N_GRAD_TIME = 1 << 22  # rays in the K3-K7 kernel-vs-plain timings
+N_OPT_BUNDLE = 1046071  # rays of one optimizer bundle (hexapolar, 2^20)
+N_INTERCEPT = 1 << 16  # aimed rays a field in the intercept phase
 N_GLASS = 1 << 20    # hexapolar nrays a field on the achromatization path
 FIELDS = (0., .7, 1.)
 SEED = 0
 OPT_SELECT = ("curvature", "distance")
+OPT_FIELDS = ("curvature", "offset")   # the table fields OPT_SELECT moves
 OPT_STEPS = 10
 OPT_LR = 1e-7        # Adam: the merit falls at every step on the CPU
 FD_STEP = {"curvature": 1e-8, "distance": 1e-6}   # 1/mm, mm
@@ -86,6 +95,10 @@ OPD_F32_SUM_REL = 1e-2  # float32 K9 parameter/centre sums vs the float64
 #                        reverse cancels (the path is stationary, Fermat)
 #                        and the sums cancel; the plain float32 version
 #                        is ~2e-3 of it off on the mu column
+INTERCEPT_F64_REL = 1e-12  # float64 on the card vs the CPU float64 generic
+#                           trace: spot RMS (K1, two-pass) and moments of
+#                           their scale (K2, K4)
+INTERCEPT_F32_REL = 1e-4   # float32: the same, of the float64 values
 HOST_OPD_ATOL = 1e-7  # waves: K8 f64 on the card vs the host OPD (numpy);
 #                      K8 sums the absolute ~3.4e5-wave path before
 #                      subtracting the chief ray's, the host sums per-row
@@ -279,15 +292,21 @@ def compare_param_grads(got, want, rel):
     return out
 
 
-def compare_ray_grads(got, got_w, want, want_w):
+def compare_ray_grads(got, got_w, want, want_w, agree=None):
     """(max relative error, rays live in one version only, all finite)
     of the ray-state and weight cotangents.  Each kind (positions,
     directions, weights) is held to its largest plain value: an
     element-wise relative test fails on analytically zero entries (the
     initial z of a collimated ray).  A dead ray's cotangents are all
-    zero, so a nonzero weight cotangent marks a live ray."""
+    zero, so a nonzero weight cotangent marks a live ray.  `agree`
+    (for cotangents summed over wavelengths): the rays whose liveness
+    the two versions agree on at every wavelength; the others count as
+    live in one version only."""
     live_g, live_w = got_w != 0, want_w != 0
     both = live_g & live_w
+    if agree is not None:
+        both = both & agree
+        live_g, live_w = live_g | ~agree, live_w & agree
     rel = 0.
     if bool(both.any()):
         for g, w in ((got[:3], want[:3]), (got[3:], want[3:]),
@@ -355,6 +374,219 @@ def phase_grad_check(table, specs):
         raise AssertionError("kernel disagrees with its plain version: "
                              + ", ".join(failures))
     return worst
+
+
+def spec_keys(specs, extra=()):
+    """{tag: key} of the K4/K5 specializations this script runs: K4 and
+    K5 on `specs` in float32 and float64, clip off and on, K5 for the
+    optimizer's slot set and for all fields, with and without the ray
+    cotangents; K4 on each spec tuple of `extra` (the intercept cases)
+    unclipped."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    keys = {}
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype)[6:]
+        for clip in (False, True):
+            keys["K4 %s clip=%s" % (dt, clip)] = CS.moments_key(specs, dtype,
+                                                                clip)
+            for fields in (OPT_FIELDS, CS.FIELDS):
+                for rays in (False, True):
+                    keys["K5 %s clip=%s %s rays=%s" % (
+                        dt, clip, "optimizer" if fields == OPT_FIELDS
+                        else "all", rays)] = CS.adjoint_key(
+                            specs, dtype, clip, fields, rays)
+        for name, sp in extra:
+            keys["K4 %s %s" % (dt, name)] = CS.moments_key(sp, dtype)
+    return keys
+
+
+def ptxas_stats(kern):
+    """(registers, stack frame bytes, spill store + load bytes) of a
+    one-kernel specialized library's -Xptxas -v report."""
+    import re
+    text = kern.build_log
+    regs = re.search(r"Used (\d+) registers", text)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", text)
+    if not (regs and frame):
+        raise AssertionError("no ptxas report for %s" % kern.key.name)
+    return (int(regs.group(1)), int(frame.group(1)),
+            int(frame.group(2)) + int(frame.group(3)))
+
+
+def phase_spec_build(keys):
+    """Build every K4/K5 specialization at once (one nvcc a key, in
+    parallel); log each key's build seconds and ptxas lines.  K5 for
+    the optimizer's slot set must have no stack frame and no spill.
+    Returns {tag: (registers, stack bytes, spill bytes)}."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    log("== K4/K5 specialized per spec tuple: %d keys" % len(keys))
+    t0 = time.perf_counter()
+    built = CS.prebuild(list(keys.values()))
+    log("built in %.2f s wall" % (time.perf_counter() - t0))
+    stats, failures = {}, []
+    for tag, key in keys.items():
+        kern = built[key]
+        stats[tag] = ptxas_stats(kern)
+        log("%s: %s, %d live slots, block %d, nvcc %.2f s | %s" % (
+            tag, key.name, key.nlive, key.block, kern.build_seconds,
+            " | ".join(ln for ln in kern.ptxas_lines()
+                       if "Compiling" not in ln and "properties" not in ln)))
+        if "optimizer rays=False" in tag and stats[tag][1:] != (0, 0):
+            failures.append(tag)
+    if failures:
+        raise AssertionError("K5 for the optimizer's slot set has a stack "
+                             "frame or spills: %s" % failures)
+    return stats
+
+
+def phase_spec_check(table, specs):
+    """The specialized K5 against its plain version for the slot sets
+    and ray-cotangent flags that phase_grad_check (all fields, with the
+    ray cotangents) does not cover: the optimizer's slot set with and
+    without the ray cotangents, all fields without; non-live slots must
+    be exact zeros."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_reference, weighted_moments_reference)
+    log("== specialized K5 slot sets vs plain on the card (double Gauss, "
+        "%d bench rays)" % N_CHECK)
+    failures = []
+    for dtype in (torch.float32, torch.float64):
+        f64 = dtype == torch.float64
+        state = bench_bundle(N_CHECK, dtype, SEED)
+        w = bench_weights(N_CHECK, dtype, SEED + 2)
+        for clip in (False, True):
+            ct = rms_cotangent(weighted_moments_reference(table, specs,
+                                                          state, w, clip))
+            pr, sr, wr = merit_adjoint_reference(table, specs, state, w, ct,
+                                                 clip)
+            for fields, rays in ((OPT_FIELDS, False), (OPT_FIELDS, True),
+                                 (CS.FIELDS, False)):
+                tag = "%s clip=%s %s rays=%s" % (
+                    str(dtype)[6:], clip,
+                    "optimizer" if fields == OPT_FIELDS else "all", rays)
+                live = CS.live_mask(CS.live_slots(specs, fields)).to(DEVICE)
+                pg, cst, cw = merit_adjoint(table, specs, state, w, ct, clip,
+                                            fields=fields, rays=rays)
+                torch.cuda.synchronize()
+                lim = GRAD_F64_REL if f64 else GRAD_F32_REL
+                cols = compare_param_grads(pg, torch.where(live, pr, 0.), lim)
+                dead_zero = not bool(pg[~live].any())
+                ok = all(v[2] for v in cols.values()) and dead_zero
+                detail = ""
+                if rays:
+                    ray_rel, masks, finite = compare_ray_grads(cst, cw, sr, wr)
+                    ok = ok and finite and ray_rel <= (
+                        GRAD_F64_REL if f64 else F32_RAY_REL) and masks <= (
+                        0 if f64 else F32_NAN_FRAC*N_CHECK)
+                    detail = " | rays and weights rel err %.3e, live masks " \
+                        "differ on %d rays" % (ray_rel, masks)
+                else:
+                    ok = ok and cst is None and cw is None
+                log("K5 %s: %d live slots, the rest exact zeros %s | %s%s -> "
+                    "%s" % (tag, int(live.sum()), dead_zero, "; ".join(
+                        "%s err %.3e of max %.3e" % (k, *v[:2])
+                        for k, v in cols.items()), detail,
+                        "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("K5 " + tag)
+    if failures:
+        raise AssertionError("specialized K5 disagrees with its plain "
+                             "version: " + ", ".join(failures))
+
+
+def near_flat(table, c=1e-12):
+    """The table with every flat traced row's curvature set to c."""
+    cur = table.curvature.clone()
+    flat = cur == 0
+    flat[0] = False
+    cur[flat] = c
+    return table.replace(curvature=cur)
+
+
+def intercept_cases():
+    """(name, system, table on the card, fields): the f/2 paraboloid at
+    half and full field, and the double Gauss with its flat rows at
+    c = 1e-12 at fields 0, 0.7, 1 -- where the JAX package's specialized
+    intercept -(d + g)/e cancels."""
+    from rayopt_tpu_torch.models import double_gauss, parabolic_mirror
+    para, dg = parabolic_mirror(), double_gauss()
+    return (("paraboloid", para, para.table(), (.5, 1.)),
+            ("near-flat double Gauss", dg, near_flat(dg.table()), FIELDS))
+
+
+def phase_intercept():
+    """The repaired specialized intercept on the card: float32 and
+    float64 K1, K2 and K4 on the intercept cases' aimed bundles against
+    the CPU float64 GENERIC trace (kernels.intercept_conic, no specs).
+    K1 is held by its two-pass spot RMS, K2 and K4 by their moments of
+    their scale; the moment spot RMS is reported."""
+    from rayopt_tpu_torch.ops.cuda_grad import _wmoments, weighted_moments
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        _moments, spot_rms_from_moments, trace_final, trace_merit)
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    from rayopt_tpu_torch.ops.kernels import specialize
+    log("== repaired intercept on the card: %d aimed rays a field against "
+        "the CPU float64 generic trace" % N_INTERCEPT)
+    rng = np.random.RandomState(SEED + 7)
+    failures = []
+    for name, s, table, fields in intercept_cases():
+        specs = specialize(table)
+        table_cpu = table.to(device="cpu")
+        for field in fields:
+            z, p = s.pupil((0., field))
+            r = np.sqrt(rng.uniform(0, 1, N_INTERCEPT))
+            th = rng.uniform(0, 2*np.pi, N_INTERCEPT)
+            yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
+            y0, u0 = s.aim((0., field), yp, z, p, filter=False)
+            w64 = torch.from_numpy(rng.uniform(.5, 1.5, N_INTERCEPT))
+            yh, uh, _ = trace_rays_final(table_cpu, torch.from_numpy(y0),
+                                         torch.from_numpy(u0))
+            ref_rms, ref_live = spot_rms(yh, uh)
+            live = (torch.isfinite(yh[:, 0]) & torch.isfinite(yh[:, 1])
+                    & torch.isfinite(uh[:, 2]))
+            ref_mom = torch.stack(_moments(yh[:, 0], yh[:, 1], uh[:, 2]))
+            ref_wmom = _wmoments(yh[:, 0], yh[:, 1], w64, live)
+            parts = []
+            for dtype in (torch.float32, torch.float64):
+                f64 = dtype == torch.float64
+                lim = INTERCEPT_F64_REL if f64 else INTERCEPT_F32_REL
+                state = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(
+                    DEVICE, dtype) for c in (*y0.T, *u0.T))
+                w = w64.to(DEVICE, dtype)
+                out, _ = trace_final(table, specs, state)
+                rms1, live1 = spot_rms(torch.stack(out[:3], 1),
+                                       torch.stack(out[3:], 1))
+                rel1 = abs(rms1 - ref_rms)/ref_rms
+                mom = torch.stack(trace_merit(table, specs, state))
+                ok2, rel2m, _ = compare_moments(mom.double().cpu(), ref_mom,
+                                                dtype, N_INTERCEPT)
+                wmom = weighted_moments(table, specs, state, w)
+                ok4, rel4m = compare_wmoments(wmom.double().cpu(), ref_wmom,
+                                              dtype)
+                rel2 = abs(float(spot_rms_from_moments(*mom.double()))
+                           - ref_rms)/ref_rms
+                ref4 = float(spot_rms_from_moments(*ref_wmom))
+                rel4 = abs(float(spot_rms_from_moments(*wmom.double()))
+                           - ref4)/ref4
+                ok1 = rel1 <= lim and (live1 == ref_live or not f64)
+                parts.append("%s: K1 spot RMS rel %.3e (%s), K2 moments rel "
+                             "%.3e (%s; spot RMS rel %.3e), K4 moments rel "
+                             "%.3e (%s; spot RMS rel %.3e)" % (
+                                 str(dtype)[6:], rel1, "ok" if ok1 else
+                                 "FAIL", rel2m, "ok" if ok2 else "FAIL", rel2,
+                                 rel4m, "ok" if ok4 else "FAIL", rel4))
+                failures += ["%s field %.1f %s %s" % (name, field, k,
+                                                      str(dtype)[6:])
+                             for k, ok in (("K1", ok1), ("K2", ok2),
+                                           ("K4", ok4)) if not ok]
+            log("%s, field %.1f: %d of %d rays live, CPU f64 generic spot "
+                "RMS %.12g mm | %s" % (name, field, ref_live, N_INTERCEPT,
+                                       ref_rms, " | ".join(parts)))
+    if failures:
+        raise AssertionError("repaired intercept misses the CPU generic "
+                             "trace: " + ", ".join(failures))
 
 
 def phase_fd_check(table, specs):
@@ -574,6 +806,12 @@ def phase_opt_path():
     return launches
 
 
+def _live_of(out):
+    """The rays whose final x, y and uz are finite."""
+    return (torch.isfinite(out[0]) & torch.isfinite(out[1])
+            & torch.isfinite(out[5]))
+
+
 def phase_multi_check(tabs, specs):
     """K3, K6 and K7 against their plain versions on the card."""
     from rayopt_tpu_torch.ops.cuda_grad import (
@@ -581,7 +819,9 @@ def phase_multi_check(tabs, specs):
         merit_adjoint_multi, merit_adjoint_multi_reference,
         union_spot_rms_from_moments)
     from rayopt_tpu_torch.ops.cuda_trace import (
-        trace_multi, trace_multi_reference, spot_rms_from_moments)
+        spot_rms_from_moments, trace_final, trace_final_reference,
+        trace_multi, trace_multi_reference)
+    from rayopt_tpu_torch.ops.tables import table_at
     nlam = tabs.curvature.shape[0]
     log("== K3/K6/K7 vs plain on the card (double Gauss, %d wavelengths, "
         "%d bench rays, weights uniform in [0.5, 1.5])" % (nlam, N_CHECK))
@@ -645,7 +885,18 @@ def phase_multi_check(tabs, specs):
             lim = GRAD_F64_REL if f64 else GRAD_F32_REL
             per_lam = [compare_param_grads(pg[li], pr[li], lim)
                        for li in range(nlam)]
-            ray_rel, masks, finite = compare_ray_grads(cst, cw, sr, wr)
+            # a float32 ray at an aperture's edge may be clipped at one
+            # wavelength by one version only: its summed cotangents then
+            # differ by that wavelength's term (K1 and the plain trace
+            # judge each wavelength as K7 and its plain version do)
+            agree = torch.ones_like(cw, dtype=torch.bool)
+            for li in range(nlam):
+                one = table_at(tabs, li)
+                agree &= (_live_of(trace_final(one, specs, state, clip)[0])
+                          == _live_of(trace_final_reference(one, specs, state,
+                                                            clip)[0]))
+            ray_rel, masks, finite = compare_ray_grads(cst, cw, sr, wr,
+                                                       agree)
             live = weighted_moments_multi_reference(
                 tabs, specs, state, torch.ones_like(w), clip)[:, 0]
             dead = [N_CHECK - int(v) for v in live.tolist()]
@@ -1635,13 +1886,20 @@ def phase_throughput(table, specs, card):
 
 
 def phase_grad_throughput(table, specs, card):
+    """K4 and K5 (all fields, with the ray cotangents: the work of the
+    earlier run-time-flag K5) against their plain versions at
+    N_GRAD_TIME rays in float32 and float64, beside K5 for the
+    optimizer's slot set without ray cotangents; then float64 at one
+    optimizer bundle's N_OPT_BUNDLE rays, and float32 at N_BENCH rays,
+    kernels alone."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         weighted_moments, weighted_moments_reference, merit_adjoint,
         merit_adjoint_reference)
     nsurf = table.curvature.shape[0] - 1
     log("== K4/K5 throughput: %d bench rays against the plain versions, "
-        "then %d rays kernel alone, %d traced surfaces (%s)"
-        % (N_GRAD_TIME, N_BENCH, nsurf, card))
+        "then %d rays (float64) and %d rays (float32) kernel alone, %d "
+        "traced surfaces (%s)" % (N_GRAD_TIME, N_OPT_BUNDLE, N_BENCH, nsurf,
+                                  card))
 
     def pairs(state, w, ct):
         return (
@@ -1651,6 +1909,10 @@ def phase_grad_throughput(table, specs, card):
             ("merit_adjoint",
              lambda: merit_adjoint(table, specs, state, w, ct),
              lambda: merit_adjoint_reference(table, specs, state, w, ct)))
+
+    def optimizer_k5(state, w, ct):
+        return lambda: merit_adjoint(table, specs, state, w, ct,
+                                     fields=OPT_FIELDS, rays=False)
     times = {}
     for dtype in (torch.float32, torch.float64):
         state = bench_bundle(N_GRAD_TIME, dtype, SEED + 1)
@@ -1670,8 +1932,23 @@ def phase_grad_throughput(table, specs, card):
                 "peak memory %.3f vs %.3f GiB | %s"
                 % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k,
                    N_GRAD_TIME*nsurf/(k*1e-3), mem_k, mem_p, card))
+        k = cuda_ms(optimizer_k5(state, w, ct), 20)
+        times[("merit_adjoint_optimizer", dtype)] = k
+        log("merit_adjoint %s, the optimizer's slot set, no ray cotangents: "
+            "kernel %.4f ms | %s" % (str(dtype)[6:], k, card))
         del state, w
         torch.cuda.empty_cache()
+    state = bench_bundle(N_OPT_BUNDLE, torch.float64, SEED + 1)
+    w = bench_weights(N_OPT_BUNDLE, torch.float64, SEED + 3)
+    ct = rms_cotangent(weighted_moments(table, specs, state, w))
+    cases = [(name, kernel) for name, kernel, _ in pairs(state, w, ct)]
+    cases.append(("merit_adjoint_optimizer", optimizer_k5(state, w, ct)))
+    for name, kernel in cases:
+        k = cuda_ms(kernel, 20)
+        times[(name, N_OPT_BUNDLE)] = k
+        log("%s float64 at %d rays: kernel %.4f ms, %.4g ray-surfaces/s | %s"
+            % (name, N_OPT_BUNDLE, k, N_OPT_BUNDLE*nsurf/(k*1e-3), card))
+    del state, w
     state = bench_bundle(N_BENCH, torch.float32, SEED + 1)
     w = bench_weights(N_BENCH, torch.float32, SEED + 3)
     ct = rms_cotangent(weighted_moments(table, specs, state, w))
@@ -1968,6 +2245,8 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
         "weighted_moments": (7, 0, n*(chain + 11)),
         "weighted_moments_multi": (7, 0, n*nlam*(chain + 11)),
         "merit_adjoint": (7, 7, n*chain + live*(3*chain + 11)),
+        # K5 for the optimizer's slot set writes nothing a ray
+        "merit_adjoint_optimizer": (7, 0, n*chain + live*(3*chain + 11)),
         "merit_adjoint_multi": (7, 7, n*nlam*chain + live*(3*chain + 11)),
     }[name]
     # K9 also writes its parameter and centre cotangents
@@ -2108,7 +2387,8 @@ def df32_entries(s, launches, worst, times, live):
             if plan == "fast":
                 entry.update({"bound_by": bound_by, "library_ms": None,
                               "ms_f64": None, "plain_ms_f64": None,
-                              "rays": N_GRAD_TIME, "wavelengths": lam})
+                              "bound_ms_f64": None, "rays": N_GRAD_TIME,
+                              "wavelengths": lam})
             big = times[(kname, plan, N_BENCH)]
             entry["ms%s_%d_rays" % (sfx, N_BENCH)] = big[0]
             entry["bound_ms%s_%d_rays" % (sfx, N_BENCH)] = df32_bound(
@@ -2136,7 +2416,10 @@ def main():
     specs = specialize(table)   # from the float64 table
     tabs = s.tables()           # 3 wavelengths
     mspecs = multi_specs(tabs, None)
+    ptxas = phase_spec_build(spec_keys(specs, [
+        (name, specialize(tab)) for name, _, tab, _ in intercept_cases()]))
     worst = phase_check(table, specs)
+    phase_spec_check(table, specs)
     worst.update(phase_grad_check(table, specs))
     phase_fd_check(table, specs)
     worst.update(phase_multi_check(tabs, mspecs))
@@ -2144,6 +2427,7 @@ def main():
     worst.update(phase_opd_check(s, table, specs))
     phase_opd_fd_check(s, table, specs)
     worst.update(phase_df32_check(s))
+    phase_intercept()
     reset_launches()
     aimed = phase_main_path()
     launches = read_launches()
@@ -2180,16 +2464,19 @@ def main():
     mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
     otimes, olive = phase_opd_throughput(s, table, specs, card)
     dtimes, dlive = phase_df32_throughput(s, card)
-    # live rays of the K5 timing bundle (its reverse runs for these only)
+    # live rays of the K5 timing bundles (its reverse runs for these only)
     live_mono = float(trace_merit(table, specs, bench_bundle(
         N_GRAD_TIME, torch.float32, SEED + 1))[0])
-    trace_cu, grad_cu = ("rayopt_tpu_torch/csrc/trace.cu",
-                         "rayopt_tpu_torch/csrc/grad.cu")
+    live_opt = float(trace_merit(table, specs, bench_bundle(
+        N_OPT_BUNDLE, torch.float64, SEED + 1))[0])
+    trace_cu, grad_cu, spec_cuh = ("rayopt_tpu_torch/csrc/trace.cu",
+                                   "rayopt_tpu_torch/csrc/grad.cu",
+                                   "rayopt_tpu_torch/csrc/grad_spec.cuh")
     sources = {
         "trace_final": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:82"),
         "trace_merit": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:170"),
-        "weighted_moments": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:236"),
-        "merit_adjoint": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:395"),
+        "weighted_moments": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:236"),
+        "merit_adjoint": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:395"),
         "trace_multi": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:284"),
         "weighted_moments_multi": (grad_cu,
                                    "rayopt_tpu/ops/pallas_grad.py:248"),
@@ -2210,9 +2497,9 @@ def main():
             tt, rays, lam, live = times, N_BENCH, 1, 0
         k32, p32 = tt[(kname, torch.float32)][:2]
         k64, p64 = tt[(kname, torch.float64)][:2]
+        kspecs = mspecs if lam > 1 else specs
         bound_ms, bound_by = kernel_bound(kname, rays, torch.float32,
-                                          mspecs if lam > 1 else specs, lam,
-                                          live)
+                                          kspecs, lam, live)
         entry = {
             "name": kname, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
@@ -2220,8 +2507,32 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             # no single PyTorch call computes a ray trace
             "library_ms": None,
-            "ms_f64": k64, "plain_ms_f64": p64, "rays": rays,
-            "wavelengths": lam}
+            "ms_f64": k64, "plain_ms_f64": p64,
+            "bound_ms_f64": kernel_bound(kname, rays, torch.float64, kspecs,
+                                         lam, live)[0],
+            "rays": rays, "wavelengths": lam}
+        if kname in ("weighted_moments", "merit_adjoint"):
+            k = "K4" if kname == "weighted_moments" else "K5"
+            main_key = " clip=False optimizer rays=False" if k == "K5" \
+                else " clip=False"
+            for dt in ("float32", "float64"):
+                regs, stack, spill = ptxas["%s %s%s" % (k, dt, main_key)]
+                sfx = "" if dt == "float64" else "_f32"
+                entry.update({"regs" + sfx: regs, "stack_bytes" + sfx: stack,
+                              "spill_bytes" + sfx: spill})
+            big = "_%d_rays" % N_OPT_BUNDLE
+            entry["ms_f64" + big] = tt[(kname, N_OPT_BUNDLE)]
+            entry["bound_ms_f64" + big] = kernel_bound(
+                kname, N_OPT_BUNDLE, torch.float64, specs, 1, live_opt)[0]
+            if kname == "merit_adjoint":
+                opt = "merit_adjoint_optimizer"
+                entry.update({
+                    "ms_optimizer": tt[(opt, torch.float32)],
+                    "ms_optimizer_f64": tt[(opt, torch.float64)],
+                    "ms_optimizer_f64" + big: tt[(opt, N_OPT_BUNDLE)],
+                    "bound_ms_optimizer_f64" + big: kernel_bound(
+                        opt, N_OPT_BUNDLE, torch.float64, specs, 1,
+                        live_opt)[0]})
         if kname in multi:
             entry["twin_ms"] = tt[(kname, torch.float32)][2]
             entry["twin_ms_f64"] = tt[(kname, torch.float64)][2]

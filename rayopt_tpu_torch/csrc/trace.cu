@@ -28,8 +28,9 @@
 //    SurfaceSpec flags a row are staged once per block into shared
 //    memory; every thread reads the same address (a broadcast), and
 //    the flags are uniform across the warp, so branching on them costs
-//    no divergence.  Emitting straight-line code per spec tuple (as the
-//    TPU kernel's static unroll does) is left to later work.
+//    no divergence.  K4/K5 (grad_spec.cuh) compile the same step with
+//    the flags as compile-time constants, one library a spec tuple;
+//    K1-K3 keep one build for every table.
 //  * K2 never writes per-ray output: each thread accumulates its rays'
 //    five moments, a shared-memory tree reduces the block, and the
 //    block's partial sums go to a (grid, 5) tensor that the caller sums

@@ -1,13 +1,16 @@
-// Device code shared by the trace kernels (trace.cu: K1, K2, K3) and the
-// merit-gradient kernels (grad.cu: K4-K7): the packed table layout,
-// the flag bits, the guarded math, one surface step, the whole chain
-// for one ray, and the staging of the table into shared memory.  Each
+// Device code shared by the trace kernels (trace.cu: K1, K2, K3), the
+// merit-gradient kernels (grad.cu: K6-K9) and the kernels specialized
+// per spec tuple (grad_spec.cuh: K4, K5): the packed table layout, the
+// flag bits, the guarded math, one surface step, the whole chain for
+// one ray, and the staging of the table into shared memory.  Each
 // translation unit that includes it gets its own internal copies.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -47,9 +50,10 @@ template <typename T> __device__ __forceinline__ T sgn(T x) {
   return T((x > T(0)) - (x < T(0)));
 }
 
-// v <- R v
-template <typename T>
-__device__ __forceinline__ void rot_apply(const T* r, T& x, T& y, T& z) {
+// v <- R v (r: the row's 9 rotation words; a plain or a volatile
+// pointer, see surface_step)
+template <typename R, typename T>
+__device__ __forceinline__ void rot_apply(R r, T& x, T& y, T& z) {
   const T a = r[0] * x + r[1] * y + r[2] * z;
   const T b = r[3] * x + r[4] * y + r[5] * z;
   const T c = r[6] * x + r[7] * y + r[8] * z;
@@ -57,21 +61,39 @@ __device__ __forceinline__ void rot_apply(const T* r, T& x, T& y, T& z) {
 }
 
 // v <- R^T v
-template <typename T>
-__device__ __forceinline__ void rot_apply_t(const T* r, T& x, T& y, T& z) {
+template <typename R, typename T>
+__device__ __forceinline__ void rot_apply_t(R r, T& x, T& y, T& z) {
   const T a = r[0] * x + r[3] * y + r[6] * z;
   const T b = r[1] * x + r[4] * y + r[7] * z;
   const T c = r[2] * x + r[5] * y + r[8] * z;
   x = a; y = b; z = c;
 }
 
+// A row's flags as an int: read at run time, or the value of a
+// std::integral_constant (a compile-time constant).
+__device__ __forceinline__ int flag_value(int fl) { return fl; }
+template <int F>
+__device__ __forceinline__ constexpr int flag_value(
+    std::integral_constant<int, F>) {
+  return F;
+}
+
 // One transfer-intercept-refract step: kernels.surface_step_spec for
 // flat, spherical and conic rows.  State in and out in the global
 // (from_normal) frame; adds the optical path n_before * t to tacc.
-template <typename T>
-__device__ __forceinline__ void surface_step(const T* p, int fl, bool clip,
+// The row's flags arrive as an int read at run time (K1-K3, K6-K9) or
+// as std::integral_constant<int, F> (the specialized K4/K5,
+// grad_spec.cuh): there every `fl & F_*` below is a constant and the
+// branches it does not take fold away.  One body serves both.  p, the
+// row's packed words in shared memory, is a plain pointer or (the
+// specialized kernels, whose unrolled rows would otherwise hoist every
+// row's words into registers for the whole grid-stride loop) a
+// volatile one, read where each word is used.
+template <typename T, typename Flags = int, typename Row = const T*>
+__device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
                                              T& x, T& y, T& z, T& ux,
                                              T& uy, T& uz, T& tacc) {
+  const int fl = flag_value(flags);
   if (fl & F_OFF_AXIS) {
     x = x - p[P_OFF];
     y = y - p[P_OFF + 1];
@@ -108,13 +130,12 @@ __device__ __forceinline__ void surface_step(const T* p, int fl, bool clip,
     const T disc = d * d - e * f;
     T g = sqrt0(disc);
     if (fl & F_ALTERNATE) g = -g;
-    if (sph) {
-      t = (d + g) * (T(-1) / c);
-    } else if (e == T(0)) {
-      t = f / (g == d ? T(1) : g - d);
-    } else {
-      t = -(d + g) / e;
-    }
+    // the cancellation-free pair of intercept_spec: f / (g - d) where d
+    // and g differ in sign or e == 0, else -(d + g) / e; one division
+    const bool conj = d * g <= T(0) || e == T(0);
+    T den = conj ? g - d : e;
+    if (den == T(0)) den = T(1);
+    t = (conj ? f : -(d + g)) / den;
     if (disc < T(0)) t = qnan<T>();
   }
   const T x1 = x + t * ux;
@@ -236,11 +257,12 @@ __device__ __forceinline__ void block_sum_rows(T* s_red, int rows, T* out) {
   for (int r = threadIdx.x; r < rows; r += nb) out[r] = s_red[r * nb];
 }
 
-// Raise a kernel's dynamic shared memory limit above the default 48 KB
-// when a launch needs it (Hopper: up to 227 KB a block).
+// Opt a kernel in to `bytes` of dynamic shared memory (Hopper: up to
+// 227 KB a block).  Set below 48 KB too: a kernel's static shared
+// memory counts against the same default limit.
 template <typename K>
 __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (!bytes) return cudaSuccess;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               int(bytes));

@@ -1,6 +1,6 @@
 """Canonical optical prescriptions: the achromatic doublet, the OSLO
-50mm f/4 Cooke triplet and the classic 100mm f/3 double Gauss (the
-headline benchmark lens).  The YAML texts are the JAX package's
+50mm f/4 Cooke triplet, the classic 100mm f/3 double Gauss (the
+headline benchmark lens) and an f/2 parabolic mirror.  The YAML texts are the JAX package's
 (rayopt_tpu.models.prescriptions), so both packages build the same
 systems.
 """
@@ -68,6 +68,19 @@ elements:
 stop: 6
 """
 
+PARABOLIC_YAML = """
+description: 'f/2 parabolic mirror'
+object:
+  type: infinite
+  angle_deg: 1
+  pupil: {radius: 25, distance: 25}
+stop: 1
+elements:
+- {material: vacuum}
+- {material: mirror, distance: 100, roc: -200, conic: -1, radius: 25}
+- {material: vacuum, distance: -100, radius: 1}
+"""
+
 
 def _build(yaml_text, update=True):
     s = system_from_yaml(yaml_text)
@@ -88,8 +101,13 @@ def double_gauss(update=True):
     return _build(DOUBLE_GAUSS_YAML, update)
 
 
+def parabolic_mirror(update=True):
+    return _build(PARABOLIC_YAML, update)
+
+
 PRESCRIPTIONS = {
     "doublet": doublet,
     "cooke": cooke_triplet,
     "double_gauss": double_gauss,
+    "parabolic": parabolic_mirror,
 }

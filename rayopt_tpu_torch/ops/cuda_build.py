@@ -5,7 +5,10 @@ interface, which ctypes loads; nothing includes PyTorch's headers, so
 a build takes seconds.  One nvcc per source runs in parallel, then one
 links the objects.  It runs at first use, from the package's own
 sources, into build/torch_kernels/ beside the package, and is cached
-by a hash of the sources and flags.  Fast math stays off: the kernels
+by a hash of the sources and flags.  `build_shared` builds the
+translation units that ops.cuda_spec writes for each spec key (K4,
+K5) the same way, one nvcc a unit, in parallel, cached by a hash of
+the headers, the flags and the unit's text.  Fast math stays off: the kernels
 rely on IEEE division, square root and NaN propagation.  The df32
 kernels (df32.cu) need every float32 operation rounded as written; they
 write each one with a round-to-nearest intrinsic, which nvcc never
@@ -25,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
 SOURCES = ("trace.cu", "grad.cu", "df32.cu")
-HEADERS = ("trace_common.cuh",)
+HEADERS = ("trace_common.cuh", "step_vjp.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,18 +65,6 @@ class KernelLibrary:
             fn = getattr(self._lib, "trace_merit_" + dt)
             fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [i64, i32,
                                                             i32, ptr]
-            fn.restype = i32
-            # table, flags, nsurf, clip, 6 rays, w, partials, n, grid,
-            # block, stream
-            fn = getattr(self._lib, "weighted_moments_" + dt)
-            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*8 + [i64, i32,
-                                                            i32, ptr]
-            fn.restype = i32
-            # ... 6 rays, w, ct, partials, 6 ray + 1 weight cotangents,
-            # n, grid, block, stream
-            fn = getattr(self._lib, "merit_adjoint_" + dt)
-            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*16 + [i64, i32,
-                                                             i32, ptr]
             fn.restype = i32
             # table, flags, nsurf, nlam, 6 rays, out, n, grid, block,
             # stream
@@ -123,8 +114,63 @@ class KernelLibrary:
     def ptxas_lines(self):
         """The register/shared-memory/spill lines of nvcc's -Xptxas -v
         report."""
-        return [ln.strip() for ln in self.build_log.splitlines()
-                if "ptxas info" in ln or "bytes stack frame" in ln]
+        return ptxas_lines(self.build_log)
+
+
+def ptxas_lines(log):
+    """The register/shared-memory/spill lines of a -Xptxas -v report."""
+    return [ln.strip() for ln in log.splitlines()
+            if "ptxas info" in ln or "bytes stack frame" in ln]
+
+
+def _digest(*parts):
+    h = hashlib.sha256()
+    for p in parts:
+        h.update(p if isinstance(p, bytes) else p.encode())
+    return h.hexdigest()
+
+
+def build_shared(units, headers=()):
+    """Compile translation units into shared libraries under BUILD_DIR,
+    one nvcc each, all started together; a unit already built (same
+    name, headers, flags and text) is taken from the cache.
+    units: {name: source text} (the text includes the headers from
+    csrc/).  Returns {name: (path, nvcc seconds (0 if cached), nvcc's
+    output)}; raises RuntimeError when a build fails."""
+    nvcc = _nvcc()
+    head = b"".join((CSRC/h).read_bytes() for h in headers)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, jobs = {}, []
+    for name, text in units.items():
+        digest = _digest(head, " ".join(NVCC_FLAGS), text)[:12]
+        lib = BUILD_DIR / ("%s_%s.so" % (name, digest))
+        log_path = lib.with_suffix(".log")
+        if lib.exists() and log_path.exists():
+            out[name] = (lib, 0., log_path.read_text())
+            continue
+        src = lib.with_name("%s.%d.cu" % (lib.stem, os.getpid()))
+        src.write_text(text)
+        tmp = lib.with_name(lib.name + ".%d.tmp" % os.getpid())
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o", str(tmp),
+               str(src)]
+        jobs.append((name, lib, src, tmp, cmd, time.perf_counter(),
+                     subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, lib, src, tmp, cmd, t0, proc in jobs:
+        log = proc.communicate()[0]
+        seconds = time.perf_counter() - t0
+        src.unlink(missing_ok=True)
+        if proc.returncode:
+            failed.append("(exit %d) %s\n%s" % (proc.returncode,
+                                                 " ".join(cmd), log))
+            continue
+        lib.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib)
+        out[name] = (lib, seconds, log)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,12 +178,10 @@ def load_library():
     """Build (if needed) and load the kernel library; raises
     RuntimeError when nvcc is missing or the build fails."""
     nvcc = _nvcc()
-    digest = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        digest.update((CSRC/name).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest = _digest(*((CSRC/name).read_bytes() for name in SOURCES + HEADERS),
+                     " ".join(NVCC_FLAGS))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib = BUILD_DIR / ("librayopt_trace_%s.so" % digest.hexdigest()[:16])
+    lib = BUILD_DIR / ("librayopt_trace_%s.so" % digest[:16])
     log_path = lib.with_suffix(".log")
     if lib.exists() and log_path.exists():
         return KernelLibrary(lib, 0., log_path.read_text())

@@ -56,8 +56,15 @@ bind them in `_OpdRays` (the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
 kernel, in autograd.
 
-The kernels are hand-written CUDA C++ (csrc/grad.cu), built with the
-K1/K2 library (ops.cuda_build).  A wrapper takes the plain PyTorch
+The kernels are hand-written CUDA C++.  K4 and K5 are compiled for
+each (dtype, spec tuple, clip) key, K5 also for its live parameter
+slots and for whether it writes the ray and weight cotangents
+(csrc/grad_spec.cuh, built and cached by ops.cuda_spec); through
+`_SpotMoments` K5 reduces only the slots autograd asks for and, when
+no ray or weight needs a gradient (the optimizer's frozen bundles),
+writes nothing a ray.  K6-K9 read the row flags at run time
+(csrc/grad.cu, built with the K1/K2 library by ops.cuda_build).  A
+wrapper takes the plain PyTorch
 version (`weighted_moments_reference`, `merit_adjoint_reference`,
 `weighted_moments_multi_reference`, `merit_adjoint_multi_reference`,
 `opd_chain_reference`, `opd_adjoint_reference`) only for a bundle on
@@ -70,18 +77,20 @@ torch, line for line, so the CPU tests can hold it against autograd;
 nothing else calls them.
 """
 
+import functools
 import warnings
 from typing import NamedTuple
 
 import torch
 
+from . import cuda_spec as CS
 from . import kernels as K
 from .cuda_trace import (BLOCK, ROW, SMEM_OPTIN, _check_state, _launch_setup,
-                         _raise_on, spot_rms_from_moments,
+                         _raise_on, pack_values, spot_rms_from_moments,
                          trace_final_reference)
 from .tables import lower_pose, table_at
 
-MAX_ROWS = 32   # saved states a K5 thread keeps: keep in sync with grad.cu
+MAX_ROWS = 32   # saved states a K7/K9 thread keeps: keep in sync with grad.cu
 SLOTS = 6       # parameter cotangents a row: c, k, offset x/y/z, mu
 OPD_SLOTS = 7   # K9's a row: SLOTS and n_before
 AUX = 5         # K8/K9's aux vector: centre x, y, z, radius, lam_scale
@@ -117,12 +126,21 @@ def weighted_moments_reference(table, specs, state, w, clip=False):
     return _wmoments(out[0], out[1], w, _live(out))
 
 
+def _folded(table):
+    """The table with its pose folded into rot and offset and its tilt
+    and decenter dropped: lowering it again reads nothing from the
+    device (tables.lower_pose tests a CUDA pose for zeros with a host
+    sync)."""
+    return lower_pose(table)._replace(tilt=None, decenter=None)
+
+
 def _constant_table(table, like):
-    """The lowered table, detached, in `like`'s dtype and device."""
+    """The lowered table (_folded), detached, in `like`'s dtype and
+    device."""
     return type(table)(*(None if f is None
                          else f.detach().to(device=like.device,
                                             dtype=like.dtype)
-                         for f in lower_pose(table)))
+                         for f in _folded(table)))
 
 
 def _param_rows(tab):
@@ -374,12 +392,11 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
         sg = -1. if spec.alternate else 1.
         sq = K._sqrt0(disc)
         q = sg*sq
-        if spec.spherical:
-            t = (d + q)*(-1./c)
-        else:
-            den = torch.where(q == d, 1., q - d)
-            e_safe = torch.where(e == 0, 1., e)
-            t = torch.where(e == 0, f/den, -(d + q)/e_safe)
+        # intercept_spec's pair: f/(q - d) (conj) or -(d + q)/e
+        conj = (d*q <= 0) | (e == 0)
+        den = torch.where(conj, q - d, e)
+        den = torch.where(den == 0, 1., den)
+        t = torch.where(conj, f, -(d + q))/den
     x1, y1, z1 = x + t*ux, y + t*uy, z + t*uz
     # ---- reverse: leave the row's frame ----
     gx1, gy1, gz1, gvx, gvy, gvz = g
@@ -469,17 +486,12 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
         gz = gz - gt/uzs
         guz = guz + torch.where(uz == 0, 0., gt*z/(uzs*uzs))
     else:
-        if spec.spherical:
-            gd = gq = gt*(-1./c)
-            gc = gc + gt*(d + q)/(c*c)
-            ge = gf = zero
-        else:
-            ge0 = e == 0
-            dd = torch.where(ge0 & (q != d), gt*f/(den*den), 0.)
-            gf = torch.where(ge0, gt/den, 0.)
-            gd = torch.where(ge0, dd, -gt/e_safe)
-            gq = torch.where(ge0, -dd, -gt/e_safe)
-            ge = torch.where(ge0, 0., gt*(d + q)/(e_safe*e_safe))
+        # the derivative of the form the ray took (den is e when not conj)
+        dd = torch.where(conj & (q != d), gt*f/(den*den), 0.)
+        gf = torch.where(conj, gt/den, 0.)
+        gd = torch.where(conj, dd, -gt/den)
+        gq = torch.where(conj, -dd, -gt/den)
+        ge = torch.where(conj, 0., gt*(d + q)/(den*den))
         gdisc = gq*sg*.5/sq
         gd = gd + 2*d*gdisc
         ge = ge - f*gdisc
@@ -638,65 +650,109 @@ def _check_vector(v, state, name, shape=None):
                          % (name, shape, tuple(v.shape)))
 
 
+def _spec_launch(state):
+    """The device, the rays and the stream of a K4/K5 launch on a CUDA
+    bundle."""
+    x = state[0]
+    if x.device.type != "cuda":
+        raise ValueError("expected a CUDA or CPU bundle, got %s" % x.device)
+    return x.device, x.shape[0], torch.cuda.current_stream(
+        x.device).cuda_stream
+
+
+def _packed(table, specs, x):
+    packed = pack_values(table, x.dtype, x.device)
+    if packed.shape[0] != len(specs):
+        raise ValueError("%d specs for a table of %d rows"
+                         % (len(specs), packed.shape[0]))
+    return packed
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_kernel(specs, dtype, clip):
+    return CS.load(CS.moments_key(specs, dtype, clip))
+
+
+@functools.lru_cache(maxsize=None)
+def _adjoint_kernel(specs, dtype, clip, fields, rays):
+    return CS.load(CS.adjoint_key(specs, dtype, clip, fields, rays))
+
+
 def weighted_moments(table, specs, state, w, clip=False):
     """K4: the (5,) weighted moments (sum w, sum wx, sum wy, sum wx^2,
     sum wy^2) over live rays, in the rays' dtype.  CUDA bundles launch
-    the kernel (block partial sums, then one torch sum over blocks);
-    CPU bundles take weighted_moments_reference."""
+    the kernel compiled for (dtype, specs, clip) (ops.cuda_spec: one
+    launch, the grid-wide sum fused); CPU bundles take
+    weighted_moments_reference."""
     _check_state(state)
     _check_vector(w, state, "w")
-    if state[0].device.type == "cpu":
+    x = state[0]
+    if x.device.type == "cpu":
         return weighted_moments_reference(table, specs, state, w, clip)
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
-        table, specs, state, smem_extra_words=5*BLOCK)
-    partials = torch.zeros((grid, 5), dtype=state[0].dtype,
-                           device=state[0].device)
-    if n:
-        err = getattr(lib, "weighted_moments_" + suffix)(
-            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
-            *(c.data_ptr() for c in state), w.data_ptr(),
-            partials.data_ptr(), n, grid, BLOCK, stream)
-        _raise_on(lib, err, "weighted_moments")
-        weighted_moments.launches += 1
-    return partials.sum(0)
+    device, n, stream = _spec_launch(state)
+    specs = tuple(specs)
+    kern = _moments_kernel(specs, x.dtype, bool(clip))
+    packed = _packed(table, specs, x)
+    if not n:
+        return torch.zeros(5, dtype=x.dtype, device=device)
+    grid = kern.grid(n, device)
+    out = torch.empty(5, dtype=x.dtype, device=device)
+    partials = torch.empty((grid, 5), dtype=x.dtype, device=device)
+    kern.check(kern.fn(packed.data_ptr(), *(c.data_ptr() for c in state),
+                       w.data_ptr(), partials.data_ptr(),
+                       CS.counter(device).data_ptr(), out.data_ptr(), n,
+                       grid, stream))
+    weighted_moments.launches += 1
+    return out
 
 
 weighted_moments.launches = 0
 
 
-def merit_adjoint(table, specs, state, w, ct, clip=False):
+def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
+                  rays=True):
     """K5: (parameter cotangents (S, SLOTS): c, k, offset x, y, z, mu;
     the six state cotangents; the weight cotangent) of the weighted
     moments dotted with `ct`, a (5,) tensor of moment cotangents on
-    the rays' device.  CUDA bundles launch the kernel (per-block
-    parameter partials, then one torch sum over blocks); CPU bundles
-    take merit_adjoint_reference."""
+    the rays' device.  `fields`: the table fields whose cotangents are
+    wanted; a slot outside them, or baked out by the specs
+    (cuda_spec.live_slots), is an exact zero.  rays=False: the state
+    and weight cotangents are not computed and come back as None.
+    CUDA bundles launch the kernel compiled for (dtype, specs, clip,
+    live slots, rays) (ops.cuda_spec: one launch, the grid-wide sum
+    fused, nothing written a ray without `rays`); CPU bundles take
+    merit_adjoint_reference."""
     _check_state(state)
     _check_vector(w, state, "w")
     _check_vector(ct, state, "ct", (5,))
-    if state[0].device.type == "cpu":
-        return merit_adjoint_reference(table, specs, state, w, ct, clip)
-    if len(specs) > MAX_ROWS:
-        raise ValueError("merit_adjoint keeps at most %d rows a ray, the "
-                         "table has %d" % (MAX_ROWS, len(specs)))
-    nsurf = len(specs)
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
-        table, specs, state,
-        smem_extra_words=(BLOCK // 32)*nsurf*SLOTS)
     x = state[0]
-    partials = torch.zeros((grid, nsurf*SLOTS), dtype=x.dtype,
-                           device=x.device)
-    outs = [torch.zeros_like(x) for _ in range(7)]
-    if n:
-        err = getattr(lib, "merit_adjoint_" + suffix)(
-            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
-            *(c.data_ptr() for c in state), w.data_ptr(), ct.data_ptr(),
-            partials.data_ptr(), *(o.data_ptr() for o in outs), n, grid,
-            BLOCK, stream)
-        _raise_on(lib, err, "merit_adjoint")
-        merit_adjoint.launches += 1
-    return (partials.sum(0).reshape(nsurf, SLOTS), tuple(outs[:6]),
-            outs[6])
+    specs, fields = tuple(specs), tuple(fields)
+    if x.device.type == "cpu":
+        pg, st, gw = merit_adjoint_reference(table, specs, state, w, ct,
+                                             clip)
+        pg = torch.where(CS.live_mask(CS.live_slots(specs, fields)), pg, 0.)
+        return (pg, st, gw) if rays else (pg, None, None)
+    device, n, stream = _spec_launch(state)
+    kern = _adjoint_kernel(specs, x.dtype, bool(clip), fields, bool(rays))
+    packed = _packed(table, specs, x)
+    if not n:
+        pg = torch.zeros((len(specs), SLOTS), dtype=x.dtype, device=device)
+        return (pg, tuple(torch.zeros_like(x) for _ in range(6)),
+                torch.zeros_like(x)) if rays else (pg, None, None)
+    grid = kern.grid(n, device)
+    pg = torch.empty((len(specs), SLOTS), dtype=x.dtype, device=device)
+    partials = torch.empty((grid, max(kern.key.nlive, 1)), dtype=x.dtype,
+                           device=device)
+    outs = [torch.empty_like(x) for _ in range(7)] if rays else None
+    kern.check(kern.fn(packed.data_ptr(), *(c.data_ptr() for c in state),
+                       w.data_ptr(), ct.data_ptr(), partials.data_ptr(),
+                       CS.counter(device).data_ptr(), pg.data_ptr(),
+                       *((o.data_ptr() for o in outs) if rays
+                         else (None,)*7), n, grid, stream))
+    merit_adjoint.launches += 1
+    if not rays:
+        return pg, None, None
+    return pg, tuple(outs[:6]), outs[6]
 
 
 merit_adjoint.launches = 0
@@ -876,28 +932,25 @@ class _SpotMoments(torch.autograd.Function):
         tensors = ctx.saved_tensors
         params, state, w = tensors[:5], tensors[5:11], tensors[11]
         tab = ctx.table.replace(**dict(zip(_DIFF, params)))
-        bwd = merit_adjoint_multi if ctx.multi else merit_adjoint
-        pg, ct_state, ct_w = bwd(tab, ctx.specs, state, w, ct.contiguous(),
-                                 ctx.clip)
+        if ctx.multi:
+            pg, ct_state, ct_w = merit_adjoint_multi(
+                tab, ctx.specs, state, w, ct.contiguous(), ctx.clip)
+        else:
+            # K5 reduces only the slots autograd asks for, and writes the
+            # ray and weight cotangents only when they are wanted
+            need = ctx.needs_input_grad
+            fields = tuple(f for f, nd in zip(CS.FIELDS, need[4:8]) if nd)
+            pg, ct_state, ct_w = merit_adjoint(
+                tab, ctx.specs, state, w, ct.contiguous(), ctx.clip,
+                fields=fields, rays=any(need[9:16]))
+            if ct_state is None:
+                ct_state = (None,)*6
         grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
                  pg[..., 5], torch.zeros_like(params[4]))
         return (None, None, None, None, *grads, *ct_state, ct_w)
 
 
-def _baked_out_rows(specs, field):
-    """Surface rows (1-indexed into the chain) whose static
-    specialization never READS `field`, so its gradient there is
-    structurally zero (specialized-engine semantics).  Only flat,
-    spherical and conic rows reach the kernels (kernels.
-    check_supported), so no row carries a figure."""
-    baked = {"curvature": lambda sp: sp.flat,
-             "conic": lambda sp: sp.flat or sp.spherical,
-             "offset": lambda sp: not sp.off_axis,   # transverse x/y
-             "mu": lambda sp: sp.kind == 0,
-             "rot": lambda sp: not sp.rotated}.get(field)
-    if baked is None:
-        return []
-    return [j for j, sp in enumerate(specs) if j and baked(sp)]
+_baked_out_rows = CS.baked_out_rows
 
 
 def _warn_baked_params(specs, params):
@@ -977,7 +1030,7 @@ def spot_moments_multi(tables, state, w, specs=None, clip=False,
 def _moments(table, specs, state, w, clip, multi):
     """The autograd call shared by spot_moments and spot_moments_multi
     (a stacked table with `multi`)."""
-    table = lower_pose(table)
+    table = _folded(table)
     if table.rot.requires_grad and any(s.rotated for s in specs):
         raise NotImplementedError(
             "the adjoint merit does not differentiate rot/tilt yet (the "

@@ -31,6 +31,8 @@ every engine that is compared (derive them from the float64 table
 even when tracing in float32: a float32 cast can move a row's flags).
 """
 
+import functools
+
 import torch
 
 from . import kernels as K
@@ -112,28 +114,39 @@ def _flags(spec):
             | (int(spec.kind) << KIND_SHIFT))
 
 
+def pack_values(table, dtype, device):
+    """The lowered table's values as one contiguous (S, ROW) tensor in
+    `dtype` on `device` -- (L, S, ROW) for a stacked table."""
+    table = lower_pose(table)
+    cols = torch.cat([
+        table.curvature[..., None], table.conic[..., None], table.offset,
+        table.rot.flatten(-2), table.radius[..., None],
+        table.mu[..., None], table.n_before[..., None]], dim=-1)
+    # cast first (the kernel traces in `dtype`), then move
+    return cols.to(dtype=dtype).to(device=device).contiguous()
+
+
 def pack_table(table, specs, dtype, device):
     """The lowered table as one contiguous (S, ROW) tensor in `dtype`
     on `device` -- (L, S, ROW) for a stacked table, whose tables share
     the specs -- plus the (S,) int32 flags that encode each row's
     SurfaceSpec.  Rows that need the extended vocabulary raise
     NotImplementedError."""
-    table = lower_pose(table)
     nsurf = table.curvature.shape[-1]
     if len(specs) != nsurf:
         raise ValueError("%d specs for a table of %d rows"
                          % (len(specs), nsurf))
     for j, spec in enumerate(specs[1:], 1):
         K.check_supported(spec, j)
-    cols = torch.cat([
-        table.curvature[..., None], table.conic[..., None], table.offset,
-        table.rot.flatten(-2), table.radius[..., None],
-        table.mu[..., None], table.n_before[..., None]], dim=-1)
-    # cast first (the kernel traces in `dtype`), then move
-    packed = cols.to(dtype=dtype).to(device=device).contiguous()
     flags = torch.tensor([_flags(s) for s in specs], dtype=torch.int32,
                          device=device)
-    return packed, flags
+    return pack_values(table, dtype, device), flags
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """The streaming multiprocessors of a CUDA device (cached)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_state(state):
@@ -178,8 +191,7 @@ def _launch_setup(table, specs, state, smem_extra_words=0):
                          "memory, above %d" % (packed[..., 0, 0].numel(),
                                                nsurf, smem, limit))
     n = x.shape[0]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(-(-n // BLOCK), sms*BLOCKS_PER_SM))
+    grid = max(1, min(-(-n // BLOCK), sm_count(x.device)*BLOCKS_PER_SM))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     suffix = "f32" if x.dtype == torch.float32 else "f64"
     return lib, suffix, packed, flags, nsurf, n, grid, stream

@@ -251,7 +251,15 @@ def with_pose(specs, rows=None):
 def intercept_spec(x, y, z, ux, uy, uz, c, k, spec):
     """Specialized conic intercept: assumes unit direction vectors
     (uu == 1 when spherical), drops the conic terms when spherical,
-    and the whole quadratic when flat."""
+    and the whole quadratic when flat.
+
+    Spherical and conic rows pick the cancellation-free numerator/
+    denominator pair as intercept_conic does (f/(g - d) where d and g
+    differ in sign or e == 0, else -(d + g)/e) and divide once.  The
+    JAX package's specialized intercept keeps -(d + g)/e (spherical:
+    times a baked -1/c), which loses its digits near the axis of a
+    paraboloid and on a spherical row whose curvature tends to 0: a
+    chosen divergence (ROADMAP, Queue 3)."""
     if spec.flat:
         uz_safe = torch.where(uz == 0, 1., uz)
         return -z/uz_safe
@@ -271,14 +279,10 @@ def intercept_spec(x, y, z, ux, uy, uz, c, k, spec):
     g = _sqrt0(disc)
     if spec.alternate:
         g = -g
-    if spec.spherical:
-        # e == c, one per-surface reciprocal turns the divide into a
-        # multiply
-        s = (d + g)*(-1./c)
-    else:
-        e_safe = torch.where(e == 0, 1., e)
-        gd_safe = torch.where(g == d, 1., g - d)
-        s = torch.where(e == 0, f/gd_safe, -(d + g)/e_safe)
+    conj = (d*g <= 0) | (e == 0)
+    num = torch.where(conj, f, -(d + g))
+    den = torch.where(conj, g - d, e)
+    s = num/torch.where(den == 0, 1., den)
     return torch.where(disc < 0, NAN, s)
 
 

@@ -195,6 +195,118 @@ def test_adjoint_optimize_step_on_card(cuda_device):
         assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max()), k
 
 
+def _spec_case(name, device, dtype):
+    """A system's table, specs (the Cooke's with with_pose for
+    "cooke_pose") and its aimed hexapolar bundle (nrays 2^14) at field
+    0.7 and the first wavelength, in `dtype` on `device`."""
+    from rayopt_tpu_torch.models import (cooke_triplet, doublet,
+                                         parabolic_mirror)
+    from rayopt_tpu_torch.ops.kernels import with_pose
+    from rayopt_tpu_torch.parallel import bundles_from_system
+    s = {"doublet": doublet, "cooke": cooke_triplet,
+         "cooke_pose": cooke_triplet, "parabolic": parabolic_mirror}[name]()
+    tab = s.table()
+    specs = specialize(tab)
+    if name == "cooke_pose":
+        specs = with_pose(specs)
+    y0, u0, w, _ = bundles_from_system(
+        s, fields=(.7,), wavelengths=[s.wavelengths[0]], nrays=1 << 14,
+        distribution="hexapolar", device="cpu")[0]
+    state = tuple(c.to(device, dtype).contiguous() for c in (*y0.T, *u0.T))
+    return tab, specs, state, w.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["doublet", "cooke", "parabolic",
+                                  "cooke_pose"])
+def test_specialized_grad_kernels_match_plain_on_card(cuda_device, name,
+                                                       dtype):
+    """K4 and K5 compiled per spec tuple (ops.cuda_spec) against their
+    plain versions, clip off and on, for the optimizer's slot set and
+    for every field, with and without the ray cotangents: one launch a
+    call, the slots that are not live exact zeros.  float64 K5 is held
+    to the float64 plain version at rounding (the fused multiply-adds
+    nvcc contracts: the doublet's ray cotangents measured 1.2e-9 of
+    their largest).  float32 K5 is held to the float64 plain version on
+    the same inputs, within 1e-3 (parameters) and 1e-2 (rays) of the
+    largest, or ten times the float32 plain version's own error where
+    that is larger: on the doublet's aimed bundle the float32 plain
+    version is itself 1.6e-2 off in curvature."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    tab, specs, state, w = _spec_case(name, cuda_device, dtype)
+    f64 = dtype == torch.float64
+    slot_sets = (("curvature", "offset"), CS.FIELDS)
+    # one nvcc a key, all started together
+    CS.prebuild([CS.moments_key(specs, dtype, clip) for clip in (0, 1)] + [
+        CS.adjoint_key(specs, dtype, clip, fields, rays)
+        for clip in (0, 1) for fields in slot_sets for rays in (0, 1)])
+
+    def rel(got, want):
+        """max |got - want| of the largest |want| (0 if want is 0)."""
+        scale = max(float(v.abs().max()) for v in want)
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        return err/scale if scale else err
+
+    for clip in (False, True):
+        before = CG.weighted_moments.launches
+        mom = CG.weighted_moments(tab, specs, state, w, clip)
+        mref = CG.weighted_moments_reference(tab, specs, state, w, clip)
+        assert CG.weighted_moments.launches == before + 1
+        if float(mref[0]) == 0:
+            assert float(mom[0]) == 0
+            continue
+        # each moment of its scale, floored at 1 mm a unit weight as in
+        # chip_smoke.compare_wmoments: the spot RMS of float32 moments
+        # cancels off axis (E[x^2] - c^2)
+        wsum, sxx, syy = (float(mref[i]) for i in (0, 3, 4))
+        scale = (wsum, max((wsum*sxx)**.5, wsum), max((wsum*syy)**.5, wsum),
+                 max(sxx, wsum), max(syy, wsum))
+        for g, r, sc in zip(mom.tolist(), mref.tolist(), scale):
+            assert abs(g - r) <= (1e-12 if f64 else 1e-4)*sc, (g, r)
+        ct = _rms_cotangent(mref)
+        plain = CG.merit_adjoint_reference(tab, specs, state, w, ct, clip)
+        truth = CG.merit_adjoint_reference(
+            tab, specs, tuple(c.double() for c in state), w.double(),
+            ct.double(), clip)
+        for fields in slot_sets:
+            live = CS.live_mask(CS.live_slots(specs, fields)).to(cuda_device)
+            for rays in (False, True):
+                before = CG.merit_adjoint.launches
+                pg, cst, cw = CG.merit_adjoint(tab, specs, state, w, ct,
+                                               clip, fields=fields,
+                                               rays=rays)
+                torch.cuda.synchronize()
+                assert CG.merit_adjoint.launches == before + 1
+                assert torch.isfinite(pg).all()
+                assert not bool(pg[~live].any())
+                # each field against its largest cotangent (the offset's
+                # x, y, z together: a symmetric bundle's x is rounding
+                # noise about zero)
+                want = torch.where(live, truth[0], 0.)
+                own = torch.where(live, plain[0].double(), 0.)
+                for cols in ((0,), (1,), (2, 3, 4), (5,)):
+                    got = rel([pg[:, cols]], [want[:, cols]])
+                    lim = 1e-9 if f64 else max(
+                        1e-3, 10*rel([own[:, cols]], [want[:, cols]]))
+                    assert got <= lim, (fields, rays, cols, got, lim)
+                if not rays:
+                    assert cst is None and cw is None
+                    continue
+                # dead rays are exact zeros in both (a live ray's weight
+                # cotangent may round to zero too, so no mask test here)
+                for kind in (slice(0, 3), slice(3, 6)):
+                    got = rel(cst[kind], truth[1][kind])
+                    lim = 1e-8 if f64 else max(
+                        1e-2, 10*rel(plain[1][kind], truth[1][kind]))
+                    assert got <= lim, (fields, kind, got, lim)
+                got = rel([cw], [truth[2]])
+                lim = 1e-8 if f64 else max(1e-2,
+                                           10*rel([plain[2]], [truth[2]]))
+                assert got <= lim, (fields, "w", got, lim)
+
+
 def _union_cotangent(mom):
     """d union_spot_rms / d (nlam, 5) moments at `mom`."""
     m = mom.detach().double().cpu().requires_grad_()
