@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the checkout (K4 and K5 once
-for each spec tuple, slot set and flag they run with, all keys in
-parallel, with their ptxas registers, stack and spills), holds each
-against its plain PyTorch version on the card (the specialized K5 for
-each slot set, with and without ray cotangents; the repaired
+Builds the hand-written CUDA kernels from the checkout (K4, K5, K7
+and K9 once for each spec tuple, slot set and flag they run with, all
+keys in parallel, with their ptxas registers, stack and spills), holds
+each against its plain PyTorch version on the card (the specialized
+K5 for each slot set, with and without ray cotangents, K7 and K9 for
+every field with ray cotangents and for their loops' keys; the repaired
 cancellation-free intercept of K1, K2 and K4 on a paraboloid and on the
 double Gauss with near-flat rows against the CPU float64 generic
 trace), drives the port's four
@@ -54,6 +55,10 @@ FIELDS = (0., .7, 1.)
 SEED = 0
 OPT_SELECT = ("curvature", "distance")
 OPT_FIELDS = ("curvature", "offset")   # the table fields OPT_SELECT moves
+# the fields K7 reduces on the achromatization path (curvature, distance
+# and, through the glasses, mu) and K9 on the design path
+ACHROM_FIELDS = ("curvature", "offset", "mu")
+DESIGN_FIELDS = OPT_FIELDS
 OPT_STEPS = 10
 OPT_LR = 1e-7        # Adam: the merit falls at every step on the CPU
 FD_STEP = {"curvature": 1e-8, "distance": 1e-6}   # 1/mm, mm
@@ -106,8 +111,16 @@ HOST_OPD_ATOL = 1e-7  # waves: K8 f64 on the card vs the host OPD (numpy);
 #                      waves, and the CPU plain K8 is ~5e-9 waves off
 
 
+T_START = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """Print a line; a phase's header ("== ...") also gets the seconds
+    since the script started."""
+    text = " ".join(str(a) for a in args)
+    if text.startswith("== "):
+        text += " [at %.1f s]" % (time.perf_counter() - T_START)
+    print(text, flush=True)
 
 
 def phase_card():
@@ -376,12 +389,16 @@ def phase_grad_check(table, specs):
     return worst
 
 
-def spec_keys(specs, extra=()):
-    """{tag: key} of the K4/K5 specializations this script runs: K4 and
-    K5 on `specs` in float32 and float64, clip off and on, K5 for the
+def spec_keys(specs, mspecs, extra=()):
+    """{tag: key} of the specializations this script runs: K4 and K5 on
+    `specs` in float32 and float64, clip off and on, K5 for the
     optimizer's slot set and for all fields, with and without the ray
-    cotangents; K4 on each spec tuple of `extra` (the intercept cases)
-    unclipped."""
+    cotangents; K7 on the stack's `mspecs` and K9 on `specs`, clip off
+    and on, for all fields with the ray cotangents (the checks), and
+    unclipped for their loops' keys without (the achromatization and
+    the design path); the keys the finite-difference checks of a glass
+    take (K7: mu; K9: mu and n_before, float64); K4 on each spec tuple
+    of `extra` (the intercept cases) unclipped."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     keys = {}
     for dtype in (torch.float32, torch.float64):
@@ -395,9 +412,31 @@ def spec_keys(specs, extra=()):
                         dt, clip, "optimizer" if fields == OPT_FIELDS
                         else "all", rays)] = CS.adjoint_key(
                             specs, dtype, clip, fields, rays)
+            keys["K7 %s clip=%s all rays=True" % (dt, clip)] = \
+                CS.adjoint_multi_key(mspecs, dtype, clip)
+            keys["K9 %s clip=%s all rays=True" % (dt, clip)] = \
+                CS.opd_adjoint_key(specs, dtype, clip)
+        keys["K7 %s clip=False achromatization rays=False" % dt] = \
+            CS.adjoint_multi_key(mspecs, dtype, False, ACHROM_FIELDS, False)
+        keys["K9 %s clip=False design rays=False" % dt] = \
+            CS.opd_adjoint_key(specs, dtype, False, DESIGN_FIELDS, False)
         for name, sp in extra:
             keys["K4 %s %s" % (dt, name)] = CS.moments_key(sp, dtype)
+    keys["K7 float64 clip=False glass rays=False"] = CS.adjoint_multi_key(
+        mspecs, torch.float64, False, ("mu",), False)
+    keys["K9 float64 clip=False glass rays=False"] = CS.opd_adjoint_key(
+        specs, torch.float64, False, ("mu", "n_before"), False)
     return keys
+
+
+# the keys whose ptxas report must show no stack frame and no spill: the
+# loops' (phase_spec_build)
+LOOP_KEYS = ("K5 float32 clip=False optimizer rays=False",
+             "K5 float64 clip=False optimizer rays=False",
+             "K5 float32 clip=True optimizer rays=False",
+             "K5 float64 clip=True optimizer rays=False",
+             "K7 float64 clip=False achromatization rays=False",
+             "K9 float64 clip=False design rays=False")
 
 
 def ptxas_stats(kern):
@@ -415,12 +454,14 @@ def ptxas_stats(kern):
 
 
 def phase_spec_build(keys):
-    """Build every K4/K5 specialization at once (one nvcc a key, in
-    parallel); log each key's build seconds and ptxas lines.  K5 for
-    the optimizer's slot set must have no stack frame and no spill.
-    Returns {tag: (registers, stack bytes, spill bytes)}."""
+    """Build every K4/K5/K7/K9 specialization at once (one nvcc a key, in
+    parallel); log each key's build seconds and ptxas lines.  The
+    loops' keys (LOOP_KEYS: K5 for the optimizer's slot set, K7 for the
+    achromatization path's and K9 for the design path's, float64) must
+    have no stack frame and no spill.  Returns {tag: (registers, stack
+    bytes, spill bytes)}."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
-    log("== K4/K5 specialized per spec tuple: %d keys" % len(keys))
+    log("== K4/K5/K7/K9 specialized per spec tuple: %d keys" % len(keys))
     t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
     log("built in %.2f s wall" % (time.perf_counter() - t0))
@@ -432,11 +473,11 @@ def phase_spec_build(keys):
             tag, key.name, key.nlive, key.block, kern.build_seconds,
             " | ".join(ln for ln in kern.ptxas_lines()
                        if "Compiling" not in ln and "properties" not in ln)))
-        if "optimizer rays=False" in tag and stats[tag][1:] != (0, 0):
+        if tag in LOOP_KEYS and stats[tag][1:] != (0, 0):
             failures.append(tag)
     if failures:
-        raise AssertionError("K5 for the optimizer's slot set has a stack "
-                             "frame or spills: %s" % failures)
+        raise AssertionError("a loop's key has a stack frame or spills: %s"
+                             % failures)
     return stats
 
 
@@ -814,6 +855,7 @@ def _live_of(out):
 
 def phase_multi_check(tabs, specs):
     """K3, K6 and K7 against their plain versions on the card."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
         weighted_moments_multi, weighted_moments_multi_reference,
         merit_adjoint_multi, merit_adjoint_multi_reference,
@@ -916,6 +958,29 @@ def phase_multi_check(tabs, specs):
                    ray_rel, masks, dead, finite, "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("K7 " + tag)
+            if not clip:
+                # the achromatization path's key: its slots, no ray
+                # cotangents, the rest exact zeros
+                live_slots = CS.live_mask(CS.live_slots(
+                    specs, ACHROM_FIELDS)).to(DEVICE)
+                pa, ca, wa = merit_adjoint_multi(tabs, specs, state, w, ct,
+                                                 clip, fields=ACHROM_FIELDS,
+                                                 rays=False)
+                torch.cuda.synchronize()
+                per_lam = [compare_param_grads(
+                    pa[li], torch.where(live_slots, pr[li], 0.), lim)
+                    for li in range(nlam)]
+                dead_zero = not bool(pa[:, ~live_slots].any())
+                ok = (all(v[2] for f in per_lam for v in f.values())
+                      and dead_zero and ca is None and wa is None)
+                log("K7 %s, the achromatization key (%d live slots a "
+                    "wavelength, no ray cotangents): largest error %.3e, "
+                    "the rest exact zeros %s -> %s"
+                    % (tag, int(live_slots.sum()),
+                       max(v[0] for f in per_lam for v in f.values()),
+                       dead_zero, "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("K7 %s achromatization key" % tag)
             if not f64:
                 worst["weighted_moments_multi"] = max(
                     worst["weighted_moments_multi"], abs(ug - uw))
@@ -1162,6 +1227,7 @@ def phase_opd_check(s, table, specs):
     float64 against the plain version; in float32 K8 against the plain
     float32 version, K9's sums against the float64 plain version on the
     same inputs (see below)."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
         opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
     log("== K8/K9 vs plain on the card (double Gauss, %d bench rays, ray 0 "
@@ -1270,6 +1336,34 @@ def phase_opd_check(s, table, specs):
                        dead_zero, finite, "ok" if ok else "FAIL"))
                 if not ok:
                     failures.append("K9 %s %s" % (tag, kind))
+                if not clip and kind == "wavefront":
+                    # the design path's key: its slots and the centre, no
+                    # ray cotangents, the rest exact zeros
+                    live_slots = CS.live_mask(
+                        CS.opd_live_slots(specs, DESIGN_FIELDS),
+                        CS.OPD_SLOTS).to(DEVICE)
+                    pd, sd, cd = opd_adjoint(table, specs, state, aux, cts,
+                                             clip, fields=DESIGN_FIELDS,
+                                             rays=False)
+                    torch.cuda.synchronize()
+                    errs = [err(pd[:, cols], torch.where(
+                        live_slots, base, 0.)[:, cols]) for _, cols in
+                        OPD_GRAD_FIELDS]
+                    scales = [float(mass[:, cols].double().abs().max())
+                              for _, cols in OPD_GRAD_FIELDS]
+                    dead_zero = not bool(pd[~live_slots].any())
+                    ok = (all(e <= lim*sc for e, sc in zip(errs, scales))
+                          and err(cd, base_c) <= lim*cscale and dead_zero
+                          and sd is None)
+                    log("K9 %s, the design key (%d live slots and the "
+                        "centre, no ray cotangents): errors %s of scales %s, "
+                        "centre %.3e, the rest exact zeros %s -> %s"
+                        % (tag, int(live_slots.sum()), " ".join(
+                            "%.3e" % e for e in errs), " ".join(
+                            "%.3e" % v for v in scales), err(cd, base_c),
+                           dead_zero, "ok" if ok else "FAIL"))
+                    if not ok:
+                        failures.append("K9 %s design key" % tag)
                 if not f64:
                     worst["opd_adjoint"] = max(
                         worst["opd_adjoint"],
@@ -1967,7 +2061,12 @@ def phase_grad_throughput(table, specs, card):
 def phase_multi_throughput(tabs, specs, card):
     """K3 (merit), K6 and K7 against their plain versions and against
     nlam launches of their monochromatic twins (K2, K4, K5) on the same
-    bundle; then the three alone at N_BENCH rays in float32."""
+    bundle, with K7 for every field and the ray cotangents (the work of
+    the earlier run-time-flag K7) beside K7 for the achromatization
+    path's key; K7 both ways in float64 at one achromatization bundle's
+    N_OPT_BUNDLE rays; then the three alone at N_BENCH rays in float32.
+    Returns the times and the live ray traces (summed over the
+    wavelengths) of each timing bundle."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         merit_adjoint, merit_adjoint_multi, merit_adjoint_multi_reference,
         weighted_moments, weighted_moments_multi,
@@ -1997,6 +2096,9 @@ def phase_multi_throughput(tabs, specs, card):
                                                    ct),
              lambda: [merit_adjoint(t, specs, state, w, ct[li])
                       for li, t in enumerate(one)]))
+    def achromatization_k7(state, w, ct):
+        return lambda: merit_adjoint_multi(tabs, specs, state, w, ct,
+                                           fields=ACHROM_FIELDS, rays=False)
     times, live = {}, {}
     for dtype in (torch.float32, torch.float64):
         state = bench_bundle(N_GRAD_TIME, dtype, SEED + 1)
@@ -2020,8 +2122,27 @@ def phase_multi_throughput(tabs, specs, card):
                 "%.2fx, plain/kernel %.2fx | peak memory %.3f vs %.3f GiB | "
                 "%s" % (name, str(dtype)[6:], k, k1, k2, nlam, t, t1, t2, p,
                         p1, p2, t/k, p/k, mem_k, mem_p, card))
+        k = cuda_ms(achromatization_k7(state, w, ct), 20)
+        times[("merit_adjoint_multi_loop", dtype)] = k
+        log("merit_adjoint_multi %s, the achromatization key (%s, no ray "
+            "cotangents): kernel %.4f ms | %s"
+            % (str(dtype)[6:], ", ".join(ACHROM_FIELDS), k, card))
         del state, w
         torch.cuda.empty_cache()
+    state = bench_bundle(N_OPT_BUNDLE, torch.float64, SEED + 1)
+    w = bench_weights(N_OPT_BUNDLE, torch.float64, SEED + 3)
+    ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
+    live[N_OPT_BUNDLE] = sum(float(m[0]) for m in trace_multi(
+        tabs, specs, state, merit=True))
+    for name, fn in (("merit_adjoint_multi", lambda: merit_adjoint_multi(
+            tabs, specs, state, w, ct)),
+                     ("merit_adjoint_multi_loop",
+                      achromatization_k7(state, w, ct))):
+        k = cuda_ms(fn, 20)
+        times[(name, N_OPT_BUNDLE)] = k
+        log("%s float64 at %d rays x %d wavelengths: kernel %.4f ms | %s"
+            % (name, N_OPT_BUNDLE, nlam, k, card))
+    del state, w
     state = bench_bundle(N_BENCH, torch.float32, SEED + 1)
     w = bench_weights(N_BENCH, torch.float32, SEED + 3)
     ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
@@ -2046,10 +2167,13 @@ def phase_multi_throughput(tabs, specs, card):
 
 
 def phase_opd_throughput(s, table, specs, card):
-    """K8 and K9 (wavefront-RMS cotangents) against their plain versions
-    at N_GRAD_TIME rays in float32 and float64, then the two alone at
-    N_BENCH rays in float32.  Returns the times and the live rays of
-    the float32 timing bundle (K9's reverse runs for these only)."""
+    """K8 and K9 (wavefront-RMS cotangents; K9 for every field and the
+    ray cotangents, the work of the earlier run-time-flag K9) against
+    their plain versions at N_GRAD_TIME rays in float32 and float64,
+    beside K9 for the design path's key; both K9s in float64 at one
+    design bundle's N_OPT_BUNDLE rays; then K8 and K9 alone at N_BENCH
+    rays in float32.  Returns the times and the live rays of each
+    timing bundle (K9's reverse runs for these only)."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
     log("== K8/K9 throughput: %d bench rays (ray 0 the chief ray) against "
@@ -2071,11 +2195,13 @@ def phase_opd_throughput(s, table, specs, card):
             ("opd_adjoint",
              lambda: opd_adjoint(table, specs, state, aux, cts),
              lambda: opd_adjoint_reference(table, specs, state, aux, cts)))
-    times, live = {}, 0
+    def design_k9(state, aux, cts):
+        return lambda: opd_adjoint(table, specs, state, aux, cts,
+                                   fields=DESIGN_FIELDS, rays=False)
+    times, live = {}, {}
     for dtype in (torch.float32, torch.float64):
         state, aux, cts, nlive = setup(N_GRAD_TIME, dtype)
-        if dtype == torch.float32:
-            live = nlive
+        live[dtype] = nlive
         for name, kernel, plain in pairs(state, aux, cts):
             # in turns: plain, kernel, kernel, plain
             p1 = cuda_ms(plain, 3)
@@ -2090,8 +2216,22 @@ def phase_opd_throughput(s, table, specs, card):
                 "memory %.3f vs %.3f GiB | %s"
                 % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k, nlive,
                    mem_k, mem_p, card))
+        k = cuda_ms(design_k9(state, aux, cts), 20)
+        times[("opd_adjoint_loop", dtype)] = k
+        log("opd_adjoint %s, the design key (%s, no ray cotangents): "
+            "kernel %.4f ms | %s" % (str(dtype)[6:], ", ".join(DESIGN_FIELDS),
+                                     k, card))
         del state, cts
         torch.cuda.empty_cache()
+    state, aux, cts, live[N_OPT_BUNDLE] = setup(N_OPT_BUNDLE, torch.float64)
+    for name, fn in (("opd_adjoint", lambda: opd_adjoint(table, specs, state,
+                                                         aux, cts)),
+                     ("opd_adjoint_loop", design_k9(state, aux, cts))):
+        k = cuda_ms(fn, 20)
+        times[(name, N_OPT_BUNDLE)] = k
+        log("%s float64 at %d rays: kernel %.4f ms, live rays %d | %s"
+            % (name, N_OPT_BUNDLE, k, live[N_OPT_BUNDLE], card))
+    del state, cts
     state, aux, cts, nlive = setup(N_BENCH, torch.float32)
     for name, kernel, _ in pairs(state, aux, cts):
         k = cuda_ms(kernel, 10)
@@ -2248,9 +2388,14 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
         # K5 for the optimizer's slot set writes nothing a ray
         "merit_adjoint_optimizer": (7, 0, n*chain + live*(3*chain + 11)),
         "merit_adjoint_multi": (7, 7, n*nlam*chain + live*(3*chain + 11)),
+        # K7 for the achromatization path's key, K9 for the design
+        # path's: nothing written a ray
+        "merit_adjoint_multi_loop": (7, 0,
+                                     n*nlam*chain + live*(3*chain + 11)),
+        "opd_adjoint_loop": (9, 0, n*opd + live*(3*opd + OPD_TAIL_VJP_FLOPS)),
     }[name]
     # K9 also writes its parameter and centre cotangents
-    slots = len(specs)*7 + 3 if name == "opd_adjoint" else 0
+    slots = len(specs)*7 + 3 if name.startswith("opd_adjoint") else 0
     nbytes = (n*(words_in + words_out) + nlam*len(specs)*17 + slots)*word \
         + 4*len(specs)
     t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[dtype]
@@ -2416,7 +2561,7 @@ def main():
     specs = specialize(table)   # from the float64 table
     tabs = s.tables()           # 3 wavelengths
     mspecs = multi_specs(tabs, None)
-    ptxas = phase_spec_build(spec_keys(specs, [
+    ptxas = phase_spec_build(spec_keys(specs, mspecs, [
         (name, specialize(tab)) for name, _, tab, _ in intercept_cases()]))
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -2480,9 +2625,15 @@ def main():
         "trace_multi": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:284"),
         "weighted_moments_multi": (grad_cu,
                                    "rayopt_tpu/ops/pallas_grad.py:248"),
-        "merit_adjoint_multi": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:421"),
+        "merit_adjoint_multi": (spec_cuh,
+                                "rayopt_tpu/ops/pallas_grad.py:421"),
         "opd_chain": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:1077"),
-        "opd_adjoint": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:1094")}
+        "opd_adjoint": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:1094")}
+    # the loop key of each specialized adjoint: its tag in `ptxas`
+    loop_keys = {"merit_adjoint": "K5 %s clip=False optimizer rays=False",
+                 "merit_adjoint_multi":
+                     "K7 %s clip=False achromatization rays=False",
+                 "opd_adjoint": "K9 %s clip=False design rays=False"}
     nlam = tabs.curvature.shape[0]
     kernels = []
     for kname, (source, replaces) in sources.items():
@@ -2492,7 +2643,8 @@ def main():
         elif kname in ("weighted_moments", "merit_adjoint"):
             tt, rays, lam, live = gtimes, N_GRAD_TIME, 1, live_mono
         elif kname in opd:
-            tt, rays, lam, live = otimes, N_GRAD_TIME, 1, olive
+            tt, rays, lam, live = otimes, N_GRAD_TIME, 1, \
+                olive[torch.float32]
         else:
             tt, rays, lam, live = times, N_BENCH, 1, 0
         k32, p32 = tt[(kname, torch.float32)][:2]
@@ -2511,16 +2663,35 @@ def main():
             "bound_ms_f64": kernel_bound(kname, rays, torch.float64, kspecs,
                                          lam, live)[0],
             "rays": rays, "wavelengths": lam}
-        if kname in ("weighted_moments", "merit_adjoint"):
-            k = "K4" if kname == "weighted_moments" else "K5"
-            main_key = " clip=False optimizer rays=False" if k == "K5" \
-                else " clip=False"
+        if kname == "weighted_moments" or kname in loop_keys:
+            tag = loop_keys.get(kname, "K4 %s clip=False")
             for dt in ("float32", "float64"):
-                regs, stack, spill = ptxas["%s %s%s" % (k, dt, main_key)]
+                regs, stack, spill = ptxas[tag % dt]
                 sfx = "" if dt == "float64" else "_f32"
                 entry.update({"regs" + sfx: regs, "stack_bytes" + sfx: stack,
                               "spill_bytes" + sfx: spill})
-            big = "_%d_rays" % N_OPT_BUNDLE
+        big = "_%d_rays" % N_OPT_BUNDLE
+        if kname in ("merit_adjoint_multi", "opd_adjoint"):
+            # the loop's key beside the work of the earlier kernel, and
+            # both at one loop bundle in float64
+            loop = kname + "_loop"
+            live_big = (mlive if kname in multi else olive)[N_OPT_BUNDLE]
+            live64 = (mlive if kname in multi else olive)[torch.float64]
+            entry.update({
+                "ms_loop_key": tt[(loop, torch.float32)],
+                "ms_loop_key_f64": tt[(loop, torch.float64)],
+                "bound_ms_loop_key_f64": kernel_bound(
+                    loop, N_GRAD_TIME, torch.float64, kspecs, lam,
+                    live64)[0],
+                "ms_f64" + big: tt[(kname, N_OPT_BUNDLE)],
+                "bound_ms_f64" + big: kernel_bound(
+                    kname, N_OPT_BUNDLE, torch.float64, kspecs, lam,
+                    live_big)[0],
+                "ms_loop_key_f64" + big: tt[(loop, N_OPT_BUNDLE)],
+                "bound_ms_loop_key_f64" + big: kernel_bound(
+                    loop, N_OPT_BUNDLE, torch.float64, kspecs, lam,
+                    live_big)[0]})
+        if kname in ("weighted_moments", "merit_adjoint"):
             entry["ms_f64" + big] = tt[(kname, N_OPT_BUNDLE)]
             entry["bound_ms_f64" + big] = kernel_bound(
                 kname, N_OPT_BUNDLE, torch.float64, specs, 1, live_opt)[0]

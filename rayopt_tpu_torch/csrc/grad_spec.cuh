@@ -1,58 +1,76 @@
-// The weighted-moment forward (K4) and its analytic adjoint (K5) for
-// NVIDIA Hopper (sm_90a), specialized at compile time on one key: the
-// dtype, the SurfaceSpec tuple (one word of trace_common.cuh flags a
-// row), the aperture clip and the block size; K5 also on the parameter
-// slots it reduces and on whether it writes the ray and weight
-// cotangents.
+// The weighted-moment forward (K4), its analytic adjoint (K5), the
+// polychromatic adjoint (K7) and the OPD adjoint (K9) for NVIDIA Hopper
+// (sm_90a), specialized at compile time on one key: the dtype, the
+// SurfaceSpec tuple (one word of trace_common.cuh flags a row), the
+// aperture clip and the block size; the adjoints also on the parameter
+// slots they reduce and on whether they write the ray (and weight)
+// cotangents.  The wavelength count of K7 stays a run-time argument.
 //
 // Replaces the JAX package's Pallas TPU kernels
-//   K4  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel      (_moments_impl)
-//   K5  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel  (_moments_bwd)
+//   K4  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel            (_moments_impl)
+//   K5  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel        (_moments_bwd)
+//   K7  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel_multi  (_moments_multi_bwd)
+//   K9  rayopt_tpu/ops/pallas_grad.py  _opd_adjoint_kernel    (_opd_bwd)
 // which the JAX package specializes on the same things (specs, clip and
 // diff_fields).  rayopt_tpu_torch.ops.cuda_spec writes a translation
 // unit a key that instantiates the templates below with the row words
 // as a template parameter pack (Chain<...>) and exports launchers named
 // by the key's hash; nvcc builds it at first use.  The plain versions
-// and the torch model of K5 live in rayopt_tpu_torch/ops/cuda_grad.py.
+// and the torch models of K5, K7 and K9 live in
+// rayopt_tpu_torch/ops/cuda_grad.py.
 //
 // What bounds them on the H100.  K4 reads 7 words a ray and writes
 // nothing; K5 reads 7 and writes 7 a ray when asked for the ray
-// cotangents, else nothing.  Both are bound by instruction issue: the
-// chain costs ~540 operations a ray on the double Gauss (K5 ~4x that:
-// the forward, then each row's recompute and reverse), with an IEEE
-// division and square roots a row.
+// cotangents, else nothing; K7 is K5 once a wavelength; K9 reads 9 and
+// writes 6 with the ray cotangents, else 3 and nothing.  All are bound
+// by instruction issue: the chain costs ~540 operations a ray on the
+// double Gauss (the adjoints ~4x that: the forward, then each row's
+// recompute and reverse), with an IEEE division and square roots a row.
 //
 // What the design does about it.
 //  * The row loop unrolls over the parameter pack: surface_step and
-//    surface_step_vjp (the one body K1-K3 and K6-K9 run with flags read
-//    at run time) get each row's flags as a std::integral_constant, so
-//    every flag branch folds and each row's code is straight-line.  The
-//    slots a row does not reduce are dead code and compile away.
-//  * K5 keeps the state entering each row in dynamic shared memory,
-//    [row][component][thread] (consecutive lanes on consecutive words,
-//    no bank conflicts), sized by the table's rows: no per-thread array
-//    on the stack, no local-memory traffic.  The staged table and the
-//    saved states are read through volatile pointers: unrolled, the
+//    surface_step_vjp (the one body K1-K3, K6 and K8 run with flags
+//    read at run time) get each row's flags as a std::integral_constant,
+//    so every flag branch folds and each row's code is straight-line.
+//    The slots a row does not reduce are dead code and compile away.
+//  * The adjoints keep the state entering each row in dynamic shared
+//    memory, [row][component][thread] (consecutive lanes on consecutive
+//    words, no bank conflicts), sized by the table's rows: no per-thread
+//    array on the stack, no local-memory traffic.  The staged table and
+//    the saved states are read through volatile pointers: unrolled, the
 //    rows' words would otherwise be hoisted out of the grid-stride loop
 //    and the states forwarded in registers, past the register file.
-//  * K5 accumulates each thread's live slots in registers over its
-//    grid-stride rays (compile-time indices), reduces them across the
-//    warp and the block once at the end, and the last block to finish
+//  * Each thread accumulates its live slots in registers over its
+//    grid-stride rays (compile-time indices); the block reduces them
+//    across the warp and the block once, and the last block to finish
 //    (__threadfence, then an integer atomicAdd on a counter it resets)
-//    sums the blocks' partials in block order and writes the (rows, 6)
-//    result, zeros where a slot is not live.  Deterministic for a
-//    given grid; one launch a call, no float atomics.  K4 does the same
-//    for its five moments.
-//  * A dead ray (non-finite final x, y or uz) skips its reverse sweep;
-//    without ray cotangents K5 writes nothing a ray.
+//    sums the blocks' partials in block order and writes the result,
+//    zeros where a slot is not live.  Deterministic for a given grid;
+//    one launch a call, no float atomics.  K4 does the same for its five
+//    moments.
+//  * K7 runs the wavelengths outermost: each block walks its rays for
+//    one wavelength's table (staged alone), reduces that wavelength's
+//    slots, then the next.  Its accumulators are one wavelength's live
+//    slots (as K5's), not nlam times as many, and its shared memory
+//    holds one table.  A thread visits the same rays in every pass: it
+//    writes its ray and weight cotangents in the first and adds its own
+//    earlier value in the later ones, with no atomics.
+//  * K9 unrolls rows 1..S-2 with the path cotangent (surface_step_vjp
+//    with PATH) and runs the reference-sphere tail (step_vjp.cuh) on the
+//    image row with that row's flags compile-time; its three centre
+//    cotangents are reduced beside the live slots.
+//  * A dead ray (K4/K5/K7: non-finite final x, y or uz, judged per
+//    wavelength in K7; K9: non-finite k) skips its reverse sweep; without
+//    ray cotangents nothing is written a ray.
 //  * IEEE division and square root, no fast math.
 //  * Tensor cores, TMA and wgmma do not apply: each ray's chain is
 //    scalar arithmetic whose only products are 3x3 rotations, and a
-//    ray is read once, coalesced, as 7 words.
+//    ray is read once a pass, coalesced, as 7 words.
 //
 // Interface: plain extern "C" launchers (RAYOPT_SPEC_MOMENTS,
-// RAYOPT_SPEC_ADJOINT), loaded with ctypes; each launches on the given
-// stream, synchronises nothing, allocates nothing, and returns
+// RAYOPT_SPEC_ADJOINT, RAYOPT_SPEC_ADJOINT_MULTI,
+// RAYOPT_SPEC_OPD_ADJOINT), loaded with ctypes; each launches on the
+// given stream, synchronises nothing, allocates nothing, and returns
 // cudaGetLastError() (0 = launched).
 
 #pragma once
@@ -65,11 +83,12 @@
 namespace {
 
 constexpr int LIVE_SHIFT = 8;  // a row word's live slots: cuda_spec.LIVE_SHIFT
+constexpr int LIVE_BITS = OPD_SLOTS;  // K9's 7 columns; K5/K7 use SLOTS
 constexpr int FLAG_MASK = (1 << LIVE_SHIFT) - 1;
 
 // The rows of one key: W holds a word a row, its flags in the low
-// LIVE_SHIFT bits and above them the K5 slots (c, k, offset x, y, z,
-// mu) that row reduces.
+// LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z, mu;
+// K9 also n_before) that row reduces.
 template <int... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -88,12 +107,12 @@ __host__ __device__ constexpr int flags_at(int j) {
 
 template <class C>
 __host__ __device__ constexpr int live_at(int j) {
-  return (word_at(C{}, j) >> LIVE_SHIFT) & ((1 << SLOTS) - 1);
+  return (word_at(C{}, j) >> LIVE_SHIFT) & ((1 << LIVE_BITS) - 1);
 }
 
-__host__ __device__ constexpr int popc6(int m) {
+__host__ __device__ constexpr int popc_live(int m) {
   int c = 0;
-  for (int q = 0; q < SLOTS; ++q) c += (m >> q) & 1;
+  for (int q = 0; q < LIVE_BITS; ++q) c += (m >> q) & 1;
   return c;
 }
 
@@ -101,15 +120,16 @@ __host__ __device__ constexpr int popc6(int m) {
 template <class C>
 __host__ __device__ constexpr int slot_index(int j, int q) {
   int b = 0;
-  for (int i = 0; i < j; ++i) b += popc6(live_at<C>(i));
-  return (live_at<C>(j) >> q) & 1 ? b + popc6(live_at<C>(j) & ((1 << q) - 1))
-                                  : -1;
+  for (int i = 0; i < j; ++i) b += popc_live(live_at<C>(i));
+  return (live_at<C>(j) >> q) & 1
+             ? b + popc_live(live_at<C>(j) & ((1 << q) - 1))
+             : -1;
 }
 
 template <class C>
 __host__ __device__ constexpr int live_count() {
   int b = 0;
-  for (int i = 0; i < C::rows; ++i) b += popc6(live_at<C>(i));
+  for (int i = 0; i < C::rows; ++i) b += popc_live(live_at<C>(i));
   return b;
 }
 
@@ -146,55 +166,164 @@ __device__ __forceinline__ void block_sum(const T (&v)[NV], T* s_red,
   __syncthreads();
 }
 
-// The grid-wide sum, fused into the launch: each block writes its nv
-// partial sums (s_part) to partials[blockIdx.x][.]; the last block to
-// finish sums all blocks' partials in block order (one warp a value,
-// lane b summing blocks b, b + 32, ...) back into s_part, resets the
-// counter and returns true.  Every thread of the block must call it.
-template <typename T, int BLOCK>
-__device__ __forceinline__ bool grid_sum(T* s_part, int nv,
-                                         T* __restrict__ partials,
-                                         unsigned int* __restrict__ counter) {
+// True in the last block to finish, once every block has written its
+// partial sums (made visible by the fence).  Every thread of the block
+// must call it; the last block resets the counter when it is done.
+__device__ __forceinline__ bool last_block(unsigned int* counter) {
   __shared__ bool s_last;
-  for (int q = threadIdx.x; q < nv; q += BLOCK)
-    partials[int64_t(blockIdx.x) * nv + q] = s_part[q];
   __threadfence();
   __syncthreads();
   if (threadIdx.x == 0) s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
   __syncthreads();
-  if (!s_last) return false;
+  return s_last;
+}
+
+// In the last block: s_part[q] = the sum over all blocks b of
+// partials[b * ld + q], q < nv, in block order (one warp a value, lane
+// b summing blocks b, b + 32, ...).  Every thread of the block must
+// call it.
+template <typename T, int BLOCK>
+__device__ __forceinline__ void sum_blocks(T* s_part, int nv,
+                                           const T* __restrict__ partials,
+                                           int ld) {
   const int lane = threadIdx.x & 31;
   for (int q = threadIdx.x >> 5; q < nv; q += BLOCK / 32) {
     T v = T(0);
     for (int b = lane; b < int(gridDim.x); b += 32)
-      v += __ldcg(partials + int64_t(b) * nv + q);
+      v += __ldcg(partials + int64_t(b) * ld + q);
     for (int off = 16; off > 0; off >>= 1)
       v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) s_part[q] = v;
   }
   __syncthreads();
+}
+
+// The grid-wide sum, fused into the launch: each block writes its nv
+// partial sums (s_part) to partials[blockIdx.x][.]; the last block to
+// finish sums all blocks' partials back into s_part, resets the counter
+// and returns true.  Every thread of the block must call it.
+template <typename T, int BLOCK>
+__device__ __forceinline__ bool grid_sum(T* s_part, int nv,
+                                         T* __restrict__ partials,
+                                         unsigned int* __restrict__ counter) {
+  for (int q = threadIdx.x; q < nv; q += BLOCK)
+    partials[int64_t(blockIdx.x) * nv + q] = s_part[q];
+  if (!last_block(counter)) return false;
+  sum_blocks<T, BLOCK>(s_part, nv, partials, nv);
   if (threadIdx.x == 0) *counter = 0u;
   return true;
 }
 
-// The forward chain for one ray (trace_ray with compile-time flags),
-// up to the last row's frame exclusive; save(j) runs before row j.
-// tab: the staged table, read through a volatile pointer so that each
-// row's words are loaded where they are used (surface_step).
-template <typename T, class C, bool CLIP, typename Save>
-__device__ __forceinline__ void chain_forward(const volatile T* tab, T* s,
-                                              Save&& save) {
+// The (rows, NQ) parameter cotangents from the reduced live slots
+// (s_part), zeros where a slot is not live; the block's threads share
+// the words.
+template <typename T, class C, int NQ, int BLOCK>
+__device__ __forceinline__ void write_slots(T* __restrict__ out,
+                                            const T* s_part) {
+  static_for(std::make_integer_sequence<int, C::rows * NQ>{}, [&](auto p) {
+    constexpr int idx = decltype(p)::value;
+    constexpr int k = slot_index<C>(idx / NQ, idx % NQ);
+    if (idx % BLOCK == int(threadIdx.x)) {
+      if constexpr (k >= 0) {
+        out[idx] = s_part[k];
+      } else {
+        out[idx] = T(0);
+      }
+    }
+  });
+}
+
+// Add row J's live slots of pg (NQ columns) into the accumulators.
+template <class C, int J, int NQ, typename T, int NA>
+__device__ __forceinline__ void add_slots(const T* pg, T (&acc)[NA]) {
+  static_for(std::make_integer_sequence<int, NQ>{}, [&](auto c) {
+    constexpr int q = decltype(c)::value;
+    constexpr int k = slot_index<C>(J, q);
+    if constexpr (k >= 0) acc[k] += pg[q];
+  });
+}
+
+// The forward chain for one ray (trace_ray with compile-time flags):
+// row 0's frame, then rows 1..R-1; save(j) runs before row j.  Returns
+// the optical path.  tab: the staged table, read through a volatile
+// pointer so that each row's words are loaded where they are used
+// (surface_step).
+template <typename T, class C, bool CLIP, int R = C::rows, typename Save>
+__device__ __forceinline__ T chain_forward(const volatile T* tab, T* s,
+                                           Save&& save) {
   if (flags_at<C>(0) & F_ROTATED) {
     rot_apply_t(tab + P_ROT, s[0], s[1], s[2]);
     rot_apply_t(tab + P_ROT, s[3], s[4], s[5]);
   }
   T tacc = T(0);
-  static_for(std::make_integer_sequence<int, C::rows - 1>{}, [&](auto i) {
+  static_for(std::make_integer_sequence<int, R - 1>{}, [&](auto i) {
     constexpr int j = decltype(i)::value + 1;
     save(j);
     surface_step(tab + j * ROW, RowFlags<C, j>{}, CLIP, s[0], s[1], s[2],
                  s[3], s[4], s[5], tacc);
   });
+  return tacc;
+}
+
+// The reverse sweep, rows R-1 .. 1: g holds the cotangent of the state
+// leaving row R-1 and ends as that of the state entering row 1; each
+// row's live slots are added into acc.  saved: this thread's states,
+// saved[((j - 1) * 6 + q) * BLOCK] entering row j.  With PATH, ct_path
+// is the cotangent of every row's optical path (K9).
+template <typename T, class C, bool PATH, int R, int BLOCK, int NA>
+__device__ __forceinline__ void chain_reverse(const volatile T* tab,
+                                             const volatile T* saved, T* g,
+                                             T (&acc)[NA],
+                                             T ct_path = T(0)) {
+  static_for(std::make_integer_sequence<int, R - 1>{}, [&](auto r) {
+    constexpr int j = R - 1 - decltype(r)::value;
+    T st[6], pg[OPD_SLOTS];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) st[q] = saved[((j - 1) * 6 + q) * BLOCK];
+    surface_step_vjp<T, PATH>(tab + j * ROW, RowFlags<C, j>{}, st, g, pg,
+                              ct_path);
+    add_slots<C, j, PATH ? OPD_SLOTS : SLOTS>(pg, acc);
+  });
+}
+
+// One ray of K5 or K7 through one table: (a) the forward recompute,
+// keeping the state entering each row; (b) liveness; (c) the seed from
+// the five moment cotangents c; (d) the reverse sweep, the live slots
+// added into acc.  s: in, the ray.  g, gw: out, the six state and
+// (with RAYS) the weight cotangents, zeros for a dead ray.
+template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int NA>
+__device__ __forceinline__ void moments_adjoint_ray(
+    const volatile T* tab, volatile T* saved, T* s, const T* __restrict__ w,
+    int64_t i, const T (&c)[5], T (&acc)[NA], T* g, T& gw) {
+  constexpr int S = C::rows;
+  constexpr bool first_rot = flags_at<C>(0) & F_ROTATED;
+  constexpr bool last_rot = flags_at<C>(S - 1) & F_ROTATED;
+  const volatile T* rl = tab + (S - 1) * ROW + P_ROT;
+  chain_forward<T, C, CLIP>(tab, s, [&](int j) {
+#pragma unroll
+    for (int q = 0; q < 6; ++q) saved[((j - 1) * 6 + q) * BLOCK] = s[q];
+  });
+  if (last_rot) {
+    rot_apply(rl, s[0], s[1], s[2]);
+    rot_apply(rl, s[3], s[4], s[5]);
+  }
+  const bool live = isfinite(s[0]) && isfinite(s[1]) && isfinite(s[5]);
+#pragma unroll
+  for (int q = 0; q < 6; ++q) g[q] = T(0);
+  gw = T(0);
+  if (!live) return;
+  const T xl = s[0], yl = s[1];
+  const T wi = w[i];
+  g[0] = wi * (c[1] + T(2) * xl * c[3]);
+  g[1] = wi * (c[2] + T(2) * yl * c[4]);
+  if (RAYS)
+    gw = c[0] + xl * c[1] + yl * c[2] + xl * xl * c[3] + yl * yl * c[4];
+  if (last_rot) rot_apply_t(rl, g[0], g[1], g[2]);
+  chain_reverse<T, C, false, S, BLOCK>(tab, saved, g, acc);
+  if (first_rot) {
+    rot_apply(tab + P_ROT, g[0], g[1], g[2]);
+    rot_apply(tab + P_ROT, g[3], g[4], g[5]);
+  }
 }
 
 // K4: trace, then the five weighted moments over live rays.
@@ -272,86 +401,198 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_spec(
   volatile T* saved = reinterpret_cast<volatile T*>(smem) + threadIdx.x;
   for (int i = threadIdx.x; i < S * ROW; i += BLOCK) s_tab[i] = table[i];
   __syncthreads();
-  const T ct0 = ct[0], ct1 = ct[1], ct2 = ct[2], ct3 = ct[3], ct4 = ct[4];
+  const T c[5] = {ct[0], ct[1], ct[2], ct[3], ct[4]};
   const volatile T* tab = s_tab;
-  const volatile T* rl = tab + (S - 1) * ROW + P_ROT;
-  constexpr bool first_rot = flags_at<C>(0) & F_ROTATED;
-  constexpr bool last_rot = flags_at<C>(S - 1) & F_ROTATED;
   T acc[NA];
 #pragma unroll
   for (int q = 0; q < NA; ++q) acc[q] = T(0);
   const int64_t stride = int64_t(gridDim.x) * BLOCK;
   for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
        i += stride) {
-    // (a) forward recompute, keeping the state entering each row
     T s[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
-    chain_forward<T, C, CLIP>(tab, s, [&](int j) {
-#pragma unroll
-      for (int q = 0; q < 6; ++q) saved[((j - 1) * 6 + q) * BLOCK] = s[q];
-    });
-    if (last_rot) {
-      rot_apply(rl, s[0], s[1], s[2]);
-      rot_apply(rl, s[3], s[4], s[5]);
-    }
-    // (b) liveness; (c) seed the cotangents from the moment cotangents
-    const bool live = isfinite(s[0]) && isfinite(s[1]) && isfinite(s[5]);
-    T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-    T gw = T(0);
-    if (live) {
-      const T xl = s[0], yl = s[1];
-      const T wi = w[i];
-      g[0] = wi * (ct1 + T(2) * xl * ct3);
-      g[1] = wi * (ct2 + T(2) * yl * ct4);
-      if (RAYS)
-        gw = ct0 + xl * ct1 + yl * ct2 + xl * xl * ct3 + yl * yl * ct4;
-      if (last_rot) rot_apply_t(rl, g[0], g[1], g[2]);
-      // (d) reverse sweep, rows S-1 .. 1, each row's live slots summed
-      // into this thread's accumulators
-      static_for(std::make_integer_sequence<int, S - 1>{}, [&](auto r) {
-        constexpr int j = S - 1 - decltype(r)::value;
-        T st[6], pg[SLOTS];
-#pragma unroll
-        for (int q = 0; q < 6; ++q) st[q] = saved[((j - 1) * 6 + q) * BLOCK];
-        surface_step_vjp(tab + j * ROW, RowFlags<C, j>{}, st, g, pg);
-        static_for(std::make_integer_sequence<int, SLOTS>{}, [&](auto c) {
-          constexpr int q = decltype(c)::value;
-          constexpr int k = slot_index<C>(j, q);
-          if constexpr (k >= 0) acc[k] += pg[q];
-        });
-      });
-      if (first_rot) {
-        rot_apply(tab + P_ROT, g[0], g[1], g[2]);
-        rot_apply(tab + P_ROT, g[3], g[4], g[5]);
-      }
-    }
-    // (f) per-ray cotangents (zeros for a dead ray), when asked
+    T g[6], gw;
+    moments_adjoint_ray<T, C, CLIP, RAYS, BLOCK>(tab, saved, s, w, i, c, acc,
+                                                 g, gw);
+    // per-ray cotangents (zeros for a dead ray), when asked
     if (RAYS) {
       ogx[i] = g[0]; ogy[i] = g[1]; ogz[i] = g[2];
       ogux[i] = g[3]; oguy[i] = g[4]; oguz[i] = g[5];
       ogw[i] = gw;
     }
   }
-  // (e) the live slots: block, then grid, once
+  // the live slots: block, then grid, once
   block_sum<T, BLOCK>(acc, s_red, s_part);
-  if (grid_sum<T, BLOCK>(s_part, NL, partials, counter)) {
-    static_for(std::make_integer_sequence<int, S * SLOTS>{}, [&](auto p) {
-      constexpr int idx = decltype(p)::value;
-      constexpr int k = slot_index<C>(idx / SLOTS, idx % SLOTS);
-      if (idx % BLOCK == int(threadIdx.x)) {
-        if constexpr (k >= 0) {
-          out[idx] = s_part[k];
+  if (grid_sum<T, BLOCK>(s_part, NL, partials, counter))
+    write_slots<T, C, SLOTS, BLOCK>(out, s_part);
+}
+
+// K7: K5 for each table of an nlam stack (table: nlam * rows * ROW
+// words), the wavelengths outermost; ct holds nlam rows of the five
+// moment cotangents.  out: (nlam, rows, SLOTS) parameter cotangents per
+// wavelength, zero where a slot is not live; with RAYS the six ray and
+// the weight cotangents summed over the wavelengths (a ray dead at a
+// wavelength adds zeros there).  partials: (grid, nlam, live slots).
+// Dynamic shared memory: the saved states, as K5's.
+template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_multi_spec(
+    const T* __restrict__ table, const T* __restrict__ ix,
+    const T* __restrict__ iy, const T* __restrict__ iz,
+    const T* __restrict__ iux, const T* __restrict__ iuy,
+    const T* __restrict__ iuz, const T* __restrict__ w,
+    const T* __restrict__ ct, T* __restrict__ partials,
+    unsigned int* __restrict__ counter, T* __restrict__ out,
+    T* __restrict__ ogx, T* __restrict__ ogy, T* __restrict__ ogz,
+    T* __restrict__ ogux, T* __restrict__ oguy, T* __restrict__ oguz,
+    T* __restrict__ ogw, int64_t n, int nlam) {
+  constexpr int S = C::rows;
+  constexpr int NL = live_count<C>();
+  constexpr int NA = NL > 0 ? NL : 1;
+  __shared__ T s_tab[S * ROW];
+  __shared__ T s_red[BLOCK / 32 * NA];
+  __shared__ T s_part[NA];
+  extern __shared__ __align__(16) unsigned char smem[];
+  volatile T* saved = reinterpret_cast<volatile T*>(smem) + threadIdx.x;
+  const volatile T* tab = s_tab;
+  const int64_t stride = int64_t(gridDim.x) * BLOCK;
+  for (int l = 0; l < nlam; ++l) {
+    // stage this wavelength's table once the last pass is done with it
+    __syncthreads();
+    for (int i = threadIdx.x; i < S * ROW; i += BLOCK)
+      s_tab[i] = table[l * S * ROW + i];
+    __syncthreads();
+    const T c[5] = {ct[5 * l], ct[5 * l + 1], ct[5 * l + 2], ct[5 * l + 3],
+                    ct[5 * l + 4]};
+    T acc[NA];
+#pragma unroll
+    for (int q = 0; q < NA; ++q) acc[q] = T(0);
+    for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
+         i += stride) {
+      T s[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
+      T g[6], gw;
+      moments_adjoint_ray<T, C, CLIP, RAYS, BLOCK>(tab, saved, s, w, i, c,
+                                                   acc, g, gw);
+      // the sum over wavelengths, in order: this thread wrote ray i's
+      // cotangents in the first pass
+      if (RAYS) {
+        if (l == 0) {
+          ogx[i] = g[0]; ogy[i] = g[1]; ogz[i] = g[2];
+          ogux[i] = g[3]; oguy[i] = g[4]; oguz[i] = g[5];
+          ogw[i] = gw;
         } else {
-          out[idx] = T(0);
+          ogx[i] += g[0]; ogy[i] += g[1]; ogz[i] += g[2];
+          ogux[i] += g[3]; oguy[i] += g[4]; oguz[i] += g[5];
+          ogw[i] += gw;
         }
       }
+    }
+    // this wavelength's live slots: block, then this block's partials
+    block_sum<T, BLOCK>(acc, s_red, s_part);
+    for (int q = threadIdx.x; q < NL; q += BLOCK)
+      partials[(int64_t(blockIdx.x) * nlam + l) * NL + q] = s_part[q];
+  }
+  if (!last_block(counter)) return;
+  for (int l = 0; l < nlam; ++l) {
+    sum_blocks<T, BLOCK>(s_part, NL, partials + l * NL, nlam * NL);
+    write_slots<T, C, SLOTS, BLOCK>(out + int64_t(l) * S * SLOTS, s_part);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *counter = 0u;
+}
+
+// K9: the analytic adjoint of the OPD (K8) for the cotangents (ct_k,
+// ct_lx, ct_ly) of its outputs k, lx, ly.  aux: the sphere centre x, y,
+// z, its radius and lam_scale.  out: (rows, OPD_SLOTS) parameter
+// cotangents (zero where a slot is not live), then the 3 centre
+// cotangents; with RAYS the six ray cotangents a ray (zeros for a dead
+// ray).  Dynamic shared memory: the states entering rows 1..S-2,
+// (rows - 2) * 6 * BLOCK words.
+template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB) opd_adjoint_spec(
+    const T* __restrict__ table, const T* __restrict__ ix,
+    const T* __restrict__ iy, const T* __restrict__ iz,
+    const T* __restrict__ iux, const T* __restrict__ iuy,
+    const T* __restrict__ iuz, const T* __restrict__ aux,
+    const T* __restrict__ ctk, const T* __restrict__ ctlx,
+    const T* __restrict__ ctly, T* __restrict__ partials,
+    unsigned int* __restrict__ counter, T* __restrict__ out,
+    T* __restrict__ ogx, T* __restrict__ ogy, T* __restrict__ ogz,
+    T* __restrict__ ogux, T* __restrict__ oguy, T* __restrict__ oguz,
+    int64_t n) {
+  constexpr int S = C::rows;
+  constexpr int NL = live_count<C>();
+  constexpr int NV = NL + 3;        // the live slots, then the centre
+  using ImgFlags = RowFlags<C, S - 1>;
+  __shared__ T s_tab[S * ROW];
+  __shared__ T s_aux[AUX];
+  __shared__ T s_red[BLOCK / 32 * NV];
+  __shared__ T s_part[NV];
+  extern __shared__ __align__(16) unsigned char smem[];
+  volatile T* saved = reinterpret_cast<volatile T*>(smem) + threadIdx.x;
+  for (int i = threadIdx.x; i < S * ROW; i += BLOCK) s_tab[i] = table[i];
+  if (threadIdx.x < AUX) s_aux[threadIdx.x] = aux[threadIdx.x];
+  __syncthreads();
+  const volatile T* tab = s_tab;
+  const volatile T* vaux = s_aux;
+  const volatile T* pimg = tab + (S - 1) * ROW;
+  T acc[NV];
+#pragma unroll
+  for (int q = 0; q < NV; ++q) acc[q] = T(0);
+  const int64_t stride = int64_t(gridDim.x) * BLOCK;
+  for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
+       i += stride) {
+    // (a) forward recompute of rows 1..S-2, keeping the state entering
+    // each, then the sphere tail
+    T s[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
+    const T tacc = chain_forward<T, C, CLIP, S - 1>(tab, s, [&](int j) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) saved[((j - 1) * 6 + q) * BLOCK] = s[q];
     });
+    const SphereTail<T> o = sphere_tail(pimg, ImgFlags{}, vaux, s);
+    const T lam_scale = vaux[4];
+    const T k = -(tacc + o.ti * pimg[P_NB]) / lam_scale;
+    // (b) liveness; (c) the tail's reverse seeds the state cotangent;
+    // (d) the reverse sweep, rows S-2 .. 1, with the path cotangent
+    T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+    if (isfinite(k)) {
+      const T ct_path = -ctk[i] / lam_scale;  // reaches every t_j and q
+      T pg[OPD_SLOTS], gc[3];
+      sphere_tail_vjp(pimg, ImgFlags{}, o, ct_path, ctlx[i], ctly[i], g, pg,
+                      gc);
+      add_slots<C, S - 1, OPD_SLOTS>(pg, acc);
+      acc[NL] += gc[0];
+      acc[NL + 1] += gc[1];
+      acc[NL + 2] += gc[2];
+      chain_reverse<T, C, true, S - 1, BLOCK>(tab, saved, g, acc, ct_path);
+      if (flags_at<C>(0) & F_ROTATED) {
+        rot_apply(tab + P_ROT, g[0], g[1], g[2]);
+        rot_apply(tab + P_ROT, g[3], g[4], g[5]);
+      }
+    }
+    // (e) per-ray cotangents (zeros for a dead ray), when asked
+    if (RAYS) {
+      ogx[i] = g[0]; ogy[i] = g[1]; ogz[i] = g[2];
+      ogux[i] = g[3]; oguy[i] = g[4]; oguz[i] = g[5];
+    }
+  }
+  // (f) the live slots and the centre: block, then grid, once
+  block_sum<T, BLOCK>(acc, s_red, s_part);
+  if (grid_sum<T, BLOCK>(s_part, NV, partials, counter)) {
+    write_slots<T, C, OPD_SLOTS, BLOCK>(out, s_part);
+    if (threadIdx.x < 3)
+      out[S * OPD_SLOTS + threadIdx.x] = s_part[NL + threadIdx.x];
   }
 }
 
-// K5's saved states: (rows - 1) * 6 words a thread
+// The saved states of K5/K7 ((rows - 1) * 6 words a thread) and K9
+// ((rows - 2) * 6)
 template <typename T, class C, int BLOCK>
 constexpr size_t adjoint_dynamic_smem() {
   return size_t(C::rows - 1) * 6 * BLOCK * sizeof(T);
+}
+
+template <typename T, class C, int BLOCK>
+constexpr size_t opd_dynamic_smem() {
+  return size_t(C::rows - 2) * 6 * BLOCK * sizeof(T);
 }
 
 template <typename K>
@@ -364,7 +605,6 @@ __host__ inline int blocks_per_sm(K kernel, int block, size_t smem,
 }
 
 }  // namespace
-
 // K4 launchers of one key: NAME(table (rows, ROW), 6 rays, w, partials
 // (grid, 5), counter (1 zeroed uint32, reset by the kernel), out (5,),
 // n, grid, stream); NAME_blocks_per_sm(&blocks); NAME_error_string(err).
@@ -426,5 +666,84 @@ __host__ inline int blocks_per_sm(K kernel, int block, size_t smem,
             static_cast<T*>(gx), static_cast<T*>(gy), static_cast<T*>(gz),    \
             static_cast<T*>(gux), static_cast<T*>(guy),                       \
             static_cast<T*>(guz), static_cast<T*>(gw), int64_t(n));           \
+    return int(cudaGetLastError());                                           \
+  }
+
+// K7 launchers of one key: NAME(table (nlam, rows, ROW), 6 rays, w, ct
+// (nlam, 5), partials (grid, nlam, live slots), counter, out (nlam,
+// rows, SLOTS), 6 ray + 1 weight cotangents (n,; ignored without RAYS),
+// n, nlam, grid, stream); NAME_blocks_per_sm(&blocks);
+// NAME_error_string(err).
+#define RAYOPT_SPEC_ADJOINT_MULTI(NAME, T, CHAIN, CLIP, RAYS, BLOCK, MINB)    \
+  extern "C" int NAME##_blocks_per_sm(int* out) {                             \
+    return blocks_per_sm(                                                     \
+        merit_adjoint_multi_spec<T, CHAIN, CLIP, RAYS, BLOCK, MINB>, BLOCK,   \
+        adjoint_dynamic_smem<T, CHAIN, BLOCK>(), out);                        \
+  }                                                                           \
+  extern "C" const char* NAME##_error_string(int err) {                       \
+    return cudaGetErrorString(cudaError_t(err));                              \
+  }                                                                           \
+  extern "C" int NAME(const void* table, const void* x, const void* y,        \
+                      const void* z, const void* ux, const void* uy,          \
+                      const void* uz, const void* w, const void* ct,          \
+                      void* partials, void* counter, void* out, void* gx,     \
+                      void* gy, void* gz, void* gux, void* guy, void* guz,    \
+                      void* gw, long long n, int nlam, int grid,              \
+                      void* stream) {                                         \
+    if (nlam < 1) return int(cudaErrorInvalidValue);                          \
+    const size_t smem = adjoint_dynamic_smem<T, CHAIN, BLOCK>();              \
+    cudaError_t err = allow_smem(                                             \
+        merit_adjoint_multi_spec<T, CHAIN, CLIP, RAYS, BLOCK, MINB>, smem);   \
+    if (err != cudaSuccess) return int(err);                                  \
+    merit_adjoint_multi_spec<T, CHAIN, CLIP, RAYS, BLOCK, MINB>               \
+        <<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(           \
+            static_cast<const T*>(table), static_cast<const T*>(x),           \
+            static_cast<const T*>(y), static_cast<const T*>(z),               \
+            static_cast<const T*>(ux), static_cast<const T*>(uy),             \
+            static_cast<const T*>(uz), static_cast<const T*>(w),              \
+            static_cast<const T*>(ct), static_cast<T*>(partials),             \
+            static_cast<unsigned int*>(counter), static_cast<T*>(out),        \
+            static_cast<T*>(gx), static_cast<T*>(gy), static_cast<T*>(gz),    \
+            static_cast<T*>(gux), static_cast<T*>(guy),                       \
+            static_cast<T*>(guz), static_cast<T*>(gw), int64_t(n), nlam);     \
+    return int(cudaGetLastError());                                           \
+  }
+
+// K9 launchers of one key: NAME(table (rows, ROW), 6 rays, aux (AUX,),
+// ct_k, ct_lx, ct_ly (n,), partials (grid, live slots + 3), counter,
+// out (rows * OPD_SLOTS + 3), 6 ray cotangents (n,; ignored without
+// RAYS), n, grid, stream); NAME_blocks_per_sm(&blocks);
+// NAME_error_string(err).
+#define RAYOPT_SPEC_OPD_ADJOINT(NAME, T, CHAIN, CLIP, RAYS, BLOCK, MINB)      \
+  extern "C" int NAME##_blocks_per_sm(int* out) {                             \
+    return blocks_per_sm(opd_adjoint_spec<T, CHAIN, CLIP, RAYS, BLOCK, MINB>, \
+                         BLOCK, opd_dynamic_smem<T, CHAIN, BLOCK>(), out);    \
+  }                                                                           \
+  extern "C" const char* NAME##_error_string(int err) {                       \
+    return cudaGetErrorString(cudaError_t(err));                              \
+  }                                                                           \
+  extern "C" int NAME(const void* table, const void* x, const void* y,        \
+                      const void* z, const void* ux, const void* uy,          \
+                      const void* uz, const void* aux, const void* ctk,       \
+                      const void* ctlx, const void* ctly, void* partials,     \
+                      void* counter, void* out, void* gx, void* gy, void* gz, \
+                      void* gux, void* guy, void* guz, long long n, int grid, \
+                      void* stream) {                                         \
+    const size_t smem = opd_dynamic_smem<T, CHAIN, BLOCK>();                  \
+    cudaError_t err = allow_smem(                                             \
+        opd_adjoint_spec<T, CHAIN, CLIP, RAYS, BLOCK, MINB>, smem);           \
+    if (err != cudaSuccess) return int(err);                                  \
+    opd_adjoint_spec<T, CHAIN, CLIP, RAYS, BLOCK, MINB>                       \
+        <<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(           \
+            static_cast<const T*>(table), static_cast<const T*>(x),           \
+            static_cast<const T*>(y), static_cast<const T*>(z),               \
+            static_cast<const T*>(ux), static_cast<const T*>(uy),             \
+            static_cast<const T*>(uz), static_cast<const T*>(aux),            \
+            static_cast<const T*>(ctk), static_cast<const T*>(ctlx),          \
+            static_cast<const T*>(ctly), static_cast<T*>(partials),           \
+            static_cast<unsigned int*>(counter), static_cast<T*>(out),        \
+            static_cast<T*>(gx), static_cast<T*>(gy), static_cast<T*>(gz),    \
+            static_cast<T*>(gux), static_cast<T*>(guy),                       \
+            static_cast<T*>(guz), int64_t(n));                                \
     return int(cudaGetLastError());                                           \
   }

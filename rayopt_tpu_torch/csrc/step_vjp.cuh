@@ -1,8 +1,10 @@
 // The hand-derived reverse of one surface step (trace_common.cuh
-// surface_step), shared by the merit-gradient kernels of grad.cu (K7,
-// K9, row flags read at run time) and the kernels specialized per spec
-// tuple in grad_spec.cuh (K5, row flags as compile-time constants).
-// Its torch model, line for line, is cuda_grad._step_vjp_reference.
+// surface_step), run by the adjoints specialized per spec tuple in
+// grad_spec.cuh (K5, K7, K9; row flags as compile-time constants), and
+// the reference-sphere tail of the OPD (K8 in grad.cu with its flags
+// read at run time, K9) with its reverse.  Their torch models, line for
+// line, are cuda_grad._step_vjp_reference, _sphere_tail and
+// _opd_tail_vjp_reference.
 
 #pragma once
 
@@ -11,6 +13,8 @@
 namespace {
 
 constexpr int SLOTS = 6;      // parameter cotangents a row: cuda_grad.SLOTS
+constexpr int OPD_SLOTS = 7;  // K9's a row, + n_before: cuda_grad.OPD_SLOTS
+constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
 
 // Hand-derived reverse of surface_step for one live ray, the flags and
 // the row pointer as in surface_step.  s: the state
@@ -224,6 +228,103 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
   pg[3] = off_axis ? -gy : T(0);
   pg[4] = -gz;
   pg[5] = gmu;
+}
+
+// The reference-sphere tail of K8/K9 (pallas_grad._opd_tail): the
+// state leaving row S-2 (global frame) stepped to the image row p,
+// rotated into its frame, moved to the sphere centre, and its closed-
+// form intercept ti with the sphere of radius aux[3] (the spherical
+// branch of the conic intercept; sqrt of a negative is NaN: a miss).
+// The flags, the row pointer and aux as in surface_step.
+template <typename T>
+struct SphereTail {
+  T px, py, pz, dx, dy, dz, cc, d, e, f, sq, ti;
+};
+
+template <typename T, typename Flags = int, typename Row = const T*,
+          typename Aux = const T*>
+__device__ __forceinline__ SphereTail<T> sphere_tail(Row p, Flags flags,
+                                                     Aux aux, const T* s) {
+  const int fl = flag_value(flags);
+  SphereTail<T> o;
+  T px = s[0], py = s[1];
+  if (fl & F_OFF_AXIS) {
+    px = px - p[P_OFF];
+    py = py - p[P_OFF + 1];
+  }
+  T pz = s[2] - p[P_OFF + 2];
+  T dx = s[3], dy = s[4], dz = s[5];
+  if (fl & F_ROTATED) {
+    rot_apply(p + P_ROT, px, py, pz);
+    rot_apply(p + P_ROT, dx, dy, dz);
+  }
+  const T radius = aux[3];
+  o.px = px - aux[0];
+  o.py = py - aux[1];
+  o.pz = pz - aux[2] + radius;
+  o.dx = dx; o.dy = dy; o.dz = dz;
+  o.cc = T(1) / radius;
+  const T uyd = dx * o.px + dy * o.py + dz * o.pz;
+  const T uu = dx * dx + dy * dy + dz * dz;
+  const T yy = o.px * o.px + o.py * o.py + o.pz * o.pz;
+  o.d = o.cc * uyd - dz;
+  o.e = o.cc * uu;
+  o.f = o.cc * yy - T(2) * o.pz;
+  o.sq = sqrt(o.d * o.d - o.e * o.f);
+  o.ti = -(o.d + o.sq) / o.e;
+  return o;
+}
+
+// Hand-derived reverse of the tail for one live ray, from the
+// cotangents of q = ti * n_image (ct_q), lx = px + ti dx and ly = py +
+// ti dy.  g: out, the cotangent of the state leaving row S-2; pg: out,
+// the image row's parameter cotangents (OPD_SLOTS); gc: out, the centre
+// cotangents.
+template <typename T, typename Flags = int, typename Row = const T*>
+__device__ __forceinline__ void sphere_tail_vjp(Row p, Flags flags,
+                                                const SphereTail<T>& o,
+                                                T ct_q, T ct_lx, T ct_ly,
+                                                T* g, T* pg, T* gc) {
+  const int fl = flag_value(flags);
+  const T nb = p[P_NB];
+  const T gti = ct_q * nb + ct_lx * o.dx + ct_ly * o.dy;
+  T gpx = ct_lx, gpy = ct_ly, gpz = T(0);
+  T gdx = ct_lx * o.ti, gdy = ct_ly * o.ti, gdz = T(0);
+  // ti = -(d + sq) / e
+  T gd = -gti / o.e;
+  const T gsq = gd;
+  T ge = gti * (o.d + o.sq) / (o.e * o.e);
+  // sq = sqrt(d^2 - e f)
+  const T gdisc = gsq * T(0.5) / o.sq;
+  gd = gd + T(2) * o.d * gdisc;
+  ge = ge - o.f * gdisc;
+  const T gf = -o.e * gdisc;
+  // d = cc uyd - dz, e = cc uu, f = cc yy - 2 pz
+  const T guyd = o.cc * gd;
+  const T guu = o.cc * ge;
+  const T gyy = o.cc * gf;
+  gdz = gdz - gd;
+  gpz = gpz - T(2) * gf;
+  gdx = gdx + o.px * guyd + T(2) * o.dx * guu;
+  gdy = gdy + o.py * guyd + T(2) * o.dy * guu;
+  gdz = gdz + o.pz * guyd + T(2) * o.dz * guu;
+  gpx = gpx + o.dx * guyd + T(2) * o.px * gyy;
+  gpy = gpy + o.dy * guyd + T(2) * o.py * gyy;
+  gpz = gpz + o.dz * guyd + T(2) * o.pz * gyy;
+  gc[0] = -gpx; gc[1] = -gpy; gc[2] = -gpz;
+  if (fl & F_ROTATED) {
+    rot_apply_t(p + P_ROT, gpx, gpy, gpz);
+    rot_apply_t(p + P_ROT, gdx, gdy, gdz);
+  }
+  g[0] = gpx; g[1] = gpy; g[2] = gpz;
+  g[3] = gdx; g[4] = gdy; g[5] = gdz;
+  pg[0] = T(0);
+  pg[1] = T(0);
+  pg[2] = (fl & F_OFF_AXIS) ? -gpx : T(0);
+  pg[3] = (fl & F_OFF_AXIS) ? -gpy : T(0);
+  pg[4] = -gpz;
+  pg[5] = T(0);
+  pg[6] = ct_q * o.ti;
 }
 
 }  // namespace

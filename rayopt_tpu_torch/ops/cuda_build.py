@@ -7,7 +7,7 @@ links the objects.  It runs at first use, from the package's own
 sources, into build/torch_kernels/ beside the package, and is cached
 by a hash of the sources and flags.  `build_shared` builds the
 translation units that ops.cuda_spec writes for each spec key (K4,
-K5) the same way, one nvcc a unit, in parallel, cached by a hash of
+K5, K7, K9) the same way, one nvcc a unit, in parallel, cached by a hash of
 the headers, the flags and the unit's text.  Fast math stays off: the kernels
 rely on IEEE division, square root and NaN propagation.  The df32
 kernels (df32.cu) need every float32 operation rounded as written; they
@@ -79,22 +79,10 @@ class KernelLibrary:
             fn.argtypes = [ptr, ptr, i32, i32, i32] + [ptr]*8 + [
                 i64, i32, i32, ptr]
             fn.restype = i32
-            # ... 6 rays, w, ct, partials, 6 ray + 1 weight cotangents,
-            # n, grid, block, stream
-            fn = getattr(self._lib, "merit_adjoint_multi_" + dt)
-            fn.argtypes = [ptr, ptr, i32, i32, i32] + [ptr]*16 + [
-                i64, i32, i32, ptr]
-            fn.restype = i32
             # table, flags, nsurf, clip, 6 rays, aux, k, lx, ly, n, grid,
             # block, stream
             fn = getattr(self._lib, "opd_chain_" + dt)
             fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*10 + [i64, i32,
-                                                             i32, ptr]
-            fn.restype = i32
-            # ... 6 rays, aux, ct_k, ct_lx, ct_ly, partials, 6 ray
-            # cotangents, n, grid, block, stream
-            fn = getattr(self._lib, "opd_adjoint_" + dt)
-            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*17 + [i64, i32,
                                                              i32, ptr]
             fn.restype = i32
         # df32 (K10-K13): plan words, flags, nsteps, [nplans,] [with_path,]

@@ -20,13 +20,14 @@ residual ever leaves the kernel.
 K6 `weighted_moments_multi` and K7 `merit_adjoint_multi` are their
 polychromatic twins (`pallas_grad._fwd_kernel_multi`,
 `_adjoint_kernel_multi`): a stacked table (leading wavelength axis,
-System.tables or glass.glass_tables) and ONE bundle, read once and run
-through every wavelength's chain.  K6 returns (nlam, 5) moments; K7
-takes (nlam, 5) moment cotangents, judges each ray dead or live per
-wavelength, sums the ray and weight cotangents over the wavelengths
-and returns the parameter cotangents per wavelength (nlam, S, SLOTS),
-so autograd through the stacking (glass_tables, a broadcast
-curvature) sums the shared geometry.
+System.tables or glass.glass_tables) and ONE bundle run through every
+wavelength's chain (K6 reads it once; K7 once a wavelength, its
+wavelengths outermost).  K6 returns (nlam, 5) moments; K7 takes (nlam,
+5) moment cotangents, judges each ray dead or live per wavelength,
+sums the ray and weight cotangents over the wavelengths and returns
+the parameter cotangents per wavelength (nlam, S, SLOTS), so autograd
+through the stacking (glass_tables, a broadcast curvature) sums the
+shared geometry.
 
 `spot_moments` and `adjoint_spot_rms` bind K4/K5 in one
 torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`),
@@ -56,15 +57,15 @@ bind them in `_OpdRays` (the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
 kernel, in autograd.
 
-The kernels are hand-written CUDA C++.  K4 and K5 are compiled for
-each (dtype, spec tuple, clip) key, K5 also for its live parameter
-slots and for whether it writes the ray and weight cotangents
-(csrc/grad_spec.cuh, built and cached by ops.cuda_spec); through
-`_SpotMoments` K5 reduces only the slots autograd asks for and, when
-no ray or weight needs a gradient (the optimizer's frozen bundles),
-writes nothing a ray.  K6-K9 read the row flags at run time
-(csrc/grad.cu, built with the K1/K2 library by ops.cuda_build).  A
-wrapper takes the plain PyTorch
+The kernels are hand-written CUDA C++.  K4, K5, K7 and K9 are
+compiled for each (dtype, spec tuple, clip) key, the adjoints also for
+their live parameter slots and for whether they write the ray (and
+weight) cotangents (csrc/grad_spec.cuh, built and cached by
+ops.cuda_spec); through `_SpotMoments` and `_OpdRays` an adjoint
+reduces only the slots autograd asks for and, when no ray or weight
+needs a gradient (the loops' frozen bundles), writes nothing a ray.
+K6 and K8 read the row flags at run time (csrc/grad.cu, built with the
+K1/K2 library by ops.cuda_build).  A wrapper takes the plain PyTorch
 version (`weighted_moments_reference`, `merit_adjoint_reference`,
 `weighted_moments_multi_reference`, `merit_adjoint_multi_reference`,
 `opd_chain_reference`, `opd_adjoint_reference`) only for a bundle on
@@ -73,8 +74,8 @@ wrapper counts its launches in `<wrapper>.launches`.
 `_step_vjp_reference`, `_merit_adjoint_by_hand`,
 `_merit_adjoint_multi_by_hand`, `_opd_tail_vjp_reference` and
 `_opd_adjoint_by_hand` write the kernels' hand-derived reverse in
-torch, line for line, so the CPU tests can hold it against autograd;
-nothing else calls them.
+torch, line for line (csrc/step_vjp.cuh and grad_spec.cuh), so the CPU
+tests can hold it against autograd; nothing else calls them.
 """
 
 import functools
@@ -85,14 +86,13 @@ import torch
 
 from . import cuda_spec as CS
 from . import kernels as K
-from .cuda_trace import (BLOCK, ROW, SMEM_OPTIN, _check_state, _launch_setup,
-                         _raise_on, pack_values, spot_rms_from_moments,
+from .cuda_trace import (BLOCK, _check_state, _launch_setup, _raise_on,
+                         pack_values, spot_rms_from_moments,
                          trace_final_reference)
 from .tables import lower_pose, table_at
 
-MAX_ROWS = 32   # saved states a K7/K9 thread keeps: keep in sync with grad.cu
-SLOTS = 6       # parameter cotangents a row: c, k, offset x/y/z, mu
-OPD_SLOTS = 7   # K9's a row: SLOTS and n_before
+SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
+OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
 AUX = 5         # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
 #: differentiable table fields the autograd Function carries
@@ -222,7 +222,7 @@ def merit_adjoint_multi_reference(tables, specs, state, w, ct, clip=False):
 
 class _Tail(NamedTuple):
     """The reference-sphere tail's intermediates (SphereTail in
-    csrc/grad.cu)."""
+    csrc/step_vjp.cuh)."""
     px: torch.Tensor
     py: torch.Tensor
     pz: torch.Tensor
@@ -349,7 +349,7 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
 
 def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     """Hand-derived reverse of kernels.surface_step_spec for live rays,
-    the line-for-line model of `surface_step_vjp` in csrc/grad.cu.
+    the line-for-line model of `surface_step_vjp` in csrc/step_vjp.cuh.
 
     state: the six components entering the row (global frame); g: the
     cotangent of the six components leaving it; ct_path: the cotangent
@@ -527,7 +527,7 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
 
 def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     """K5 written in torch with _step_vjp_reference, the model of
-    `merit_adjoint_kernel` in csrc/grad.cu: same outputs as
+    `moments_adjoint_ray` in csrc/grad_spec.cuh: same outputs as
     merit_adjoint_reference."""
     x0 = state[0]
     tab = _constant_table(table, x0)
@@ -566,15 +566,16 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
 def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False):
     """K7 written in torch: the K5 model run once per table of the stack
     on the same state (each table's dead rays zeroed for it alone), the
-    model of `merit_adjoint_multi_kernel` in csrc/grad.cu; same outputs
-    as merit_adjoint_multi_reference."""
+    ray and weight cotangents summed over the tables in order, the model
+    of `merit_adjoint_multi_spec` in csrc/grad_spec.cuh; same outputs as
+    merit_adjoint_multi_reference."""
     return _sum_over_tables(_merit_adjoint_by_hand, tables, specs, state,
                             w, ct, clip)
 
 
 def _opd_tail_vjp_reference(surf, spec, o, ct_q, ct_lx, ct_ly):
     """Hand-derived reverse of the sphere tail for live rays, the
-    line-for-line model of `sphere_tail_vjp` in csrc/grad.cu.  o: the
+    line-for-line model of `sphere_tail_vjp` in csrc/step_vjp.cuh.  o: the
     tail's intermediates (_sphere_tail); ct_q, ct_lx, ct_ly: the
     cotangents of q = ti * n_image and of the landing x, y.  Returns
     (cotangent of the state leaving row S-2, the image row's per-ray
@@ -610,8 +611,8 @@ def _opd_tail_vjp_reference(surf, spec, o, ct_q, ct_lx, ct_ly):
 
 def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
     """K9 written in torch with _opd_tail_vjp_reference and
-    _step_vjp_reference(ct_path=), the model of `opd_adjoint_kernel` in
-    csrc/grad.cu: same outputs as opd_adjoint_reference."""
+    _step_vjp_reference(ct_path=), the model of `opd_adjoint_spec` in
+    csrc/grad_spec.cuh: same outputs as opd_adjoint_reference."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     nsurf = tab.nsurfaces
@@ -651,8 +652,8 @@ def _check_vector(v, state, name, shape=None):
 
 
 def _spec_launch(state):
-    """The device, the rays and the stream of a K4/K5 launch on a CUDA
-    bundle."""
+    """The device, the rays and the stream of a specialized kernel's
+    launch (K4, K5, K7, K9) on a CUDA bundle."""
     x = state[0]
     if x.device.type != "cuda":
         raise ValueError("expected a CUDA or CPU bundle, got %s" % x.device)
@@ -661,10 +662,12 @@ def _spec_launch(state):
 
 
 def _packed(table, specs, x):
+    """The table (or a stack of tables) packed in the rays' dtype on
+    their device, with one spec a row."""
     packed = pack_values(table, x.dtype, x.device)
-    if packed.shape[0] != len(specs):
+    if packed.shape[-2] != len(specs):
         raise ValueError("%d specs for a table of %d rows"
-                         % (len(specs), packed.shape[0]))
+                         % (len(specs), packed.shape[-2]))
     return packed
 
 
@@ -676,6 +679,16 @@ def _moments_kernel(specs, dtype, clip):
 @functools.lru_cache(maxsize=None)
 def _adjoint_kernel(specs, dtype, clip, fields, rays):
     return CS.load(CS.adjoint_key(specs, dtype, clip, fields, rays))
+
+
+@functools.lru_cache(maxsize=None)
+def _adjoint_multi_kernel(specs, dtype, clip, fields, rays):
+    return CS.load(CS.adjoint_multi_key(specs, dtype, clip, fields, rays))
+
+
+@functools.lru_cache(maxsize=None)
+def _opd_adjoint_kernel(specs, dtype, clip, fields, rays):
+    return CS.load(CS.opd_adjoint_key(specs, dtype, clip, fields, rays))
 
 
 def weighted_moments(table, specs, state, w, clip=False):
@@ -787,62 +800,53 @@ def weighted_moments_multi(tables, specs, state, w, clip=False):
 weighted_moments_multi.launches = 0
 
 
-def _adjoint_multi_words(nsurf):
-    """Shared-memory words K7 needs a wavelength beside its table."""
-    return (BLOCK // 32)*nsurf*SLOTS + 5
-
-
-def max_adjoint_wavelengths(nsurf, dtype):
-    """The most wavelengths K7 holds for `nsurf` rows in `dtype`: its
-    per-warp parameter rows, the tables and the cotangents all live in
-    one block's shared memory (at most cuda_trace.SMEM_OPTIN bytes)."""
-    word = torch.tensor([], dtype=dtype).element_size()
-    return ((SMEM_OPTIN - 4*nsurf)
-            // ((nsurf*ROW + _adjoint_multi_words(nsurf))*word))
-
-
-def merit_adjoint_multi(tables, specs, state, w, ct, clip=False):
+def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
+                        fields=CS.FIELDS, rays=True):
     """K7: (parameter cotangents (nlam, S, SLOTS) per table of the
     stack; the six state cotangents and the weight cotangent, each
     summed over the tables) of the (nlam, 5) weighted moments dotted
     with `ct`, an (nlam, 5) tensor of moment cotangents on the rays'
-    device.  CUDA bundles launch the kernel (per-block parameter
-    partials, then one torch sum over blocks); CPU bundles take
+    device.  `fields` and `rays` as merit_adjoint's: a slot outside the
+    fields or baked out by the specs is an exact zero; rays=False
+    returns None for the state and weight cotangents.  CUDA bundles
+    launch the kernel compiled for (dtype, specs, clip, live slots,
+    rays) (ops.cuda_spec: one launch, the wavelengths a run-time
+    argument, the grid-wide sums fused); CPU bundles take
     merit_adjoint_multi_reference."""
     nlam = tables.curvature.shape[0]
     _check_state(state)
     _check_vector(w, state, "w")
     _check_vector(ct, state, "ct", (nlam, 5))
-    if state[0].device.type == "cpu":
-        return merit_adjoint_multi_reference(tables, specs, state, w, ct,
-                                             clip)
-    nsurf = len(specs)
-    if nsurf > MAX_ROWS:
-        raise ValueError("merit_adjoint_multi keeps at most %d rows a ray, "
-                         "the table has %d" % (MAX_ROWS, nsurf))
-    most = max_adjoint_wavelengths(nsurf, state[0].dtype)
-    if nlam > most:
-        raise ValueError(
-            "merit_adjoint_multi holds at most %d wavelengths of %d rows in "
-            "%s (%d bytes of shared memory a block), got %d"
-            % (most, nsurf, state[0].dtype, SMEM_OPTIN, nlam))
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
-        tables, specs, state,
-        smem_extra_words=nlam*_adjoint_multi_words(nsurf))
     x = state[0]
-    partials = torch.zeros((grid, nlam*nsurf*SLOTS), dtype=x.dtype,
-                           device=x.device)
-    outs = [torch.zeros_like(x) for _ in range(7)]
-    if n:
-        err = getattr(lib, "merit_adjoint_multi_" + suffix)(
-            packed.data_ptr(), flags.data_ptr(), nsurf, nlam,
-            int(bool(clip)), *(c.data_ptr() for c in state), w.data_ptr(),
-            ct.data_ptr(), partials.data_ptr(),
-            *(o.data_ptr() for o in outs), n, grid, BLOCK, stream)
-        _raise_on(lib, err, "merit_adjoint_multi")
-        merit_adjoint_multi.launches += 1
-    return (partials.sum(0).reshape(nlam, nsurf, SLOTS), tuple(outs[:6]),
-            outs[6])
+    specs, fields = tuple(specs), tuple(fields)
+    if x.device.type == "cpu":
+        pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
+                                                   ct, clip)
+        pg = torch.where(CS.live_mask(CS.live_slots(specs, fields)), pg, 0.)
+        return (pg, st, gw) if rays else (pg, None, None)
+    device, n, stream = _spec_launch(state)
+    kern = _adjoint_multi_kernel(specs, x.dtype, bool(clip), fields,
+                                 bool(rays))
+    packed = _packed(tables, specs, x)
+    if not n:
+        pg = torch.zeros((nlam, len(specs), SLOTS), dtype=x.dtype,
+                         device=device)
+        return (pg, tuple(torch.zeros_like(x) for _ in range(6)),
+                torch.zeros_like(x)) if rays else (pg, None, None)
+    grid = kern.grid(n, device)
+    pg = torch.empty((nlam, len(specs), SLOTS), dtype=x.dtype, device=device)
+    partials = torch.empty((grid, max(nlam*kern.key.nlive, 1)),
+                           dtype=x.dtype, device=device)
+    outs = [torch.empty_like(x) for _ in range(7)] if rays else None
+    kern.check(kern.fn(packed.data_ptr(), *(c.data_ptr() for c in state),
+                       w.data_ptr(), ct.data_ptr(), partials.data_ptr(),
+                       CS.counter(device).data_ptr(), pg.data_ptr(),
+                       *((o.data_ptr() for o in outs) if rays
+                         else (None,)*7), n, nlam, grid, stream))
+    merit_adjoint_multi.launches += 1
+    if not rays:
+        return pg, None, None
+    return pg, tuple(outs[:6]), outs[6]
 
 
 merit_adjoint_multi.launches = 0
@@ -873,39 +877,53 @@ def opd_chain(table, specs, state, aux, clip=False):
 opd_chain.launches = 0
 
 
-def opd_adjoint(table, specs, state, aux, cts, clip=False):
+def opd_adjoint(table, specs, state, aux, cts, clip=False,
+                fields=CS.OPD_FIELDS, rays=True):
     """K9: (parameter cotangents (S, OPD_SLOTS): c, k, offset x, y, z,
     mu, n_before; the six state cotangents; the (3,) centre cotangents)
     of K8's outputs dotted with cts = (ct_k, ct_lx, ct_ly), three (N,)
-    tensors on the rays' device.  CUDA bundles launch the kernel
-    (per-block partials, then one torch sum over blocks); CPU bundles
+    tensors on the rays' device.  `fields`: the table fields whose
+    cotangents are wanted; a slot outside them, or never read by the
+    specialized chain (cuda_spec.opd_live_slots), is an exact zero.
+    rays=False: the state cotangents are not computed and come back as
+    None; the centre cotangents always are.  CUDA bundles launch the
+    kernel compiled for (dtype, specs, clip, live slots, rays)
+    (ops.cuda_spec: one launch, the grid-wide sum fused); CPU bundles
     take opd_adjoint_reference."""
     _check_opd(table, specs, state, aux)
     for name, c in zip(("ct_k", "ct_lx", "ct_ly"), cts):
         _check_vector(c, state, name)
-    if state[0].device.type == "cpu":
-        return opd_adjoint_reference(table, specs, state, aux, cts, clip)
-    nsurf = len(specs)
-    if nsurf > MAX_ROWS:
-        raise ValueError("opd_adjoint keeps at most %d rows a ray, the "
-                         "table has %d" % (MAX_ROWS, nsurf))
-    slots = nsurf*OPD_SLOTS + 3
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
-        table, specs, state, smem_extra_words=AUX + (BLOCK // 32)*slots)
     x = state[0]
-    partials = torch.zeros((grid, slots), dtype=x.dtype, device=x.device)
-    outs = [torch.zeros_like(x) for _ in range(6)]
-    if n:
-        err = getattr(lib, "opd_adjoint_" + suffix)(
-            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
-            *(c.data_ptr() for c in state), aux.data_ptr(),
-            *(c.data_ptr() for c in cts), partials.data_ptr(),
-            *(o.data_ptr() for o in outs), n, grid, BLOCK, stream)
-        _raise_on(lib, err, "opd_adjoint")
+    specs, fields = tuple(specs), tuple(fields)
+    if x.device.type == "cpu":
+        pg, st, gc = opd_adjoint_reference(table, specs, state, aux, cts,
+                                           clip)
+        pg = torch.where(CS.live_mask(CS.opd_live_slots(specs, fields),
+                                      OPD_SLOTS), pg, 0.)
+        return (pg, st, gc) if rays else (pg, None, gc)
+    device, n, stream = _spec_launch(state)
+    kern = _opd_adjoint_kernel(specs, x.dtype, bool(clip), fields,
+                               bool(rays))
+    packed = _packed(table, specs, x)
+    nsurf = len(specs)
+    if not n:
+        out = torch.zeros(nsurf*OPD_SLOTS + 3, dtype=x.dtype, device=device)
+        st = tuple(torch.zeros_like(x) for _ in range(6)) if rays else None
+    else:
+        grid = kern.grid(n, device)
+        out = torch.empty(nsurf*OPD_SLOTS + 3, dtype=x.dtype, device=device)
+        partials = torch.empty((grid, kern.key.nlive + 3), dtype=x.dtype,
+                               device=device)
+        st = tuple(torch.empty_like(x) for _ in range(6)) if rays else None
+        kern.check(kern.fn(packed.data_ptr(),
+                           *(c.data_ptr() for c in state), aux.data_ptr(),
+                           *(c.data_ptr() for c in cts), partials.data_ptr(),
+                           CS.counter(device).data_ptr(), out.data_ptr(),
+                           *((o.data_ptr() for o in st) if rays
+                             else (None,)*6), n, grid, stream))
         opd_adjoint.launches += 1
-    tot = partials.sum(0)
-    return (tot[:nsurf*OPD_SLOTS].reshape(nsurf, OPD_SLOTS), tuple(outs),
-            tot[nsurf*OPD_SLOTS:])
+    return (out[:nsurf*OPD_SLOTS].view(nsurf, OPD_SLOTS), st,
+            out[nsurf*OPD_SLOTS:])
 
 
 opd_adjoint.launches = 0
@@ -932,19 +950,16 @@ class _SpotMoments(torch.autograd.Function):
         tensors = ctx.saved_tensors
         params, state, w = tensors[:5], tensors[5:11], tensors[11]
         tab = ctx.table.replace(**dict(zip(_DIFF, params)))
-        if ctx.multi:
-            pg, ct_state, ct_w = merit_adjoint_multi(
-                tab, ctx.specs, state, w, ct.contiguous(), ctx.clip)
-        else:
-            # K5 reduces only the slots autograd asks for, and writes the
-            # ray and weight cotangents only when they are wanted
-            need = ctx.needs_input_grad
-            fields = tuple(f for f, nd in zip(CS.FIELDS, need[4:8]) if nd)
-            pg, ct_state, ct_w = merit_adjoint(
-                tab, ctx.specs, state, w, ct.contiguous(), ctx.clip,
-                fields=fields, rays=any(need[9:16]))
-            if ct_state is None:
-                ct_state = (None,)*6
+        # K5/K7 reduce only the slots autograd asks for, and write the
+        # ray and weight cotangents only when they are wanted
+        need = ctx.needs_input_grad
+        fields = tuple(f for f, nd in zip(CS.FIELDS, need[4:8]) if nd)
+        adjoint = merit_adjoint_multi if ctx.multi else merit_adjoint
+        pg, ct_state, ct_w = adjoint(tab, ctx.specs, state, w,
+                                     ct.contiguous(), ctx.clip,
+                                     fields=fields, rays=any(need[9:16]))
+        if ct_state is None:
+            ct_state = (None,)*6
         grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
                  pg[..., 5], torch.zeros_like(params[4]))
         return (None, None, None, None, *grads, *ct_state, ct_w)
@@ -1117,9 +1132,17 @@ class _OpdRays(torch.autograd.Function):
         tensors = ctx.saved_tensors
         params, state, aux = tensors[:5], tensors[5:11], tensors[11]
         tab = ctx.table.replace(**dict(zip(_DIFF, params)))
+        # K9 reduces only the slots autograd asks for (and the centre's
+        # three: the sphere centre's trace may need them), and writes the
+        # ray cotangents only when they are wanted
+        need = ctx.needs_input_grad
+        fields = tuple(f for f, nd in zip(CS.OPD_FIELDS, need[3:8]) if nd)
         pg, ct_state, ct_c = opd_adjoint(
             tab, ctx.specs, state, aux,
-            tuple(c.contiguous() for c in (ct_k, ct_lx, ct_ly)), ctx.clip)
+            tuple(c.contiguous() for c in (ct_k, ct_lx, ct_ly)), ctx.clip,
+            fields=fields, rays=any(need[8:14]))
+        if ct_state is None:
+            ct_state = (None,)*6
         grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
                  pg[:, 6])
         # radius and lam_scale are constants of the merit

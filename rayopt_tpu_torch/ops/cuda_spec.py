@@ -1,26 +1,32 @@
-"""K4 and K5 specialized per spec tuple at compile time.
+"""K4, K5, K7 and K9 specialized per spec tuple at compile time.
 
-The weighted-moment forward K4 and its analytic adjoint K5
-(csrc/grad_spec.cuh) are compiled once for each key: the kernel, the
-dtype, one word a table row (its SurfaceSpec flags, cuda_trace._flags,
-and for K5 above LIVE_SHIFT the parameter slots it reduces), the
-aperture clip, whether K5 writes the ray and weight cotangents, and the
-block size.  A key's translation unit is a few lines that instantiate
-the header's templates with the row words as a template parameter pack,
-so the row loop unrolls and every flag branch folds, and that export
-launchers named by the key's hash.  nvcc builds it at first use into
-its own shared library under build/torch_kernels/ (one nvcc run a new
-key, seconds; `prebuild` starts several at once), cached by a hash of
-the headers, the flags and the unit's text.  This is how the JAX
-package's Pallas kernels are specialized too: on specs, clip and
-diff_fields.
+The weighted-moment forward K4, its analytic adjoint K5, the
+polychromatic adjoint K7 and the OPD adjoint K9 (csrc/grad_spec.cuh)
+are compiled once for each key: the kernel, the dtype, one word a
+table row (its SurfaceSpec flags, cuda_trace._flags, and for the
+adjoints above LIVE_SHIFT the parameter slots it reduces), the aperture
+clip, whether an adjoint writes the ray (and weight) cotangents, the
+block size and the launch bound's blocks an SM.  K7's wavelength count
+is a run-time argument.  A key's translation unit is a few lines that
+instantiate the header's templates with the row words as a template
+parameter pack, so the row loop unrolls and every flag branch folds,
+and that export launchers named by the key's hash.  nvcc builds it at
+first use into its own shared library under build/torch_kernels/ (one
+nvcc run a new key, seconds; `prebuild` starts several at once), cached
+by a hash of the headers, the flags and the unit's text.  This is how
+the JAX package's Pallas kernels are specialized too: on specs, clip
+and diff_fields.
 
-The live slots of a row (curvature, conic, offset x, y, z, mu: K5's
-six cotangent columns) are the fields asked for, minus what the row's
-specs bake out (cuda_grad._baked_out_rows: curvature of a flat row,
-conic of a flat or spherical row, the transverse offset of an on-axis
-row, mu of a passthrough row); the axial offset is never baked out.
-Row 0 has none.  A slot that is not live comes back as an exact zero.
+The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
+K7's six cotangent columns; K9 adds n_before) are the fields asked for,
+minus what the row's specs bake out (cuda_grad._baked_out_rows:
+curvature of a flat row, conic of a flat or spherical row, the
+transverse offset of an on-axis row, mu of a passthrough row); the
+axial offset is never baked out.  K9's image row is read only by the
+reference-sphere tail, which reads its offset (the transverse part only
+off axis), its rotation and its n_before, never its curvature, conic or
+mu; every other row's n_before carries its optical path.  Row 0 has
+none.  A slot that is not live comes back as an exact zero.
 """
 
 import ctypes
@@ -31,18 +37,26 @@ from typing import NamedTuple
 import torch
 
 from . import kernels as K
-from .cuda_trace import SMEM_OPTIN, _flags, sm_count
+from .cuda_trace import ROW, SMEM_OPTIN, _flags, sm_count
 
 LIVE_SHIFT = 8     # a row word's live slots: keep in sync with grad_spec.cuh
-SLOTS = 6          # K5's cotangent columns a row
-#: the table field of each of K5's cotangent columns
-SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu")
-#: the fields K5 differentiates
+SLOTS = 6          # K5's and K7's cotangent columns a row
+OPD_SLOTS = 7      # K9's: SLOTS and n_before
+#: the table field of each of K9's cotangent columns (K5/K7: the first
+#: SLOTS)
+SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
+               "n_before")
+#: the fields K5 and K7 differentiate
 FIELDS = ("curvature", "conic", "offset", "mu")
+#: the fields K9 differentiates
+OPD_FIELDS = FIELDS + ("n_before",)
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh")
 BLOCK_MOMENTS = 256
-BLOCK_ADJOINT = 128   # measured fastest in float64 (PERF.md §6)
+BLOCK_ADJOINT = 128   # measured fastest for K5 in float64 (PERF.md §6)
 MIN_BLOCKS = 1        # __launch_bounds__'s blocks an SM (PERF.md §6)
+#: each adjoint's macro in grad_spec.cuh
+_MACROS = {"k5": "RAYOPT_SPEC_ADJOINT", "k7": "RAYOPT_SPEC_ADJOINT_MULTI",
+           "k9": "RAYOPT_SPEC_OPD_ADJOINT"}
 
 
 def baked_out_rows(specs, field):
@@ -62,36 +76,57 @@ def baked_out_rows(specs, field):
 
 
 def live_slots(specs, fields=FIELDS):
-    """One 6-bit mask a row of the slots K5 reduces: the `fields` asked
-    for, minus the rows the specs bake them out of (the axial offset,
-    slot 4, never is).  Row 0 has none."""
+    """One 6-bit mask a row of the slots K5 and K7 reduce: the `fields`
+    asked for, minus the rows the specs bake them out of (the axial
+    offset, slot 4, never is).  Row 0 has none."""
+    return _live_slots(specs, fields, FIELDS, SLOTS)
+
+
+def opd_live_slots(specs, fields=OPD_FIELDS):
+    """One 7-bit mask a row of the slots K9 reduces: live_slots with
+    n_before (slot 6) on every row but row 0, except on the image row,
+    which the reference-sphere tail reads only through its offset (the
+    transverse part only off axis) and its n_before."""
+    if len(specs) < 3:
+        raise ValueError("the OPD needs object, exit and image rows, got "
+                         "%d rows" % len(specs))
+    masks = list(_live_slots(specs, fields, OPD_FIELDS, OPD_SLOTS))
+    tail = (1 << 4) | (1 << 6) | ((1 << 2) | (1 << 3)
+                                  if specs[-1].off_axis else 0)
+    masks[-1] &= tail
+    return tuple(masks)
+
+
+def _live_slots(specs, fields, known, nslots):
     fields = set(fields)
-    unknown = fields - set(FIELDS)
+    unknown = fields - set(known)
     if unknown:
-        raise ValueError("K5 differentiates %s, not %s"
-                         % (", ".join(FIELDS), ", ".join(sorted(unknown))))
-    baked = {f: set(baked_out_rows(specs, f)) for f in FIELDS}
+        raise ValueError("the adjoint differentiates %s, not %s"
+                         % (", ".join(known), ", ".join(sorted(unknown))))
+    baked = {f: set(baked_out_rows(specs, f)) for f in known}
     masks = []
     for j in range(len(specs)):
         m = 0
-        for q, f in enumerate(SLOT_FIELDS):
+        for q, f in enumerate(SLOT_FIELDS[:nslots]):
             if j and f in fields and (q == 4 or j not in baked[f]):
                 m |= 1 << q
         masks.append(m)
     return tuple(masks)
 
 
-def live_mask(masks):
-    """The (rows, SLOTS) bool mask of `live_slots`' masks."""
-    return torch.tensor([[bool(m >> q & 1) for q in range(SLOTS)]
+def live_mask(masks, nslots=SLOTS):
+    """The (rows, nslots) bool mask of `live_slots`' (or, with nslots
+    OPD_SLOTS, `opd_live_slots`') masks."""
+    return torch.tensor([[bool(m >> q & 1) for q in range(nslots)]
                          for m in masks])
 
 
 class Key(NamedTuple):
-    """One specialization: kernel "k4" or "k5", dtype "f32" or "f64",
-    one word a row (flags | live slots << LIVE_SHIFT), clip, rays (K5
-    writes the ray and weight cotangents), threads a block, and the
-    blocks an SM that __launch_bounds__ asks ptxas to fit."""
+    """One specialization: kernel "k4", "k5", "k7" or "k9", dtype "f32"
+    or "f64", one word a row (flags | live slots << LIVE_SHIFT), clip,
+    rays (an adjoint writes the ray and weight cotangents), threads a
+    block, and the blocks an SM that __launch_bounds__ asks ptxas to
+    fit."""
 
     kernel: str
     dtype: str
@@ -124,10 +159,21 @@ class Key(NamedTuple):
 
     @property
     def dynamic_smem(self):
-        """K5's saved states: (rows - 1) * 6 words a thread."""
-        if self.kernel != "k5":
-            return 0
-        return (self.rows - 1)*6*self.block*self.word_bytes
+        """An adjoint's saved states: (rows - 1) * 6 words a thread (K9:
+        rows - 2, the rows its chain steps through before the sphere)."""
+        rows = {"k5": self.rows - 1, "k7": self.rows - 1,
+                "k9": self.rows - 2}.get(self.kernel, 0)
+        return rows*6*self.block*self.word_bytes
+
+    @property
+    def shared_bytes(self):
+        """The shared memory a block takes: the saved states, the staged
+        table (K9: and its aux vector), and the block reduction of the
+        live slots (K9: and the 3 centre cotangents)."""
+        values = self.nlive + (3 if self.kernel == "k9" else 0)
+        words = (self.rows*ROW + (5 if self.kernel == "k9" else 0)
+                 + (self.block//32 + 1)*max(values, 1))
+        return self.dynamic_smem + words*self.word_bytes
 
 
 def _dtype_name(dtype):
@@ -154,24 +200,44 @@ def moments_key(specs, dtype, clip=False, block=None,
                int(block or BLOCK_MOMENTS), int(min_blocks))
 
 
+def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks):
+    """An adjoint's key, refused when a block's saved states and
+    reduction outgrow the shared memory it may opt in to."""
+    key = Key(kernel, _dtype_name(dtype), _words(specs, masks), bool(clip),
+              bool(rays), int(block or BLOCK_ADJOINT), int(min_blocks))
+    if key.shared_bytes > SMEM_OPTIN:
+        raise ValueError(
+            "%s keeps %d rows of saved state at %d threads a block in %s: "
+            "%d bytes of shared memory, above %d"
+            % (kernel.upper(), key.rows, key.block, key.dtype,
+               key.shared_bytes, SMEM_OPTIN))
+    return key
+
+
 def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
                 block=None, min_blocks=MIN_BLOCKS):
     """The K5 key of a spec tuple, the fields whose cotangents are
     wanted (see live_slots) and whether the ray and weight cotangents
     are."""
-    key = Key("k5", _dtype_name(dtype), _words(specs, live_slots(specs,
-                                                                 fields)),
-              bool(clip), bool(rays), int(block or BLOCK_ADJOINT),
-              int(min_blocks))
-    smem = (key.dynamic_smem + (key.rows*17 + (key.block//32 + 1)
-                                * max(key.nlive, 1))*key.word_bytes)
-    if smem > SMEM_OPTIN:
-        raise ValueError(
-            "K5 keeps %d rows of saved state at %d threads a block in %s: "
-            "%d bytes of shared memory, above %d" % (key.rows, key.block,
-                                                     key.dtype, smem,
-                                                     SMEM_OPTIN))
-    return key
+    return _adjoint("k5", specs, live_slots(specs, fields), dtype, clip,
+                    rays, block, min_blocks)
+
+
+def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
+                      block=None, min_blocks=MIN_BLOCKS):
+    """The K7 key of the spec tuple a stack of tables shares, as
+    adjoint_key (the wavelength count is not part of it)."""
+    return _adjoint("k7", specs, live_slots(specs, fields), dtype, clip,
+                    rays, block, min_blocks)
+
+
+def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_FIELDS, rays=True,
+                    block=None, min_blocks=MIN_BLOCKS):
+    """The K9 key of a spec tuple, the fields whose cotangents are
+    wanted (see opd_live_slots) and whether the ray cotangents are; the
+    three centre cotangents are always reduced."""
+    return _adjoint("k9", specs, opd_live_slots(specs, fields), dtype, clip,
+                    rays, block, min_blocks)
 
 
 def translation_unit(key):
@@ -186,9 +252,9 @@ def translation_unit(key):
     if key.kernel == "k4":
         return head + "RAYOPT_SPEC_MOMENTS(%s, %s, Rows, %s, %d, %d)\n" % (
             key.name, ctype, clip, key.block, key.min_blocks)
-    return head + "RAYOPT_SPEC_ADJOINT(%s, %s, Rows, %s, %s, %d, %d)\n" % (
-        key.name, ctype, clip, "true" if key.rays else "false", key.block,
-        key.min_blocks)
+    return head + "%s(%s, %s, Rows, %s, %s, %d, %d)\n" % (
+        _MACROS[key.kernel], key.name, ctype, clip,
+        "true" if key.rays else "false", key.block, key.min_blocks)
 
 
 class SpecKernel:
@@ -206,9 +272,12 @@ class SpecKernel:
         self.fn = getattr(self._lib, key.name)
         # K4: table, 6 rays, w, partials, counter, out, n, grid, stream;
         # K5: table, 6 rays, w, ct, partials, counter, out, 7 ray
-        # cotangents, n, grid, stream
-        words = 11 if key.kernel == "k4" else 19
-        self.fn.argtypes = [ptr]*words + [i64, i32, ptr]
+        # cotangents, n, grid, stream; K7: K5's with nlam before grid;
+        # K9: table, 6 rays, aux, 3 cotangents, partials, counter, out,
+        # 6 ray cotangents, n, grid, stream
+        words = {"k4": 11, "k5": 19, "k7": 19, "k9": 20}[key.kernel]
+        ints = [i64, i32, i32] if key.kernel == "k7" else [i64, i32]
+        self.fn.argtypes = [ptr]*words + ints + [ptr]
         self.fn.restype = i32
         self._occupancy = getattr(self._lib, key.name + "_blocks_per_sm")
         self._occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)]

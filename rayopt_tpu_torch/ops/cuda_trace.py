@@ -47,7 +47,7 @@ F_ALTERNATE, F_FINITE, KIND_SHIFT = 16, 32, 6
 BLOCK = 256          # threads a block (a power of two: K2's tree sum)
 BLOCKS_PER_SM = 8    # grid-stride grid: this many blocks on each SM
 SMEM_LIMIT = 48*1024  # dynamic shared memory without an opt-in
-SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (K3, K6, K7)
+SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (K3, K6, the spec keys)
 
 
 def _moments(x, y, uz):

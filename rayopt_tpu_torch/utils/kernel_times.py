@@ -7,22 +7,28 @@ Times, with CUDA events (the mean of many launches after a warm-up),
 on the double Gauss and the bench bundle (x, y uniform in +-11.6 mm,
 u = (0, 0, 1)):
 
-* K1 trace_final, K4 weighted_moments and K5 merit_adjoint (all
-  fields, the ray cotangents written: the work every tree's K5 does)
-  in float32 and float64 at 2^22 rays, float64 at one optimizer
-  bundle's 1,046,071 rays and float32 at 2^26 rays; K5 for the
-  optimizer's slot set without ray cotangents too, where the tree's
-  merit_adjoint takes `fields` and `rays`;
+* K1 trace_final, K4 weighted_moments, K5 merit_adjoint, K7
+  merit_adjoint_multi (the 3-wavelength stack) and K9 opd_adjoint (ray
+  0 the chief ray, the wavefront-RMS cotangents), the adjoints for all
+  fields with the ray cotangents written (the work every tree's
+  adjoints do), in float32 and float64 at 2^22 rays, float64 at one
+  loop bundle's 1,046,071 rays and float32 at 2^26 rays; each adjoint
+  also for its loop's slot set without ray cotangents (K5 the
+  optimizer's, K7 the achromatization path's, K9 the design path's),
+  where the tree's wrapper takes `fields` and `rays`;
 * the optimizer step (optimize_grad(engine="adjoint"), 9 hexapolar
   bundles of nrays 2^20 at 3 fields x 3 wavelengths, float64, Adam lr
-  1e-7 on curvature and distance) and the design step (those 9 spot
-  bundles, 3 wavefront bundles and 1e-4 x the focal-length penalty):
-  wall milliseconds of the steps after the first.
+  1e-7 on curvature and distance), the design step (those 9 spot
+  bundles, 3 wavefront bundles and 1e-4 x the focal-length penalty)
+  and the achromatization step (the union polychromatic spot RMS of 3
+  hexapolar bundles at 3 fields x 3 wavelengths, float64, Adam over
+  curvatures, distances and the 6 glasses' box logits): wall
+  milliseconds of the steps after the first.
 
 It calls the wrappers with the positional arguments every tree of the
 port takes, so it also measures an older tree: copy this file into
 that tree's rayopt_tpu_torch/utils/ and run it from that tree's root.
---variants (this tree only) times K5 for the optimizer's slot set in
+--variants (this tree only) times the loops' keys of K5, K7 and K9 in
 float64 and float32 at other block sizes and launch bounds.  Prints
 one JSON object; needs a CUDA card.
 """
@@ -44,6 +50,9 @@ SIZES = ((torch.float32, 1 << 22), (torch.float64, 1 << 22),
 NRAYS = 1 << 20      # hexapolar nrays a bundle of the steps
 OPT_SELECT = ("curvature", "distance")
 OPT_FIELDS = ("curvature", "offset")
+ACHROM_FIELDS = ("curvature", "offset", "mu")
+FIELDS = (0., .7, 1.)
+GLASS_LR = {"curvature": 5e-8, "distance": 5e-8, "glass": 3e-5}
 
 
 def cuda_ms(fn, reps):
@@ -80,67 +89,123 @@ def rms_cotangent(mom):
     return m.grad.to(mom.dtype).contiguous()
 
 
-def kernel_times(table, specs):
-    from rayopt_tpu_torch.ops.cuda_grad import merit_adjoint, weighted_moments
+def opd_inputs(s, table, specs, state):
+    """K9's aux vector (the chief ray 0's image point, the exit pupil's
+    sphere radius, the first wavelength's scale) and the wavefront-RMS
+    cotangents of K8's outputs."""
+    from rayopt_tpu_torch.ops.cuda_grad import opd_chain, wavefront_rms_of
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    y0 = torch.stack([c[:1] for c in state[:3]], 1).double()
+    u0 = torch.stack([c[:1] for c in state[3:]], 1).double()
+    yr, _, _ = trace_rays_final(table, y0, u0, specs=specs)
+    aux = torch.cat([yr[0], torch.tensor(
+        [-s.image.pupil.distance, s.wavelengths[0]/s.scale],
+        dtype=torch.float64, device="cuda")]).to(state[0].dtype)
+    k = opd_chain(table, specs, state, aux)[0].detach().double()
+    k.requires_grad_()
+    wavefront_rms_of(k - k[0]).backward()
+    ct_k = k.grad.to(state[0].dtype).contiguous()
+    return aux, (ct_k, torch.zeros_like(ct_k), torch.zeros_like(ct_k))
+
+
+def kernel_times(s, table, specs):
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_multi, opd_adjoint, weighted_moments,
+        weighted_moments_multi)
     from rayopt_tpu_torch.ops.cuda_trace import trace_final
-    sliced = "fields" in inspect.signature(merit_adjoint).parameters
+    sliced = {fn: "fields" in inspect.signature(fn).parameters
+              for fn in (merit_adjoint, merit_adjoint_multi, opd_adjoint)}
+    tabs = s.tables()
     out = {}
     for dtype, n in SIZES:
         state, w = bench_bundle(n, dtype)
+        # ray 0 the chief ray of the OPD (the bench bundle is collimated)
+        for c, v in zip(state, (0., 0., 0., 0., 0., 1.)):
+            c[0] = v
         ct = rms_cotangent(weighted_moments(table, specs, state, w))
+        ctm = torch.stack([rms_cotangent(m) for m in weighted_moments_multi(
+            tabs, specs, state, w)])
+        aux, cts = opd_inputs(s, table, specs, state)
         reps = 10 if n > 1 << 22 else 20
         cases = {
             "K1": lambda: trace_final(table, specs, state),
             "K4": lambda: weighted_moments(table, specs, state, w),
-            "K5": lambda: merit_adjoint(table, specs, state, w, ct)}
-        if sliced:
+            "K5": lambda: merit_adjoint(table, specs, state, w, ct),
+            "K7": lambda: merit_adjoint_multi(tabs, specs, state, w, ctm),
+            "K9": lambda: opd_adjoint(table, specs, state, aux, cts)}
+        if sliced[merit_adjoint]:
             cases["K5 optimizer"] = lambda: merit_adjoint(
                 table, specs, state, w, ct, fields=OPT_FIELDS, rays=False)
+        if sliced[merit_adjoint_multi]:
+            cases["K7 achromatization"] = lambda: merit_adjoint_multi(
+                tabs, specs, state, w, ctm, fields=ACHROM_FIELDS,
+                rays=False)
+        if sliced[opd_adjoint]:
+            cases["K9 design"] = lambda: opd_adjoint(
+                table, specs, state, aux, cts, fields=OPT_FIELDS, rays=False)
         for name, fn in cases.items():
             out["%s %s %d" % (name, str(dtype)[6:], n)] = cuda_ms(fn, reps)
-        del state, w
+        del state, w, cts
         torch.cuda.empty_cache()
     return out
 
 
-def variant_times(specs, table):
-    """K5 for the optimizer's slot set at each block size and launch
-    bound, float64 at N_OPT_BUNDLE rays and float32 at 2^22."""
+def variant_times(s, specs, table):
+    """The loops' keys of K5 (the optimizer's slot set), K7 (the
+    achromatization path's) and K9 (the design path's), no ray
+    cotangents, at each block size and launch bound, float64 at
+    N_OPT_BUNDLE rays and float32 at 2^22, through the wrappers (each
+    wrapper's kernel lookup is pointed at the variant's build)."""
+    from rayopt_tpu_torch.ops import cuda_grad as CG
     from rayopt_tpu_torch.ops import cuda_spec as CS
-    from rayopt_tpu_torch.ops.cuda_grad import _packed, weighted_moments
-    variants = [(dt, b, m) for dt in (torch.float64, torch.float32)
-                for b, m in ((64, 1), (128, 1), (256, 1), (128, 2), (128, 3),
-                             (128, 4))]
-    keys = {v: CS.adjoint_key(specs, v[0], False, OPT_FIELDS, False,
-                              block=v[1], min_blocks=v[2]) for v in variants}
+    tabs = s.tables()
+    shapes = ((64, 1), (64, 6), (128, 1), (128, 2), (128, 3), (256, 1))
+    kinds = {"K5": ("_adjoint_kernel", CS.adjoint_key, OPT_FIELDS),
+             "K7": ("_adjoint_multi_kernel", CS.adjoint_multi_key,
+                    ACHROM_FIELDS),
+             "K9": ("_opd_adjoint_kernel", CS.opd_adjoint_key, OPT_FIELDS)}
+    keys = {(k, dt, b, m): make(specs, dt, False, fields, False, block=b,
+                                min_blocks=m)
+            for k, (_, make, fields) in kinds.items()
+            for dt in (torch.float64, torch.float32) for b, m in shapes}
     built = CS.prebuild(list(keys.values()))
     out = {}
-    for (dtype, block, minb), key in keys.items():
-        kern = built[key]
+    for dtype in (torch.float64, torch.float32):
         n = N_OPT_BUNDLE if dtype == torch.float64 else 1 << 22
         state, w = bench_bundle(n, dtype)
-        ct = rms_cotangent(weighted_moments(table, specs, state, w))
-        x = state[0]
-        packed = _packed(table, specs, x)
-        grid = kern.grid(n, x.device)
-        pg = torch.empty((len(specs), 6), dtype=dtype, device=x.device)
-        part = torch.empty((grid, key.nlive), dtype=dtype, device=x.device)
-        stream = torch.cuda.current_stream().cuda_stream
-
-        def run():
-            kern.check(kern.fn(packed.data_ptr(),
-                               *(c.data_ptr() for c in state), w.data_ptr(),
-                               ct.data_ptr(), part.data_ptr(),
-                               CS.counter(x.device).data_ptr(),
-                               pg.data_ptr(), *(None,)*7, n, grid, stream))
-        regs = [ln for ln in kern.ptxas_lines() if "registers" in ln
-                or "stack frame" in ln]
-        out["K5 optimizer %s %d block %d min_blocks %d" % (
-            str(dtype)[6:], n, block, minb)] = {
-                "ms": cuda_ms(run, 20), "grid": grid,
-                "blocks_per_sm": kern.blocks_per_sm(x.device),
-                "ptxas": regs}
-        del state, w
+        for c, v in zip(state, (0., 0., 0., 0., 0., 1.)):
+            c[0] = v
+        ct = rms_cotangent(CG.weighted_moments(table, specs, state, w))
+        ctm = torch.stack([rms_cotangent(m) for m in
+                           CG.weighted_moments_multi(tabs, specs, state, w)])
+        aux, cts = opd_inputs(s, table, specs, state)
+        calls = {
+            "K5": lambda: CG.merit_adjoint(table, specs, state, w, ct,
+                                           fields=OPT_FIELDS, rays=False),
+            "K7": lambda: CG.merit_adjoint_multi(
+                tabs, specs, state, w, ctm, fields=ACHROM_FIELDS,
+                rays=False),
+            "K9": lambda: CG.opd_adjoint(table, specs, state, aux, cts,
+                                         fields=OPT_FIELDS, rays=False)}
+        for (kind, dt, block, minb), key in keys.items():
+            if dt != dtype:
+                continue
+            kern = built[key]
+            lookup = kinds[kind][0]
+            real = getattr(CG, lookup)
+            setattr(CG, lookup, lambda *a, _kern=kern: _kern)
+            try:
+                ms = cuda_ms(calls[kind], 20)
+            finally:
+                setattr(CG, lookup, real)
+            out["%s loop key %s %d block %d min_blocks %d" % (
+                kind, str(dtype)[6:], n, block, minb)] = {
+                    "ms": ms, "grid": kern.grid(n, state[0].device),
+                    "blocks_per_sm": kern.blocks_per_sm(state[0].device),
+                    "ptxas": [ln for ln in kern.ptxas_lines()
+                              if "registers" in ln or "stack frame" in ln]}
+        del state, w, cts
+        torch.cuda.empty_cache()
     return out
 
 
@@ -184,7 +249,10 @@ def step_times(steps):
     def penalty(tab):
         return 1e-4*first_order_penalty(tab, seed,
                                         {"focal_length": (1, efl0)})
-    out = {"aim_s": aim_s}
+    out = {"aim_s": aim_s,
+           "achromatization_step_ms": achromatization_steps(steps)}
+    out["achromatization_step_ms_mean"] = float(np.mean(
+        out["achromatization_step_ms"]))
     for name, merit in (("optimizer", None),
                         ("design", composite_merit(spots, wavefronts,
                                                    penalty))):
@@ -202,6 +270,63 @@ def step_times(steps):
     return out
 
 
+def achromatization_steps(steps):
+    """Wall ms of the achromatization steps after the first: the union
+    polychromatic spot RMS (glass.polychromatic_spot_rms, "adjoint") of
+    3 hexapolar bundles at FIELDS through the 3-wavelength stack, the 6
+    glasses relaxed through glass_box_decode, Adam at GLASS_LR."""
+    from rayopt_tpu_torch import glass
+    from rayopt_tpu_torch.models import double_gauss
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    from rayopt_tpu_torch.parallel import bundles_from_system
+    s = double_gauss()
+    tabs = s.tables()
+    nlam = tabs.curvature.shape[0]
+    specs = multi_specs(tabs, None)
+    asg = glass.glass_assignment(s)
+    nd0, vd0 = glass.initial_glass_params(s, asg[2])
+    bundles = bundles_from_system(s, fields=FIELDS,
+                                  wavelengths=[s.wavelengths[0]],
+                                  nrays=NRAYS, distribution="hexapolar")
+    # distance is optimized, the trace reads offset = unit * distance
+    d0 = tabs.distance[0].detach()
+    off0 = tabs.offset[0].detach()
+    unit = torch.where(d0[:, None] != 0, off0/torch.where(
+        d0[:, None] != 0, d0[:, None], 1.), torch.tensor([0., 0., 1.],
+                                                         device="cuda"))
+    xi_nd, xi_vd = (torch.from_numpy(v).cuda().requires_grad_()
+                    for v in glass.glass_box_encode(nd0, vd0))
+    params = {"curvature": tabs.curvature[0].detach().clone()
+              .requires_grad_(),
+              "distance": d0.clone().requires_grad_(),
+              "xi_nd": xi_nd, "xi_vd": xi_vd}
+    opt = torch.optim.Adam([
+        {"params": [params["curvature"]], "lr": GLASS_LR["curvature"]},
+        {"params": [params["distance"]], "lr": GLASS_LR["distance"]},
+        {"params": [xi_nd, xi_vd], "lr": GLASS_LR["glass"]}])
+    ends = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            opt.zero_grad()
+            tb = tabs.replace(
+                curvature=params["curvature"].expand(nlam, -1),
+                offset=(unit*params["distance"][:, None]).expand(nlam, -1,
+                                                                 -1))
+            nd, vd = glass.glass_box_decode(xi_nd, xi_vd)
+            tb = glass.glass_tables(tb, nd, vd, asg, s.wavelengths)
+            value = sum(glass.polychromatic_spot_rms(
+                tb, y0, u0, w, specs=specs, engine="adjoint")
+                for y0, u0, w, _ in bundles)
+            value.backward()
+            opt.step()
+            float(value.detach())    # the step's end: a host sync
+            ends.append(time.perf_counter())
+    ms = np.diff([t0] + ends)*1e3
+    return [float(v) for v in ms[1:]]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", action="store_true")
@@ -216,10 +341,11 @@ def main():
                           text=True).stdout.strip()
     table = double_gauss().table()
     specs = specialize(table)
-    out = {"card": card, "kernels_ms": kernel_times(table, specs)}
+    out = {"card": card, "kernels_ms": kernel_times(double_gauss(), table,
+                                                    specs)}
     out.update(step_times(args.steps))
     if args.variants:
-        out["variants"] = variant_times(specs, table)
+        out["variants"] = variant_times(double_gauss(), specs, table)
     print(json.dumps(out))
     sys.stdout.flush()
 

@@ -216,6 +216,15 @@ def _spec_case(name, device, dtype):
     return tab, specs, state, w.to(device, dtype)
 
 
+def _rel(got, want):
+    """max |got - want| over the pairs, of the largest |want| (the error
+    itself where want is all zero)."""
+    scale = max(float(v.abs().max()) for v in want)
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, want))
+    return err/scale if scale else err
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("name", ["doublet", "cooke", "parabolic",
@@ -241,13 +250,6 @@ def test_specialized_grad_kernels_match_plain_on_card(cuda_device, name,
     CS.prebuild([CS.moments_key(specs, dtype, clip) for clip in (0, 1)] + [
         CS.adjoint_key(specs, dtype, clip, fields, rays)
         for clip in (0, 1) for fields in slot_sets for rays in (0, 1)])
-
-    def rel(got, want):
-        """max |got - want| of the largest |want| (0 if want is 0)."""
-        scale = max(float(v.abs().max()) for v in want)
-        err = max(float((a.double() - b.double()).abs().max())
-                  for a, b in zip(got, want))
-        return err/scale if scale else err
 
     for clip in (False, True):
         before = CG.weighted_moments.launches
@@ -287,9 +289,9 @@ def test_specialized_grad_kernels_match_plain_on_card(cuda_device, name,
                 want = torch.where(live, truth[0], 0.)
                 own = torch.where(live, plain[0].double(), 0.)
                 for cols in ((0,), (1,), (2, 3, 4), (5,)):
-                    got = rel([pg[:, cols]], [want[:, cols]])
+                    got = _rel([pg[:, cols]], [want[:, cols]])
                     lim = 1e-9 if f64 else max(
-                        1e-3, 10*rel([own[:, cols]], [want[:, cols]]))
+                        1e-3, 10*_rel([own[:, cols]], [want[:, cols]]))
                     assert got <= lim, (fields, rays, cols, got, lim)
                 if not rays:
                     assert cst is None and cw is None
@@ -297,14 +299,220 @@ def test_specialized_grad_kernels_match_plain_on_card(cuda_device, name,
                 # dead rays are exact zeros in both (a live ray's weight
                 # cotangent may round to zero too, so no mask test here)
                 for kind in (slice(0, 3), slice(3, 6)):
-                    got = rel(cst[kind], truth[1][kind])
+                    got = _rel(cst[kind], truth[1][kind])
                     lim = 1e-8 if f64 else max(
-                        1e-2, 10*rel(plain[1][kind], truth[1][kind]))
+                        1e-2, 10*_rel(plain[1][kind], truth[1][kind]))
                     assert got <= lim, (fields, kind, got, lim)
-                got = rel([cw], [truth[2]])
+                got = _rel([cw], [truth[2]])
                 lim = 1e-8 if f64 else max(1e-2,
-                                           10*rel([plain[2]], [truth[2]]))
+                                           10*_rel([plain[2]], [truth[2]]))
                 assert got <= lim, (fields, "w", got, lim)
+
+
+#: K7's slot sets: the achromatization loop's (curvature, distance and
+#: the glasses' mu) and every field
+MULTI_SLOT_SETS = (("curvature", "offset", "mu"), ("curvature", "conic",
+                                                    "offset", "mu"))
+#: the visible wavelengths of the nlam = 7 stack
+SEVEN_WAVELENGTHS = (587.56e-9, 656.27e-9, 486.13e-9, 435.83e-9, 546.07e-9,
+                     706.52e-9, 404.66e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["doublet", "cooke"])
+def test_specialized_multi_adjoint_matches_plain_on_card(cuda_device, name,
+                                                         dtype):
+    """K7 compiled per spec tuple (ops.cuda_spec) against its plain
+    version on stacks of 1, 3 and 7 wavelengths, clip off and on, for
+    the achromatization loop's slot set and for every field, with and
+    without the ray cotangents: one launch a call, the slots that are
+    not live exact zeros.  As K5 above: float64 within 1e-9 of each
+    field's largest cotangent (rays 1e-8), float32 against the float64
+    plain version within 1e-3 (rays 1e-2) or ten times the float32
+    plain version's own error.  The ray cotangents are held on the
+    rays whose liveness K1 and both plain versions judge alike at every
+    wavelength (a float32 ray on an aperture's edge may clip at one
+    wavelength in one version only)."""
+    from rayopt_tpu_torch.models import cooke_triplet, doublet
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.tables import table_at
+    s = {"doublet": doublet, "cooke": cooke_triplet}[name]()
+    _, specs, state, w = _spec_case(name, cuda_device, dtype)
+    f64 = dtype == torch.float64
+    state64 = tuple(c.double() for c in state)
+    CS.prebuild([CS.adjoint_multi_key(specs, dtype, clip, fields, rays)
+                 for clip in (0, 1) for fields in MULTI_SLOT_SETS
+                 for rays in (0, 1)])
+    stacks = (s.wavelengths[:1], s.wavelengths[:3], SEVEN_WAVELENGTHS)
+    for lams, clip in ((lams, clip) for lams in stacks for clip in (0, 1)):
+        tabs = s.tables(lams)
+        nlam = len(lams)
+        mref = CG.weighted_moments_multi_reference(tabs, specs, state, w,
+                                                   clip)
+        ct = _union_cotangent(mref)
+        plain = CG.merit_adjoint_multi_reference(tabs, specs, state, w, ct,
+                                                 clip)
+        truth = CG.merit_adjoint_multi_reference(
+            tabs, specs, state64, w.double(), ct.double(), clip)
+        agree = torch.ones_like(w, dtype=torch.bool)
+        for li in range(nlam):
+            one = table_at(tabs, li)
+            lives = [CG._live(f(one, specs, st, clip)[0]) for f, st in (
+                (CT.trace_final, state), (CT.trace_final_reference, state),
+                (CT.trace_final_reference, state64))]
+            agree &= (lives[0] == lives[1]) & (lives[1] == lives[2])
+        for fields, rays in ((f, r) for f in MULTI_SLOT_SETS
+                             for r in (False, True)):
+            live = CS.live_mask(CS.live_slots(specs, fields)).to(cuda_device)
+            before = CG.merit_adjoint_multi.launches
+            pg, cst, cw = CG.merit_adjoint_multi(tabs, specs, state, w, ct,
+                                                 clip, fields=fields,
+                                                 rays=rays)
+            torch.cuda.synchronize()
+            tag = (nlam, clip, fields, rays)
+            assert CG.merit_adjoint_multi.launches == before + 1
+            assert pg.shape == (nlam, len(specs), CG.SLOTS)
+            assert torch.isfinite(pg).all()
+            assert not bool(pg[:, ~live].any()), tag
+            for li in range(nlam):
+                want = torch.where(live, truth[0][li], 0.)
+                own = torch.where(live, plain[0][li].double(), 0.)
+                for cols in ((0,), (1,), (2, 3, 4), (5,)):
+                    got = _rel([pg[li][:, cols]], [want[:, cols]])
+                    lim = 1e-9 if f64 else max(
+                        1e-3, 10*_rel([own[:, cols]], [want[:, cols]]))
+                    assert got <= lim, (tag, li, cols, got, lim)
+            if not rays:
+                assert cst is None and cw is None
+                continue
+            for got, pl, want in ((cst[:3], plain[1][:3], truth[1][:3]),
+                                  (cst[3:], plain[1][3:], truth[1][3:]),
+                                  ((cw,), (plain[2],), (truth[2],))):
+                assert all(bool(torch.isfinite(g).all()) for g in got)
+                got, pl, want = ([v[agree] for v in t]
+                                 for t in (got, pl, want))
+                err = _rel(got, want)
+                lim = 1e-8 if f64 else max(1e-2, 10*_rel(pl, want))
+                assert err <= lim, (tag, err, lim)
+
+
+def _opd_case(name, device, dtype, seed=7):
+    """A system's table and specs, its aimed hexapolar bundle (nrays
+    2^14) at field 0.7 and the first wavelength (ray 0 the chief ray),
+    K8's aux vector (the chief ray's image point from the CPU plain
+    trace, the exit pupil's reference-sphere radius, the wavelength's
+    scale) and seeded cotangents on k and both landing coordinates, in
+    `dtype` on `device`."""
+    from rayopt_tpu_torch.models import cooke_triplet, doublet
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    from rayopt_tpu_torch.parallel import bundles_from_system
+    s = {"doublet": doublet, "cooke": cooke_triplet}[name]()
+    tab = s.table()
+    specs = specialize(tab)
+    y0, u0, _, _ = bundles_from_system(
+        s, fields=(.7,), wavelengths=[s.wavelengths[0]], nrays=1 << 14,
+        distribution="hexapolar", device="cpu")[0]
+    yr, _, _ = trace_rays_final(s.table(device="cpu"), y0[:1], u0[:1],
+                                specs=specs)
+    aux = torch.cat([yr[0], torch.tensor([-s.image.pupil.distance,
+                                          s.wavelengths[0]/s.scale])])
+    rng = np.random.RandomState(seed)
+    cts = tuple(torch.from_numpy(rng.normal(size=y0.shape[0])).to(device,
+                                                                   dtype)
+                for _ in range(3))
+    state = tuple(c.to(device, dtype).contiguous() for c in (*y0.T, *u0.T))
+    return tab, specs, state, aux.to(device, dtype), cts
+
+
+#: K9's slot sets: the design loop's (curvature, distance) and every field
+OPD_SLOT_SETS = (("curvature", "offset"), ("curvature", "conic", "offset",
+                                           "mu", "n_before"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["doublet", "cooke"])
+def test_specialized_opd_adjoint_matches_plain_on_card(cuda_device, name,
+                                                       dtype):
+    """K9 compiled per spec tuple against its plain version, clip off and
+    on (the bundle 1.5x wider clipped, so that apertures vignette), for
+    the design loop's slot set and for every field, with and without the
+    ray cotangents: one launch a call, the slots that are not live exact
+    zeros, the centre cotangents always.  Tolerances as
+    test_opd_kernels_match_plain_on_card: float64 within 1e-9 of each
+    column's sum of |term|, ray cotangents within 1e-8 of their kind's
+    largest (the fused multiply-adds nvcc contracts, as for K5 above:
+    3.4e-9 on the doublet's clipped bundle).  Float32 against the
+    float64 plain version on the same inputs, as K5 above: the sums
+    within 1e-2 of the sum of |term|, the ray cotangents within 1e-3 of
+    their kind's largest, or ten times the float32 plain version's own
+    error where that is larger (on the doublet, whose path is nearly
+    stationary, the float32 plain version is 1.7e-2 of the sum off in
+    mu and 7.2e-3 of the largest off in the ray directions on the
+    CPU).  Cotangents sit on the rays live in every version compared."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    f64 = dtype == torch.float64
+    tab, specs, state0, aux, cts0 = _opd_case(name, cuda_device, dtype)
+    CS.prebuild([CS.opd_adjoint_key(specs, dtype, clip, fields, rays)
+                 for clip in (0, 1) for fields in OPD_SLOT_SETS
+                 for rays in (0, 1)])
+
+    def err(a, b):
+        return float((a.double() - b.double()).abs().max())
+    for clip in (False, True):
+        state = tuple(c*1.5 if clip and i < 2 else c
+                      for i, c in enumerate(state0))
+        state64 = tuple(c.double() for c in state)
+        got = CG.opd_chain(tab, specs, state, aux, clip)
+        ref = CG.opd_chain_reference(tab, specs, state, aux, clip)
+        ref64 = CG.opd_chain_reference(tab, specs, state64, aux.double(),
+                                       clip)
+        same = (torch.isfinite(got[0]) & torch.isfinite(ref[0])
+                & torch.isfinite(ref64[0]))
+        cts = tuple(torch.where(same, c, 0.) for c in cts0)
+        cts64 = tuple(c.double() for c in cts)
+        pr, sr, cr = CG.opd_adjoint_reference(tab, specs, state, aux, cts,
+                                              clip)
+        base, sr64, base_c = CG.opd_adjoint_reference(
+            tab, specs, state64, aux.double(), cts64, clip)
+        mass, _, mass_c = CG.opd_adjoint_reference(
+            tab, specs, state64, aux.double(), tuple(c.abs() for c in cts64),
+            clip)
+        if f64:
+            base, sr64, base_c = pr, sr, cr
+        sum_tol = 1e-9 if f64 else 1e-2
+        for fields, rays in ((f, r) for f in OPD_SLOT_SETS
+                             for r in (False, True)):
+            live = CS.live_mask(CS.opd_live_slots(specs, fields),
+                                CG.OPD_SLOTS).to(cuda_device)
+            before = CG.opd_adjoint.launches
+            pg, cst, cc = CG.opd_adjoint(tab, specs, state, aux, cts, clip,
+                                         fields=fields, rays=rays)
+            torch.cuda.synchronize()
+            tag = (clip, fields, rays)
+            assert CG.opd_adjoint.launches == before + 1
+            assert pg.shape == (len(specs), CG.OPD_SLOTS)
+            assert torch.isfinite(pg).all() and torch.isfinite(cc).all()
+            assert not bool(pg[~live].any()), tag
+            want = torch.where(live, base, 0.)
+            for col in range(CG.OPD_SLOTS):
+                limit = sum_tol*float(mass[:, col].abs().max())
+                if not f64:
+                    own = torch.where(live[:, col], pr[:, col].double(), 0.)
+                    limit = max(limit, 10*err(own, want[:, col]))
+                assert err(pg[:, col], want[:, col]) <= limit, (tag, col)
+            assert err(cc, base_c) <= sum_tol*float(mass_c.abs().max()), tag
+            if not rays:
+                assert cst is None
+                continue
+            assert not any(bool(c[~torch.isfinite(got[0])].any())
+                           for c in cst)
+            for kind in (slice(0, 3), slice(3, 6)):
+                assert all(bool(torch.isfinite(g).all()) for g in cst[kind])
+                tol = 1e-8 if f64 else max(
+                    1e-3, 10*_rel(sr[kind], sr64[kind]))
+                assert _rel(cst[kind], sr64[kind]) <= tol, (tag, kind)
 
 
 def _union_cotangent(mom):

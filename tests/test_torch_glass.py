@@ -509,7 +509,7 @@ def test_adjoint_multi_baked_out_and_pose():
 @pytest.mark.parametrize("case", ["posed_cooke", "bk7_clipped"])
 def test_adjoint_multi_by_hand_matches_plain(case):
     """The λ loop of the K7 model in torch (_merit_adjoint_multi_by_hand,
-    the line-for-line model of csrc/grad.cu) against the autograd plain
+    the line-for-line model of csrc/grad_spec.cuh) against the autograd plain
     version, per-wavelength dead rays included: rtol 1e-9, atol 1e-12
     (parameters: 1e-12 of their largest)."""
     if case == "posed_cooke":

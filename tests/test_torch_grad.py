@@ -282,7 +282,7 @@ def test_wrappers_take_plain_versions_on_cpu():
 
 @pytest.mark.parametrize("name", sorted(BRANCHES))
 def test_step_vjp_matches_autograd(name):
-    """_step_vjp_reference (the model of csrc/grad.cu surface_step_vjp)
+    """_step_vjp_reference (the model of csrc/step_vjp.cuh surface_step_vjp)
     against autograd of kernels.surface_step_spec, ray by ray: every
     row parameter is expanded to one copy a ray, so autograd returns
     per-ray parameter cotangents too."""

@@ -289,8 +289,8 @@ def _dead_bundle(s, n=96, seed=5):
 @pytest.mark.parametrize("pose", [False, True])
 @pytest.mark.parametrize("tilted", [False, True])
 def test_opd_adjoint_by_hand_matches_autograd(tilted, pose):
-    """_opd_adjoint_by_hand (the model of csrc/grad.cu
-    opd_adjoint_kernel) against opd_adjoint_reference (autograd through
+    """_opd_adjoint_by_hand (the model of csrc/grad_spec.cuh
+    opd_adjoint_spec) against opd_adjoint_reference (autograd through
     the plain chain and tail): seeded cotangents on k AND the landing,
     a quarter of the rays vignetted (clip); with `pose` every row keeps
     its rotated/off_axis branches (kernels.with_pose); rtol 1e-9 with a
