@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the checkout (K4, K5, K7
-and K9 once for each spec tuple, slot set and flag they run with, all
-keys in parallel, with their ptxas registers, stack and spills), holds
-each against its plain PyTorch version on the card (the specialized
-K5 for each slot set, with and without ray cotangents, K7 and K9 for
+Builds the hand-written CUDA kernels from the checkout (K2, K4-K7
+and K9 once for each spec tuple, wavelength count, slot set and flag
+they run with, all keys in parallel, with their ptxas registers, stack
+and spills), holds each against its plain PyTorch version on the card
+(the specialized K5 for each slot set, with and without ray
+cotangents, K7 and K9 for
 every field with ray cotangents and for their loops' keys; the repaired
 cancellation-free intercept of K1, K2 and K4 on a paraboloid and on the
 double Gauss with near-flat rows against the CPU float64 generic
@@ -389,23 +390,29 @@ def phase_grad_check(table, specs):
     return worst
 
 
-def spec_keys(specs, mspecs, extra=()):
-    """{tag: key} of the specializations this script runs: K4 and K5 on
-    `specs` in float32 and float64, clip off and on, K5 for the
+def spec_keys(specs, mspecs, nlam, extra=()):
+    """{tag: key} of the specializations this script runs: K2, K4 and K5
+    on `specs` in float32 and float64, clip off and on, K5 for the
     optimizer's slot set and for all fields, with and without the ray
-    cotangents; K7 on the stack's `mspecs` and K9 on `specs`, clip off
-    and on, for all fields with the ray cotangents (the checks), and
-    unclipped for their loops' keys without (the achromatization and
-    the design path); the keys the finite-difference checks of a glass
-    take (K7: mu; K9: mu and n_before, float64); K4 on each spec tuple
-    of `extra` (the intercept cases) unclipped."""
+    cotangents; K6 on the stack's `mspecs` and its `nlam` wavelengths,
+    clip off and on; K7 on `mspecs` and K9 on `specs`, clip off and on,
+    for all fields with the ray cotangents (the checks), and unclipped
+    for their loops' keys without (the achromatization and the design
+    path); the keys the finite-difference checks of a glass take (K7:
+    mu; K9: mu and n_before, float64); K2 on `mspecs` unclipped (K3's
+    twin); K2 and K4 on each spec tuple of `extra` (the intercept
+    cases) unclipped."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     keys = {}
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype)[6:]
         for clip in (False, True):
+            keys["K2 %s clip=%s" % (dt, clip)] = CS.merit_key(specs, dtype,
+                                                              clip)
             keys["K4 %s clip=%s" % (dt, clip)] = CS.moments_key(specs, dtype,
                                                                 clip)
+            keys["K6 %s clip=%s nlam=%d" % (dt, clip, nlam)] = \
+                CS.moments_multi_key(mspecs, dtype, clip, nlam)
             for fields in (OPT_FIELDS, CS.FIELDS):
                 for rays in (False, True):
                     keys["K5 %s clip=%s %s rays=%s" % (
@@ -420,7 +427,9 @@ def spec_keys(specs, mspecs, extra=()):
             CS.adjoint_multi_key(mspecs, dtype, False, ACHROM_FIELDS, False)
         keys["K9 %s clip=False design rays=False" % dt] = \
             CS.opd_adjoint_key(specs, dtype, False, DESIGN_FIELDS, False)
+        keys["K2 %s clip=False stack" % dt] = CS.merit_key(mspecs, dtype)
         for name, sp in extra:
+            keys["K2 %s %s" % (dt, name)] = CS.merit_key(sp, dtype)
             keys["K4 %s %s" % (dt, name)] = CS.moments_key(sp, dtype)
     keys["K7 float64 clip=False glass rays=False"] = CS.adjoint_multi_key(
         mspecs, torch.float64, False, ("mu",), False)
@@ -430,8 +439,10 @@ def spec_keys(specs, mspecs, extra=()):
 
 
 # the keys whose ptxas report must show no stack frame and no spill: the
-# loops' (phase_spec_build)
-LOOP_KEYS = ("K5 float32 clip=False optimizer rays=False",
+# loops' and the forward path's (phase_spec_build)
+LOOP_KEYS = ("K2 float64 clip=False",
+             "K6 float64 clip=False nlam=3",
+             "K5 float32 clip=False optimizer rays=False",
              "K5 float64 clip=False optimizer rays=False",
              "K5 float32 clip=True optimizer rays=False",
              "K5 float64 clip=True optimizer rays=False",
@@ -454,14 +465,14 @@ def ptxas_stats(kern):
 
 
 def phase_spec_build(keys):
-    """Build every K4/K5/K7/K9 specialization at once (one nvcc a key, in
-    parallel); log each key's build seconds and ptxas lines.  The
-    loops' keys (LOOP_KEYS: K5 for the optimizer's slot set, K7 for the
-    achromatization path's and K9 for the design path's, float64) must
-    have no stack frame and no spill.  Returns {tag: (registers, stack
-    bytes, spill bytes)}."""
+    """Build every K2, K4-K7, K9 specialization at once (one nvcc a key,
+    in parallel); log each key's build seconds and ptxas lines.  The
+    loops' keys (LOOP_KEYS: K2 of the forward path, float64; K5 for the
+    optimizer's slot set; K6 and K7 for the achromatization path's and
+    K9 for the design path's, float64) must have no stack frame and no
+    spill.  Returns {tag: (registers, stack bytes, spill bytes)}."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
-    log("== K4/K5/K7/K9 specialized per spec tuple: %d keys" % len(keys))
+    log("== K2, K4-K7, K9 specialized per spec tuple: %d keys" % len(keys))
     t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
     log("built in %.2f s wall" % (time.perf_counter() - t0))
@@ -2063,8 +2074,9 @@ def phase_multi_throughput(tabs, specs, card):
     nlam launches of their monochromatic twins (K2, K4, K5) on the same
     bundle, with K7 for every field and the ray cotangents (the work of
     the earlier run-time-flag K7) beside K7 for the achromatization
-    path's key; K7 both ways in float64 at one achromatization bundle's
-    N_OPT_BUNDLE rays; then the three alone at N_BENCH rays in float32.
+    path's key; K6 and K7 both ways in float64 at one achromatization
+    bundle's N_OPT_BUNDLE rays; then the three alone at N_BENCH rays in
+    float32.
     Returns the times and the live ray traces (summed over the
     wavelengths) of each timing bundle."""
     from rayopt_tpu_torch.ops.cuda_grad import (
@@ -2134,8 +2146,10 @@ def phase_multi_throughput(tabs, specs, card):
     ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
     live[N_OPT_BUNDLE] = sum(float(m[0]) for m in trace_multi(
         tabs, specs, state, merit=True))
-    for name, fn in (("merit_adjoint_multi", lambda: merit_adjoint_multi(
-            tabs, specs, state, w, ct)),
+    for name, fn in (("weighted_moments_multi",
+                      lambda: weighted_moments_multi(tabs, specs, state, w)),
+                     ("merit_adjoint_multi", lambda: merit_adjoint_multi(
+                         tabs, specs, state, w, ct)),
                      ("merit_adjoint_multi_loop",
                       achromatization_k7(state, w, ct))):
         k = cuda_ms(fn, 20)
@@ -2561,8 +2575,9 @@ def main():
     specs = specialize(table)   # from the float64 table
     tabs = s.tables()           # 3 wavelengths
     mspecs = multi_specs(tabs, None)
-    ptxas = phase_spec_build(spec_keys(specs, mspecs, [
-        (name, specialize(tab)) for name, _, tab, _ in intercept_cases()]))
+    ptxas = phase_spec_build(spec_keys(
+        specs, mspecs, tabs.curvature.shape[0],
+        [(name, specialize(tab)) for name, _, tab, _ in intercept_cases()]))
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
     worst.update(phase_grad_check(table, specs))
@@ -2619,18 +2634,22 @@ def main():
                                    "rayopt_tpu_torch/csrc/grad_spec.cuh")
     sources = {
         "trace_final": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:82"),
-        "trace_merit": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:170"),
+        "trace_merit": (spec_cuh, "rayopt_tpu/ops/pallas_trace.py:170"),
         "weighted_moments": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:236"),
         "merit_adjoint": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:395"),
         "trace_multi": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:284"),
-        "weighted_moments_multi": (grad_cu,
+        "weighted_moments_multi": (spec_cuh,
                                    "rayopt_tpu/ops/pallas_grad.py:248"),
         "merit_adjoint_multi": (spec_cuh,
                                 "rayopt_tpu/ops/pallas_grad.py:421"),
         "opd_chain": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:1077"),
         "opd_adjoint": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:1094")}
-    # the loop key of each specialized adjoint: its tag in `ptxas`
-    loop_keys = {"merit_adjoint": "K5 %s clip=False optimizer rays=False",
+    # the loop key of each specialized kernel: its tag in `ptxas`
+    loop_keys = {"trace_merit": "K2 %s clip=False",
+                 "weighted_moments": "K4 %s clip=False",
+                 "weighted_moments_multi": "K6 %s clip=False nlam=%d" % (
+                     "%s", tabs.curvature.shape[0]),
+                 "merit_adjoint": "K5 %s clip=False optimizer rays=False",
                  "merit_adjoint_multi":
                      "K7 %s clip=False achromatization rays=False",
                  "opd_adjoint": "K9 %s clip=False design rays=False"}
@@ -2663,8 +2682,8 @@ def main():
             "bound_ms_f64": kernel_bound(kname, rays, torch.float64, kspecs,
                                          lam, live)[0],
             "rays": rays, "wavelengths": lam}
-        if kname == "weighted_moments" or kname in loop_keys:
-            tag = loop_keys.get(kname, "K4 %s clip=False")
+        if kname in loop_keys:
+            tag = loop_keys[kname]
             for dt in ("float32", "float64"):
                 regs, stack, spill = ptxas[tag % dt]
                 sfx = "" if dt == "float64" else "_f32"
@@ -2691,6 +2710,10 @@ def main():
                 "bound_ms_loop_key_f64" + big: kernel_bound(
                     loop, N_OPT_BUNDLE, torch.float64, kspecs, lam,
                     live_big)[0]})
+        if kname == "weighted_moments_multi":
+            entry["ms_f64" + big] = tt[(kname, N_OPT_BUNDLE)]
+            entry["bound_ms_f64" + big] = kernel_bound(
+                kname, N_OPT_BUNDLE, torch.float64, kspecs, lam)[0]
         if kname in ("weighted_moments", "merit_adjoint"):
             entry["ms_f64" + big] = tt[(kname, N_OPT_BUNDLE)]
             entry["bound_ms_f64" + big] = kernel_bound(

@@ -1,26 +1,33 @@
-// The weighted-moment forward (K4), its analytic adjoint (K5), the
-// polychromatic adjoint (K7) and the OPD adjoint (K9) for NVIDIA Hopper
-// (sm_90a), specialized at compile time on one key: the dtype, the
-// SurfaceSpec tuple (one word of trace_common.cuh flags a row), the
-// aperture clip and the block size; the adjoints also on the parameter
+// The moment kernels -- the spot-moment merit (K2), the weighted-moment
+// forward (K4) and its polychromatic twin (K6) -- and the adjoints -- K4's
+// analytic adjoint (K5), the polychromatic adjoint (K7) and the OPD
+// adjoint (K9) -- for NVIDIA Hopper (sm_90a), specialized at compile time
+// on one key: the dtype, the SurfaceSpec tuple (one word of
+// trace_common.cuh flags a row), the aperture clip and the block size;
+// K6 also on its wavelength count; the adjoints also on the parameter
 // slots they reduce and on whether they write the ray (and weight)
 // cotangents.  The wavelength count of K7 stays a run-time argument.
 //
 // Replaces the JAX package's Pallas TPU kernels
+//   K2  rayopt_tpu/ops/pallas_trace.py  _merit_kernel         (pallas_trace_merit)
 //   K4  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel            (_moments_impl)
 //   K5  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel        (_moments_bwd)
+//   K6  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel_multi      (_moments_multi_impl)
 //   K7  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel_multi  (_moments_multi_bwd)
 //   K9  rayopt_tpu/ops/pallas_grad.py  _opd_adjoint_kernel    (_opd_bwd)
-// which the JAX package specializes on the same things (specs, clip and
-// diff_fields).  rayopt_tpu_torch.ops.cuda_spec writes a translation
-// unit a key that instantiates the templates below with the row words
-// as a template parameter pack (Chain<...>) and exports launchers named
-// by the key's hash; nvcc builds it at first use.  The plain versions
-// and the torch models of K5, K7 and K9 live in
-// rayopt_tpu_torch/ops/cuda_grad.py.
+// which the JAX package specializes on the same things (specs, clip,
+// diff_fields, and K6's wavelengths, unrolled at trace time).
+// rayopt_tpu_torch.ops.cuda_spec writes a translation unit a key that
+// instantiates the templates below with the row words as a template
+// parameter pack (Chain<...>) and exports launchers named by the key's
+// hash; nvcc builds it at first use.  The plain versions live beside the
+// wrappers in rayopt_tpu_torch/ops/cuda_trace.py (K2) and
+// rayopt_tpu_torch/ops/cuda_grad.py, with the torch models of K5, K7 and
+// K9.
 //
-// What bounds them on the H100.  K4 reads 7 words a ray and writes
-// nothing; K5 reads 7 and writes 7 a ray when asked for the ray
+// What bounds them on the H100.  K2 reads 6 words a ray and K4 7, and
+// neither writes anything a ray; K6 is K4 once a wavelength on one read
+// of the ray; K5 reads 7 and writes 7 a ray when asked for the ray
 // cotangents, else nothing; K7 is K5 once a wavelength; K9 reads 9 and
 // writes 6 with the ray cotangents, else 3 and nothing.  All are bound
 // by instruction issue: the chain costs ~540 operations a ray on the
@@ -29,10 +36,16 @@
 //
 // What the design does about it.
 //  * The row loop unrolls over the parameter pack: surface_step and
-//    surface_step_vjp (the one body K1-K3, K6 and K8 run with flags
-//    read at run time) get each row's flags as a std::integral_constant,
-//    so every flag branch folds and each row's code is straight-line.
-//    The slots a row does not reduce are dead code and compile away.
+//    surface_step_vjp (the one body K1, K3 and K8 run with flags read at
+//    run time) get each row's flags as a std::integral_constant, so
+//    every flag branch folds and each row's code is straight-line.  The
+//    slots a row does not reduce are dead code and compile away.
+//  * The moment kernels (K2, K4, K6) read each ray once into registers
+//    and run it through every table of the key's stack in turn (K6's
+//    wavelengths unrolled, each table staged in static shared memory);
+//    the five moments of each table accumulate in registers at
+//    compile-time indices.  K2 is the unweighted case: no weight stream,
+//    a count for the weight.
 //  * The adjoints keep the state entering each row in dynamic shared
 //    memory, [row][component][thread] (consecutive lanes on consecutive
 //    words, no bank conflicts), sized by the table's rows: no per-thread
@@ -40,14 +53,13 @@
 //    the saved states are read through volatile pointers: unrolled, the
 //    rows' words would otherwise be hoisted out of the grid-stride loop
 //    and the states forwarded in registers, past the register file.
-//  * Each thread accumulates its live slots in registers over its
-//    grid-stride rays (compile-time indices); the block reduces them
-//    across the warp and the block once, and the last block to finish
-//    (__threadfence, then an integer atomicAdd on a counter it resets)
-//    sums the blocks' partials in block order and writes the result,
-//    zeros where a slot is not live.  Deterministic for a given grid;
-//    one launch a call, no float atomics.  K4 does the same for its five
-//    moments.
+//  * Each thread accumulates its live slots (or moments) in registers
+//    over its grid-stride rays (compile-time indices); the block reduces
+//    them across the warp and the block once, and the last block to
+//    finish (__threadfence, then an integer atomicAdd on a counter it
+//    resets) sums the blocks' partials in block order and writes the
+//    result, zeros where a slot is not live.  Deterministic for a given
+//    grid; one launch a call, no float atomics.
 //  * K7 runs the wavelengths outermost: each block walks its rays for
 //    one wavelength's table (staged alone), reduces that wavelength's
 //    slots, then the next.  Its accumulators are one wavelength's live
@@ -59,19 +71,19 @@
 //    with PATH) and runs the reference-sphere tail (step_vjp.cuh) on the
 //    image row with that row's flags compile-time; its three centre
 //    cotangents are reduced beside the live slots.
-//  * A dead ray (K4/K5/K7: non-finite final x, y or uz, judged per
-//    wavelength in K7; K9: non-finite k) skips its reverse sweep; without
-//    ray cotangents nothing is written a ray.
+//  * A dead ray (K2/K4/K5/K6/K7: non-finite final x, y or uz, judged per
+//    wavelength in K6 and K7; K9: non-finite k) adds no moment and skips
+//    its reverse sweep; without ray cotangents nothing is written a ray.
 //  * IEEE division and square root, no fast math.
 //  * Tensor cores, TMA and wgmma do not apply: each ray's chain is
 //    scalar arithmetic whose only products are 3x3 rotations, and a
-//    ray is read once a pass, coalesced, as 7 words.
+//    ray is read once a pass, coalesced, as 6 or 7 words.
 //
-// Interface: plain extern "C" launchers (RAYOPT_SPEC_MOMENTS,
-// RAYOPT_SPEC_ADJOINT, RAYOPT_SPEC_ADJOINT_MULTI,
-// RAYOPT_SPEC_OPD_ADJOINT), loaded with ctypes; each launches on the
-// given stream, synchronises nothing, allocates nothing, and returns
-// cudaGetLastError() (0 = launched).
+// Interface: plain extern "C" launchers (RAYOPT_SPEC_MERIT,
+// RAYOPT_SPEC_MOMENTS, RAYOPT_SPEC_MOMENTS_MULTI, RAYOPT_SPEC_ADJOINT,
+// RAYOPT_SPEC_ADJOINT_MULTI, RAYOPT_SPEC_OPD_ADJOINT), loaded with
+// ctypes; each launches on the given stream, synchronises nothing,
+// allocates nothing, and returns cudaGetLastError() (0 = launched).
 
 #pragma once
 
@@ -326,13 +338,20 @@ __device__ __forceinline__ void moments_adjoint_ray(
   }
 }
 
-// K4: trace, then the five weighted moments over live rays.
+// K2, K4 and K6: each ray read once, traced through each of the NLAM
+// tables of a stack (table: NLAM * rows * ROW words, one for K2 and K4)
+// in turn, then the five moments of each table over the rays live there
+// (final x, y and uz finite): with WEIGHTED (K4, K6) sum w, sum wx,
+// sum wy, sum wx^2, sum wy^2; without (K2, no weight stream) the count,
+// sum x, sum y, sum x^2, sum y^2.  out: (NLAM, 5).  All NLAM tables sit
+// in static shared memory.
 // MINB: the blocks an SM __launch_bounds__ asks ptxas to fit.  Give it
 // (1 at least): with the block size alone ptxas capped the float32 K5
 // at 80 registers and spilled; with a minimum of one block it takes 86
 // and spills nothing.
-template <typename T, class C, bool CLIP, int BLOCK, int MINB>
-__global__ void __launch_bounds__(BLOCK, MINB) weighted_moments_spec(
+template <typename T, class C, bool CLIP, bool WEIGHTED, int NLAM, int BLOCK,
+          int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB) moments_spec(
     const T* __restrict__ table, const T* __restrict__ ix,
     const T* __restrict__ iy, const T* __restrict__ iz,
     const T* __restrict__ iux, const T* __restrict__ iuy,
@@ -340,35 +359,45 @@ __global__ void __launch_bounds__(BLOCK, MINB) weighted_moments_spec(
     T* __restrict__ partials, unsigned int* __restrict__ counter,
     T* __restrict__ out, int64_t n) {
   constexpr int S = C::rows;
-  __shared__ T s_tab[S * ROW];
-  __shared__ T s_red[BLOCK / 32 * 5];
-  __shared__ T s_part[5];
-  for (int i = threadIdx.x; i < S * ROW; i += BLOCK) s_tab[i] = table[i];
+  constexpr int NV = 5 * NLAM;
+  __shared__ T s_tab[NLAM * S * ROW];
+  __shared__ T s_red[BLOCK / 32 * NV];
+  __shared__ T s_part[NV];
+  for (int i = threadIdx.x; i < NLAM * S * ROW; i += BLOCK)
+    s_tab[i] = table[i];
   __syncthreads();
-  const volatile T* tab = s_tab;
-  const volatile T* rl = tab + (S - 1) * ROW + P_ROT;
-  T m[5] = {T(0), T(0), T(0), T(0), T(0)};
+  T m[NV];
+#pragma unroll
+  for (int q = 0; q < NV; ++q) m[q] = T(0);
   const int64_t stride = int64_t(gridDim.x) * BLOCK;
   for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
        i += stride) {
-    T s[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
-    chain_forward<T, C, CLIP>(tab, s, [](int) {});
-    if (flags_at<C>(S - 1) & F_ROTATED) {
-      rot_apply(rl, s[0], s[1], s[2]);
-      rot_apply(rl, s[3], s[4], s[5]);
-    }
-    if (isfinite(s[0]) && isfinite(s[1]) && isfinite(s[5])) {
-      const T wi = w[i];
-      m[0] += wi;
-      m[1] += wi * s[0];
-      m[2] += wi * s[1];
-      m[3] += wi * s[0] * s[0];
-      m[4] += wi * s[1] * s[1];
-    }
+    const T r[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
+    // K2 counts its rays: a unit weight, whose products fold away
+    T wi = T(1);
+    if (WEIGHTED) wi = w[i];
+    static_for(std::make_integer_sequence<int, NLAM>{}, [&](auto lc) {
+      constexpr int l = decltype(lc)::value;
+      const volatile T* tab = s_tab + l * S * ROW;
+      T s[6] = {r[0], r[1], r[2], r[3], r[4], r[5]};
+      chain_forward<T, C, CLIP>(tab, s, [](int) {});
+      if (flags_at<C>(S - 1) & F_ROTATED) {
+        const volatile T* rl = tab + (S - 1) * ROW + P_ROT;
+        rot_apply(rl, s[0], s[1], s[2]);
+        rot_apply(rl, s[3], s[4], s[5]);
+      }
+      if (isfinite(s[0]) && isfinite(s[1]) && isfinite(s[5])) {
+        m[5 * l] += wi;
+        m[5 * l + 1] += wi * s[0];
+        m[5 * l + 2] += wi * s[1];
+        m[5 * l + 3] += wi * s[0] * s[0];
+        m[5 * l + 4] += wi * s[1] * s[1];
+      }
+    });
   }
   block_sum<T, BLOCK>(m, s_red, s_part);
-  if (grid_sum<T, BLOCK>(s_part, 5, partials, counter) && threadIdx.x < 5)
-    out[threadIdx.x] = s_part[threadIdx.x];
+  if (grid_sum<T, BLOCK>(s_part, NV, partials, counter))
+    for (int q = threadIdx.x; q < NV; q += BLOCK) out[q] = s_part[q];
 }
 
 // K5: the analytic adjoint of K4's moments dotted with ct (5 values).
@@ -605,13 +634,17 @@ __host__ inline int blocks_per_sm(K kernel, int block, size_t smem,
 }
 
 }  // namespace
-// K4 launchers of one key: NAME(table (rows, ROW), 6 rays, w, partials
-// (grid, 5), counter (1 zeroed uint32, reset by the kernel), out (5,),
-// n, grid, stream); NAME_blocks_per_sm(&blocks); NAME_error_string(err).
-#define RAYOPT_SPEC_MOMENTS(NAME, T, CHAIN, CLIP, BLOCK, MINB)                \
+// The launchers of one moment key (K2, K4, K6): NAME(table (NLAM, rows,
+// ROW), 6 rays, w (ignored, may be null, without WEIGHTED), partials
+// (grid, NLAM * 5), counter (1 zeroed uint32, reset by the kernel), out
+// (NLAM, 5), n, grid, stream); NAME_blocks_per_sm(&blocks);
+// NAME_error_string(err).
+#define RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, WEIGHTED, NLAM, BLOCK,   \
+                               MINB)                                          \
   extern "C" int NAME##_blocks_per_sm(int* out) {                             \
-    return blocks_per_sm(weighted_moments_spec<T, CHAIN, CLIP, BLOCK, MINB>,  \
-                         BLOCK, 0, out);                                      \
+    return blocks_per_sm(                                                     \
+        moments_spec<T, CHAIN, CLIP, WEIGHTED, NLAM, BLOCK, MINB>, BLOCK, 0,  \
+        out);                                                                 \
   }                                                                           \
   extern "C" const char* NAME##_error_string(int err) {                       \
     return cudaGetErrorString(cudaError_t(err));                              \
@@ -621,7 +654,7 @@ __host__ inline int blocks_per_sm(K kernel, int block, size_t smem,
                       const void* uz, const void* w, void* partials,          \
                       void* counter, void* out, long long n, int grid,        \
                       void* stream) {                                         \
-    weighted_moments_spec<T, CHAIN, CLIP, BLOCK, MINB>                        \
+    moments_spec<T, CHAIN, CLIP, WEIGHTED, NLAM, BLOCK, MINB>                 \
         <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(              \
             static_cast<const T*>(table), static_cast<const T*>(x),           \
             static_cast<const T*>(y), static_cast<const T*>(z),               \
@@ -631,6 +664,18 @@ __host__ inline int blocks_per_sm(K kernel, int block, size_t smem,
             static_cast<T*>(out), int64_t(n));                                \
     return int(cudaGetLastError());                                           \
   }
+
+// K2: the five count moments of one table (no weight stream)
+#define RAYOPT_SPEC_MERIT(NAME, T, CHAIN, CLIP, BLOCK, MINB)                  \
+  RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, false, 1, BLOCK, MINB)
+
+// K4: the five weighted moments of one table
+#define RAYOPT_SPEC_MOMENTS(NAME, T, CHAIN, CLIP, BLOCK, MINB)                \
+  RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, true, 1, BLOCK, MINB)
+
+// K6: the five weighted moments of each of NLAM tables
+#define RAYOPT_SPEC_MOMENTS_MULTI(NAME, T, CHAIN, CLIP, NLAM, BLOCK, MINB)    \
+  RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, true, NLAM, BLOCK, MINB)
 
 // K5 launchers of one key: NAME(table, 6 rays, w, ct (5,), partials
 // (grid, live slots), counter, out (rows, SLOTS), 6 ray + 1 weight

@@ -1,10 +1,10 @@
-// Fused sequential ray trace (K1), fused spot-moment merit (K2) and
-// their polychromatic twin (K3) for NVIDIA Hopper (sm_90a), templated on
-// float and double.
+// Fused sequential ray trace (K1) and its polychromatic twin (K3) for
+// NVIDIA Hopper (sm_90a), templated on float and double, with the row
+// flags read at run time.  The fused spot-moment merit (K2) is compiled
+// per spec tuple (grad_spec.cuh).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel           (pallas_trace_final)
-//   K2  rayopt_tpu/ops/pallas_trace.py  _merit_kernel + _moment_row (pallas_trace_merit)
 //   K3  rayopt_tpu/ops/pallas_trace.py  _multi_kernel           (pallas_trace_multi)
 // and computes, ray for ray, what rayopt_tpu_torch.ops.kernels
 // .surface_step_spec computes (the plain versions live beside the
@@ -28,13 +28,9 @@
 //    SurfaceSpec flags a row are staged once per block into shared
 //    memory; every thread reads the same address (a broadcast), and
 //    the flags are uniform across the warp, so branching on them costs
-//    no divergence.  K4/K5 (grad_spec.cuh) compile the same step with
-//    the flags as compile-time constants, one library a spec tuple;
-//    K1-K3 keep one build for every table.
-//  * K2 never writes per-ray output: each thread accumulates its rays'
-//    five moments, a shared-memory tree reduces the block, and the
-//    block's partial sums go to a (grid, 5) tensor that the caller sums
-//    (no float atomics: the result is deterministic for a given grid).
+//    no divergence.  K2 and K4-K7, K9 (grad_spec.cuh) compile the same
+//    step with the flags as compile-time constants, one library a spec
+//    tuple; K1 and K3 keep one build for every table.
 //  * IEEE division and square root, no fast math: vignetted rays are
 //    NaN and must stay NaN through every later surface, which the
 //    guarded square root (trace_common.cuh; NaN in, NaN out) relies on.
@@ -47,7 +43,7 @@
 //    per-wavelength count moments in its own shared-memory column and
 //    tree-sums them per block into (grid, nlam, 5) partials.  The rays
 //    are read once for all wavelengths, but the trace, which is what
-//    bounds K1/K2 on this card, runs nlam times: expect ~nlam x K2.
+//    bounds K1 on this card, runs nlam times: expect ~nlam x K2.
 //
 // Interface: plain extern "C" launchers, loaded with ctypes; each
 // launches on the given stream, synchronises nothing, allocates
@@ -85,42 +81,6 @@ __global__ void trace_final_kernel(const T* __restrict__ table,
     oux[i] = ux; ouy[i] = uy; ouz[i] = uz;
     ot[i] = tacc;
   }
-}
-
-template <typename T>
-__global__ void trace_merit_kernel(const T* __restrict__ table,
-                                   const int* __restrict__ flags, int nsurf,
-                                   int clip, const T* __restrict__ ix,
-                                   const T* __restrict__ iy,
-                                   const T* __restrict__ iz,
-                                   const T* __restrict__ iux,
-                                   const T* __restrict__ iuy,
-                                   const T* __restrict__ iuz,
-                                   T* __restrict__ partials, int64_t n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_tab = reinterpret_cast<T*>(smem);
-  T* s_red = s_tab + nsurf * ROW;                  // 5 * blockDim.x
-  int* s_flags = reinterpret_cast<int*>(s_red + 5 * blockDim.x);
-  stage_table(table, flags, nsurf, s_tab, s_flags);
-  T m[5] = {T(0), T(0), T(0), T(0), T(0)};
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    T x = ix[i], y = iy[i], z = iz[i];
-    T ux = iux[i], uy = iuy[i], uz = iuz[i];
-    T tacc;
-    trace_ray(s_tab, s_flags, nsurf, clip != 0, x, y, z, ux, uy, uz, tacc);
-    if (isfinite(x) && isfinite(y) && isfinite(uz)) {
-      m[0] += T(1);
-      m[1] += x;
-      m[2] += y;
-      m[3] += x * x;
-      m[4] += y * y;
-    }
-  }
-  // block tree reduction (blockDim.x is a power of two)
-  for (int q = 0; q < 5; ++q) s_red[q * blockDim.x + threadIdx.x] = m[q];
-  block_sum_rows(s_red, 5, partials + int64_t(blockIdx.x) * 5);
 }
 
 // K3: one ray, read once, through each of nlam tables (no clip).
@@ -180,10 +140,6 @@ size_t final_smem(int nsurf, size_t word) {
   return nsurf * ROW * word + nsurf * sizeof(int);
 }
 
-size_t merit_smem(int nsurf, int block, size_t word) {
-  return (nsurf * ROW + 5 * size_t(block)) * word + nsurf * sizeof(int);
-}
-
 size_t multi_smem(int nsurf, int nlam, int block, bool merit, size_t word) {
   return (size_t(nlam) * nsurf * ROW + (merit ? 5 * size_t(nlam) * block : 0)) *
              word + nsurf * sizeof(int);
@@ -233,29 +189,8 @@ int launch_trace_multi(const void* table, const void* flags, int nsurf,
     return int(cudaGetLastError());                                          \
   }
 
-#define TRACE_MERIT_LAUNCHER(NAME, T)                                         \
-  extern "C" int NAME(const void* table, const void* flags, int nsurf,       \
-                      int clip, const void* x, const void* y, const void* z, \
-                      const void* ux, const void* uy, const void* uz,        \
-                      void* partials, long long n, int grid, int block,      \
-                      void* stream) {                                        \
-    if (block <= 0 || (block & (block - 1))) return int(cudaErrorInvalidValue); \
-    trace_merit_kernel<T>                                                    \
-        <<<grid, block, merit_smem(nsurf, block, sizeof(T)),                 \
-           static_cast<cudaStream_t>(stream)>>>(                             \
-            static_cast<const T*>(table), static_cast<const int*>(flags),    \
-            nsurf, clip, static_cast<const T*>(x),                           \
-            static_cast<const T*>(y), static_cast<const T*>(z),              \
-            static_cast<const T*>(ux), static_cast<const T*>(uy),            \
-            static_cast<const T*>(uz), static_cast<T*>(partials),            \
-            int64_t(n));                                                     \
-    return int(cudaGetLastError());                                          \
-  }
-
 TRACE_FINAL_LAUNCHER(trace_final_f32, float)
 TRACE_FINAL_LAUNCHER(trace_final_f64, double)
-TRACE_MERIT_LAUNCHER(trace_merit_f32, float)
-TRACE_MERIT_LAUNCHER(trace_merit_f64, double)
 
 // K3 launchers: table (nlam, nsurf, ROW), flags (nsurf,), 6 rays, out
 // ((nlam, 7, n) in trace mode, (grid, nlam, 5) in merit mode).

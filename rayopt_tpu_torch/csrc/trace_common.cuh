@@ -1,6 +1,6 @@
-// Device code shared by the trace kernels (trace.cu: K1, K2, K3), the
-// merit-gradient kernels (grad.cu: K6, K8) and the kernels specialized
-// per spec tuple (grad_spec.cuh: K4, K5, K7, K9): the packed table layout, the
+// Device code shared by the trace kernels (trace.cu: K1, K3), the OPD
+// kernel (grad.cu: K8) and the kernels specialized per spec tuple
+// (grad_spec.cuh: K2, K4-K7, K9): the packed table layout, the
 // flag bits, the guarded math, one surface step, the whole chain for
 // one ray, and the staging of the table into shared memory.  Each
 // translation unit that includes it gets its own internal copies.
@@ -81,8 +81,8 @@ __device__ __forceinline__ constexpr int flag_value(
 // One transfer-intercept-refract step: kernels.surface_step_spec for
 // flat, spherical and conic rows.  State in and out in the global
 // (from_normal) frame; adds the optical path n_before * t to tacc.
-// The row's flags arrive as an int read at run time (K1-K3, K6, K8) or
-// as std::integral_constant<int, F> (the specialized K4/K5/K7/K9,
+// The row's flags arrive as an int read at run time (K1, K3, K8) or
+// as std::integral_constant<int, F> (the specialized K2, K4-K7, K9,
 // grad_spec.cuh): there every `fl & F_*` below is a constant and the
 // branches it does not take fold away.  One body serves both.  p, the
 // row's packed words in shared memory, is a plain pointer or (the

@@ -6,8 +6,8 @@ a build takes seconds.  One nvcc per source runs in parallel, then one
 links the objects.  It runs at first use, from the package's own
 sources, into build/torch_kernels/ beside the package, and is cached
 by a hash of the sources and flags.  `build_shared` builds the
-translation units that ops.cuda_spec writes for each spec key (K4,
-K5, K7, K9) the same way, one nvcc a unit, in parallel, cached by a hash of
+translation units that ops.cuda_spec writes for each spec key (K2,
+K4-K7, K9) the same way, one nvcc a unit, in parallel, cached by a hash of
 the headers, the flags and the unit's text.  Fast math stays off: the kernels
 rely on IEEE division, square root and NaN propagation.  The df32
 kernels (df32.cu) need every float32 operation rounded as written; they
@@ -62,10 +62,6 @@ class KernelLibrary:
             fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*13 + [i64, i32,
                                                              i32, ptr]
             fn.restype = i32
-            fn = getattr(self._lib, "trace_merit_" + dt)
-            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [i64, i32,
-                                                            i32, ptr]
-            fn.restype = i32
             # table, flags, nsurf, nlam, 6 rays, out, n, grid, block,
             # stream
             for name in ("trace_multi_", "trace_multi_merit_"):
@@ -73,12 +69,6 @@ class KernelLibrary:
                 fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [
                     i64, i32, i32, ptr]
                 fn.restype = i32
-            # table, flags, nsurf, nlam, clip, 6 rays, w, partials, n,
-            # grid, block, stream
-            fn = getattr(self._lib, "weighted_moments_multi_" + dt)
-            fn.argtypes = [ptr, ptr, i32, i32, i32] + [ptr]*8 + [
-                i64, i32, i32, ptr]
-            fn.restype = i32
             # table, flags, nsurf, clip, 6 rays, aux, k, lx, ly, n, grid,
             # block, stream
             fn = getattr(self._lib, "opd_chain_" + dt)

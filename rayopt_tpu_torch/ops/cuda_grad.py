@@ -21,8 +21,8 @@ K6 `weighted_moments_multi` and K7 `merit_adjoint_multi` are their
 polychromatic twins (`pallas_grad._fwd_kernel_multi`,
 `_adjoint_kernel_multi`): a stacked table (leading wavelength axis,
 System.tables or glass.glass_tables) and ONE bundle run through every
-wavelength's chain (K6 reads it once; K7 once a wavelength, its
-wavelengths outermost).  K6 returns (nlam, 5) moments; K7 takes (nlam,
+wavelength's chain (K6 reads it once, its wavelengths unrolled; K7
+once a wavelength, its wavelengths outermost).  K6 returns (nlam, 5) moments; K7 takes (nlam,
 5) moment cotangents, judges each ray dead or live per wavelength,
 sums the ray and weight cotangents over the wavelengths and returns
 the parameter cotangents per wavelength (nlam, S, SLOTS), so autograd
@@ -57,15 +57,15 @@ bind them in `_OpdRays` (the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
 kernel, in autograd.
 
-The kernels are hand-written CUDA C++.  K4, K5, K7 and K9 are
-compiled for each (dtype, spec tuple, clip) key, the adjoints also for
-their live parameter slots and for whether they write the ray (and
-weight) cotangents (csrc/grad_spec.cuh, built and cached by
-ops.cuda_spec); through `_SpotMoments` and `_OpdRays` an adjoint
-reduces only the slots autograd asks for and, when no ray or weight
-needs a gradient (the loops' frozen bundles), writes nothing a ray.
-K6 and K8 read the row flags at run time (csrc/grad.cu, built with the
-K1/K2 library by ops.cuda_build).  A wrapper takes the plain PyTorch
+The kernels are hand-written CUDA C++.  K4-K7 and K9 are compiled for
+each (dtype, spec tuple, clip) key, K6 also for its wavelength count,
+the adjoints also for their live parameter slots and for whether they
+write the ray (and weight) cotangents (csrc/grad_spec.cuh, built and
+cached by ops.cuda_spec); through `_SpotMoments` and `_OpdRays` an
+adjoint reduces only the slots autograd asks for and, when no ray or
+weight needs a gradient (the loops' frozen bundles), writes nothing a
+ray.  K8 reads the row flags at run time (csrc/grad.cu, built with the
+K1/K3 library by ops.cuda_build).  A wrapper takes the plain PyTorch
 version (`weighted_moments_reference`, `merit_adjoint_reference`,
 `weighted_moments_multi_reference`, `merit_adjoint_multi_reference`,
 `opd_chain_reference`, `opd_adjoint_reference`) only for a bundle on
@@ -86,14 +86,14 @@ import torch
 
 from . import cuda_spec as CS
 from . import kernels as K
+from .cuda_spec import launch_moments, packed, spec_launch
 from .cuda_trace import (BLOCK, _check_state, _launch_setup, _raise_on,
-                         pack_values, spot_rms_from_moments,
-                         trace_final_reference)
+                         spot_rms_from_moments, trace_final_reference)
 from .tables import lower_pose, table_at
 
 SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
 OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
-AUX = 5         # K8/K9's aux vector: centre x, y, z, radius, lam_scale
+AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
 #: differentiable table fields the autograd Function carries
 _DIFF = ("curvature", "conic", "offset", "mu", "n_before")
@@ -651,29 +651,14 @@ def _check_vector(v, state, name, shape=None):
                          % (name, shape, tuple(v.shape)))
 
 
-def _spec_launch(state):
-    """The device, the rays and the stream of a specialized kernel's
-    launch (K4, K5, K7, K9) on a CUDA bundle."""
-    x = state[0]
-    if x.device.type != "cuda":
-        raise ValueError("expected a CUDA or CPU bundle, got %s" % x.device)
-    return x.device, x.shape[0], torch.cuda.current_stream(
-        x.device).cuda_stream
-
-
-def _packed(table, specs, x):
-    """The table (or a stack of tables) packed in the rays' dtype on
-    their device, with one spec a row."""
-    packed = pack_values(table, x.dtype, x.device)
-    if packed.shape[-2] != len(specs):
-        raise ValueError("%d specs for a table of %d rows"
-                         % (len(specs), packed.shape[-2]))
-    return packed
-
-
 @functools.lru_cache(maxsize=None)
 def _moments_kernel(specs, dtype, clip):
     return CS.load(CS.moments_key(specs, dtype, clip))
+
+
+@functools.lru_cache(maxsize=None)
+def _moments_multi_kernel(specs, dtype, clip, nlam):
+    return CS.load(CS.moments_multi_key(specs, dtype, clip, nlam))
 
 
 @functools.lru_cache(maxsize=None)
@@ -702,21 +687,13 @@ def weighted_moments(table, specs, state, w, clip=False):
     x = state[0]
     if x.device.type == "cpu":
         return weighted_moments_reference(table, specs, state, w, clip)
-    device, n, stream = _spec_launch(state)
+    spec_launch(state)
     specs = tuple(specs)
-    kern = _moments_kernel(specs, x.dtype, bool(clip))
-    packed = _packed(table, specs, x)
-    if not n:
-        return torch.zeros(5, dtype=x.dtype, device=device)
-    grid = kern.grid(n, device)
-    out = torch.empty(5, dtype=x.dtype, device=device)
-    partials = torch.empty((grid, 5), dtype=x.dtype, device=device)
-    kern.check(kern.fn(packed.data_ptr(), *(c.data_ptr() for c in state),
-                       w.data_ptr(), partials.data_ptr(),
-                       CS.counter(device).data_ptr(), out.data_ptr(), n,
-                       grid, stream))
-    weighted_moments.launches += 1
-    return out
+    out = launch_moments(_moments_kernel(specs, x.dtype, bool(clip)), table,
+                         specs, state, w)
+    if x.shape[0]:
+        weighted_moments.launches += 1
+    return out[0]
 
 
 weighted_moments.launches = 0
@@ -745,9 +722,9 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                                              clip)
         pg = torch.where(CS.live_mask(CS.live_slots(specs, fields)), pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
-    device, n, stream = _spec_launch(state)
+    device, n, stream = spec_launch(state)
     kern = _adjoint_kernel(specs, x.dtype, bool(clip), fields, bool(rays))
-    packed = _packed(table, specs, x)
+    tab = packed(table, specs, x)
     if not n:
         pg = torch.zeros((len(specs), SLOTS), dtype=x.dtype, device=device)
         return (pg, tuple(torch.zeros_like(x) for _ in range(6)),
@@ -757,7 +734,7 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
     partials = torch.empty((grid, max(kern.key.nlive, 1)), dtype=x.dtype,
                            device=device)
     outs = [torch.empty_like(x) for _ in range(7)] if rays else None
-    kern.check(kern.fn(packed.data_ptr(), *(c.data_ptr() for c in state),
+    kern.check(kern.fn(tab.data_ptr(), *(c.data_ptr() for c in state),
                        w.data_ptr(), ct.data_ptr(), partials.data_ptr(),
                        CS.counter(device).data_ptr(), pg.data_ptr(),
                        *((o.data_ptr() for o in outs) if rays
@@ -774,27 +751,25 @@ merit_adjoint.launches = 0
 def weighted_moments_multi(tables, specs, state, w, clip=False):
     """K6: the (nlam, 5) weighted moments of each table of a stack
     (leading wavelength axis) over its live rays, one bundle read once,
-    in the rays' dtype.  CUDA bundles launch the kernel ((grid, nlam, 5)
-    block partial sums, then one torch sum); CPU bundles take
+    in the rays' dtype; `specs` those of the first wavelength
+    (cuda_trace.multi_specs).  CUDA bundles launch the kernel compiled
+    for (dtype, specs, clip, nlam) (ops.cuda_spec: one launch, the
+    wavelengths unrolled, the grid-wide sum fused); CPU bundles take
     weighted_moments_multi_reference."""
     _check_state(state)
     _check_vector(w, state, "w")
-    if state[0].device.type == "cpu":
+    x = state[0]
+    if x.device.type == "cpu":
         return weighted_moments_multi_reference(tables, specs, state, w,
                                                 clip)
-    nlam = tables.curvature.shape[0]
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
-        tables, specs, state, smem_extra_words=5*nlam*BLOCK)
-    partials = torch.zeros((grid, nlam, 5), dtype=state[0].dtype,
-                           device=state[0].device)
-    if n:
-        err = getattr(lib, "weighted_moments_multi_" + suffix)(
-            packed.data_ptr(), flags.data_ptr(), nsurf, nlam,
-            int(bool(clip)), *(c.data_ptr() for c in state), w.data_ptr(),
-            partials.data_ptr(), n, grid, BLOCK, stream)
-        _raise_on(lib, err, "weighted_moments_multi")
+    spec_launch(state)
+    specs = tuple(specs)
+    kern = _moments_multi_kernel(specs, x.dtype, bool(clip),
+                                 tables.curvature.shape[0])
+    out = launch_moments(kern, tables, specs, state, w)
+    if x.shape[0]:
         weighted_moments_multi.launches += 1
-    return partials.sum(0)
+    return out
 
 
 weighted_moments_multi.launches = 0
@@ -824,10 +799,10 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                                                    ct, clip)
         pg = torch.where(CS.live_mask(CS.live_slots(specs, fields)), pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
-    device, n, stream = _spec_launch(state)
+    device, n, stream = spec_launch(state)
     kern = _adjoint_multi_kernel(specs, x.dtype, bool(clip), fields,
                                  bool(rays))
-    packed = _packed(tables, specs, x)
+    tab = packed(tables, specs, x)
     if not n:
         pg = torch.zeros((nlam, len(specs), SLOTS), dtype=x.dtype,
                          device=device)
@@ -838,7 +813,7 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
     partials = torch.empty((grid, max(nlam*kern.key.nlive, 1)),
                            dtype=x.dtype, device=device)
     outs = [torch.empty_like(x) for _ in range(7)] if rays else None
-    kern.check(kern.fn(packed.data_ptr(), *(c.data_ptr() for c in state),
+    kern.check(kern.fn(tab.data_ptr(), *(c.data_ptr() for c in state),
                        w.data_ptr(), ct.data_ptr(), partials.data_ptr(),
                        CS.counter(device).data_ptr(), pg.data_ptr(),
                        *((o.data_ptr() for o in outs) if rays
@@ -861,12 +836,12 @@ def opd_chain(table, specs, state, aux, clip=False):
     _check_opd(table, specs, state, aux)
     if state[0].device.type == "cpu":
         return opd_chain_reference(table, specs, state, aux, clip)
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
+    lib, suffix, tab, flags, nsurf, n, grid, stream = _launch_setup(
         table, specs, state, smem_extra_words=AUX)
     outs = [torch.empty_like(state[0]) for _ in range(3)]
     if n:
         err = getattr(lib, "opd_chain_" + suffix)(
-            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
+            tab.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
             *(c.data_ptr() for c in state), aux.data_ptr(),
             *(o.data_ptr() for o in outs), n, grid, BLOCK, stream)
         _raise_on(lib, err, "opd_chain")
@@ -901,10 +876,10 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
         pg = torch.where(CS.live_mask(CS.opd_live_slots(specs, fields),
                                       OPD_SLOTS), pg, 0.)
         return (pg, st, gc) if rays else (pg, None, gc)
-    device, n, stream = _spec_launch(state)
+    device, n, stream = spec_launch(state)
     kern = _opd_adjoint_kernel(specs, x.dtype, bool(clip), fields,
                                bool(rays))
-    packed = _packed(table, specs, x)
+    tab = packed(table, specs, x)
     nsurf = len(specs)
     if not n:
         out = torch.zeros(nsurf*OPD_SLOTS + 3, dtype=x.dtype, device=device)
@@ -915,7 +890,7 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
         partials = torch.empty((grid, kern.key.nlive + 3), dtype=x.dtype,
                                device=device)
         st = tuple(torch.empty_like(x) for _ in range(6)) if rays else None
-        kern.check(kern.fn(packed.data_ptr(),
+        kern.check(kern.fn(tab.data_ptr(),
                            *(c.data_ptr() for c in state), aux.data_ptr(),
                            *(c.data_ptr() for c in cts), partials.data_ptr(),
                            CS.counter(device).data_ptr(), out.data_ptr(),

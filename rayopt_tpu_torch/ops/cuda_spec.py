@@ -1,13 +1,15 @@
-"""K4, K5, K7 and K9 specialized per spec tuple at compile time.
+"""K2 and K4-K7, K9 specialized per spec tuple at compile time.
 
-The weighted-moment forward K4, its analytic adjoint K5, the
-polychromatic adjoint K7 and the OPD adjoint K9 (csrc/grad_spec.cuh)
-are compiled once for each key: the kernel, the dtype, one word a
-table row (its SurfaceSpec flags, cuda_trace._flags, and for the
-adjoints above LIVE_SHIFT the parameter slots it reduces), the aperture
-clip, whether an adjoint writes the ray (and weight) cotangents, the
-block size and the launch bound's blocks an SM.  K7's wavelength count
-is a run-time argument.  A key's translation unit is a few lines that
+The moment kernels -- the spot-moment merit K2, the weighted-moment
+forward K4 and its polychromatic twin K6 -- and the adjoints -- K4's
+analytic adjoint K5, the polychromatic adjoint K7 and the OPD adjoint
+K9 -- (csrc/grad_spec.cuh) are compiled once for each key: the kernel,
+the dtype, one word a table row (its SurfaceSpec flags,
+cuda_trace._flags, and for the adjoints above LIVE_SHIFT the parameter
+slots it reduces), the aperture clip, whether an adjoint writes the ray
+(and weight) cotangents, the block size, the launch bound's blocks an
+SM and K6's wavelength count (its wavelengths unroll; K7's count is a
+run-time argument).  A key's translation unit is a few lines that
 instantiate the header's templates with the row words as a template
 parameter pack, so the row loop unrolls and every flag branch folds,
 and that export launchers named by the key's hash.  nvcc builds it at
@@ -15,7 +17,7 @@ first use into its own shared library under build/torch_kernels/ (one
 nvcc run a new key, seconds; `prebuild` starts several at once), cached
 by a hash of the headers, the flags and the unit's text.  This is how
 the JAX package's Pallas kernels are specialized too: on specs, clip
-and diff_fields.
+and diff_fields, and K6's wavelengths.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns; K9 adds n_before) are the fields asked for,
@@ -37,7 +39,8 @@ from typing import NamedTuple
 import torch
 
 from . import kernels as K
-from .cuda_trace import ROW, SMEM_OPTIN, _flags, sm_count
+from .cuda_trace import ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, pack_values, \
+    sm_count
 
 LIVE_SHIFT = 8     # a row word's live slots: keep in sync with grad_spec.cuh
 SLOTS = 6          # K5's and K7's cotangent columns a row
@@ -51,11 +54,22 @@ FIELDS = ("curvature", "conic", "offset", "mu")
 #: the fields K9 differentiates
 OPD_FIELDS = FIELDS + ("n_before",)
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh")
-BLOCK_MOMENTS = 256
+AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
+BLOCK_MOMENTS = 256   # K2, K4 and K6 (PERF.md §6)
 BLOCK_ADJOINT = 128   # measured fastest for K5 in float64 (PERF.md §6)
 MIN_BLOCKS = 1        # __launch_bounds__'s blocks an SM (PERF.md §6)
-#: each adjoint's macro in grad_spec.cuh
-_MACROS = {"k5": "RAYOPT_SPEC_ADJOINT", "k7": "RAYOPT_SPEC_ADJOINT_MULTI",
+#: K6's most wavelengths: its moments stay in registers, 5 a wavelength,
+#: and its chain unrolls once a wavelength.  Measured on the double
+#: Gauss (PERF.md §6): at 11 both dtypes beat 11 K4 launches; at 12 the
+#: float32 build takes 138 registers, one 256-thread block an SM, and
+#: ran 1.44x slower than 12 K4 launches; at 16 the float64 build spilled
+MAX_NLAM = 11
+#: the moment kernels (5 moments a table, no live slots)
+MOMENTS = ("k2", "k4", "k6")
+#: each kernel's macro in grad_spec.cuh
+_MACROS = {"k2": "RAYOPT_SPEC_MERIT", "k4": "RAYOPT_SPEC_MOMENTS",
+           "k6": "RAYOPT_SPEC_MOMENTS_MULTI", "k5": "RAYOPT_SPEC_ADJOINT",
+           "k7": "RAYOPT_SPEC_ADJOINT_MULTI",
            "k9": "RAYOPT_SPEC_OPD_ADJOINT"}
 
 
@@ -122,11 +136,13 @@ def live_mask(masks, nslots=SLOTS):
 
 
 class Key(NamedTuple):
-    """One specialization: kernel "k4", "k5", "k7" or "k9", dtype "f32"
-    or "f64", one word a row (flags | live slots << LIVE_SHIFT), clip,
-    rays (an adjoint writes the ray and weight cotangents), threads a
-    block, and the blocks an SM that __launch_bounds__ asks ptxas to
-    fit."""
+    """One specialization: kernel "k2", "k4", "k5", "k6", "k7" or "k9",
+    dtype "f32" or "f64", one word a row (flags | live slots <<
+    LIVE_SHIFT), clip, rays (an adjoint writes the ray and weight
+    cotangents), threads a block, the blocks an SM that
+    __launch_bounds__ asks ptxas to fit, and the tables of the stack a
+    launch traces (K6's wavelengths; 1 for every other kernel, K7
+    included: it stages one table at a time)."""
 
     kernel: str
     dtype: str
@@ -135,13 +151,14 @@ class Key(NamedTuple):
     rays: bool
     block: int
     min_blocks: int = MIN_BLOCKS
+    nlam: int = 1
 
     @property
     def name(self):
         """The launcher's symbol: the kernel and the key's hash."""
         text = repr((self.kernel, self.dtype, tuple(self.words),
                      bool(self.clip), bool(self.rays), int(self.block),
-                     int(self.min_blocks)))
+                     int(self.min_blocks), int(self.nlam)))
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
@@ -168,10 +185,14 @@ class Key(NamedTuple):
     @property
     def shared_bytes(self):
         """The shared memory a block takes: the saved states, the staged
-        table (K9: and its aux vector), and the block reduction of the
-        live slots (K9: and the 3 centre cotangents)."""
-        values = self.nlive + (3 if self.kernel == "k9" else 0)
-        words = (self.rows*ROW + (5 if self.kernel == "k9" else 0)
+        tables (K9: and its aux vector), and the block reduction of the
+        five moments a table (K2, K4, K6) or of the live slots (K9: and
+        the 3 centre cotangents)."""
+        if self.kernel in MOMENTS:
+            values = 5*self.nlam
+        else:
+            values = self.nlive + (3 if self.kernel == "k9" else 0)
+        words = (self.nlam*self.rows*ROW + (AUX if self.kernel == "k9" else 0)
                  + (self.block//32 + 1)*max(values, 1))
         return self.dynamic_smem + words*self.word_bytes
 
@@ -193,11 +214,43 @@ def _words(specs, masks=None):
     return tuple(f | m << LIVE_SHIFT for f, m in zip(flags, masks))
 
 
+def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks):
+    """A moment kernel's key, refused when its staged tables and block
+    reduction outgrow static shared memory, or (K6) past MAX_NLAM
+    wavelengths."""
+    key = Key(kernel, _dtype_name(dtype), _words(specs), bool(clip), False,
+              int(block or BLOCK_MOMENTS), int(min_blocks), int(nlam))
+    if not 1 <= key.nlam <= MAX_NLAM:
+        raise ValueError(
+            "%s unrolls its wavelengths and keeps 5 moments a wavelength in "
+            "registers: %d wavelengths, outside 1..%d (past %d the registers "
+            "stop paying: float32 at 12 fits one block an SM and ran slower "
+            "than 12 K4 launches, float64 at 16 spilled)"
+            % (kernel.upper(), key.nlam, MAX_NLAM, MAX_NLAM))
+    if key.shared_bytes > SMEM_LIMIT:
+        raise ValueError(
+            "%s stages %d table(s) of %d rows in %s in static shared memory: "
+            "%d bytes, above %d" % (kernel.upper(), key.nlam, key.rows,
+                                    key.dtype, key.shared_bytes, SMEM_LIMIT))
+    return key
+
+
+def merit_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
+    """The K2 key of a spec tuple."""
+    return _moments("k2", specs, dtype, clip, 1, block, min_blocks)
+
+
 def moments_key(specs, dtype, clip=False, block=None,
                 min_blocks=MIN_BLOCKS):
     """The K4 key of a spec tuple."""
-    return Key("k4", _dtype_name(dtype), _words(specs), bool(clip), False,
-               int(block or BLOCK_MOMENTS), int(min_blocks))
+    return _moments("k4", specs, dtype, clip, 1, block, min_blocks)
+
+
+def moments_multi_key(specs, dtype, clip, nlam, block=None,
+                      min_blocks=MIN_BLOCKS):
+    """The K6 key of the spec tuple a stack of `nlam` tables shares (the
+    first wavelength's, cuda_trace.multi_specs)."""
+    return _moments("k6", specs, dtype, clip, nlam, block, min_blocks)
 
 
 def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks):
@@ -249,12 +302,13 @@ def translation_unit(key):
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"
             % (key.name, tuple(key), words))
     clip = "true" if key.clip else "false"
-    if key.kernel == "k4":
-        return head + "RAYOPT_SPEC_MOMENTS(%s, %s, Rows, %s, %d, %d)\n" % (
-            key.name, ctype, clip, key.block, key.min_blocks)
-    return head + "%s(%s, %s, Rows, %s, %s, %d, %d)\n" % (
-        _MACROS[key.kernel], key.name, ctype, clip,
-        "true" if key.rays else "false", key.block, key.min_blocks)
+    if key.kernel in MOMENTS:
+        nlam = "%d, " % key.nlam if key.kernel == "k6" else ""
+    else:
+        nlam = "true, " if key.rays else "false, "   # the adjoints' rays
+    return head + "%s(%s, %s, Rows, %s, %s%d, %d)\n" % (
+        _MACROS[key.kernel], key.name, ctype, clip, nlam, key.block,
+        key.min_blocks)
 
 
 class SpecKernel:
@@ -270,12 +324,13 @@ class SpecKernel:
         self._lib = ctypes.CDLL(str(path))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.fn = getattr(self._lib, key.name)
-        # K4: table, 6 rays, w, partials, counter, out, n, grid, stream;
-        # K5: table, 6 rays, w, ct, partials, counter, out, 7 ray
-        # cotangents, n, grid, stream; K7: K5's with nlam before grid;
-        # K9: table, 6 rays, aux, 3 cotangents, partials, counter, out,
-        # 6 ray cotangents, n, grid, stream
-        words = {"k4": 11, "k5": 19, "k7": 19, "k9": 20}[key.kernel]
+        # K2, K4, K6: table, 6 rays, w (K2: null), partials, counter,
+        # out, n, grid, stream; K5: table, 6 rays, w, ct, partials,
+        # counter, out, 7 ray cotangents, n, grid, stream; K7: K5's with
+        # nlam before grid; K9: table, 6 rays, aux, 3 cotangents,
+        # partials, counter, out, 6 ray cotangents, n, grid, stream
+        words = {"k2": 11, "k4": 11, "k6": 11, "k5": 19, "k7": 19,
+                 "k9": 20}[key.kernel]
         ints = [i64, i32, i32] if key.kernel == "k7" else [i64, i32]
         self.fn.argtypes = [ptr]*words + ints + [ptr]
         self.fn.restype = i32
@@ -333,6 +388,51 @@ def load(key):
     """The loaded kernel of one key (built at first use)."""
     kern = _LOADED.get(key)
     return kern if kern is not None else prebuild([key])[key]
+
+
+def spec_launch(state):
+    """The device, the rays and the stream of a specialized kernel's
+    launch on a CUDA bundle."""
+    x = state[0]
+    if x.device.type != "cuda":
+        raise ValueError("expected a CUDA or CPU bundle, got %s" % x.device)
+    return x.device, x.shape[0], torch.cuda.current_stream(
+        x.device).cuda_stream
+
+
+def packed(table, specs, x):
+    """The table (or a stack of tables) packed in the rays' dtype on
+    their device, with one spec a row."""
+    tab = pack_values(table, x.dtype, x.device)
+    if tab.shape[-2] != len(specs):
+        raise ValueError("%d specs for a table of %d rows"
+                         % (len(specs), tab.shape[-2]))
+    return tab
+
+
+def launch_moments(kern, table, specs, state, w=None):
+    """Launch a moment kernel (K2, K4, K6) once on a CUDA bundle, the
+    grid-wide sum fused: the (nlam, 5) moments of each table of the
+    key's stack in the rays' dtype, zeros (and no launch) for no rays.
+    w: the (N,) weights, None for K2."""
+    x = state[0]
+    device, n, stream = spec_launch(state)
+    tab = packed(table, specs, x)
+    shape = (kern.key.nlam, 5)
+    if tab[..., 0, 0].numel() != kern.key.nlam:
+        raise ValueError("%d table(s) for a key of %d"
+                         % (tab[..., 0, 0].numel(), kern.key.nlam))
+    if not n:
+        return torch.zeros(shape, dtype=x.dtype, device=device)
+    grid = kern.grid(n, device)
+    out = torch.empty(shape, dtype=x.dtype, device=device)
+    partials = torch.empty((grid, 5*kern.key.nlam), dtype=x.dtype,
+                           device=device)
+    kern.check(kern.fn(tab.data_ptr(), *(c.data_ptr() for c in state),
+                       None if w is None else w.data_ptr(),
+                       partials.data_ptr(), counter(device).data_ptr(),
+                       out.data_ptr(), n, grid, stream))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

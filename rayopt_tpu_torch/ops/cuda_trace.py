@@ -8,7 +8,10 @@ the JAX package's Pallas kernel `pallas_trace._trace_kernel`.
 K2 `trace_merit` runs the same trace with no per-ray writeback and
 reduces it to the five spot moments (count, sum x, sum y, sum x^2,
 sum y^2) over the rays whose x, y and uz are finite.  It replaces
-`pallas_trace._merit_kernel` + `_moment_row`; forward only.
+`pallas_trace._merit_kernel` + `_moment_row`; forward only.  Like the
+JAX package's merit kernel it is compiled for each (dtype, spec tuple,
+clip) key (csrc/grad_spec.cuh, built and cached by ops.cuda_spec), one
+launch a call with the grid-wide sum fused.
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
 leading wavelength axis, System.tables) and ONE bundle, read once and
@@ -17,8 +20,9 @@ returns each wavelength's final state and path, or (merit=True) each
 wavelength's five count moments.  It replaces
 `pallas_trace._multi_kernel`.
 
-The kernels are hand-written CUDA C++ (csrc/trace.cu), built with
-nvcc for sm_90a at first use (ops.cuda_build) and launched on
+The kernels are hand-written CUDA C++ (K1, K3: csrc/trace.cu, with
+the row flags read at run time), built with nvcc for sm_90a at first
+use (ops.cuda_build, ops.cuda_spec) and launched on
 PyTorch's current stream through ctypes.  A wrapper takes the plain
 PyTorch version (`trace_final_reference`, `trace_merit_reference`,
 `trace_multi_reference`, all built from kernels.surface_step_spec)
@@ -44,10 +48,10 @@ P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
 F_FLAT, F_SPHERICAL, F_ROTATED, F_OFF_AXIS = 1, 2, 4, 8
 F_ALTERNATE, F_FINITE, KIND_SHIFT = 16, 32, 6
 
-BLOCK = 256          # threads a block (a power of two: K2's tree sum)
+BLOCK = 256          # threads a block (a power of two: K3's tree sum)
 BLOCKS_PER_SM = 8    # grid-stride grid: this many blocks on each SM
-SMEM_LIMIT = 48*1024  # dynamic shared memory without an opt-in
-SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (K3, K6, the spec keys)
+SMEM_LIMIT = 48*1024  # static shared memory, or dynamic without an opt-in
+SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (K3, the adjoints)
 
 
 def _moments(x, y, uz):
@@ -228,28 +232,30 @@ def trace_final(table, specs, state, clip=False):
 trace_final.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _merit_kernel(specs, dtype, clip):
+    from . import cuda_spec as CS     # cuda_spec imports this module
+    return CS.load(CS.merit_key(specs, dtype, clip))
+
+
 def trace_merit(table, specs, state, clip=False):
     """K2: the five spot moments (count, sum x, sum y, sum x^2,
     sum y^2) of the K1 trace as 0-d tensors in the rays' dtype; feed
-    spot_rms_from_moments.  CUDA bundles launch the kernel (block
-    partial sums, then one torch sum over blocks); CPU bundles take
-    trace_merit_reference."""
-    if state[0].device.type == "cpu":
-        _check_state(state)
+    spot_rms_from_moments.  CUDA bundles launch the kernel compiled for
+    (dtype, specs, clip) (ops.cuda_spec: one launch, the grid-wide sum
+    fused); CPU bundles take trace_merit_reference."""
+    _check_state(state)
+    x = state[0]
+    if x.device.type == "cpu":
         return trace_merit_reference(table, specs, state, clip)
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
-        table, specs, state, smem_extra_words=5*BLOCK)
-    partials = torch.zeros((grid, 5), dtype=state[0].dtype,
-                           device=state[0].device)
-    if n:
-        err = getattr(lib, "trace_merit_" + suffix)(
-            packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
-            *(c.data_ptr() for c in state), partials.data_ptr(), n, grid,
-            BLOCK, stream)
-        _raise_on(lib, err, "trace_merit")
+    from .cuda_spec import launch_moments, spec_launch
+    spec_launch(state)
+    specs = tuple(specs)
+    out = launch_moments(_merit_kernel(specs, x.dtype, bool(clip)), table,
+                         specs, state)
+    if x.shape[0]:
         trace_merit.launches += 1
-    tot = partials.sum(0)
-    return tuple(tot[i] for i in range(5))
+    return tuple(out[0].unbind())
 
 
 trace_merit.launches = 0

@@ -7,15 +7,16 @@ Times, with CUDA events (the mean of many launches after a warm-up),
 on the double Gauss and the bench bundle (x, y uniform in +-11.6 mm,
 u = (0, 0, 1)):
 
-* K1 trace_final, K4 weighted_moments, K5 merit_adjoint, K7
-  merit_adjoint_multi (the 3-wavelength stack) and K9 opd_adjoint (ray
-  0 the chief ray, the wavefront-RMS cotangents), the adjoints for all
-  fields with the ray cotangents written (the work every tree's
-  adjoints do), in float32 and float64 at 2^22 rays, float64 at one
-  loop bundle's 1,046,071 rays and float32 at 2^26 rays; each adjoint
-  also for its loop's slot set without ray cotangents (K5 the
-  optimizer's, K7 the achromatization path's, K9 the design path's),
-  where the tree's wrapper takes `fields` and `rays`;
+* K1 trace_final, K2 trace_merit, K4 weighted_moments, K5
+  merit_adjoint, K6 weighted_moments_multi and K7 merit_adjoint_multi
+  (the 3-wavelength stack) and K9 opd_adjoint (ray 0 the chief ray,
+  the wavefront-RMS cotangents), the adjoints for all fields with the
+  ray cotangents written (the work every tree's adjoints do), in
+  float32 and float64 at 2^22 rays, float64 at one loop bundle's
+  1,046,071 rays and float32 at 2^26 rays, and K1 and K2 in float64 at
+  2^26 rays; each adjoint also for its loop's slot set without ray
+  cotangents (K5 the optimizer's, K7 the achromatization path's, K9 the
+  design path's), where the tree's wrapper takes `fields` and `rays`;
 * the optimizer step (optimize_grad(engine="adjoint"), 9 hexapolar
   bundles of nrays 2^20 at 3 fields x 3 wavelengths, float64, Adam lr
   1e-7 on curvature and distance), the design step (those 9 spot
@@ -29,7 +30,11 @@ It calls the wrappers with the positional arguments every tree of the
 port takes, so it also measures an older tree: copy this file into
 that tree's rayopt_tpu_torch/utils/ and run it from that tree's root.
 --variants (this tree only) times the loops' keys of K5, K7 and K9 in
-float64 and float32 at other block sizes and launch bounds.  Prints
+float64 and float32 at other block sizes and launch bounds, and K2
+(the double Gauss) and K6 (the 3-wavelength stack, the achromatization
+path's key) at 128, 256 and 512 threads a block, and K6 on stacks of
+NLAMS wavelengths (400-700 nm) against as many launches of K4, with
+each K6 build's registers and spills.  Prints
 one JSON object; needs a CUDA card.
 """
 
@@ -46,13 +51,17 @@ import torch
 
 N_OPT_BUNDLE = 1046071
 SIZES = ((torch.float32, 1 << 22), (torch.float64, 1 << 22),
-         (torch.float64, N_OPT_BUNDLE), (torch.float32, 1 << 26))
+         (torch.float64, N_OPT_BUNDLE), (torch.float32, 1 << 26),
+         (torch.float64, 1 << 26))
+#: the kernels timed at a size, where not all of them are
+ONLY = {(torch.float64, 1 << 26): ("K1", "K2")}
 NRAYS = 1 << 20      # hexapolar nrays a bundle of the steps
 OPT_SELECT = ("curvature", "distance")
 OPT_FIELDS = ("curvature", "offset")
 ACHROM_FIELDS = ("curvature", "offset", "mu")
 FIELDS = (0., .7, 1.)
 GLASS_LR = {"curvature": 5e-8, "distance": 5e-8, "glass": 3e-5}
+NLAMS = (1, 2, 3, 4, 5, 7, 8, 10, 11, 12, 16)   # K6 in --variants
 
 
 def cuda_ms(fn, reps):
@@ -112,13 +121,24 @@ def kernel_times(s, table, specs):
     from rayopt_tpu_torch.ops.cuda_grad import (
         merit_adjoint, merit_adjoint_multi, opd_adjoint, weighted_moments,
         weighted_moments_multi)
-    from rayopt_tpu_torch.ops.cuda_trace import trace_final
+    from rayopt_tpu_torch.ops.cuda_trace import trace_final, trace_merit
     sliced = {fn: "fields" in inspect.signature(fn).parameters
               for fn in (merit_adjoint, merit_adjoint_multi, opd_adjoint)}
     tabs = s.tables()
     out = {}
     for dtype, n in SIZES:
         state, w = bench_bundle(n, dtype)
+        reps = 10 if n > 1 << 22 else 20
+        only = ONLY.get((dtype, n))
+        if only:
+            cases = {"K1": lambda: trace_final(table, specs, state),
+                     "K2": lambda: trace_merit(table, specs, state)}
+            for name in only:
+                out["%s %s %d" % (name, str(dtype)[6:], n)] = cuda_ms(
+                    cases[name], reps)
+            del state, w
+            torch.cuda.empty_cache()
+            continue
         # ray 0 the chief ray of the OPD (the bench bundle is collimated)
         for c, v in zip(state, (0., 0., 0., 0., 0., 1.)):
             c[0] = v
@@ -126,10 +146,11 @@ def kernel_times(s, table, specs):
         ctm = torch.stack([rms_cotangent(m) for m in weighted_moments_multi(
             tabs, specs, state, w)])
         aux, cts = opd_inputs(s, table, specs, state)
-        reps = 10 if n > 1 << 22 else 20
         cases = {
             "K1": lambda: trace_final(table, specs, state),
+            "K2": lambda: trace_merit(table, specs, state),
             "K4": lambda: weighted_moments(table, specs, state, w),
+            "K6": lambda: weighted_moments_multi(tabs, specs, state, w),
             "K5": lambda: merit_adjoint(table, specs, state, w, ct),
             "K7": lambda: merit_adjoint_multi(tabs, specs, state, w, ctm),
             "K9": lambda: opd_adjoint(table, specs, state, aux, cts)}
@@ -150,15 +171,33 @@ def kernel_times(s, table, specs):
     return out
 
 
+def _timed_variant(module, lookup, kern, call, n, device):
+    """ms of call() with module.lookup pointed at kern's build, and the
+    build's launch shape and ptxas lines."""
+    real = getattr(module, lookup)
+    setattr(module, lookup, lambda *a, _kern=kern: _kern)
+    try:
+        ms = cuda_ms(call, 20)
+    finally:
+        setattr(module, lookup, real)
+    return {"ms": ms, "grid": kern.grid(n, device),
+            "blocks_per_sm": kern.blocks_per_sm(device),
+            "ptxas": [ln for ln in kern.ptxas_lines()
+                      if "registers" in ln or "stack frame" in ln]}
+
+
 def variant_times(s, specs, table):
     """The loops' keys of K5 (the optimizer's slot set), K7 (the
     achromatization path's) and K9 (the design path's), no ray
-    cotangents, at each block size and launch bound, float64 at
-    N_OPT_BUNDLE rays and float32 at 2^22, through the wrappers (each
-    wrapper's kernel lookup is pointed at the variant's build)."""
+    cotangents, at each block size and launch bound, and K2 and K6 (3
+    wavelengths, unclipped) at each block size, float64 at N_OPT_BUNDLE
+    rays and float32 at 2^22, through the wrappers (each wrapper's
+    kernel lookup is pointed at the variant's build)."""
     from rayopt_tpu_torch.ops import cuda_grad as CG
     from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import cuda_trace as CT
     tabs = s.tables()
+    nlam = tabs.curvature.shape[0]
     shapes = ((64, 1), (64, 6), (128, 1), (128, 2), (128, 3), (256, 1))
     kinds = {"K5": ("_adjoint_kernel", CS.adjoint_key, OPT_FIELDS),
              "K7": ("_adjoint_multi_kernel", CS.adjoint_multi_key,
@@ -168,11 +207,23 @@ def variant_times(s, specs, table):
                                 min_blocks=m)
             for k, (_, make, fields) in kinds.items()
             for dt in (torch.float64, torch.float32) for b, m in shapes}
-    built = CS.prebuild(list(keys.values()))
+    # the moment kernels: (module, lookup, key) at each block size
+    moments = {(k, dt, b, 1): (mod, lookup, make(dt, b))
+               for k, mod, lookup, make in (
+                   ("K2", CT, "_merit_kernel", lambda dt, b: CS.merit_key(
+                       specs, dt, False, block=b)),
+                   ("K6", CG, "_moments_multi_kernel",
+                    lambda dt, b: CS.moments_multi_key(specs, dt, False,
+                                                       nlam, block=b)))
+               for dt in (torch.float64, torch.float32)
+               for b in (128, 256, 512)}
+    built = CS.prebuild(list(keys.values())
+                        + [v[2] for v in moments.values()])
     out = {}
     for dtype in (torch.float64, torch.float32):
         n = N_OPT_BUNDLE if dtype == torch.float64 else 1 << 22
         state, w = bench_bundle(n, dtype)
+        device = state[0].device
         for c, v in zip(state, (0., 0., 0., 0., 0., 1.)):
             c[0] = v
         ct = rms_cotangent(CG.weighted_moments(table, specs, state, w))
@@ -180,31 +231,60 @@ def variant_times(s, specs, table):
                            CG.weighted_moments_multi(tabs, specs, state, w)])
         aux, cts = opd_inputs(s, table, specs, state)
         calls = {
+            "K2": lambda: CT.trace_merit(table, specs, state),
             "K5": lambda: CG.merit_adjoint(table, specs, state, w, ct,
                                            fields=OPT_FIELDS, rays=False),
+            "K6": lambda: CG.weighted_moments_multi(tabs, specs, state, w),
             "K7": lambda: CG.merit_adjoint_multi(
                 tabs, specs, state, w, ctm, fields=ACHROM_FIELDS,
                 rays=False),
             "K9": lambda: CG.opd_adjoint(table, specs, state, aux, cts,
                                          fields=OPT_FIELDS, rays=False)}
         for (kind, dt, block, minb), key in keys.items():
-            if dt != dtype:
-                continue
-            kern = built[key]
-            lookup = kinds[kind][0]
-            real = getattr(CG, lookup)
-            setattr(CG, lookup, lambda *a, _kern=kern: _kern)
-            try:
-                ms = cuda_ms(calls[kind], 20)
-            finally:
-                setattr(CG, lookup, real)
-            out["%s loop key %s %d block %d min_blocks %d" % (
-                kind, str(dtype)[6:], n, block, minb)] = {
-                    "ms": ms, "grid": kern.grid(n, state[0].device),
-                    "blocks_per_sm": kern.blocks_per_sm(state[0].device),
-                    "ptxas": [ln for ln in kern.ptxas_lines()
-                              if "registers" in ln or "stack frame" in ln]}
+            if dt == dtype:
+                out["%s loop key %s %d block %d min_blocks %d" % (
+                    kind, str(dtype)[6:], n, block, minb)] = _timed_variant(
+                        CG, kinds[kind][0], built[key], calls[kind], n,
+                        device)
+        for (kind, dt, block, minb), (mod, lookup, key) in moments.items():
+            if dt == dtype:
+                out["%s %s %d block %d min_blocks %d" % (
+                    kind, str(dtype)[6:], n, block, minb)] = _timed_variant(
+                        mod, lookup, built[key], calls[kind], n, device)
         del state, w, cts
+        torch.cuda.empty_cache()
+    out.update(nlam_times(s, specs))
+    return out
+
+
+def nlam_times(s, specs):
+    """K6 (unclipped) on stacks of NLAMS wavelengths spread over 400-700
+    nm, against as many K4 launches on the same bundle, float64 at
+    N_OPT_BUNDLE rays and float32 at 2^22, with each K6 build's ptxas
+    lines.  The keys past cuda_spec.MAX_NLAM, which the key refuses, are
+    built here to measure that limit."""
+    from rayopt_tpu_torch.ops import cuda_grad as CG
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.tables import table_at
+    stacks = {nlam: s.tables(list(np.linspace(400e-9, 700e-9, nlam)))
+              for nlam in NLAMS}
+    keys = {(nlam, dt): CS.moments_multi_key(specs, dt, False, 1)._replace(
+        nlam=nlam) for nlam in NLAMS for dt in (torch.float64, torch.float32)}
+    built = CS.prebuild(list(keys.values()))
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        n = N_OPT_BUNDLE if dtype == torch.float64 else 1 << 22
+        state, w = bench_bundle(n, dtype)
+        for nlam, tabs in stacks.items():
+            one = [table_at(tabs, li) for li in range(nlam)]
+            kern = built[keys[(nlam, dtype)]]
+            out["K6 nlam %d %s %d" % (nlam, str(dtype)[6:], n)] = dict(
+                _timed_variant(CG, "_moments_multi_kernel", kern,
+                               lambda: CG.weighted_moments_multi(
+                                   tabs, specs, state, w), n, state[0].device),
+                k4_launches_ms=cuda_ms(lambda: [CG.weighted_moments(
+                    t, specs, state, w) for t in one], 20))
+        del state, w
         torch.cuda.empty_cache()
     return out
 

@@ -197,15 +197,21 @@ def test_adjoint_optimize_step_on_card(cuda_device):
 
 def _spec_case(name, device, dtype):
     """A system's table, specs (the Cooke's with with_pose for
-    "cooke_pose") and its aimed hexapolar bundle (nrays 2^14) at field
-    0.7 and the first wavelength, in `dtype` on `device`."""
+    "cooke_pose"; "near_flat": the double Gauss with its flat rows at
+    c = 1e-12) and its aimed hexapolar bundle (nrays 2^14) at field 0.7
+    and the first wavelength, in `dtype` on `device`."""
     from rayopt_tpu_torch.models import (cooke_triplet, doublet,
                                          parabolic_mirror)
     from rayopt_tpu_torch.ops.kernels import with_pose
     from rayopt_tpu_torch.parallel import bundles_from_system
     s = {"doublet": doublet, "cooke": cooke_triplet,
-         "cooke_pose": cooke_triplet, "parabolic": parabolic_mirror}[name]()
+         "cooke_pose": cooke_triplet, "parabolic": parabolic_mirror,
+         "double_gauss": double_gauss, "near_flat": double_gauss}[name]()
     tab = s.table()
+    if name == "near_flat":
+        cur = tab.curvature.clone()
+        cur[1:][cur[1:] == 0] = 1e-12
+        tab = tab.replace(curvature=cur)
     specs = specialize(tab)
     if name == "cooke_pose":
         specs = with_pose(specs)
@@ -309,6 +315,54 @@ def test_specialized_grad_kernels_match_plain_on_card(cuda_device, name,
                 assert got <= lim, (fields, "w", got, lim)
 
 
+def _moment_errors(got, want):
+    """|got - want| of each of five (weighted) moments, each of its
+    scale: the weight sum, then sum x, sum y floored at the weight sum
+    (1 mm a unit weight) and sum x^2, sum y^2 floored the same way, as
+    in chip_smoke.compare_wmoments (the spot RMS of float32 moments
+    cancels off axis, E[x^2] - c^2)."""
+    wsum, sxx, syy = (float(want[i]) for i in (0, 3, 4))
+    scale = (wsum, max((wsum*sxx)**.5, wsum), max((wsum*syy)**.5, wsum),
+             max(sxx, wsum), max(syy, wsum))
+    return [abs(float(g) - float(r))/max(sc, 1e-300)
+            for g, r, sc in zip(got, want, scale)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["doublet", "cooke", "double_gauss",
+                                  "parabolic", "near_flat"])
+def test_specialized_merit_matches_plain_on_card(cuda_device, name, dtype):
+    """K2 compiled per spec tuple (ops.cuda_spec) against its plain
+    version on aimed bundles, clip off and on: one launch a call, the
+    count exact in float64, each moment within 1e-12 of its scale in
+    float64 and 1e-4 in float32 (K4's tolerances above); no rays give
+    zeros and no launch."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    tab, specs, state, _ = _spec_case(name, cuda_device, dtype)
+    f64 = dtype == torch.float64
+    CS.prebuild([CS.merit_key(specs, dtype, clip) for clip in (0, 1)])
+    for clip in (False, True):
+        before = CT.trace_merit.launches
+        mom = CT.trace_merit(tab, specs, state, clip)
+        mref = CT.trace_merit_reference(tab, specs, state, clip)
+        torch.cuda.synchronize()
+        assert CT.trace_merit.launches == before + 1
+        assert all(m.dim() == 0 and m.dtype == dtype
+                   and m.device.type == "cuda" for m in mom)
+        if f64:
+            assert float(mom[0]) == float(mref[0]), clip
+        if float(mref[0]) == 0:
+            assert float(mom[0]) == 0
+            continue
+        errs = _moment_errors(mom, mref)
+        assert max(errs) <= (1e-12 if f64 else 1e-4), (clip, errs)
+        empty = tuple(c[:0] for c in state)
+        got = CT.trace_merit(tab, specs, empty, clip)
+        assert CT.trace_merit.launches == before + 1
+        assert all(float(m) == 0 for m in got)
+
+
 #: K7's slot sets: the achromatization loop's (curvature, distance and
 #: the glasses' mu) and every field
 MULTI_SLOT_SETS = (("curvature", "offset", "mu"), ("curvature", "conic",
@@ -323,8 +377,10 @@ SEVEN_WAVELENGTHS = (587.56e-9, 656.27e-9, 486.13e-9, 435.83e-9, 546.07e-9,
 @pytest.mark.parametrize("name", ["doublet", "cooke"])
 def test_specialized_multi_adjoint_matches_plain_on_card(cuda_device, name,
                                                          dtype):
-    """K7 compiled per spec tuple (ops.cuda_spec) against its plain
-    version on stacks of 1, 3 and 7 wavelengths, clip off and on, for
+    """K6 and K7 compiled per spec tuple (ops.cuda_spec) against their
+    plain versions on stacks of 1, 3 and 7 wavelengths, clip off and
+    on, K6 at K4's tolerances above (each moment of its scale, 1e-12 in
+    float64, 1e-4 in float32; no rays give zeros and no launch), K7 for
     the achromatization loop's slot set and for every field, with and
     without the ray cotangents: one launch a call, the slots that are
     not live exact zeros.  As K5 above: float64 within 1e-9 of each
@@ -341,15 +397,33 @@ def test_specialized_multi_adjoint_matches_plain_on_card(cuda_device, name,
     _, specs, state, w = _spec_case(name, cuda_device, dtype)
     f64 = dtype == torch.float64
     state64 = tuple(c.double() for c in state)
+    stacks = (s.wavelengths[:1], s.wavelengths[:3], SEVEN_WAVELENGTHS)
     CS.prebuild([CS.adjoint_multi_key(specs, dtype, clip, fields, rays)
                  for clip in (0, 1) for fields in MULTI_SLOT_SETS
-                 for rays in (0, 1)])
-    stacks = (s.wavelengths[:1], s.wavelengths[:3], SEVEN_WAVELENGTHS)
+                 for rays in (0, 1)]
+                + [CS.moments_multi_key(specs, dtype, clip, len(lams))
+                   for clip in (0, 1) for lams in stacks])
     for lams, clip in ((lams, clip) for lams in stacks for clip in (0, 1)):
         tabs = s.tables(lams)
         nlam = len(lams)
         mref = CG.weighted_moments_multi_reference(tabs, specs, state, w,
                                                    clip)
+        before = CG.weighted_moments_multi.launches
+        mom = CG.weighted_moments_multi(tabs, specs, state, w, clip)
+        torch.cuda.synchronize()
+        assert CG.weighted_moments_multi.launches == before + 1
+        assert mom.shape == (nlam, 5) and mom.dtype == dtype
+        for li in range(nlam):
+            if float(mref[li, 0]) == 0:
+                assert float(mom[li, 0]) == 0
+                continue
+            errs = _moment_errors(mom[li], mref[li])
+            assert max(errs) <= (1e-12 if f64 else 1e-4), (nlam, clip, li,
+                                                           errs)
+        empty = tuple(c[:0] for c in state)
+        got = CG.weighted_moments_multi(tabs, specs, empty, w[:0], clip)
+        assert CG.weighted_moments_multi.launches == before + 1
+        assert got.shape == (nlam, 5) and not bool(got.any())
         ct = _union_cotangent(mref)
         plain = CG.merit_adjoint_multi_reference(tabs, specs, state, w, ct,
                                                  clip)

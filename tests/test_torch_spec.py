@@ -1,9 +1,11 @@
-"""The specialization of K4 and K5 per spec tuple (ops.cuda_spec) on
-the CPU: the key (stable, and changed by every part of it), the live
+"""The specialization of K2, K4 and K5 per spec tuple (ops.cuda_spec)
+on the CPU: the keys (stable, and changed by every part of them), the
+live
 parameter slots (the complement of the specs' baked-out rows, AND-ed
 with the fields that need a gradient), the translation unit a key
 writes, and the K5 wrapper's slot set and ray-cotangent flag, which on
-a CPU bundle mask the plain version's result.  The kernels themselves
+a CPU bundle mask the plain version's result; K2 on a CPU bundle runs
+its plain version.  The kernels themselves
 build and run only on a CUDA card (tests/test_torch_cuda.py)."""
 
 import itertools
@@ -16,10 +18,16 @@ from rayopt_tpu_torch import set_default_device
 from rayopt_tpu_torch.models import cooke_triplet, double_gauss
 from rayopt_tpu_torch.ops import cuda_grad as CG
 from rayopt_tpu_torch.ops import cuda_spec as CS
+from rayopt_tpu_torch.ops import cuda_trace as CT
 from rayopt_tpu_torch.ops.kernels import specialize, with_pose
 
 F32, F64 = torch.float32, torch.float64
 OPT_FIELDS = ("curvature", "offset")
+#: the moment kernels' keys, K6 at the 3 wavelengths of a stack
+MOMENT_KEYS = {
+    "k2": CS.merit_key, "k4": CS.moments_key,
+    "k6": lambda specs, dtype, clip=False, **kw: CS.moments_multi_key(
+        specs, dtype, clip, 3, **kw)}
 
 
 @pytest.fixture(autouse=True)
@@ -67,6 +75,41 @@ def test_key_is_stable_and_changes_with_each_part():
         CS.adjoint_key(specs, F64, fields=("radius",))
 
 
+@pytest.mark.parametrize("kernel", ["k2", "k4", "k6"])
+def test_moment_key_is_stable_and_changes_with_each_part(kernel):
+    """K2, K4 and K6 are keyed on the dtype, the spec tuple, clip, the
+    block, the launch bound and (K6) the wavelengths; they reduce no
+    parameter slot and write nothing a ray."""
+    make = MOMENT_KEYS[kernel]
+    specs = _specs("double_gauss")
+    base = make(specs, F64, False)
+    again = make(list(specs), F64, 0)
+    assert again == base and again.name == base.name
+    assert base.name == CS.Key(*tuple(base)).name
+    assert base.name.startswith(kernel + "_") and len(base.name) == 19
+    assert base.nlive == 0 and not base.rays
+    assert base.nlam == (3 if kernel == "k6" else 1)
+    assert base.words == tuple(CS._flags(sp) for sp in specs)
+    variants = [
+        make(specs, F32, False),
+        make(with_pose(specs), F64, False),
+        make(_specs("cooke"), F64, False),
+        make(specs, F64, True),
+        make(specs, F64, False, block=128),
+        make(specs, F64, False, min_blocks=2),
+        # the other moment kernels on the same arguments
+        *(MOMENT_KEYS[k](specs, F64, False) for k in MOMENT_KEYS
+          if k != kernel),
+        CS.adjoint_key(specs, F64, False, (), False)]
+    if kernel == "k6":
+        variants += [CS.moments_multi_key(specs, F64, False, nlam)
+                     for nlam in (1, 2, 7)]
+    names = [base.name] + [k.name for k in variants]
+    assert len(set(names)) == len(names)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        make(specs, torch.float16)
+
+
 @pytest.mark.parametrize("name", ["cooke", "double_gauss", "cooke_pose"])
 @pytest.mark.parametrize("fields", [OPT_FIELDS, CS.FIELDS, ("mu",),
                                     ("conic", "offset"), ()])
@@ -112,6 +155,18 @@ def test_translation_unit_instantiates_the_key():
     k4 = CS.moments_key(specs, F32)
     assert "RAYOPT_SPEC_MOMENTS(%s, float, Rows, false, %d, %d)" % (
         k4.name, k4.block, k4.min_blocks) in CS.translation_unit(k4)
+    k2 = CS.merit_key(specs, F64, True)
+    text = CS.translation_unit(k2)
+    assert "Chain<%s>" % ", ".join(map(str, k2.words)) in text
+    assert "RAYOPT_SPEC_MERIT(%s, double, Rows, true, %d, %d)" % (
+        k2.name, k2.block, k2.min_blocks) in text
+    k6 = CS.moments_multi_key(specs, F32, False, 7)
+    assert "RAYOPT_SPEC_MOMENTS_MULTI(%s, float, Rows, false, 7, %d, %d)" % (
+        k6.name, k6.block, k6.min_blocks) in CS.translation_unit(k6)
+    # the moment kernels keep their tables and reduction in static
+    # shared memory: 7 tables of 13 rows and 35 moments a warp
+    assert k6.dynamic_smem == 0
+    assert k6.shared_bytes == (7*13*17 + (k6.block//32 + 1)*35)*4
     # the saved states: 12 traced rows x 6 words x 128 threads in f64
     assert k5.dynamic_smem == 12*6*128*8
 
@@ -121,6 +176,17 @@ def test_adjoint_refuses_a_table_whose_states_outgrow_shared_memory():
     many = specs[:1] + specs[1:]*4
     with pytest.raises(ValueError, match="shared memory"):
         CS.adjoint_key(many, F64)
+
+
+@pytest.mark.parametrize("kernel", ["k2", "k4"])
+def test_moment_key_refuses_a_table_past_static_shared_memory(kernel):
+    """A table whose rows outgrow the 48 KB of static shared memory a
+    moment kernel stages it in is refused, naming why."""
+    specs = _specs("double_gauss")
+    many = specs[:1] + specs[1:]*31      # 373 rows: 51 KB in float64
+    with pytest.raises(ValueError, match="static shared memory"):
+        MOMENT_KEYS[kernel](many, F64)
+    MOMENT_KEYS[kernel](many, F32)
 
 
 def _bundle(n=256, seed=3):
@@ -188,3 +254,22 @@ def test_spot_moments_backward_asks_only_for_what_needs_grad():
     mom = CG.spot_moments(tab, st, w, specs=specs)
     sum(m for m in mom).backward()
     assert all(s.grad is not None for s in st)
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_cpu_merit_runs_the_plain_version(clip):
+    """K2 on a CPU bundle: the plain version's five 0-d moments, no
+    launch counted; a bundle of no rays gives zeros."""
+    tab = double_gauss().table()
+    specs = specialize(tab)
+    state, _ = _bundle()
+    before = CT.trace_merit.launches
+    got = CT.trace_merit(tab, specs, state, clip)
+    want = CT.trace_merit_reference(tab, specs, state, clip)
+    assert CT.trace_merit.launches == before
+    assert len(got) == 5 and all(g.dim() == 0 for g in got)
+    for g, r in zip(got, want):
+        assert torch.equal(g, r)
+    empty = tuple(c[:0] for c in state)
+    assert all(float(m) == 0 for m in CT.trace_merit(tab, specs, empty,
+                                                      clip))

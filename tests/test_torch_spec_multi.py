@@ -1,6 +1,9 @@
-"""The specialization of the polychromatic adjoint K7 and the OPD
-adjoint K9 per spec tuple (ops.cuda_spec) on the CPU: the keys (stable,
-and changed by every part of them), K9's live slots over its seven
+"""The specialization of the polychromatic forward K6, the
+polychromatic adjoint K7 and the OPD adjoint K9 per spec tuple
+(ops.cuda_spec) on the CPU: the refusal of a K6 stack past static
+shared memory or its wavelength limit, the K6 wrapper's plain version
+on a CPU bundle, the keys of K7 and K9 (stable, and changed by every
+part of them), K9's live slots over its seven
 columns (n_before on every row, the image row read only by the
 reference-sphere tail), the translation unit a key writes, the refusal
 of a table whose saved states outgrow shared memory, the wrappers'
@@ -163,6 +166,23 @@ def test_adjoint_refuses_a_table_whose_states_outgrow_shared_memory(kernel):
     KEYS[kernel](many, F64, block=64)
 
 
+def test_moments_multi_refuses_a_stack_past_shared_memory_or_nlam():
+    """K6 keeps every wavelength's table in static shared memory (48 KB)
+    and 5 moments a wavelength in registers: a stack past either is
+    refused, naming why."""
+    specs = _specs("double_gauss")
+    many = specs[:1] + specs[1:]*5       # 61 rows
+    with pytest.raises(ValueError, match="static shared memory"):
+        CS.moments_multi_key(many, F64, False, 7)
+    # the same stack in float32, or at 3 wavelengths, fits
+    CS.moments_multi_key(many, F32, False, 7)
+    CS.moments_multi_key(many, F64, False, 3)
+    CS.moments_multi_key(specs, F64, False, CS.MAX_NLAM)
+    for nlam in (0, CS.MAX_NLAM + 1):
+        with pytest.raises(ValueError, match="registers"):
+            CS.moments_multi_key(specs, F64, False, nlam)
+
+
 def _bundle(n=256, seed=3):
     rng = np.random.RandomState(seed)
     y = np.zeros((n, 3))
@@ -174,6 +194,25 @@ def _bundle(n=256, seed=3):
     w = rng.uniform(.5, 1.5, n)
     return (tuple(torch.from_numpy(np.ascontiguousarray(c))
                   for c in (*y.T, *u.T)), torch.from_numpy(w))
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("nlam", [1, 3, 7])
+def test_cpu_moments_multi_runs_the_plain_version(nlam, clip):
+    """K6 on a CPU bundle: the plain version's (nlam, 5) moments, no
+    launch counted."""
+    s = double_gauss()
+    lams = (587.56e-9, 656.27e-9, 486.13e-9, 435.83e-9, 546.07e-9,
+            706.52e-9, 404.66e-9)[:nlam]
+    tabs = s.tables(lams)
+    specs = specialize(TT.table_at(tabs, 0))
+    state, w = _bundle()
+    before = CG.weighted_moments_multi.launches
+    got = CG.weighted_moments_multi(tabs, specs, state, w, clip)
+    assert CG.weighted_moments_multi.launches == before
+    assert got.shape == (nlam, 5)
+    assert torch.equal(got, CG.weighted_moments_multi_reference(
+        tabs, specs, state, w, clip))
 
 
 @pytest.mark.parametrize("rays", [False, True])
