@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the checkout (K2, K4-K7
-and K9 once for each spec tuple, wavelength count, slot set and flag
+Builds the hand-written CUDA kernels from the checkout (K1, K2 and
+K4-K9 once for each spec tuple, wavelength count, slot set and flag
 they run with, all keys in parallel, with their ptxas registers, stack
 and spills), holds each against its plain PyTorch version on the card
 (the specialized K5 for each slot set, with and without ray
@@ -391,22 +391,29 @@ def phase_grad_check(table, specs):
 
 
 def spec_keys(specs, mspecs, nlam, extra=()):
-    """{tag: key} of the specializations this script runs: K2, K4 and K5
-    on `specs` in float32 and float64, clip off and on, K5 for the
+    """{tag: key} of the specializations this script runs: K1, K8, K2, K4
+    and K5 on `specs` in float32 and float64, clip off and on, K5 for the
     optimizer's slot set and for all fields, with and without the ray
     cotangents; K6 on the stack's `mspecs` and its `nlam` wavelengths,
     clip off and on; K7 on `mspecs` and K9 on `specs`, clip off and on,
     for all fields with the ray cotangents (the checks), and unclipped
     for their loops' keys without (the achromatization and the design
     path); the keys the finite-difference checks of a glass take (K7:
-    mu; K9: mu and n_before, float64); K2 on `mspecs` unclipped (K3's
-    twin); K2 and K4 on each spec tuple of `extra` (the intercept
-    cases) unclipped."""
+    mu; K9: mu and n_before, float64); K1 on `mspecs`, clip off and on
+    (the multi check traces each wavelength's table with it); K2 on
+    `mspecs` unclipped (K3's twin); K1, K2 and K4 on each spec tuple of
+    `extra` (the intercept cases) unclipped."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     keys = {}
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype)[6:]
         for clip in (False, True):
+            keys["K1 %s clip=%s" % (dt, clip)] = CS.trace_key(specs, dtype,
+                                                              clip)
+            keys["K1 %s clip=%s stack" % (dt, clip)] = CS.trace_key(
+                mspecs, dtype, clip)
+            keys["K8 %s clip=%s" % (dt, clip)] = CS.opd_key(specs, dtype,
+                                                            clip)
             keys["K2 %s clip=%s" % (dt, clip)] = CS.merit_key(specs, dtype,
                                                               clip)
             keys["K4 %s clip=%s" % (dt, clip)] = CS.moments_key(specs, dtype,
@@ -429,6 +436,7 @@ def spec_keys(specs, mspecs, nlam, extra=()):
             CS.opd_adjoint_key(specs, dtype, False, DESIGN_FIELDS, False)
         keys["K2 %s clip=False stack" % dt] = CS.merit_key(mspecs, dtype)
         for name, sp in extra:
+            keys["K1 %s %s" % (dt, name)] = CS.trace_key(sp, dtype)
             keys["K2 %s %s" % (dt, name)] = CS.merit_key(sp, dtype)
             keys["K4 %s %s" % (dt, name)] = CS.moments_key(sp, dtype)
     keys["K7 float64 clip=False glass rays=False"] = CS.adjoint_multi_key(
@@ -440,7 +448,10 @@ def spec_keys(specs, mspecs, nlam, extra=()):
 
 # the keys whose ptxas report must show no stack frame and no spill: the
 # loops' and the forward path's (phase_spec_build)
-LOOP_KEYS = ("K2 float64 clip=False",
+LOOP_KEYS = ("K1 float32 clip=False",
+             "K1 float64 clip=False",
+             "K8 float64 clip=False",
+             "K2 float64 clip=False",
              "K6 float64 clip=False nlam=3",
              "K5 float32 clip=False optimizer rays=False",
              "K5 float64 clip=False optimizer rays=False",
@@ -465,14 +476,16 @@ def ptxas_stats(kern):
 
 
 def phase_spec_build(keys):
-    """Build every K2, K4-K7, K9 specialization at once (one nvcc a key,
+    """Build every K1, K2, K4-K9 specialization at once (one nvcc a key,
     in parallel); log each key's build seconds and ptxas lines.  The
-    loops' keys (LOOP_KEYS: K2 of the forward path, float64; K5 for the
-    optimizer's slot set; K6 and K7 for the achromatization path's and
-    K9 for the design path's, float64) must have no stack frame and no
-    spill.  Returns {tag: (registers, stack bytes, spill bytes)}."""
+    loops' keys (LOOP_KEYS: K1 of the forward path, float32 and float64,
+    and K2, float64; K5 for the optimizer's slot set; K6 and K7 for the
+    achromatization path's and K8 and K9 for the design path's,
+    float64) must have no stack frame and no spill.  Returns {tag:
+    (registers, stack bytes, spill bytes)}."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
-    log("== K2, K4-K7, K9 specialized per spec tuple: %d keys" % len(keys))
+    log("== K1, K2, K4-K9 specialized per spec tuple: %d key tags, %d keys"
+        % (len(keys), len(set(keys.values()))))
     t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
     log("built in %.2f s wall" % (time.perf_counter() - t0))
@@ -2184,9 +2197,9 @@ def phase_opd_throughput(s, table, specs, card):
     """K8 and K9 (wavefront-RMS cotangents; K9 for every field and the
     ray cotangents, the work of the earlier run-time-flag K9) against
     their plain versions at N_GRAD_TIME rays in float32 and float64,
-    beside K9 for the design path's key; both K9s in float64 at one
-    design bundle's N_OPT_BUNDLE rays; then K8 and K9 alone at N_BENCH
-    rays in float32.  Returns the times and the live rays of each
+    beside K9 for the design path's key; K8 and both K9s in float64 at
+    one design bundle's N_OPT_BUNDLE rays; then K8 and K9 alone at
+    N_BENCH rays in float32.  Returns the times and the live rays of each
     timing bundle (K9's reverse runs for these only)."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
@@ -2238,7 +2251,9 @@ def phase_opd_throughput(s, table, specs, card):
         del state, cts
         torch.cuda.empty_cache()
     state, aux, cts, live[N_OPT_BUNDLE] = setup(N_OPT_BUNDLE, torch.float64)
-    for name, fn in (("opd_adjoint", lambda: opd_adjoint(table, specs, state,
+    for name, fn in (("opd_chain", lambda: opd_chain(table, specs, state,
+                                                     aux)),
+                     ("opd_adjoint", lambda: opd_adjoint(table, specs, state,
                                                          aux, cts)),
                      ("opd_adjoint_loop", design_k9(state, aux, cts))):
         k = cuda_ms(fn, 20)
@@ -2575,9 +2590,10 @@ def main():
     specs = specialize(table)   # from the float64 table
     tabs = s.tables()           # 3 wavelengths
     mspecs = multi_specs(tabs, None)
-    ptxas = phase_spec_build(spec_keys(
+    keys = spec_keys(
         specs, mspecs, tabs.curvature.shape[0],
-        [(name, specialize(tab)) for name, _, tab, _ in intercept_cases()]))
+        [(name, specialize(tab)) for name, _, tab, _ in intercept_cases()])
+    ptxas = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
     worst.update(phase_grad_check(table, specs))
@@ -2629,11 +2645,10 @@ def main():
         N_GRAD_TIME, torch.float32, SEED + 1))[0])
     live_opt = float(trace_merit(table, specs, bench_bundle(
         N_OPT_BUNDLE, torch.float64, SEED + 1))[0])
-    trace_cu, grad_cu, spec_cuh = ("rayopt_tpu_torch/csrc/trace.cu",
-                                   "rayopt_tpu_torch/csrc/grad.cu",
-                                   "rayopt_tpu_torch/csrc/grad_spec.cuh")
+    trace_cu, spec_cuh = ("rayopt_tpu_torch/csrc/trace.cu",
+                          "rayopt_tpu_torch/csrc/grad_spec.cuh")
     sources = {
-        "trace_final": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:82"),
+        "trace_final": (spec_cuh, "rayopt_tpu/ops/pallas_trace.py:82"),
         "trace_merit": (spec_cuh, "rayopt_tpu/ops/pallas_trace.py:170"),
         "weighted_moments": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:236"),
         "merit_adjoint": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:395"),
@@ -2642,10 +2657,12 @@ def main():
                                    "rayopt_tpu/ops/pallas_grad.py:248"),
         "merit_adjoint_multi": (spec_cuh,
                                 "rayopt_tpu/ops/pallas_grad.py:421"),
-        "opd_chain": (grad_cu, "rayopt_tpu/ops/pallas_grad.py:1077"),
+        "opd_chain": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:1077"),
         "opd_adjoint": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:1094")}
     # the loop key of each specialized kernel: its tag in `ptxas`
-    loop_keys = {"trace_merit": "K2 %s clip=False",
+    loop_keys = {"trace_final": "K1 %s clip=False",
+                 "opd_chain": "K8 %s clip=False",
+                 "trace_merit": "K2 %s clip=False",
                  "weighted_moments": "K4 %s clip=False",
                  "weighted_moments_multi": "K6 %s clip=False nlam=%d" % (
                      "%s", tabs.curvature.shape[0]),
@@ -2710,6 +2727,10 @@ def main():
                 "bound_ms_loop_key_f64" + big: kernel_bound(
                     loop, N_OPT_BUNDLE, torch.float64, kspecs, lam,
                     live_big)[0]})
+        if kname == "opd_chain":
+            entry["ms_f64" + big] = tt[(kname, N_OPT_BUNDLE)]
+            entry["bound_ms_f64" + big] = kernel_bound(
+                kname, N_OPT_BUNDLE, torch.float64, kspecs)[0]
         if kname == "weighted_moments_multi":
             entry["ms_f64" + big] = tt[(kname, N_OPT_BUNDLE)]
             entry["bound_ms_f64" + big] = kernel_bound(
@@ -2736,6 +2757,10 @@ def main():
             entry["ms_f32_%d_rays" % N_BENCH] = tt[(kname, N_BENCH)]
         kernels.append(entry)
     kernels += df32_entries(s, launches, worst, dtimes, dlive)
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    late = sorted(k.name for k in CS._LOADED if k not in keys.values())
+    log("== keys built at first use, outside phase_spec_build: %d %s"
+        % (len(late), late))
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,22 @@
-// The moment kernels -- the spot-moment merit (K2), the weighted-moment
-// forward (K4) and its polychromatic twin (K6) -- and the adjoints -- K4's
-// analytic adjoint (K5), the polychromatic adjoint (K7) and the OPD
-// adjoint (K9) -- for NVIDIA Hopper (sm_90a), specialized at compile time
-// on one key: the dtype, the SurfaceSpec tuple (one word of
-// trace_common.cuh flags a row), the aperture clip and the block size;
-// K6 also on its wavelength count; the adjoints also on the parameter
-// slots they reduce and on whether they write the ray (and weight)
-// cotangents.  The wavelength count of K7 stays a run-time argument.
+// The fused trace (K1), the moment kernels -- the spot-moment merit (K2),
+// the weighted-moment forward (K4) and its polychromatic twin (K6) --,
+// the OPD trace (K8) and the adjoints -- K4's analytic adjoint (K5), the
+// polychromatic adjoint (K7) and the OPD adjoint (K9) -- for NVIDIA
+// Hopper (sm_90a), specialized at compile time on one key: the dtype,
+// the SurfaceSpec tuple (one word of trace_common.cuh flags a row), the
+// aperture clip and the block size; K6 also on its wavelength count;
+// the adjoints also on the parameter slots they reduce and on whether
+// they write the ray (and weight) cotangents.  The wavelength count of
+// K7 stays a run-time argument.
 //
 // Replaces the JAX package's Pallas TPU kernels
+//   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
 //   K2  rayopt_tpu/ops/pallas_trace.py  _merit_kernel         (pallas_trace_merit)
 //   K4  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel            (_moments_impl)
 //   K5  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel        (_moments_bwd)
 //   K6  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel_multi      (_moments_multi_impl)
 //   K7  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel_multi  (_moments_multi_bwd)
+//   K8  rayopt_tpu/ops/pallas_grad.py  _opd_kernel            (_opd_impl)
 //   K9  rayopt_tpu/ops/pallas_grad.py  _opd_adjoint_kernel    (_opd_bwd)
 // which the JAX package specializes on the same things (specs, clip,
 // diff_fields, and K6's wavelengths, unrolled at trace time).
@@ -21,25 +24,36 @@
 // instantiates the templates below with the row words as a template
 // parameter pack (Chain<...>) and exports launchers named by the key's
 // hash; nvcc builds it at first use.  The plain versions live beside the
-// wrappers in rayopt_tpu_torch/ops/cuda_trace.py (K2) and
+// wrappers in rayopt_tpu_torch/ops/cuda_trace.py (K1, K2) and
 // rayopt_tpu_torch/ops/cuda_grad.py, with the torch models of K5, K7 and
 // K9.
 //
-// What bounds them on the H100.  K2 reads 6 words a ray and K4 7, and
+// What bounds them on the H100.  K1 reads 6 words a ray and writes 7
+// (its final state and optical path); K8 reads 6 and writes 3 (k and the
+// landing on the reference sphere); K2 reads 6 words a ray and K4 7, and
 // neither writes anything a ray; K6 is K4 once a wavelength on one read
 // of the ray; K5 reads 7 and writes 7 a ray when asked for the ray
 // cotangents, else nothing; K7 is K5 once a wavelength; K9 reads 9 and
 // writes 6 with the ray cotangents, else 3 and nothing.  All are bound
 // by instruction issue: the chain costs ~540 operations a ray on the
 // double Gauss (the adjoints ~4x that: the forward, then each row's
-// recompute and reverse), with an IEEE division and square roots a row.
+// recompute and reverse), with an IEEE division and square roots a row;
+// K1's 52 (float32) or 104 (float64) bytes a ray of HBM traffic run
+// beside it.
 //
 // What the design does about it.
-//  * The row loop unrolls over the parameter pack: surface_step and
-//    surface_step_vjp (the one body K1, K3 and K8 run with flags read at
-//    run time) get each row's flags as a std::integral_constant, so
-//    every flag branch folds and each row's code is straight-line.  The
-//    slots a row does not reduce are dead code and compile away.
+//  * The row loop unrolls over the parameter pack: surface_step (the one
+//    body K3 runs with its flags read at run time) and surface_step_vjp
+//    get each row's flags as a std::integral_constant, so every flag
+//    branch folds and each row's code is straight-line.  The slots a row
+//    does not reduce are dead code and compile away.
+//  * K1 and K8 read each ray once into registers, run the chain (K8:
+//    rows 1..S-2, then the reference-sphere tail of step_vjp.cuh on the
+//    image row, its flags compile-time too) and write each output once,
+//    coalesced; the table (and K8's aux vector: the sphere centre, its
+//    radius and lam_scale, a device tensor, no host sync) sit in static
+//    shared memory.  A vignetted ray is NaN and stays NaN through every
+//    later row.
 //  * The moment kernels (K2, K4, K6) read each ray once into registers
 //    and run it through every table of the key's stack in turn (K6's
 //    wavelengths unrolled, each table staged in static shared memory);
@@ -79,11 +93,12 @@
 //    scalar arithmetic whose only products are 3x3 rotations, and a
 //    ray is read once a pass, coalesced, as 6 or 7 words.
 //
-// Interface: plain extern "C" launchers (RAYOPT_SPEC_MERIT,
-// RAYOPT_SPEC_MOMENTS, RAYOPT_SPEC_MOMENTS_MULTI, RAYOPT_SPEC_ADJOINT,
-// RAYOPT_SPEC_ADJOINT_MULTI, RAYOPT_SPEC_OPD_ADJOINT), loaded with
-// ctypes; each launches on the given stream, synchronises nothing,
-// allocates nothing, and returns cudaGetLastError() (0 = launched).
+// Interface: plain extern "C" launchers (RAYOPT_SPEC_TRACE,
+// RAYOPT_SPEC_MERIT, RAYOPT_SPEC_MOMENTS, RAYOPT_SPEC_MOMENTS_MULTI,
+// RAYOPT_SPEC_OPD, RAYOPT_SPEC_ADJOINT, RAYOPT_SPEC_ADJOINT_MULTI,
+// RAYOPT_SPEC_OPD_ADJOINT), loaded with ctypes; each launches on the
+// given stream, synchronises nothing, allocates nothing, and returns
+// cudaGetLastError() (0 = launched).
 
 #pragma once
 
@@ -400,6 +415,81 @@ __global__ void __launch_bounds__(BLOCK, MINB) moments_spec(
     for (int q = threadIdx.x; q < NV; q += BLOCK) out[q] = s_part[q];
 }
 
+// K1: each ray read once and traced through the whole chain (row 0's
+// frame, rows 1..S-1, the last row's to_normal: trace_ray with
+// compile-time flags); its final state in the last row's frame and its
+// optical path go to the 7 (n,) outputs.  The table sits in static
+// shared memory (the key refuses one past 48 KB).
+template <typename T, class C, bool CLIP, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB) trace_spec(
+    const T* __restrict__ table, const T* __restrict__ ix,
+    const T* __restrict__ iy, const T* __restrict__ iz,
+    const T* __restrict__ iux, const T* __restrict__ iuy,
+    const T* __restrict__ iuz, T* __restrict__ ox, T* __restrict__ oy,
+    T* __restrict__ oz, T* __restrict__ oux, T* __restrict__ ouy,
+    T* __restrict__ ouz, T* __restrict__ ot, int64_t n) {
+  constexpr int S = C::rows;
+  __shared__ T s_tab[S * ROW];
+  for (int i = threadIdx.x; i < S * ROW; i += BLOCK) s_tab[i] = table[i];
+  __syncthreads();
+  const volatile T* tab = s_tab;
+  const int64_t stride = int64_t(gridDim.x) * BLOCK;
+  for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
+       i += stride) {
+    T s[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
+    const T t = chain_forward<T, C, CLIP>(tab, s, [](int) {});
+    if (flags_at<C>(S - 1) & F_ROTATED) {
+      const volatile T* rl = tab + (S - 1) * ROW + P_ROT;
+      rot_apply(rl, s[0], s[1], s[2]);
+      rot_apply(rl, s[3], s[4], s[5]);
+    }
+    ox[i] = s[0];
+    oy[i] = s[1];
+    oz[i] = s[2];
+    oux[i] = s[3];
+    ouy[i] = s[4];
+    ouz[i] = s[5];
+    ot[i] = t;
+  }
+}
+
+// K8: each ray read once, traced through rows 1..S-2 summing the
+// optical path, stepped to the image row and onto the reference sphere
+// (sphere_tail, the image row's flags compile-time); writes k = -(path
+// + ti n_image)/lam_scale and the landing x, y about the sphere's
+// centre.  aux: the centre x, y, z, the radius and lam_scale, staged
+// beside the table in static shared memory.  A ray that misses the
+// sphere is NaN, as a vignetted one.
+template <typename T, class C, bool CLIP, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB) opd_spec(
+    const T* __restrict__ table, const T* __restrict__ ix,
+    const T* __restrict__ iy, const T* __restrict__ iz,
+    const T* __restrict__ iux, const T* __restrict__ iuy,
+    const T* __restrict__ iuz, const T* __restrict__ aux,
+    T* __restrict__ ok, T* __restrict__ olx, T* __restrict__ oly,
+    int64_t n) {
+  constexpr int S = C::rows;
+  static_assert(S >= 3, "the OPD needs object, exit and image rows");
+  __shared__ T s_tab[S * ROW];
+  __shared__ T s_aux[AUX];
+  for (int i = threadIdx.x; i < S * ROW; i += BLOCK) s_tab[i] = table[i];
+  if (threadIdx.x < AUX) s_aux[threadIdx.x] = aux[threadIdx.x];
+  __syncthreads();
+  const volatile T* tab = s_tab;
+  const volatile T* vaux = s_aux;
+  const volatile T* pimg = tab + (S - 1) * ROW;
+  const int64_t stride = int64_t(gridDim.x) * BLOCK;
+  for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
+       i += stride) {
+    T s[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
+    const T tacc = chain_forward<T, C, CLIP, S - 1>(tab, s, [](int) {});
+    const SphereTail<T> o = sphere_tail(pimg, RowFlags<C, S - 1>{}, vaux, s);
+    ok[i] = -(tacc + o.ti * pimg[P_NB]) / vaux[4];
+    olx[i] = o.px + o.ti * o.dx;
+    oly[i] = o.py + o.ti * o.dy;
+  }
+}
+
 // K5: the analytic adjoint of K4's moments dotted with ct (5 values).
 // out: (rows, SLOTS) parameter cotangents, zero where a slot is not
 // live; with RAYS the six ray and the weight cotangents a ray (zeros
@@ -634,6 +724,60 @@ __host__ inline int blocks_per_sm(K kernel, int block, size_t smem,
 }
 
 }  // namespace
+// K1 launchers of one key: NAME(table (rows, ROW), 6 rays, 7 outputs
+// (x, y, z, ux, uy, uz, t; (n,) each), n, grid, stream);
+// NAME_blocks_per_sm(&blocks); NAME_error_string(err).
+#define RAYOPT_SPEC_TRACE(NAME, T, CHAIN, CLIP, BLOCK, MINB)                  \
+  extern "C" int NAME##_blocks_per_sm(int* out) {                             \
+    return blocks_per_sm(trace_spec<T, CHAIN, CLIP, BLOCK, MINB>, BLOCK, 0,   \
+                         out);                                                \
+  }                                                                           \
+  extern "C" const char* NAME##_error_string(int err) {                       \
+    return cudaGetErrorString(cudaError_t(err));                              \
+  }                                                                           \
+  extern "C" int NAME(const void* table, const void* x, const void* y,        \
+                      const void* z, const void* ux, const void* uy,          \
+                      const void* uz, void* ox, void* oy, void* oz,           \
+                      void* oux, void* ouy, void* ouz, void* ot, long long n, \
+                      int grid, void* stream) {                               \
+    trace_spec<T, CHAIN, CLIP, BLOCK, MINB>                                   \
+        <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(              \
+            static_cast<const T*>(table), static_cast<const T*>(x),           \
+            static_cast<const T*>(y), static_cast<const T*>(z),               \
+            static_cast<const T*>(ux), static_cast<const T*>(uy),             \
+            static_cast<const T*>(uz), static_cast<T*>(ox),                   \
+            static_cast<T*>(oy), static_cast<T*>(oz), static_cast<T*>(oux),   \
+            static_cast<T*>(ouy), static_cast<T*>(ouz), static_cast<T*>(ot),  \
+            int64_t(n));                                                      \
+    return int(cudaGetLastError());                                           \
+  }
+
+// K8 launchers of one key: NAME(table (rows, ROW), 6 rays, aux (AUX,),
+// k, lx, ly ((n,) each), n, grid, stream); NAME_blocks_per_sm(&blocks);
+// NAME_error_string(err).
+#define RAYOPT_SPEC_OPD(NAME, T, CHAIN, CLIP, BLOCK, MINB)                    \
+  extern "C" int NAME##_blocks_per_sm(int* out) {                             \
+    return blocks_per_sm(opd_spec<T, CHAIN, CLIP, BLOCK, MINB>, BLOCK, 0,     \
+                         out);                                                \
+  }                                                                           \
+  extern "C" const char* NAME##_error_string(int err) {                       \
+    return cudaGetErrorString(cudaError_t(err));                              \
+  }                                                                           \
+  extern "C" int NAME(const void* table, const void* x, const void* y,        \
+                      const void* z, const void* ux, const void* uy,          \
+                      const void* uz, const void* aux, void* k, void* lx,     \
+                      void* ly, long long n, int grid, void* stream) {        \
+    opd_spec<T, CHAIN, CLIP, BLOCK, MINB>                                     \
+        <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(              \
+            static_cast<const T*>(table), static_cast<const T*>(x),           \
+            static_cast<const T*>(y), static_cast<const T*>(z),               \
+            static_cast<const T*>(ux), static_cast<const T*>(uy),             \
+            static_cast<const T*>(uz), static_cast<const T*>(aux),            \
+            static_cast<T*>(k), static_cast<T*>(lx), static_cast<T*>(ly),     \
+            int64_t(n));                                                      \
+    return int(cudaGetLastError());                                           \
+  }
+
 // The launchers of one moment key (K2, K4, K6): NAME(table (NLAM, rows,
 // ROW), 6 rays, w (ignored, may be null, without WEIGHTED), partials
 // (grid, NLAM * 5), counter (1 zeroed uint32, reset by the kernel), out

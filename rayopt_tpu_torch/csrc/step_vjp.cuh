@@ -1,9 +1,10 @@
 // The hand-derived reverse of one surface step (trace_common.cuh
 // surface_step), run by the adjoints specialized per spec tuple in
 // grad_spec.cuh (K5, K7, K9; row flags as compile-time constants), and
-// the reference-sphere tail of the OPD (K8 in grad.cu with its flags
-// read at run time, K9) with its reverse.  Their torch models, line for
-// line, are cuda_grad._step_vjp_reference, _sphere_tail and
+// the reference-sphere tail of the OPD (K8 and K9, both in
+// grad_spec.cuh with the image row's flags compile-time) with its
+// reverse.  Their torch models, line for line, are
+// cuda_grad._step_vjp_reference, _sphere_tail and
 // _opd_tail_vjp_reference.
 
 #pragma once

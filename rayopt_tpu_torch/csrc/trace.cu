@@ -1,49 +1,46 @@
-// Fused sequential ray trace (K1) and its polychromatic twin (K3) for
-// NVIDIA Hopper (sm_90a), templated on float and double, with the row
-// flags read at run time.  The fused spot-moment merit (K2) is compiled
-// per spec tuple (grad_spec.cuh).
+// The polychromatic twin of the fused trace (K3) for NVIDIA Hopper
+// (sm_90a), templated on float and double, with the row flags read at
+// run time.  The fused trace (K1) and the fused spot-moment merit (K2)
+// are compiled per spec tuple (grad_spec.cuh).
 //
-// Replaces the JAX package's Pallas TPU kernels
-//   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel           (pallas_trace_final)
+// Replaces the JAX package's Pallas TPU kernel
 //   K3  rayopt_tpu/ops/pallas_trace.py  _multi_kernel           (pallas_trace_multi)
-// and computes, ray for ray, what rayopt_tpu_torch.ops.kernels
-// .surface_step_spec computes (the plain versions live beside the
-// wrappers in rayopt_tpu_torch/ops/cuda_trace.py).
+// and computes, ray for ray and wavelength for wavelength, what
+// rayopt_tpu_torch.ops.kernels.surface_step_spec computes (the plain
+// version lives beside the wrapper in rayopt_tpu_torch/ops/cuda_trace.py).
 //
-// What bounds it on the H100.  Each ray reads 6 words and (K1) writes
-// 7; each of the ~12 traced surfaces costs ~60 flops.  In float32 that
-// is ~12*60 flops per 28 bytes read (52 with K1's writes), ~25
-// flop/byte, against 67 TFLOP/s / 3.35 TB/s = 20 for the card: the
-// float32 trace sits near the ridge, so neither the ALUs nor HBM may be
-// wasted.  In float64 (67 -> ~34 TFLOP/s of FP64 FMA, 2x the bytes)
-// it is ALU bound.
+// What bounds it on the H100.  Each ray reads 6 words and (trace mode)
+// writes 7 a wavelength; each of the ~12 traced surfaces costs ~60
+// flops a wavelength.  In float32 that is ~12*60 flops per 52 bytes a
+// wavelength, ~14 flop/byte, against 67 TFLOP/s / 3.35 TB/s = 20 for
+// the card; but the chain is bound by instruction issue, not by its
+// flops (K1 and K2, which writes nothing a ray, take about the same
+// time).  In float64 (~34 TFLOP/s of FP64 FMA, 2x the bytes) it is ALU
+// bound.
 //
 // What the design does about it.
 //  * One thread per ray, a grid-stride loop, structure-of-arrays
 //    components: every load and store is coalesced, each ray is read
-//    from and written to HBM exactly once whatever the depth, and no
-//    intermediate state leaves registers (the single-pass property the
-//    TPU kernel got from VMEM residency).
-//  * The surface table (17 words a row) and one int32 of static
-//    SurfaceSpec flags a row are staged once per block into shared
-//    memory; every thread reads the same address (a broadcast), and
-//    the flags are uniform across the warp, so branching on them costs
-//    no divergence.  K2 and K4-K7, K9 (grad_spec.cuh) compile the same
-//    step with the flags as compile-time constants, one library a spec
-//    tuple; K1 and K3 keep one build for every table.
+//    from HBM exactly once for all wavelengths and written once a
+//    wavelength, and no intermediate state leaves registers (the
+//    single-pass property the TPU kernel got from VMEM residency).
+//  * The tables of the wavelength stack (17 words a row) and one int32
+//    of static SurfaceSpec flags a row (the specs of the first
+//    wavelength) are staged once per block into shared memory; every
+//    thread reads the same address (a broadcast), and the flags are
+//    uniform across the warp, so branching on them costs no divergence.
+//    K1, K2 and K4-K9 (grad_spec.cuh) compile the same step with the
+//    flags as compile-time constants, one library a spec tuple; K3
+//    keeps one build for every table.
 //  * IEEE division and square root, no fast math: vignetted rays are
 //    NaN and must stay NaN through every later surface, which the
 //    guarded square root (trace_common.cuh; NaN in, NaN out) relies on.
-//
-//  * K3 reads each ray once into registers and traces it through every
-//    table of a wavelength stack (staged together into shared memory,
-//    sharing one flag array: the specs of the first wavelength), with no
-//    aperture clip, as the TPU kernel does.  Trace mode writes 7
+//  * No aperture clip, as the TPU kernel.  Trace mode writes 7
 //    coalesced outputs a wavelength; merit mode keeps each thread's
 //    per-wavelength count moments in its own shared-memory column and
-//    tree-sums them per block into (grid, nlam, 5) partials.  The rays
-//    are read once for all wavelengths, but the trace, which is what
-//    bounds K1 on this card, runs nlam times: expect ~nlam x K2.
+//    tree-sums them per block into (grid, nlam, 5) partials.  The trace,
+//    which is what bounds it on this card, runs nlam times: expect ~nlam
+//    x K2.
 //
 // Interface: plain extern "C" launchers, loaded with ctypes; each
 // launches on the given stream, synchronises nothing, allocates
@@ -52,36 +49,6 @@
 #include "trace_common.cuh"
 
 namespace {
-
-template <typename T>
-__global__ void trace_final_kernel(const T* __restrict__ table,
-                                   const int* __restrict__ flags, int nsurf,
-                                   int clip, const T* __restrict__ ix,
-                                   const T* __restrict__ iy,
-                                   const T* __restrict__ iz,
-                                   const T* __restrict__ iux,
-                                   const T* __restrict__ iuy,
-                                   const T* __restrict__ iuz,
-                                   T* __restrict__ ox, T* __restrict__ oy,
-                                   T* __restrict__ oz, T* __restrict__ oux,
-                                   T* __restrict__ ouy, T* __restrict__ ouz,
-                                   T* __restrict__ ot, int64_t n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* s_tab = reinterpret_cast<T*>(smem);
-  int* s_flags = reinterpret_cast<int*>(s_tab + nsurf * ROW);
-  stage_table(table, flags, nsurf, s_tab, s_flags);
-  const int64_t stride = int64_t(gridDim.x) * blockDim.x;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    T x = ix[i], y = iy[i], z = iz[i];
-    T ux = iux[i], uy = iuy[i], uz = iuz[i];
-    T tacc;
-    trace_ray(s_tab, s_flags, nsurf, clip != 0, x, y, z, ux, uy, uz, tacc);
-    ox[i] = x; oy[i] = y; oz[i] = z;
-    oux[i] = ux; ouy[i] = uy; ouz[i] = uz;
-    ot[i] = tacc;
-  }
-}
 
 // K3: one ray, read once, through each of nlam tables (no clip).
 // Trace mode: out[(l * 7 + c) * n + i], c = x, y, z, ux, uy, uz, t.
@@ -136,10 +103,6 @@ __global__ void trace_multi_kernel(const T* __restrict__ table,
                    out + int64_t(blockIdx.x) * 5 * nlam);
 }
 
-size_t final_smem(int nsurf, size_t word) {
-  return nsurf * ROW * word + nsurf * sizeof(int);
-}
-
 size_t multi_smem(int nsurf, int nlam, int block, bool merit, size_t word) {
   return (size_t(nlam) * nsurf * ROW + (merit ? 5 * size_t(nlam) * block : 0)) *
              word + nsurf * sizeof(int);
@@ -167,30 +130,6 @@ int launch_trace_multi(const void* table, const void* flags, int nsurf,
 }
 
 }  // namespace
-
-#define TRACE_FINAL_LAUNCHER(NAME, T)                                         \
-  extern "C" int NAME(const void* table, const void* flags, int nsurf,       \
-                      int clip, const void* x, const void* y, const void* z, \
-                      const void* ux, const void* uy, const void* uz,        \
-                      void* ox, void* oy, void* oz, void* oux, void* ouy,    \
-                      void* ouz, void* ot, long long n, int grid, int block, \
-                      void* stream) {                                        \
-    trace_final_kernel<T>                                                    \
-        <<<grid, block, final_smem(nsurf, sizeof(T)),                        \
-           static_cast<cudaStream_t>(stream)>>>(                             \
-            static_cast<const T*>(table), static_cast<const int*>(flags),    \
-            nsurf, clip, static_cast<const T*>(x),                           \
-            static_cast<const T*>(y), static_cast<const T*>(z),              \
-            static_cast<const T*>(ux), static_cast<const T*>(uy),            \
-            static_cast<const T*>(uz), static_cast<T*>(ox),                  \
-            static_cast<T*>(oy), static_cast<T*>(oz), static_cast<T*>(oux),  \
-            static_cast<T*>(ouy), static_cast<T*>(ouz), static_cast<T*>(ot), \
-            int64_t(n));                                                     \
-    return int(cudaGetLastError());                                          \
-  }
-
-TRACE_FINAL_LAUNCHER(trace_final_f32, float)
-TRACE_FINAL_LAUNCHER(trace_final_f64, double)
 
 // K3 launchers: table (nlam, nsurf, ROW), flags (nsurf,), 6 rays, out
 // ((nlam, 7, n) in trace mode, (grid, nlam, 5) in merit mode).

@@ -1,8 +1,9 @@
-// Device code shared by the trace kernels (trace.cu: K1, K3), the OPD
-// kernel (grad.cu: K8) and the kernels specialized per spec tuple
-// (grad_spec.cuh: K2, K4-K7, K9): the packed table layout, the
-// flag bits, the guarded math, one surface step, the whole chain for
-// one ray, and the staging of the table into shared memory.  Each
+// Device code shared by the polychromatic trace (trace.cu: K3), the
+// df32 kernels (df32.cu: the NaN and the shared-memory opt-in) and the
+// kernels specialized per spec tuple (grad_spec.cuh: K1, K2, K4-K9):
+// the packed table layout, the flag bits, the guarded math, one
+// surface step, the whole chain for one ray with its flags read at run
+// time (K3), and the staging of the table into shared memory.  Each
 // translation unit that includes it gets its own internal copies.
 
 #pragma once
@@ -81,8 +82,8 @@ __device__ __forceinline__ constexpr int flag_value(
 // One transfer-intercept-refract step: kernels.surface_step_spec for
 // flat, spherical and conic rows.  State in and out in the global
 // (from_normal) frame; adds the optical path n_before * t to tacc.
-// The row's flags arrive as an int read at run time (K1, K3, K8) or
-// as std::integral_constant<int, F> (the specialized K2, K4-K7, K9,
+// The row's flags arrive as an int read at run time (K3) or as
+// std::integral_constant<int, F> (the specialized K1, K2, K4-K9,
 // grad_spec.cuh): there every `fl & F_*` below is a constant and the
 // branches it does not take fold away.  One body serves both.  p, the
 // row's packed words in shared memory, is a plain pointer or (the
@@ -204,8 +205,10 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   }
 }
 
-// The whole chain for one ray: row-0 from_normal, rows 1..S-1, then
-// the last row's to_normal (pallas_trace.py:88-106).
+// The whole chain for one ray with its flags read at run time (K3):
+// row-0 from_normal, rows 1..S-1, then the last row's to_normal
+// (pallas_trace.py:88-106).  grad_spec.cuh's chain_forward is its
+// compile-time twin.
 template <typename T>
 __device__ __forceinline__ void trace_ray(const T* tab, const int* flags,
                                           int nsurf, bool clip, T& x, T& y,

@@ -6,8 +6,8 @@ a build takes seconds.  One nvcc per source runs in parallel, then one
 links the objects.  It runs at first use, from the package's own
 sources, into build/torch_kernels/ beside the package, and is cached
 by a hash of the sources and flags.  `build_shared` builds the
-translation units that ops.cuda_spec writes for each spec key (K2,
-K4-K7, K9) the same way, one nvcc a unit, in parallel, cached by a hash of
+translation units that ops.cuda_spec writes for each spec key (K1, K2,
+K4-K9) the same way, one nvcc a unit, in parallel, cached by a hash of
 the headers, the flags and the unit's text.  Fast math stays off: the kernels
 rely on IEEE division, square root and NaN propagation.  The df32
 kernels (df32.cu) need every float32 operation rounded as written; they
@@ -27,8 +27,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
-SOURCES = ("trace.cu", "grad.cu", "df32.cu")
-HEADERS = ("trace_common.cuh", "step_vjp.cuh")
+SOURCES = ("trace.cu", "df32.cu")     # K3; K10-K13
+HEADERS = ("trace_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,24 +57,14 @@ class KernelLibrary:
         self.build_log = build_log
         self._lib = ctypes.CDLL(str(path))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # K3: table, flags, nsurf, nlam, 6 rays, out, n, grid, block,
+        # stream
         for dt in ("f32", "f64"):
-            fn = getattr(self._lib, "trace_final_" + dt)
-            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*13 + [i64, i32,
-                                                             i32, ptr]
-            fn.restype = i32
-            # table, flags, nsurf, nlam, 6 rays, out, n, grid, block,
-            # stream
             for name in ("trace_multi_", "trace_multi_merit_"):
                 fn = getattr(self._lib, name + dt)
                 fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [
                     i64, i32, i32, ptr]
                 fn.restype = i32
-            # table, flags, nsurf, clip, 6 rays, aux, k, lx, ly, n, grid,
-            # block, stream
-            fn = getattr(self._lib, "opd_chain_" + dt)
-            fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*10 + [i64, i32,
-                                                             i32, ptr]
-            fn.restype = i32
         # df32 (K10-K13): plan words, flags, nsteps, [nplans,] [with_path,]
         # the 12 input words, out or partials, n, grid, block, stream
         for name, ints in (("df32_trace_final", 2), ("df32_trace_multi", 3),

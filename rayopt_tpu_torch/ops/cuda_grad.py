@@ -57,15 +57,15 @@ bind them in `_OpdRays` (the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
 kernel, in autograd.
 
-The kernels are hand-written CUDA C++.  K4-K7 and K9 are compiled for
-each (dtype, spec tuple, clip) key, K6 also for its wavelength count,
+The kernels are hand-written CUDA C++.  K4-K9 are compiled for each
+(dtype, spec tuple, clip) key, K6 also for its wavelength count,
 the adjoints also for their live parameter slots and for whether they
 write the ray (and weight) cotangents (csrc/grad_spec.cuh, built and
 cached by ops.cuda_spec); through `_SpotMoments` and `_OpdRays` an
 adjoint reduces only the slots autograd asks for and, when no ray or
 weight needs a gradient (the loops' frozen bundles), writes nothing a
-ray.  K8 reads the row flags at run time (csrc/grad.cu, built with the
-K1/K3 library by ops.cuda_build).  A wrapper takes the plain PyTorch
+ray.  A new spec tuple costs one nvcc run at its first call.  A
+wrapper takes the plain PyTorch
 version (`weighted_moments_reference`, `merit_adjoint_reference`,
 `weighted_moments_multi_reference`, `merit_adjoint_multi_reference`,
 `opd_chain_reference`, `opd_adjoint_reference`) only for a bundle on
@@ -87,8 +87,8 @@ import torch
 from . import cuda_spec as CS
 from . import kernels as K
 from .cuda_spec import launch_moments, packed, spec_launch
-from .cuda_trace import (BLOCK, _check_state, _launch_setup, _raise_on,
-                         spot_rms_from_moments, trace_final_reference)
+from .cuda_trace import (_check_state, spot_rms_from_moments,
+                         trace_final_reference)
 from .tables import lower_pose, table_at
 
 SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
@@ -672,6 +672,11 @@ def _adjoint_multi_kernel(specs, dtype, clip, fields, rays):
 
 
 @functools.lru_cache(maxsize=None)
+def _opd_kernel(specs, dtype, clip):
+    return CS.load(CS.opd_key(specs, dtype, clip))
+
+
+@functools.lru_cache(maxsize=None)
 def _opd_adjoint_kernel(specs, dtype, clip, fields, rays):
     return CS.load(CS.opd_adjoint_key(specs, dtype, clip, fields, rays))
 
@@ -832,19 +837,21 @@ def opd_chain(table, specs, state, aux, clip=False):
     x, y, z, radius, lam_scale), a (5,) tensor on the rays' device
     (k = -(optical path to the reference sphere)/lam_scale; lx, ly the
     landing on the sphere about its centre).  CUDA bundles launch the
-    kernel; CPU bundles take opd_chain_reference."""
+    kernel compiled for (dtype, specs, clip) (ops.cuda_spec: one launch,
+    none for no rays); CPU bundles take opd_chain_reference."""
     _check_opd(table, specs, state, aux)
-    if state[0].device.type == "cpu":
+    x = state[0]
+    if x.device.type == "cpu":
         return opd_chain_reference(table, specs, state, aux, clip)
-    lib, suffix, tab, flags, nsurf, n, grid, stream = _launch_setup(
-        table, specs, state, smem_extra_words=AUX)
-    outs = [torch.empty_like(state[0]) for _ in range(3)]
+    device, n, stream = spec_launch(state)
+    specs = tuple(specs)
+    kern = _opd_kernel(specs, x.dtype, bool(clip))
+    tab = packed(table, specs, x)
+    outs = [torch.empty_like(x) for _ in range(3)]
     if n:
-        err = getattr(lib, "opd_chain_" + suffix)(
-            tab.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
-            *(c.data_ptr() for c in state), aux.data_ptr(),
-            *(o.data_ptr() for o in outs), n, grid, BLOCK, stream)
-        _raise_on(lib, err, "opd_chain")
+        kern.check(kern.fn(tab.data_ptr(), *(c.data_ptr() for c in state),
+                           aux.data_ptr(), *(o.data_ptr() for o in outs), n,
+                           kern.grid(n, device), stream))
         opd_chain.launches += 1
     return tuple(outs)
 

@@ -1,23 +1,24 @@
-"""K2 and K4-K7, K9 specialized per spec tuple at compile time.
+"""K1, K2 and K4-K9 specialized per spec tuple at compile time.
 
-The moment kernels -- the spot-moment merit K2, the weighted-moment
-forward K4 and its polychromatic twin K6 -- and the adjoints -- K4's
-analytic adjoint K5, the polychromatic adjoint K7 and the OPD adjoint
-K9 -- (csrc/grad_spec.cuh) are compiled once for each key: the kernel,
-the dtype, one word a table row (its SurfaceSpec flags,
-cuda_trace._flags, and for the adjoints above LIVE_SHIFT the parameter
-slots it reduces), the aperture clip, whether an adjoint writes the ray
-(and weight) cotangents, the block size, the launch bound's blocks an
-SM and K6's wavelength count (its wavelengths unroll; K7's count is a
-run-time argument).  A key's translation unit is a few lines that
-instantiate the header's templates with the row words as a template
-parameter pack, so the row loop unrolls and every flag branch folds,
-and that export launchers named by the key's hash.  nvcc builds it at
-first use into its own shared library under build/torch_kernels/ (one
-nvcc run a new key, seconds; `prebuild` starts several at once), cached
-by a hash of the headers, the flags and the unit's text.  This is how
-the JAX package's Pallas kernels are specialized too: on specs, clip
-and diff_fields, and K6's wavelengths.
+The fused trace K1, the moment kernels -- the spot-moment merit K2, the
+weighted-moment forward K4 and its polychromatic twin K6 --, the OPD
+trace K8 and the adjoints -- K4's analytic adjoint K5, the
+polychromatic adjoint K7 and the OPD adjoint K9 -- (csrc/grad_spec.cuh)
+are compiled once for each key: the kernel, the dtype, one word a table
+row (its SurfaceSpec flags, cuda_trace._flags, and for the adjoints
+above LIVE_SHIFT the parameter slots it reduces), the aperture clip,
+whether an adjoint writes the ray (and weight) cotangents, the block
+size, the launch bound's blocks an SM and K6's wavelength count (its
+wavelengths unroll; K7's count is a run-time argument).  A key's
+translation unit is a few lines that instantiate the header's
+templates with the row words as a template parameter pack, so the row
+loop unrolls and every flag branch folds, and that export launchers
+named by the key's hash.  nvcc builds it at first use into its own
+shared library under build/torch_kernels/ (one nvcc run a new key,
+seconds; `prebuild` starts several at once), cached by a hash of the
+headers, the flags and the unit's text.  This is how the JAX package's
+Pallas kernels are specialized too: on specs, clip and diff_fields, and
+K6's wavelengths.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns; K9 adds n_before) are the fields asked for,
@@ -55,6 +56,7 @@ FIELDS = ("curvature", "conic", "offset", "mu")
 OPD_FIELDS = FIELDS + ("n_before",)
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
+BLOCK_TRACE = 512     # K1 and K8: measured fastest in both dtypes (PERF.md §6)
 BLOCK_MOMENTS = 256   # K2, K4 and K6 (PERF.md §6)
 BLOCK_ADJOINT = 128   # measured fastest for K5 in float64 (PERF.md §6)
 MIN_BLOCKS = 1        # __launch_bounds__'s blocks an SM (PERF.md §6)
@@ -66,9 +68,12 @@ MIN_BLOCKS = 1        # __launch_bounds__'s blocks an SM (PERF.md §6)
 MAX_NLAM = 11
 #: the moment kernels (5 moments a table, no live slots)
 MOMENTS = ("k2", "k4", "k6")
+#: the per-ray traces (outputs a ray, no reduction, no live slots)
+TRACES = ("k1", "k8")
 #: each kernel's macro in grad_spec.cuh
-_MACROS = {"k2": "RAYOPT_SPEC_MERIT", "k4": "RAYOPT_SPEC_MOMENTS",
-           "k6": "RAYOPT_SPEC_MOMENTS_MULTI", "k5": "RAYOPT_SPEC_ADJOINT",
+_MACROS = {"k1": "RAYOPT_SPEC_TRACE", "k2": "RAYOPT_SPEC_MERIT",
+           "k4": "RAYOPT_SPEC_MOMENTS", "k6": "RAYOPT_SPEC_MOMENTS_MULTI",
+           "k8": "RAYOPT_SPEC_OPD", "k5": "RAYOPT_SPEC_ADJOINT",
            "k7": "RAYOPT_SPEC_ADJOINT_MULTI",
            "k9": "RAYOPT_SPEC_OPD_ADJOINT"}
 
@@ -136,7 +141,7 @@ def live_mask(masks, nslots=SLOTS):
 
 
 class Key(NamedTuple):
-    """One specialization: kernel "k2", "k4", "k5", "k6", "k7" or "k9",
+    """One specialization: kernel "k1", "k2", "k4" ... "k9",
     dtype "f32" or "f64", one word a row (flags | live slots <<
     LIVE_SHIFT), clip, rays (an adjoint writes the ray and weight
     cotangents), threads a block, the blocks an SM that
@@ -185,15 +190,17 @@ class Key(NamedTuple):
     @property
     def shared_bytes(self):
         """The shared memory a block takes: the saved states, the staged
-        tables (K9: and its aux vector), and the block reduction of the
-        five moments a table (K2, K4, K6) or of the live slots (K9: and
-        the 3 centre cotangents)."""
+        tables (K8, K9: and the aux vector), and the block reduction of
+        the five moments a table (K2, K4, K6) or of the live slots (K9:
+        and the 3 centre cotangents); K1 and K8 reduce nothing."""
         if self.kernel in MOMENTS:
             values = 5*self.nlam
         else:
             values = self.nlive + (3 if self.kernel == "k9" else 0)
-        words = (self.nlam*self.rows*ROW + (AUX if self.kernel == "k9" else 0)
-                 + (self.block//32 + 1)*max(values, 1))
+        reduce = (0 if self.kernel in TRACES
+                  else (self.block//32 + 1)*max(values, 1))
+        words = (self.nlam*self.rows*ROW
+                 + (AUX if self.kernel in ("k8", "k9") else 0) + reduce)
         return self.dynamic_smem + words*self.word_bytes
 
 
@@ -214,6 +221,33 @@ def _words(specs, masks=None):
     return tuple(f | m << LIVE_SHIFT for f, m in zip(flags, masks))
 
 
+def _static(key):
+    """The key, refused when what it stages in static shared memory
+    (tables, aux vector, block reduction) is past SMEM_LIMIT."""
+    if key.shared_bytes > SMEM_LIMIT:
+        raise ValueError(
+            "%s stages %d table(s) of %d rows in %s in static shared memory: "
+            "%d bytes, above %d" % (key.kernel.upper(), key.nlam, key.rows,
+                                    key.dtype, key.shared_bytes, SMEM_LIMIT))
+    return key
+
+
+def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
+    """The K1 key of a spec tuple."""
+    return _static(Key("k1", _dtype_name(dtype), _words(specs), bool(clip),
+                       False, int(block or BLOCK_TRACE), int(min_blocks)))
+
+
+def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
+    """The K8 key of a spec tuple: object, exit and image rows at least
+    (the chain runs rows 1..S-2, the sphere tail the image row)."""
+    if len(specs) < 3:
+        raise ValueError("the OPD needs object, exit and image rows, got "
+                         "%d rows" % len(specs))
+    return _static(Key("k8", _dtype_name(dtype), _words(specs), bool(clip),
+                       False, int(block or BLOCK_TRACE), int(min_blocks)))
+
+
 def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks):
     """A moment kernel's key, refused when its staged tables and block
     reduction outgrow static shared memory, or (K6) past MAX_NLAM
@@ -227,12 +261,7 @@ def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks):
             "stop paying: float32 at 12 fits one block an SM and ran slower "
             "than 12 K4 launches, float64 at 16 spilled)"
             % (kernel.upper(), key.nlam, MAX_NLAM, MAX_NLAM))
-    if key.shared_bytes > SMEM_LIMIT:
-        raise ValueError(
-            "%s stages %d table(s) of %d rows in %s in static shared memory: "
-            "%d bytes, above %d" % (kernel.upper(), key.nlam, key.rows,
-                                    key.dtype, key.shared_bytes, SMEM_LIMIT))
-    return key
+    return _static(key)
 
 
 def merit_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
@@ -302,7 +331,7 @@ def translation_unit(key):
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"
             % (key.name, tuple(key), words))
     clip = "true" if key.clip else "false"
-    if key.kernel in MOMENTS:
+    if key.kernel in MOMENTS + TRACES:
         nlam = "%d, " % key.nlam if key.kernel == "k6" else ""
     else:
         nlam = "true, " if key.rays else "false, "   # the adjoints' rays
@@ -324,13 +353,15 @@ class SpecKernel:
         self._lib = ctypes.CDLL(str(path))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.fn = getattr(self._lib, key.name)
-        # K2, K4, K6: table, 6 rays, w (K2: null), partials, counter,
-        # out, n, grid, stream; K5: table, 6 rays, w, ct, partials,
-        # counter, out, 7 ray cotangents, n, grid, stream; K7: K5's with
-        # nlam before grid; K9: table, 6 rays, aux, 3 cotangents,
-        # partials, counter, out, 6 ray cotangents, n, grid, stream
-        words = {"k2": 11, "k4": 11, "k6": 11, "k5": 19, "k7": 19,
-                 "k9": 20}[key.kernel]
+        # K1: table, 6 rays, 7 outputs, n, grid, stream; K8: table, 6
+        # rays, aux, 3 outputs, n, grid, stream; K2, K4, K6: table, 6
+        # rays, w (K2: null), partials, counter, out, n, grid, stream; K5:
+        # table, 6 rays, w, ct, partials, counter, out, 7 ray cotangents,
+        # n, grid, stream; K7: K5's with nlam before grid; K9: table, 6
+        # rays, aux, 3 cotangents, partials, counter, out, 6 ray
+        # cotangents, n, grid, stream
+        words = {"k1": 14, "k8": 11, "k2": 11, "k4": 11, "k6": 11, "k5": 19,
+                 "k7": 19, "k9": 20}[key.kernel]
         ints = [i64, i32, i32] if key.kernel == "k7" else [i64, i32]
         self.fn.argtypes = [ptr]*words + ints + [ptr]
         self.fn.restype = i32

@@ -8,10 +8,11 @@ the JAX package's Pallas kernel `pallas_trace._trace_kernel`.
 K2 `trace_merit` runs the same trace with no per-ray writeback and
 reduces it to the five spot moments (count, sum x, sum y, sum x^2,
 sum y^2) over the rays whose x, y and uz are finite.  It replaces
-`pallas_trace._merit_kernel` + `_moment_row`; forward only.  Like the
-JAX package's merit kernel it is compiled for each (dtype, spec tuple,
-clip) key (csrc/grad_spec.cuh, built and cached by ops.cuda_spec), one
-launch a call with the grid-wide sum fused.
+`pallas_trace._merit_kernel` + `_moment_row`; forward only, one launch
+a call with the grid-wide sum fused.  Like the JAX package's kernels,
+K1 and K2 are compiled for each (dtype, spec tuple, clip) key
+(csrc/grad_spec.cuh, built and cached by ops.cuda_spec: a new spec
+tuple costs one nvcc run at its first call).
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
 leading wavelength axis, System.tables) and ONE bundle, read once and
@@ -20,9 +21,9 @@ returns each wavelength's final state and path, or (merit=True) each
 wavelength's five count moments.  It replaces
 `pallas_trace._multi_kernel`.
 
-The kernels are hand-written CUDA C++ (K1, K3: csrc/trace.cu, with
-the row flags read at run time), built with nvcc for sm_90a at first
-use (ops.cuda_build, ops.cuda_spec) and launched on
+The kernels are hand-written CUDA C++ (K3: csrc/trace.cu, with the
+row flags read at run time), built with nvcc for sm_90a at first use
+(ops.cuda_build, ops.cuda_spec) and launched on
 PyTorch's current stream through ctypes.  A wrapper takes the plain
 PyTorch version (`trace_final_reference`, `trace_merit_reference`,
 `trace_multi_reference`, all built from kernels.surface_step_spec)
@@ -43,12 +44,12 @@ from . import kernels as K
 from .geometric import trace_components_final
 from .tables import lower_pose, table_at
 
-# packed row layout and flag bits: keep in sync with csrc/trace.cu
+# packed row layout and flag bits: keep in sync with csrc/trace_common.cuh
 P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
 F_FLAT, F_SPHERICAL, F_ROTATED, F_OFF_AXIS = 1, 2, 4, 8
 F_ALTERNATE, F_FINITE, KIND_SHIFT = 16, 32, 6
 
-BLOCK = 256          # threads a block (a power of two: K3's tree sum)
+BLOCK = 256          # K3's and K10-K13's threads a block (a power of two)
 BLOCKS_PER_SM = 8    # grid-stride grid: this many blocks on each SM
 SMEM_LIMIT = 48*1024  # static shared memory, or dynamic without an opt-in
 SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (K3, the adjoints)
@@ -174,10 +175,10 @@ def _check_state(state):
             raise ValueError("components must be contiguous")
 
 
-def _launch_setup(table, specs, state, smem_extra_words=0):
-    """Checks, packing and launch shape for a CUDA bundle; a stacked
-    table (leading wavelength axis) packs to (L, S, ROW) and may use
-    Hopper's opt-in shared memory."""
+def _launch_setup(tables, specs, state, smem_extra_words=0):
+    """K3's checks, packing and launch shape for a CUDA bundle: the
+    stacked table (leading wavelength axis) packs to (L, S, ROW) and may
+    use Hopper's opt-in shared memory."""
     _check_state(state)
     x = state[0]
     if x.device.type != "cuda":
@@ -185,15 +186,14 @@ def _launch_setup(table, specs, state, smem_extra_words=0):
                          % x.device)
     from .cuda_build import load_library
     lib = load_library()
-    packed, flags = pack_table(table, specs, x.dtype, x.device)
+    packed, flags = pack_table(tables, specs, x.dtype, x.device)
     nsurf = packed.shape[-2]
     word = x.element_size()
     smem = (packed[..., 0].numel()*ROW + smem_extra_words)*word + nsurf*4
-    limit = SMEM_OPTIN if packed.dim() == 3 else SMEM_LIMIT
-    if smem > limit:
+    if smem > SMEM_OPTIN:
         raise ValueError("%d table(s) of %d surfaces need %d bytes of shared "
                          "memory, above %d" % (packed[..., 0, 0].numel(),
-                                               nsurf, smem, limit))
+                                               nsurf, smem, SMEM_OPTIN))
     n = x.shape[0]
     grid = max(1, min(-(-n // BLOCK), sm_count(x.device)*BLOCKS_PER_SM))
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -208,24 +208,33 @@ def _raise_on(lib, err, name):
                            % (name, err, msg))
 
 
+@functools.lru_cache(maxsize=None)
+def _trace_kernel(specs, dtype, clip):
+    from . import cuda_spec as CS     # cuda_spec imports this module
+    return CS.load(CS.trace_key(specs, dtype, clip))
+
+
 def trace_final(table, specs, state, clip=False):
     """K1: ((x, y, z, ux, uy, uz), t) after the last surface, for six
     contiguous (N,) components in float32 or float64.  CUDA bundles
-    launch the kernel; CPU bundles take trace_final_reference."""
-    if state[0].device.type == "cpu":
-        _check_state(state)
+    launch the kernel compiled for (dtype, specs, clip) (ops.cuda_spec:
+    one launch, none for no rays); CPU bundles take
+    trace_final_reference."""
+    _check_state(state)
+    x = state[0]
+    if x.device.type == "cpu":
         return trace_final_reference(table, specs, state, clip)
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
-        table, specs, state)
-    outs = [torch.empty_like(state[0]) for _ in range(7)]
-    if n == 0:
-        return tuple(outs[:6]), outs[6]
-    err = getattr(lib, "trace_final_" + suffix)(
-        packed.data_ptr(), flags.data_ptr(), nsurf, int(bool(clip)),
-        *(c.data_ptr() for c in state), *(o.data_ptr() for o in outs),
-        n, grid, BLOCK, stream)
-    _raise_on(lib, err, "trace_final")
-    trace_final.launches += 1
+    from .cuda_spec import packed, spec_launch
+    device, n, stream = spec_launch(state)
+    specs = tuple(specs)
+    kern = _trace_kernel(specs, x.dtype, bool(clip))
+    tab = packed(table, specs, x)
+    outs = [torch.empty_like(x) for _ in range(7)]
+    if n:
+        kern.check(kern.fn(tab.data_ptr(), *(c.data_ptr() for c in state),
+                           *(o.data_ptr() for o in outs), n,
+                           kern.grid(n, device), stream))
+        trace_final.launches += 1
     return tuple(outs[:6]), outs[6]
 
 

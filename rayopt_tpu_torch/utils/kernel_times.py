@@ -9,8 +9,9 @@ u = (0, 0, 1)):
 
 * K1 trace_final, K2 trace_merit, K4 weighted_moments, K5
   merit_adjoint, K6 weighted_moments_multi and K7 merit_adjoint_multi
-  (the 3-wavelength stack) and K9 opd_adjoint (ray 0 the chief ray,
-  the wavefront-RMS cotangents), the adjoints for all fields with the
+  (the 3-wavelength stack), K8 opd_chain and K9 opd_adjoint (ray 0 the
+  chief ray, K9 with the wavefront-RMS cotangents), the adjoints for
+  all fields with the
   ray cotangents written (the work every tree's adjoints do), in
   float32 and float64 at 2^22 rays, float64 at one loop bundle's
   1,046,071 rays and float32 at 2^26 rays, and K1 and K2 in float64 at
@@ -32,10 +33,13 @@ that tree's rayopt_tpu_torch/utils/ and run it from that tree's root.
 --variants (this tree only) times the loops' keys of K5, K7 and K9 in
 float64 and float32 at other block sizes and launch bounds, and K2
 (the double Gauss) and K6 (the 3-wavelength stack, the achromatization
-path's key) at 128, 256 and 512 threads a block, and K6 on stacks of
-NLAMS wavelengths (400-700 nm) against as many launches of K4, with
-each K6 build's registers and spills.  Prints
-one JSON object; needs a CUDA card.
+path's key) at 128, 256 and 512 threads a block, K1 and K8 (unclipped)
+at 128, 256 and 512 threads a block in float64 at 2^22 and 1,046,071
+rays and in both dtypes at 2^26, through the wrapper and as the bare
+launch, and K6 on stacks of NLAMS
+wavelengths (400-700 nm) against as many launches of K4, with each K6
+build's registers and spills.  Prints one JSON object; needs a CUDA
+card.
 """
 
 import argparse
@@ -119,8 +123,8 @@ def opd_inputs(s, table, specs, state):
 
 def kernel_times(s, table, specs):
     from rayopt_tpu_torch.ops.cuda_grad import (
-        merit_adjoint, merit_adjoint_multi, opd_adjoint, weighted_moments,
-        weighted_moments_multi)
+        merit_adjoint, merit_adjoint_multi, opd_adjoint, opd_chain,
+        weighted_moments, weighted_moments_multi)
     from rayopt_tpu_torch.ops.cuda_trace import trace_final, trace_merit
     sliced = {fn: "fields" in inspect.signature(fn).parameters
               for fn in (merit_adjoint, merit_adjoint_multi, opd_adjoint)}
@@ -153,6 +157,7 @@ def kernel_times(s, table, specs):
             "K6": lambda: weighted_moments_multi(tabs, specs, state, w),
             "K5": lambda: merit_adjoint(table, specs, state, w, ct),
             "K7": lambda: merit_adjoint_multi(tabs, specs, state, w, ctm),
+            "K8": lambda: opd_chain(table, specs, state, aux),
             "K9": lambda: opd_adjoint(table, specs, state, aux, cts)}
         if sliced[merit_adjoint]:
             cases["K5 optimizer"] = lambda: merit_adjoint(
@@ -253,7 +258,83 @@ def variant_times(s, specs, table):
                         mod, lookup, built[key], calls[kind], n, device)
         del state, w, cts
         torch.cuda.empty_cache()
+    out.update(trace_variant_times(s, specs, table))
     out.update(nlam_times(s, specs))
+    return out
+
+
+#: K1's and K8's variants: threads a block
+TRACE_BLOCKS = (128, 256, 512)
+
+
+#: the (dtype, rays) of K1's and K8's variant timings
+TRACE_SIZES = ((torch.float64, 1 << 22), (torch.float64, N_OPT_BUNDLE),
+               (torch.float32, 1 << 22), (torch.float32, 1 << 26),
+               (torch.float64, 1 << 26))
+
+
+def trace_variant_times(s, specs, table):
+    """K1 and K8 (unclipped) at each of TRACE_BLOCKS and TRACE_SIZES
+    (float64 at 2^22, the forward path's aimed bundles, and at
+    N_OPT_BUNDLE, a design bundle; float32 at 2^22; both at 2^26), with
+    each build's registers and spills.  Each variant is timed twice, the
+    second round in the reverse order: through the wrapper ("ms", its
+    kernel lookup pointed at the variant's build; the wrapper packs the
+    table each call) and as the bare launch on a table packed once
+    ("launch_ms")."""
+    from rayopt_tpu_torch.ops import cuda_grad as CG
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import cuda_trace as CT
+    kinds = {"K1": (CT, "_trace_kernel", CS.trace_key),
+             "K8": (CG, "_opd_kernel", CS.opd_key)}
+    keys = {(k, dt, b): make(specs, dt, False, block=b)
+            for k, (_, _, make) in kinds.items()
+            for dt in (torch.float64, torch.float32) for b in TRACE_BLOCKS}
+    built = CS.prebuild(list(keys.values()))
+    kerns = {v: built[key] for v, key in keys.items()}
+    out = {}
+    for dtype, n in TRACE_SIZES:
+        reps = 5 if n > 1 << 22 else 20
+        state, _ = bench_bundle(n, dtype)
+        device = state[0].device
+        for c, v in zip(state, (0., 0., 0., 0., 0., 1.)):
+            c[0] = v
+        aux, _ = opd_inputs(s, table, specs, state)
+        tab = CS.packed(table, specs, state[0])
+        outs = [torch.empty_like(state[0]) for _ in range(7)]
+        stream = torch.cuda.current_stream(device).cuda_stream
+        calls = {"K1": lambda: CT.trace_final(table, specs, state),
+                 "K8": lambda: CG.opd_chain(table, specs, state, aux)}
+        ptrs = {"K1": [c.data_ptr() for c in (*state, *outs)],
+                "K8": [c.data_ptr() for c in (*state, aux, *outs[:3])]}
+        mine = [(v, kern) for v, kern in kerns.items() if v[1] == dtype]
+        rows = {}
+        for order in (mine, mine[::-1]):
+            for (kind, _, block), kern in order:
+                mod, lookup, _ = kinds[kind]
+                name = "%s %s %d block %d" % (kind, str(dtype)[6:], n, block)
+                grid = kern.grid(n, device)
+                args = [tab.data_ptr(), *ptrs[kind], n, grid, stream]
+                row = rows.setdefault(name, {"runs_ms": [],
+                                             "launch_runs_ms": []})
+                real = getattr(mod, lookup)
+                setattr(mod, lookup, lambda *a, _kern=kern: _kern)
+                try:
+                    row["runs_ms"].append(cuda_ms(calls[kind], reps))
+                finally:
+                    setattr(mod, lookup, real)
+                row["launch_runs_ms"].append(cuda_ms(
+                    lambda: kern.check(kern.fn(*args)), reps))
+                row.update(grid=grid, blocks_per_sm=kern.blocks_per_sm(
+                    device), ptxas=[ln for ln in kern.ptxas_lines()
+                                    if "registers" in ln
+                                    or "stack frame" in ln])
+        for row in rows.values():
+            row["ms"] = float(np.mean(row["runs_ms"]))
+            row["launch_ms"] = float(np.mean(row["launch_runs_ms"]))
+        out.update(rows)
+        del state, outs, tab
+        torch.cuda.empty_cache()
     return out
 
 

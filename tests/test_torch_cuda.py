@@ -222,6 +222,144 @@ def _spec_case(name, device, dtype):
     return tab, specs, state, w.to(device, dtype)
 
 
+def _spec_aux(name, tab, specs, state):
+    """K8's aux vector for a _spec_case bundle (ray 0 the chief ray): its
+    image point from the CPU float64 plain trace, the exit pupil's
+    reference-sphere radius and the first wavelength's scale, in the
+    rays' dtype on their device."""
+    from rayopt_tpu_torch.models import (cooke_triplet, doublet,
+                                         parabolic_mirror)
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    s = {"doublet": doublet, "cooke": cooke_triplet,
+         "cooke_pose": cooke_triplet, "parabolic": parabolic_mirror,
+         "double_gauss": double_gauss, "near_flat": double_gauss}[name]()
+    y0 = torch.stack([c[:1] for c in state[:3]], 1).double().cpu()
+    u0 = torch.stack([c[:1] for c in state[3:]], 1).double().cpu()
+    yr, _, _ = trace_rays_final(tab.to(device="cpu"), y0, u0, specs=specs)
+    aux = torch.cat([yr[0], torch.tensor([-s.image.pupil.distance,
+                                          s.wavelengths[0]/s.scale],
+                                         dtype=torch.float64)])
+    return aux.to(state[0].device, state[0].dtype)
+
+
+#: float64 K1/K8 against the plain version, of max(1, the output's
+#: largest |value|): rounding (the multiply-adds nvcc contracts), save
+#: on the doublet, whose first row -- a sphere of c = 1.6/mm 99.9 mm
+#: past the input plane -- cancels ~4 digits of its discriminant, so
+#: that two roundings of the same ray differ by up to 2.8e-12 of a unit
+#: direction at the image (measured on the card; the CPU engines of
+#: both packages differ by 5.7e-11 there, tests/test_torch_spec_trace.py)
+TRACE_F64_REL = {"doublet": 1e-11}
+
+
+def _trace_case(name, device, dtype):
+    """K1's and K8's inputs: (table, specs, bundle, K8's aux).  A
+    _spec_case system, or "vocabulary": vocabulary_table with its object
+    row tilted too (each rotated and off-axis branch of the chain: row
+    0's frame, a tilted and decentred conic, a fold, a mirror, an
+    alternate root and a tilted image row, whose flags reach K8's sphere
+    tail), on the bench bundle with ray 0 the chief ray; its aux is that
+    ray's image point from the CPU float64 plain trace, a 50 mm
+    reference sphere and a 587.56 nm wavelength's scale."""
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    if name != "vocabulary":
+        tab, specs, state, _ = _spec_case(name, device, dtype)
+        return tab, specs, state, _spec_aux(name, tab, specs, state)
+    tab = vocabulary_table()
+    rot = tab.rot.clone()
+    rot[0] = rodrigues(torch.tensor([.01, .02, -.015], dtype=torch.float64))
+    tab = tab.replace(rot=rot)
+    specs = specialize(tab)
+    state = _bench_state(1 << 14, 3, device, dtype)
+    for c, v in zip(state, (0., 0., 0., 0., 0., 1.)):
+        c[0] = v
+    yr, _, _ = trace_rays_final(
+        tab.to(device="cpu"), torch.tensor([[0., 0., 0.]]).double(),
+        torch.tensor([[0., 0., 1.]]).double(), specs=specs)
+    aux = torch.cat([yr[0], torch.tensor([50., 587.56e-9/1e-3],
+                                         dtype=torch.float64)])
+    return tab, specs, state, aux.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["doublet", "cooke", "double_gauss",
+                                  "parabolic", "near_flat", "cooke_pose",
+                                  "vocabulary"])
+def test_specialized_trace_matches_plain_on_card(cuda_device, name, dtype):
+    """K1 (trace_final) and K8 (opd_chain) compiled per spec tuple
+    (ops.cuda_spec) against their plain versions on aimed bundles (the
+    Cooke also with its pose flags forced on; the vocabulary table, every
+    rotated and off-axis branch, on the bench bundle), clip off and on
+    (1.5x wider clipped, so that apertures vignette; not the doublet,
+    which has no finite aperture: widened, its rays only graze its first
+    sphere, where rounding decides a hit, and not the vocabulary table,
+    whose first aperture already clips the bench bundle): one launch a
+    call;
+    NaN exactly where the plain version is NaN in
+    float64, the masks differing on at most 1e-4 of the rays in float32
+    (a ray on an aperture's edge).  On the rays live in every version
+    compared, each output of its scale, max(1, its largest |value|):
+    float64 within 1e-12 (TRACE_F64_REL on the doublet); float32 against
+    the float64 plain version on the same inputs within 5e-5 (K1: a few
+    ulp of the ~30 mm intermediates, as test_kernels_match_plain_on_card)
+    or 1e-5 (K8: k is a ~1e5-wave path, as
+    test_opd_kernels_match_plain_on_card), or ten times the float32 plain
+    version's own error where that is larger (the doublet's first
+    intercept, above).  No rays give empty outputs and no launch."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    tab, specs, state0, aux = _trace_case(name, cuda_device, dtype)
+    f64 = dtype == torch.float64
+    CS.prebuild([make(specs, dtype, clip) for clip in (0, 1)
+                 for make in (CS.trace_key, CS.opd_key)])
+    n = state0[0].shape[0]
+
+    def check(got, ref, ref64, tol, tag):
+        for q, (g, r, r64) in enumerate(zip(got, ref, ref64)):
+            assert g.dtype == dtype and g.device.type == "cuda"
+            assert g.shape == r.shape == (n,)
+            gn, rn = torch.isnan(g), torch.isnan(r)
+            assert int((gn != rn).sum()) <= (0 if f64 else 1e-4*n), (
+                tag, q)
+            both = ~(gn | rn) & torch.isfinite(r64)
+            if not bool(both.any()):
+                continue
+            g, r, r64 = (v[both].double() for v in (g, r, r64))
+            scale = max(float(r64.abs().max()), 1.)
+            err = float((g - r64).abs().max())
+            if f64:
+                lim = TRACE_F64_REL.get(name, 1e-12)*scale
+            else:
+                lim = max(tol*scale, 10*float((r - r64).abs().max()))
+            assert err <= lim, (tag, q, err, lim)
+    widen = 1. if name in ("doublet", "vocabulary") else 1.5
+    for clip in (False, True):
+        state = tuple(c*widen if clip and i < 2 else c
+                      for i, c in enumerate(state0))
+        state64 = tuple(c.double() for c in state)
+        before = CT.trace_final.launches, CG.opd_chain.launches
+        got, t = CT.trace_final(tab, specs, state, clip)
+        k = CG.opd_chain(tab, specs, state, aux, clip)
+        torch.cuda.synchronize()
+        assert (CT.trace_final.launches, CG.opd_chain.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref, tref = CT.trace_final_reference(tab, specs, state, clip)
+        ref64, tref64 = CT.trace_final_reference(tab, specs, state64, clip)
+        assert clip or bool(torch.isfinite(ref[3]).any())
+        check((*got, t), (*ref, tref), (*ref64, tref64), 5e-5, ("K1", clip))
+        kref = CG.opd_chain_reference(tab, specs, state, aux, clip)
+        assert clip or bool(torch.isfinite(kref[0]).any())
+        check(k, kref, CG.opd_chain_reference(tab, specs, state64,
+                                              aux.double(), clip),
+              1e-5, ("K8", clip))
+        empty = tuple(c[:0] for c in state)
+        got, t = CT.trace_final(tab, specs, empty, clip)
+        k = CG.opd_chain(tab, specs, empty, aux, clip)
+        assert all(c.shape == (0,) for c in (*got, t, *k))
+        assert (CT.trace_final.launches, CG.opd_chain.launches) == (
+            before[0] + 1, before[1] + 1)
+
+
 def _rel(got, want):
     """max |got - want| over the pairs, of the largest |want| (the error
     itself where want is all zero)."""
