@@ -4,8 +4,9 @@
 
 Builds the hand-written CUDA kernels from the checkout (K1, K2 and
 K4-K9 once for each spec tuple, wavelength count, slot set and flag
-they run with, all keys in parallel, with their ptxas registers, stack
-and spills), holds each against its plain PyTorch version on the card
+they run with, K11 and K13 once for each plan key, all keys in
+parallel, with their ptxas registers, stack and spills, and K11's and
+K13's SASS size), holds each against its plain PyTorch version on the card
 (the specialized K5 for each slot set, with and without ray
 cotangents, K7 and K9 for
 every field with ray cotangents and for their loops' keys; the repaired
@@ -446,8 +447,30 @@ def spec_keys(specs, mspecs, nlam, extra=()):
     return keys
 
 
+def df32_keys(s):
+    """{tag: key} of the K11 and K13 specializations this script runs:
+    the plans of the double Gauss's wavelengths, fast and exact, clip
+    off and on, K11 with and without the optical path (the check), the
+    df32 path's among them (fast, unclipped, K11 with the path)."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.tables import table_at
+    tabs = s.tables()
+    keys = {}
+    for fast in (True, False):
+        for clip in (False, True):
+            plans = [D.plan(table_at(tabs, li), clip=clip, fast=fast)
+                     for li in range(tabs.curvature.shape[0])]
+            tag = "%s clip=%s" % ("fast" if fast else "exact", clip)
+            for wp in (False, True):
+                keys["K11 %s path=%s" % (tag, wp)] = CS.df32_multi_key(
+                    plans, "k11", wp)
+            keys["K13 " + tag] = CS.df32_multi_key(plans, "k13")
+    return keys
+
+
 # the keys whose ptxas report must show no stack frame and no spill: the
-# loops' and the forward path's (phase_spec_build)
+# loops' and the forward path's (phase_spec_build), and the df32 path's
 LOOP_KEYS = ("K1 float32 clip=False",
              "K1 float64 clip=False",
              "K8 float64 clip=False",
@@ -458,7 +481,9 @@ LOOP_KEYS = ("K1 float32 clip=False",
              "K5 float32 clip=True optimizer rays=False",
              "K5 float64 clip=True optimizer rays=False",
              "K7 float64 clip=False achromatization rays=False",
-             "K9 float64 clip=False design rays=False")
+             "K9 float64 clip=False design rays=False",
+             "K11 fast clip=False path=True",
+             "K13 fast clip=False")
 
 
 def ptxas_stats(kern):
@@ -475,26 +500,52 @@ def ptxas_stats(kern):
             int(frame.group(2)) + int(frame.group(3)))
 
 
+def sass_size(kern):
+    """(instructions, bytes) of a one-kernel specialized library's SASS
+    (cuobjdump --dump-sass from the CUDA toolkit, 16 bytes an
+    instruction on Hopper), or (None, None) without cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "--dump-sass", str(kern.path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as err:
+        log("cuobjdump --dump-sass %s: not run (%s)" % (kern.path.name, err))
+        return None, None
+    count = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", text, re.M))
+    return count, 16*count
+
+
 def phase_spec_build(keys):
-    """Build every K1, K2, K4-K9 specialization at once (one nvcc a key,
-    in parallel); log each key's build seconds and ptxas lines.  The
-    loops' keys (LOOP_KEYS: K1 of the forward path, float32 and float64,
-    and K2, float64; K5 for the optimizer's slot set; K6 and K7 for the
-    achromatization path's and K8 and K9 for the design path's,
-    float64) must have no stack frame and no spill.  Returns {tag:
-    (registers, stack bytes, spill bytes)}."""
+    """Build every K1, K2, K4-K9, K11 and K13 specialization at once (one
+    nvcc a key, in parallel); log each key's build seconds and ptxas
+    lines, and K11's and K13's SASS size.  The loops' keys (LOOP_KEYS: K1
+    of the forward path, float32 and float64, and K2, float64; K5 for the
+    optimizer's slot set; K6 and K7 for the achromatization path's and K8
+    and K9 for the design path's, float64; K11 and K13 of the df32 path)
+    must have no stack frame and no spill.  Returns {tag: (registers,
+    stack bytes, spill bytes)} and {tag: (SASS instructions, bytes)} of
+    the K11 and K13 keys."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
-    log("== K1, K2, K4-K9 specialized per spec tuple: %d key tags, %d keys"
-        % (len(keys), len(set(keys.values()))))
+    log("== K1, K2, K4-K9 per spec tuple, K11 and K13 per plan key: %d key "
+        "tags, %d keys" % (len(keys), len(set(keys.values()))))
     t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
     log("built in %.2f s wall" % (time.perf_counter() - t0))
-    stats, failures = {}, []
+    stats, sass, failures = {}, {}, []
     for tag, key in keys.items():
         kern = built[key]
         stats[tag] = ptxas_stats(kern)
-        log("%s: %s, %d live slots, block %d, nvcc %.2f s | %s" % (
-            tag, key.name, key.nlive, key.block, kern.build_seconds,
+        what = ("%d plan(s), %d flag tuple(s), staged=%s" % (
+            key.nlam, len(key.tuples), key.staged)
+            if isinstance(key, CS.Df32Key) else "%d live slots" % key.nlive)
+        if isinstance(key, CS.Df32Key):
+            sass[tag] = sass_size(kern)
+            what += ", SASS %s instructions" % (sass[tag][0],)
+        log("%s: %s, %s, block %d, nvcc %.2f s | %s" % (
+            tag, key.name, what, key.block, kern.build_seconds,
             " | ".join(ln for ln in kern.ptxas_lines()
                        if "Compiling" not in ln and "properties" not in ln)))
         if tag in LOOP_KEYS and stats[tag][1:] != (0, 0):
@@ -502,7 +553,7 @@ def phase_spec_build(keys):
     if failures:
         raise AssertionError("a loop's key has a stack frame or spills: %s"
                              % failures)
-    return stats
+    return stats, sass
 
 
 def phase_spec_check(table, specs):
@@ -2432,17 +2483,22 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
                                      else "operations")
 
 
-# float32 operations of csrc/df32.cu's df32 functions as written (one per
-# add, subtract, multiply, divide or square root; a negation is a sign
-# flip and not counted): two_prod is 17 (Dekker's split 4 a factor), so
-# mul 24 and sqr 23; div and sqrt are the exact plan's two refinement
-# rounds, div1 and sqrt1 the fast plan's one
-DF_OPS = {"add": 11, "mul": 24, "sqr": 23, "scale": 2, "div": 89,
-          "div1": 41, "sqrt": 88, "sqrt1": 41}
+# float32 operations of the df32 functions in the least form that gives
+# the same words (csrc/df32_common.cuh with two_prod's FMA form,
+# RAYOPT_DF32_FMA 1, as K11 and K13 run it): one per add, subtract,
+# multiply, divide or square root and two per fused multiply-add, as the
+# 67 TFLOP/s peak counts them (a negation is a sign flip and not
+# counted).  two_prod is 3, so mul 10 and sqr 9; div and sqrt are the
+# exact plan's two refinement rounds, div1 and sqrt1 the fast plan's
+# one.  K10 and K12 still issue Dekker's split (two_prod 17, mul 24, sqr
+# 23, div 89, div1 41, sqrt 88, sqrt1 41); their bound counts the least
+# work too.
+DF_OPS = {"add": 11, "mul": 10, "sqr": 9, "scale": 2, "div": 61,
+          "div1": 27, "sqrt": 60, "sqrt1": 27}
 
 
 def df32_step_ops(step, path=False):
-    """float32 operations of one surface_df of csrc/df32.cu for a
+    """float32 operations of one surface_df (csrc/df32_common.cuh) for a
     planned step (ops.df32.plan), and of the path's s * n_before."""
     o = DF_OPS
     dv = o["div1"] if step["fast"] else o["div"]
@@ -2503,19 +2559,22 @@ def df32_bound(name, n, plans, live):
     """(bound_ms, bound_by) of one df32 launch at n rays through `plans`
     (one plan for K10/K12, one a wavelength for K11/K13; K10/K11 with
     the optical path): 12 float32 words read a ray, 14 written a ray and
-    plan (K10/K11) or 10 a block and plan (K12/K13, on the wrappers'
-    grid), the plans' words and flags, over the HBM rate; the float32
-    operations of df32_chain_ops (and DF32_MOMENT_OPS for each of the
-    `live` rays, summed over plans) over 67 TFLOP/s, the float32 peak
-    outside the tensor cores, as kernel_bound counts (one operation a
-    flop)."""
+    plan (K10/K11), 10 a block (K12, on its wrapper's grid) or the 5
+    float64 moments a plan (K13), the plans' words and flags, over the
+    HBM rate; the float32 operations of df32_chain_ops (and
+    DF32_MOMENT_OPS for each of the `live` rays, summed over plans) over
+    67 TFLOP/s, the float32 peak outside the tensor cores, which counts a
+    fused multiply-add as two."""
     from rayopt_tpu_torch.ops.cuda_df32 import DW
     from rayopt_tpu_torch.ops.cuda_trace import BLOCK, BLOCKS_PER_SM
     merit = "merit" in name
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     grid = max(1, min(-(-n // BLOCK), sms*BLOCKS_PER_SM))
     nlam = len(plans)
-    out = grid*10*nlam if merit else n*14*nlam
+    if merit:
+        out = nlam*5*2 if "multi" in name else grid*10
+    else:
+        out = n*14*nlam
     nbytes = (n*12 + out + nlam*len(plans[0])*(DW + 1))*4
     flops = n*sum(df32_chain_ops(p, path=not merit) for p in plans)
     if merit:
@@ -2532,10 +2591,17 @@ DF32_REPLACES = {
     "trace_merit_multi_df32": "rayopt_tpu/ops/df32.py:1321"}
 
 
-def df32_entries(s, launches, worst, times, live):
+# the df32 path's key of K11 and K13: its tag in phase_spec_build's stats
+DF32_LOOP_KEYS = {"trace_multi_df32": "K11 fast clip=False path=True",
+                  "trace_merit_multi_df32": "K13 fast clip=False"}
+
+
+def df32_entries(s, launches, worst, times, live, ptxas, sass):
     """The kernels-line entries of K10-K13: `ms`/`plain_ms` with the fast
     plan at N_GRAD_TIME rays, `ms_exact`/`plain_ms_exact` with the exact
-    one, the N_BENCH times beside them; no float64 instance."""
+    one, the N_BENCH times beside them; no float64 instance.  K11 and K13
+    also carry their df32 path key's registers, stack, spills and SASS
+    size."""
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.tables import table_at
     tabs = s.tables()
@@ -2545,9 +2611,17 @@ def df32_entries(s, launches, worst, times, live):
         multi = "multi" in kname
         lam = nlam if multi else 1
         entry = {"name": kname, "route": "cuda",
-                 "source": "rayopt_tpu_torch/csrc/df32.cu",
+                 "source": "rayopt_tpu_torch/csrc/%s" % (
+                     "df32_spec.cuh" if multi else "df32.cu"),
                  "replaces": DF32_REPLACES[kname],
                  "launches": launches[kname], "max_abs_err": worst[kname]}
+        if multi:
+            tag = DF32_LOOP_KEYS[kname]
+            regs, stack, spill = ptxas[tag]
+            entry.update({"regs_f32": regs, "stack_bytes_f32": stack,
+                          "spill_bytes_f32": spill,
+                          "sass_instructions": sass[tag][0],
+                          "sass_bytes": sass[tag][1]})
         for plan in ("fast", "exact"):
             tabs_used = [table_at(tabs, li) for li in range(lam)] if multi \
                 else [s.table()]
@@ -2593,7 +2667,8 @@ def main():
     keys = spec_keys(
         specs, mspecs, tabs.curvature.shape[0],
         [(name, specialize(tab)) for name, _, tab, _ in intercept_cases()])
-    ptxas = phase_spec_build(keys)
+    keys.update(df32_keys(s))
+    ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
     worst.update(phase_grad_check(table, specs))
@@ -2756,7 +2831,7 @@ def main():
         if tt is not times:
             entry["ms_f32_%d_rays" % N_BENCH] = tt[(kname, N_BENCH)]
         kernels.append(entry)
-    kernels += df32_entries(s, launches, worst, dtimes, dlive)
+    kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())
     log("== keys built at first use, outside phase_spec_build: %d %s"

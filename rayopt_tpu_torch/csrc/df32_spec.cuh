@@ -1,0 +1,332 @@
+// The polychromatic df32 trace (K11) and df32 spot-moment merit (K13)
+// for NVIDIA Hopper (sm_90a), compiled per plan key: the distinct flag
+// tuples of the key's plans (one flag word a step: kind, flat, conic,
+// alternate, off-axis, the signed-permutation codes, rotation, clip and
+// fast, cuda_df32._step_words), which tuple each plan takes, the optical
+// path (K11), whether the chain reads the plan words from the kernel's
+// parameters or from a shared-memory copy of them, the block size and
+// the launch bound.  The plan words themselves (curvature, mu, offsets,
+// rotation, ...) stay run-time data: one build serves every wavelength
+// of a table and every change of value that keeps the flags.
+//
+// Replaces the JAX package's Pallas TPU kernels
+//   K11  rayopt_tpu/ops/df32.py  pallas_trace_df32_multi       (kernel :1140)
+//   K13  rayopt_tpu/ops/df32.py  pallas_trace_df32_merit_multi (kernel :1321)
+// which the JAX package specializes the same way (each plan's steps are
+// Python dicts, unrolled at trace time), and computes, word for word,
+// what rayopt_tpu_torch/ops/df32.py computes (the plain versions; the
+// wrappers are in ops/cuda_df32.py).  rayopt_tpu_torch.ops.cuda_spec
+// writes a translation unit a key (Plans<Plan<flag words...>...>,
+// PlanMap<tuple of each plan...>) and nvcc builds it at first use.
+//
+// What bounds them on the H100.  One ray through one double Gauss plan
+// costs 5,390 (fast) to 6,392 (exact) float32 operations in this form,
+// 5,642 to 6,644 with the path (chip_smoke.df32_chain_ops, an FMA
+// counted twice), against 48 bytes read and 56 written a plan (K11 with
+// the path): bound by operations, and by the issue of unfused float32
+// instructions, one a warp a clock.
+//
+// What the design does about it.
+//  * two_prod takes its FMA form (df32_common.cuh, RAYOPT_DF32_FMA 1):
+//    mul falls from 24 float32 operations to 9, sqr from 23 to 8, with
+//    the same words.  The cross terms and the renormalisation stay
+//    unfused, as the plain version rounds them.
+//  * Every step's flags are a std::integral_constant (surface_df reads
+//    them with flag_value): the flag tests, the permutation picks and
+//    the fast/exact choice fold at compile time and the step chain
+//    unrolls into straight-line code, with no integer, branch or select
+//    instruction taking an issue slot from the float32 chain.
+//  * Wavelengths outermost: for each plan, a grid-stride loop over the
+//    rays loads a ray's 12 words, traces it, and stores it (K11) or adds
+//    its moments (K13).  The plan index is a run-time loop over one
+//    instantiated chain a flag tuple (a table's wavelengths share one;
+//    only mu and n_before differ), so the code is one chain long, not
+//    one a plan.  Re-reading the ray each plan costs 48 bytes a ray and
+//    plan beside ~5k operations, and no register holds the input ray
+//    across the plans.
+//  * The plan words travel in the kernel's parameters (a
+//    __grid_constant__ struct the launcher fills from the host-side
+//    packed words: no upload a call, no device copy).  Read straight
+//    from there, ptxas keeps most of them in registers across the ray
+//    loop: fewer load instructions in the chain, and K11 runs fastest
+//    so (106 registers, 2 blocks of 256 an SM).  K13's moments and
+//    reduction push that to 141 registers, one block an SM; with
+//    STAGED each block copies the words once into static shared memory
+//    and the chain reads that copy through a volatile pointer, where
+//    each word is used (56 registers, 2 blocks of 512), K13's faster
+//    form.  Every thread reads the same word: a broadcast.
+//  * K13 keeps each plan's five df32 moments in registers, reduces the
+//    block with block_sum_df (warp shuffles, df32 adds) into its
+//    (hi, lo) pairs, and the last block to finish (last_block) promotes
+//    every block's pair exactly to float64 and sums them in block order:
+//    one launch a call, no float atomics.
+//  * IEEE division and square root, no fast math.
+//
+// Interface: plain extern "C" launchers (RAYOPT_DF32_TRACE,
+// RAYOPT_DF32_MERIT), loaded with ctypes; each launches on the given
+// stream, synchronises nothing, allocates nothing, and returns
+// cudaGetLastError() (0 = launched).
+
+#pragma once
+
+#if defined(RAYOPT_DF32_FMA) && !RAYOPT_DF32_FMA
+#error "df32_spec.cuh takes two_prod's FMA form"
+#endif
+#ifndef RAYOPT_DF32_FMA
+#define RAYOPT_DF32_FMA 1
+#endif
+
+#include <cstring>
+#include <tuple>
+#include <type_traits>
+#include <utility>
+
+#include "df32_common.cuh"
+
+namespace {
+
+// One flag tuple: a step's flag word a step.
+template <int... F>
+struct Plan {
+  static constexpr int steps = sizeof...(F);
+};
+
+template <int... F>
+__host__ __device__ constexpr int step_flags(Plan<F...>, int j) {
+  constexpr int f[] = {F...};
+  return f[j];
+}
+
+template <class P, int J>
+using StepFlags = std::integral_constant<int, step_flags(P{}, J)>;
+
+// The key's distinct flag tuples (one step count).
+template <class... P>
+struct Plans {
+  static constexpr int count = sizeof...(P);
+  template <int I>
+  using at = std::tuple_element_t<I, std::tuple<P...>>;
+  static constexpr int steps = at<0>::steps;
+};
+
+// The tuple each plan takes, plan by plan.
+template <int... T>
+struct PlanMap {
+  static constexpr int nlam = sizeof...(T);
+};
+
+// the tuple of plan l, l known at run time: compares and selects, no
+// table in memory
+template <int... T>
+__host__ __device__ constexpr int tuple_of(PlanMap<T...>, int l) {
+  int k = 0, out = -1;
+  ((out = k++ == l ? T : out), ...);
+  return out;
+}
+
+// The plan words of a key: nlam * steps * DW floats, plan after plan.
+template <class Ps, class Map>
+__host__ __device__ constexpr int plan_words() {
+  return Map::nlam * Ps::steps * DW;
+}
+
+// The kernel parameter that carries the plan words.
+template <class Ps, class Map>
+struct ParamWords {
+  float w[plan_words<Ps, Map>()];
+};
+
+// One ray through one plan of tuple P (trace_df32_final): the unrolled
+// steps, then the last step's frame; PATH sums s * n_before.
+template <class P, bool PATH, typename W>
+__device__ __forceinline__ void trace_plan(W words, Rays& r, df& tacc) {
+  tacc = {0.f, 0.f};
+  static_for(std::make_integer_sequence<int, P::steps>{}, [&](auto jc) {
+    constexpr int j = decltype(jc)::value;
+    const W w = words + j * DW;
+    df s;
+    surface_df(w, StepFlags<P, j>{}, r.x, r.y, r.z, r.ux, r.uy, r.uz, s);
+    if (PATH) tacc = add(tacc, mul(s, ld(w, W_NB)));
+  });
+  constexpr int last = step_flags(P{}, P::steps - 1);
+  const W w = words + (P::steps - 1) * DW;
+  frame_apply<false>(w, last, r.x, r.y, r.z);
+  frame_apply<false>(w, last, r.ux, r.uy, r.uz);
+}
+
+// f(t, l, plan l's words) for each tuple t (a std::integral_constant)
+// and each plan l that takes it, in plan order: a run-time loop over the
+// plans, so the chain f instantiates is compiled once a tuple.
+template <class Ps, class Map, typename W, typename F>
+__device__ __forceinline__ void for_plans(W words, F&& f) {
+  static_for(std::make_integer_sequence<int, Ps::count>{}, [&](auto tc) {
+    constexpr int t = decltype(tc)::value;
+#pragma unroll 1
+    for (int l = 0; l < Map::nlam; ++l)
+      if (tuple_of(Map{}, l) == t)
+        f(tc, l, static_cast<W>(words + l * Ps::steps * DW));
+  });
+}
+
+// K11: out[((l * per) + 2k + h) * n + i], per = 14 with PATH, else 12;
+// k = x, y, z, ux, uy, uz (and t with PATH), h = hi, lo.
+template <class Ps, class Map, bool PATH, int BLOCK, typename W>
+__device__ __forceinline__ void trace_multi(W words, const In12& in,
+                                            float* __restrict__ out,
+                                            int64_t n) {
+  constexpr int per = PATH ? 14 : 12;
+  const int64_t stride = int64_t(gridDim.x) * BLOCK;
+  for_plans<Ps, Map>(words, [&](auto tc, int l, W w) {
+    using P = typename Ps::template at<decltype(tc)::value>;
+    float* o = out + int64_t(l) * per * n;
+    for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
+         i += stride) {
+      Rays r = load_rays(in, i);
+      df tacc;
+      trace_plan<P, PATH>(w, r, tacc);
+      store_rays(o, n, i, r, PATH ? &tacc : nullptr);
+    }
+  });
+}
+
+// K13: each plan's five df32 moments (count, sum x, sum y, sum x^2,
+// sum y^2) over its live rays; partials[(block * nlam + l) * 10 + 2q +
+// h] the blocks' pairs; the last block writes out[l * 5 + q] in float64.
+template <class Ps, class Map, int BLOCK, typename W>
+__device__ __forceinline__ void merit_multi(W words, const In12& in,
+                                            float* __restrict__ partials,
+                                            unsigned int* __restrict__ counter,
+                                            double* __restrict__ out,
+                                            int64_t n) {
+  constexpr int NLAM = Map::nlam;
+  __shared__ float scratch[10 * (BLOCK / 32)];
+  const int64_t stride = int64_t(gridDim.x) * BLOCK;
+  for_plans<Ps, Map>(words, [&](auto tc, int l, W w) {
+    using P = typename Ps::template at<decltype(tc)::value>;
+    df m[5];
+#pragma unroll
+    for (int q = 0; q < 5; ++q) m[q] = {0.f, 0.f};
+    for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
+         i += stride) {
+      Rays r = load_rays(in, i);
+      df tacc;
+      trace_plan<P, false>(w, r, tacc);
+      if (live(r)) accumulate(m, 1, r);
+    }
+    block_sum_df(m, scratch,
+                 partials + (int64_t(blockIdx.x) * NLAM + l) * 10);
+  });
+  if (!last_block(counter)) return;
+  // one warp a value; lane b promotes blocks b, b + 32, ... exactly
+  // (hi + lo is exact in float64) and the warp sums them
+  const int lane = threadIdx.x & 31;
+  for (int v = threadIdx.x >> 5; v < NLAM * 5; v += BLOCK / 32) {
+    const int l = v / 5, q = v % 5;
+    double sum = 0.;
+    for (int b = lane; b < int(gridDim.x); b += 32) {
+      const float* p = partials + (int64_t(b) * NLAM + l) * 10 + 2 * q;
+      sum += double(__ldcg(p)) + double(__ldcg(p + 1));
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_down_sync(0xffffffffu, sum, off);
+    if (lane == 0) out[v] = sum;
+  }
+  if (threadIdx.x == 0) *counter = 0u;
+}
+
+// The plan words as the chain reads them: straight from the kernel's
+// parameters, or (STAGED) from a copy in static shared memory made once
+// a block, through a volatile pointer.
+template <class Ps, class Map, bool STAGED, int BLOCK, typename F>
+__device__ __forceinline__ void with_words(const ParamWords<Ps, Map>& pw,
+                                           F&& f) {
+  if constexpr (STAGED) {
+    constexpr int N = plan_words<Ps, Map>();
+    __shared__ float s_words[N];
+    for (int i = threadIdx.x; i < N; i += BLOCK) s_words[i] = pw.w[i];
+    __syncthreads();
+    f(static_cast<const volatile float*>(s_words));
+  } else {
+    f(static_cast<const float*>(pw.w));
+  }
+}
+
+// K11 of one key.  MINB: the blocks an SM __launch_bounds__ asks ptxas
+// to fit (1 at least, as grad_spec.cuh's kernels).
+template <class Ps, class Map, bool PATH, bool STAGED, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB) df32_trace_spec(
+    const __grid_constant__ ParamWords<Ps, Map> pw, In12 in,
+    float* __restrict__ out, int64_t n) {
+  with_words<Ps, Map, STAGED, BLOCK>(pw, [&](auto words) {
+    trace_multi<Ps, Map, PATH, BLOCK>(words, in, out, n);
+  });
+}
+
+// K13 of one key.
+template <class Ps, class Map, bool STAGED, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB) df32_merit_spec(
+    const __grid_constant__ ParamWords<Ps, Map> pw, In12 in,
+    float* __restrict__ partials, unsigned int* __restrict__ counter,
+    double* __restrict__ out, int64_t n) {
+  with_words<Ps, Map, STAGED, BLOCK>(pw, [&](auto words) {
+    merit_multi<Ps, Map, BLOCK>(words, in, partials, counter, out, n);
+  });
+}
+
+// The kernel parameter of a launch: the host-side plan words copied in.
+template <class Ps, class Map>
+__host__ inline ParamWords<Ps, Map> param_words(const void* words) {
+  ParamWords<Ps, Map> pw;
+  std::memcpy(pw.w, words, sizeof pw.w);
+  return pw;
+}
+
+}  // namespace
+
+// K11 launchers of one key: NAME(words (nlam, steps, DW) float32 in
+// host memory, copied into the launch's parameters; the 12 input words; out
+// (nlam, 12 or 14 with PATH, n); n, grid, stream);
+// NAME_blocks_per_sm(&blocks); NAME_error_string(err).
+#define RAYOPT_DF32_TRACE(NAME, PLANS, MAP, PATH, STAGED, BLOCK, MINB)        \
+  extern "C" int NAME##_blocks_per_sm(int* out) {                             \
+    return blocks_per_sm(                                                     \
+        df32_trace_spec<PLANS, MAP, PATH, STAGED, BLOCK, MINB>, BLOCK, 0,     \
+        out);                                                                 \
+  }                                                                           \
+  extern "C" const char* NAME##_error_string(int err) {                       \
+    return cudaGetErrorString(cudaError_t(err));                              \
+  }                                                                           \
+  extern "C" int NAME(const void* words, IN12_PARAMS, void* out, long long n, \
+                      int grid, void* stream) {                               \
+    const void* p[12] = IN12_ARRAY;                                           \
+    df32_trace_spec<PLANS, MAP, PATH, STAGED, BLOCK, MINB>                    \
+        <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(              \
+            param_words<PLANS, MAP>(words), pack_in(p),                       \
+            static_cast<float*>(out), int64_t(n));                            \
+    return int(cudaGetLastError());                                           \
+  }
+
+// K13 launchers of one key: NAME(words as K11's; the 12 input words;
+// partials (grid, nlam, 10) float32; counter (1 zeroed uint32, reset by
+// the kernel); out (nlam, 5) float64; n, grid, stream);
+// NAME_blocks_per_sm(&blocks); NAME_error_string(err).
+#define RAYOPT_DF32_MERIT(NAME, PLANS, MAP, STAGED, BLOCK, MINB)              \
+  extern "C" int NAME##_blocks_per_sm(int* out) {                             \
+    return blocks_per_sm(df32_merit_spec<PLANS, MAP, STAGED, BLOCK, MINB>,    \
+                         BLOCK, 0, out);                                      \
+  }                                                                           \
+  extern "C" const char* NAME##_error_string(int err) {                       \
+    return cudaGetErrorString(cudaError_t(err));                              \
+  }                                                                           \
+  extern "C" int NAME(const void* words, IN12_PARAMS, void* partials,         \
+                      void* counter, void* out, long long n, int grid,        \
+                      void* stream) {                                         \
+    const void* p[12] = IN12_ARRAY;                                           \
+    df32_merit_spec<PLANS, MAP, STAGED, BLOCK, MINB>                          \
+        <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(              \
+            param_words<PLANS, MAP>(words), pack_in(p),                       \
+            static_cast<float*>(partials),                                    \
+            static_cast<unsigned int*>(counter), static_cast<double*>(out),   \
+            int64_t(n));                                                      \
+    return int(cudaGetLastError());                                           \
+  }

@@ -160,13 +160,6 @@ __host__ __device__ constexpr int live_count() {
   return b;
 }
 
-// f(std::integral_constant<int, I>{}) for each I of the sequence, in order
-template <typename F, int... I>
-__device__ __forceinline__ void static_for(std::integer_sequence<int, I...>,
-                                           F&& f) {
-  (f(std::integral_constant<int, I>{}), ...);
-}
-
 template <class C, int J>
 using RowFlags = std::integral_constant<int, flags_at<C>(J)>;
 
@@ -191,18 +184,6 @@ __device__ __forceinline__ void block_sum(const T (&v)[NV], T* s_red,
     s_part[q] = sum;
   }
   __syncthreads();
-}
-
-// True in the last block to finish, once every block has written its
-// partial sums (made visible by the fence).  Every thread of the block
-// must call it; the last block resets the counter when it is done.
-__device__ __forceinline__ bool last_block(unsigned int* counter) {
-  __shared__ bool s_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  __syncthreads();
-  return s_last;
 }
 
 // In the last block: s_part[q] = the sum over all blocks b of
@@ -712,15 +693,6 @@ constexpr size_t adjoint_dynamic_smem() {
 template <typename T, class C, int BLOCK>
 constexpr size_t opd_dynamic_smem() {
   return size_t(C::rows - 2) * 6 * BLOCK * sizeof(T);
-}
-
-template <typename K>
-__host__ inline int blocks_per_sm(K kernel, int block, size_t smem,
-                                  int* out) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return int(err);
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, block,
-                                                           smem));
 }
 
 }  // namespace

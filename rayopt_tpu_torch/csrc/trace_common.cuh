@@ -1,9 +1,11 @@
 // Device code shared by the polychromatic trace (trace.cu: K3), the
-// df32 kernels (df32.cu: the NaN and the shared-memory opt-in) and the
+// df32 kernels (df32_common.cuh: the NaN, the compile-time flags, the
+// grid-wide sum's last block and the shared-memory opt-in) and the
 // kernels specialized per spec tuple (grad_spec.cuh: K1, K2, K4-K9):
 // the packed table layout, the flag bits, the guarded math, one
 // surface step, the whole chain for one ray with its flags read at run
-// time (K3), and the staging of the table into shared memory.  Each
+// time (K3), the staging of the table into shared memory, the
+// compile-time loop and the last block of a fused grid-wide sum.  Each
 // translation unit that includes it gets its own internal copies.
 
 #pragma once
@@ -12,6 +14,7 @@
 #include <stdint.h>
 
 #include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -260,6 +263,25 @@ __device__ __forceinline__ void block_sum_rows(T* s_red, int rows, T* out) {
   for (int r = threadIdx.x; r < rows; r += nb) out[r] = s_red[r * nb];
 }
 
+// f(std::integral_constant<int, I>{}) for each I of the sequence, in order
+template <typename F, int... I>
+__device__ __forceinline__ void static_for(std::integer_sequence<int, I...>,
+                                           F&& f) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+
+// True in the last block to finish, once every block has written its
+// partial sums (made visible by the fence).  Every thread of the block
+// must call it; the last block resets the counter when it is done.
+__device__ __forceinline__ bool last_block(unsigned int* counter) {
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  return s_last;
+}
+
 // Opt a kernel in to `bytes` of dynamic shared memory (Hopper: up to
 // 227 KB a block).  Set below 48 KB too: a kernel's static shared
 // memory counts against the same default limit.
@@ -269,6 +291,17 @@ __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               int(bytes));
+}
+
+// Resident blocks of `kernel` an SM at `block` threads and `smem` bytes
+// of dynamic shared memory (the occupancy calculator).
+template <typename K>
+__host__ inline int blocks_per_sm(K kernel, int block, size_t smem,
+                                  int* out) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, block,
+                                                           smem));
 }
 
 }  // namespace

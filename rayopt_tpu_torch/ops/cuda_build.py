@@ -7,13 +7,15 @@ links the objects.  It runs at first use, from the package's own
 sources, into build/torch_kernels/ beside the package, and is cached
 by a hash of the sources and flags.  `build_shared` builds the
 translation units that ops.cuda_spec writes for each spec key (K1, K2,
-K4-K9) the same way, one nvcc a unit, in parallel, cached by a hash of
-the headers, the flags and the unit's text.  Fast math stays off: the kernels
+K4-K9) and plan key (K11, K13) the same way, one nvcc a unit, in
+parallel, cached by a hash of the headers, the flags and the unit's
+text.  Fast math stays off: the kernels
 rely on IEEE division, square root and NaN propagation.  The df32
-kernels (df32.cu) need every float32 operation rounded as written; they
-write each one with a round-to-nearest intrinsic, which nvcc never
-contracts into a fused multiply-add, so all sources share one set of
-flags.
+kernels (df32.cu, df32_spec.cuh) need every float32 operation rounded
+as written; they write each one with a round-to-nearest intrinsic (the
+one fused multiply-add, two_prod's error word in df32_spec.cuh, with
+__fmaf_rn), which nvcc never contracts, so all sources share one set
+of flags.
 """
 
 import ctypes
@@ -27,8 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
-SOURCES = ("trace.cu", "df32.cu")     # K3; K10-K13
-HEADERS = ("trace_common.cuh",)
+SOURCES = ("trace.cu", "df32.cu")     # K3; K10, K12
+HEADERS = ("trace_common.cuh", "df32_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,10 +67,9 @@ class KernelLibrary:
                 fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [
                     i64, i32, i32, ptr]
                 fn.restype = i32
-        # df32 (K10-K13): plan words, flags, nsteps, [nplans,] [with_path,]
-        # the 12 input words, out or partials, n, grid, block, stream
-        for name, ints in (("df32_trace_final", 2), ("df32_trace_multi", 3),
-                           ("df32_merit", 1), ("df32_merit_multi", 2)):
+        # df32 (K10, K12): plan words, flags, nsteps, [with_path,] the 12
+        # input words, out or partials, n, grid, block, stream
+        for name, ints in (("df32_trace_final", 2), ("df32_merit", 1)):
             fn = getattr(self._lib, name)
             fn.argtypes = [ptr, ptr] + [i32]*ints + [ptr]*13 + [i64, i32,
                                                                i32, ptr]

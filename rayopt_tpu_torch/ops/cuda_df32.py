@@ -5,34 +5,40 @@ a `df32.plan` and returns the final state in the last surface's frame
 (and, with_path, the optical path).  It replaces the JAX package's
 Pallas kernel `df32.pallas_trace_df32`.
 
-K11 `trace_multi_df32` traces ONE bundle, read once, through several
-plans (one a wavelength); it replaces `df32.pallas_trace_df32_multi`.
+K11 `trace_multi_df32` traces ONE bundle through several plans (one a
+wavelength); it replaces `df32.pallas_trace_df32_multi`.
 
 K12 `trace_merit_df32` runs the K10 trace with no per-ray writeback
 and reduces it to the five df32 spot moments (count, sum x, sum y,
 sum x^2, sum y^2) over the rays whose x, y and uz hi words are finite:
 one (hi, lo) pair a moment a block, promoted exactly to float64 and
-summed here.  K13 `trace_merit_multi_df32` does so for each plan.  They
-replace `df32.pallas_trace_df32_merit` and
-`df32.pallas_trace_df32_merit_multi`.
+summed here.  K13 `trace_merit_multi_df32` does so for each plan, the
+grid-wide sum fused into its one launch.  They replace
+`df32.pallas_trace_df32_merit` and `df32.pallas_trace_df32_merit_multi`.
 
-The kernels are hand-written CUDA C++ (csrc/df32.cu), built with nvcc
-for sm_90a at first use (ops.cuda_build) and launched on PyTorch's
-current stream through ctypes.  A wrapper takes the plain PyTorch
-version (`*_reference`, ops.df32) only for a bundle on the CPU; for a
-CUDA bundle it launches its kernel or raises.  Each wrapper counts its
-launches in `<wrapper>.launches`.
+The kernels are hand-written CUDA C++, built with nvcc for sm_90a at
+first use and launched on PyTorch's current stream through ctypes:
+K10 and K12 read their plan's flags at run time (csrc/df32.cu, built
+by ops.cuda_build); K11 and K13 are compiled per plan key
+(csrc/df32_spec.cuh, built by ops.cuda_spec: the plans' flag tuples,
+the path, block and launch bound), their plan words passed from the
+host as kernel parameters, with no upload.  A wrapper takes the plain
+PyTorch version (`*_reference`, ops.df32) only for a bundle on the
+CPU; for a CUDA bundle it launches its kernel or raises.  Each wrapper
+counts its launches in `<wrapper>.launches`.
 
 `state` is six (hi, lo) pairs of contiguous (N,) float32 tensors on
 one device (df32.state_from_f64).
 """
 
+import functools
+
 import torch
 
 from . import df32 as D
-from .cuda_trace import BLOCK, BLOCKS_PER_SM, SMEM_LIMIT, SMEM_OPTIN, _raise_on
+from .cuda_trace import BLOCK, BLOCKS_PER_SM, SMEM_LIMIT, _raise_on
 
-# packed step layout and flag bits: keep in sync with csrc/df32.cu
+# packed step layout and flag bits: keep in sync with csrc/df32_common.cuh
 DW = 36
 W_C, W_MU, W_DZ, W_K1, W_K1C, W_DXY, W_ROT, W_RAD, W_NB = (
     0, 2, 4, 6, 8, 10, 14, 32, 33)
@@ -140,23 +146,41 @@ def _words(state):
     return words
 
 
-def _launch_setup(plans, words, extra_smem=0):
+def _launch_setup(steps, words, extra_smem=0):
     from .cuda_build import load_library
     x = words[0]
     lib = load_library()
-    packed, flags = pack_plan(plans, x.device)
+    packed, flags = pack_plan(steps, x.device)
     nsteps = flags.shape[-1]
     smem = packed.numel()*4 + flags.numel()*4 + extra_smem
-    limit = SMEM_OPTIN if flags.dim() == 2 else SMEM_LIMIT
-    if smem > limit:
-        raise ValueError("%d plan(s) of %d steps need %d bytes of shared "
-                         "memory, above %d" % (flags[..., 0].numel(), nsteps,
-                                               smem, limit))
+    if smem > SMEM_LIMIT:
+        raise ValueError("a plan of %d steps needs %d bytes of shared "
+                         "memory, above %d" % (nsteps, smem, SMEM_LIMIT))
     n = x.shape[0]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = max(1, min(-(-n // BLOCK), sms*BLOCKS_PER_SM))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     return lib, packed, flags, nsteps, n, grid, stream
+
+
+@functools.lru_cache(maxsize=None)
+def _multi_kernel(kernel, flags, with_path):
+    """The loaded K11 ("k11") or K13 ("k13") build of the plans' flag
+    tuples (cuda_spec.df32_key_of; built at first use)."""
+    from . import cuda_spec as CS
+    return CS.load(CS.df32_key_of(flags, kernel, with_path))
+
+
+def _multi_setup(kernel, plans, words, with_path=False):
+    """K11's or K13's loaded build for `plans`, their packed words on the
+    host (the launcher copies them into the kernel's parameters), the
+    rays, the grid and the stream."""
+    from .cuda_spec import spec_launch
+    packed, flags = pack_plan(list(plans), "cpu")
+    kern = _multi_kernel(kernel, tuple(map(tuple, flags.tolist())),
+                         bool(with_path))
+    device, n, stream = spec_launch(words)
+    return kern, packed, n, kern.grid(n, device), stream
 
 
 def _pairs(out):
@@ -194,34 +218,31 @@ trace_final_df32.launches = 0
 
 
 def trace_multi_df32(plans, state, with_path=False):
-    """K11: ONE bundle, read once, through every plan of `plans` (one a
-    wavelength, equal step counts); returns one K10 result a plan.  CUDA
-    bundles launch the kernel; CPU bundles take
+    """K11: ONE bundle through every plan of `plans` (one a wavelength,
+    equal step counts); returns one K10 result a plan.  CUDA bundles
+    launch the plans' key once (no launch for no rays); CPU bundles take
     trace_multi_df32_reference."""
     words = _words(state)
     if words[0].device.type == "cpu":
         return trace_multi_df32_reference(plans, state, with_path)
-    lib, packed, flags, nsteps, n, grid, stream = _launch_setup(
-        list(plans), words)
-    nplans = flags.shape[0]
-    out = torch.empty((nplans, 14 if with_path else 12, n),
+    kern, packed, n, grid, stream = _multi_setup("k11", plans, words,
+                                                 with_path)
+    nlam = kern.key.nlam
+    out = torch.empty((nlam, 14 if with_path else 12, n),
                       dtype=torch.float32, device=words[0].device)
     if n:
-        err = lib.df32_trace_multi(
-            packed.data_ptr(), flags.data_ptr(), nsteps, nplans,
-            int(bool(with_path)), *(w.data_ptr() for w in words),
-            out.data_ptr(), n, grid, BLOCK, stream)
-        _raise_on(lib, err, "df32_trace_multi")
+        kern.check(kern.fn(packed.data_ptr(), *(w.data_ptr() for w in words),
+                           out.data_ptr(), n, grid, stream))
         trace_multi_df32.launches += 1
-    return tuple(_final(out[li], with_path) for li in range(nplans))
+    return tuple(_final(out[li], with_path) for li in range(nlam))
 
 
 trace_multi_df32.launches = 0
 
 
 def _promote(partials):
-    """(grid, ..., 5, 2) block pairs -> float64 totals (..., 5): each
-    pair promoted exactly, then summed over blocks in float64."""
+    """(grid, 5, 2) block pairs -> float64 totals (5,): each pair
+    promoted exactly, then summed over blocks in float64."""
     return (partials[..., 0].double() + partials[..., 1].double()).sum(0)
 
 
@@ -252,27 +273,27 @@ trace_merit_df32.launches = 0
 
 
 def trace_merit_multi_df32(plans, state):
-    """K13: K12 for each plan of `plans` (the bundle read once); one
-    5-tuple of float64 moments a plan.  CUDA bundles launch the kernel;
-    CPU bundles take trace_merit_multi_df32_reference."""
+    """K13: K12 for each plan of `plans`; one 5-tuple of float64 moments
+    a plan.  CUDA bundles launch the plans' key once, the grid-wide sum
+    fused (zeros and no launch for no rays); CPU bundles take
+    trace_merit_multi_df32_reference."""
+    from .cuda_spec import counter
     words = _words(state)
     if words[0].device.type == "cpu":
         return trace_merit_multi_df32_reference(plans, state)
-    nplans = len(plans)
-    lib, packed, flags, nsteps, n, grid, stream = _launch_setup(
-        list(plans), words,
-        extra_smem=10*4*(BLOCK // 32) + 5*8*nplans*BLOCK)
-    partials = torch.zeros((grid, nplans, 5, 2), dtype=torch.float32,
-                           device=words[0].device)
+    kern, packed, n, grid, stream = _multi_setup("k13", plans, words)
+    nlam, device = kern.key.nlam, words[0].device
     if n:
-        err = lib.df32_merit_multi(
-            packed.data_ptr(), flags.data_ptr(), nsteps, nplans,
-            *(w.data_ptr() for w in words), partials.data_ptr(), n, grid,
-            BLOCK, stream)
-        _raise_on(lib, err, "df32_merit_multi")
+        partials = torch.empty((grid, nlam, 10), dtype=torch.float32,
+                               device=device)
+        tot = torch.empty((nlam, 5), dtype=torch.float64, device=device)
+        kern.check(kern.fn(packed.data_ptr(), *(w.data_ptr() for w in words),
+                           partials.data_ptr(), counter(device).data_ptr(),
+                           tot.data_ptr(), n, grid, stream))
         trace_merit_multi_df32.launches += 1
-    tot = _promote(partials)
-    return tuple(tuple(tot[li, q] for q in range(5)) for li in range(nplans))
+    else:
+        tot = torch.zeros((nlam, 5), dtype=torch.float64, device=device)
+    return tuple(tuple(tot[li, q] for q in range(5)) for li in range(nlam))
 
 
 trace_merit_multi_df32.launches = 0

@@ -1,4 +1,5 @@
-"""K1, K2 and K4-K9 specialized per spec tuple at compile time.
+"""K1, K2 and K4-K9 specialized per spec tuple at compile time, and
+the df32 kernels K11 and K13 per plan key.
 
 The fused trace K1, the moment kernels -- the spot-moment merit K2, the
 weighted-moment forward K4 and its polychromatic twin K6 --, the OPD
@@ -30,6 +31,16 @@ reference-sphere tail, which reads its offset (the transverse part only
 off axis), its rotation and its n_before, never its curvature, conic or
 mu; every other row's n_before carries its optical path.  Row 0 has
 none.  A slot that is not live comes back as an exact zero.
+
+The polychromatic df32 trace K11 and merit K13 (csrc/df32_spec.cuh) are
+keyed the same way on their plans (`df32_multi_key`): the distinct flag
+tuples of the plans (one cuda_df32 step flag word a step), the tuple
+each plan takes, the optical path (K11), whether the chain reads the
+plan words from the kernel's parameters or from a shared-memory copy of
+them, the block and the launch bound.  The plan words stay run-time
+data, passed as kernel parameters, and the wavelengths loop at run time
+over one compiled chain a tuple, so a key has no wavelength cap: it is
+refused only past the parameter limit.
 """
 
 import ctypes
@@ -54,7 +65,8 @@ SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
 FIELDS = ("curvature", "conic", "offset", "mu")
 #: the fields K9 differentiates
 OPD_FIELDS = FIELDS + ("n_before",)
-HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh")
+HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
+           "df32_common.cuh", "df32_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
 BLOCK_TRACE = 512     # K1 and K8: measured fastest in both dtypes (PERF.md §6)
 BLOCK_MOMENTS = 256   # K2, K4 and K6 (PERF.md §6)
@@ -75,7 +87,20 @@ _MACROS = {"k1": "RAYOPT_SPEC_TRACE", "k2": "RAYOPT_SPEC_MERIT",
            "k4": "RAYOPT_SPEC_MOMENTS", "k6": "RAYOPT_SPEC_MOMENTS_MULTI",
            "k8": "RAYOPT_SPEC_OPD", "k5": "RAYOPT_SPEC_ADJOINT",
            "k7": "RAYOPT_SPEC_ADJOINT_MULTI",
-           "k9": "RAYOPT_SPEC_OPD_ADJOINT"}
+           "k9": "RAYOPT_SPEC_OPD_ADJOINT",
+           "k11": "RAYOPT_DF32_TRACE", "k13": "RAYOPT_DF32_MERIT"}
+#: K11's and K13's threads a block, and whether each reads its plan
+#: words from a shared-memory copy (else straight from the kernel's
+#: parameters, where ptxas keeps them in registers across the ray loop:
+#: faster for K11 at 106 registers, slower for K13, whose 141 leave one
+#: block an SM; kernel_times --df32 --variants, PERF.md §6)
+BLOCK_DF32 = {"k11": 256, "k13": 512}
+DF32_STAGED = {"k11": False, "k13": True}
+#: the most bytes of kernel parameters a launch may pass (CUDA 12.1+ on
+#: Volta and later), and those of K11/K13 beside the plan words: 12
+#: input pointers, out (K13: partials, counter, out) and n
+PARAM_LIMIT = 32764
+DF32_PARAM_BYTES = {"k11": (12 + 1 + 1)*8, "k13": (12 + 3 + 1)*8}
 
 
 def baked_out_rows(specs, field):
@@ -322,8 +347,127 @@ def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_FIELDS, rays=True,
                     rays, block, min_blocks)
 
 
+class Df32Key(NamedTuple):
+    """One K11 or K13 specialization: kernel "k11" or "k13", the
+    distinct flag tuples of its plans (one cuda_df32 step flag word a
+    step, one step count), the tuple each plan takes (its length the
+    wavelength count), the optical path (K11), whether the chain reads
+    the plan words (kernel parameters) from a copy in static shared
+    memory, threads a block and the launch bound's blocks an SM."""
+
+    kernel: str
+    tuples: tuple
+    plan_map: tuple
+    with_path: bool
+    block: int
+    min_blocks: int = MIN_BLOCKS
+    staged: bool = False
+
+    @property
+    def name(self):
+        """The launcher's symbol: the kernel and the key's hash."""
+        text = repr((self.kernel, tuple(map(tuple, self.tuples)),
+                     tuple(self.plan_map), bool(self.with_path),
+                     int(self.block), int(self.min_blocks),
+                     bool(self.staged)))
+        return "%s_%s" % (self.kernel,
+                          hashlib.sha256(text.encode()).hexdigest()[:16])
+
+    @property
+    def nlam(self):
+        return len(self.plan_map)
+
+    @property
+    def steps(self):
+        return len(self.tuples[0])
+
+    @property
+    def word_bytes(self):
+        """The plan words: nlam * steps * DW float32."""
+        from .cuda_df32 import DW
+        return self.nlam*self.steps*DW*4
+
+    @property
+    def param_bytes(self):
+        """The kernel's parameters: the plan words, the pointers and n."""
+        return self.word_bytes + DF32_PARAM_BYTES[self.kernel]
+
+    @property
+    def shared_bytes(self):
+        """Static shared memory a block: the staged plan words and K13's
+        block reduction (10 floats a warp)."""
+        words = self.word_bytes if self.staged else 0
+        return words + (10*4*(self.block//32) if self.kernel == "k13" else 0)
+
+
+def df32_flags(plans):
+    """One flag word a step of each plan (cuda_df32._step_words)."""
+    from .cuda_df32 import _step_words
+    return tuple(tuple(_step_words(st)[1] for st in p) for p in plans)
+
+
+def df32_multi_key(plans, kernel="k11", with_path=False, block=None,
+                   min_blocks=MIN_BLOCKS, staged=None):
+    """The K11 (kernel="k11") or K13 ("k13") key of a sequence of plans
+    (ops.df32.plan, one a wavelength, one step count): the distinct
+    flag tuples in order of first use and each plan's tuple; block and
+    staged default to BLOCK_DF32's and DF32_STAGED's.  No wavelength
+    cap: the wavelengths loop at run time over one chain a tuple.
+    Refused past PARAM_LIMIT bytes of kernel parameters, which carry the
+    plan words; a staged copy of them (at most PARAM_LIMIT bytes) and
+    K13's reduction (at most 1,280) stay under SMEM_LIMIT of static
+    shared memory."""
+    return df32_key_of(df32_flags(plans), kernel, with_path, block,
+                       min_blocks, staged)
+
+
+def df32_key_of(flags, kernel="k11", with_path=False, block=None,
+                min_blocks=MIN_BLOCKS, staged=None):
+    """df32_multi_key from the plans' flag words (df32_flags)."""
+    if kernel not in ("k11", "k13"):
+        raise ValueError("a df32 plan key is k11 or k13, not %r" % (kernel,))
+    if kernel == "k13" and with_path:
+        raise ValueError("K13 sums no optical path")
+    flags = tuple(tuple(int(f) for f in p) for p in flags)
+    steps = {len(p) for p in flags}
+    if not flags or len(steps) != 1 or 0 in steps:
+        raise ValueError("plans must share one nonzero step count, got %s"
+                         % sorted(steps))
+    tuples = tuple(dict.fromkeys(flags))
+    key = Df32Key(kernel, tuples, tuple(tuples.index(p) for p in flags),
+                  bool(with_path), int(block or BLOCK_DF32[kernel]),
+                  int(min_blocks), DF32_STAGED[kernel] if staged is None
+                  else bool(staged))
+    if key.param_bytes > PARAM_LIMIT:
+        raise ValueError(
+            "%s passes %d plan(s) of %d steps as kernel parameters: %d "
+            "bytes, above %d" % (kernel.upper(), key.nlam, key.steps,
+                                 key.param_bytes, PARAM_LIMIT))
+    return key
+
+
+def _df32_unit(key):
+    plans = ", ".join("Plan<%s>" % ", ".join(map(str, t))
+                      for t in key.tuples)
+    head = ("// %s, specialized by rayopt_tpu_torch.ops.cuda_spec\n"
+            "// key: %r\n#include \"df32_spec.cuh\"\n\n"
+            "namespace {\nusing Ps = Plans<%s>;\nusing Map = PlanMap<%s>;\n"
+            "}  // namespace\n\n"
+            % (key.name, tuple(key), plans,
+               ", ".join(map(str, key.plan_map))))
+    staged = "true" if key.staged else "false"
+    path = ("true, " if key.with_path else "false, ") \
+        if key.kernel == "k11" else ""
+    return head + "%s(%s, Ps, Map, %s%s, %d, %d)\n" % (
+        _MACROS[key.kernel], key.name, path, staged, key.block,
+        key.min_blocks)
+
+
 def translation_unit(key):
-    """The source text that instantiates csrc/grad_spec.cuh for `key`."""
+    """The source text that instantiates csrc/grad_spec.cuh (a Key) or
+    csrc/df32_spec.cuh (a Df32Key) for `key`."""
+    if isinstance(key, Df32Key):
+        return _df32_unit(key)
     ctype = "float" if key.dtype == "f32" else "double"
     words = ", ".join(str(w) for w in key.words)
     head = ("// %s, specialized by rayopt_tpu_torch.ops.cuda_spec\n"
@@ -359,9 +503,11 @@ class SpecKernel:
         # table, 6 rays, w, ct, partials, counter, out, 7 ray cotangents,
         # n, grid, stream; K7: K5's with nlam before grid; K9: table, 6
         # rays, aux, 3 cotangents, partials, counter, out, 6 ray
-        # cotangents, n, grid, stream
+        # cotangents, n, grid, stream; K11: plan words, 12 input words,
+        # out, n, grid, stream; K13: plan words, 12 input words, partials,
+        # counter, out, n, grid, stream
         words = {"k1": 14, "k8": 11, "k2": 11, "k4": 11, "k6": 11, "k5": 19,
-                 "k7": 19, "k9": 20}[key.kernel]
+                 "k7": 19, "k9": 20, "k11": 14, "k13": 16}[key.kernel]
         ints = [i64, i32, i32] if key.kernel == "k7" else [i64, i32]
         self.fn.argtypes = [ptr]*words + ints + [ptr]
         self.fn.restype = i32

@@ -2,6 +2,7 @@
 trees of the port on the same card in one call.
 
     python -m rayopt_tpu_torch.utils.kernel_times [--variants] [--steps N]
+                                                  [--df32]
 
 Times, with CUDA events (the mean of many launches after a warm-up),
 on the double Gauss and the bench bundle (x, y uniform in +-11.6 mm,
@@ -25,7 +26,12 @@ u = (0, 0, 1)):
   and the achromatization step (the union polychromatic spot RMS of 3
   hexapolar bundles at 3 fields x 3 wavelengths, float64, Adam over
   curvatures, distances and the 6 glasses' box logits): wall
-  milliseconds of the steps after the first.
+  milliseconds of the steps after the first;
+* the df32 kernels: K10 trace_final_df32 (with the optical path) and
+  K12 trace_merit_df32 on the first wavelength's plan, K11
+  trace_multi_df32 (with the path) and K13 trace_merit_multi_df32 on
+  the 3 wavelengths' plans, fast and exact plans, at 2^22 and 2^26
+  rays (--df32 times these alone).
 
 It calls the wrappers with the positional arguments every tree of the
 port takes, so it also measures an older tree: copy this file into
@@ -38,8 +44,13 @@ at 128, 256 and 512 threads a block in float64 at 2^22 and 1,046,071
 rays and in both dtypes at 2^26, through the wrapper and as the bare
 launch, and K6 on stacks of NLAMS
 wavelengths (400-700 nm) against as many launches of K4, with each K6
-build's registers and spills.  Prints one JSON object; needs a CUDA
-card.
+build's registers and spills; and K11 and K13 (the fast plans of the 3
+wavelengths) reading their plan words straight from the kernel's
+parameters and from a copy in shared memory, at 128, 256 and 512
+threads a block (the direct form also at launch bounds of 3 blocks of
+256 and 2 of 512), through the wrapper and as the bare launch (with
+--df32, these variants alone).  Prints one
+JSON object; needs a CUDA card.
 """
 
 import argparse
@@ -172,6 +183,129 @@ def kernel_times(s, table, specs):
         for name, fn in cases.items():
             out["%s %s %d" % (name, str(dtype)[6:], n)] = cuda_ms(fn, reps)
         del state, w, cts
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the rays of the df32 timings
+DF32_SIZES = (1 << 22, 1 << 26)
+
+
+def df32_state(n):
+    """The bench bundle (float64, seed 1) as df32 words."""
+    from rayopt_tpu_torch.ops.df32 import state_from_f64
+    st, _ = bench_bundle(n, torch.float64)
+    return state_from_f64(torch.stack(st[:3], 1), torch.stack(st[3:], 1))
+
+
+def df32_plans(s, fast):
+    """One plan a wavelength of the double Gauss's 3-wavelength stack."""
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.tables import table_at
+    tabs = s.tables()
+    return [D.plan(table_at(tabs, li), fast=fast)
+            for li in range(tabs.curvature.shape[0])]
+
+
+def df32_times(s):
+    """K10 (with the path) and K12 on the first wavelength's plan, K11
+    (with the path) and K13 on the 3 wavelengths' plans, fast and exact
+    plans, at DF32_SIZES bench rays, through the wrappers every tree of
+    the port has."""
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    out = {}
+    for n in DF32_SIZES:
+        state = df32_state(n)
+        reps = 5 if n > 1 << 22 else 20
+        for fast in (True, False):
+            lam = df32_plans(s, fast)
+            one = lam[0]
+            cases = {
+                "K10": lambda: CD.trace_final_df32(one, state, with_path=True),
+                "K12": lambda: CD.trace_merit_df32(one, state),
+                "K11": lambda: CD.trace_multi_df32(lam, state, with_path=True),
+                "K13": lambda: CD.trace_merit_multi_df32(lam, state)}
+            for name, fn in cases.items():
+                out["%s %s %d" % (name, "fast" if fast else "exact", n)] = \
+                    cuda_ms(fn, reps)
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+#: K11's and K13's variants: (plan words read from a shared-memory copy,
+#: threads a block, the launch bound's blocks an SM); the last two ask
+#: ptxas to fit more blocks of the direct form, whose plan words sit in
+#: registers
+DF32_VARIANTS = tuple((staged, block, 1) for staged in (False, True)
+                      for block in (128, 256, 512)) + ((False, 256, 3),
+                                                       (False, 512, 2))
+
+
+def df32_variant_times(s):
+    """K11 (with the path) and K13 on the fast plans of the 3
+    wavelengths at each of DF32_VARIANTS, at DF32_SIZES rays, with each
+    build's registers and spills.  Each variant is timed twice, the
+    second round in the reverse order: through the wrapper ("ms", its
+    kernel lookup pointed at the variant's build) and as the bare launch
+    on words packed once ("launch_ms")."""
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    plans = df32_plans(s, True)
+    keys = {(k, staged, block, minb): CS.df32_multi_key(
+        plans, k, k == "k11", block=block, min_blocks=minb, staged=staged)
+        for k in ("k11", "k13") for staged, block, minb in DF32_VARIANTS}
+    built = CS.prebuild(list(keys.values()))
+    kerns = [(v, built[key]) for v, key in keys.items()]
+    packed, _ = CD.pack_plan(plans, "cpu")
+    out = {}
+    for n in DF32_SIZES:
+        reps = 5 if n > 1 << 22 else 20
+        state = df32_state(n)
+        words = [w for c in state for w in c]
+        device = words[0].device
+        stream = torch.cuda.current_stream(device).cuda_stream
+        out11 = torch.empty((len(plans), 14, n), dtype=torch.float32,
+                            device=device)
+        tot = torch.empty((len(plans), 5), dtype=torch.float64, device=device)
+        calls = {"k11": lambda: CD.trace_multi_df32(plans, state,
+                                                    with_path=True),
+                 "k13": lambda: CD.trace_merit_multi_df32(plans, state)}
+        rows = {}
+        for order in (kerns, kerns[::-1]):
+            for (kind, staged, block, minb), kern in order:
+                name = "%s %s %d block %d min_blocks %d" % (
+                    kind.upper(), "staged" if staged else "params", n, block,
+                    minb)
+                grid = kern.grid(n, device)
+                if kind == "k11":
+                    args = [packed.data_ptr(), *(w.data_ptr() for w in words),
+                            out11.data_ptr(), n, grid, stream]
+                else:
+                    partials = torch.empty((grid, len(plans), 10),
+                                           dtype=torch.float32, device=device)
+                    args = [packed.data_ptr(), *(w.data_ptr() for w in words),
+                            partials.data_ptr(), CS.counter(device).data_ptr(),
+                            tot.data_ptr(), n, grid, stream]
+                row = rows.setdefault(name, {"runs_ms": [],
+                                             "launch_runs_ms": []})
+                real = CD._multi_kernel
+                CD._multi_kernel = lambda *a, _kern=kern: _kern
+                try:
+                    row["runs_ms"].append(cuda_ms(calls[kind], reps))
+                finally:
+                    CD._multi_kernel = real
+                row["launch_runs_ms"].append(cuda_ms(
+                    lambda: kern.check(kern.fn(*args)), reps))
+                row.update(grid=grid, blocks_per_sm=kern.blocks_per_sm(
+                    device), ptxas=[ln for ln in kern.ptxas_lines()
+                                    if "registers" in ln
+                                    or "stack frame" in ln])
+        for row in rows.values():
+            row["ms"] = float(np.mean(row["runs_ms"]))
+            row["launch_ms"] = float(np.mean(row["launch_runs_ms"]))
+        out.update(rows)
+        del state, words, out11
         torch.cuda.empty_cache()
     return out
 
@@ -492,6 +626,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--steps", type=int, default=6)
+    ap.add_argument("--df32", action="store_true",
+                    help="time K10-K13 (and with --variants K11's and K13's "
+                    "variants) alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
@@ -502,11 +639,18 @@ def main():
                           text=True).stdout.strip()
     table = double_gauss().table()
     specs = specialize(table)
-    out = {"card": card, "kernels_ms": kernel_times(double_gauss(), table,
-                                                    specs)}
+    out = {"card": card, "df32_ms": df32_times(double_gauss())}
+    if args.df32:
+        if args.variants:
+            out["df32_variants"] = df32_variant_times(double_gauss())
+        print(json.dumps(out))
+        sys.stdout.flush()
+        return
+    out["kernels_ms"] = kernel_times(double_gauss(), table, specs)
     out.update(step_times(args.steps))
     if args.variants:
         out["variants"] = variant_times(double_gauss(), specs, table)
+        out["df32_variants"] = df32_variant_times(double_gauss())
     print(json.dumps(out))
     sys.stdout.flush()
 

@@ -6,6 +6,8 @@ without the JAX package:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
 
+import functools
+
 import numpy as np
 from numpy import testing as nptest
 import pytest
@@ -15,6 +17,7 @@ from rayopt_tpu_torch import set_default_device
 from rayopt_tpu_torch.models import double_gauss
 from rayopt_tpu_torch.ops import cuda_grad as CG
 from rayopt_tpu_torch.ops import cuda_df32 as CD
+from rayopt_tpu_torch.ops import cuda_spec as CS
 from rayopt_tpu_torch.ops import cuda_trace as CT
 from rayopt_tpu_torch.ops import df32 as D
 from rayopt_tpu_torch.ops.tables import make_table, rodrigues
@@ -1103,3 +1106,107 @@ def test_df32_multi_kernels_match_plain_on_card(cuda_device, fast):
     for m, r in zip(mom, mref):
         assert float(m[0]) == float(r[0]) > 0
         assert _moments_rel(m, r) <= 1e-13
+
+
+def _df32_multi_case(name, clip, fast):
+    """The plans and the df32 bundle of one K11/K13 case: the double
+    Gauss at its 3 wavelengths; "mixed", those plans with the second
+    one's fast flag flipped (a second flag tuple); the vocabulary table
+    and its twin with every refracting row's mu scaled (one tuple).  The
+    bench bundle, 1.5x wide when clipped."""
+    if name == "vocabulary":
+        tab = vocabulary_table()
+        mu = tab.mu
+        tabs = [tab, tab.replace(mu=torch.where(mu.abs() != 1., mu*1.01,
+                                                mu))]
+    else:
+        s = double_gauss()
+        tabs = [s.table(lam) for lam in s.wavelengths]
+    plans = [D.plan(t, clip=clip, fast=fast != (name == "mixed" and i == 1))
+             for i, t in enumerate(tabs)]
+    state64 = _bench_state(1 << 16, 5, torch.device("cuda"), torch.float64)
+    if clip:
+        state64 = tuple(c*1.5 if i < 2 else c for i, c in enumerate(state64))
+    st = D.state_from_f64(torch.stack(state64[:3], 1),
+                          torch.stack(state64[3:], 1))
+    return plans, st
+
+
+#: (name, fast, clip, staged) of the K11/K13 cases: every system fast
+#: and exact, clip off and on, each kernel reading its plan words as its
+#: key does by default (staged None); the double Gauss also the other
+#: way ("other")
+DF32_MULTI_CASES = (
+    [(name, fast, clip, None) for name in ("double_gauss", "vocabulary",
+                                           "mixed")
+     for fast in (True, False) for clip in (False, True)]
+    + [("double_gauss", fast, False, "other") for fast in (True, False)])
+
+
+def _df32_multi_staged(staged, kernel):
+    default = CS.DF32_STAGED[kernel]
+    return (not default) if staged == "other" else default
+
+
+@functools.lru_cache(maxsize=None)
+def _prebuild_df32_multi():
+    """Build every key of DF32_MULTI_CASES at once (one nvcc a key, in
+    parallel), the first time a case asks."""
+    keys = []
+    for name, fast, clip, staged in DF32_MULTI_CASES:
+        plans, _ = _df32_multi_case(name, clip, fast)
+        keys += [CS.df32_multi_key(plans, "k11", wp, staged=(
+            _df32_multi_staged(staged, "k11"))) for wp in (False, True)]
+        keys.append(CS.df32_multi_key(
+            plans, "k13", staged=_df32_multi_staged(staged, "k13")))
+    CS.prebuild(keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fast,clip,staged", DF32_MULTI_CASES)
+def test_specialized_df32_multi_matches_plain_on_card(cuda_device, name,
+                                                      fast, clip, staged,
+                                                      monkeypatch):
+    """K11 and K13 compiled per plan key (csrc/df32_spec.cuh, two_prod
+    in its FMA form, the plan words read from the kernel's parameters or
+    from a shared-memory copy) against their plain versions on the
+    card: the double Gauss
+    at its 3 wavelengths, the vocabulary table (every branch: rot_df,
+    the permutation fold, a mirror, an alternate root, a conic, off
+    axis, the tilted image row) at 2 plans, and plans of two flag
+    tuples.  K11: identical words, path on and off; K13: the same count
+    and the moments within 1e-13 of their scale (another order of
+    summation).  One launch a call, none for no rays."""
+    _prebuild_df32_multi()
+
+    def kernel(kind, flags, with_path):
+        return CS.load(CS.df32_key_of(flags, kind, with_path, staged=(
+            _df32_multi_staged(staged, kind))))
+    monkeypatch.setattr(CD, "_multi_kernel", kernel)
+    plans, st = _df32_multi_case(name, clip, fast)
+    key = CS.df32_multi_key(plans, "k13")
+    assert len(key.tuples) == (2 if name == "mixed" else 1)
+    before = CD.trace_multi_df32.launches, CD.trace_merit_multi_df32.launches
+    for wp in (False, True):
+        got = CD.trace_multi_df32(plans, st, with_path=wp)
+        want = CD.trace_multi_df32_reference(plans, st, with_path=wp)
+        torch.cuda.synchronize()
+        assert len(got) == len(plans)
+        assert sum(_differing_words(_df32_words(g, wp), _df32_words(w, wp))
+                   for g, w in zip(got, want)) == 0
+    mom = CD.trace_merit_multi_df32(plans, st)
+    mref = CD.trace_merit_multi_df32_reference(plans, st)
+    assert len(mom) == len(plans)
+    for m, r in zip(mom, mref):
+        assert float(m[0]) == float(r[0]) > 0
+        assert _moments_rel(m, r) <= 1e-13
+    assert (CD.trace_multi_df32.launches,
+            CD.trace_merit_multi_df32.launches) == (before[0] + 2,
+                                                    before[1] + 1)
+    empty = tuple((h[:0], lo[:0]) for h, lo in st)
+    out = CD.trace_multi_df32(plans, empty, with_path=True)
+    zero = CD.trace_merit_multi_df32(plans, empty)
+    assert out[0][0][0][0].shape == (0,) and float(zero[-1][0]) == 0.
+    assert (CD.trace_multi_df32.launches,
+            CD.trace_merit_multi_df32.launches) == (before[0] + 2,
+                                                    before[1] + 1)

@@ -1,0 +1,317 @@
+"""The polychromatic df32 kernels K11 and K13 compiled per plan key
+(ops.cuda_spec.df32_multi_key, csrc/df32_spec.cuh) on the CPU: their
+keys (stable, changed by every part of them, one flag tuple for a
+table's wavelengths and one more for a plan whose flags differ), the
+translation unit a key writes, the keys' refusals before any build
+(past the kernel-parameter or static shared-memory limit), the wrappers
+trace_multi_df32 and trace_merit_multi_df32 on a CPU bundle, which run
+their plain versions, count no launch and match the JAX package's eager
+df32 word for word, and the premise of the kernels' two_prod: the FMA
+form's error word, fl(a*b) subtracted from the exact product, is the
+word Dekker's split gives.  The kernels themselves build and run only
+on a CUDA card (tests/test_torch_cuda.py)."""
+
+import numpy as np
+import pytest
+import torch
+
+import rayopt_tpu  # noqa: F401
+from rayopt_tpu import models as jmodels
+from rayopt_tpu.ops import df32 as JD
+
+from rayopt_tpu_torch import set_default_device
+from rayopt_tpu_torch.ops import cuda_df32 as CD
+from rayopt_tpu_torch.ops import cuda_spec as CS
+from rayopt_tpu_torch.ops import df32 as D
+from rayopt_tpu_torch.ops import tables as TT
+
+MERIT_REL = 1e-13    # df32 moments against the JAX package's (same tree)
+
+
+@pytest.fixture(autouse=True)
+def _cpu_default():
+    old = set_default_device("cpu")
+    torch.set_num_threads(1)
+    yield
+    set_default_device(old)
+
+
+def _cooke(nlam=2, fast=False, clip=False):
+    """The JAX Cooke triplet's table at its first nlam wavelengths, and
+    the JAX and the port's plan of each."""
+    js = jmodels.cooke_triplet()
+    jtabs = [js.table(lam) for lam in js.wavelengths[:nlam]]
+    return (jtabs, [JD.plan(t, clip=clip, fast=fast) for t in jtabs],
+            [D.plan(TT.table_from_numpy(t), clip=clip, fast=fast)
+             for t in jtabs])
+
+
+def _bundle(n=256, half=4., seed=9):
+    rng = np.random.default_rng(seed)
+    y = np.zeros((n, 3))
+    y[:, :2] = rng.uniform(-1, 1, (n, 2))*half
+    u = np.zeros((n, 3))
+    u[:, 2] = 1.
+    return y, u
+
+
+def _pair(j):
+    return tuple(torch.from_numpy(np.array(w, dtype=np.float32)) for w in j)
+
+
+def _same_words(got, want):
+    """Identical hi and lo words, NaN where the other is NaN."""
+    for g, w in zip(got, want):
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            return False
+        live = ~torch.isnan(g)
+        if not torch.equal(g[live], w[live]):
+            return False
+    return True
+
+
+def _flip(plan, j, key, value):
+    """The plan with step j's `key` set to `value` (a new flag word)."""
+    out = [dict(st) for st in plan]
+    out[j][key] = value
+    return out
+
+
+# -- keys ------------------------------------------------------------------
+
+def test_df32_key_is_stable_and_changes_with_each_part():
+    """A key is the same for the same plans, and differs when one step's
+    flag word, fast, clip, with_path, the wavelength count, the block,
+    the launch bound, the placement of the plan words or the kernel
+    does."""
+    _, _, plans = _cooke(2)
+    base = CS.df32_multi_key(plans, "k11", False)
+    again = CS.df32_multi_key([list(p) for p in plans], "k11", 0)
+    assert again == base and again.name == base.name
+    assert base.name == CS.Df32Key(*tuple(base)).name
+    assert base.name.startswith("k11_") and len(base.name) == 20
+    assert base.block == CS.BLOCK_DF32["k11"]
+    assert base.min_blocks == CS.MIN_BLOCKS
+    assert base.staged == CS.DF32_STAGED["k11"] and base.nlam == 2
+    assert base.tuples == (tuple(CD._step_words(st)[1] for st in plans[0]),)
+    step = [_flip(p, 1, "alternate", True) for p in plans]
+    variants = [
+        CS.df32_multi_key(step, "k11"),
+        CS.df32_multi_key(_cooke(2, fast=True)[2], "k11"),
+        CS.df32_multi_key(_cooke(2, clip=True)[2], "k11"),
+        CS.df32_multi_key(plans, "k11", True),
+        CS.df32_multi_key(_cooke(3)[2], "k11"),
+        CS.df32_multi_key(plans, "k11", block=512),
+        CS.df32_multi_key(plans, "k11", min_blocks=2),
+        CS.df32_multi_key(plans, "k11", staged=not base.staged),
+        CS.df32_multi_key(plans, "k13")]
+    names = [base.name] + [k.name for k in variants]
+    assert len(set(names)) == len(names)
+    assert variants[0].tuples[0][1] != base.tuples[0][1]
+    assert variants[0].tuples[0][2:] == base.tuples[0][2:]
+
+
+@pytest.mark.parametrize("nlam", [1, 2, 3])
+def test_df32_key_shares_one_tuple_across_wavelengths(nlam):
+    """The plans of one table's wavelengths share one flag tuple (only
+    mu and n_before differ, values, not flags); a plan whose flags
+    differ adds a second tuple, and the map sends each plan to its."""
+    _, _, plans = _cooke(nlam)
+    key = CS.df32_multi_key(plans, "k13")
+    assert len(key.tuples) == 1 and key.plan_map == (0,)*nlam
+    words, flags = CD.pack_plan(plans, "cpu")
+    assert key.word_bytes == words.numel()*4
+    assert key.tuples[0] == tuple(flags[0].tolist())
+    fast = _cooke(nlam, fast=True)[2]
+    mixed = plans[:1] + fast[:1] + plans[1:]
+    key = CS.df32_multi_key(mixed, "k11", True)
+    assert len(key.tuples) == 2
+    assert key.plan_map == (0, 1) + (0,)*(nlam - 1)
+    assert key.tuples[1] == tuple(f | CD.G_FAST for f in key.tuples[0])
+
+
+def test_df32_key_of_flags_is_df32_multi_key():
+    """The wrappers' lookup keys the plans' flag words (df32_flags), as
+    df32_multi_key keys the plans."""
+    _, _, plans = _cooke(2)
+    for kernel, wp in (("k11", True), ("k11", False), ("k13", False)):
+        assert CS.df32_key_of(CS.df32_flags(plans), kernel, wp) == \
+            CS.df32_multi_key(plans, kernel, wp)
+
+
+# -- the translation unit and the limits ----------------------------------
+
+@pytest.mark.parametrize("kernel", ["k11", "k13"])
+def test_df32_translation_unit_instantiates_the_key(kernel):
+    """The unit includes df32_spec.cuh, lists each distinct flag tuple
+    as a Plan<...> and the plan map, and instantiates the kernel's macro
+    with the path (K11), the placement, the block and the launch bound."""
+    _, _, plans = _cooke(2)
+    fast = _cooke(1, fast=True)[2]
+    key = CS.df32_multi_key(plans + fast, kernel, kernel == "k11", block=128,
+                            min_blocks=2, staged=True)
+    text = CS.translation_unit(key)
+    assert '#include "df32_spec.cuh"' in text
+    for t in key.tuples:
+        assert "Plan<%s>" % ", ".join(map(str, t)) in text
+    assert "using Map = PlanMap<0, 0, 1>;" in text
+    if kernel == "k11":
+        assert "RAYOPT_DF32_TRACE(%s, Ps, Map, true, true, 128, 2)" % (
+            key.name) in text
+    else:
+        assert "RAYOPT_DF32_MERIT(%s, Ps, Map, true, 128, 2)" % (
+            key.name) in text
+    default = CS.df32_multi_key(plans, kernel)
+    assert "%s, %d, %d)" % ("true" if CS.DF32_STAGED[kernel] else "false",
+                            CS.BLOCK_DF32[kernel], CS.MIN_BLOCKS) in \
+        CS.translation_unit(default)
+
+
+@pytest.mark.parametrize("kernel", ["k11", "k13"])
+def test_df32_key_sizes(kernel):
+    """A key's kernel parameters hold the plan words, staged or not; a
+    staged key's static shared memory holds a copy of them, and K13's
+    its block reduction's 10 floats a warp."""
+    _, _, plans = _cooke(3)
+    words = CD.pack_plan(plans, "cpu")[0].numel()*4
+    red = 10*4*8 if kernel == "k13" else 0
+    direct = CS.df32_multi_key(plans, kernel, staged=False, block=256)
+    staged = CS.df32_multi_key(plans, kernel, staged=True, block=256)
+    for key in (direct, staged):
+        assert key.param_bytes == words + CS.DF32_PARAM_BYTES[kernel]
+    assert direct.shared_bytes == red
+    assert staged.shared_bytes == words + red
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("kernel", ["k11", "k13"])
+def test_df32_key_refuses_past_its_limits(kernel, staged):
+    """Past PARAM_LIMIT bytes of kernel parameters, which carry the plan
+    words, the key is refused, naming why, before any build; below it
+    many wavelengths are fine (no wavelength cap), and a staged copy of
+    the words stays inside static shared memory."""
+    _, _, plans = _cooke(1)
+    per = CD.pack_plan(plans, "cpu")[0].numel()*4
+    fits = (CS.PARAM_LIMIT - CS.DF32_PARAM_BYTES[kernel])//per
+    key = CS.df32_multi_key(plans*fits, kernel, block=1024, staged=staged)
+    assert key.nlam == fits > 11 and len(key.tuples) == 1
+    assert key.param_bytes <= CS.PARAM_LIMIT
+    assert key.shared_bytes <= CS.SMEM_LIMIT
+    with pytest.raises(ValueError, match="kernel parameters"):
+        CS.df32_multi_key(plans*(fits + 1), kernel, staged=staged)
+
+
+def test_df32_key_refuses_bad_plans():
+    _, _, plans = _cooke(2)
+    with pytest.raises(ValueError, match="step count"):
+        CS.df32_multi_key([plans[0], plans[1][:-1]], "k11")
+    with pytest.raises(ValueError, match="step count"):
+        CS.df32_multi_key([], "k11")
+    with pytest.raises(ValueError, match="no optical path"):
+        CS.df32_multi_key(plans, "k13", True)
+    with pytest.raises(ValueError, match="k11 or k13"):
+        CS.df32_multi_key(plans, "k10")
+
+
+def test_df32_keys_build_from_the_spec_headers():
+    """The keys build with the other spec keys (cuda_spec.prebuild), the
+    df32 headers among those their cache hash reads; the run-time
+    library (df32.cu) keeps K10 and K12 only."""
+    from rayopt_tpu_torch.ops.cuda_build import CSRC
+    assert {"df32_common.cuh", "df32_spec.cuh"} <= set(CS.HEADERS)
+    assert all((CSRC/name).exists() for name in CS.HEADERS)
+    assert CS._MACROS["k11"] == "RAYOPT_DF32_TRACE"
+    assert CS._MACROS["k13"] == "RAYOPT_DF32_MERIT"
+    text = (CSRC/"df32.cu").read_text()
+    assert "df32_trace_final" in text and "df32_merit" in text
+    assert "multi" not in text.split("#include")[1]
+
+
+# -- the CPU wrappers against the JAX package ------------------------------
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("with_path", [False, True])
+def test_cpu_k11_matches_jax_words(with_path, fast):
+    """trace_multi_df32 on a CPU bundle at 2 wavelengths of the Cooke
+    gives the JAX package's eager trace_df32_final_multi word for word,
+    NaN masks included, and counts no launch."""
+    _, jplans, tplans = _cooke(2, fast=fast)
+    y, u = _bundle()
+    before = CD.trace_multi_df32.launches
+    got = CD.trace_multi_df32(tplans, D.state_from_f64(
+        torch.from_numpy(y), torch.from_numpy(u)), with_path=with_path)
+    want = JD.trace_df32_final_multi(jplans, JD.state_from_f64(y, u),
+                                     with_path=with_path)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        gw = (*g[0], g[1]) if with_path else g
+        ww = (*w[0], w[1]) if with_path else w
+        assert all(_same_words(a, _pair(b)) for a, b in zip(gw, ww))
+    assert CD.trace_multi_df32.launches == before
+    lo = got[0][0][0][1] if with_path else got[0][0][1]
+    assert bool((lo != 0).any())
+
+
+@pytest.mark.parametrize("clip", [False, True])
+def test_cpu_k13_matches_jax_merit_per_plan(clip):
+    """trace_merit_multi_df32 on a CPU bundle gives, plan by plan, the
+    JAX package's eager trace_df32_merit within MERIT_REL (the same
+    pairwise df32 tree), five 0-d float64 tensors a plan, and counts no
+    launch."""
+    _, jplans, tplans = _cooke(2, clip=clip)
+    y, u = _bundle(half=7. if clip else 4.)
+    before = CD.trace_merit_multi_df32.launches
+    got = CD.trace_merit_multi_df32(tplans, D.state_from_f64(
+        torch.from_numpy(y), torch.from_numpy(u)))
+    assert len(got) == 2
+    for m, p in zip(got, jplans):
+        want = JD.trace_df32_merit(p, JD.state_from_f64(y, u))
+        assert all(g.dtype == torch.float64 and g.dim() == 0 for g in m)
+        for g, w in zip(m, want):
+            assert abs(float(g) - float(w)) <= MERIT_REL*abs(float(w))
+    if clip:
+        assert 0 < float(got[0][0]) < 256
+    assert CD.trace_merit_multi_df32.launches == before
+
+
+# -- the FMA form of two_prod ----------------------------------------------
+
+#: (low, high) magnitudes of the seeded float32 operands: the rays'
+#: positions and directions, products of them, and the df32 refinement
+#: terms, above where an error word would underflow (products under
+#: ~2^-102, where Dekker's split loses bits and the FMA form does not)
+RANGES = ((1e-3, 1e3), (1e-8, 1.), (1., 1e6), (1e-14, 1e-6))
+
+
+@pytest.mark.parametrize("lo,hi", RANGES)
+def test_two_prod_error_word_is_the_fma_result(lo, hi):
+    """For seeded signed float32 pairs, the port's Dekker two_prod gives
+    p = fl(a*b) and the error word float32(float64(a)*float64(b) - p):
+    the float64 product of two float32 values is exact, and so is its
+    difference from p, which is what __fmaf_rn(a, b, -p) returns.  So
+    the kernels' FMA form gives the plain version's words."""
+    rng = np.random.default_rng(int(np.log10(lo)) + 40)
+    n = 20000
+    a = (rng.uniform(0, 1, n)*(np.log(hi) - np.log(lo)) + np.log(lo))
+    b = (rng.uniform(0, 1, n)*(np.log(hi) - np.log(lo)) + np.log(lo))
+    a = (np.exp(a)*rng.choice([-1, 1], n)).astype(np.float32)
+    b = (np.exp(b)*rng.choice([-1, 1], n)).astype(np.float32)
+    p, e = D.two_prod(torch.from_numpy(a), torch.from_numpy(b))
+    assert torch.equal(p, torch.from_numpy(a*b))
+    fma = (a.astype(np.float64)*b.astype(np.float64)
+           - p.numpy().astype(np.float64)).astype(np.float32)
+    assert np.array_equal(e.numpy(), fma)
+    assert (e.numpy() != 0).mean() > .5
+
+
+def test_two_prod_fma_form_on_edge_values():
+    """Signed zeros, ones, powers of two, the splitter and a few plain
+    values, every pair: the same error word in both forms."""
+    vals = np.array([0., -0., 1., -1., 2.**-20, 2.**20, 4097., 3., .5,
+                     1.5, 1e-3], dtype=np.float32)
+    a, b = np.meshgrid(vals, vals)
+    a, b = a.ravel(), b.ravel()
+    p, e = D.two_prod(torch.from_numpy(a), torch.from_numpy(b))
+    fma = (a.astype(np.float64)*b.astype(np.float64)
+           - p.numpy().astype(np.float64)).astype(np.float32)
+    assert np.array_equal(e.numpy(), fma)
