@@ -4,15 +4,16 @@
 
 Builds the hand-written CUDA kernels from the checkout (K1, K2 and
 K4-K9 once for each spec tuple, wavelength count, slot set and flag
-they run with, K11 and K13 once for each plan key, all keys in
-parallel, with their ptxas registers, stack and spills, and K11's and
-K13's SASS size), holds each against its plain PyTorch version on the card
+they run with, K10-K13 once for each plan key, all keys in
+parallel, with their ptxas registers, stack and spills, and K10-K13's
+SASS size), holds each against its plain PyTorch version on the card
 (the specialized K5 for each slot set, with and without ray
 cotangents, K7 and K9 for
 every field with ray cotangents and for their loops' keys; the repaired
 cancellation-free intercept of K1, K2 and K4 on a paraboloid and on the
 double Gauss with near-flat rows against the CPU float64 generic
-trace), drives the port's four
+trace; K6/K7 on stacks past one key's wavelengths and K11/K13 on plans
+past one key's parameters, split by their wrappers), drives the port's four
 main paths -- the forward path (double Gauss from YAML -> paraxial
 solve -> pupil aiming -> fused trace and fused spot-moment merit at
 three fields), the designer loop (bundles at 3 fields x 3
@@ -52,6 +53,9 @@ N_OPT = 1 << 20      # hexapolar nrays a bundle on the optimizer path
 N_GRAD_TIME = 1 << 22  # rays in the K3-K7 kernel-vs-plain timings
 N_OPT_BUNDLE = 1046071  # rays of one optimizer bundle (hexapolar, 2^20)
 N_INTERCEPT = 1 << 16  # aimed rays a field in the intercept phase
+N_SPLIT = 1 << 16    # bench rays of the split phase
+N_SPLIT_NLAM = (12, 13)  # K6/K7 stacks past MAX_NLAM (split 6+6, 7+6)
+N_SPLIT_PLANS = 24   # K11/K13 plans past the kernel parameters (12+12)
 N_GLASS = 1 << 20    # hexapolar nrays a field on the achromatization path
 FIELDS = (0., .7, 1.)
 SEED = 0
@@ -448,10 +452,12 @@ def spec_keys(specs, mspecs, nlam, extra=()):
 
 
 def df32_keys(s):
-    """{tag: key} of the K11 and K13 specializations this script runs:
-    the plans of the double Gauss's wavelengths, fast and exact, clip
-    off and on, K11 with and without the optical path (the check), the
-    df32 path's among them (fast, unclipped, K11 with the path)."""
+    """{tag: key} of the K10-K13 specializations this script runs: the
+    double Gauss's plan (K10, K12) and the plans of its wavelengths
+    (K11, K13), fast and exact, clip off and on, K10 and K11 with and
+    without the optical path (the check), the df32 path's among them
+    (fast, unclipped, K10 and K11 with the path); and the split phase's
+    runs of N_SPLIT_PLANS fast plans."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.tables import table_at
@@ -459,14 +465,53 @@ def df32_keys(s):
     keys = {}
     for fast in (True, False):
         for clip in (False, True):
+            one = [D.plan(s.table(), clip=clip, fast=fast)]
             plans = [D.plan(table_at(tabs, li), clip=clip, fast=fast)
                      for li in range(tabs.curvature.shape[0])]
             tag = "%s clip=%s" % ("fast" if fast else "exact", clip)
             for wp in (False, True):
+                keys["K10 %s path=%s" % (tag, wp)] = CS.df32_multi_key(
+                    one, "k11", wp)
                 keys["K11 %s path=%s" % (tag, wp)] = CS.df32_multi_key(
                     plans, "k11", wp)
+            keys["K12 " + tag] = CS.df32_multi_key(one, "k13")
             keys["K13 " + tag] = CS.df32_multi_key(plans, "k13")
+    plans = split_plans(s)
+    for kernel, wp in (("k11", True), ("k13", False)):
+        for l0, l1 in CS.df32_runs(len(plans), len(plans[0]), kernel):
+            keys["%s split %d-%d" % (kernel.upper(), l0, l1)] = \
+                CS.df32_multi_key(plans[l0:l1], kernel, wp)
     return keys
+
+
+def split_keys(s):
+    """{tag: key} of the split phase's K6 runs and K7 key: float64,
+    unclipped, on each stack of N_SPLIT_NLAM wavelengths."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    keys = {}
+    for nlam in N_SPLIT_NLAM:
+        specs = multi_specs(s.tables(split_wavelengths(nlam)), None)
+        for l0, l1 in CS.runs(nlam, CS.MAX_NLAM):
+            keys["K6 float64 split %d: %d-%d" % (nlam, l0, l1)] = \
+                CS.moments_multi_key(specs, torch.float64, False, l1 - l0)
+        keys["K7 float64 split %d" % nlam] = CS.adjoint_multi_key(
+            specs, torch.float64, False)
+    return keys
+
+
+def split_plans(s):
+    """N_SPLIT_PLANS fast plans of the double Gauss, one a wavelength in
+    400-700 nm: more than one K11/K13 key's parameters hold."""
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.tables import table_at
+    tabs = s.tables(split_wavelengths(N_SPLIT_PLANS))
+    return [D.plan(table_at(tabs, li), fast=True)
+            for li in range(N_SPLIT_PLANS)]
+
+
+def split_wavelengths(n):
+    return [float(v) for v in np.linspace(400e-9, 700e-9, n)]
 
 
 # the keys whose ptxas report must show no stack frame and no spill: the
@@ -482,7 +527,9 @@ LOOP_KEYS = ("K1 float32 clip=False",
              "K5 float64 clip=True optimizer rays=False",
              "K7 float64 clip=False achromatization rays=False",
              "K9 float64 clip=False design rays=False",
+             "K10 fast clip=False path=True",
              "K11 fast clip=False path=True",
+             "K12 fast clip=False",
              "K13 fast clip=False")
 
 
@@ -502,34 +549,27 @@ def ptxas_stats(kern):
 
 def sass_size(kern):
     """(instructions, bytes) of a one-kernel specialized library's SASS
-    (cuobjdump --dump-sass from the CUDA toolkit, 16 bytes an
-    instruction on Hopper), or (None, None) without cuobjdump."""
-    import re
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    (cuda_build.sass_size), or (None, None) without cuobjdump."""
+    from rayopt_tpu_torch.ops.cuda_build import sass_size as size
     try:
-        text = subprocess.run([tool, "--dump-sass", str(kern.path)],
-                              capture_output=True, text=True,
-                              check=True).stdout
+        return size(kern.path)
     except (OSError, subprocess.CalledProcessError) as err:
         log("cuobjdump --dump-sass %s: not run (%s)" % (kern.path.name, err))
         return None, None
-    count = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", text, re.M))
-    return count, 16*count
 
 
 def phase_spec_build(keys):
-    """Build every K1, K2, K4-K9, K11 and K13 specialization at once (one
+    """Build every K1, K2, K4-K9 and K10-K13 specialization at once (one
     nvcc a key, in parallel); log each key's build seconds and ptxas
-    lines, and K11's and K13's SASS size.  The loops' keys (LOOP_KEYS: K1
+    lines, and the df32 keys' SASS size.  The loops' keys (LOOP_KEYS: K1
     of the forward path, float32 and float64, and K2, float64; K5 for the
     optimizer's slot set; K6 and K7 for the achromatization path's and K8
-    and K9 for the design path's, float64; K11 and K13 of the df32 path)
+    and K9 for the design path's, float64; K10-K13 of the df32 path)
     must have no stack frame and no spill.  Returns {tag: (registers,
     stack bytes, spill bytes)} and {tag: (SASS instructions, bytes)} of
-    the K11 and K13 keys."""
+    the df32 keys."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
-    log("== K1, K2, K4-K9 per spec tuple, K11 and K13 per plan key: %d key "
+    log("== K1, K2, K4-K9 per spec tuple, K10-K13 per plan key: %d key "
         "tags, %d keys" % (len(keys), len(set(keys.values()))))
     t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
@@ -538,8 +578,8 @@ def phase_spec_build(keys):
     for tag, key in keys.items():
         kern = built[key]
         stats[tag] = ptxas_stats(kern)
-        what = ("%d plan(s), %d flag tuple(s), staged=%s" % (
-            key.nlam, len(key.tuples), key.staged)
+        what = ("%d plan(s), %d flag tuple(s), %s" % (
+            key.nlam, len(key.tuples), key.words_at)
             if isinstance(key, CS.Df32Key) else "%d live slots" % key.nlive)
         if isinstance(key, CS.Df32Key):
             sass[tag] = sass_size(kern)
@@ -1880,6 +1920,118 @@ def phase_df32_check(s):
     return worst
 
 
+def phase_split_check(s):
+    """The wrappers' split of what one key cannot hold, on the card:
+    K6 and K7 on float64 stacks of N_SPLIT_NLAM wavelengths (past
+    MAX_NLAM: K6 in balanced runs, K7 in one launch) against their plain
+    versions on the card, and glass.polychromatic_spot_rms(engine=
+    "adjoint") on them (forward and backward) against the CPU plain
+    versions; K11 and K13 on N_SPLIT_PLANS plans (past the kernel
+    parameters: runs that fit) against theirs, word for word."""
+    from rayopt_tpu_torch import glass
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import cuda_grad as CG
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    from rayopt_tpu_torch.parallel import bundles_from_system
+    log("== split past one key (K6/K7 at %s wavelengths, K11/K13 at %d "
+        "plans, %d bench rays; the adjoint merit at 2048 hexapolar rays vs "
+        "the CPU)" % (N_SPLIT_NLAM, N_SPLIT_PLANS, N_SPLIT))
+    failures = []
+    state = bench_bundle(N_SPLIT, torch.float64, SEED + 3)
+    w = bench_weights(N_SPLIT, torch.float64, SEED + 4)
+    for nlam in N_SPLIT_NLAM:
+        lams = split_wavelengths(nlam)
+        tabs = s.tables(lams)
+        specs = multi_specs(tabs, None)
+        runs = CS.runs(nlam, CS.MAX_NLAM)
+        before = (CG.weighted_moments_multi.launches,
+                  CG.merit_adjoint_multi.launches)
+        mom = CG.weighted_moments_multi(tabs, specs, state, w)
+        mref = CG.weighted_moments_multi_reference(tabs, specs, state, w)
+        ct = rms_cotangent(mref)
+        pg, cst, cw = CG.merit_adjoint_multi(tabs, specs, state, w, ct)
+        pr, sr, wr = CG.merit_adjoint_multi_reference(tabs, specs, state, w,
+                                                      ct)
+        torch.cuda.synchronize()
+        launched = (CG.weighted_moments_multi.launches - before[0],
+                    CG.merit_adjoint_multi.launches - before[1])
+        rels = [compare_wmoments(mom[li], mref[li], torch.float64)
+                for li in range(nlam)]
+        grads = [compare_param_grads(pg[li], pr[li], GRAD_F64_REL)
+                 for li in range(nlam)]
+        ray_rel, masks, finite = compare_ray_grads(cst, cw, sr, wr)
+        ok = (mom.shape == (nlam, 5) and launched == (len(runs), 1)
+              and all(r[0] for r in rels) and finite and masks == 0
+              and all(v[2] for f in grads for v in f.values())
+              and ray_rel <= GRAD_F64_REL)
+        log("K6 at %d wavelengths: %d launches (runs %s), moments rel err "
+            "max %.3e | K7: %d launch, parameter cotangents max err %.3e, "
+            "rays and weights rel err %.3e -> %s"
+            % (nlam, launched[0], runs, max(r[1] for r in rels), launched[1],
+               max(v[0] for f in grads for v in f.values()), ray_rel,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("K6/K7 at %d wavelengths" % nlam)
+        # the user's entry point, card against CPU
+        asg = glass.glass_assignment(s)
+        nd0, vd0 = glass.initial_glass_params(s, asg[2])
+        out = {}
+        for dev in ("cpu", DEVICE):
+            y0, u0, wb, _ = bundles_from_system(
+                s, fields=(.7,), wavelengths=[s.wavelengths[0]], nrays=2048,
+                distribution="hexapolar", device=dev)[0]
+            nd = torch.tensor(nd0, device=dev, requires_grad=True)
+            vd = torch.tensor(vd0, device=dev, requires_grad=True)
+            v = glass.polychromatic_spot_rms(
+                glass.glass_tables(s.tables(lams, device=dev), nd, vd, asg,
+                                   lams), y0, u0, wb, engine="adjoint")
+            v.backward()
+            out[dev] = (float(v.detach()), nd.grad.cpu(), vd.grad.cpu())
+        (vc, gnc, gvc), (vg, gng, gvg) = out["cpu"], out[DEVICE]
+        rel = abs(vg - vc)/abs(vc)
+        grel = max(float((g - r).abs().max())/float(r.abs().max())
+                   for g, r in ((gng, gnc), (gvg, gvc)))
+        ok = rel <= OPT_MERIT_REL and grel <= OPT_GRAD_REL
+        log("polychromatic_spot_rms(engine=\"adjoint\") at %d wavelengths: "
+            "merit card %.15g CPU %.15g (rel %.3e), (nd, vd) gradient err "
+            "%.3e of its max -> %s" % (nlam, vg, vc, rel, grel,
+                                       "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("polychromatic_spot_rms at %d wavelengths"
+                            % nlam)
+    plans = split_plans(s)
+    st = df32_state(state)
+    before = (CD.trace_multi_df32.launches,
+              CD.trace_merit_multi_df32.launches)
+    got = CD.trace_multi_df32(plans, st, with_path=True)
+    want = CD.trace_multi_df32_reference(plans, st, with_path=True)
+    res = [compare_df32(df32_pairs(g, True), df32_pairs(r, True))
+           for g, r in zip(got, want)]
+    moms = CD.trace_merit_multi_df32(plans, st)
+    mrefs = CD.trace_merit_multi_df32_reference(plans, st)
+    mres = [compare_moments(m, r, torch.float64, N_SPLIT)
+            for m, r in zip(moms, mrefs)]
+    launched = (CD.trace_multi_df32.launches - before[0],
+                CD.trace_merit_multi_df32.launches - before[1])
+    words = sum(r[0] for r in res)
+    ok = (len(got) == len(moms) == N_SPLIT_PLANS and words == 0
+          and max(r[1] for r in res) == 0
+          and all(dc == 0 and rel <= DF32_REL for _, rel, dc in mres)
+          and launched == tuple(len(CS.df32_runs(N_SPLIT_PLANS,
+                                                 len(plans[0]), k))
+                                for k in ("k11", "k13")))
+    log("K11/K13 at %d plans: %s launches, differing words %d, NaN masks "
+        "differ on %d rays, moments rel err max %.3e, counts differ %d -> %s"
+        % (N_SPLIT_PLANS, launched, words, max(r[1] for r in res),
+           max(m[1] for m in mres), sum(abs(m[2]) for m in mres),
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("K11/K13 at %d plans" % N_SPLIT_PLANS)
+    if failures:
+        raise AssertionError("split check failed: " + ", ".join(failures))
+
+
 def phase_df32_path(s, aimed):
     """The parity-grade df32 path on the main path's aimed bundles:
     df32.plan (fast and exact) -> state_from_f64 on the card -> K10 with
@@ -2485,14 +2637,13 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
 
 # float32 operations of the df32 functions in the least form that gives
 # the same words (csrc/df32_common.cuh with two_prod's FMA form,
-# RAYOPT_DF32_FMA 1, as K11 and K13 run it): one per add, subtract,
+# as K10-K13 run it): one per add, subtract,
 # multiply, divide or square root and two per fused multiply-add, as the
 # 67 TFLOP/s peak counts them (a negation is a sign flip and not
 # counted).  two_prod is 3, so mul 10 and sqr 9; div and sqrt are the
 # exact plan's two refinement rounds, div1 and sqrt1 the fast plan's
-# one.  K10 and K12 still issue Dekker's split (two_prod 17, mul 24, sqr
-# 23, div 89, div1 41, sqrt 88, sqrt1 41); their bound counts the least
-# work too.
+# one (Dekker's split, as the plain version writes it: two_prod 17, mul
+# 24, sqr 23, div 89, div1 41, sqrt 88, sqrt1 41).
 DF_OPS = {"add": 11, "mul": 10, "sqr": 9, "scale": 2, "div": 61,
           "div1": 27, "sqrt": 60, "sqrt1": 27}
 
@@ -2559,23 +2710,17 @@ def df32_bound(name, n, plans, live):
     """(bound_ms, bound_by) of one df32 launch at n rays through `plans`
     (one plan for K10/K12, one a wavelength for K11/K13; K10/K11 with
     the optical path): 12 float32 words read a ray, 14 written a ray and
-    plan (K10/K11), 10 a block (K12, on its wrapper's grid) or the 5
-    float64 moments a plan (K13), the plans' words and flags, over the
-    HBM rate; the float32 operations of df32_chain_ops (and
-    DF32_MOMENT_OPS for each of the `live` rays, summed over plans) over
-    67 TFLOP/s, the float32 peak outside the tensor cores, which counts a
-    fused multiply-add as two."""
+    plan (K10/K11) or the 5 float64 moments a plan (K12/K13), the plans'
+    words (their flags are compile-time), over the HBM rate; the float32
+    operations of df32_chain_ops (and DF32_MOMENT_OPS for each of the
+    `live` rays, summed over plans) over 67 TFLOP/s, the float32 peak
+    outside the tensor cores, which counts a fused multiply-add as
+    two."""
     from rayopt_tpu_torch.ops.cuda_df32 import DW
-    from rayopt_tpu_torch.ops.cuda_trace import BLOCK, BLOCKS_PER_SM
     merit = "merit" in name
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    grid = max(1, min(-(-n // BLOCK), sms*BLOCKS_PER_SM))
     nlam = len(plans)
-    if merit:
-        out = nlam*5*2 if "multi" in name else grid*10
-    else:
-        out = n*14*nlam
-    nbytes = (n*12 + out + nlam*len(plans[0])*(DW + 1))*4
+    out = nlam*5*2 if merit else n*14*nlam
+    nbytes = (n*12 + out + nlam*len(plans[0])*DW)*4
     flops = n*sum(df32_chain_ops(p, path=not merit) for p in plans)
     if merit:
         flops += live*DF32_MOMENT_OPS
@@ -2591,16 +2736,18 @@ DF32_REPLACES = {
     "trace_merit_multi_df32": "rayopt_tpu/ops/df32.py:1321"}
 
 
-# the df32 path's key of K11 and K13: its tag in phase_spec_build's stats
-DF32_LOOP_KEYS = {"trace_multi_df32": "K11 fast clip=False path=True",
+# the df32 path's key of K10-K13: its tag in phase_spec_build's stats
+DF32_LOOP_KEYS = {"trace_final_df32": "K10 fast clip=False path=True",
+                  "trace_multi_df32": "K11 fast clip=False path=True",
+                  "trace_merit_df32": "K12 fast clip=False",
                   "trace_merit_multi_df32": "K13 fast clip=False"}
 
 
 def df32_entries(s, launches, worst, times, live, ptxas, sass):
     """The kernels-line entries of K10-K13: `ms`/`plain_ms` with the fast
     plan at N_GRAD_TIME rays, `ms_exact`/`plain_ms_exact` with the exact
-    one, the N_BENCH times beside them; no float64 instance.  K11 and K13
-    also carry their df32 path key's registers, stack, spills and SASS
+    one, the N_BENCH times beside them; no float64 instance.  Each also
+    carries its df32 path key's registers, stack, spills and SASS
     size."""
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.tables import table_at
@@ -2611,17 +2758,15 @@ def df32_entries(s, launches, worst, times, live, ptxas, sass):
         multi = "multi" in kname
         lam = nlam if multi else 1
         entry = {"name": kname, "route": "cuda",
-                 "source": "rayopt_tpu_torch/csrc/%s" % (
-                     "df32_spec.cuh" if multi else "df32.cu"),
+                 "source": "rayopt_tpu_torch/csrc/df32_spec.cuh",
                  "replaces": DF32_REPLACES[kname],
                  "launches": launches[kname], "max_abs_err": worst[kname]}
-        if multi:
-            tag = DF32_LOOP_KEYS[kname]
-            regs, stack, spill = ptxas[tag]
-            entry.update({"regs_f32": regs, "stack_bytes_f32": stack,
-                          "spill_bytes_f32": spill,
-                          "sass_instructions": sass[tag][0],
-                          "sass_bytes": sass[tag][1]})
+        tag = DF32_LOOP_KEYS[kname]
+        regs, stack, spill = ptxas[tag]
+        entry.update({"regs_f32": regs, "stack_bytes_f32": stack,
+                      "spill_bytes_f32": spill,
+                      "sass_instructions": sass[tag][0],
+                      "sass_bytes": sass[tag][1]})
         for plan in ("fast", "exact"):
             tabs_used = [table_at(tabs, li) for li in range(lam)] if multi \
                 else [s.table()]
@@ -2668,6 +2813,7 @@ def main():
         specs, mspecs, tabs.curvature.shape[0],
         [(name, specialize(tab)) for name, _, tab, _ in intercept_cases()])
     keys.update(df32_keys(s))
+    keys.update(split_keys(s))
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -2678,6 +2824,7 @@ def main():
     worst.update(phase_opd_check(s, table, specs))
     phase_opd_fd_check(s, table, specs)
     worst.update(phase_df32_check(s))
+    phase_split_check(s)
     phase_intercept()
     reset_launches()
     aimed = phase_main_path()

@@ -1,8 +1,7 @@
-// Device code of the df32 ("double-single") kernels, shared by the
-// run-time-flag K10/K12 (df32.cu) and the K11/K13 compiled per plan key
-// (df32_spec.cuh): the packed step layout and flag bits, the error-free
-// transforms and df32 arithmetic, one surface step, and the ray loads,
-// stores and moment sums.
+// Device code of the df32 ("double-single") kernels K10-K13, compiled
+// per plan key (df32_spec.cuh): the packed step layout and flag bits,
+// the error-free transforms and df32 arithmetic, one surface step, and
+// the ray loads, stores and moment sums.
 //
 // Every float32 operation is written with a round-to-nearest intrinsic
 // (__fadd_rn, __fsub_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn), which nvcc
@@ -11,10 +10,8 @@
 // flags.  Division and square root are correctly rounded, as the plain
 // version's.
 //
-// two_prod has two forms, chosen by the macro RAYOPT_DF32_FMA, which a
-// translation unit defines before including this header:
-//  0  Dekker's split (17 operations), as the plain version writes it;
-//  1  p = __fmul_rn(a, b), e = __fmaf_rn(a, b, -p) (2 operations).
+// two_prod takes its FMA form: p = __fmul_rn(a, b), e = __fmaf_rn(a, b,
+// -p), 2 operations where the plain version's Dekker split takes 17.
 // Both give the exact error word a*b - p wherever neither underflows,
 // so both give the plain version's words.  Every other operation keeps
 // its unfused intrinsic.
@@ -22,10 +19,6 @@
 #pragma once
 
 #include "trace_common.cuh"
-
-#ifndef RAYOPT_DF32_FMA
-#error "define RAYOPT_DF32_FMA (0: Dekker's split, 1: the FMA form) first"
-#endif
 
 namespace {
 
@@ -75,29 +68,10 @@ __device__ __forceinline__ df quick_two_sum(float a, float b) {
   return {s, fs(b, fs(s, a))};
 }
 
-#if RAYOPT_DF32_FMA
 __device__ __forceinline__ df two_prod(float a, float b) {
   const float p = fm(a, b);
   return {p, __fmaf_rn(a, b, -p)};
 }
-#else
-__device__ __forceinline__ df split(float a) {
-  const float t = fm(4097.f, a);  // 2^12 + 1
-  const float hi = fs(t, fs(t, a));
-  return {hi, fs(a, hi)};
-}
-
-__device__ __forceinline__ df two_prod(float a, float b) {
-  const float p = fm(a, b);
-  const df as = split(a);
-  const df bs = split(b);
-  // ((ah*bh - p) + ah*bl + al*bh) + al*bl
-  const float e = fa(fa(fa(fs(fm(as.hi, bs.hi), p), fm(as.hi, bs.lo)),
-                        fm(as.lo, bs.hi)),
-                     fm(as.lo, bs.lo));
-  return {p, e};
-}
-#endif
 
 // -- df32 arithmetic ----------------------------------------------------------
 
@@ -170,9 +144,8 @@ __device__ __forceinline__ df dot3(df ax, df ay, df az, df bx, df by,
   return add(add(mul(ax, bx), mul(ay, by)), mul(az, bz));
 }
 
-// a step's words: a plain pointer (K10/K12's shared memory), a volatile
-// one (K11/K13's shared memory, read where each word is used) or one
-// into the kernel's parameters
+// a step's words: a pointer into the kernel's parameters, or a volatile
+// one into their shared-memory copy (read where each word is used)
 template <typename W>
 __device__ __forceinline__ df ld(W w, int i) {
   return {w[i], w[i + 1]};
@@ -241,11 +214,10 @@ __device__ __forceinline__ void frame_apply(W w, int fl, df& x, df& y,
 
 // One transfer-intercept-refract step (ops/df32._surface_df): state in
 // and out in the running frame, s the intercept distance.  The step's
-// flags arrive as an int read at run time (K10/K12) or as
-// std::integral_constant<int, F> (K11/K13, df32_spec.cuh): there every
+// flags arrive as std::integral_constant<int, F> (df32_spec.cuh): every
 // `fl & G_*` below, the permutation codes and the fast/exact choice are
-// constants and the branches not taken fold away.  One body serves both.
-template <typename Flags = int, typename W = const float*>
+// constants and the branches not taken fold away.
+template <typename Flags, typename W>
 __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
                                            df& z, df& ux, df& uy, df& uz,
                                            df& s) {

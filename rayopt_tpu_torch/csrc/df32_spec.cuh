@@ -1,16 +1,19 @@
-// The polychromatic df32 trace (K11) and df32 spot-moment merit (K13)
-// for NVIDIA Hopper (sm_90a), compiled per plan key: the distinct flag
-// tuples of the key's plans (one flag word a step: kind, flat, conic,
-// alternate, off-axis, the signed-permutation codes, rotation, clip and
-// fast, cuda_df32._step_words), which tuple each plan takes, the optical
-// path (K11), whether the chain reads the plan words from the kernel's
-// parameters or from a shared-memory copy of them, the block size and
-// the launch bound.  The plan words themselves (curvature, mu, offsets,
-// rotation, ...) stay run-time data: one build serves every wavelength
-// of a table and every change of value that keeps the flags.
+// The df32 ("double-single") parity-grade trace and spot-moment merit
+// for NVIDIA Hopper (sm_90a), compiled per plan key: the trace K10 (one
+// plan) and K11 (one plan a wavelength), the merit K12 (one plan) and
+// K13.  A key is the distinct flag tuples of its plans (one flag word a
+// step: kind, flat, conic, alternate, off-axis, the signed-permutation
+// codes, rotation, clip and fast, cuda_df32._step_words), which tuple
+// each plan takes, the optical path (K10/K11), where the chain reads the
+// plan words, the block size and the launch bound.  The plan words
+// themselves (curvature, mu, offsets, rotation, ...) stay run-time data:
+// one build serves every wavelength of a table and every change of value
+// that keeps the flags.
 //
 // Replaces the JAX package's Pallas TPU kernels
+//   K10  rayopt_tpu/ops/df32.py  pallas_trace_df32             (kernel :1094)
 //   K11  rayopt_tpu/ops/df32.py  pallas_trace_df32_multi       (kernel :1140)
+//   K12  rayopt_tpu/ops/df32.py  pallas_trace_df32_merit       (kernel :1285)
 //   K13  rayopt_tpu/ops/df32.py  pallas_trace_df32_merit_multi (kernel :1321)
 // which the JAX package specializes the same way (each plan's steps are
 // Python dicts, unrolled at trace time), and computes, word for word,
@@ -22,14 +25,14 @@
 // What bounds them on the H100.  One ray through one double Gauss plan
 // costs 5,390 (fast) to 6,392 (exact) float32 operations in this form,
 // 5,642 to 6,644 with the path (chip_smoke.df32_chain_ops, an FMA
-// counted twice), against 48 bytes read and 56 written a plan (K11 with
-// the path): bound by operations, and by the issue of unfused float32
-// instructions, one a warp a clock.
+// counted twice), against 48 bytes read and 56 written a plan (K10/K11
+// with the path): bound by operations, and by the issue of unfused
+// float32 instructions, one a warp a clock.
 //
 // What the design does about it.
-//  * two_prod takes its FMA form (df32_common.cuh, RAYOPT_DF32_FMA 1):
-//    mul falls from 24 float32 operations to 9, sqr from 23 to 8, with
-//    the same words.  The cross terms and the renormalisation stay
+//  * two_prod takes its FMA form (df32_common.cuh): mul costs 9 float32
+//    operations where Dekker's split costs 24, sqr 8 where it costs 23,
+//    with the same words.  The cross terms and the renormalisation stay
 //    unfused, as the plain version rounds them.
 //  * Every step's flags are a std::integral_constant (surface_df reads
 //    them with flag_value): the flag tests, the permutation picks and
@@ -37,25 +40,32 @@
 //    unrolls into straight-line code, with no integer, branch or select
 //    instruction taking an issue slot from the float32 chain.
 //  * Wavelengths outermost: for each plan, a grid-stride loop over the
-//    rays loads a ray's 12 words, traces it, and stores it (K11) or adds
-//    its moments (K13).  The plan index is a run-time loop over one
-//    instantiated chain a flag tuple (a table's wavelengths share one;
-//    only mu and n_before differ), so the code is one chain long, not
-//    one a plan.  Re-reading the ray each plan costs 48 bytes a ray and
-//    plan beside ~5k operations, and no register holds the input ray
+//    rays loads a ray's 12 words, traces it, and stores it (K10/K11) or
+//    adds its moments (K12/K13).  The plan index is a run-time loop over
+//    one instantiated chain a flag tuple (a table's wavelengths share
+//    one; only mu and n_before differ), so the code is one chain long,
+//    not one a plan.  Re-reading the ray each plan costs 48 bytes a ray
+//    and plan beside ~5k operations, and no register holds the input ray
 //    across the plans.
 //  * The plan words travel in the kernel's parameters (a
 //    __grid_constant__ struct the launcher fills from the host-side
 //    packed words: no upload a call, no device copy).  Read straight
-//    from there, ptxas keeps most of them in registers across the ray
-//    loop: fewer load instructions in the chain, and K11 runs fastest
-//    so (106 registers, 2 blocks of 256 an SM).  K13's moments and
-//    reduction push that to 141 registers, one block an SM; with
-//    STAGED each block copies the words once into static shared memory
-//    and the chain reads that copy through a volatile pointer, where
-//    each word is used (56 registers, 2 blocks of 512), K13's faster
-//    form.  Every thread reads the same word: a broadcast.
-//  * K13 keeps each plan's five df32 moments in registers, reduces the
+//    from there (WORDS_DIRECT), ptxas keeps most of them in registers
+//    across the ray loop: fewer load instructions in the chain, and K11
+//    runs fastest so (106 registers, 2 blocks of 256 an SM).  K13's
+//    moments and reduction push that to 141 registers, one block an SM;
+//    with WORDS_STAGED each block copies the words once into static
+//    shared memory and the chain reads that copy through a volatile
+//    pointer, where each word is used (56 registers, 2 blocks of 512),
+//    K13's faster form.  Every thread reads the same word: a broadcast.
+//    At one plan (K10, K12) the words are a third as many and the direct
+//    form is the faster for both (64 and 72 registers, 512 threads).
+//    One plan too long for the parameters (WORDS_DEVICE, ~226 double
+//    Gauss steps and more) is uploaded by the wrapper to a device
+//    tensor, which each block stages into dynamic shared memory (opted
+//    in above 48 KB) and reads as WORDS_STAGED does; its flags stay
+//    compile-time.
+//  * K12/K13 keep each plan's five df32 moments in registers, reduce the
 //    block with block_sum_df (warp shuffles, df32 adds) into its
 //    (hi, lo) pairs, and the last block to finish (last_block) promotes
 //    every block's pair exactly to float64 and sums them in block order:
@@ -68,13 +78,6 @@
 // cudaGetLastError() (0 = launched).
 
 #pragma once
-
-#if defined(RAYOPT_DF32_FMA) && !RAYOPT_DF32_FMA
-#error "df32_spec.cuh takes two_prod's FMA form"
-#endif
-#ifndef RAYOPT_DF32_FMA
-#define RAYOPT_DF32_FMA 1
-#endif
 
 #include <cstring>
 #include <tuple>
@@ -130,11 +133,28 @@ __host__ __device__ constexpr int plan_words() {
   return Map::nlam * Ps::steps * DW;
 }
 
-// The kernel parameter that carries the plan words.
-template <class Ps, class Map>
-struct ParamWords {
+// Where the chain reads the plan words: straight from the kernel's
+// parameters, from a copy of them in static shared memory, or from a
+// copy in dynamic shared memory of a device tensor (cuda_spec.WORDS_AT).
+enum WordsAt : int { WORDS_DIRECT = 0, WORDS_STAGED = 1, WORDS_DEVICE = 2 };
+
+// The kernel parameter that carries the plan words, or (WORDS_DEVICE)
+// their device pointer.
+template <class Ps, class Map, int AT>
+struct KernelWords {
   float w[plan_words<Ps, Map>()];
 };
+
+template <class Ps, class Map>
+struct KernelWords<Ps, Map, WORDS_DEVICE> {
+  const float* w;
+};
+
+// The dynamic shared memory of a launch: the device words' copy.
+template <class Ps, class Map, int AT>
+__host__ constexpr size_t words_smem() {
+  return AT == WORDS_DEVICE ? plan_words<Ps, Map>() * sizeof(float) : 0;
+}
 
 // One ray through one plan of tuple P (trace_df32_final): the unrolled
 // steps, then the last step's frame; PATH sums s * n_before.
@@ -168,7 +188,7 @@ __device__ __forceinline__ void for_plans(W words, F&& f) {
   });
 }
 
-// K11: out[((l * per) + 2k + h) * n + i], per = 14 with PATH, else 12;
+// The trace: out[((l * per) + 2k + h) * n + i], per = 14 with PATH, else 12;
 // k = x, y, z, ux, uy, uz (and t with PATH), h = hi, lo.
 template <class Ps, class Map, bool PATH, int BLOCK, typename W>
 __device__ __forceinline__ void trace_multi(W words, const In12& in,
@@ -189,7 +209,7 @@ __device__ __forceinline__ void trace_multi(W words, const In12& in,
   });
 }
 
-// K13: each plan's five df32 moments (count, sum x, sum y, sum x^2,
+// The merit: each plan's five df32 moments (count, sum x, sum y, sum x^2,
 // sum y^2) over its live rays; partials[(block * nlam + l) * 10 + 2q +
 // h] the blocks' pairs; the last block writes out[l * 5 + q] in float64.
 template <class Ps, class Map, int BLOCK, typename W>
@@ -235,63 +255,75 @@ __device__ __forceinline__ void merit_multi(W words, const In12& in,
 }
 
 // The plan words as the chain reads them: straight from the kernel's
-// parameters, or (STAGED) from a copy in static shared memory made once
-// a block, through a volatile pointer.
-template <class Ps, class Map, bool STAGED, int BLOCK, typename F>
-__device__ __forceinline__ void with_words(const ParamWords<Ps, Map>& pw,
+// parameters, or (WORDS_STAGED, WORDS_DEVICE) from a copy in shared
+// memory made once a block, through a volatile pointer.
+template <class Ps, class Map, int AT, int BLOCK, typename F>
+__device__ __forceinline__ void with_words(const KernelWords<Ps, Map, AT>& pw,
                                            F&& f) {
-  if constexpr (STAGED) {
+  if constexpr (AT == WORDS_DIRECT) {
+    f(static_cast<const float*>(pw.w));
+  } else {
     constexpr int N = plan_words<Ps, Map>();
-    __shared__ float s_words[N];
+    float* s_words;
+    if constexpr (AT == WORDS_STAGED) {
+      __shared__ float s_static[N];
+      s_words = s_static;
+    } else {
+      extern __shared__ float s_dynamic[];
+      s_words = s_dynamic;
+    }
     for (int i = threadIdx.x; i < N; i += BLOCK) s_words[i] = pw.w[i];
     __syncthreads();
     f(static_cast<const volatile float*>(s_words));
-  } else {
-    f(static_cast<const float*>(pw.w));
   }
 }
 
-// K11 of one key.  MINB: the blocks an SM __launch_bounds__ asks ptxas
-// to fit (1 at least, as grad_spec.cuh's kernels).
-template <class Ps, class Map, bool PATH, bool STAGED, int BLOCK, int MINB>
+// The trace (K10, K11) of one key.  MINB: the blocks an SM
+// __launch_bounds__ asks ptxas to fit (1 at least, as grad_spec.cuh's
+// kernels).
+template <class Ps, class Map, bool PATH, int AT, int BLOCK, int MINB>
 __global__ void __launch_bounds__(BLOCK, MINB) df32_trace_spec(
-    const __grid_constant__ ParamWords<Ps, Map> pw, In12 in,
+    const __grid_constant__ KernelWords<Ps, Map, AT> pw, In12 in,
     float* __restrict__ out, int64_t n) {
-  with_words<Ps, Map, STAGED, BLOCK>(pw, [&](auto words) {
+  with_words<Ps, Map, AT, BLOCK>(pw, [&](auto words) {
     trace_multi<Ps, Map, PATH, BLOCK>(words, in, out, n);
   });
 }
 
-// K13 of one key.
-template <class Ps, class Map, bool STAGED, int BLOCK, int MINB>
+// The merit (K12, K13) of one key.
+template <class Ps, class Map, int AT, int BLOCK, int MINB>
 __global__ void __launch_bounds__(BLOCK, MINB) df32_merit_spec(
-    const __grid_constant__ ParamWords<Ps, Map> pw, In12 in,
+    const __grid_constant__ KernelWords<Ps, Map, AT> pw, In12 in,
     float* __restrict__ partials, unsigned int* __restrict__ counter,
     double* __restrict__ out, int64_t n) {
-  with_words<Ps, Map, STAGED, BLOCK>(pw, [&](auto words) {
+  with_words<Ps, Map, AT, BLOCK>(pw, [&](auto words) {
     merit_multi<Ps, Map, BLOCK>(words, in, partials, counter, out, n);
   });
 }
 
-// The kernel parameter of a launch: the host-side plan words copied in.
-template <class Ps, class Map>
-__host__ inline ParamWords<Ps, Map> param_words(const void* words) {
-  ParamWords<Ps, Map> pw;
-  std::memcpy(pw.w, words, sizeof pw.w);
+// The kernel parameter of a launch: the host-side plan words copied in,
+// or (WORDS_DEVICE) the device words' pointer.
+template <class Ps, class Map, int AT>
+__host__ inline KernelWords<Ps, Map, AT> kernel_words(const void* words) {
+  KernelWords<Ps, Map, AT> pw;
+  if constexpr (AT == WORDS_DEVICE)
+    pw.w = static_cast<const float*>(words);
+  else
+    std::memcpy(pw.w, words, sizeof pw.w);
   return pw;
 }
 
 }  // namespace
 
-// K11 launchers of one key: NAME(words (nlam, steps, DW) float32 in
-// host memory, copied into the launch's parameters; the 12 input words; out
-// (nlam, 12 or 14 with PATH, n); n, grid, stream);
-// NAME_blocks_per_sm(&blocks); NAME_error_string(err).
-#define RAYOPT_DF32_TRACE(NAME, PLANS, MAP, PATH, STAGED, BLOCK, MINB)        \
+// Trace launchers of one key: NAME(words (nlam, steps, DW) float32: in
+// host memory, copied into the launch's parameters, or (WORDS_DEVICE) on
+// the device; the 12 input words; out (nlam, 12 or 14 with PATH, n); n,
+// grid, stream); NAME_blocks_per_sm(&blocks); NAME_error_string(err).
+#define RAYOPT_DF32_TRACE(NAME, PLANS, MAP, PATH, AT, BLOCK, MINB)            \
   extern "C" int NAME##_blocks_per_sm(int* out) {                             \
     return blocks_per_sm(                                                     \
-        df32_trace_spec<PLANS, MAP, PATH, STAGED, BLOCK, MINB>, BLOCK, 0,     \
-        out);                                                                 \
+        df32_trace_spec<PLANS, MAP, PATH, AT, BLOCK, MINB>, BLOCK,            \
+        words_smem<PLANS, MAP, AT>(), out);                                   \
   }                                                                           \
   extern "C" const char* NAME##_error_string(int err) {                       \
     return cudaGetErrorString(cudaError_t(err));                              \
@@ -299,21 +331,25 @@ __host__ inline ParamWords<Ps, Map> param_words(const void* words) {
   extern "C" int NAME(const void* words, IN12_PARAMS, void* out, long long n, \
                       int grid, void* stream) {                               \
     const void* p[12] = IN12_ARRAY;                                           \
-    df32_trace_spec<PLANS, MAP, PATH, STAGED, BLOCK, MINB>                    \
-        <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(              \
-            param_words<PLANS, MAP>(words), pack_in(p),                       \
+    const size_t smem = words_smem<PLANS, MAP, AT>();                         \
+    cudaError_t err = allow_smem(                                             \
+        df32_trace_spec<PLANS, MAP, PATH, AT, BLOCK, MINB>, smem);            \
+    if (err != cudaSuccess) return int(err);                                  \
+    df32_trace_spec<PLANS, MAP, PATH, AT, BLOCK, MINB>                        \
+        <<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(           \
+            kernel_words<PLANS, MAP, AT>(words), pack_in(p),                  \
             static_cast<float*>(out), int64_t(n));                            \
     return int(cudaGetLastError());                                           \
   }
 
-// K13 launchers of one key: NAME(words as K11's; the 12 input words;
-// partials (grid, nlam, 10) float32; counter (1 zeroed uint32, reset by
-// the kernel); out (nlam, 5) float64; n, grid, stream);
+// Merit launchers of one key: NAME(words as the trace's; the 12 input
+// words; partials (grid, nlam, 10) float32; counter (1 zeroed uint32,
+// reset by the kernel); out (nlam, 5) float64; n, grid, stream);
 // NAME_blocks_per_sm(&blocks); NAME_error_string(err).
-#define RAYOPT_DF32_MERIT(NAME, PLANS, MAP, STAGED, BLOCK, MINB)              \
+#define RAYOPT_DF32_MERIT(NAME, PLANS, MAP, AT, BLOCK, MINB)                  \
   extern "C" int NAME##_blocks_per_sm(int* out) {                             \
-    return blocks_per_sm(df32_merit_spec<PLANS, MAP, STAGED, BLOCK, MINB>,    \
-                         BLOCK, 0, out);                                      \
+    return blocks_per_sm(df32_merit_spec<PLANS, MAP, AT, BLOCK, MINB>, BLOCK, \
+                         words_smem<PLANS, MAP, AT>(), out);                  \
   }                                                                           \
   extern "C" const char* NAME##_error_string(int err) {                       \
     return cudaGetErrorString(cudaError_t(err));                              \
@@ -322,9 +358,13 @@ __host__ inline ParamWords<Ps, Map> param_words(const void* words) {
                       void* counter, void* out, long long n, int grid,        \
                       void* stream) {                                         \
     const void* p[12] = IN12_ARRAY;                                           \
-    df32_merit_spec<PLANS, MAP, STAGED, BLOCK, MINB>                          \
-        <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(              \
-            param_words<PLANS, MAP>(words), pack_in(p),                       \
+    const size_t smem = words_smem<PLANS, MAP, AT>();                         \
+    cudaError_t err =                                                         \
+        allow_smem(df32_merit_spec<PLANS, MAP, AT, BLOCK, MINB>, smem);       \
+    if (err != cudaSuccess) return int(err);                                  \
+    df32_merit_spec<PLANS, MAP, AT, BLOCK, MINB>                              \
+        <<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(           \
+            kernel_words<PLANS, MAP, AT>(words), pack_in(p),                  \
             static_cast<float*>(partials),                                    \
             static_cast<unsigned int*>(counter), static_cast<double*>(out),   \
             int64_t(n));                                                      \

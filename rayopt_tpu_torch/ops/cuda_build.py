@@ -7,15 +7,14 @@ links the objects.  It runs at first use, from the package's own
 sources, into build/torch_kernels/ beside the package, and is cached
 by a hash of the sources and flags.  `build_shared` builds the
 translation units that ops.cuda_spec writes for each spec key (K1, K2,
-K4-K9) and plan key (K11, K13) the same way, one nvcc a unit, in
+K4-K9) and plan key (K10-K13) the same way, one nvcc a unit, in
 parallel, cached by a hash of the headers, the flags and the unit's
 text.  Fast math stays off: the kernels
 rely on IEEE division, square root and NaN propagation.  The df32
-kernels (df32.cu, df32_spec.cuh) need every float32 operation rounded
-as written; they write each one with a round-to-nearest intrinsic (the
-one fused multiply-add, two_prod's error word in df32_spec.cuh, with
-__fmaf_rn), which nvcc never contracts, so all sources share one set
-of flags.
+kernels (df32_spec.cuh) need every float32 operation rounded as
+written; they write each one with a round-to-nearest intrinsic (the
+one fused multiply-add, two_prod's error word, with __fmaf_rn), which
+nvcc never contracts, so all sources share one set of flags.
 """
 
 import ctypes
@@ -29,8 +28,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "torch_kernels"
-SOURCES = ("trace.cu", "df32.cu")     # K3; K10, K12
-HEADERS = ("trace_common.cuh", "df32_common.cuh")
+SOURCES = ("trace.cu",)     # K3
+HEADERS = ("trace_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,13 +66,6 @@ class KernelLibrary:
                 fn.argtypes = [ptr, ptr, i32, i32] + [ptr]*7 + [
                     i64, i32, i32, ptr]
                 fn.restype = i32
-        # df32 (K10, K12): plan words, flags, nsteps, [with_path,] the 12
-        # input words, out or partials, n, grid, block, stream
-        for name, ints in (("df32_trace_final", 2), ("df32_merit", 1)):
-            fn = getattr(self._lib, name)
-            fn.argtypes = [ptr, ptr] + [i32]*ints + [ptr]*13 + [i64, i32,
-                                                               i32, ptr]
-            fn.restype = i32
         self._lib.trace_error_string.argtypes = [i32]
         self._lib.trace_error_string.restype = ctypes.c_char_p
 
@@ -90,6 +82,18 @@ def ptxas_lines(log):
     """The register/shared-memory/spill lines of a -Xptxas -v report."""
     return [ln.strip() for ln in log.splitlines()
             if "ptxas info" in ln or "bytes stack frame" in ln]
+
+
+def sass_size(path):
+    """(instructions, bytes) of a built library's SASS (cuobjdump
+    --dump-sass from the CUDA toolkit, 16 bytes an instruction on
+    Hopper); raises OSError or CalledProcessError without cuobjdump."""
+    import re
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "--dump-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    count = len(re.findall(r"^\s+/\*[0-9a-f]{4,}\*/", text, re.M))
+    return count, 16*count
 
 
 def _digest(*parts):

@@ -10,22 +10,25 @@ wavelength); it replaces `df32.pallas_trace_df32_multi`.
 
 K12 `trace_merit_df32` runs the K10 trace with no per-ray writeback
 and reduces it to the five df32 spot moments (count, sum x, sum y,
-sum x^2, sum y^2) over the rays whose x, y and uz hi words are finite:
-one (hi, lo) pair a moment a block, promoted exactly to float64 and
-summed here.  K13 `trace_merit_multi_df32` does so for each plan, the
-grid-wide sum fused into its one launch.  They replace
+sum x^2, sum y^2) over the rays whose x, y and uz hi words are finite,
+each block's (hi, lo) pairs promoted exactly to float64 and summed.
+K13 `trace_merit_multi_df32` does so for each plan.  The grid-wide sum
+is fused into the one launch.  They replace
 `df32.pallas_trace_df32_merit` and `df32.pallas_trace_df32_merit_multi`.
 
-The kernels are hand-written CUDA C++, built with nvcc for sm_90a at
-first use and launched on PyTorch's current stream through ctypes:
-K10 and K12 read their plan's flags at run time (csrc/df32.cu, built
-by ops.cuda_build); K11 and K13 are compiled per plan key
-(csrc/df32_spec.cuh, built by ops.cuda_spec: the plans' flag tuples,
-the path, block and launch bound), their plan words passed from the
-host as kernel parameters, with no upload.  A wrapper takes the plain
-PyTorch version (`*_reference`, ops.df32) only for a bundle on the
-CPU; for a CUDA bundle it launches its kernel or raises.  Each wrapper
-counts its launches in `<wrapper>.launches`.
+The kernels are hand-written CUDA C++ (csrc/df32_spec.cuh), compiled
+for sm_90a per plan key (ops.cuda_spec.df32_multi_key: the plans' flag
+tuples, the path, where the chain reads the plan words, the block and
+launch bound; K10 and K12 are the keys of one plan) at first use, and
+launched on PyTorch's current stream through ctypes.  The plan words
+are passed from the host as kernel parameters, with no upload; only a
+single plan too long for the parameters is uploaded, once a call, as
+device words.  A plan list whose words pass the parameter limit is
+launched in balanced runs that fit (cuda_spec.df32_runs), one launch a
+run.  A wrapper takes the plain PyTorch version (`*_reference`,
+ops.df32) only for a bundle on the CPU; for a CUDA bundle it launches
+its kernel or raises.  Each wrapper counts its launches in
+`<wrapper>.launches`.
 
 `state` is six (hi, lo) pairs of contiguous (N,) float32 tensors on
 one device (df32.state_from_f64).
@@ -36,7 +39,6 @@ import functools
 import torch
 
 from . import df32 as D
-from .cuda_trace import BLOCK, BLOCKS_PER_SM, SMEM_LIMIT, _raise_on
 
 # packed step layout and flag bits: keep in sync with csrc/df32_common.cuh
 DW = 36
@@ -146,41 +148,76 @@ def _words(state):
     return words
 
 
-def _launch_setup(steps, words, extra_smem=0):
-    from .cuda_build import load_library
-    x = words[0]
-    lib = load_library()
-    packed, flags = pack_plan(steps, x.device)
-    nsteps = flags.shape[-1]
-    smem = packed.numel()*4 + flags.numel()*4 + extra_smem
-    if smem > SMEM_LIMIT:
-        raise ValueError("a plan of %d steps needs %d bytes of shared "
-                         "memory, above %d" % (nsteps, smem, SMEM_LIMIT))
-    n = x.shape[0]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(-(-n // BLOCK), sms*BLOCKS_PER_SM))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    return lib, packed, flags, nsteps, n, grid, stream
-
-
 @functools.lru_cache(maxsize=None)
 def _multi_kernel(kernel, flags, with_path):
-    """The loaded K11 ("k11") or K13 ("k13") build of the plans' flag
-    tuples (cuda_spec.df32_key_of; built at first use)."""
+    """The loaded trace ("k11") or merit ("k13") build of the plans'
+    flag tuples (cuda_spec.df32_key_of; K10 or K12 at one plan; built at
+    first use)."""
     from . import cuda_spec as CS
     return CS.load(CS.df32_key_of(flags, kernel, with_path))
 
 
-def _multi_setup(kernel, plans, words, with_path=False):
-    """K11's or K13's loaded build for `plans`, their packed words on the
-    host (the launcher copies them into the kernel's parameters), the
-    rays, the grid and the stream."""
-    from .cuda_spec import spec_launch
+def _runs(kernel, plans, with_path=False):
+    """The launches of `plans`: (l0, l1, loaded build) of each balanced
+    run of plans whose words fit a key's kernel parameters
+    (cuda_spec.df32_runs), and every plan's packed words on the host."""
+    from .cuda_spec import df32_runs
     packed, flags = pack_plan(list(plans), "cpu")
-    kern = _multi_kernel(kernel, tuple(map(tuple, flags.tolist())),
-                         bool(with_path))
+    flags = tuple(map(tuple, flags.tolist()))
+    return [(l0, l1, _multi_kernel(kernel, flags[l0:l1], bool(with_path)))
+            for l0, l1 in df32_runs(len(flags), len(flags[0]), kernel)], \
+        packed
+
+
+def _word_ptr(kern, packed, device):
+    """The launcher's plan words: the host-side words (copied into the
+    kernel's parameters), or a device copy (device words), kept alive by
+    the returned tensor."""
+    if kern.key.device_words:
+        packed = packed.to(device)
+    return packed.data_ptr(), packed
+
+
+def _trace(plans, words, with_path):
+    """The (nlam, 12 or 14, n) output of the trace of `plans`: one launch
+    a run (none for no rays); returns it and the launches."""
+    from .cuda_spec import spec_launch
     device, n, stream = spec_launch(words)
-    return kern, packed, n, kern.grid(n, device), stream
+    runs, packed = _runs("k11", plans, with_path)
+    out = torch.empty((len(packed), 14 if with_path else 12, n),
+                      dtype=torch.float32, device=device)
+    if not n:
+        return out, 0
+    for l0, l1, kern in runs:
+        ptr, _keep = _word_ptr(kern, packed[l0:l1], device)
+        kern.check(kern.fn(ptr, *(w.data_ptr() for w in words),
+                           out[l0].data_ptr(), n, kern.grid(n, device),
+                           stream))
+    return out, len(runs)
+
+
+def _merit(plans, words):
+    """The (nlam, 5) float64 moments of `plans`: one launch a run, the
+    grid-wide sum fused (zeros and no launch for no rays); returns them
+    and the launches."""
+    from .cuda_spec import counter, spec_launch
+    device, n, stream = spec_launch(words)
+    runs, packed = _runs("k13", plans)
+    if not n:
+        return torch.zeros((len(packed), 5), dtype=torch.float64,
+                           device=device), 0
+    tot = torch.empty((len(packed), 5), dtype=torch.float64, device=device)
+    # the kernel's last block resets the counter, so the runs, in order
+    # on one stream, share it
+    for l0, l1, kern in runs:
+        grid = kern.grid(n, device)
+        partials = torch.empty((grid, l1 - l0, 10), dtype=torch.float32,
+                               device=device)
+        ptr, _keep = _word_ptr(kern, packed[l0:l1], device)
+        kern.check(kern.fn(ptr, *(w.data_ptr() for w in words),
+                           partials.data_ptr(), counter(device).data_ptr(),
+                           tot[l0].data_ptr(), n, grid, stream))
+    return tot, len(runs)
 
 
 def _pairs(out):
@@ -197,21 +234,14 @@ def trace_final_df32(steps, state, with_path=False):
     """K10: the df32 trace of `state` through the plan `steps`, as
     ops.df32.trace_df32_final returns it: six (hi, lo) pairs, and with
     with_path=True also the optical path pair.  CUDA bundles launch the
-    kernel; CPU bundles take trace_final_df32_reference."""
+    plan's key once (no launch for no rays); CPU bundles take
+    trace_final_df32_reference."""
     words = _words(state)
     if words[0].device.type == "cpu":
         return trace_final_df32_reference(steps, state, with_path)
-    lib, packed, flags, nsteps, n, grid, stream = _launch_setup(steps, words)
-    out = torch.empty((14 if with_path else 12, n), dtype=torch.float32,
-                      device=words[0].device)
-    if n:
-        err = lib.df32_trace_final(
-            packed.data_ptr(), flags.data_ptr(), nsteps, int(bool(with_path)),
-            *(w.data_ptr() for w in words), out.data_ptr(), n, grid, BLOCK,
-            stream)
-        _raise_on(lib, err, "df32_trace_final")
-        trace_final_df32.launches += 1
-    return _final(out, with_path)
+    out, launched = _trace([steps], words, with_path)
+    trace_final_df32.launches += launched
+    return _final(out[0], with_path)
 
 
 trace_final_df32.launches = 0
@@ -220,53 +250,32 @@ trace_final_df32.launches = 0
 def trace_multi_df32(plans, state, with_path=False):
     """K11: ONE bundle through every plan of `plans` (one a wavelength,
     equal step counts); returns one K10 result a plan.  CUDA bundles
-    launch the plans' key once (no launch for no rays); CPU bundles take
+    launch the plans' key once a run of plans that fits its parameters
+    (no launch for no rays); CPU bundles take
     trace_multi_df32_reference."""
     words = _words(state)
     if words[0].device.type == "cpu":
         return trace_multi_df32_reference(plans, state, with_path)
-    kern, packed, n, grid, stream = _multi_setup("k11", plans, words,
-                                                 with_path)
-    nlam = kern.key.nlam
-    out = torch.empty((nlam, 14 if with_path else 12, n),
-                      dtype=torch.float32, device=words[0].device)
-    if n:
-        kern.check(kern.fn(packed.data_ptr(), *(w.data_ptr() for w in words),
-                           out.data_ptr(), n, grid, stream))
-        trace_multi_df32.launches += 1
-    return tuple(_final(out[li], with_path) for li in range(nlam))
+    out, launched = _trace(plans, words, with_path)
+    trace_multi_df32.launches += launched
+    return tuple(_final(out[li], with_path) for li in range(out.shape[0]))
 
 
 trace_multi_df32.launches = 0
-
-
-def _promote(partials):
-    """(grid, 5, 2) block pairs -> float64 totals (5,): each pair
-    promoted exactly, then summed over blocks in float64."""
-    return (partials[..., 0].double() + partials[..., 1].double()).sum(0)
 
 
 def trace_merit_df32(steps, state):
     """K12: the five df32 spot moments (count, sum x, sum y, sum x^2,
     sum y^2) of the K10 trace as 0-d float64 tensors; feed
     ops.cuda_trace.spot_rms_from_moments.  CUDA bundles launch the
-    kernel; CPU bundles take trace_merit_df32_reference."""
+    plan's key once, the grid-wide sum fused (zeros and no launch for no
+    rays); CPU bundles take trace_merit_df32_reference."""
     words = _words(state)
     if words[0].device.type == "cpu":
         return trace_merit_df32_reference(steps, state)
-    lib, packed, flags, nsteps, n, grid, stream = _launch_setup(
-        steps, words, extra_smem=10*4*(BLOCK // 32))
-    partials = torch.zeros((grid, 5, 2), dtype=torch.float32,
-                           device=words[0].device)
-    if n:
-        err = lib.df32_merit(
-            packed.data_ptr(), flags.data_ptr(), nsteps,
-            *(w.data_ptr() for w in words), partials.data_ptr(), n, grid,
-            BLOCK, stream)
-        _raise_on(lib, err, "df32_merit")
-        trace_merit_df32.launches += 1
-    tot = _promote(partials)
-    return tuple(tot[q] for q in range(5))
+    tot, launched = _merit([steps], words)
+    trace_merit_df32.launches += launched
+    return tuple(tot[0, q] for q in range(5))
 
 
 trace_merit_df32.launches = 0
@@ -274,26 +283,16 @@ trace_merit_df32.launches = 0
 
 def trace_merit_multi_df32(plans, state):
     """K13: K12 for each plan of `plans`; one 5-tuple of float64 moments
-    a plan.  CUDA bundles launch the plans' key once, the grid-wide sum
-    fused (zeros and no launch for no rays); CPU bundles take
-    trace_merit_multi_df32_reference."""
-    from .cuda_spec import counter
+    a plan.  CUDA bundles launch the plans' key once a run of plans that
+    fits its parameters, the grid-wide sum fused (zeros and no launch
+    for no rays); CPU bundles take trace_merit_multi_df32_reference."""
     words = _words(state)
     if words[0].device.type == "cpu":
         return trace_merit_multi_df32_reference(plans, state)
-    kern, packed, n, grid, stream = _multi_setup("k13", plans, words)
-    nlam, device = kern.key.nlam, words[0].device
-    if n:
-        partials = torch.empty((grid, nlam, 10), dtype=torch.float32,
-                               device=device)
-        tot = torch.empty((nlam, 5), dtype=torch.float64, device=device)
-        kern.check(kern.fn(packed.data_ptr(), *(w.data_ptr() for w in words),
-                           partials.data_ptr(), counter(device).data_ptr(),
-                           tot.data_ptr(), n, grid, stream))
-        trace_merit_multi_df32.launches += 1
-    else:
-        tot = torch.zeros((nlam, 5), dtype=torch.float64, device=device)
-    return tuple(tuple(tot[li, q] for q in range(5)) for li in range(nlam))
+    tot, launched = _merit(plans, words)
+    trace_merit_multi_df32.launches += launched
+    return tuple(tuple(tot[li, q] for q in range(5))
+                 for li in range(tot.shape[0]))
 
 
 trace_merit_multi_df32.launches = 0

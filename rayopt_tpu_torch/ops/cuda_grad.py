@@ -21,8 +21,9 @@ K6 `weighted_moments_multi` and K7 `merit_adjoint_multi` are their
 polychromatic twins (`pallas_grad._fwd_kernel_multi`,
 `_adjoint_kernel_multi`): a stacked table (leading wavelength axis,
 System.tables or glass.glass_tables) and ONE bundle run through every
-wavelength's chain (K6 reads it once, its wavelengths unrolled; K7
-once a wavelength, its wavelengths outermost).  K6 returns (nlam, 5) moments; K7 takes (nlam,
+wavelength's chain (K6 reads it once, its wavelengths unrolled, a
+launch a run of at most cuda_spec.MAX_NLAM of them; K7 once a
+wavelength, its wavelengths outermost).  K6 returns (nlam, 5) moments; K7 takes (nlam,
 5) moment cotangents, judges each ray dead or live per wavelength,
 sums the ray and weight cotangents over the wavelengths and returns
 the parameter cotangents per wavelength (nlam, S, SLOTS), so autograd
@@ -753,14 +754,24 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
 merit_adjoint.launches = 0
 
 
+def _moments_multi_runs(specs, dtype, clip, nlam):
+    """K6's launches for a stack of nlam tables: (l0, l1, loaded key) of
+    each balanced run of at most cuda_spec.MAX_NLAM wavelengths
+    (cuda_spec.runs: 12 -> 6 + 6, 13 -> 7 + 6)."""
+    return [(l0, l1, _moments_multi_kernel(specs, dtype, clip, l1 - l0))
+            for l0, l1 in CS.runs(nlam, CS.MAX_NLAM)]
+
+
 def weighted_moments_multi(tables, specs, state, w, clip=False):
     """K6: the (nlam, 5) weighted moments of each table of a stack
-    (leading wavelength axis) over its live rays, one bundle read once,
-    in the rays' dtype; `specs` those of the first wavelength
-    (cuda_trace.multi_specs).  CUDA bundles launch the kernel compiled
-    for (dtype, specs, clip, nlam) (ops.cuda_spec: one launch, the
-    wavelengths unrolled, the grid-wide sum fused); CPU bundles take
-    weighted_moments_multi_reference."""
+    (leading wavelength axis) over its live rays, in the rays' dtype;
+    `specs` those of the first wavelength (cuda_trace.multi_specs).
+    CUDA bundles launch the kernel compiled for (dtype, specs, clip,
+    nlam) (ops.cuda_spec: one launch, the wavelengths unrolled, the
+    grid-wide sum fused), one bundle read once; a stack past MAX_NLAM
+    in balanced runs, one launch each, the moments concatenated in
+    wavelength order (each wavelength's are independent).  CPU bundles
+    take weighted_moments_multi_reference."""
     _check_state(state)
     _check_vector(w, state, "w")
     x = state[0]
@@ -769,12 +780,13 @@ def weighted_moments_multi(tables, specs, state, w, clip=False):
                                                 clip)
     spec_launch(state)
     specs = tuple(specs)
-    kern = _moments_multi_kernel(specs, x.dtype, bool(clip),
-                                 tables.curvature.shape[0])
-    out = launch_moments(kern, tables, specs, state, w)
+    runs = _moments_multi_runs(specs, x.dtype, bool(clip),
+                               tables.curvature.shape[0])
+    outs = [launch_moments(kern, table_at(tables, slice(l0, l1)), specs,
+                           state, w) for l0, l1, kern in runs]
     if x.shape[0]:
-        weighted_moments_multi.launches += 1
-    return out
+        weighted_moments_multi.launches += len(runs)
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 weighted_moments_multi.launches = 0

@@ -32,15 +32,19 @@ off axis), its rotation and its n_before, never its curvature, conic or
 mu; every other row's n_before carries its optical path.  Row 0 has
 none.  A slot that is not live comes back as an exact zero.
 
-The polychromatic df32 trace K11 and merit K13 (csrc/df32_spec.cuh) are
-keyed the same way on their plans (`df32_multi_key`): the distinct flag
-tuples of the plans (one cuda_df32 step flag word a step), the tuple
-each plan takes, the optical path (K11), whether the chain reads the
-plan words from the kernel's parameters or from a shared-memory copy of
-them, the block and the launch bound.  The plan words stay run-time
-data, passed as kernel parameters, and the wavelengths loop at run time
-over one compiled chain a tuple, so a key has no wavelength cap: it is
-refused only past the parameter limit.
+The df32 trace and merit (csrc/df32_spec.cuh) are keyed the same way
+on their plans (`df32_multi_key`): the distinct flag tuples of the plans
+(one cuda_df32 step flag word a step), the tuple each plan takes, the
+optical path (the trace), where the chain reads the plan words (see
+Df32Key), the block and the launch bound.  One plan is K10 (the trace)
+or K12 (the merit), several are K11 or K13: one template each.  The
+plan words stay run-time data, passed as kernel parameters, and the
+wavelengths loop at run time over one compiled chain a tuple, so a key
+has no wavelength cap: it is refused only past the parameter limit,
+where a single plan reads its words from a device tensor instead.
+
+A stack or plan list past a key's limit is split by its wrapper into
+balanced runs (`runs`), one launch a run.
 """
 
 import ctypes
@@ -89,18 +93,26 @@ _MACROS = {"k1": "RAYOPT_SPEC_TRACE", "k2": "RAYOPT_SPEC_MERIT",
            "k7": "RAYOPT_SPEC_ADJOINT_MULTI",
            "k9": "RAYOPT_SPEC_OPD_ADJOINT",
            "k11": "RAYOPT_DF32_TRACE", "k13": "RAYOPT_DF32_MERIT"}
-#: K11's and K13's threads a block, and whether each reads its plan
-#: words from a shared-memory copy (else straight from the kernel's
-#: parameters, where ptxas keeps them in registers across the ray loop:
-#: faster for K11 at 106 registers, slower for K13, whose 141 leave one
-#: block an SM; kernel_times --df32 --variants, PERF.md §6)
-BLOCK_DF32 = {"k11": 256, "k13": 512}
-DF32_STAGED = {"k11": False, "k13": True}
+#: the df32 keys' threads a block and whether each reads its plan words
+#: from a shared-memory copy (else straight from the kernel's
+#: parameters, where ptxas keeps them in registers across the ray loop),
+#: by kernel: K11 and K13 (several plans), K10 and K12 (a "k11" or
+#: "k13" key of one plan).  K11 runs faster direct (106 registers), K13
+#: staged (direct, its 141 registers leave one block an SM); at one plan
+#: both run fastest direct at 512 threads (64 and 72 registers);
+#: kernel_times --df32 --variants, PERF.md §6
+BLOCK_DF32 = {"k11": 256, "k13": 512, "k10": 512, "k12": 512}
+DF32_STAGED = {"k11": False, "k13": True, "k10": False, "k12": False}
+#: the kernel a df32 key of one plan is
+ONE_PLAN = {"k11": "k10", "k13": "k12"}
 #: the most bytes of kernel parameters a launch may pass (CUDA 12.1+ on
 #: Volta and later), and those of K11/K13 beside the plan words: 12
 #: input pointers, out (K13: partials, counter, out) and n
 PARAM_LIMIT = 32764
 DF32_PARAM_BYTES = {"k11": (12 + 1 + 1)*8, "k13": (12 + 3 + 1)*8}
+#: the words' placement of each Df32Key (its C++ constant in
+#: df32_spec.cuh)
+WORDS_AT = ("WORDS_DIRECT", "WORDS_STAGED", "WORDS_DEVICE")
 
 
 def baked_out_rows(specs, field):
@@ -348,12 +360,15 @@ def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_FIELDS, rays=True,
 
 
 class Df32Key(NamedTuple):
-    """One K11 or K13 specialization: kernel "k11" or "k13", the
+    """One df32 specialization: kernel "k11" (the trace: K11, or K10 at
+    one plan) or "k13" (the merit: K13, or K12 at one plan), the
     distinct flag tuples of its plans (one cuda_df32 step flag word a
     step, one step count), the tuple each plan takes (its length the
-    wavelength count), the optical path (K11), whether the chain reads
-    the plan words (kernel parameters) from a copy in static shared
-    memory, threads a block and the launch bound's blocks an SM."""
+    wavelength count), the optical path (the trace), whether the chain
+    reads the plan words from a copy in shared memory, threads a block,
+    the launch bound's blocks an SM, and whether the words come from a
+    device tensor (staged into dynamic shared memory) instead of the
+    kernel's parameters: the placement of one plan too long for them."""
 
     kernel: str
     tuples: tuple
@@ -362,6 +377,7 @@ class Df32Key(NamedTuple):
     block: int
     min_blocks: int = MIN_BLOCKS
     staged: bool = False
+    device_words: bool = False
 
     @property
     def name(self):
@@ -369,7 +385,7 @@ class Df32Key(NamedTuple):
         text = repr((self.kernel, tuple(map(tuple, self.tuples)),
                      tuple(self.plan_map), bool(self.with_path),
                      int(self.block), int(self.min_blocks),
-                     bool(self.staged)))
+                     bool(self.staged), bool(self.device_words)))
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
@@ -382,6 +398,11 @@ class Df32Key(NamedTuple):
         return len(self.tuples[0])
 
     @property
+    def words_at(self):
+        """The placement's constant in df32_spec.cuh (WORDS_AT)."""
+        return WORDS_AT[2 if self.device_words else int(bool(self.staged))]
+
+    @property
     def word_bytes(self):
         """The plan words: nlam * steps * DW float32."""
         from .cuda_df32 import DW
@@ -389,15 +410,23 @@ class Df32Key(NamedTuple):
 
     @property
     def param_bytes(self):
-        """The kernel's parameters: the plan words, the pointers and n."""
-        return self.word_bytes + DF32_PARAM_BYTES[self.kernel]
+        """The kernel's parameters: the plan words (or, device_words,
+        their pointer), the pointers and n."""
+        words = 8 if self.device_words else self.word_bytes
+        return words + DF32_PARAM_BYTES[self.kernel]
 
     @property
     def shared_bytes(self):
-        """Static shared memory a block: the staged plan words and K13's
-        block reduction (10 floats a warp)."""
-        words = self.word_bytes if self.staged else 0
+        """Static shared memory a block: the staged plan words (from the
+        parameters) and K13's block reduction (10 floats a warp)."""
+        words = self.word_bytes if self.staged and not self.device_words \
+            else 0
         return words + (10*4*(self.block//32) if self.kernel == "k13" else 0)
+
+    @property
+    def dynamic_smem(self):
+        """Dynamic shared memory a block: the device words' copy."""
+        return self.word_bytes if self.device_words else 0
 
 
 def df32_flags(plans):
@@ -407,22 +436,25 @@ def df32_flags(plans):
 
 
 def df32_multi_key(plans, kernel="k11", with_path=False, block=None,
-                   min_blocks=MIN_BLOCKS, staged=None):
+                   min_blocks=MIN_BLOCKS, staged=None, device_words=None):
     """The K11 (kernel="k11") or K13 ("k13") key of a sequence of plans
-    (ops.df32.plan, one a wavelength, one step count): the distinct
-    flag tuples in order of first use and each plan's tuple; block and
-    staged default to BLOCK_DF32's and DF32_STAGED's.  No wavelength
-    cap: the wavelengths loop at run time over one chain a tuple.
-    Refused past PARAM_LIMIT bytes of kernel parameters, which carry the
-    plan words; a staged copy of them (at most PARAM_LIMIT bytes) and
-    K13's reduction (at most 1,280) stay under SMEM_LIMIT of static
-    shared memory."""
+    (ops.df32.plan, one a wavelength, one step count), K10 or K12 at one
+    plan: the distinct flag tuples in order of first use and each plan's
+    tuple; block and staged default to BLOCK_DF32's and DF32_STAGED's
+    (K10's and K12's at one plan).  No wavelength cap: the wavelengths
+    loop at run time over one chain a tuple.  Refused past PARAM_LIMIT
+    bytes of kernel parameters, which carry the plan words; a staged
+    copy of them (at most PARAM_LIMIT bytes) and K13's reduction (at
+    most 1,280) stay under SMEM_LIMIT of static shared memory.  One
+    plan past PARAM_LIMIT takes device_words (device_words None: only
+    then), staged into dynamic shared memory, refused past
+    SMEM_OPTIN."""
     return df32_key_of(df32_flags(plans), kernel, with_path, block,
-                       min_blocks, staged)
+                       min_blocks, staged, device_words)
 
 
 def df32_key_of(flags, kernel="k11", with_path=False, block=None,
-                min_blocks=MIN_BLOCKS, staged=None):
+                min_blocks=MIN_BLOCKS, staged=None, device_words=None):
     """df32_multi_key from the plans' flag words (df32_flags)."""
     if kernel not in ("k11", "k13"):
         raise ValueError("a df32 plan key is k11 or k13, not %r" % (kernel,))
@@ -434,16 +466,56 @@ def df32_key_of(flags, kernel="k11", with_path=False, block=None,
         raise ValueError("plans must share one nonzero step count, got %s"
                          % sorted(steps))
     tuples = tuple(dict.fromkeys(flags))
+    defaults = ONE_PLAN[kernel] if len(flags) == 1 else kernel
     key = Df32Key(kernel, tuples, tuple(tuples.index(p) for p in flags),
-                  bool(with_path), int(block or BLOCK_DF32[kernel]),
-                  int(min_blocks), DF32_STAGED[kernel] if staged is None
+                  bool(with_path), int(block or BLOCK_DF32[defaults]),
+                  int(min_blocks), DF32_STAGED[defaults] if staged is None
                   else bool(staged))
+    if device_words is None:
+        device_words = key.nlam == 1 and key.param_bytes > PARAM_LIMIT
+    if device_words:
+        if staged is not None and not staged:
+            raise ValueError("device words are read from a shared-memory "
+                             "copy: staged cannot be False")
+        key = key._replace(staged=True, device_words=True)
     if key.param_bytes > PARAM_LIMIT:
         raise ValueError(
             "%s passes %d plan(s) of %d steps as kernel parameters: %d "
             "bytes, above %d" % (kernel.upper(), key.nlam, key.steps,
                                  key.param_bytes, PARAM_LIMIT))
+    if key.shared_bytes + key.dynamic_smem > SMEM_OPTIN:
+        raise ValueError(
+            "%s stages a plan of %d steps from device words: %d bytes of "
+            "shared memory, above %d" % (kernel.upper(), key.steps,
+                                         key.shared_bytes + key.dynamic_smem,
+                                         SMEM_OPTIN))
     return key
+
+
+def df32_runs(nlam, steps, kernel):
+    """The balanced runs (runs) of nlam plans of `steps` steps whose
+    words each fit one key's kernel parameters; one plan a run when a
+    plan alone does not (its key takes device words)."""
+    from .cuda_df32 import DW
+    most = (PARAM_LIMIT - DF32_PARAM_BYTES[kernel])//(steps*DW*4)
+    return runs(nlam, max(1, most))
+
+
+def runs(n, most):
+    """[(l0, l1), ...]: n items (wavelengths, plans) cut into the fewest
+    runs of at most `most`, balanced: their lengths differ by one at
+    most, the longer first (12 at most 11 -> 6 + 6, 13 -> 7 + 6), so
+    equal runs share one key.  One run (0, n) for n <= most."""
+    if n <= most:
+        return [(0, n)]
+    count = -(-n // most)
+    base, extra = divmod(n, count)
+    out, l0 = [], 0
+    for r in range(count):
+        l1 = l0 + base + (r < extra)
+        out.append((l0, l1))
+        l0 = l1
+    return out
 
 
 def _df32_unit(key):
@@ -455,11 +527,10 @@ def _df32_unit(key):
             "}  // namespace\n\n"
             % (key.name, tuple(key), plans,
                ", ".join(map(str, key.plan_map))))
-    staged = "true" if key.staged else "false"
     path = ("true, " if key.with_path else "false, ") \
         if key.kernel == "k11" else ""
     return head + "%s(%s, Ps, Map, %s%s, %d, %d)\n" % (
-        _MACROS[key.kernel], key.name, path, staged, key.block,
+        _MACROS[key.kernel], key.name, path, key.words_at, key.block,
         key.min_blocks)
 
 

@@ -49,8 +49,8 @@ P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
 F_FLAT, F_SPHERICAL, F_ROTATED, F_OFF_AXIS = 1, 2, 4, 8
 F_ALTERNATE, F_FINITE, KIND_SHIFT = 16, 32, 6
 
-BLOCK = 256          # K3's, K10's and K12's threads a block (a power of two)
-BLOCKS_PER_SM = 8    # grid-stride grid: this many blocks on each SM
+BLOCK = 256          # K3's threads a block (a power of two)
+BLOCKS_PER_SM = 8    # K3's grid-stride grid: this many blocks on each SM
 SMEM_LIMIT = 48*1024  # static shared memory, or dynamic without an opt-in
 SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (K3, the adjoints)
 

@@ -12,10 +12,10 @@ the transfer-intercept-refract chain over those steps and
 pairwise df32 sums, promoted exactly to float64.
 
 These are the plain versions of the CUDA kernels K10-K13
-(csrc/df32.cu and csrc/df32_spec.cuh, wrapped in ops.cuda_df32), and
-they match them, and the JAX package's eager df32, word for word (K11
-and K13 form two_prod's error word with one exact fused multiply-add,
-the same word as Dekker's split here).  That rests on three rules:
+(csrc/df32_spec.cuh, wrapped in ops.cuda_df32), and they match them,
+and the JAX package's eager df32, word for word (the kernels form
+two_prod's error word with one exact fused multiply-add, the same word
+as Dekker's split here).  That rests on three rules:
 
 * one torch operation per float32 operation: every rounding happens
   where the code says (no addcmul, no alpha=, no torch.compile, which

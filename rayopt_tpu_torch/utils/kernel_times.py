@@ -2,7 +2,7 @@
 trees of the port on the same card in one call.
 
     python -m rayopt_tpu_torch.utils.kernel_times [--variants] [--steps N]
-                                                  [--df32]
+                                                  [--df32] [--long-plan]
 
 Times, with CUDA events (the mean of many launches after a warm-up),
 on the double Gauss and the bench bundle (x, y uniform in +-11.6 mm,
@@ -48,9 +48,18 @@ build's registers and spills; and K11 and K13 (the fast plans of the 3
 wavelengths) reading their plan words straight from the kernel's
 parameters and from a copy in shared memory, at 128, 256 and 512
 threads a block (the direct form also at launch bounds of 3 blocks of
-256 and 2 of 512), through the wrapper and as the bare launch (with
---df32, these variants alone).  Prints one
-JSON object; needs a CUDA card.
+256 and 2 of 512), and K10 and K12 (the first of those plans) in those
+two placements and from a device copy (device words), at the same
+blocks and more launch bounds, through the wrapper and as the bare
+launch, with each build's registers and SASS size (with --df32, these
+variants alone).  --long-plan alone builds K10 and K12 for a 300-step
+plan (the Cooke triplet's repeated), whose words take the device-words
+placement, and reports their nvcc time, registers, SASS size, words
+against the plain versions and ms.  Prints one JSON object; needs a
+CUDA card.
+
+To compare a parent tree's K10-K13 with this tree's on one card, run
+--df32 from each tree in one call (parent, this, this, parent).
 """
 
 import argparse
@@ -233,79 +242,185 @@ def df32_times(s):
     return out
 
 
-#: K11's and K13's variants: (plan words read from a shared-memory copy,
-#: threads a block, the launch bound's blocks an SM); the last two ask
-#: ptxas to fit more blocks of the direct form, whose plan words sit in
+#: K11's and K13's variants: (where the chain reads the plan words:
+#: 0 the kernel's parameters, 1 a copy of them in shared memory, 2 a
+#: device copy staged into shared memory (cuda_spec.WORDS_AT), threads a
+#: block, the launch bound's blocks an SM); the last two ask ptxas to
+#: fit more blocks of the direct form, whose plan words sit in
 #: registers
-DF32_VARIANTS = tuple((staged, block, 1) for staged in (False, True)
-                      for block in (128, 256, 512)) + ((False, 256, 3),
-                                                       (False, 512, 2))
+DF32_VARIANTS = tuple((at, block, 1) for at in (0, 1)
+                      for block in (128, 256, 512)) + ((0, 256, 3),
+                                                       (0, 512, 2))
+#: K10's and K12's (one plan): every placement at each block, and more
+#: blocks an SM of the parameters' and the shared copy's forms
+ONE_PLAN_VARIANTS = tuple((at, block, 1) for at in (0, 1, 2)
+                          for block in (128, 256, 512)) + (
+    (0, 256, 2), (0, 256, 3), (0, 512, 2), (1, 256, 3), (1, 512, 2))
+PLACEMENTS = ("params", "staged", "device")
+
+
+def _variant_keys(kernel, plans, variants):
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    return {(kernel, at, block, minb): CS.df32_multi_key(
+        plans, kernel, kernel == "k11", block=block, min_blocks=minb,
+        staged=at > 0, device_words=at == 2)
+        for at, block, minb in variants}
 
 
 def df32_variant_times(s):
     """K11 (with the path) and K13 on the fast plans of the 3
-    wavelengths at each of DF32_VARIANTS, at DF32_SIZES rays, with each
-    build's registers and spills.  Each variant is timed twice, the
-    second round in the reverse order: through the wrapper ("ms", its
-    kernel lookup pointed at the variant's build) and as the bare launch
-    on words packed once ("launch_ms")."""
+    wavelengths at each of DF32_VARIANTS, and K10 (with the path) and
+    K12 on the first one at each of ONE_PLAN_VARIANTS, at DF32_SIZES
+    rays, with each build's registers, spills and SASS size.  Each
+    variant is timed twice, the second round in the reverse order:
+    through the wrapper ("ms", its kernel lookup pointed at the
+    variant's build) and as the bare launch on words packed once
+    ("launch_ms")."""
     from rayopt_tpu_torch.ops import cuda_df32 as CD
     from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_build import sass_size
     plans = df32_plans(s, True)
-    keys = {(k, staged, block, minb): CS.df32_multi_key(
-        plans, k, k == "k11", block=block, min_blocks=minb, staged=staged)
-        for k in ("k11", "k13") for staged, block, minb in DF32_VARIANTS}
+    groups = {"K11": ("k11", plans, DF32_VARIANTS),
+              "K13": ("k13", plans, DF32_VARIANTS),
+              "K10": ("k11", plans[:1], ONE_PLAN_VARIANTS),
+              "K12": ("k13", plans[:1], ONE_PLAN_VARIANTS)}
+    keys = {(name,) + v: key for name, (kernel, ps, variants)
+            in groups.items()
+            for v, key in _variant_keys(kernel, ps, variants).items()}
+    t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
+    build_s = time.perf_counter() - t0
     kerns = [(v, built[key]) for v, key in keys.items()]
-    packed, _ = CD.pack_plan(plans, "cpu")
-    out = {}
+    out = {"build_s": build_s}
     for n in DF32_SIZES:
         reps = 5 if n > 1 << 22 else 20
         state = df32_state(n)
         words = [w for c in state for w in c]
         device = words[0].device
         stream = torch.cuda.current_stream(device).cuda_stream
-        out11 = torch.empty((len(plans), 14, n), dtype=torch.float32,
-                            device=device)
-        tot = torch.empty((len(plans), 5), dtype=torch.float64, device=device)
-        calls = {"k11": lambda: CD.trace_multi_df32(plans, state,
-                                                    with_path=True),
-                 "k13": lambda: CD.trace_merit_multi_df32(plans, state)}
         rows = {}
         for order in (kerns, kerns[::-1]):
-            for (kind, staged, block, minb), kern in order:
-                name = "%s %s %d block %d min_blocks %d" % (
-                    kind.upper(), "staged" if staged else "params", n, block,
-                    minb)
-                grid = kern.grid(n, device)
-                if kind == "k11":
-                    args = [packed.data_ptr(), *(w.data_ptr() for w in words),
-                            out11.data_ptr(), n, grid, stream]
-                else:
-                    partials = torch.empty((grid, len(plans), 10),
-                                           dtype=torch.float32, device=device)
-                    args = [packed.data_ptr(), *(w.data_ptr() for w in words),
-                            partials.data_ptr(), CS.counter(device).data_ptr(),
-                            tot.data_ptr(), n, grid, stream]
-                row = rows.setdefault(name, {"runs_ms": [],
-                                             "launch_runs_ms": []})
-                real = CD._multi_kernel
-                CD._multi_kernel = lambda *a, _kern=kern: _kern
-                try:
-                    row["runs_ms"].append(cuda_ms(calls[kind], reps))
-                finally:
-                    CD._multi_kernel = real
-                row["launch_runs_ms"].append(cuda_ms(
-                    lambda: kern.check(kern.fn(*args)), reps))
-                row.update(grid=grid, blocks_per_sm=kern.blocks_per_sm(
-                    device), ptxas=[ln for ln in kern.ptxas_lines()
-                                    if "registers" in ln
-                                    or "stack frame" in ln])
+            for (name, kind, at, block, minb), kern in order:
+                ps = groups[name][1]
+                label = "%s %s %d block %d min_blocks %d" % (
+                    name, PLACEMENTS[at], n, block, minb)
+                row = rows.setdefault(label, {"runs_ms": [],
+                                              "launch_runs_ms": []})
+                row["runs_ms"].append(_wrapper_ms(CD, kern, kind, ps, state,
+                                                  reps))
+                row["launch_runs_ms"].append(_launch_ms(
+                    CD, CS, kern, kind, ps, words, n, device, stream, reps))
+                if "ptxas" not in row:
+                    row.update(grid=kern.grid(n, device),
+                               blocks_per_sm=kern.blocks_per_sm(device),
+                               ptxas=[ln for ln in kern.ptxas_lines()
+                                      if "registers" in ln
+                                      or "stack frame" in ln],
+                               sass_instructions=sass_size(kern.path)[0],
+                               nvcc_s=kern.build_seconds)
         for row in rows.values():
             row["ms"] = float(np.mean(row["runs_ms"]))
             row["launch_ms"] = float(np.mean(row["launch_runs_ms"]))
         out.update(rows)
-        del state, words, out11
+        del state, words
+        torch.cuda.empty_cache()
+    return out
+
+
+def _wrapper_ms(CD, kern, kind, plans, state, reps):
+    """ms of the wrapper's call with its key lookup pointed at kern."""
+    one = len(plans) == 1
+    calls = {("k11", False): lambda: CD.trace_multi_df32(plans, state,
+                                                         with_path=True),
+             ("k13", False): lambda: CD.trace_merit_multi_df32(plans, state),
+             ("k11", True): lambda: CD.trace_final_df32(plans[0], state,
+                                                        with_path=True),
+             ("k13", True): lambda: CD.trace_merit_df32(plans[0], state)}
+    real = CD._multi_kernel
+    CD._multi_kernel = lambda *a, _kern=kern: _kern
+    try:
+        return cuda_ms(calls[(kind, one)], reps)
+    finally:
+        CD._multi_kernel = real
+
+
+def _launch_ms(CD, CS, kern, kind, plans, words, n, device, stream, reps):
+    """ms of kern's bare launch on words packed (and, device words,
+    uploaded) once."""
+    packed, _ = CD.pack_plan(list(plans), "cpu")
+    if kern.key.device_words:
+        packed = packed.to(device)
+    grid = kern.grid(n, device)
+    if kind == "k11":
+        out = torch.empty((len(plans), 14, n), dtype=torch.float32,
+                          device=device)
+        args = [packed.data_ptr(), *(w.data_ptr() for w in words),
+                out.data_ptr(), n, grid, stream]
+    else:
+        partials = torch.empty((grid, len(plans), 10), dtype=torch.float32,
+                               device=device)
+        tot = torch.empty((len(plans), 5), dtype=torch.float64,
+                          device=device)
+        args = [packed.data_ptr(), *(w.data_ptr() for w in words),
+                partials.data_ptr(), CS.counter(device).data_ptr(),
+                tot.data_ptr(), n, grid, stream]
+    return cuda_ms(lambda: kern.check(kern.fn(*args)), reps)
+
+
+#: the long plan's steps: about the most the run-time K10 and K12 took
+#: (48 KB of shared memory a block), past the kernel parameters alone
+LONG_STEPS = 300
+
+
+def long_plan_times():
+    """K10 (with the path) and K12 on a LONG_STEPS-step plan (the Cooke
+    triplet's fast plan repeated), whose words take the device-words
+    placement: each key's nvcc seconds (the two built in parallel),
+    registers, stack, spills and SASS size, differing words and moments
+    against the plain versions at 2^14 bench rays, and ms at
+    DF32_SIZES rays through the wrapper."""
+    from rayopt_tpu_torch.models import cooke_triplet
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.cuda_build import sass_size
+    plan = D.plan(cooke_triplet().table(), fast=True)
+    plan = (plan*(-(-LONG_STEPS // len(plan))))[:LONG_STEPS]
+    keys = {"K10": CS.df32_multi_key([plan], "k11", True),
+            "K12": CS.df32_multi_key([plan], "k13")}
+    t0 = time.perf_counter()
+    built = CS.prebuild(list(keys.values()))
+    out = {"steps": LONG_STEPS, "build_wall_s": time.perf_counter() - t0}
+    for name, key in keys.items():
+        kern = built[key]
+        out[name] = {"device_words": key.device_words,
+                     "nvcc_s": kern.build_seconds,
+                     "dynamic_smem": key.dynamic_smem,
+                     "ptxas": [ln for ln in kern.ptxas_lines()
+                               if "registers" in ln or "stack frame" in ln],
+                     "sass_instructions": sass_size(kern.path)[0]}
+    st = df32_state(1 << 14)
+    got = CD.trace_final_df32(plan, st, with_path=True)
+    want = CD.trace_final_df32_reference(plan, st, with_path=True)
+    words = [w for c in (*got[0], got[1]) for w in c]
+    ref = [w for c in (*want[0], want[1]) for w in c]
+    out["K10"]["differing_words"] = sum(
+        int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+        for a, b in zip(words, ref))
+    out["K10"]["live_rays"] = int(torch.isfinite(got[0][0][0]).sum())
+    mom = CD.trace_merit_df32(plan, st)
+    mref = CD.trace_merit_df32_reference(plan, st)
+    out["K12"]["count"] = (float(mom[0]), float(mref[0]))
+    out["K12"]["moments_abs_err"] = max(abs(float(a) - float(b))
+                                        for a, b in zip(mom, mref))
+    for n in DF32_SIZES:
+        state = df32_state(n)
+        reps = 3 if n > 1 << 22 else 10
+        out["K10"]["ms %d" % n] = cuda_ms(
+            lambda: CD.trace_final_df32(plan, state, with_path=True), reps)
+        out["K12"]["ms %d" % n] = cuda_ms(
+            lambda: CD.trace_merit_df32(plan, state), reps)
+        del state
         torch.cuda.empty_cache()
     return out
 
@@ -627,8 +742,11 @@ def main():
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--df32", action="store_true",
-                    help="time K10-K13 (and with --variants K11's and K13's "
+                    help="time K10-K13 (and with --variants their "
                     "variants) alone")
+    ap.add_argument("--long-plan", action="store_true",
+                    help="build and time K10 and K12 on a %d-step plan "
+                    "(device words) alone" % LONG_STEPS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
@@ -639,6 +757,11 @@ def main():
                           text=True).stdout.strip()
     table = double_gauss().table()
     specs = specialize(table)
+    if args.long_plan:
+        print(json.dumps({"card": card,
+                          "long_plan": long_plan_times()}))
+        sys.stdout.flush()
+        return
     out = {"card": card, "df32_ms": df32_times(double_gauss())}
     if args.df32:
         if args.variants:

@@ -1210,3 +1210,208 @@ def test_specialized_df32_multi_matches_plain_on_card(cuda_device, name,
     assert (CD.trace_multi_df32.launches,
             CD.trace_merit_multi_df32.launches) == (before[0] + 2,
                                                     before[1] + 1)
+
+
+# -- K10 and K12 per plan key; the wrappers' split ---------------------------
+
+#: (name, fast, clip, placement) of the K10/K12 cases: every system fast
+#: and exact, clip off and on, at the one-plan keys' default placement
+#: (None); the double Gauss also reading its words from the other two
+#: placements (cuda_spec.WORDS_AT: 0 parameters, 1 a shared copy of
+#: them, 2 device words)
+DF32_ONE_CASES = (
+    [(name, fast, clip, None) for name in ("double_gauss", "vocabulary",
+                                           "cooke")
+     for fast in (True, False) for clip in (False, True)]
+    + [("double_gauss", fast, False, at) for fast in (True, False)
+       for at in (0, 1, 2)])
+
+
+def _df32_one_case(name, clip, fast):
+    """The plan and the df32 bundle of one K10/K12 case (the bench
+    bundle, 1.5x wide when clipped)."""
+    from rayopt_tpu_torch.models import cooke_triplet
+    tab = {"double_gauss": lambda: double_gauss().table(),
+           "vocabulary": vocabulary_table,
+           "cooke": lambda: cooke_triplet().table()}[name]()
+    state64 = _bench_state(1 << 16, 8, torch.device("cuda"), torch.float64)
+    if clip:
+        state64 = tuple(c*1.5 if i < 2 else c for i, c in enumerate(state64))
+    st = D.state_from_f64(torch.stack(state64[:3], 1),
+                          torch.stack(state64[3:], 1))
+    return D.plan(tab, clip=clip, fast=fast), st
+
+
+def _one_plan_key(plan, kind, with_path, at):
+    if at is None:
+        return CS.df32_multi_key([plan], kind, with_path)
+    return CS.df32_multi_key([plan], kind, with_path, staged=at > 0,
+                             device_words=at == 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _prebuild_df32_one():
+    """Build every key of DF32_ONE_CASES at once, the first time a case
+    asks."""
+    keys = []
+    for name, fast, clip, at in DF32_ONE_CASES:
+        plan, _ = _df32_one_case(name, clip, fast)
+        keys += [_one_plan_key(plan, "k11", wp, at) for wp in (False, True)]
+        keys.append(_one_plan_key(plan, "k13", False, at))
+    CS.prebuild(keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,fast,clip,at", DF32_ONE_CASES)
+def test_specialized_df32_one_plan_matches_plain_on_card(cuda_device, name,
+                                                         fast, clip, at,
+                                                         monkeypatch):
+    """K10 and K12 compiled per plan key (df32_multi_key([plan]),
+    csrc/df32_spec.cuh) against their plain versions on the card: the
+    double Gauss, the vocabulary table (every branch) and the Cooke
+    triplet, fast and exact, clip off and on, each placement of the plan
+    words.  K10: identical words, path on and off; K12: the same count
+    and the moments within 1e-13 of their scale.  One launch a call,
+    none for no rays."""
+    _prebuild_df32_one()
+    plan, st = _df32_one_case(name, clip, fast)
+
+    def kernel(kind, flags, with_path):
+        key = _one_plan_key(plan, kind, with_path, at)
+        assert CS.df32_flags([plan]) == flags and key.nlam == 1
+        return CS.load(key)
+    monkeypatch.setattr(CD, "_multi_kernel", kernel)
+    before = CD.trace_final_df32.launches, CD.trace_merit_df32.launches
+    for wp in (False, True):
+        got = CD.trace_final_df32(plan, st, with_path=wp)
+        want = CD.trace_final_df32_reference(plan, st, with_path=wp)
+        torch.cuda.synchronize()
+        assert _differing_words(_df32_words(got, wp),
+                                _df32_words(want, wp)) == 0
+    mom = CD.trace_merit_df32(plan, st)
+    mref = CD.trace_merit_df32_reference(plan, st)
+    assert all(m.dtype == torch.float64 and m.dim() == 0 for m in mom)
+    assert float(mom[0]) == float(mref[0]) > 0
+    assert _moments_rel(mom, mref) <= 1e-13
+    assert (CD.trace_final_df32.launches,
+            CD.trace_merit_df32.launches) == (before[0] + 2, before[1] + 1)
+    empty = tuple((h[:0], lo[:0]) for h, lo in st)
+    out = CD.trace_final_df32(plan, empty, with_path=True)
+    zero = CD.trace_merit_df32(plan, empty)
+    assert out[0][0][0].shape == (0,) and float(zero[0]) == 0.
+    assert (CD.trace_final_df32.launches,
+            CD.trace_merit_df32.launches) == (before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_df32_long_plan_on_device_words_on_card(cuda_device):
+    """A 300-step plan (the Cooke triplet's steps repeated), past the
+    kernel parameters: K10 and K12 take its device-words key and give
+    the plain versions' words and moments."""
+    from rayopt_tpu_torch.models import cooke_triplet
+    plan = D.plan(cooke_triplet().table(), fast=True)
+    plan = (plan*(-(-300 // len(plan))))[:300]
+    keys = [CS.df32_multi_key([plan], "k11", True),
+            CS.df32_multi_key([plan], "k13")]
+    assert all(k.device_words and k.steps == 300 for k in keys)
+    CS.prebuild(keys)
+    state64 = _bench_state(1 << 14, 9, cuda_device, torch.float64)
+    st = D.state_from_f64(torch.stack(state64[:3], 1),
+                          torch.stack(state64[3:], 1))
+    got = CD.trace_final_df32(plan, st, with_path=True)
+    want = CD.trace_final_df32_reference(plan, st, with_path=True)
+    assert _differing_words(_df32_words(got, True),
+                            _df32_words(want, True)) == 0
+    assert bool(torch.isfinite(got[0][0][0]).any())
+    mom = CD.trace_merit_df32(plan, st)
+    mref = CD.trace_merit_df32_reference(plan, st)
+    assert float(mom[0]) == float(mref[0]) > 0
+    assert _moments_rel(mom, mref) <= 1e-13
+
+
+@pytest.mark.cuda
+def test_df32_multi_splits_24_plans_on_card(cuda_device):
+    """K11 and K13 on 24 double Gauss plans (one a wavelength in 400-700
+    nm), past one key's kernel parameters: two launches each (12 + 12),
+    identical words and moments within 1e-13 of their scale."""
+    s = double_gauss()
+    lams = [float(v) for v in np.linspace(400e-9, 700e-9, 24)]
+    plans = [D.plan(s.table(lam), fast=True) for lam in lams]
+    state64 = _bench_state(1 << 16, 10, cuda_device, torch.float64)
+    st = D.state_from_f64(torch.stack(state64[:3], 1),
+                          torch.stack(state64[3:], 1))
+    before = CD.trace_multi_df32.launches, CD.trace_merit_multi_df32.launches
+    got = CD.trace_multi_df32(plans, st, with_path=True)
+    want = CD.trace_multi_df32_reference(plans, st, with_path=True)
+    torch.cuda.synchronize()
+    assert len(got) == 24
+    assert sum(_differing_words(_df32_words(g, True), _df32_words(w, True))
+               for g, w in zip(got, want)) == 0
+    mom = CD.trace_merit_multi_df32(plans, st)
+    mref = CD.trace_merit_multi_df32_reference(plans, st)
+    assert len(mom) == 24
+    for m, r in zip(mom, mref):
+        assert float(m[0]) == float(r[0]) > 0
+        assert _moments_rel(m, r) <= 1e-13
+    assert (CD.trace_multi_df32.launches,
+            CD.trace_merit_multi_df32.launches) == (before[0] + 2,
+                                                    before[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlam", [12, 13])
+def test_polychromatic_adjoint_past_max_nlam_on_card(cuda_device, nlam):
+    """glass.polychromatic_spot_rms(engine="adjoint") at 12 and 13
+    wavelengths (past K6's MAX_NLAM: its wrapper launches balanced runs,
+    6 + 6 and 7 + 6; K7 one launch) on CUDA tensors gives the CPU plain
+    versions' merit (rtol 1e-9) and (nd, vd) gradient (1e-8 of its max),
+    float64; K6 and K7 hold their plain versions on the card too."""
+    from rayopt_tpu_torch import glass
+    from rayopt_tpu_torch.parallel import bundles_from_system
+    s = double_gauss()
+    lams = [float(v) for v in np.linspace(400e-9, 700e-9, nlam)]
+    asg = glass.glass_assignment(s)
+    nd0, vd0 = glass.initial_glass_params(s, asg[2])
+    out = {}
+    for dev in ("cpu", cuda_device):
+        y0, u0, w, _ = bundles_from_system(
+            s, fields=(.7,), wavelengths=[s.wavelengths[0]], nrays=2048,
+            distribution="hexapolar", device=dev)[0]
+        nd = torch.tensor(nd0, device=dev, requires_grad=True)
+        vd = torch.tensor(vd0, device=dev, requires_grad=True)
+        before = (CG.weighted_moments_multi.launches,
+                  CG.merit_adjoint_multi.launches)
+        v = glass.polychromatic_spot_rms(
+            glass.glass_tables(s.tables(lams, device=dev), nd, vd, asg,
+                               lams), y0, u0, w, engine="adjoint")
+        v.backward()
+        if dev != "cpu":
+            assert (CG.weighted_moments_multi.launches,
+                    CG.merit_adjoint_multi.launches) == (before[0] + 2,
+                                                         before[1] + 1)
+        out[str(dev)] = (float(v.detach()), nd.grad.cpu(), vd.grad.cpu())
+    (v_c, gn_c, gv_c), (v_g, gn_g, gv_g) = out["cpu"], out["cuda"]
+    nptest.assert_allclose(v_g, v_c, rtol=1e-9)
+    for g, r in ((gn_g, gn_c), (gv_g, gv_c)):
+        assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max())
+    tabs = s.tables(lams, device=cuda_device)
+    specs = CT.multi_specs(tabs, None)
+    state = _bench_state(1 << 16, 11, cuda_device, torch.float64)
+    wt = torch.from_numpy(np.random.RandomState(3).uniform(
+        .5, 1.5, 1 << 16)).to(cuda_device, torch.float64)
+    mom = CG.weighted_moments_multi(tabs, specs, state, wt)
+    mref = CG.weighted_moments_multi_reference(tabs, specs, state, wt)
+    assert mom.shape == (nlam, 5)
+    for li in range(nlam):
+        assert float(mom[li, 0]) == pytest.approx(float(mref[li, 0]),
+                                                  rel=1e-12)
+        nptest.assert_allclose(float(CT.spot_rms_from_moments(*mom[li])),
+                               float(CT.spot_rms_from_moments(*mref[li])),
+                               rtol=1e-10)
+    ct = _union_cotangent(mref)
+    pg, _, _ = CG.merit_adjoint_multi(tabs, specs, state, wt, ct)
+    pref, _, _ = CG.merit_adjoint_multi_reference(tabs, specs, state, wt, ct)
+    for li in range(nlam):
+        for col in range(CG.SLOTS):
+            if float(pref[li, :, col].abs().max()):
+                assert _max_rel(pg[li, :, col], pref[li, :, col]) <= 1e-9

@@ -379,9 +379,10 @@ def test_wrappers_refuse_bad_states():
 
 
 def _model_trace(words, flags, state, with_path):
-    """csrc/df32.cu's trace_df, decoding the packed plan as the kernel
-    does (flag bits, word offsets, permutation codes), on the plain
-    df32 operations."""
+    """csrc/df32_spec.cuh's trace_plan (one plan's chain, then the last
+    step's frame), decoding the packed plan as the kernel does (flag
+    bits, word offsets, permutation codes), on the plain df32
+    operations."""
     one = (torch.tensor(1., dtype=torch.float32),
            torch.tensor(0., dtype=torch.float32))
 
@@ -496,9 +497,9 @@ def _model_trace(words, flags, state, with_path):
 @pytest.mark.parametrize("clip", [False, True])
 @pytest.mark.parametrize("fast", [False, True])
 def test_packed_plan_decodes_like_the_kernel(fast, clip):
-    """pack_plan's words and flags, read the way csrc/df32.cu reads them,
-    trace the vocabulary table to the plain trace's words exactly; the
-    JAX package's eager trace of the same table gives them too."""
+    """pack_plan's words and flags, read the way csrc/df32_spec.cuh reads
+    them, trace the vocabulary table to the plain trace's words exactly;
+    the JAX package's eager trace of the same table gives them too."""
     tab = vocabulary_table()
     steps = D.plan(tab, clip=clip, fast=fast)
     assert any(st["rotm"] is not None for st in steps)

@@ -1,9 +1,12 @@
-"""The polychromatic df32 kernels K11 and K13 compiled per plan key
+"""The df32 kernels K10-K13 compiled per plan key
 (ops.cuda_spec.df32_multi_key, csrc/df32_spec.cuh) on the CPU: their
 keys (stable, changed by every part of them, one flag tuple for a
-table's wavelengths and one more for a plan whose flags differ), the
-translation unit a key writes, the keys' refusals before any build
-(past the kernel-parameter or static shared-memory limit), the wrappers
+table's wavelengths and one more for a plan whose flags differ; K10 and
+K12 the keys of one plan; one plan too long for the kernel parameters
+on device words), the translation unit a key writes, the keys'
+refusals before any build (past the kernel-parameter or shared-memory
+limit), the wrappers' split of a plan list into balanced runs that fit
+(the keys they load, with cuda_spec.load patched), the wrappers
 trace_multi_df32 and trace_merit_multi_df32 on a CPU bundle, which run
 their plain versions, count no launch and match the JAX package's eager
 df32 word for word, and the premise of the kernels' two_prod: the FMA
@@ -24,6 +27,7 @@ from rayopt_tpu_torch.ops import cuda_df32 as CD
 from rayopt_tpu_torch.ops import cuda_spec as CS
 from rayopt_tpu_torch.ops import df32 as D
 from rayopt_tpu_torch.ops import tables as TT
+from rayopt_tpu_torch.ops.cuda_build import CSRC
 
 MERIT_REL = 1e-13    # df32 moments against the JAX package's (same tree)
 
@@ -156,15 +160,15 @@ def test_df32_translation_unit_instantiates_the_key(kernel):
         assert "Plan<%s>" % ", ".join(map(str, t)) in text
     assert "using Map = PlanMap<0, 0, 1>;" in text
     if kernel == "k11":
-        assert "RAYOPT_DF32_TRACE(%s, Ps, Map, true, true, 128, 2)" % (
-            key.name) in text
+        assert "RAYOPT_DF32_TRACE(%s, Ps, Map, true, WORDS_STAGED, 128, 2)" \
+            % key.name in text
     else:
-        assert "RAYOPT_DF32_MERIT(%s, Ps, Map, true, 128, 2)" % (
+        assert "RAYOPT_DF32_MERIT(%s, Ps, Map, WORDS_STAGED, 128, 2)" % (
             key.name) in text
     default = CS.df32_multi_key(plans, kernel)
-    assert "%s, %d, %d)" % ("true" if CS.DF32_STAGED[kernel] else "false",
-                            CS.BLOCK_DF32[kernel], CS.MIN_BLOCKS) in \
-        CS.translation_unit(default)
+    assert "%s, %d, %d)" % ("WORDS_STAGED" if CS.DF32_STAGED[kernel]
+                            else "WORDS_DIRECT", CS.BLOCK_DF32[kernel],
+                            CS.MIN_BLOCKS) in CS.translation_unit(default)
 
 
 @pytest.mark.parametrize("kernel", ["k11", "k13"])
@@ -215,16 +219,176 @@ def test_df32_key_refuses_bad_plans():
 
 def test_df32_keys_build_from_the_spec_headers():
     """The keys build with the other spec keys (cuda_spec.prebuild), the
-    df32 headers among those their cache hash reads; the run-time
-    library (df32.cu) keeps K10 and K12 only."""
-    from rayopt_tpu_torch.ops.cuda_build import CSRC
+    df32 headers among those their cache hash reads; K10 and K12 are
+    keys too, so the run-time df32 source is gone and the kernel library
+    holds K3 alone."""
+    from rayopt_tpu_torch.ops import cuda_build as CB
     assert {"df32_common.cuh", "df32_spec.cuh"} <= set(CS.HEADERS)
     assert all((CSRC/name).exists() for name in CS.HEADERS)
     assert CS._MACROS["k11"] == "RAYOPT_DF32_TRACE"
     assert CS._MACROS["k13"] == "RAYOPT_DF32_MERIT"
-    text = (CSRC/"df32.cu").read_text()
-    assert "df32_trace_final" in text and "df32_merit" in text
-    assert "multi" not in text.split("#include")[1]
+    assert not (CSRC/"df32.cu").exists()
+    assert CB.SOURCES == ("trace.cu",)
+    assert "df32" not in " ".join(CB.HEADERS)
+    common = (CSRC/"df32_common.cuh").read_text()
+    assert "RAYOPT_DF32_FMA" not in common and "__fmaf_rn" in common
+    assert "4097" not in common      # Dekker's splitter
+
+
+# -- one plan: K10 and K12 -------------------------------------------------
+
+@pytest.mark.parametrize("kernel,one", [("k11", "k10"), ("k13", "k12")])
+def test_one_plan_key_is_k10_or_k12(kernel, one):
+    """K10 and K12 are df32_multi_key([plan], ...): nlam 1, the map
+    (0,), the one-plan block and placement (BLOCK_DF32, DF32_STAGED of
+    "k10"/"k12"), and a unit that instantiates the trace or merit
+    template at one plan."""
+    _, _, plans = _cooke(1)
+    wp = kernel == "k11"
+    key = CS.df32_multi_key(plans[:1], kernel, wp)
+    assert key.kernel == kernel and key.nlam == 1 and key.plan_map == (0,)
+    assert key.block == CS.BLOCK_DF32[one]
+    assert key.staged == CS.DF32_STAGED[one] and not key.device_words
+    text = CS.translation_unit(key)
+    assert "using Map = PlanMap<0>;" in text
+    macro = "RAYOPT_DF32_TRACE(%s, Ps, Map, true, " if wp \
+        else "RAYOPT_DF32_MERIT(%s, Ps, Map, "
+    assert (macro % key.name) + "%s, %d, 1)" % (
+        key.words_at, key.block) in text
+    spec = (CSRC/"df32_spec.cuh").read_text()
+    assert ("df32_trace_spec<PLANS, MAP, PATH, AT" if wp
+            else "df32_merit_spec<PLANS, MAP, AT") in spec
+    # two plans take the multi-plan defaults
+    two = CS.df32_multi_key(plans*2, kernel, wp)
+    assert (two.block, two.staged) == (CS.BLOCK_DF32[kernel],
+                                       CS.DF32_STAGED[kernel])
+
+
+def _long_plan(steps):
+    """A synthetic plan of `steps` steps: the Cooke's steps repeated."""
+    _, _, plans = _cooke(1)
+    return (plans[0]*(-(-steps // len(plans[0]))))[:steps]
+
+
+@pytest.mark.parametrize("steps", [227, 300, 330])
+@pytest.mark.parametrize("kernel", ["k11", "k13"])
+def test_one_long_plan_takes_device_words(kernel, steps):
+    """A single plan whose words pass PARAM_LIMIT (144 bytes a step: 227
+    steps and more) takes the device-words placement, staged into
+    dynamic shared memory: its pointer in the parameters, its flags still
+    compile-time (one Plan<...> of every step), not refused up to the
+    330 steps the run-time K10 and K12 took, and more."""
+    plan = _long_plan(steps)
+    key = CS.df32_multi_key([plan], kernel, kernel == "k11")
+    per = CD.pack_plan(plan, "cpu")[0].numel()*4
+    assert per + CS.DF32_PARAM_BYTES[kernel] > CS.PARAM_LIMIT
+    assert key.device_words and key.staged and key.steps == steps
+    assert key.param_bytes == 8 + CS.DF32_PARAM_BYTES[kernel]
+    assert key.dynamic_smem == per
+    assert key.shared_bytes == (10*4*key.block//32 if kernel == "k13"
+                                else 0)
+    text = CS.translation_unit(key)
+    assert "WORDS_DEVICE, %d, 1)" % key.block in text
+    assert text.count("Plan<") == 1 and len(key.tuples[0]) == steps
+    # a plan that fits keeps its placement, unless asked
+    short = CS.df32_multi_key([plan[:200]], kernel, kernel == "k11")
+    assert not short.device_words
+    forced = CS.df32_multi_key([plan[:8]], kernel, device_words=True)
+    assert forced.device_words and forced.staged
+    assert forced.name != CS.df32_multi_key([plan[:8]], kernel,
+                                            staged=True).name
+
+
+def test_device_words_refusals():
+    """Several plans never take device words (they are split into runs
+    instead, which the key does not do); device words are always staged;
+    past SMEM_OPTIN of dynamic shared memory a plan is refused."""
+    plan = _long_plan(300)
+    with pytest.raises(ValueError, match="kernel parameters"):
+        CS.df32_multi_key([plan, plan], "k11")
+    with pytest.raises(ValueError, match="staged"):
+        CS.df32_multi_key([plan], "k11", staged=False)
+    with pytest.raises(ValueError, match="kernel parameters"):
+        CS.df32_multi_key([plan], "k13", device_words=False)
+    most = CS.SMEM_OPTIN//(CD.DW*4)
+    CS.df32_multi_key([_long_plan(most - 20)], "k13")
+    with pytest.raises(ValueError, match="shared memory"):
+        CS.df32_multi_key([_long_plan(most + 1)], "k11")
+
+
+# -- the wrappers' split into runs -----------------------------------------
+
+@pytest.mark.parametrize("n,most,want", [
+    (1, 11, [(0, 1)]), (11, 11, [(0, 11)]), (12, 11, [(0, 6), (6, 12)]),
+    (13, 11, [(0, 7), (7, 13)]), (23, 11, [(0, 8), (8, 16), (16, 23)]),
+    (24, 18, [(0, 12), (12, 24)]), (3, 1, [(0, 1), (1, 2), (2, 3)])])
+def test_runs_are_balanced(n, most, want):
+    got = CS.runs(n, most)
+    assert got == want
+    assert all(0 < l1 - l0 <= most for l0, l1 in got)
+    assert max(b - a for a, b in got) - min(b - a for a, b in got) <= 1
+
+
+@pytest.fixture
+def loaded(monkeypatch):
+    """cuda_spec.load patched to record the keys asked for (nothing is
+    built or launched); the wrappers' key caches cleared around it."""
+    keys = []
+
+    def load(key):
+        keys.append(key)
+        return type("Loaded", (), {"key": key})()
+    CD._multi_kernel.cache_clear()
+    monkeypatch.setattr(CS, "load", load)
+    yield keys
+    CD._multi_kernel.cache_clear()
+
+
+def _double_gauss_plans(nlam, fast=True):
+    """nlam plans of the double Gauss, one a wavelength in 400-700 nm."""
+    from rayopt_tpu_torch.models import double_gauss
+    s = double_gauss()
+    tabs = s.tables(list(np.linspace(400e-9, 700e-9, nlam)))
+    return [D.plan(TT.table_at(tabs, li), fast=fast) for li in range(nlam)]
+
+
+@pytest.mark.parametrize("kernel", ["k11", "k13"])
+def test_24_plans_load_two_runs_of_one_key(loaded, kernel):
+    """24 double Gauss plans pass PARAM_LIMIT (18 fit): K11 and K13 load
+    two runs of 12 plans, plans 0-11 and 12-23, one key (the plans share
+    a flag tuple), each within the parameters."""
+    plans = _double_gauss_plans(24)
+    wp = kernel == "k11"
+    with pytest.raises(ValueError, match="kernel parameters"):
+        CS.df32_multi_key(plans, kernel, wp)
+    runs, packed = CD._runs(kernel, plans, wp)
+    assert [(l0, l1) for l0, l1, _ in runs] == [(0, 12), (12, 24)]
+    assert packed.shape[0] == 24
+    assert len(loaded) == 1       # the second run hits the cache
+    key = loaded[0]
+    assert key == CS.df32_multi_key(plans[:12], kernel, wp) == \
+        CS.df32_multi_key(plans[12:], kernel, wp)
+    assert key.nlam == 12 and key.param_bytes <= CS.PARAM_LIMIT
+    assert [k.key for _, _, k in runs] == [key, key]
+
+
+@pytest.mark.parametrize("kernel", ["k11", "k13"])
+def test_one_plan_loads_its_key(loaded, kernel):
+    """K10 and K12 load the one-plan key of their plan; 18 double Gauss
+    plans (the most that fit) load one key of 18; a plan past the
+    parameters alone loads its device-words key."""
+    wp = kernel == "k11"
+    plans = _double_gauss_plans(18)
+    runs, _ = CD._runs(kernel, plans[:1], wp)
+    assert [(l0, l1) for l0, l1, _ in runs] == [(0, 1)]
+    assert loaded[-1] == CS.df32_multi_key(plans[:1], kernel, wp)
+    runs, _ = CD._runs(kernel, plans, wp)
+    assert [(l0, l1) for l0, l1, _ in runs] == [(0, 18)]
+    assert loaded[-1].nlam == 18
+    long = _long_plan(300)
+    runs, _ = CD._runs(kernel, [long, long], wp)
+    assert [(l0, l1) for l0, l1, _ in runs] == [(0, 1), (1, 2)]
+    assert loaded[-1].device_words and loaded[-1].nlam == 1
 
 
 # -- the CPU wrappers against the JAX package ------------------------------

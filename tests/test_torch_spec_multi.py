@@ -1,7 +1,8 @@
 """The specialization of the polychromatic forward K6, the
 polychromatic adjoint K7 and the OPD adjoint K9 per spec tuple
 (ops.cuda_spec) on the CPU: the refusal of a K6 stack past static
-shared memory or its wavelength limit, the K6 wrapper's plain version
+shared memory or its wavelength limit, the K6 wrapper's split of a
+longer stack into balanced runs (the keys it loads), its plain version
 on a CPU bundle, the keys of K7 and K9 (stable, and changed by every
 part of them), K9's live slots over its seven
 columns (n_before on every row, the image row read only by the
@@ -181,6 +182,33 @@ def test_moments_multi_refuses_a_stack_past_shared_memory_or_nlam():
     for nlam in (0, CS.MAX_NLAM + 1):
         with pytest.raises(ValueError, match="registers"):
             CS.moments_multi_key(specs, F64, False, nlam)
+
+
+@pytest.mark.parametrize("nlam,want", [
+    (3, [(0, 3)]), (11, [(0, 11)]), (12, [(0, 6), (6, 12)]),
+    (13, [(0, 7), (7, 13)]), (23, [(0, 8), (8, 16), (16, 23)])])
+def test_moments_multi_splits_a_stack_past_max_nlam(monkeypatch, nlam, want):
+    """weighted_moments_multi launches a stack past MAX_NLAM in balanced
+    runs (12 -> 6 + 6, 13 -> 7 + 6), each on its key of the run's
+    wavelength count, equal runs on one key; 11 or fewer keep their one
+    launch.  cuda_spec.load is patched to record the keys (no build)."""
+    keys = []
+
+    def load(key):
+        keys.append(key)
+        return key
+    CG._moments_multi_kernel.cache_clear()
+    monkeypatch.setattr(CS, "load", load)
+    try:
+        specs = _specs("double_gauss")
+        runs = CG._moments_multi_runs(specs, F64, False, nlam)
+    finally:
+        CG._moments_multi_kernel.cache_clear()
+    assert [(l0, l1) for l0, l1, _ in runs] == want
+    assert [k.nlam for _, _, k in runs] == [l1 - l0 for l0, l1 in want]
+    assert all(k == CS.moments_multi_key(specs, F64, False, l1 - l0)
+               for l0, l1, k in runs)
+    assert len(keys) == len({l1 - l0 for l0, l1 in want})
 
 
 def _bundle(n=256, seed=3):
