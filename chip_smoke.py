@@ -2,21 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the checkout (K1, K2 and
-K4-K9 once for each spec tuple, wavelength count, slot set and flag
-they run with, K10-K13 once for each plan key, all keys in
-parallel, with their ptxas registers, stack and spills, and K10-K13's
-SASS size), holds each against its plain PyTorch version on the card
+Builds the hand-written CUDA kernels from the checkout (K1-K9 once for
+each spec tuple, wavelength count, slot set and flag they run with,
+K10-K13 once for each plan key, all keys in parallel, with their ptxas
+registers, stack and spills, and K3's and K10-K13's SASS size), holds
+each against its plain PyTorch version on the card
 (the specialized K5 for each slot set, with and without ray
 cotangents, K7 and K9 for
 every field with ray cotangents and for their loops' keys; the repaired
 cancellation-free intercept of K1, K2 and K4 on a paraboloid and on the
 double Gauss with near-flat rows against the CPU float64 generic
-trace; K6/K7 on stacks past one key's wavelengths and K11/K13 on plans
-past one key's parameters, split by their wrappers), drives the port's four
-main paths -- the forward path (double Gauss from YAML -> paraxial
-solve -> pupil aiming -> fused trace and fused spot-moment merit at
-three fields), the designer loop (bundles at 3 fields x 3
+trace; K3 and K6/K7 on stacks past one key's wavelengths and K11/K13
+on plans past one key's parameters, split by their wrappers), drives
+the port's four main paths -- the forward path (double Gauss from YAML
+-> paraxial solve -> pupil aiming, on the host and with System.pupils
+on the card, which must agree -> fused trace and fused spot-moment
+merit at three fields), the designer loop (bundles at 3 fields x 3
 wavelengths -> optimize_grad on the weighted-moment and adjoint
 kernels -> write back), the achromatization path (stacked
 3-wavelength tables -> glass relaxation -> polychromatic union spot
@@ -41,6 +42,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -55,6 +57,7 @@ N_OPT_BUNDLE = 1046071  # rays of one optimizer bundle (hexapolar, 2^20)
 N_INTERCEPT = 1 << 16  # aimed rays a field in the intercept phase
 N_SPLIT = 1 << 16    # bench rays of the split phase
 N_SPLIT_NLAM = (12, 13)  # K6/K7 stacks past MAX_NLAM (split 6+6, 7+6)
+N_SPLIT_K3 = (12, 40)  # K3 stacks past MAX_NLAM (6+6, 4 x 10)
 N_SPLIT_PLANS = 24   # K11/K13 plans past the kernel parameters (12+12)
 N_GLASS = 1 << 20    # hexapolar nrays a field on the achromatization path
 FIELDS = (0., .7, 1.)
@@ -97,6 +100,8 @@ F32_RAY_REL = 1e-2   # float32 K5 ray cotangents: a float32 image
 #                      spot, twice that on the weight cotangent's squares
 FD_REL = 1e-5        # float64 K5 vs central differences of the K4 merit
 OPT_MERIT_REL = 1e-9  # optimizer step 0 merit, card vs CPU plain
+AIM_REL = 1e-9       # System.pupils on the card vs the host pupil, z and boxes
+AIM_HOST_TOL = 1e-12  # the host pupil's tolerance for that comparison
 OPT_GRAD_REL = 1e-8   # optimizer step 0 gradient, of its field's max
 OPD_F32_REL = 4e-6   # float32 K8 vs float32 plain, of max |k| (~1.1e5
 #                      waves on the double Gauss: a float32 ulp is
@@ -144,17 +149,6 @@ def phase_card():
            torch.version.cuda, sys.version.split()[0]))
     log(smi)
     return name, smi.splitlines()[0]
-
-
-def phase_build():
-    from rayopt_tpu_torch.ops.cuda_build import load_library
-    log("== build")
-    t0 = time.perf_counter()
-    lib = load_library()
-    log("kernel library %s: nvcc %.2f s, load %.2f s wall"
-        % (lib.path.name, lib.build_seconds, time.perf_counter() - t0))
-    for line in lib.ptxas_lines():
-        log("  " + line)
 
 
 def bench_bundle(n, dtype, seed):
@@ -406,8 +400,9 @@ def spec_keys(specs, mspecs, nlam, extra=()):
     path); the keys the finite-difference checks of a glass take (K7:
     mu; K9: mu and n_before, float64); K1 on `mspecs`, clip off and on
     (the multi check traces each wavelength's table with it); K2 on
-    `mspecs` unclipped (K3's twin); K1, K2 and K4 on each spec tuple of
-    `extra` (the intercept cases) unclipped."""
+    `mspecs` unclipped (K3's twin); K3 on `mspecs` and `nlam`, trace and
+    merit, in both dtypes; K1, K2 and K4 on each spec tuple of `extra`
+    (the intercept cases) unclipped."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     keys = {}
     for dtype in (torch.float32, torch.float64):
@@ -440,6 +435,9 @@ def spec_keys(specs, mspecs, nlam, extra=()):
         keys["K9 %s clip=False design rays=False" % dt] = \
             CS.opd_adjoint_key(specs, dtype, False, DESIGN_FIELDS, False)
         keys["K2 %s clip=False stack" % dt] = CS.merit_key(mspecs, dtype)
+        for mode in ("merit", "trace"):
+            keys["K3 %s %s nlam=%d" % (dt, mode, nlam)] = \
+                CS.trace_multi_key(mspecs, dtype, nlam, mode == "merit")
         for name, sp in extra:
             keys["K1 %s %s" % (dt, name)] = CS.trace_key(sp, dtype)
             keys["K2 %s %s" % (dt, name)] = CS.merit_key(sp, dtype)
@@ -486,10 +484,22 @@ def df32_keys(s):
 
 def split_keys(s):
     """{tag: key} of the split phase's K6 runs and K7 key: float64,
-    unclipped, on each stack of N_SPLIT_NLAM wavelengths."""
+    unclipped, on each stack of N_SPLIT_NLAM wavelengths; and its K3
+    runs, trace and merit, in both dtypes, on each of N_SPLIT_K3."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_trace import multi_specs
     keys = {}
+    for nlam in N_SPLIT_K3:
+        specs = multi_specs(s.tables(split_wavelengths(nlam)), None)
+        for dtype in (torch.float32, torch.float64):
+            for mode in ("merit", "trace"):
+                kernel = "k3m" if mode == "merit" else "k3"
+                for l0, l1 in CS.runs(nlam, CS.multi_most(kernel, specs,
+                                                          dtype)):
+                    keys["K3 %s %s split %d: %d-%d" % (
+                        str(dtype)[6:], mode, nlam, l0, l1)] = \
+                        CS.trace_multi_key(specs, dtype, l1 - l0,
+                                           mode == "merit")
     for nlam in N_SPLIT_NLAM:
         specs = multi_specs(s.tables(split_wavelengths(nlam)), None)
         for l0, l1 in CS.runs(nlam, CS.MAX_NLAM):
@@ -521,6 +531,7 @@ LOOP_KEYS = ("K1 float32 clip=False",
              "K8 float64 clip=False",
              "K2 float64 clip=False",
              "K6 float64 clip=False nlam=3",
+             "K3 float64 merit nlam=3",
              "K5 float32 clip=False optimizer rays=False",
              "K5 float64 clip=False optimizer rays=False",
              "K5 float32 clip=True optimizer rays=False",
@@ -559,21 +570,29 @@ def sass_size(kern):
 
 
 def phase_spec_build(keys):
-    """Build every K1, K2, K4-K9 and K10-K13 specialization at once (one
-    nvcc a key, in parallel); log each key's build seconds and ptxas
-    lines, and the df32 keys' SASS size.  The loops' keys (LOOP_KEYS: K1
-    of the forward path, float32 and float64, and K2, float64; K5 for the
-    optimizer's slot set; K6 and K7 for the achromatization path's and K8
-    and K9 for the design path's, float64; K10-K13 of the df32 path)
-    must have no stack frame and no spill.  Returns {tag: (registers,
-    stack bytes, spill bytes)} and {tag: (SASS instructions, bytes)} of
-    the df32 keys."""
+    """Build every K1-K9 and K10-K13 specialization at once (one nvcc a
+    key, in parallel): every kernel of the port; log each key's build
+    seconds and ptxas lines, and the SASS size of the path's K3 keys and
+    the df32 keys.  The loops' keys (LOOP_KEYS: K1 of the forward path,
+    float32 and float64, and K2, float64; K5 for the optimizer's slot
+    set; K3, K6 and K7 for the achromatization path's and K8 and K9 for
+    the design path's, float64; K10-K13 of the df32 path) must have no
+    stack frame and no spill.  Returns {tag: (registers, stack bytes, spill bytes)} and
+    {tag: (SASS instructions, bytes)} of the K3 and df32 keys."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
-    log("== K1, K2, K4-K9 per spec tuple, K10-K13 per plan key: %d key "
+    log("== build: K1-K9 per spec tuple, K10-K13 per plan key: %d key "
         "tags, %d keys" % (len(keys), len(set(keys.values()))))
     t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
     log("built in %.2f s wall" % (time.perf_counter() - t0))
+    # the SASS size of each K3 key of the path and each df32 key, once a
+    # key, the cuobjdump runs in parallel
+    counted = {key for tag, key in keys.items()
+               if isinstance(key, CS.Df32Key)
+               or (key.kernel in ("k3", "k3m") and "split" not in tag)}
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        sizes = dict(zip(counted, pool.map(lambda k: sass_size(built[k]),
+                                           counted)))
     stats, sass, failures = {}, {}, []
     for tag, key in keys.items():
         kern = built[key]
@@ -581,8 +600,8 @@ def phase_spec_build(keys):
         what = ("%d plan(s), %d flag tuple(s), %s" % (
             key.nlam, len(key.tuples), key.words_at)
             if isinstance(key, CS.Df32Key) else "%d live slots" % key.nlive)
-        if isinstance(key, CS.Df32Key):
-            sass[tag] = sass_size(kern)
+        if key in sizes:
+            sass[tag] = sizes[key]
             what += ", SASS %s instructions" % (sass[tag][0],)
         log("%s: %s, %s, block %d, nvcc %.2f s | %s" % (
             tag, key.name, what, key.block, kern.build_seconds,
@@ -829,11 +848,13 @@ def phase_main_path():
     specs = specialize(table)
     log("System: EFL %.8f, %d surfaces, %.2f s"
         % (s.paraxial.focal_length[1], len(s), time.perf_counter() - t0))
+    phase_device_aiming(s)
     rng = np.random.RandomState(SEED)
     failures, aimed = [], []
     for field in FIELDS:
         t0 = time.perf_counter()
         z, p = s.pupil((0., field))
+        t_pupil = time.perf_counter() - t0
         r = np.sqrt(rng.uniform(0, 1, N_AIMED))
         th = rng.uniform(0, 2*np.pi, N_AIMED)
         yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
@@ -872,12 +893,13 @@ def phase_main_path():
         log("field %.1f: pupil z %.6f, %d of %d rays live | spot RMS mm: "
             "CPU f64 %.12g | K1 f64 %.12g (rel %.2e) | K2 f64 %.12g (rel "
             "%.2e; moments vs CPU rel %.2e) | K1 f32 %.9g (rel %.2e) | K2 "
-            "f32 %.9g (rel %.2e) | aim %.2f s, card %.2f s, CPU %.2f s -> %s"
+            "f32 %.9g (rel %.2e) | aim %.2f s (host pupil %.3f s, numpy aim "
+            "of the rays %.2f s), card %.2f s, CPU %.2f s -> %s"
             % (field, z, live, N_AIMED, rms_cpu, rms_k1, rel1, rms_k2,
                abs(rms_k2 - rms_cpu)/rms_cpu, mom_rel, rms_k1_32,
                abs(rms_k1_32 - rms_cpu)/rms_cpu, rms_k2_32,
-               abs(rms_k2_32 - rms_cpu)/rms_cpu, t_aim, t_gpu, t_cpu,
-               "ok" if ok else "FAIL"))
+               abs(rms_k2_32 - rms_cpu)/rms_cpu, t_aim, t_pupil,
+               t_aim - t_pupil, t_gpu, t_cpu, "ok" if ok else "FAIL"))
         if not ok:
             failures.append("field %.1f" % field)
         aimed.append(dict(field=field, y=yc, u=uc, y64=y64,
@@ -886,6 +908,52 @@ def phase_main_path():
         raise AssertionError("main path parity failed at " +
                              ", ".join(failures))
     return aimed
+
+
+def phase_device_aiming(s):
+    """The forward path's pupils, solved for the three fields at once on
+    the card (System.pupils: ops.aiming's Newton and bisections as plain
+    torch ops, no host round trip inside) and on the host, one `pupil` a
+    field, at the host's default tolerance (as the path runs it) and at
+    1e-12, which the card's z and boxes must match to AIM_REL.  Logs
+    each one's time; the card's twice (the first call also pays the
+    first launches of its torch ops)."""
+    from rayopt_tpu_torch.models import double_gauss
+    fields = [(0., f) for f in FIELDS]
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")   # a host fallback fails
+            z, boxes = s.pupils(fields)
+        times.append(time.perf_counter() - t0)
+    host = {}
+    for tol in (None, AIM_HOST_TOL):
+        h = double_gauss()
+        t0 = time.perf_counter()
+        sol = [h.pupil(f) if tol is None else h.pupil(f, tol=tol)
+               for f in fields]
+        host[tol] = (time.perf_counter() - t0, np.array([v[0] for v in sol]),
+                     np.array([v[1] for v in sol]))
+    t_tight, zh, bh = host[AIM_HOST_TOL]
+    rel_z = float((np.abs(z - zh)/np.abs(zh)).max())
+    rel_b = float((np.abs(boxes - bh)/np.abs(bh)).max())
+    loose = max(float((np.abs(z - host[None][1])/np.abs(zh)).max()),
+                float((np.abs(boxes - host[None][2])/np.abs(bh)).max()))
+    ok = rel_z <= AIM_REL and rel_b <= AIM_REL
+    log("== device aiming: System.pupils of %d fields on the card %.3f s "
+        "(again %.3f s) | host pupil, one a field: %.3f s at its default "
+        "tolerance (agrees to %.2e rel), %.3f s at tol %g | card vs host "
+        "at %g: z rel %.3e, boxes rel %.3e -> %s"
+        % (len(fields), times[0], times[1], host[None][0], loose, t_tight,
+           AIM_HOST_TOL, AIM_HOST_TOL, rel_z, rel_b, "ok" if ok else "FAIL"))
+    log("z %s | +mer %s" % (" ".join("%.12g" % v for v in z),
+                            " ".join("%.12g" % v for v in boxes[:, 1, 1])))
+    if not ok:
+        raise AssertionError("System.pupils on the card disagrees with the "
+                             "host pupil: z rel %.3e, boxes rel %.3e"
+                             % (rel_z, rel_b))
 
 
 def phase_opt_path():
@@ -1922,7 +1990,9 @@ def phase_df32_check(s):
 
 def phase_split_check(s):
     """The wrappers' split of what one key cannot hold, on the card:
-    K6 and K7 on float64 stacks of N_SPLIT_NLAM wavelengths (past
+    K3, trace and merit, in both dtypes on stacks of N_SPLIT_K3
+    wavelengths (past MAX_NLAM: balanced runs) against its plain
+    version; K6 and K7 on float64 stacks of N_SPLIT_NLAM wavelengths (past
     MAX_NLAM: K6 in balanced runs, K7 in one launch) against their plain
     versions on the card, and glass.polychromatic_spot_rms(engine=
     "adjoint") on them (forward and backward) against the CPU plain
@@ -1932,12 +2002,49 @@ def phase_split_check(s):
     from rayopt_tpu_torch.ops import cuda_df32 as CD
     from rayopt_tpu_torch.ops import cuda_grad as CG
     from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import cuda_trace as CT
     from rayopt_tpu_torch.ops.cuda_trace import multi_specs
     from rayopt_tpu_torch.parallel import bundles_from_system
-    log("== split past one key (K6/K7 at %s wavelengths, K11/K13 at %d "
-        "plans, %d bench rays; the adjoint merit at 2048 hexapolar rays vs "
-        "the CPU)" % (N_SPLIT_NLAM, N_SPLIT_PLANS, N_SPLIT))
+    log("== split past one key (K3 at %s wavelengths, K6/K7 at %s, K11/K13 "
+        "at %d plans, %d bench rays; the adjoint merit at 2048 hexapolar "
+        "rays vs the CPU)" % (N_SPLIT_K3, N_SPLIT_NLAM, N_SPLIT_PLANS,
+                              N_SPLIT))
     failures = []
+    for nlam in N_SPLIT_K3:
+        tabs = s.tables(split_wavelengths(nlam))
+        specs = multi_specs(tabs, None)
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype)[6:]
+            state = bench_bundle(N_SPLIT, dtype, SEED + 3)
+            runs = {mode: CS.runs(nlam, CS.multi_most(kernel, specs, dtype))
+                    for mode, kernel in (("trace", "k3"), ("merit", "k3m"))}
+            before = CT.trace_multi.launches
+            got = CT.trace_multi(tabs, specs, state)
+            traced = CT.trace_multi.launches - before
+            mom = CT.trace_multi(tabs, specs, state, merit=True)
+            merited = CT.trace_multi.launches - before - traced
+            want = CT.trace_multi_reference(tabs, specs, state)
+            mref = CT.trace_multi_reference(tabs, specs, state, merit=True)
+            torch.cuda.synchronize()
+            res = [compare_final((*g[0], g[1]), (*r[0], r[1]), dtype)
+                   for g, r in zip(got, want)]
+            mres = [compare_moments(m, r, dtype, N_SPLIT)
+                    for m, r in zip(mom, mref)]
+            ok = (len(got) == len(mom) == nlam
+                  and (traced, merited) == (len(runs["trace"]),
+                                            len(runs["merit"]))
+                  and all(r[0] and r[3] == 0 for r in res)
+                  and all(m[0] for m in mres))
+            log("K3 %s at %d wavelengths: trace %d launches (runs %s), max "
+                "abs err %.3e, max rel err %.3e, NaN masks differ on %d rays "
+                "| merit %d launches (runs %s), moments rel err max %.3e, "
+                "counts differ %d -> %s"
+                % (dt, nlam, traced, runs["trace"], max(r[1] for r in res),
+                   max(r[2] for r in res), sum(r[3] for r in res), merited,
+                   runs["merit"], max(m[1] for m in mres),
+                   sum(abs(m[2]) for m in mres), "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("K3 %s at %d wavelengths" % (dt, nlam))
     state = bench_bundle(N_SPLIT, torch.float64, SEED + 3)
     w = bench_weights(N_SPLIT, torch.float64, SEED + 4)
     for nlam in N_SPLIT_NLAM:
@@ -2286,9 +2393,9 @@ def phase_grad_throughput(table, specs, card):
 
 
 def phase_multi_throughput(tabs, specs, card):
-    """K3 (merit), K6 and K7 against their plain versions and against
-    nlam launches of their monochromatic twins (K2, K4, K5) on the same
-    bundle, with K7 for every field and the ray cotangents (the work of
+    """K3 (merit and trace), K6 and K7 against their plain versions and
+    against nlam launches of their monochromatic twins (K2 and K1, K4,
+    K5) on the same bundle, with K7 for every field and the ray cotangents (the work of
     the earlier run-time-flag K7) beside K7 for the achromatization
     path's key; K6 and K7 both ways in float64 at one achromatization
     bundle's N_OPT_BUNDLE rays; then the three alone at N_BENCH rays in
@@ -2300,7 +2407,7 @@ def phase_multi_throughput(tabs, specs, card):
         weighted_moments, weighted_moments_multi,
         weighted_moments_multi_reference)
     from rayopt_tpu_torch.ops.cuda_trace import (
-        trace_merit, trace_multi, trace_multi_reference)
+        trace_final, trace_merit, trace_multi, trace_multi_reference)
     from rayopt_tpu_torch.ops.tables import table_at
     nlam = tabs.curvature.shape[0]
     one = [table_at(tabs, li) for li in range(nlam)]
@@ -2314,6 +2421,10 @@ def phase_multi_throughput(tabs, specs, card):
              lambda: trace_multi(tabs, specs, state, merit=True),
              lambda: trace_multi_reference(tabs, specs, state, merit=True),
              lambda: [trace_merit(t, specs, state) for t in one]),
+            ("trace_multi_trace",
+             lambda: trace_multi(tabs, specs, state),
+             lambda: trace_multi_reference(tabs, specs, state),
+             lambda: [trace_final(t, specs, state) for t in one]),
             ("weighted_moments_multi",
              lambda: weighted_moments_multi(tabs, specs, state, w),
              lambda: weighted_moments_multi_reference(tabs, specs, state, w),
@@ -2613,7 +2724,10 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
         "opd_adjoint": (9, 6, n*opd + live*(3*opd + OPD_TAIL_VJP_FLOPS)),
         "trace_final": (6, 7, n*chain),
         "trace_merit": (6, 0, n*(chain + 7)),
+        # K3's merit writes (nlam, 5) moments, its trace 7 words a ray
+        # and wavelength
         "trace_multi": (6, 0, n*nlam*(chain + 7)),
+        "trace_multi_trace": (6, 7*nlam, n*nlam*chain),
         "weighted_moments": (7, 0, n*(chain + 11)),
         "weighted_moments_multi": (7, 0, n*nlam*(chain + 11)),
         "merit_adjoint": (7, 7, n*chain + live*(3*chain + 11)),
@@ -2626,8 +2740,11 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
                                      n*nlam*chain + live*(3*chain + 11)),
         "opd_adjoint_loop": (9, 0, n*opd + live*(3*opd + OPD_TAIL_VJP_FLOPS)),
     }[name]
-    # K9 also writes its parameter and centre cotangents
+    # K9 also writes its parameter and centre cotangents, K3's merit its
+    # moments
     slots = len(specs)*7 + 3 if name.startswith("opd_adjoint") else 0
+    if name == "trace_multi":
+        slots = 5*nlam
     nbytes = (n*(words_in + words_out) + nlam*len(specs)*17 + slots)*word \
         + 4*len(specs)
     t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[dtype]
@@ -2800,7 +2917,6 @@ def df32_entries(s, launches, worst, times, live, ptxas, sass):
 
 def main():
     name, card = phase_card()
-    phase_build()
     from rayopt_tpu_torch.models import double_gauss
     from rayopt_tpu_torch.ops.cuda_trace import multi_specs, trace_merit
     from rayopt_tpu_torch.ops.kernels import specialize
@@ -2867,14 +2983,13 @@ def main():
         N_GRAD_TIME, torch.float32, SEED + 1))[0])
     live_opt = float(trace_merit(table, specs, bench_bundle(
         N_OPT_BUNDLE, torch.float64, SEED + 1))[0])
-    trace_cu, spec_cuh = ("rayopt_tpu_torch/csrc/trace.cu",
-                          "rayopt_tpu_torch/csrc/grad_spec.cuh")
+    spec_cuh = "rayopt_tpu_torch/csrc/grad_spec.cuh"
     sources = {
         "trace_final": (spec_cuh, "rayopt_tpu/ops/pallas_trace.py:82"),
         "trace_merit": (spec_cuh, "rayopt_tpu/ops/pallas_trace.py:170"),
         "weighted_moments": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:236"),
         "merit_adjoint": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:395"),
-        "trace_multi": (trace_cu, "rayopt_tpu/ops/pallas_trace.py:284"),
+        "trace_multi": (spec_cuh, "rayopt_tpu/ops/pallas_trace.py:284"),
         "weighted_moments_multi": (spec_cuh,
                                    "rayopt_tpu/ops/pallas_grad.py:248"),
         "merit_adjoint_multi": (spec_cuh,
@@ -2883,6 +2998,8 @@ def main():
         "opd_adjoint": (spec_cuh, "rayopt_tpu/ops/pallas_grad.py:1094")}
     # the loop key of each specialized kernel: its tag in `ptxas`
     loop_keys = {"trace_final": "K1 %s clip=False",
+                 "trace_multi": "K3 %s merit nlam=%d" % (
+                     "%s", tabs.curvature.shape[0]),
                  "opd_chain": "K8 %s clip=False",
                  "trace_merit": "K2 %s clip=False",
                  "weighted_moments": "K4 %s clip=False",
@@ -2970,6 +3087,35 @@ def main():
                     "bound_ms_optimizer_f64" + big: kernel_bound(
                         opt, N_OPT_BUNDLE, torch.float64, specs, 1,
                         live_opt)[0]})
+        if kname == "trace_multi":
+            # K3's trace mode beside its merit: times, bound, registers
+            # and the SASS size of both keys
+            tm, tag = "trace_multi_trace", "K3 %s trace nlam=%d"
+            mtag = loop_keys[kname]
+            entry.update({
+                "ms_trace": tt[(tm, torch.float32)][0],
+                "plain_ms_trace": tt[(tm, torch.float32)][1],
+                "twin_ms_trace": tt[(tm, torch.float32)][2],
+                "ms_trace_f64": tt[(tm, torch.float64)][0],
+                "plain_ms_trace_f64": tt[(tm, torch.float64)][1],
+                "twin_ms_trace_f64": tt[(tm, torch.float64)][2],
+                "bound_ms_trace": kernel_bound(tm, rays, torch.float32,
+                                               kspecs, lam)[0],
+                "bound_ms_trace_f64": kernel_bound(tm, rays, torch.float64,
+                                                   kspecs, lam)[0],
+                "ms_trace_f32_%d_rays" % N_BENCH: tt[(tm, N_BENCH)],
+                "bound_ms_trace_f32_%d_rays" % N_BENCH: kernel_bound(
+                    tm, N_BENCH, torch.float32, kspecs, lam)[0]})
+            for dt in ("float32", "float64"):
+                sfx = "" if dt == "float64" else "_f32"
+                regs, stack, spill = ptxas[tag % (dt, lam)]
+                entry.update({"regs_trace" + sfx: regs,
+                              "stack_bytes_trace" + sfx: stack,
+                              "spill_bytes_trace" + sfx: spill,
+                              "sass_instructions" + sfx:
+                                  sass[mtag % dt][0],
+                              "sass_instructions_trace" + sfx:
+                                  sass[tag % (dt, lam)][0]})
         if kname in multi:
             entry["twin_ms"] = tt[(kname, torch.float32)][2]
             entry["twin_ms_f64"] = tt[(kname, torch.float64)][2]

@@ -7,7 +7,9 @@ torch, numpy, scipy and yaml, never jax.
 
 Ported so far: the front end (materials from the built-in glass
 table, elements, pupils, conjugates, System with its paraxial solve
-and host pupil aiming, YAML round trip, the model prescriptions), the
+and pupil aiming, per field on the host and for every field at once
+on the table's device (System.pupils, ops.aiming), YAML round trip,
+the model prescriptions), the
 SurfaceTable lowering, the torch trace engines (flat, spherical and
 conic rows), and the fused trace (K1) and spot-moment merit (K2)
 kernels, hand-written in CUDA C++ for Hopper (ops.cuda_trace); the

@@ -1,11 +1,14 @@
 """Host-side pupil aiming: the scalar-solver front-end.
 
-It provides the reference-parity entry points
+This is the host companion of the batched device solvers in
+ops/aiming.py.  It provides the reference-parity entry points
 (aim/aim_chief/aim_marginal/pupil; reference system.py:504-593) as a
 mixin consumed by System.  Each scalar solve traces through
 System.trace_table (the torch trace on the CPU); only the 1-D root
-iteration itself is Python.  The batched device solver of the JAX
-package (System.pupils) is not ported yet.
+iteration itself is Python.  Multi-field work should prefer
+System.pupils, which solves every field at once on the table's device
+and falls back to these solvers per field only when a residual
+certificate fails.
 """
 
 import warnings
@@ -232,9 +235,63 @@ class AimingMixin:
         return state[0], state[1:].reshape(2, 2)
 
     def pupils(self, fields, l=None, stop=None, tol=1e-6,
-               chief_only=False):
-        """Batched pupil solve for many field points at once: not
-        ported yet (solve each field with `pupil`)."""
-        raise NotImplementedError(
-            "System.pupils (the batched device aiming solver) is not "
-            "ported to rayopt_tpu_torch yet; call System.pupil per field")
+               chief_only=False, device=None):
+        """Batched pupil solve for many field points at once.
+
+        fields: (F, 2) fractional field coordinates.  Eligible systems
+        (aimed, non-telecentric conjugates; stop mode or rim mode
+        stop=-1) solve every field at once on the table's device
+        (`device`, None: the package's default) via ops.aiming
+        (Newton through the trace + bracketed bisection, fixed trip
+        counts, no host round trip inside); fields whose converged
+        residual exceeds `tol` -- and ineligible systems -- fall back
+        to the host scipy path.  Returns (z (F,), boxes (F, 2, 2)) as
+        numpy arrays.
+        """
+        fields = np.atleast_2d(np.asarray(fields, dtype=float))
+        pupil = self.object.pupil
+        rim = stop == -1
+        eligible = pupil.aim and not pupil.telecentric
+        if eligible:
+            from .ops.aiming import pupil_batched, aim_chief_batched
+            from .ops.kernels import specialize
+            if l is None:
+                l = self.wavelengths[0]
+            table = self.table(l, device=device)
+            kw = dict(finite=bool(self.object.finite),
+                      projection=self.object.projection,
+                      specs=specialize(table))
+            if self.object.finite:
+                kw["radius"] = self.object.radius
+            else:
+                kw["slope"] = np.tan(self.object.angle)
+            stop_idx = self.stop if stop in (-1, None) else stop
+            if chief_only:
+                z, chief_r = aim_chief_batched(
+                    table, fields, pupil.distance, stop_idx,
+                    with_residual=True, **kw)
+                boxes = np.broadcast_to(
+                    pupil.radius*np.array([[-1., -1.], [1., 1.]]),
+                    (len(fields), 2, 2)).copy()
+                width = np.zeros(len(fields))
+            else:
+                z, boxes, (chief_r, width) = pupil_batched(
+                    table, fields, pupil.distance, pupil.radius,
+                    stop_idx, rim=rim, with_residuals=True, **kw)
+                boxes, width = boxes.cpu().numpy(), width.cpu().numpy()
+            z, chief_r = z.cpu().numpy(), chief_r.cpu().numpy()
+            bad = (chief_r > tol) | (width > tol)
+        else:
+            z = np.empty(len(fields))
+            boxes = np.empty((len(fields), 2, 2))
+            bad = np.ones(len(fields), bool)
+        if bad.any():
+            if eligible:
+                warnings.warn(
+                    "batched aiming did not converge for %d/%d fields; "
+                    "using the host solver there"
+                    % (bad.sum(), len(fields)))
+            for i in np.flatnonzero(bad):
+                z[i], boxes[i] = self.pupil(tuple(fields[i]), l=l,
+                                            stop=stop)
+        return z, boxes

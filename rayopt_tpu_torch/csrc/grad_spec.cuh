@@ -1,17 +1,20 @@
-// The fused trace (K1), the moment kernels -- the spot-moment merit (K2),
-// the weighted-moment forward (K4) and its polychromatic twin (K6) --,
-// the OPD trace (K8) and the adjoints -- K4's analytic adjoint (K5), the
-// polychromatic adjoint (K7) and the OPD adjoint (K9) -- for NVIDIA
-// Hopper (sm_90a), specialized at compile time on one key: the dtype,
-// the SurfaceSpec tuple (one word of trace_common.cuh flags a row), the
-// aperture clip and the block size; K6 also on its wavelength count;
-// the adjoints also on the parameter slots they reduce and on whether
-// they write the ray (and weight) cotangents.  The wavelength count of
-// K7 stays a run-time argument.
+// The fused trace (K1), its polychromatic twin (K3), the moment kernels
+// -- the spot-moment merit (K2), K3's merit mode, the weighted-moment
+// forward (K4) and its polychromatic twin (K6) --, the OPD trace (K8)
+// and the adjoints -- K4's analytic adjoint (K5), the polychromatic
+// adjoint (K7) and the OPD adjoint (K9) -- for NVIDIA Hopper (sm_90a),
+// specialized at compile time on one key: the dtype, the SurfaceSpec
+// tuple (one word of trace_common.cuh flags a row), the aperture clip
+// and the block size; K3 and K6 also on their wavelength count (K3's
+// trace also on the order of its loops); the adjoints also on the
+// parameter slots they reduce and on whether they write the ray (and
+// weight) cotangents.  The wavelength count of K7 stays a run-time
+// argument.  No kernel reads its row flags at run time.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
 //   K2  rayopt_tpu/ops/pallas_trace.py  _merit_kernel         (pallas_trace_merit)
+//   K3  rayopt_tpu/ops/pallas_trace.py  _multi_kernel         (pallas_trace_multi)
 //   K4  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel            (_moments_impl)
 //   K5  rayopt_tpu/ops/pallas_grad.py  _adjoint_kernel        (_moments_bwd)
 //   K6  rayopt_tpu/ops/pallas_grad.py  _fwd_kernel_multi      (_moments_multi_impl)
@@ -19,34 +22,34 @@
 //   K8  rayopt_tpu/ops/pallas_grad.py  _opd_kernel            (_opd_impl)
 //   K9  rayopt_tpu/ops/pallas_grad.py  _opd_adjoint_kernel    (_opd_bwd)
 // which the JAX package specializes on the same things (specs, clip,
-// diff_fields, and K6's wavelengths, unrolled at trace time).
+// diff_fields, and K3's and K6's wavelengths, unrolled at trace time).
 // rayopt_tpu_torch.ops.cuda_spec writes a translation unit a key that
 // instantiates the templates below with the row words as a template
 // parameter pack (Chain<...>) and exports launchers named by the key's
 // hash; nvcc builds it at first use.  The plain versions live beside the
-// wrappers in rayopt_tpu_torch/ops/cuda_trace.py (K1, K2) and
+// wrappers in rayopt_tpu_torch/ops/cuda_trace.py (K1, K2, K3) and
 // rayopt_tpu_torch/ops/cuda_grad.py, with the torch models of K5, K7 and
 // K9.
 //
 // What bounds them on the H100.  K1 reads 6 words a ray and writes 7
-// (its final state and optical path); K8 reads 6 and writes 3 (k and the
-// landing on the reference sphere); K2 reads 6 words a ray and K4 7, and
-// neither writes anything a ray; K6 is K4 once a wavelength on one read
-// of the ray; K5 reads 7 and writes 7 a ray when asked for the ray
-// cotangents, else nothing; K7 is K5 once a wavelength; K9 reads 9 and
-// writes 6 with the ray cotangents, else 3 and nothing.  All are bound
-// by instruction issue: the chain costs ~540 operations a ray on the
-// double Gauss (the adjoints ~4x that: the forward, then each row's
-// recompute and reverse), with an IEEE division and square roots a row;
-// K1's 52 (float32) or 104 (float64) bytes a ray of HBM traffic run
-// beside it.
+// (its final state and optical path); K3 reads 6 and writes 7 a
+// wavelength in trace mode, nothing a ray in merit mode; K8 reads 6 and
+// writes 3 (k and the landing on the reference sphere); K2 reads 6 words
+// a ray and K4 7, and neither writes anything a ray; K6 is K4 once a
+// wavelength on one read of the ray; K5 reads 7 and writes 7 a ray when
+// asked for the ray cotangents, else nothing; K7 is K5 once a
+// wavelength; K9 reads 9 and writes 6 with the ray cotangents, else 3
+// and nothing.  All are bound by instruction issue: the chain costs
+// ~540 operations a ray on the double Gauss (the adjoints ~4x that: the
+// forward, then each row's recompute and reverse), with an IEEE
+// division and square roots a row; K1's 52 (float32) or 104 (float64)
+// bytes a ray of HBM traffic run beside it.
 //
 // What the design does about it.
-//  * The row loop unrolls over the parameter pack: surface_step (the one
-//    body K3 runs with its flags read at run time) and surface_step_vjp
-//    get each row's flags as a std::integral_constant, so every flag
-//    branch folds and each row's code is straight-line.  The slots a row
-//    does not reduce are dead code and compile away.
+//  * The row loop unrolls over the parameter pack: surface_step and
+//    surface_step_vjp get each row's flags as a std::integral_constant,
+//    so every flag branch folds and each row's code is straight-line.
+//    The slots a row does not reduce are dead code and compile away.
 //  * K1 and K8 read each ray once into registers, run the chain (K8:
 //    rows 1..S-2, then the reference-sphere tail of step_vjp.cuh on the
 //    image row, its flags compile-time too) and write each output once,
@@ -54,12 +57,19 @@
 //    radius and lam_scale, a device tensor, no host sync) sit in static
 //    shared memory.  A vignetted ray is NaN and stays NaN through every
 //    later row.
-//  * The moment kernels (K2, K4, K6) read each ray once into registers
-//    and run it through every table of the key's stack in turn (K6's
-//    wavelengths unrolled, each table staged in static shared memory);
-//    the five moments of each table accumulate in registers at
-//    compile-time indices.  K2 is the unweighted case: no weight stream,
-//    a count for the weight.
+//  * K3's trace runs K1's chain, unclipped, once for each table of the
+//    key's stack (all of them staged in static shared memory) and writes
+//    each wavelength's 7 outputs coalesced.  Two orders, a key each:
+//    wavelengths innermost (each ray read once into registers and traced
+//    through the tables in turn, the chain unrolled once a table, as the
+//    TPU kernel) or outermost (one grid-stride pass over the rays a
+//    table: each ray read once a table, the chain compiled once).
+//  * The moment kernels (K2, K3's merit, K4, K6) read each ray once into
+//    registers and run it through every table of the key's stack in
+//    turn (the wavelengths unrolled, each table staged in static shared
+//    memory); the five moments of each table accumulate in registers at
+//    compile-time indices.  K2 and K3's merit are the unweighted case:
+//    no weight stream, a count for the weight.
 //  * The adjoints keep the state entering each row in dynamic shared
 //    memory, [row][component][thread] (consecutive lanes on consecutive
 //    words, no bank conflicts), sized by the table's rows: no per-thread
@@ -85,17 +95,19 @@
 //    with PATH) and runs the reference-sphere tail (step_vjp.cuh) on the
 //    image row with that row's flags compile-time; its three centre
 //    cotangents are reduced beside the live slots.
-//  * A dead ray (K2/K4/K5/K6/K7: non-finite final x, y or uz, judged per
-//    wavelength in K6 and K7; K9: non-finite k) adds no moment and skips
-//    its reverse sweep; without ray cotangents nothing is written a ray.
+//  * A dead ray (K2/K3/K4/K5/K6/K7: non-finite final x, y or uz, judged
+//    per wavelength in K3, K6 and K7; K9: non-finite k) adds no moment
+//    and skips its reverse sweep; without ray cotangents nothing is
+//    written a ray.
 //  * IEEE division and square root, no fast math.
 //  * Tensor cores, TMA and wgmma do not apply: each ray's chain is
 //    scalar arithmetic whose only products are 3x3 rotations, and a
 //    ray is read once a pass, coalesced, as 6 or 7 words.
 //
 // Interface: plain extern "C" launchers (RAYOPT_SPEC_TRACE,
-// RAYOPT_SPEC_MERIT, RAYOPT_SPEC_MOMENTS, RAYOPT_SPEC_MOMENTS_MULTI,
-// RAYOPT_SPEC_OPD, RAYOPT_SPEC_ADJOINT, RAYOPT_SPEC_ADJOINT_MULTI,
+// RAYOPT_SPEC_TRACE_MULTI, RAYOPT_SPEC_MERIT, RAYOPT_SPEC_MERIT_MULTI,
+// RAYOPT_SPEC_MOMENTS, RAYOPT_SPEC_MOMENTS_MULTI, RAYOPT_SPEC_OPD,
+// RAYOPT_SPEC_ADJOINT, RAYOPT_SPEC_ADJOINT_MULTI,
 // RAYOPT_SPEC_OPD_ADJOINT), loaded with ctypes; each launches on the
 // given stream, synchronises nothing, allocates nothing, and returns
 // cudaGetLastError() (0 = launched).
@@ -251,8 +263,8 @@ __device__ __forceinline__ void add_slots(const T* pg, T (&acc)[NA]) {
   });
 }
 
-// The forward chain for one ray (trace_ray with compile-time flags):
-// row 0's frame, then rows 1..R-1; save(j) runs before row j.  Returns
+// The forward chain for one ray, its row flags compile-time: row 0's
+// frame, then rows 1..R-1; save(j) runs before row j.  Returns
 // the optical path.  tab: the staged table, read through a volatile
 // pointer so that each row's words are loaded where they are used
 // (surface_step).
@@ -271,6 +283,22 @@ __device__ __forceinline__ T chain_forward(const volatile T* tab, T* s,
                  s[3], s[4], s[5], tacc);
   });
   return tacc;
+}
+
+// One ray through one whole table (pallas_trace.py's chain: row 0's
+// frame, rows 1..S-1, then the last row's to_normal).  s: in,
+// the ray; out, its final state in the last row's frame.  Returns the
+// optical path.
+template <typename T, class C, bool CLIP>
+__device__ __forceinline__ T trace_final_ray(const volatile T* tab, T* s) {
+  constexpr int S = C::rows;
+  const T t = chain_forward<T, C, CLIP>(tab, s, [](int) {});
+  if (flags_at<C>(S - 1) & F_ROTATED) {
+    const volatile T* rl = tab + (S - 1) * ROW + P_ROT;
+    rot_apply(rl, s[0], s[1], s[2]);
+    rot_apply(rl, s[3], s[4], s[5]);
+  }
+  return t;
 }
 
 // The reverse sweep, rows R-1 .. 1: g holds the cotangent of the state
@@ -334,13 +362,13 @@ __device__ __forceinline__ void moments_adjoint_ray(
   }
 }
 
-// K2, K4 and K6: each ray read once, traced through each of the NLAM
-// tables of a stack (table: NLAM * rows * ROW words, one for K2 and K4)
-// in turn, then the five moments of each table over the rays live there
-// (final x, y and uz finite): with WEIGHTED (K4, K6) sum w, sum wx,
-// sum wy, sum wx^2, sum wy^2; without (K2, no weight stream) the count,
-// sum x, sum y, sum x^2, sum y^2.  out: (NLAM, 5).  All NLAM tables sit
-// in static shared memory.
+// K2, K3's merit, K4 and K6: each ray read once, traced through each of
+// the NLAM tables of a stack (table: NLAM * rows * ROW words, one for K2
+// and K4) in turn, then the five moments of each table over the rays
+// live there (final x, y and uz finite): with WEIGHTED (K4, K6) sum w,
+// sum wx, sum wy, sum wx^2, sum wy^2; without (K2 and K3, no weight
+// stream) the count, sum x, sum y, sum x^2, sum y^2.  out: (NLAM, 5).
+// All NLAM tables sit in static shared memory.
 // MINB: the blocks an SM __launch_bounds__ asks ptxas to fit.  Give it
 // (1 at least): with the block size alone ptxas capped the float32 K5
 // at 80 registers and spilled; with a minimum of one block it takes 86
@@ -376,12 +404,7 @@ __global__ void __launch_bounds__(BLOCK, MINB) moments_spec(
       constexpr int l = decltype(lc)::value;
       const volatile T* tab = s_tab + l * S * ROW;
       T s[6] = {r[0], r[1], r[2], r[3], r[4], r[5]};
-      chain_forward<T, C, CLIP>(tab, s, [](int) {});
-      if (flags_at<C>(S - 1) & F_ROTATED) {
-        const volatile T* rl = tab + (S - 1) * ROW + P_ROT;
-        rot_apply(rl, s[0], s[1], s[2]);
-        rot_apply(rl, s[3], s[4], s[5]);
-      }
+      trace_final_ray<T, C, CLIP>(tab, s);
       if (isfinite(s[0]) && isfinite(s[1]) && isfinite(s[5])) {
         m[5 * l] += wi;
         m[5 * l + 1] += wi * s[0];
@@ -396,9 +419,8 @@ __global__ void __launch_bounds__(BLOCK, MINB) moments_spec(
     for (int q = threadIdx.x; q < NV; q += BLOCK) out[q] = s_part[q];
 }
 
-// K1: each ray read once and traced through the whole chain (row 0's
-// frame, rows 1..S-1, the last row's to_normal: trace_ray with
-// compile-time flags); its final state in the last row's frame and its
+// K1: each ray read once and traced through the whole chain
+// (trace_final_ray); its final state in the last row's frame and its
 // optical path go to the 7 (n,) outputs.  The table sits in static
 // shared memory (the key refuses one past 48 KB).
 template <typename T, class C, bool CLIP, int BLOCK, int MINB>
@@ -418,12 +440,7 @@ __global__ void __launch_bounds__(BLOCK, MINB) trace_spec(
   for (int64_t i = int64_t(blockIdx.x) * BLOCK + threadIdx.x; i < n;
        i += stride) {
     T s[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
-    const T t = chain_forward<T, C, CLIP>(tab, s, [](int) {});
-    if (flags_at<C>(S - 1) & F_ROTATED) {
-      const volatile T* rl = tab + (S - 1) * ROW + P_ROT;
-      rot_apply(rl, s[0], s[1], s[2]);
-      rot_apply(rl, s[3], s[4], s[5]);
-    }
+    const T t = trace_final_ray<T, C, CLIP>(tab, s);
     ox[i] = s[0];
     oy[i] = s[1];
     oz[i] = s[2];
@@ -431,6 +448,57 @@ __global__ void __launch_bounds__(BLOCK, MINB) trace_spec(
     ouy[i] = s[4];
     ouz[i] = s[5];
     ot[i] = t;
+  }
+}
+
+// K3, trace mode: each ray through each of the NLAM tables of a stack
+// (table: NLAM * rows * ROW words, all in static shared memory), with no
+// clip (the TPU kernel's); out[(l * 7 + c) * n + i], c = x, y, z, ux, uy,
+// uz, t, each written once, coalesced.  OUTER = false: each ray read
+// once into registers and traced through the tables in turn, the chain
+// unrolled once a table.  OUTER = true: one grid-stride pass over the
+// rays a table, each ray read again a table, the chain compiled once
+// (the table a run-time offset into shared memory).
+template <typename T, class C, bool OUTER, int NLAM, int BLOCK, int MINB>
+__global__ void __launch_bounds__(BLOCK, MINB) trace_multi_spec(
+    const T* __restrict__ table, const T* __restrict__ ix,
+    const T* __restrict__ iy, const T* __restrict__ iz,
+    const T* __restrict__ iux, const T* __restrict__ iuy,
+    const T* __restrict__ iuz, T* __restrict__ out, int64_t n) {
+  constexpr int S = C::rows;
+  __shared__ T s_tab[NLAM * S * ROW];
+  for (int i = threadIdx.x; i < NLAM * S * ROW; i += BLOCK)
+    s_tab[i] = table[i];
+  __syncthreads();
+  const int64_t stride = int64_t(gridDim.x) * BLOCK;
+  const int64_t first = int64_t(blockIdx.x) * BLOCK + threadIdx.x;
+  // ray i's final state and path through table l
+  auto put = [&](const T* s, T t, int l, int64_t i) {
+    T* o = out + int64_t(l) * 7 * n + i;
+    o[0] = s[0]; o[n] = s[1]; o[2 * n] = s[2];
+    o[3 * n] = s[3]; o[4 * n] = s[4]; o[5 * n] = s[5];
+    o[6 * n] = t;
+  };
+  if constexpr (OUTER) {
+#pragma unroll 1
+    for (int l = 0; l < NLAM; ++l) {
+      const volatile T* tab = s_tab + l * S * ROW;
+      for (int64_t i = first; i < n; i += stride) {
+        T s[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
+        const T t = trace_final_ray<T, C, false>(tab, s);
+        put(s, t, l, i);
+      }
+    }
+  } else {
+    for (int64_t i = first; i < n; i += stride) {
+      const T r[6] = {ix[i], iy[i], iz[i], iux[i], iuy[i], iuz[i]};
+      static_for(std::make_integer_sequence<int, NLAM>{}, [&](auto lc) {
+        constexpr int l = decltype(lc)::value;
+        T s[6] = {r[0], r[1], r[2], r[3], r[4], r[5]};
+        const T t = trace_final_ray<T, C, false>(s_tab + l * S * ROW, s);
+        put(s, t, l, i);
+      });
+    }
   }
 }
 
@@ -724,6 +792,30 @@ constexpr size_t opd_dynamic_smem() {
     return int(cudaGetLastError());                                           \
   }
 
+// K3 trace launchers of one key: NAME(table (NLAM, rows, ROW), 6 rays,
+// out (NLAM, 7, n), n, grid, stream); NAME_blocks_per_sm(&blocks);
+// NAME_error_string(err).
+#define RAYOPT_SPEC_TRACE_MULTI(NAME, T, CHAIN, OUTER, NLAM, BLOCK, MINB)     \
+  extern "C" int NAME##_blocks_per_sm(int* out) {                             \
+    return blocks_per_sm(                                                     \
+        trace_multi_spec<T, CHAIN, OUTER, NLAM, BLOCK, MINB>, BLOCK, 0, out); \
+  }                                                                           \
+  extern "C" const char* NAME##_error_string(int err) {                       \
+    return cudaGetErrorString(cudaError_t(err));                              \
+  }                                                                           \
+  extern "C" int NAME(const void* table, const void* x, const void* y,        \
+                      const void* z, const void* ux, const void* uy,          \
+                      const void* uz, void* out, long long n, int grid,       \
+                      void* stream) {                                         \
+    trace_multi_spec<T, CHAIN, OUTER, NLAM, BLOCK, MINB>                      \
+        <<<grid, BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(              \
+            static_cast<const T*>(table), static_cast<const T*>(x),           \
+            static_cast<const T*>(y), static_cast<const T*>(z),               \
+            static_cast<const T*>(ux), static_cast<const T*>(uy),             \
+            static_cast<const T*>(uz), static_cast<T*>(out), int64_t(n));     \
+    return int(cudaGetLastError());                                           \
+  }
+
 // K8 launchers of one key: NAME(table (rows, ROW), 6 rays, aux (AUX,),
 // k, lx, ly ((n,) each), n, grid, stream); NAME_blocks_per_sm(&blocks);
 // NAME_error_string(err).
@@ -750,11 +842,11 @@ constexpr size_t opd_dynamic_smem() {
     return int(cudaGetLastError());                                           \
   }
 
-// The launchers of one moment key (K2, K4, K6): NAME(table (NLAM, rows,
-// ROW), 6 rays, w (ignored, may be null, without WEIGHTED), partials
-// (grid, NLAM * 5), counter (1 zeroed uint32, reset by the kernel), out
-// (NLAM, 5), n, grid, stream); NAME_blocks_per_sm(&blocks);
-// NAME_error_string(err).
+// The launchers of one moment key (K2, K3's merit, K4, K6): NAME(table
+// (NLAM, rows, ROW), 6 rays, w (ignored, may be null, without
+// WEIGHTED), partials (grid, NLAM * 5), counter (1 zeroed uint32, reset
+// by the kernel), out (NLAM, 5), n, grid, stream);
+// NAME_blocks_per_sm(&blocks); NAME_error_string(err).
 #define RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, WEIGHTED, NLAM, BLOCK,   \
                                MINB)                                          \
   extern "C" int NAME##_blocks_per_sm(int* out) {                             \
@@ -784,6 +876,10 @@ constexpr size_t opd_dynamic_smem() {
 // K2: the five count moments of one table (no weight stream)
 #define RAYOPT_SPEC_MERIT(NAME, T, CHAIN, CLIP, BLOCK, MINB)                  \
   RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, false, 1, BLOCK, MINB)
+
+// K3's merit mode: the five count moments of each of NLAM tables
+#define RAYOPT_SPEC_MERIT_MULTI(NAME, T, CHAIN, CLIP, NLAM, BLOCK, MINB)      \
+  RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, false, NLAM, BLOCK, MINB)
 
 // K4: the five weighted moments of one table
 #define RAYOPT_SPEC_MOMENTS(NAME, T, CHAIN, CLIP, BLOCK, MINB)                \

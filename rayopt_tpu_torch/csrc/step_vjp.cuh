@@ -26,7 +26,7 @@ constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
 // row's optical path t * n_before (K9); without it the path has none
 // and the code is K5's.  The aperture clip is a constant mask: a
 // clipped ray is dead.
-template <typename T, bool PATH = false, typename Flags = int,
+template <typename T, bool PATH = false, typename Flags,
           typename Row = const T*>
 __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
                                                  const T* s, T* g, T* pg,
@@ -242,7 +242,7 @@ struct SphereTail {
   T px, py, pz, dx, dy, dz, cc, d, e, f, sq, ti;
 };
 
-template <typename T, typename Flags = int, typename Row = const T*,
+template <typename T, typename Flags, typename Row = const T*,
           typename Aux = const T*>
 __device__ __forceinline__ SphereTail<T> sphere_tail(Row p, Flags flags,
                                                      Aux aux, const T* s) {
@@ -281,7 +281,7 @@ __device__ __forceinline__ SphereTail<T> sphere_tail(Row p, Flags flags,
 // ti dy.  g: out, the cotangent of the state leaving row S-2; pg: out,
 // the image row's parameter cotangents (OPD_SLOTS); gc: out, the centre
 // cotangents.
-template <typename T, typename Flags = int, typename Row = const T*>
+template <typename T, typename Flags, typename Row = const T*>
 __device__ __forceinline__ void sphere_tail_vjp(Row p, Flags flags,
                                                 const SphereTail<T>& o,
                                                 T ct_q, T ct_lx, T ct_ly,

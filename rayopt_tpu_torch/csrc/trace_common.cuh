@@ -1,12 +1,11 @@
-// Device code shared by the polychromatic trace (trace.cu: K3), the
-// df32 kernels (df32_common.cuh: the NaN, the compile-time flags, the
-// grid-wide sum's last block and the shared-memory opt-in) and the
-// kernels specialized per spec tuple (grad_spec.cuh: K1, K2, K4-K9):
-// the packed table layout, the flag bits, the guarded math, one
-// surface step, the whole chain for one ray with its flags read at run
-// time (K3), the staging of the table into shared memory, the
-// compile-time loop and the last block of a fused grid-wide sum.  Each
-// translation unit that includes it gets its own internal copies.
+// Device code shared by the kernels specialized per spec tuple
+// (grad_spec.cuh: K1-K9) and the df32 kernels (df32_common.cuh: the NaN,
+// the compile-time flags, the grid-wide sum's last block and the
+// shared-memory opt-in): the packed table layout, the flag bits, the
+// guarded math, one surface step with its row flags as compile-time
+// constants, the compile-time loop and the last block of a fused
+// grid-wide sum.  Each translation unit that includes it gets its own
+// internal copies.
 
 #pragma once
 
@@ -73,9 +72,9 @@ __device__ __forceinline__ void rot_apply_t(R r, T& x, T& y, T& z) {
   x = a; y = b; z = c;
 }
 
-// A row's flags as an int: read at run time, or the value of a
-// std::integral_constant (a compile-time constant).
-__device__ __forceinline__ int flag_value(int fl) { return fl; }
+// A row's flags: the value of a std::integral_constant (a compile-time
+// constant; its operator int is host-only without
+// --expt-relaxed-constexpr).
 template <int F>
 __device__ __forceinline__ constexpr int flag_value(
     std::integral_constant<int, F>) {
@@ -85,15 +84,13 @@ __device__ __forceinline__ constexpr int flag_value(
 // One transfer-intercept-refract step: kernels.surface_step_spec for
 // flat, spherical and conic rows.  State in and out in the global
 // (from_normal) frame; adds the optical path n_before * t to tacc.
-// The row's flags arrive as an int read at run time (K3) or as
-// std::integral_constant<int, F> (the specialized K1, K2, K4-K9,
-// grad_spec.cuh): there every `fl & F_*` below is a constant and the
-// branches it does not take fold away.  One body serves both.  p, the
-// row's packed words in shared memory, is a plain pointer or (the
-// specialized kernels, whose unrolled rows would otherwise hoist every
-// row's words into registers for the whole grid-stride loop) a
-// volatile one, read where each word is used.
-template <typename T, typename Flags = int, typename Row = const T*>
+// The row's flags arrive as std::integral_constant<int, F> (K1-K9,
+// grad_spec.cuh): every `fl & F_*` below is a constant and the branches
+// it does not take fold away.  p, the row's packed words in shared
+// memory, is a volatile pointer (the unrolled rows would otherwise hoist
+// every row's words into registers for the whole grid-stride loop),
+// read where each word is used.
+template <typename T, typename Flags, typename Row = const T*>
 __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
                                              T& x, T& y, T& z, T& ux,
                                              T& uy, T& uz, T& tacc) {
@@ -206,61 +203,6 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
     rot_apply_t(p + P_ROT, x, y, z);
     rot_apply_t(p + P_ROT, ux, uy, uz);
   }
-}
-
-// The whole chain for one ray with its flags read at run time (K3):
-// row-0 from_normal, rows 1..S-1, then the last row's to_normal
-// (pallas_trace.py:88-106).  grad_spec.cuh's chain_forward is its
-// compile-time twin.
-template <typename T>
-__device__ __forceinline__ void trace_ray(const T* tab, const int* flags,
-                                          int nsurf, bool clip, T& x, T& y,
-                                          T& z, T& ux, T& uy, T& uz,
-                                          T& tacc) {
-  if (flags[0] & F_ROTATED) {
-    rot_apply_t(tab + P_ROT, x, y, z);
-    rot_apply_t(tab + P_ROT, ux, uy, uz);
-  }
-  tacc = T(0);
-  for (int j = 1; j < nsurf; ++j)
-    surface_step(tab + j * ROW, flags[j], clip, x, y, z, ux, uy, uz, tacc);
-  if (flags[nsurf - 1] & F_ROTATED) {
-    const T* r = tab + (nsurf - 1) * ROW + P_ROT;
-    rot_apply(r, x, y, z);
-    rot_apply(r, ux, uy, uz);
-  }
-}
-
-// Stage the packed table (ntab tables of nsurf rows back to back: a
-// wavelength stack) and the flags they share into shared memory;
-// returns the first free T slot after the tables.
-template <typename T>
-__device__ __forceinline__ T* stage_table(const T* table, const int* flags,
-                                          int nsurf, T* s_tab, int* s_flags,
-                                          int ntab = 1) {
-  for (int i = threadIdx.x; i < ntab * nsurf * ROW; i += blockDim.x)
-    s_tab[i] = table[i];
-  for (int i = threadIdx.x; i < nsurf; i += blockDim.x)
-    s_flags[i] = flags[i];
-  __syncthreads();
-  return s_tab + ntab * nsurf * ROW;
-}
-
-// Tree sum of `rows` rows of blockDim.x values each (row r at
-// s_red[r * blockDim.x]; blockDim.x a power of two); thread t < rows
-// of the first pass writes row r's total to out[r] for r = t, t +
-// blockDim.x, ...  Every thread of the block must call it.
-template <typename T>
-__device__ __forceinline__ void block_sum_rows(T* s_red, int rows, T* out) {
-  const int nb = blockDim.x;
-  __syncthreads();
-  for (int h = nb / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h)
-      for (int r = 0; r < rows; ++r)
-        s_red[r * nb + threadIdx.x] += s_red[r * nb + threadIdx.x + h];
-    __syncthreads();
-  }
-  for (int r = threadIdx.x; r < rows; r += nb) out[r] = s_red[r * nb];
 }
 
 // f(std::integral_constant<int, I>{}) for each I of the sequence, in order

@@ -1,16 +1,18 @@
-"""K1, K2 and K4-K9 specialized per spec tuple at compile time, and
-the df32 kernels K11 and K13 per plan key.
+"""K1-K9 specialized per spec tuple at compile time, and the df32
+kernels K10-K13 per plan key: every kernel of the port.
 
-The fused trace K1, the moment kernels -- the spot-moment merit K2, the
-weighted-moment forward K4 and its polychromatic twin K6 --, the OPD
+The fused trace K1 and its polychromatic twin K3 (trace mode "k3"), the
+moment kernels -- the spot-moment merit K2, K3's merit mode ("k3m"),
+the weighted-moment forward K4 and its polychromatic twin K6 --, the OPD
 trace K8 and the adjoints -- K4's analytic adjoint K5, the
 polychromatic adjoint K7 and the OPD adjoint K9 -- (csrc/grad_spec.cuh)
 are compiled once for each key: the kernel, the dtype, one word a table
 row (its SurfaceSpec flags, cuda_trace._flags, and for the adjoints
 above LIVE_SHIFT the parameter slots it reduces), the aperture clip,
 whether an adjoint writes the ray (and weight) cotangents, the block
-size, the launch bound's blocks an SM and K6's wavelength count (its
-wavelengths unroll; K7's count is a run-time argument).  A key's
+size, the launch bound's blocks an SM, K3's and K6's wavelength count
+(their wavelengths unroll; K7's count is a run-time argument) and the
+order of K3's trace loops (`outer`).  A key's
 translation unit is a few lines that instantiate the header's
 templates with the row words as a template parameter pack, so the row
 loop unrolls and every flag branch folds, and that export launchers
@@ -19,7 +21,7 @@ shared library under build/torch_kernels/ (one nvcc run a new key,
 seconds; `prebuild` starts several at once), cached by a hash of the
 headers, the flags and the unit's text.  This is how the JAX package's
 Pallas kernels are specialized too: on specs, clip and diff_fields, and
-K6's wavelengths.
+K3's and K6's wavelengths.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns; K9 adds n_before) are the fields asked for,
@@ -74,20 +76,37 @@ HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
 BLOCK_TRACE = 512     # K1 and K8: measured fastest in both dtypes (PERF.md §6)
 BLOCK_MOMENTS = 256   # K2, K4 and K6 (PERF.md §6)
+#: K3's threads a block by dtype: its trace (wavelengths outermost, 60
+#: registers in float64: two blocks of 512 an SM) and its merit, K2's
+#: template at the stack's wavelengths (float32 6-8% faster at 512;
+#: float64 4% faster at 256 at 2^26 rays); kernel_times --multi
+#: --variants, PERF.md §6
+BLOCK_MULTI = {"k3": {"f32": 512, "f64": 512},
+               "k3m": {"f32": 512, "f64": 256}}
+#: K3's trace loops: wavelengths outermost (one pass over the rays a
+#: table, the chain compiled once), 1.12-1.17x faster than innermost in
+#: float64 and 2.4% in float32 (PERF.md §6)
+MULTI_OUTER = True
 BLOCK_ADJOINT = 128   # measured fastest for K5 in float64 (PERF.md §6)
 MIN_BLOCKS = 1        # __launch_bounds__'s blocks an SM (PERF.md §6)
-#: K6's most wavelengths: its moments stay in registers, 5 a wavelength,
-#: and its chain unrolls once a wavelength.  Measured on the double
-#: Gauss (PERF.md §6): at 11 both dtypes beat 11 K4 launches; at 12 the
-#: float32 build takes 138 registers, one 256-thread block an SM, and
-#: ran 1.44x slower than 12 K4 launches; at 16 the float64 build spilled
+#: K6's most wavelengths, and K3's merit's: the moments stay in
+#: registers, 5 a wavelength, and the chain unrolls once a wavelength.
+#: Measured on the double Gauss (PERF.md §6): at 11 both dtypes beat 11
+#: K4 launches; at 12 the float32 build takes 138 registers, one
+#: 256-thread block an SM, and ran 1.44x slower than 12 K4 launches; at
+#: 16 the float64 build spilled.  K3's trace takes the same cap: with
+#: the wavelengths outermost it reads the rays once a wavelength anyway,
+#: so a split costs it no extra read.
 MAX_NLAM = 11
 #: the moment kernels (5 moments a table, no live slots)
-MOMENTS = ("k2", "k4", "k6")
+MOMENTS = ("k2", "k3m", "k4", "k6")
 #: the per-ray traces (outputs a ray, no reduction, no live slots)
-TRACES = ("k1", "k8")
+TRACES = ("k1", "k3", "k8")
+#: the kernels whose key carries a wavelength count
+MULTI = ("k3", "k3m", "k6")
 #: each kernel's macro in grad_spec.cuh
 _MACROS = {"k1": "RAYOPT_SPEC_TRACE", "k2": "RAYOPT_SPEC_MERIT",
+           "k3": "RAYOPT_SPEC_TRACE_MULTI", "k3m": "RAYOPT_SPEC_MERIT_MULTI",
            "k4": "RAYOPT_SPEC_MOMENTS", "k6": "RAYOPT_SPEC_MOMENTS_MULTI",
            "k8": "RAYOPT_SPEC_OPD", "k5": "RAYOPT_SPEC_ADJOINT",
            "k7": "RAYOPT_SPEC_ADJOINT_MULTI",
@@ -178,13 +197,14 @@ def live_mask(masks, nslots=SLOTS):
 
 
 class Key(NamedTuple):
-    """One specialization: kernel "k1", "k2", "k4" ... "k9",
-    dtype "f32" or "f64", one word a row (flags | live slots <<
-    LIVE_SHIFT), clip, rays (an adjoint writes the ray and weight
-    cotangents), threads a block, the blocks an SM that
-    __launch_bounds__ asks ptxas to fit, and the tables of the stack a
-    launch traces (K6's wavelengths; 1 for every other kernel, K7
-    included: it stages one table at a time)."""
+    """One specialization: kernel "k1", "k2", "k3" (K3's trace), "k3m"
+    (K3's merit), "k4" ... "k9", dtype "f32" or "f64", one word a row
+    (flags | live slots << LIVE_SHIFT), clip, rays (an adjoint writes
+    the ray and weight cotangents), threads a block, the blocks an SM
+    that __launch_bounds__ asks ptxas to fit, the tables of the stack a
+    launch traces (K3's and K6's wavelengths; 1 for every other kernel,
+    K7 included: it stages one table at a time), and whether K3's trace
+    runs the wavelengths outermost."""
 
     kernel: str
     dtype: str
@@ -194,6 +214,7 @@ class Key(NamedTuple):
     block: int
     min_blocks: int = MIN_BLOCKS
     nlam: int = 1
+    outer: bool = False
 
     @property
     def name(self):
@@ -201,6 +222,8 @@ class Key(NamedTuple):
         text = repr((self.kernel, self.dtype, tuple(self.words),
                      bool(self.clip), bool(self.rays), int(self.block),
                      int(self.min_blocks), int(self.nlam)))
+        if self.outer:
+            text += " outer"
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
@@ -287,18 +310,23 @@ def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
 
 def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks):
     """A moment kernel's key, refused when its staged tables and block
-    reduction outgrow static shared memory, or (K6) past MAX_NLAM
+    reduction outgrow static shared memory, or (K3, K6) past MAX_NLAM
     wavelengths."""
     key = Key(kernel, _dtype_name(dtype), _words(specs), bool(clip), False,
               int(block or BLOCK_MOMENTS), int(min_blocks), int(nlam))
+    return _static(_unrolled(key))
+
+
+def _unrolled(key):
+    """The key, refused past MAX_NLAM wavelengths (or below one)."""
     if not 1 <= key.nlam <= MAX_NLAM:
         raise ValueError(
             "%s unrolls its wavelengths and keeps 5 moments a wavelength in "
             "registers: %d wavelengths, outside 1..%d (past %d the registers "
             "stop paying: float32 at 12 fits one block an SM and ran slower "
             "than 12 K4 launches, float64 at 16 spilled)"
-            % (kernel.upper(), key.nlam, MAX_NLAM, MAX_NLAM))
-    return _static(key)
+            % (key.kernel.upper(), key.nlam, MAX_NLAM, MAX_NLAM))
+    return key
 
 
 def merit_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
@@ -317,6 +345,42 @@ def moments_multi_key(specs, dtype, clip, nlam, block=None,
     """The K6 key of the spec tuple a stack of `nlam` tables shares (the
     first wavelength's, cuda_trace.multi_specs)."""
     return _moments("k6", specs, dtype, clip, nlam, block, min_blocks)
+
+
+def trace_multi_key(specs, dtype, nlam, merit=False, block=None,
+                    min_blocks=MIN_BLOCKS, outer=None):
+    """The K3 key of the spec tuple a stack of `nlam` tables shares (the
+    first wavelength's, cuda_trace.multi_specs): its merit mode ("k3m",
+    K6's template unweighted) or its trace ("k3", wavelengths outermost
+    as MULTI_OUTER when `outer` is None); block BLOCK_MULTI's for the
+    mode and dtype when None.  No clip, as the TPU kernel.  Refused past
+    MAX_NLAM wavelengths or past static shared memory (multi_most: the
+    stack a key takes)."""
+    kernel = "k3m" if merit else "k3"
+    block = int(block or BLOCK_MULTI[kernel][_dtype_name(dtype)])
+    if merit:
+        if outer:
+            raise ValueError("K3's merit reads each ray once: it has no "
+                             "outer order")
+        return _moments(kernel, specs, dtype, False, nlam, block, min_blocks)
+    key = Key(kernel, _dtype_name(dtype), _words(specs), False, False,
+              block, int(min_blocks), int(nlam),
+              MULTI_OUTER if outer is None else bool(outer))
+    return _static(_unrolled(key))
+
+
+def multi_most(kernel, specs, dtype, block=None):
+    """The most wavelengths one key of `kernel` ("k3", "k3m" or "k6")
+    takes for this spec tuple: MAX_NLAM, or fewer where that many
+    tables (and the moments' block reduction) outgrow static shared
+    memory; 0 when one table alone does."""
+    dt = _dtype_name(dtype)
+    one = Key(kernel, dt, (0,)*len(specs), False, False,
+              int(block or BLOCK_MULTI.get(kernel, {}).get(
+                  dt, BLOCK_MOMENTS)))
+    # a key's static shared memory grows by one table's (and 5 reduced
+    # moments') words a wavelength
+    return min(MAX_NLAM, SMEM_LIMIT//one.shared_bytes)
 
 
 def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks):
@@ -546,8 +610,11 @@ def translation_unit(key):
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"
             % (key.name, tuple(key), words))
     clip = "true" if key.clip else "false"
+    if key.kernel == "k3":
+        # no clip: the loops' order in its place
+        clip = "true" if key.outer else "false"
     if key.kernel in MOMENTS + TRACES:
-        nlam = "%d, " % key.nlam if key.kernel == "k6" else ""
+        nlam = "%d, " % key.nlam if key.kernel in MULTI else ""
     else:
         nlam = "true, " if key.rays else "false, "   # the adjoints' rays
     return head + "%s(%s, %s, Rows, %s, %s%d, %d)\n" % (
@@ -568,17 +635,19 @@ class SpecKernel:
         self._lib = ctypes.CDLL(str(path))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.fn = getattr(self._lib, key.name)
-        # K1: table, 6 rays, 7 outputs, n, grid, stream; K8: table, 6
-        # rays, aux, 3 outputs, n, grid, stream; K2, K4, K6: table, 6
-        # rays, w (K2: null), partials, counter, out, n, grid, stream; K5:
-        # table, 6 rays, w, ct, partials, counter, out, 7 ray cotangents,
-        # n, grid, stream; K7: K5's with nlam before grid; K9: table, 6
-        # rays, aux, 3 cotangents, partials, counter, out, 6 ray
-        # cotangents, n, grid, stream; K11: plan words, 12 input words,
-        # out, n, grid, stream; K13: plan words, 12 input words, partials,
-        # counter, out, n, grid, stream
-        words = {"k1": 14, "k8": 11, "k2": 11, "k4": 11, "k6": 11, "k5": 19,
-                 "k7": 19, "k9": 20, "k11": 14, "k13": 16}[key.kernel]
+        # K1: table, 6 rays, 7 outputs, n, grid, stream; K3: table, 6
+        # rays, out, n, grid, stream; K8: table, 6 rays, aux, 3 outputs,
+        # n, grid, stream; K2, K3m, K4, K6: table, 6 rays, w (K2, K3m:
+        # null), partials, counter, out, n, grid, stream; K5: table, 6
+        # rays, w, ct, partials, counter, out, 7 ray cotangents, n, grid,
+        # stream; K7: K5's with nlam before grid; K9: table, 6 rays, aux,
+        # 3 cotangents, partials, counter, out, 6 ray cotangents, n,
+        # grid, stream; K11: plan words, 12 input words, out, n, grid,
+        # stream; K13: plan words, 12 input words, partials, counter,
+        # out, n, grid, stream
+        words = {"k1": 14, "k3": 8, "k8": 11, "k2": 11, "k3m": 11,
+                 "k4": 11, "k6": 11, "k5": 19, "k7": 19, "k9": 20,
+                 "k11": 14, "k13": 16}[key.kernel]
         ints = [i64, i32, i32] if key.kernel == "k7" else [i64, i32]
         self.fn.argtypes = [ptr]*words + ints + [ptr]
         self.fn.restype = i32
@@ -659,10 +728,10 @@ def packed(table, specs, x):
 
 
 def launch_moments(kern, table, specs, state, w=None):
-    """Launch a moment kernel (K2, K4, K6) once on a CUDA bundle, the
-    grid-wide sum fused: the (nlam, 5) moments of each table of the
-    key's stack in the rays' dtype, zeros (and no launch) for no rays.
-    w: the (N,) weights, None for K2."""
+    """Launch a moment kernel (K2, K3's merit, K4, K6) once on a CUDA
+    bundle, the grid-wide sum fused: the (nlam, 5) moments of each table
+    of the key's stack in the rays' dtype, zeros (and no launch) for no
+    rays.  w: the (N,) weights, None for K2 and K3."""
     x = state[0]
     device, n, stream = spec_launch(state)
     tab = packed(table, specs, x)

@@ -15,20 +15,22 @@ K1 and K2 are compiled for each (dtype, spec tuple, clip) key
 tuple costs one nvcc run at its first call).
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
-leading wavelength axis, System.tables) and ONE bundle, read once and
-traced through every wavelength's chain with no aperture clip; it
-returns each wavelength's final state and path, or (merit=True) each
-wavelength's five count moments.  It replaces
-`pallas_trace._multi_kernel`.
+leading wavelength axis, System.tables) and ONE bundle traced through
+every wavelength's chain with no aperture clip; it returns each
+wavelength's final state and path, or (merit=True) each wavelength's
+five count moments.  It replaces `pallas_trace._multi_kernel`, and is
+compiled per (dtype, spec tuple, wavelength count) key too: its merit
+mode is K2's template at the stack's wavelengths, its trace K1's chain
+once a wavelength.  A stack past one key's wavelengths (cuda_spec.
+multi_most) runs in balanced runs, one launch each.
 
-The kernels are hand-written CUDA C++ (K3: csrc/trace.cu, with the
-row flags read at run time), built with nvcc for sm_90a at first use
-(ops.cuda_build, ops.cuda_spec) and launched on
-PyTorch's current stream through ctypes.  A wrapper takes the plain
-PyTorch version (`trace_final_reference`, `trace_merit_reference`,
-`trace_multi_reference`, all built from kernels.surface_step_spec)
-only for a bundle on the CPU; for a CUDA bundle it launches its
-kernel or raises.  Each wrapper counts its launches in
+The kernels are hand-written CUDA C++ (csrc/grad_spec.cuh), built with
+nvcc for sm_90a at first use (ops.cuda_build, ops.cuda_spec) and
+launched on PyTorch's current stream through ctypes.  A wrapper takes
+the plain PyTorch version (`trace_final_reference`,
+`trace_merit_reference`, `trace_multi_reference`, all built from
+kernels.surface_step_spec) only for a bundle on the CPU; for a CUDA
+bundle it launches its kernel or raises.  Each wrapper counts its launches in
 `<wrapper>.launches`.
 
 The static `specs` select each row's branch; pass the same specs to
@@ -49,10 +51,8 @@ P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
 F_FLAT, F_SPHERICAL, F_ROTATED, F_OFF_AXIS = 1, 2, 4, 8
 F_ALTERNATE, F_FINITE, KIND_SHIFT = 16, 32, 6
 
-BLOCK = 256          # K3's threads a block (a power of two)
-BLOCKS_PER_SM = 8    # K3's grid-stride grid: this many blocks on each SM
 SMEM_LIMIT = 48*1024  # static shared memory, or dynamic without an opt-in
-SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (K3, the adjoints)
+SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (the adjoints)
 
 
 def _moments(x, y, uz):
@@ -175,39 +175,6 @@ def _check_state(state):
             raise ValueError("components must be contiguous")
 
 
-def _launch_setup(tables, specs, state, smem_extra_words=0):
-    """K3's checks, packing and launch shape for a CUDA bundle: the
-    stacked table (leading wavelength axis) packs to (L, S, ROW) and may
-    use Hopper's opt-in shared memory."""
-    _check_state(state)
-    x = state[0]
-    if x.device.type != "cuda":
-        raise ValueError("expected a CUDA or CPU bundle, got %s"
-                         % x.device)
-    from .cuda_build import load_library
-    lib = load_library()
-    packed, flags = pack_table(tables, specs, x.dtype, x.device)
-    nsurf = packed.shape[-2]
-    word = x.element_size()
-    smem = (packed[..., 0].numel()*ROW + smem_extra_words)*word + nsurf*4
-    if smem > SMEM_OPTIN:
-        raise ValueError("%d table(s) of %d surfaces need %d bytes of shared "
-                         "memory, above %d" % (packed[..., 0, 0].numel(),
-                                               nsurf, smem, SMEM_OPTIN))
-    n = x.shape[0]
-    grid = max(1, min(-(-n // BLOCK), sm_count(x.device)*BLOCKS_PER_SM))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    suffix = "f32" if x.dtype == torch.float32 else "f64"
-    return lib, suffix, packed, flags, nsurf, n, grid, stream
-
-
-def _raise_on(lib, err, name):
-    if err:
-        msg = lib.trace_error_string(err).decode()
-        raise RuntimeError("%s kernel launch failed: CUDA error %d (%s)"
-                           % (name, err, msg))
-
-
 @functools.lru_cache(maxsize=None)
 def _trace_kernel(specs, dtype, clip):
     from . import cuda_spec as CS     # cuda_spec imports this module
@@ -270,6 +237,27 @@ def trace_merit(table, specs, state, clip=False):
 trace_merit.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _multi_kernel(specs, dtype, nlam, merit):
+    from . import cuda_spec as CS     # cuda_spec imports this module
+    return CS.load(CS.trace_multi_key(specs, dtype, nlam, merit))
+
+
+def _multi_runs(specs, dtype, nlam, merit):
+    """K3's launches for a stack of nlam tables: (l0, l1, loaded key) of
+    each balanced run (cuda_spec.runs: 12 -> 6 + 6, 13 -> 7 + 6) of at
+    most cuda_spec.multi_most wavelengths, equal runs on one key.  Each
+    merit run reads the rays again, the price of the split (the trace,
+    wavelengths outermost, reads them once a wavelength anyway)."""
+    from . import cuda_spec as CS
+    kernel = "k3m" if merit else "k3"
+    most = CS.multi_most(kernel, specs, dtype)
+    if most < 1:
+        CS.trace_multi_key(specs, dtype, 1, merit)   # raises, saying why
+    return [(l0, l1, _multi_kernel(specs, dtype, l1 - l0, merit))
+            for l0, l1 in CS.runs(nlam, most)]
+
+
 def trace_multi(tables, specs, state, merit=False):
     """K3: ONE bundle of six contiguous (N,) components (float32 or
     float64) through every table of a stack (leading wavelength axis),
@@ -277,32 +265,38 @@ def trace_multi(tables, specs, state, merit=False):
     (`specs=None` derives them, multi_specs).  Returns one ((x, y, z,
     ux, uy, uz), t) a wavelength, or with merit=True one 5-tuple of
     count moments (count, sum x, sum y, sum x^2, sum y^2) a wavelength
-    -- feed spot_rms_from_moments.  CUDA bundles launch the kernel;
-    CPU bundles take trace_multi_reference."""
+    -- feed spot_rms_from_moments.  CUDA bundles launch the kernel
+    compiled for (dtype, specs, wavelength count) (ops.cuda_spec: one
+    launch, the merit's grid-wide sum fused), a stack past one key's
+    wavelengths in balanced runs, one launch each, every run writing
+    its wavelengths' slice (_multi_runs); CPU bundles take
+    trace_multi_reference."""
     _check_state(state)
-    if state[0].device.type == "cpu":
+    x = state[0]
+    if x.device.type == "cpu":
         return trace_multi_reference(tables, specs, state, merit)
+    from .cuda_spec import launch_moments, packed, spec_launch
+    device, n, stream = spec_launch(state)
     specs = multi_specs(tables, specs)
     nlam = tables.curvature.shape[0]
-    lib, suffix, packed, flags, nsurf, n, grid, stream = _launch_setup(
-        tables, specs, state, smem_extra_words=5*nlam*BLOCK if merit else 0)
-    x = state[0]
+    runs = _multi_runs(specs, x.dtype, nlam, merit)
     if merit:
-        out = torch.zeros((grid, nlam, 5), dtype=x.dtype, device=x.device)
+        out = torch.cat([launch_moments(kern, table_at(tables, slice(l0, l1)),
+                                        specs, state)
+                         for l0, l1, kern in runs])
     else:
-        out = torch.empty((nlam, 7, n), dtype=x.dtype, device=x.device)
+        out = torch.empty((nlam, 7, n), dtype=x.dtype, device=device)
+        for l0, l1, kern in runs:
+            tab = packed(table_at(tables, slice(l0, l1)), specs, x)
+            if n:
+                kern.check(kern.fn(tab.data_ptr(),
+                                   *(c.data_ptr() for c in state),
+                                   out[l0].data_ptr(), n,
+                                   kern.grid(n, device), stream))
     if n:
-        name = ("trace_multi_merit_" if merit else "trace_multi_") + suffix
-        err = getattr(lib, name)(
-            packed.data_ptr(), flags.data_ptr(), nsurf, nlam,
-            *(c.data_ptr() for c in state), out.data_ptr(), n, grid, BLOCK,
-            stream)
-        _raise_on(lib, err, "trace_multi")
-        trace_multi.launches += 1
+        trace_multi.launches += len(runs)
     if merit:
-        tot = out.sum(0)
-        return tuple(tuple(tot[li, q] for q in range(5))
-                     for li in range(nlam))
+        return tuple(tuple(out[li].unbind()) for li in range(nlam))
     return tuple((tuple(out[li, c] for c in range(6)), out[li, 6])
                  for li in range(nlam))
 

@@ -271,6 +271,14 @@ def wavefront_rms(table, y0, u0, w=None, ref=0, radius=None,
     return wavefront_rms_of(opd, w)
 
 
+def _device_pupils(system, fields, wavelength, device=None):
+    """All-field pupil solve at once on `device` (System.pupils over
+    ops.aiming: finite/infinite conjugates, all projections, residual-
+    checked with host fallback)."""
+    return system.pupils([(0., h) for h in fields], l=wavelength,
+                         device=device)
+
+
 def bundles_from_system(system, fields=None, wavelengths=None,
                         nrays=32, distribution="radau",
                         device_aim=False, pad_to=None, device=None):
@@ -280,13 +288,13 @@ def bundles_from_system(system, fields=None, wavelengths=None,
     Each bundle is (y0 (N, 3), u0 (N, 3), w (N,), chroma), float64 on
     `device` (None: the default device); chroma carries the
     wavelength's mu/n_before/n_after table overrides and the
-    wavelength.  Aiming runs on the host; the seeds are constants of
-    the merit.  pad_to: pad every bundle's ray count
+    wavelength.  The pupils are solved on the host per field, or with
+    device_aim (aimed, non-telecentric pupils only, as the reference)
+    for all fields at once on `device` (System.pupils); the seeds are
+    constants of the merit.  pad_to: pad every bundle's ray count
     up to a multiple of this, repeating the first ray at zero weight
     (the kernels take any count; the option keeps the reference's
     bundle shapes)."""
-    if device_aim:
-        _not_ported("device aiming (System.pupils)", 11)
     from ..utils.distributions import pupil_distribution
     if fields is None:
         fields = system.fields
@@ -300,13 +308,20 @@ def bundles_from_system(system, fields=None, wavelengths=None,
     ref, yp, w = pupil_distribution(distribution, nrays)
     if w is None:
         w = np.ones(yp.shape[0])/yp.shape[0]
+    use_device = (device_aim and system.object.pupil.aim and
+                  not system.object.pupil.telecentric)
     out = []
     for l in wavelengths:
         tab_l = system.table(l, device=device)
         chroma = {"mu": tab_l.mu, "n_before": tab_l.n_before,
                   "n_after": tab_l.n_after, "wavelength": l}
-        for h in fields:
-            z, p = system.pupil((0, h), l=l)
+        if use_device:
+            zs, boxes = _device_pupils(system, fields, l, device)
+        for i, h in enumerate(fields):
+            if use_device:
+                z, p = zs[i], boxes[i]
+            else:
+                z, p = system.pupil((0, h), l=l)
             y0, u0 = system.aim((0, h), yp, z, p, filter=False)
             wb = w
             if pad_to and y0.shape[0] % pad_to:

@@ -10,7 +10,8 @@ API compatibility.  `System.tables` and `System.config_tables` stack
 one table per wavelength or per configuration (a leading axis on every
 field) for the polychromatic engines.  Tables land on the package's
 default device unless a `device` is given; the host-side traces
-(`trace_table`, `propagate`, the aiming solvers) ask for the CPU.
+(`trace_table`, `propagate`, the per-field aiming solvers) ask for the
+CPU, and the batched `pupils` solves on the table's device.
 
 Not ported yet: the polynomial trace.
 """

@@ -2,7 +2,8 @@
 trees of the port on the same card in one call.
 
     python -m rayopt_tpu_torch.utils.kernel_times [--variants] [--steps N]
-                                                  [--df32] [--long-plan]
+                                                  [--df32] [--multi]
+                                                  [--long-plan]
 
 Times, with CUDA events (the mean of many launches after a warm-up),
 on the double Gauss and the bench bundle (x, y uniform in +-11.6 mm,
@@ -31,7 +32,10 @@ u = (0, 0, 1)):
   K12 trace_merit_df32 on the first wavelength's plan, K11
   trace_multi_df32 (with the path) and K13 trace_merit_multi_df32 on
   the 3 wavelengths' plans, fast and exact plans, at 2^22 and 2^26
-  rays (--df32 times these alone).
+  rays (--df32 times these alone);
+* K3 trace_multi, merit and trace, on the 3-wavelength stack in
+  float32 and float64 at 2^22 and 2^26 rays, with K6 and K7 at 2^22
+  float32 beside them as controls (--multi times these alone).
 
 It calls the wrappers with the positional arguments every tree of the
 port takes, so it also measures an older tree: copy this file into
@@ -55,11 +59,16 @@ launch, with each build's registers and SASS size (with --df32, these
 variants alone).  --long-plan alone builds K10 and K12 for a 300-step
 plan (the Cooke triplet's repeated), whose words take the device-words
 placement, and reports their nvcc time, registers, SASS size, words
-against the plain versions and ms.  Prints one JSON object; needs a
-CUDA card.
+against the plain versions and ms.  --variants also sweeps K3's trace
+in both loop orders (cuda_spec.trace_multi_key's `outer`) at 256 and
+512 threads a block and its merit at 128, 256 and 512, as the bare
+launch at K3's sizes, with each build's registers, stack, spills and
+SASS size (with --multi, these variants alone).  Prints one JSON
+object; needs a CUDA card.
 
-To compare a parent tree's K10-K13 with this tree's on one card, run
---df32 from each tree in one call (parent, this, this, parent).
+To compare a parent tree's K10-K13 (or K3) with this tree's on one
+card, run --df32 (or --multi) from each tree in one call (parent, this,
+this, parent).
 """
 
 import argparse
@@ -619,6 +628,105 @@ def nlam_times(s, specs):
     return out
 
 
+#: the (dtype, rays) of K3's timings (--multi)
+MULTI_SIZES = ((torch.float32, 1 << 22), (torch.float64, 1 << 22),
+               (torch.float32, 1 << 26), (torch.float64, 1 << 26))
+
+
+def multi_times(s, specs):
+    """K3 merit and trace through trace_multi (every tree's wrapper) on
+    the 3-wavelength stack at MULTI_SIZES, and K6 and K7 (all fields,
+    the ray cotangents written) at 2^22 float32 as controls."""
+    from rayopt_tpu_torch.ops.cuda_grad import (merit_adjoint_multi,
+                                                weighted_moments_multi)
+    from rayopt_tpu_torch.ops.cuda_trace import trace_multi
+    tabs = s.tables()
+    out = {}
+    for dtype, n in MULTI_SIZES:
+        state, w = bench_bundle(n, dtype)
+        reps = 5 if n > 1 << 22 else 20
+        cases = {"K3 merit": lambda: trace_multi(tabs, specs, state, True),
+                 "K3 trace": lambda: trace_multi(tabs, specs, state)}
+        if (dtype, n) == MULTI_SIZES[0]:
+            ctm = torch.stack([rms_cotangent(m) for m in
+                               weighted_moments_multi(tabs, specs, state, w)])
+            cases["K6"] = lambda: weighted_moments_multi(tabs, specs, state,
+                                                         w)
+            cases["K7"] = lambda: merit_adjoint_multi(tabs, specs, state, w,
+                                                      ctm)
+        for name, fn in cases.items():
+            out["%s %s %d" % (name, str(dtype)[6:], n)] = cuda_ms(fn, reps)
+        del state, w
+        torch.cuda.empty_cache()
+    return out
+
+
+#: K3's variants: (mode, wavelengths outermost, threads a block)
+MULTI_VARIANTS = tuple(("trace", outer, block) for outer in (False, True)
+                       for block in (256, 512)) + tuple(
+    ("merit", False, block) for block in (128, 256, 512))
+
+
+def multi_variant_times(s, specs):
+    """K3's MULTI_VARIANTS on the 3-wavelength stack, as the bare launch
+    on the stack packed once, at MULTI_SIZES, each variant timed twice
+    (the second round in the reverse order), with each build's launch
+    shape, registers, stack, spills and SASS size."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_build import sass_size
+    tabs = s.tables()
+    nlam = tabs.curvature.shape[0]
+    keys = {(mode, outer, block, dt): CS.trace_multi_key(
+        specs, dt, nlam, mode == "merit", block=block, outer=outer)
+        for mode, outer, block in MULTI_VARIANTS
+        for dt in (torch.float32, torch.float64)}
+    built = CS.prebuild(list(keys.values()))
+    out = {}
+    for dtype, n in MULTI_SIZES:
+        reps = 5 if n > 1 << 22 else 20
+        state, _ = bench_bundle(n, dtype)
+        device = state[0].device
+        stream = torch.cuda.current_stream(device).cuda_stream
+        tab = CS.packed(tabs, specs, state[0])
+        traced = torch.empty((nlam, 7, n), dtype=dtype, device=device)
+        mom = torch.empty((nlam, 5), dtype=dtype, device=device)
+        mine = [(v, built[key]) for v, key in keys.items() if v[3] == dtype]
+        rows = {}
+        for order in (mine, mine[::-1]):
+            for (mode, outer, block, _), kern in order:
+                name = "K3 %s %s %s %d block %d" % (
+                    mode, "outer" if outer else "inner", str(dtype)[6:], n,
+                    block)
+                grid = kern.grid(n, device)
+                ptrs = [tab.data_ptr(), *(c.data_ptr() for c in state)]
+                if mode == "trace":
+                    args = ptrs + [traced.data_ptr(), n, grid, stream]
+                else:
+                    partials = torch.empty((grid, 5*nlam), dtype=dtype,
+                                           device=device)
+                    args = ptrs + [None, partials.data_ptr(),
+                                   CS.counter(device).data_ptr(),
+                                   mom.data_ptr(), n, grid, stream]
+                row = rows.setdefault(name, {"launch_runs_ms": []})
+                row["launch_runs_ms"].append(cuda_ms(
+                    lambda: kern.check(kern.fn(*args)), reps))
+                if "ptxas" not in row:
+                    try:
+                        sass = sass_size(kern.path)[0]
+                    except (OSError, subprocess.CalledProcessError):
+                        sass = None
+                    row.update(grid=grid, blocks_per_sm=kern.blocks_per_sm(
+                        device), sass_instructions=sass,
+                        ptxas=[ln for ln in kern.ptxas_lines()
+                               if "registers" in ln or "stack frame" in ln])
+        for row in rows.values():
+            row["launch_ms"] = float(np.mean(row["launch_runs_ms"]))
+        out.update(rows)
+        del state, tab, traced
+        torch.cuda.empty_cache()
+    return out
+
+
 def step_times(steps):
     """Wall ms of the optimizer and design steps after the first."""
     from rayopt_tpu_torch.models import double_gauss
@@ -744,6 +852,9 @@ def main():
     ap.add_argument("--df32", action="store_true",
                     help="time K10-K13 (and with --variants their "
                     "variants) alone")
+    ap.add_argument("--multi", action="store_true",
+                    help="time K3 (and with --variants its variants) "
+                    "alone")
     ap.add_argument("--long-plan", action="store_true",
                     help="build and time K10 and K12 on a %d-step plan "
                     "(device words) alone" % LONG_STEPS)
@@ -762,6 +873,14 @@ def main():
                           "long_plan": long_plan_times()}))
         sys.stdout.flush()
         return
+    if args.multi:
+        out = {"card": card, "multi_ms": multi_times(double_gauss(), specs)}
+        if args.variants:
+            out["multi_variants"] = multi_variant_times(double_gauss(),
+                                                        specs)
+        print(json.dumps(out))
+        sys.stdout.flush()
+        return
     out = {"card": card, "df32_ms": df32_times(double_gauss())}
     if args.df32:
         if args.variants:
@@ -774,6 +893,7 @@ def main():
     if args.variants:
         out["variants"] = variant_times(double_gauss(), specs, table)
         out["df32_variants"] = df32_variant_times(double_gauss())
+        out["multi_variants"] = multi_variant_times(double_gauss(), specs)
     print(json.dumps(out))
     sys.stdout.flush()
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from rayopt_tpu_torch import set_default_device
+from rayopt_tpu_torch import models
 from rayopt_tpu_torch.models import double_gauss
 from rayopt_tpu_torch.ops import cuda_grad as CG
 from rayopt_tpu_torch.ops import cuda_df32 as CD
@@ -803,6 +804,91 @@ def test_multi_kernels_match_plain_on_card(cuda_device, dtype, clip):
         for g, r in zip(got, want):
             assert torch.isfinite(g).all()
             assert float((g - r).abs().max()) <= ray_tol*scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlam", [3, 12, 40])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_trace_multi_matches_plain_on_card(cuda_device, dtype, nlam):
+    """K3's keys, trace and merit, on double Gauss stacks of 3, 12 and
+    40 wavelengths (400-700 nm; past MAX_NLAM in balanced runs, one
+    launch a run) against trace_multi_reference: the trace within the
+    bounds of test_multi_kernels_match_plain_on_card, the moments
+    within those of test_specialized_merit_matches_plain_on_card (each
+    of its scale: the float32 spot RMS cancels off axis), the count
+    exact, and in float64 the spot RMS within 1e-10."""
+    tabs = double_gauss().tables(list(np.linspace(400e-9, 700e-9, nlam)))
+    specs = CT.multi_specs(tabs, None)
+    state = _bench_state(1 << 16, 6, cuda_device, dtype)
+    f64 = dtype == torch.float64
+    runs = CS.runs(nlam, CS.multi_most("k3", specs, dtype))
+    mruns = CS.runs(nlam, CS.multi_most("k3m", specs, dtype))
+    before = CT.trace_multi.launches
+    got = CT.trace_multi(tabs, specs, state)
+    assert CT.trace_multi.launches == before + len(runs)
+    mom = CT.trace_multi(tabs, specs, state, merit=True)
+    assert CT.trace_multi.launches == before + len(runs) + len(mruns)
+    ref = CT.trace_multi_reference(tabs, specs, state)
+    mref = CT.trace_multi_reference(tabs, specs, state, merit=True)
+    torch.cuda.synchronize()
+    assert len(got) == len(mom) == nlam
+    assert len(runs) == (1 if nlam <= CS.MAX_NLAM else -(-nlam // 11))
+    tol = 1e-12*30 if f64 else 5e-5
+    for (g, t), (r, tr) in zip(got, ref):
+        for a, b in zip((*g, t), (*r, tr)):
+            assert a.dtype == dtype and a.device.type == "cuda"
+            a, b = a.double().cpu().numpy(), b.double().cpu().numpy()
+            nptest.assert_array_equal(np.isnan(a), np.isnan(b))
+            nptest.assert_allclose(a, b, atol=tol, rtol=tol, equal_nan=True)
+    for m, r in zip(mom, mref):
+        assert float(m[0]) == float(r[0])
+        assert max(_moment_errors(m, r)) <= (1e-12 if f64 else 1e-4)
+        if f64:
+            nptest.assert_allclose(float(CT.spot_rms_from_moments(*m)),
+                                   float(CT.spot_rms_from_moments(*r)),
+                                   rtol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cooke_triplet", "double_gauss"])
+def test_pupils_on_card_match_cpu(cuda_device, name):
+    """System.pupils on a CUDA table (ops.aiming, plain torch ops)
+    against the same solve on the CPU at 8 fields, on and off the
+    meridian: z and boxes within 1e-9 relative, every field converged
+    (no host fallback warned).  Its loops do not synchronise with the
+    host: the chief Newton and a marginal bisection run under
+    torch.cuda.set_sync_debug_mode("error") on inputs already on the
+    card."""
+    import warnings
+    from rayopt_tpu_torch.ops import aiming as TA
+    s = getattr(models, name)()
+    fields = np.stack([np.linspace(0., .3, 8), np.linspace(0., 1., 8)], 1)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        z, boxes = s.pupils(fields, device=cuda_device)
+        zc, bc = s.pupils(fields, device="cpu")
+    for got, want in ((z, zc), (boxes, bc)):
+        nptest.assert_allclose(got, want, rtol=1e-9,
+                               atol=1e-9*np.abs(want).max())
+    tab = s.table(device=cuda_device)
+    specs = specialize(tab)
+    prepared = TA._prepared(tab, specs)
+    f = torch.from_numpy(fields).to(cuda_device)
+    z0 = torch.tensor(s.object.pupil.distance, dtype=torch.float64,
+                      device=cuda_device)
+    slope = torch.tensor(np.tan(s.object.angle), dtype=torch.float64,
+                         device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        zd = TA.aim_chief_batched(prepared, f, z0, s.stop, specs=specs,
+                                  slope=slope)
+        ad = TA.aim_marginal_batched(prepared, f, zd, s.object.pupil.radius,
+                                     s.stop, specs=specs, slope=slope)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    nptest.assert_allclose(zd.cpu().numpy(), zc, rtol=1e-9)
+    nptest.assert_allclose(ad.cpu().numpy(), bc[:, 1, 1], rtol=1e-9)
 
 
 @pytest.mark.cuda

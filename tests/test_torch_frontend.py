@@ -163,8 +163,14 @@ def test_pupil_and_aim_match_jax(name):
 
 
 def test_batched_pupils_not_ported():
-    with pytest.raises(NotImplementedError):
-        tmodels.cooke_triplet().pupils([[0., 1.]])
+    """Once refused, System.pupils is ported (ops.aiming): the batched
+    solve agrees with the JAX package's (tests/test_torch_aiming.py
+    holds it in full)."""
+    js, ts = _pair("cooke_triplet")
+    zj, bj = js.pupils([[0., 1.]])
+    zt, bt = ts.pupils([[0., 1.]])
+    nptest.assert_allclose(zt, zj, rtol=1e-9)
+    nptest.assert_allclose(bt, bj, rtol=1e-9)
 
 
 @pytest.mark.parametrize("name", SYSTEMS)

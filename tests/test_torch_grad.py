@@ -497,8 +497,6 @@ def test_unported_options_raise():
         TGR.optimize_grad(tt, tb, steps=1, engine="pallas")
     with pytest.raises(NotImplementedError, match="item 16"):
         TGR.trace_rms_merit(tt, tb, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TGR.bundles_from_system(ts, nrays=8, device_aim=True)
     with pytest.raises(NotImplementedError, match="item 9"):
         TGR.spot_rms(tt, *tb[0][:3], biconic=True)
     # the adjoint engine does not differentiate rot: a tilt that

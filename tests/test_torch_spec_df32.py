@@ -220,16 +220,19 @@ def test_df32_key_refuses_bad_plans():
 def test_df32_keys_build_from_the_spec_headers():
     """The keys build with the other spec keys (cuda_spec.prebuild), the
     df32 headers among those their cache hash reads; K10 and K12 are
-    keys too, so the run-time df32 source is gone and the kernel library
-    holds K3 alone."""
+    keys too, and since K3 became one, the run-time sources (df32.cu,
+    trace.cu) and cuda_build's kernel library are gone: every file of
+    csrc/ is a header that cuda_spec's translation units instantiate."""
     from rayopt_tpu_torch.ops import cuda_build as CB
     assert {"df32_common.cuh", "df32_spec.cuh"} <= set(CS.HEADERS)
     assert all((CSRC/name).exists() for name in CS.HEADERS)
     assert CS._MACROS["k11"] == "RAYOPT_DF32_TRACE"
     assert CS._MACROS["k13"] == "RAYOPT_DF32_MERIT"
     assert not (CSRC/"df32.cu").exists()
-    assert CB.SOURCES == ("trace.cu",)
-    assert "df32" not in " ".join(CB.HEADERS)
+    assert not (CSRC/"trace.cu").exists()
+    for gone in ("load_library", "KernelLibrary", "SOURCES", "HEADERS"):
+        assert not hasattr(CB, gone), gone
+    assert sorted(p.name for p in CSRC.glob("*.cu*")) == sorted(CS.HEADERS)
     common = (CSRC/"df32_common.cuh").read_text()
     assert "RAYOPT_DF32_FMA" not in common and "__fmaf_rn" in common
     assert "4097" not in common      # Dekker's splitter

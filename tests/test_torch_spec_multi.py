@@ -1,9 +1,12 @@
-"""The specialization of the polychromatic forward K6, the
-polychromatic adjoint K7 and the OPD adjoint K9 per spec tuple
-(ops.cuda_spec) on the CPU: the refusal of a K6 stack past static
-shared memory or its wavelength limit, the K6 wrapper's split of a
-longer stack into balanced runs (the keys it loads), its plain version
-on a CPU bundle, the keys of K7 and K9 (stable, and changed by every
+"""The specialization of the polychromatic trace K3, the polychromatic
+forward K6, the polychromatic adjoint K7 and the OPD adjoint K9 per
+spec tuple (ops.cuda_spec) on the CPU: K3's keys (trace and merit, the
+merit K6's template unweighted) and its wrapper's balanced runs, which
+take every stack the earlier run-time K3 took, the refusal of a K6
+stack past static shared memory or its wavelength limit, the K6
+wrapper's split of a longer stack into balanced runs (the keys it
+loads), its plain version on a CPU bundle, the keys of K7 and K9
+(stable, and changed by every
 part of them), K9's live slots over its seven
 columns (n_before on every row, the image row read only by the
 reference-sphere tail), the translation unit a key writes, the refusal
@@ -34,6 +37,8 @@ from rayopt_tpu_torch import models as tmodels
 from rayopt_tpu_torch.models import cooke_triplet, double_gauss
 from rayopt_tpu_torch.ops import cuda_grad as CG
 from rayopt_tpu_torch.ops import cuda_spec as CS
+from rayopt_tpu_torch.ops import cuda_trace as CT
+from rayopt_tpu_torch.ops.cuda_build import CSRC
 from rayopt_tpu_torch.ops import kernels as TK
 from rayopt_tpu_torch.ops import tables as TT
 from rayopt_tpu_torch.ops.geometric import trace_rays_final
@@ -209,6 +214,148 @@ def test_moments_multi_splits_a_stack_past_max_nlam(monkeypatch, nlam, want):
     assert all(k == CS.moments_multi_key(specs, F64, False, l1 - l0)
                for l0, l1, k in runs)
     assert len(keys) == len({l1 - l0 for l0, l1 in want})
+
+
+def _k3_runs(monkeypatch, specs, dtype, nlam, merit):
+    """K3's runs for a stack of nlam tables and the keys the wrapper
+    loads for them (cuda_spec.load patched: no build)."""
+    keys = []
+
+    def load(key):
+        keys.append(key)
+        return key
+    CT._multi_kernel.cache_clear()
+    monkeypatch.setattr(CS, "load", load)
+    try:
+        runs = CT._multi_runs(tuple(specs), dtype, nlam, merit)
+    finally:
+        CT._multi_kernel.cache_clear()
+    return runs, keys
+
+
+@pytest.mark.parametrize("merit", [False, True])
+@pytest.mark.parametrize("nlam,dtype,want", [
+    (3, F64, [(0, 3)]), (3, F32, [(0, 3)]), (12, F64, [(0, 6), (6, 12)]),
+    (13, F32, [(0, 7), (7, 13)]),
+    (40, F64, [(0, 10), (10, 20), (20, 30), (30, 40)])])
+def test_trace_multi_runs_one_key_a_run(monkeypatch, merit, nlam, dtype,
+                                        want):
+    """trace_multi launches one key for a stack of MAX_NLAM wavelengths
+    or fewer, and a longer stack in balanced runs (12 -> 6 + 6, 13 ->
+    7 + 6, 40 -> 4 x 10), equal runs on one key of the run's wavelength
+    count: the merit mode a "k3m" key (K6's template unweighted), the
+    trace a "k3" key, neither clipped."""
+    specs = _specs("double_gauss")
+    runs, keys = _k3_runs(monkeypatch, specs, dtype, nlam, merit)
+    assert [(l0, l1) for l0, l1, _ in runs] == want
+    assert all(k == CS.trace_multi_key(specs, dtype, l1 - l0, merit)
+               for l0, l1, k in runs)
+    assert len(keys) == len({l1 - l0 for l0, l1 in want})
+    for k in keys:
+        assert k.kernel == ("k3m" if merit else "k3") and not k.clip
+        assert k.block == CS.BLOCK_MULTI[k.kernel][k.dtype]
+        assert k.outer == (False if merit else CS.MULTI_OUTER)
+        assert k.shared_bytes <= CS.SMEM_LIMIT
+
+
+def _run_time_k3_most(specs, dtype, merit):
+    """The most wavelengths the earlier run-time K3 staged: its tables,
+    the merit's 5 moments a wavelength for each of 256 threads and the
+    flags, in 227 KB of opt-in shared memory."""
+    word = 4 if dtype == F32 else 8
+    rows = len(specs)
+    per = (rows*CT.ROW + (5*256 if merit else 0))*word
+    return (CT.SMEM_OPTIN - 4*rows)//per
+
+
+@pytest.mark.parametrize("merit", [False, True])
+@pytest.mark.parametrize("dtype", [F32, F64])
+@pytest.mark.parametrize("chain", ["double_gauss", "long"])
+def test_trace_multi_takes_every_stack_the_run_time_kernel_took(
+        monkeypatch, merit, dtype, chain):
+    """No wavelength count that the run-time K3 (csrc/trace.cu) took is
+    refused: every stack up to its shared-memory limit (about 120
+    double Gauss tables for the float64 trace, 18 for the merit), and
+    past it, runs in balanced runs of keys that fit, each at most
+    multi_most wavelengths; a 61-row chain too."""
+    specs = _specs("double_gauss")
+    if chain == "long":
+        specs = specs[:1] + specs[1:]*5
+    most = CS.multi_most("k3m" if merit else "k3", specs, dtype)
+    old = _run_time_k3_most(specs, dtype, merit)
+    assert 1 <= most <= CS.MAX_NLAM and old >= 3
+    for nlam in sorted({1, 2, most, most + 1, old // 2, old, old + 1}):
+        runs, keys = _k3_runs(monkeypatch, specs, dtype, nlam, merit)
+        assert runs[0][0] == 0 and runs[-1][1] == nlam
+        assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+        sizes = [l1 - l0 for l0, l1, _ in runs]
+        assert max(sizes) <= most and max(sizes) - min(sizes) <= 1
+        assert len(runs) == -(-nlam // most)
+        assert all(k.nlam == n for (_, _, k), n in zip(runs, sizes))
+
+
+def test_trace_multi_keys_refuse_and_instantiate():
+    """K3's keys: stable, changed by the dtype, the wavelengths, the
+    block and the trace's loop order; refused past MAX_NLAM or static
+    shared memory, and for an outer merit; the merit's translation unit
+    instantiates the moments template unweighted (RAYOPT_SPEC_MERIT_MULTI
+    -> RAYOPT_SPEC_MOMENTS_OF with WEIGHTED false), the trace's
+    trace_multi_spec with its loop order in the clip's place."""
+    specs = _specs("double_gauss")
+    base = CS.trace_multi_key(specs, F64, 3)
+    assert base == CS.trace_multi_key(list(specs), F64, 3, False)
+    variants = [CS.trace_multi_key(specs, F32, 3),
+                CS.trace_multi_key(specs, F64, 4),
+                CS.trace_multi_key(specs, F64, 3, block=128),
+                CS.trace_multi_key(specs, F64, 3, outer=not CS.MULTI_OUTER),
+                CS.trace_multi_key(specs, F64, 3, True),
+                CS.moments_multi_key(specs, F64, False, 3),
+                CS.trace_key(specs, F64)]
+    names = [base.name] + [k.name for k in variants]
+    assert len(set(names)) == len(names)
+    for merit in (False, True):
+        for nlam in (0, CS.MAX_NLAM + 1):
+            with pytest.raises(ValueError, match="registers"):
+                CS.trace_multi_key(specs, F64, nlam, merit)
+    with pytest.raises(ValueError, match="outer"):
+        CS.trace_multi_key(specs, F64, 3, True, outer=True)
+    huge = specs[:1] + specs[1:]*40       # 481 rows: one table past 48 KB
+    assert CS.multi_most("k3", huge, F64) == 0
+    with pytest.raises(ValueError, match="static shared memory"):
+        CT._multi_runs(tuple(huge), F64, 3, False)
+    merit = CS.trace_multi_key(specs, F64, 3, True)
+    text = CS.translation_unit(merit)
+    assert "RAYOPT_SPEC_MERIT_MULTI(%s, double, Rows, false, 3, %d, %d)" % (
+        merit.name, CS.BLOCK_MULTI["k3m"]["f64"], CS.MIN_BLOCKS) in text
+    for outer in (False, True):
+        key = CS.trace_multi_key(specs, F32, 5, outer=outer)
+        assert "RAYOPT_SPEC_TRACE_MULTI(%s, float, Rows, %s, 5, %d, %d)" % (
+            key.name, "true" if outer else "false",
+            CS.BLOCK_MULTI["k3"]["f32"], CS.MIN_BLOCKS) in \
+            CS.translation_unit(key)
+    header = (CSRC/"grad_spec.cuh").read_text()
+    macro = header[header.index("#define RAYOPT_SPEC_MERIT_MULTI"):]
+    macro = " ".join(macro[:macro.index("\n\n")].replace("\\", "").split())
+    assert macro.endswith("RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, "
+                          "false, NLAM, BLOCK, MINB)")
+
+
+@pytest.mark.parametrize("merit", [False, True])
+@pytest.mark.parametrize("nlam", [3, 12])
+def test_cpu_trace_multi_runs_the_plain_version(nlam, merit):
+    """K3 on a CPU bundle, past one key's wavelengths too: the plain
+    version's result, no launch counted."""
+    s = double_gauss()
+    tabs = s.tables(list(np.linspace(400e-9, 700e-9, nlam)))
+    state, _ = _bundle()
+    before = CT.trace_multi.launches
+    got = CT.trace_multi(tabs, None, state, merit)
+    want = CT.trace_multi_reference(tabs, None, state, merit)
+    assert CT.trace_multi.launches == before and len(got) == nlam
+    for g, w in zip(got, want):
+        for a, b in zip(g if merit else (*g[0], g[1]),
+                        w if merit else (*w[0], w[1])):
+            assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
 
 
 def _bundle(n=256, seed=3):
