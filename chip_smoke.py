@@ -29,9 +29,16 @@ and a focal-length penalty -> optimize_grad -> write back -> Strehl,
 PSF, MTF and the host OPD/Zernike cross-check) -- then the
 parity-grade df32 path (the forward path's aimed bundles -> df32.plan
 -> the df32 trace and moment merit, and their multi-wavelength twins,
-against the CPU float64 trace) -- and times the kernels against their
-plain versions (the stacked-wavelength ones also against their
-monochromatic twins).
+against the CPU float64 trace) -- then the aspheric path (the JAX
+package's aspheric double Gauss: System.pupils on the card against the
+host pupil, K1 and K2 on aimed bundles at three fields against the CPU
+float64 plain trace with the Newton's misses counted, and the designer
+loop over curvatures and aspheric coefficients, after K1, K2, K4 and K5
+on its figured keys and on the odd singlet against their plain versions
+and K5 against central differences of A4, A6 and a conic) -- and times
+the kernels against their plain versions (the stacked-wavelength ones
+also against their monochromatic twins, the aspheric keys against the
+double Gauss's).
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
@@ -82,6 +89,20 @@ GLASS_STEPS = 10
 # Adam on the achromatization path, per parameter group (1/mm, mm, and
 # the glass-box logits of nd and vd)
 GLASS_LR = {"curvature": 5e-8, "distance": 5e-8, "glass": 3e-5}
+
+ASPH_ROW = 7         # the aspheric double Gauss's even asphere
+ASPH_SELECT = ("curvature", "aspherics")
+#: Adam's preconditioning of its coefficient columns (the r^2, r^4 and r^6
+#: terms; optimize_grad stores each divided by its scale): each column's
+#: magnitude on the aspheric row -- A4 1.2e-7 /mm^3, A6 -3e-11 /mm^5, and
+#: for A2, zero there, 1e-4 /mm (a small power change)
+ASPH_SCALES = {"aspherics": (1e-4, 1e-7, 1e-11)}
+#: central-difference steps of K5's aspheric check: ~1e-3 of A4 and A6,
+#: and the conic (unitless)
+ASPH_FD_STEP = {"A4": 1e-10, "A6": 3e-14, "conic": 1e-6}
+N_ASPH = 1 << 16     # aimed rays a field on the aspheric forward path
+N_ASPH_CHECK = 1 << 20   # rays of the aspheric kernel-vs-plain checks
+N_ASPH_TIME = 1 << 22    # rays of the aspheric timings (K1 also N_BENCH)
 
 # tolerances (kernel vs plain on the card, live rays)
 F64_REL = 1e-12      # float64: max |a - b| / max(1, max |b|) per output
@@ -292,12 +313,13 @@ GRAD_FIELDS = (("curvature", slice(0, 1)), ("conic", slice(1, 2)),
                ("offset", slice(2, 5)), ("mu", slice(5, 6)))
 
 
-def compare_param_grads(got, want, rel):
-    """{field: (max abs error, max |plain|, ok)}: each field against its
-    largest plain cotangent; a field the specialization bakes out on
-    every row (plain all zero) must come out exactly zero."""
+def compare_param_grads(got, want, rel, fields=GRAD_FIELDS):
+    """{field: (max abs error, max |plain|, ok)}: each field of `fields`
+    (name, its columns) against its largest plain cotangent; a field
+    the specialization bakes out on every row (plain all zero) must come
+    out exactly zero."""
     out = {}
-    for name, cols in GRAD_FIELDS:
+    for name, cols in fields:
         g, w = got[:, cols].double(), want[:, cols].double()
         err, scale = float((g - w).abs().max()), float(w.abs().max())
         out[name] = (err, scale,
@@ -957,15 +979,29 @@ def phase_device_aiming(s):
 
 
 def phase_opt_path():
-    """The designer loop, through the entry points a user calls."""
+    """The designer loop on the double Gauss, through the entry points a
+    user calls.  Returns (launch counts, mean seconds of the later
+    steps)."""
     from rayopt_tpu_torch.models import double_gauss
+    return designer_loop(double_gauss(), "optimizer path: double Gauss",
+                         OPT_SELECT)
+
+
+def designer_loop(s, title, select, scales=None):
+    """bundles_from_system (3 fields x 3 wavelengths, hexapolar nrays
+    N_OPT) -> optimize_grad(engine="adjoint", select, scales) in float64
+    for OPT_STEPS Adam steps on the card, its step 0 against the same
+    call on the CPU plain versions (merit and gradient), then
+    write_back_table of the fields with an element attribute.  Returns
+    (the launches of the card's run, mean seconds of the later steps)."""
     from rayopt_tpu_torch.parallel import (
         bundles_from_system, bundles_to, optimize_grad, write_back_table)
-    log("== optimizer path: double Gauss, bundles_from_system (hexapolar, "
-        "nrays %d) -> optimize_grad(engine='adjoint', select=%s), float64, "
-        "%d Adam steps at lr %g" % (N_OPT, OPT_SELECT, OPT_STEPS, OPT_LR))
+    from rayopt_tpu_torch.parallel.grad import _WRITE_BACK
+    log("== %s, bundles_from_system (hexapolar, nrays %d) -> "
+        "optimize_grad(engine='adjoint', select=%s, scales=%s), float64, %d "
+        "Adam steps at lr %g" % (title, N_OPT, select, scales, OPT_STEPS,
+                                 OPT_LR))
     t0 = time.perf_counter()
-    s = double_gauss()
     efl0 = float(s.paraxial.focal_length[1])
     bundles = bundles_from_system(s, nrays=N_OPT, distribution="hexapolar")
     log("%d bundles (%d fields x %d wavelengths) of %d rays, %d rays in "
@@ -983,26 +1019,33 @@ def phase_opt_path():
                 grads[tag] = {k: v.grad.detach().double().cpu().clone()
                               for k, v in params.items()}
         return callback
-    reset_launches()
+    before = read_launches()
     t0 = time.perf_counter()
-    tab_opt, hist = optimize_grad(table, bundles, select=OPT_SELECT,
-                                  steps=OPT_STEPS, lr=OPT_LR,
-                                  engine="adjoint", callback=keep("card"))
-    torch.cuda.synchronize()
-    t_card = time.perf_counter() - t0
-    steps = np.diff([t0] + ends[:OPT_STEPS])
-    launches = read_launches()
-    t0 = time.perf_counter()
-    _, hist_cpu = optimize_grad(s.table(device="cpu"),
-                                bundles_to(bundles, "cpu"),
-                                select=OPT_SELECT, steps=1, lr=OPT_LR,
-                                engine="adjoint", callback=keep("cpu"))
+    with warnings.catch_warnings():
+        # the coefficients of the rows with no figure are baked out, as
+        # intended
+        warnings.simplefilter("ignore")
+        tab_opt, hist = optimize_grad(table, bundles, select=select,
+                                      steps=OPT_STEPS, lr=OPT_LR,
+                                      scales=scales, engine="adjoint",
+                                      callback=keep("card"))
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        steps = np.diff([t0] + ends[:OPT_STEPS])
+        launches = {k: v - before[k] for k, v in read_launches().items()}
+        t0 = time.perf_counter()
+        _, hist_cpu = optimize_grad(s.table(device="cpu"),
+                                    bundles_to(bundles, "cpu"),
+                                    select=select, steps=1, lr=OPT_LR,
+                                    scales=scales, engine="adjoint",
+                                    callback=keep("cpu"))
     t_cpu = time.perf_counter() - t0
     merit_rel = abs(hist[0] - hist_cpu[0])/abs(hist_cpu[0])
     grad_rel = {k: float((grads["card"][k] - grads["cpu"][k]).abs().max()
                          / grads["cpu"][k].abs().max())
-                for k in OPT_SELECT}
-    write_back_table(s, tab_opt, OPT_SELECT)
+                for k in select}
+    written = [k for k in select if k in _WRITE_BACK]
+    write_back_table(s, tab_opt, written)
     efl1 = float(s.paraxial.focal_length[1])
     log("merit history (sum of %d spot RMS, mm): %s"
         % (len(bundles), " ".join("%.12g" % v for v in hist)))
@@ -1012,8 +1055,9 @@ def phase_opt_path():
         % (hist[0], hist_cpu[0], merit_rel,
            {k: "%.2e" % v for k, v in grad_rel.items()}, t_card, OPT_STEPS,
            steps[0], steps[1:].mean(), t_cpu))
-    log("write_back_table: EFL %.8f -> %.8f mm" % (efl0, efl1))
-    log("== launch counts on the optimizer path: %s" % launches)
+    log("write_back_table of %s: EFL %.8f -> %.8f mm" % (written, efl0,
+                                                         efl1))
+    log("== launch counts on the %s: %s" % (title.split(":")[0], launches))
     failures = []
     if not hist[-1] < hist[0]:
         failures.append("the merit did not fall")
@@ -1026,8 +1070,8 @@ def phase_opt_path():
     if not (launches["weighted_moments"] and launches["merit_adjoint"]):
         failures.append("K4 or K5 never launched: %s" % launches)
     if failures:
-        raise AssertionError("optimizer path failed: " + ", ".join(failures))
-    return launches
+        raise AssertionError("%s failed: %s" % (title, ", ".join(failures)))
+    return launches, float(steps[1:].mean())
 
 
 def _live_of(out):
@@ -1832,6 +1876,434 @@ def phase_design_path():
     if failures:
         raise AssertionError("design path failed: " + ", ".join(failures))
     return launches
+
+
+# -- the aspheric rows: K1, K2, K4 and K5 on figured keys ---------------------
+
+def aspheric_double_gauss():
+    """The JAX package's aspheric double Gauss (its tests/test_df32.py,
+    test_trace_parity_conic_aspheric): conics on rows 2 and 5, an even
+    asphere on row 7; 12 traced surfaces, full width."""
+    from rayopt_tpu_torch.models import double_gauss
+    s = double_gauss()
+    s[2].conic = -.7
+    s[5].conic = .4
+    s[ASPH_ROW].aspherics = [0., 1.2e-7, -3e-11]
+    s.update()
+    return s
+
+
+def odd_singlet():
+    """The JAX package's odd singlet (its tests/test_pallas.py,
+    test_pallas_odd_aspherics): an even and odd figure on a conic
+    front."""
+    from rayopt_tpu_torch import Spheroid, System, air
+    s = System()
+    s.append(Spheroid(material=air, radius=9.))
+    s.append(Spheroid(distance=8., curvature=1/45., conic=-.3,
+                      aspherics=[0., 2e-7], aspherics_odd=[0., 1e-5, -2e-8],
+                      material=1.6, radius=9.))
+    s.append(Spheroid(distance=5., curvature=-1/80., material=air,
+                      radius=9.))
+    s.append(Spheroid(distance=70., material=None, radius=9.))
+    s.wavelengths = [587.56e-9]
+    s.update()
+    return s
+
+
+def asphere_cases():
+    """{name: (system, table on the card, specs, figure widths)} of the
+    two aspheric lenses."""
+    from rayopt_tpu_torch.ops.cuda_trace import figure_widths
+    from rayopt_tpu_torch.ops.kernels import specialize
+    out = {}
+    for name, build in (("aspheric double Gauss", aspheric_double_gauss),
+                        ("odd singlet", odd_singlet)):
+        s = build()
+        table = s.table()
+        specs = specialize(table)
+        out[name] = (s, table, specs, figure_widths(table, specs))
+    return out
+
+
+def asphere_keys():
+    """{tag: key} of the figured K1, K2, K4 and K5 keys this script runs:
+    on each aspheric lens, K1, K2 and K4 in both dtypes unclipped and K5
+    for every field with the ray cotangents (the checks and timings);
+    on the double Gauss also K5 for the designer loop's fields without
+    (ASPH_SELECT: its loop key) and for the finite-difference check's
+    (float64)."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    keys = {}
+    for name, (_, _, specs, widths) in asphere_cases().items():
+        tag = "aspheric" if name == "aspheric double Gauss" else "odd"
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype)[6:]
+            keys["K1 %s %s" % (dt, tag)] = CS.trace_key(specs, dtype,
+                                                        widths=widths)
+            keys["K2 %s %s" % (dt, tag)] = CS.merit_key(specs, dtype,
+                                                        widths=widths)
+            keys["K4 %s %s" % (dt, tag)] = CS.moments_key(specs, dtype,
+                                                          widths=widths)
+            keys["K5 %s %s all rays=True" % (dt, tag)] = CS.adjoint_key(
+                specs, dtype, fields=CS.FIELDS, widths=widths)
+            if tag == "aspheric":
+                keys["K5 %s aspheric designer rays=False" % dt] = \
+                    CS.adjoint_key(specs, dtype, fields=ASPH_SELECT,
+                                   rays=False, widths=widths)
+        if tag == "aspheric":
+            # the finite-difference check's slot set (conic, aspherics)
+            keys["K5 float64 aspheric fd rays=False"] = CS.adjoint_key(
+                specs, torch.float64, fields=("conic", "aspherics"),
+                rays=False, widths=widths)
+    return keys
+
+
+def singlet_bundle(n, dtype, seed):
+    """The odd singlet's bundle: x, y uniform in +-8 mm, slopes uniform
+    in +-0.02 (no ray exactly on the axis, where an odd figure's
+    gradient is NaN, as the reference's)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    xy = torch.empty((4, n), dtype=torch.float64, device=DEVICE)
+    xy[:2].uniform_(-8., 8., generator=gen)
+    xy[2:].uniform_(-.02, .02, generator=gen)
+    uz = torch.sqrt(1 - xy[2]*xy[2] - xy[3]*xy[3])
+    return tuple(c.to(dtype).contiguous()
+                 for c in (xy[0], xy[1], torch.zeros_like(uz), xy[2], xy[3],
+                           uz))
+
+
+def asph_grad_fields(widths):
+    """K5's cotangent columns by table field, the coefficients' too."""
+    na, no = widths
+    out = GRAD_FIELDS
+    if na:
+        out += (("aspherics", slice(6, 6 + na)),)
+    if no:
+        out += (("aspherics_odd", slice(6 + na, 6 + na + no)),)
+    return out
+
+
+def phase_asphere_check():
+    """Each figured K1, K2, K4 and K5 key against its plain version on
+    the card, on the odd singlet and the aspheric double Gauss at
+    N_ASPH_CHECK rays, float64 held to F64_REL (K5 to GRAD_F64_REL of
+    each field's largest), float32 reported against its own limits;
+    then K5's float64 gradient against central differences of the K4
+    merit for row 7's A4 and A6 and row 2's conic.  Returns the float32
+    errors for the kernels line."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_reference, spot_moments,
+        weighted_moments, weighted_moments_reference)
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        spot_rms_from_moments, trace_final, trace_final_reference,
+        trace_merit, trace_merit_reference)
+    log("== aspheric keys vs plain on the card (%d rays a check)"
+        % N_ASPH_CHECK)
+    worst = dict.fromkeys(("trace_final", "trace_merit", "weighted_moments",
+                           "merit_adjoint"), 0.)
+    failures = []
+    for name, (_, table, specs, widths) in asphere_cases().items():
+        for dtype in (torch.float64, torch.float32):
+            f64 = dtype == torch.float64
+            tag = "%s %s" % (name, str(dtype)[6:])
+            if name == "odd singlet":
+                state = singlet_bundle(N_ASPH_CHECK, dtype, SEED)
+            else:
+                state = bench_bundle(N_ASPH_CHECK, dtype, SEED)
+            w = bench_weights(N_ASPH_CHECK, dtype, SEED + 2)
+            got = trace_final(table, specs, state)
+            want = trace_final_reference(table, specs, state)
+            torch.cuda.synchronize()
+            ok, err, rel, masks = compare_final((*got[0], got[1]),
+                                                (*want[0], want[1]), dtype)
+            nan = int(torch.isnan(want[0][0]).sum())
+            log("K1 %s: max abs err %.3e, max rel err %.3e, NaN masks "
+                "differ on %d rays, NaN rays %d -> %s"
+                % (tag, err, rel, masks, nan, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("K1 " + tag)
+            mg, mw = (trace_merit(table, specs, state),
+                      trace_merit_reference(table, specs, state))
+            ok, rel_m, dcount = compare_moments(mg, mw, dtype, N_ASPH_CHECK)
+            rg = float(spot_rms_from_moments(*mg))
+            rw = float(spot_rms_from_moments(*mw))
+            log("K2 %s: moments rel err %.3e, count diff %d, spot RMS "
+                "kernel %.12g plain %.12g -> %s"
+                % (tag, rel_m, dcount, rg, rw, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("K2 " + tag)
+            wm = weighted_moments(table, specs, state, w)
+            wr = weighted_moments_reference(table, specs, state, w)
+            ok, rel_w = compare_wmoments(wm, wr, dtype)
+            log("K4 %s: moments rel err %.3e -> %s"
+                % (tag, rel_w, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("K4 " + tag)
+            ct = rms_cotangent(wr)
+            pg, cst, cw = merit_adjoint(table, specs, state, w, ct)
+            pr, sr, cwr = merit_adjoint_reference(table, specs, state, w, ct)
+            torch.cuda.synchronize()
+            fields = compare_param_grads(
+                pg, pr, GRAD_F64_REL if f64 else GRAD_F32_REL,
+                asph_grad_fields(widths))
+            ray_rel, rmasks, finite = compare_ray_grads(cst, cw, sr, cwr)
+            ok = (all(v[2] for v in fields.values()) and finite
+                  and ray_rel <= (GRAD_F64_REL if f64 else F32_RAY_REL)
+                  and rmasks <= (0 if f64 else F32_NAN_FRAC*N_ASPH_CHECK))
+            log("K5 %s: %s | rays and weights rel err %.3e, live masks "
+                "differ on %d rays, all finite %s -> %s"
+                % (tag, "; ".join("%s err %.3e of max %.3e" % (k, *v[:2])
+                                  for k, v in fields.items()),
+                   ray_rel, rmasks, finite, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("K5 " + tag)
+            if not f64:
+                worst["trace_final"] = max(worst["trace_final"], err)
+                worst["trace_merit"] = max(worst["trace_merit"],
+                                           abs(rg - rw))
+                worst["weighted_moments"] = max(
+                    worst["weighted_moments"],
+                    abs(float(spot_rms_from_moments(*wm))
+                        - float(spot_rms_from_moments(*wr))))
+                worst["merit_adjoint"] = max(
+                    worst["merit_adjoint"], *(v[0] for v in fields.values()))
+            del state, w
+    # K5 against central differences of the K4 merit, float64
+    _, table, specs, _ = asphere_cases()["aspheric double Gauss"]
+    state = bench_bundle(N_ASPH_CHECK, torch.float64, SEED)
+    w = bench_weights(N_ASPH_CHECK, torch.float64, SEED + 2)
+    a = table.aspherics.clone().requires_grad_()
+    k = table.conic.clone().requires_grad_()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")    # the baked rows, as intended
+        mom = spot_moments(table.replace(aspherics=a, conic=k), state, w,
+                           specs=specs)
+    spot_rms_from_moments(*mom).backward()
+    picks = (("A4", "aspherics", (ASPH_ROW, 1), a.grad[ASPH_ROW, 1]),
+             ("A6", "aspherics", (ASPH_ROW, 2), a.grad[ASPH_ROW, 2]),
+             ("conic", "conic", (2,), k.grad[2]))
+
+    def merit(tab):
+        return float(spot_rms_from_moments(*weighted_moments(tab, specs,
+                                                             state, w)))
+    log("== K5 on the aspheric double Gauss vs central differences of the "
+        "K4 merit (float64, %d bench rays; steps %s)"
+        % (N_ASPH_CHECK, ASPH_FD_STEP))
+    for what, field, idx, g in picks:
+        h = ASPH_FD_STEP[what]
+        side = []
+        for sgn in (1., -1.):
+            v = getattr(table, field).clone()
+            v[idx] += sgn*h
+            side.append(merit(table.replace(**{field: v})))
+        fd = (side[0] - side[1])/(2*h)
+        rel = abs(float(g) - fd)/abs(fd)
+        ok = rel <= FD_REL
+        log("%s of row %d: K5 %.12g, central difference %.12g, rel %.2e "
+            "-> %s" % (what, idx[0], float(g), fd, rel,
+                       "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("K5 vs finite differences, " + what)
+    if failures:
+        raise AssertionError("aspheric kernel disagrees with its plain "
+                             "version: " + ", ".join(failures))
+    return worst
+
+
+def newton_misses(table, specs, state, row):
+    """The rays the Newton of figured row `row` declares a miss: live
+    into the row with a finite conic seed and a NaN intercept (plain
+    torch ops on the bundle's device)."""
+    from rayopt_tpu_torch.ops import kernels as K
+    from rayopt_tpu_torch.ops.geometric import _entry
+    s = _entry(table, tuple(state), specs)
+    for j in range(1, row):
+        s, _ = K.surface_step_spec(s, table.row(j), specs[j], False)
+    surf, spec = table.row(row), specs[row]
+    x, y, z, ux, uy, uz = s
+    if spec.off_axis:
+        x, y = x - surf.offset[0], y - surf.offset[1]
+    z = z - surf.offset[2]
+    if spec.rotated:
+        x, y, z = K.rot_apply(surf.rot, x, y, z)
+        ux, uy, uz = K.rot_apply(surf.rot, ux, uy, uz)
+    seed = K.intercept_conic(x, y, z, ux, uy, uz, surf.curvature,
+                             surf.conic, surf.alternate)
+    t = K.intercept(x, y, z, ux, uy, uz, surf.curvature, surf.conic,
+                    surf.aspherics, surf.alternate,
+                    aspherics_odd=surf.aspherics_odd)
+    live = torch.isfinite(ux) & torch.isfinite(uy) & torch.isfinite(uz)
+    return int((live & torch.isfinite(seed) & torch.isnan(t)).sum())
+
+
+def phase_asphere_path(opt_step):
+    """The aspheric slice's main path through the entry points a user
+    calls: the aspheric double Gauss aimed at fields 0, 0.7 and 1 (its
+    pupils by System.pupils on the card against the host pupil at tol
+    AIM_HOST_TOL, the rays by the host's), float64 K1 and K2 on N_ASPH
+    rays a field against the CPU float64 plain trace (spot RMS to
+    PARITY_REL, equal NaN masks, the Newton's misses counted), float32
+    reported; then its designer loop (designer_loop over ASPH_SELECT
+    with ASPH_SCALES), whose later steps are logged beside the spherical
+    double Gauss's `opt_step` seconds.  Returns the loop's later-step
+    seconds."""
+    from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
+                                                 trace_merit)
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
+    s, table, specs, widths = asphere_cases()["aspheric double Gauss"]
+    table_cpu = s.table(device="cpu")
+    log("== aspheric path: the aspheric double Gauss (conics on rows 2 and "
+        "5, even asphere on row %d, widths %s), %d aimed rays a field, no "
+        "clip" % (ASPH_ROW, widths, N_ASPH))
+    fields = [(0., f) for f in FIELDS]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")   # a host fallback fails
+        z, boxes = s.pupils(fields)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [s.pupil(f, tol=AIM_HOST_TOL) for f in fields]
+    t_host = time.perf_counter() - t0
+    zh = np.array([v[0] for v in host])
+    bh = np.array([v[1] for v in host])
+    rel_z = float((np.abs(z - zh)/np.abs(zh)).max())
+    rel_b = float((np.abs(boxes - bh)/np.abs(bh)).max())
+    failures = []
+    ok = rel_z <= AIM_REL and rel_b <= AIM_REL
+    log("System.pupils on the card %.3f s vs host pupil at tol %g %.3f s: z "
+        "rel %.3e, boxes rel %.3e -> %s" % (t_card, AIM_HOST_TOL, t_host,
+                                            rel_z, rel_b,
+                                            "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("System.pupils")
+    rng = np.random.RandomState(SEED + 5)
+    for (field, (zf, pf)) in zip(FIELDS, host):
+        r = np.sqrt(rng.uniform(0, 1, N_ASPH))
+        th = rng.uniform(0, 2*np.pi, N_ASPH)
+        yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
+        y0, u0 = s.aim((0., field), yp, zf, pf, filter=False)
+        yc, uc = (torch.from_numpy(a).to(DEVICE) for a in (y0, u0))
+        t0 = time.perf_counter()
+        y64, u64, _ = trace_rays_final_fast(table, yc, uc, specs=specs,
+                                            precision="parity")
+        rms_k1, live = spot_rms(y64, u64)
+        state64 = tuple(c.contiguous() for c in (*yc.T, *uc.T))
+        mom64 = trace_merit(table, specs, state64)
+        y32, u32, _ = trace_rays_final_fast(table, yc.float(), uc.float(),
+                                            specs=specs)
+        rms_k1_32, _ = spot_rms(y32, u32)
+        rms_k2_32 = float(spot_rms_from_moments(*trace_merit(
+            table, specs, tuple(c.float() for c in state64))))
+        misses = newton_misses(table, specs, state64, ASPH_ROW)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        yh, uh, _ = trace_rays_final_fast(table_cpu, torch.from_numpy(y0),
+                                          torch.from_numpy(u0))
+        rms_cpu, live_cpu = spot_rms(yh, uh)
+        mom_cpu = trace_merit(table_cpu, specs,
+                              tuple(c.cpu() for c in state64))
+        t_cpu = time.perf_counter() - t0
+        masks = int((torch.isnan(y64[:, 0].cpu())
+                     != torch.isnan(yh[:, 0])).sum())
+        rel1 = abs(rms_k1 - rms_cpu)/rms_cpu
+        mom_ok, mom_rel, _ = compare_moments(mom64, mom_cpu, torch.float64,
+                                             N_ASPH)
+        ok = (np.isfinite(rms_k1) and masks == 0 and live == live_cpu
+              and rel1 <= PARITY_REL and mom_ok)
+        log("field %.1f: %d of %d rays live, the Newton's misses on row %d "
+            "%d, NaN masks differ on %d | spot RMS mm: CPU f64 %.12g | K1 "
+            "f64 %.12g (rel %.2e) | K2 f64 %.12g (moments vs CPU rel %.2e) "
+            "| K1 f32 %.9g (rel %.2e) | K2 f32 %.9g (rel %.2e) | card %.2f "
+            "s, CPU %.2f s -> %s"
+            % (field, live, N_ASPH, ASPH_ROW, misses, masks, rms_cpu,
+               rms_k1, rel1, float(spot_rms_from_moments(*mom64)), mom_rel,
+               rms_k1_32, abs(rms_k1_32 - rms_cpu)/rms_cpu, rms_k2_32,
+               abs(rms_k2_32 - rms_cpu)/rms_cpu, t_gpu, t_cpu,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("field %.1f" % field)
+    if failures:
+        raise AssertionError("aspheric path failed: " + ", ".join(failures))
+    _, step = designer_loop(aspheric_double_gauss(),
+                            "aspheric designer loop: aspheric double Gauss",
+                            ASPH_SELECT, ASPH_SCALES)
+    log("designer loop later steps: aspheric double Gauss %.4f s, double "
+        "Gauss %.4f s (%.2fx)" % (step, opt_step, step/opt_step))
+    return step
+
+
+def phase_asphere_throughput(card):
+    """The figured K1, K2, K4 and K5 keys of the aspheric double Gauss
+    against their plain versions and against the double Gauss's keys on
+    the same bench bundle, in turns (plain, kernel, spherical, kernel,
+    spherical, plain), at N_ASPH_TIME rays in both dtypes (K5: every
+    field with the ray cotangents, and the designer loop's key); K1
+    float32 also at N_BENCH, kernels alone.  Returns {(name, dtype):
+    (kernel ms, plain ms, spherical ms)} and the live rays of the K5
+    bundles by dtype."""
+    from rayopt_tpu_torch.models import double_gauss
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_reference, weighted_moments,
+        weighted_moments_reference)
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        trace_final, trace_final_reference, trace_merit,
+        trace_merit_reference)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    _, table, specs, _ = asphere_cases()["aspheric double Gauss"]
+    sph = double_gauss().table()
+    sspecs = specialize(sph)
+    log("== aspheric keys' throughput: %d bench rays, against the plain "
+        "versions and the double Gauss's keys (%s)" % (N_ASPH_TIME, card))
+    times, live = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        state = bench_bundle(N_ASPH_TIME, dtype, SEED + 1)
+        w = bench_weights(N_ASPH_TIME, dtype, SEED + 3)
+        ct = rms_cotangent(weighted_moments(table, specs, state, w))
+        cts = rms_cotangent(weighted_moments(sph, sspecs, state, w))
+        live[dtype] = float(trace_merit(table, specs, state)[0])
+        cases = (
+            ("trace_final", lambda t, sp, c: trace_final(t, sp, state),
+             lambda: trace_final_reference(table, specs, state)),
+            ("trace_merit", lambda t, sp, c: trace_merit(t, sp, state),
+             lambda: trace_merit_reference(table, specs, state)),
+            ("weighted_moments",
+             lambda t, sp, c: weighted_moments(t, sp, state, w),
+             lambda: weighted_moments_reference(table, specs, state, w)),
+            ("merit_adjoint",
+             lambda t, sp, c: merit_adjoint(t, sp, state, w, c),
+             lambda: merit_adjoint_reference(table, specs, state, w, ct)),
+            ("merit_adjoint_designer",
+             lambda t, sp, c: merit_adjoint(
+                 t, sp, state, w, c, fields=ASPH_SELECT if t is table
+                 else OPT_FIELDS, rays=False), None))
+        for name, run, plain in cases:
+            kern = (lambda: run(table, specs, ct))
+            twin = (lambda: run(sph, sspecs, cts))
+            p1 = cuda_ms(plain, 3) if plain else float("nan")
+            k1, s1 = cuda_ms(kern, 20), cuda_ms(twin, 20)
+            k2, s2 = cuda_ms(kern, 20), cuda_ms(twin, 20)
+            p2 = cuda_ms(plain, 3) if plain else float("nan")
+            k, p, sp_ = (k1 + k2)/2, (p1 + p2)/2, (s1 + s2)/2
+            times[(name, dtype)] = (k, p, sp_)
+            log("%s %s aspheric: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
+                "(%.4f, %.4f), double Gauss key %.4f ms (%.4f, %.4f): "
+                "aspheric/spherical %.3fx, plain/kernel %.2fx | %s"
+                % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, sp_, s1, s2,
+                   k/sp_, p/k, card))
+        del state, w
+        torch.cuda.empty_cache()
+    state = bench_bundle(N_BENCH, torch.float32, SEED + 1)
+    k = cuda_ms(lambda: trace_final(table, specs, state), 10)
+    sp_ = cuda_ms(lambda: trace_final(sph, sspecs, state), 10)
+    times[("trace_final", N_BENCH)] = (k, sp_)
+    log("trace_final float32 aspheric at %d rays: kernel %.4f ms, double "
+        "Gauss key %.4f ms (%.3fx) | %s" % (N_BENCH, k, sp_, k/sp_, card))
+    del state
+    torch.cuda.empty_cache()
+    return times, live
 
 
 def step_breakdown(table, specs, wave, parts):
@@ -2675,29 +3147,75 @@ def phase_df32_throughput(s, card):
 # bytes/s, and flop/s outside the tensor cores by dtype
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+ASPHERIC_ITERS = 10   # the Newton's steps (csrc/trace_common.cuh)
 
 
-def row_flops(spec):
+def figure_flops(na, no):
+    """(residual, slope) operations of a figured row's Newton
+    (csrc/trace_common.cuh sag_residual and newton_slope) for na even
+    and no odd coefficients: the point on the ray, r2, the conic's
+    square root and division, Horner's two operations a coefficient (the
+    odd also its sqrt(r2)); the slope's conic factor, each coefficient's
+    three (the odd five, its r floor and two divisions) and the dot
+    product with the ray."""
+    res = 19 + (2*na + 1 if na else 0) + (2*no + 3 if no else 0)
+    slope = 20 + (3*na + 1 if na else 0) + (5*no + 3 if no else 0)
+    return res, slope
+
+
+def row_flops(spec, widths=(0, 0)):
     """Arithmetic operations (one per add, multiply, divide or square
     root) of one surface_step (csrc/trace_common.cuh) for a row of this
-    spec."""
+    spec; an aspheric row with the table's `widths` (na, no): its conic
+    seed, ASPHERIC_ITERS Newton steps (a residual, a slope and the step
+    each), the last residual's test, and the refraction by the radial
+    normal with the flagged figures' slopes."""
     f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0)
-    if spec.flat:
+    na, no = widths
+    figured = spec.aspheric or spec.odd
+    if figured:
+        res, slope = figure_flops(na, no)
+        f += 35 + ASPHERIC_ITERS*(res + slope + 2) + res + 3
+    elif spec.flat:
         f += 2
     elif spec.spherical:
         f += 23
     else:
         f += 31
     f += 8                                    # transfer and optical path
-    if spec.kind:
+    if spec.kind and figured:
+        f += ((40 if spec.kind == 1 else 29)
+              + (3*na + 1 if spec.aspheric else 0)
+              + (5*no + 3 if spec.odd else 0))
+    elif spec.kind:
         f += 13 if spec.flat else (27 if spec.spherical else 37)
     return f
 
 
-def chain_flops(specs):
+def chain_flops(specs, widths=(0, 0)):
     """Operations of one ray through the whole chain (trace_ray)."""
-    return (sum(row_flops(sp) for sp in specs[1:])
+    return (sum(row_flops(sp, widths) for sp in specs[1:])
             + 30*(int(specs[0].rotated) + int(specs[-1].rotated)))
+
+
+def chain_vjp_flops(specs, widths=(0, 0)):
+    """Operations of K5's reverse sweep for one live ray: 3x the forward
+    chain (a row's recompute and its reverse, PERF.md's estimate), but
+    an aspheric row counted from csrc/step_vjp.cuh figured_step_vjp --
+    its recompute (the whole Newton once), the refraction's reverse (~75
+    and the figures' terms), the transfer's, and the implicit step: one
+    slope and the residual's gradient."""
+    na, no = widths
+    total = 3*chain_flops(specs, widths)
+    for sp in specs[1:]:
+        if sp.aspheric or sp.odd:
+            rf = row_flops(sp, widths)
+            _, slope = figure_flops(na, no)
+            rev = (75 + (6*na if sp.aspheric else 0)
+                   + (12*no if sp.odd else 0) + 9 + slope + 38 + 3*na
+                   + 6*no + (60 if sp.rotated else 0))
+            total += rf + rev - 3*rf
+    return total
 
 
 # operations of K8's reference-sphere tail (image-row shift, the
@@ -2707,16 +3225,18 @@ OPD_TAIL_FLOPS = 40
 OPD_TAIL_VJP_FLOPS = 70
 
 
-def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
+def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0)):
     """(bound_ms, bound_by) of one launch at n rays: the larger of the
     bytes it must move (each input read once, each output written once)
     over the HBM rate and its operations over the dtype's peak.  The
     reverse sweeps of K5/K7/K9 run only for live rays (`live`: live ray
     traces, summed over wavelengths) and are counted as 3x the forward
-    chain (PERF.md's estimate for the adjoint) plus the seeding (K9:
-    the tail's reverse)."""
+    chain (PERF.md's estimate for the adjoint; an aspheric row by
+    chain_vjp_flops) plus the seeding (K9: the tail's reverse).
+    `widths`: a figured key's (na, no), its rows' coefficients."""
     word = 4 if dtype == torch.float32 else 8
-    chain = chain_flops(specs)
+    chain = chain_flops(specs, widths)
+    vjp = chain_vjp_flops(specs, widths)
     # K8's chain stops at row S-2 and adds the sphere tail
     opd = chain - row_flops(specs[-1]) + OPD_TAIL_FLOPS
     words_in, words_out, flops = {
@@ -2730,9 +3250,11 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
         "trace_multi_trace": (6, 7*nlam, n*nlam*chain),
         "weighted_moments": (7, 0, n*(chain + 11)),
         "weighted_moments_multi": (7, 0, n*nlam*(chain + 11)),
-        "merit_adjoint": (7, 7, n*chain + live*(3*chain + 11)),
-        # K5 for the optimizer's slot set writes nothing a ray
-        "merit_adjoint_optimizer": (7, 0, n*chain + live*(3*chain + 11)),
+        "merit_adjoint": (7, 7, n*chain + live*(vjp + 11)),
+        # K5 for the optimizer's (or the designer loop's) slot set writes
+        # nothing a ray
+        "merit_adjoint_optimizer": (7, 0, n*chain + live*(vjp + 11)),
+        "merit_adjoint_designer": (7, 0, n*chain + live*(vjp + 11)),
         "merit_adjoint_multi": (7, 7, n*nlam*chain + live*(3*chain + 11)),
         # K7 for the achromatization path's key, K9 for the design
         # path's: nothing written a ray
@@ -2745,7 +3267,8 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0):
     slots = len(specs)*7 + 3 if name.startswith("opd_adjoint") else 0
     if name == "trace_multi":
         slots = 5*nlam
-    nbytes = (n*(words_in + words_out) + nlam*len(specs)*17 + slots)*word \
+    nbytes = (n*(words_in + words_out)
+              + nlam*len(specs)*(17 + sum(widths)) + slots)*word \
         + 4*len(specs)
     t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops)*1e3, ("bytes" if t_bytes >= t_ops
@@ -2915,6 +3438,75 @@ def df32_entries(s, launches, worst, times, live, ptxas, sass):
     return entries
 
 
+def asphere_entries(sources, launches, worst, times, live, ptxas, step,
+                    opt_step):
+    """The kernels line's entries of the figured K1, K2, K4 and K5 keys
+    (the aspheric double Gauss): the aspheric path's launches, the
+    float32 errors of phase_asphere_check, the times of
+    phase_asphere_throughput beside the double Gauss's keys and the
+    plain versions, the bounds counted with the Newton (kernel_bound's
+    widths), and the loop keys' registers, stack and spills."""
+    _, _, specs, widths = asphere_cases()["aspheric double Gauss"]
+    loop = {"trace_final": "K1 %s aspheric", "trace_merit": "K2 %s aspheric",
+            "weighted_moments": "K4 %s aspheric",
+            "merit_adjoint": "K5 %s aspheric designer rays=False"}
+    out = []
+    for kname, tag in loop.items():
+        source, replaces = sources[kname]
+        k32, p32, s32 = times[(kname, torch.float32)]
+        k64, p64, s64 = times[(kname, torch.float64)]
+
+        def bound(dtype, name=kname, n=N_ASPH_TIME):
+            return kernel_bound(name, n, dtype, specs, 1, live[dtype],
+                                widths)
+        b32, by = bound(torch.float32)
+        entry = {
+            "name": kname + "_aspheric", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kname],
+            "max_abs_err": worst[kname], "ms": k32, "plain_ms": p32,
+            "bound_ms": b32, "bound_by": by, "library_ms": None,
+            "ms_f64": k64, "plain_ms_f64": p64,
+            "bound_ms_f64": bound(torch.float64)[0],
+            "ms_spherical_key": s32, "ms_spherical_key_f64": s64,
+            "rays": N_ASPH_TIME, "wavelengths": 1,
+            "aspheric_widths": list(widths),
+            "newton_share_of_chain_ops": (
+                ASPHERIC_ITERS*(sum(figure_flops(*widths)) + 2)
+                / chain_flops(specs, widths))}
+        for dt in ("float32", "float64"):
+            regs, stack, spill = ptxas[tag % dt]
+            sfx = "" if dt == "float64" else "_f32"
+            entry.update({"regs" + sfx: regs, "stack_bytes" + sfx: stack,
+                          "spill_bytes" + sfx: spill})
+        if kname == "merit_adjoint":
+            d32, _, ds32 = times[("merit_adjoint_designer", torch.float32)]
+            d64, _, ds64 = times[("merit_adjoint_designer", torch.float64)]
+            entry.update({
+                "ms_designer": d32, "ms_designer_f64": d64,
+                "ms_spherical_optimizer_key": ds32,
+                "ms_spherical_optimizer_key_f64": ds64,
+                "bound_ms_designer_f64": bound(
+                    torch.float64, "merit_adjoint_designer")[0],
+                "designer_step_s": step, "spherical_optimizer_step_s":
+                    opt_step})
+            for dt in ("float32", "float64"):
+                regs, stack, spill = ptxas["K5 %s aspheric all rays=True"
+                                           % dt]
+                sfx = "" if dt == "float64" else "_f32"
+                entry.update({"regs_all_rays" + sfx: regs,
+                              "stack_bytes_all_rays" + sfx: stack,
+                              "spill_bytes_all_rays" + sfx: spill})
+        if kname == "trace_final":
+            big = "_f32_%d_rays" % N_BENCH
+            k, sp_ = times[("trace_final", N_BENCH)]
+            entry.update({"ms" + big: k, "ms_spherical_key" + big: sp_,
+                          "bound_ms" + big: kernel_bound(
+                              kname, N_BENCH, torch.float32, specs, 1, 0,
+                              widths)[0]})
+        out.append(entry)
+    return out
+
+
 def main():
     name, card = phase_card()
     from rayopt_tpu_torch.models import double_gauss
@@ -2930,6 +3522,7 @@ def main():
         [(name, specialize(tab)) for name, _, tab, _ in intercept_cases()])
     keys.update(df32_keys(s))
     keys.update(split_keys(s))
+    keys.update(asphere_keys())
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -2959,7 +3552,8 @@ def main():
     launches.update({k: df32_launches[k] for k in DF32_NAMES})
     del aimed
     torch.cuda.empty_cache()
-    launches.update({k: v for k, v in phase_opt_path().items()
+    opt_launches, opt_step = phase_opt_path()
+    launches.update({k: v for k, v in opt_launches.items()
                      if k in ("weighted_moments", "merit_adjoint")})
     reset_launches()
     phase_glass_path()
@@ -2973,11 +3567,22 @@ def main():
     design_launches = phase_design_path()
     opd = ("opd_chain", "opd_adjoint")
     launches.update({k: design_launches[k] for k in opd})
+    aworst = phase_asphere_check()
+    reset_launches()
+    asph_step = phase_asphere_path(opt_step)
+    asph_launches = read_launches()
+    log("== launch counts on the aspheric path: %s" % asph_launches)
+    asph = ("trace_final", "trace_merit", "weighted_moments",
+            "merit_adjoint")
+    if not all(asph_launches[k] for k in asph):
+        raise AssertionError("a kernel of the aspheric path never launched: "
+                             "%s" % asph_launches)
     times = phase_throughput(table, specs, card)
     gtimes = phase_grad_throughput(table, specs, card)
     mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
     otimes, olive = phase_opd_throughput(s, table, specs, card)
     dtimes, dlive = phase_df32_throughput(s, card)
+    atimes, alive = phase_asphere_throughput(card)
     # live rays of the K5 timing bundles (its reverse runs for these only)
     live_mono = float(trace_merit(table, specs, bench_bundle(
         N_GRAD_TIME, torch.float32, SEED + 1))[0])
@@ -3124,6 +3729,8 @@ def main():
         if tt is not times:
             entry["ms_f32_%d_rays" % N_BENCH] = tt[(kname, N_BENCH)]
         kernels.append(entry)
+    kernels += asphere_entries(sources, asph_launches, aworst, atimes,
+                               alive, ptxas, asph_step, opt_step)
     kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())

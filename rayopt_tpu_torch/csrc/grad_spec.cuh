@@ -11,6 +11,14 @@
 // weight) cotangents.  The wavelength count of K7 stays a run-time
 // argument.  No kernel reads its row flags at run time.
 //
+// Rows: flat, spherical and conic (every kernel); even- and odd-aspheric
+// (K1, K2, K4 and K5 only: their seeded Newton intercept, its radial
+// normal and, in K5, its implicit reverse; the key carries the table's
+// coefficient widths, RAYOPT_N_ASP and RAYOPT_N_ODD, so the Horner loops
+// have compile-time bounds and a row grows by N_ASP + N_ODD words).  K3
+// and K6-K9 keys refuse aspheric rows (ROADMAP Queue 1 item 9), as every
+// key refuses the anamorphic, grating, DOE and freeform rows.
+//
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
 //   K2  rayopt_tpu/ops/pallas_trace.py  _merit_kernel         (pallas_trace_merit)
@@ -43,7 +51,10 @@
 // ~540 operations a ray on the double Gauss (the adjoints ~4x that: the
 // forward, then each row's recompute and reverse), with an IEEE
 // division and square roots a row; K1's 52 (float32) or 104 (float64)
-// bytes a ray of HBM traffic run beside it.
+// bytes a ray of HBM traffic run beside it.  An aspheric row adds its
+// Newton: 11 residuals and 10 slopes, each a square root and a division
+// (two in the slope), the Horner loops of its widths, and in K5 the whole
+// Newton again in the recompute (chip_smoke.row_flops counts them).
 //
 // What the design does about it.
 //  * The row loop unrolls over the parameter pack: surface_step and
@@ -121,13 +132,16 @@
 
 namespace {
 
-constexpr int LIVE_SHIFT = 8;  // a row word's live slots: cuda_spec.LIVE_SHIFT
-constexpr int LIVE_BITS = OPD_SLOTS;  // K9's 7 columns; K5/K7 use SLOTS
+// a row word's live slots above its flags: cuda_spec.LIVE_SHIFT
+constexpr int LIVE_SHIFT = 10;
+// the bits above it: K9's OPD_SLOTS, K5's FIG_SLOTS (cuda_spec.LIVE_BITS)
+constexpr int LIVE_BITS = 31 - LIVE_SHIFT;
 constexpr int FLAG_MASK = (1 << LIVE_SHIFT) - 1;
+static_assert(FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
 
 // The rows of one key: W holds a word a row, its flags in the low
-// LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z, mu;
-// K9 also n_before) that row reduces.
+// LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z, mu,
+// then K5's aspheric coefficients; K9 n_before) that row reduces.
 template <int... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -313,12 +327,12 @@ __device__ __forceinline__ void chain_reverse(const volatile T* tab,
                                              T ct_path = T(0)) {
   static_for(std::make_integer_sequence<int, R - 1>{}, [&](auto r) {
     constexpr int j = R - 1 - decltype(r)::value;
-    T st[6], pg[OPD_SLOTS];
+    T st[6], pg[PG_SLOTS];
 #pragma unroll
     for (int q = 0; q < 6; ++q) st[q] = saved[((j - 1) * 6 + q) * BLOCK];
     surface_step_vjp<T, PATH>(tab + j * ROW, RowFlags<C, j>{}, st, g, pg,
                               ct_path);
-    add_slots<C, j, PATH ? OPD_SLOTS : SLOTS>(pg, acc);
+    add_slots<C, j, PATH ? OPD_SLOTS : FIG_SLOTS>(pg, acc);
   });
 }
 
@@ -540,10 +554,11 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_spec(
 }
 
 // K5: the analytic adjoint of K4's moments dotted with ct (5 values).
-// out: (rows, SLOTS) parameter cotangents, zero where a slot is not
-// live; with RAYS the six ray and the weight cotangents a ray (zeros
-// for a dead ray).  Dynamic shared memory: the saved states,
-// (rows - 1) * 6 * BLOCK words.
+// out: (rows, FIG_SLOTS) parameter cotangents (SLOTS, then a figured
+// table's aspheric coefficients), zero where a slot is not live; with
+// RAYS the six ray and the weight cotangents a ray (zeros for a dead
+// ray).  Dynamic shared memory: the saved states, (rows - 1) * 6 *
+// BLOCK words.
 template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int MINB>
 __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_spec(
     const T* __restrict__ table, const T* __restrict__ ix,
@@ -591,7 +606,7 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_spec(
   // the live slots: block, then grid, once
   block_sum<T, BLOCK>(acc, s_red, s_part);
   if (grid_sum<T, BLOCK>(s_part, NL, partials, counter))
-    write_slots<T, C, SLOTS, BLOCK>(out, s_part);
+    write_slots<T, C, FIG_SLOTS, BLOCK>(out, s_part);
 }
 
 // K7: K5 for each table of an nlam stack (table: nlam * rows * ROW
@@ -890,7 +905,7 @@ constexpr size_t opd_dynamic_smem() {
   RAYOPT_SPEC_MOMENTS_OF(NAME, T, CHAIN, CLIP, true, NLAM, BLOCK, MINB)
 
 // K5 launchers of one key: NAME(table, 6 rays, w, ct (5,), partials
-// (grid, live slots), counter, out (rows, SLOTS), 6 ray + 1 weight
+// (grid, live slots), counter, out (rows, FIG_SLOTS), 6 ray + 1 weight
 // cotangents (n,; ignored without RAYS), n, grid, stream);
 // NAME_blocks_per_sm(&blocks); NAME_error_string(err).
 #define RAYOPT_SPEC_ADJOINT(NAME, T, CHAIN, CLIP, RAYS, BLOCK, MINB)          \

@@ -16,11 +16,237 @@ namespace {
 constexpr int SLOTS = 6;      // parameter cotangents a row: cuda_grad.SLOTS
 constexpr int OPD_SLOTS = 7;  // K9's a row, + n_before: cuda_grad.OPD_SLOTS
 constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
+// K5's a row: SLOTS, then the even and the odd aspheric coefficients
+constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD;
+// a row's per-ray parameter cotangents, the widest of the two
+constexpr int PG_SLOTS = FIG_SLOTS > OPD_SLOTS ? FIG_SLOTS : OPD_SLOTS;
+
+// Hand-derived reverse of a FIGURED row's step (surface_step with
+// F_ASPHERIC or F_ODD) for one live ray, as surface_step_vjp without
+// PATH: the refraction by the radial normal (the flagged figures'
+// slopes), the transfer, then the Newton intercept differentiated
+// implicitly at its root -- one residual gradient dF/dp scaled by
+// -gt / F_s, the seed holding no cotangent (kernels._NewtonRoot).  pg:
+// out, FIG_SLOTS cotangents (c, k, offset x, y, z, mu, the even, then
+// the odd coefficients).  Its torch model is the figured branch of
+// cuda_grad._step_vjp_reference.  An on-axis ray through an odd figure
+// gets NaN (sqrt(r2) at r2 = 0), as autograd and the reference give.
+template <typename T, typename Flags, typename Row>
+__device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
+                                                 T* g, T* pg) {
+  constexpr int fl = Flags::value;
+  constexpr bool off_axis = fl & F_OFF_AXIS;
+  constexpr bool rotated = fl & F_ROTATED;
+  constexpr int kind = (fl >> KIND_SHIFT) & 3;
+  const T c = p[P_C];
+  const T k = p[P_K];
+  const T mu = p[P_MU];
+  const Figure<T> fg = load_figure<T>(p);
+  T x = s[0], y = s[1], z = s[2], ux = s[3], uy = s[4], uz = s[5];
+  // ---- forward recompute ----
+  if (off_axis) {
+    x = x - p[P_OFF];
+    y = y - p[P_OFF + 1];
+  }
+  z = z - p[P_OFF + 2];
+  if (rotated) {
+    rot_apply(p + P_ROT, x, y, z);
+    rot_apply(p + P_ROT, ux, uy, uz);
+  }
+  const T t = newton_intercept(x, y, z, ux, uy, uz, c, k,
+                               (fl & F_ALTERNATE) ? T(-1) : T(1), fg);
+  const T x1 = x + t * ux;
+  const T y1 = y + t * uy;
+  // ---- reverse: leave the row's frame ----
+  T gx1 = g[0], gy1 = g[1], gz1 = g[2], gvx = g[3], gvy = g[4], gvz = g[5];
+  if (rotated) {
+    rot_apply(p + P_ROT, gx1, gy1, gz1);
+    rot_apply(p + P_ROT, gvx, gvy, gvz);
+  }
+  T gc = T(0), gk = T(0), gmu = T(0), gux, guy, guz;
+  T ga[N_ASP > 0 ? N_ASP : 1], gb[N_ODD > 0 ? N_ODD : 1];
+#pragma unroll
+  for (int i = 0; i < N_ASP; ++i) ga[i] = T(0);
+#pragma unroll
+  for (int j = 0; j < N_ODD; ++j) gb[j] = T(0);
+  // ---- reverse: refraction by the radial normal ----
+  if (kind == 0) {
+    gux = gvx; guy = gvy; guz = gvz;
+  } else {
+    const T r2s = x1 * x1 + y1 * y1;
+    const T kc2 = (T(1) + k) * c * c;
+    const T m = T(1) - kc2 * r2s;
+    const T mm = floor_at(m, T(TINY));
+    const T rs = T(1) / sqrt(mm);
+    T e = -c * rs;
+    if (fl & F_ASPHERIC) e = e - dpoly_even(r2s, fg.a);
+    if (fl & F_ODD) e = e - dpoly_odd(r2s, fg.b);
+    const T nx = x1 * e;
+    const T ny = y1 * e;
+    const T ir2 = T(1) / (nx * nx + ny * ny + T(1));
+    const T dot = ux * nx + uy * ny + uz;
+    T gnx, gny, gdot, gir2;
+    if (kind == 2) {
+      const T a2 = T(2) * dot * ir2;
+      gux = gvx; guy = gvy; guz = gvz;
+      gnx = -a2 * gvx; gny = -a2 * gvy;
+      const T ga2 = -(gvx * nx + gvy * ny + gvz);
+      gdot = T(2) * ir2 * ga2;
+      gir2 = T(2) * dot * ga2;
+    } else {
+      const T muf = fabs(mu);
+      const T sgmu = sgn(mu);
+      const T a = muf * dot * ir2;
+      const T sq2 = sqrt0(a * a - (mu * mu - T(1)) * ir2);
+      const T q2 = -a + sgmu * sq2;
+      T gmuf = ux * gvx + uy * gvy + uz * gvz;
+      gux = muf * gvx; guy = muf * gvy; guz = muf * gvz;
+      const T gq2 = gvx * nx + gvy * ny + gvz;
+      gnx = q2 * gvx; gny = q2 * gvy;
+      const T gdisc2 = gq2 * sgmu * T(0.5) / sq2;
+      const T gam = -gq2 + T(2) * a * gdisc2;
+      gmu = -T(2) * mu * ir2 * gdisc2;
+      gir2 = -(mu * mu - T(1)) * gdisc2 + muf * dot * gam;
+      gmuf = gmuf + dot * ir2 * gam;
+      gdot = muf * ir2 * gam;
+      gmu = gmu + sgmu * gmuf;
+    }
+    gux = gux + gdot * nx; guy = guy + gdot * ny; guz = guz + gdot;
+    gnx = gnx + gdot * ux; gny = gny + gdot * uy;
+    const T s2 = -T(2) * ir2 * ir2 * gir2;
+    gnx = gnx + s2 * nx; gny = gny + s2 * ny;
+    // n = (x1 e, y1 e)
+    const T ge = x1 * gnx + y1 * gny;
+    gx1 = gx1 + e * gnx; gy1 = gy1 + e * gny;
+    // e = -c rs - dpoly_even - dpoly_odd, rs = 1/sqrt(max(m, TINY))
+    gc = gc - rs * ge;
+    const T gm = m >= T(TINY) ? T(-0.5) * rs * rs * rs * (-c * ge) : T(0);
+    gk = gk - c * c * r2s * gm;
+    gc = gc - T(2) * (T(1) + k) * c * r2s * gm;
+    T gr2s = -kc2 * gm;
+    if (fl & F_ASPHERIC) {
+      // d/dr2 and d/da_i of sum_i 2 (i+1) a_i r2^i, times -ge
+      T dd = T(0), pw = T(1);
+#pragma unroll
+      for (int i = N_ASP - 1; i >= 1; --i)
+        dd = dd * r2s + T(2 * (i + 1) * i) * fg.a[i];
+#pragma unroll
+      for (int i = 0; i < N_ASP; ++i) {
+        ga[i] = ga[i] - T(2 * (i + 1)) * pw * ge;
+        pw = pw * r2s;
+      }
+      gr2s = gr2s - dd * ge;
+    }
+    if (fl & F_ODD) {
+      // dpoly_odd = q/r + 2 r q', r = max(sqrt(r2), TINY), times -ge
+      T q = T(0), dq = T(0), ddq = T(0);
+#pragma unroll
+      for (int j = N_ODD - 1; j >= 0; --j) q = q * r2s + fg.b[j];
+#pragma unroll
+      for (int j = N_ODD - 1; j >= 1; --j) dq = dq * r2s + T(j) * fg.b[j];
+#pragma unroll
+      for (int j = N_ODD - 1; j >= 2; --j)
+        ddq = ddq * r2s + T(j * (j - 1)) * fg.b[j];
+      const T sr = sqrt(r2s);
+      const T r = floor_at(sr, T(TINY));
+      const T gq = -ge / r;
+      const T gdq = -ge * T(2) * r;
+      const T gr = ge * q / (r * r) - ge * T(2) * dq;
+      const T gsr = sr >= T(TINY) ? gr : T(0);
+      gr2s = gr2s + gsr / (T(2) * sr) + gq * dq + gdq * ddq;
+      T pw = T(1), pw1 = T(1);
+#pragma unroll
+      for (int j = 0; j < N_ODD; ++j) {
+        gb[j] = gb[j] + gq * pw;
+        if (j >= 1) {
+          gb[j] = gb[j] + gdq * T(j) * pw1;
+          pw1 = pw1 * r2s;
+        }
+        pw = pw * r2s;
+      }
+    }
+    gx1 = gx1 + T(2) * x1 * gr2s;
+    gy1 = gy1 + T(2) * y1 * gr2s;
+  }
+  // ---- reverse: transfer x1 = x + t u ----
+  T gx = gx1, gy = gy1, gz = gz1;
+  gux = gux + t * gx1; guy = guy + t * gy1; guz = guz + t * gz1;
+  const T gt = ux * gx1 + uy * gy1 + uz * gz1;
+  // ---- reverse: the Newton root, implicitly: dF/dp * (-gt / F_s) ----
+  const T gF = -gt / newton_slope(t, x, y, ux, uy, uz, c, k, fg);
+  {
+    // F = pz - c r2 / (1 + sqrt0(w)) - poly_even(r2) - poly_odd(r2),
+    // w = 1 - (1+k) c^2 r2, at p = (x, y, z) + t u
+    const T px = x + t * ux;
+    const T py = y + t * uy;
+    const T r2 = px * px + py * py;
+    const T kc2 = (T(1) + k) * c * c;
+    const T w = T(1) - kc2 * r2;
+    const T sq = sqrt0(w);
+    const T den = T(1) + sq;
+    const T gnum = -gF / den;                    // of c r2
+    const T gsq = gF * (c * r2) / (den * den);   // of sq
+    const T gw = w >= T(0) ? gsq / (T(2) * sq) : T(0);
+    gk = gk - c * c * r2 * gw;
+    gc = gc - T(2) * (T(1) + k) * c * r2 * gw + r2 * gnum;
+    T gr2 = -kc2 * gw + c * gnum;
+    if (N_ASP) {
+      // -sum_i a_i r2^(i+1)
+      T d1 = T(0), pw = r2;
+#pragma unroll
+      for (int i = N_ASP - 1; i >= 0; --i)
+        d1 = d1 * r2 + T(i + 1) * fg.a[i];
+#pragma unroll
+      for (int i = 0; i < N_ASP; ++i) {
+        ga[i] = ga[i] - gF * pw;
+        pw = pw * r2;
+      }
+      gr2 = gr2 - gF * d1;
+    }
+    if (N_ODD) {
+      // -sqrt(r2) sum_j b_j r2^j
+      T q = T(0), dq = T(0);
+#pragma unroll
+      for (int j = N_ODD - 1; j >= 0; --j) q = q * r2 + fg.b[j];
+#pragma unroll
+      for (int j = N_ODD - 1; j >= 1; --j) dq = dq * r2 + T(j) * fg.b[j];
+      const T sr = sqrt(r2);
+      gr2 = gr2 - gF * q / (T(2) * sr) - gF * sr * dq;
+      T pw = sr;
+#pragma unroll
+      for (int j = 0; j < N_ODD; ++j) {
+        gb[j] = gb[j] - gF * pw;
+        pw = pw * r2;
+      }
+    }
+    const T gpx = T(2) * px * gr2;
+    const T gpy = T(2) * py * gr2;
+    gx = gx + gpx; gy = gy + gpy; gz = gz + gF;
+    gux = gux + t * gpx; guy = guy + t * gpy; guz = guz + t * gF;
+  }
+  // ---- reverse: enter the row's frame ----
+  if (rotated) {
+    rot_apply_t(p + P_ROT, gx, gy, gz);
+    rot_apply_t(p + P_ROT, gux, guy, guz);
+  }
+  g[0] = gx; g[1] = gy; g[2] = gz;
+  g[3] = gux; g[4] = guy; g[5] = guz;
+  pg[0] = gc;
+  pg[1] = gk;
+  pg[2] = off_axis ? -gx : T(0);
+  pg[3] = off_axis ? -gy : T(0);
+  pg[4] = -gz;
+  pg[5] = gmu;
+#pragma unroll
+  for (int i = 0; i < N_ASP; ++i) pg[SLOTS + i] = ga[i];
+#pragma unroll
+  for (int j = 0; j < N_ODD; ++j) pg[SLOTS + N_ASP + j] = gb[j];
+}
 
 // Hand-derived reverse of surface_step for one live ray, the flags and
-// the row pointer as in surface_step.  s: the state
-// entering the row (global frame).  g: in, the cotangent of the state
-// leaving the row; out, the cotangent of s.
+// the row pointer as in surface_step (a figured row: figured_step_vjp).
+// s: the state entering the row (global frame).  g: in, the cotangent of
+// the state leaving the row; out, the cotangent of s.
 // pg: out, the row's parameter cotangents (c, k, offset x, y, z, mu;
 // with PATH also n_before).  With PATH, ct_path is the cotangent of the
 // row's optical path t * n_before (K9); without it the path has none
@@ -31,6 +257,11 @@ template <typename T, bool PATH = false, typename Flags,
 __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
                                                  const T* s, T* g, T* pg,
                                                  T ct_path = T(0)) {
+  if constexpr ((Flags::value & F_FIGURED) != 0) {
+    static_assert(!PATH, "the OPD adjoint takes no aspheric row");
+    figured_step_vjp<T>(p, flags, s, g, pg);
+    return;
+  }
   const int fl = flag_value(flags);
   const bool off_axis = fl & F_OFF_AXIS;
   const bool rotated = fl & F_ROTATED;

@@ -3,9 +3,10 @@
 // the compile-time flags, the grid-wide sum's last block and the
 // shared-memory opt-in): the packed table layout, the flag bits, the
 // guarded math, one surface step with its row flags as compile-time
-// constants, the compile-time loop and the last block of a fused
-// grid-wide sum.  Each translation unit that includes it gets its own
-// internal copies.
+// constants (flat, spherical, conic and even/odd aspheric rows: the
+// latter by the seeded Newton intercept, `newton_intercept`), the
+// compile-time loop and the last block of a fused grid-wide sum.  Each
+// translation unit that includes it gets its own internal copies.
 
 #pragma once
 
@@ -17,8 +18,21 @@
 
 namespace {
 
-// packed row layout: keep in sync with cuda_trace.py (ROW, P_*)
-constexpr int ROW = 17;
+// The aspheric coefficients a row of this key's table carries: the
+// table's even and odd widths when some row is figured, else 0 (a
+// translation unit defines them before the include; cuda_spec.Key.na/no)
+#ifndef RAYOPT_N_ASP
+#define RAYOPT_N_ASP 0
+#endif
+#ifndef RAYOPT_N_ODD
+#define RAYOPT_N_ODD 0
+#endif
+constexpr int N_ASP = RAYOPT_N_ASP;
+constexpr int N_ODD = RAYOPT_N_ODD;
+
+// packed row layout: keep in sync with cuda_trace.py (ROW, P_*); the
+// coefficients follow the 17 base words
+constexpr int ROW = 17 + N_ASP + N_ODD;
 constexpr int P_C = 0;     // curvature
 constexpr int P_K = 1;     // conic
 constexpr int P_OFF = 2;   // offset x, y, z
@@ -26,6 +40,8 @@ constexpr int P_ROT = 5;   // rot, row-major 3x3
 constexpr int P_RAD = 14;  // aperture radius
 constexpr int P_MU = 15;   // refraction ratio
 constexpr int P_NB = 16;   // index before the surface
+constexpr int P_ASP = 17;          // even aspheric coefficients (N_ASP)
+constexpr int P_ODD = 17 + N_ASP;  // odd aspheric coefficients (N_ODD)
 
 // flag bits: keep in sync with cuda_trace.py (F_*)
 constexpr int F_FLAT = 1;
@@ -35,6 +51,17 @@ constexpr int F_OFF_AXIS = 8;
 constexpr int F_ALTERNATE = 16;
 constexpr int F_FINITE = 32;
 constexpr int KIND_SHIFT = 6;  // 2 bits: 0 pass, 1 refract, 2 mirror
+constexpr int F_ASPHERIC = 256;  // even figure: its slopes in the normal
+constexpr int F_ODD = 512;       // odd figure: its slopes in the normal
+constexpr int F_FIGURED = F_ASPHERIC | F_ODD;  // the seeded Newton intercept
+
+// the Newton intercept of a figured row (kernels.intercept)
+constexpr int ASPHERIC_ITERS = 10;
+constexpr double TINY = 1e-30;
+// the convergence tolerance, floored at 64 epsilons (kernels._tol_for)
+template <typename T> __device__ __forceinline__ constexpr T newton_tol() {
+  return sizeof(T) == 4 ? T(64 * 1.1920928955078125e-7) : T(1e-9);
+}
 
 template <typename T> __device__ __forceinline__ T qnan();
 template <> __device__ __forceinline__ float qnan<float>() {
@@ -81,9 +108,144 @@ __device__ __forceinline__ constexpr int flag_value(
   return F;
 }
 
+// A figured row's coefficients, read once into registers.
+template <typename T>
+struct Figure {
+  T a[N_ASP > 0 ? N_ASP : 1];
+  T b[N_ODD > 0 ? N_ODD : 1];
+};
+
+template <typename T, typename Row>
+__device__ __forceinline__ Figure<T> load_figure(Row p) {
+  Figure<T> f;
+#pragma unroll
+  for (int i = 0; i < N_ASP; ++i) f.a[i] = p[P_ASP + i];
+#pragma unroll
+  for (int j = 0; j < N_ODD; ++j) f.b[j] = p[P_ODD + j];
+  return f;
+}
+
+// max(x, lo) that lets NaN through (torch.clamp, jnp.maximum)
+template <typename T> __device__ __forceinline__ T floor_at(T x, T lo) {
+  return x < lo ? lo : x;
+}
+
+// sum_i a[i] r2^(i+1) (kernels._poly_even, Horner)
+template <typename T>
+__device__ __forceinline__ T poly_even(T r2, const T* a) {
+  T d = T(0);
+#pragma unroll
+  for (int i = N_ASP - 1; i >= 0; --i) d = (d + a[i]) * r2;
+  return d;
+}
+
+// sum_i 2 (i+1) a[i] r2^i (kernels._dpoly_even)
+template <typename T>
+__device__ __forceinline__ T dpoly_even(T r2, const T* a) {
+  T d = T(0);
+#pragma unroll
+  for (int i = N_ASP - 1; i >= 0; --i) d = d * r2 + T(2 * (i + 1)) * a[i];
+  return d;
+}
+
+// sqrt(r2) sum_j b[j] r2^j (kernels._poly_odd)
+template <typename T>
+__device__ __forceinline__ T poly_odd(T r2, const T* b) {
+  T d = T(0);
+#pragma unroll
+  for (int j = N_ODD - 1; j >= 0; --j) d = d * r2 + b[j];
+  return sqrt(r2) * d;
+}
+
+// P(r2)/r + 2 r P'(r2), r = max(sqrt(r2), TINY) (kernels._dpoly_odd)
+template <typename T>
+__device__ __forceinline__ T dpoly_odd(T r2, const T* b) {
+  T q = T(0), dq = T(0);
+#pragma unroll
+  for (int j = N_ODD - 1; j >= 0; --j) q = q * r2 + b[j];
+#pragma unroll
+  for (int j = N_ODD - 1; j >= 1; --j) dq = dq * r2 + T(j) * b[j];
+  const T r = floor_at(sqrt(r2), T(TINY));
+  return q / r + T(2) * r * dq;
+}
+
+// The Newton residual F = z - sag(x, y) of a figured row at (px, py,
+// pz): the conic and EVERY coefficient of the table's widths
+// (kernels.sag through _newton_residual).
+template <typename T>
+__device__ __forceinline__ T sag_residual(T px, T py, T pz, T c, T k,
+                                          const Figure<T>& fg) {
+  const T r2 = px * px + py * py;
+  T e = pz - c * r2 / (T(1) + sqrt0(T(1) - (T(1) + k) * c * c * r2));
+  if (N_ASP) e = e - poly_even(r2, fg.a);
+  if (N_ODD) e = e - poly_odd(r2, fg.b);
+  return e;
+}
+
+// The radial factor of the normal (x e, y e, 1) at (px, py), every
+// coefficient (kernels.normal_radial through _newton_slope).
+template <typename T>
+__device__ __forceinline__ T radial_factor(T px, T py, T c, T k,
+                                           const Figure<T>& fg) {
+  const T r2 = px * px + py * py;
+  T e = -c / sqrt0(T(1) - (T(1) + k) * c * c * r2);
+  if (N_ASP) e = e - dpoly_even(r2, fg.a);
+  if (N_ODD) e = e - dpoly_odd(r2, fg.b);
+  return e;
+}
+
+// dF/ds along the ray at distance s, a zero slope taken as 1 (the
+// Newton step and the implicit derivative's F_s)
+template <typename T>
+__device__ __forceinline__ T newton_slope(T s, T x, T y, T ux, T uy, T uz,
+                                          T c, T k, const Figure<T>& fg) {
+  const T px = x + s * ux;
+  const T py = y + s * uy;
+  const T e = radial_factor(px, py, c, k, fg);
+  const T fp = ux * (px * e) + uy * (py * e) + uz;
+  return fp == T(0) ? T(1) : fp;
+}
+
+// kernels.intercept on a figured row: the generic conic root
+// (intercept_conic, its cancellation-free pair) seeds ASPHERIC_ITERS
+// Newton steps on the exact sag, no early exit; a ray whose residual
+// exceeds newton_tol() * (1 + |s|), or whose seed misses a curved row,
+// is NaN.  sg: -1 for the alternate root.
+template <typename T>
+__device__ __forceinline__ T newton_intercept(T x, T y, T z, T ux, T uy,
+                                              T uz, T c, T k, T sg,
+                                              const Figure<T>& fg) {
+  const T k1 = T(1) + k;
+  const T uyd = ux * x + uy * y + k1 * uz * z;
+  const T uu = ux * ux + uy * uy + k1 * uz * uz;
+  const T yy = x * x + y * y + k1 * z * z;
+  const T d = c * uyd - uz;
+  const T e = c * uu;
+  const T f = c * yy - T(2) * z;
+  const T disc = d * d - e * f;
+  const T g = sqrt0(disc) * sg;
+  const bool conj = d * g <= T(0) || e == T(0);
+  T den = conj ? g - d : e;
+  if (den == T(0)) den = T(1);
+  T seed = (conj ? f : -(d + g)) / den;
+  if (c == T(0)) seed = -z / (uz == T(0) ? T(1) : uz);
+  if (c != T(0) && disc < T(0)) seed = qnan<T>();
+  T s = seed;
+#pragma unroll 1
+  for (int it = 0; it < ASPHERIC_ITERS; ++it) {
+    const T fn = sag_residual(x + s * ux, y + s * uy, z + s * uz, c, k, fg);
+    s = s - fn / newton_slope(s, x, y, ux, uy, uz, c, k, fg);
+  }
+  const T res = sag_residual(x + s * ux, y + s * uy, z + s * uz, c, k, fg);
+  if (!(fabs(res) <= newton_tol<T>() * (T(1) + fabs(s)))) s = qnan<T>();
+  if (isnan(seed) && c != T(0)) s = qnan<T>();
+  return s;
+}
+
 // One transfer-intercept-refract step: kernels.surface_step_spec for
-// flat, spherical and conic rows.  State in and out in the global
-// (from_normal) frame; adds the optical path n_before * t to tacc.
+// flat, spherical, conic and even/odd aspheric rows.  State in and out
+// in the global (from_normal) frame; adds the optical path n_before * t
+// to tacc.
 // The row's flags arrive as std::integral_constant<int, F> (K1-K9,
 // grad_spec.cuh): every `fl & F_*` below is a constant and the branches
 // it does not take fold away.  p, the row's packed words in shared
@@ -107,9 +269,15 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   }
   const T c = p[P_C];
   const T k = p[P_K];
-  // intercept_spec
+  const bool figured = fl & F_FIGURED;
+  Figure<T> fg;
+  if (figured) fg = load_figure<T>(p);
+  // intercept_spec, or a figured row's seeded Newton
   T t;
-  if (fl & F_FLAT) {
+  if (figured) {
+    t = newton_intercept(x, y, z, ux, uy, uz, c, k,
+                         (fl & F_ALTERNATE) ? T(-1) : T(1), fg);
+  } else if (fl & F_FLAT) {
     const T uz_safe = uz == T(0) ? T(1) : uz;
     t = -z / uz_safe;
   } else {
@@ -154,7 +322,34 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   if (kind != 0) {
     const T mu = p[P_MU];
     const T muf = fabs(mu);
-    if (fl & F_FLAT) {
+    if (figured) {
+      // the radial normal (x e, y e, 1) of _refract_figured: the conic
+      // factor by an IEEE square root and division, then the slopes of
+      // the flagged figures
+      const T r2s = x1 * x1 + y1 * y1;
+      const T m = floor_at(T(1) - (T(1) + k) * c * c * r2s, T(TINY));
+      T e = -c * (T(1) / sqrt(m));
+      if (fl & F_ASPHERIC) e = e - dpoly_even(r2s, fg.a);
+      if (fl & F_ODD) e = e - dpoly_odd(r2s, fg.b);
+      const T nx = x1 * e;
+      const T ny = y1 * e;
+      const T ir2 = T(1) / (nx * nx + ny * ny + T(1));
+      const T dot = vx * nx + vy * ny + vz;
+      if (kind == 2) {
+        const T a2 = T(2) * dot * ir2;
+        vx = vx - a2 * nx;
+        vy = vy - a2 * ny;
+        vz = vz - a2;
+      } else {
+        const T a = muf * dot * ir2;
+        const T disc = a * a - (mu * mu - T(1)) * ir2;
+        T g = -a + sgn(mu) * sqrt0(disc);
+        if (disc < T(0)) g = qnan<T>();
+        vx = muf * vx + g * nx;
+        vy = muf * vy + g * ny;
+        vz = muf * vz + g;
+      }
+    } else if (fl & F_FLAT) {
       if (kind == 2) {
         vz = -vz;
       } else {

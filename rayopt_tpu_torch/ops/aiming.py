@@ -19,9 +19,10 @@ iteration count.
 The loops never wait on the host: fixed trip counts, torch.where for
 every guard, and no .item(), bool(tensor) or nonzero inside them.  The
 table's checks that read it on the host (the pose lowering, the
-conic-only refusals) run once before them (`_prepared`).  Each merit is
-a trace through the plain ops.geometric engine, in the table's dtype on
-its device: on a CUDA table a few hundred small launches.
+refusal of the anamorphic vocabulary) run once before them
+(`_prepared`).  Each merit is a trace through the plain ops.geometric
+engine, in the table's dtype on its device (an aspheric row by its
+fixed-count Newton): on a CUDA table a few hundred small launches.
 
 Field coordinates: `field` is (F, 2) fractional object coordinates.
 For the infinite conjugate pass `slope=tan(object.angle)` (or
@@ -40,27 +41,30 @@ from .surfaces import surface_sag
 from .tables import lower_pose
 
 #: the table fields the loops never read once `_prepared` checked them
-_CHECKED = ("aspherics", "aspherics_odd", "curvature_dx", "conic_dx",
-            "toroidal", "grating_dy", "doe", "xy_poly", "tilt", "decenter")
+#: (the aspheric coefficients stay: the traces' Newton reads them on the
+#: device, and tests only their static widths)
+_CHECKED = ("curvature_dx", "conic_dx", "toroidal", "grating_dy", "doe",
+            "xy_poly", "tilt", "decenter")
 
 
 def _prepared(table, specs, rim=False):
     """The table detached, its pose folded, and refused (once, here)
-    where the loops would refuse it: a figured or extended-vocabulary
-    row (the port's traces and the finite conjugate's object sag are
-    conic only), and rim mode on extended-vocabulary specs (ROADMAP
-    Queue 1 item 9).  The fields those checks read become None, so that
-    the loops' traces and sags read nothing back to the host.
+    where the loops would refuse it: an anamorphic, grating, DOE or
+    freeform row (the port's traces and the finite conjugate's object
+    sag take the rotationally symmetric rows: flat, spherical, conic
+    and even/odd aspheric), and rim mode on such specs (ROADMAP Queue 1
+    item 9).  The fields those checks read become None, so that the
+    loops' traces and sags read nothing back to the host.
     Idempotent."""
     if rim and specs and any(s.biconic or s.toroidal or s.grating or s.doe
-                             or s.cyl_axis or s.odd for s in specs):
+                             or s.cyl_axis or s.freeform for s in specs):
         # rim mode traces every row with the general trace
         from ..parallel.grad import _not_ported
         _not_ported("rim-mode aiming through the extended surface "
                     "vocabulary", 9)
     table = lower_pose(type(table)(*(None if f is None else f.detach()
                                      for f in table)))
-    K.require_conic(table)
+    K.require_radial(table)
     return table.replace(**dict.fromkeys(_CHECKED))
 
 
@@ -173,7 +177,7 @@ def _seed_finite(table, fx, fy, z, px, py, scale, radius):
     object surface at -field*radius, direction at the axial pupil
     point, tilted by scale*(px, py) in the pupil plane
     (reference conjugates.py:137-166).  The object surface is a conic
-    (surfaces.surface_sag refuses a figure; `_prepared` refused one)."""
+    with even/odd aspheric figure (`_prepared` refused a freeform)."""
     ox = -fx*radius
     oy = -fy*radius
     pos = torch.stack([ox, oy, torch.zeros_like(ox)], -1)
@@ -225,7 +229,7 @@ def _clearance(table, specs, stop, fx, fy, z, px, py, scale, r2,
     state = _seed(table, fx, fy, z, px, py, scale, slope, radius,
                   finite, projection)
     if rim:
-        # the generic trace: `_prepared` refused the extended vocabulary
+        # the generic trace: `_prepared` refused the anamorphic rows
         y0 = torch.stack(state[:3], -1)
         u0 = torch.stack(state[3:], -1)
         ys = trace_rays(table, y0, u0)[0]

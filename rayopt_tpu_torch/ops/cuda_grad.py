@@ -30,18 +30,26 @@ the parameter cotangents per wavelength (nlam, S, SLOTS), so autograd
 through the stacking (glass_tables, a broadcast curvature) sums the
 shared geometry.
 
+K1, K2, K4 and K5 trace even- and odd-aspheric rows (the seeded Newton
+intercept); K5 reverses such a row by hand (csrc/step_vjp.cuh
+figured_step_vjp): its refraction, then the Newton root implicitly,
+one residual gradient scaled by -gt/F_s, as kernels._NewtonRoot does,
+and reduces the row's aspheric coefficients beside its six columns.
+K6-K9 refuse an aspheric row on either device (ROADMAP Queue 1 item 9).
+
 `spot_moments` and `adjoint_spot_rms` bind K4/K5 in one
 torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`),
 `spot_moments_multi` and `polychromatic_spot_rms` bind K6/K7 in the
 same Function (`_moments_multi`):
-gradients flow to the table's curvature, conic, offset and mu (and
-through tables.lower_pose to decenter), to the ray state and to the
-weights.  n_before, which feeds only the optical path, receives a zero
-cotangent.  The gradient semantics are those of the SPECIALIZED
-engine: a parameter the static specs bake out (the conic of a
-spherical row, the transverse offset of an on-axis row, mu of a
-passthrough row) gets exactly zero gradient, and the call warns once
-when such a parameter is the one being optimized.  rot is not
+gradients flow to the table's curvature, conic, offset, mu and aspheric
+coefficients (and through tables.lower_pose to decenter), to the ray
+state and to the weights.  n_before, which feeds only the optical path,
+receives a zero cotangent.  The gradient semantics are those of the
+SPECIALIZED engine: a parameter the static specs bake out (the conic of
+a spherical row, the transverse offset of an on-axis row, mu of a
+passthrough row, the coefficients of a row with no figure) gets exactly
+zero gradient, and the call warns once when such a parameter is the one
+being optimized.  rot is not
 differentiated: a rot (or tilt) that requires grad while some spec row
 is rotated raises NotImplementedError.
 
@@ -88,16 +96,18 @@ import torch
 from . import cuda_spec as CS
 from . import kernels as K
 from .cuda_spec import launch_moments, packed, spec_launch
-from .cuda_trace import (_check_state, spot_rms_from_moments,
-                         trace_final_reference)
+from .cuda_trace import (_check_state, figure_widths, refuse_figured,
+                         spot_rms_from_moments, trace_final_reference)
 from .tables import lower_pose, table_at
 
 SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
 OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
 AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
-#: differentiable table fields the autograd Function carries
+#: differentiable table fields the OPD's autograd Function carries
 _DIFF = ("curvature", "conic", "offset", "mu", "n_before")
+#: and the spot moments' (K5 also reduces a figured row's coefficients)
+_SPOT_DIFF = _DIFF + ("aspherics", "aspherics_odd")
 #: kernel-carried fields that never receive cotangents
 _NONDIFF = ("radius", "alternate")
 #: the fields the reference kernel carries (pallas_trace._FIELDS)
@@ -145,46 +155,55 @@ def _constant_table(table, like):
 
 
 def _param_rows(tab):
-    """(S, SLOTS) view of the differentiated fields of a table."""
-    return torch.stack([tab.curvature, tab.conic, tab.offset[:, 0],
-                        tab.offset[:, 1], tab.offset[:, 2], tab.mu], 1)
+    """(S, SLOTS + na + no) view of the differentiated fields of a
+    table: c, k, offset x, y, z, mu, then its aspheric coefficients."""
+    return torch.cat([torch.stack([tab.curvature, tab.conic,
+                                   tab.offset[:, 0], tab.offset[:, 1],
+                                   tab.offset[:, 2], tab.mu], 1),
+                      tab.aspherics, tab.aspherics_odd], 1)
+
+
+def _table_widths(table):
+    """(na, no): a table's aspheric coefficient widths."""
+    return (int(table.aspherics.shape[-1]),
+            int(table.aspherics_odd.shape[-1]))
 
 
 def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     """Plain PyTorch version of K5: torch autograd through the plain
     trace.  A no-grad pre-trace finds the live rays; each dead ray is
     traced as the first live one (so no NaN enters autograd) at zero
-    weight.  Returns (parameter cotangents (S, SLOTS) in the order c,
-    k, offset x, y, z, mu; the six state cotangents; the weight
+    weight.  Returns (parameter cotangents (S, SLOTS + na + no) in the
+    order c, k, offset x, y, z, mu, then the table's na even and no odd
+    aspheric coefficients; the six state cotangents; the weight
     cotangent), all in the state's dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     with torch.no_grad():
         out, _ = trace_final_reference(tab, specs, state, clip)
         alive = _live(out)
-    pg = torch.zeros((tab.nsurfaces, SLOTS), dtype=x0.dtype,
-                     device=x0.device)
+    pg = torch.zeros((tab.nsurfaces, SLOTS + sum(_table_widths(tab))),
+                     dtype=x0.dtype, device=x0.device)
     if not bool(alive.any()):
         return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
             torch.zeros_like(x0)
     i0 = int(torch.argmax(alive.to(torch.uint8)))
-    leaves = [tab.curvature, tab.conic, tab.offset, tab.mu,
-              *state, w]
+    fields = ("curvature", "conic", "offset", "mu", "aspherics",
+              "aspherics_odd")
+    leaves = [*(getattr(tab, f) for f in fields), *state, w]
     leaves = [v.detach().clone().requires_grad_() for v in leaves]
-    c, k, off, mu = leaves[:4]
-    st, wl = leaves[4:10], leaves[10]
+    st, wl = leaves[6:12], leaves[12]
     with torch.enable_grad():
         sub = tuple(torch.where(alive, s, s[i0]) for s in st)
-        t2 = tab.replace(curvature=c, conic=k, offset=off, mu=mu)
+        t2 = tab.replace(**dict(zip(fields, leaves[:6])))
         out, _ = trace_final_reference(t2, specs, sub, clip)
         mom = _wmoments(out[0], out[1], wl, alive)
         grads = torch.autograd.grad((mom*ct.to(mom.dtype)).sum(), leaves,
                                     allow_unused=True)
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(leaves, grads)]
-    pg = _param_rows(tab.replace(curvature=grads[0], conic=grads[1],
-                                 offset=grads[2], mu=grads[3]))
-    return pg, tuple(grads[4:10]), grads[10]
+    pg = _param_rows(tab.replace(**dict(zip(fields, grads[:6]))))
+    return pg, tuple(grads[6:12]), grads[12]
 
 
 def weighted_moments_multi_reference(tables, specs, state, w, clip=False):
@@ -288,12 +307,13 @@ def _opd_chain(tab, specs, state, aux, clip):
     return (k, o.px + o.ti*o.dx, o.py + o.ti*o.dy), saved, o
 
 
-def _check_opd(table, specs, state, aux):
+def _check_opd(table, specs, state, aux, kernel):
     _check_state(state)
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
     _check_vector(aux, state, "aux", (AUX,))
+    refuse_figured(specs, kernel)
 
 
 def opd_chain_reference(table, specs, state, aux, clip=False):
@@ -357,10 +377,16 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     of the row's optical path t * n_before (K9's PATH instantiation), or
     None (K5's: the path has no cotangent).  Returns (cotangent of the
     entering state, per-ray parameter cotangents (c, k, offset x, y, z,
-    mu, and with ct_path n_before)).  The aperture clip is a constant
-    mask: a clipped ray is dead, and dead rays never reach the reverse
-    sweep."""
+    mu, and with ct_path n_before; an aspheric row also its table's
+    even and odd coefficients, `_figured_vjp_reference`)).  The
+    aperture clip is a constant mask: a clipped ray is dead, and dead
+    rays never reach the reverse sweep."""
     K.check_supported(spec)
+    if K.is_figured(spec):
+        if ct_path is not None:
+            raise NotImplementedError(
+                "the OPD adjoint takes no aspheric row (%s)" % K.ITEM9)
+        return _figured_vjp_reference(state, surf, spec, g)
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
     c, k, mu = surf.curvature, surf.conic, surf.mu
@@ -526,6 +552,176 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     return (gx, gy, gz, gux, guy, guz), pg
 
 
+def _horner(r2, coeffs, scale=lambda i: 1, start=0):
+    """sum_{i >= start} scale(i) coeffs[i] r2**(i - start), by Horner
+    from the top (csrc/step_vjp.cuh's loops)."""
+    d = torch.zeros_like(r2)
+    for i in range(coeffs.shape[-1] - 1, start - 1, -1):
+        d = d*r2 + scale(i)*coeffs[..., i]
+    return d
+
+
+def _figured_vjp_reference(state, surf, spec, g):
+    """Hand-derived reverse of an aspheric row's step (kernels.
+    surface_step_spec with spec.aspheric or spec.odd) for live rays, the
+    line-for-line model of `figured_step_vjp` in csrc/step_vjp.cuh: the
+    refraction by the radial normal (the flagged figures' slopes), the
+    transfer, then the Newton intercept differentiated implicitly at its
+    root, dF/dp scaled by -gt/F_s (kernels._NewtonRoot).  Returns the
+    entering state's cotangent and the per-ray parameter cotangents (c,
+    k, offset x, y, z, mu, the table's na even then no odd
+    coefficients)."""
+    x, y, z, ux, uy, uz = state
+    zero = torch.zeros_like(x)
+    c, k, mu = surf.curvature, surf.conic, surf.mu
+    asp, aspo = surf.aspherics, surf.aspherics_odd
+    na, no = asp.shape[-1], aspo.shape[-1]
+    # ---- forward recompute ----
+    if spec.off_axis:
+        x = x - surf.offset[0]
+        y = y - surf.offset[1]
+    z = z - surf.offset[2]
+    if spec.rotated:
+        r = surf.rot
+        x, y, z = K.rot_apply(r, x, y, z)
+        ux, uy, uz = K.rot_apply(r, ux, uy, uz)
+    t = K.intercept(x, y, z, ux, uy, uz, c, k, asp, surf.alternate,
+                    aspherics_odd=aspo)
+    x1, y1 = x + t*ux, y + t*uy
+    # ---- reverse: leave the row's frame ----
+    gx1, gy1, gz1, gvx, gvy, gvz = g
+    if spec.rotated:
+        gx1, gy1, gz1 = K.rot_apply(r, gx1, gy1, gz1)
+        gvx, gvy, gvz = K.rot_apply(r, gvx, gvy, gvz)
+    gc, gk, gmu = zero, zero, zero
+    ga = [zero]*na
+    gb = [zero]*no
+    # ---- reverse: refraction by the radial normal ----
+    if spec.kind == 0:
+        gux, guy, guz = gvx, gvy, gvz
+    else:
+        r2s = x1*x1 + y1*y1
+        kc2 = (1 + k)*c*c
+        m = 1 - kc2*r2s
+        mm = torch.clamp(m, min=K.TINY)
+        rs = 1./torch.sqrt(mm)
+        e = -c*rs
+        if spec.aspheric:
+            e = e - K._dpoly_even(r2s, asp)
+        if spec.odd:
+            e = e - K._dpoly_odd(r2s, aspo)
+        nx, ny = x1*e, y1*e
+        ir2 = 1./(nx*nx + ny*ny + 1.)
+        dot = ux*nx + uy*ny + uz
+        if spec.kind == 2:
+            a2 = 2.*dot*ir2
+            gux, guy, guz = gvx, gvy, gvz
+            gnx, gny = -a2*gvx, -a2*gvy
+            ga2 = -(gvx*nx + gvy*ny + gvz)
+            gdot = 2.*ir2*ga2
+            gir2 = 2.*dot*ga2
+        else:
+            muf, sgmu = torch.abs(mu), torch.sign(mu)
+            a = muf*dot*ir2
+            sq2 = K._sqrt0(a*a - (mu*mu - 1)*ir2)
+            q2 = -a + sgmu*sq2
+            gmuf = ux*gvx + uy*gvy + uz*gvz
+            gux, guy, guz = muf*gvx, muf*gvy, muf*gvz
+            gq2 = gvx*nx + gvy*ny + gvz
+            gnx, gny = q2*gvx, q2*gvy
+            gdisc2 = gq2*sgmu*.5/sq2
+            gam = -gq2 + 2*a*gdisc2
+            gmu = -2*mu*ir2*gdisc2
+            gir2 = -(mu*mu - 1)*gdisc2 + muf*dot*gam
+            gmuf = gmuf + dot*ir2*gam
+            gdot = muf*ir2*gam
+            gmu = gmu + sgmu*gmuf
+        gux, guy, guz = gux + gdot*nx, guy + gdot*ny, guz + gdot
+        gnx, gny = gnx + gdot*ux, gny + gdot*uy
+        s2 = -2.*ir2*ir2*gir2
+        gnx, gny = gnx + s2*nx, gny + s2*ny
+        ge = x1*gnx + y1*gny
+        gx1, gy1 = gx1 + e*gnx, gy1 + e*gny
+        gc = gc - rs*ge
+        gm = torch.where(m >= K.TINY, -.5*rs*rs*rs*(-c*ge), 0.)
+        gk = gk - c*c*r2s*gm
+        gc = gc - 2*(1 + k)*c*r2s*gm
+        gr2s = -kc2*gm
+        if spec.aspheric:
+            dd = _horner(r2s, asp, lambda i: 2*(i + 1)*i, 1)
+            pw = torch.ones_like(r2s)
+            for i in range(na):
+                ga[i] = ga[i] - 2*(i + 1)*pw*ge
+                pw = pw*r2s
+            gr2s = gr2s - dd*ge
+        if spec.odd:
+            q = _horner(r2s, aspo)
+            dq = _horner(r2s, aspo, lambda j: j, 1)
+            ddq = _horner(r2s, aspo, lambda j: j*(j - 1), 2)
+            sr = torch.sqrt(r2s)
+            rr = torch.clamp(sr, min=K.TINY)
+            gq = -ge/rr
+            gdq = -ge*2*rr
+            gr = ge*q/(rr*rr) - ge*2*dq
+            gsr = torch.where(sr >= K.TINY, gr, 0.)
+            gr2s = gr2s + gsr/(2*sr) + gq*dq + gdq*ddq
+            pw = torch.ones_like(r2s)
+            pw1 = torch.ones_like(r2s)
+            for j in range(no):
+                gb[j] = gb[j] + gq*pw
+                if j >= 1:
+                    gb[j] = gb[j] + gdq*j*pw1
+                    pw1 = pw1*r2s
+                pw = pw*r2s
+        gx1, gy1 = gx1 + 2*x1*gr2s, gy1 + 2*y1*gr2s
+    # ---- reverse: transfer x1 = x + t u ----
+    gx, gy, gz = gx1, gy1, gz1
+    gux, guy, guz = gux + t*gx1, guy + t*gy1, guz + t*gz1
+    gt = ux*gx1 + uy*gy1 + uz*gz1
+    # ---- reverse: the Newton root, implicitly: dF/dp * (-gt/F_s) ----
+    fs = K._newton_slope(t, x, y, z, ux, uy, uz, c, k, asp, aspo)
+    gF = -gt/torch.where(fs == 0, 1., fs)
+    px, py = x + t*ux, y + t*uy
+    r2 = px*px + py*py
+    kc2 = (1 + k)*c*c
+    w = 1 - kc2*r2
+    sq = K._sqrt0(w)
+    den = 1 + sq
+    gnum = -gF/den
+    gsq = gF*(c*r2)/(den*den)
+    gw = torch.where(w >= 0, gsq/(2*sq), 0.)
+    gk = gk - c*c*r2*gw
+    gc = gc - 2*(1 + k)*c*r2*gw + r2*gnum
+    gr2 = -kc2*gw + c*gnum
+    if na:
+        d1 = _horner(r2, asp, lambda i: i + 1)
+        pw = r2
+        for i in range(na):
+            ga[i] = ga[i] - gF*pw
+            pw = pw*r2
+        gr2 = gr2 - gF*d1
+    if no:
+        q = _horner(r2, aspo)
+        dq = _horner(r2, aspo, lambda j: j, 1)
+        sr = torch.sqrt(r2)
+        gr2 = gr2 - gF*q/(2*sr) - gF*sr*dq
+        pw = sr
+        for j in range(no):
+            gb[j] = gb[j] - gF*pw
+            pw = pw*r2
+    gpx, gpy = 2*px*gr2, 2*py*gr2
+    gx, gy, gz = gx + gpx, gy + gpy, gz + gF
+    gux, guy, guz = gux + t*gpx, guy + t*gpy, guz + t*gF
+    # ---- reverse: enter the row's frame ----
+    if spec.rotated:
+        gx, gy, gz = K.rot_apply_t(r, gx, gy, gz)
+        gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
+    gox = -gx if spec.off_axis else zero
+    goy = -gy if spec.off_axis else zero
+    return ((gx, gy, gz, gux, guy, guz),
+            (gc, gk, gox, goy, -gz, gmu, *ga, *gb))
+
+
 def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     """K5 written in torch with _step_vjp_reference, the model of
     `moments_adjoint_ray` in csrc/grad_spec.cuh: same outputs as
@@ -554,11 +750,14 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     g3 = (K.rot_apply_t(rl, ctx, cty, zero)
           if specs[nsurf - 1].rotated else (ctx, cty, zero))
     g = tuple(torch.where(live, v, 0.) for v in (*g3, zero, zero, zero))
-    pg = torch.zeros((nsurf, SLOTS), dtype=x0.dtype, device=x0.device)
+    pg = torch.zeros((nsurf, SLOTS + sum(_table_widths(tab))),
+                     dtype=x0.dtype, device=x0.device)
     for j in range(nsurf - 1, 0, -1):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        pg[j] = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+        # a row with no figure has no aspheric slots (zeros)
+        pg[j, :len(pj)] = torch.stack([torch.where(live, v, 0.).sum()
+                                       for v in pj])
     if specs[0].rotated:
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
     return pg, g, ct_w
@@ -653,8 +852,8 @@ def _check_vector(v, state, name, shape=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _moments_kernel(specs, dtype, clip):
-    return CS.load(CS.moments_key(specs, dtype, clip))
+def _moments_kernel(specs, dtype, clip, widths):
+    return CS.load(CS.moments_key(specs, dtype, clip, widths=widths))
 
 
 @functools.lru_cache(maxsize=None)
@@ -663,8 +862,9 @@ def _moments_multi_kernel(specs, dtype, clip, nlam):
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_kernel(specs, dtype, clip, fields, rays):
-    return CS.load(CS.adjoint_key(specs, dtype, clip, fields, rays))
+def _adjoint_kernel(specs, dtype, clip, fields, rays, widths):
+    return CS.load(CS.adjoint_key(specs, dtype, clip, fields, rays,
+                                  widths=widths))
 
 
 @functools.lru_cache(maxsize=None)
@@ -695,8 +895,9 @@ def weighted_moments(table, specs, state, w, clip=False):
         return weighted_moments_reference(table, specs, state, w, clip)
     spec_launch(state)
     specs = tuple(specs)
-    out = launch_moments(_moments_kernel(specs, x.dtype, bool(clip)), table,
-                         specs, state, w)
+    out = launch_moments(_moments_kernel(specs, x.dtype, bool(clip),
+                                         figure_widths(table, specs)),
+                         table, specs, state, w)
     if x.shape[0]:
         weighted_moments.launches += 1
     return out[0]
@@ -707,36 +908,45 @@ weighted_moments.launches = 0
 
 def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                   rays=True):
-    """K5: (parameter cotangents (S, SLOTS): c, k, offset x, y, z, mu;
-    the six state cotangents; the weight cotangent) of the weighted
-    moments dotted with `ct`, a (5,) tensor of moment cotangents on
-    the rays' device.  `fields`: the table fields whose cotangents are
-    wanted; a slot outside them, or baked out by the specs
-    (cuda_spec.live_slots), is an exact zero.  rays=False: the state
-    and weight cotangents are not computed and come back as None.
-    CUDA bundles launch the kernel compiled for (dtype, specs, clip,
-    live slots, rays) (ops.cuda_spec: one launch, the grid-wide sum
-    fused, nothing written a ray without `rays`); CPU bundles take
-    merit_adjoint_reference."""
+    """K5: (parameter cotangents (S, SLOTS + na + no): c, k, offset x,
+    y, z, mu, then the table's na even and no odd aspheric
+    coefficients; the six state cotangents; the weight cotangent) of
+    the weighted moments dotted with `ct`, a (5,) tensor of moment
+    cotangents on the rays' device.  `fields`: the table fields whose
+    cotangents are wanted; a slot outside them, or baked out by the
+    specs (cuda_spec.live_slots: an aspheric coefficient is live only
+    on an aspheric row), is an exact zero.  rays=False: the state and
+    weight cotangents are not computed and come back as None.  CUDA
+    bundles launch the kernel compiled for (dtype, specs, clip, live
+    slots, rays, aspheric widths) (ops.cuda_spec: one launch, the
+    grid-wide sum fused, nothing written a ray without `rays`); CPU
+    bundles take merit_adjoint_reference."""
     _check_state(state)
     _check_vector(w, state, "w")
     _check_vector(ct, state, "ct", (5,))
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
+    na, no = _table_widths(table)
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_reference(table, specs, state, w, ct,
                                              clip)
-        pg = torch.where(CS.live_mask(CS.live_slots(specs, fields)), pg, 0.)
+        live = CS.live_mask(CS.live_slots(specs, fields, (na, no)),
+                            SLOTS + na + no)
+        pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
-    kern = _adjoint_kernel(specs, x.dtype, bool(clip), fields, bool(rays))
+    widths = figure_widths(table, specs)
+    kern = _adjoint_kernel(specs, x.dtype, bool(clip), fields, bool(rays),
+                           widths)
     tab = packed(table, specs, x)
     if not n:
-        pg = torch.zeros((len(specs), SLOTS), dtype=x.dtype, device=device)
+        pg = torch.zeros((len(specs), SLOTS + na + no), dtype=x.dtype,
+                         device=device)
         return (pg, tuple(torch.zeros_like(x) for _ in range(6)),
                 torch.zeros_like(x)) if rays else (pg, None, None)
     grid = kern.grid(n, device)
-    pg = torch.empty((len(specs), SLOTS), dtype=x.dtype, device=device)
+    pg = torch.empty((len(specs), kern.key.slots), dtype=x.dtype,
+                     device=device)
     partials = torch.empty((grid, max(kern.key.nlive, 1)), dtype=x.dtype,
                            device=device)
     outs = [torch.empty_like(x) for _ in range(7)] if rays else None
@@ -746,6 +956,9 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                        *((o.data_ptr() for o in outs) if rays
                          else (None,)*7), n, grid, stream))
     merit_adjoint.launches += 1
+    # a key of a table with no aspheric row has no coefficient slots:
+    # theirs are exact zeros
+    pg = torch.nn.functional.pad(pg, (0, SLOTS + na + no - pg.shape[1]))
     if not rays:
         return pg, None, None
     return pg, tuple(outs[:6]), outs[6]
@@ -771,9 +984,11 @@ def weighted_moments_multi(tables, specs, state, w, clip=False):
     grid-wide sum fused), one bundle read once; a stack past MAX_NLAM
     in balanced runs, one launch each, the moments concatenated in
     wavelength order (each wavelength's are independent).  CPU bundles
-    take weighted_moments_multi_reference."""
+    take weighted_moments_multi_reference.  An aspheric row raises
+    NotImplementedError on either device (ROADMAP Queue 1 item 9)."""
     _check_state(state)
     _check_vector(w, state, "w")
+    refuse_figured(specs, "K6 (weighted_moments_multi)")
     x = state[0]
     if x.device.type == "cpu":
         return weighted_moments_multi_reference(tables, specs, state, w,
@@ -804,17 +1019,20 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
     launch the kernel compiled for (dtype, specs, clip, live slots,
     rays) (ops.cuda_spec: one launch, the wavelengths a run-time
     argument, the grid-wide sums fused); CPU bundles take
-    merit_adjoint_multi_reference."""
+    merit_adjoint_multi_reference.  An aspheric row raises
+    NotImplementedError on either device (ROADMAP Queue 1 item 9)."""
     nlam = tables.curvature.shape[0]
     _check_state(state)
     _check_vector(w, state, "w")
     _check_vector(ct, state, "ct", (nlam, 5))
+    refuse_figured(specs, "K7 (merit_adjoint_multi)")
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
                                                    ct, clip)
-        pg = torch.where(CS.live_mask(CS.live_slots(specs, fields)), pg, 0.)
+        pg = torch.where(CS.live_mask(CS.live_slots(specs, fields)),
+                         pg[..., :SLOTS], 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
     kern = _adjoint_multi_kernel(specs, x.dtype, bool(clip), fields,
@@ -850,8 +1068,10 @@ def opd_chain(table, specs, state, aux, clip=False):
     (k = -(optical path to the reference sphere)/lam_scale; lx, ly the
     landing on the sphere about its centre).  CUDA bundles launch the
     kernel compiled for (dtype, specs, clip) (ops.cuda_spec: one launch,
-    none for no rays); CPU bundles take opd_chain_reference."""
-    _check_opd(table, specs, state, aux)
+    none for no rays); CPU bundles take opd_chain_reference.  An
+    aspheric row raises NotImplementedError on either device (ROADMAP
+    Queue 1 item 9)."""
+    _check_opd(table, specs, state, aux, "K8 (opd_chain)")
     x = state[0]
     if x.device.type == "cpu":
         return opd_chain_reference(table, specs, state, aux, clip)
@@ -883,8 +1103,9 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
     None; the centre cotangents always are.  CUDA bundles launch the
     kernel compiled for (dtype, specs, clip, live slots, rays)
     (ops.cuda_spec: one launch, the grid-wide sum fused); CPU bundles
-    take opd_adjoint_reference."""
-    _check_opd(table, specs, state, aux)
+    take opd_adjoint_reference.  An aspheric row raises
+    NotImplementedError on either device (ROADMAP Queue 1 item 9)."""
+    _check_opd(table, specs, state, aux, "K9 (opd_adjoint)")
     for name, c in zip(("ct_k", "ct_lx", "ct_ly"), cts):
         _check_vector(c, state, name)
     x = state[0]
@@ -932,30 +1153,38 @@ class _SpotMoments(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, specs, clip, multi, *tensors):
-        params, state, w = tensors[:5], tensors[5:11], tensors[11]
+        params, state, w = tensors[:7], tensors[7:13], tensors[13]
         ctx.table, ctx.specs, ctx.clip, ctx.multi = table, specs, clip, multi
         ctx.save_for_backward(*tensors)
-        tab = table.replace(**dict(zip(_DIFF, params)))
+        tab = table.replace(**dict(zip(_SPOT_DIFF, params)))
         fwd = weighted_moments_multi if multi else weighted_moments
         return fwd(tab, specs, state, w, clip)
 
     @staticmethod
     def backward(ctx, ct):
         tensors = ctx.saved_tensors
-        params, state, w = tensors[:5], tensors[5:11], tensors[11]
-        tab = ctx.table.replace(**dict(zip(_DIFF, params)))
+        params, state, w = tensors[:7], tensors[7:13], tensors[13]
+        tab = ctx.table.replace(**dict(zip(_SPOT_DIFF, params)))
         # K5/K7 reduce only the slots autograd asks for, and write the
         # ray and weight cotangents only when they are wanted
-        need = ctx.needs_input_grad
-        fields = tuple(f for f, nd in zip(CS.FIELDS, need[4:8]) if nd)
+        need = dict(zip(_SPOT_DIFF, ctx.needs_input_grad[4:11]))
+        fields = tuple(f for f in CS.FIELDS if need[f])
         adjoint = merit_adjoint_multi if ctx.multi else merit_adjoint
         pg, ct_state, ct_w = adjoint(tab, ctx.specs, state, w,
                                      ct.contiguous(), ctx.clip,
-                                     fields=fields, rays=any(need[9:16]))
+                                     fields=fields,
+                                     rays=any(ctx.needs_input_grad[11:18]))
         if ct_state is None:
             ct_state = (None,)*6
+        # K7 takes no aspheric row: its coefficients' cotangents are zero
+        na, no = params[5].shape[-1], params[6].shape[-1]
+        asp = pg[..., SLOTS:SLOTS + na] if pg.shape[-1] > SLOTS else \
+            torch.zeros_like(params[5])
+        aspo = pg[..., SLOTS + na:SLOTS + na + no] \
+            if pg.shape[-1] > SLOTS else torch.zeros_like(params[6])
         grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
-                 pg[..., 5], torch.zeros_like(params[4]))
+                 pg[..., 5], torch.zeros_like(params[4]),
+                 asp.contiguous(), aspo.contiguous())
         return (None, None, None, None, *grads, *ct_state, ct_w)
 
 
@@ -1016,8 +1245,9 @@ def spot_moments(table, state, w, specs=None, clip=False, diff_pose=None):
     sum wx^2, sum wy^2) of the fused trace: K4 forward, K5 backward on
     a CUDA bundle, their plain versions on a CPU bundle.  state: six
     contiguous (N,) components; w: (N,) weights.  Gradients reach the
-    table's curvature, conic, offset, mu (n_before: zero), the state
-    and the weights (see the module docstring)."""
+    table's curvature, conic, offset, mu, aspherics and aspherics_odd
+    (n_before: zero), the state and the weights (see the module
+    docstring)."""
     mom = _moments(table, _resolve_specs(table, specs, diff_pose), state, w,
                    clip, False)
     return tuple(mom[i] for i in range(5))
@@ -1051,7 +1281,7 @@ def _moments(table, specs, state, w, clip, multi):
     _warn_baked_params(specs, params)
     x = state[0]
     diff = [getattr(table, f).to(device=x.device, dtype=x.dtype)
-            for f in _DIFF]
+            for f in _SPOT_DIFF]
     w = torch.as_tensor(w).to(device=x.device, dtype=x.dtype)
     return _SpotMoments.apply(_constant_table(table, x), specs, bool(clip),
                               multi, *diff, *state, w)

@@ -23,16 +23,27 @@ headers, the flags and the unit's text.  This is how the JAX package's
 Pallas kernels are specialized too: on specs, clip and diff_fields, and
 K3's and K6's wavelengths.
 
+K1, K2, K4 and K5 also take even- and odd-aspheric rows: their keys
+carry the table's coefficient widths (Key.na, Key.no; cuda_trace.
+figure_widths, 0 and 0 without an aspheric row), which the translation
+unit defines before the headers, so that a packed row grows by na + no
+words and the Newton's Horner loops have compile-time bounds.  K3 and
+K6-K9 refuse an aspheric row (NotImplementedError, ROADMAP Queue 1 item
+9), as every key refuses the anamorphic, grating, DOE and freeform rows.
+
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
-K7's six cotangent columns; K9 adds n_before) are the fields asked for,
-minus what the row's specs bake out (cuda_grad._baked_out_rows:
-curvature of a flat row, conic of a flat or spherical row, the
-transverse offset of an on-axis row, mu of a passthrough row); the
-axial offset is never baked out.  K9's image row is read only by the
-reference-sphere tail, which reads its offset (the transverse part only
-off axis), its rotation and its n_before, never its curvature, conic or
-mu; every other row's n_before carries its optical path.  Row 0 has
-none.  A slot that is not live comes back as an exact zero.
+K7's six cotangent columns, then a figured K5 key's na even and no odd
+coefficients; K9 adds n_before) are the fields asked for, minus what the
+row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
+row, conic of a flat or spherical row -- both live on an aspheric row,
+whose Newton reads them through the sag --, the transverse offset of an
+on-axis row, mu of a passthrough row, the coefficients of a row with no
+figure); the axial offset is never baked out.  K9's image row is read
+only by the reference-sphere tail, which reads its offset (the
+transverse part only off axis), its rotation and its n_before, never
+its curvature, conic or mu; every other row's n_before carries its
+optical path.  Row 0 has none.  A slot that is not live comes back as
+an exact zero.
 
 The df32 trace and merit (csrc/df32_spec.cuh) are keyed the same way
 on their plans (`df32_multi_key`): the distinct flag tuples of the plans
@@ -57,20 +68,25 @@ from typing import NamedTuple
 import torch
 
 from . import kernels as K
-from .cuda_trace import ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, pack_values, \
-    sm_count
+from .cuda_trace import ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, figure_widths, \
+    pack_values, sm_count
 
-LIVE_SHIFT = 8     # a row word's live slots: keep in sync with grad_spec.cuh
-SLOTS = 6          # K5's and K7's cotangent columns a row
+LIVE_SHIFT = 10    # a row word's live slots: keep in sync with grad_spec.cuh
+LIVE_BITS = 31 - LIVE_SHIFT   # the slots a row word can hold
+SLOTS = 6          # K5's and K7's cotangent columns a row (a figured K5
+#                    key adds its table's aspheric coefficients)
 OPD_SLOTS = 7      # K9's: SLOTS and n_before
 #: the table field of each of K9's cotangent columns (K5/K7: the first
-#: SLOTS)
+#: SLOTS, then K5's even and odd aspheric coefficients)
 SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
                "n_before")
-#: the fields K5 and K7 differentiate
-FIELDS = ("curvature", "conic", "offset", "mu")
+#: the fields K5 and K7 differentiate (K7 and every K5 key of a table
+#: with no aspheric row: the first four)
+FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd")
 #: the fields K9 differentiates
-OPD_FIELDS = FIELDS + ("n_before",)
+OPD_FIELDS = FIELDS[:4] + ("n_before",)
+#: the kernels whose keys take even- and odd-aspheric rows
+FIGURED_KERNELS = ("k1", "k2", "k4", "k5")
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
            "df32_common.cuh", "df32_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
@@ -137,24 +153,33 @@ WORDS_AT = ("WORDS_DIRECT", "WORDS_STAGED", "WORDS_DEVICE")
 def baked_out_rows(specs, field):
     """Surface rows (1-indexed into the chain) whose static
     specialization never READS `field`, so its gradient there is
-    structurally zero (specialized-engine semantics).  Only flat,
-    spherical and conic rows reach the kernels (kernels.
-    check_supported), so no row carries a figure."""
-    baked = {"curvature": lambda sp: sp.flat,
-             "conic": lambda sp: sp.flat or sp.spherical,
+    structurally zero (specialized-engine semantics,
+    pallas_grad._baked_out_rows).  An aspheric row's Newton reads its
+    curvature and conic through the sag even when the row's flat or
+    spherical flag is set, and every aspheric coefficient of both
+    widths; a row with neither figure reads none of them."""
+    fig = K.is_figured
+    baked = {"curvature": lambda sp: sp.flat and not fig(sp),
+             "conic": lambda sp: (sp.flat or sp.spherical) and not fig(sp),
              "offset": lambda sp: not sp.off_axis,   # transverse x/y
              "mu": lambda sp: sp.kind == 0,
-             "rot": lambda sp: not sp.rotated}.get(field)
+             "rot": lambda sp: not sp.rotated,
+             "aspherics": lambda sp: not fig(sp),
+             "aspherics_odd": lambda sp: not fig(sp)}.get(field)
     if baked is None:
         return []
     return [j for j, sp in enumerate(specs) if j and baked(sp)]
 
 
-def live_slots(specs, fields=FIELDS):
-    """One 6-bit mask a row of the slots K5 and K7 reduce: the `fields`
-    asked for, minus the rows the specs bake them out of (the axial
-    offset, slot 4, never is).  Row 0 has none."""
-    return _live_slots(specs, fields, FIELDS, SLOTS)
+def live_slots(specs, fields=FIELDS, widths=(0, 0)):
+    """One mask a row of the slots K5 and K7 reduce -- SLOTS bits, then
+    with `widths` = (na, no) (the key's, figure_widths) one a
+    coefficient: the `fields` asked for, minus the rows the specs bake
+    them out of (the axial offset, slot 4, never is; baked_out_rows).
+    Row 0 has none."""
+    na, no = widths
+    return _live_slots(specs, fields, FIELDS, SLOT_FIELDS[:SLOTS]
+                       + ("aspherics",)*na + ("aspherics_odd",)*no)
 
 
 def opd_live_slots(specs, fields=OPD_FIELDS):
@@ -165,24 +190,27 @@ def opd_live_slots(specs, fields=OPD_FIELDS):
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
-    masks = list(_live_slots(specs, fields, OPD_FIELDS, OPD_SLOTS))
+    masks = list(_live_slots(specs, fields, OPD_FIELDS, SLOT_FIELDS))
     tail = (1 << 4) | (1 << 6) | ((1 << 2) | (1 << 3)
                                   if specs[-1].off_axis else 0)
     masks[-1] &= tail
     return tuple(masks)
 
 
-def _live_slots(specs, fields, known, nslots):
+def _live_slots(specs, fields, known, slot_fields):
     fields = set(fields)
     unknown = fields - set(known)
     if unknown:
         raise ValueError("the adjoint differentiates %s, not %s"
                          % (", ".join(known), ", ".join(sorted(unknown))))
+    if len(slot_fields) > LIVE_BITS:
+        raise ValueError("%d slots a row, above the %d a row word holds"
+                         % (len(slot_fields), LIVE_BITS))
     baked = {f: set(baked_out_rows(specs, f)) for f in known}
     masks = []
     for j in range(len(specs)):
         m = 0
-        for q, f in enumerate(SLOT_FIELDS[:nslots]):
+        for q, f in enumerate(slot_fields):
             if j and f in fields and (q == 4 or j not in baked[f]):
                 m |= 1 << q
         masks.append(m)
@@ -203,8 +231,10 @@ class Key(NamedTuple):
     the ray and weight cotangents), threads a block, the blocks an SM
     that __launch_bounds__ asks ptxas to fit, the tables of the stack a
     launch traces (K3's and K6's wavelengths; 1 for every other kernel,
-    K7 included: it stages one table at a time), and whether K3's trace
-    runs the wavelengths outermost."""
+    K7 included: it stages one table at a time), whether K3's trace
+    runs the wavelengths outermost, and the even and odd aspheric
+    coefficients a row carries (na, no: a figured table's widths, K1,
+    K2, K4 and K5 only; 0 and 0 without an aspheric row)."""
 
     kernel: str
     dtype: str
@@ -215,6 +245,8 @@ class Key(NamedTuple):
     min_blocks: int = MIN_BLOCKS
     nlam: int = 1
     outer: bool = False
+    na: int = 0
+    no: int = 0
 
     @property
     def name(self):
@@ -224,12 +256,24 @@ class Key(NamedTuple):
                      int(self.min_blocks), int(self.nlam)))
         if self.outer:
             text += " outer"
+        if self.na or self.no:
+            text += " figure %d %d" % (self.na, self.no)
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
     @property
     def rows(self):
         return len(self.words)
+
+    @property
+    def row_words(self):
+        """A packed row's words: ROW and the aspheric coefficients."""
+        return ROW + self.na + self.no
+
+    @property
+    def slots(self):
+        """K5's cotangent columns a row: SLOTS and the coefficients."""
+        return SLOTS + self.na + self.no
 
     @property
     def nlive(self):
@@ -259,7 +303,7 @@ class Key(NamedTuple):
             values = self.nlive + (3 if self.kernel == "k9" else 0)
         reduce = (0 if self.kernel in TRACES
                   else (self.block//32 + 1)*max(values, 1))
-        words = (self.nlam*self.rows*ROW
+        words = (self.nlam*self.rows*self.row_words
                  + (AUX if self.kernel in ("k8", "k9") else 0) + reduce)
         return self.dynamic_smem + words*self.word_bytes
 
@@ -272,9 +316,15 @@ def _dtype_name(dtype):
     raise TypeError("rays must be float32 or float64, got %s" % dtype)
 
 
-def _words(specs, masks=None):
+def _words(specs, masks=None, kernel="k1"):
+    """A key's row words; a row the kernel does not trace raises
+    NotImplementedError (item 9): the anamorphic, grating, DOE and
+    freeform rows everywhere, the aspheric rows outside
+    FIGURED_KERNELS."""
+    figured = kernel in FIGURED_KERNELS
     for j, spec in enumerate(specs[1:], 1):
-        K.check_supported(spec, j)
+        K.check_supported(spec, j, figured=figured,
+                          what=kernel.upper() + "'s key")
     flags = [_flags(s) for s in specs]
     if masks is None:
         return tuple(flags)
@@ -292,10 +342,32 @@ def _static(key):
     return key
 
 
-def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
-    """The K1 key of a spec tuple."""
-    return _static(Key("k1", _dtype_name(dtype), _words(specs), bool(clip),
-                       False, int(block or BLOCK_TRACE), int(min_blocks)))
+def _widths(specs, widths):
+    """A key's (na, no): (0, 0) without an aspheric row (whatever the
+    table's widths), else `widths` (figure_widths of the table)."""
+    if not any(K.is_figured(s) for s in specs[1:]):
+        return (0, 0)
+    na, no = (int(w) for w in widths)
+    if na < 0 or no < 0 or SLOTS + na + no > LIVE_BITS:
+        raise ValueError("aspheric widths %s: a row word holds %d slots, "
+                         "SLOTS + na + no" % ((na, no), LIVE_BITS))
+    if (any(s.aspheric for s in specs) and not na) or \
+            (any(s.odd for s in specs) and not no):
+        raise ValueError("aspheric widths %s: an even (odd) aspheric row "
+                         "needs the table's even (odd) coefficients "
+                         "(cuda_trace.figure_widths)" % ((na, no),))
+    return na, no
+
+
+def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
+              widths=(0, 0)):
+    """The K1 key of a spec tuple; `widths` the table's (na, no) aspheric
+    coefficients (figure_widths), read only when a row is figured."""
+    words = _words(specs)
+    na, no = _widths(specs, widths)
+    return _static(Key("k1", _dtype_name(dtype), words, bool(clip), False,
+                       int(block or BLOCK_TRACE), int(min_blocks),
+                       na=na, no=no))
 
 
 def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
@@ -304,16 +376,21 @@ def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
-    return _static(Key("k8", _dtype_name(dtype), _words(specs), bool(clip),
-                       False, int(block or BLOCK_TRACE), int(min_blocks)))
+    return _static(Key("k8", _dtype_name(dtype), _words(specs, kernel="k8"),
+                       bool(clip), False, int(block or BLOCK_TRACE),
+                       int(min_blocks)))
 
 
-def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks):
+def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
+             widths=(0, 0)):
     """A moment kernel's key, refused when its staged tables and block
     reduction outgrow static shared memory, or (K3, K6) past MAX_NLAM
     wavelengths."""
-    key = Key(kernel, _dtype_name(dtype), _words(specs), bool(clip), False,
-              int(block or BLOCK_MOMENTS), int(min_blocks), int(nlam))
+    words = _words(specs, kernel=kernel)
+    na, no = _widths(specs, widths)
+    key = Key(kernel, _dtype_name(dtype), words, bool(clip), False,
+              int(block or BLOCK_MOMENTS), int(min_blocks), int(nlam),
+              na=na, no=no)
     return _static(_unrolled(key))
 
 
@@ -329,15 +406,16 @@ def _unrolled(key):
     return key
 
 
-def merit_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
-    """The K2 key of a spec tuple."""
-    return _moments("k2", specs, dtype, clip, 1, block, min_blocks)
+def merit_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
+              widths=(0, 0)):
+    """The K2 key of a spec tuple (`widths` as trace_key's)."""
+    return _moments("k2", specs, dtype, clip, 1, block, min_blocks, widths)
 
 
 def moments_key(specs, dtype, clip=False, block=None,
-                min_blocks=MIN_BLOCKS):
-    """The K4 key of a spec tuple."""
-    return _moments("k4", specs, dtype, clip, 1, block, min_blocks)
+                min_blocks=MIN_BLOCKS, widths=(0, 0)):
+    """The K4 key of a spec tuple (`widths` as trace_key's)."""
+    return _moments("k4", specs, dtype, clip, 1, block, min_blocks, widths)
 
 
 def moments_multi_key(specs, dtype, clip, nlam, block=None,
@@ -363,8 +441,8 @@ def trace_multi_key(specs, dtype, nlam, merit=False, block=None,
             raise ValueError("K3's merit reads each ray once: it has no "
                              "outer order")
         return _moments(kernel, specs, dtype, False, nlam, block, min_blocks)
-    key = Key(kernel, _dtype_name(dtype), _words(specs), False, False,
-              block, int(min_blocks), int(nlam),
+    key = Key(kernel, _dtype_name(dtype), _words(specs, kernel=kernel),
+              False, False, block, int(min_blocks), int(nlam),
               MULTI_OUTER if outer is None else bool(outer))
     return _static(_unrolled(key))
 
@@ -383,11 +461,14 @@ def multi_most(kernel, specs, dtype, block=None):
     return min(MAX_NLAM, SMEM_LIMIT//one.shared_bytes)
 
 
-def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks):
+def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
+             widths=(0, 0)):
     """An adjoint's key, refused when a block's saved states and
     reduction outgrow the shared memory it may opt in to."""
-    key = Key(kernel, _dtype_name(dtype), _words(specs, masks), bool(clip),
-              bool(rays), int(block or BLOCK_ADJOINT), int(min_blocks))
+    na, no = widths
+    key = Key(kernel, _dtype_name(dtype), _words(specs, masks, kernel),
+              bool(clip), bool(rays), int(block or BLOCK_ADJOINT),
+              int(min_blocks), na=na, no=no)
     if key.shared_bytes > SMEM_OPTIN:
         raise ValueError(
             "%s keeps %d rows of saved state at %d threads a block in %s: "
@@ -398,12 +479,14 @@ def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks):
 
 
 def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
-                block=None, min_blocks=MIN_BLOCKS):
+                block=None, min_blocks=MIN_BLOCKS, widths=(0, 0)):
     """The K5 key of a spec tuple, the fields whose cotangents are
-    wanted (see live_slots) and whether the ray and weight cotangents
-    are."""
-    return _adjoint("k5", specs, live_slots(specs, fields), dtype, clip,
-                    rays, block, min_blocks)
+    wanted (see live_slots), whether the ray and weight cotangents are,
+    and `widths` as trace_key's (a figured key's rows reduce their
+    aspheric coefficients too)."""
+    widths = _widths(specs, widths)
+    return _adjoint("k5", specs, live_slots(specs, fields, widths), dtype,
+                    clip, rays, block, min_blocks, widths)
 
 
 def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
@@ -605,10 +688,13 @@ def translation_unit(key):
         return _df32_unit(key)
     ctype = "float" if key.dtype == "f32" else "double"
     words = ", ".join(str(w) for w in key.words)
+    # a figured key's coefficient widths, before the headers read them
+    figure = ("#define RAYOPT_N_ASP %d\n#define RAYOPT_N_ODD %d\n"
+              % (key.na, key.no) if key.na or key.no else "")
     head = ("// %s, specialized by rayopt_tpu_torch.ops.cuda_spec\n"
-            "// key: %r\n#include \"grad_spec.cuh\"\n\n"
+            "// key: %r\n%s#include \"grad_spec.cuh\"\n\n"
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"
-            % (key.name, tuple(key), words))
+            % (key.name, tuple(key), figure, words))
     clip = "true" if key.clip else "false"
     if key.kernel == "k3":
         # no clip: the loops' order in its place
@@ -719,8 +805,9 @@ def spec_launch(state):
 
 def packed(table, specs, x):
     """The table (or a stack of tables) packed in the rays' dtype on
-    their device, with one spec a row."""
-    tab = pack_values(table, x.dtype, x.device)
+    their device, with one spec a row (a figured table's rows with its
+    aspheric coefficients, cuda_trace.figure_widths)."""
+    tab = pack_values(table, x.dtype, x.device, figure_widths(table, specs))
     if tab.shape[-2] != len(specs):
         raise ValueError("%d specs for a table of %d rows"
                          % (len(specs), tab.shape[-2]))

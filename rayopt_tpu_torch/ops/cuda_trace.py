@@ -12,7 +12,10 @@ sum y^2) over the rays whose x, y and uz are finite.  It replaces
 a call with the grid-wide sum fused.  Like the JAX package's kernels,
 K1 and K2 are compiled for each (dtype, spec tuple, clip) key
 (csrc/grad_spec.cuh, built and cached by ops.cuda_spec: a new spec
-tuple costs one nvcc run at its first call).
+tuple costs one nvcc run at its first call).  K1 and K2 trace flat,
+spherical, conic and even/odd aspheric rows (an aspheric row by the
+seeded Newton intercept, its key carrying the table's coefficient
+widths, `figure_widths`).
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
 leading wavelength axis, System.tables) and ONE bundle traced through
@@ -22,7 +25,9 @@ five count moments.  It replaces `pallas_trace._multi_kernel`, and is
 compiled per (dtype, spec tuple, wavelength count) key too: its merit
 mode is K2's template at the stack's wavelengths, its trace K1's chain
 once a wavelength.  A stack past one key's wavelengths (cuda_spec.
-multi_most) runs in balanced runs, one launch each.
+multi_most) runs in balanced runs, one launch each.  K3 does not trace
+aspheric rows yet (ROADMAP Queue 1 item 9): its wrapper refuses them
+on either device.
 
 The kernels are hand-written CUDA C++ (csrc/grad_spec.cuh), built with
 nvcc for sm_90a at first use (ops.cuda_build, ops.cuda_spec) and
@@ -46,10 +51,14 @@ from . import kernels as K
 from .geometric import trace_components_final
 from .tables import lower_pose, table_at
 
-# packed row layout and flag bits: keep in sync with csrc/trace_common.cuh
+# packed row layout and flag bits: keep in sync with csrc/trace_common.cuh;
+# a figured table's rows carry its even, then its odd aspheric
+# coefficients after the ROW base words (P_ASP on)
 P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
+P_ASP = ROW
 F_FLAT, F_SPHERICAL, F_ROTATED, F_OFF_AXIS = 1, 2, 4, 8
 F_ALTERNATE, F_FINITE, KIND_SHIFT = 16, 32, 6
+F_ASPHERIC, F_ODD = 256, 512
 
 SMEM_LIMIT = 48*1024  # static shared memory, or dynamic without an opt-in
 SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (the adjoints)
@@ -116,27 +125,56 @@ def _flags(spec):
             | (F_OFF_AXIS if spec.off_axis else 0)
             | (F_ALTERNATE if spec.alternate else 0)
             | (F_FINITE if spec.finite_aperture else 0)
-            | (int(spec.kind) << KIND_SHIFT))
+            | (int(spec.kind) << KIND_SHIFT)
+            | (F_ASPHERIC if spec.aspheric else 0)
+            | (F_ODD if spec.odd else 0))
 
 
-def pack_values(table, dtype, device):
-    """The lowered table's values as one contiguous (S, ROW) tensor in
-    `dtype` on `device` -- (L, S, ROW) for a stacked table."""
+def figure_widths(table, specs):
+    """(even, odd) aspheric coefficients a packed row carries: the
+    table's widths when some row of `specs` is figured (aspheric or
+    odd: its Newton reads every coefficient), else (0, 0)."""
+    if not any(K.is_figured(s) for s in specs[1:]):
+        return (0, 0)
+    return (int(table.aspherics.shape[-1]),
+            int(table.aspherics_odd.shape[-1]))
+
+
+def refuse_figured(specs, kernel):
+    """Raise NotImplementedError (ROADMAP Queue 1 item 9) for an even-
+    or odd-aspheric row of `specs`: `kernel` (K3, K6-K9) does not trace
+    one yet.  Its wrapper calls this on either device, so that a CPU
+    bundle, whose plain version would trace the row, refuses as the
+    card's key does."""
+    for j, spec in enumerate(specs[1:], 1):
+        K.check_supported(spec, j, figured=False, what=kernel)
+
+
+def pack_values(table, dtype, device, widths=(0, 0)):
+    """The lowered table's values as one contiguous (S, ROW + na + no)
+    tensor in `dtype` on `device` -- (L, S, ...) for a stacked table --
+    with `widths` = (na, no) (figure_widths) the aspheric coefficients
+    a row carries after its ROW base words."""
     table = lower_pose(table)
-    cols = torch.cat([
-        table.curvature[..., None], table.conic[..., None], table.offset,
-        table.rot.flatten(-2), table.radius[..., None],
-        table.mu[..., None], table.n_before[..., None]], dim=-1)
+    na, no = widths
+    cols = [table.curvature[..., None], table.conic[..., None], table.offset,
+            table.rot.flatten(-2), table.radius[..., None],
+            table.mu[..., None], table.n_before[..., None]]
+    if na:
+        cols.append(table.aspherics)
+    if no:
+        cols.append(table.aspherics_odd)
     # cast first (the kernel traces in `dtype`), then move
-    return cols.to(dtype=dtype).to(device=device).contiguous()
+    return torch.cat(cols, dim=-1).to(dtype=dtype).to(
+        device=device).contiguous()
 
 
 def pack_table(table, specs, dtype, device):
-    """The lowered table as one contiguous (S, ROW) tensor in `dtype`
-    on `device` -- (L, S, ROW) for a stacked table, whose tables share
-    the specs -- plus the (S,) int32 flags that encode each row's
-    SurfaceSpec.  Rows that need the extended vocabulary raise
-    NotImplementedError."""
+    """The lowered table as one contiguous (S, ROW + na + no) tensor in
+    `dtype` on `device` (figure_widths) -- (L, S, ...) for a stacked
+    table, whose tables share the specs -- plus the (S,) int32 flags
+    that encode each row's SurfaceSpec.  Rows that need the anamorphic,
+    grating, DOE or freeform vocabulary raise NotImplementedError."""
     nsurf = table.curvature.shape[-1]
     if len(specs) != nsurf:
         raise ValueError("%d specs for a table of %d rows"
@@ -145,7 +183,8 @@ def pack_table(table, specs, dtype, device):
         K.check_supported(spec, j)
     flags = torch.tensor([_flags(s) for s in specs], dtype=torch.int32,
                          device=device)
-    return pack_values(table, dtype, device), flags
+    return pack_values(table, dtype, device,
+                       figure_widths(table, specs)), flags
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,9 +215,9 @@ def _check_state(state):
 
 
 @functools.lru_cache(maxsize=None)
-def _trace_kernel(specs, dtype, clip):
+def _trace_kernel(specs, dtype, clip, widths):
     from . import cuda_spec as CS     # cuda_spec imports this module
-    return CS.load(CS.trace_key(specs, dtype, clip))
+    return CS.load(CS.trace_key(specs, dtype, clip, widths=widths))
 
 
 def trace_final(table, specs, state, clip=False):
@@ -194,7 +233,8 @@ def trace_final(table, specs, state, clip=False):
     from .cuda_spec import packed, spec_launch
     device, n, stream = spec_launch(state)
     specs = tuple(specs)
-    kern = _trace_kernel(specs, x.dtype, bool(clip))
+    kern = _trace_kernel(specs, x.dtype, bool(clip),
+                         figure_widths(table, specs))
     tab = packed(table, specs, x)
     outs = [torch.empty_like(x) for _ in range(7)]
     if n:
@@ -209,9 +249,9 @@ trace_final.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _merit_kernel(specs, dtype, clip):
+def _merit_kernel(specs, dtype, clip, widths):
     from . import cuda_spec as CS     # cuda_spec imports this module
-    return CS.load(CS.merit_key(specs, dtype, clip))
+    return CS.load(CS.merit_key(specs, dtype, clip, widths=widths))
 
 
 def trace_merit(table, specs, state, clip=False):
@@ -227,8 +267,9 @@ def trace_merit(table, specs, state, clip=False):
     from .cuda_spec import launch_moments, spec_launch
     spec_launch(state)
     specs = tuple(specs)
-    out = launch_moments(_merit_kernel(specs, x.dtype, bool(clip)), table,
-                         specs, state)
+    out = launch_moments(_merit_kernel(specs, x.dtype, bool(clip),
+                                       figure_widths(table, specs)),
+                         table, specs, state)
     if x.shape[0]:
         trace_merit.launches += 1
     return tuple(out[0].unbind())
@@ -270,8 +311,10 @@ def trace_multi(tables, specs, state, merit=False):
     launch, the merit's grid-wide sum fused), a stack past one key's
     wavelengths in balanced runs, one launch each, every run writing
     its wavelengths' slice (_multi_runs); CPU bundles take
-    trace_multi_reference."""
+    trace_multi_reference.  An aspheric row raises NotImplementedError
+    on either device (refuse_figured)."""
     _check_state(state)
+    refuse_figured(multi_specs(tables, specs), "K3 (trace_multi)")
     x = state[0]
     if x.device.type == "cpu":
         return trace_multi_reference(tables, specs, state, merit)

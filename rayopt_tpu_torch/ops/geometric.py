@@ -1,9 +1,13 @@
 """The geometric trace engine: a walk over the SurfaceTable rows.
 
 Rays are carried as six (N,) component tensors; the (N, 3) layout is
-only used at the API boundary.  The JAX package runs the generic walk
-as one `lax.scan`; here it is a Python loop over rows, each a handful
-of elementwise torch operations on the whole bundle.
+only used at the API boundary.  Every engine traces the rotationally
+symmetric rows: flat, spherical, conic and even/odd aspheric (the
+seeded Newton intercept); an anamorphic, grating, DOE or freeform row
+raises NotImplementedError (ROADMAP Queue 1 item 9).  The JAX package
+runs the generic walk as one `lax.scan`; here it is a Python loop over
+rows, each a handful of elementwise torch operations on the whole
+bundle.
 
 * trace_rays            -- full history (S, N, 3) per quantity, the
                            analog of GeometricTrace's y/u/i/t arrays.
@@ -46,7 +50,7 @@ def _exit(table, state, specs=None):
 def _steps(table, state, clip, specs):
     """Yield (state, local outputs) after each row 1..S-1."""
     if specs is None:
-        K.require_conic(table)
+        K.require_radial(table)
     for j in range(1, table.curvature.shape[0]):
         surf = table.row(j)
         if specs is None:
@@ -139,7 +143,8 @@ def trace_rays_final_multi(tables, y0, u0, clip=False, specs=None,
     geometry is identical, only indices differ across wavelengths).
     Returns (y (B, N, 3), u (B, N, 3), t (B, N)).  `unroll` (a JAX
     compilation choice) is accepted and ignored; biconic=True raises
-    NotImplementedError (the extended vocabulary)."""
+    NotImplementedError (the anamorphic vocabulary, ROADMAP Queue 1
+    item 9)."""
     if biconic:
         from ..parallel.grad import _no_biconic
         _no_biconic(biconic)

@@ -7,11 +7,14 @@ step broadcasts them against the bundle.
 
 This is the counterpart of the JAX package's rayopt_tpu.ops.kernels,
 operation for operation, so the two agree to rounding in float64.  The
-port covers flat, spherical and conic rows (rotated, off-axis,
-passthrough, refracting and mirror rows, aperture clip).  The extended
-vocabulary (even/odd aspherics with their Newton intercepts, biconic,
-toroid, cylinder, grating, DOE and freeform rows) is not ported yet:
-a row that needs it raises NotImplementedError.
+port covers the rotationally symmetric rows: flat, spherical, conic
+and even/odd aspheric (rotated, off-axis, passthrough, refracting and
+mirror rows, aperture clip).  An aspheric row is intercepted by a
+fixed-count Newton seeded from the conic (`intercept`), differentiated
+implicitly at the root (`_NewtonRoot`).  The rest of the extended
+vocabulary (biconic, toroid, cylinder, grating, DOE and freeform rows,
+ROADMAP Queue 1 item 9) is not ported yet: a row that needs it raises
+NotImplementedError.
 
 NaN marks a vignetted or missed ray.  `_sqrt0` clamps negative
 arguments to 0 but lets NaN through, and every miss is set to NaN
@@ -24,6 +27,18 @@ import numpy as np
 import torch
 
 NAN = float("nan")
+ASPHERIC_ITERS = 10
+ASPHERIC_TOL = 1e-9
+TINY = 1e-30
+
+
+def _tol_for(x, tol):
+    """Dtype-aware Newton convergence tolerance: the float64 default
+    (1e-9) sits far below float32 evaluation noise, so in reduced
+    precision the floor is 64 machine epsilons (about 7.6e-6 in
+    float32) -- otherwise every converged ray would be declared a miss
+    (NaN)."""
+    return max(tol, 64*torch.finfo(x.dtype).eps)
 
 
 def _sqrt0(x):
@@ -45,6 +60,72 @@ def rot_apply_t(r, x, y, z):
             r[0, 2]*x + r[1, 2]*y + r[2, 2]*z)
 
 
+def _poly_even(r2, coeffs):
+    """sum_i coeffs[i] * r2**(i+1) by Horner."""
+    d = torch.zeros_like(r2)
+    for i in range(coeffs.shape[-1] - 1, -1, -1):
+        d = (d + coeffs[..., i])*r2
+    return d
+
+
+def _dpoly_even(r2, coeffs):
+    """2 * d/d(r2) of _poly_even: sum_i 2 (i+1) coeffs[i] r2**i."""
+    d = torch.zeros_like(r2)
+    for i in range(coeffs.shape[-1] - 1, -1, -1):
+        d = d*r2 + 2*(i + 1)*coeffs[..., i]
+    return d
+
+
+def _poly_odd(r2, coeffs):
+    """sum_j coeffs[j] * r**(2j+1) with r = sqrt(r2): the odd-power
+    aspheric figure (the odd half of a Zemax ODDASPHE sag)."""
+    d = torch.zeros_like(r2)
+    for j in range(coeffs.shape[-1] - 1, -1, -1):
+        d = d*r2 + coeffs[..., j]
+    return torch.sqrt(r2)*d
+
+
+def _dpoly_odd(r2, coeffs):
+    """2 * d/d(r2) of _poly_odd: P(r2)/r + 2 r P'(r2).  The r**1 term
+    has a cusp at the vertex: r is floored at TINY there (a normal
+    exactly on the vertex of a coned surface is undefined)."""
+    p = torch.zeros_like(r2)
+    for j in range(coeffs.shape[-1] - 1, -1, -1):
+        p = p*r2 + coeffs[..., j]
+    dp = torch.zeros_like(r2)
+    for j in range(coeffs.shape[-1] - 1, 0, -1):
+        dp = dp*r2 + j*coeffs[..., j]
+    r = torch.clamp(torch.sqrt(r2), min=TINY)
+    return p/r + 2*r*dp
+
+
+def _width(coeffs):
+    return coeffs is not None and coeffs.shape[-1] > 0
+
+
+def sag(x, y, z, c, k, aspherics=None, aspherics_odd=None):
+    """z - surface_sag(x, y) (reference elements.py:440)."""
+    r2 = x*x + y*y
+    e = z - c*r2/(1 + _sqrt0(1 - (1 + k)*c*c*r2))
+    if _width(aspherics):
+        e = e - _poly_even(r2, aspherics)
+    if _width(aspherics_odd):
+        e = e - _poly_odd(r2, aspherics_odd)
+    return e
+
+
+def normal_radial(x, y, c, k, aspherics=None, aspherics_odd=None):
+    """The radial factor e of the surface normal (nx, ny, nz) =
+    (x*e, y*e, 1) (reference elements.py:457)."""
+    r2 = x*x + y*y
+    e = -c/_sqrt0(1 - (1 + k)*c*c*r2)
+    if _width(aspherics):
+        e = e - _dpoly_even(r2, aspherics)
+    if _width(aspherics_odd):
+        e = e - _dpoly_odd(r2, aspherics_odd)
+    return e
+
+
 def xy_degree(nterms):
     """Polynomial degree from the triangular term count
     nterms = deg*(deg + 3)/2."""
@@ -57,13 +138,6 @@ def xy_degree(nterms):
             "xy_poly width %d is not triangular (expected deg*(deg+3)/2"
             " for some integer degree)" % nterms)
     return deg
-
-
-def normal_radial(x, y, c, k):
-    """The radial factor e of the conic normal (nx, ny, nz) =
-    (x*e, y*e, 1) (reference elements.py:457)."""
-    r2 = x*x + y*y
-    return -c/_sqrt0(1 - (1 + k)*c*c*r2)
 
 
 def intercept_conic(x, y, z, ux, uy, uz, c, k, alternate):
@@ -93,10 +167,101 @@ def intercept_conic(x, y, z, ux, uy, uz, c, k, alternate):
     return s
 
 
-def refract(x, y, ux, uy, uz, mu, c, k):
-    """Vector Snell / mirror reflection on components at a conic
-    (reference elements.py:351): mu == -1 reflects, mu == 1 passes."""
-    e = normal_radial(x, y, c, k)
+def _newton_residual(s, x, y, z, ux, uy, uz, c, k, asp, aspo):
+    """Sag residual F(s) at distance s along the ray (the reference's
+    "radial" kind: a conic plus even/odd aspheric figure)."""
+    return sag(x + s*ux, y + s*uy, z + s*uz, c, k, asp, aspo)
+
+
+def _newton_slope(s, x, y, z, ux, uy, uz, c, k, asp, aspo):
+    """dF/ds = u . grad(z - sag) by the radial normal."""
+    px, py = x + s*ux, y + s*uy
+    e = normal_radial(px, py, c, k, asp, aspo)
+    return ux*(px*e) + uy*(py*e) + uz
+
+
+class _NewtonRoot(torch.autograd.Function):
+    """Fixed-count Newton refinement of the intercept distance, the
+    counterpart of the reference's `_newton_root` (a jax.custom_jvp).
+
+    forward(seed, x, y, z, ux, uy, uz, c, k, asp, aspo, iters, tol):
+    `iters` Newton steps from the seed (a zero slope steps by F), then
+    a ray whose residual exceeds tol*(1 + |s|) (tol floored by
+    _tol_for) becomes NaN.
+
+    backward: the implicit-function theorem at the converged root,
+    p_bar = -s_bar * dF/dp / F_s (one residual gradient), not the
+    unrolled iterations: the derivative is that of the exact root,
+    independent of the iteration path.  The seed gets no cotangent (as
+    the reference's JVP ignores its tangent).  The backward is not
+    itself differentiable: nested derivatives (the reference's
+    aberration expansion, item 13) raise."""
+
+    @staticmethod
+    def forward(ctx, seed, x, y, z, ux, uy, uz, c, k, asp, aspo, iters,
+                tol):
+        args = (x, y, z, ux, uy, uz, c, k, asp, aspo)
+        s = seed
+        for _ in range(iters):
+            fn = _newton_residual(s, *args)
+            fp = _newton_slope(s, *args)
+            fp = torch.where(fp == 0, 1., fp)
+            s = s - fn/fp
+        res = _newton_residual(s, *args)
+        tol = _tol_for(s, tol)
+        s = torch.where(torch.abs(res) <= tol*(1 + torch.abs(s)), s, NAN)
+        ctx.save_for_backward(s, *args)
+        return s
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        s, *args = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:11]
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_() if nd else a.detach()
+                      for a, nd in zip(args, need)]
+            f = _newton_residual(s, *leaves)
+            fs = _newton_slope(s, *(a.detach() for a in args))
+            fs = torch.where(fs == 0, 1., fs)
+            wanted = [a for a, nd in zip(leaves, need) if nd]
+            grads = iter(torch.autograd.grad(f, wanted, -ct/fs,
+                                             allow_unused=True)
+                         if wanted else ())
+        out = [None]
+        for a, nd in zip(args, need):
+            g = next(grads) if nd else None
+            out.append(torch.zeros_like(a) if nd and g is None else g)
+        return (*out, None, None)
+
+
+def intercept(x, y, z, ux, uy, uz, c, k, aspherics, alternate,
+              iters=ASPHERIC_ITERS, tol=ASPHERIC_TOL, aspherics_odd=None):
+    """Ray length to a conic surface with even/odd aspheric figure: the
+    closed conic root, refined by a fixed-count Newton on the exact
+    sag when either coefficient table has a nonzero width (a static
+    shape, as in the reference).  A ray whose conic seed misses a
+    curved row stays NaN; so does a ray the Newton does not
+    converge."""
+    s = intercept_conic(x, y, z, ux, uy, uz, c, k, alternate)
+    if not (_width(aspherics) or _width(aspherics_odd)):
+        return s
+    zeros = s.new_zeros((0,))
+    asp = aspherics if aspherics is not None else zeros
+    aspo = aspherics_odd if aspherics_odd is not None else zeros
+    s0 = s
+    x, y, z, ux, uy, uz = torch.broadcast_tensors(x, y, z, ux, uy, uz)
+    s = _NewtonRoot.apply(s0, x, y, z, ux, uy, uz, c, k, asp, aspo,
+                          iters, tol)
+    return torch.where(torch.isnan(s0) & (c != 0), NAN, s)
+
+
+def refract(x, y, ux, uy, uz, mu, c, k, aspherics=None,
+            aspherics_odd=None):
+    """Vector Snell / mirror reflection on components at a conic with
+    even/odd aspheric figure (reference elements.py:351): mu == -1
+    reflects, mu == 1 passes."""
+    e = normal_radial(x, y, c, k, aspherics, aspherics_odd)
     nx, ny = x*e, y*e
     r2 = nx*nx + ny*ny + 1.
     muf = torch.abs(mu)
@@ -142,32 +307,42 @@ class SurfaceSpec(NamedTuple):
     freeform: bool = False
 
 
+#: where the extended vocabulary waits (its NotImplementedError says so)
+ITEM9 = "ROADMAP Queue 1 item 9"
 #: SurfaceSpec flags of the extended vocabulary, not ported yet
-EXTENDED = ("aspheric", "odd", "biconic", "toroidal", "grating", "doe",
-            "freeform", "cyl_axis")
+EXTENDED = ("biconic", "toroidal", "grating", "doe", "freeform", "cyl_axis")
+#: the figured rows: the seeded Newton intercept and its radial normal
+FIGURED = ("aspheric", "odd")
 
 
-def check_supported(spec, j=None):
-    """Raise NotImplementedError for a row that needs the extended
-    surface vocabulary."""
-    used = [f for f in EXTENDED if getattr(spec, f)]
+def is_figured(spec):
+    """True for an even- or odd-aspheric row (the Newton intercept)."""
+    return bool(spec.aspheric or spec.odd)
+
+
+def check_supported(spec, j=None, figured=True, what="rayopt_tpu_torch"):
+    """Raise NotImplementedError, naming ROADMAP Queue 1 item 9, for a
+    row that needs the extended surface vocabulary -- or, with
+    figured=False (the kernels that do not trace aspheric rows yet,
+    named by `what`), an even- or odd-aspheric row."""
+    flags = EXTENDED if figured else FIGURED + EXTENDED
+    used = [f for f in flags if getattr(spec, f)]
     if used:
         raise NotImplementedError(
-            "surface row %s uses %s, which rayopt_tpu_torch does not "
-            "trace yet (flat, spherical and conic rows only)"
-            % ("?" if j is None else j, "/".join(used)))
+            "surface row %s uses %s, which %s does not trace yet (%s)"
+            % ("?" if j is None else j, "/".join(used), what, ITEM9))
 
 
-def require_conic(table):
-    """Raise NotImplementedError when the generic (spec-free) trace
-    would need the extended vocabulary for some row of `table`."""
+def require_radial(table):
+    """Raise NotImplementedError (item 9) when the generic (spec-free)
+    trace would need the extended vocabulary for some row of `table`:
+    it traces the rotationally symmetric rows only (flat, spherical,
+    conic and even/odd aspheric)."""
     from .tables import is_anamorphic
-    figured = any(f is not None and f.numel() and bool(torch.any(f != 0))
-                  for f in (table.aspherics, table.aspherics_odd))
-    if figured or is_anamorphic(table):
+    if is_anamorphic(table):
         raise NotImplementedError(
-            "the table has aspheric or extended-vocabulary rows, which "
-            "rayopt_tpu_torch does not trace yet")
+            "the table has anamorphic, grating, DOE or freeform rows, "
+            "which rayopt_tpu_torch does not trace yet (%s)" % ITEM9)
 
 
 def specialize(table):
@@ -286,11 +461,16 @@ def intercept_spec(x, y, z, ux, uy, uz, c, k, spec):
     return torch.where(disc < 0, NAN, s)
 
 
-def refract_spec(x, y, z, ux, uy, uz, mu, c, k, spec):
+def refract_spec(x, y, z, ux, uy, uz, mu, c, k, spec, aspherics=None,
+                 aspherics_odd=None):
     """Specialized Snell/mirror refraction at the on-surface point
-    (x, y, z local) of a flat, spherical or conic row."""
+    (x, y, z local) of a flat, spherical, conic or even/odd aspheric
+    row (the coefficients are read only where the spec flags them)."""
     if spec.kind == 0:
         return ux, uy, uz
+    if is_figured(spec):
+        return _refract_figured(x, y, ux, uy, uz, mu, c, k, spec,
+                                aspherics, aspherics_odd)
     if spec.flat:
         # plane: normal is exactly +z
         if spec.kind == 2:
@@ -328,6 +508,34 @@ def refract_spec(x, y, z, ux, uy, uz, mu, c, k, spec):
     return muf*ux + g*nx, muf*uy + g*ny, muf*uz + g*nz
 
 
+def _refract_figured(x, y, ux, uy, uz, mu, c, k, spec, aspherics,
+                     aspherics_odd):
+    """Snell/mirror refraction of an aspheric row by the radial normal
+    (x e, y e, 1), e = -c/sqrt(max(1 - (1+k) c^2 r^2, TINY)) minus the
+    polynomial slopes the spec flags (the reference's figured branch of
+    refract_spec)."""
+    r2s = x*x + y*y
+    e = -c*torch.rsqrt(torch.clamp(1 - (1 + k)*c*c*r2s, min=TINY))
+    if spec.aspheric:
+        e = e - _dpoly_even(r2s, aspherics)
+    if spec.odd:
+        e = e - _dpoly_odd(r2s, aspherics_odd)
+    nx, ny = x*e, y*e
+    r2 = nx*nx + ny*ny + 1.
+    ir2 = 1./r2
+    dot = ux*nx + uy*ny + uz
+    if spec.kind == 2:
+        a2 = 2.*dot*ir2
+        return ux - a2*nx, uy - a2*ny, uz - a2
+    muf = torch.abs(mu)
+    a = muf*dot*ir2
+    b = (mu*mu - 1)*ir2
+    disc = a*a - b
+    g = -a + torch.sign(mu)*_sqrt0(disc)
+    g = torch.where(disc < 0, NAN, g)
+    return muf*ux + g*nx, muf*uy + g*ny, muf*uz + g
+
+
 def surface_step_spec(state, surf, spec, clip):
     """Specialized transfer-intercept-refract step (same semantics as
     surface_step; static branches from SurfaceSpec).  Returns
@@ -343,8 +551,13 @@ def surface_step_spec(state, surf, spec, clip):
         r = surf.rot
         x, y, z = rot_apply(r, x, y, z)
         ux, uy, uz = rot_apply(r, ux, uy, uz)
-    t = intercept_spec(x, y, z, ux, uy, uz, surf.curvature, surf.conic,
-                       spec)
+    if is_figured(spec):
+        t = intercept(x, y, z, ux, uy, uz, surf.curvature, surf.conic,
+                      surf.aspherics, surf.alternate,
+                      aspherics_odd=surf.aspherics_odd)
+    else:
+        t = intercept_spec(x, y, z, ux, uy, uz, surf.curvature,
+                           surf.conic, spec)
     x1, y1, z1 = x + t*ux, y + t*uy, z + t*uz
     topt = t*surf.n_before
     ux0, uy0, uz0 = ux, uy, uz
@@ -356,7 +569,8 @@ def surface_step_spec(state, surf, spec, clip):
         uy0 = torch.where(bad, NAN, uy0)
         uz0 = torch.where(bad, NAN, uz0)
     ux1, uy1, uz1 = refract_spec(x1, y1, z1, ux0, uy0, uz0, surf.mu,
-                                 surf.curvature, surf.conic, spec)
+                                 surf.curvature, surf.conic, spec,
+                                 surf.aspherics, surf.aspherics_odd)
     out = ((x1, y1, z1), (ux1, uy1, uz1), (ux, uy, uz), topt)
     if spec.rotated:
         r = surf.rot
@@ -370,18 +584,20 @@ def surface_step_spec(state, surf, spec, clip):
 def surface_step(state, surf, clip):
     """One generic transfer-intercept-refract step on component state
     (x, y, z, ux, uy, uz): every row is rotated, intercepted by the
-    general conic and refracted with the radial normal, with no
-    static specialization.  Returns (next_state, local_outputs) with
-    the per-surface (y, u, i, t) in the surface-normal frame
-    (reference system.py:459-464).  Callers check the table with
-    `require_conic` first."""
+    general conic (refined by the Newton on the exact sag when the
+    table has aspheric columns of nonzero width, `intercept`) and
+    refracted with the radial normal, with no static specialization.
+    Returns (next_state, local_outputs) with the per-surface (y, u, i,
+    t) in the surface-normal frame (reference system.py:459-464).
+    Callers check the table with `require_radial` first."""
     x, y, z, ux, uy, uz = state
     ox, oy, oz = surf.offset[0], surf.offset[1], surf.offset[2]
     r = surf.rot
     x, y, z = rot_apply(r, x - ox, y - oy, z - oz)
     ix, iy, iz = rot_apply(r, ux, uy, uz)
-    t = intercept_conic(x, y, z, ix, iy, iz, surf.curvature, surf.conic,
-                        surf.alternate)
+    t = intercept(x, y, z, ix, iy, iz, surf.curvature, surf.conic,
+                  surf.aspherics, surf.alternate,
+                  aspherics_odd=surf.aspherics_odd)
     x1, y1, z1 = x + t*ix, y + t*iy, z + t*iz
     ux0, uy0, uz0 = ix, iy, iz
     if clip:
@@ -391,7 +607,8 @@ def surface_step(state, surf, clip):
         uz0 = torch.where(bad, NAN, uz0)
     topt = t*surf.n_before
     ux1, uy1, uz1 = refract(x1, y1, ux0, uy0, uz0, surf.mu,
-                            surf.curvature, surf.conic)
+                            surf.curvature, surf.conic, surf.aspherics,
+                            surf.aspherics_odd)
     out = ((x1, y1, z1), (ux1, uy1, uz1), (ix, iy, iz), topt)
     nx, ny, nz = rot_apply_t(r, x1, y1, z1)
     nux, nuy, nuz = rot_apply_t(r, ux1, uy1, uz1)

@@ -2,18 +2,23 @@
 
 The single-surface oracle behind the Element methods (reference
 elements.py:440-501 for the spheroid sag/normal and closed-form conic
-intercept, elements.py:351-369 for vector Snell / reflection), written
-as batched, NaN-safe torch functions: every branch is a `torch.where`
+intercept, elements.py:333-349 for the iterative aspheric intercept,
+elements.py:351-369 for vector Snell / reflection), written as
+batched, NaN-safe torch functions: every branch is a `torch.where`
 select, and a missed or totally reflected ray is NaN.
 
-Conic surfaces only: an aspheric (or odd-aspheric, or freeform)
-figure needs the Newton intercept, which is not ported yet and raises
-NotImplementedError.
+Conic surfaces with even and odd aspheric figure: an aspheric
+intercept is the conic root refined by a fixed trip-count Newton over
+the whole bundle (ASPHERIC_ITERS, unrolled: its gradient is that of
+the iterations, as in the reference's oracle).  A freeform XY figure
+(`xy_poly` of nonzero width) is not ported yet and raises
+NotImplementedError (ROADMAP Queue 1 item 9).
 """
 
 import torch
 
-from .kernels import _sqrt0
+from .kernels import (ASPHERIC_ITERS, ASPHERIC_TOL, ITEM9, _dpoly_even,
+                      _dpoly_odd, _poly_even, _poly_odd, _sqrt0)
 
 
 def _scalars(ref, *vals):
@@ -23,33 +28,54 @@ def _scalars(ref, *vals):
                  for v in vals)
 
 
-def _require_conic(aspherics, aspherics_odd=None, xy_poly=None):
-    for a in (aspherics, aspherics_odd, xy_poly):
-        if a is not None and a.shape[-1] and bool(torch.any(a != 0)):
-            raise NotImplementedError(
-                "aspheric/freeform figures are not ported to "
-                "rayopt_tpu_torch yet (conic surfaces only)")
+def _coeffs(ref, coeffs):
+    """A coefficient vector as a tensor of ref's dtype and device, or
+    None when absent or of zero width (a static shape)."""
+    if coeffs is None:
+        return None
+    coeffs = torch.as_tensor(coeffs, dtype=ref.dtype, device=ref.device)
+    return coeffs if coeffs.shape[-1] else None
+
+
+def _no_freeform(xy_poly):
+    if xy_poly is not None and torch.as_tensor(xy_poly).shape[-1]:
+        raise NotImplementedError(
+            "freeform XY figures are not ported to rayopt_tpu_torch yet "
+            "(%s)" % ITEM9)
 
 
 def surface_sag(xyz, curvature, conic, aspherics, aspherics_odd=None,
                 xy_poly=None):
     """Signed distance along z from the surface: z - sag(x, y)
-    (reference elements.py:440)."""
-    _require_conic(aspherics, aspherics_odd, xy_poly)
+    (reference elements.py:440), with the even and odd aspheric
+    terms."""
+    _no_freeform(xy_poly)
+    e = xyz[..., 2]
     r2 = torch.square(xyz[..., :2]).sum(-1)
     c, k = _scalars(xyz, curvature, conic)
     sq = _sqrt0(1 - (1 + k)*c**2*r2)
-    return xyz[..., 2] - c*r2/(1 + sq)
+    e = e - c*r2/(1 + sq)
+    asp, aspo = _coeffs(xyz, aspherics), _coeffs(xyz, aspherics_odd)
+    if asp is not None:
+        e = e - _poly_even(r2, asp)
+    if aspo is not None:
+        e = e - _poly_odd(r2, aspo)
+    return e
 
 
 def surface_normal(xyz, curvature, conic, aspherics,
                    aspherics_odd=None, xy_poly=None):
     """(Unnormalized) surface normal of the sag function, pointing +z
     (reference elements.py:457)."""
-    _require_conic(aspherics, aspherics_odd, xy_poly)
+    _no_freeform(xy_poly)
     r2 = torch.square(xyz[..., :2]).sum(-1)
     c, k = _scalars(xyz, curvature, conic)
     e = -c/_sqrt0(1 - (1 + k)*c**2*r2)
+    asp, aspo = _coeffs(xyz, aspherics), _coeffs(xyz, aspherics_odd)
+    if asp is not None:
+        e = e - _dpoly_even(r2, asp)
+    if aspo is not None:
+        e = e - _dpoly_odd(r2, aspo)
     gx = xyz[..., 0]*e
     gy = xyz[..., 1]*e
     return torch.stack([gx, gy, torch.ones_like(e)], dim=-1)
@@ -82,10 +108,32 @@ def intercept_conic(y, u, curvature, conic, alternate):
 
 
 def intercept(y, u, curvature, conic, aspherics, alternate=0.,
-              aspherics_odd=None, xy_poly=None):
-    """Ray length from y along unit u to a conic surface."""
-    _require_conic(aspherics, aspherics_odd, xy_poly)
-    return intercept_conic(y, u, curvature, conic, alternate)
+              aspherics_odd=None, xy_poly=None, iters=ASPHERIC_ITERS,
+              tol=ASPHERIC_TOL):
+    """Ray length from y along unit u to the surface: the closed conic
+    root, refined when aspheric coefficients are present (a static
+    shape) by a fixed trip-count Newton on the full sag (replacing the
+    per-ray scipy.newton loop of reference elements.py:333-349).  A
+    ray that does not converge, or whose conic seed misses a curved
+    surface, is NaN."""
+    _no_freeform(xy_poly)
+    s = intercept_conic(y, u, curvature, conic, alternate)
+    if _coeffs(y, aspherics) is None and _coeffs(y, aspherics_odd) is None:
+        return s
+    s0 = s
+    for _ in range(iters):
+        p = y + s[..., None]*u
+        fn = surface_sag(p, curvature, conic, aspherics, aspherics_odd)
+        fp = (surface_normal(p, curvature, conic, aspherics,
+                             aspherics_odd)*u).sum(-1)
+        fp = torch.where(fp == 0, 1., fp)
+        s = s - fn/fp
+    p = y + s[..., None]*u
+    res = surface_sag(p, curvature, conic, aspherics, aspherics_odd)
+    s = torch.where(torch.abs(res) <= tol*(1 + torch.abs(s)), s,
+                    float("nan"))
+    c, = _scalars(y, curvature)
+    return torch.where(torch.isnan(s0) & (c != 0), float("nan"), s)
 
 
 def refract(y, u0, mu, curvature, conic, aspherics,

@@ -14,6 +14,12 @@ Two engines compute the spot-RMS merit:
   a CUDA bundle, their plain versions on a CPU bundle.  No autograd
   residuals; specialized-engine gradient semantics.
 
+Both take even- and odd-aspheric rows, and `select` may hold
+"aspherics" and "aspherics_odd" (with `scales`, one per coefficient
+column, as the reference's freeform_scales are); the adjoint engine
+moves the coefficients of the rows that are figured in the nominal
+table only.
+
 The wavefront merits follow the same split: opd_rays/wavefront_rms
 here are autograd through the plain trace's full history, and
 ops.cuda_grad.adjoint_opd_rays/adjoint_wavefront_rms run the OPD
@@ -429,8 +435,10 @@ def optimize_grad(table, bundles, select=("curvature",), steps=100,
     engine:    "xla" (autograd through the plain torch trace) or
                "adjoint" (ops.cuda_grad.adjoint_spot_rms: K4/K5 on a
                CUDA bundle, specialized-engine gradient semantics from
-               the nominal table's specs; select may not hold tilt or
-               decenter).  Ignored when `merit` is passed.
+               the nominal table's specs: "aspherics" and
+               "aspherics_odd" move on its aspheric rows only; select
+               may not hold tilt or decenter).  Ignored when `merit` is
+               passed.
 
     `mesh`, `checkpoint_dir` and `jit_steps` are not ported yet and
     raise NotImplementedError.  Returns (optimized table, history of

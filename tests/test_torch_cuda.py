@@ -1501,3 +1501,157 @@ def test_polychromatic_adjoint_past_max_nlam_on_card(cuda_device, nlam):
         for col in range(CG.SLOTS):
             if float(pref[li, :, col].abs().max()):
                 assert _max_rel(pg[li, :, col], pref[li, :, col]) <= 1e-9
+
+
+# -- the aspheric rows: K1, K2, K4 and K5 on figured keys ------------------
+
+def _aspheric_case(name, device, dtype):
+    """(table, specs, bundle, weights) of an aspheric lens: the JAX
+    package's aspheric double Gauss (two conics and an even asphere on
+    row 7, tests/test_df32.py) or odd singlet (an even and odd figure
+    on a conic front, tests/test_pallas.py), on 2^16 rays uniform in its
+    aperture, none exactly on the axis (an odd figure's gradient is NaN
+    there, as the reference's)."""
+    from rayopt_tpu_torch import Spheroid, System, air
+    if name == "double_gauss":
+        s = double_gauss()
+        s[2].conic = -.7
+        s[5].conic = .4
+        s[7].aspherics = [0., 1.2e-7, -3e-11]
+        height = 11.
+    else:
+        s = System()
+        s.append(Spheroid(material=air, radius=9.))
+        s.append(Spheroid(distance=8., curvature=1/45., conic=-.3,
+                          aspherics=[0., 2e-7],
+                          aspherics_odd=[0., 1e-5, -2e-8], material=1.6,
+                          radius=9.))
+        s.append(Spheroid(distance=5., curvature=-1/80., material=air,
+                          radius=9.))
+        s.append(Spheroid(distance=70., material=None, radius=9.))
+        s.wavelengths = [587.56e-9]
+        height = 8.
+    s.update()
+    tab = s.table()
+    rng = np.random.RandomState(8)
+    n = 1 << 16
+    xy = rng.uniform(-height, height, (2, n))
+    uv = rng.uniform(-.02, .02, (2, n))
+    uz = np.sqrt(1 - np.square(uv).sum(0))
+    state = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(device, dtype)
+                  for c in (*xy, np.zeros(n), *uv, uz))
+    w = torch.from_numpy(rng.uniform(.5, 1.5, n)).to(device, dtype)
+    return tab, specialize(tab), state, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["double_gauss", "odd_singlet"])
+def test_aspheric_kernels_match_plain_on_card(cuda_device, name, dtype,
+                                              clip):
+    """K1, K2, K4 and K5 (every field, the ray cotangents) on an aspheric
+    lens's figured keys, unclipped and clipped at its apertures, against
+    their plain versions on the card: float64 to rounding, float32 a few
+    ulp of the intermediate coordinates; the coefficient cotangents
+    come back on the aspheric row only."""
+    tab, specs, state, w = _aspheric_case(name, cuda_device, dtype)
+    widths = CT.figure_widths(tab, specs)
+    assert widths != (0, 0)
+    before = (CT.trace_final.launches, CT.trace_merit.launches,
+              CG.weighted_moments.launches, CG.merit_adjoint.launches)
+    got, t = CT.trace_final(tab, specs, state, clip)
+    ref, tref = CT.trace_final_reference(tab, specs, state, clip)
+    mom = CT.trace_merit(tab, specs, state, clip)
+    mref = CT.trace_merit_reference(tab, specs, state, clip)
+    wm = CG.weighted_moments(tab, specs, state, w, clip)
+    wref = CG.weighted_moments_reference(tab, specs, state, w,
+                                           clip)
+    ct = _rms_cotangent(wref)
+    pg, cst, cw = CG.merit_adjoint(tab, specs, state, w, ct, clip)
+    pref, sref, cwref = CG.merit_adjoint_reference(tab, specs, state, w, ct,
+                                                    clip)
+    torch.cuda.synchronize()
+    assert (CT.trace_final.launches, CT.trace_merit.launches,
+            CG.weighted_moments.launches,
+            CG.merit_adjoint.launches) == tuple(b + 1 for b in before)
+    f64 = dtype == torch.float64
+    tol = 1e-12*100 if f64 else 5e-5
+    for g, r in zip((*got, t), (*ref, tref)):
+        g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+        # float32: a ray on the edge of convergence may flip
+        if f64:
+            nptest.assert_array_equal(np.isnan(g), np.isnan(r))
+        live = np.isfinite(g) & np.isfinite(r)
+        assert live.mean() > .5
+        nptest.assert_allclose(g[live], r[live], atol=tol, rtol=tol)
+    assert abs(float(mom[0]) - float(mref[0])) <= (0 if f64
+                                                    else 1e-5*(1 << 16))
+    nptest.assert_allclose(float(CT.spot_rms_from_moments(*mom)),
+                           float(CT.spot_rms_from_moments(*mref)),
+                           rtol=1e-10 if f64 else 1e-4)
+    nptest.assert_allclose(float(CT.spot_rms_from_moments(*wm)),
+                           float(CT.spot_rms_from_moments(*wref)),
+                           rtol=1e-10 if f64 else 1e-4)
+    assert pg.shape == pref.shape == (tab.nsurfaces, CG.SLOTS + sum(widths))
+    fig = [j for j, s in enumerate(specs) if s.aspheric or s.odd]
+    assert bool((pg[fig, CG.SLOTS:] != 0).any())
+    others = [j for j in range(tab.nsurfaces) if j not in fig]
+    assert bool((pg[others, CG.SLOTS:] == 0).all())
+    gtol = 1e-9 if f64 else 1e-3
+    for col in range(pg.shape[1]):
+        assert torch.isfinite(pg[:, col]).all()
+        if float(pref[:, col].abs().max()):
+            assert _max_rel(pg[:, col], pref[:, col]) <= gtol, col
+    # a dead ray's cotangents are all zero: the same rays are live in
+    # float64; float32 compares the rays live in both
+    live = (cw != 0) & (cwref != 0)
+    if f64:
+        assert torch.equal(cw != 0, cwref != 0)
+    ray_tol = 1e-9 if f64 else 1e-2
+    for got_, want_ in ((cst[:3], sref[:3]), (cst[3:], sref[3:]),
+                        ((cw,), (cwref,))):
+        scale = max(float(r.abs().max()) for r in want_)
+        for g, r in zip(got_, want_):
+            assert float((g - r)[live].abs().max()) <= ray_tol*scale
+
+
+@pytest.mark.cuda
+def test_aspheric_designer_step_on_card(cuda_device):
+    """optimize_grad(engine="adjoint", select=("curvature", "aspherics"))
+    on the aspheric double Gauss: two steps on the card against the same
+    call on the CPU plain versions, merit to 1e-9 relative and the
+    step-0 gradients to 1e-8 of their largest."""
+    from rayopt_tpu_torch.parallel import (bundles_from_system, bundles_to,
+                                           optimize_grad)
+    s = double_gauss()
+    s[2].conic = -.7
+    s[5].conic = .4
+    s[7].aspherics = [0., 1.2e-7, -3e-11]
+    s.update()
+    tab = s.table()
+    bundles = bundles_from_system(s, fields=(0., 1.), nrays=2048,
+                                  distribution="hexapolar", device="cpu")
+    sel = ("curvature", "aspherics")
+    scales = {"aspherics": [1e-4, 1e-7, 1e-11]}
+    grads = {}
+
+    def keep(tag):
+        def callback(i, value, params):
+            if i == 0:
+                grads[tag] = {k: v.grad.double().cpu()
+                              for k, v in params.items()}
+        return callback
+    before = CG.merit_adjoint.launches
+    _, h_gpu = optimize_grad(tab, bundles_to(bundles, cuda_device),
+                             select=sel, steps=2, lr=1e-7, scales=scales,
+                             engine="adjoint", callback=keep("gpu"))
+    assert CG.merit_adjoint.launches > before
+    _, h_cpu = optimize_grad(tab.to(device="cpu"), bundles, select=sel,
+                             steps=2, lr=1e-7, scales=scales,
+                             engine="adjoint", callback=keep("cpu"))
+    nptest.assert_allclose(h_gpu, h_cpu, rtol=1e-9)
+    for k in sel:
+        g, r = grads["gpu"][k], grads["cpu"][k]
+        assert float(r.abs().max()) > 0, k
+        assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max()), k

@@ -143,9 +143,35 @@ def test_spheroid_oracle_matches_jax(curvature, conic):
 
 
 def test_aspheric_element_not_ported():
-    el = T.Spheroid(curvature=.02, aspherics=[0., 1e-6])
-    with pytest.raises(NotImplementedError):
-        el.intercept(np.zeros((1, 3)), np.array([[0., 0., 1.]]))
+    """An aspheric Spheroid's element oracle (even and odd figure) is
+    ported now: it agrees with the JAX element to 1e-12; a freeform XY
+    figure is what still raises (ROADMAP Queue 1 item 9)."""
+    rng = np.random.RandomState(5)
+    n = 64
+    y = np.zeros((n, 3))
+    y[:, :2] = rng.uniform(-1, 1, (n, 2))*6
+    y[:, 2] = -5.
+    u = np.zeros((n, 3))
+    u[:, :2] = rng.uniform(-.1, .1, (n, 2))
+    u[:, 2] = np.sqrt(1 - np.square(u[:, :2]).sum(1))
+    kw = dict(curvature=.02, conic=-.4, aspherics=[0., 1e-6, -2e-9],
+              aspherics_odd=[0., 3e-6], radius=8.)
+    je, te = J.Spheroid(**kw), T.Spheroid(**kw)
+    tj, tt = je.intercept(y, u), te.intercept(y, u)
+    assert np.isfinite(tj).all()
+    nptest.assert_allclose(tt, tj, rtol=1e-12, atol=1e-12)
+    p = y + tj[:, None]*u
+    nptest.assert_allclose(te.surface_sag(p), je.surface_sag(p),
+                           atol=1e-12)
+    nptest.assert_allclose(te.surface_normal(p), je.surface_normal(p),
+                           rtol=1e-12, atol=1e-12)
+    for mu in (1/1.5, -1.):
+        nptest.assert_allclose(te.refract(p, u, mu), je.refract(p, u, mu),
+                               rtol=1e-12, atol=1e-12, equal_nan=True)
+    from rayopt_tpu_torch.ops import surfaces as TS
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TS.surface_sag(torch.zeros(1, 3, dtype=torch.float64), .02, 0.,
+                       None, xy_poly=torch.ones(2, dtype=torch.float64))
 
 
 @pytest.mark.parametrize("name", ["cooke_triplet", "double_gauss"])
