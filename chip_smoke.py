@@ -101,8 +101,6 @@ ASPH_SCALES = {"aspherics": (1e-4, 1e-7, 1e-11)}
 #: and the conic (unitless)
 ASPH_FD_STEP = {"A4": 1e-10, "A6": 3e-14, "conic": 1e-6}
 N_ASPH = 1 << 16     # aimed rays a field on the aspheric forward path
-N_ASPH_CHECK = 1 << 20   # rays of the aspheric kernel-vs-plain checks
-N_ASPH_TIME = 1 << 22    # rays of the aspheric timings (K1 also N_BENCH)
 
 # tolerances (kernel vs plain on the card, live rays)
 F64_REL = 1e-12      # float64: max |a - b| / max(1, max |b|) per output
@@ -225,18 +223,22 @@ def compare_moments(got, want, dtype, n):
     return ok, rel, cnt_g - cnt_w
 
 
-def phase_check(table, specs):
+def phase_check(table, specs, lens="double Gauss", bundle=bench_bundle,
+                clips=(False, True)):
+    """K1 and K2 against their plain versions on the card at N_CHECK
+    rays of `bundle` (the aspheric lenses: unclipped only), float64 to
+    F64_REL, float32 to its own limits, and float32 K2's spot RMS
+    against float64's.  Returns the float32 errors."""
     from rayopt_tpu_torch.ops.cuda_trace import (
         trace_final, trace_final_reference, trace_merit,
         trace_merit_reference, spot_rms_from_moments)
-    log("== kernel vs plain on the card (double Gauss, %d bench rays)"
-        % N_CHECK)
+    log("== kernel vs plain on the card (%s, %d rays)" % (lens, N_CHECK))
     worst = {"trace_final": 0., "trace_merit": 0.}
     rms = {}
     failures = []
     for dtype in (torch.float32, torch.float64):
-        state = bench_bundle(N_CHECK, dtype, SEED)
-        for clip in (False, True):
+        state = bundle(N_CHECK, dtype, SEED)
+        for clip in clips:
             tag = "%s clip=%s" % (str(dtype)[6:], clip)
             got = trace_final(table, specs, state, clip)
             want = trace_final_reference(table, specs, state, clip)
@@ -265,16 +267,16 @@ def phase_check(table, specs):
                                            abs(rg - rw))
             if not ok:
                 failures.append("K2 " + tag)
-    for clip in (False, True):
+    for clip in clips:
         r32, r64 = rms[(torch.float32, clip)], rms[(torch.float64, clip)]
         rel = abs(r32 - r64)/r64
-        log("K2 on axis clip=%s: float32 spot RMS %.9g vs float64 %.9g,"
-            " rel %.3e" % (clip, r32, r64, rel))
+        log("K2 clip=%s: float32 spot RMS %.9g vs float64 %.9g, rel %.3e"
+            % (clip, r32, r64, rel))
         if not rel <= 1e-4:
-            failures.append("K2 float32 on axis clip=%s" % clip)
+            failures.append("K2 float32 vs float64 clip=%s" % clip)
     if failures:
-        raise AssertionError("kernel disagrees with its plain version: "
-                             + ", ".join(failures))
+        raise AssertionError("kernel disagrees with its plain version on "
+                             "the %s: %s" % (lens, ", ".join(failures)))
     return worst
 
 
@@ -354,20 +356,26 @@ def compare_ray_grads(got, got_w, want, want_w, agree=None):
     return rel, int((live_g != live_w).sum()), finite
 
 
-def phase_grad_check(table, specs):
+def phase_grad_check(table, specs, lens="double Gauss", bundle=bench_bundle,
+                     clips=(False, True), fields=GRAD_FIELDS):
+    """K4 and K5 (every field, with the ray cotangents) against their
+    plain versions on the card at N_CHECK rays of `bundle`; K5's
+    parameter cotangents by `fields` (the aspheric lenses: their
+    coefficient columns too, asph_grad_fields).  Returns the float32
+    errors."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         weighted_moments, weighted_moments_reference, merit_adjoint,
         merit_adjoint_reference)
     from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
-    log("== K4/K5 vs plain on the card (double Gauss, %d bench rays, "
-        "weights uniform in [0.5, 1.5])" % N_CHECK)
+    log("== K4/K5 vs plain on the card (%s, %d rays, weights uniform in "
+        "[0.5, 1.5])" % (lens, N_CHECK))
     worst = {"weighted_moments": 0., "merit_adjoint": 0.}
     failures = []
     for dtype in (torch.float32, torch.float64):
         f64 = dtype == torch.float64
-        state = bench_bundle(N_CHECK, dtype, SEED)
+        state = bundle(N_CHECK, dtype, SEED)
         w = bench_weights(N_CHECK, dtype, SEED + 2)
-        for clip in (False, True):
+        for clip in clips:
             tag = "%s clip=%s" % (str(dtype)[6:], clip)
             mom = weighted_moments(table, specs, state, w, clip)
             mref = weighted_moments_reference(table, specs, state, w, clip)
@@ -387,15 +395,15 @@ def phase_grad_check(table, specs):
                                                  clip)
             torch.cuda.synchronize()
             lim = GRAD_F64_REL if f64 else GRAD_F32_REL
-            fields = compare_param_grads(pg, pr, lim)
+            errs = compare_param_grads(pg, pr, lim, fields)
             ray_rel, masks, finite = compare_ray_grads(cst, cw, sr, wr)
-            ok = (all(v[2] for v in fields.values()) and finite
+            ok = (all(v[2] for v in errs.values()) and finite
                   and ray_rel <= (GRAD_F64_REL if f64 else F32_RAY_REL)
                   and masks <= (0 if f64 else F32_NAN_FRAC*N_CHECK))
             log("K5 %s: %s | rays and weights rel err %.3e, live masks "
                 "differ on %d rays, dead rays %d, all finite %s -> %s"
                 % (tag, "; ".join("%s err %.3e of max %.3e" % (k, *v[:2])
-                                  for k, v in fields.items()),
+                                  for k, v in errs.items()),
                    ray_rel, masks, int((wr == 0).sum()), finite,
                    "ok" if ok else "FAIL"))
             if not ok:
@@ -404,10 +412,10 @@ def phase_grad_check(table, specs):
                 worst["weighted_moments"] = max(worst["weighted_moments"],
                                                 abs(rg - rw))
                 worst["merit_adjoint"] = max(
-                    worst["merit_adjoint"], *(v[0] for v in fields.values()))
+                    worst["merit_adjoint"], *(v[0] for v in errs.values()))
     if failures:
-        raise AssertionError("kernel disagrees with its plain version: "
-                             + ", ".join(failures))
+        raise AssertionError("kernel disagrees with its plain version on "
+                             "the %s: %s" % (lens, ", ".join(failures)))
     return worst
 
 
@@ -993,7 +1001,8 @@ def designer_loop(s, title, select, scales=None):
     for OPT_STEPS Adam steps on the card, its step 0 against the same
     call on the CPU plain versions (merit and gradient), then
     write_back_table of the fields with an element attribute.  Returns
-    (the launches of the card's run, mean seconds of the later steps)."""
+    (the launches of the card's run, counted from 0 at its start; mean
+    seconds of the later steps)."""
     from rayopt_tpu_torch.parallel import (
         bundles_from_system, bundles_to, optimize_grad, write_back_table)
     from rayopt_tpu_torch.parallel.grad import _WRITE_BACK
@@ -1019,7 +1028,7 @@ def designer_loop(s, title, select, scales=None):
                 grads[tag] = {k: v.grad.detach().double().cpu().clone()
                               for k, v in params.items()}
         return callback
-    before = read_launches()
+    reset_launches()
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         # the coefficients of the rows with no figure are baked out, as
@@ -1032,7 +1041,7 @@ def designer_loop(s, title, select, scales=None):
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
         steps = np.diff([t0] + ends[:OPT_STEPS])
-        launches = {k: v - before[k] for k, v in read_launches().items()}
+        launches = read_launches()
         t0 = time.perf_counter()
         _, hist_cpu = optimize_grad(s.table(device="cpu"),
                                     bundles_to(bundles, "cpu"),
@@ -1986,93 +1995,26 @@ def asph_grad_fields(widths):
 
 def phase_asphere_check():
     """Each figured K1, K2, K4 and K5 key against its plain version on
-    the card, on the odd singlet and the aspheric double Gauss at
-    N_ASPH_CHECK rays, float64 held to F64_REL (K5 to GRAD_F64_REL of
-    each field's largest), float32 reported against its own limits;
-    then K5's float64 gradient against central differences of the K4
-    merit for row 7's A4 and A6 and row 2's conic.  Returns the float32
-    errors for the kernels line."""
-    from rayopt_tpu_torch.ops.cuda_grad import (
-        merit_adjoint, merit_adjoint_reference, spot_moments,
-        weighted_moments, weighted_moments_reference)
-    from rayopt_tpu_torch.ops.cuda_trace import (
-        spot_rms_from_moments, trace_final, trace_final_reference,
-        trace_merit, trace_merit_reference)
-    log("== aspheric keys vs plain on the card (%d rays a check)"
-        % N_ASPH_CHECK)
-    worst = dict.fromkeys(("trace_final", "trace_merit", "weighted_moments",
-                           "merit_adjoint"), 0.)
+    the card (phase_check and phase_grad_check, unclipped) on the
+    aspheric double Gauss and the odd singlet, K5 with the coefficient
+    columns; then K5's float64 gradient against central differences of
+    the K4 merit for row 7's A4 and A6 and row 2's conic.  Returns the
+    float32 errors for the kernels line."""
+    from rayopt_tpu_torch.ops.cuda_grad import spot_moments, weighted_moments
+    from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    worst = {}
+    for lens, (_, table, specs, widths) in asphere_cases().items():
+        bundle = singlet_bundle if lens == "odd singlet" else bench_bundle
+        for errs in (phase_check(table, specs, lens, bundle, (False,)),
+                     phase_grad_check(table, specs, lens, bundle, (False,),
+                                      asph_grad_fields(widths))):
+            worst.update({k: max(v, worst.get(k, 0.))
+                          for k, v in errs.items()})
     failures = []
-    for name, (_, table, specs, widths) in asphere_cases().items():
-        for dtype in (torch.float64, torch.float32):
-            f64 = dtype == torch.float64
-            tag = "%s %s" % (name, str(dtype)[6:])
-            if name == "odd singlet":
-                state = singlet_bundle(N_ASPH_CHECK, dtype, SEED)
-            else:
-                state = bench_bundle(N_ASPH_CHECK, dtype, SEED)
-            w = bench_weights(N_ASPH_CHECK, dtype, SEED + 2)
-            got = trace_final(table, specs, state)
-            want = trace_final_reference(table, specs, state)
-            torch.cuda.synchronize()
-            ok, err, rel, masks = compare_final((*got[0], got[1]),
-                                                (*want[0], want[1]), dtype)
-            nan = int(torch.isnan(want[0][0]).sum())
-            log("K1 %s: max abs err %.3e, max rel err %.3e, NaN masks "
-                "differ on %d rays, NaN rays %d -> %s"
-                % (tag, err, rel, masks, nan, "ok" if ok else "FAIL"))
-            if not ok:
-                failures.append("K1 " + tag)
-            mg, mw = (trace_merit(table, specs, state),
-                      trace_merit_reference(table, specs, state))
-            ok, rel_m, dcount = compare_moments(mg, mw, dtype, N_ASPH_CHECK)
-            rg = float(spot_rms_from_moments(*mg))
-            rw = float(spot_rms_from_moments(*mw))
-            log("K2 %s: moments rel err %.3e, count diff %d, spot RMS "
-                "kernel %.12g plain %.12g -> %s"
-                % (tag, rel_m, dcount, rg, rw, "ok" if ok else "FAIL"))
-            if not ok:
-                failures.append("K2 " + tag)
-            wm = weighted_moments(table, specs, state, w)
-            wr = weighted_moments_reference(table, specs, state, w)
-            ok, rel_w = compare_wmoments(wm, wr, dtype)
-            log("K4 %s: moments rel err %.3e -> %s"
-                % (tag, rel_w, "ok" if ok else "FAIL"))
-            if not ok:
-                failures.append("K4 " + tag)
-            ct = rms_cotangent(wr)
-            pg, cst, cw = merit_adjoint(table, specs, state, w, ct)
-            pr, sr, cwr = merit_adjoint_reference(table, specs, state, w, ct)
-            torch.cuda.synchronize()
-            fields = compare_param_grads(
-                pg, pr, GRAD_F64_REL if f64 else GRAD_F32_REL,
-                asph_grad_fields(widths))
-            ray_rel, rmasks, finite = compare_ray_grads(cst, cw, sr, cwr)
-            ok = (all(v[2] for v in fields.values()) and finite
-                  and ray_rel <= (GRAD_F64_REL if f64 else F32_RAY_REL)
-                  and rmasks <= (0 if f64 else F32_NAN_FRAC*N_ASPH_CHECK))
-            log("K5 %s: %s | rays and weights rel err %.3e, live masks "
-                "differ on %d rays, all finite %s -> %s"
-                % (tag, "; ".join("%s err %.3e of max %.3e" % (k, *v[:2])
-                                  for k, v in fields.items()),
-                   ray_rel, rmasks, finite, "ok" if ok else "FAIL"))
-            if not ok:
-                failures.append("K5 " + tag)
-            if not f64:
-                worst["trace_final"] = max(worst["trace_final"], err)
-                worst["trace_merit"] = max(worst["trace_merit"],
-                                           abs(rg - rw))
-                worst["weighted_moments"] = max(
-                    worst["weighted_moments"],
-                    abs(float(spot_rms_from_moments(*wm))
-                        - float(spot_rms_from_moments(*wr))))
-                worst["merit_adjoint"] = max(
-                    worst["merit_adjoint"], *(v[0] for v in fields.values()))
-            del state, w
     # K5 against central differences of the K4 merit, float64
     _, table, specs, _ = asphere_cases()["aspheric double Gauss"]
-    state = bench_bundle(N_ASPH_CHECK, torch.float64, SEED)
-    w = bench_weights(N_ASPH_CHECK, torch.float64, SEED + 2)
+    state = bench_bundle(N_CHECK, torch.float64, SEED)
+    w = bench_weights(N_CHECK, torch.float64, SEED + 2)
     a = table.aspherics.clone().requires_grad_()
     k = table.conic.clone().requires_grad_()
     with warnings.catch_warnings():
@@ -2089,7 +2031,7 @@ def phase_asphere_check():
                                                              state, w)))
     log("== K5 on the aspheric double Gauss vs central differences of the "
         "K4 merit (float64, %d bench rays; steps %s)"
-        % (N_ASPH_CHECK, ASPH_FD_STEP))
+        % (N_CHECK, ASPH_FD_STEP))
     for what, field, idx, g in picks:
         h = ASPH_FD_STEP[what]
         side = []
@@ -2106,8 +2048,9 @@ def phase_asphere_check():
         if not ok:
             failures.append("K5 vs finite differences, " + what)
     if failures:
-        raise AssertionError("aspheric kernel disagrees with its plain "
-                             "version: " + ", ".join(failures))
+        raise AssertionError("K5 on the aspheric double Gauss disagrees "
+                             "with finite differences: "
+                             + ", ".join(failures))
     return worst
 
 
@@ -2146,8 +2089,9 @@ def phase_asphere_path(opt_step):
     PARITY_REL, equal NaN masks, the Newton's misses counted), float32
     reported; then its designer loop (designer_loop over ASPH_SELECT
     with ASPH_SCALES), whose later steps are logged beside the spherical
-    double Gauss's `opt_step` seconds.  Returns the loop's later-step
-    seconds."""
+    double Gauss's `opt_step` seconds.  Returns the path's launches (the
+    forward part's, counted from the caller's reset, and the loop's)
+    and the loop's later-step seconds."""
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
                                                  trace_merit)
     from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
@@ -2227,83 +2171,14 @@ def phase_asphere_path(opt_step):
             failures.append("field %.1f" % field)
     if failures:
         raise AssertionError("aspheric path failed: " + ", ".join(failures))
-    _, step = designer_loop(aspheric_double_gauss(),
-                            "aspheric designer loop: aspheric double Gauss",
-                            ASPH_SELECT, ASPH_SCALES)
+    forward = read_launches()
+    log("== launch counts on the aspheric forward path: %s" % forward)
+    loop, step = designer_loop(aspheric_double_gauss(),
+                               "aspheric designer loop: aspheric double "
+                               "Gauss", ASPH_SELECT, ASPH_SCALES)
     log("designer loop later steps: aspheric double Gauss %.4f s, double "
         "Gauss %.4f s (%.2fx)" % (step, opt_step, step/opt_step))
-    return step
-
-
-def phase_asphere_throughput(card):
-    """The figured K1, K2, K4 and K5 keys of the aspheric double Gauss
-    against their plain versions and against the double Gauss's keys on
-    the same bench bundle, in turns (plain, kernel, spherical, kernel,
-    spherical, plain), at N_ASPH_TIME rays in both dtypes (K5: every
-    field with the ray cotangents, and the designer loop's key); K1
-    float32 also at N_BENCH, kernels alone.  Returns {(name, dtype):
-    (kernel ms, plain ms, spherical ms)} and the live rays of the K5
-    bundles by dtype."""
-    from rayopt_tpu_torch.models import double_gauss
-    from rayopt_tpu_torch.ops.cuda_grad import (
-        merit_adjoint, merit_adjoint_reference, weighted_moments,
-        weighted_moments_reference)
-    from rayopt_tpu_torch.ops.cuda_trace import (
-        trace_final, trace_final_reference, trace_merit,
-        trace_merit_reference)
-    from rayopt_tpu_torch.ops.kernels import specialize
-    _, table, specs, _ = asphere_cases()["aspheric double Gauss"]
-    sph = double_gauss().table()
-    sspecs = specialize(sph)
-    log("== aspheric keys' throughput: %d bench rays, against the plain "
-        "versions and the double Gauss's keys (%s)" % (N_ASPH_TIME, card))
-    times, live = {}, {}
-    for dtype in (torch.float32, torch.float64):
-        state = bench_bundle(N_ASPH_TIME, dtype, SEED + 1)
-        w = bench_weights(N_ASPH_TIME, dtype, SEED + 3)
-        ct = rms_cotangent(weighted_moments(table, specs, state, w))
-        cts = rms_cotangent(weighted_moments(sph, sspecs, state, w))
-        live[dtype] = float(trace_merit(table, specs, state)[0])
-        cases = (
-            ("trace_final", lambda t, sp, c: trace_final(t, sp, state),
-             lambda: trace_final_reference(table, specs, state)),
-            ("trace_merit", lambda t, sp, c: trace_merit(t, sp, state),
-             lambda: trace_merit_reference(table, specs, state)),
-            ("weighted_moments",
-             lambda t, sp, c: weighted_moments(t, sp, state, w),
-             lambda: weighted_moments_reference(table, specs, state, w)),
-            ("merit_adjoint",
-             lambda t, sp, c: merit_adjoint(t, sp, state, w, c),
-             lambda: merit_adjoint_reference(table, specs, state, w, ct)),
-            ("merit_adjoint_designer",
-             lambda t, sp, c: merit_adjoint(
-                 t, sp, state, w, c, fields=ASPH_SELECT if t is table
-                 else OPT_FIELDS, rays=False), None))
-        for name, run, plain in cases:
-            kern = (lambda: run(table, specs, ct))
-            twin = (lambda: run(sph, sspecs, cts))
-            p1 = cuda_ms(plain, 3) if plain else float("nan")
-            k1, s1 = cuda_ms(kern, 20), cuda_ms(twin, 20)
-            k2, s2 = cuda_ms(kern, 20), cuda_ms(twin, 20)
-            p2 = cuda_ms(plain, 3) if plain else float("nan")
-            k, p, sp_ = (k1 + k2)/2, (p1 + p2)/2, (s1 + s2)/2
-            times[(name, dtype)] = (k, p, sp_)
-            log("%s %s aspheric: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
-                "(%.4f, %.4f), double Gauss key %.4f ms (%.4f, %.4f): "
-                "aspheric/spherical %.3fx, plain/kernel %.2fx | %s"
-                % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, sp_, s1, s2,
-                   k/sp_, p/k, card))
-        del state, w
-        torch.cuda.empty_cache()
-    state = bench_bundle(N_BENCH, torch.float32, SEED + 1)
-    k = cuda_ms(lambda: trace_final(table, specs, state), 10)
-    sp_ = cuda_ms(lambda: trace_final(sph, sspecs, state), 10)
-    times[("trace_final", N_BENCH)] = (k, sp_)
-    log("trace_final float32 aspheric at %d rays: kernel %.4f ms, double "
-        "Gauss key %.4f ms (%.3fx) | %s" % (N_BENCH, k, sp_, k/sp_, card))
-    del state
-    torch.cuda.empty_cache()
-    return times, live
+    return {k: v + loop[k] for k, v in forward.items()}, step
 
 
 def step_breakdown(table, specs, wave, parts):
@@ -2740,6 +2615,28 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop)/reps
 
 
+def in_turns(kernel, plain=None, twin=None, reps=20):
+    """Mean ms of kernel, plain and twin on the card, in turns: plain,
+    kernel, twin, kernel, twin, plain (NaN for one not given); then each
+    run's (kernel, kernel, plain, plain, twin, twin)."""
+    nan = float("nan")
+    p1 = cuda_ms(plain, 3) if plain else nan
+    k1 = cuda_ms(kernel, reps)
+    s1 = cuda_ms(twin, reps) if twin else nan
+    k2 = cuda_ms(kernel, reps)
+    s2 = cuda_ms(twin, reps) if twin else nan
+    p2 = cuda_ms(plain, 3) if plain else nan
+    return ((k1 + k2)/2, (p1 + p2)/2, (s1 + s2)/2), (k1, k2, p1, p2, s1, s2)
+
+
+def twin_note(k, sp_, s1, s2):
+    """The log's note of a twin timing (empty without one)."""
+    if sp_ != sp_:
+        return ""
+    return (" | double Gauss key %.4f ms (%.4f, %.4f), kernel/twin %.3fx"
+            % (sp_, s1, s2, k/sp_))
+
+
 def peak_gib(fn):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2748,119 +2645,144 @@ def peak_gib(fn):
     return torch.cuda.max_memory_allocated()/2**30
 
 
-def phase_throughput(table, specs, card):
+def phase_throughput(table, specs, card, n=N_BENCH, twin=None, big=None):
+    """K1 and K2 against their plain versions at n bench rays in float32
+    and float64, in turns (plain, kernel, kernel, plain).  With `twin`
+    (another lens's (table, specs): the double Gauss beside the aspheric
+    one) its keys on the same bundle after each kernel run; with `big`,
+    float32 kernels (and twins) alone at big rays.  times[(name, dtype)]
+    = (kernel, plain) ms, times[(name, big)] the kernel's, and the twin's
+    under the key + ("twin",)."""
     from rayopt_tpu_torch.ops.cuda_trace import (
         trace_final, trace_final_reference, trace_merit,
         trace_merit_reference)
     nsurf = table.curvature.shape[0] - 1
-    log("== throughput: %d bench rays, %d traced surfaces (%s)"
-        % (N_BENCH, nsurf, card))
+    log("== throughput: %d bench rays, %d traced surfaces%s (%s)"
+        % (n, nsurf, ", against the double Gauss's keys" if twin else "",
+           card))
     times = {}
-    for dtype in (torch.float32, torch.float64):
-        state = bench_bundle(N_BENCH, dtype, SEED + 1)
-        pairs = (
+
+    def pairs(state, tab, sp):
+        return (
             ("trace_final",
-             lambda: trace_final(table, specs, state),
-             lambda: trace_final_reference(table, specs, state)),
+             lambda: trace_final(tab, sp, state),
+             lambda: trace_final_reference(tab, sp, state)),
             ("trace_merit",
-             lambda: trace_merit(table, specs, state),
-             lambda: trace_merit_reference(table, specs, state)))
-        for name, kernel, plain in pairs:
-            # in turns: plain, kernel, kernel, plain
-            p1 = cuda_ms(plain, 3)
-            k1 = cuda_ms(kernel, 20)
-            k2 = cuda_ms(kernel, 20)
-            p2 = cuda_ms(plain, 3)
-            k, p = (k1 + k2)/2, (p1 + p2)/2
+             lambda: trace_merit(tab, sp, state),
+             lambda: trace_merit_reference(tab, sp, state)))
+    for dtype in (torch.float32, torch.float64):
+        state = bench_bundle(n, dtype, SEED + 1)
+        twins = pairs(state, *twin) if twin else ()
+        for case, (name, kernel, plain) in enumerate(pairs(state, table,
+                                                           specs)):
+            (k, p, sp_), (k1, k2, p1, p2, s1, s2) = in_turns(
+                kernel, plain, twins[case][1] if twin else None)
             mem_k, mem_p = peak_gib(kernel), peak_gib(plain)
             times[(name, dtype)] = (k, p)
+            if twin:
+                times[(name, dtype, "twin")] = sp_
             log("%s %s: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
                 "(%.4f, %.4f), plain/kernel %.2fx | %.4g vs %.4g "
-                "intersections/s | peak memory %.3f vs %.3f GiB | %s"
+                "intersections/s | peak memory %.3f vs %.3f GiB%s | %s"
                 % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k,
-                   N_BENCH*nsurf/(k*1e-3), N_BENCH*nsurf/(p*1e-3), mem_k,
-                   mem_p, card))
-        del state
+                   n*nsurf/(k*1e-3), n*nsurf/(p*1e-3), mem_k, mem_p,
+                   twin_note(k, sp_, s1, s2), card))
+        del state, twins
+        torch.cuda.empty_cache()
+    if big:
+        state = bench_bundle(big, torch.float32, SEED + 1)
+        twins = pairs(state, *twin) if twin else ()
+        for case, (name, kernel, _) in enumerate(pairs(state, table,
+                                                       specs)):
+            times[(name, big)] = k = cuda_ms(kernel, 10)
+            if twin:
+                times[(name, big, "twin")] = sp_ = cuda_ms(twins[case][1],
+                                                           10)
+            log("%s float32 at %d rays: kernel %.4f ms%s | %s"
+                % (name, big, k, ", double Gauss key %.4f ms (kernel/twin "
+                   "%.3fx)" % (sp_, k/sp_) if twin else "", card))
+        del state, twins
         torch.cuda.empty_cache()
     return times
 
 
-def phase_grad_throughput(table, specs, card):
+def phase_grad_throughput(table, specs, card, twin=None,
+                          loop_fields=OPT_FIELDS):
     """K4 and K5 (all fields, with the ray cotangents: the work of the
     earlier run-time-flag K5) against their plain versions at
     N_GRAD_TIME rays in float32 and float64, beside K5 for the
-    optimizer's slot set without ray cotangents; then float64 at one
-    optimizer bundle's N_OPT_BUNDLE rays, and float32 at N_BENCH rays,
-    kernels alone."""
+    optimizer's slot set (`loop_fields`) without ray cotangents; then
+    float64 at one optimizer bundle's N_OPT_BUNDLE rays, and float32 at
+    N_BENCH rays, kernels alone.  With `twin`, as phase_throughput: the
+    double Gauss's keys (its optimizer key for the loop's) timed after
+    each kernel at N_GRAD_TIME rays."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         weighted_moments, weighted_moments_reference, merit_adjoint,
         merit_adjoint_reference)
     nsurf = table.curvature.shape[0] - 1
-    log("== K4/K5 throughput: %d bench rays against the plain versions, "
+    log("== K4/K5 throughput: %d bench rays against the plain versions%s, "
         "then %d rays (float64) and %d rays (float32) kernel alone, %d "
-        "traced surfaces (%s)" % (N_GRAD_TIME, N_OPT_BUNDLE, N_BENCH, nsurf,
-                                  card))
+        "traced surfaces (%s)" % (N_GRAD_TIME, " and the double Gauss's "
+                                  "keys" if twin else "", N_OPT_BUNDLE,
+                                  N_BENCH, nsurf, card))
 
-    def pairs(state, w, ct):
+    def pairs(state, w, tab=table, sp=specs):
+        ct = rms_cotangent(weighted_moments(tab, sp, state, w))
         return (
             ("weighted_moments",
-             lambda: weighted_moments(table, specs, state, w),
-             lambda: weighted_moments_reference(table, specs, state, w)),
+             lambda: weighted_moments(tab, sp, state, w),
+             lambda: weighted_moments_reference(tab, sp, state, w)),
             ("merit_adjoint",
-             lambda: merit_adjoint(table, specs, state, w, ct),
-             lambda: merit_adjoint_reference(table, specs, state, w, ct)))
-
-    def optimizer_k5(state, w, ct):
-        return lambda: merit_adjoint(table, specs, state, w, ct,
-                                     fields=OPT_FIELDS, rays=False)
+             lambda: merit_adjoint(tab, sp, state, w, ct),
+             lambda: merit_adjoint_reference(tab, sp, state, w, ct)),
+            ("merit_adjoint_optimizer",
+             lambda: merit_adjoint(
+                 tab, sp, state, w, ct, rays=False,
+                 fields=loop_fields if tab is table else OPT_FIELDS),
+             None))
     times = {}
     for dtype in (torch.float32, torch.float64):
         state = bench_bundle(N_GRAD_TIME, dtype, SEED + 1)
         w = bench_weights(N_GRAD_TIME, dtype, SEED + 3)
-        ct = rms_cotangent(weighted_moments(table, specs, state, w))
-        for name, kernel, plain in pairs(state, w, ct):
-            # in turns: plain, kernel, kernel, plain
-            p1 = cuda_ms(plain, 3)
-            k1 = cuda_ms(kernel, 20)
-            k2 = cuda_ms(kernel, 20)
-            p2 = cuda_ms(plain, 3)
-            k, p = (k1 + k2)/2, (p1 + p2)/2
+        twins = pairs(state, w, *twin) if twin else ()
+        for case, (name, kernel, plain) in enumerate(pairs(state, w)):
+            (k, p, sp_), (k1, k2, p1, p2, s1, s2) = in_turns(
+                kernel, plain, twins[case][1] if twin else None)
+            if twin:
+                times[(name, dtype, "twin")] = sp_
+            if plain is None:
+                times[(name, dtype)] = k
+                log("merit_adjoint %s, the optimizer's slot set, no ray "
+                    "cotangents: kernel %.4f ms (%.4f, %.4f)%s | %s"
+                    % (str(dtype)[6:], k, k1, k2, twin_note(k, sp_, s1, s2),
+                       card))
+                continue
             mem_k, mem_p = peak_gib(kernel), peak_gib(plain)
             times[(name, dtype)] = (k, p)
             log("%s %s: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
                 "(%.4f, %.4f), plain/kernel %.2fx | %.4g ray-surfaces/s | "
-                "peak memory %.3f vs %.3f GiB | %s"
+                "peak memory %.3f vs %.3f GiB%s | %s"
                 % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k,
-                   N_GRAD_TIME*nsurf/(k*1e-3), mem_k, mem_p, card))
-        k = cuda_ms(optimizer_k5(state, w, ct), 20)
-        times[("merit_adjoint_optimizer", dtype)] = k
-        log("merit_adjoint %s, the optimizer's slot set, no ray cotangents: "
-            "kernel %.4f ms | %s" % (str(dtype)[6:], k, card))
+                   N_GRAD_TIME*nsurf/(k*1e-3), mem_k, mem_p,
+                   twin_note(k, sp_, s1, s2), card))
+        del state, w, twins
+        torch.cuda.empty_cache()
+    for n, dtype in ((N_OPT_BUNDLE, torch.float64),
+                     (N_BENCH, torch.float32)):
+        state = bench_bundle(n, dtype, SEED + 1)
+        w = bench_weights(n, dtype, SEED + 3)
+        for name, kernel, _ in pairs(state, w):
+            if n == N_BENCH and name == "merit_adjoint_optimizer":
+                continue
+            k = cuda_ms(kernel, 20 if n == N_OPT_BUNDLE else 10)
+            times[(name, n)] = k
+            log("%s %s at %d rays: kernel %.4f ms, %.4g ray-surfaces/s%s "
+                "| %s" % (name, str(dtype)[6:], n, k, n*nsurf/(k*1e-3),
+                          "" if n == N_OPT_BUNDLE else
+                          ", peak memory %.3f GiB | plain: not run "
+                          "(memory)" % peak_gib(kernel), card))
         del state, w
         torch.cuda.empty_cache()
-    state = bench_bundle(N_OPT_BUNDLE, torch.float64, SEED + 1)
-    w = bench_weights(N_OPT_BUNDLE, torch.float64, SEED + 3)
-    ct = rms_cotangent(weighted_moments(table, specs, state, w))
-    cases = [(name, kernel) for name, kernel, _ in pairs(state, w, ct)]
-    cases.append(("merit_adjoint_optimizer", optimizer_k5(state, w, ct)))
-    for name, kernel in cases:
-        k = cuda_ms(kernel, 20)
-        times[(name, N_OPT_BUNDLE)] = k
-        log("%s float64 at %d rays: kernel %.4f ms, %.4g ray-surfaces/s | %s"
-            % (name, N_OPT_BUNDLE, k, N_OPT_BUNDLE*nsurf/(k*1e-3), card))
-    del state, w
-    state = bench_bundle(N_BENCH, torch.float32, SEED + 1)
-    w = bench_weights(N_BENCH, torch.float32, SEED + 3)
-    ct = rms_cotangent(weighted_moments(table, specs, state, w))
-    for name, kernel, _ in pairs(state, w, ct):
-        k = cuda_ms(kernel, 10)
-        times[(name, N_BENCH)] = k
-        log("%s float32 at %d rays: kernel %.4f ms, %.4g ray-surfaces/s, "
-            "peak memory %.3f GiB | plain: not run (memory) | %s"
-            % (name, N_BENCH, k, N_BENCH*nsurf/(k*1e-3), peak_gib(kernel),
-               card))
-    del state, w
-    torch.cuda.empty_cache()
     return times
 
 
@@ -3151,31 +3073,44 @@ ASPHERIC_ITERS = 10   # the Newton's steps (csrc/trace_common.cuh)
 
 
 def figure_flops(na, no):
-    """(residual, slope) operations of a figured row's Newton
+    """(residual, slope, hoisted) operations of a figured row's Newton
     (csrc/trace_common.cuh sag_residual and newton_slope) for na even
-    and no odd coefficients: the point on the ray, r2, the conic's
-    square root and division, Horner's two operations a coefficient (the
-    odd also its sqrt(r2)); the slope's conic factor, each coefficient's
-    three (the odd five, its r floor and two divisions) and the dot
-    product with the ray."""
-    res = 19 + (2*na + 1 if na else 0) + (2*no + 3 if no else 0)
-    slope = 20 + (3*na + 1 if na else 0) + (5*no + 3 if no else 0)
-    return res, slope
+    and no odd coefficients, each shared expression counted once.  The
+    residual: the point on the ray (6), r2 (3), the conic's sag (7:
+    (1+k)c^2 r2, its square root, the division), Horner's two a
+    coefficient and the subtraction (the odd also sqrt(r2) and its
+    product).  The slope at the same point adds only what the residual
+    has not: the conic factor's division, the even slopes' Horner (two
+    a coefficient), the odd's derivative Horner, its floor's division
+    and 2 r q', and the dot product with the ray (6).  Hoisted out of
+    the loop, once a row: (1+k)c^2 and the slopes' constant factors."""
+    res = 16 + (2*na + 1 if na else 0) + (2*no + 3 if no else 0)
+    slope = 7 + (2*na + 1 if na else 0) + (2*no + 3 if no else 0)
+    hoisted = 3 + na + max(no - 1, 0)
+    return res, slope, hoisted
+
+
+def slope_flops(na, no):
+    """Operations of one newton_slope alone (K5's implicit step at the
+    root): the point (4), r2 (3), the conic factor (4), the even and odd
+    slopes in full and the dot product (6)."""
+    return 17 + (2*na + 1 if na else 0) + (4*no + 4 if no else 0)
 
 
 def row_flops(spec, widths=(0, 0)):
     """Arithmetic operations (one per add, multiply, divide or square
     root) of one surface_step (csrc/trace_common.cuh) for a row of this
     spec; an aspheric row with the table's `widths` (na, no): its conic
-    seed, ASPHERIC_ITERS Newton steps (a residual, a slope and the step
-    each), the last residual's test, and the refraction by the radial
-    normal with the flagged figures' slopes."""
+    seed (33) and the hoisted constants, ASPHERIC_ITERS Newton steps (a
+    residual, the slope's own work and the update each), the last
+    residual and its test, and the refraction by the radial normal with
+    the flagged figures' slopes."""
     f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0)
     na, no = widths
     figured = spec.aspheric or spec.odd
     if figured:
-        res, slope = figure_flops(na, no)
-        f += 35 + ASPHERIC_ITERS*(res + slope + 2) + res + 3
+        res, slope, hoisted = figure_flops(na, no)
+        f += 33 + hoisted + ASPHERIC_ITERS*(res + slope + 2) + res + 2
     elif spec.flat:
         f += 2
     elif spec.spherical:
@@ -3184,12 +3119,20 @@ def row_flops(spec, widths=(0, 0)):
         f += 31
     f += 8                                    # transfer and optical path
     if spec.kind and figured:
-        f += ((40 if spec.kind == 1 else 29)
-              + (3*na + 1 if spec.aspheric else 0)
-              + (5*no + 3 if spec.odd else 0))
+        f += ((37 if spec.kind == 1 else 26)
+              + (2*na + 1 if spec.aspheric else 0)
+              + (4*no + 4 if spec.odd else 0))
     elif spec.kind:
         f += 13 if spec.flat else (27 if spec.spherical else 37)
     return f
+
+
+def newton_flops(specs, widths=(0, 0)):
+    """Operations of the Newton steps of one ray through the chain: the
+    ASPHERIC_ITERS steps of every figured row (row_flops' loop)."""
+    res, slope, _ = figure_flops(*widths)
+    return sum(ASPHERIC_ITERS*(res + slope + 2) for sp in specs[1:]
+               if sp.aspheric or sp.odd)
 
 
 def chain_flops(specs, widths=(0, 0)):
@@ -3210,10 +3153,9 @@ def chain_vjp_flops(specs, widths=(0, 0)):
     for sp in specs[1:]:
         if sp.aspheric or sp.odd:
             rf = row_flops(sp, widths)
-            _, slope = figure_flops(na, no)
             rev = (75 + (6*na if sp.aspheric else 0)
-                   + (12*no if sp.odd else 0) + 9 + slope + 38 + 3*na
-                   + 6*no + (60 if sp.rotated else 0))
+                   + (12*no if sp.odd else 0) + 9 + slope_flops(na, no)
+                   + 38 + 3*na + 6*no + (60 if sp.rotated else 0))
             total += rf + rev - 3*rf
     return total
 
@@ -3251,10 +3193,9 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0)):
         "weighted_moments": (7, 0, n*(chain + 11)),
         "weighted_moments_multi": (7, 0, n*nlam*(chain + 11)),
         "merit_adjoint": (7, 7, n*chain + live*(vjp + 11)),
-        # K5 for the optimizer's (or the designer loop's) slot set writes
-        # nothing a ray
+        # K5 for the optimizer's slot set (the aspheric designer loop's
+        # too) writes nothing a ray
         "merit_adjoint_optimizer": (7, 0, n*chain + live*(vjp + 11)),
-        "merit_adjoint_designer": (7, 0, n*chain + live*(vjp + 11)),
         "merit_adjoint_multi": (7, 7, n*nlam*chain + live*(3*chain + 11)),
         # K7 for the achromatization path's key, K9 for the design
         # path's: nothing written a ray
@@ -3438,28 +3379,45 @@ def df32_entries(s, launches, worst, times, live, ptxas, sass):
     return entries
 
 
-def asphere_entries(sources, launches, worst, times, live, ptxas, step,
-                    opt_step):
+def asphere_entries(sources, launches, worst, times, ptxas, step, opt_step):
     """The kernels line's entries of the figured K1, K2, K4 and K5 keys
     (the aspheric double Gauss): the aspheric path's launches, the
-    float32 errors of phase_asphere_check, the times of
-    phase_asphere_throughput beside the double Gauss's keys and the
-    plain versions, the bounds counted with the Newton (kernel_bound's
+    float32 errors of phase_asphere_check, the times of the throughput
+    phases run on it (beside the double Gauss's keys and the plain
+    versions), the bounds counted with the Newton (kernel_bound's
     widths), and the loop keys' registers, stack and spills."""
-    _, _, specs, widths = asphere_cases()["aspheric double Gauss"]
+    from rayopt_tpu_torch.ops.cuda_trace import trace_merit
+    _, table, specs, widths = asphere_cases()["aspheric double Gauss"]
+    # live rays of the K5 timing bundles (its reverse runs for these only)
+    live = {key: float(trace_merit(table, specs, bench_bundle(
+        n, dtype, SEED + 1))[0]) for key, n, dtype in (
+            (torch.float32, N_GRAD_TIME, torch.float32),
+            (torch.float64, N_GRAD_TIME, torch.float64),
+            (N_OPT_BUNDLE, N_OPT_BUNDLE, torch.float64),
+            (N_BENCH, N_BENCH, torch.float32))}
+    newton, chain = newton_flops(specs, widths), chain_flops(specs, widths)
+    k, sp_ = times[("trace_final", N_BENCH)], times[("trace_final", N_BENCH,
+                                                     "twin")]
+    log("aspheric double Gauss: the Newton's steps are %d of the chain's %d "
+        "operations a ray (%.1f%%, counted from the code); K1 float32 at %d "
+        "rays %.4f ms against the double Gauss key's %.4f ms: the figured "
+        "rows take %.1f%% of the aspheric key's time (measured)"
+        % (newton, chain, 100*newton/chain, N_BENCH, k, sp_,
+           100*(k - sp_)/k))
     loop = {"trace_final": "K1 %s aspheric", "trace_merit": "K2 %s aspheric",
             "weighted_moments": "K4 %s aspheric",
             "merit_adjoint": "K5 %s aspheric designer rays=False"}
     out = []
     for kname, tag in loop.items():
         source, replaces = sources[kname]
-        k32, p32, s32 = times[(kname, torch.float32)]
-        k64, p64, s64 = times[(kname, torch.float64)]
+        k32, p32 = times[(kname, torch.float32)]
+        k64, p64 = times[(kname, torch.float64)]
 
-        def bound(dtype, name=kname, n=N_ASPH_TIME):
-            return kernel_bound(name, n, dtype, specs, 1, live[dtype],
-                                widths)
+        def bound(dtype, name=kname, n=N_GRAD_TIME, lv=None):
+            return kernel_bound(name, n, dtype, specs, 1,
+                                live[dtype] if lv is None else lv, widths)
         b32, by = bound(torch.float32)
+        big = "_f32_%d_rays" % N_BENCH
         entry = {
             "name": kname + "_aspheric", "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kname],
@@ -3467,26 +3425,35 @@ def asphere_entries(sources, launches, worst, times, live, ptxas, step,
             "bound_ms": b32, "bound_by": by, "library_ms": None,
             "ms_f64": k64, "plain_ms_f64": p64,
             "bound_ms_f64": bound(torch.float64)[0],
-            "ms_spherical_key": s32, "ms_spherical_key_f64": s64,
-            "rays": N_ASPH_TIME, "wavelengths": 1,
+            "ms_spherical_key": times[(kname, torch.float32, "twin")],
+            "ms_spherical_key_f64": times[(kname, torch.float64, "twin")],
+            "rays": N_GRAD_TIME, "wavelengths": 1,
             "aspheric_widths": list(widths),
-            "newton_share_of_chain_ops": (
-                ASPHERIC_ITERS*(sum(figure_flops(*widths)) + 2)
-                / chain_flops(specs, widths))}
+            "ms" + big: times[(kname, N_BENCH)],
+            "bound_ms" + big: bound(torch.float32, n=N_BENCH,
+                                    lv=live[N_BENCH])[0]}
         for dt in ("float32", "float64"):
             regs, stack, spill = ptxas[tag % dt]
             sfx = "" if dt == "float64" else "_f32"
             entry.update({"regs" + sfx: regs, "stack_bytes" + sfx: stack,
                           "spill_bytes" + sfx: spill})
+        if kname in ("trace_final", "trace_merit"):
+            entry["ms_spherical_key" + big] = times[(kname, N_BENCH, "twin")]
+        else:
+            opt = "_f64_%d_rays" % N_OPT_BUNDLE
+            entry["ms" + opt] = times[(kname, N_OPT_BUNDLE)]
+            entry["bound_ms" + opt] = bound(torch.float64, n=N_OPT_BUNDLE,
+                                            lv=live[N_OPT_BUNDLE])[0]
         if kname == "merit_adjoint":
-            d32, _, ds32 = times[("merit_adjoint_designer", torch.float32)]
-            d64, _, ds64 = times[("merit_adjoint_designer", torch.float64)]
+            opt = "merit_adjoint_optimizer"
             entry.update({
-                "ms_designer": d32, "ms_designer_f64": d64,
-                "ms_spherical_optimizer_key": ds32,
-                "ms_spherical_optimizer_key_f64": ds64,
-                "bound_ms_designer_f64": bound(
-                    torch.float64, "merit_adjoint_designer")[0],
+                "ms_designer": times[(opt, torch.float32)],
+                "ms_designer_f64": times[(opt, torch.float64)],
+                "ms_spherical_optimizer_key":
+                    times[(opt, torch.float32, "twin")],
+                "ms_spherical_optimizer_key_f64":
+                    times[(opt, torch.float64, "twin")],
+                "bound_ms_designer_f64": bound(torch.float64, opt)[0],
                 "designer_step_s": step, "spherical_optimizer_step_s":
                     opt_step})
             for dt in ("float32", "float64"):
@@ -3496,13 +3463,6 @@ def asphere_entries(sources, launches, worst, times, live, ptxas, step,
                 entry.update({"regs_all_rays" + sfx: regs,
                               "stack_bytes_all_rays" + sfx: stack,
                               "spill_bytes_all_rays" + sfx: spill})
-        if kname == "trace_final":
-            big = "_f32_%d_rays" % N_BENCH
-            k, sp_ = times[("trace_final", N_BENCH)]
-            entry.update({"ms" + big: k, "ms_spherical_key" + big: sp_,
-                          "bound_ms" + big: kernel_bound(
-                              kname, N_BENCH, torch.float32, specs, 1, 0,
-                              widths)[0]})
         out.append(entry)
     return out
 
@@ -3552,7 +3512,7 @@ def main():
     launches.update({k: df32_launches[k] for k in DF32_NAMES})
     del aimed
     torch.cuda.empty_cache()
-    opt_launches, opt_step = phase_opt_path()
+    opt_launches, opt_step = phase_opt_path()     # counts from its reset
     launches.update({k: v for k, v in opt_launches.items()
                      if k in ("weighted_moments", "merit_adjoint")})
     reset_launches()
@@ -3569,8 +3529,7 @@ def main():
     launches.update({k: design_launches[k] for k in opd})
     aworst = phase_asphere_check()
     reset_launches()
-    asph_step = phase_asphere_path(opt_step)
-    asph_launches = read_launches()
+    asph_launches, asph_step = phase_asphere_path(opt_step)
     log("== launch counts on the aspheric path: %s" % asph_launches)
     asph = ("trace_final", "trace_merit", "weighted_moments",
             "merit_adjoint")
@@ -3582,7 +3541,11 @@ def main():
     mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
     otimes, olive = phase_opd_throughput(s, table, specs, card)
     dtimes, dlive = phase_df32_throughput(s, card)
-    atimes, alive = phase_asphere_throughput(card)
+    _, atab, aspecs, _ = asphere_cases()["aspheric double Gauss"]
+    atimes = phase_throughput(atab, aspecs, card, N_GRAD_TIME,
+                              (table, specs), N_BENCH)
+    atimes.update(phase_grad_throughput(atab, aspecs, card, (table, specs),
+                                        ASPH_SELECT))
     # live rays of the K5 timing bundles (its reverse runs for these only)
     live_mono = float(trace_merit(table, specs, bench_bundle(
         N_GRAD_TIME, torch.float32, SEED + 1))[0])
@@ -3730,7 +3693,7 @@ def main():
             entry["ms_f32_%d_rays" % N_BENCH] = tt[(kname, N_BENCH)]
         kernels.append(entry)
     kernels += asphere_entries(sources, asph_launches, aworst, atimes,
-                               alive, ptxas, asph_step, opt_step)
+                               ptxas, asph_step, opt_step)
     kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())

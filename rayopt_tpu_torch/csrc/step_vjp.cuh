@@ -21,12 +21,62 @@ constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD;
 // a row's per-ray parameter cotangents, the widest of the two
 constexpr int PG_SLOTS = FIG_SLOTS > OPD_SLOTS ? FIG_SLOTS : OPD_SLOTS;
 
+// Hand-derived reverse of refract_spec's refraction (kind 1) or mirror
+// (kind 2) of the direction u by the unnormalized normal n, shared by
+// the conic and the figured rows: from the cotangent gv of the new
+// direction, the cotangents of u, n and mu.  `unit`: |n| = 1 (a
+// sphere's normal), no normalization to reverse (ir2 = 1 exactly).
+template <typename T>
+__device__ __forceinline__ void refraction_vjp(int kind, bool unit, T mu,
+                                               T ux, T uy, T uz, T nx, T ny,
+                                               T nz, T gvx, T gvy, T gvz,
+                                               T& gux, T& guy, T& guz,
+                                               T& gnx, T& gny, T& gnz,
+                                               T& gmu) {
+  const T dot = ux * nx + uy * ny + uz * nz;
+  const T ir2 = unit ? T(1) : T(1) / (nx * nx + ny * ny + nz * nz);
+  T gdot, gir2;
+  if (kind == 2) {
+    const T a2 = T(2) * dot * ir2;
+    gux = gvx; guy = gvy; guz = gvz;
+    gnx = -a2 * gvx; gny = -a2 * gvy; gnz = -a2 * gvz;
+    const T ga2 = -(gvx * nx + gvy * ny + gvz * nz);
+    gdot = T(2) * ir2 * ga2;
+    gir2 = T(2) * dot * ga2;
+    gmu = T(0);
+  } else {
+    const T muf = fabs(mu);
+    const T sgmu = sgn(mu);
+    const T a = muf * dot * ir2;
+    const T sq2 = sqrt0(a * a - (mu * mu - T(1)) * ir2);
+    const T q2 = -a + sgmu * sq2;
+    T gmuf = ux * gvx + uy * gvy + uz * gvz;
+    gux = muf * gvx; guy = muf * gvy; guz = muf * gvz;
+    const T gq2 = gvx * nx + gvy * ny + gvz * nz;
+    gnx = q2 * gvx; gny = q2 * gvy; gnz = q2 * gvz;
+    const T gdisc2 = gq2 * sgmu * T(0.5) / sq2;
+    const T ga = -gq2 + T(2) * a * gdisc2;
+    gmu = -T(2) * mu * ir2 * gdisc2;
+    gir2 = -(mu * mu - T(1)) * gdisc2 + muf * dot * ga;
+    gmuf = gmuf + dot * ir2 * ga;
+    gdot = muf * ir2 * ga;
+    gmu = gmu + sgmu * gmuf;
+  }
+  gux = gux + gdot * nx; guy = guy + gdot * ny; guz = guz + gdot * nz;
+  gnx = gnx + gdot * ux; gny = gny + gdot * uy; gnz = gnz + gdot * uz;
+  if (!unit) {
+    const T s2 = -T(2) * ir2 * ir2 * gir2;
+    gnx = gnx + s2 * nx; gny = gny + s2 * ny; gnz = gnz + s2 * nz;
+  }
+}
+
 // Hand-derived reverse of a FIGURED row's step (surface_step with
 // F_ASPHERIC or F_ODD) for one live ray, as surface_step_vjp without
-// PATH: the refraction by the radial normal (the flagged figures'
-// slopes), the transfer, then the Newton intercept differentiated
-// implicitly at its root -- one residual gradient dF/dp scaled by
-// -gt / F_s, the seed holding no cotangent (kernels._NewtonRoot).  pg:
+// PATH: the refraction (refraction_vjp) by the radial normal (x1 e,
+// y1 e, 1) and the figures' slopes in e, the transfer, then the Newton
+// intercept differentiated implicitly at its root -- one residual
+// gradient dF/dp scaled by -gt / F_s, the seed holding no cotangent
+// (kernels._NewtonRoot).  pg:
 // out, FIG_SLOTS cotangents (c, k, offset x, y, z, mu, the even, then
 // the odd coefficients).  Its torch model is the figured branch of
 // cuda_grad._step_vjp_reference.  An on-axis ray through an odd figure
@@ -83,38 +133,9 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     if (fl & F_ODD) e = e - dpoly_odd(r2s, fg.b);
     const T nx = x1 * e;
     const T ny = y1 * e;
-    const T ir2 = T(1) / (nx * nx + ny * ny + T(1));
-    const T dot = ux * nx + uy * ny + uz;
-    T gnx, gny, gdot, gir2;
-    if (kind == 2) {
-      const T a2 = T(2) * dot * ir2;
-      gux = gvx; guy = gvy; guz = gvz;
-      gnx = -a2 * gvx; gny = -a2 * gvy;
-      const T ga2 = -(gvx * nx + gvy * ny + gvz);
-      gdot = T(2) * ir2 * ga2;
-      gir2 = T(2) * dot * ga2;
-    } else {
-      const T muf = fabs(mu);
-      const T sgmu = sgn(mu);
-      const T a = muf * dot * ir2;
-      const T sq2 = sqrt0(a * a - (mu * mu - T(1)) * ir2);
-      const T q2 = -a + sgmu * sq2;
-      T gmuf = ux * gvx + uy * gvy + uz * gvz;
-      gux = muf * gvx; guy = muf * gvy; guz = muf * gvz;
-      const T gq2 = gvx * nx + gvy * ny + gvz;
-      gnx = q2 * gvx; gny = q2 * gvy;
-      const T gdisc2 = gq2 * sgmu * T(0.5) / sq2;
-      const T gam = -gq2 + T(2) * a * gdisc2;
-      gmu = -T(2) * mu * ir2 * gdisc2;
-      gir2 = -(mu * mu - T(1)) * gdisc2 + muf * dot * gam;
-      gmuf = gmuf + dot * ir2 * gam;
-      gdot = muf * ir2 * gam;
-      gmu = gmu + sgmu * gmuf;
-    }
-    gux = gux + gdot * nx; guy = guy + gdot * ny; guz = guz + gdot;
-    gnx = gnx + gdot * ux; gny = gny + gdot * uy;
-    const T s2 = -T(2) * ir2 * ir2 * gir2;
-    gnx = gnx + s2 * nx; gny = gny + s2 * ny;
+    T gnx, gny, gnz;
+    refraction_vjp(kind, false, mu, ux, uy, uz, nx, ny, T(1), gvx, gvy, gvz,
+                   gux, guy, guz, gnx, gny, gnz, gmu);
     // n = (x1 e, y1 e)
     const T ge = x1 * gnx + y1 * gny;
     gx1 = gx1 + e * gnx; gy1 = gy1 + e * gny;
@@ -344,58 +365,10 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
     const T nx = -c * x1;
     const T ny = -c * y1;
     const T nz = T(1) - kc * z1;
-    const T dot = ux * nx + uy * ny + uz * nz;
-    const T ir2 = sph ? T(1) : T(1) / (nx * nx + ny * ny + nz * nz);
-    T gir2 = T(0), gdot, gnx, gny, gnz;
-    if (kind == 2) {
-      const T a2 = sph ? T(2) * dot : T(2) * dot * ir2;
-      gux = gvx; guy = gvy; guz = gvz;
-      gnx = -a2 * gvx; gny = -a2 * gvy; gnz = -a2 * gvz;
-      const T ga2 = -(gvx * nx + gvy * ny + gvz * nz);
-      if (sph) {
-        gdot = T(2) * ga2;
-      } else {
-        gdot = T(2) * ir2 * ga2;
-        gir2 = T(2) * dot * ga2;
-      }
-    } else {
-      const T muf = fabs(mu);
-      const T sgmu = sgn(mu);
-      T a, disc2;
-      if (sph) {
-        a = muf * dot;
-        disc2 = a * a - (mu * mu - T(1));
-      } else {
-        a = muf * dot * ir2;
-        disc2 = a * a - (mu * mu - T(1)) * ir2;
-      }
-      const T sq2 = sqrt0(disc2);
-      const T q2 = -a + sgmu * sq2;
-      T gmuf = ux * gvx + uy * gvy + uz * gvz;
-      gux = muf * gvx; guy = muf * gvy; guz = muf * gvz;
-      const T gq2 = gvx * nx + gvy * ny + gvz * nz;
-      gnx = q2 * gvx; gny = q2 * gvy; gnz = q2 * gvz;
-      const T gdisc2 = gq2 * sgmu * T(0.5) / sq2;
-      const T ga = -gq2 + T(2) * a * gdisc2;
-      if (sph) {
-        gmu = -T(2) * mu * gdisc2;
-        gmuf = gmuf + dot * ga;
-        gdot = muf * ga;
-      } else {
-        gmu = -T(2) * mu * ir2 * gdisc2;
-        gir2 = -(mu * mu - T(1)) * gdisc2 + muf * dot * ga;
-        gmuf = gmuf + dot * ir2 * ga;
-        gdot = muf * ir2 * ga;
-      }
-      gmu = gmu + sgmu * gmuf;
-    }
-    gux = gux + gdot * nx; guy = guy + gdot * ny; guz = guz + gdot * nz;
-    gnx = gnx + gdot * ux; gny = gny + gdot * uy; gnz = gnz + gdot * uz;
-    if (!sph) {
-      const T s2 = -T(2) * ir2 * ir2 * gir2;
-      gnx = gnx + s2 * nx; gny = gny + s2 * ny; gnz = gnz + s2 * nz;
-      gk = gk - c * z1 * gnz;
-    }
+    T gnx, gny, gnz;
+    refraction_vjp(kind, sph, mu, ux, uy, uz, nx, ny, nz, gvx, gvy, gvz,
+                   gux, guy, guz, gnx, gny, gnz, gmu);
+    if (!sph) gk = gk - c * z1 * gnz;
     const T zc = sph ? z1 : (T(1) + k) * z1;
     gc = gc - x1 * gnx - y1 * gny - zc * gnz;
     gx1 = gx1 - c * gnx; gy1 = gy1 - c * gny; gz1 = gz1 - kc * gnz;

@@ -368,6 +368,50 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
 
 # -- the kernel's reverse, written by hand in torch (test-only) ----------
 
+def _refraction_vjp(kind, unit, mu, u, n, gv):
+    """Hand-derived reverse of refract_spec's refraction (kind 1) or
+    mirror (kind 2) of the direction u by the unnormalized normal n,
+    shared by the conic and the figured rows, the line-for-line model of
+    `refraction_vjp` in csrc/step_vjp.cuh.  Returns the cotangents of u,
+    n and mu from gv, the new direction's.  `unit`: |n| = 1 (a sphere's
+    normal), no normalization to reverse (ir2 = 1 exactly)."""
+    ux, uy, uz = u
+    nx, ny, nz = n
+    gvx, gvy, gvz = gv
+    dot = ux*nx + uy*ny + uz*nz
+    ir2 = 1. if unit else 1./(nx*nx + ny*ny + nz*nz)
+    if kind == 2:
+        a2 = 2.*dot*ir2
+        gux, guy, guz = gvx, gvy, gvz
+        gnx, gny, gnz = -a2*gvx, -a2*gvy, -a2*gvz
+        ga2 = -(gvx*nx + gvy*ny + gvz*nz)
+        gdot = 2.*ir2*ga2
+        gir2 = 2.*dot*ga2
+        gmu = torch.zeros_like(dot)
+    else:
+        muf, sgmu = torch.abs(mu), torch.sign(mu)
+        a = muf*dot*ir2
+        sq2 = K._sqrt0(a*a - (mu*mu - 1)*ir2)
+        q2 = -a + sgmu*sq2
+        gmuf = ux*gvx + uy*gvy + uz*gvz
+        gux, guy, guz = muf*gvx, muf*gvy, muf*gvz
+        gq2 = gvx*nx + gvy*ny + gvz*nz
+        gnx, gny, gnz = q2*gvx, q2*gvy, q2*gvz
+        gdisc2 = gq2*sgmu*.5/sq2
+        ga = -gq2 + 2*a*gdisc2
+        gmu = -2*mu*ir2*gdisc2
+        gir2 = -(mu*mu - 1)*gdisc2 + muf*dot*ga
+        gmuf = gmuf + dot*ir2*ga
+        gdot = muf*ir2*ga
+        gmu = gmu + sgmu*gmuf
+    gux, guy, guz = gux + gdot*nx, guy + gdot*ny, guz + gdot*nz
+    gnx, gny, gnz = gnx + gdot*ux, gny + gdot*uy, gnz + gdot*uz
+    if not unit:
+        s2 = -2.*ir2*ir2*gir2
+        gnx, gny, gnz = gnx + s2*nx, gny + s2*ny, gnz + s2*nz
+    return (gux, guy, guz), (gnx, gny, gnz), gmu
+
+
 def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     """Hand-derived reverse of kernels.surface_step_spec for live rays,
     the line-for-line model of `surface_step_vjp` in csrc/step_vjp.cuh.
@@ -452,51 +496,10 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     else:
         kc = c if spec.spherical else (1 + k)*c
         nx, ny, nz = -c*x1, -c*y1, 1. - kc*z1
-        dot = ux*nx + uy*ny + uz*nz
+        (gux, guy, guz), (gnx, gny, gnz), gmu = _refraction_vjp(
+            spec.kind, spec.spherical, mu, (ux, uy, uz), (nx, ny, nz),
+            (gvx, gvy, gvz))
         if not spec.spherical:
-            ir2 = 1./(nx*nx + ny*ny + nz*nz)
-        gir2 = zero
-        if spec.kind == 2:
-            a2 = 2.*dot if spec.spherical else 2.*dot*ir2
-            gux, guy, guz = gvx, gvy, gvz
-            gnx, gny, gnz = -a2*gvx, -a2*gvy, -a2*gvz
-            ga2 = -(gvx*nx + gvy*ny + gvz*nz)
-            if spec.spherical:
-                gdot = 2.*ga2
-            else:
-                gdot = 2.*ir2*ga2
-                gir2 = 2.*dot*ga2
-        else:
-            muf, sgmu = torch.abs(mu), torch.sign(mu)
-            if spec.spherical:
-                a = muf*dot
-                disc2 = a*a - (mu*mu - 1)
-            else:
-                a = muf*dot*ir2
-                disc2 = a*a - (mu*mu - 1)*ir2
-            sq2 = K._sqrt0(disc2)
-            q2 = -a + sgmu*sq2
-            gmuf = ux*gvx + uy*gvy + uz*gvz
-            gux, guy, guz = muf*gvx, muf*gvy, muf*gvz
-            gq2 = gvx*nx + gvy*ny + gvz*nz
-            gnx, gny, gnz = q2*gvx, q2*gvy, q2*gvz
-            gdisc2 = gq2*sgmu*.5/sq2
-            ga = -gq2 + 2*a*gdisc2
-            if spec.spherical:
-                gmu = -2*mu*gdisc2
-                gmuf = gmuf + dot*ga
-                gdot = muf*ga
-            else:
-                gmu = -2*mu*ir2*gdisc2
-                gir2 = -(mu*mu - 1)*gdisc2 + muf*dot*ga
-                gmuf = gmuf + dot*ir2*ga
-                gdot = muf*ir2*ga
-            gmu = gmu + sgmu*gmuf
-        gux, guy, guz = gux + gdot*nx, guy + gdot*ny, guz + gdot*nz
-        gnx, gny, gnz = gnx + gdot*ux, gny + gdot*uy, gnz + gdot*uz
-        if not spec.spherical:
-            s = -2.*ir2*ir2*gir2
-            gnx, gny, gnz = gnx + s*nx, gny + s*ny, gnz + s*nz
             gk = gk - c*z1*gnz
         zc = z1 if spec.spherical else (1 + k)*z1
         gc = gc - x1*gnx - y1*gny - zc*gnz
@@ -565,8 +568,8 @@ def _figured_vjp_reference(state, surf, spec, g):
     """Hand-derived reverse of an aspheric row's step (kernels.
     surface_step_spec with spec.aspheric or spec.odd) for live rays, the
     line-for-line model of `figured_step_vjp` in csrc/step_vjp.cuh: the
-    refraction by the radial normal (the flagged figures' slopes), the
-    transfer, then the Newton intercept differentiated implicitly at its
+    refraction (_refraction_vjp) by the radial normal (x1 e, y1 e, 1)
+    and the figures' slopes in e, the transfer, then the Newton intercept differentiated implicitly at its
     root, dF/dp scaled by -gt/F_s (kernels._NewtonRoot).  Returns the
     entering state's cotangent and the per-ray parameter cotangents (c,
     k, offset x, y, z, mu, the table's na even then no odd
@@ -611,35 +614,9 @@ def _figured_vjp_reference(state, surf, spec, g):
         if spec.odd:
             e = e - K._dpoly_odd(r2s, aspo)
         nx, ny = x1*e, y1*e
-        ir2 = 1./(nx*nx + ny*ny + 1.)
-        dot = ux*nx + uy*ny + uz
-        if spec.kind == 2:
-            a2 = 2.*dot*ir2
-            gux, guy, guz = gvx, gvy, gvz
-            gnx, gny = -a2*gvx, -a2*gvy
-            ga2 = -(gvx*nx + gvy*ny + gvz)
-            gdot = 2.*ir2*ga2
-            gir2 = 2.*dot*ga2
-        else:
-            muf, sgmu = torch.abs(mu), torch.sign(mu)
-            a = muf*dot*ir2
-            sq2 = K._sqrt0(a*a - (mu*mu - 1)*ir2)
-            q2 = -a + sgmu*sq2
-            gmuf = ux*gvx + uy*gvy + uz*gvz
-            gux, guy, guz = muf*gvx, muf*gvy, muf*gvz
-            gq2 = gvx*nx + gvy*ny + gvz
-            gnx, gny = q2*gvx, q2*gvy
-            gdisc2 = gq2*sgmu*.5/sq2
-            gam = -gq2 + 2*a*gdisc2
-            gmu = -2*mu*ir2*gdisc2
-            gir2 = -(mu*mu - 1)*gdisc2 + muf*dot*gam
-            gmuf = gmuf + dot*ir2*gam
-            gdot = muf*ir2*gam
-            gmu = gmu + sgmu*gmuf
-        gux, guy, guz = gux + gdot*nx, guy + gdot*ny, guz + gdot
-        gnx, gny = gnx + gdot*ux, gny + gdot*uy
-        s2 = -2.*ir2*ir2*gir2
-        gnx, gny = gnx + s2*nx, gny + s2*ny
+        (gux, guy, guz), (gnx, gny, _), gmu = _refraction_vjp(
+            spec.kind, False, mu, (ux, uy, uz), (nx, ny, 1.),
+            (gvx, gvy, gvz))
         ge = x1*gnx + y1*gny
         gx1, gy1 = gx1 + e*gnx, gy1 + e*gny
         gc = gc - rs*ge
