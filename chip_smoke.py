@@ -32,13 +32,15 @@ parity-grade df32 path (the forward path's aimed bundles -> df32.plan
 against the CPU float64 trace) -- then the aspheric path (the JAX
 package's aspheric double Gauss: System.pupils on the card against the
 host pupil, K1 and K2 on aimed bundles at three fields against the CPU
-float64 plain trace with the Newton's misses counted, and the designer
-loop over curvatures and aspheric coefficients, after K1, K2, K4 and K5
-on its figured keys and on the odd singlet against their plain versions
-and K5 against central differences of A4, A6 and a conic) -- and times
-the kernels against their plain versions (the stacked-wavelength ones
-also against their monochromatic twins, the aspheric keys against the
-double Gauss's).
+float64 plain trace with the Newton's misses counted, the designer
+loop over curvatures and aspheric coefficients, the achromatization
+loop (K3, K6, K7) and the composite design step (K4, K5, K8, K9) with
+row 7's aspheric coefficients among their parameters, after K1-K9 on
+its figured keys and on the odd singlet against their plain versions
+and K5, K7 and K9 against central differences of A4, A6, a conic and a
+glass's vd) -- and times the kernels against their plain versions (the
+stacked-wavelength ones also against their monochromatic twins, the
+aspheric keys against the double Gauss's).
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
@@ -101,6 +103,16 @@ ASPH_SCALES = {"aspherics": (1e-4, 1e-7, 1e-11)}
 #: and the conic (unitless)
 ASPH_FD_STEP = {"A4": 1e-10, "A6": 3e-14, "conic": 1e-6}
 N_ASPH = 1 << 16     # aimed rays a field on the aspheric forward path
+#: the fields K7 reduces on the aspheric achromatization loop (curvature,
+#: distance, row ASPH_ROW's coefficients and, through the glasses, mu)
+#: and K5 and K9 on the aspheric design loop
+ASPH_ACHROM_FIELDS = ("curvature", "offset", "mu", "aspherics")
+ASPH_DESIGN_FIELDS = ("curvature", "offset", "aspherics")
+ASPH_DESIGN_SELECT = OPT_SELECT + ("aspherics",)
+#: hexapolar nrays a bundle of the aspheric loops' step-0 cross-check on
+#: both devices (the CPU's plain step takes ~5 s a loop there, ~16x that
+#: at the loops' 2^20)
+N_ASPH_CHECK = 1 << 16
 
 # tolerances (kernel vs plain on the card, live rays)
 F64_REL = 1e-12      # float64: max |a - b| / max(1, max |b|) per output
@@ -995,11 +1007,56 @@ def phase_opt_path():
                          OPT_SELECT)
 
 
-def designer_loop(s, title, select, scales=None):
+def step0_grads(out, ends=None):
+    """An optimize_grad callback that keeps step 0's gradients in `out`
+    (float64, on the CPU) and, with `ends`, the time each step ends."""
+    def callback(i, value, params):
+        if ends is not None:
+            ends.append(time.perf_counter())   # value synced the step
+        if i == 0:
+            out.update({k: v.grad.detach().double().cpu().clone()
+                        for k, v in params.items()})
+    return callback
+
+
+def step0_cross_check(step0, card0, bundles, aimed, check_nrays):
+    """A loop's step 0 on the card held against the same call on the CPU
+    plain versions.  step0(device, bundles) runs it on `bundles` (on the
+    card) moved to `device` and returns (merit, {name: float64 CPU
+    gradient}); card0 is that pair from the loop's timed run on
+    `bundles`.  With check_nrays both devices run step 0 again on
+    aimed(check_nrays) (the CPU's plain versions at the loops' 2^20
+    nrays take ~16x as long), and the timed run's own step 0 is logged
+    beside them, not cross-checked.  Returns (the bundles checked, the
+    failures)."""
+    check, timed = bundles, ""
+    if check_nrays:
+        check = aimed(check_nrays)
+        timed = ("; the timed run's step 0 at the loop's bundles: merit "
+                 "%.15g (not cross-checked)" % card0[0])
+        card0 = step0(DEVICE, check)
+    t0 = time.perf_counter()
+    cpu0 = step0("cpu", check)
+    t_cpu = time.perf_counter() - t0
+    merit_rel = abs(card0[0] - cpu0[0])/abs(cpu0[0])
+    grad_rel = {k: float((card0[1][k] - v).abs().max()/v.abs().max())
+                for k, v in cpu0[1].items()}
+    log("step 0 card vs CPU plain%s: merit %.15g vs %.15g (rel %.2e), "
+        "gradient rel to its max %s, CPU %.2f s for 1 step%s"
+        % (" at %d hexapolar nrays a bundle on both devices" % check_nrays
+           if check_nrays else "", card0[0], cpu0[0], merit_rel,
+           {k: "%.2e" % v for k, v in grad_rel.items()}, t_cpu, timed))
+    failures = [] if merit_rel <= OPT_MERIT_REL else ["step 0 merit"]
+    return check, failures + ["step 0 gradient of " + k
+                              for k, v in grad_rel.items()
+                              if not v <= OPT_GRAD_REL]
+
+
+def designer_loop(s, title, select, scales=None, check_nrays=None):
     """bundles_from_system (3 fields x 3 wavelengths, hexapolar nrays
     N_OPT) -> optimize_grad(engine="adjoint", select, scales) in float64
     for OPT_STEPS Adam steps on the card, its step 0 against the same
-    call on the CPU plain versions (merit and gradient), then
+    call on the CPU plain versions (step0_cross_check), then
     write_back_table of the fields with an element attribute.  Returns
     (the launches of the card's run, counted from 0 at its start; mean
     seconds of the later steps)."""
@@ -1012,22 +1069,26 @@ def designer_loop(s, title, select, scales=None):
                                  OPT_LR))
     t0 = time.perf_counter()
     efl0 = float(s.paraxial.focal_length[1])
-    bundles = bundles_from_system(s, nrays=N_OPT, distribution="hexapolar")
+
+    def aimed(nrays):
+        return bundles_from_system(s, nrays=nrays, distribution="hexapolar")
+    bundles = aimed(N_OPT)
     log("%d bundles (%d fields x %d wavelengths) of %d rays, %d rays in "
         "all, aimed in %.2f s" % (len(bundles), len(s.fields),
                                  len(s.wavelengths), bundles[0][0].shape[0],
                                  sum(b[0].shape[0] for b in bundles),
                                  time.perf_counter() - t0))
     table = s.table()        # the bundles and the table: the default device
-    grads, ends = {}, []
 
-    def keep(tag):
-        def callback(i, value, params):
-            ends.append(time.perf_counter())   # value synced the step
-            if i == 0:
-                grads[tag] = {k: v.grad.detach().double().cpu().clone()
-                              for k, v in params.items()}
-        return callback
+    def step0(device, b):
+        grads = {}
+        _, (merit,) = optimize_grad(s.table(device=device),
+                                    bundles_to(b, device), select=select,
+                                    steps=1, lr=OPT_LR, scales=scales,
+                                    engine="adjoint",
+                                    callback=step0_grads(grads))
+        return merit, grads
+    grads0, ends = {}, []
     reset_launches()
     t0 = time.perf_counter()
     with warnings.catch_warnings():
@@ -1037,43 +1098,25 @@ def designer_loop(s, title, select, scales=None):
         tab_opt, hist = optimize_grad(table, bundles, select=select,
                                       steps=OPT_STEPS, lr=OPT_LR,
                                       scales=scales, engine="adjoint",
-                                      callback=keep("card"))
+                                      callback=step0_grads(grads0, ends))
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
         steps = np.diff([t0] + ends[:OPT_STEPS])
         launches = read_launches()
-        t0 = time.perf_counter()
-        _, hist_cpu = optimize_grad(s.table(device="cpu"),
-                                    bundles_to(bundles, "cpu"),
-                                    select=select, steps=1, lr=OPT_LR,
-                                    scales=scales, engine="adjoint",
-                                    callback=keep("cpu"))
-    t_cpu = time.perf_counter() - t0
-    merit_rel = abs(hist[0] - hist_cpu[0])/abs(hist_cpu[0])
-    grad_rel = {k: float((grads["card"][k] - grads["cpu"][k]).abs().max()
-                         / grads["cpu"][k].abs().max())
-                for k in select}
+        log("merit history (sum of %d spot RMS, mm): %s | card %.2f s for "
+            "%d steps (step 0 %.3f s, later steps mean %.4f s)"
+            % (len(bundles), " ".join("%.12g" % v for v in hist), t_card,
+               OPT_STEPS, steps[0], steps[1:].mean()))
+        _, failures = step0_cross_check(step0, (hist[0], grads0), bundles,
+                                        aimed, check_nrays)
     written = [k for k in select if k in _WRITE_BACK]
     write_back_table(s, tab_opt, written)
     efl1 = float(s.paraxial.focal_length[1])
-    log("merit history (sum of %d spot RMS, mm): %s"
-        % (len(bundles), " ".join("%.12g" % v for v in hist)))
-    log("step 0 card vs CPU plain: merit %.15g vs %.15g (rel %.2e), "
-        "gradient rel to its max %s | card %.2f s for %d steps (step 0 "
-        "%.3f s, later steps mean %.4f s), CPU %.2f s for 1 step"
-        % (hist[0], hist_cpu[0], merit_rel,
-           {k: "%.2e" % v for k, v in grad_rel.items()}, t_card, OPT_STEPS,
-           steps[0], steps[1:].mean(), t_cpu))
     log("write_back_table of %s: EFL %.8f -> %.8f mm" % (written, efl0,
                                                          efl1))
     log("== launch counts on the %s: %s" % (title.split(":")[0], launches))
-    failures = []
     if not hist[-1] < hist[0]:
         failures.append("the merit did not fall")
-    if not merit_rel <= OPT_MERIT_REL:
-        failures.append("step 0 merit")
-    failures += ["step 0 gradient of " + k for k, v in grad_rel.items()
-                 if not v <= OPT_GRAD_REL]
     if not np.isfinite(efl1):
         failures.append("EFL after write-back")
     if not (launches["weighted_moments"] and launches["merit_adjoint"]):
@@ -1089,27 +1132,36 @@ def _live_of(out):
             & torch.isfinite(out[5]))
 
 
-def phase_multi_check(tabs, specs):
-    """K3, K6 and K7 against their plain versions on the card."""
+def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
+                      clips=(False, True), fields=GRAD_FIELDS,
+                      loop=ACHROM_FIELDS):
+    """K3, K6 and K7 against their plain versions on the card at N_CHECK
+    rays of `bundle` (the aspheric lenses: unclipped only); K7's
+    parameter cotangents by `fields` (the aspheric lenses: the
+    coefficient columns too) and, unclipped, its loop key for the
+    fields `loop` (None: none).  Returns the float32 errors."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
         weighted_moments_multi, weighted_moments_multi_reference,
         merit_adjoint_multi, merit_adjoint_multi_reference,
         union_spot_rms_from_moments)
     from rayopt_tpu_torch.ops.cuda_trace import (
-        spot_rms_from_moments, trace_final, trace_final_reference,
-        trace_multi, trace_multi_reference)
+        figure_widths, spot_rms_from_moments, trace_final,
+        trace_final_reference, trace_multi, trace_multi_reference)
     from rayopt_tpu_torch.ops.tables import table_at
     nlam = tabs.curvature.shape[0]
-    log("== K3/K6/K7 vs plain on the card (double Gauss, %d wavelengths, "
-        "%d bench rays, weights uniform in [0.5, 1.5])" % (nlam, N_CHECK))
+    # K7's columns: SLOTS and the table's coefficients
+    nq = CS.SLOTS + tabs.aspherics.shape[-1] + tabs.aspherics_odd.shape[-1]
+    log("== K3/K6/K7 vs plain on the card (%s, %d wavelengths, %d rays, "
+        "weights uniform in [0.5, 1.5])" % (lens, nlam, N_CHECK))
+    rms = {}     # K3's and K6's spot RMS by (what, dtype)
     worst = {"trace_multi": 0., "weighted_moments_multi": 0.,
              "merit_adjoint_multi": 0.}
     failures = []
     for dtype in (torch.float32, torch.float64):
         f64 = dtype == torch.float64
         dt = str(dtype)[6:]
-        state = bench_bundle(N_CHECK, dtype, SEED)
+        state = bundle(N_CHECK, dtype, SEED)
         w = bench_weights(N_CHECK, dtype, SEED + 2)
         got = trace_multi(tabs, specs, state)
         want = trace_multi_reference(tabs, specs, state)
@@ -1132,9 +1184,11 @@ def phase_multi_check(tabs, specs):
                    "ok" if ok and mok else "FAIL"))
             if not (ok and mok):
                 failures.append("K3 %s wavelength %d" % (dt, li))
+            rms[("K3 merit wavelength %d" % li, dtype)] = float(
+                spot_rms_from_moments(*mom[li]))
             if not f64:
                 worst["trace_multi"] = max(worst["trace_multi"], err)
-        for clip in (False, True):
+        for clip in clips:
             tag = "%s clip=%s" % (dt, clip)
             if clip:
                 # widen the bundle 1.5x so that the apertures vignette
@@ -1155,13 +1209,14 @@ def phase_multi_check(tabs, specs):
                    abs(ug - uw)/uw, "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("K6 " + tag)
+            rms[("K6 union clip=%s" % clip, dtype)] = ug
             ct = rms_cotangent(mref)
             pg, cst, cw = merit_adjoint_multi(tabs, specs, state, w, ct, clip)
             pr, sr, wr = merit_adjoint_multi_reference(tabs, specs, state, w,
                                                        ct, clip)
             torch.cuda.synchronize()
             lim = GRAD_F64_REL if f64 else GRAD_F32_REL
-            per_lam = [compare_param_grads(pg[li], pr[li], lim)
+            per_lam = [compare_param_grads(pg[li], pr[li], lim, fields)
                        for li in range(nlam)]
             # a float32 ray at an aperture's edge may be clipped at one
             # wavelength by one version only: its summed cotangents then
@@ -1194,17 +1249,17 @@ def phase_multi_check(tabs, specs):
                    ray_rel, masks, dead, finite, "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("K7 " + tag)
-            if not clip:
+            if not clip and loop:
                 # the achromatization path's key: its slots, no ray
                 # cotangents, the rest exact zeros
                 live_slots = CS.live_mask(CS.live_slots(
-                    specs, ACHROM_FIELDS)).to(DEVICE)
+                    specs, loop, figure_widths(tabs, specs)), nq).to(DEVICE)
                 pa, ca, wa = merit_adjoint_multi(tabs, specs, state, w, ct,
-                                                 clip, fields=ACHROM_FIELDS,
+                                                 clip, fields=loop,
                                                  rays=False)
                 torch.cuda.synchronize()
                 per_lam = [compare_param_grads(
-                    pa[li], torch.where(live_slots, pr[li], 0.), lim)
+                    pa[li], torch.where(live_slots, pr[li], 0.), lim, fields)
                     for li in range(nlam)]
                 dead_zero = not bool(pa[:, ~live_slots].any())
                 ok = (all(v[2] for f in per_lam for v in f.values())
@@ -1223,9 +1278,16 @@ def phase_multi_check(tabs, specs):
                 worst["merit_adjoint_multi"] = max(
                     worst["merit_adjoint_multi"],
                     *(v[0] for f in per_lam for v in f.values()))
+    for what in sorted({k[0] for k in rms}):
+        r32, r64 = rms[(what, torch.float32)], rms[(what, torch.float64)]
+        rel = abs(r32 - r64)/r64
+        log("%s: float32 spot RMS %.9g vs float64 %.9g, rel %.3e"
+            % (what, r32, r64, rel))
+        if not rel <= 1e-4:
+            failures.append("%s float32 vs float64" % what)
     if failures:
-        raise AssertionError("kernel disagrees with its plain version: "
-                             + ", ".join(failures))
+        raise AssertionError("kernel disagrees with its plain version on "
+                             "the %s: %s" % (lens, ", ".join(failures)))
     return worst
 
 
@@ -1268,23 +1330,34 @@ def phase_glass_fd_check(s, tabs, specs):
         raise AssertionError("K7 disagrees with finite differences of vd")
 
 
-def phase_glass_path():
+def phase_glass_path(s=None, lens="double Gauss", check_nrays=None):
     """The achromatization path, through the entry points a user calls:
     stacked tables, glass relaxation, the polychromatic adjoint merit at
-    three fields and torch.optim.Adam, with K3 reporting the spots."""
+    three fields and torch.optim.Adam (over curvatures, distances, the
+    glasses and, on an aspheric lens, row ASPH_ROW's coefficients over
+    ASPH_SCALES), with K3 reporting the spots.  Step 0 is held against
+    the same call on the CPU plain versions (step0_cross_check; with
+    check_nrays K3's float64 spot RMS on those bundles against the
+    CPU's too).  Returns (the launches of the loop and its K3 reports,
+    counted from 0 at their start; mean seconds of the later steps)."""
     from rayopt_tpu_torch import glass
     from rayopt_tpu_torch.models import double_gauss
     from rayopt_tpu_torch.ops.cuda_grad import union_spot_rms_from_moments
     from rayopt_tpu_torch.ops.cuda_trace import (
-        multi_specs, spot_rms_from_moments, trace_multi)
+        multi_specs, spot_rms_from_moments, trace_multi,
+        trace_multi_reference)
     from rayopt_tpu_torch.parallel import bundles_from_system, bundles_to
-    log("== achromatization path: double Gauss, System.tables -> "
-        "glass_assignment -> glass_tables(glass_box_decode(logits)) -> "
-        "glass.polychromatic_spot_rms(engine='adjoint') at fields %s, "
-        "float64, %d Adam steps, lr %s" % (FIELDS, GLASS_STEPS, GLASS_LR))
-    t0 = time.perf_counter()
-    s = double_gauss()
+    s = s or double_gauss()
     tabs = s.tables()            # the default device: the card
+    asph = bool(tabs.aspherics.shape[-1])
+    log("== achromatization path: %s, System.tables -> glass_assignment -> "
+        "glass_tables(glass_box_decode(logits)) -> "
+        "glass.polychromatic_spot_rms(engine='adjoint') at fields %s, "
+        "float64, %d Adam steps, lr %s%s" % (
+            lens, FIELDS, GLASS_STEPS, GLASS_LR,
+            ", row %d's aspherics over scales %s at the curvatures' lr"
+            % (ASPH_ROW, ASPH_SCALES["aspherics"]) if asph else ""))
+    t0 = time.perf_counter()
     nlam = tabs.curvature.shape[0]
     specs = multi_specs(tabs, None)
     asg = glass.glass_assignment(s)
@@ -1294,9 +1367,12 @@ def phase_glass_path():
                    np.round(nd0, 6).tolist(), np.round(vd0, 4).tolist()))
     if len(asg[2]) != 6:
         raise AssertionError("expected 6 glass slots, got %s" % (asg[2],))
-    bundles = bundles_from_system(s, fields=FIELDS,
-                                  wavelengths=[s.wavelengths[0]],
-                                  nrays=N_GLASS, distribution="hexapolar")
+
+    def aimed(nrays):
+        return bundles_from_system(s, fields=FIELDS,
+                                   wavelengths=[s.wavelengths[0]],
+                                   nrays=nrays, distribution="hexapolar")
+    bundles = aimed(N_GLASS)
     log("bundles: distribution hexapolar, nrays %d -> %s rays at fields %s,"
         " aimed at %g m in %.2f s" % (N_GLASS, [b[0].shape[0] for b in
                                                   bundles], FIELDS,
@@ -1310,18 +1386,30 @@ def phase_glass_path():
         off0, d0[:, None], where=d0[:, None] != 0,
         out=np.tile(np.array([0., 0., 1.]), (off0.shape[0], 1))))
     xi_nd0, xi_vd0 = glass.glass_box_encode(nd0, vd0)
+    a0 = tabs.aspherics[0].detach().cpu()
+    scales = torch.tensor(ASPH_SCALES["aspherics"], dtype=torch.float64)
 
     def start(device):
-        return {"curvature": tabs.curvature[0].detach().to(device).clone(),
-                "distance": torch.from_numpy(d0).to(device).clone(),
-                "xi_nd": torch.from_numpy(xi_nd0).to(device).clone(),
-                "xi_vd": torch.from_numpy(xi_vd0).to(device).clone()}
+        out = {"curvature": tabs.curvature[0].detach().to(device).clone(),
+               "distance": torch.from_numpy(d0).to(device).clone(),
+               "xi_nd": torch.from_numpy(xi_nd0).to(device).clone(),
+               "xi_vd": torch.from_numpy(xi_vd0).to(device).clone()}
+        if asph:
+            out["aspherics"] = (a0[ASPH_ROW]/scales).to(device)
+        return out
 
     def relaxed(params, tables):
-        u = unit.to(params["distance"].device)
+        dev = params["distance"].device
+        u = unit.to(dev)
         tb = tables.replace(
             curvature=params["curvature"].expand(nlam, -1),
             offset=(u*params["distance"][:, None]).expand(nlam, -1, -1))
+        if asph:
+            a = a0.to(dev)
+            a = torch.cat([a[:ASPH_ROW], (params["aspherics"]
+                                          * scales.to(dev))[None],
+                           a[ASPH_ROW + 1:]])
+            tb = tb.replace(aspherics=a.expand(nlam, -1, -1))
         nd, vd = glass.glass_box_decode(params["xi_nd"], params["xi_vd"])
         return glass.glass_tables(tb, nd, vd, asg, s.wavelengths)
 
@@ -1331,32 +1419,55 @@ def phase_glass_path():
                                                 engine="adjoint")
                    for y0, u0, w, _ in bundles)
 
+    def spots(tb, bundles, trace):
+        """[(per-wavelength spot RMS, union, live rays)] a field."""
+        out = []
+        for y0, u0, _, _ in bundles:
+            state = tuple(c.contiguous() for c in (*y0.T, *u0.T))
+            mom = [tuple(map(torch.as_tensor, m))
+                   for m in trace(tb, specs, state, merit=True)]
+            out.append(([float(spot_rms_from_moments(*m)) for m in mom],
+                        float(union_spot_rms_from_moments(
+                            torch.stack([torch.stack(m) for m in mom]))),
+                        [int(m[0]) for m in mom]))
+        return out
+
     def report(params, when):
         with torch.no_grad():
             tb = relaxed(params, tabs)
-            for field, (y0, u0, _, _) in zip(FIELDS, bundles):
-                state = tuple(c.contiguous() for c in (*y0.T, *u0.T))
-                mom = trace_multi(tb, specs, state, merit=True)
-                per = [float(spot_rms_from_moments(*m)) for m in mom]
-                union = float(union_spot_rms_from_moments(
-                    torch.stack([torch.stack(m) for m in mom])))
+            for field, (per, union, live) in zip(FIELDS, spots(
+                    tb, bundles, trace_multi)):
                 log("K3 %s, field %.1f: spot RMS mm per wavelength %s, union "
                     "%.9g, live rays %s" % (when, field, " ".join(
-                        "%.9g" % v for v in per), union,
-                        [int(m[0]) for m in mom]))
+                        "%.9g" % v for v in per), union, live))
             nd, vd = glass.glass_box_decode(params["xi_nd"],
                                             params["xi_vd"])
             log("relaxed glasses %s: nd %s, vd %s"
                 % (when, np.round(nd.cpu().numpy(), 6).tolist(),
                    np.round(vd.cpu().numpy(), 4).tolist()))
+            if asph:
+                log("row %d's aspherics %s: %s" % (
+                    ASPH_ROW, when, (params["aspherics"].cpu()
+                                     * scales).tolist()))
+
+    def step0(device, b):
+        p = {k: v.requires_grad_() for k, v in start(device).items()}
+        value = merit(p, s.tables(device=device), bundles_to(b, device))
+        value.backward()
+        return float(value.detach()), {k: v.grad.detach().double().cpu()
+                                       for k, v in p.items()}
 
     params = {k: v.requires_grad_() for k, v in start(DEVICE).items()}
+    reset_launches()
     report(params, "before")
-    opt = torch.optim.Adam([
-        {"params": [params["curvature"]], "lr": GLASS_LR["curvature"]},
-        {"params": [params["distance"]], "lr": GLASS_LR["distance"]},
-        {"params": [params["xi_nd"], params["xi_vd"]],
-         "lr": GLASS_LR["glass"]}])
+    groups = [{"params": [params["curvature"]], "lr": GLASS_LR["curvature"]},
+              {"params": [params["distance"]], "lr": GLASS_LR["distance"]},
+              {"params": [params["xi_nd"], params["xi_vd"]],
+               "lr": GLASS_LR["glass"]}]
+    if asph:
+        groups.append({"params": [params["aspherics"]],
+                       "lr": GLASS_LR["curvature"]})
+    opt = torch.optim.Adam(groups)
     hist, grads0, ends = [], None, []
     t0 = time.perf_counter()
     with warnings.catch_warnings():
@@ -1367,40 +1478,51 @@ def phase_glass_path():
             value = merit(params, tabs, bundles)
             value.backward()
             if i == 0:
-                grads0 = {k: v.grad.detach().cpu().clone()
+                grads0 = {k: v.grad.detach().double().cpu().clone()
                           for k, v in params.items()}
             opt.step()
             hist.append(float(value.detach()))
             ends.append(time.perf_counter())
         steps = np.diff([t0] + ends)
-        t0 = time.perf_counter()
-        cpu = {k: v.requires_grad_() for k, v in start("cpu").items()}
-        value = merit(cpu, s.tables(device="cpu"), bundles_to(bundles, "cpu"))
-        value.backward()
-        value = float(value.detach())
-        t_cpu = time.perf_counter() - t0
-    report(params, "after")
-    merit_rel = abs(hist[0] - value)/abs(value)
-    grad_rel = {k: float((grads0[k] - v.grad).abs().max()
-                         / v.grad.abs().max()) for k, v in cpu.items()}
-    log("merit history (sum of %d union spot RMS, mm): %s"
-        % (len(bundles), " ".join("%.12g" % v for v in hist)))
-    log("step 0 card vs CPU plain: merit %.15g vs %.15g (rel %.2e), "
-        "gradient rel to its max %s | card: step 0 %.3f s, later steps mean "
-        "%.4f s | CPU %.2f s for 1 merit and gradient"
-        % (hist[0], value, merit_rel,
-           {k: "%.2e" % v for k, v in grad_rel.items()}, steps[0],
-           steps[1:].mean(), t_cpu))
-    failures = []
+        report(params, "after")
+        launches = read_launches()
+        log("merit history (sum of %d union spot RMS, mm): %s | card: step 0 "
+            "%.3f s, later steps mean %.4f s"
+            % (len(bundles), " ".join("%.12g" % v for v in hist), steps[0],
+               steps[1:].mean()))
+        check, failures = step0_cross_check(step0, (hist[0], grads0),
+                                            bundles, aimed, check_nrays)
+        if check_nrays:
+            # K3's float64 spots on the card against the CPU plain trace
+            check_cpu = bundles_to(check, "cpu")
+            with torch.no_grad():
+                card = spots(relaxed(start(DEVICE), tabs), check,
+                             trace_multi)
+                host = spots(relaxed(start("cpu"), s.tables(device="cpu")),
+                             check_cpu, trace_multi_reference)
+            for field, (pc, uc, lc), (ph, uh, lh) in zip(FIELDS, card, host):
+                rel = max(abs(a - b)/b for a, b in zip(pc + [uc], ph + [uh]))
+                ok = rel <= PARITY_REL and lc == lh
+                log("K3 float64 vs the CPU plain trace, field %.1f (%d "
+                    "rays): spot RMS mm per wavelength %s vs %s, union "
+                    "%.12g vs %.12g, rel %.2e, live %s vs %s -> %s"
+                    % (field, check[0][0].shape[0],
+                       " ".join("%.12g" % v for v in pc),
+                       " ".join("%.12g" % v for v in ph), uc, uh, rel, lc,
+                       lh, "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("K3 spots at field %.1f" % field)
+    log("== launch counts on the achromatization path (%s): %s"
+        % (lens, launches))
     if not hist[-1] < hist[0]:
         failures.append("the merit did not fall")
-    if not merit_rel <= OPT_MERIT_REL:
-        failures.append("step 0 merit")
-    failures += ["step 0 gradient of " + k for k, v in grad_rel.items()
-                 if not v <= OPT_GRAD_REL]
+    multi = ("trace_multi", "weighted_moments_multi", "merit_adjoint_multi")
+    if not all(launches[k] for k in multi):
+        failures.append("K3, K6 or K7 never launched: %s" % launches)
     if failures:
-        raise AssertionError("achromatization path failed: "
-                             + ", ".join(failures))
+        raise AssertionError("achromatization path on the %s failed: %s"
+                             % (lens, ", ".join(failures)))
+    return launches, float(steps[1:].mean())
 
 
 def opd_aux(s, table, specs, state):
@@ -1456,19 +1578,29 @@ def opd_cotangents(k, lx, ly, kind):
 OPD_GRAD_FIELDS = GRAD_FIELDS + (("n_before", slice(6, 7)),)
 
 
-def phase_opd_check(s, table, specs):
+def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
+                    clips=(False, True), fields=None, design=DESIGN_FIELDS):
     """K8 and K9 against their plain versions on the card: K8's k and
-    landing; K9's parameter (n_before included), ray and centre
-    cotangents for the wavefront-RMS and the Strehl cotangents.  In
-    float64 against the plain version; in float32 K8 against the plain
-    float32 version, K9's sums against the float64 plain version on the
-    same inputs (see below)."""
+    landing; K9's parameter (n_before included; the aspheric lenses:
+    the coefficient columns too, `fields`), ray and centre cotangents
+    for the wavefront-RMS and the Strehl cotangents, and, unclipped, its
+    loop key for the fields `design` (None: none).  In float64 against
+    the plain version; in float32 K8 against the plain float32 version,
+    K9's sums against the float64 plain version on the same inputs (see
+    below).  `bundle(n, dtype, seed, widen)`: opd_bundle's (the aspheric
+    lenses: unclipped only).  Returns the float32 errors."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
         opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
-    log("== K8/K9 vs plain on the card (double Gauss, %d bench rays, ray 0 "
-        "the chief ray; reference sphere radius %.6f mm, wavelength %g m)"
-        % (N_CHECK, -s.image.pupil.distance, s.wavelengths[0]))
+    from rayopt_tpu_torch.ops.cuda_trace import figure_widths
+    bundle = bundle or opd_bundle
+    fields = fields or OPD_GRAD_FIELDS
+    # K9's columns: OPD_SLOTS and the table's coefficients
+    nq = (CS.OPD_SLOTS + table.aspherics.shape[-1]
+          + table.aspherics_odd.shape[-1])
+    log("== K8/K9 vs plain on the card (%s, %d rays, ray 0 the chief ray; "
+        "reference sphere radius %.6f mm, wavelength %g m)"
+        % (lens, N_CHECK, -s.image.pupil.distance, s.wavelengths[0]))
     worst = {"opd_chain": 0., "opd_adjoint": 0.}
     failures = []
 
@@ -1477,10 +1609,10 @@ def phase_opd_check(s, table, specs):
     for dtype in (torch.float64, torch.float32):
         f64 = dtype == torch.float64
         dt = str(dtype)[6:]
-        for clip in (False, True):
+        for clip in clips:
             tag = "%s clip=%s" % (dt, clip)
             # clipped: 1.5x wider, so that the apertures vignette
-            state = opd_bundle(N_CHECK, dtype, SEED, 1.5 if clip else 1.)
+            state = bundle(N_CHECK, dtype, SEED, 1.5 if clip else 1.)
             aux = opd_aux(s, table, specs, state)
             got = opd_chain(table, specs, state, aux, clip)
             want = opd_chain_reference(table, specs, state, aux, clip)
@@ -1541,14 +1673,14 @@ def phase_opd_check(s, table, specs):
                         table, specs, state64, aux64,
                         tuple(c.abs() for c in cts64), clip)
                 torch.cuda.synchronize()
-                fields = {}
-                for name, cols in OPD_GRAD_FIELDS:
+                errs = {}
+                for name, cols in fields:
                     e = err(pg[:, cols], base[:, cols])
                     ep = 0. if f64 else err(pr[:, cols], base[:, cols])
                     sc = float(mass[:, cols].double().abs().max())
-                    fields[name] = (e, ep, sc,
-                                    bool(torch.isfinite(pg[:, cols]).all())
-                                    and e <= lim*sc)
+                    errs[name] = (e, ep, sc,
+                                  bool(torch.isfinite(pg[:, cols]).all())
+                                  and e <= lim*sc)
                 ce = err(cc, base_c)
                 cep = 0. if f64 else err(cr, base_c)
                 cscale = float(mass_c.double().abs().max())
@@ -1559,7 +1691,7 @@ def phase_opd_check(s, table, specs):
                     ray_rel = max(ray_rel, e/sc if sc else e)
                 dead_zero = not any(bool(c[~live_got].any()) for c in cst)
                 finite = all(bool(torch.isfinite(c).all()) for c in cst)
-                ok = (all(v[3] for v in fields.values()) and finite
+                ok = (all(v[3] for v in errs.values()) and finite
                       and dead_zero and ce <= lim*cscale
                       and ray_rel <= (GRAD_F64_REL if f64 else F32_RAY_REL)
                       and not pg[0].any())
@@ -1568,34 +1700,34 @@ def phase_opd_check(s, table, specs):
                     "finite %s -> %s"
                     % (tag, kind, "; ".join(
                         "%s err %.3e (plain %.3e) of scale %.3e" % (k, *v[:3])
-                        for k, v in fields.items()), ce, cep, cscale, ray_rel,
+                        for k, v in errs.items()), ce, cep, cscale, ray_rel,
                        dead_zero, finite, "ok" if ok else "FAIL"))
                 if not ok:
                     failures.append("K9 %s %s" % (tag, kind))
-                if not clip and kind == "wavefront":
+                if not clip and kind == "wavefront" and design:
                     # the design path's key: its slots and the centre, no
                     # ray cotangents, the rest exact zeros
-                    live_slots = CS.live_mask(
-                        CS.opd_live_slots(specs, DESIGN_FIELDS),
-                        CS.OPD_SLOTS).to(DEVICE)
+                    live_slots = CS.live_mask(CS.opd_live_slots(
+                        specs, design, figure_widths(table, specs)),
+                        nq).to(DEVICE)
                     pd, sd, cd = opd_adjoint(table, specs, state, aux, cts,
-                                             clip, fields=DESIGN_FIELDS,
+                                             clip, fields=design,
                                              rays=False)
                     torch.cuda.synchronize()
-                    errs = [err(pd[:, cols], torch.where(
+                    derrs = [err(pd[:, cols], torch.where(
                         live_slots, base, 0.)[:, cols]) for _, cols in
-                        OPD_GRAD_FIELDS]
+                        fields]
                     scales = [float(mass[:, cols].double().abs().max())
-                              for _, cols in OPD_GRAD_FIELDS]
+                              for _, cols in fields]
                     dead_zero = not bool(pd[~live_slots].any())
-                    ok = (all(e <= lim*sc for e, sc in zip(errs, scales))
+                    ok = (all(e <= lim*sc for e, sc in zip(derrs, scales))
                           and err(cd, base_c) <= lim*cscale and dead_zero
                           and sd is None)
                     log("K9 %s, the design key (%d live slots and the "
                         "centre, no ray cotangents): errors %s of scales %s, "
                         "centre %.3e, the rest exact zeros %s -> %s"
                         % (tag, int(live_slots.sum()), " ".join(
-                            "%.3e" % e for e in errs), " ".join(
+                            "%.3e" % e for e in derrs), " ".join(
                             "%.3e" % v for v in scales), err(cd, base_c),
                            dead_zero, "ok" if ok else "FAIL"))
                     if not ok:
@@ -1603,10 +1735,10 @@ def phase_opd_check(s, table, specs):
                 if not f64:
                     worst["opd_adjoint"] = max(
                         worst["opd_adjoint"],
-                        *(v[0] for v in fields.values()))
+                        *(v[0] for v in errs.values()))
     if failures:
-        raise AssertionError("kernel disagrees with its plain version: "
-                             + ", ".join(failures))
+        raise AssertionError("kernel disagrees with its plain version on "
+                             "the %s: %s" % (lens, ", ".join(failures)))
     return worst
 
 
@@ -1688,34 +1820,40 @@ def phase_opd_fd_check(s, table, specs):
                              + ", ".join(failures))
 
 
-def phase_design_path():
+def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
+                      scales=None, check_nrays=None):
     """The composite design step, through the entry points a user
     calls: 9 spot bundles (K4/K5), 3 wavefront bundles (K8/K9) and a
-    focal-length penalty, optimize_grad, write_back_table; then the
-    Strehl, PSF and MTF report and the host OPD/Zernike cross-check."""
-    from rayopt_tpu_torch import GeometricTrace
+    focal-length penalty, optimize_grad over `select` (with `scales`),
+    write_back_table; then the step's breakdown, the Strehl, PSF and MTF
+    report and the host OPD/Zernike cross-check.  Step 0 is held against
+    the same call on the CPU plain versions (step0_cross_check).
+    Returns the launches of the optimize_grad run and the mean seconds
+    of its later steps."""
     from rayopt_tpu_torch.models import double_gauss
-    from rayopt_tpu_torch.ops.cuda_grad import (adjoint_opd_rays,
-                                                adjoint_spot_rms,
+    from rayopt_tpu_torch.ops.cuda_grad import (adjoint_spot_rms,
                                                 adjoint_wavefront_rms)
     from rayopt_tpu_torch.ops.kernels import specialize
     from rayopt_tpu_torch.parallel import (
         bundles_from_system, bundles_to, composite_merit, first_order_penalty,
         mtf_radial, optimize_grad, paraxial_seed, psf_grid, psf_polychromatic,
         strehl_marechal, strehl_ratio, write_back_table)
-    log("== design path: double Gauss, 9 spot bundles (3 fields x 3 "
-        "wavelengths, adjoint_spot_rms) + 3 wavefront bundles (fields %s at "
-        "%g m, adjoint_wavefront_rms) + %g x focal-length penalty -> "
-        "optimize_grad(select=%s), float64, %d Adam steps at lr %g"
-        % (FIELDS, 587.56e-9, DESIGN_PENALTY, OPT_SELECT, DESIGN_STEPS,
-           DESIGN_LR))
+    log("== design path: %s, 9 spot bundles (3 fields x 3 wavelengths, "
+        "adjoint_spot_rms) + 3 wavefront bundles (fields %s at %g m, "
+        "adjoint_wavefront_rms) + %g x focal-length penalty -> "
+        "optimize_grad(select=%s, scales=%s), float64, %d Adam steps at lr "
+        "%g" % (lens, FIELDS, 587.56e-9, DESIGN_PENALTY, select, scales,
+                DESIGN_STEPS, DESIGN_LR))
     t0 = time.perf_counter()
-    s = double_gauss()
-    spot = bundles_from_system(s, fields=FIELDS, nrays=N_DESIGN,
-                               distribution="hexapolar")
-    wave = bundles_from_system(s, fields=FIELDS,
-                               wavelengths=[s.wavelengths[0]],
-                               nrays=N_DESIGN, distribution="hexapolar")
+    s = s or double_gauss()
+
+    def aimed(nrays):
+        return (bundles_from_system(s, fields=FIELDS, nrays=nrays,
+                                    distribution="hexapolar"),
+                bundles_from_system(s, fields=FIELDS,
+                                    wavelengths=[s.wavelengths[0]],
+                                    nrays=nrays, distribution="hexapolar"))
+    spot, wave = aimed(N_DESIGN)
     log("%d spot and %d wavefront bundles of %d rays (ray 0 the chief ray), "
         "aimed in %.2f s" % (len(spot), len(wave), spot[0][0].shape[0],
                              time.perf_counter() - t0))
@@ -1760,15 +1898,17 @@ def phase_design_path():
                 raise AssertionError("Strehl report %s at field %.1f: %g %g"
                                      % (when, field, st, sm))
 
-    grads, ends = {}, []
-
-    def keep(tag):
-        def callback(i, value, params):
-            ends.append(time.perf_counter())   # value synced the step
-            if i == 0:
-                grads[tag] = {k: v.grad.detach().double().cpu().clone()
-                              for k, v in params.items()}
-        return callback
+    def step0(device, b):
+        spot_d, wave_d = (bundles_to(x, device) for x in b)
+        grads = {}
+        _, (merit,) = optimize_grad(s.table(device=device), spot_d,
+                                    select=select, steps=1, lr=DESIGN_LR,
+                                    scales=scales,
+                                    merit=composite_merit(
+                                        *merit_parts(spot_d, wave_d)),
+                                    callback=step0_grads(grads))
+        return merit, grads
+    grads0, ends = {}, []
     with warnings.catch_warnings():
         # flat rows bake out their curvature, on-axis rows their
         # transverse offsets
@@ -1776,43 +1916,31 @@ def phase_design_path():
         report(table, "before")
         reset_launches()
         t0 = time.perf_counter()
-        tab_opt, hist = optimize_grad(table, spot, select=OPT_SELECT,
+        tab_opt, hist = optimize_grad(table, spot, select=select,
                                       steps=DESIGN_STEPS, lr=DESIGN_LR,
+                                      scales=scales,
                                       merit=composite_merit(
                                           *merit_parts(spot, wave)),
-                                      callback=keep("card"))
+                                      callback=step0_grads(grads0, ends))
         torch.cuda.synchronize()
         t_card = time.perf_counter() - t0
         launches = read_launches()
+        steps = np.diff([t0] + ends[:DESIGN_STEPS])
+        log("merit history (9 spot RMS mm + 3 wavefront RMS waves + "
+            "penalty): %s | card %.2f s for %d steps (step 0 %.3f s, later "
+            "steps mean %.4f s, min %.4f s)"
+            % (" ".join("%.12g" % v for v in hist), t_card, DESIGN_STEPS,
+               steps[0], steps[1:].mean(), steps[1:].min()))
+        _, failures = step0_cross_check(step0, (hist[0], grads0),
+                                        (spot, wave), aimed, check_nrays)
         breakdown = step_breakdown(tab_opt, specs, wave,
                                    merit_parts(spot, wave))
-        steps = np.diff([t0] + ends[:DESIGN_STEPS])
-        t0 = time.perf_counter()
-        spot_cpu, wave_cpu = bundles_to(spot, "cpu"), bundles_to(wave, "cpu")
-        _, hist_cpu = optimize_grad(s.table(device="cpu"), spot_cpu,
-                                    select=OPT_SELECT, steps=1, lr=DESIGN_LR,
-                                    merit=composite_merit(
-                                        *merit_parts(spot_cpu, wave_cpu)),
-                                    callback=keep("cpu"))
-        t_cpu = time.perf_counter() - t0
         report(tab_opt, "after")
-    merit_rel = abs(hist[0] - hist_cpu[0])/abs(hist_cpu[0])
-    grad_rel = {k: float((grads["card"][k] - grads["cpu"][k]).abs().max()
-                         / grads["cpu"][k].abs().max())
-                for k in OPT_SELECT}
-    log("merit history (9 spot RMS mm + 3 wavefront RMS waves + penalty): %s"
-        % " ".join("%.12g" % v for v in hist))
-    log("step 0 card vs CPU plain: merit %.15g vs %.15g (rel %.2e), "
-        "gradient rel to its max %s | card %.2f s for %d steps (step 0 "
-        "%.3f s, later steps mean %.4f s, min %.4f s), CPU %.2f s for 1 step"
-        % (hist[0], hist_cpu[0], merit_rel,
-           {k: "%.2e" % v for k, v in grad_rel.items()}, t_card, DESIGN_STEPS,
-           steps[0], steps[1:].mean(), steps[1:].min(), t_cpu))
     log("design step by part, forward and backward on the card (wall ms, "
         "mean of %d after one warm-up; not counted as launches of the "
         "path): %s" % (BREAKDOWN_REPS, ", ".join(
             "%s %.3f" % kv for kv in breakdown.items())))
-    log("== launch counts on the design path: %s" % launches)
+    log("== launch counts on the design path (%s): %s" % (lens, launches))
     write_back_table(s, tab_opt, OPT_SELECT)
     efl1 = float(s.paraxial.focal_length[1])
     log("write_back_table: EFL %.8f -> %.8f mm" % (efl0, efl1))
@@ -1835,7 +1963,6 @@ def phase_design_path():
                                                   for i in (4, 8, 16)),
            *(float(mtf_y[i]) for i in (4, 8, 16)), len(poly),
            float(psf_p.max()), float(psf_p.sum())))
-    failures = []
     for name, v in (("PSF", psf), ("MTF x", mtf_x), ("MTF y", mtf_y),
                     ("polychromatic PSF", psf_p)):
         if not bool(torch.isfinite(v).all()):
@@ -1844,7 +1971,26 @@ def phase_design_path():
         failures.append("PSF sum")
     if float(mtf_x[0]) != 1. or float(mtf_y[0]) != 1.:
         failures.append("MTF(0)")
-    # the host OPD and Zernike fit on axis (numpy) against K8 on the card
+    failures += host_opd_check(s, opd_kw)
+    if not all(b < a for a, b in zip(hist[:-1], hist[1:])):
+        failures.append("the merit did not fall at every step")
+    if not np.isfinite(efl1):
+        failures.append("EFL after write-back")
+    path = ("weighted_moments", "merit_adjoint", "opd_chain", "opd_adjoint")
+    if not all(launches[k] for k in path):
+        failures.append("K4, K5, K8 or K9 never launched: %s" % launches)
+    if failures:
+        raise AssertionError("design path on the %s failed: %s"
+                             % (lens, ", ".join(failures)))
+    return launches, float(steps[1:].mean())
+
+
+def host_opd_check(s, opd_kw):
+    """The host OPD and Zernike fit on axis (numpy) against K8 on the
+    card, the written-back system's own exit pupil and wavelength.
+    Returns the failures."""
+    from rayopt_tpu_torch import GeometricTrace
+    from rayopt_tpu_torch.ops.cuda_grad import adjoint_opd_rays
     g = GeometricTrace(s)
     g.rays_point((0., 0.), nrays=N_HOST_OPD, distribution="hexapolar",
                  filter=False)
@@ -1869,22 +2015,7 @@ def phase_design_path():
         "spherical %.6g waves, fit residual %.3e"
         % (int(good.sum()), host_err, land_err,
            float(np.ptp(hw[good])), coeff[3], coeff[10], resid))
-    if not host_err <= HOST_OPD_ATOL:
-        failures.append("host OPD cross-check")
-    if not all(b < a for a, b in zip(hist[:-1], hist[1:])):
-        failures.append("the merit did not fall at every step")
-    if not merit_rel <= OPT_MERIT_REL:
-        failures.append("step 0 merit")
-    failures += ["step 0 gradient of " + k for k, v in grad_rel.items()
-                 if not v <= OPT_GRAD_REL]
-    if not np.isfinite(efl1):
-        failures.append("EFL after write-back")
-    path = ("weighted_moments", "merit_adjoint", "opd_chain", "opd_adjoint")
-    if not all(launches[k] for k in path):
-        failures.append("K4, K5, K8 or K9 never launched: %s" % launches)
-    if failures:
-        raise AssertionError("design path failed: " + ", ".join(failures))
-    return launches
+    return [] if host_err <= HOST_OPD_ATOL else ["host OPD cross-check"]
 
 
 # -- the aspheric rows: K1, K2, K4 and K5 on figured keys ---------------------
@@ -1935,17 +2066,50 @@ def asphere_cases():
     return out
 
 
+def asphere_stack(name, s, table):
+    """(stack of 3 tables, its specs) of an aspheric lens for K3, K6 and
+    K7: the double Gauss's 3 wavelengths (System.tables); the singlet
+    (one wavelength of a constant index) with its refracting rows' mu
+    grown by 0, 1 and 2 % of mu - 1."""
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    from rayopt_tpu_torch.ops.tables import stack_tables
+    if name == "aspheric double Gauss":
+        tabs = s.tables()
+    else:
+        tabs = stack_tables([table.replace(mu=1 + (table.mu - 1)*(1 + .01*li))
+                             for li in range(3)])
+    return tabs, multi_specs(tabs, None)
+
+
+def singlet_opd_bundle(n, dtype, seed, widen=1.):
+    """The singlet's bundle with ray 0 the chief ray, collimated at
+    (0.5, 0.3) mm (off the axis, where its odd figure's gradient is
+    NaN); `widen` scales the footprint."""
+    state = [c.double().clone() for c in singlet_bundle(n, torch.float64,
+                                                        seed)]
+    for i, v in enumerate((.5, .3, 0., 0., 0., 1.)):
+        if i < 2:
+            state[i] = state[i]*widen
+        state[i][0] = v
+    return tuple(c.to(dtype).contiguous() for c in state)
+
+
 def asphere_keys():
-    """{tag: key} of the figured K1, K2, K4 and K5 keys this script runs:
-    on each aspheric lens, K1, K2 and K4 in both dtypes unclipped and K5
-    for every field with the ray cotangents (the checks and timings);
-    on the double Gauss also K5 for the designer loop's fields without
-    (ASPH_SELECT: its loop key) and for the finite-difference check's
-    (float64)."""
+    """{tag: key} of the figured keys this script runs: on each aspheric
+    lens, in both dtypes and unclipped, K1, K2, K4, K6, K8, K3 (merit
+    and trace) and K1 on the stack's specs, and K5, K7 and K9 for every
+    field with the ray cotangents (the checks and timings); on the
+    double Gauss also the loops' keys without them -- K5 for the
+    designer loop's fields (ASPH_SELECT) and the design loop's
+    (ASPH_DESIGN_FIELDS), K7 for the achromatization loop's
+    (ASPH_ACHROM_FIELDS), K9 for the design loop's -- and, in float64,
+    the finite-difference checks' (K5: conic and aspherics; K7: mu and
+    aspherics; K9: conic and aspherics)."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     keys = {}
-    for name, (_, _, specs, widths) in asphere_cases().items():
+    for name, (s, table, specs, widths) in asphere_cases().items():
         tag = "aspheric" if name == "aspheric double Gauss" else "odd"
+        _, mspecs = asphere_stack(name, s, table)
         for dtype in (torch.float32, torch.float64):
             dt = str(dtype)[6:]
             keys["K1 %s %s" % (dt, tag)] = CS.trace_key(specs, dtype,
@@ -1956,15 +2120,46 @@ def asphere_keys():
                                                           widths=widths)
             keys["K5 %s %s all rays=True" % (dt, tag)] = CS.adjoint_key(
                 specs, dtype, fields=CS.FIELDS, widths=widths)
+            for mode in ("merit", "trace"):
+                keys["K3 %s %s %s" % (dt, tag, mode)] = CS.trace_multi_key(
+                    mspecs, dtype, 3, mode == "merit", widths=widths)
+            keys["K6 %s %s" % (dt, tag)] = CS.moments_multi_key(
+                mspecs, dtype, False, 3, widths=widths)
+            keys["K7 %s %s all rays=True" % (dt, tag)] = \
+                CS.adjoint_multi_key(mspecs, dtype, widths=widths)
+            keys["K1 %s %s stack" % (dt, tag)] = CS.trace_key(
+                mspecs, dtype, widths=widths)
+            keys["K8 %s %s" % (dt, tag)] = CS.opd_key(specs, dtype,
+                                                      widths=widths)
+            keys["K9 %s %s all rays=True" % (dt, tag)] = \
+                CS.opd_adjoint_key(specs, dtype, widths=widths)
             if tag == "aspheric":
                 keys["K5 %s aspheric designer rays=False" % dt] = \
                     CS.adjoint_key(specs, dtype, fields=ASPH_SELECT,
                                    rays=False, widths=widths)
+                keys["K5 %s aspheric design rays=False" % dt] = \
+                    CS.adjoint_key(specs, dtype, fields=ASPH_DESIGN_FIELDS,
+                                   rays=False, widths=widths)
+                keys["K7 %s aspheric achromatization rays=False" % dt] = \
+                    CS.adjoint_multi_key(mspecs, dtype, False,
+                                         ASPH_ACHROM_FIELDS, False,
+                                         widths=widths)
+                keys["K9 %s aspheric design rays=False" % dt] = \
+                    CS.opd_adjoint_key(specs, dtype, False,
+                                       ASPH_DESIGN_FIELDS, False,
+                                       widths=widths)
         if tag == "aspheric":
-            # the finite-difference check's slot set (conic, aspherics)
+            # the finite-difference checks' slot sets
+            f64 = torch.float64
             keys["K5 float64 aspheric fd rays=False"] = CS.adjoint_key(
-                specs, torch.float64, fields=("conic", "aspherics"),
-                rays=False, widths=widths)
+                specs, f64, fields=("conic", "aspherics"), rays=False,
+                widths=widths)
+            keys["K7 float64 aspheric fd rays=False"] = CS.adjoint_multi_key(
+                mspecs, f64, False, ("mu", "aspherics"), False,
+                widths=widths)
+            keys["K9 float64 aspheric fd rays=False"] = CS.opd_adjoint_key(
+                specs, f64, False, ("conic", "aspherics"), False,
+                widths=widths)
     return keys
 
 
@@ -1982,34 +2177,52 @@ def singlet_bundle(n, dtype, seed):
                            uz))
 
 
-def asph_grad_fields(widths):
-    """K5's cotangent columns by table field, the coefficients' too."""
+def asph_grad_fields(widths, opd=False):
+    """K5's and K7's cotangent columns by table field, the
+    coefficients' too; with `opd`, K9's (n_before before the
+    coefficients)."""
     na, no = widths
-    out = GRAD_FIELDS
+    out = OPD_GRAD_FIELDS if opd else GRAD_FIELDS
+    q0 = 7 if opd else 6
     if na:
-        out += (("aspherics", slice(6, 6 + na)),)
+        out += (("aspherics", slice(q0, q0 + na)),)
     if no:
-        out += (("aspherics_odd", slice(6 + na, 6 + na + no)),)
+        out += (("aspherics_odd", slice(q0 + na, q0 + na + no)),)
     return out
 
 
 def phase_asphere_check():
-    """Each figured K1, K2, K4 and K5 key against its plain version on
-    the card (phase_check and phase_grad_check, unclipped) on the
-    aspheric double Gauss and the odd singlet, K5 with the coefficient
-    columns; then K5's float64 gradient against central differences of
-    the K4 merit for row 7's A4 and A6 and row 2's conic.  Returns the
-    float32 errors for the kernels line."""
+    """Each figured key against its plain version on the card, unclipped,
+    on the aspheric double Gauss and the odd singlet: K1, K2, K4 and K5
+    (phase_check, phase_grad_check), K3, K6 and K7 on the lens's stack
+    (phase_multi_check) and K8 and K9 (phase_opd_check), the adjoints
+    with the coefficient columns and, on the double Gauss, the loops'
+    keys; then K5's float64 gradient against central differences of the
+    K4 merit for row 7's A4 and A6 and row 2's conic, and K7's and K9's
+    (phase_asphere_fd_check).  Returns the float32 errors for the
+    kernels line."""
     from rayopt_tpu_torch.ops.cuda_grad import spot_moments, weighted_moments
     from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
     worst = {}
-    for lens, (_, table, specs, widths) in asphere_cases().items():
-        bundle = singlet_bundle if lens == "odd singlet" else bench_bundle
+    for lens, (s, table, specs, widths) in asphere_cases().items():
+        singlet = lens == "odd singlet"
+        bundle = singlet_bundle if singlet else bench_bundle
+        tabs, mspecs = asphere_stack(lens, s, table)
         for errs in (phase_check(table, specs, lens, bundle, (False,)),
                      phase_grad_check(table, specs, lens, bundle, (False,),
-                                      asph_grad_fields(widths))):
+                                      asph_grad_fields(widths)),
+                     phase_multi_check(
+                         tabs, mspecs, lens + ", its stack", bundle,
+                         (False,), asph_grad_fields(widths),
+                         None if singlet else ASPH_ACHROM_FIELDS),
+                     phase_opd_check(
+                         s, table, specs, lens,
+                         singlet_opd_bundle if singlet else None, (False,),
+                         asph_grad_fields(widths, opd=True),
+                         None if singlet else ASPH_DESIGN_FIELDS)):
             worst.update({k: max(v, worst.get(k, 0.))
                           for k, v in errs.items()})
+    phase_asphere_fd_check()
     failures = []
     # K5 against central differences of the K4 merit, float64
     _, table, specs, _ = asphere_cases()["aspheric double Gauss"]
@@ -2054,6 +2267,88 @@ def phase_asphere_check():
     return worst
 
 
+def phase_asphere_fd_check():
+    """On the aspheric double Gauss, float64, N_CHECK bench rays, against
+    central differences: K7's gradient of the K6 merit (the union spot
+    RMS of its 3 wavelengths) w.r.t. row ASPH_ROW's A4 and the vd of the
+    glass slot with the largest gradient (through glass_tables), and
+    K9's of the K8 wavefront RMS (ray 0 the chief ray) w.r.t. A4 and
+    row 2's conic."""
+    from rayopt_tpu_torch import glass
+    from rayopt_tpu_torch.ops.cuda_grad import adjoint_wavefront_rms
+    s, table, specs, _ = asphere_cases()["aspheric double Gauss"]
+    tabs, mspecs = asphere_stack("aspheric double Gauss", s, table)
+    nlam = tabs.curvature.shape[0]
+    asg = glass.glass_assignment(s)
+    nd0, vd0 = glass.initial_glass_params(s, asg[2])
+    nd = torch.tensor(nd0, device=DEVICE)
+    log("== K7 and K9 on the aspheric double Gauss vs central differences "
+        "of the K6 merit and the K8 wavefront RMS (float64, %d bench rays; "
+        "steps A4 %g, vd %g, conic %g)" % (N_CHECK, ASPH_FD_STEP["A4"],
+                                           FD_VD_STEP, ASPH_FD_STEP["conic"]))
+    state = bench_bundle(N_CHECK, torch.float64, SEED)
+    w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+    y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+    a0 = tabs.aspherics[0]
+
+    def k6(a, vd):
+        tb = glass.glass_tables(tabs.replace(aspherics=a.expand(
+            nlam, -1, -1)), nd, vd, asg, s.wavelengths)
+        return glass.polychromatic_spot_rms(tb, y0, u0, w, specs=mspecs,
+                                            engine="adjoint")
+    ostate = opd_bundle(N_CHECK, torch.float64, SEED)
+    oy, ou = torch.stack(ostate[:3], 1), torch.stack(ostate[3:], 1)
+    kw = dict(ref=0, radius=-s.image.pupil.distance,
+              wavelength=s.wavelengths[0], scale=s.scale,
+              finite=s.object.finite, specs=specs)
+
+    def k8(tab):
+        return adjoint_wavefront_rms(tab, oy, ou, **kw)
+    a = a0.clone().requires_grad_()
+    vd = torch.tensor(vd0, device=DEVICE, requires_grad=True)
+    ak = table.aspherics.clone().requires_grad_()
+    k = table.conic.clone().requires_grad_()
+    with warnings.catch_warnings():
+        # the baked rows, as intended
+        warnings.simplefilter("ignore")
+        k6(a, vd).backward()
+        k8(table.replace(aspherics=ak, conic=k)).backward()
+    j = int(torch.argmax(vd.grad.abs()))
+
+    def bumped(base, idx, h):
+        v = base.clone()
+        v[idx] += h
+        return v
+    vd_t = torch.tensor(vd0, device=DEVICE)
+    picks = (
+        ("K7", "A4 of row %d" % ASPH_ROW, float(a.grad[ASPH_ROW, 1]),
+         ASPH_FD_STEP["A4"],
+         lambda h: k6(bumped(a0, (ASPH_ROW, 1), h), vd_t)),
+        ("K7", "vd of slot %d (element %d)" % (j, asg[2][j]),
+         float(vd.grad[j]), FD_VD_STEP,
+         lambda h: k6(a0, bumped(vd_t, j, h))),
+        ("K9", "A4 of row %d" % ASPH_ROW, float(ak.grad[ASPH_ROW, 1]),
+         ASPH_FD_STEP["A4"],
+         lambda h: k8(table.replace(aspherics=bumped(
+             table.aspherics, (ASPH_ROW, 1), h)))),
+        ("K9", "conic of row 2", float(k.grad[2]), ASPH_FD_STEP["conic"],
+         lambda h: k8(table.replace(conic=bumped(table.conic, 2, h)))))
+    failures = []
+    with torch.no_grad():
+        for kern, what, g, h, merit in picks:
+            fd = (float(merit(h)) - float(merit(-h)))/(2*h)
+            rel = abs(g - fd)/abs(fd)
+            ok = rel <= FD_REL
+            log("%s, %s: kernel %.12g, central difference %.12g, rel %.2e "
+                "-> %s" % (kern, what, g, fd, rel, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("%s %s" % (kern, what))
+    if failures:
+        raise AssertionError("K7 or K9 on the aspheric double Gauss "
+                             "disagrees with finite differences: "
+                             + ", ".join(failures))
+
+
 def newton_misses(table, specs, state, row):
     """The rays the Newton of figured row `row` declares a miss: live
     into the row with a finite conic seed and a NaN intercept (plain
@@ -2080,18 +2375,23 @@ def newton_misses(table, specs, state, row):
     return int((live & torch.isfinite(seed) & torch.isnan(t)).sum())
 
 
-def phase_asphere_path(opt_step):
+def phase_asphere_path(opt_step, glass_step, design_step):
     """The aspheric slice's main path through the entry points a user
     calls: the aspheric double Gauss aimed at fields 0, 0.7 and 1 (its
     pupils by System.pupils on the card against the host pupil at tol
     AIM_HOST_TOL, the rays by the host's), float64 K1 and K2 on N_ASPH
     rays a field against the CPU float64 plain trace (spot RMS to
     PARITY_REL, equal NaN masks, the Newton's misses counted), float32
-    reported; then its designer loop (designer_loop over ASPH_SELECT
-    with ASPH_SCALES), whose later steps are logged beside the spherical
-    double Gauss's `opt_step` seconds.  Returns the path's launches (the
-    forward part's, counted from the caller's reset, and the loop's)
-    and the loop's later-step seconds."""
+    reported; then its three loops: the designer loop (designer_loop
+    over ASPH_SELECT with ASPH_SCALES), the achromatization loop
+    (phase_glass_path, K3, K6 and K7; row ASPH_ROW's coefficients too)
+    and the composite design step (phase_design_path over
+    ASPH_DESIGN_SELECT: K4, K5, K8 and K9), each loop's step 0 held
+    against the CPU at N_ASPH_CHECK nrays a bundle on both devices and
+    its later steps logged beside the spherical double Gauss's
+    (`opt_step`, `glass_step`, `design_step` seconds).  Returns the
+    path's launches (the forward part's, counted from the caller's
+    reset, and each loop's) and the loops' later-step seconds."""
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
                                                  trace_merit)
     from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
@@ -2175,10 +2475,21 @@ def phase_asphere_path(opt_step):
     log("== launch counts on the aspheric forward path: %s" % forward)
     loop, step = designer_loop(aspheric_double_gauss(),
                                "aspheric designer loop: aspheric double "
-                               "Gauss", ASPH_SELECT, ASPH_SCALES)
-    log("designer loop later steps: aspheric double Gauss %.4f s, double "
-        "Gauss %.4f s (%.2fx)" % (step, opt_step, step/opt_step))
-    return {k: v + loop[k] for k, v in forward.items()}, step
+                               "Gauss", ASPH_SELECT, ASPH_SCALES,
+                               N_ASPH_CHECK)
+    glass, gstep = phase_glass_path(aspheric_double_gauss(),
+                                    "aspheric double Gauss", N_ASPH_CHECK)
+    design, dstep = phase_design_path(aspheric_double_gauss(),
+                                      "aspheric double Gauss",
+                                      ASPH_DESIGN_SELECT, ASPH_SCALES,
+                                      N_ASPH_CHECK)
+    steps = {"designer": step, "achromatization": gstep, "design": dstep}
+    log("later steps: %s" % ", ".join(
+        "%s loop aspheric double Gauss %.4f s, double Gauss %.4f s (%.2fx)"
+        % (k, v, t, v/t) for (k, v), t in zip(
+            steps.items(), (opt_step, glass_step, design_step))))
+    return ({k: v + loop[k] + glass[k] + design[k]
+             for k, v in forward.items()}, steps)
 
 
 def step_breakdown(table, specs, wave, parts):
@@ -2629,12 +2940,12 @@ def in_turns(kernel, plain=None, twin=None, reps=20):
     return ((k1 + k2)/2, (p1 + p2)/2, (s1 + s2)/2), (k1, k2, p1, p2, s1, s2)
 
 
-def twin_note(k, sp_, s1, s2):
+def twin_note(k, sp_, s1, s2, what="double Gauss key"):
     """The log's note of a twin timing (empty without one)."""
     if sp_ != sp_:
         return ""
-    return (" | double Gauss key %.4f ms (%.4f, %.4f), kernel/twin %.3fx"
-            % (sp_, s1, s2, k/sp_))
+    return (" | %s %.4f ms (%.4f, %.4f), kernel/twin %.3fx"
+            % (what, sp_, s1, s2, k/sp_))
 
 
 def peak_gib(fn):
@@ -2786,16 +3097,20 @@ def phase_grad_throughput(table, specs, card, twin=None,
     return times
 
 
-def phase_multi_throughput(tabs, specs, card):
+def phase_multi_throughput(tabs, specs, card, twin=None,
+                           loop=ACHROM_FIELDS):
     """K3 (merit and trace), K6 and K7 against their plain versions and
-    against nlam launches of their monochromatic twins (K2 and K1, K4,
-    K5) on the same bundle, with K7 for every field and the ray cotangents (the work of
-    the earlier run-time-flag K7) beside K7 for the achromatization
-    path's key; K6 and K7 both ways in float64 at one achromatization
-    bundle's N_OPT_BUNDLE rays; then the three alone at N_BENCH rays in
-    float32.
-    Returns the times and the live ray traces (summed over the
-    wavelengths) of each timing bundle."""
+    their twins on the same bundle, with K7 for every field and the ray
+    cotangents (the work of the earlier run-time-flag K7) beside K7 for
+    the achromatization path's key (the fields `loop`); K6 and K7 both
+    ways in float64 at one achromatization bundle's N_OPT_BUNDLE rays;
+    then the three alone at N_BENCH rays in float32, beside their
+    twins.  The twins: nlam launches of the monochromatic twins (K2 and
+    K1, K4, K5), or, with `twin` (another lens's stack and specs: the
+    double Gauss's beside the aspheric one), that lens's keys (its
+    achromatization key for the loop's).  Returns the times (kernel,
+    plain, twin) and the live ray traces (summed over the wavelengths)
+    of each timing bundle."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         merit_adjoint, merit_adjoint_multi, merit_adjoint_multi_reference,
         weighted_moments, weighted_moments_multi,
@@ -2805,178 +3120,166 @@ def phase_multi_throughput(tabs, specs, card):
     from rayopt_tpu_torch.ops.tables import table_at
     nlam = tabs.curvature.shape[0]
     one = [table_at(tabs, li) for li in range(nlam)]
-    log("== K3/K6/K7 throughput: %d bench rays x %d wavelengths against the "
-        "plain versions and %d launches of the monochromatic twin, then %d "
-        "rays kernel alone (%s)" % (N_GRAD_TIME, nlam, nlam, N_BENCH, card))
+    what = ("the double Gauss's keys" if twin else
+            "%d launches of the monochromatic twin" % nlam)
+    log("== K3/K6/K7 throughput%s: %d bench rays x %d wavelengths against "
+        "the plain versions and %s, then %d rays kernel alone (%s)"
+        % (" (aspheric double Gauss)" if twin else "", N_GRAD_TIME, nlam,
+           what, N_BENCH, card))
 
-    def cases(state, w, ct):
+    def cases(state, w, ct, tb=tabs, sp=specs, lp=loop):
         return (
             ("trace_multi",
-             lambda: trace_multi(tabs, specs, state, merit=True),
-             lambda: trace_multi_reference(tabs, specs, state, merit=True),
-             lambda: [trace_merit(t, specs, state) for t in one]),
+             lambda: trace_multi(tb, sp, state, merit=True),
+             lambda: trace_multi_reference(tb, sp, state, merit=True),
+             lambda: [trace_merit(t, sp, state) for t in one]),
             ("trace_multi_trace",
-             lambda: trace_multi(tabs, specs, state),
-             lambda: trace_multi_reference(tabs, specs, state),
-             lambda: [trace_final(t, specs, state) for t in one]),
+             lambda: trace_multi(tb, sp, state),
+             lambda: trace_multi_reference(tb, sp, state),
+             lambda: [trace_final(t, sp, state) for t in one]),
             ("weighted_moments_multi",
-             lambda: weighted_moments_multi(tabs, specs, state, w),
-             lambda: weighted_moments_multi_reference(tabs, specs, state, w),
-             lambda: [weighted_moments(t, specs, state, w) for t in one]),
+             lambda: weighted_moments_multi(tb, sp, state, w),
+             lambda: weighted_moments_multi_reference(tb, sp, state, w),
+             lambda: [weighted_moments(t, sp, state, w) for t in one]),
             ("merit_adjoint_multi",
-             lambda: merit_adjoint_multi(tabs, specs, state, w, ct),
-             lambda: merit_adjoint_multi_reference(tabs, specs, state, w,
-                                                   ct),
-             lambda: [merit_adjoint(t, specs, state, w, ct[li])
-                      for li, t in enumerate(one)]))
-    def achromatization_k7(state, w, ct):
-        return lambda: merit_adjoint_multi(tabs, specs, state, w, ct,
-                                           fields=ACHROM_FIELDS, rays=False)
+             lambda: merit_adjoint_multi(tb, sp, state, w, ct),
+             lambda: merit_adjoint_multi_reference(tb, sp, state, w, ct),
+             lambda: [merit_adjoint(t, sp, state, w, ct[li])
+                      for li, t in enumerate(one)]),
+            ("merit_adjoint_multi_loop",
+             lambda: merit_adjoint_multi(tb, sp, state, w, ct, fields=lp,
+                                         rays=False), None, None))
+
+    def setup(n, dtype):
+        """The bench bundle, its weights and the kernel and twin
+        cases (name, kernel, plain, twin); the live ray traces."""
+        state = bench_bundle(n, dtype, SEED + 1)
+        w = bench_weights(n, dtype, SEED + 3)
+        ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
+        out = cases(state, w, ct)
+        if twin:
+            tct = rms_cotangent(weighted_moments_multi(*twin, state, w))
+            out = [(name, k, p, t[1]) for (name, k, p, _), t in zip(
+                out, cases(state, w, tct, *twin, ACHROM_FIELDS))]
+        return out, sum(float(m[0]) for m in trace_multi(tabs, specs, state,
+                                                         merit=True))
     times, live = {}, {}
     for dtype in (torch.float32, torch.float64):
-        state = bench_bundle(N_GRAD_TIME, dtype, SEED + 1)
-        w = bench_weights(N_GRAD_TIME, dtype, SEED + 3)
-        ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
-        live[dtype] = sum(float(m[0]) for m in trace_multi(
-            tabs, specs, state, merit=True))
-        for name, kernel, plain, twin in cases(state, w, ct):
-            # in turns: plain, kernel, twin, kernel, twin, plain
-            p1 = cuda_ms(plain, 3)
-            k1 = cuda_ms(kernel, 20)
-            t1 = cuda_ms(twin, 20)
-            k2 = cuda_ms(kernel, 20)
-            t2 = cuda_ms(twin, 20)
-            p2 = cuda_ms(plain, 3)
-            k, p, t = (k1 + k2)/2, (p1 + p2)/2, (t1 + t2)/2
-            mem_k, mem_p = peak_gib(kernel), peak_gib(plain)
+        pairs, live[dtype] = setup(N_GRAD_TIME, dtype)
+        for name, kernel, plain, twin_fn in pairs:
+            (k, p, t), (k1, k2, p1, p2, t1, t2) = in_turns(kernel, plain,
+                                                           twin_fn)
             times[(name, dtype)] = (k, p, t)
-            log("%s %s: kernel %.4f ms (%.4f, %.4f), %d twin launches %.4f "
-                "ms (%.4f, %.4f), plain %.4f ms (%.4f, %.4f) | twins/kernel "
-                "%.2fx, plain/kernel %.2fx | peak memory %.3f vs %.3f GiB | "
-                "%s" % (name, str(dtype)[6:], k, k1, k2, nlam, t, t1, t2, p,
-                        p1, p2, t/k, p/k, mem_k, mem_p, card))
-        k = cuda_ms(achromatization_k7(state, w, ct), 20)
-        times[("merit_adjoint_multi_loop", dtype)] = k
-        log("merit_adjoint_multi %s, the achromatization key (%s, no ray "
-            "cotangents): kernel %.4f ms | %s"
-            % (str(dtype)[6:], ", ".join(ACHROM_FIELDS), k, card))
-        del state, w
+            log("%s %s: kernel %.4f ms (%.4f, %.4f), plain %.4f ms (%.4f, "
+                "%.4f), plain/kernel %.2fx%s | %s"
+                % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k,
+                   twin_note(k, t, t1, t2, what), card))
+        del pairs
         torch.cuda.empty_cache()
-    state = bench_bundle(N_OPT_BUNDLE, torch.float64, SEED + 1)
-    w = bench_weights(N_OPT_BUNDLE, torch.float64, SEED + 3)
-    ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
-    live[N_OPT_BUNDLE] = sum(float(m[0]) for m in trace_multi(
-        tabs, specs, state, merit=True))
-    for name, fn in (("weighted_moments_multi",
-                      lambda: weighted_moments_multi(tabs, specs, state, w)),
-                     ("merit_adjoint_multi", lambda: merit_adjoint_multi(
-                         tabs, specs, state, w, ct)),
-                     ("merit_adjoint_multi_loop",
-                      achromatization_k7(state, w, ct))):
-        k = cuda_ms(fn, 20)
-        times[(name, N_OPT_BUNDLE)] = k
-        log("%s float64 at %d rays x %d wavelengths: kernel %.4f ms | %s"
-            % (name, N_OPT_BUNDLE, nlam, k, card))
-    del state, w
-    state = bench_bundle(N_BENCH, torch.float32, SEED + 1)
-    w = bench_weights(N_BENCH, torch.float32, SEED + 3)
-    ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
-    live[N_BENCH] = sum(float(m[0]) for m in trace_multi(
-        tabs, specs, state, merit=True))
-    for name, kernel, _, twin in cases(state, w, ct):
-        k1 = cuda_ms(kernel, 10)
-        t1 = cuda_ms(twin, 10)
-        k2 = cuda_ms(kernel, 10)
-        t2 = cuda_ms(twin, 10)
-        k, t = (k1 + k2)/2, (t1 + t2)/2
+    pairs, live[N_OPT_BUNDLE] = setup(N_OPT_BUNDLE, torch.float64)
+    for name, kernel, _, twin_fn in pairs:
+        if name in ("weighted_moments_multi", "merit_adjoint_multi",
+                    "merit_adjoint_multi_loop") or twin:
+            (k, _, t), (k1, k2, _, _, t1, t2) = in_turns(
+                kernel, None, twin_fn if twin else None)
+            times[(name, N_OPT_BUNDLE)] = k
+            times[(name, N_OPT_BUNDLE, "twin")] = t
+            log("%s float64 at %d rays x %d wavelengths: kernel %.4f ms "
+                "(%.4f, %.4f)%s | %s" % (name, N_OPT_BUNDLE, nlam, k, k1, k2,
+                                         twin_note(k, t, t1, t2, what),
+                                         card))
+    del pairs
+    pairs, live[N_BENCH] = setup(N_BENCH, torch.float32)
+    for name, kernel, _, twin_fn in pairs:
+        if twin_fn is None:
+            continue
+        (k, _, t), (k1, k2, _, _, t1, t2) = in_turns(kernel, None, twin_fn,
+                                                     10)
         times[(name, N_BENCH)] = k
         times[(name, N_BENCH, "twin")] = t
         log("%s float32 at %d rays x %d wavelengths: kernel %.4f ms (%.4f, "
-            "%.4f), %d twin launches %.4f ms (%.4f, %.4f), twins/kernel "
-            "%.2fx, peak memory %.3f GiB | plain: not run (memory) | %s"
-            % (name, N_BENCH, nlam, k, k1, k2, nlam, t, t1, t2, t/k,
+            "%.4f)%s, peak memory %.3f GiB | plain: not run (memory) | %s"
+            % (name, N_BENCH, nlam, k, k1, k2, twin_note(k, t, t1, t2, what),
                peak_gib(kernel), card))
-    del state, w
+    del pairs
     torch.cuda.empty_cache()
     return times, live
 
 
-def phase_opd_throughput(s, table, specs, card):
+def phase_opd_throughput(s, table, specs, card, twin=None,
+                         loop=DESIGN_FIELDS):
     """K8 and K9 (wavefront-RMS cotangents; K9 for every field and the
     ray cotangents, the work of the earlier run-time-flag K9) against
     their plain versions at N_GRAD_TIME rays in float32 and float64,
-    beside K9 for the design path's key; K8 and both K9s in float64 at
-    one design bundle's N_OPT_BUNDLE rays; then K8 and K9 alone at
-    N_BENCH rays in float32.  Returns the times and the live rays of each
-    timing bundle (K9's reverse runs for these only)."""
+    beside K9 for the design path's key (the fields `loop`); K8 and both
+    K9s in float64 at one design bundle's N_OPT_BUNDLE rays; then K8 and
+    K9 alone at N_BENCH rays in float32.  With `twin` (another lens's
+    system, table and specs: the double Gauss beside the aspheric one),
+    that lens's keys (its design key for the loop's) on the same rays,
+    each with its own reference sphere and cotangents, in turns at
+    N_GRAD_TIME.  Returns the times (kernel, plain, twin) and the live
+    rays of each timing bundle (K9's reverse runs for these only)."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
-    log("== K8/K9 throughput: %d bench rays (ray 0 the chief ray) against "
-        "the plain versions, then %d rays kernel alone (%s)"
-        % (N_GRAD_TIME, N_BENCH, card))
+    log("== K8/K9 throughput%s: %d bench rays (ray 0 the chief ray) against "
+        "the plain versions%s, then %d rays kernel alone (%s)"
+        % (" (aspheric double Gauss)" if twin else "", N_GRAD_TIME,
+           " and the double Gauss's keys" if twin else "", N_BENCH, card))
+
+    def pairs(state, sy=s, tb=table, sp=specs, lp=loop):
+        aux = opd_aux(sy, tb, sp, state)
+        k = opd_chain(tb, sp, state, aux)
+        cts = opd_cotangents(*k, "wavefront")
+        return (
+            ("opd_chain",
+             lambda: opd_chain(tb, sp, state, aux),
+             lambda: opd_chain_reference(tb, sp, state, aux)),
+            ("opd_adjoint",
+             lambda: opd_adjoint(tb, sp, state, aux, cts),
+             lambda: opd_adjoint_reference(tb, sp, state, aux, cts)),
+            ("opd_adjoint_loop",
+             lambda: opd_adjoint(tb, sp, state, aux, cts, fields=lp,
+                                 rays=False), None)), \
+            int(torch.isfinite(k[0]).sum())
 
     def setup(n, dtype):
         state = opd_bundle(n, dtype, SEED + 1)
-        aux = opd_aux(s, table, specs, state)
-        k = opd_chain(table, specs, state, aux)
-        return state, aux, opd_cotangents(*k, "wavefront"), \
-            int(torch.isfinite(k[0]).sum())
-
-    def pairs(state, aux, cts):
-        return (
-            ("opd_chain",
-             lambda: opd_chain(table, specs, state, aux),
-             lambda: opd_chain_reference(table, specs, state, aux)),
-            ("opd_adjoint",
-             lambda: opd_adjoint(table, specs, state, aux, cts),
-             lambda: opd_adjoint_reference(table, specs, state, aux, cts)))
-    def design_k9(state, aux, cts):
-        return lambda: opd_adjoint(table, specs, state, aux, cts,
-                                   fields=DESIGN_FIELDS, rays=False)
+        mine, nlive = pairs(state)
+        twins = pairs(state, *twin, DESIGN_FIELDS)[0] if twin else \
+            ((None, None, None),)*3
+        return [(name, k, p, t[1]) for (name, k, p), t in zip(mine, twins)], \
+            nlive
     times, live = {}, {}
     for dtype in (torch.float32, torch.float64):
-        state, aux, cts, nlive = setup(N_GRAD_TIME, dtype)
-        live[dtype] = nlive
-        for name, kernel, plain in pairs(state, aux, cts):
-            # in turns: plain, kernel, kernel, plain
-            p1 = cuda_ms(plain, 3)
-            k1 = cuda_ms(kernel, 20)
-            k2 = cuda_ms(kernel, 20)
-            p2 = cuda_ms(plain, 3)
-            k, p = (k1 + k2)/2, (p1 + p2)/2
-            mem_k, mem_p = peak_gib(kernel), peak_gib(plain)
-            times[(name, dtype)] = (k, p)
+        cases, live[dtype] = setup(N_GRAD_TIME, dtype)
+        for name, kernel, plain, twin_fn in cases:
+            (k, p, t), (k1, k2, p1, p2, t1, t2) = in_turns(kernel, plain,
+                                                           twin_fn)
+            times[(name, dtype)] = (k, p, t)
             log("%s %s: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
-                "(%.4f, %.4f), plain/kernel %.2fx | live rays %d | peak "
-                "memory %.3f vs %.3f GiB | %s"
-                % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k, nlive,
-                   mem_k, mem_p, card))
-        k = cuda_ms(design_k9(state, aux, cts), 20)
-        times[("opd_adjoint_loop", dtype)] = k
-        log("opd_adjoint %s, the design key (%s, no ray cotangents): "
-            "kernel %.4f ms | %s" % (str(dtype)[6:], ", ".join(DESIGN_FIELDS),
-                                     k, card))
-        del state, cts
+                "(%.4f, %.4f), plain/kernel %.2fx%s | live rays %d | %s"
+                % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k,
+                   twin_note(k, t, t1, t2), live[dtype], card))
+        del cases
         torch.cuda.empty_cache()
-    state, aux, cts, live[N_OPT_BUNDLE] = setup(N_OPT_BUNDLE, torch.float64)
-    for name, fn in (("opd_chain", lambda: opd_chain(table, specs, state,
-                                                     aux)),
-                     ("opd_adjoint", lambda: opd_adjoint(table, specs, state,
-                                                         aux, cts)),
-                     ("opd_adjoint_loop", design_k9(state, aux, cts))):
-        k = cuda_ms(fn, 20)
+    cases, live[N_OPT_BUNDLE] = setup(N_OPT_BUNDLE, torch.float64)
+    for name, kernel, _, twin_fn in cases:
+        (k, _, t), (k1, k2, _, _, t1, t2) = in_turns(kernel, None, twin_fn)
         times[(name, N_OPT_BUNDLE)] = k
-        log("%s float64 at %d rays: kernel %.4f ms, live rays %d | %s"
-            % (name, N_OPT_BUNDLE, k, live[N_OPT_BUNDLE], card))
-    del state, cts
-    state, aux, cts, nlive = setup(N_BENCH, torch.float32)
-    for name, kernel, _ in pairs(state, aux, cts):
+        times[(name, N_OPT_BUNDLE, "twin")] = t
+        log("%s float64 at %d rays: kernel %.4f ms (%.4f, %.4f)%s, live "
+            "rays %d | %s" % (name, N_OPT_BUNDLE, k, k1, k2,
+                              twin_note(k, t, t1, t2), live[N_OPT_BUNDLE],
+                              card))
+    del cases
+    cases, nlive = setup(N_BENCH, torch.float32)
+    for name, kernel, _, _ in cases[:2]:
         k = cuda_ms(kernel, 10)
         times[(name, N_BENCH)] = k
         log("%s float32 at %d rays: kernel %.4f ms, live rays %d, peak "
             "memory %.3f GiB | plain: not run (memory) | %s"
             % (name, N_BENCH, k, nlive, peak_gib(kernel), card))
-    del state, cts
+    del cases
     torch.cuda.empty_cache()
     return times, live
 
@@ -3141,13 +3444,15 @@ def chain_flops(specs, widths=(0, 0)):
             + 30*(int(specs[0].rotated) + int(specs[-1].rotated)))
 
 
-def chain_vjp_flops(specs, widths=(0, 0)):
-    """Operations of K5's reverse sweep for one live ray: 3x the forward
-    chain (a row's recompute and its reverse, PERF.md's estimate), but
-    an aspheric row counted from csrc/step_vjp.cuh figured_step_vjp --
-    its recompute (the whole Newton once), the refraction's reverse (~75
-    and the figures' terms), the transfer's, and the implicit step: one
-    slope and the residual's gradient."""
+def chain_vjp_flops(specs, widths=(0, 0), path=False):
+    """Operations of K5's and K7's reverse sweep for one live ray: 3x
+    the forward chain (a row's recompute and its reverse, PERF.md's
+    estimate), but an aspheric row counted from csrc/step_vjp.cuh
+    figured_step_vjp -- its recompute (the whole Newton once), the
+    refraction's reverse (~75 and the figures' terms), the transfer's,
+    and the implicit step: one slope and the residual's gradient.  With
+    `path` (K9's PATH form), an aspheric row also adds its optical
+    path's cotangent to gt and takes n_before's (3)."""
     na, no = widths
     total = 3*chain_flops(specs, widths)
     for sp in specs[1:]:
@@ -3155,7 +3460,8 @@ def chain_vjp_flops(specs, widths=(0, 0)):
             rf = row_flops(sp, widths)
             rev = (75 + (6*na if sp.aspheric else 0)
                    + (12*no if sp.odd else 0) + 9 + slope_flops(na, no)
-                   + 38 + 3*na + 6*no + (60 if sp.rotated else 0))
+                   + 38 + 3*na + 6*no + (60 if sp.rotated else 0)
+                   + (3 if path else 0))
             total += rf + rev - 3*rf
     return total
 
@@ -3174,16 +3480,20 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0)):
     reverse sweeps of K5/K7/K9 run only for live rays (`live`: live ray
     traces, summed over wavelengths) and are counted as 3x the forward
     chain (PERF.md's estimate for the adjoint; an aspheric row by
-    chain_vjp_flops) plus the seeding (K9: the tail's reverse).
-    `widths`: a figured key's (na, no), its rows' coefficients."""
+    chain_vjp_flops, K9's in its PATH form) plus the seeding (K9: the
+    tail's reverse).  `widths`: a figured key's (na, no), its rows'
+    coefficients."""
     word = 4 if dtype == torch.float32 else 8
     chain = chain_flops(specs, widths)
     vjp = chain_vjp_flops(specs, widths)
-    # K8's chain stops at row S-2 and adds the sphere tail
+    # K8's chain stops at row S-2 and adds the sphere tail; K9's reverse
+    # is 3x that, its aspheric rows counted as chain_vjp_flops' PATH form
     opd = chain - row_flops(specs[-1]) + OPD_TAIL_FLOPS
+    opd_vjp = (3*opd + chain_vjp_flops(specs[:-1], widths, path=True)
+               - 3*chain_flops(specs[:-1], widths))
     words_in, words_out, flops = {
         "opd_chain": (6, 3, n*opd),
-        "opd_adjoint": (9, 6, n*opd + live*(3*opd + OPD_TAIL_VJP_FLOPS)),
+        "opd_adjoint": (9, 6, n*opd + live*(opd_vjp + OPD_TAIL_VJP_FLOPS)),
         "trace_final": (6, 7, n*chain),
         "trace_merit": (6, 0, n*(chain + 7)),
         # K3's merit writes (nlam, 5) moments, its trace 7 words a ray
@@ -3196,16 +3506,17 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0)):
         # K5 for the optimizer's slot set (the aspheric designer loop's
         # too) writes nothing a ray
         "merit_adjoint_optimizer": (7, 0, n*chain + live*(vjp + 11)),
-        "merit_adjoint_multi": (7, 7, n*nlam*chain + live*(3*chain + 11)),
+        "merit_adjoint_multi": (7, 7, n*nlam*chain + live*(vjp + 11)),
         # K7 for the achromatization path's key, K9 for the design
         # path's: nothing written a ray
-        "merit_adjoint_multi_loop": (7, 0,
-                                     n*nlam*chain + live*(3*chain + 11)),
-        "opd_adjoint_loop": (9, 0, n*opd + live*(3*opd + OPD_TAIL_VJP_FLOPS)),
+        "merit_adjoint_multi_loop": (7, 0, n*nlam*chain + live*(vjp + 11)),
+        "opd_adjoint_loop": (9, 0,
+                             n*opd + live*(opd_vjp + OPD_TAIL_VJP_FLOPS)),
     }[name]
     # K9 also writes its parameter and centre cotangents, K3's merit its
     # moments
-    slots = len(specs)*7 + 3 if name.startswith("opd_adjoint") else 0
+    slots = (len(specs)*(7 + sum(widths)) + 3
+             if name.startswith("opd_adjoint") else 0)
     if name == "trace_multi":
         slots = 5*nlam
     nbytes = (n*(words_in + words_out)
@@ -3379,15 +3690,18 @@ def df32_entries(s, launches, worst, times, live, ptxas, sass):
     return entries
 
 
-def asphere_entries(sources, launches, worst, times, ptxas, step, opt_step):
-    """The kernels line's entries of the figured K1, K2, K4 and K5 keys
-    (the aspheric double Gauss): the aspheric path's launches, the
-    float32 errors of phase_asphere_check, the times of the throughput
-    phases run on it (beside the double Gauss's keys and the plain
-    versions), the bounds counted with the Newton (kernel_bound's
+def asphere_entries(sources, launches, worst, times, ptxas, steps, opt_step,
+                    mtimes, mlive):
+    """The kernels line's entries of the figured keys (the aspheric
+    double Gauss): the aspheric path's launches, the float32 errors of
+    phase_asphere_check, the times of the throughput phases run on it
+    (beside the double Gauss's keys and the plain versions; K3 and K6-K9
+    from phase_multi_throughput's and phase_opd_throughput's aspheric
+    runs, `mtimes`, and their live rays under "multi" and "opd",
+    `mlive`), the bounds counted with the Newton (kernel_bound's
     widths), and the loop keys' registers, stack and spills."""
     from rayopt_tpu_torch.ops.cuda_trace import trace_merit
-    _, table, specs, widths = asphere_cases()["aspheric double Gauss"]
+    s, table, specs, widths = asphere_cases()["aspheric double Gauss"]
     # live rays of the K5 timing bundles (its reverse runs for these only)
     live = {key: float(trace_merit(table, specs, bench_bundle(
         n, dtype, SEED + 1))[0]) for key, n, dtype in (
@@ -3454,8 +3768,8 @@ def asphere_entries(sources, launches, worst, times, ptxas, step, opt_step):
                 "ms_spherical_optimizer_key_f64":
                     times[(opt, torch.float64, "twin")],
                 "bound_ms_designer_f64": bound(torch.float64, opt)[0],
-                "designer_step_s": step, "spherical_optimizer_step_s":
-                    opt_step})
+                "designer_step_s": steps["designer"],
+                "spherical_optimizer_step_s": opt_step})
             for dt in ("float32", "float64"):
                 regs, stack, spill = ptxas["K5 %s aspheric all rays=True"
                                            % dt]
@@ -3463,6 +3777,82 @@ def asphere_entries(sources, launches, worst, times, ptxas, step, opt_step):
                 entry.update({"regs_all_rays" + sfx: regs,
                               "stack_bytes_all_rays" + sfx: stack,
                               "spill_bytes_all_rays" + sfx: spill})
+        out.append(entry)
+    # K3, K6-K9: the loop key's registers (K7, K9) and the key for every
+    # field with the ray cotangents beside it
+    _, mspecs = asphere_stack("aspheric double Gauss", s, table)
+    multi = {"trace_multi": ("K3 %s aspheric merit", None, 3),
+             "weighted_moments_multi": ("K6 %s aspheric", None, 3),
+             "merit_adjoint_multi": (
+                 "K7 %s aspheric achromatization rays=False",
+                 "K7 %s aspheric all rays=True", 3),
+             "opd_chain": ("K8 %s aspheric", None, 1),
+             "opd_adjoint": ("K9 %s aspheric design rays=False",
+                             "K9 %s aspheric all rays=True", 1)}
+    for kname, (tag, all_tag, lam) in multi.items():
+        source, replaces = sources[kname]
+        kind = "multi" if lam > 1 else "opd"
+        kspecs = mspecs if lam > 1 else specs
+        k32, p32, t32 = mtimes[(kname, torch.float32)]
+        k64, p64, t64 = mtimes[(kname, torch.float64)]
+
+        def bound(dtype, name=kname, n=N_GRAD_TIME, lv=None):
+            lv = mlive[kind][dtype if lv is None else lv]
+            return kernel_bound(name, n, dtype, kspecs, lam, lv, widths)
+        b32, by = bound(torch.float32)
+        big = "_f64_%d_rays" % N_OPT_BUNDLE
+        entry = {
+            "name": kname + "_aspheric", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kname],
+            "max_abs_err": worst[kname], "ms": k32, "plain_ms": p32,
+            "bound_ms": b32, "bound_by": by, "library_ms": None,
+            "ms_f64": k64, "plain_ms_f64": p64,
+            "bound_ms_f64": bound(torch.float64)[0],
+            "ms_spherical_key": t32, "ms_spherical_key_f64": t64,
+            "rays": N_GRAD_TIME, "wavelengths": lam,
+            "aspheric_widths": list(widths),
+            "ms" + big: mtimes[(kname, N_OPT_BUNDLE)],
+            "ms_spherical_key" + big: mtimes[(kname, N_OPT_BUNDLE, "twin")],
+            "bound_ms" + big: bound(torch.float64, n=N_OPT_BUNDLE,
+                                    lv=N_OPT_BUNDLE)[0]}
+        loop = {"trace_multi": "trace_multi_trace",
+                "merit_adjoint_multi": "merit_adjoint_multi_loop",
+                "opd_adjoint": "opd_adjoint_loop"}.get(kname)
+        if loop:
+            # K3's trace mode, or the loop's key, beside the entry's
+            sfx = "_trace" if kname == "trace_multi" else "_loop_key"
+            lk32, lp32, lt32 = mtimes[(loop, torch.float32)]
+            lk64, lp64, lt64 = mtimes[(loop, torch.float64)]
+            entry.update({
+                "ms" + sfx: lk32, "ms" + sfx + "_f64": lk64,
+                "ms_spherical_key" + sfx: lt32,
+                "ms_spherical_key" + sfx + "_f64": lt64,
+                "bound_ms" + sfx: bound(torch.float32, loop)[0],
+                "bound_ms" + sfx + "_f64": bound(torch.float64, loop)[0],
+                "ms" + sfx + big: mtimes[(loop, N_OPT_BUNDLE)],
+                "ms_spherical_key" + sfx + big:
+                    mtimes[(loop, N_OPT_BUNDLE, "twin")]})
+            if kname == "trace_multi":
+                entry.update({"plain_ms_trace": lp32,
+                              "plain_ms_trace_f64": lp64})
+        for dt in ("float32", "float64"):
+            sfx = "" if dt == "float64" else "_f32"
+            for t, pre in ((tag, ""), (all_tag, "_all_rays")):
+                if t:
+                    regs, stack, spill = ptxas[t % dt]
+                    entry.update({"regs" + pre + sfx: regs,
+                                  "stack_bytes" + pre + sfx: stack,
+                                  "spill_bytes" + pre + sfx: spill})
+            if kname == "trace_multi":
+                regs, stack, spill = ptxas["K3 %s aspheric trace" % dt]
+                entry.update({"regs_trace" + sfx: regs,
+                              "stack_bytes_trace" + sfx: stack,
+                              "spill_bytes_trace" + sfx: spill})
+        if kname in ("trace_multi", "weighted_moments_multi",
+                     "merit_adjoint_multi"):
+            entry["achromatization_step_s"] = steps["achromatization"]
+        else:
+            entry["design_step_s"] = steps["design"]
         out.append(entry)
     return out
 
@@ -3515,24 +3905,19 @@ def main():
     opt_launches, opt_step = phase_opt_path()     # counts from its reset
     launches.update({k: v for k, v in opt_launches.items()
                      if k in ("weighted_moments", "merit_adjoint")})
-    reset_launches()
-    phase_glass_path()
-    glass_launches = read_launches()
-    log("== launch counts on the achromatization path: %s" % glass_launches)
+    glass_launches, glass_step = phase_glass_path()   # counts from its reset
     multi = ("trace_multi", "weighted_moments_multi", "merit_adjoint_multi")
-    if not all(glass_launches[k] for k in multi):
-        raise AssertionError("a kernel of the achromatization path never "
-                             "launched: %s" % glass_launches)
     launches.update({k: glass_launches[k] for k in multi})
-    design_launches = phase_design_path()
+    design_launches, design_step = phase_design_path()
     opd = ("opd_chain", "opd_adjoint")
     launches.update({k: design_launches[k] for k in opd})
     aworst = phase_asphere_check()
     reset_launches()
-    asph_launches, asph_step = phase_asphere_path(opt_step)
+    asph_launches, asph_steps = phase_asphere_path(opt_step, glass_step,
+                                                   design_step)
     log("== launch counts on the aspheric path: %s" % asph_launches)
     asph = ("trace_final", "trace_merit", "weighted_moments",
-            "merit_adjoint")
+            "merit_adjoint") + multi + opd
     if not all(asph_launches[k] for k in asph):
         raise AssertionError("a kernel of the aspheric path never launched: "
                              "%s" % asph_launches)
@@ -3546,6 +3931,15 @@ def main():
                               (table, specs), N_BENCH)
     atimes.update(phase_grad_throughput(atab, aspecs, card, (table, specs),
                                         ASPH_SELECT))
+    as_, _, _, _ = asphere_cases()["aspheric double Gauss"]
+    atabs, amspecs = asphere_stack("aspheric double Gauss", as_, atab)
+    amtimes, amlive = phase_multi_throughput(atabs, amspecs, card,
+                                             (tabs, mspecs),
+                                             ASPH_ACHROM_FIELDS)
+    aotimes, aolive = phase_opd_throughput(as_, atab, aspecs, card,
+                                           (s, table, specs),
+                                           ASPH_DESIGN_FIELDS)
+    amtimes.update(aotimes)
     # live rays of the K5 timing bundles (its reverse runs for these only)
     live_mono = float(trace_merit(table, specs, bench_bundle(
         N_GRAD_TIME, torch.float32, SEED + 1))[0])
@@ -3621,8 +4015,8 @@ def main():
             live_big = (mlive if kname in multi else olive)[N_OPT_BUNDLE]
             live64 = (mlive if kname in multi else olive)[torch.float64]
             entry.update({
-                "ms_loop_key": tt[(loop, torch.float32)],
-                "ms_loop_key_f64": tt[(loop, torch.float64)],
+                "ms_loop_key": tt[(loop, torch.float32)][0],
+                "ms_loop_key_f64": tt[(loop, torch.float64)][0],
                 "bound_ms_loop_key_f64": kernel_bound(
                     loop, N_GRAD_TIME, torch.float64, kspecs, lam,
                     live64)[0],
@@ -3693,7 +4087,8 @@ def main():
             entry["ms_f32_%d_rays" % N_BENCH] = tt[(kname, N_BENCH)]
         kernels.append(entry)
     kernels += asphere_entries(sources, asph_launches, aworst, atimes,
-                               ptxas, asph_step, opt_step)
+                               ptxas, asph_steps, opt_step, amtimes,
+                               {"multi": amlive, "opd": aolive})
     kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())

@@ -11,13 +11,13 @@
 // weight) cotangents.  The wavelength count of K7 stays a run-time
 // argument.  No kernel reads its row flags at run time.
 //
-// Rows: flat, spherical and conic (every kernel); even- and odd-aspheric
-// (K1, K2, K4 and K5 only: their seeded Newton intercept, its radial
-// normal and, in K5, its implicit reverse; the key carries the table's
-// coefficient widths, RAYOPT_N_ASP and RAYOPT_N_ODD, so the Horner loops
-// have compile-time bounds and a row grows by N_ASP + N_ODD words).  K3
-// and K6-K9 keys refuse aspheric rows (ROADMAP Queue 1 item 9), as every
-// key refuses the anamorphic, grating, DOE and freeform rows.
+// Rows: flat, spherical, conic and even- and odd-aspheric (every
+// kernel: an aspheric row's seeded Newton intercept, its radial normal
+// and, in K5, K7 and K9, its implicit reverse -- K9's with the path
+// cotangent; the key carries the table's coefficient widths,
+// RAYOPT_N_ASP and RAYOPT_N_ODD, so the Horner loops have compile-time
+// bounds and a row grows by N_ASP + N_ODD words).  Every key refuses the
+// anamorphic, grating, DOE and freeform rows (ROADMAP Queue 1 item 9).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
@@ -53,8 +53,9 @@
 // division and square roots a row; K1's 52 (float32) or 104 (float64)
 // bytes a ray of HBM traffic run beside it.  An aspheric row adds its
 // Newton: 11 residuals and 10 slopes, each a square root and a division
-// (two in the slope), the Horner loops of its widths, and in K5 the whole
-// Newton again in the recompute (chip_smoke.row_flops counts them).
+// (two in the slope), the Horner loops of its widths, and in the
+// adjoints (K5, K7, K9) the whole Newton again in the recompute
+// (chip_smoke.row_flops counts them).
 //
 // What the design does about it.
 //  * The row loop unrolls over the parameter pack: surface_step and
@@ -103,9 +104,10 @@
 //    writes its ray and weight cotangents in the first and adds its own
 //    earlier value in the later ones, with no atomics.
 //  * K9 unrolls rows 1..S-2 with the path cotangent (surface_step_vjp
-//    with PATH) and runs the reference-sphere tail (step_vjp.cuh) on the
-//    image row with that row's flags compile-time; its three centre
-//    cotangents are reduced beside the live slots.
+//    with PATH; on a figured row it joins the ray's cotangent before the
+//    Newton's implicit step) and runs the reference-sphere tail
+//    (step_vjp.cuh) on the image row with that row's flags compile-time;
+//    its three centre cotangents are reduced beside the live slots.
 //  * A dead ray (K2/K3/K4/K5/K6/K7: non-finite final x, y or uz, judged
 //    per wavelength in K3, K6 and K7; K9: non-finite k) adds no moment
 //    and skips its reverse sweep; without ray cotangents nothing is
@@ -134,14 +136,16 @@ namespace {
 
 // a row word's live slots above its flags: cuda_spec.LIVE_SHIFT
 constexpr int LIVE_SHIFT = 10;
-// the bits above it: K9's OPD_SLOTS, K5's FIG_SLOTS (cuda_spec.LIVE_BITS)
+// the bits above it: K5's and K7's FIG_SLOTS, K9's OPD_FIG_SLOTS
+// (cuda_spec.LIVE_BITS)
 constexpr int LIVE_BITS = 31 - LIVE_SHIFT;
 constexpr int FLAG_MASK = (1 << LIVE_SHIFT) - 1;
 static_assert(FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
 
 // The rows of one key: W holds a word a row, its flags in the low
 // LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z, mu,
-// then K5's aspheric coefficients; K9 n_before) that row reduces.
+// then K5's and K7's aspheric coefficients; K9 n_before, then its
+// coefficients) that row reduces.
 template <int... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -332,7 +336,7 @@ __device__ __forceinline__ void chain_reverse(const volatile T* tab,
     for (int q = 0; q < 6; ++q) st[q] = saved[((j - 1) * 6 + q) * BLOCK];
     surface_step_vjp<T, PATH>(tab + j * ROW, RowFlags<C, j>{}, st, g, pg,
                               ct_path);
-    add_slots<C, j, PATH ? OPD_SLOTS : FIG_SLOTS>(pg, acc);
+    add_slots<C, j, PATH ? OPD_FIG_SLOTS : FIG_SLOTS>(pg, acc);
   });
 }
 
@@ -611,8 +615,9 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_spec(
 
 // K7: K5 for each table of an nlam stack (table: nlam * rows * ROW
 // words), the wavelengths outermost; ct holds nlam rows of the five
-// moment cotangents.  out: (nlam, rows, SLOTS) parameter cotangents per
-// wavelength, zero where a slot is not live; with RAYS the six ray and
+// moment cotangents.  out: (nlam, rows, FIG_SLOTS) parameter cotangents
+// per wavelength (SLOTS, then a figured table's aspheric coefficients),
+// zero where a slot is not live; with RAYS the six ray and
 // the weight cotangents summed over the wavelengths (a ray dead at a
 // wavelength adds zeros there).  partials: (grid, nlam, live slots).
 // Dynamic shared memory: the saved states, as K5's.
@@ -676,7 +681,8 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_multi_spec(
   if (!last_block(counter)) return;
   for (int l = 0; l < nlam; ++l) {
     sum_blocks<T, BLOCK>(s_part, NL, partials + l * NL, nlam * NL);
-    write_slots<T, C, SLOTS, BLOCK>(out + int64_t(l) * S * SLOTS, s_part);
+    write_slots<T, C, FIG_SLOTS, BLOCK>(out + int64_t(l) * S * FIG_SLOTS,
+                                        s_part);
     __syncthreads();
   }
   if (threadIdx.x == 0) *counter = 0u;
@@ -684,9 +690,9 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_multi_spec(
 
 // K9: the analytic adjoint of the OPD (K8) for the cotangents (ct_k,
 // ct_lx, ct_ly) of its outputs k, lx, ly.  aux: the sphere centre x, y,
-// z, its radius and lam_scale.  out: (rows, OPD_SLOTS) parameter
-// cotangents (zero where a slot is not live), then the 3 centre
-// cotangents; with RAYS the six ray cotangents a ray (zeros for a dead
+// z, its radius and lam_scale.  out: (rows, OPD_FIG_SLOTS) parameter
+// cotangents (OPD_SLOTS, then a figured table's aspheric coefficients;
+// zero where a slot is not live), then the 3 centre cotangents; with RAYS the six ray cotangents a ray (zeros for a dead
 // ray).  Dynamic shared memory: the states entering rows 1..S-2,
 // (rows - 2) * 6 * BLOCK words.
 template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int MINB>
@@ -704,6 +710,7 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_adjoint_spec(
   constexpr int S = C::rows;
   constexpr int NL = live_count<C>();
   constexpr int NV = NL + 3;        // the live slots, then the centre
+  static_assert(OPD_FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
   using ImgFlags = RowFlags<C, S - 1>;
   __shared__ T s_tab[S * ROW];
   __shared__ T s_aux[AUX];
@@ -760,9 +767,9 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_adjoint_spec(
   // (f) the live slots and the centre: block, then grid, once
   block_sum<T, BLOCK>(acc, s_red, s_part);
   if (grid_sum<T, BLOCK>(s_part, NV, partials, counter)) {
-    write_slots<T, C, OPD_SLOTS, BLOCK>(out, s_part);
+    write_slots<T, C, OPD_FIG_SLOTS, BLOCK>(out, s_part);
     if (threadIdx.x < 3)
-      out[S * OPD_SLOTS + threadIdx.x] = s_part[NL + threadIdx.x];
+      out[S * OPD_FIG_SLOTS + threadIdx.x] = s_part[NL + threadIdx.x];
   }
 }
 
@@ -943,7 +950,7 @@ constexpr size_t opd_dynamic_smem() {
 
 // K7 launchers of one key: NAME(table (nlam, rows, ROW), 6 rays, w, ct
 // (nlam, 5), partials (grid, nlam, live slots), counter, out (nlam,
-// rows, SLOTS), 6 ray + 1 weight cotangents (n,; ignored without RAYS),
+// rows, FIG_SLOTS), 6 ray + 1 weight cotangents (n,; ignored without RAYS),
 // n, nlam, grid, stream); NAME_blocks_per_sm(&blocks);
 // NAME_error_string(err).
 #define RAYOPT_SPEC_ADJOINT_MULTI(NAME, T, CHAIN, CLIP, RAYS, BLOCK, MINB)    \
@@ -983,7 +990,7 @@ constexpr size_t opd_dynamic_smem() {
 
 // K9 launchers of one key: NAME(table (rows, ROW), 6 rays, aux (AUX,),
 // ct_k, ct_lx, ct_ly (n,), partials (grid, live slots + 3), counter,
-// out (rows * OPD_SLOTS + 3), 6 ray cotangents (n,; ignored without
+// out (rows * OPD_FIG_SLOTS + 3), 6 ray cotangents (n,; ignored without
 // RAYS), n, grid, stream); NAME_blocks_per_sm(&blocks);
 // NAME_error_string(err).
 #define RAYOPT_SPEC_OPD_ADJOINT(NAME, T, CHAIN, CLIP, RAYS, BLOCK, MINB)      \

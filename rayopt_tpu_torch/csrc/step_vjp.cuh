@@ -16,10 +16,14 @@ namespace {
 constexpr int SLOTS = 6;      // parameter cotangents a row: cuda_grad.SLOTS
 constexpr int OPD_SLOTS = 7;  // K9's a row, + n_before: cuda_grad.OPD_SLOTS
 constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
-// K5's a row: SLOTS, then the even and the odd aspheric coefficients
+// K5's and K7's a row: SLOTS, then the even and the odd aspheric
+// coefficients
 constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD;
+// K9's a row: OPD_SLOTS (SLOTS, then n_before), then the even and the
+// odd coefficients (cuda_spec.opd_live_slots)
+constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD;
 // a row's per-ray parameter cotangents, the widest of the two
-constexpr int PG_SLOTS = FIG_SLOTS > OPD_SLOTS ? FIG_SLOTS : OPD_SLOTS;
+constexpr int PG_SLOTS = OPD_FIG_SLOTS;
 
 // Hand-derived reverse of refract_spec's refraction (kind 1) or mirror
 // (kind 2) of the direction u by the unnormalized normal n, shared by
@@ -71,19 +75,22 @@ __device__ __forceinline__ void refraction_vjp(int kind, bool unit, T mu,
 }
 
 // Hand-derived reverse of a FIGURED row's step (surface_step with
-// F_ASPHERIC or F_ODD) for one live ray, as surface_step_vjp without
-// PATH: the refraction (refraction_vjp) by the radial normal (x1 e,
-// y1 e, 1) and the figures' slopes in e, the transfer, then the Newton
-// intercept differentiated implicitly at its root -- one residual
-// gradient dF/dp scaled by -gt / F_s, the seed holding no cotangent
-// (kernels._NewtonRoot).  pg:
-// out, FIG_SLOTS cotangents (c, k, offset x, y, z, mu, the even, then
-// the odd coefficients).  Its torch model is the figured branch of
-// cuda_grad._step_vjp_reference.  An on-axis ray through an odd figure
-// gets NaN (sqrt(r2) at r2 = 0), as autograd and the reference give.
-template <typename T, typename Flags, typename Row>
+// F_ASPHERIC or F_ODD) for one live ray, as surface_step_vjp: the
+// refraction (refraction_vjp) by the radial normal (x1 e, y1 e, 1) and
+// the figures' slopes in e, the transfer, then the Newton intercept
+// differentiated implicitly at its root -- one residual gradient dF/dp
+// scaled by -gt / F_s, the seed holding no cotangent
+// (kernels._NewtonRoot).  With PATH (K9) the row's optical path t *
+// n_before adds ct_path * n_before to gt before that step, and n_before
+// takes ct_path * t.  pg: out, without PATH FIG_SLOTS cotangents (c, k,
+// offset x, y, z, mu, the even, then the odd coefficients), with PATH
+// OPD_FIG_SLOTS (n_before between mu and the coefficients).  Its torch
+// model is the figured branch of cuda_grad._step_vjp_reference.  An
+// on-axis ray through an odd figure gets NaN (sqrt(r2) at r2 = 0), as
+// autograd and the reference give.
+template <typename T, bool PATH, typename Flags, typename Row>
 __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
-                                                 T* g, T* pg) {
+                                                 T* g, T* pg, T ct_path) {
   constexpr int fl = Flags::value;
   constexpr bool off_axis = fl & F_OFF_AXIS;
   constexpr bool rotated = fl & F_ROTATED;
@@ -192,7 +199,11 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   // ---- reverse: transfer x1 = x + t u ----
   T gx = gx1, gy = gy1, gz = gz1;
   gux = gux + t * gx1; guy = guy + t * gy1; guz = guz + t * gz1;
-  const T gt = ux * gx1 + uy * gy1 + uz * gz1;
+  T gt = ux * gx1 + uy * gy1 + uz * gz1;
+  if constexpr (PATH) {
+    gt = gt + ct_path * p[P_NB];
+    pg[6] = ct_path * t;
+  }
   // ---- reverse: the Newton root, implicitly: dF/dp * (-gt / F_s) ----
   const T gF = -gt / newton_slope(t, x, y, ux, uy, uz, c, k, fg);
   {
@@ -258,10 +269,11 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   pg[3] = off_axis ? -gy : T(0);
   pg[4] = -gz;
   pg[5] = gmu;
+  constexpr int q0 = PATH ? OPD_SLOTS : SLOTS;  // the first coefficient's
 #pragma unroll
-  for (int i = 0; i < N_ASP; ++i) pg[SLOTS + i] = ga[i];
+  for (int i = 0; i < N_ASP; ++i) pg[q0 + i] = ga[i];
 #pragma unroll
-  for (int j = 0; j < N_ODD; ++j) pg[SLOTS + N_ASP + j] = gb[j];
+  for (int j = 0; j < N_ODD; ++j) pg[q0 + N_ASP + j] = gb[j];
 }
 
 // Hand-derived reverse of surface_step for one live ray, the flags and
@@ -269,18 +281,17 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
 // s: the state entering the row (global frame).  g: in, the cotangent of
 // the state leaving the row; out, the cotangent of s.
 // pg: out, the row's parameter cotangents (c, k, offset x, y, z, mu;
-// with PATH also n_before).  With PATH, ct_path is the cotangent of the
-// row's optical path t * n_before (K9); without it the path has none
-// and the code is K5's.  The aperture clip is a constant mask: a
-// clipped ray is dead.
+// with PATH also n_before; a figured row's coefficients after them).
+// With PATH, ct_path is the cotangent of the row's optical path t *
+// n_before (K9); without it the path has none and the code is K5's and
+// K7's.  The aperture clip is a constant mask: a clipped ray is dead.
 template <typename T, bool PATH = false, typename Flags,
           typename Row = const T*>
 __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
                                                  const T* s, T* g, T* pg,
                                                  T ct_path = T(0)) {
   if constexpr ((Flags::value & F_FIGURED) != 0) {
-    static_assert(!PATH, "the OPD adjoint takes no aspheric row");
-    figured_step_vjp<T>(p, flags, s, g, pg);
+    figured_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path);
     return;
   }
   const int fl = flag_value(flags);

@@ -23,19 +23,19 @@ polychromatic twins (`pallas_grad._fwd_kernel_multi`,
 System.tables or glass.glass_tables) and ONE bundle run through every
 wavelength's chain (K6 reads it once, its wavelengths unrolled, a
 launch a run of at most cuda_spec.MAX_NLAM of them; K7 once a
-wavelength, its wavelengths outermost).  K6 returns (nlam, 5) moments; K7 takes (nlam,
-5) moment cotangents, judges each ray dead or live per wavelength,
-sums the ray and weight cotangents over the wavelengths and returns
-the parameter cotangents per wavelength (nlam, S, SLOTS), so autograd
-through the stacking (glass_tables, a broadcast curvature) sums the
-shared geometry.
+wavelength, its wavelengths outermost).  K6 returns (nlam, 5) moments;
+K7 takes (nlam, 5) moment cotangents, judges each ray dead or live per
+wavelength, sums the ray and weight cotangents over the wavelengths and
+returns the parameter cotangents per wavelength (nlam, S, SLOTS + na +
+no), so autograd through the stacking (glass_tables, a broadcast
+curvature) sums the shared geometry.
 
-K1, K2, K4 and K5 trace even- and odd-aspheric rows (the seeded Newton
-intercept); K5 reverses such a row by hand (csrc/step_vjp.cuh
-figured_step_vjp): its refraction, then the Newton root implicitly,
-one residual gradient scaled by -gt/F_s, as kernels._NewtonRoot does,
-and reduces the row's aspheric coefficients beside its six columns.
-K6-K9 refuse an aspheric row on either device (ROADMAP Queue 1 item 9).
+Every kernel here traces even- and odd-aspheric rows (the seeded Newton
+intercept); K5, K7 and K9 reverse such a row by hand (csrc/step_vjp.cuh
+figured_step_vjp): its refraction, then the Newton root implicitly, one
+residual gradient scaled by -gt/F_s, as kernels._NewtonRoot does (K9
+adds the row's path cotangent to gt first), and reduce the row's
+aspheric coefficients beside its six (K9: seven) columns.
 
 `spot_moments` and `adjoint_spot_rms` bind K4/K5 in one
 torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`),
@@ -60,9 +60,10 @@ intercepts the reference sphere (centre, radius and wavelength scale
 in a (5,) aux tensor) and returns k = -(path to the sphere)/lam_scale
 and the landing x, y per ray; K9 is its analytic adjoint, with the
 path cotangent feeding every row's t and n_before, so it returns
-OPD_SLOTS = 7 parameter cotangents a row (K5's six and n_before) and
-the centre's three.  `adjoint_opd_rays` and `adjoint_wavefront_rms`
-bind them in `_OpdRays` (the reference's custom_vjp `_opd`); the
+OPD_SLOTS = 7 parameter cotangents a row (K5's six and n_before; then a
+figured table's coefficients) and the centre's three.
+`adjoint_opd_rays` and `adjoint_wavefront_rms` bind them in `_OpdRays`
+(the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
 kernel, in autograd.
 
@@ -96,18 +97,17 @@ import torch
 from . import cuda_spec as CS
 from . import kernels as K
 from .cuda_spec import launch_moments, packed, spec_launch
-from .cuda_trace import (_check_state, figure_widths, refuse_figured,
-                         spot_rms_from_moments, trace_final_reference)
+from .cuda_trace import (_check_state, figure_widths, spot_rms_from_moments,
+                         trace_final_reference)
 from .tables import lower_pose, table_at
 
 SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
 OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
 AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
-#: differentiable table fields the OPD's autograd Function carries
-_DIFF = ("curvature", "conic", "offset", "mu", "n_before")
-#: and the spot moments' (K5 also reduces a figured row's coefficients)
-_SPOT_DIFF = _DIFF + ("aspherics", "aspherics_odd")
+#: differentiable table fields the autograd Functions carry (K9's
+#: fields; the spot moments' n_before gets a zero cotangent)
+_DIFF = CS.OPD_FIELDS
 #: kernel-carried fields that never receive cotangents
 _NONDIFF = ("radius", "alternate")
 #: the fields the reference kernel carries (pallas_trace._FIELDS)
@@ -307,13 +307,12 @@ def _opd_chain(tab, specs, state, aux, clip):
     return (k, o.px + o.ti*o.dx, o.py + o.ti*o.dy), saved, o
 
 
-def _check_opd(table, specs, state, aux, kernel):
+def _check_opd(specs, state, aux):
     _check_state(state)
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
     _check_vector(aux, state, "aux", (AUX,))
-    refuse_figured(specs, kernel)
 
 
 def opd_chain_reference(table, specs, state, aux, clip=False):
@@ -325,45 +324,42 @@ def opd_chain_reference(table, specs, state, aux, clip=False):
     return _opd_chain(tab, specs, state, aux, clip)[0]
 
 
-def _opd_cotangent_rows(tab, grads):
-    """(S, OPD_SLOTS) rows from the table-field gradients (c, k, offset,
-    mu, n_before)."""
-    return torch.stack([grads[0], grads[1], grads[2][:, 0], grads[2][:, 1],
-                        grads[2][:, 2], grads[3], grads[4]], 1)
-
-
 def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
     """Plain PyTorch version of K9: torch autograd through the plain
     chain and tail of K8 dotted with cts = (ct_k, ct_lx, ct_ly).  A
     no-grad pre-trace finds the live rays (finite k); each dead ray is
     traced as the first live one (no NaN enters autograd) with zero
-    cotangents.  Returns (parameter cotangents (S, OPD_SLOTS): c, k,
-    offset x, y, z, mu, n_before; the six state cotangents; the (3,)
-    centre cotangents), in the state's dtype."""
+    cotangents.  Returns (parameter cotangents (S, OPD_SLOTS + na + no):
+    c, k, offset x, y, z, mu, n_before, then the table's na even and no
+    odd aspheric coefficients; the six state cotangents; the (3,) centre
+    cotangents), in the state's dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     with torch.no_grad():
         alive = torch.isfinite(_opd_chain(tab, specs, state, aux, clip)[0][0])
-    pg = torch.zeros((tab.nsurfaces, OPD_SLOTS), dtype=x0.dtype,
-                     device=x0.device)
+    pg = torch.zeros((tab.nsurfaces, OPD_SLOTS + sum(_table_widths(tab))),
+                     dtype=x0.dtype, device=x0.device)
     if not bool(alive.any()):
         return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
             torch.zeros(3, dtype=x0.dtype, device=x0.device)
     i0 = int(torch.argmax(alive.to(torch.uint8)))
-    leaves = [tab.curvature, tab.conic, tab.offset, tab.mu, tab.n_before,
-              *state, aux]
+    nd = len(_DIFF)
+    leaves = [*(getattr(tab, f) for f in _DIFF), *state, aux]
     leaves = [v.detach().clone().requires_grad_() for v in leaves]
     with torch.enable_grad():
-        sub = tuple(torch.where(alive, s, s[i0]) for s in leaves[5:11])
-        t2 = tab.replace(**dict(zip(_DIFF, leaves[:5])))
-        outs = _opd_chain(t2, specs, sub, leaves[11], clip)[0]
+        sub = tuple(torch.where(alive, s, s[i0])
+                    for s in leaves[nd:nd + 6])
+        t2 = tab.replace(**dict(zip(_DIFF, leaves[:nd])))
+        outs = _opd_chain(t2, specs, sub, leaves[-1], clip)[0]
         total = sum((o*torch.where(alive, c.to(o.dtype), 0.)).sum()
                     for o, c in zip(outs, cts))
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(leaves, grads)]
-    return (_opd_cotangent_rows(tab, grads), tuple(grads[5:11]),
-            grads[11][:3])
+    g = tab.replace(**dict(zip(_DIFF, grads[:nd])))
+    pg = torch.cat([_param_rows(g)[:, :SLOTS], g.n_before[:, None],
+                    g.aspherics, g.aspherics_odd], 1)
+    return pg, tuple(grads[nd:nd + 6]), grads[-1][:3]
 
 
 # -- the kernel's reverse, written by hand in torch (test-only) ----------
@@ -419,18 +415,15 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     state: the six components entering the row (global frame); g: the
     cotangent of the six components leaving it; ct_path: the cotangent
     of the row's optical path t * n_before (K9's PATH instantiation), or
-    None (K5's: the path has no cotangent).  Returns (cotangent of the
-    entering state, per-ray parameter cotangents (c, k, offset x, y, z,
-    mu, and with ct_path n_before; an aspheric row also its table's
-    even and odd coefficients, `_figured_vjp_reference`)).  The
+    None (K5's and K7's: the path has no cotangent).  Returns (cotangent
+    of the entering state, per-ray parameter cotangents (c, k, offset x,
+    y, z, mu, and with ct_path n_before; an aspheric row then its
+    table's even and odd coefficients, `_figured_vjp_reference`)).  The
     aperture clip is a constant mask: a clipped ray is dead, and dead
     rays never reach the reverse sweep."""
     K.check_supported(spec)
     if K.is_figured(spec):
-        if ct_path is not None:
-            raise NotImplementedError(
-                "the OPD adjoint takes no aspheric row (%s)" % K.ITEM9)
-        return _figured_vjp_reference(state, surf, spec, g)
+        return _figured_vjp_reference(state, surf, spec, g, ct_path)
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
     c, k, mu = surf.curvature, surf.conic, surf.mu
@@ -564,15 +557,18 @@ def _horner(r2, coeffs, scale=lambda i: 1, start=0):
     return d
 
 
-def _figured_vjp_reference(state, surf, spec, g):
+def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     """Hand-derived reverse of an aspheric row's step (kernels.
     surface_step_spec with spec.aspheric or spec.odd) for live rays, the
     line-for-line model of `figured_step_vjp` in csrc/step_vjp.cuh: the
     refraction (_refraction_vjp) by the radial normal (x1 e, y1 e, 1)
-    and the figures' slopes in e, the transfer, then the Newton intercept differentiated implicitly at its
-    root, dF/dp scaled by -gt/F_s (kernels._NewtonRoot).  Returns the
-    entering state's cotangent and the per-ray parameter cotangents (c,
-    k, offset x, y, z, mu, the table's na even then no odd
+    and the figures' slopes in e, the transfer, then the Newton
+    intercept differentiated implicitly at its root, dF/dp scaled by
+    -gt/F_s (kernels._NewtonRoot); with ct_path (K9's PATH) the row's
+    optical path t * n_before first adds ct_path * n_before to gt, and
+    n_before takes ct_path * t.  Returns the entering state's cotangent
+    and the per-ray parameter cotangents (c, k, offset x, y, z, mu, with
+    ct_path n_before, then the table's na even and no odd
     coefficients)."""
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
@@ -655,6 +651,9 @@ def _figured_vjp_reference(state, surf, spec, g):
     gx, gy, gz = gx1, gy1, gz1
     gux, guy, guz = gux + t*gx1, guy + t*gy1, guz + t*gz1
     gt = ux*gx1 + uy*gy1 + uz*gz1
+    if ct_path is not None:
+        gt = gt + ct_path*surf.n_before
+        gnb = ct_path*t
     # ---- reverse: the Newton root, implicitly: dF/dp * (-gt/F_s) ----
     fs = K._newton_slope(t, x, y, z, ux, uy, uz, c, k, asp, aspo)
     gF = -gt/torch.where(fs == 0, 1., fs)
@@ -695,8 +694,9 @@ def _figured_vjp_reference(state, surf, spec, g):
         gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
     gox = -gx if spec.off_axis else zero
     goy = -gy if spec.off_axis else zero
+    nb = () if ct_path is None else (gnb,)
     return ((gx, gy, gz, gux, guy, guz),
-            (gc, gk, gox, goy, -gz, gmu, *ga, *gb))
+            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb))
 
 
 def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
@@ -800,14 +800,18 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
     g, pj, gc = _opd_tail_vjp_reference(tab.row(nsurf - 1), specs[nsurf - 1],
                                         o, ct_path, ct_lx, ct_ly)
     g = tuple(torch.where(live, v, 0.) for v in g)
-    pg = torch.zeros((nsurf, OPD_SLOTS), dtype=x0.dtype, device=x0.device)
-    pg[nsurf - 1] = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+    pg = torch.zeros((nsurf, OPD_SLOTS + sum(_table_widths(tab))),
+                     dtype=x0.dtype, device=x0.device)
+    pg[nsurf - 1, :OPD_SLOTS] = torch.stack([torch.where(live, v, 0.).sum()
+                                             for v in pj])
     gcen = torch.stack([torch.where(live, v, 0.).sum() for v in gc])
     for j in range(nsurf - 2, 0, -1):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g,
                                     ct_path=ct_path)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        pg[j] = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+        # a row with no figure has no aspheric slots (zeros)
+        pg[j, :len(pj)] = torch.stack([torch.where(live, v, 0.).sum()
+                                       for v in pj])
     if specs[0].rotated:
         r0 = tab.rot[0]
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
@@ -834,8 +838,9 @@ def _moments_kernel(specs, dtype, clip, widths):
 
 
 @functools.lru_cache(maxsize=None)
-def _moments_multi_kernel(specs, dtype, clip, nlam):
-    return CS.load(CS.moments_multi_key(specs, dtype, clip, nlam))
+def _moments_multi_kernel(specs, dtype, clip, nlam, widths=(0, 0)):
+    return CS.load(CS.moments_multi_key(specs, dtype, clip, nlam,
+                                        widths=widths))
 
 
 @functools.lru_cache(maxsize=None)
@@ -845,18 +850,20 @@ def _adjoint_kernel(specs, dtype, clip, fields, rays, widths):
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_multi_kernel(specs, dtype, clip, fields, rays):
-    return CS.load(CS.adjoint_multi_key(specs, dtype, clip, fields, rays))
+def _adjoint_multi_kernel(specs, dtype, clip, fields, rays, widths=(0, 0)):
+    return CS.load(CS.adjoint_multi_key(specs, dtype, clip, fields, rays,
+                                        widths=widths))
 
 
 @functools.lru_cache(maxsize=None)
-def _opd_kernel(specs, dtype, clip):
-    return CS.load(CS.opd_key(specs, dtype, clip))
+def _opd_kernel(specs, dtype, clip, widths=(0, 0)):
+    return CS.load(CS.opd_key(specs, dtype, clip, widths=widths))
 
 
 @functools.lru_cache(maxsize=None)
-def _opd_adjoint_kernel(specs, dtype, clip, fields, rays):
-    return CS.load(CS.opd_adjoint_key(specs, dtype, clip, fields, rays))
+def _opd_adjoint_kernel(specs, dtype, clip, fields, rays, widths=(0, 0)):
+    return CS.load(CS.opd_adjoint_key(specs, dtype, clip, fields, rays,
+                                      widths=widths))
 
 
 def weighted_moments(table, specs, state, w, clip=False):
@@ -944,12 +951,19 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
 merit_adjoint.launches = 0
 
 
-def _moments_multi_runs(specs, dtype, clip, nlam):
-    """K6's launches for a stack of nlam tables: (l0, l1, loaded key) of
-    each balanced run of at most cuda_spec.MAX_NLAM wavelengths
-    (cuda_spec.runs: 12 -> 6 + 6, 13 -> 7 + 6)."""
-    return [(l0, l1, _moments_multi_kernel(specs, dtype, clip, l1 - l0))
-            for l0, l1 in CS.runs(nlam, CS.MAX_NLAM)]
+def _moments_multi_runs(specs, dtype, clip, nlam, widths=(0, 0)):
+    """K6's launches for a stack of nlam tables (`widths` the stack's,
+    figure_widths): (l0, l1, loaded key) of each balanced run of at most
+    cuda_spec.multi_most wavelengths (MAX_NLAM, fewer where the tables
+    outgrow static shared memory; cuda_spec.runs: 12 -> 6 + 6, 13 ->
+    7 + 6)."""
+    most = CS.multi_most("k6", specs, dtype, widths=widths)
+    if most < 1:
+        # raises, saying why
+        CS.moments_multi_key(specs, dtype, clip, 1, widths=widths)
+    return [(l0, l1, _moments_multi_kernel(specs, dtype, clip, l1 - l0,
+                                           widths))
+            for l0, l1 in CS.runs(nlam, most)]
 
 
 def weighted_moments_multi(tables, specs, state, w, clip=False):
@@ -961,11 +975,9 @@ def weighted_moments_multi(tables, specs, state, w, clip=False):
     grid-wide sum fused), one bundle read once; a stack past MAX_NLAM
     in balanced runs, one launch each, the moments concatenated in
     wavelength order (each wavelength's are independent).  CPU bundles
-    take weighted_moments_multi_reference.  An aspheric row raises
-    NotImplementedError on either device (ROADMAP Queue 1 item 9)."""
+    take weighted_moments_multi_reference."""
     _check_state(state)
     _check_vector(w, state, "w")
-    refuse_figured(specs, "K6 (weighted_moments_multi)")
     x = state[0]
     if x.device.type == "cpu":
         return weighted_moments_multi_reference(tables, specs, state, w,
@@ -973,7 +985,8 @@ def weighted_moments_multi(tables, specs, state, w, clip=False):
     spec_launch(state)
     specs = tuple(specs)
     runs = _moments_multi_runs(specs, x.dtype, bool(clip),
-                               tables.curvature.shape[0])
+                               tables.curvature.shape[0],
+                               figure_widths(tables, specs))
     outs = [launch_moments(kern, table_at(tables, slice(l0, l1)), specs,
                            state, w) for l0, l1, kern in runs]
     if x.shape[0]:
@@ -986,42 +999,43 @@ weighted_moments_multi.launches = 0
 
 def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                         fields=CS.FIELDS, rays=True):
-    """K7: (parameter cotangents (nlam, S, SLOTS) per table of the
-    stack; the six state cotangents and the weight cotangent, each
-    summed over the tables) of the (nlam, 5) weighted moments dotted
-    with `ct`, an (nlam, 5) tensor of moment cotangents on the rays'
-    device.  `fields` and `rays` as merit_adjoint's: a slot outside the
-    fields or baked out by the specs is an exact zero; rays=False
-    returns None for the state and weight cotangents.  CUDA bundles
-    launch the kernel compiled for (dtype, specs, clip, live slots,
-    rays) (ops.cuda_spec: one launch, the wavelengths a run-time
-    argument, the grid-wide sums fused); CPU bundles take
-    merit_adjoint_multi_reference.  An aspheric row raises
-    NotImplementedError on either device (ROADMAP Queue 1 item 9)."""
+    """K7: (parameter cotangents (nlam, S, SLOTS + na + no) per table of
+    the stack, in merit_adjoint's columns; the six state cotangents and
+    the weight cotangent, each summed over the tables) of the (nlam, 5)
+    weighted moments dotted with `ct`, an (nlam, 5) tensor of moment
+    cotangents on the rays' device.  `fields` and `rays` as
+    merit_adjoint's: a slot outside the fields or baked out by the specs
+    is an exact zero; rays=False returns None for the state and weight
+    cotangents.  CUDA bundles launch the kernel compiled for (dtype,
+    specs, clip, live slots, rays, aspheric widths) (ops.cuda_spec: one
+    launch, the wavelengths a run-time argument, the grid-wide sums
+    fused); CPU bundles take merit_adjoint_multi_reference."""
     nlam = tables.curvature.shape[0]
     _check_state(state)
     _check_vector(w, state, "w")
     _check_vector(ct, state, "ct", (nlam, 5))
-    refuse_figured(specs, "K7 (merit_adjoint_multi)")
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
+    na, no = _table_widths(tables)
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
                                                    ct, clip)
-        pg = torch.where(CS.live_mask(CS.live_slots(specs, fields)),
-                         pg[..., :SLOTS], 0.)
+        live = CS.live_mask(CS.live_slots(specs, fields, (na, no)),
+                            SLOTS + na + no)
+        pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
     kern = _adjoint_multi_kernel(specs, x.dtype, bool(clip), fields,
-                                 bool(rays))
+                                 bool(rays), figure_widths(tables, specs))
     tab = packed(tables, specs, x)
     if not n:
-        pg = torch.zeros((nlam, len(specs), SLOTS), dtype=x.dtype,
+        pg = torch.zeros((nlam, len(specs), SLOTS + na + no), dtype=x.dtype,
                          device=device)
         return (pg, tuple(torch.zeros_like(x) for _ in range(6)),
                 torch.zeros_like(x)) if rays else (pg, None, None)
     grid = kern.grid(n, device)
-    pg = torch.empty((nlam, len(specs), SLOTS), dtype=x.dtype, device=device)
+    pg = torch.empty((nlam, len(specs), kern.key.slots), dtype=x.dtype,
+                     device=device)
     partials = torch.empty((grid, max(nlam*kern.key.nlive, 1)),
                            dtype=x.dtype, device=device)
     outs = [torch.empty_like(x) for _ in range(7)] if rays else None
@@ -1031,6 +1045,8 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                        *((o.data_ptr() for o in outs) if rays
                          else (None,)*7), n, nlam, grid, stream))
     merit_adjoint_multi.launches += 1
+    # a key of a stack with no aspheric row has no coefficient slots
+    pg = torch.nn.functional.pad(pg, (0, SLOTS + na + no - pg.shape[-1]))
     if not rays:
         return pg, None, None
     return pg, tuple(outs[:6]), outs[6]
@@ -1044,17 +1060,17 @@ def opd_chain(table, specs, state, aux, clip=False):
     x, y, z, radius, lam_scale), a (5,) tensor on the rays' device
     (k = -(optical path to the reference sphere)/lam_scale; lx, ly the
     landing on the sphere about its centre).  CUDA bundles launch the
-    kernel compiled for (dtype, specs, clip) (ops.cuda_spec: one launch,
-    none for no rays); CPU bundles take opd_chain_reference.  An
-    aspheric row raises NotImplementedError on either device (ROADMAP
-    Queue 1 item 9)."""
-    _check_opd(table, specs, state, aux, "K8 (opd_chain)")
+    kernel compiled for (dtype, specs, clip, aspheric widths)
+    (ops.cuda_spec: one launch, none for no rays); CPU bundles take
+    opd_chain_reference."""
+    _check_opd(specs, state, aux)
     x = state[0]
     if x.device.type == "cpu":
         return opd_chain_reference(table, specs, state, aux, clip)
     device, n, stream = spec_launch(state)
     specs = tuple(specs)
-    kern = _opd_kernel(specs, x.dtype, bool(clip))
+    kern = _opd_kernel(specs, x.dtype, bool(clip),
+                       figure_widths(table, specs))
     tab = packed(table, specs, x)
     outs = [torch.empty_like(x) for _ in range(3)]
     if n:
@@ -1070,40 +1086,45 @@ opd_chain.launches = 0
 
 def opd_adjoint(table, specs, state, aux, cts, clip=False,
                 fields=CS.OPD_FIELDS, rays=True):
-    """K9: (parameter cotangents (S, OPD_SLOTS): c, k, offset x, y, z,
-    mu, n_before; the six state cotangents; the (3,) centre cotangents)
+    """K9: (parameter cotangents (S, OPD_SLOTS + na + no): c, k, offset
+    x, y, z, mu, n_before, then the table's na even and no odd aspheric
+    coefficients; the six state cotangents; the (3,) centre cotangents)
     of K8's outputs dotted with cts = (ct_k, ct_lx, ct_ly), three (N,)
     tensors on the rays' device.  `fields`: the table fields whose
     cotangents are wanted; a slot outside them, or never read by the
-    specialized chain (cuda_spec.opd_live_slots), is an exact zero.
-    rays=False: the state cotangents are not computed and come back as
-    None; the centre cotangents always are.  CUDA bundles launch the
-    kernel compiled for (dtype, specs, clip, live slots, rays)
+    specialized chain (cuda_spec.opd_live_slots: an aspheric coefficient
+    is live only on an aspheric row), is an exact zero.  rays=False: the
+    state cotangents are not computed and come back as None; the centre
+    cotangents always are.  CUDA bundles launch the kernel compiled for
+    (dtype, specs, clip, live slots, rays, aspheric widths)
     (ops.cuda_spec: one launch, the grid-wide sum fused); CPU bundles
-    take opd_adjoint_reference.  An aspheric row raises
-    NotImplementedError on either device (ROADMAP Queue 1 item 9)."""
-    _check_opd(table, specs, state, aux, "K9 (opd_adjoint)")
+    take opd_adjoint_reference."""
+    _check_opd(specs, state, aux)
     for name, c in zip(("ct_k", "ct_lx", "ct_ly"), cts):
         _check_vector(c, state, name)
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
+    na, no = _table_widths(table)
+    nq = OPD_SLOTS + na + no
     if x.device.type == "cpu":
         pg, st, gc = opd_adjoint_reference(table, specs, state, aux, cts,
                                            clip)
-        pg = torch.where(CS.live_mask(CS.opd_live_slots(specs, fields),
-                                      OPD_SLOTS), pg, 0.)
+        live = CS.live_mask(CS.opd_live_slots(specs, fields, (na, no)), nq)
+        pg = torch.where(live, pg, 0.)
         return (pg, st, gc) if rays else (pg, None, gc)
     device, n, stream = spec_launch(state)
     kern = _opd_adjoint_kernel(specs, x.dtype, bool(clip), fields,
-                               bool(rays))
+                               bool(rays), figure_widths(table, specs))
     tab = packed(table, specs, x)
     nsurf = len(specs)
+    # the key's columns: OPD_SLOTS, and the coefficients of a figured key
+    kq = kern.key.slots
     if not n:
-        out = torch.zeros(nsurf*OPD_SLOTS + 3, dtype=x.dtype, device=device)
+        out = torch.zeros(nsurf*kq + 3, dtype=x.dtype, device=device)
         st = tuple(torch.zeros_like(x) for _ in range(6)) if rays else None
     else:
         grid = kern.grid(n, device)
-        out = torch.empty(nsurf*OPD_SLOTS + 3, dtype=x.dtype, device=device)
+        out = torch.empty(nsurf*kq + 3, dtype=x.dtype, device=device)
         partials = torch.empty((grid, kern.key.nlive + 3), dtype=x.dtype,
                                device=device)
         st = tuple(torch.empty_like(x) for _ in range(6)) if rays else None
@@ -1114,8 +1135,10 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
                            *((o.data_ptr() for o in st) if rays
                              else (None,)*6), n, grid, stream))
         opd_adjoint.launches += 1
-    return (out[:nsurf*OPD_SLOTS].view(nsurf, OPD_SLOTS), st,
-            out[nsurf*OPD_SLOTS:])
+    # a key of a table with no aspheric row has no coefficient slots
+    pg = torch.nn.functional.pad(out[:nsurf*kq].view(nsurf, kq),
+                                 (0, nq - kq))
+    return pg, st, out[nsurf*kq:]
 
 
 opd_adjoint.launches = 0
@@ -1133,7 +1156,7 @@ class _SpotMoments(torch.autograd.Function):
         params, state, w = tensors[:7], tensors[7:13], tensors[13]
         ctx.table, ctx.specs, ctx.clip, ctx.multi = table, specs, clip, multi
         ctx.save_for_backward(*tensors)
-        tab = table.replace(**dict(zip(_SPOT_DIFF, params)))
+        tab = table.replace(**dict(zip(_DIFF, params)))
         fwd = weighted_moments_multi if multi else weighted_moments
         return fwd(tab, specs, state, w, clip)
 
@@ -1141,10 +1164,10 @@ class _SpotMoments(torch.autograd.Function):
     def backward(ctx, ct):
         tensors = ctx.saved_tensors
         params, state, w = tensors[:7], tensors[7:13], tensors[13]
-        tab = ctx.table.replace(**dict(zip(_SPOT_DIFF, params)))
+        tab = ctx.table.replace(**dict(zip(_DIFF, params)))
         # K5/K7 reduce only the slots autograd asks for, and write the
         # ray and weight cotangents only when they are wanted
-        need = dict(zip(_SPOT_DIFF, ctx.needs_input_grad[4:11]))
+        need = dict(zip(_DIFF, ctx.needs_input_grad[4:11]))
         fields = tuple(f for f in CS.FIELDS if need[f])
         adjoint = merit_adjoint_multi if ctx.multi else merit_adjoint
         pg, ct_state, ct_w = adjoint(tab, ctx.specs, state, w,
@@ -1153,15 +1176,11 @@ class _SpotMoments(torch.autograd.Function):
                                      rays=any(ctx.needs_input_grad[11:18]))
         if ct_state is None:
             ct_state = (None,)*6
-        # K7 takes no aspheric row: its coefficients' cotangents are zero
-        na, no = params[5].shape[-1], params[6].shape[-1]
-        asp = pg[..., SLOTS:SLOTS + na] if pg.shape[-1] > SLOTS else \
-            torch.zeros_like(params[5])
-        aspo = pg[..., SLOTS + na:SLOTS + na + no] \
-            if pg.shape[-1] > SLOTS else torch.zeros_like(params[6])
+        na = params[5].shape[-1]
         grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
                  pg[..., 5], torch.zeros_like(params[4]),
-                 asp.contiguous(), aspo.contiguous())
+                 pg[..., SLOTS:SLOTS + na].contiguous(),
+                 pg[..., SLOTS + na:].contiguous())
         return (None, None, None, None, *grads, *ct_state, ct_w)
 
 
@@ -1258,7 +1277,7 @@ def _moments(table, specs, state, w, clip, multi):
     _warn_baked_params(specs, params)
     x = state[0]
     diff = [getattr(table, f).to(device=x.device, dtype=x.dtype)
-            for f in _SPOT_DIFF]
+            for f in _DIFF]
     w = torch.as_tensor(w).to(device=x.device, dtype=x.dtype)
     return _SpotMoments.apply(_constant_table(table, x), specs, bool(clip),
                               multi, *diff, *state, w)
@@ -1322,7 +1341,7 @@ class _OpdRays(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, specs, clip, *tensors):
-        params, state, aux = tensors[:5], tensors[5:11], tensors[11]
+        params, state, aux = tensors[:7], tensors[7:13], tensors[13]
         ctx.table, ctx.specs, ctx.clip = table, specs, clip
         ctx.save_for_backward(*tensors)
         tab = table.replace(**dict(zip(_DIFF, params)))
@@ -1331,21 +1350,23 @@ class _OpdRays(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_k, ct_lx, ct_ly):
         tensors = ctx.saved_tensors
-        params, state, aux = tensors[:5], tensors[5:11], tensors[11]
+        params, state, aux = tensors[:7], tensors[7:13], tensors[13]
         tab = ctx.table.replace(**dict(zip(_DIFF, params)))
         # K9 reduces only the slots autograd asks for (and the centre's
         # three: the sphere centre's trace may need them), and writes the
         # ray cotangents only when they are wanted
         need = ctx.needs_input_grad
-        fields = tuple(f for f, nd in zip(CS.OPD_FIELDS, need[3:8]) if nd)
+        fields = tuple(f for f, nd in zip(_DIFF, need[3:10]) if nd)
         pg, ct_state, ct_c = opd_adjoint(
             tab, ctx.specs, state, aux,
             tuple(c.contiguous() for c in (ct_k, ct_lx, ct_ly)), ctx.clip,
-            fields=fields, rays=any(need[8:14]))
+            fields=fields, rays=any(need[10:16]))
         if ct_state is None:
             ct_state = (None,)*6
+        na = params[5].shape[-1]
         grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
-                 pg[:, 6])
+                 pg[:, 6], pg[:, OPD_SLOTS:OPD_SLOTS + na].contiguous(),
+                 pg[:, OPD_SLOTS + na:].contiguous())
         # radius and lam_scale are constants of the merit
         ct_aux = torch.cat([ct_c, torch.zeros_like(ct_c[:2])])
         return (None, None, None, *grads, *ct_state, ct_aux)
@@ -1366,8 +1387,9 @@ def adjoint_opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
     finite=False input-plane term -n0 (y0 . u0[ref])/lam_scale and the
     k - k[ref] difference stay outside the kernel, so gradients reach
     the sphere placement and the bundle exactly as in the plain engine.
-    Gradients reach curvature, conic, offset, mu and n_before (K9's
-    slots), the rays, and through tables.lower_pose decenter; a rot or
+    Gradients reach curvature, conic, offset, mu, n_before, aspherics
+    and aspherics_odd (K9's slots), the rays, and through
+    tables.lower_pose decenter; a rot or
     tilt that requires grad while a spec row is rotated raises
     NotImplementedError."""
     from .geometric import trace_rays_final

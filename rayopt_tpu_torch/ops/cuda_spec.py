@@ -23,17 +23,18 @@ headers, the flags and the unit's text.  This is how the JAX package's
 Pallas kernels are specialized too: on specs, clip and diff_fields, and
 K3's and K6's wavelengths.
 
-K1, K2, K4 and K5 also take even- and odd-aspheric rows: their keys
-carry the table's coefficient widths (Key.na, Key.no; cuda_trace.
-figure_widths, 0 and 0 without an aspheric row), which the translation
-unit defines before the headers, so that a packed row grows by na + no
-words and the Newton's Horner loops have compile-time bounds.  K3 and
-K6-K9 refuse an aspheric row (NotImplementedError, ROADMAP Queue 1 item
-9), as every key refuses the anamorphic, grating, DOE and freeform rows.
+Every K1-K9 key also takes even- and odd-aspheric rows: it carries the
+table's coefficient widths (Key.na, Key.no; cuda_trace.figure_widths, 0
+and 0 without an aspheric row), which the translation unit defines
+before the headers, so that a packed row grows by na + no words and the
+Newton's Horner loops have compile-time bounds.  Every key refuses the
+anamorphic, grating, DOE and freeform rows (NotImplementedError, ROADMAP
+Queue 1 item 9).
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
-K7's six cotangent columns, then a figured K5 key's na even and no odd
-coefficients; K9 adds n_before) are the fields asked for, minus what the
+K7's six cotangent columns, then a figured key's na even and no odd
+coefficients; K9 puts n_before between the six and the coefficients,
+OPD_SLOTS + na + no a row) are the fields asked for, minus what the
 row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
 row, conic of a flat or spherical row -- both live on an aspheric row,
 whose Newton reads them through the sag --, the transverse offset of an
@@ -73,20 +74,20 @@ from .cuda_trace import ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, figure_widths, \
 
 LIVE_SHIFT = 10    # a row word's live slots: keep in sync with grad_spec.cuh
 LIVE_BITS = 31 - LIVE_SHIFT   # the slots a row word can hold
-SLOTS = 6          # K5's and K7's cotangent columns a row (a figured K5
+SLOTS = 6          # K5's and K7's cotangent columns a row (a figured
 #                    key adds its table's aspheric coefficients)
-OPD_SLOTS = 7      # K9's: SLOTS and n_before
-#: the table field of each of K9's cotangent columns (K5/K7: the first
-#: SLOTS, then K5's even and odd aspheric coefficients)
+OPD_SLOTS = 7      # K9's: SLOTS and n_before (then a figured key's
+#                    coefficients)
+#: the table field of each of K9's first OPD_SLOTS cotangent columns
+#: (K5/K7: the first SLOTS); the even, then the odd aspheric
+#: coefficients follow them
 SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
                "n_before")
-#: the fields K5 and K7 differentiate (K7 and every K5 key of a table
-#: with no aspheric row: the first four)
+#: the fields K5 and K7 differentiate (a key of a table with no aspheric
+#: row: the first four)
 FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd")
-#: the fields K9 differentiates
-OPD_FIELDS = FIELDS[:4] + ("n_before",)
-#: the kernels whose keys take even- and odd-aspheric rows
-FIGURED_KERNELS = ("k1", "k2", "k4", "k5")
+#: the fields K9 differentiates, in the order of cuda_grad._DIFF
+OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:]
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
            "df32_common.cuh", "df32_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
@@ -171,26 +172,35 @@ def baked_out_rows(specs, field):
     return [j for j, sp in enumerate(specs) if j and baked(sp)]
 
 
+def _coefficients(widths):
+    """The slot fields of a figured key's na even and no odd
+    coefficients."""
+    na, no = widths
+    return ("aspherics",)*na + ("aspherics_odd",)*no
+
+
 def live_slots(specs, fields=FIELDS, widths=(0, 0)):
     """One mask a row of the slots K5 and K7 reduce -- SLOTS bits, then
     with `widths` = (na, no) (the key's, figure_widths) one a
     coefficient: the `fields` asked for, minus the rows the specs bake
     them out of (the axial offset, slot 4, never is; baked_out_rows).
     Row 0 has none."""
-    na, no = widths
-    return _live_slots(specs, fields, FIELDS, SLOT_FIELDS[:SLOTS]
-                       + ("aspherics",)*na + ("aspherics_odd",)*no)
+    return _live_slots(specs, fields, FIELDS,
+                       SLOT_FIELDS[:SLOTS] + _coefficients(widths))
 
 
-def opd_live_slots(specs, fields=OPD_FIELDS):
-    """One 7-bit mask a row of the slots K9 reduces: live_slots with
-    n_before (slot 6) on every row but row 0, except on the image row,
-    which the reference-sphere tail reads only through its offset (the
-    transverse part only off axis) and its n_before."""
+def opd_live_slots(specs, fields=OPD_FIELDS, widths=(0, 0)):
+    """One mask a row of the slots K9 reduces -- OPD_SLOTS bits, then
+    with `widths` one a coefficient (live_slots' layout with n_before,
+    slot 6, between mu and the coefficients): live_slots' rule with
+    n_before on every row but row 0, except on the image row, which the
+    reference-sphere tail reads only through its offset (the transverse
+    part only off axis) and its n_before."""
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
-    masks = list(_live_slots(specs, fields, OPD_FIELDS, SLOT_FIELDS))
+    masks = list(_live_slots(specs, fields, OPD_FIELDS,
+                             SLOT_FIELDS + _coefficients(widths)))
     tail = (1 << 4) | (1 << 6) | ((1 << 2) | (1 << 3)
                                   if specs[-1].off_axis else 0)
     masks[-1] &= tail
@@ -233,8 +243,8 @@ class Key(NamedTuple):
     launch traces (K3's and K6's wavelengths; 1 for every other kernel,
     K7 included: it stages one table at a time), whether K3's trace
     runs the wavelengths outermost, and the even and odd aspheric
-    coefficients a row carries (na, no: a figured table's widths, K1,
-    K2, K4 and K5 only; 0 and 0 without an aspheric row)."""
+    coefficients a row carries (na, no: a figured table's widths; 0 and
+    0 without an aspheric row)."""
 
     kernel: str
     dtype: str
@@ -272,8 +282,10 @@ class Key(NamedTuple):
 
     @property
     def slots(self):
-        """K5's cotangent columns a row: SLOTS and the coefficients."""
-        return SLOTS + self.na + self.no
+        """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS)
+        and the coefficients."""
+        return (OPD_SLOTS if self.kernel == "k9" else SLOTS) \
+            + self.na + self.no
 
     @property
     def nlive(self):
@@ -317,14 +329,11 @@ def _dtype_name(dtype):
 
 
 def _words(specs, masks=None, kernel="k1"):
-    """A key's row words; a row the kernel does not trace raises
+    """A key's row words; a row the kernels do not trace raises
     NotImplementedError (item 9): the anamorphic, grating, DOE and
-    freeform rows everywhere, the aspheric rows outside
-    FIGURED_KERNELS."""
-    figured = kernel in FIGURED_KERNELS
+    freeform rows."""
     for j, spec in enumerate(specs[1:], 1):
-        K.check_supported(spec, j, figured=figured,
-                          what=kernel.upper() + "'s key")
+        K.check_supported(spec, j, what=kernel.upper() + "'s key")
     flags = [_flags(s) for s in specs]
     if masks is None:
         return tuple(flags)
@@ -342,15 +351,17 @@ def _static(key):
     return key
 
 
-def _widths(specs, widths):
+def _widths(specs, widths, slots=SLOTS):
     """A key's (na, no): (0, 0) without an aspheric row (whatever the
-    table's widths), else `widths` (figure_widths of the table)."""
+    table's widths), else `widths` (figure_widths of the table), refused
+    when `slots` (K9: OPD_SLOTS) and the coefficients are more than a row
+    word holds."""
     if not any(K.is_figured(s) for s in specs[1:]):
         return (0, 0)
     na, no = (int(w) for w in widths)
-    if na < 0 or no < 0 or SLOTS + na + no > LIVE_BITS:
+    if na < 0 or no < 0 or slots + na + no > LIVE_BITS:
         raise ValueError("aspheric widths %s: a row word holds %d slots, "
-                         "SLOTS + na + no" % ((na, no), LIVE_BITS))
+                         "%d + na + no" % ((na, no), LIVE_BITS, slots))
     if (any(s.aspheric for s in specs) and not na) or \
             (any(s.odd for s in specs) and not no):
         raise ValueError("aspheric widths %s: an even (odd) aspheric row "
@@ -370,15 +381,19 @@ def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
                        na=na, no=no))
 
 
-def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS):
+def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
+            widths=(0, 0)):
     """The K8 key of a spec tuple: object, exit and image rows at least
-    (the chain runs rows 1..S-2, the sphere tail the image row)."""
+    (the chain runs rows 1..S-2, the sphere tail the image row);
+    `widths` as trace_key's."""
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
-    return _static(Key("k8", _dtype_name(dtype), _words(specs, kernel="k8"),
-                       bool(clip), False, int(block or BLOCK_TRACE),
-                       int(min_blocks)))
+    words = _words(specs, kernel="k8")
+    na, no = _widths(specs, widths)
+    return _static(Key("k8", _dtype_name(dtype), words, bool(clip), False,
+                       int(block or BLOCK_TRACE), int(min_blocks),
+                       na=na, no=no))
 
 
 def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
@@ -419,43 +434,50 @@ def moments_key(specs, dtype, clip=False, block=None,
 
 
 def moments_multi_key(specs, dtype, clip, nlam, block=None,
-                      min_blocks=MIN_BLOCKS):
+                      min_blocks=MIN_BLOCKS, widths=(0, 0)):
     """The K6 key of the spec tuple a stack of `nlam` tables shares (the
-    first wavelength's, cuda_trace.multi_specs)."""
-    return _moments("k6", specs, dtype, clip, nlam, block, min_blocks)
+    first wavelength's, cuda_trace.multi_specs); `widths` as
+    trace_key's."""
+    return _moments("k6", specs, dtype, clip, nlam, block, min_blocks,
+                    widths)
 
 
 def trace_multi_key(specs, dtype, nlam, merit=False, block=None,
-                    min_blocks=MIN_BLOCKS, outer=None):
+                    min_blocks=MIN_BLOCKS, outer=None, widths=(0, 0)):
     """The K3 key of the spec tuple a stack of `nlam` tables shares (the
     first wavelength's, cuda_trace.multi_specs): its merit mode ("k3m",
     K6's template unweighted) or its trace ("k3", wavelengths outermost
     as MULTI_OUTER when `outer` is None); block BLOCK_MULTI's for the
-    mode and dtype when None.  No clip, as the TPU kernel.  Refused past
-    MAX_NLAM wavelengths or past static shared memory (multi_most: the
-    stack a key takes)."""
+    mode and dtype when None; `widths` as trace_key's.  No clip, as the
+    TPU kernel.  Refused past MAX_NLAM wavelengths or past static shared
+    memory (multi_most: the stack a key takes)."""
     kernel = "k3m" if merit else "k3"
     block = int(block or BLOCK_MULTI[kernel][_dtype_name(dtype)])
     if merit:
         if outer:
             raise ValueError("K3's merit reads each ray once: it has no "
                              "outer order")
-        return _moments(kernel, specs, dtype, False, nlam, block, min_blocks)
-    key = Key(kernel, _dtype_name(dtype), _words(specs, kernel=kernel),
-              False, False, block, int(min_blocks), int(nlam),
-              MULTI_OUTER if outer is None else bool(outer))
+        return _moments(kernel, specs, dtype, False, nlam, block, min_blocks,
+                        widths)
+    words = _words(specs, kernel=kernel)
+    na, no = _widths(specs, widths)
+    key = Key(kernel, _dtype_name(dtype), words, False, False, block,
+              int(min_blocks), int(nlam),
+              MULTI_OUTER if outer is None else bool(outer), na, no)
     return _static(_unrolled(key))
 
 
-def multi_most(kernel, specs, dtype, block=None):
+def multi_most(kernel, specs, dtype, block=None, widths=(0, 0)):
     """The most wavelengths one key of `kernel` ("k3", "k3m" or "k6")
-    takes for this spec tuple: MAX_NLAM, or fewer where that many
-    tables (and the moments' block reduction) outgrow static shared
-    memory; 0 when one table alone does."""
+    takes for this spec tuple (and `widths`, a figured key's grown
+    rows): MAX_NLAM, or fewer where that many tables (and the moments'
+    block reduction) outgrow static shared memory; 0 when one table
+    alone does."""
     dt = _dtype_name(dtype)
+    na, no = _widths(specs, widths)
     one = Key(kernel, dt, (0,)*len(specs), False, False,
               int(block or BLOCK_MULTI.get(kernel, {}).get(
-                  dt, BLOCK_MOMENTS)))
+                  dt, BLOCK_MOMENTS)), na=na, no=no)
     # a key's static shared memory grows by one table's (and 5 reduced
     # moments') words a wavelength
     return min(MAX_NLAM, SMEM_LIMIT//one.shared_bytes)
@@ -490,20 +512,24 @@ def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
 
 
 def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
-                      block=None, min_blocks=MIN_BLOCKS):
+                      block=None, min_blocks=MIN_BLOCKS, widths=(0, 0)):
     """The K7 key of the spec tuple a stack of tables shares, as
     adjoint_key (the wavelength count is not part of it)."""
-    return _adjoint("k7", specs, live_slots(specs, fields), dtype, clip,
-                    rays, block, min_blocks)
+    widths = _widths(specs, widths)
+    return _adjoint("k7", specs, live_slots(specs, fields, widths), dtype,
+                    clip, rays, block, min_blocks, widths)
 
 
 def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_FIELDS, rays=True,
-                    block=None, min_blocks=MIN_BLOCKS):
+                    block=None, min_blocks=MIN_BLOCKS, widths=(0, 0)):
     """The K9 key of a spec tuple, the fields whose cotangents are
-    wanted (see opd_live_slots) and whether the ray cotangents are; the
-    three centre cotangents are always reduced."""
-    return _adjoint("k9", specs, opd_live_slots(specs, fields), dtype, clip,
-                    rays, block, min_blocks)
+    wanted (see opd_live_slots), whether the ray cotangents are, and
+    `widths` as trace_key's (a figured key's rows reduce their aspheric
+    coefficients after n_before; OPD_SLOTS + na + no must fit a row
+    word); the three centre cotangents are always reduced."""
+    widths = _widths(specs, widths, OPD_SLOTS)
+    return _adjoint("k9", specs, opd_live_slots(specs, fields, widths),
+                    dtype, clip, rays, block, min_blocks, widths)
 
 
 class Df32Key(NamedTuple):

@@ -25,9 +25,9 @@ five count moments.  It replaces `pallas_trace._multi_kernel`, and is
 compiled per (dtype, spec tuple, wavelength count) key too: its merit
 mode is K2's template at the stack's wavelengths, its trace K1's chain
 once a wavelength.  A stack past one key's wavelengths (cuda_spec.
-multi_most) runs in balanced runs, one launch each.  K3 does not trace
-aspheric rows yet (ROADMAP Queue 1 item 9): its wrapper refuses them
-on either device.
+multi_most) runs in balanced runs, one launch each.  K3 traces the
+aspheric rows as K1 does, its key carrying the stack's coefficient
+widths.
 
 The kernels are hand-written CUDA C++ (csrc/grad_spec.cuh), built with
 nvcc for sm_90a at first use (ops.cuda_build, ops.cuda_spec) and
@@ -138,16 +138,6 @@ def figure_widths(table, specs):
         return (0, 0)
     return (int(table.aspherics.shape[-1]),
             int(table.aspherics_odd.shape[-1]))
-
-
-def refuse_figured(specs, kernel):
-    """Raise NotImplementedError (ROADMAP Queue 1 item 9) for an even-
-    or odd-aspheric row of `specs`: `kernel` (K3, K6-K9) does not trace
-    one yet.  Its wrapper calls this on either device, so that a CPU
-    bundle, whose plain version would trace the row, refuses as the
-    card's key does."""
-    for j, spec in enumerate(specs[1:], 1):
-        K.check_supported(spec, j, figured=False, what=kernel)
 
 
 def pack_values(table, dtype, device, widths=(0, 0)):
@@ -279,23 +269,26 @@ trace_merit.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _multi_kernel(specs, dtype, nlam, merit):
+def _multi_kernel(specs, dtype, nlam, merit, widths=(0, 0)):
     from . import cuda_spec as CS     # cuda_spec imports this module
-    return CS.load(CS.trace_multi_key(specs, dtype, nlam, merit))
+    return CS.load(CS.trace_multi_key(specs, dtype, nlam, merit,
+                                      widths=widths))
 
 
-def _multi_runs(specs, dtype, nlam, merit):
-    """K3's launches for a stack of nlam tables: (l0, l1, loaded key) of
-    each balanced run (cuda_spec.runs: 12 -> 6 + 6, 13 -> 7 + 6) of at
-    most cuda_spec.multi_most wavelengths, equal runs on one key.  Each
-    merit run reads the rays again, the price of the split (the trace,
+def _multi_runs(specs, dtype, nlam, merit, widths=(0, 0)):
+    """K3's launches for a stack of nlam tables (`widths` the stack's,
+    figure_widths): (l0, l1, loaded key) of each balanced run
+    (cuda_spec.runs: 12 -> 6 + 6, 13 -> 7 + 6) of at most
+    cuda_spec.multi_most wavelengths, equal runs on one key.  Each merit
+    run reads the rays again, the price of the split (the trace,
     wavelengths outermost, reads them once a wavelength anyway)."""
     from . import cuda_spec as CS
     kernel = "k3m" if merit else "k3"
-    most = CS.multi_most(kernel, specs, dtype)
+    most = CS.multi_most(kernel, specs, dtype, widths=widths)
     if most < 1:
-        CS.trace_multi_key(specs, dtype, 1, merit)   # raises, saying why
-    return [(l0, l1, _multi_kernel(specs, dtype, l1 - l0, merit))
+        # raises, saying why
+        CS.trace_multi_key(specs, dtype, 1, merit, widths=widths)
+    return [(l0, l1, _multi_kernel(specs, dtype, l1 - l0, merit, widths))
             for l0, l1 in CS.runs(nlam, most)]
 
 
@@ -311,10 +304,8 @@ def trace_multi(tables, specs, state, merit=False):
     launch, the merit's grid-wide sum fused), a stack past one key's
     wavelengths in balanced runs, one launch each, every run writing
     its wavelengths' slice (_multi_runs); CPU bundles take
-    trace_multi_reference.  An aspheric row raises NotImplementedError
-    on either device (refuse_figured)."""
+    trace_multi_reference."""
     _check_state(state)
-    refuse_figured(multi_specs(tables, specs), "K3 (trace_multi)")
     x = state[0]
     if x.device.type == "cpu":
         return trace_multi_reference(tables, specs, state, merit)
@@ -322,7 +313,8 @@ def trace_multi(tables, specs, state, merit=False):
     device, n, stream = spec_launch(state)
     specs = multi_specs(tables, specs)
     nlam = tables.curvature.shape[0]
-    runs = _multi_runs(specs, x.dtype, nlam, merit)
+    runs = _multi_runs(specs, x.dtype, nlam, merit,
+                       figure_widths(tables, specs))
     if merit:
         out = torch.cat([launch_moments(kern, table_at(tables, slice(l0, l1)),
                                         specs, state)

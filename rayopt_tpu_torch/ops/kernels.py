@@ -311,8 +311,6 @@ class SurfaceSpec(NamedTuple):
 ITEM9 = "ROADMAP Queue 1 item 9"
 #: SurfaceSpec flags of the extended vocabulary, not ported yet
 EXTENDED = ("biconic", "toroidal", "grating", "doe", "freeform", "cyl_axis")
-#: the figured rows: the seeded Newton intercept and its radial normal
-FIGURED = ("aspheric", "odd")
 
 
 def is_figured(spec):
@@ -320,13 +318,11 @@ def is_figured(spec):
     return bool(spec.aspheric or spec.odd)
 
 
-def check_supported(spec, j=None, figured=True, what="rayopt_tpu_torch"):
+def check_supported(spec, j=None, what="rayopt_tpu_torch"):
     """Raise NotImplementedError, naming ROADMAP Queue 1 item 9, for a
-    row that needs the extended surface vocabulary -- or, with
-    figured=False (the kernels that do not trace aspheric rows yet,
-    named by `what`), an even- or odd-aspheric row."""
-    flags = EXTENDED if figured else FIGURED + EXTENDED
-    used = [f for f in flags if getattr(spec, f)]
+    row that needs the extended surface vocabulary (`what`: the engine
+    or key that does not trace it)."""
+    used = [f for f in EXTENDED if getattr(spec, f)]
     if used:
         raise NotImplementedError(
             "surface row %s uses %s, which %s does not trace yet (%s)"

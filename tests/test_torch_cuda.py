@@ -1505,13 +1505,8 @@ def test_polychromatic_adjoint_past_max_nlam_on_card(cuda_device, nlam):
 
 # -- the aspheric rows: K1, K2, K4 and K5 on figured keys ------------------
 
-def _aspheric_case(name, device, dtype):
-    """(table, specs, bundle, weights) of an aspheric lens: the JAX
-    package's aspheric double Gauss (two conics and an even asphere on
-    row 7, tests/test_df32.py) or odd singlet (an even and odd figure
-    on a conic front, tests/test_pallas.py), on 2^16 rays uniform in its
-    aperture, none exactly on the axis (an odd figure's gradient is NaN
-    there, as the reference's)."""
+def _aspheric_system(name):
+    """(system, half-width of its bundle in mm) of an aspheric lens."""
     from rayopt_tpu_torch import Spheroid, System, air
     if name == "double_gauss":
         s = double_gauss()
@@ -1532,6 +1527,17 @@ def _aspheric_case(name, device, dtype):
         s.wavelengths = [587.56e-9]
         height = 8.
     s.update()
+    return s, height
+
+
+def _aspheric_case(name, device, dtype):
+    """(table, specs, bundle, weights) of an aspheric lens: the JAX
+    package's aspheric double Gauss (two conics and an even asphere on
+    row 7, tests/test_df32.py) or odd singlet (an even and odd figure
+    on a conic front, tests/test_pallas.py), on 2^16 rays uniform in its
+    aperture, none exactly on the axis (an odd figure's gradient is NaN
+    there, as the reference's)."""
+    s, height = _aspheric_system(name)
     tab = s.table()
     rng = np.random.RandomState(8)
     n = 1 << 16
@@ -1655,3 +1661,124 @@ def test_aspheric_designer_step_on_card(cuda_device):
         g, r = grads["gpu"][k], grads["cpu"][k]
         assert float(r.abs().max()) > 0, k
         assert float((g - r).abs().max()) <= 1e-8*float(r.abs().max()), k
+
+
+# -- the aspheric rows: K3, K6, K7, K8 and K9 on figured keys ---------------
+
+def _aspheric_stack(name, tab):
+    """A stack of 3 tables of an aspheric lens: the double Gauss's 3
+    wavelengths; the singlet (one wavelength of a constant index) with
+    its refracting rows' mu grown by 0, 1 and 2 % of mu - 1."""
+    from rayopt_tpu_torch.ops.tables import stack_tables
+    if name == "double_gauss":
+        return _aspheric_system(name)[0].tables()
+    return stack_tables([tab.replace(mu=1 + (tab.mu - 1)*(1 + .01*li))
+                         for li in range(3)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["double_gauss", "odd_singlet"])
+def test_aspheric_multi_and_opd_kernels_match_plain_on_card(cuda_device,
+                                                            name, dtype):
+    """K3 (trace and merit), K6, K7, K8 and K9 on an aspheric lens's
+    figured keys (3 tables for the stacked kernels; ray 0 the chief ray,
+    off the axis) against their plain versions on the card: float64
+    traces and moments to 1e-12, K7's and K9's cotangents to 1e-9 of
+    each column's largest (float32: 5e-5 mm, 1e-4 of the moments' and
+    1e-2 of the cotangents' scale; the same dead rays in float64, at
+    most 1 in 10^4 rays judged otherwise in float32); the coefficient
+    cotangents come back on the aspheric rows only, each wrapper
+    launches once."""
+    tab, specs, state, w = _aspheric_case(name, cuda_device, dtype)
+    tabs = _aspheric_stack(name, tab)
+    widths = CT.figure_widths(tab, specs)
+    state = tuple(c.clone() for c in state)
+    for c, v in zip(state, (.5, .3, 0., 0., 0., 1.)):
+        c[0] = v
+    f64 = dtype == torch.float64
+    tol, mtol, gtol = (1e-12, 1e-12, 1e-9) if f64 else (5e-5, 1e-4, 1e-2)
+    wrappers = (CT.trace_multi, CG.weighted_moments_multi,
+                CG.merit_adjoint_multi, CG.opd_chain, CG.opd_adjoint)
+    before = [f.launches for f in wrappers]
+    got = CT.trace_multi(tabs, specs, state)
+    mom = CT.trace_multi(tabs, specs, state, merit=True)
+    wm = CG.weighted_moments_multi(tabs, specs, state, w)
+    ref = CT.trace_multi_reference(tabs, specs, state)
+    mref = CT.trace_multi_reference(tabs, specs, state, merit=True)
+    wref = CG.weighted_moments_multi_reference(tabs, specs, state, w)
+    ct = torch.stack([_rms_cotangent(m) for m in wref])
+    pg, cst, cw = CG.merit_adjoint_multi(tabs, specs, state, w, ct)
+    pref, sref, cwref = CG.merit_adjoint_multi_reference(tabs, specs, state,
+                                                         w, ct)
+    # the reference sphere: centred on the chief ray's image point, the
+    # exit pupil's radius, the first wavelength's scale
+    s, _ = _aspheric_system(name)
+    chief, _ = CT.trace_final_reference(tab, specs,
+                                        tuple(c[:1] for c in state))
+    aux = torch.cat([torch.cat(chief[:3]), torch.tensor(
+        [-s.image.pupil.distance, s.wavelengths[0]/s.scale], dtype=dtype,
+        device=cuda_device)])
+    k = CG.opd_chain(tab, specs, state, aux)
+    kref = CG.opd_chain_reference(tab, specs, state, aux)
+    live = torch.isfinite(kref[0]) & torch.isfinite(k[0])
+    cts = (torch.where(live, 1e-3*w, 0.), torch.where(live, w, 0.),
+           torch.where(live, -w, 0.))
+    qg, qst, qc = CG.opd_adjoint(tab, specs, state, aux, cts)
+    qref, qsref, qcref = CG.opd_adjoint_reference(tab, specs, state, aux,
+                                                  cts)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [b + n for b, n in zip(
+        before, (2, 1, 1, 1, 1))]
+    for li in range(3):
+        for g, r in zip((*got[li][0], got[li][1]), (*ref[li][0], ref[li][1])):
+            g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+            if f64:
+                nptest.assert_array_equal(np.isnan(g), np.isnan(r))
+            ok = np.isfinite(g) & np.isfinite(r)
+            assert ok.mean() > .5
+            nptest.assert_allclose(g[ok], r[ok], atol=tol*100, rtol=tol)
+        for a, b in ((torch.stack(mom[li]), torch.stack(mref[li])),
+                     (wm[li], wref[li])):
+            assert abs(float(a[0] - b[0])) <= (mtol*float(b[0]) if f64
+                                               else 1e-5*float(b[0]) + 1)
+            nptest.assert_allclose(float(CT.spot_rms_from_moments(*a)),
+                                   float(CT.spot_rms_from_moments(*b)),
+                                   rtol=1e-10 if f64 else mtol)
+    na, no = widths
+    fig = [j for j, s in enumerate(specs) if s.aspheric or s.odd]
+    others = [j for j in range(tab.nsurfaces) if j not in fig]
+    assert pg.shape == pref.shape == (3, tab.nsurfaces, CG.SLOTS + na + no)
+    assert qg.shape == qref.shape == (tab.nsurfaces, CG.OPD_SLOTS + na + no)
+    assert bool(pg[:, fig, CG.SLOTS:].any()) and bool(qg[fig, 7:].any())
+    assert not pg[:, others, CG.SLOTS:].any() and not qg[others, 7:].any()
+    for g, r in [(pg[li], pref[li]) for li in range(3)] + [(qg, qref)]:
+        for col in range(g.shape[1]):
+            assert torch.isfinite(g[:, col]).all()
+            if float(r[:, col].abs().max()):
+                assert _max_rel(g[:, col], r[:, col]) <= gtol, col
+    nptest.assert_allclose(qc.double().cpu().numpy(),
+                           qcref.double().cpu().numpy(), rtol=gtol,
+                           atol=gtol*float(qcref.abs().max()))
+    # every ray cotangent is finite and a dead ray's are all zero: in
+    # float64 the kernels hold the same rays live as the plain versions,
+    # in float32 at most 1 in 10^4 rays may differ (a ray on the edge of
+    # the Newton's convergence); the rays live in both are compared
+    n = state[0].shape[0]
+    for got_, want_, groups in (((*cst, cw), (*sref, cwref),
+                                 ((0, 6), (6, 7))),
+                                (qst, qsref, ((0, 6),))):
+        alive, alive_ref = (torch.stack([c != 0 for c in v]).any(0)
+                            for v in (got_, want_))
+        flips = int((alive != alive_ref).sum())
+        assert flips <= (0 if f64 else n // 10000), flips
+        live_ = alive & alive_ref
+        assert float(live_.double().mean()) > .5
+        for a, b in groups:
+            scale = max(float(r.abs().max()) for r in want_[a:b])
+            for g, r in zip(got_[a:b], want_[a:b]):
+                assert bool(torch.isfinite(g).all())
+                assert float((g - r)[live_].abs().max()) <= gtol*scale
+    kk, kr = k[0][live].double(), kref[0][live].double()
+    assert float((kk - kr).abs().max()) <= (
+        tol if f64 else 4e-6)*float(kr.abs().max())

@@ -5,8 +5,10 @@ autograd of the plain step, an on-axis ray and a ray the Newton does
 not converge included; the whole K5 chain by hand against its plain
 version; the K1, K2, K4 and K5 keys of aspheric spec tuples (flags,
 coefficient widths, live slots, the translation unit's words); the
-refusals of K3, K6-K9 and the df32 plan (ROADMAP Queue 1 item 9) and of
-the anamorphic rows everywhere; the adjoint engine's gradient and
+aspheric keys and wrappers of K3 and K6-K9 (their checks against the
+JAX package: tests/test_torch_spec_asphere_paths.py), the refusals of
+the df32 plan (ROADMAP Queue 1 item 9) and of the anamorphic rows
+everywhere; the adjoint engine's gradient and
 optimize_grad(engine="adjoint") over aspheric coefficients against the
 JAX package.  float64; tolerances as stated at each check.  The kernels
 themselves build and run only on a CUDA card
@@ -346,22 +348,36 @@ def test_unfigured_keys_ignore_the_table_widths():
                      widths=(CS.LIVE_BITS, 0))
 
 
-def test_other_kernels_refuse_aspheric_rows():
-    """K3, K6, K7, K8 and K9 (keys and wrappers, the latter on the CPU
-    too) and the df32 plan raise NotImplementedError naming item 9 on an
-    aspheric row; K1, K2, K4 and K5 take it."""
+def test_all_spec_kernels_take_aspheric_rows():
+    """Every K1-K9 key takes the odd singlet's aspheric rows, carrying
+    the table's widths (K3 both modes, K6, K7, K8 and K9 too), and so do
+    their wrappers (the plain versions here: finite values where the
+    plain trace is finite); the df32 plan still raises
+    NotImplementedError naming item 9."""
     tt, specs = _figured_specs("odd_singlet")
     widths = CT.figure_widths(tt, specs)
-    for make in (lambda: CS.trace_multi_key(specs, F64, 3),
-                 lambda: CS.trace_multi_key(specs, F64, 3, merit=True),
-                 lambda: CS.moments_multi_key(specs, F64, False, 3),
-                 lambda: CS.adjoint_multi_key(specs, F64),
-                 lambda: CS.opd_key(specs, F64),
-                 lambda: CS.opd_adjoint_key(specs, F64),
-                 lambda: TD.plan(tt)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make()
+    keys = [CS.trace_key(specs, F32, widths=widths),
+            CS.merit_key(specs, F32, widths=widths),
+            CS.moments_key(specs, F64, widths=widths),
+            CS.adjoint_key(specs, F64, widths=widths),
+            CS.trace_multi_key(specs, F64, 3, widths=widths),
+            CS.trace_multi_key(specs, F64, 3, merit=True, widths=widths),
+            CS.moments_multi_key(specs, F64, False, 3, widths=widths),
+            CS.adjoint_multi_key(specs, F64, widths=widths),
+            CS.opd_key(specs, F64, widths=widths),
+            CS.opd_adjoint_key(specs, F64, widths=widths)]
+    # every kernel of csrc/grad_spec.cuh (the df32 keys: k11, k13)
+    assert sorted(k.kernel for k in keys) == sorted(
+        k for k in CS._MACROS if k not in ("k11", "k13"))
+    for key in keys:
+        assert (key.na, key.no) == widths and key.row_words == \
+            CT.ROW + sum(widths)
+        assert "#define RAYOPT_N_ASP %d\n#define RAYOPT_N_ODD %d\n" % widths \
+            in CS.translation_unit(key)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TD.plan(tt)
     y, u = np.zeros((8, 3)), np.zeros((8, 3))
+    y[:, 0] = .3
     y[:, 1] = np.linspace(-5, 5, 8)
     u[:, 2] = 1.
     state = tuple(_t(c) for c in (*y.T, *u.T))
@@ -369,27 +385,28 @@ def test_other_kernels_refuse_aspheric_rows():
     tabs = TT.stack_tables([tt, tt])
     aux = torch.tensor([0., 0., 0., -50., 1e-3], dtype=F64)
     cts = tuple(torch.ones(8, dtype=F64) for _ in range(3))
-    for call in (lambda: CT.trace_multi(tabs, specs, state),
-                 lambda: CT.trace_multi(tabs, specs, state, merit=True),
-                 lambda: CG.weighted_moments_multi(tabs, specs, state, w),
-                 lambda: CG.merit_adjoint_multi(
-                     tabs, specs, state, w, torch.ones(2, 5, dtype=F64)),
-                 lambda: CG.opd_chain(tt, specs, state, aux),
-                 lambda: CG.opd_adjoint(tt, specs, state, aux, cts),
-                 lambda: TGL.polychromatic_spot_rms(
-                     tabs, _t(y), _t(u), engine="adjoint")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
-    # the kernels of this slice take the row (plain versions here)
-    assert all(CS.Key(*k).name for k in (
-        CS.trace_key(specs, F32, widths=widths),
-        CS.merit_key(specs, F32, widths=widths),
-        CS.moments_key(specs, F64, widths=widths),
-        CS.adjoint_key(specs, F64, widths=widths)))
     out, _ = CT.trace_final(tt, specs, state)
     assert torch.isfinite(out[0]).all()
-    mom = CT.trace_merit(tt, specs, state)
-    assert float(mom[0]) == 8.
+    assert float(CT.trace_merit(tt, specs, state)[0]) == 8.
+    for (o, t), (o1, t1) in zip(CT.trace_multi(tabs, specs, state),
+                                [CT.trace_final(tt, specs, state)]*2):
+        assert all(torch.equal(a, b) for a, b in zip((*o, t), (*o1, t1)))
+    assert [float(m[0]) for m in CT.trace_multi(tabs, specs, state,
+                                                merit=True)] == [8., 8.]
+    mom = CG.weighted_moments_multi(tabs, specs, state, w)
+    assert mom.shape == (2, 5) and torch.isfinite(mom).all()
+    na, no = widths
+    pg, st, gw = CG.merit_adjoint_multi(tabs, specs, state, w,
+                                        torch.ones(2, 5, dtype=F64))
+    assert pg.shape == (2, tt.nsurfaces, CS.SLOTS + na + no)
+    assert bool((pg[:, 1, CS.SLOTS:] != 0).any())
+    k, lx, ly = CG.opd_chain(tt, specs, state, aux)
+    assert torch.isfinite(k).all()
+    pg, st, gc = CG.opd_adjoint(tt, specs, state, aux, cts)
+    assert pg.shape == (tt.nsurfaces, CS.OPD_SLOTS + na + no)
+    assert bool((pg[1, CS.OPD_SLOTS:] != 0).any()) and bool(pg[1, 6] != 0)
+    assert torch.isfinite(TGL.polychromatic_spot_rms(
+        tabs, _t(y), _t(u), engine="adjoint"))
 
 
 EXTENDED = {"biconic": dict(curvature_dx=[0., 1e-3]),
@@ -413,9 +430,17 @@ def test_extended_rows_still_raise_everywhere(name):
     state = tuple(_t(c) for c in np.zeros((6, 4)) + np.array([[0.]]*5 + [[1.]]))
     for make in (CS.trace_key, CS.merit_key, CS.moments_key,
                  CS.adjoint_key, CS.adjoint_multi_key,
-                 lambda sp, dt: CS.trace_multi_key(sp, dt, 2)):
+                 lambda sp, dt: CS.trace_multi_key(sp, dt, 2),
+                 lambda sp, dt: CS.trace_multi_key(sp, dt, 2, merit=True),
+                 lambda sp, dt: CS.moments_multi_key(sp, dt, False, 2)):
         with pytest.raises(NotImplementedError, match="item 9"):
             make(specs, F64)
+    # the OPD keys on the row and an image row behind it
+    kw3 = {k: v + [v[-1]] for k, v in kw.items()}
+    specs3 = TK.specialize(TT.table_from_numpy(JT.make_table(**kw3)))
+    for make in (CS.opd_key, CS.opd_adjoint_key):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            make(specs3, F64)
     with pytest.raises(NotImplementedError, match="item 9"):
         TK.surface_step_spec(state, tt.row(1), specs[1], False)
     with pytest.raises(NotImplementedError, match="item 9"):
