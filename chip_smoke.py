@@ -69,6 +69,10 @@ N_SPLIT_NLAM = (12, 13)  # K6/K7 stacks past MAX_NLAM (split 6+6, 7+6)
 N_SPLIT_K3 = (12, 40)  # K3 stacks past MAX_NLAM (6+6, 4 x 10)
 N_SPLIT_PLANS = 24   # K11/K13 plans past the kernel parameters (12+12)
 N_GLASS = 1 << 20    # hexapolar nrays a field on the achromatization path
+# the first rays of each aimed bundle whose CPU float64 traces at the df32
+# path's other wavelengths hold K11 and K13 there (the first wavelength is
+# held at full depth by the main path's reference)
+N_DF32_REF = 1 << 20
 FIELDS = (0., .7, 1.)
 SEED = 0
 OPT_SELECT = ("curvature", "distance")
@@ -583,7 +587,12 @@ LOOP_KEYS = ("K1 float32 clip=False",
              "K10 fast clip=False path=True",
              "K11 fast clip=False path=True",
              "K12 fast clip=False",
-             "K13 fast clip=False")
+             "K13 fast clip=False",
+             "K1 float32 anamorphic clip=False",
+             "K1 float64 anamorphic clip=False",
+             "K2 float64 anamorphic clip=False",
+             "K5 float32 anamorphic designer rays=False",
+             "K5 float64 anamorphic designer rays=False")
 
 
 def ptxas_stats(kern):
@@ -2492,6 +2501,429 @@ def phase_asphere_path(opt_step, glass_step, design_step):
              for k, v in forward.items()}, steps)
 
 
+# -- the anamorphic rows: K1, K2, K4 and K5 on anamorphic keys ---------------
+
+ANAM_SELECT = ("curvature", "curvature_dx")   # the anamorphic designer loop
+N_ANAM = 1 << 16      # aimed rays a field of the CPU cross-check
+ANAM_HALF = 4.        # the bench bundle's half width: the pupil radius
+ANAM_FD_STEP = {"curvature_dx": 1e-8, "conic_dx": 1e-6}
+# (lens, field, row) of the finite-difference checks of K5: the pair's
+# x-cylinder, the split-conic biconic's x figure, the toroid's rotation
+# curvature
+ANAM_FD_PICKS = (("anamorphic pair", "curvature_dx", 3),
+                 ("split-conic biconic", "curvature_dx", 1),
+                 ("split-conic biconic", "conic_dx", 1),
+                 ("toroid lens", "curvature_dx", 1))
+# K5's anamorphic columns after the six (no aspheric widths on these keys)
+ANAM_GRAD_FIELDS = GRAD_FIELDS + (("curvature_dx", slice(6, 7)),
+                                  ("conic_dx", slice(7, 8)))
+
+
+def split_biconic():
+    """The JAX package's split-conic biconic (its tests/test_anamorphic.py
+    _cyl_system(cx=.013), conic -0.4 and conic_x 0.25 on the biconic
+    row)."""
+    from rayopt_tpu_torch import System
+    s = System([dict(material="air"),
+                dict(type="biconic", roc=25.84, curvature_x=.013,
+                     distance=5., material="SCHOTT-BK|N-BK7", radius=10.),
+                dict(type="biconic", distance=3., material="air",
+                     radius=10.),
+                dict(distance=47., radius=10.)])
+    s.object.pupil.radius = 4.
+    s.object.pupil.update_radius = False
+    s.update()
+    s[1].conic = -.4
+    s[1].conic_x = .25
+    s.update()
+    return s
+
+
+def toroid_lens():
+    """The JAX package's toroid lens (its tests/test_anamorphic.py
+    _toroid_system): a toroid and a flat toroid."""
+    from rayopt_tpu_torch import System
+    s = System([dict(material="air"),
+                dict(type="toroid", roc=51.68, roc_rotation=200.,
+                     distance=5., material="SCHOTT-BK|N-BK7", radius=10.),
+                dict(type="toroid", distance=3., material="air",
+                     radius=10.),
+                dict(distance=95., radius=20.)])
+    s.object.pupil.radius = 4.
+    s.object.pupil.update_radius = False
+    s.update()
+    return s
+
+
+def anamorphic_cases():
+    """{name: (system, table on the card, specs)} of the three
+    anamorphic lenses: the crossed-cylinder pair (models.anamorphic_pair,
+    full width), the split-conic biconic and the toroid lens."""
+    from rayopt_tpu_torch.models import anamorphic_pair
+    from rayopt_tpu_torch.ops.kernels import specialize
+    out = {}
+    for name, build in (("anamorphic pair", anamorphic_pair),
+                        ("split-conic biconic", split_biconic),
+                        ("toroid lens", toroid_lens)):
+        s = build()
+        table = s.table()
+        out[name] = (s, table, specialize(table))
+    return out
+
+
+def spherical_twin(table):
+    """The table with every anamorphic row made spherical of the same
+    vertex curvature (its curved axis's: c, or c + curvature_dx where c
+    is 0), its conics and x figure zeroed: the throughput phase's twin
+    keys."""
+    c = torch.where(table.curvature == 0, table.curvature
+                    + table.curvature_dx, table.curvature)
+    anam = (table.curvature_dx != 0) | (table.conic_dx != 0) \
+        | (table.toroidal != 0)
+    zero = torch.zeros_like(c)
+    return table.replace(curvature=c, conic=torch.where(anam, zero,
+                                                        table.conic),
+                         curvature_dx=zero, conic_dx=zero, toroidal=zero)
+
+
+def anamorphic_keys():
+    """{tag: key} of the anamorphic keys this script runs: on each
+    anamorphic lens, in both dtypes, clip off and on, K1, K2, K4 and K5
+    (every field, with the ray cotangents); on the pair the designer
+    loop's K5 (ANAM_SELECT, no ray cotangents); in float64 the
+    finite-difference checks' K5 (one field each); the spherical twins'
+    keys of the pair
+    and the biconic, unclipped, for the timings."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.kernels import specialize
+    keys = {}
+    for name, (s, table, specs) in anamorphic_cases().items():
+        tag = name.split()[0]
+        twin = specialize(spherical_twin(table))
+        for dtype in (torch.float32, torch.float64):
+            dt = str(dtype)[6:]
+            for clip in (False, True):
+                sfx = "%s %s clip=%s" % (dt, tag, clip)
+                keys["K1 " + sfx] = CS.trace_key(specs, dtype, clip)
+                keys["K2 " + sfx] = CS.merit_key(specs, dtype, clip)
+                keys["K4 " + sfx] = CS.moments_key(specs, dtype, clip)
+                keys["K5 %s all rays=True" % sfx] = CS.adjoint_key(
+                    specs, dtype, clip)
+            if tag == "anamorphic":
+                keys["K5 %s anamorphic designer rays=False" % dt] = \
+                    CS.adjoint_key(specs, dtype, fields=ANAM_SELECT,
+                                   rays=False)
+            if tag != "toroid":
+                tsfx = "%s %s twin" % (dt, tag)
+                keys["K1 " + tsfx] = CS.trace_key(twin, dtype)
+                keys["K2 " + tsfx] = CS.merit_key(twin, dtype)
+                keys["K4 " + tsfx] = CS.moments_key(twin, dtype)
+                keys["K5 %s all rays=True" % tsfx] = CS.adjoint_key(twin,
+                                                                    dtype)
+                keys["K5 %s designer rays=False" % tsfx] = CS.adjoint_key(
+                    twin, dtype, fields=("curvature",), rays=False)
+        for lens, field, _ in ANAM_FD_PICKS:
+            if lens == name:
+                keys["K5 float64 %s fd %s rays=False" % (tag, field)] = \
+                    CS.adjoint_key(specs, torch.float64, fields=(field,),
+                                   rays=False)
+    return keys
+
+
+def anam_bundle(n, dtype, seed, widen=1.):
+    """The anamorphic bench bundle: x, y uniform in +-ANAM_HALF mm (the
+    pupil radius) times `widen`, u = (0, 0, 1)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.empty(n, dtype=torch.float64, device=DEVICE)
+    y = torch.empty_like(x)
+    half = ANAM_HALF*widen
+    x.uniform_(-half, half, generator=gen)
+    y.uniform_(-half, half, generator=gen)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    return tuple(c.to(dtype).contiguous()
+                 for c in (x, y, zero, zero, zero, one))
+
+
+def anam_wide(n, dtype, seed):
+    """The bench bundle 1.5x wide, for the clipped checks."""
+    return anam_bundle(n, dtype, seed, 1.5)
+
+
+def phase_anamorphic_check():
+    """K1, K2, K4 and K5 on each anamorphic key against their plain
+    versions on the card at N_CHECK rays (phase_check,
+    phase_grad_check): unclipped on the bench bundle, clipped on it 1.5x
+    wide; K5 with its curvature_dx and conic_dx columns.  Then K5's
+    float64 gradient against central differences of the K4 merit
+    (phase_anamorphic_fd_check).  Returns the float32 errors."""
+    worst = {}
+    for lens, (s, table, specs) in anamorphic_cases().items():
+        for bundle, clips in ((anam_bundle, (False,)), (anam_wide, (True,))):
+            for errs in (phase_check(table, specs, lens, bundle, clips),
+                         phase_grad_check(table, specs, lens, bundle, clips,
+                                          ANAM_GRAD_FIELDS)):
+                worst.update({k: max(v, worst.get(k, 0.))
+                              for k, v in errs.items()})
+    phase_anamorphic_fd_check()
+    return worst
+
+
+def phase_anamorphic_fd_check():
+    """K5's float64 gradient of the K4 merit (the spot RMS of N_CHECK
+    bench rays) against central differences: curvature_dx of the pair's
+    x-cylinder (row 3), curvature_dx and conic_dx of the split-conic
+    biconic (row 1), and the toroid's rotation curvature (curvature_dx
+    of row 1)."""
+    from rayopt_tpu_torch.ops.cuda_grad import spot_moments, weighted_moments
+    from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    cases = anamorphic_cases()
+    log("== K5 on the anamorphic lenses vs central differences of the K4 "
+        "merit (float64, %d bench rays; steps %s)" % (N_CHECK, ANAM_FD_STEP))
+    failures = []
+    for lens, field, row in ANAM_FD_PICKS:
+        _, table, specs = cases[lens]
+        state = anam_bundle(N_CHECK, torch.float64, SEED)
+        w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+        v = getattr(table, field).clone().requires_grad_()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # the baked rows, as intended
+            mom = spot_moments(table.replace(**{field: v}), state, w,
+                               specs=specs)
+        spot_rms_from_moments(*mom).backward()
+
+        def merit(tab):
+            return float(spot_rms_from_moments(*weighted_moments(
+                tab, specs, state, w)))
+        h = ANAM_FD_STEP[field]
+        side = []
+        for sgn in (1., -1.):
+            b = getattr(table, field).clone()
+            b[row] += sgn*h
+            side.append(merit(table.replace(**{field: b})))
+        fd = (side[0] - side[1])/(2*h)
+        g = float(v.grad[row])
+        rel = abs(g - fd)/abs(fd)
+        ok = rel <= FD_REL
+        log("%s, %s of row %d: K5 %.12g, central difference %.12g, rel "
+            "%.2e -> %s" % (lens, field, row, g, fd, rel,
+                            "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s %s" % (lens, field))
+    if failures:
+        raise AssertionError("K5 on the anamorphic lenses disagrees with "
+                             "finite differences: " + ", ".join(failures))
+
+
+def phase_anamorphic_path():
+    """The anamorphic slice's main path through the entry points a user
+    calls, on the crossed-cylinder pair (models.anamorphic_pair): host
+    pupils at fields 0, 0.7 and 1 of its 0.5 degree field, System.pupils
+    on the card against the host pupil at tol AIM_HOST_TOL (the pair's
+    pupil aimed, so that the card solves it), N_AIMED rays a field aimed
+    by the host through float64 and float32 K1 and K2, and float64 K1's
+    spot RMS on the first N_ANAM of them against the CPU float64 plain
+    trace (PARITY_REL, equal NaN masks); then the designer loop over
+    ANAM_SELECT (designer_loop; its step 0 against the CPU at N_ANAM
+    nrays a bundle on both devices).  Returns the path's launches (the
+    forward part's, counted from the caller's reset, and the loop's)
+    and the loop's later-step seconds."""
+    from rayopt_tpu_torch.models import anamorphic_pair
+    from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
+                                                 trace_merit)
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
+    s, table, specs = anamorphic_cases()["anamorphic pair"]
+    table_cpu = s.table(device="cpu")
+    log("== anamorphic path: the crossed-cylinder pair (a y-cylinder on "
+        "row 1, an x-cylinder on row 3), %d aimed rays a field, no clip"
+        % N_AIMED)
+    fields = [(0., f) for f in FIELDS]
+    aimed = anamorphic_pair()
+    aimed.object.pupil.aim = True
+    aimed.update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")   # a host fallback fails
+        z, boxes = aimed.pupils(fields)
+    t_card = time.perf_counter() - t0
+    h = anamorphic_pair()
+    h.object.pupil.aim = True
+    h.update()
+    t0 = time.perf_counter()
+    tight = [h.pupil(f, tol=AIM_HOST_TOL) for f in fields]
+    t_host = time.perf_counter() - t0
+    zh = np.array([v[0] for v in tight])
+    bh = np.array([v[1] for v in tight])
+    rel_z = float((np.abs(z - zh)/np.abs(zh)).max())
+    rel_b = float((np.abs(boxes - bh)/np.abs(bh)).max())
+    failures = []
+    ok = rel_z <= AIM_REL and rel_b <= AIM_REL
+    log("System.pupils of the aimed pair on the card %.3f s vs host pupil "
+        "at tol %g %.3f s: z rel %.3e, boxes rel %.3e -> %s"
+        % (t_card, AIM_HOST_TOL, t_host, rel_z, rel_b,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("System.pupils")
+    rng = np.random.RandomState(SEED + 7)
+    for field in FIELDS:
+        t0 = time.perf_counter()
+        zf, pf = s.pupil((0., field))
+        r = np.sqrt(rng.uniform(0, 1, N_AIMED))
+        th = rng.uniform(0, 2*np.pi, N_AIMED)
+        yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
+        y0, u0 = s.aim((0., field), yp, zf, pf, filter=False)
+        t_aim = time.perf_counter() - t0
+        yc, uc = (torch.from_numpy(a).to(DEVICE) for a in (y0, u0))
+        t0 = time.perf_counter()
+        y64, u64, _ = trace_rays_final_fast(table, yc, uc, specs=specs,
+                                            precision="parity")
+        rms_k1, live = spot_rms(y64, u64)
+        state64 = tuple(c.contiguous() for c in (*yc.T, *uc.T))
+        rms_k2 = float(spot_rms_from_moments(*trace_merit(table, specs,
+                                                          state64)))
+        y32, u32, _ = trace_rays_final_fast(table, yc.float(), uc.float(),
+                                            specs=specs)
+        rms_k1_32, _ = spot_rms(y32, u32)
+        rms_k2_32 = float(spot_rms_from_moments(*trace_merit(
+            table, specs, tuple(c.float() for c in state64))))
+        # the CPU cross-check on the first N_ANAM rays
+        ys, us = yc[:N_ANAM], uc[:N_ANAM]
+        ys64, us64, _ = trace_rays_final_fast(table, ys, us, specs=specs,
+                                              precision="parity")
+        rms_sub, live_sub = spot_rms(ys64, us64)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        yh, uh, _ = trace_rays_final_fast(table_cpu, ys.cpu(), us.cpu())
+        rms_cpu, live_cpu = spot_rms(yh, uh)
+        t_cpu = time.perf_counter() - t0
+        masks = int((torch.isnan(ys64[:, 0].cpu())
+                     != torch.isnan(yh[:, 0])).sum())
+        rel1 = abs(rms_sub - rms_cpu)/rms_cpu
+        ok = (np.isfinite(rms_k1) and np.isfinite(rms_k2) and masks == 0
+              and live_sub == live_cpu and rel1 <= PARITY_REL
+              and abs(rms_k2 - rms_k1)/rms_k1 <= 1e-9)
+        log("field %.1f: pupil z %.6f, %d of %d rays live | spot RMS mm: K1 "
+            "f64 %.12g | K2 f64 %.12g | K1 f32 %.9g (rel %.2e) | K2 f32 "
+            "%.9g (rel %.2e) | the first %d rays: K1 f64 %.12g vs CPU f64 "
+            "%.12g (rel %.2e), NaN masks differ on %d | aim %.2f s, card "
+            "%.2f s, CPU %.2f s -> %s"
+            % (field, zf, live, N_AIMED, rms_k1, rms_k2, rms_k1_32,
+               abs(rms_k1_32 - rms_k1)/rms_k1, rms_k2_32,
+               abs(rms_k2_32 - rms_k1)/rms_k1, N_ANAM, rms_sub, rms_cpu,
+               rel1, masks, t_aim, t_gpu, t_cpu, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("field %.1f" % field)
+        del yc, uc, y64, u64, y32, u32, state64
+    if failures:
+        raise AssertionError("anamorphic path failed: " + ", ".join(failures))
+    forward = read_launches()
+    log("== launch counts on the anamorphic forward path: %s" % forward)
+    torch.cuda.empty_cache()
+    loop, step = designer_loop(anamorphic_pair(), "anamorphic designer "
+                               "loop: crossed-cylinder pair", ANAM_SELECT,
+                               None, N_ANAM)
+    return {k: v + loop[k] for k, v in forward.items()}, step
+
+
+def phase_anamorphic_throughput(card):
+    """K1, K2, K4 and K5 (every field with the ray cotangents, and the
+    designer loop's K5) on the pair's and the split-conic biconic's keys
+    at N_GRAD_TIME bench rays in float32 and float64, against their
+    plain versions and each lens's spherical twin (spherical_twin: the
+    same rows made spherical of the same vertex curvature), in turns.
+    times[(lens, name, dtype)] = (kernel, plain, twin) ms."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_reference, weighted_moments,
+        weighted_moments_reference)
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        trace_final, trace_final_reference, trace_merit,
+        trace_merit_reference)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    log("== anamorphic throughput: %d bench rays (+-%g mm), each key "
+        "against its plain version and its spherical twin (%s)"
+        % (N_GRAD_TIME, ANAM_HALF, card))
+    times = {}
+    cases = anamorphic_cases()
+    for lens in ("anamorphic pair", "split-conic biconic"):
+        _, table, specs = cases[lens]
+        ttab = spherical_twin(table)
+        tspecs = specialize(ttab)
+        for dtype in (torch.float32, torch.float64):
+            state = anam_bundle(N_GRAD_TIME, dtype, SEED + 1)
+            w = bench_weights(N_GRAD_TIME, dtype, SEED + 3)
+
+            def pairs(tab, sp, loop):
+                ct = rms_cotangent(weighted_moments(tab, sp, state, w))
+                return (
+                    ("trace_final", lambda: trace_final(tab, sp, state),
+                     lambda: trace_final_reference(tab, sp, state)),
+                    ("trace_merit", lambda: trace_merit(tab, sp, state),
+                     lambda: trace_merit_reference(tab, sp, state)),
+                    ("weighted_moments",
+                     lambda: weighted_moments(tab, sp, state, w),
+                     lambda: weighted_moments_reference(tab, sp, state, w)),
+                    ("merit_adjoint",
+                     lambda: merit_adjoint(tab, sp, state, w, ct),
+                     lambda: merit_adjoint_reference(tab, sp, state, w, ct)),
+                    ("merit_adjoint_optimizer",
+                     lambda: merit_adjoint(tab, sp, state, w, ct, rays=False,
+                                           fields=loop), None))
+            twins = pairs(ttab, tspecs, ("curvature",))
+            for case, (name, kernel, plain) in enumerate(
+                    pairs(table, specs, ANAM_SELECT)):
+                (k, p, sp_), (k1, k2, p1, p2, s1, s2) = in_turns(
+                    kernel, plain, twins[case][1])
+                times[(lens, name, dtype)] = (k, p, sp_)
+                log("%s %s %s: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
+                    "(%.4f, %.4f)%s | %s"
+                    % (lens, name, str(dtype)[6:], k, k1, k2, p, p1, p2,
+                       twin_note(k, sp_, s1, s2, "spherical twin"), card))
+            del state, w
+            torch.cuda.empty_cache()
+    return times
+
+
+#: flops of one biconic/toroid residual, slope (its normal and the dot
+#: product) and refraction (the normal and the general Snell), and of
+#: the reverse's normal and residual gradients (csrc/trace_common.cuh,
+#: csrc/step_vjp.cuh, counted from the code)
+ANAM_FLOPS = {"biconic": dict(res=25, slope=48, refract=70, normal_vjp=90,
+                              res_vjp=40),
+              "toroid": dict(res=29, slope=31, refract=52, normal_vjp=70,
+                             res_vjp=50)}
+
+
+def anam_row_flops(spec):
+    """Operations of one surface_step on an anamorphic row: a cylinder's
+    closed form and refraction counted as the conic's; a biconic's or
+    toroid's seed (the conic's root, 33), ASPHERIC_ITERS Newton steps
+    (residual, slope, update), the last residual and its test and the
+    refraction by its general normal."""
+    f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0) + 8
+    if spec.cyl_axis:
+        return f + 31 + (37 if spec.kind else 0)
+    c = ANAM_FLOPS["toroid" if spec.toroidal else "biconic"]
+    f += 33 + ASPHERIC_ITERS*(c["res"] + c["slope"] + 2) + c["res"] + 2
+    return f + (c["refract"] if spec.kind else 0)
+
+
+def anam_vjp_extra(spec):
+    """The reverse of a biconic or toroid row beyond 3x its forward:
+    its recompute (the whole Newton once) and its reverse -- the
+    refraction's (~75), the normal's, the transfer's (9) and the
+    implicit step (one slope and the residual's gradient) -- less the
+    3x the estimate already counts.  A cylinder's reverse is the
+    conic's (the 3x estimate)."""
+    if spec.cyl_axis:
+        return 0
+    c = ANAM_FLOPS["toroid" if spec.toroidal else "biconic"]
+    rf = anam_row_flops(spec)
+    rev = (75 + c["normal_vjp"] + 9 + c["slope"] + c["res_vjp"]
+           + (60 if spec.rotated else 0))
+    return rf + rev - 3*rf
+
+
 def step_breakdown(table, specs, wave, parts):
     """Wall milliseconds of each part of the design merit's forward and
     backward on the card (the gradients of curvature and offset), and
@@ -2803,7 +3235,9 @@ def phase_df32_path(s, aimed):
     the optical path and K12; System.tables -> table_at -> one plan a
     wavelength -> K11 (with the path) and K13.  Each spot RMS is held
     against the CPU float64 plain trace, K10's image positions against
-    float64 K1 on the card."""
+    float64 K1 on the card; at the other wavelengths K11 and K13 are held
+    on the first N_DF32_REF rays of each bundle (K13 launched on them
+    once more), whose CPU traces cost a quarter of the full bundle's."""
     from rayopt_tpu_torch.ops import cuda_df32 as CD
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
@@ -2861,8 +3295,12 @@ def phase_df32_path(s, aimed):
         moms = CD.trace_merit_multi_df32(lam_plans, state)
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
+        sub = slice(0, N_DF32_REF)
+        moms_sub = CD.trace_merit_multi_df32(
+            lam_plans, D.state_from_f64(a["y"][sub].contiguous(),
+                                        a["u"][sub].contiguous()))
         t0 = time.perf_counter()
-        ycpu, ucpu = a["y"].cpu(), a["u"].cpu()
+        ycpu, ucpu = a["y"][sub].cpu(), a["u"][sub].cpu()
         yh, uh, _ = trace_rays_final_multi(
             tabs_cpu, ycpu.expand(nlam - 1, -1, -1),
             ucpu.expand(nlam - 1, -1, -1), clip=False)
@@ -2871,22 +3309,28 @@ def phase_df32_path(s, aimed):
         t_cpu = time.perf_counter() - t0
         del yh, uh
         for li, ((fin, path), mom) in enumerate(zip(outs, moms)):
-            xy = torch.stack([D.to_f64(fin[0]), D.to_f64(fin[1])], 1)
-            rms11, live = spot_rms(xy, D.to_f64(fin[5])[:, None].expand(-1,
-                                                                        3))
-            rms13 = float(spot_rms_from_moments(*mom))
+            # the first wavelength on the whole bundle, the others on the
+            # first N_DF32_REF rays
+            rays = slice(None) if li == 0 else sub
+            xy = torch.stack([D.to_f64(fin[0])[rays], D.to_f64(fin[1])[rays]],
+                             1)
+            rms11, live = spot_rms(xy, D.to_f64(fin[5])[rays][:, None]
+                                   .expand(-1, 3))
+            rms13 = float(spot_rms_from_moments(*(mom if li == 0
+                                                  else moms_sub[li])))
             rel11 = abs(rms11 - ref[li])/ref[li]
             rel13 = abs(rms13 - ref[li])/ref[li]
             ok = rel11 <= PARITY_REL and (field != 0. or rel13 <= PARITY_REL)
-            log("field %.1f wavelength %d: %d rays live | spot RMS mm: CPU "
-                "f64 %.15g | K11 %.15g (rel %.3e) | K13 %.15g (rel %.3e) -> "
-                "%s" % (field, li, live, ref[li], rms11, rel11, rms13, rel13,
-                        "ok" if ok else "FAIL"))
+            log("field %.1f wavelength %d: %d of %d rays live | spot RMS "
+                "mm: CPU f64 %.15g | K11 %.15g (rel %.3e) | K13 %.15g (rel "
+                "%.3e) -> %s" % (field, li, live, xy.shape[0], ref[li], rms11,
+                                 rel11, rms13, rel13, "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("field %.1f wavelength %d" % (field, li))
         log("field %.1f: K11 + K13 card %.3f s, CPU f64 trace of %d "
-            "wavelengths %.2f s" % (field, t_gpu, nlam - 1, t_cpu))
-        del outs, moms, state
+            "wavelengths at %d rays %.2f s" % (field, t_gpu, nlam - 1,
+                                               N_DF32_REF, t_cpu))
+        del outs, moms, moms_sub, state
     if failures:
         raise AssertionError("df32 path parity failed at " +
                              ", ".join(failures))
@@ -3408,6 +3852,8 @@ def row_flops(spec, widths=(0, 0)):
     residual, the slope's own work and the update each), the last
     residual and its test, and the refraction by the radial normal with
     the flagged figures' slopes."""
+    if spec.biconic or spec.toroidal or spec.cyl_axis:
+        return anam_row_flops(spec)
     f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0)
     na, no = widths
     figured = spec.aspheric or spec.odd
@@ -3456,7 +3902,9 @@ def chain_vjp_flops(specs, widths=(0, 0), path=False):
     na, no = widths
     total = 3*chain_flops(specs, widths)
     for sp in specs[1:]:
-        if sp.aspheric or sp.odd:
+        if sp.biconic or sp.toroidal or sp.cyl_axis:
+            total += anam_vjp_extra(sp)
+        elif sp.aspheric or sp.odd:
             rf = row_flops(sp, widths)
             rev = (75 + (6*na if sp.aspheric else 0)
                    + (12*no if sp.odd else 0) + 9 + slope_flops(na, no)
@@ -3857,6 +4305,72 @@ def asphere_entries(sources, launches, worst, times, ptxas, steps, opt_step,
     return out
 
 
+def anamorphic_entries(sources, launches, worst, times, ptxas, step,
+                       opt_step):
+    """The kernels line's entries of the anamorphic keys (the crossed-
+    cylinder pair): the anamorphic path's launches, the float32 errors
+    of phase_anamorphic_check, the times of phase_anamorphic_throughput
+    (the pair's keys beside their plain versions and spherical twins,
+    the split-conic biconic's -- the Newton -- beside its own), the
+    bounds (row_flops: the cylinders as the conic, the biconic's 10
+    Newton steps), and the loop keys' registers, stack and spills."""
+    from rayopt_tpu_torch.ops.cuda_trace import trace_merit
+    cases = anamorphic_cases()
+    loop = {"trace_final": "K1 %s anamorphic clip=False",
+            "trace_merit": "K2 %s anamorphic clip=False",
+            "weighted_moments": "K4 %s anamorphic clip=False",
+            "merit_adjoint": "K5 %s anamorphic designer rays=False"}
+    out = []
+    for kname, tag in loop.items():
+        source, replaces = sources[kname]
+        entry = {"name": kname + "_anamorphic", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": launches[kname], "max_abs_err": worst[kname],
+                 "library_ms": None, "rays": N_GRAD_TIME, "wavelengths": 1}
+        for lens, pre in (("anamorphic pair", ""),
+                          ("split-conic biconic", "biconic_")):
+            _, table, specs = cases[lens]
+            for dtype, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
+                live = float(trace_merit(table, specs, anam_bundle(
+                    N_GRAD_TIME, dtype, SEED + 1))[0])
+                k, p, tw = times[(lens, kname, dtype)]
+                b, by = kernel_bound(kname, N_GRAD_TIME, dtype, specs, 1,
+                                     live)
+                entry.update({pre + "ms" + sfx: k, pre + "plain_ms" + sfx: p,
+                              pre + "ms_spherical_key" + sfx: tw,
+                              pre + "bound_ms" + sfx: b})
+                if not pre and not sfx:
+                    entry["bound_by"] = by
+                if kname == "merit_adjoint":
+                    opt = "merit_adjoint_optimizer"
+                    entry.update({
+                        pre + "ms_designer" + sfx:
+                            times[(lens, opt, dtype)][0],
+                        pre + "ms_spherical_designer_key" + sfx:
+                            times[(lens, opt, dtype)][2],
+                        pre + "bound_ms_designer" + sfx: kernel_bound(
+                            opt, N_GRAD_TIME, dtype, specs, 1, live)[0]})
+        for dt in ("float32", "float64"):
+            regs, stack, spill = ptxas[tag % dt]
+            sfx = "" if dt == "float64" else "_f32"
+            entry.update({"regs" + sfx: regs, "stack_bytes" + sfx: stack,
+                          "spill_bytes" + sfx: spill})
+            for lens in ("anamorphic", "split-conic", "toroid"):
+                knum = tag.split()[0]
+                ktag = ("%s %s %s clip=False" % (knum, dt, lens)
+                        + (" all rays=True" if knum == "K5" else ""))
+                regs, stack, spill = ptxas[ktag]
+                key = lens.split("-")[0]
+                entry.update({"regs_%s%s" % (key, sfx): regs,
+                              "spill_bytes_%s%s" % (key, sfx):
+                                  stack + spill})
+        if kname == "merit_adjoint":
+            entry.update({"designer_step_s": step,
+                          "spherical_optimizer_step_s": opt_step})
+        out.append(entry)
+    return out
+
+
 def main():
     name, card = phase_card()
     from rayopt_tpu_torch.models import double_gauss
@@ -3873,6 +4387,7 @@ def main():
     keys.update(df32_keys(s))
     keys.update(split_keys(s))
     keys.update(asphere_keys())
+    keys.update(anamorphic_keys())
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -3921,6 +4436,15 @@ def main():
     if not all(asph_launches[k] for k in asph):
         raise AssertionError("a kernel of the aspheric path never launched: "
                              "%s" % asph_launches)
+    nworst = phase_anamorphic_check()
+    reset_launches()
+    anam_launches, anam_step = phase_anamorphic_path()
+    log("== launch counts on the anamorphic path: %s" % anam_launches)
+    anam = ("trace_final", "trace_merit", "weighted_moments", "merit_adjoint")
+    if not all(anam_launches[k] for k in anam):
+        raise AssertionError("a kernel of the anamorphic path never "
+                             "launched: %s" % anam_launches)
+    ntimes = phase_anamorphic_throughput(card)
     times = phase_throughput(table, specs, card)
     gtimes = phase_grad_throughput(table, specs, card)
     mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
@@ -4089,6 +4613,8 @@ def main():
     kernels += asphere_entries(sources, asph_launches, aworst, atimes,
                                ptxas, asph_steps, opt_step, amtimes,
                                {"multi": amlive, "opd": aolive})
+    kernels += anamorphic_entries(sources, anam_launches, nworst, ntimes,
+                                  ptxas, anam_step, opt_step)
     kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())

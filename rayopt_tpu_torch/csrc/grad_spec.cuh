@@ -16,8 +16,13 @@
 // and, in K5, K7 and K9, its implicit reverse -- K9's with the path
 // cotangent; the key carries the table's coefficient widths,
 // RAYOPT_N_ASP and RAYOPT_N_ODD, so the Horner loops have compile-time
-// bounds and a row grows by N_ASP + N_ODD words).  Every key refuses the
-// anamorphic, grating, DOE and freeform rows (ROADMAP Queue 1 item 9).
+// bounds and a row grows by N_ASP + N_ODD words).  K1, K2, K4 and K5
+// also take the anamorphic rows (a conic cylinder's closed form, a
+// biconic's or toroid's seeded Newton, K5 their reverse by hand; the key
+// defines RAYOPT_N_ANAM, so that a row grows by curvature_dx and conic_dx
+// and K5's slots by their cotangents).  Every key refuses the grating,
+// DOE and freeform rows, and K3, K6-K9 the anamorphic ones (ROADMAP
+// Queue 1 item 9).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
@@ -135,41 +140,42 @@
 namespace {
 
 // a row word's live slots above its flags: cuda_spec.LIVE_SHIFT
-constexpr int LIVE_SHIFT = 10;
-// the bits above it: K5's and K7's FIG_SLOTS, K9's OPD_FIG_SLOTS
-// (cuda_spec.LIVE_BITS)
-constexpr int LIVE_BITS = 31 - LIVE_SHIFT;
-constexpr int FLAG_MASK = (1 << LIVE_SHIFT) - 1;
+constexpr int LIVE_SHIFT = 14;
+// the bits above it in a 64-bit word: K5's and K7's FIG_SLOTS, K9's
+// OPD_FIG_SLOTS (cuda_spec.LIVE_BITS)
+constexpr int LIVE_BITS = 63 - LIVE_SHIFT;
+constexpr long long FLAG_MASK = (1LL << LIVE_SHIFT) - 1;
 static_assert(FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
 
-// The rows of one key: W holds a word a row, its flags in the low
-// LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z, mu,
-// then K5's and K7's aspheric coefficients; K9 n_before, then its
-// coefficients) that row reduces.
-template <int... W>
+// The rows of one key: W holds a 64-bit word a row, its flags in the
+// low LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z,
+// mu, then K5's and K7's aspheric coefficients, then an anamorphic K5
+// key's curvature_dx and conic_dx; K9 n_before, then its coefficients)
+// that row reduces.
+template <long long... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
 };
 
-template <int... W>
-__host__ __device__ constexpr int word_at(Chain<W...>, int j) {
-  constexpr int w[] = {W...};
+template <long long... W>
+__host__ __device__ constexpr long long word_at(Chain<W...>, int j) {
+  constexpr long long w[] = {W...};
   return w[j];
 }
 
 template <class C>
 __host__ __device__ constexpr int flags_at(int j) {
-  return word_at(C{}, j) & FLAG_MASK;
+  return int(word_at(C{}, j) & FLAG_MASK);
 }
 
 template <class C>
-__host__ __device__ constexpr int live_at(int j) {
-  return (word_at(C{}, j) >> LIVE_SHIFT) & ((1 << LIVE_BITS) - 1);
+__host__ __device__ constexpr long long live_at(int j) {
+  return (word_at(C{}, j) >> LIVE_SHIFT) & ((1LL << LIVE_BITS) - 1);
 }
 
-__host__ __device__ constexpr int popc_live(int m) {
+__host__ __device__ constexpr int popc_live(long long m) {
   int c = 0;
-  for (int q = 0; q < LIVE_BITS; ++q) c += (m >> q) & 1;
+  for (int q = 0; q < LIVE_BITS; ++q) c += int((m >> q) & 1);
   return c;
 }
 
@@ -179,7 +185,7 @@ __host__ __device__ constexpr int slot_index(int j, int q) {
   int b = 0;
   for (int i = 0; i < j; ++i) b += popc_live(live_at<C>(i));
   return (live_at<C>(j) >> q) & 1
-             ? b + popc_live(live_at<C>(j) & ((1 << q) - 1))
+             ? b + popc_live(live_at<C>(j) & ((1LL << q) - 1))
              : -1;
 }
 

@@ -17,13 +17,15 @@ constexpr int SLOTS = 6;      // parameter cotangents a row: cuda_grad.SLOTS
 constexpr int OPD_SLOTS = 7;  // K9's a row, + n_before: cuda_grad.OPD_SLOTS
 constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
 // K5's and K7's a row: SLOTS, then the even and the odd aspheric
-// coefficients
-constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD;
+// coefficients, then an anamorphic key's curvature_dx and conic_dx
+constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD + N_ANAM;
 // K9's a row: OPD_SLOTS (SLOTS, then n_before), then the even and the
 // odd coefficients (cuda_spec.opd_live_slots)
 constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD;
 // a row's per-ray parameter cotangents, the widest of the two
-constexpr int PG_SLOTS = OPD_FIG_SLOTS;
+constexpr int PG_SLOTS = FIG_SLOTS > OPD_FIG_SLOTS ? FIG_SLOTS : OPD_FIG_SLOTS;
+// an anamorphic row's curvature_dx and conic_dx slots
+constexpr int Q_CDX = SLOTS + N_ASP + N_ODD;
 
 // Hand-derived reverse of refract_spec's refraction (kind 1) or mirror
 // (kind 2) of the direction u by the unnormalized normal n, shared by
@@ -276,8 +278,353 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   for (int j = 0; j < N_ODD; ++j) pg[q0 + N_ASP + j] = gb[j];
 }
 
+// ---- the anamorphic rows' reverses (cuda_grad's torch models of the
+// same names, line for line) ----
+
+// The cotangent of m from that of sq = sqrt0(m) (cuda_grad._sqrt0_vjp)
+template <typename T>
+__device__ __forceinline__ T sqrt0_vjp(T m, T sq, T g) {
+  return m >= T(0) ? g * T(0.5) / sq : T(0);
+}
+
+// The cotangent of v from that of max(v, TINY) (cuda_grad._floor_vjp)
+template <typename T>
+__device__ __forceinline__ T floor_vjp(T v, T g) {
+  return v >= T(TINY) ? g : T(0);
+}
+
+// Reverse of a = cx x2 + cy y2, B = (1+kx) cx^2 x2 + (1+ky) cy^2 y2 from
+// ga, gb: adds to gpx, gpy and ga4 = (gcx, gkx, gcy, gky)
+// (cuda_grad._biconic_ab_vjp)
+template <typename T>
+__device__ __forceinline__ void biconic_ab_vjp(T px, T py, const Anam<T>& a,
+                                               T ga, T gb, T x2, T y2,
+                                               T& gpx, T& gpy, T* gp) {
+  const T gx2 = ga * a.pa + gb * (T(1) + a.pb) * a.pa * a.pa;
+  const T gy2 = ga * a.pc + gb * (T(1) + a.pd) * a.pc * a.pc;
+  gp[0] = gp[0] + ga * x2 + gb * x2 * T(2) * (T(1) + a.pb) * a.pa;
+  gp[2] = gp[2] + ga * y2 + gb * y2 * T(2) * (T(1) + a.pd) * a.pc;
+  gp[1] = gp[1] + gb * x2 * a.pa * a.pa;
+  gp[3] = gp[3] + gb * y2 * a.pc * a.pc;
+  gpx = gpx + T(2) * px * gx2;
+  gpy = gpy + T(2) * py * gy2;
+}
+
+// Reverse of the biconic's residual (cuda_grad._biconic_sag_vjp): adds
+// to gpx, gpy and gp (pz's cotangent is gF)
+template <typename T>
+__device__ __forceinline__ void biconic_sag_vjp(T px, T py, const Anam<T>& a,
+                                                T gF, T& gpx, T& gpy, T* gp) {
+  const T x2 = px * px, y2 = py * py;
+  const T num = a.pa * x2 + a.pc * y2;
+  const T qx = (T(1) + a.pb) * a.pa * a.pa;
+  const T qy = (T(1) + a.pd) * a.pc * a.pc;
+  const T m = T(1) - (qx * x2 + qy * y2);
+  const T sq = sqrt0(m);
+  const T den = T(1) + sq;
+  const T ga = -gF / den;
+  const T gb = -sqrt0_vjp(m, sq, gF * num / (den * den));
+  biconic_ab_vjp(px, py, a, ga, gb, x2, y2, gpx, gpy, gp);
+}
+
+// Reverse of biconic_normal (cuda_grad._biconic_normal_vjp) from the
+// cotangents of (gx, gy): adds to gx1, gy1 and gp
+template <typename T>
+__device__ __forceinline__ void biconic_normal_vjp(T x, T y, const Anam<T>& a,
+                                                   T ggx, T ggy, T& gx1,
+                                                   T& gy1, T* gp) {
+  const T x2 = x * x, y2 = y * y;
+  const T num = a.pa * x2 + a.pc * y2;
+  const T qx = (T(1) + a.pb) * a.pa * a.pa;
+  const T qy = (T(1) + a.pd) * a.pc * a.pc;
+  const T m = T(1) - (qx * x2 + qy * y2);
+  const T sq = sqrt0(m);
+  const T ss = floor_at(sq, T(TINY));
+  const T inv = T(1) / (T(1) + sq);
+  const T px_ = T(2) * a.pa * x * (T(1) + sq) + num * qx * x / ss;
+  const T py_ = T(2) * a.pc * y * (T(1) + sq) + num * qy * y / ss;
+  const T gpx_ = -ggx * inv * inv;
+  const T gpy_ = -ggy * inv * inv;
+  const T ginv = -T(2) * inv * (ggx * px_ + ggy * py_);
+  T gsq = -ginv * inv * inv + gpx_ * T(2) * a.pa * x + gpy_ * T(2) * a.pc * y;
+  const T gss = -(gpx_ * num * qx * x + gpy_ * num * qy * y) / (ss * ss);
+  gsq = gsq + floor_vjp(sq, gss);
+  const T ga = gpx_ * qx * x / ss + gpy_ * qy * y / ss;
+  const T gqx = gpx_ * num * x / ss;
+  const T gqy = gpy_ * num * y / ss;
+  gx1 = gx1 + gpx_ * (T(2) * a.pa * (T(1) + sq) + num * qx / ss);
+  gy1 = gy1 + gpy_ * (T(2) * a.pc * (T(1) + sq) + num * qy / ss);
+  gp[0] = gp[0] + gpx_ * T(2) * x * (T(1) + sq) + gqx * T(2) * (T(1) + a.pb) * a.pa;
+  gp[2] = gp[2] + gpy_ * T(2) * y * (T(1) + sq) + gqy * T(2) * (T(1) + a.pd) * a.pc;
+  gp[1] = gp[1] + gqx * a.pa * a.pa;
+  gp[3] = gp[3] + gqy * a.pc * a.pc;
+  const T gb = -sqrt0_vjp(m, sq, gsq);
+  biconic_ab_vjp(x, y, a, ga, gb, x2, y2, gx1, gy1, gp);
+}
+
+// Reverse of ycurve (cuda_grad._ycurve_vjp) from the cotangents of (zy,
+// dzy): adds to gy and to gcy, gky
+template <typename T>
+__device__ __forceinline__ void ycurve_vjp(T y, T cy, T ky, T gzy, T gdzy,
+                                           T& gy, T& gcy, T& gky) {
+  const T y2 = y * y;
+  const T m = T(1) - (T(1) + ky) * cy * cy * y2;
+  const T sq = sqrt0(m);
+  const T sqs = floor_at(sq, T(TINY));
+  gcy = gcy + gdzy * y / sqs + gzy * y2 / (T(1) + sq);
+  gy = gy + gdzy * cy / sqs;
+  const T gsq = floor_vjp(sq, -gdzy * cy * y / (sqs * sqs)) -
+                gzy * cy * y2 / ((T(1) + sq) * (T(1) + sq));
+  T gy2 = gzy * cy / (T(1) + sq);
+  const T gm = sqrt0_vjp(m, sq, gsq);
+  gky = gky - gm * cy * cy * y2;
+  gcy = gcy - gm * T(2) * (T(1) + ky) * cy * y2;
+  gy2 = gy2 - gm * (T(1) + ky) * cy * cy;
+  gy = gy + T(2) * y * gy2;
+}
+
+// Reverse of the toroid's residual (cuda_grad._toroid_sag_vjp): adds to
+// gpx, gpy and gp = (gcr, gcy, gky) (pz's cotangent is gF)
+template <typename T>
+__device__ __forceinline__ void toroid_sag_vjp(T px, T py, const Anam<T>& a,
+                                               T gF, T& gpx, T& gpy, T* gp) {
+  T zy, dzy;
+  ycurve(py, a.pb, a.pc, zy, dzy);
+  const T den = T(1) - a.pa * zy;
+  const T crp = a.pa / den;
+  const T x2 = px * px;
+  const T u = T(1) - x2 * crp * crp;
+  const T wr = sqrt0(u);
+  const T d = T(1) + wr;
+  const T gt = -gF;
+  const T gu = sqrt0_vjp(u, wr, -gt * crp * x2 / (d * d));
+  const T gcrp = gt * x2 / d - gu * T(2) * x2 * crp;
+  const T gx2 = gt * crp / d - gu * crp * crp;
+  const T gden = -gcrp * a.pa / (den * den);
+  gp[0] = gp[0] + gcrp / den - gden * zy;
+  ycurve_vjp(py, a.pb, a.pc, -gF - gden * a.pa, T(0), gpy, gp[1], gp[2]);
+  gpx = gpx + T(2) * px * gx2;
+}
+
+// Reverse of toroid_normal (cuda_grad._toroid_normal_vjp): adds to gx1,
+// gy1 and gp
+template <typename T>
+__device__ __forceinline__ void toroid_normal_vjp(T x, T y, const Anam<T>& a,
+                                                  T ggx, T ggy, T& gx1,
+                                                  T& gy1, T* gp) {
+  T zy, dzy;
+  ycurve(y, a.pb, a.pc, zy, dzy);
+  const T den = T(1) - a.pa * zy;
+  const T crp = a.pa / den;
+  const T u = T(1) - x * x * crp * crp;
+  const T wr = sqrt0(u);
+  const T w = floor_at(wr, T(TINY));
+  T gx = -ggx * crp / w;
+  T gcrp = -ggx * x / w;
+  const T gw = (ggx * x * crp + ggy * dzy) / (w * w);
+  const T gdzy = -ggy / w;
+  const T gu = sqrt0_vjp(u, wr, floor_vjp(wr, gw));
+  gx = gx - gu * T(2) * x * crp * crp;
+  gcrp = gcrp - gu * T(2) * x * x * crp;
+  const T gden = -gcrp * a.pa / (den * den);
+  gp[0] = gp[0] + gcrp / den - gden * zy;
+  ycurve_vjp(y, a.pb, a.pc, -gden * a.pa, gdzy, gy1, gp[1], gp[2]);
+  gx1 = gx1 + gx;
+}
+
+// Hand-derived reverse of an ANAMORPHIC row's step (surface_step with
+// F_CYL_Y, F_CYL_X, F_BICONIC or F_TOROID; no aspheric figure) for one
+// live ray, as surface_step_vjp (K5's and K7's layout, no path
+// cotangent).  A cylinder reverses its closed form in its curved
+// coordinate and its refraction by refraction_vjp on the normal with a
+// zero flat-axis component; a biconic or toroid refracts by its (gx, gy,
+// 1) normal, then its Newton root is differentiated implicitly, dF/dp
+// scaled by -gt / F_s.  pg: out, FIG_SLOTS cotangents (c, k, offset x,
+// y, z, mu, then curvature_dx and conic_dx at Q_CDX).  Its torch model is
+// cuda_grad._anamorphic_vjp_reference.
+template <typename T, typename Flags, typename Row>
+__device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
+                                                    T* g, T* pg) {
+  constexpr int fl = Flags::value;
+  constexpr bool off_axis = fl & F_OFF_AXIS;
+  constexpr bool rotated = fl & F_ROTATED;
+  constexpr int kind = (fl >> KIND_SHIFT) & 3;
+  constexpr int cyl = (fl & F_CYL_Y) ? 1 : ((fl & F_CYL_X) ? 2 : 0);
+  constexpr bool toroid = (fl & F_TOROID) != 0;
+  const T c = p[P_C];
+  const T k = p[P_K];
+  const T mu = p[P_MU];
+  const T sg = (fl & F_ALTERNATE) ? T(-1) : T(1);
+  T x = s[0], y = s[1], z = s[2], ux = s[3], uy = s[4], uz = s[5];
+  // ---- forward recompute ----
+  if (off_axis) {
+    x = x - p[P_OFF];
+    y = y - p[P_OFF + 1];
+  }
+  z = z - p[P_OFF + 2];
+  if (rotated) {
+    rot_apply(p + P_ROT, x, y, z);
+    rot_apply(p + P_ROT, ux, uy, uz);
+  }
+  // a cylinder's (C, K) and curved coordinate
+  T cc = c, kk = k;
+  if (cyl == 2) {
+    cc = c + p[P_CDX];
+    kk = k + p[P_KDX];
+  }
+  const T w = cyl == 1 ? y : x;
+  const T uw = cyl == 1 ? uy : ux;
+  Anam<T> an{};
+  if (!cyl) an = load_anam<toroid>(p, c, k);
+  T t, k1 = T(1), uyd = T(0), uu = T(0), yy = T(0), d = T(0), e = T(0);
+  T f = T(0), sq = T(0), q = T(0), den = T(1);
+  bool conj = false;
+  if (cyl) {
+    k1 = T(1) + kk;
+    uyd = uw * w + k1 * uz * z;
+    uu = uw * uw + k1 * uz * uz;
+    yy = w * w + k1 * z * z;
+    d = cc * uyd - uz;
+    e = cc * uu;
+    f = cc * yy - T(2) * z;
+    sq = sqrt0(d * d - e * f);
+    q = sg * sq;
+    conj = d * q <= T(0) || e == T(0);
+    den = conj ? q - d : e;
+    if (den == T(0)) den = T(1);
+    t = (conj ? f : -(d + q)) / den;
+  } else {
+    t = anam_intercept<toroid>(x, y, z, ux, uy, uz, c, k, sg, an);
+  }
+  const T x1 = x + t * ux;
+  const T y1 = y + t * uy;
+  const T z1 = z + t * uz;
+  // ---- reverse: leave the row's frame ----
+  T gx1 = g[0], gy1 = g[1], gz1 = g[2], gvx = g[3], gvy = g[4], gvz = g[5];
+  if (rotated) {
+    rot_apply(p + P_ROT, gx1, gy1, gz1);
+    rot_apply(p + P_ROT, gvx, gvy, gvz);
+  }
+  T gmu = T(0), gux, guy, guz;
+  // the figure's cotangents: a cylinder's (C, K), a biconic's (cx, kx,
+  // cy, ky), a toroid's (cr, cy, ky)
+  T gp[4] = {T(0), T(0), T(0), T(0)};
+  // ---- reverse: refraction ----
+  if (kind == 0) {
+    gux = gvx; guy = gvy; guz = gvz;
+  } else if (cyl) {
+    const T w1 = cyl == 1 ? y1 : x1;
+    const T kc = (T(1) + kk) * cc;
+    const T nw = -cc * w1;
+    const T nz = T(1) - kc * z1;
+    T gnx, gny, gnz;
+    refraction_vjp(kind, false, mu, ux, uy, uz, cyl == 1 ? T(0) : nw,
+                   cyl == 1 ? nw : T(0), nz, gvx, gvy, gvz, gux, guy, guz,
+                   gnx, gny, gnz, gmu);
+    const T gnw = cyl == 1 ? gny : gnx;
+    gp[1] = gp[1] - cc * z1 * gnz;
+    gp[0] = gp[0] - w1 * gnw - (T(1) + kk) * z1 * gnz;
+    if (cyl == 1) {
+      gy1 = gy1 - cc * gnw;
+    } else {
+      gx1 = gx1 - cc * gnw;
+    }
+    gz1 = gz1 - kc * gnz;
+  } else {
+    T ngx, ngy, ggx, ggy, ggz;
+    anam_normal<toroid>(x1, y1, an, ngx, ngy);
+    refraction_vjp(kind, false, mu, ux, uy, uz, ngx, ngy, T(1), gvx, gvy, gvz,
+                   gux, guy, guz, ggx, ggy, ggz, gmu);
+    if (kind == 2) {
+      // the reflection's a = |mu| (u . n) / |n|^2 with |mu| = 1
+      const T nn = ngx * ngx + ngy * ngy + T(1);
+      gmu = -sgn(mu) * T(2) * (ux * ngx + uy * ngy + uz) / nn *
+            (gvx * ngx + gvy * ngy + gvz);
+    }
+    if constexpr (toroid) {
+      toroid_normal_vjp(x1, y1, an, ggx, ggy, gx1, gy1, gp);
+    } else {
+      biconic_normal_vjp(x1, y1, an, ggx, ggy, gx1, gy1, gp);
+    }
+  }
+  // ---- reverse: transfer x1 = x + t u ----
+  T gx = gx1, gy = gy1, gz = gz1;
+  gux = gux + t * gx1; guy = guy + t * gy1; guz = guz + t * gz1;
+  const T gt = ux * gx1 + uy * gy1 + uz * gz1;
+  // ---- reverse: intercept ----
+  if (cyl) {
+    T gd, gq, ge = T(0), gf = T(0);
+    if (conj) {
+      const T dd = q != d ? gt * f / (den * den) : T(0);
+      gf = gt / den;
+      gd = dd;
+      gq = -dd;
+    } else {
+      gd = gq = -gt / den;
+      ge = gt * (d + q) / (den * den);
+    }
+    const T gdisc = gq * sg * T(0.5) / sq;
+    gd = gd + T(2) * d * gdisc;
+    ge = ge - f * gdisc;
+    gf = gf - e * gdisc;
+    gp[0] = gp[0] + yy * gf + uu * ge + uyd * gd;
+    const T gyy = cc * gf;
+    const T guyd = cc * gd;
+    const T guu = cc * ge;
+    gz = gz - T(2) * gf + T(2) * k1 * z * gyy + k1 * uz * guyd;
+    guz = guz - gd + k1 * z * guyd + T(2) * k1 * uz * guu;
+    const T gw = T(2) * w * gyy + uw * guyd;
+    const T guw = w * guyd + T(2) * uw * guu;
+    gp[1] = gp[1] + z * z * gyy + uz * uz * guu + uz * z * guyd;
+    if (cyl == 1) {
+      gy = gy + gw;
+      guy = guy + guw;
+    } else {
+      gx = gx + gw;
+      gux = gux + guw;
+    }
+  } else {
+    // the Newton root, implicitly: dF/dp * (-gt / F_s)
+    const T gF = -gt / anam_slope<toroid>(t, x, y, ux, uy, uz, an);
+    const T px = x + t * ux;
+    const T py = y + t * uy;
+    T gpx = T(0), gpy = T(0);
+    if constexpr (toroid) {
+      toroid_sag_vjp(px, py, an, gF, gpx, gpy, gp);
+    } else {
+      biconic_sag_vjp(px, py, an, gF, gpx, gpy, gp);
+    }
+    gx = gx + gpx; gy = gy + gpy; gz = gz + gF;
+    gux = gux + t * gpx; guy = guy + t * gpy; guz = guz + t * gF;
+  }
+  // ---- reverse: enter the row's frame ----
+  if (rotated) {
+    rot_apply_t(p + P_ROT, gx, gy, gz);
+    rot_apply_t(p + P_ROT, gux, guy, guz);
+  }
+  g[0] = gx; g[1] = gy; g[2] = gz;
+  g[3] = gux; g[4] = guy; g[5] = guz;
+  // the figure's parameters onto the row's
+  if (cyl == 1) {
+    pg[0] = gp[0]; pg[1] = gp[1]; pg[Q_CDX] = T(0); pg[Q_CDX + 1] = T(0);
+  } else if (cyl == 2) {
+    pg[0] = gp[0]; pg[1] = gp[1]; pg[Q_CDX] = gp[0]; pg[Q_CDX + 1] = gp[1];
+  } else if (toroid) {
+    pg[0] = gp[0] + gp[1]; pg[1] = gp[2];
+    pg[Q_CDX] = gp[0]; pg[Q_CDX + 1] = T(0);
+  } else {
+    pg[0] = gp[0] + gp[2]; pg[1] = gp[1] + gp[3];
+    pg[Q_CDX] = gp[0]; pg[Q_CDX + 1] = gp[1];
+  }
+  pg[2] = off_axis ? -gx : T(0);
+  pg[3] = off_axis ? -gy : T(0);
+  pg[4] = -gz;
+  pg[5] = gmu;
+}
+
 // Hand-derived reverse of surface_step for one live ray, the flags and
-// the row pointer as in surface_step (a figured row: figured_step_vjp).
+// the row pointer as in surface_step (a figured row: figured_step_vjp;
+// an anamorphic row: anamorphic_step_vjp).
 // s: the state entering the row (global frame).  g: in, the cotangent of
 // the state leaving the row; out, the cotangent of s.
 // pg: out, the row's parameter cotangents (c, k, offset x, y, z, mu;
@@ -290,7 +637,12 @@ template <typename T, bool PATH = false, typename Flags,
 __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
                                                  const T* s, T* g, T* pg,
                                                  T ct_path = T(0)) {
-  if constexpr ((Flags::value & F_FIGURED) != 0) {
+  if constexpr ((Flags::value & F_ANAMORPHIC) != 0) {
+    static_assert(!PATH && !(Flags::value & F_FIGURED),
+                  "K9 and figured anamorphic rows are not traced yet");
+    anamorphic_step_vjp<T>(p, flags, s, g, pg);
+    return;
+  } else if constexpr ((Flags::value & F_FIGURED) != 0) {
     figured_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path);
     return;
   }

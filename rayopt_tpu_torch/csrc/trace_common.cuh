@@ -4,7 +4,9 @@
 // shared-memory opt-in): the packed table layout, the flag bits, the
 // guarded math, one surface step with its row flags as compile-time
 // constants (flat, spherical, conic and even/odd aspheric rows: the
-// latter by the seeded Newton intercept, `newton_intercept`), the
+// latter by the seeded Newton intercept, `newton_intercept`; and the
+// anamorphic rows: a conic cylinder in closed form, `cyl_intercept`, a
+// biconic or toroid by the seeded Newton, `anam_intercept`), the
 // compile-time loop and the last block of a fused grid-wide sum.  Each
 // translation unit that includes it gets its own internal copies.
 
@@ -27,12 +29,18 @@ namespace {
 #ifndef RAYOPT_N_ODD
 #define RAYOPT_N_ODD 0
 #endif
+// An anamorphic key's words a row after the coefficients (curvature_dx,
+// conic_dx: cuda_trace.anamorphic_words), else 0
+#ifndef RAYOPT_N_ANAM
+#define RAYOPT_N_ANAM 0
+#endif
 constexpr int N_ASP = RAYOPT_N_ASP;
 constexpr int N_ODD = RAYOPT_N_ODD;
+constexpr int N_ANAM = RAYOPT_N_ANAM;
 
 // packed row layout: keep in sync with cuda_trace.py (ROW, P_*); the
-// coefficients follow the 17 base words
-constexpr int ROW = 17 + N_ASP + N_ODD;
+// coefficients follow the 17 base words, then an anamorphic key's two
+constexpr int ROW = 17 + N_ASP + N_ODD + N_ANAM;
 constexpr int P_C = 0;     // curvature
 constexpr int P_K = 1;     // conic
 constexpr int P_OFF = 2;   // offset x, y, z
@@ -42,6 +50,8 @@ constexpr int P_MU = 15;   // refraction ratio
 constexpr int P_NB = 16;   // index before the surface
 constexpr int P_ASP = 17;          // even aspheric coefficients (N_ASP)
 constexpr int P_ODD = 17 + N_ASP;  // odd aspheric coefficients (N_ODD)
+constexpr int P_CDX = 17 + N_ASP + N_ODD;  // curvature_dx (N_ANAM)
+constexpr int P_KDX = P_CDX + 1;           // conic_dx
 
 // flag bits: keep in sync with cuda_trace.py (F_*)
 constexpr int F_FLAT = 1;
@@ -54,6 +64,14 @@ constexpr int KIND_SHIFT = 6;  // 2 bits: 0 pass, 1 refract, 2 mirror
 constexpr int F_ASPHERIC = 256;  // even figure: its slopes in the normal
 constexpr int F_ODD = 512;       // odd figure: its slopes in the normal
 constexpr int F_FIGURED = F_ASPHERIC | F_ODD;  // the seeded Newton intercept
+// the anamorphic rows, one of them a row (an anamorphic key: N_ANAM = 2)
+constexpr int F_CYL_Y = 1024;    // conic cylinder curved in y: c, k
+constexpr int F_CYL_X = 2048;    // curved in x: c + cdx, k + kdx
+constexpr int F_BICONIC = 4096;  // (cx, kx, cy, ky) by the seeded Newton
+constexpr int F_TOROID = 8192;   // (cr, cy, ky) by the seeded Newton
+constexpr int F_CYL = F_CYL_Y | F_CYL_X;
+constexpr int F_ANAM_NEWTON = F_BICONIC | F_TOROID;
+constexpr int F_ANAMORPHIC = F_CYL | F_ANAM_NEWTON;
 
 // the Newton intercept of a figured row (kernels.intercept)
 constexpr int ASPHERIC_ITERS = 10;
@@ -206,15 +224,12 @@ __device__ __forceinline__ T newton_slope(T s, T x, T y, T ux, T uy, T uz,
   return fp == T(0) ? T(1) : fp;
 }
 
-// kernels.intercept on a figured row: the generic conic root
-// (intercept_conic, its cancellation-free pair) seeds ASPHERIC_ITERS
-// Newton steps on the exact sag, no early exit; a ray whose residual
-// exceeds newton_tol() * (1 + |s|), or whose seed misses a curved row,
-// is NaN.  sg: -1 for the alternate root.
+// kernels.intercept_conic: the generic conic root by its
+// cancellation-free pair, the vertex plane where c == 0, NaN where a
+// curved row is missed.  sg: -1 for the alternate root.
 template <typename T>
-__device__ __forceinline__ T newton_intercept(T x, T y, T z, T ux, T uy,
-                                              T uz, T c, T k, T sg,
-                                              const Figure<T>& fg) {
+__device__ __forceinline__ T conic_root(T x, T y, T z, T ux, T uy, T uz,
+                                        T c, T k, T sg) {
   const T k1 = T(1) + k;
   const T uyd = ux * x + uy * y + k1 * uz * z;
   const T uu = ux * ux + uy * uy + k1 * uz * uz;
@@ -230,6 +245,19 @@ __device__ __forceinline__ T newton_intercept(T x, T y, T z, T ux, T uy,
   T seed = (conj ? f : -(d + g)) / den;
   if (c == T(0)) seed = -z / (uz == T(0) ? T(1) : uz);
   if (c != T(0) && disc < T(0)) seed = qnan<T>();
+  return seed;
+}
+
+// kernels.intercept on a figured row: the generic conic root
+// (conic_root) seeds ASPHERIC_ITERS Newton steps on the exact sag, no
+// early exit; a ray whose residual exceeds newton_tol() * (1 + |s|), or
+// whose seed misses a curved row, is NaN.  sg: -1 for the alternate
+// root.
+template <typename T>
+__device__ __forceinline__ T newton_intercept(T x, T y, T z, T ux, T uy,
+                                              T uz, T c, T k, T sg,
+                                              const Figure<T>& fg) {
+  const T seed = conic_root(x, y, z, ux, uy, uz, c, k, sg);
   T s = seed;
 #pragma unroll 1
   for (int it = 0; it < ASPHERIC_ITERS; ++it) {
@@ -242,8 +270,203 @@ __device__ __forceinline__ T newton_intercept(T x, T y, T z, T ux, T uy,
   return s;
 }
 
+// ---- the anamorphic rows (no aspheric figure) ----
+
+// kernels.intercept_cyl: the closed-form root of the conic cylinder
+// c (w^2 + (1+k) z^2) - 2 z = 0 in its curved coordinate w, by the
+// cancellation-free pair; NaN where it is missed.
+template <typename T>
+__device__ __forceinline__ T cyl_intercept(T w, T z, T uw, T uz, T c, T k,
+                                           T sg) {
+  const T k1 = T(1) + k;
+  const T uyd = uw * w + k1 * uz * z;
+  const T uu = uw * uw + k1 * uz * uz;
+  const T yy = w * w + k1 * z * z;
+  const T d = c * uyd - uz;
+  const T e = c * uu;
+  const T f = c * yy - T(2) * z;
+  const T disc = d * d - e * f;
+  const T g = sqrt0(disc) * sg;
+  const bool conj = d * g <= T(0) || e == T(0);
+  T den = conj ? g - d : e;
+  if (den == T(0)) den = T(1);
+  T t = (conj ? f : -(d + g)) / den;
+  if (disc < T(0)) t = qnan<T>();
+  return t;
+}
+
+// kernels.refract_cyl: Snell (kind 1) or a mirror (kind 2) on the
+// cylinder's normal (-c w, 1 - (1+k) c z); uw along the curved axis, uv
+// along the flat one.
+template <typename T>
+__device__ __forceinline__ void cyl_refract(int kind, T w, T z, T mu, T c,
+                                            T k, T& uw, T& uv, T& uz) {
+  const T nw = -c * w;
+  const T nz = T(1) - (T(1) + k) * c * z;
+  const T inv = T(1) / (nw * nw + nz * nz);
+  const T dot = uw * nw + uz * nz;
+  if (kind == 2) {
+    const T a2 = T(2) * dot * inv;
+    uw = uw - a2 * nw;
+    uz = uz - a2 * nz;
+    return;
+  }
+  const T muf = fabs(mu);
+  const T a = muf * dot * inv;
+  const T disc = a * a - (mu * mu - T(1)) * inv;
+  T g = -a + sgn(mu) * sqrt0(disc);
+  if (disc < T(0)) g = qnan<T>();
+  uw = muf * uw + g * nw;
+  uv = muf * uv;
+  uz = muf * uz + g * nz;
+}
+
+// The figure of a biconic (cx, kx, cy, ky) or a toroid (cr, cy, ky; pd
+// unused) row.
+template <typename T>
+struct Anam {
+  T pa, pb, pc, pd;
+};
+
+// z - sag of a biconic (kernels.sag_biconic, no figure)
+template <typename T>
+__device__ __forceinline__ T biconic_sag(T px, T py, T pz, const Anam<T>& a) {
+  const T x2 = px * px, y2 = py * py;
+  const T num = a.pa * x2 + a.pc * y2;
+  const T b = (T(1) + a.pb) * a.pa * a.pa * x2 + (T(1) + a.pd) * a.pc * a.pc * y2;
+  return pz - num / (T(1) + sqrt0(T(1) - b));
+}
+
+// (gx, gy) of the biconic's normal (gx, gy, 1) (kernels.normal_biconic)
+template <typename T>
+__device__ __forceinline__ void biconic_normal(T x, T y, const Anam<T>& a,
+                                               T& gx, T& gy) {
+  const T x2 = x * x, y2 = y * y;
+  const T num = a.pa * x2 + a.pc * y2;
+  const T qx = (T(1) + a.pb) * a.pa * a.pa;
+  const T qy = (T(1) + a.pd) * a.pc * a.pc;
+  const T s = sqrt0(T(1) - (qx * x2 + qy * y2));
+  const T ss = floor_at(s, T(TINY));
+  const T inv = T(1) / (T(1) + s);
+  gx = -(T(2) * a.pa * x * (T(1) + s) + num * qx * x / ss) * inv * inv;
+  gy = -(T(2) * a.pc * y * (T(1) + s) + num * qy * y / ss) * inv * inv;
+}
+
+// The toroid's generating curve (kernels._ycurve, no figure): zy, dzy
+template <typename T>
+__device__ __forceinline__ void ycurve(T y, T cy, T ky, T& zy, T& dzy) {
+  const T y2 = y * y;
+  const T sq = sqrt0(T(1) - (T(1) + ky) * cy * cy * y2);
+  zy = cy * y2 / (T(1) + sq);
+  dzy = cy * y / floor_at(sq, T(TINY));
+}
+
+// z - sag of a toroid (kernels.sag_toroid, no figure)
+template <typename T>
+__device__ __forceinline__ T toroid_sag(T px, T py, T pz, const Anam<T>& a) {
+  T zy, dzy;
+  ycurve(py, a.pb, a.pc, zy, dzy);
+  const T crp = a.pa / (T(1) - a.pa * zy);
+  const T x2 = px * px;
+  return pz - zy - crp * x2 / (T(1) + sqrt0(T(1) - x2 * crp * crp));
+}
+
+// (gx, gy) of the toroid's normal (kernels.normal_toroid)
+template <typename T>
+__device__ __forceinline__ void toroid_normal(T x, T y, const Anam<T>& a,
+                                              T& gx, T& gy) {
+  T zy, dzy;
+  ycurve(y, a.pb, a.pc, zy, dzy);
+  const T crp = a.pa / (T(1) - a.pa * zy);
+  const T w = floor_at(sqrt0(T(1) - x * x * crp * crp), T(TINY));
+  gx = -x * crp / w;
+  gy = -dzy / w;
+}
+
+template <bool TOROID, typename T>
+__device__ __forceinline__ T anam_sag(T px, T py, T pz, const Anam<T>& a) {
+  if constexpr (TOROID) {
+    return toroid_sag(px, py, pz, a);
+  } else {
+    return biconic_sag(px, py, pz, a);
+  }
+}
+
+template <bool TOROID, typename T>
+__device__ __forceinline__ void anam_normal(T x, T y, const Anam<T>& a,
+                                            T& gx, T& gy) {
+  if constexpr (TOROID) {
+    toroid_normal(x, y, a, gx, gy);
+  } else {
+    biconic_normal(x, y, a, gx, gy);
+  }
+}
+
+// dF/ds of a biconic or toroid at distance s, a zero slope taken as 1
+template <bool TOROID, typename T>
+__device__ __forceinline__ T anam_slope(T s, T x, T y, T ux, T uy, T uz,
+                                        const Anam<T>& a) {
+  T gx, gy;
+  anam_normal<TOROID>(x + s * ux, y + s * uy, a, gx, gy);
+  const T fp = ux * gx + uy * gy + uz;
+  return fp == T(0) ? T(1) : fp;
+}
+
+// The row's figure: a biconic's (c + cdx, k + kdx, c, k), a toroid's
+// (c + cdx, c, k)
+template <bool TOROID, typename T, typename Row>
+__device__ __forceinline__ Anam<T> load_anam(Row p, T c, T k) {
+  const T cx = c + p[P_CDX];
+  if constexpr (TOROID) {
+    return Anam<T>{cx, c, k, T(0)};
+  } else {
+    return Anam<T>{cx, k + p[P_KDX], c, k};
+  }
+}
+
+// kernels.intercept_biconic / intercept_toroid: the y-conic root seeds
+// ASPHERIC_ITERS Newton steps (a missed seed restarts from the vertex
+// plane -z/uz), no early exit; a ray past newton_tol() is NaN.
+template <bool TOROID, typename T>
+__device__ __forceinline__ T anam_intercept(T x, T y, T z, T ux, T uy, T uz,
+                                            T cy, T ky, T sg,
+                                            const Anam<T>& a) {
+  T s = conic_root(x, y, z, ux, uy, uz, cy, ky, sg);
+  if (isnan(s)) s = -z / (uz == T(0) ? T(1) : uz);
+#pragma unroll 1
+  for (int it = 0; it < ASPHERIC_ITERS; ++it) {
+    const T fn = anam_sag<TOROID>(x + s * ux, y + s * uy, z + s * uz, a);
+    s = s - fn / anam_slope<TOROID>(s, x, y, ux, uy, uz, a);
+  }
+  const T res = anam_sag<TOROID>(x + s * ux, y + s * uy, z + s * uz, a);
+  if (!(fabs(res) <= newton_tol<T>() * (T(1) + fabs(s)))) s = qnan<T>();
+  return s;
+}
+
+// kernels._refract_general: Snell (kind 1) or a mirror (kind 2) on the
+// normal (gx, gy, 1)
+template <typename T>
+__device__ __forceinline__ void general_refract(int kind, T mu, T gx, T gy,
+                                                T& vx, T& vy, T& vz) {
+  const T r2 = gx * gx + gy * gy + T(1);
+  const T muf = fabs(mu);
+  const T a = muf * (vx * gx + vy * gy + vz) / r2;
+  if (kind == 2) {
+    vx = vx - T(2) * a * gx;
+    vy = vy - T(2) * a * gy;
+    vz = vz - T(2) * a;
+    return;
+  }
+  const T disc = a * a - (mu * mu - T(1)) / r2;
+  T g = -a + sgn(mu) * sqrt0(disc);
+  if (disc < T(0)) g = qnan<T>();
+  vx = muf * vx + g * gx;
+  vy = muf * vy + g * gy;
+  vz = muf * vz + g;
+}
+
 // One transfer-intercept-refract step: kernels.surface_step_spec for
-// flat, spherical, conic and even/odd aspheric rows.  State in and out
+// flat, spherical, conic, even/odd aspheric and anamorphic rows.  State in and out
 // in the global (from_normal) frame; adds the optical path n_before * t
 // to tacc.
 // The row's flags arrive as std::integral_constant<int, F> (K1-K9,
@@ -257,6 +480,8 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
                                              T& x, T& y, T& z, T& ux,
                                              T& uy, T& uz, T& tacc) {
   const int fl = flag_value(flags);
+  static_assert(!(Flags::value & F_ANAMORPHIC) || N_ANAM == 2,
+                "an anamorphic row needs the key's curvature_dx, conic_dx");
   if (fl & F_OFF_AXIS) {
     x = x - p[P_OFF];
     y = y - p[P_OFF + 1];
@@ -272,9 +497,26 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   const bool figured = fl & F_FIGURED;
   Figure<T> fg;
   if (figured) fg = load_figure<T>(p);
-  // intercept_spec, or a figured row's seeded Newton
+  constexpr bool toroid = (Flags::value & F_TOROID) != 0;
+  Anam<T> an{};
+  if (fl & F_ANAM_NEWTON) an = load_anam<toroid>(p, c, k);
+  // a cylinder's curvature and conic: (c, k) in y, (c + cdx, k + kdx) in x
+  T cc = c, kk = k;
+  if (fl & F_CYL_X) {
+    cc = c + p[P_CDX];
+    kk = k + p[P_KDX];
+  }
+  const T sg = (fl & F_ALTERNATE) ? T(-1) : T(1);
+  // intercept_spec, a cylinder's closed form, or the seeded Newton of a
+  // figured, biconic or toroidal row
   T t;
-  if (figured) {
+  if (fl & F_CYL_Y) {
+    t = cyl_intercept(y, z, uy, uz, cc, kk, sg);
+  } else if (fl & F_CYL_X) {
+    t = cyl_intercept(x, z, ux, uz, cc, kk, sg);
+  } else if (fl & F_ANAM_NEWTON) {
+    t = anam_intercept<toroid>(x, y, z, ux, uy, uz, c, k, sg, an);
+  } else if (figured) {
     t = newton_intercept(x, y, z, ux, uy, uz, c, k,
                          (fl & F_ALTERNATE) ? T(-1) : T(1), fg);
   } else if (fl & F_FLAT) {
@@ -322,7 +564,15 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   if (kind != 0) {
     const T mu = p[P_MU];
     const T muf = fabs(mu);
-    if (figured) {
+    if (fl & F_CYL_Y) {
+      cyl_refract(kind, y1, z1, mu, cc, kk, vy, vx, vz);
+    } else if (fl & F_CYL_X) {
+      cyl_refract(kind, x1, z1, mu, cc, kk, vx, vy, vz);
+    } else if (fl & F_ANAM_NEWTON) {
+      T gx, gy;
+      anam_normal<toroid>(x1, y1, an, gx, gy);
+      general_refract(kind, mu, gx, gy, vx, vy, vz);
+    } else if (figured) {
       // the radial normal (x e, y e, 1) of _refract_figured: the conic
       // factor by an IEEE square root and division, then the slopes of
       // the flagged figures

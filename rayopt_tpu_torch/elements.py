@@ -1,7 +1,8 @@
-"""Element/Interface/Spheroid: the serializable surface front-end.
+"""Element/Interface/Spheroid/Biconic/Toroid: the serializable surface
+front-end.
 
 API parity with reference elements.py (TransformMixin:30, Element:179,
-Interface:276, Spheroid:413).  These objects are a thin, host-side
+Interface:276, Spheroid:413, Biconic:545, Toroid:671).  These objects are a thin, host-side
 description layer: `System` lowers a list of them into the
 struct-of-arrays `SurfaceTable` (ops.tables) that the trace engines
 consume.  The per-element numeric methods take and return NumPy
@@ -9,8 +10,8 @@ arrays; they evaluate the torch surface oracle (ops.surfaces) on CPU
 float64 tensors, so both paths share one implementation of the
 physics.
 
-The anamorphic, grating, diffractive and freeform element types of
-the JAX package (Biconic ... ForbesQcon) are not ported yet.
+The grating, diffractive and freeform element types of the JAX
+package (Grating ... ForbesQcon) are not ported yet.
 """
 
 import numpy as np
@@ -536,3 +537,164 @@ class Spheroid(Interface):
             axial_chr, lateral_chr = -y[0]*inc/lag*(v0 - mu*v)
         return (spherical, coma, astig, petzval, distortion,
                 axial_chr, lateral_chr)
+
+
+def _rays(v):
+    """A host (N, 3) ray array (or one ray) as CPU float64 components."""
+    v = _t(np.atleast_2d(np.asarray(v, dtype=float)))
+    return v[..., 0], v[..., 1], v[..., 2]
+
+
+@Element.register
+class Biconic(Spheroid):
+    """Anamorphic (biconic) surface: independent x/y vertex curvature
+    and conic, shared rotationally symmetric aspheric terms (reference
+    elements.py:545),
+
+    sag = (cx x^2 + cy y^2) /
+          (1 + sqrt(1 - (1+kx) cx^2 x^2 - (1+ky) cy^2 y^2)) + poly(r^2)
+
+    `curvature`/`conic` are the y-axis figure (a Biconic with
+    curvature_x == curvature behaves as a Spheroid), and a cylinder
+    lens is curvature_x=0 (power in y) or curvature=0 (power in x).
+    The paraxial 4x4 carries the per-axis power (_vertex_power_x)."""
+
+    _type = "biconic"
+
+    def __init__(self, curvature_x=0., conic_x=0., roc_x=None, **kwargs):
+        super().__init__(**kwargs)
+        self.curvature_x = curvature_x if roc_x is None else 1./roc_x
+        self.conic_x = conic_x
+
+    def dict(self):
+        dat = super().dict()
+        if self.curvature_x:
+            dat["curvature_x"] = float(self.curvature_x)
+        if self.conic_x:
+            dat["conic_x"] = float(self.conic_x)
+        return dat
+
+    def _figure(self):
+        """(cx, kx, cy, ky) as CPU float64 tensors."""
+        return tuple(_t(v) for v in (self.curvature_x, self.conic_x,
+                                     self.curvature, self.conic))
+
+    def surface_sag(self, xyz):
+        from .ops import kernels as _K
+        x, y, z = _rays(xyz)
+        out = _K.sag_biconic(x, y, z, *self._figure(), self._aspheric_arr,
+                             self._aspheric_odd_arr)
+        return _np(out).reshape(np.shape(xyz)[:-1])
+
+    def surface_normal(self, xyz):
+        from .ops import kernels as _K
+        x, y, _ = _rays(xyz)
+        gx, gy = _K.normal_biconic(x, y, *self._figure(),
+                                   self._aspheric_arr,
+                                   self._aspheric_odd_arr)
+        out = np.stack([_np(gx), _np(gy), np.ones(gx.shape)], axis=-1)
+        return out.reshape(np.shape(xyz))
+
+    def intercept(self, y, u):
+        from .ops import kernels as _K
+        return _np(_K.intercept_biconic(
+            *_rays(y), *_rays(u), *self._figure(), self._aspheric_arr,
+            1. if self.alternate_intersection else 0.,
+            aspherics_odd=self._aspheric_odd_arr))
+
+    def refract(self, y, u0, mu):
+        from .ops import kernels as _K
+        x, yy, _ = _rays(y)
+        out = _K.refract_biconic(x, yy, *_rays(u0), _t(mu), *self._figure(),
+                                 self._aspheric_arr, self._aspheric_odd_arr)
+        return np.stack([_np(o) for o in out], axis=-1)
+
+    def _vertex_power_x(self):
+        if self.aspherics:
+            return self.curvature_x + 2*self.aspherics[0]
+        return self.curvature_x
+
+    def reverse(self):
+        super().reverse()
+        self.curvature_x = -self.curvature_x
+
+    def rescale(self, scale):
+        super().rescale(scale)
+        self.curvature_x /= scale
+
+
+@Element.register
+class Toroid(Spheroid):
+    """Toroidal surface: the y-z generating curve (conic `curvature`/
+    `conic` + the polynomial figure, all in y) swept about an axis
+    parallel to y at rotation radius R = 1/curvature_rotation (reference
+    elements.py:671; the Zemax TOROIDAL model).  curvature_rotation == 0
+    degenerates to a pure y-cylinder; at the vertex the x-curvature is
+    curvature_rotation (_vertex_power_x)."""
+
+    _type = "toroid"
+
+    def __init__(self, curvature_rotation=0., roc_rotation=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.curvature_rotation = (curvature_rotation if roc_rotation is None
+                                   else 1./roc_rotation)
+
+    def dict(self):
+        dat = super().dict()
+        if self.curvature_rotation:
+            dat["curvature_rotation"] = float(self.curvature_rotation)
+        return dat
+
+    @property
+    def curvature_x(self):
+        return self.curvature_rotation
+
+    @property
+    def conic_x(self):
+        return 0.
+
+    def _vertex_power_x(self):
+        return self.curvature_rotation
+
+    def _figure(self):
+        """(cr, cy, ky) as CPU float64 tensors."""
+        return tuple(_t(v) for v in (self.curvature_rotation,
+                                     self.curvature, self.conic))
+
+    def surface_sag(self, xyz):
+        from .ops import kernels as _K
+        x, y, z = _rays(xyz)
+        out = _K.sag_toroid(x, y, z, *self._figure(), self._aspheric_arr,
+                            self._aspheric_odd_arr)
+        return _np(out).reshape(np.shape(xyz)[:-1])
+
+    def surface_normal(self, xyz):
+        from .ops import kernels as _K
+        x, y, _ = _rays(xyz)
+        gx, gy = _K.normal_toroid(x, y, *self._figure(), self._aspheric_arr,
+                                  self._aspheric_odd_arr)
+        out = np.stack([_np(gx), _np(gy), np.ones(gx.shape)], axis=-1)
+        return out.reshape(np.shape(xyz))
+
+    def intercept(self, y, u):
+        from .ops import kernels as _K
+        return _np(_K.intercept_toroid(
+            *_rays(y), *_rays(u), *self._figure(), self._aspheric_arr,
+            1. if self.alternate_intersection else 0.,
+            aspherics_odd=self._aspheric_odd_arr))
+
+    def refract(self, y, u0, mu):
+        from .ops import kernels as _K
+        x, yy, _ = _rays(y)
+        out = _K.refract_toroid(x, yy, *_rays(u0), _t(mu), *self._figure(),
+                                self._aspheric_arr, self._aspheric_odd_arr)
+        return np.stack([_np(o) for o in out], axis=-1)
+
+    def reverse(self):
+        super().reverse()
+        self.curvature_rotation = -self.curvature_rotation
+
+    def rescale(self, scale):
+        super().rescale(scale)
+        self.curvature_rotation /= scale

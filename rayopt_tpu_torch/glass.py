@@ -134,7 +134,8 @@ def polychromatic_spot_rms(tables, y0, u0, w=None, specs=None,
     K6 forward, K7 backward on a CUDA bundle, their plain versions on
     a CPU one), root sqrt(max(var, 0) + 1e-30) of the moments.
     `unroll`, `tile` and `interpret` (JAX/TPU options) are accepted
-    and ignored; biconic=True raises NotImplementedError."""
+    and ignored; `biconic` selects the generic walk's anamorphic step
+    (engine="xla", without specs)."""
     if engine == "adjoint":
         from .ops.cuda_grad import polychromatic_spot_rms as adjoint_rms
         return adjoint_rms(tables, y0, u0, w, specs=specs, clip=clip)

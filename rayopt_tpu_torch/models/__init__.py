@@ -1,3 +1,4 @@
 from .prescriptions import (  # noqa: F401
-    doublet, cooke_triplet, double_gauss, parabolic_mirror, PRESCRIPTIONS,
+    doublet, cooke_triplet, double_gauss, parabolic_mirror, anamorphic_pair,
+    PRESCRIPTIONS,
 )

@@ -1,6 +1,7 @@
 """Canonical optical prescriptions: the achromatic doublet, the OSLO
 50mm f/4 Cooke triplet, the classic 100mm f/3 double Gauss (the
-headline benchmark lens) and an f/2 parabolic mirror.  The YAML texts are the JAX package's
+headline benchmark lens), an f/2 parabolic mirror and a crossed-cylinder
+anamorphic pair.  The YAML texts are the JAX package's
 (rayopt_tpu.models.prescriptions), so both packages build the same
 systems.
 """
@@ -82,6 +83,24 @@ elements:
 """
 
 
+# crossed-cylinder anamorphic beam shaper (laser-diode style): a
+# y-cylinder front lens and an x-cylinder rear lens with different
+# powers (the JAX package's cylindrical-anamorphic configuration)
+ANAMORPHIC_YAML = """
+description: crossed-cylinder anamorphic beam shaper
+object: {angle_deg: 0.5, pupil: {radius: 4.}}
+elements:
+- {material: air}
+- {type: biconic, curvature: 0.019, distance: 10., material: 1.5168,
+   radius: 6.}
+- {distance: 3., material: air, radius: 6.}
+- {type: biconic, curvature: 0., curvature_x: 0.016, distance: 5.,
+   material: 1.5168, radius: 6.}
+- {distance: 3., material: air, radius: 6.}
+- {distance: 60., radius: 8.}
+"""
+
+
 def _build(yaml_text, update=True):
     s = system_from_yaml(yaml_text)
     if update:
@@ -105,9 +124,14 @@ def parabolic_mirror(update=True):
     return _build(PARABOLIC_YAML, update)
 
 
+def anamorphic_pair(update=True):
+    return _build(ANAMORPHIC_YAML, update)
+
+
 PRESCRIPTIONS = {
     "doublet": doublet,
     "cooke": cooke_triplet,
     "double_gauss": double_gauss,
     "parabolic": parabolic_mirror,
+    "anamorphic_pair": anamorphic_pair,
 }

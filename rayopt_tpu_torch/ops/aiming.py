@@ -41,27 +41,24 @@ from .surfaces import surface_sag
 from .tables import lower_pose
 
 #: the table fields the loops never read once `_prepared` checked them
-#: (the aspheric coefficients stay: the traces' Newton reads them on the
-#: device, and tests only their static widths)
-_CHECKED = ("curvature_dx", "conic_dx", "toroidal", "grating_dy", "doe",
-            "xy_poly", "tilt", "decenter")
+#: (the aspheric coefficients and the anamorphic columns stay: the
+#: traces read them on the device, and tests only their static widths)
+_CHECKED = ("grating_dy", "doe", "xy_poly", "tilt", "decenter")
 
 
 def _prepared(table, specs, rim=False):
     """The table detached, its pose folded, and refused (once, here)
-    where the loops would refuse it: an anamorphic, grating, DOE or
-    freeform row (the port's traces and the finite conjugate's object
-    sag take the rotationally symmetric rows: flat, spherical, conic
-    and even/odd aspheric), and rim mode on such specs (ROADMAP Queue 1
-    item 9).  The fields those checks read become None, so that the
-    loops' traces and sags read nothing back to the host.
-    Idempotent."""
-    if rim and specs and any(s.biconic or s.toroidal or s.grating or s.doe
-                             or s.cyl_axis or s.freeform for s in specs):
+    where the loops would refuse it: a grating, DOE or freeform row (the
+    port's traces take the flat, spherical, conic, even/odd aspheric and
+    anamorphic rows), and rim mode on such specs (ROADMAP Queue 1 item
+    9).  The fields those checks read become None, so that the loops'
+    traces and sags read nothing back to the host.  Idempotent."""
+    if rim and specs and any(s.grating or s.doe or s.freeform
+                             for s in specs):
         # rim mode traces every row with the general trace
         from ..parallel.grad import _not_ported
-        _not_ported("rim-mode aiming through the extended surface "
-                    "vocabulary", 9)
+        _not_ported("rim-mode aiming through the grating, DOE and "
+                    "freeform rows", 9)
     table = lower_pose(type(table)(*(None if f is None else f.detach()
                                      for f in table)))
     K.require_radial(table)
@@ -232,7 +229,10 @@ def _clearance(table, specs, stop, fx, fy, z, px, py, scale, r2,
         # the generic trace: `_prepared` refused the anamorphic rows
         y0 = torch.stack(state[:3], -1)
         u0 = torch.stack(state[3:], -1)
-        ys = trace_rays(table, y0, u0)[0]
+        # anamorphic rows need the general walk's anamorphic step (specs
+        # are static: a branch on the host)
+        ext = bool(specs) and any(K.is_anamorphic_spec(s) for s in specs)
+        ys = trace_rays(table, y0, u0, biconic=ext)[0]
         h2 = torch.square(ys[1:-1, :, :2]).sum(-1)
         d = h2/torch.square(table.radius[1:-1])[:, None] - 1.
         d = torch.where(torch.isfinite(d), d, 1.)

@@ -97,8 +97,8 @@ import torch
 from . import cuda_spec as CS
 from . import kernels as K
 from .cuda_spec import launch_moments, packed, spec_launch
-from .cuda_trace import (_check_state, figure_widths, spot_rms_from_moments,
-                         trace_final_reference)
+from .cuda_trace import (_check_state, anamorphic_words, figure_widths,
+                         spot_rms_from_moments, trace_final_reference)
 from .tables import lower_pose, table_at
 
 SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
@@ -108,6 +108,9 @@ AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 #: differentiable table fields the autograd Functions carry (K9's
 #: fields; the spot moments' n_before gets a zero cotangent)
 _DIFF = CS.OPD_FIELDS
+#: the spot moments' (_SpotMoments): K9's and the anamorphic x figure
+_MOMENT_DIFF = _DIFF + ("curvature_dx", "conic_dx")
+_NM = len(_MOMENT_DIFF)
 #: kernel-carried fields that never receive cotangents
 _NONDIFF = ("radius", "alternate")
 #: the fields the reference kernel carries (pallas_trace._FIELDS)
@@ -154,13 +157,17 @@ def _constant_table(table, like):
                          for f in _folded(table)))
 
 
-def _param_rows(tab):
-    """(S, SLOTS + na + no) view of the differentiated fields of a
-    table: c, k, offset x, y, z, mu, then its aspheric coefficients."""
-    return torch.cat([torch.stack([tab.curvature, tab.conic,
-                                   tab.offset[:, 0], tab.offset[:, 1],
-                                   tab.offset[:, 2], tab.mu], 1),
-                      tab.aspherics, tab.aspherics_odd], 1)
+def _param_rows(tab, anam=0):
+    """(S, SLOTS + na + no + anam) view of the differentiated fields of
+    a table: c, k, offset x, y, z, mu, then its aspheric coefficients,
+    then (anam, cuda_trace.anamorphic_words) curvature_dx and
+    conic_dx."""
+    cols = [torch.stack([tab.curvature, tab.conic, tab.offset[:, 0],
+                         tab.offset[:, 1], tab.offset[:, 2], tab.mu], 1),
+            tab.aspherics, tab.aspherics_odd]
+    if anam:
+        cols.append(torch.stack([tab.curvature_dx, tab.conic_dx], 1))
+    return torch.cat(cols, 1)
 
 
 def _table_widths(table):
@@ -173,37 +180,42 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     """Plain PyTorch version of K5: torch autograd through the plain
     trace.  A no-grad pre-trace finds the live rays; each dead ray is
     traced as the first live one (so no NaN enters autograd) at zero
-    weight.  Returns (parameter cotangents (S, SLOTS + na + no) in the
-    order c, k, offset x, y, z, mu, then the table's na even and no odd
-    aspheric coefficients; the six state cotangents; the weight
-    cotangent), all in the state's dtype."""
+    weight.  Returns (parameter cotangents (S, SLOTS + na + no + anam)
+    in the order c, k, offset x, y, z, mu, then the table's na even and
+    no odd aspheric coefficients, then for anamorphic specs
+    (cuda_trace.anamorphic_words) curvature_dx and conic_dx; the six
+    state cotangents; the weight cotangent), all in the state's
+    dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
+    anam = anamorphic_words(specs)
     with torch.no_grad():
         out, _ = trace_final_reference(tab, specs, state, clip)
         alive = _live(out)
-    pg = torch.zeros((tab.nsurfaces, SLOTS + sum(_table_widths(tab))),
+    pg = torch.zeros((tab.nsurfaces, SLOTS + sum(_table_widths(tab)) + anam),
                      dtype=x0.dtype, device=x0.device)
     if not bool(alive.any()):
         return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
             torch.zeros_like(x0)
     i0 = int(torch.argmax(alive.to(torch.uint8)))
     fields = ("curvature", "conic", "offset", "mu", "aspherics",
-              "aspherics_odd")
+              "aspherics_odd") + (("curvature_dx", "conic_dx") if anam
+                                  else ())
+    nf = len(fields)
     leaves = [*(getattr(tab, f) for f in fields), *state, w]
     leaves = [v.detach().clone().requires_grad_() for v in leaves]
-    st, wl = leaves[6:12], leaves[12]
+    st, wl = leaves[nf:nf + 6], leaves[nf + 6]
     with torch.enable_grad():
         sub = tuple(torch.where(alive, s, s[i0]) for s in st)
-        t2 = tab.replace(**dict(zip(fields, leaves[:6])))
+        t2 = tab.replace(**dict(zip(fields, leaves[:nf])))
         out, _ = trace_final_reference(t2, specs, sub, clip)
         mom = _wmoments(out[0], out[1], wl, alive)
         grads = torch.autograd.grad((mom*ct.to(mom.dtype)).sum(), leaves,
                                     allow_unused=True)
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(leaves, grads)]
-    pg = _param_rows(tab.replace(**dict(zip(fields, grads[:6]))))
-    return pg, tuple(grads[6:12]), grads[12]
+    pg = _param_rows(tab.replace(**dict(zip(fields, grads[:nf]))), anam)
+    return pg, tuple(grads[nf:nf + 6]), grads[nf + 6]
 
 
 def weighted_moments_multi_reference(tables, specs, state, w, clip=False):
@@ -422,6 +434,9 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     aperture clip is a constant mask: a clipped ray is dead, and dead
     rays never reach the reverse sweep."""
     K.check_supported(spec)
+    if K.is_anamorphic_spec(spec):
+        CS.check_anamorphic(spec, "K9" if ct_path is not None else "K5")
+        return _anamorphic_vjp_reference(state, surf, spec, g)
     if K.is_figured(spec):
         return _figured_vjp_reference(state, surf, spec, g, ct_path)
     x, y, z, ux, uy, uz = state
@@ -655,7 +670,8 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
         gt = gt + ct_path*surf.n_before
         gnb = ct_path*t
     # ---- reverse: the Newton root, implicitly: dF/dp * (-gt/F_s) ----
-    fs = K._newton_slope(t, x, y, z, ux, uy, uz, c, k, asp, aspo)
+    fs = K._newton_slope("radial", t, x, y, z, ux, uy, uz, c, k, None, None,
+                         asp, aspo)
     gF = -gt/torch.where(fs == 0, 1., fs)
     px, py = x + t*ux, y + t*uy
     r2 = px*px + py*py
@@ -699,6 +715,305 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
             (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb))
 
 
+def _sqrt0_vjp(m, sq, g):
+    """The cotangent of m from that of sq = sqrt0(m) (torch.clamp's
+    gradient passes at m >= 0)."""
+    return torch.where(m >= 0, g*.5/sq, 0.)
+
+
+def _floor_vjp(v, g):
+    """The cotangent of v from that of max(v, TINY)."""
+    return torch.where(v >= K.TINY, g, 0.)
+
+
+def _biconic_sag_vjp(px, py, cx, kx, cy, ky, gF):
+    """Reverse of F = pz - (cx x^2 + cy y^2)/(1 + sqrt0(1 - B)),
+    B = (1+kx) cx^2 x^2 + (1+ky) cy^2 y^2 (kernels.sag_biconic): the
+    cotangents of (px, py, cx, kx, cy, ky) from gF (pz's is gF)."""
+    x2, y2 = px*px, py*py
+    a = cx*x2 + cy*y2
+    qx, qy = (1 + kx)*cx*cx, (1 + ky)*cy*cy
+    m = 1 - (qx*x2 + qy*y2)
+    sq = K._sqrt0(m)
+    den = 1 + sq
+    ga = -gF/den
+    gb = -_sqrt0_vjp(m, sq, gF*a/(den*den))
+    return _biconic_ab_vjp(px, py, cx, kx, cy, ky, ga, gb, x2, y2)
+
+
+def _biconic_ab_vjp(px, py, cx, kx, cy, ky, ga, gb, x2, y2):
+    """Reverse of a = cx x2 + cy y2, B = (1+kx) cx^2 x2 + (1+ky) cy^2 y2
+    from their cotangents: those of (px, py, cx, kx, cy, ky)."""
+    gx2 = ga*cx + gb*(1 + kx)*cx*cx
+    gy2 = ga*cy + gb*(1 + ky)*cy*cy
+    gcx = ga*x2 + gb*x2*2*(1 + kx)*cx
+    gcy = ga*y2 + gb*y2*2*(1 + ky)*cy
+    gkx = gb*x2*cx*cx
+    gky = gb*y2*cy*cy
+    return 2*px*gx2, 2*py*gy2, gcx, gkx, gcy, gky
+
+
+def _biconic_normal_vjp(x, y, cx, kx, cy, ky, ggx, ggy):
+    """Reverse of kernels.normal_biconic (no figure): the cotangents of
+    (x, y, cx, kx, cy, ky) from those of (gx, gy)."""
+    x2, y2 = x*x, y*y
+    a = cx*x2 + cy*y2
+    qx, qy = (1 + kx)*cx*cx, (1 + ky)*cy*cy
+    m = 1 - (qx*x2 + qy*y2)
+    sq = K._sqrt0(m)
+    ss = torch.clamp(sq, min=K.TINY)
+    inv = 1./(1 + sq)
+    px_ = 2*cx*x*(1 + sq) + a*qx*x/ss
+    py_ = 2*cy*y*(1 + sq) + a*qy*y/ss
+    gpx_, gpy_ = -ggx*inv*inv, -ggy*inv*inv
+    ginv = -2*inv*(ggx*px_ + ggy*py_)
+    gsq = -ginv*inv*inv + gpx_*2*cx*x + gpy_*2*cy*y
+    gss = -(gpx_*a*qx*x + gpy_*a*qy*y)/(ss*ss)
+    gsq = gsq + _floor_vjp(sq, gss)
+    ga = gpx_*qx*x/ss + gpy_*qy*y/ss
+    gqx, gqy = gpx_*a*x/ss, gpy_*a*y/ss
+    gx = gpx_*(2*cx*(1 + sq) + a*qx/ss)
+    gy = gpy_*(2*cy*(1 + sq) + a*qy/ss)
+    gcx = gpx_*2*x*(1 + sq) + gqx*2*(1 + kx)*cx
+    gcy = gpy_*2*y*(1 + sq) + gqy*2*(1 + ky)*cy
+    gkx, gky = gqx*cx*cx, gqy*cy*cy
+    gb = -_sqrt0_vjp(m, sq, gsq)
+    dx, dy, dcx, dkx, dcy, dky = _biconic_ab_vjp(x, y, cx, kx, cy, ky, ga, gb,
+                                                 x2, y2)
+    return (gx + dx, gy + dy, gcx + dcx, gkx + dkx, gcy + dcy, gky + dky)
+
+
+def _ycurve_fwd(y, cy, ky):
+    """The toroid's y curve (kernels._ycurve, no figure) with its
+    intermediates: (y2, m, sq, zy, sqs, dzy)."""
+    y2 = y*y
+    m = 1 - (1 + ky)*cy*cy*y2
+    sq = K._sqrt0(m)
+    zy = cy*y2/(1 + sq)
+    sqs = torch.clamp(sq, min=K.TINY)
+    return y2, m, sq, zy, sqs, cy*y/sqs
+
+
+def _ycurve_vjp(y, cy, ky, gzy, gdzy):
+    """Reverse of _ycurve: the cotangents of (y, cy, ky) from those of
+    (zy, dzy)."""
+    y2, m, sq, zy, sqs, dzy = _ycurve_fwd(y, cy, ky)
+    gcy = gdzy*y/sqs + gzy*y2/(1 + sq)
+    gy = gdzy*cy/sqs
+    gsq = _floor_vjp(sq, -gdzy*cy*y/(sqs*sqs)) - gzy*cy*y2/((1 + sq)*(1 + sq))
+    gy2 = gzy*cy/(1 + sq)
+    gm = _sqrt0_vjp(m, sq, gsq)
+    gky = -gm*cy*cy*y2
+    gcy = gcy - gm*2*(1 + ky)*cy*y2
+    gy2 = gy2 - gm*(1 + ky)*cy*cy
+    return gy + 2*y*gy2, gcy, gky
+
+
+def _toroid_sag_vjp(px, py, cr, cy, ky, gF):
+    """Reverse of F = pz - zy - crp x^2/(1 + sqrt0(1 - x^2 crp^2)),
+    crp = cr/(1 - cr zy) (kernels.sag_toroid): the cotangents of (px,
+    py, cr, cy, ky) from gF (pz's is gF)."""
+    zy = _ycurve_fwd(py, cy, ky)[3]
+    den = 1 - cr*zy
+    crp = cr/den
+    x2 = px*px
+    u = 1 - x2*crp*crp
+    wr = K._sqrt0(u)
+    d = 1 + wr
+    gt = -gF                        # of crp x2 / d
+    gu = _sqrt0_vjp(u, wr, -gt*crp*x2/(d*d))
+    gcrp = gt*x2/d - gu*2*x2*crp
+    gx2 = gt*crp/d - gu*crp*crp
+    gden = -gcrp*cr/(den*den)
+    gcr = gcrp/den - gden*zy
+    gy, gcy, gky = _ycurve_vjp(py, cy, ky, -gF - gden*cr, 0.)
+    return 2*px*gx2, gy, gcr, gcy, gky
+
+
+def _toroid_normal_vjp(x, y, cr, cy, ky, ggx, ggy):
+    """Reverse of kernels.normal_toroid (no figure): the cotangents of
+    (x, y, cr, cy, ky) from those of (gx, gy)."""
+    _, _, _, zy, _, dzy = _ycurve_fwd(y, cy, ky)
+    den = 1 - cr*zy
+    crp = cr/den
+    u = 1 - x*x*crp*crp
+    wr = K._sqrt0(u)
+    w = torch.clamp(wr, min=K.TINY)
+    gx = -ggx*crp/w
+    gcrp = -ggx*x/w
+    gw = (ggx*x*crp + ggy*dzy)/(w*w)
+    gdzy = -ggy/w
+    gu = _sqrt0_vjp(u, wr, _floor_vjp(wr, gw))
+    gx = gx - gu*2*x*crp*crp
+    gcrp = gcrp - gu*2*x*x*crp
+    gden = -gcrp*cr/(den*den)
+    gcr = gcrp/den - gden*zy
+    gy, gcy, gky = _ycurve_vjp(y, cy, ky, -gden*cr, gdzy)
+    return gx, gy, gcr, gcy, gky
+
+
+def _general_normal(spec, x, y, c, k, cx, kx):
+    """The (gx, gy) normal of a biconic or toroid row (no figure)."""
+    if spec.toroidal:
+        return K.normal_toroid(x, y, cx, c, k)
+    return K.normal_biconic(x, y, cx, kx, c, k)
+
+
+def _anamorphic_vjp_reference(state, surf, spec, g):
+    """Hand-derived reverse of an anamorphic row's step (kernels.
+    surface_step_spec with spec.cyl_axis, spec.biconic or spec.toroidal;
+    no aspheric figure) for live rays, the line-for-line model of
+    `anamorphic_step_vjp` in csrc/step_vjp.cuh.  A cylinder reverses
+    its closed form in its one curved coordinate w (y for cyl_axis 1,
+    x for 2) and refracts by the normal (-C w, 1 - (1+K) C z); a biconic
+    or toroid refracts by its (gx, gy, 1) normal, then its Newton root
+    is differentiated implicitly, dF/dp scaled by -gt/F_s
+    (kernels._NewtonRoot).  The row reads (C, K) = (c, k) on a
+    y-cylinder, (c + curvature_dx, k + conic_dx) on an x-cylinder, (cx,
+    kx, cy, ky) = (c + curvature_dx, k + conic_dx, c, k) on a biconic
+    and (cr, cy, ky) = (c + curvature_dx, c, k) on a toroid.  Returns
+    the entering state's cotangent and the per-ray parameter cotangents
+    (c, k, offset x, y, z, mu, then curvature_dx and conic_dx)."""
+    x, y, z, ux, uy, uz = state
+    zero = torch.zeros_like(x)
+    c, k, mu = surf.curvature, surf.conic, surf.mu
+    cx, kx = c + surf.curvature_dx, k + surf.conic_dx
+    # ---- forward recompute ----
+    if spec.off_axis:
+        x = x - surf.offset[0]
+        y = y - surf.offset[1]
+    z = z - surf.offset[2]
+    if spec.rotated:
+        r = surf.rot
+        x, y, z = K.rot_apply(r, x, y, z)
+        ux, uy, uz = K.rot_apply(r, ux, uy, uz)
+    cyl = spec.cyl_axis
+    if cyl:
+        cc, kk = (c, k) if cyl == 1 else (cx, kx)
+        w, uw = (y, uy) if cyl == 1 else (x, ux)
+        k1 = 1 + kk
+        uyd = uw*w + k1*uz*z
+        uu = uw*uw + k1*uz*uz
+        yy = w*w + k1*z*z
+        d = cc*uyd - uz
+        e = cc*uu
+        f = cc*yy - 2*z
+        sg = -1. if spec.alternate else 1.
+        sq = K._sqrt0(d*d - e*f)
+        q = sg*sq
+        conj = (d*q <= 0) | (e == 0)
+        den = torch.where(conj, q - d, e)
+        den = torch.where(den == 0, 1., den)
+        t = torch.where(conj, f, -(d + q))/den
+    elif spec.toroidal:
+        t = K.intercept_toroid(x, y, z, ux, uy, uz, cx, c, k, None,
+                               surf.alternate)
+    else:
+        t = K.intercept_biconic(x, y, z, ux, uy, uz, cx, kx, c, k, None,
+                                surf.alternate)
+    x1, y1, z1 = x + t*ux, y + t*uy, z + t*uz
+    # ---- reverse: leave the row's frame ----
+    gx1, gy1, gz1, gvx, gvy, gvz = g
+    if spec.rotated:
+        gx1, gy1, gz1 = K.rot_apply(r, gx1, gy1, gz1)
+        gvx, gvy, gvz = K.rot_apply(r, gvx, gvy, gvz)
+    gmu = zero
+    # the figure's parameter cotangents: (C, K) of a cylinder, (cx, kx,
+    # cy, ky) of a biconic, (cr, cy, ky) of a toroid (gp[3] unused)
+    gp = [zero, zero, zero, zero]
+    # ---- reverse: refraction ----
+    if spec.kind == 0:
+        gux, guy, guz = gvx, gvy, gvz
+    elif cyl:
+        w1 = y1 if cyl == 1 else x1
+        kc = (1 + kk)*cc
+        nw, nz = -cc*w1, 1. - kc*z1
+        n = (zero, nw, nz) if cyl == 1 else (nw, zero, nz)
+        (gux, guy, guz), gn, gmu = _refraction_vjp(
+            spec.kind, False, mu, (ux, uy, uz), n, (gvx, gvy, gvz))
+        gnw, gnz = gn[cyl % 2], gn[2]
+        gp[1] = gp[1] - cc*z1*gnz
+        gp[0] = gp[0] - w1*gnw - (1 + kk)*z1*gnz
+        if cyl == 1:
+            gy1 = gy1 - cc*gnw
+        else:
+            gx1 = gx1 - cc*gnw
+        gz1 = gz1 - kc*gnz
+    else:
+        ngx, ngy = _general_normal(spec, x1, y1, c, k, cx, kx)
+        (gux, guy, guz), (ggx, ggy, _), gmu = _refraction_vjp(
+            spec.kind, False, mu, (ux, uy, uz), (ngx, ngy, 1.),
+            (gvx, gvy, gvz))
+        if spec.kind == 2:
+            # _refract_general reflects by a = |mu| (u . n)/|n|^2 with
+            # |mu| = 1: mu's cotangent is sign(mu) d/d|mu|
+            nn = ngx*ngx + ngy*ngy + 1.
+            gmu = -torch.sign(mu)*2*(ux*ngx + uy*ngy + uz)/nn \
+                * (gvx*ngx + gvy*ngy + gvz)
+        if spec.toroidal:
+            dx, dy, *dp = _toroid_normal_vjp(x1, y1, cx, c, k, ggx, ggy)
+        else:
+            dx, dy, *dp = _biconic_normal_vjp(x1, y1, cx, kx, c, k, ggx, ggy)
+        gx1, gy1 = gx1 + dx, gy1 + dy
+        gp = [a + b for a, b in zip(gp, dp)] + gp[len(dp):]
+    # ---- reverse: transfer x1 = x + t u ----
+    gx, gy, gz = gx1, gy1, gz1
+    gux, guy, guz = gux + t*gx1, guy + t*gy1, guz + t*gz1
+    gt = ux*gx1 + uy*gy1 + uz*gz1
+    # ---- reverse: intercept ----
+    if cyl:
+        dd = torch.where(conj & (q != d), gt*f/(den*den), 0.)
+        gf = torch.where(conj, gt/den, 0.)
+        gd = torch.where(conj, dd, -gt/den)
+        gq = torch.where(conj, -dd, -gt/den)
+        ge = torch.where(conj, 0., gt*(d + q)/(den*den))
+        gdisc = gq*sg*.5/sq
+        gd = gd + 2*d*gdisc
+        ge = ge - f*gdisc
+        gf = gf - e*gdisc
+        gp[0] = gp[0] + yy*gf + uu*ge + uyd*gd
+        gyy, guyd, guu = cc*gf, cc*gd, cc*ge
+        gz = gz - 2*gf + 2*k1*z*gyy + k1*uz*guyd
+        guz = guz - gd + k1*z*guyd + 2*k1*uz*guu
+        gw = 2*w*gyy + uw*guyd
+        guw = w*guyd + 2*uw*guu
+        gp[1] = gp[1] + z*z*gyy + uz*uz*guu + uz*z*guyd
+        if cyl == 1:
+            gy, guy = gy + gw, guy + guw
+        else:
+            gx, gux = gx + gw, gux + guw
+    else:
+        # the Newton root, implicitly: dF/dp * (-gt/F_s)
+        px, py = x + t*ux, y + t*uy
+        ngx, ngy = _general_normal(spec, px, py, c, k, cx, kx)
+        fs = ux*ngx + uy*ngy + uz
+        gF = -gt/torch.where(fs == 0, 1., fs)
+        if spec.toroidal:
+            gpx, gpy, *dp = _toroid_sag_vjp(px, py, cx, c, k, gF)
+        else:
+            gpx, gpy, *dp = _biconic_sag_vjp(px, py, cx, kx, c, k, gF)
+        gp = [a + b for a, b in zip(gp, dp)] + gp[len(dp):]
+        gx, gy, gz = gx + gpx, gy + gpy, gz + gF
+        gux, guy, guz = gux + t*gpx, guy + t*gpy, guz + t*gF
+    # ---- reverse: enter the row's frame ----
+    if spec.rotated:
+        gx, gy, gz = K.rot_apply_t(r, gx, gy, gz)
+        gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
+    # the figure's parameters onto the table's
+    if cyl == 1:
+        gc, gk, gcdx, gkdx = gp[0], gp[1], zero, zero
+    elif cyl == 2:
+        gc, gk, gcdx, gkdx = gp[0], gp[1], gp[0], gp[1]
+    elif spec.toroidal:
+        gc, gk, gcdx, gkdx = gp[0] + gp[1], gp[2], gp[0], zero
+    else:
+        gc, gk, gcdx, gkdx = gp[0] + gp[2], gp[1] + gp[3], gp[0], gp[1]
+    gox = -gx if spec.off_axis else zero
+    goy = -gy if spec.off_axis else zero
+    return ((gx, gy, gz, gux, guy, guz),
+            (gc, gk, gox, goy, -gz, gmu, gcdx, gkdx))
+
+
 def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     """K5 written in torch with _step_vjp_reference, the model of
     `moments_adjoint_ray` in csrc/grad_spec.cuh: same outputs as
@@ -727,14 +1042,21 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     g3 = (K.rot_apply_t(rl, ctx, cty, zero)
           if specs[nsurf - 1].rotated else (ctx, cty, zero))
     g = tuple(torch.where(live, v, 0.) for v in (*g3, zero, zero, zero))
-    pg = torch.zeros((nsurf, SLOTS + sum(_table_widths(tab))),
-                     dtype=x0.dtype, device=x0.device)
+    na = sum(_table_widths(tab))
+    anam = anamorphic_words(specs)
+    pg = torch.zeros((nsurf, SLOTS + na + anam), dtype=x0.dtype,
+                     device=x0.device)
     for j in range(nsurf - 1, 0, -1):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        # a row with no figure has no aspheric slots (zeros)
-        pg[j, :len(pj)] = torch.stack([torch.where(live, v, 0.).sum()
-                                       for v in pj])
+        sums = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+        if K.is_anamorphic_spec(specs[j]):
+            # an anamorphic row's curvature_dx and conic_dx: the last two
+            pg[j, :SLOTS] = sums[:SLOTS]
+            pg[j, SLOTS + na:] = sums[SLOTS:]
+        else:
+            # a row with no figure has no aspheric slots (zeros)
+            pg[j, :len(pj)] = sums
     if specs[0].rotated:
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
     return pg, g, ct_w
@@ -892,9 +1214,11 @@ weighted_moments.launches = 0
 
 def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                   rays=True):
-    """K5: (parameter cotangents (S, SLOTS + na + no): c, k, offset x,
-    y, z, mu, then the table's na even and no odd aspheric
-    coefficients; the six state cotangents; the weight cotangent) of
+    """K5: (parameter cotangents (S, SLOTS + na + no + anam): c, k,
+    offset x, y, z, mu, then the table's na even and no odd aspheric
+    coefficients, then for anamorphic specs (anam, cuda_trace.
+    anamorphic_words) curvature_dx and conic_dx; the six state
+    cotangents; the weight cotangent) of
     the weighted moments dotted with `ct`, a (5,) tensor of moment
     cotangents on the rays' device.  `fields`: the table fields whose
     cotangents are wanted; a slot outside them, or baked out by the
@@ -911,11 +1235,12 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
     na, no = _table_widths(table)
+    anam = anamorphic_words(specs)
+    nq = SLOTS + na + no + anam
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_reference(table, specs, state, w, ct,
                                              clip)
-        live = CS.live_mask(CS.live_slots(specs, fields, (na, no)),
-                            SLOTS + na + no)
+        live = CS.live_mask(CS.live_slots(specs, fields, (na, no)), nq)
         pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
@@ -924,8 +1249,7 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                            widths)
     tab = packed(table, specs, x)
     if not n:
-        pg = torch.zeros((len(specs), SLOTS + na + no), dtype=x.dtype,
-                         device=device)
+        pg = torch.zeros((len(specs), nq), dtype=x.dtype, device=device)
         return (pg, tuple(torch.zeros_like(x) for _ in range(6)),
                 torch.zeros_like(x)) if rays else (pg, None, None)
     grid = kern.grid(n, device)
@@ -940,9 +1264,12 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                        *((o.data_ptr() for o in outs) if rays
                          else (None,)*7), n, grid, stream))
     merit_adjoint.launches += 1
-    # a key of a table with no aspheric row has no coefficient slots:
-    # theirs are exact zeros
-    pg = torch.nn.functional.pad(pg, (0, SLOTS + na + no - pg.shape[1]))
+    if pg.shape[1] != nq:
+        # a key of a table with no aspheric row has no coefficient
+        # slots: theirs are exact zeros (before the anamorphic two)
+        kq = SLOTS + kern.key.na + kern.key.no
+        pg = torch.cat([pg[:, :kq], pg.new_zeros((len(specs), nq - pg.shape[1])),
+                        pg[:, kq:]], 1)
     if not rays:
         return pg, None, None
     return pg, tuple(outs[:6]), outs[6]
@@ -1021,7 +1348,7 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
         pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
                                                    ct, clip)
         live = CS.live_mask(CS.live_slots(specs, fields, (na, no)),
-                            SLOTS + na + no)
+                            SLOTS + na + no + anamorphic_words(specs))
         pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
@@ -1153,34 +1480,39 @@ class _SpotMoments(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, specs, clip, multi, *tensors):
-        params, state, w = tensors[:7], tensors[7:13], tensors[13]
+        params, state, w = tensors[:_NM], tensors[_NM:_NM + 6], tensors[-1]
         ctx.table, ctx.specs, ctx.clip, ctx.multi = table, specs, clip, multi
         ctx.save_for_backward(*tensors)
-        tab = table.replace(**dict(zip(_DIFF, params)))
+        tab = table.replace(**dict(zip(_MOMENT_DIFF, params)))
         fwd = weighted_moments_multi if multi else weighted_moments
         return fwd(tab, specs, state, w, clip)
 
     @staticmethod
     def backward(ctx, ct):
         tensors = ctx.saved_tensors
-        params, state, w = tensors[:7], tensors[7:13], tensors[13]
-        tab = ctx.table.replace(**dict(zip(_DIFF, params)))
+        params, state, w = tensors[:_NM], tensors[_NM:_NM + 6], tensors[-1]
+        tab = ctx.table.replace(**dict(zip(_MOMENT_DIFF, params)))
         # K5/K7 reduce only the slots autograd asks for, and write the
         # ray and weight cotangents only when they are wanted
-        need = dict(zip(_DIFF, ctx.needs_input_grad[4:11]))
+        need = dict(zip(_MOMENT_DIFF, ctx.needs_input_grad[4:4 + _NM]))
         fields = tuple(f for f in CS.FIELDS if need[f])
         adjoint = merit_adjoint_multi if ctx.multi else merit_adjoint
-        pg, ct_state, ct_w = adjoint(tab, ctx.specs, state, w,
-                                     ct.contiguous(), ctx.clip,
-                                     fields=fields,
-                                     rays=any(ctx.needs_input_grad[11:18]))
+        pg, ct_state, ct_w = adjoint(
+            tab, ctx.specs, state, w, ct.contiguous(), ctx.clip,
+            fields=fields, rays=any(ctx.needs_input_grad[4 + _NM:]))
         if ct_state is None:
             ct_state = (None,)*6
-        na = params[5].shape[-1]
+        na, no = params[5].shape[-1], params[6].shape[-1]
+        q = SLOTS + na + no
+        if pg.shape[-1] > q:
+            # an anamorphic key's curvature_dx and conic_dx columns
+            gdx = (pg[..., q], pg[..., q + 1])
+        else:
+            gdx = (torch.zeros_like(params[7]), torch.zeros_like(params[8]))
         grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
                  pg[..., 5], torch.zeros_like(params[4]),
                  pg[..., SLOTS:SLOTS + na].contiguous(),
-                 pg[..., SLOTS + na:].contiguous())
+                 pg[..., SLOTS + na:q].contiguous(), *gdx)
         return (None, None, None, None, *grads, *ct_state, ct_w)
 
 
@@ -1274,10 +1606,17 @@ def _moments(table, specs, state, w, clip, multi):
     params = {f: getattr(table, f) for f in _FIELDS
               if f not in ("aspherics", "aspherics_odd")
               or getattr(table, f).shape[-1]}
+    # the anamorphic x figure, where a row reads it
+    anam = {f: getattr(table, f) for f in ("curvature_dx", "conic_dx")
+            if getattr(table, f) is not None}
+    if anamorphic_words(specs):
+        params.update(anam)
     _warn_baked_params(specs, params)
     x = state[0]
-    diff = [getattr(table, f).to(device=x.device, dtype=x.dtype)
-            for f in _DIFF]
+    diff = [(anam[f] if f in anam else torch.zeros_like(table.curvature))
+            if f in ("curvature_dx", "conic_dx") else getattr(table, f)
+            for f in _MOMENT_DIFF]
+    diff = [v.to(device=x.device, dtype=x.dtype) for v in diff]
     w = torch.as_tensor(w).to(device=x.device, dtype=x.dtype)
     return _SpotMoments.apply(_constant_table(table, x), specs, bool(clip),
                               multi, *diff, *state, w)

@@ -27,14 +27,20 @@ Every K1-K9 key also takes even- and odd-aspheric rows: it carries the
 table's coefficient widths (Key.na, Key.no; cuda_trace.figure_widths, 0
 and 0 without an aspheric row), which the translation unit defines
 before the headers, so that a packed row grows by na + no words and the
-Newton's Horner loops have compile-time bounds.  Every key refuses the
-anamorphic, grating, DOE and freeform rows (NotImplementedError, ROADMAP
-Queue 1 item 9).
+Newton's Horner loops have compile-time bounds.  The K1, K2, K4 and K5
+keys take the anamorphic rows (conic cylinders, biconics, toroids; not
+with an aspheric figure): such a key's rows grow by curvature_dx and
+conic_dx (Key.anam, cuda_trace.anamorphic_words; RAYOPT_N_ANAM), K5's
+slots by their cotangents.  K3 and K6-K9 refuse them, and every key
+refuses the grating, DOE and freeform rows (NotImplementedError,
+ROADMAP Queue 1 item 9).  A row word is 64 bits: its flags below
+LIVE_SHIFT, its live slots above.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns, then a figured key's na even and no odd
-coefficients; K9 puts n_before between the six and the coefficients,
-OPD_SLOTS + na + no a row) are the fields asked for, minus what the
+coefficients, then an anamorphic K5 key's curvature_dx and conic_dx; K9
+puts n_before between the six and the coefficients, OPD_SLOTS + na + no
+a row) are the fields asked for, minus what the
 row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
 row, conic of a flat or spherical row -- both live on an aspheric row,
 whose Newton reads them through the sag --, the transverse offset of an
@@ -69,13 +75,14 @@ from typing import NamedTuple
 import torch
 
 from . import kernels as K
-from .cuda_trace import ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, figure_widths, \
-    pack_values, sm_count
+from .cuda_trace import ANAM, ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, \
+    anamorphic_words, figure_widths, pack_values, sm_count
 
-LIVE_SHIFT = 10    # a row word's live slots: keep in sync with grad_spec.cuh
-LIVE_BITS = 31 - LIVE_SHIFT   # the slots a row word can hold
+LIVE_SHIFT = 14    # a row word's live slots: keep in sync with grad_spec.cuh
+LIVE_BITS = 63 - LIVE_SHIFT   # the slots a (64-bit) row word can hold
 SLOTS = 6          # K5's and K7's cotangent columns a row (a figured
-#                    key adds its table's aspheric coefficients)
+#                    key adds its table's aspheric coefficients, an
+#                    anamorphic K5 key then curvature_dx and conic_dx)
 OPD_SLOTS = 7      # K9's: SLOTS and n_before (then a figured key's
 #                    coefficients)
 #: the table field of each of K9's first OPD_SLOTS cotangent columns
@@ -84,10 +91,14 @@ OPD_SLOTS = 7      # K9's: SLOTS and n_before (then a figured key's
 SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
                "n_before")
 #: the fields K5 and K7 differentiate (a key of a table with no aspheric
-#: row: the first four)
-FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd")
+#: row: the first four; the last two only an anamorphic K5 key)
+FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd",
+          "curvature_dx", "conic_dx")
 #: the fields K9 differentiates, in the order of cuda_grad._DIFF
-OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:]
+OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:6]
+#: the kernels whose keys take anamorphic rows; the others' keys refuse
+#: them (ROADMAP Queue 1 item 9)
+ANAMORPHIC_KERNELS = ("k1", "k2", "k4", "k5")
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
            "df32_common.cuh", "df32_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
@@ -158,15 +169,32 @@ def baked_out_rows(specs, field):
     pallas_grad._baked_out_rows).  An aspheric row's Newton reads its
     curvature and conic through the sag even when the row's flat or
     spherical flag is set, and every aspheric coefficient of both
-    widths; a row with neither figure reads none of them."""
-    fig = K.is_figured
+    widths; a row with neither figure reads none of them.  An
+    anamorphic row reads its curvature and conic always; curvature_dx
+    on an x-cylinder, a biconic and a toroid, conic_dx on an x-cylinder
+    and a biconic.  A y-cylinder reads neither: the reference's rule
+    keeps them (their gradient is zero there all the same), the port
+    bakes them out, so that the call warns (ROADMAP Queue 3)."""
+    def fig(sp):
+        return K.is_figured(sp) or K.is_anamorphic_spec(sp)
+
+    def reads_cdx(sp):
+        return sp.cyl_axis == 2 or (not sp.cyl_axis
+                                    and (sp.biconic or sp.toroidal))
+
+    def reads_kdx(sp):
+        return sp.cyl_axis == 2 or (not sp.cyl_axis and sp.biconic
+                                    and not sp.toroidal)
+
     baked = {"curvature": lambda sp: sp.flat and not fig(sp),
              "conic": lambda sp: (sp.flat or sp.spherical) and not fig(sp),
+             "curvature_dx": lambda sp: not reads_cdx(sp),
+             "conic_dx": lambda sp: not reads_kdx(sp),
              "offset": lambda sp: not sp.off_axis,   # transverse x/y
              "mu": lambda sp: sp.kind == 0,
              "rot": lambda sp: not sp.rotated,
-             "aspherics": lambda sp: not fig(sp),
-             "aspherics_odd": lambda sp: not fig(sp)}.get(field)
+             "aspherics": lambda sp: not K.is_figured(sp),
+             "aspherics_odd": lambda sp: not K.is_figured(sp)}.get(field)
     if baked is None:
         return []
     return [j for j, sp in enumerate(specs) if j and baked(sp)]
@@ -182,11 +210,13 @@ def _coefficients(widths):
 def live_slots(specs, fields=FIELDS, widths=(0, 0)):
     """One mask a row of the slots K5 and K7 reduce -- SLOTS bits, then
     with `widths` = (na, no) (the key's, figure_widths) one a
-    coefficient: the `fields` asked for, minus the rows the specs bake
-    them out of (the axial offset, slot 4, never is; baked_out_rows).
-    Row 0 has none."""
+    coefficient, then for anamorphic specs (anamorphic_words)
+    curvature_dx and conic_dx: the `fields` asked for, minus the rows
+    the specs bake them out of (the axial offset, slot 4, never is;
+    baked_out_rows).  Row 0 has none."""
+    anam = ("curvature_dx", "conic_dx") if anamorphic_words(specs) else ()
     return _live_slots(specs, fields, FIELDS,
-                       SLOT_FIELDS[:SLOTS] + _coefficients(widths))
+                       SLOT_FIELDS[:SLOTS] + _coefficients(widths) + anam)
 
 
 def opd_live_slots(specs, fields=OPD_FIELDS, widths=(0, 0)):
@@ -236,15 +266,17 @@ def live_mask(masks, nslots=SLOTS):
 
 class Key(NamedTuple):
     """One specialization: kernel "k1", "k2", "k3" (K3's trace), "k3m"
-    (K3's merit), "k4" ... "k9", dtype "f32" or "f64", one word a row
-    (flags | live slots << LIVE_SHIFT), clip, rays (an adjoint writes
-    the ray and weight cotangents), threads a block, the blocks an SM
-    that __launch_bounds__ asks ptxas to fit, the tables of the stack a
-    launch traces (K3's and K6's wavelengths; 1 for every other kernel,
-    K7 included: it stages one table at a time), whether K3's trace
-    runs the wavelengths outermost, and the even and odd aspheric
+    (K3's merit), "k4" ... "k9", dtype "f32" or "f64", one 64-bit word
+    a row (flags | live slots << LIVE_SHIFT), clip, rays (an adjoint
+    writes the ray and weight cotangents), threads a block, the blocks
+    an SM that __launch_bounds__ asks ptxas to fit, the tables of the
+    stack a launch traces (K3's and K6's wavelengths; 1 for every other
+    kernel, K7 included: it stages one table at a time), whether K3's
+    trace runs the wavelengths outermost, the even and odd aspheric
     coefficients a row carries (na, no: a figured table's widths; 0 and
-    0 without an aspheric row)."""
+    0 without an aspheric row) and its anamorphic words (anam: ANAM, a
+    row's curvature_dx and conic_dx, when a row is anamorphic, else
+    0)."""
 
     kernel: str
     dtype: str
@@ -257,6 +289,7 @@ class Key(NamedTuple):
     outer: bool = False
     na: int = 0
     no: int = 0
+    anam: int = 0
 
     @property
     def name(self):
@@ -268,6 +301,8 @@ class Key(NamedTuple):
             text += " outer"
         if self.na or self.no:
             text += " figure %d %d" % (self.na, self.no)
+        if self.anam:
+            text += " anamorphic %d" % self.anam
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
@@ -277,15 +312,16 @@ class Key(NamedTuple):
 
     @property
     def row_words(self):
-        """A packed row's words: ROW and the aspheric coefficients."""
-        return ROW + self.na + self.no
+        """A packed row's words: ROW, the aspheric coefficients and the
+        anamorphic words."""
+        return ROW + self.na + self.no + self.anam
 
     @property
     def slots(self):
-        """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS)
-        and the coefficients."""
+        """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS),
+        the coefficients and (K5) the anamorphic words."""
         return (OPD_SLOTS if self.kernel == "k9" else SLOTS) \
-            + self.na + self.no
+            + self.na + self.no + self.anam
 
     @property
     def nlive(self):
@@ -328,12 +364,29 @@ def _dtype_name(dtype):
     raise TypeError("rays must be float32 or float64, got %s" % dtype)
 
 
+def check_anamorphic(spec, what, j=None):
+    """Raise NotImplementedError (item 9) for an anamorphic row that
+    `what`'s key ("K1" ... "K9") does not trace: one of K3, K6-K9, or
+    one with an aspheric figure (no key traces that yet)."""
+    if not K.is_anamorphic_spec(spec):
+        return
+    if what.lower() not in ANAMORPHIC_KERNELS:
+        K.check_supported(spec, j, what=what + "'s key", anamorphic=False)
+    if K.is_figured(spec):
+        raise NotImplementedError(
+            "surface row %s is anamorphic with an aspheric figure, which "
+            "%s's key does not trace yet (%s)"
+            % ("?" if j is None else j, what, K.ITEM9))
+
+
 def _words(specs, masks=None, kernel="k1"):
     """A key's row words; a row the kernels do not trace raises
-    NotImplementedError (item 9): the anamorphic, grating, DOE and
-    freeform rows."""
+    NotImplementedError (item 9): the grating, DOE and freeform rows,
+    and the anamorphic rows outside ANAMORPHIC_KERNELS (or with an
+    aspheric figure)."""
     for j, spec in enumerate(specs[1:], 1):
         K.check_supported(spec, j, what=kernel.upper() + "'s key")
+        check_anamorphic(spec, kernel.upper(), j)
     flags = [_flags(s) for s in specs]
     if masks is None:
         return tuple(flags)
@@ -378,7 +431,7 @@ def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
     na, no = _widths(specs, widths)
     return _static(Key("k1", _dtype_name(dtype), words, bool(clip), False,
                        int(block or BLOCK_TRACE), int(min_blocks),
-                       na=na, no=no))
+                       na=na, no=no, anam=anamorphic_words(specs)))
 
 
 def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
@@ -405,7 +458,7 @@ def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
     na, no = _widths(specs, widths)
     key = Key(kernel, _dtype_name(dtype), words, bool(clip), False,
               int(block or BLOCK_MOMENTS), int(min_blocks), int(nlam),
-              na=na, no=no)
+              na=na, no=no, anam=anamorphic_words(specs))
     return _static(_unrolled(key))
 
 
@@ -490,7 +543,7 @@ def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
     na, no = widths
     key = Key(kernel, _dtype_name(dtype), _words(specs, masks, kernel),
               bool(clip), bool(rays), int(block or BLOCK_ADJOINT),
-              int(min_blocks), na=na, no=no)
+              int(min_blocks), na=na, no=no, anam=anamorphic_words(specs))
     if key.shared_bytes > SMEM_OPTIN:
         raise ValueError(
             "%s keeps %d rows of saved state at %d threads a block in %s: "
@@ -714,9 +767,12 @@ def translation_unit(key):
         return _df32_unit(key)
     ctype = "float" if key.dtype == "f32" else "double"
     words = ", ".join(str(w) for w in key.words)
-    # a figured key's coefficient widths, before the headers read them
+    # a figured key's coefficient widths and an anamorphic key's words,
+    # before the headers read them
     figure = ("#define RAYOPT_N_ASP %d\n#define RAYOPT_N_ODD %d\n"
               % (key.na, key.no) if key.na or key.no else "")
+    if key.anam:
+        figure += "#define RAYOPT_N_ANAM %d\n" % key.anam
     head = ("// %s, specialized by rayopt_tpu_torch.ops.cuda_spec\n"
             "// key: %r\n%s#include \"grad_spec.cuh\"\n\n"
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"
@@ -832,8 +888,10 @@ def spec_launch(state):
 def packed(table, specs, x):
     """The table (or a stack of tables) packed in the rays' dtype on
     their device, with one spec a row (a figured table's rows with its
-    aspheric coefficients, cuda_trace.figure_widths)."""
-    tab = pack_values(table, x.dtype, x.device, figure_widths(table, specs))
+    aspheric coefficients, cuda_trace.figure_widths; an anamorphic
+    table's with curvature_dx and conic_dx, anamorphic_words)."""
+    tab = pack_values(table, x.dtype, x.device, figure_widths(table, specs),
+                      anamorphic_words(specs))
     if tab.shape[-2] != len(specs):
         raise ValueError("%d specs for a table of %d rows"
                          % (len(specs), tab.shape[-2]))

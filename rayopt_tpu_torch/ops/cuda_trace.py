@@ -15,7 +15,9 @@ K1 and K2 are compiled for each (dtype, spec tuple, clip) key
 tuple costs one nvcc run at its first call).  K1 and K2 trace flat,
 spherical, conic and even/odd aspheric rows (an aspheric row by the
 seeded Newton intercept, its key carrying the table's coefficient
-widths, `figure_widths`).
+widths, `figure_widths`) and the anamorphic rows: conic cylinders in
+closed form, biconics and toroids by the seeded Newton (their key's
+rows carry curvature_dx and conic_dx, `anamorphic_words`).
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
 leading wavelength axis, System.tables) and ONE bundle traced through
@@ -27,7 +29,7 @@ mode is K2's template at the stack's wavelengths, its trace K1's chain
 once a wavelength.  A stack past one key's wavelengths (cuda_spec.
 multi_most) runs in balanced runs, one launch each.  K3 traces the
 aspheric rows as K1 does, its key carrying the stack's coefficient
-widths.
+widths; its key refuses anamorphic rows (ROADMAP Queue 1 item 9).
 
 The kernels are hand-written CUDA C++ (csrc/grad_spec.cuh), built with
 nvcc for sm_90a at first use (ops.cuda_build, ops.cuda_spec) and
@@ -53,12 +55,18 @@ from .tables import lower_pose, table_at
 
 # packed row layout and flag bits: keep in sync with csrc/trace_common.cuh;
 # a figured table's rows carry its even, then its odd aspheric
-# coefficients after the ROW base words (P_ASP on)
+# coefficients after the ROW base words (P_ASP on), then an anamorphic
+# table's curvature_dx and conic_dx
 P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
 P_ASP = ROW
 F_FLAT, F_SPHERICAL, F_ROTATED, F_OFF_AXIS = 1, 2, 4, 8
 F_ALTERNATE, F_FINITE, KIND_SHIFT = 16, 32, 6
 F_ASPHERIC, F_ODD = 256, 512
+# the anamorphic rows: a conic cylinder curved in y or in x, a biconic,
+# a toroid (one of them a row)
+F_CYL_Y, F_CYL_X, F_BICONIC, F_TOROID = 1024, 2048, 4096, 8192
+#: an anamorphic key's words a row (and K5's slots): curvature_dx, conic_dx
+ANAM = 2
 
 SMEM_LIMIT = 48*1024  # static shared memory, or dynamic without an opt-in
 SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (the adjoints)
@@ -127,7 +135,25 @@ def _flags(spec):
             | (F_FINITE if spec.finite_aperture else 0)
             | (int(spec.kind) << KIND_SHIFT)
             | (F_ASPHERIC if spec.aspheric else 0)
-            | (F_ODD if spec.odd else 0))
+            | (F_ODD if spec.odd else 0)
+            | _anamorphic_flag(spec))
+
+
+def _anamorphic_flag(spec):
+    """A row's anamorphic flag: the cylinder first (a cylinder's
+    biconic or toroidal flag is set too), then the toroid."""
+    if spec.cyl_axis:
+        return F_CYL_Y if spec.cyl_axis == 1 else F_CYL_X
+    if spec.toroidal:
+        return F_TOROID
+    return F_BICONIC if spec.biconic else 0
+
+
+def anamorphic_words(specs):
+    """The anamorphic words a packed row carries after its coefficients
+    (curvature_dx and conic_dx; K5's slots too): ANAM when some row of
+    `specs` is anamorphic, else 0."""
+    return ANAM if any(K.is_anamorphic_spec(s) for s in specs[1:]) else 0
 
 
 def figure_widths(table, specs):
@@ -140,11 +166,12 @@ def figure_widths(table, specs):
             int(table.aspherics_odd.shape[-1]))
 
 
-def pack_values(table, dtype, device, widths=(0, 0)):
-    """The lowered table's values as one contiguous (S, ROW + na + no)
-    tensor in `dtype` on `device` -- (L, S, ...) for a stacked table --
-    with `widths` = (na, no) (figure_widths) the aspheric coefficients
-    a row carries after its ROW base words."""
+def pack_values(table, dtype, device, widths=(0, 0), anam=0):
+    """The lowered table's values as one contiguous (S, ROW + na + no +
+    anam) tensor in `dtype` on `device` -- (L, S, ...) for a stacked
+    table -- with `widths` = (na, no) (figure_widths) the aspheric
+    coefficients a row carries after its ROW base words, then with
+    `anam` (anamorphic_words) its curvature_dx and conic_dx."""
     table = lower_pose(table)
     na, no = widths
     cols = [table.curvature[..., None], table.conic[..., None], table.offset,
@@ -154,17 +181,20 @@ def pack_values(table, dtype, device, widths=(0, 0)):
         cols.append(table.aspherics)
     if no:
         cols.append(table.aspherics_odd)
+    if anam:
+        cols += [table.curvature_dx[..., None], table.conic_dx[..., None]]
     # cast first (the kernel traces in `dtype`), then move
     return torch.cat(cols, dim=-1).to(dtype=dtype).to(
         device=device).contiguous()
 
 
 def pack_table(table, specs, dtype, device):
-    """The lowered table as one contiguous (S, ROW + na + no) tensor in
-    `dtype` on `device` (figure_widths) -- (L, S, ...) for a stacked
-    table, whose tables share the specs -- plus the (S,) int32 flags
-    that encode each row's SurfaceSpec.  Rows that need the anamorphic,
-    grating, DOE or freeform vocabulary raise NotImplementedError."""
+    """The lowered table as one contiguous (S, ROW + na + no + anam)
+    tensor in `dtype` on `device` (figure_widths, anamorphic_words) --
+    (L, S, ...) for a stacked table, whose tables share the specs --
+    plus the (S,) int32 flags that encode each row's SurfaceSpec.  Rows
+    that need the grating, DOE or freeform vocabulary raise
+    NotImplementedError."""
     nsurf = table.curvature.shape[-1]
     if len(specs) != nsurf:
         raise ValueError("%d specs for a table of %d rows"
@@ -173,8 +203,8 @@ def pack_table(table, specs, dtype, device):
         K.check_supported(spec, j)
     flags = torch.tensor([_flags(s) for s in specs], dtype=torch.int32,
                          device=device)
-    return pack_values(table, dtype, device,
-                       figure_widths(table, specs)), flags
+    return pack_values(table, dtype, device, figure_widths(table, specs),
+                       anamorphic_words(specs)), flags
 
 
 @functools.lru_cache(maxsize=None)

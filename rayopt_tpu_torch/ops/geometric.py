@@ -2,9 +2,13 @@
 
 Rays are carried as six (N,) component tensors; the (N, 3) layout is
 only used at the API boundary.  Every engine traces the rotationally
-symmetric rows: flat, spherical, conic and even/odd aspheric (the
-seeded Newton intercept); an anamorphic, grating, DOE or freeform row
-raises NotImplementedError (ROADMAP Queue 1 item 9).  The JAX package
+symmetric rows -- flat, spherical, conic and even/odd aspheric (the
+seeded Newton intercept) -- and the anamorphic rows: with `specs` each
+row's own branch (a conic cylinder in closed form, a biconic or toroid
+by the seeded Newton), without them the generic walk's anamorphic step
+when `biconic=True` (set it when ops.tables.is_anamorphic(table), as in
+the reference).  A grating, DOE or freeform row raises
+NotImplementedError (ROADMAP Queue 1 item 9).  The JAX package
 runs the generic walk as one `lax.scan`; here it is a Python loop over
 rows, each a handful of elementwise torch operations on the whole
 bundle.
@@ -47,30 +51,32 @@ def _exit(table, state, specs=None):
     return state
 
 
-def _steps(table, state, clip, specs):
+def _steps(table, state, clip, specs, biconic=False):
     """Yield (state, local outputs) after each row 1..S-1."""
     if specs is None:
         K.require_radial(table)
     for j in range(1, table.curvature.shape[0]):
         surf = table.row(j)
         if specs is None:
-            state, out = K.surface_step(state, surf, clip)
+            state, out = K.surface_step(state, surf, clip, biconic)
         else:
             state, out = K.surface_step_spec(state, surf, specs[j], clip)
         yield state, out
 
 
-def trace_rays(table, y0, u0, clip=False, specs=None):
+def trace_rays(table, y0, u0, clip=False, specs=None, biconic=False):
     """Trace rays y0, u0 ((N, 3) tensors; element-0 local frame)
     through all surfaces.  Returns (y, u, i, t): (S, N, 3) x3 and
     (S, N), surface 0 holding the seed (t[0] = 0), matching
     GeometricTrace's layout (reference geometric_trace.py:37-47).
     With `specs` (from kernels.specialize) each row takes its
-    specialized step; without, the generic one."""
+    specialized step; without, the generic one (the anamorphic one with
+    `biconic`)."""
     table = lower_pose(table).to(device=y0.device, dtype=y0.dtype)
     state = _entry(table, (*K.split(y0), *K.split(u0)), specs)
     ys, us, iis, ts = [y0], [u0], [u0], [torch.zeros_like(y0[..., 0])]
-    for state, (yl, ul, il, t) in _steps(table, state, clip, specs):
+    for state, (yl, ul, il, t) in _steps(table, state, clip, specs,
+                                         biconic):
         ys.append(K.join(*yl))
         us.append(K.join(*ul))
         iis.append(K.join(*il))
@@ -79,7 +85,8 @@ def trace_rays(table, y0, u0, clip=False, specs=None):
             torch.stack(ts))
 
 
-def trace_components_final(table, state, clip=False, specs=None):
+def trace_components_final(table, state, clip=False, specs=None,
+                           biconic=False):
     """Carry-only trace on component state (x, y, z, ux, uy, uz),
     each (N,).  Returns (state_local, t_total) after the last
     surface."""
@@ -87,17 +94,20 @@ def trace_components_final(table, state, clip=False, specs=None):
                                  dtype=state[0].dtype)
     tacc = torch.zeros_like(state[0])
     state = _entry(table, tuple(state), specs)
-    for state, (yl, ul, il, t) in _steps(table, state, clip, specs):
+    for state, (yl, ul, il, t) in _steps(table, state, clip, specs,
+                                         biconic):
         tacc = tacc + t
     return _exit(table, state, specs), tacc
 
 
-def trace_rays_final(table, y0, u0, clip=False, specs=None):
+def trace_rays_final(table, y0, u0, clip=False, specs=None,
+                     biconic=False):
     """Carry-only trace: returns (y, u, t_total) after the last
     surface (local frame), with t_total the accumulated optical
     path."""
     out, tacc = trace_components_final(
-        table, (*K.split(y0), *K.split(u0)), clip=clip, specs=specs)
+        table, (*K.split(y0), *K.split(u0)), clip=clip, specs=specs,
+        biconic=biconic)
     return K.join(*out[:3]), K.join(*out[3:]), tacc
 
 
@@ -115,7 +125,8 @@ def trace_rays_final_fast(table, y0, u0, clip=False, specs=None,
     the plain trace and merit) with its kernels in ops.cuda_df32
     (trace_final_df32, trace_merit_df32 and their multi-plan twins).
     `specs` default to kernels.specialize of the table.  On the CPU
-    both precisions take the plain generic walk (parity in float64).
+    both precisions take the plain generic walk (parity in float64;
+    the anamorphic step when the table is anamorphic).
 
     Returns (y (N, 3), u (N, 3), t (N,)).  Not differentiable on the
     CUDA path."""
@@ -125,7 +136,9 @@ def trace_rays_final_fast(table, y0, u0, clip=False, specs=None,
     if precision == "parity":
         y0, u0 = y0.double(), u0.double()
     if y0.device.type != "cuda":
-        return trace_rays_final(table, y0, u0, clip=clip)
+        from .tables import is_anamorphic
+        return trace_rays_final(table, y0, u0, clip=clip,
+                                biconic=is_anamorphic(lower_pose(table)))
     from .cuda_trace import trace_final
     if specs is None:
         specs = K.specialize(table)
@@ -142,13 +155,9 @@ def trace_rays_final_multi(tables, y0, u0, clip=False, specs=None,
     own bundle with trace_rays_final; the static specs are shared (the
     geometry is identical, only indices differ across wavelengths).
     Returns (y (B, N, 3), u (B, N, 3), t (B, N)).  `unroll` (a JAX
-    compilation choice) is accepted and ignored; biconic=True raises
-    NotImplementedError (the anamorphic vocabulary, ROADMAP Queue 1
-    item 9)."""
-    if biconic:
-        from ..parallel.grad import _no_biconic
-        _no_biconic(biconic)
+    compilation choice) is accepted and ignored; `biconic` selects the
+    generic walk's anamorphic step (without specs)."""
     outs = [trace_rays_final(table_at(tables, b), y0[b], u0[b], clip=clip,
-                             specs=specs)
+                             specs=specs, biconic=biconic)
             for b in range(tables.curvature.shape[0])]
     return tuple(torch.stack(o) for o in zip(*outs))

@@ -7,14 +7,16 @@ step broadcasts them against the bundle.
 
 This is the counterpart of the JAX package's rayopt_tpu.ops.kernels,
 operation for operation, so the two agree to rounding in float64.  The
-port covers the rotationally symmetric rows: flat, spherical, conic
-and even/odd aspheric (rotated, off-axis, passthrough, refracting and
-mirror rows, aperture clip).  An aspheric row is intercepted by a
-fixed-count Newton seeded from the conic (`intercept`), differentiated
-implicitly at the root (`_NewtonRoot`).  The rest of the extended
-vocabulary (biconic, toroid, cylinder, grating, DOE and freeform rows,
-ROADMAP Queue 1 item 9) is not ported yet: a row that needs it raises
-NotImplementedError.
+port covers the rotationally symmetric rows -- flat, spherical, conic
+and even/odd aspheric -- and the anamorphic rows: conic cylinders
+curved in y or in x (a closed-form intercept), general biconics and
+toroids (rotated, off-axis, passthrough, refracting and mirror rows,
+aperture clip).  An aspheric, biconic or toroidal row is intercepted
+by a fixed-count Newton seeded from the (y-)conic (`intercept`,
+`intercept_biconic`, `intercept_toroid`), differentiated implicitly at
+the root (`_NewtonRoot`).  The rest of the extended vocabulary
+(grating, DOE and freeform rows, ROADMAP Queue 1 item 9) is not ported
+yet: a row that needs it raises NotImplementedError.
 
 NaN marks a vignetted or missed ray.  `_sqrt0` clamps negative
 arguments to 0 but lets NaN through, and every miss is set to NaN
@@ -167,27 +169,123 @@ def intercept_conic(x, y, z, ux, uy, uz, c, k, alternate):
     return s
 
 
-def _newton_residual(s, x, y, z, ux, uy, uz, c, k, asp, aspo):
-    """Sag residual F(s) at distance s along the ray (the reference's
-    "radial" kind: a conic plus even/odd aspheric figure)."""
-    return sag(x + s*ux, y + s*uy, z + s*uz, c, k, asp, aspo)
+def sag_biconic(x, y, z, cx, kx, cy, ky, aspherics=None,
+                aspherics_odd=None):
+    """z - biconic_sag(x, y): independent x/y curvature and conic,
+    sag = (cx x^2 + cy y^2)/(1 + sqrt(1 - (1+kx) cx^2 x^2 - (1+ky)
+    cy^2 y^2)), plus the shared rotationally symmetric aspheric terms
+    (reference kernels.sag_biconic)."""
+    x2, y2 = x*x, y*y
+    a = cx*x2 + cy*y2
+    b = (1 + kx)*cx*cx*x2 + (1 + ky)*cy*cy*y2
+    e = z - a/(1 + _sqrt0(1 - b))
+    r2 = x2 + y2
+    if _width(aspherics):
+        e = e - _poly_even(r2, aspherics)
+    if _width(aspherics_odd):
+        e = e - _poly_odd(r2, aspherics_odd)
+    return e
 
 
-def _newton_slope(s, x, y, z, ux, uy, uz, c, k, asp, aspo):
-    """dF/ds = u . grad(z - sag) by the radial normal."""
+def normal_biconic(x, y, cx, kx, cy, ky, aspherics=None,
+                   aspherics_odd=None):
+    """Transverse components (gx, gy) of the unnormalized surface
+    normal (gx, gy, 1) = grad(z - sag) of a biconic; the root s of the
+    sag's denominator is floored at TINY where it divides."""
+    x2, y2 = x*x, y*y
+    a = cx*x2 + cy*y2
+    b = (1 + kx)*cx*cx*x2 + (1 + ky)*cy*cy*y2
+    s = _sqrt0(1 - b)
+    s_safe = torch.clamp(s, min=TINY)
+    inv = 1./(1 + s)
+    gx = -(2*cx*x*(1 + s) + a*(1 + kx)*cx*cx*x/s_safe)*inv*inv
+    gy = -(2*cy*y*(1 + s) + a*(1 + ky)*cy*cy*y/s_safe)*inv*inv
+    r2 = x2 + y2
+    if _width(aspherics):
+        d = _dpoly_even(r2, aspherics)
+        gx = gx - x*d
+        gy = gy - y*d
+    if _width(aspherics_odd):
+        d = _dpoly_odd(r2, aspherics_odd)
+        gx = gx - x*d
+        gy = gy - y*d
+    return gx, gy
+
+
+def _ycurve(y, cy, ky, aspherics=None, aspherics_odd=None):
+    """(sag, d sag/dy) of the toroid's generating curve in the y-z
+    plane: conic + polynomial figure on y alone (the root floored at
+    TINY where it divides)."""
+    y2 = y*y
+    sq = _sqrt0(1 - (1 + ky)*cy*cy*y2)
+    zy = cy*y2/(1 + sq)
+    dzy = cy*y/torch.clamp(sq, min=TINY)
+    if _width(aspherics):
+        zy = zy + _poly_even(y2, aspherics)
+        dzy = dzy + y*_dpoly_even(y2, aspherics)
+    if _width(aspherics_odd):
+        zy = zy + _poly_odd(y2, aspherics_odd)
+        dzy = dzy + y*_dpoly_odd(y2, aspherics_odd)
+    return zy, dzy
+
+
+def sag_toroid(x, y, z, cr, cy, ky, aspherics=None, aspherics_odd=None):
+    """z - toroidal_sag(x, y): the y-z curve zy(y) swept about an axis
+    parallel to y at radius 1/cr (the Zemax TOROIDAL model),
+    sag = zy + x^2 cr'/(1 + sqrt(1 - x^2 cr'^2)), cr' = cr/(1 - cr zy)."""
+    zy, _ = _ycurve(y, cy, ky, aspherics, aspherics_odd)
+    crp = cr/(1 - cr*zy)
+    x2 = x*x
+    return z - zy - crp*x2/(1 + _sqrt0(1 - x2*crp*crp))
+
+
+def normal_toroid(x, y, cr, cy, ky, aspherics=None, aspherics_odd=None):
+    """Transverse components (gx, gy) of the toroid's unnormalized
+    normal: gx = -x cr'/w, gy = -zy'/w, w = sqrt(1 - x^2 cr'^2) floored
+    at TINY."""
+    zy, dzy = _ycurve(y, cy, ky, aspherics, aspherics_odd)
+    crp = cr/(1 - cr*zy)
+    w = torch.clamp(_sqrt0(1 - x*x*crp*crp), min=TINY)
+    return -x*crp/w, -dzy/w
+
+
+def _newton_residual(kind, s, x, y, z, ux, uy, uz, pa, pb, pc, pd, asp,
+                     aspo):
+    """Sag residual F(s) at distance s along the ray for the three
+    Newton-refined figures (the reference's kinds): "radial" (pa, pb =
+    c, k: a conic with even/odd aspheric figure), "biconic" (pa..pd =
+    cx, kx, cy, ky) and "toroid" (pa..pc = cr, cy, ky)."""
+    px, py, pz = x + s*ux, y + s*uy, z + s*uz
+    if kind == "radial":
+        return sag(px, py, pz, pa, pb, asp, aspo)
+    if kind == "biconic":
+        return sag_biconic(px, py, pz, pa, pb, pc, pd, asp, aspo)
+    return sag_toroid(px, py, pz, pa, pb, pc, asp, aspo)
+
+
+def _newton_slope(kind, s, x, y, z, ux, uy, uz, pa, pb, pc, pd, asp,
+                  aspo):
+    """dF/ds = u . grad(z - sag) by the kind's hand-written normal."""
     px, py = x + s*ux, y + s*uy
-    e = normal_radial(px, py, c, k, asp, aspo)
-    return ux*(px*e) + uy*(py*e) + uz
+    if kind == "radial":
+        e = normal_radial(px, py, pa, pb, asp, aspo)
+        gx, gy = px*e, py*e
+    elif kind == "biconic":
+        gx, gy = normal_biconic(px, py, pa, pb, pc, pd, asp, aspo)
+    else:
+        gx, gy = normal_toroid(px, py, pa, pb, pc, asp, aspo)
+    return ux*gx + uy*gy + uz
 
 
 class _NewtonRoot(torch.autograd.Function):
     """Fixed-count Newton refinement of the intercept distance, the
     counterpart of the reference's `_newton_root` (a jax.custom_jvp).
 
-    forward(seed, x, y, z, ux, uy, uz, c, k, asp, aspo, iters, tol):
-    `iters` Newton steps from the seed (a zero slope steps by F), then
-    a ray whose residual exceeds tol*(1 + |s|) (tol floored by
-    _tol_for) becomes NaN.
+    forward(seed, x, y, z, ux, uy, uz, pa, pb, asp, aspo, iters, tol,
+    kind="radial", pc=None, pd=None): `iters` Newton steps from the
+    seed on the residual of `kind` (_newton_residual; a zero slope
+    steps by F), then a ray whose residual exceeds tol*(1 + |s|) (tol
+    floored by _tol_for) becomes NaN.
 
     backward: the implicit-function theorem at the converged root,
     p_bar = -s_bar * dF/dp / F_s (one residual gradient), not the
@@ -198,18 +296,22 @@ class _NewtonRoot(torch.autograd.Function):
     aberration expansion, item 13) raise."""
 
     @staticmethod
-    def forward(ctx, seed, x, y, z, ux, uy, uz, c, k, asp, aspo, iters,
-                tol):
-        args = (x, y, z, ux, uy, uz, c, k, asp, aspo)
+    def forward(ctx, seed, x, y, z, ux, uy, uz, pa, pb, asp, aspo, iters,
+                tol, kind="radial", pc=None, pd=None):
+        zero = pa.new_zeros(())
+        pc = zero if pc is None else pc
+        pd = zero if pd is None else pd
+        args = (x, y, z, ux, uy, uz, pa, pb, pc, pd, asp, aspo)
         s = seed
         for _ in range(iters):
-            fn = _newton_residual(s, *args)
-            fp = _newton_slope(s, *args)
+            fn = _newton_residual(kind, s, *args)
+            fp = _newton_slope(kind, s, *args)
             fp = torch.where(fp == 0, 1., fp)
             s = s - fn/fp
-        res = _newton_residual(s, *args)
+        res = _newton_residual(kind, s, *args)
         tol = _tol_for(s, tol)
         s = torch.where(torch.abs(res) <= tol*(1 + torch.abs(s)), s, NAN)
+        ctx.kind = kind
         ctx.save_for_backward(s, *args)
         return s
 
@@ -217,22 +319,27 @@ class _NewtonRoot(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, ct):
         s, *args = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:11]
+        given = len(ctx.needs_input_grad)     # kind, pc, pd may be absent
+        n = tuple(ctx.needs_input_grad) + (False,)*(16 - given)
+        # the inputs in _newton_residual's order: x .. pb, pc, pd, asp, aspo
+        need = (*n[1:9], *n[14:16], *n[9:11])
+        kind = ctx.kind
         with torch.enable_grad():
             leaves = [a.detach().requires_grad_() if nd else a.detach()
                       for a, nd in zip(args, need)]
-            f = _newton_residual(s, *leaves)
-            fs = _newton_slope(s, *(a.detach() for a in args))
+            f = _newton_residual(kind, s, *leaves)
+            fs = _newton_slope(kind, s, *(a.detach() for a in args))
             fs = torch.where(fs == 0, 1., fs)
             wanted = [a for a, nd in zip(leaves, need) if nd]
             grads = iter(torch.autograd.grad(f, wanted, -ct/fs,
                                              allow_unused=True)
                          if wanted else ())
-        out = [None]
+        out = []
         for a, nd in zip(args, need):
             g = next(grads) if nd else None
             out.append(torch.zeros_like(a) if nd and g is None else g)
-        return (*out, None, None)
+        return (None, *out[:8], *out[10:], None, None, None,
+                *out[8:10])[:given]
 
 
 def intercept(x, y, z, ux, uy, uz, c, k, aspherics, alternate,
@@ -254,6 +361,124 @@ def intercept(x, y, z, ux, uy, uz, c, k, aspherics, alternate,
     s = _NewtonRoot.apply(s0, x, y, z, ux, uy, uz, c, k, asp, aspo,
                           iters, tol)
     return torch.where(torch.isnan(s0) & (c != 0), NAN, s)
+
+
+def _anamorphic_root(kind, x, y, z, ux, uy, uz, pa, pb, pc, pd, cy, ky,
+                     aspherics, alternate, iters, tol, aspherics_odd):
+    """The seeded Newton of a biconic or toroid: the y-conic closed
+    form seeds it, a ray whose seed misses restarts from the vertex
+    plane -z/uz; a ray the Newton does not converge is NaN."""
+    seed = intercept_conic(x, y, z, ux, uy, uz, cy, ky, alternate)
+    uz_safe = torch.where(uz == 0, 1., uz)
+    seed = torch.where(torch.isnan(seed), -z/uz_safe, seed)
+    zeros = seed.new_zeros((0,))
+    asp = aspherics if aspherics is not None else zeros
+    aspo = aspherics_odd if aspherics_odd is not None else zeros
+    x, y, z, ux, uy, uz = torch.broadcast_tensors(x, y, z, ux, uy, uz)
+    return _NewtonRoot.apply(seed, x, y, z, ux, uy, uz, pa, pb, asp, aspo,
+                             iters, tol, kind, pc, pd)
+
+
+def intercept_biconic(x, y, z, ux, uy, uz, cx, kx, cy, ky, aspherics,
+                      alternate, iters=ASPHERIC_ITERS, tol=ASPHERIC_TOL,
+                      aspherics_odd=None):
+    """Ray length to a biconic surface (reference intercept_biconic):
+    the y-axis conic seeds a fixed-count Newton on the exact sag."""
+    return _anamorphic_root("biconic", x, y, z, ux, uy, uz, cx, kx, cy, ky,
+                            cy, ky, aspherics, alternate, iters, tol,
+                            aspherics_odd)
+
+
+def intercept_toroid(x, y, z, ux, uy, uz, cr, cy, ky, aspherics,
+                     alternate, iters=ASPHERIC_ITERS, tol=ASPHERIC_TOL,
+                     aspherics_odd=None):
+    """Ray length to a toroidal surface (reference intercept_toroid):
+    the y-conic seeds a fixed-count Newton on the exact sag."""
+    return _anamorphic_root("toroid", x, y, z, ux, uy, uz, cr, cy, ky,
+                            None, cy, ky, aspherics, alternate, iters, tol,
+                            aspherics_odd)
+
+
+def _refract_general(x, y, ux, uy, uz, mu, gx, gy):
+    """Snell/mirror on an arbitrary (gx, gy, 1) normal (reference
+    kernels._refract_general)."""
+    r2 = gx*gx + gy*gy + 1.
+    muf = torch.abs(mu)
+    a = muf*(ux*gx + uy*gy + uz)/r2
+    rx, ry, rz = ux - 2*a*gx, uy - 2*a*gy, uz - 2*a
+    b = (mu*mu - 1)/r2
+    disc = a*a - b
+    g = -a + torch.sign(mu)*_sqrt0(disc)
+    g = torch.where(disc < 0, NAN, g)
+    tx, ty, tz = muf*ux + g*gx, muf*uy + g*gy, muf*uz + g
+    ox = torch.where(mu == -1, rx, tx)
+    oy = torch.where(mu == -1, ry, ty)
+    oz = torch.where(mu == -1, rz, tz)
+    ox = torch.where(mu == 1, ux, ox)
+    oy = torch.where(mu == 1, uy, oy)
+    oz = torch.where(mu == 1, uz, oz)
+    return ox, oy, oz
+
+
+def refract_biconic(x, y, ux, uy, uz, mu, cx, kx, cy, ky, aspherics=None,
+                    aspherics_odd=None):
+    """Snell/mirror refraction with the general biconic normal."""
+    gx, gy = normal_biconic(x, y, cx, kx, cy, ky, aspherics, aspherics_odd)
+    return _refract_general(x, y, ux, uy, uz, mu, gx, gy)
+
+
+def refract_toroid(x, y, ux, uy, uz, mu, cr, cy, ky, aspherics=None,
+                   aspherics_odd=None):
+    """Snell/mirror refraction with the toroidal normal."""
+    gx, gy = normal_toroid(x, y, cr, cy, ky, aspherics, aspherics_odd)
+    return _refract_general(x, y, ux, uy, uz, mu, gx, gy)
+
+
+def intercept_cyl(w, z, uw, uz, c, k, alternate):
+    """Closed-form intercept of a pure conic cylinder, the quadric
+    c (w^2 + (1+k) z^2) - 2 z = 0 in the curved coordinate w alone.
+
+    It takes intercept_conic's cancellation-free numerator/denominator
+    pair (f/(g - d) where d and g differ in sign or e == 0, else
+    -(d + g)/e) and divides once.  The JAX package's intercept_cyl
+    keeps -(d + g)/e wherever e != 0, which loses its digits near the
+    axis of a weak cylinder or at a curvature an optimizer drives
+    toward 0: a chosen divergence (ROADMAP, Queue 3)."""
+    k1 = 1 + k
+    uy_ = uw*w + k1*uz*z
+    uu = uw*uw + k1*uz*uz
+    yy = w*w + k1*z*z
+    d = c*uy_ - uz
+    e = c*uu
+    f = c*yy - 2*z
+    disc = d*d - e*f
+    g = _sqrt0(disc)*(1 - 2*alternate)
+    conj = (d*g <= 0) | (e == 0)
+    num = torch.where(conj, f, -(d + g))
+    den = torch.where(conj, g - d, e)
+    s = num/torch.where(den == 0, 1., den)
+    return torch.where(disc < 0, NAN, s)
+
+
+def refract_cyl(w, z, uw, uv, uz, mu, c, k, kind):
+    """Snell/mirror on a conic cylinder's polynomial normal
+    N = (-c w, 1 - c(1+k) z) at the on-surface point (w, z): uw is the
+    direction along the curved axis, uv along the flat one.  kind: 1
+    refract, 2 mirror (static).  Returns (uw', uv', uz')."""
+    nw = -c*w
+    nz = 1. - (1 + k)*c*z
+    inv = 1./(nw*nw + nz*nz)
+    dot = uw*nw + uz*nz
+    if kind == 2:
+        a2 = 2.*dot*inv
+        return uw - a2*nw, uv, uz - a2*nz
+    muf = torch.abs(mu)
+    a = muf*dot*inv
+    b = (mu*mu - 1)*inv
+    disc = a*a - b
+    g = -a + torch.sign(mu)*_sqrt0(disc)
+    g = torch.where(disc < 0, NAN, g)
+    return muf*uw + g*nw, muf*uv, muf*uz + g*nz
 
 
 def refract(x, y, ux, uy, uz, mu, c, k, aspherics=None,
@@ -310,7 +535,9 @@ class SurfaceSpec(NamedTuple):
 #: where the extended vocabulary waits (its NotImplementedError says so)
 ITEM9 = "ROADMAP Queue 1 item 9"
 #: SurfaceSpec flags of the extended vocabulary, not ported yet
-EXTENDED = ("biconic", "toroidal", "grating", "doe", "freeform", "cyl_axis")
+EXTENDED = ("grating", "doe", "freeform")
+#: SurfaceSpec flags of the anamorphic rows
+ANAMORPHIC = ("biconic", "toroidal", "cyl_axis")
 
 
 def is_figured(spec):
@@ -318,11 +545,21 @@ def is_figured(spec):
     return bool(spec.aspheric or spec.odd)
 
 
-def check_supported(spec, j=None, what="rayopt_tpu_torch"):
+def is_anamorphic_spec(spec):
+    """True for a biconic, toroidal or cylinder row."""
+    return bool(spec.biconic or spec.toroidal or spec.cyl_axis)
+
+
+def check_supported(spec, j=None, what="rayopt_tpu_torch",
+                    anamorphic=True):
     """Raise NotImplementedError, naming ROADMAP Queue 1 item 9, for a
     row that needs the extended surface vocabulary (`what`: the engine
-    or key that does not trace it)."""
+    or key that does not trace it): grating, DOE and freeform rows
+    everywhere, and anamorphic rows where `anamorphic` is False (the
+    kernels that do not take them yet)."""
     used = [f for f in EXTENDED if getattr(spec, f)]
+    if not anamorphic:
+        used += [f for f in ANAMORPHIC if getattr(spec, f)]
     if used:
         raise NotImplementedError(
             "surface row %s uses %s, which %s does not trace yet (%s)"
@@ -331,14 +568,17 @@ def check_supported(spec, j=None, what="rayopt_tpu_torch"):
 
 def require_radial(table):
     """Raise NotImplementedError (item 9) when the generic (spec-free)
-    trace would need the extended vocabulary for some row of `table`:
-    it traces the rotationally symmetric rows only (flat, spherical,
-    conic and even/odd aspheric)."""
-    from .tables import is_anamorphic
-    if is_anamorphic(table):
+    trace would need the unported vocabulary for some row of `table`:
+    a grating, DOE or freeform row.  (Its anamorphic rows are traced by
+    surface_step(biconic=True), or as the radial rows their y figure
+    makes without the flag, as in the reference.)"""
+    def any_nonzero(f):
+        return f is not None and f.numel() and bool(torch.any(f != 0))
+    if any(any_nonzero(getattr(table, f))
+           for f in ("grating_dy", "doe", "xy_poly")):
         raise NotImplementedError(
-            "the table has anamorphic, grating, DOE or freeform rows, "
-            "which rayopt_tpu_torch does not trace yet (%s)" % ITEM9)
+            "the table has grating, DOE or freeform rows, which "
+            "rayopt_tpu_torch does not trace yet (%s)" % ITEM9)
 
 
 def specialize(table):
@@ -547,13 +787,26 @@ def surface_step_spec(state, surf, spec, clip):
         r = surf.rot
         x, y, z = rot_apply(r, x, y, z)
         ux, uy, uz = rot_apply(r, ux, uy, uz)
-    if is_figured(spec):
-        t = intercept(x, y, z, ux, uy, uz, surf.curvature, surf.conic,
-                      surf.aspherics, surf.alternate,
-                      aspherics_odd=surf.aspherics_odd)
+    c, k = surf.curvature, surf.conic
+    if is_anamorphic_spec(spec):
+        cx, kx = c + surf.curvature_dx, k + surf.conic_dx
+    if spec.cyl_axis == 1:
+        t = intercept_cyl(y, z, uy, uz, c, k, surf.alternate)
+    elif spec.cyl_axis == 2:
+        t = intercept_cyl(x, z, ux, uz, cx, kx, surf.alternate)
+    elif spec.toroidal:
+        t = intercept_toroid(x, y, z, ux, uy, uz, cx, c, k,
+                             surf.aspherics, surf.alternate,
+                             aspherics_odd=surf.aspherics_odd)
+    elif spec.biconic:
+        t = intercept_biconic(x, y, z, ux, uy, uz, cx, kx, c, k,
+                              surf.aspherics, surf.alternate,
+                              aspherics_odd=surf.aspherics_odd)
+    elif is_figured(spec):
+        t = intercept(x, y, z, ux, uy, uz, c, k, surf.aspherics,
+                      surf.alternate, aspherics_odd=surf.aspherics_odd)
     else:
-        t = intercept_spec(x, y, z, ux, uy, uz, surf.curvature,
-                           surf.conic, spec)
+        t = intercept_spec(x, y, z, ux, uy, uz, c, k, spec)
     x1, y1, z1 = x + t*ux, y + t*uy, z + t*uz
     topt = t*surf.n_before
     ux0, uy0, uz0 = ux, uy, uz
@@ -564,9 +817,27 @@ def surface_step_spec(state, surf, spec, clip):
         ux0 = torch.where(bad, NAN, ux0)
         uy0 = torch.where(bad, NAN, uy0)
         uz0 = torch.where(bad, NAN, uz0)
-    ux1, uy1, uz1 = refract_spec(x1, y1, z1, ux0, uy0, uz0, surf.mu,
-                                 surf.curvature, surf.conic, spec,
-                                 surf.aspherics, surf.aspherics_odd)
+    if is_anamorphic_spec(spec) and spec.kind == 0:
+        # a passthrough anamorphic row skips the normal and Snell
+        ux1, uy1, uz1 = ux0, uy0, uz0
+    elif spec.cyl_axis == 1:
+        uy1, ux1, uz1 = refract_cyl(y1, z1, uy0, ux0, uz0, surf.mu, c, k,
+                                    spec.kind)
+    elif spec.cyl_axis == 2:
+        ux1, uy1, uz1 = refract_cyl(x1, z1, ux0, uy0, uz0, surf.mu, cx, kx,
+                                    spec.kind)
+    elif spec.toroidal:
+        ux1, uy1, uz1 = refract_toroid(x1, y1, ux0, uy0, uz0, surf.mu, cx,
+                                       c, k, surf.aspherics,
+                                       surf.aspherics_odd)
+    elif spec.biconic:
+        ux1, uy1, uz1 = refract_biconic(x1, y1, ux0, uy0, uz0, surf.mu, cx,
+                                        kx, c, k, surf.aspherics,
+                                        surf.aspherics_odd)
+    else:
+        ux1, uy1, uz1 = refract_spec(x1, y1, z1, ux0, uy0, uz0, surf.mu,
+                                     c, k, spec, surf.aspherics,
+                                     surf.aspherics_odd)
     out = ((x1, y1, z1), (ux1, uy1, uz1), (ux, uy, uz), topt)
     if spec.rotated:
         r = surf.rot
@@ -577,12 +848,60 @@ def surface_step_spec(state, surf, spec, clip):
     return nstate, out
 
 
-def surface_step(state, surf, clip):
+def _intercept_anam(x, y, z, ux, uy, uz, surf):
+    """Per-row biconic-or-toroid intercept of the dynamic walk (the row
+    kind is a value: both candidates evaluate and a select picks one,
+    as the reference's _intercept_anam)."""
+    cx, kx = surf.curvature + surf.curvature_dx, surf.conic + surf.conic_dx
+    tb = intercept_biconic(x, y, z, ux, uy, uz, cx, kx, surf.curvature,
+                           surf.conic, surf.aspherics, surf.alternate,
+                           aspherics_odd=surf.aspherics_odd)
+    tt = intercept_toroid(x, y, z, ux, uy, uz, cx, surf.curvature,
+                          surf.conic, surf.aspherics, surf.alternate,
+                          aspherics_odd=surf.aspherics_odd)
+    return torch.where(surf.toroidal != 0, tt, tb)
+
+
+def _refract_anam(x, y, ux, uy, uz, surf):
+    """The dynamic walk's refraction of an anamorphic table: the
+    biconic-or-toroid normal, then the reference's generalized
+    (grating) solve at zero grating term and no diffractive kick --
+    Snell, or a mirror's reflection, on the (gx, gy, 1) normal."""
+    c, k, mu = surf.curvature, surf.conic, surf.mu
+    cx, kx = c + surf.curvature_dx, k + surf.conic_dx
+    gbx, gby = normal_biconic(x, y, cx, kx, c, k, surf.aspherics,
+                              surf.aspherics_odd)
+    gtx, gty = normal_toroid(x, y, cx, c, k, surf.aspherics,
+                             surf.aspherics_odd)
+    tor = surf.toroidal != 0
+    gx = torch.where(tor, gtx, gbx)
+    gy = torch.where(tor, gty, gby)
+    inv_nn = 1./(gx*gx + gy*gy + 1.)
+    muf = torch.abs(mu)
+    bx, by, bz = muf*ux, muf*uy, muf*uz
+    bn = (bx*gx + by*gy + bz)*inv_nn
+    bb = bx*bx + by*by + bz*bz
+    disc = bn*bn - (bb - 1.)*inv_nn
+    root = _sqrt0(disc)
+    gam_t = -bn + torch.sign(mu)*root
+    gam_r = -bn - torch.sign(bn)*root
+    gam = torch.where(mu == -1, gam_r, gam_t)
+    gam = torch.where(disc < 0, NAN, gam)
+    ox, oy, oz = bx + gam*gx, by + gam*gy, bz + gam
+    keep = mu == 1
+    return (torch.where(keep, ux, ox), torch.where(keep, uy, oy),
+            torch.where(keep, uz, oz))
+
+
+def surface_step(state, surf, clip, biconic=False):
     """One generic transfer-intercept-refract step on component state
     (x, y, z, ux, uy, uz): every row is rotated, intercepted by the
     general conic (refined by the Newton on the exact sag when the
     table has aspheric columns of nonzero width, `intercept`) and
     refracted with the radial normal, with no static specialization.
+    biconic (static; set it when ops.tables.is_anamorphic(table)): every
+    row takes the anamorphic sag instead -- the biconic-or-toroid
+    seeded Newton and normal (_intercept_anam, _refract_anam).
     Returns (next_state, local_outputs) with the per-surface (y, u, i,
     t) in the surface-normal frame (reference system.py:459-464).
     Callers check the table with `require_radial` first."""
@@ -591,9 +910,12 @@ def surface_step(state, surf, clip):
     r = surf.rot
     x, y, z = rot_apply(r, x - ox, y - oy, z - oz)
     ix, iy, iz = rot_apply(r, ux, uy, uz)
-    t = intercept(x, y, z, ix, iy, iz, surf.curvature, surf.conic,
-                  surf.aspherics, surf.alternate,
-                  aspherics_odd=surf.aspherics_odd)
+    if biconic:
+        t = _intercept_anam(x, y, z, ix, iy, iz, surf)
+    else:
+        t = intercept(x, y, z, ix, iy, iz, surf.curvature, surf.conic,
+                      surf.aspherics, surf.alternate,
+                      aspherics_odd=surf.aspherics_odd)
     x1, y1, z1 = x + t*ix, y + t*iy, z + t*iz
     ux0, uy0, uz0 = ix, iy, iz
     if clip:
@@ -602,9 +924,12 @@ def surface_step(state, surf, clip):
         uy0 = torch.where(bad, NAN, uy0)
         uz0 = torch.where(bad, NAN, uz0)
     topt = t*surf.n_before
-    ux1, uy1, uz1 = refract(x1, y1, ux0, uy0, uz0, surf.mu,
-                            surf.curvature, surf.conic, surf.aspherics,
-                            surf.aspherics_odd)
+    if biconic:
+        ux1, uy1, uz1 = _refract_anam(x1, y1, ux0, uy0, uz0, surf)
+    else:
+        ux1, uy1, uz1 = refract(x1, y1, ux0, uy0, uz0, surf.mu,
+                                surf.curvature, surf.conic,
+                                surf.aspherics, surf.aspherics_odd)
     out = ((x1, y1, z1), (ux1, uy1, uz1), (ix, iy, iz), topt)
     nx, ny, nz = rot_apply_t(r, x1, y1, z1)
     nux, nuy, nuz = rot_apply_t(r, ux1, uy1, uz1)

@@ -21,18 +21,20 @@ import math
 
 import torch
 
-from .grad import _no_biconic, opd_rays
+from .grad import opd_rays
 
 
 def _pupil_samples(table, y0, u0, w, **opd_kw):
     """(opd, xy, weights, good): NaN-guarded pupil samples, the weights
     normalized over the live samples."""
-    _no_biconic(opd_kw.pop("biconic", False))
+    biconic = opd_kw.pop("biconic", False)
     if opd_kw.pop("engine", "xla") == "adjoint":
+        # the specialized engine reads each row's own branch
         from ..ops.cuda_grad import adjoint_opd_rays
         opd, xy = adjoint_opd_rays(table, y0, u0, with_pupil=True, **opd_kw)
     else:
-        opd, xy = opd_rays(table, y0, u0, with_pupil=True, **opd_kw)
+        opd, xy = opd_rays(table, y0, u0, with_pupil=True, biconic=biconic,
+                           **opd_kw)
     good = torch.isfinite(opd) & torch.isfinite(xy).all(1)
     if w is None:
         w = torch.ones_like(opd)

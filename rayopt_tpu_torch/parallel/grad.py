@@ -47,11 +47,6 @@ def _not_ported(what, item):
         "%s)" % (what, item))
 
 
-def _no_biconic(biconic):
-    if biconic:
-        _not_ported("the extended surface vocabulary (biconic=True)", 9)
-
-
 def _detached(table):
     return type(table)(*(None if f is None else f.detach() for f in table))
 
@@ -65,8 +60,9 @@ def spot_rms(table, y0, u0, w=None, clip=False, nan_safe=True,
     anywhere in a ray's chain yields NaN * 0 = NaN cotangents), so
     with nan_safe a no-grad pre-trace finds the surviving rays and
     each dead one is replaced by the first surviving ray at zero
-    weight before the differentiated trace runs."""
-    _no_biconic(biconic)
+    weight before the differentiated trace runs.  biconic: the generic
+    walk's anamorphic step (without specs; set it for an anamorphic
+    table, ops.tables.is_anamorphic)."""
     y0 = torch.as_tensor(y0)
     u0 = torch.as_tensor(u0)
     if w is None:
@@ -77,7 +73,8 @@ def spot_rms(table, y0, u0, w=None, clip=False, nan_safe=True,
     if nan_safe:
         with torch.no_grad():
             yp, up, _ = trace_rays_final(_detached(table), y0, u0,
-                                         clip=clip, specs=specs)
+                                         clip=clip, specs=specs,
+                                         biconic=biconic)
             # the final u matters too: a clip at the image surface NaNs
             # u after y was already computed
             alive = (torch.isfinite(yp[:, :2]).all(1)
@@ -86,7 +83,8 @@ def spot_rms(table, y0, u0, w=None, clip=False, nan_safe=True,
         y0 = torch.where(alive[:, None], y0, y0[i0])
         u0 = torch.where(alive[:, None], u0, u0[i0])
         w = torch.where(alive, w, 0.)
-    y, u, t = trace_rays_final(table, y0, u0, clip=clip, specs=specs)
+    y, u, t = trace_rays_final(table, y0, u0, clip=clip, specs=specs,
+                               biconic=biconic)
     pt = y[:, :2]
     good = torch.isfinite(pt).all(1)
     wg = torch.where(good, w, 0.)
@@ -222,13 +220,12 @@ def opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
     from ..ops.geometric import trace_rays
     from ..ops.surfaces import intercept_conic
     from ..ops.tables import lower_pose
-    _no_biconic(biconic)
     y0 = torch.as_tensor(y0)
     u0 = torch.as_tensor(u0)
     # fold pose deltas here too: the exit/image frame reads below must
     # see the same tilt/decenter the trace used
     table = lower_pose(table).to(device=y0.device, dtype=y0.dtype)
-    y, u, i, t = trace_rays(table, y0, u0, specs=specs)
+    y, u, i, t = trace_rays(table, y0, u0, specs=specs, biconic=biconic)
     tsum = (t[:-1] - t[:-1, ref][:, None]).sum(0)
     if not finite:
         # input reference is a plane normal to the chief ray

@@ -27,7 +27,7 @@ from .elements import Element
 from .conjugates import Conjugate, FiniteConjugate, InfiniteConjugate
 from .materials import fraunhofer
 from .pupils import RadiusPupil
-from .ops.tables import make_table, stack_tables
+from .ops.tables import is_anamorphic, make_table, stack_tables
 from .ops.geometric import trace_rays
 from .trace.paraxial import ParaxialTrace
 
@@ -521,6 +521,9 @@ class System(AimingMixin, list):
                         for e in self), default=0)
         curvature = np.zeros(s)
         conic = np.zeros(s)
+        curvature_dx = np.zeros(s)
+        conic_dx = np.zeros(s)
+        toroidal = np.zeros(s)
         aspherics = np.zeros((s, kmax))
         aspherics_odd = np.zeros((s, kmax_odd))
         offset = np.zeros((s, 3))
@@ -535,6 +538,16 @@ class System(AimingMixin, list):
         for j, e in enumerate(self):
             curvature[j] = getattr(e, "curvature", 0.)
             conic[j] = getattr(e, "conic", 0.)
+            # the anamorphic x figure rides as differences from the y
+            # figure (a Toroid's conic_x is 0)
+            cx = getattr(e, "curvature_x", None)
+            if cx is not None:
+                curvature_dx[j] = cx - curvature[j]
+            kx = getattr(e, "conic_x", None)
+            if kx is not None:
+                conic_dx[j] = kx - conic[j]
+            if hasattr(e, "curvature_rotation"):
+                toroidal[j] = 1.
             asp = getattr(e, "aspherics", None) or ()
             aspherics[j, :len(asp)] = asp
             asp_odd = getattr(e, "aspherics_odd", None) or ()
@@ -555,7 +568,8 @@ class System(AimingMixin, list):
             aspherics_odd=aspherics_odd, offset=offset, rot=rot,
             radius=radius, alternate=alternate, mu=mu,
             n_before=n_before, n_after=n_after, distance=distance,
-            dtype=dtype, device=device)
+            curvature_dx=curvature_dx, conic_dx=conic_dx,
+            toroidal=toroidal, dtype=dtype, device=device)
 
     def tables(self, wavelengths=None, dtype=torch.float64, device=None):
         """Stacked SurfaceTable with a leading wavelength axis, for
@@ -593,8 +607,11 @@ class System(AimingMixin, list):
                             device=device)
         u = torch.as_tensor(np.atleast_2d(np.asarray(u, dtype=float)),
                             device=device)
+        # anamorphic rows take the generic walk's anamorphic step (the
+        # reference's trace_table off the accelerator)
         return tuple(a.cpu().numpy()
-                     for a in trace_rays(sub, y, u, clip=clip))
+                     for a in trace_rays(sub, y, u, clip=clip,
+                                         biconic=is_anamorphic(sub)))
 
     def propagate(self, y, u, n, l, start=1, stop=None, clip=False):
         """Generator API over the jitted trace (reference

@@ -1782,3 +1782,91 @@ def test_aspheric_multi_and_opd_kernels_match_plain_on_card(cuda_device,
     kk, kr = k[0][live].double(), kref[0][live].double()
     assert float((kk - kr).abs().max()) <= (
         tol if f64 else 4e-6)*float(kr.abs().max())
+
+
+# -- the anamorphic rows (K1, K2, K4, K5 keys) ---------------------------------
+
+def _anamorphic_case(name, device):
+    """(table on `device`, specs) of an anamorphic lens: the crossed-
+    cylinder pair, or the JAX package's split-conic biconic and toroid
+    lenses (tests/test_torch_anamorphic.py)."""
+    from rayopt_tpu_torch import System
+    if name == "pair":
+        s = models.anamorphic_pair()
+    else:
+        row = (dict(type="biconic", roc=25.84, curvature_x=.013,
+                    conic=-.4, conic_x=.25, distance=5.,
+                    material="SCHOTT-BK|N-BK7", radius=10.)
+               if name == "biconic" else
+               dict(type="toroid", roc=51.68, roc_rotation=200.,
+                    distance=5., material="SCHOTT-BK|N-BK7", radius=10.))
+        s = System([dict(material="air"), row,
+                    dict(type=row["type"], distance=3., material="air",
+                         radius=10.),
+                    dict(distance=47. if name == "biconic" else 95.,
+                         radius=10. if name == "biconic" else 20.)])
+        s.update()
+    tab = s.table(device=device)
+    return tab, specialize(tab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["pair", "biconic", "toroid"])
+def test_anamorphic_keys_match_plain_on_card(cuda_device, name, dtype, clip):
+    """K1, K2, K4 and K5 on an anamorphic key (a cylinder's closed form,
+    a biconic's or toroid's Newton) against their plain versions on the
+    card, the bench bundle within the 4 mm pupil (1.5x wide clipped):
+    float64 rays to 1e-12 with equal NaN masks, K5's columns (curvature_dx
+    and conic_dx last) to 1e-9 of each column's largest; each wrapper
+    launches its kernel once."""
+    tab, specs = _anamorphic_case(name, cuda_device)
+    f64 = dtype == torch.float64
+    n = 1 << 14
+    rng = np.random.RandomState(3)
+    half = 6. if clip else 4.
+    xy = rng.uniform(-half, half, (2, n))
+    zero, one = np.zeros(n), np.ones(n)
+    state = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(cuda_device,
+                                                               dtype)
+                  for c in (*xy, zero, zero, zero, one))
+    w = torch.full((n,), 1/n, dtype=dtype, device=cuda_device)
+    wrappers = (CT.trace_final, CT.trace_merit, CG.weighted_moments,
+                CG.merit_adjoint)
+    before = [f.launches for f in wrappers]
+    got = CT.trace_final(tab, specs, state, clip)
+    ref = CT.trace_final_reference(tab, specs, state, clip)
+    mom = CT.trace_merit(tab, specs, state, clip)
+    mref = CT.trace_merit_reference(tab, specs, state, clip)
+    wm = CG.weighted_moments(tab, specs, state, w, clip)
+    wref = CG.weighted_moments_reference(tab, specs, state, w, clip)
+    ct = _rms_cotangent(wref)
+    pg, cst, cw = CG.merit_adjoint(tab, specs, state, w, ct, clip)
+    pref, sref, wr = CG.merit_adjoint_reference(tab, specs, state, w, ct,
+                                                clip)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [b + 1 for b in before]
+    tol = 1e-12 if f64 else 5e-5
+    for g, r in zip((*got[0], got[1]), (*ref[0], ref[1])):
+        g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+        if f64:
+            nptest.assert_array_equal(np.isnan(g), np.isnan(r))
+        ok = np.isfinite(g) & np.isfinite(r)
+        assert ok.mean() > .5
+        nptest.assert_allclose(g[ok], r[ok], atol=tol*max(1., np.abs(
+            r[ok]).max()), rtol=0)
+    for a, b in ((torch.stack(mom), torch.stack(mref)), (wm, wref)):
+        nptest.assert_allclose(float(CT.spot_rms_from_moments(*a)),
+                               float(CT.spot_rms_from_moments(*b)),
+                               rtol=1e-10 if f64 else 1e-4)
+    assert pg.shape == pref.shape == (tab.nsurfaces, CG.SLOTS + CT.ANAM)
+    gtol = 1e-9 if f64 else 1e-3
+    for col in range(pg.shape[1]):
+        assert torch.isfinite(pg[:, col]).all()
+        if float(pref[:, col].abs().max()):
+            assert _max_rel(pg[:, col], pref[:, col]) <= gtol, col
+    if f64:
+        scale = max(float(r.abs().max()) for r in sref)
+        for g, r in zip(cst, sref):
+            assert float((g - r).abs().max()) <= 1e-9*scale

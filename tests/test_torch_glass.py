@@ -295,9 +295,13 @@ def test_trace_rays_final_multi_matches_jax():
         for g, w in zip(got, want):
             assert np.isfinite(g.numpy()).all()
             _close(g, w, rtol=1e-12, atol=1e-12)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TG.trace_rays_final_multi(tt, torch.from_numpy(y),
-                                  torch.from_numpy(u), biconic=True)
+    # biconic=True: the generic walk's anamorphic step, as the reference's
+    want = JG.trace_rays_final_multi(jt, y, u, biconic=True)
+    got = TG.trace_rays_final_multi(tt, torch.from_numpy(y),
+                                    torch.from_numpy(u), biconic=True)
+    for g, w in zip(got, want):
+        assert np.isfinite(g.numpy()).all()
+        _close(g, w, rtol=1e-12, atol=1e-12)
 
 
 # -- K3, K6: the plain versions against the Pallas kernels ----------------

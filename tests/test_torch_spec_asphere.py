@@ -417,22 +417,32 @@ EXTENDED = {"biconic": dict(curvature_dx=[0., 1e-3]),
             "freeform": dict(xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]])}
 
 
+ANAMORPHIC = ("biconic", "cylinder", "toroid")
+
+
 @pytest.mark.parametrize("name", sorted(EXTENDED))
 def test_extended_rows_still_raise_everywhere(name):
-    """Biconic, toroid, cylinder, grating, DOE and freeform rows raise
-    NotImplementedError naming item 9 in every key, the specialized and
-    the generic plain step, the plain engines and the df32 plan."""
+    """Grating, DOE and freeform rows raise NotImplementedError naming
+    item 9 in every key, the specialized and the generic plain step, the
+    plain engines and the df32 plan.  Biconic, toroid and cylinder rows
+    are traced now (tests/test_torch_anamorphic.py): the K1, K2, K4 and
+    K5 keys take them, K3 and K6-K9 and the df32 plan still raise."""
     kw = dict(curvature=[0., 1/40.], mu=[1., 1/1.5])
     kw.update(EXTENDED[name])
     tt = TT.table_from_numpy(JT.make_table(**kw))
     specs = TK.specialize(tt)
     assert TK.specs_from_tuple(JK.specialize(JT.make_table(**kw))) == specs
     state = tuple(_t(c) for c in np.zeros((6, 4)) + np.array([[0.]]*5 + [[1.]]))
-    for make in (CS.trace_key, CS.merit_key, CS.moments_key,
-                 CS.adjoint_key, CS.adjoint_multi_key,
-                 lambda sp, dt: CS.trace_multi_key(sp, dt, 2),
-                 lambda sp, dt: CS.trace_multi_key(sp, dt, 2, merit=True),
-                 lambda sp, dt: CS.moments_multi_key(sp, dt, False, 2)):
+    taken = (CS.trace_key, CS.merit_key, CS.moments_key, CS.adjoint_key)
+    refused = (CS.adjoint_multi_key,
+               lambda sp, dt: CS.trace_multi_key(sp, dt, 2),
+               lambda sp, dt: CS.trace_multi_key(sp, dt, 2, merit=True),
+               lambda sp, dt: CS.moments_multi_key(sp, dt, False, 2))
+    if name in ANAMORPHIC:
+        for make in taken:
+            assert make(specs, F64).anam == CT.ANAM
+        taken = ()
+    for make in taken + refused:
         with pytest.raises(NotImplementedError, match="item 9"):
             make(specs, F64)
     # the OPD keys on the row and an image row behind it
@@ -441,6 +451,13 @@ def test_extended_rows_still_raise_everywhere(name):
     for make in (CS.opd_key, CS.opd_adjoint_key):
         with pytest.raises(NotImplementedError, match="item 9"):
             make(specs3, F64)
+    if name in ANAMORPHIC:
+        out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
+        assert all(torch.isfinite(c).all() for c in out)
+        assert torch.isfinite(CT.trace_final(tt, specs, state)[0][0]).all()
+        with pytest.raises(NotImplementedError, match="item 9"):
+            TD.plan(tt)
+        return
     with pytest.raises(NotImplementedError, match="item 9"):
         TK.surface_step_spec(state, tt.row(1), specs[1], False)
     with pytest.raises(NotImplementedError, match="item 9"):
