@@ -2589,11 +2589,11 @@ def spherical_twin(table):
 def anamorphic_keys():
     """{tag: key} of the anamorphic keys this script runs: on each
     anamorphic lens, in both dtypes, clip off and on, K1, K2, K4 and K5
-    (every field, with the ray cotangents); on the pair the designer
-    loop's K5 (ANAM_SELECT, no ray cotangents); in float64 the
-    finite-difference checks' K5 (one field each); the spherical twins'
-    keys of the pair
-    and the biconic, unclipped, for the timings."""
+    (every field, with the ray cotangents); on the pair and the biconic
+    the designer loop's K5 (ANAM_SELECT, no ray cotangents: the pair's
+    loop, both lenses' timings) and their spherical twins' keys,
+    unclipped, for the timings; in float64 the finite-difference
+    checks' K5 (one field each)."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.kernels import specialize
     keys = {}
@@ -2609,11 +2609,12 @@ def anamorphic_keys():
                 keys["K4 " + sfx] = CS.moments_key(specs, dtype, clip)
                 keys["K5 %s all rays=True" % sfx] = CS.adjoint_key(
                     specs, dtype, clip)
-            if tag == "anamorphic":
-                keys["K5 %s anamorphic designer rays=False" % dt] = \
+            if tag != "toroid":
+                # the designer loop's slot set (the pair's loop; both
+                # lenses' timings)
+                keys["K5 %s %s designer rays=False" % (dt, tag)] = \
                     CS.adjoint_key(specs, dtype, fields=ANAM_SELECT,
                                    rays=False)
-            if tag != "toroid":
                 tsfx = "%s %s twin" % (dt, tag)
                 keys["K1 " + tsfx] = CS.trace_key(twin, dtype)
                 keys["K2 " + tsfx] = CS.merit_key(twin, dtype)
