@@ -2504,6 +2504,8 @@ def phase_asphere_path(opt_step, glass_step, design_step):
 # -- the anamorphic rows: K1, K2, K4 and K5 on anamorphic keys ---------------
 
 ANAM_SELECT = ("curvature", "curvature_dx")   # the anamorphic designer loop
+# the lenses whose keys are timed: the cylinders' closed form, the Newton
+ANAM_TIMED = ("anamorphic pair", "split-conic biconic")
 N_ANAM = 1 << 16      # aimed rays a field of the CPU cross-check
 ANAM_HALF = 4.        # the bench bundle's half width: the pupil radius
 ANAM_FD_STEP = {"curvature_dx": 1e-8, "conic_dx": 1e-6}
@@ -2592,7 +2594,8 @@ def anamorphic_keys():
     (every field, with the ray cotangents); on the pair and the biconic
     the designer loop's K5 (ANAM_SELECT, no ray cotangents: the pair's
     loop, both lenses' timings) and their spherical twins' keys,
-    unclipped, for the timings; in float64 the finite-difference
+    unclipped (K5 for OPT_FIELDS as the loop's), for the timings; in
+    float64 the finite-difference
     checks' K5 (one field each)."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.kernels import specialize
@@ -2622,7 +2625,7 @@ def anamorphic_keys():
                 keys["K5 %s all rays=True" % tsfx] = CS.adjoint_key(twin,
                                                                     dtype)
                 keys["K5 %s designer rays=False" % tsfx] = CS.adjoint_key(
-                    twin, dtype, fields=("curvature",), rays=False)
+                    twin, dtype, fields=OPT_FIELDS, rays=False)
         for lens, field, _ in ANAM_FD_PICKS:
             if lens == name:
                 keys["K5 float64 %s fd %s rays=False" % (tag, field)] = \
@@ -2721,9 +2724,9 @@ def phase_anamorphic_path():
     pupils at fields 0, 0.7 and 1 of its 0.5 degree field, System.pupils
     on the card against the host pupil at tol AIM_HOST_TOL (the pair's
     pupil aimed, so that the card solves it), N_AIMED rays a field aimed
-    by the host through float64 and float32 K1 and K2, and float64 K1's
-    spot RMS on the first N_ANAM of them against the CPU float64 plain
-    trace (PARITY_REL, equal NaN masks); then the designer loop over
+    by the host through float64 and float32 K1 and K2, and the spot RMS
+    of float64 K1's output on the first N_ANAM of them against the CPU
+    float64 plain trace (PARITY_REL, equal NaN masks); then the designer loop over
     ANAM_SELECT (designer_loop; its step 0 against the CPU at N_ANAM
     nrays a bundle on both devices).  Returns the path's launches (the
     forward part's, counted from the caller's reset, and the loop's)
@@ -2787,18 +2790,17 @@ def phase_anamorphic_path():
         rms_k1_32, _ = spot_rms(y32, u32)
         rms_k2_32 = float(spot_rms_from_moments(*trace_merit(
             table, specs, tuple(c.float() for c in state64))))
-        # the CPU cross-check on the first N_ANAM rays
-        ys, us = yc[:N_ANAM], uc[:N_ANAM]
-        ys64, us64, _ = trace_rays_final_fast(table, ys, us, specs=specs,
-                                              precision="parity")
-        rms_sub, live_sub = spot_rms(ys64, us64)
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
+        # the CPU cross-check on the first N_ANAM rays of float64 K1's
+        # own output
+        rms_sub, live_sub = spot_rms(y64[:N_ANAM], u64[:N_ANAM])
         t0 = time.perf_counter()
-        yh, uh, _ = trace_rays_final_fast(table_cpu, ys.cpu(), us.cpu())
+        yh, uh, _ = trace_rays_final_fast(table_cpu, yc[:N_ANAM].cpu(),
+                                          uc[:N_ANAM].cpu())
         rms_cpu, live_cpu = spot_rms(yh, uh)
         t_cpu = time.perf_counter() - t0
-        masks = int((torch.isnan(ys64[:, 0].cpu())
+        masks = int((torch.isnan(y64[:N_ANAM, 0].cpu())
                      != torch.isnan(yh[:, 0])).sum())
         rel1 = abs(rms_sub - rms_cpu)/rms_cpu
         ok = (np.isfinite(rms_k1) and np.isfinite(rms_k2) and masks == 0
@@ -2828,60 +2830,25 @@ def phase_anamorphic_path():
 
 
 def phase_anamorphic_throughput(card):
-    """K1, K2, K4 and K5 (every field with the ray cotangents, and the
-    designer loop's K5) on the pair's and the split-conic biconic's keys
-    at N_GRAD_TIME bench rays in float32 and float64, against their
-    plain versions and each lens's spherical twin (spherical_twin: the
-    same rows made spherical of the same vertex curvature), in turns.
-    times[(lens, name, dtype)] = (kernel, plain, twin) ms."""
-    from rayopt_tpu_torch.ops.cuda_grad import (
-        merit_adjoint, merit_adjoint_reference, weighted_moments,
-        weighted_moments_reference)
-    from rayopt_tpu_torch.ops.cuda_trace import (
-        trace_final, trace_final_reference, trace_merit,
-        trace_merit_reference)
+    """K1, K2, K4 and K5 on the pair's and the split-conic biconic's keys
+    (ANAM_TIMED): phase_throughput and phase_grad_throughput on the
+    anamorphic bench bundle, beside each lens's spherical twin
+    (spherical_twin: the same rows made spherical of the same vertex
+    curvature), with K5 for ANAM_SELECT as the loop's key and float32
+    at N_BENCH rays, where the kernel outweighs the wrapper.
+    times[lens] = those phases' times."""
     from rayopt_tpu_torch.ops.kernels import specialize
-    log("== anamorphic throughput: %d bench rays (+-%g mm), each key "
-        "against its plain version and its spherical twin (%s)"
-        % (N_GRAD_TIME, ANAM_HALF, card))
-    times = {}
     cases = anamorphic_cases()
-    for lens in ("anamorphic pair", "split-conic biconic"):
+    times = {}
+    for lens in ANAM_TIMED:
         _, table, specs = cases[lens]
         ttab = spherical_twin(table)
-        tspecs = specialize(ttab)
-        for dtype in (torch.float32, torch.float64):
-            state = anam_bundle(N_GRAD_TIME, dtype, SEED + 1)
-            w = bench_weights(N_GRAD_TIME, dtype, SEED + 3)
-
-            def pairs(tab, sp, loop):
-                ct = rms_cotangent(weighted_moments(tab, sp, state, w))
-                return (
-                    ("trace_final", lambda: trace_final(tab, sp, state),
-                     lambda: trace_final_reference(tab, sp, state)),
-                    ("trace_merit", lambda: trace_merit(tab, sp, state),
-                     lambda: trace_merit_reference(tab, sp, state)),
-                    ("weighted_moments",
-                     lambda: weighted_moments(tab, sp, state, w),
-                     lambda: weighted_moments_reference(tab, sp, state, w)),
-                    ("merit_adjoint",
-                     lambda: merit_adjoint(tab, sp, state, w, ct),
-                     lambda: merit_adjoint_reference(tab, sp, state, w, ct)),
-                    ("merit_adjoint_optimizer",
-                     lambda: merit_adjoint(tab, sp, state, w, ct, rays=False,
-                                           fields=loop), None))
-            twins = pairs(ttab, tspecs, ("curvature",))
-            for case, (name, kernel, plain) in enumerate(
-                    pairs(table, specs, ANAM_SELECT)):
-                (k, p, sp_), (k1, k2, p1, p2, s1, s2) = in_turns(
-                    kernel, plain, twins[case][1])
-                times[(lens, name, dtype)] = (k, p, sp_)
-                log("%s %s %s: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
-                    "(%.4f, %.4f)%s | %s"
-                    % (lens, name, str(dtype)[6:], k, k1, k2, p, p1, p2,
-                       twin_note(k, sp_, s1, s2, "spherical twin"), card))
-            del state, w
-            torch.cuda.empty_cache()
+        twin = (ttab, specialize(ttab))
+        kw = dict(lens=lens, bundle=anam_bundle, twin_name="spherical twin")
+        times[lens] = phase_throughput(table, specs, card, N_GRAD_TIME, twin,
+                                       N_BENCH, **kw)
+        times[lens].update(phase_grad_throughput(table, specs, card, twin,
+                                                 ANAM_SELECT, **kw))
     return times
 
 
@@ -3236,9 +3203,10 @@ def phase_df32_path(s, aimed):
     the optical path and K12; System.tables -> table_at -> one plan a
     wavelength -> K11 (with the path) and K13.  Each spot RMS is held
     against the CPU float64 plain trace, K10's image positions against
-    float64 K1 on the card; at the other wavelengths K11 and K13 are held
-    on the first N_DF32_REF rays of each bundle (K13 launched on them
-    once more), whose CPU traces cost a quarter of the full bundle's."""
+    float64 K1 on the card; at the other wavelengths K11 is held on the
+    first N_DF32_REF rays of each bundle, whose CPU traces cost a quarter
+    of the full bundle's, and K13's moments of the whole bundle against
+    the spot RMS of K11's whole output from the same call."""
     from rayopt_tpu_torch.ops import cuda_df32 as CD
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
@@ -3297,9 +3265,6 @@ def phase_df32_path(s, aimed):
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         sub = slice(0, N_DF32_REF)
-        moms_sub = CD.trace_merit_multi_df32(
-            lam_plans, D.state_from_f64(a["y"][sub].contiguous(),
-                                        a["u"][sub].contiguous()))
         t0 = time.perf_counter()
         ycpu, ucpu = a["y"][sub].cpu(), a["u"][sub].cpu()
         yh, uh, _ = trace_rays_final_multi(
@@ -3310,28 +3275,34 @@ def phase_df32_path(s, aimed):
         t_cpu = time.perf_counter() - t0
         del yh, uh
         for li, ((fin, path), mom) in enumerate(zip(outs, moms)):
-            # the first wavelength on the whole bundle, the others on the
-            # first N_DF32_REF rays
-            rays = slice(None) if li == 0 else sub
-            xy = torch.stack([D.to_f64(fin[0])[rays], D.to_f64(fin[1])[rays]],
-                             1)
-            rms11, live = spot_rms(xy, D.to_f64(fin[5])[rays][:, None]
-                                   .expand(-1, 3))
-            rms13 = float(spot_rms_from_moments(*(mom if li == 0
-                                                  else moms_sub[li])))
-            rel11 = abs(rms11 - ref[li])/ref[li]
-            rel13 = abs(rms13 - ref[li])/ref[li]
+            xy = torch.stack([D.to_f64(fin[0]), D.to_f64(fin[1])], 1)
+            uz = D.to_f64(fin[5])[:, None].expand(-1, 3)
+            rms11, live = spot_rms(xy, uz)
+            rms13 = float(spot_rms_from_moments(*mom))
+            # the first wavelength against the CPU on the whole bundle;
+            # the others K11 against it on the first N_DF32_REF rays and
+            # K13 against K11's whole output
+            if li == 0:
+                rms_ref, rms13_ref = rms11, ref[0]
+            else:
+                rms_ref, rms13_ref = spot_rms(xy[sub], uz[sub])[0], rms11
+            rel11 = abs(rms_ref - ref[li])/ref[li]
+            rel13 = abs(rms13 - rms13_ref)/rms13_ref
             ok = rel11 <= PARITY_REL and (field != 0. or rel13 <= PARITY_REL)
             log("field %.1f wavelength %d: %d of %d rays live | spot RMS "
-                "mm: CPU f64 %.15g | K11 %.15g (rel %.3e) | K13 %.15g (rel "
-                "%.3e) -> %s" % (field, li, live, xy.shape[0], ref[li], rms11,
-                                 rel11, rms13, rel13, "ok" if ok else "FAIL"))
+                "mm: K11 %.15g | K13 %.15g (rel %.3e vs %s) | %s: CPU f64 "
+                "%.15g, K11 %.15g (rel %.3e) -> %s"
+                % (field, li, live, xy.shape[0], rms11, rms13, rel13,
+                   "the CPU" if li == 0 else "K11",
+                   "all rays" if li == 0 else "the first %d rays"
+                   % N_DF32_REF, ref[li], rms_ref, rel11,
+                   "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("field %.1f wavelength %d" % (field, li))
         log("field %.1f: K11 + K13 card %.3f s, CPU f64 trace of %d "
             "wavelengths at %d rays %.2f s" % (field, t_gpu, nlam - 1,
                                                N_DF32_REF, t_cpu))
-        del outs, moms, moms_sub, state
+        del outs, moms, state
     if failures:
         raise AssertionError("df32 path parity failed at " +
                              ", ".join(failures))
@@ -3401,11 +3372,14 @@ def peak_gib(fn):
     return torch.cuda.max_memory_allocated()/2**30
 
 
-def phase_throughput(table, specs, card, n=N_BENCH, twin=None, big=None):
-    """K1 and K2 against their plain versions at n bench rays in float32
-    and float64, in turns (plain, kernel, kernel, plain).  With `twin`
-    (another lens's (table, specs): the double Gauss beside the aspheric
-    one) its keys on the same bundle after each kernel run; with `big`,
+def phase_throughput(table, specs, card, n=N_BENCH, twin=None, big=None,
+                     lens="double Gauss", bundle=bench_bundle,
+                     twin_name="double Gauss"):
+    """K1 and K2 against their plain versions at n rays of `bundle` in
+    float32 and float64, in turns (plain, kernel, kernel, plain).  With
+    `twin` (another lens's (table, specs), named `twin_name`: the double
+    Gauss beside the aspheric one, an anamorphic lens's spherical twin)
+    its keys on the same bundle after each kernel run; with `big`,
     float32 kernels (and twins) alone at big rays.  times[(name, dtype)]
     = (kernel, plain) ms, times[(name, big)] the kernel's, and the twin's
     under the key + ("twin",)."""
@@ -3413,9 +3387,9 @@ def phase_throughput(table, specs, card, n=N_BENCH, twin=None, big=None):
         trace_final, trace_final_reference, trace_merit,
         trace_merit_reference)
     nsurf = table.curvature.shape[0] - 1
-    log("== throughput: %d bench rays, %d traced surfaces%s (%s)"
-        % (n, nsurf, ", against the double Gauss's keys" if twin else "",
-           card))
+    log("== throughput (%s): %d rays, %d traced surfaces%s (%s)"
+        % (lens, n, nsurf, ", against the %s's keys" % twin_name if twin
+           else "", card))
     times = {}
 
     def pairs(state, tab, sp):
@@ -3427,7 +3401,7 @@ def phase_throughput(table, specs, card, n=N_BENCH, twin=None, big=None):
              lambda: trace_merit(tab, sp, state),
              lambda: trace_merit_reference(tab, sp, state)))
     for dtype in (torch.float32, torch.float64):
-        state = bench_bundle(n, dtype, SEED + 1)
+        state = bundle(n, dtype, SEED + 1)
         twins = pairs(state, *twin) if twin else ()
         for case, (name, kernel, plain) in enumerate(pairs(state, table,
                                                            specs)):
@@ -3442,11 +3416,11 @@ def phase_throughput(table, specs, card, n=N_BENCH, twin=None, big=None):
                 "intersections/s | peak memory %.3f vs %.3f GiB%s | %s"
                 % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k,
                    n*nsurf/(k*1e-3), n*nsurf/(p*1e-3), mem_k, mem_p,
-                   twin_note(k, sp_, s1, s2), card))
+                   twin_note(k, sp_, s1, s2, twin_name + " key"), card))
         del state, twins
         torch.cuda.empty_cache()
     if big:
-        state = bench_bundle(big, torch.float32, SEED + 1)
+        state = bundle(big, torch.float32, SEED + 1)
         twins = pairs(state, *twin) if twin else ()
         for case, (name, kernel, _) in enumerate(pairs(state, table,
                                                        specs)):
@@ -3455,31 +3429,33 @@ def phase_throughput(table, specs, card, n=N_BENCH, twin=None, big=None):
                 times[(name, big, "twin")] = sp_ = cuda_ms(twins[case][1],
                                                            10)
             log("%s float32 at %d rays: kernel %.4f ms%s | %s"
-                % (name, big, k, ", double Gauss key %.4f ms (kernel/twin "
-                   "%.3fx)" % (sp_, k/sp_) if twin else "", card))
+                % (name, big, k, ", %s key %.4f ms (kernel/twin %.3fx)"
+                   % (twin_name, sp_, k/sp_) if twin else "", card))
         del state, twins
         torch.cuda.empty_cache()
     return times
 
 
 def phase_grad_throughput(table, specs, card, twin=None,
-                          loop_fields=OPT_FIELDS):
+                          loop_fields=OPT_FIELDS, lens="double Gauss",
+                          bundle=bench_bundle, twin_name="double Gauss"):
     """K4 and K5 (all fields, with the ray cotangents: the work of the
     earlier run-time-flag K5) against their plain versions at
-    N_GRAD_TIME rays in float32 and float64, beside K5 for the
-    optimizer's slot set (`loop_fields`) without ray cotangents; then
-    float64 at one optimizer bundle's N_OPT_BUNDLE rays, and float32 at
-    N_BENCH rays, kernels alone.  With `twin`, as phase_throughput: the
-    double Gauss's keys (its optimizer key for the loop's) timed after
-    each kernel at N_GRAD_TIME rays."""
+    N_GRAD_TIME rays of `bundle` in float32 and float64, beside K5 for
+    the optimizer's slot set (`loop_fields`) without ray cotangents;
+    then float64 at one optimizer bundle's N_OPT_BUNDLE rays, and
+    float32 at N_BENCH rays, kernels alone.  With `twin`, as
+    phase_throughput: the twin's keys (its OPT_FIELDS key for the
+    loop's) timed after each kernel at N_GRAD_TIME rays, and alone at
+    N_BENCH rays."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         weighted_moments, weighted_moments_reference, merit_adjoint,
         merit_adjoint_reference)
     nsurf = table.curvature.shape[0] - 1
-    log("== K4/K5 throughput: %d bench rays against the plain versions%s, "
+    log("== K4/K5 throughput (%s): %d rays against the plain versions%s, "
         "then %d rays (float64) and %d rays (float32) kernel alone, %d "
-        "traced surfaces (%s)" % (N_GRAD_TIME, " and the double Gauss's "
-                                  "keys" if twin else "", N_OPT_BUNDLE,
+        "traced surfaces (%s)" % (lens, N_GRAD_TIME, " and the %s's keys"
+                                  % twin_name if twin else "", N_OPT_BUNDLE,
                                   N_BENCH, nsurf, card))
 
     def pairs(state, w, tab=table, sp=specs):
@@ -3497,8 +3473,9 @@ def phase_grad_throughput(table, specs, card, twin=None,
                  fields=loop_fields if tab is table else OPT_FIELDS),
              None))
     times = {}
+    note = twin_name + " key"
     for dtype in (torch.float32, torch.float64):
-        state = bench_bundle(N_GRAD_TIME, dtype, SEED + 1)
+        state = bundle(N_GRAD_TIME, dtype, SEED + 1)
         w = bench_weights(N_GRAD_TIME, dtype, SEED + 3)
         twins = pairs(state, w, *twin) if twin else ()
         for case, (name, kernel, plain) in enumerate(pairs(state, w)):
@@ -3510,8 +3487,8 @@ def phase_grad_throughput(table, specs, card, twin=None,
                 times[(name, dtype)] = k
                 log("merit_adjoint %s, the optimizer's slot set, no ray "
                     "cotangents: kernel %.4f ms (%.4f, %.4f)%s | %s"
-                    % (str(dtype)[6:], k, k1, k2, twin_note(k, sp_, s1, s2),
-                       card))
+                    % (str(dtype)[6:], k, k1, k2,
+                       twin_note(k, sp_, s1, s2, note), card))
                 continue
             mem_k, mem_p = peak_gib(kernel), peak_gib(plain)
             times[(name, dtype)] = (k, p)
@@ -3520,24 +3497,29 @@ def phase_grad_throughput(table, specs, card, twin=None,
                 "peak memory %.3f vs %.3f GiB%s | %s"
                 % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k,
                    N_GRAD_TIME*nsurf/(k*1e-3), mem_k, mem_p,
-                   twin_note(k, sp_, s1, s2), card))
+                   twin_note(k, sp_, s1, s2, note), card))
         del state, w, twins
         torch.cuda.empty_cache()
     for n, dtype in ((N_OPT_BUNDLE, torch.float64),
                      (N_BENCH, torch.float32)):
-        state = bench_bundle(n, dtype, SEED + 1)
+        state = bundle(n, dtype, SEED + 1)
         w = bench_weights(n, dtype, SEED + 3)
-        for name, kernel, _ in pairs(state, w):
+        twins = pairs(state, w, *twin) if twin and n == N_BENCH else ()
+        for case, (name, kernel, _) in enumerate(pairs(state, w)):
             if n == N_BENCH and name == "merit_adjoint_optimizer":
                 continue
             k = cuda_ms(kernel, 20 if n == N_OPT_BUNDLE else 10)
             times[(name, n)] = k
-            log("%s %s at %d rays: kernel %.4f ms, %.4g ray-surfaces/s%s "
-                "| %s" % (name, str(dtype)[6:], n, k, n*nsurf/(k*1e-3),
+            tw = ""
+            if twins:
+                times[(name, n, "twin")] = sp_ = cuda_ms(twins[case][1], 10)
+                tw = ", %s %.4f ms (kernel/twin %.3fx)" % (note, sp_, k/sp_)
+            log("%s %s at %d rays: kernel %.4f ms, %.4g ray-surfaces/s%s%s "
+                "| %s" % (name, str(dtype)[6:], n, k, n*nsurf/(k*1e-3), tw,
                           "" if n == N_OPT_BUNDLE else
                           ", peak memory %.3f GiB | plain: not run "
                           "(memory)" % peak_gib(kernel), card))
-        del state, w
+        del state, w, twins
         torch.cuda.empty_cache()
     return times
 
@@ -4312,15 +4294,23 @@ def anamorphic_entries(sources, launches, worst, times, ptxas, step,
     cylinder pair): the anamorphic path's launches, the float32 errors
     of phase_anamorphic_check, the times of phase_anamorphic_throughput
     (the pair's keys beside their plain versions and spherical twins,
-    the split-conic biconic's -- the Newton -- beside its own), the
+    the split-conic biconic's -- the Newton -- beside its own; at
+    N_GRAD_TIME rays in both dtypes and at N_BENCH in float32), the
     bounds (row_flops: the cylinders as the conic, the biconic's 10
     Newton steps), and the loop keys' registers, stack and spills."""
     from rayopt_tpu_torch.ops.cuda_trace import trace_merit
     cases = anamorphic_cases()
+    # live rays of the timing bundles (K5's reverse runs for these only)
+    live = {(lens, n, dtype): float(trace_merit(
+        cases[lens][1], cases[lens][2], anam_bundle(n, dtype, SEED + 1))[0])
+        for lens in ANAM_TIMED for n, dtype in (
+            (N_GRAD_TIME, torch.float32), (N_GRAD_TIME, torch.float64),
+            (N_BENCH, torch.float32))}
     loop = {"trace_final": "K1 %s anamorphic clip=False",
             "trace_merit": "K2 %s anamorphic clip=False",
             "weighted_moments": "K4 %s anamorphic clip=False",
             "merit_adjoint": "K5 %s anamorphic designer rays=False"}
+    big = "_f32_%d_rays" % N_BENCH
     out = []
     for kname, tag in loop.items():
         source, replaces = sources[kname]
@@ -4328,29 +4318,34 @@ def anamorphic_entries(sources, launches, worst, times, ptxas, step,
                  "source": source, "replaces": replaces,
                  "launches": launches[kname], "max_abs_err": worst[kname],
                  "library_ms": None, "rays": N_GRAD_TIME, "wavelengths": 1}
-        for lens, pre in (("anamorphic pair", ""),
-                          ("split-conic biconic", "biconic_")):
-            _, table, specs = cases[lens]
+        for lens, pre in zip(ANAM_TIMED, ("", "biconic_")):
+            specs, tt = cases[lens][2], times[lens]
+
+            def bound(n, dtype, name=kname, sp=specs, ln=lens):
+                return kernel_bound(name, n, dtype, sp, 1,
+                                    live[(ln, n, dtype)])
             for dtype, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
-                live = float(trace_merit(table, specs, anam_bundle(
-                    N_GRAD_TIME, dtype, SEED + 1))[0])
-                k, p, tw = times[(lens, kname, dtype)]
-                b, by = kernel_bound(kname, N_GRAD_TIME, dtype, specs, 1,
-                                     live)
+                k, p = tt[(kname, dtype)]
+                b, by = bound(N_GRAD_TIME, dtype)
                 entry.update({pre + "ms" + sfx: k, pre + "plain_ms" + sfx: p,
-                              pre + "ms_spherical_key" + sfx: tw,
+                              pre + "ms_spherical_key" + sfx:
+                                  tt[(kname, dtype, "twin")],
                               pre + "bound_ms" + sfx: b})
                 if not pre and not sfx:
                     entry["bound_by"] = by
                 if kname == "merit_adjoint":
                     opt = "merit_adjoint_optimizer"
                     entry.update({
-                        pre + "ms_designer" + sfx:
-                            times[(lens, opt, dtype)][0],
+                        pre + "ms_designer" + sfx: tt[(opt, dtype)],
                         pre + "ms_spherical_designer_key" + sfx:
-                            times[(lens, opt, dtype)][2],
-                        pre + "bound_ms_designer" + sfx: kernel_bound(
-                            opt, N_GRAD_TIME, dtype, specs, 1, live)[0]})
+                            tt[(opt, dtype, "twin")],
+                        pre + "bound_ms_designer" + sfx:
+                            bound(N_GRAD_TIME, dtype, opt)[0]})
+            entry.update({pre + "ms" + big: tt[(kname, N_BENCH)],
+                          pre + "ms_spherical_key" + big:
+                              tt[(kname, N_BENCH, "twin")],
+                          pre + "bound_ms" + big:
+                              bound(N_BENCH, torch.float32)[0]})
         for dt in ("float32", "float64"):
             regs, stack, spill = ptxas[tag % dt]
             sfx = "" if dt == "float64" else "_f32"
@@ -4453,9 +4448,10 @@ def main():
     dtimes, dlive = phase_df32_throughput(s, card)
     _, atab, aspecs, _ = asphere_cases()["aspheric double Gauss"]
     atimes = phase_throughput(atab, aspecs, card, N_GRAD_TIME,
-                              (table, specs), N_BENCH)
+                              (table, specs), N_BENCH,
+                              "aspheric double Gauss")
     atimes.update(phase_grad_throughput(atab, aspecs, card, (table, specs),
-                                        ASPH_SELECT))
+                                        ASPH_SELECT, "aspheric double Gauss"))
     as_, _, _, _ = asphere_cases()["aspheric double Gauss"]
     atabs, amspecs = asphere_stack("aspheric double Gauss", as_, atab)
     amtimes, amlive = phase_multi_throughput(atabs, amspecs, card,

@@ -29,8 +29,9 @@ namespace {
 #ifndef RAYOPT_N_ODD
 #define RAYOPT_N_ODD 0
 #endif
-// An anamorphic key's words a row after the coefficients (curvature_dx,
-// conic_dx: cuda_trace.anamorphic_words), else 0
+// The words a row carries after the coefficients where some row of the
+// key is anamorphic (curvature_dx, conic_dx: cuda_trace.
+// carries_anamorphic), else 0
 #ifndef RAYOPT_N_ANAM
 #define RAYOPT_N_ANAM 0
 #endif

@@ -97,8 +97,9 @@ import torch
 from . import cuda_spec as CS
 from . import kernels as K
 from .cuda_spec import launch_moments, packed, spec_launch
-from .cuda_trace import (_check_state, anamorphic_words, figure_widths,
-                         spot_rms_from_moments, trace_final_reference)
+from .cuda_trace import (ANAM, _check_state, carries_anamorphic,
+                         figure_widths, spot_rms_from_moments,
+                         trace_final_reference)
 from .tables import lower_pose, table_at
 
 SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
@@ -157,15 +158,15 @@ def _constant_table(table, like):
                          for f in _folded(table)))
 
 
-def _param_rows(tab, anam=0):
-    """(S, SLOTS + na + no + anam) view of the differentiated fields of
-    a table: c, k, offset x, y, z, mu, then its aspheric coefficients,
-    then (anam, cuda_trace.anamorphic_words) curvature_dx and
-    conic_dx."""
+def _param_rows(tab, anamorphic=False):
+    """(S, SLOTS + na + no [+ ANAM]) view of the differentiated fields
+    of a table: c, k, offset x, y, z, mu, then its aspheric
+    coefficients, then (anamorphic, cuda_trace.carries_anamorphic)
+    curvature_dx and conic_dx."""
     cols = [torch.stack([tab.curvature, tab.conic, tab.offset[:, 0],
                          tab.offset[:, 1], tab.offset[:, 2], tab.mu], 1),
             tab.aspherics, tab.aspherics_odd]
-    if anam:
+    if anamorphic:
         cols.append(torch.stack([tab.curvature_dx, tab.conic_dx], 1))
     return torch.cat(cols, 1)
 
@@ -176,24 +177,32 @@ def _table_widths(table):
             int(table.aspherics_odd.shape[-1]))
 
 
+def _nslots(table, specs):
+    """K5's and K7's cotangent columns a row for a table and its specs:
+    SLOTS, the table's aspheric coefficients, and ANAM where a row is
+    anamorphic (cuda_trace.carries_anamorphic)."""
+    return SLOTS + sum(_table_widths(table)) \
+        + (ANAM if carries_anamorphic(specs) else 0)
+
+
 def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     """Plain PyTorch version of K5: torch autograd through the plain
     trace.  A no-grad pre-trace finds the live rays; each dead ray is
     traced as the first live one (so no NaN enters autograd) at zero
-    weight.  Returns (parameter cotangents (S, SLOTS + na + no + anam)
-    in the order c, k, offset x, y, z, mu, then the table's na even and
-    no odd aspheric coefficients, then for anamorphic specs
-    (cuda_trace.anamorphic_words) curvature_dx and conic_dx; the six
+    weight.  Returns (parameter cotangents (S, _nslots) in the order
+    c, k, offset x, y, z, mu, then the table's na even and no odd
+    aspheric coefficients, then for anamorphic specs
+    (cuda_trace.carries_anamorphic) curvature_dx and conic_dx; the six
     state cotangents; the weight cotangent), all in the state's
     dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
-    anam = anamorphic_words(specs)
+    anam = carries_anamorphic(specs)
     with torch.no_grad():
         out, _ = trace_final_reference(tab, specs, state, clip)
         alive = _live(out)
-    pg = torch.zeros((tab.nsurfaces, SLOTS + sum(_table_widths(tab)) + anam),
-                     dtype=x0.dtype, device=x0.device)
+    pg = torch.zeros((tab.nsurfaces, _nslots(tab, specs)), dtype=x0.dtype,
+                     device=x0.device)
     if not bool(alive.any()):
         return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
             torch.zeros_like(x0)
@@ -1042,9 +1051,7 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     g3 = (K.rot_apply_t(rl, ctx, cty, zero)
           if specs[nsurf - 1].rotated else (ctx, cty, zero))
     g = tuple(torch.where(live, v, 0.) for v in (*g3, zero, zero, zero))
-    na = sum(_table_widths(tab))
-    anam = anamorphic_words(specs)
-    pg = torch.zeros((nsurf, SLOTS + na + anam), dtype=x0.dtype,
+    pg = torch.zeros((nsurf, _nslots(tab, specs)), dtype=x0.dtype,
                      device=x0.device)
     for j in range(nsurf - 1, 0, -1):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g)
@@ -1053,7 +1060,7 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
         if K.is_anamorphic_spec(specs[j]):
             # an anamorphic row's curvature_dx and conic_dx: the last two
             pg[j, :SLOTS] = sums[:SLOTS]
-            pg[j, SLOTS + na:] = sums[SLOTS:]
+            pg[j, -ANAM:] = sums[SLOTS:]
         else:
             # a row with no figure has no aspheric slots (zeros)
             pg[j, :len(pj)] = sums
@@ -1214,10 +1221,10 @@ weighted_moments.launches = 0
 
 def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                   rays=True):
-    """K5: (parameter cotangents (S, SLOTS + na + no + anam): c, k,
+    """K5: (parameter cotangents (S, _nslots): c, k,
     offset x, y, z, mu, then the table's na even and no odd aspheric
-    coefficients, then for anamorphic specs (anam, cuda_trace.
-    anamorphic_words) curvature_dx and conic_dx; the six state
+    coefficients, then for anamorphic specs (cuda_trace.
+    carries_anamorphic) curvature_dx and conic_dx; the six state
     cotangents; the weight cotangent) of
     the weighted moments dotted with `ct`, a (5,) tensor of moment
     cotangents on the rays' device.  `fields`: the table fields whose
@@ -1235,8 +1242,7 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
     na, no = _table_widths(table)
-    anam = anamorphic_words(specs)
-    nq = SLOTS + na + no + anam
+    nq = _nslots(table, specs)
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_reference(table, specs, state, w, ct,
                                              clip)
@@ -1348,7 +1354,7 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
         pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
                                                    ct, clip)
         live = CS.live_mask(CS.live_slots(specs, fields, (na, no)),
-                            SLOTS + na + no + anamorphic_words(specs))
+                            _nslots(tables, specs))
         pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
@@ -1609,7 +1615,7 @@ def _moments(table, specs, state, w, clip, multi):
     # the anamorphic x figure, where a row reads it
     anam = {f: getattr(table, f) for f in ("curvature_dx", "conic_dx")
             if getattr(table, f) is not None}
-    if anamorphic_words(specs):
+    if carries_anamorphic(specs):
         params.update(anam)
     _warn_baked_params(specs, params)
     x = state[0]

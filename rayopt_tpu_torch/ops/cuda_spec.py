@@ -30,8 +30,8 @@ before the headers, so that a packed row grows by na + no words and the
 Newton's Horner loops have compile-time bounds.  The K1, K2, K4 and K5
 keys take the anamorphic rows (conic cylinders, biconics, toroids; not
 with an aspheric figure): such a key's rows grow by curvature_dx and
-conic_dx (Key.anam, cuda_trace.anamorphic_words; RAYOPT_N_ANAM), K5's
-slots by their cotangents.  K3 and K6-K9 refuse them, and every key
+conic_dx (Key.anamorphic, cuda_trace.carries_anamorphic; RAYOPT_N_ANAM),
+K5's slots by their cotangents.  K3 and K6-K9 refuse them, and every key
 refuses the grating, DOE and freeform rows (NotImplementedError,
 ROADMAP Queue 1 item 9).  A row word is 64 bits: its flags below
 LIVE_SHIFT, its live slots above.
@@ -76,7 +76,7 @@ import torch
 
 from . import kernels as K
 from .cuda_trace import ANAM, ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, \
-    anamorphic_words, figure_widths, pack_values, sm_count
+    carries_anamorphic, figure_widths, pack_values, sm_count
 
 LIVE_SHIFT = 14    # a row word's live slots: keep in sync with grad_spec.cuh
 LIVE_BITS = 63 - LIVE_SHIFT   # the slots a (64-bit) row word can hold
@@ -210,11 +210,11 @@ def _coefficients(widths):
 def live_slots(specs, fields=FIELDS, widths=(0, 0)):
     """One mask a row of the slots K5 and K7 reduce -- SLOTS bits, then
     with `widths` = (na, no) (the key's, figure_widths) one a
-    coefficient, then for anamorphic specs (anamorphic_words)
+    coefficient, then for anamorphic specs (carries_anamorphic)
     curvature_dx and conic_dx: the `fields` asked for, minus the rows
     the specs bake them out of (the axial offset, slot 4, never is;
     baked_out_rows).  Row 0 has none."""
-    anam = ("curvature_dx", "conic_dx") if anamorphic_words(specs) else ()
+    anam = ("curvature_dx", "conic_dx") if carries_anamorphic(specs) else ()
     return _live_slots(specs, fields, FIELDS,
                        SLOT_FIELDS[:SLOTS] + _coefficients(widths) + anam)
 
@@ -274,9 +274,9 @@ class Key(NamedTuple):
     kernel, K7 included: it stages one table at a time), whether K3's
     trace runs the wavelengths outermost, the even and odd aspheric
     coefficients a row carries (na, no: a figured table's widths; 0 and
-    0 without an aspheric row) and its anamorphic words (anam: ANAM, a
-    row's curvature_dx and conic_dx, when a row is anamorphic, else
-    0)."""
+    0 without an aspheric row) and whether a row is anamorphic
+    (anamorphic: a packed row then carries ANAM words more, its
+    curvature_dx and conic_dx)."""
 
     kernel: str
     dtype: str
@@ -289,7 +289,7 @@ class Key(NamedTuple):
     outer: bool = False
     na: int = 0
     no: int = 0
-    anam: int = 0
+    anamorphic: bool = False
 
     @property
     def name(self):
@@ -301,8 +301,8 @@ class Key(NamedTuple):
             text += " outer"
         if self.na or self.no:
             text += " figure %d %d" % (self.na, self.no)
-        if self.anam:
-            text += " anamorphic %d" % self.anam
+        if self.anamorphic:
+            text += " anamorphic"
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
@@ -314,14 +314,20 @@ class Key(NamedTuple):
     def row_words(self):
         """A packed row's words: ROW, the aspheric coefficients and the
         anamorphic words."""
-        return ROW + self.na + self.no + self.anam
+        return ROW + self.na + self.no + self.anam_words
 
     @property
     def slots(self):
         """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS),
         the coefficients and (K5) the anamorphic words."""
         return (OPD_SLOTS if self.kernel == "k9" else SLOTS) \
-            + self.na + self.no + self.anam
+            + self.na + self.no + self.anam_words
+
+    @property
+    def anam_words(self):
+        """The anamorphic words a row carries: ANAM on an anamorphic
+        key, else 0."""
+        return ANAM if self.anamorphic else 0
 
     @property
     def nlive(self):
@@ -431,7 +437,7 @@ def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
     na, no = _widths(specs, widths)
     return _static(Key("k1", _dtype_name(dtype), words, bool(clip), False,
                        int(block or BLOCK_TRACE), int(min_blocks),
-                       na=na, no=no, anam=anamorphic_words(specs)))
+                       na=na, no=no, anamorphic=carries_anamorphic(specs)))
 
 
 def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
@@ -458,7 +464,7 @@ def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
     na, no = _widths(specs, widths)
     key = Key(kernel, _dtype_name(dtype), words, bool(clip), False,
               int(block or BLOCK_MOMENTS), int(min_blocks), int(nlam),
-              na=na, no=no, anam=anamorphic_words(specs))
+              na=na, no=no, anamorphic=carries_anamorphic(specs))
     return _static(_unrolled(key))
 
 
@@ -543,7 +549,8 @@ def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
     na, no = widths
     key = Key(kernel, _dtype_name(dtype), _words(specs, masks, kernel),
               bool(clip), bool(rays), int(block or BLOCK_ADJOINT),
-              int(min_blocks), na=na, no=no, anam=anamorphic_words(specs))
+              int(min_blocks), na=na, no=no,
+              anamorphic=carries_anamorphic(specs))
     if key.shared_bytes > SMEM_OPTIN:
         raise ValueError(
             "%s keeps %d rows of saved state at %d threads a block in %s: "
@@ -771,8 +778,8 @@ def translation_unit(key):
     # before the headers read them
     figure = ("#define RAYOPT_N_ASP %d\n#define RAYOPT_N_ODD %d\n"
               % (key.na, key.no) if key.na or key.no else "")
-    if key.anam:
-        figure += "#define RAYOPT_N_ANAM %d\n" % key.anam
+    if key.anamorphic:
+        figure += "#define RAYOPT_N_ANAM %d\n" % ANAM
     head = ("// %s, specialized by rayopt_tpu_torch.ops.cuda_spec\n"
             "// key: %r\n%s#include \"grad_spec.cuh\"\n\n"
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"
@@ -889,9 +896,9 @@ def packed(table, specs, x):
     """The table (or a stack of tables) packed in the rays' dtype on
     their device, with one spec a row (a figured table's rows with its
     aspheric coefficients, cuda_trace.figure_widths; an anamorphic
-    table's with curvature_dx and conic_dx, anamorphic_words)."""
+    table's with curvature_dx and conic_dx, carries_anamorphic)."""
     tab = pack_values(table, x.dtype, x.device, figure_widths(table, specs),
-                      anamorphic_words(specs))
+                      carries_anamorphic(specs))
     if tab.shape[-2] != len(specs):
         raise ValueError("%d specs for a table of %d rows"
                          % (len(specs), tab.shape[-2]))

@@ -17,7 +17,7 @@ spherical, conic and even/odd aspheric rows (an aspheric row by the
 seeded Newton intercept, its key carrying the table's coefficient
 widths, `figure_widths`) and the anamorphic rows: conic cylinders in
 closed form, biconics and toroids by the seeded Newton (their key's
-rows carry curvature_dx and conic_dx, `anamorphic_words`).
+rows carry curvature_dx and conic_dx, `carries_anamorphic`).
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
 leading wavelength axis, System.tables) and ONE bundle traced through
@@ -149,11 +149,11 @@ def _anamorphic_flag(spec):
     return F_BICONIC if spec.biconic else 0
 
 
-def anamorphic_words(specs):
-    """The anamorphic words a packed row carries after its coefficients
-    (curvature_dx and conic_dx; K5's slots too): ANAM when some row of
-    `specs` is anamorphic, else 0."""
-    return ANAM if any(K.is_anamorphic_spec(s) for s in specs[1:]) else 0
+def carries_anamorphic(specs):
+    """Whether a packed row carries the ANAM anamorphic words after its
+    coefficients (curvature_dx and conic_dx; K5's slots too): some row
+    of `specs` is anamorphic."""
+    return any(K.is_anamorphic_spec(s) for s in specs[1:])
 
 
 def figure_widths(table, specs):
@@ -166,12 +166,12 @@ def figure_widths(table, specs):
             int(table.aspherics_odd.shape[-1]))
 
 
-def pack_values(table, dtype, device, widths=(0, 0), anam=0):
-    """The lowered table's values as one contiguous (S, ROW + na + no +
-    anam) tensor in `dtype` on `device` -- (L, S, ...) for a stacked
+def pack_values(table, dtype, device, widths=(0, 0), anamorphic=False):
+    """The lowered table's values as one contiguous (S, ROW + na + no
+    [+ ANAM]) tensor in `dtype` on `device` -- (L, S, ...) for a stacked
     table -- with `widths` = (na, no) (figure_widths) the aspheric
     coefficients a row carries after its ROW base words, then with
-    `anam` (anamorphic_words) its curvature_dx and conic_dx."""
+    `anamorphic` (carries_anamorphic) its curvature_dx and conic_dx."""
     table = lower_pose(table)
     na, no = widths
     cols = [table.curvature[..., None], table.conic[..., None], table.offset,
@@ -181,7 +181,7 @@ def pack_values(table, dtype, device, widths=(0, 0), anam=0):
         cols.append(table.aspherics)
     if no:
         cols.append(table.aspherics_odd)
-    if anam:
+    if anamorphic:
         cols += [table.curvature_dx[..., None], table.conic_dx[..., None]]
     # cast first (the kernel traces in `dtype`), then move
     return torch.cat(cols, dim=-1).to(dtype=dtype).to(
@@ -189,8 +189,8 @@ def pack_values(table, dtype, device, widths=(0, 0), anam=0):
 
 
 def pack_table(table, specs, dtype, device):
-    """The lowered table as one contiguous (S, ROW + na + no + anam)
-    tensor in `dtype` on `device` (figure_widths, anamorphic_words) --
+    """The lowered table as one contiguous (S, ROW + na + no [+ ANAM])
+    tensor in `dtype` on `device` (figure_widths, carries_anamorphic) --
     (L, S, ...) for a stacked table, whose tables share the specs --
     plus the (S,) int32 flags that encode each row's SurfaceSpec.  Rows
     that need the grating, DOE or freeform vocabulary raise
@@ -204,7 +204,7 @@ def pack_table(table, specs, dtype, device):
     flags = torch.tensor([_flags(s) for s in specs], dtype=torch.int32,
                          device=device)
     return pack_values(table, dtype, device, figure_widths(table, specs),
-                       anamorphic_words(specs)), flags
+                       carries_anamorphic(specs)), flags
 
 
 @functools.lru_cache(maxsize=None)

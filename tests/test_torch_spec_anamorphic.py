@@ -142,7 +142,7 @@ def test_key_words_rows_and_slots_of_the_pair():
     neither), the unit's RAYOPT_N_ANAM."""
     _, _, tt, specs = _tables("pair")
     key = CS.adjoint_key(specs, F64)
-    assert key.anam == CT.ANAM and key.slots == CS.SLOTS + CT.ANAM
+    assert key.anamorphic and key.slots == CS.SLOTS + CT.ANAM
     assert key.row_words == CT.ROW + CT.ANAM
     flags = [w & ((1 << CS.LIVE_SHIFT) - 1) for w in key.words]
     assert flags[1] & CT.F_CYL_Y and flags[3] & CT.F_CYL_X
@@ -163,11 +163,11 @@ def test_key_words_rows_and_slots_of_the_pair():
     # the forward keys carry the rows, no slots
     for make in (CS.trace_key, CS.merit_key, CS.moments_key):
         k = make(specs, F64)
-        assert k.anam == CT.ANAM and k.nlive == 0
+        assert k.anamorphic and k.nlive == 0
     # a table with no anamorphic row keys as before
     dspecs = TK.specialize(tt.replace(curvature_dx=torch.zeros_like(
         tt.curvature_dx)))
-    assert CS.adjoint_key(dspecs, F64).anam == 0
+    assert not CS.adjoint_key(dspecs, F64).anamorphic
 
 
 def test_biconic_and_toroid_slots():
@@ -204,7 +204,7 @@ def test_refusals_name_item_9():
         _, _, tt, specs = _tables(name)
         for make in (CS.trace_key, CS.merit_key, CS.moments_key,
                      CS.adjoint_key):
-            assert make(specs, F64).anam == CT.ANAM
+            assert make(specs, F64).anamorphic
         for make in (lambda sp: CS.trace_multi_key(sp, F64, 3),
                      lambda sp: CS.trace_multi_key(sp, F64, 3, merit=True),
                      lambda sp: CS.moments_multi_key(sp, F64, False, 3),
