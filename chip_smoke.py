@@ -113,10 +113,11 @@ N_ASPH = 1 << 16     # aimed rays a field on the aspheric forward path
 ASPH_ACHROM_FIELDS = ("curvature", "offset", "mu", "aspherics")
 ASPH_DESIGN_FIELDS = ("curvature", "offset", "aspherics")
 ASPH_DESIGN_SELECT = OPT_SELECT + ("aspherics",)
-#: hexapolar nrays a bundle of the aspheric loops' step-0 cross-check on
-#: both devices (the CPU's plain step takes ~5 s a loop there, ~16x that
-#: at the loops' 2^20)
-N_ASPH_CHECK = 1 << 16
+#: hexapolar nrays a bundle of every loop's step-0 cross-check on both
+#: devices (the CPU's plain step takes ~5 s a loop there, ~16x that at
+#: the loops' 2^20: 15-40 s a double Gauss loop); the timed run's own
+#: step 0 at 2^20 is logged beside it
+N_LOOP_CHECK = 1 << 16
 
 # tolerances (kernel vs plain on the card, live rays)
 F64_REL = 1e-12      # float64: max |a - b| / max(1, max |b|) per output
@@ -240,10 +241,11 @@ def compare_moments(got, want, dtype, n):
 
 
 def phase_check(table, specs, lens="double Gauss", bundle=bench_bundle,
-                clips=(False, True)):
+                clips=(False, True), dtypes=(torch.float32, torch.float64)):
     """K1 and K2 against their plain versions on the card at N_CHECK
     rays of `bundle` (the aspheric lenses: unclipped only), float64 to
-    F64_REL, float32 to its own limits, and float32 K2's spot RMS
+    F64_REL, float32 to its own limits, and, with both `dtypes` (the
+    figured anamorphic lenses: float64 only), float32 K2's spot RMS
     against float64's.  Returns the float32 errors."""
     from rayopt_tpu_torch.ops.cuda_trace import (
         trace_final, trace_final_reference, trace_merit,
@@ -252,7 +254,7 @@ def phase_check(table, specs, lens="double Gauss", bundle=bench_bundle,
     worst = {"trace_final": 0., "trace_merit": 0.}
     rms = {}
     failures = []
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes:
         state = bundle(N_CHECK, dtype, SEED)
         for clip in clips:
             tag = "%s clip=%s" % (str(dtype)[6:], clip)
@@ -283,7 +285,7 @@ def phase_check(table, specs, lens="double Gauss", bundle=bench_bundle,
                                            abs(rg - rw))
             if not ok:
                 failures.append("K2 " + tag)
-    for clip in clips:
+    for clip in clips if len(dtypes) == 2 else ():
         r32, r64 = rms[(torch.float32, clip)], rms[(torch.float64, clip)]
         rel = abs(r32 - r64)/r64
         log("K2 clip=%s: float32 spot RMS %.9g vs float64 %.9g, rel %.3e"
@@ -373,12 +375,14 @@ def compare_ray_grads(got, got_w, want, want_w, agree=None):
 
 
 def phase_grad_check(table, specs, lens="double Gauss", bundle=bench_bundle,
-                     clips=(False, True), fields=GRAD_FIELDS):
+                     clips=(False, True), fields=GRAD_FIELDS,
+                     dtypes=(torch.float32, torch.float64)):
     """K4 and K5 (every field, with the ray cotangents) against their
-    plain versions on the card at N_CHECK rays of `bundle`; K5's
-    parameter cotangents by `fields` (the aspheric lenses: their
-    coefficient columns too, asph_grad_fields).  Returns the float32
-    errors."""
+    plain versions on the card at N_CHECK rays of `bundle` in `dtypes`;
+    K5's parameter cotangents by `fields` (the aspheric lenses: their
+    coefficient columns too, asph_grad_fields; the anamorphic lenses
+    also curvature_dx and conic_dx, anam_grad_fields).  Returns the
+    float32 errors."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         weighted_moments, weighted_moments_reference, merit_adjoint,
         merit_adjoint_reference)
@@ -387,7 +391,7 @@ def phase_grad_check(table, specs, lens="double Gauss", bundle=bench_bundle,
         "[0.5, 1.5])" % (lens, N_CHECK))
     worst = {"weighted_moments": 0., "merit_adjoint": 0.}
     failures = []
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes:
         f64 = dtype == torch.float64
         state = bundle(N_CHECK, dtype, SEED)
         w = bench_weights(N_CHECK, dtype, SEED + 2)
@@ -592,7 +596,12 @@ LOOP_KEYS = ("K1 float32 clip=False",
              "K1 float64 anamorphic clip=False",
              "K2 float64 anamorphic clip=False",
              "K5 float32 anamorphic designer rays=False",
-             "K5 float64 anamorphic designer rays=False")
+             "K5 float64 anamorphic designer rays=False",
+             "K3 float64 anamorphic merit",
+             "K6 float64 anamorphic clip=False",
+             "K7 float64 anamorphic achromatization rays=False",
+             "K5 float64 anamorphic design rays=False",
+             "K9 float64 anamorphic design rays=False")
 
 
 def ptxas_stats(kern):
@@ -1009,11 +1018,12 @@ def phase_device_aiming(s):
 
 def phase_opt_path():
     """The designer loop on the double Gauss, through the entry points a
-    user calls.  Returns (launch counts, mean seconds of the later
+    user calls, its step 0 against the CPU at N_LOOP_CHECK nrays a
+    bundle.  Returns (launch counts, mean seconds of the later
     steps)."""
     from rayopt_tpu_torch.models import double_gauss
     return designer_loop(double_gauss(), "optimizer path: double Gauss",
-                         OPT_SELECT)
+                         OPT_SELECT, check_nrays=N_LOOP_CHECK)
 
 
 def step0_grads(out, ends=None):
@@ -1143,15 +1153,17 @@ def _live_of(out):
 
 def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
                       clips=(False, True), fields=GRAD_FIELDS,
-                      loop=ACHROM_FIELDS):
+                      loop=ACHROM_FIELDS,
+                      dtypes=(torch.float32, torch.float64)):
     """K3, K6 and K7 against their plain versions on the card at N_CHECK
-    rays of `bundle` (the aspheric lenses: unclipped only); K7's
-    parameter cotangents by `fields` (the aspheric lenses: the
-    coefficient columns too) and, unclipped, its loop key for the
-    fields `loop` (None: none).  Returns the float32 errors."""
+    rays of `bundle` in `dtypes` (the aspheric lenses: unclipped only);
+    K7's parameter cotangents by `fields` (the aspheric lenses: the
+    coefficient columns too; the anamorphic ones curvature_dx and
+    conic_dx) and, unclipped, its loop key for the fields `loop` (None:
+    none).  Returns the float32 errors."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
-        weighted_moments_multi, weighted_moments_multi_reference,
+        _nslots, weighted_moments_multi, weighted_moments_multi_reference,
         merit_adjoint_multi, merit_adjoint_multi_reference,
         union_spot_rms_from_moments)
     from rayopt_tpu_torch.ops.cuda_trace import (
@@ -1159,15 +1171,15 @@ def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
         trace_final_reference, trace_multi, trace_multi_reference)
     from rayopt_tpu_torch.ops.tables import table_at
     nlam = tabs.curvature.shape[0]
-    # K7's columns: SLOTS and the table's coefficients
-    nq = CS.SLOTS + tabs.aspherics.shape[-1] + tabs.aspherics_odd.shape[-1]
+    # K7's columns: SLOTS, the table's coefficients, the anamorphic two
+    nq = _nslots(tabs, specs)
     log("== K3/K6/K7 vs plain on the card (%s, %d wavelengths, %d rays, "
         "weights uniform in [0.5, 1.5])" % (lens, nlam, N_CHECK))
     rms = {}     # K3's and K6's spot RMS by (what, dtype)
     worst = {"trace_multi": 0., "weighted_moments_multi": 0.,
              "merit_adjoint_multi": 0.}
     failures = []
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes:
         f64 = dtype == torch.float64
         dt = str(dtype)[6:]
         state = bundle(N_CHECK, dtype, SEED)
@@ -1287,7 +1299,7 @@ def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
                 worst["merit_adjoint_multi"] = max(
                     worst["merit_adjoint_multi"],
                     *(v[0] for f in per_lam for v in f.values()))
-    for what in sorted({k[0] for k in rms}):
+    for what in sorted({k[0] for k in rms}) if len(dtypes) == 2 else ():
         r32, r64 = rms[(what, torch.float32)], rms[(what, torch.float64)]
         rel = abs(r32 - r64)/r64
         log("%s: float32 spot RMS %.9g vs float64 %.9g, rel %.3e"
@@ -1339,12 +1351,14 @@ def phase_glass_fd_check(s, tabs, specs):
         raise AssertionError("K7 disagrees with finite differences of vd")
 
 
-def phase_glass_path(s=None, lens="double Gauss", check_nrays=None):
+def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
+                     slots=6):
     """The achromatization path, through the entry points a user calls:
-    stacked tables, glass relaxation, the polychromatic adjoint merit at
-    three fields and torch.optim.Adam (over curvatures, distances, the
-    glasses and, on an aspheric lens, row ASPH_ROW's coefficients over
-    ASPH_SCALES), with K3 reporting the spots.  Step 0 is held against
+    stacked tables, glass relaxation of the lens's `slots` glasses, the
+    polychromatic adjoint merit at three fields and torch.optim.Adam
+    (over curvatures, distances, the glasses and, on an aspheric lens,
+    row ASPH_ROW's coefficients over ASPH_SCALES, on an anamorphic lens
+    curvature_dx at the curvatures' lr), with K3 reporting the spots.  Step 0 is held against
     the same call on the CPU plain versions (step0_cross_check; with
     check_nrays K3's float64 spot RMS on those bundles against the
     CPU's too).  Returns (the launches of the loop and its K3 reports,
@@ -1353,29 +1367,32 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None):
     from rayopt_tpu_torch.models import double_gauss
     from rayopt_tpu_torch.ops.cuda_grad import union_spot_rms_from_moments
     from rayopt_tpu_torch.ops.cuda_trace import (
-        multi_specs, spot_rms_from_moments, trace_multi,
+        carries_anamorphic, multi_specs, spot_rms_from_moments, trace_multi,
         trace_multi_reference)
     from rayopt_tpu_torch.parallel import bundles_from_system, bundles_to
     s = s or double_gauss()
     tabs = s.tables()            # the default device: the card
     asph = bool(tabs.aspherics.shape[-1])
+    specs = multi_specs(tabs, None)
+    anam = carries_anamorphic(specs)
     log("== achromatization path: %s, System.tables -> glass_assignment -> "
         "glass_tables(glass_box_decode(logits)) -> "
         "glass.polychromatic_spot_rms(engine='adjoint') at fields %s, "
-        "float64, %d Adam steps, lr %s%s" % (
+        "float64, %d Adam steps, lr %s%s%s" % (
             lens, FIELDS, GLASS_STEPS, GLASS_LR,
             ", row %d's aspherics over scales %s at the curvatures' lr"
-            % (ASPH_ROW, ASPH_SCALES["aspherics"]) if asph else ""))
+            % (ASPH_ROW, ASPH_SCALES["aspherics"]) if asph else "",
+            ", curvature_dx at the curvatures' lr" if anam else ""))
     t0 = time.perf_counter()
     nlam = tabs.curvature.shape[0]
-    specs = multi_specs(tabs, None)
     asg = glass.glass_assignment(s)
     nd0, vd0 = glass.initial_glass_params(s, asg[2])
     log("%d wavelengths %s; %d glass slots owned by elements %s: nd %s, "
         "vd %s" % (nlam, s.wavelengths, len(asg[2]), asg[2],
                    np.round(nd0, 6).tolist(), np.round(vd0, 4).tolist()))
-    if len(asg[2]) != 6:
-        raise AssertionError("expected 6 glass slots, got %s" % (asg[2],))
+    if len(asg[2]) != slots:
+        raise AssertionError("expected %d glass slots, got %s"
+                             % (slots, asg[2]))
 
     def aimed(nrays):
         return bundles_from_system(s, fields=FIELDS,
@@ -1405,6 +1422,9 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None):
                "xi_vd": torch.from_numpy(xi_vd0).to(device).clone()}
         if asph:
             out["aspherics"] = (a0[ASPH_ROW]/scales).to(device)
+        if anam:
+            out["curvature_dx"] = tabs.curvature_dx[0].detach().to(
+                device).clone()
         return out
 
     def relaxed(params, tables):
@@ -1419,6 +1439,9 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None):
                                           * scales.to(dev))[None],
                            a[ASPH_ROW + 1:]])
             tb = tb.replace(aspherics=a.expand(nlam, -1, -1))
+        if anam:
+            tb = tb.replace(curvature_dx=params["curvature_dx"].expand(
+                nlam, -1))
         nd, vd = glass.glass_box_decode(params["xi_nd"], params["xi_vd"])
         return glass.glass_tables(tb, nd, vd, asg, s.wavelengths)
 
@@ -1475,6 +1498,9 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None):
                "lr": GLASS_LR["glass"]}]
     if asph:
         groups.append({"params": [params["aspherics"]],
+                       "lr": GLASS_LR["curvature"]})
+    if anam:
+        groups.append({"params": [params["curvature_dx"]],
                        "lr": GLASS_LR["curvature"]})
     opt = torch.optim.Adam(groups)
     hist, grads0, ends = [], None, []
@@ -1588,7 +1614,8 @@ OPD_GRAD_FIELDS = GRAD_FIELDS + (("n_before", slice(6, 7)),)
 
 
 def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
-                    clips=(False, True), fields=None, design=DESIGN_FIELDS):
+                    clips=(False, True), fields=None, design=DESIGN_FIELDS,
+                    dtypes=(torch.float64, torch.float32)):
     """K8 and K9 against their plain versions on the card: K8's k and
     landing; K9's parameter (n_before included; the aspheric lenses:
     the coefficient columns too, `fields`), ray and centre cotangents
@@ -1597,16 +1624,17 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
     the plain version; in float32 K8 against the plain float32 version,
     K9's sums against the float64 plain version on the same inputs (see
     below).  `bundle(n, dtype, seed, widen)`: opd_bundle's (the aspheric
-    lenses: unclipped only).  Returns the float32 errors."""
+    lenses: unclipped only); `dtypes` (the figured anamorphic lenses:
+    float64 only).  Returns the float32 errors."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
-        opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
+        _nslots, opd_adjoint, opd_adjoint_reference, opd_chain,
+        opd_chain_reference)
     from rayopt_tpu_torch.ops.cuda_trace import figure_widths
     bundle = bundle or opd_bundle
     fields = fields or OPD_GRAD_FIELDS
-    # K9's columns: OPD_SLOTS and the table's coefficients
-    nq = (CS.OPD_SLOTS + table.aspherics.shape[-1]
-          + table.aspherics_odd.shape[-1])
+    # K9's columns: OPD_SLOTS, the table's coefficients, the anamorphic two
+    nq = _nslots(table, specs, CS.OPD_SLOTS)
     log("== K8/K9 vs plain on the card (%s, %d rays, ray 0 the chief ray; "
         "reference sphere radius %.6f mm, wavelength %g m)"
         % (lens, N_CHECK, -s.image.pupil.distance, s.wavelengths[0]))
@@ -1615,7 +1643,7 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
 
     def err(a, b):
         return float((a.double() - b.double()).abs().max())
-    for dtype in (torch.float64, torch.float32):
+    for dtype in dtypes:
         f64 = dtype == torch.float64
         dt = str(dtype)[6:]
         for clip in clips:
@@ -2396,7 +2424,7 @@ def phase_asphere_path(opt_step, glass_step, design_step):
     (phase_glass_path, K3, K6 and K7; row ASPH_ROW's coefficients too)
     and the composite design step (phase_design_path over
     ASPH_DESIGN_SELECT: K4, K5, K8 and K9), each loop's step 0 held
-    against the CPU at N_ASPH_CHECK nrays a bundle on both devices and
+    against the CPU at N_LOOP_CHECK nrays a bundle on both devices and
     its later steps logged beside the spherical double Gauss's
     (`opt_step`, `glass_step`, `design_step` seconds).  Returns the
     path's launches (the forward part's, counted from the caller's
@@ -2485,13 +2513,13 @@ def phase_asphere_path(opt_step, glass_step, design_step):
     loop, step = designer_loop(aspheric_double_gauss(),
                                "aspheric designer loop: aspheric double "
                                "Gauss", ASPH_SELECT, ASPH_SCALES,
-                               N_ASPH_CHECK)
+                               N_LOOP_CHECK)
     glass, gstep = phase_glass_path(aspheric_double_gauss(),
-                                    "aspheric double Gauss", N_ASPH_CHECK)
+                                    "aspheric double Gauss", N_LOOP_CHECK)
     design, dstep = phase_design_path(aspheric_double_gauss(),
                                       "aspheric double Gauss",
                                       ASPH_DESIGN_SELECT, ASPH_SCALES,
-                                      N_ASPH_CHECK)
+                                      N_LOOP_CHECK)
     steps = {"designer": step, "achromatization": gstep, "design": dstep}
     log("later steps: %s" % ", ".join(
         "%s loop aspheric double Gauss %.4f s, double Gauss %.4f s (%.2fx)"
@@ -2501,9 +2529,20 @@ def phase_asphere_path(opt_step, glass_step, design_step):
              for k, v in forward.items()}, steps)
 
 
-# -- the anamorphic rows: K1, K2, K4 and K5 on anamorphic keys ---------------
+# -- the anamorphic rows: every K1-K9 key on anamorphic rows -----------------
 
 ANAM_SELECT = ("curvature", "curvature_dx")   # the anamorphic designer loop
+# the design step on the pair, and the loops' K7 and K9 slot sets (the
+# achromatization's and the design's fields and curvature_dx)
+ANAM_DESIGN_SELECT = ANAM_SELECT + ("distance",)
+ANAM_ACHROM_FIELDS = ACHROM_FIELDS + ("curvature_dx",)
+ANAM_DESIGN_FIELDS = DESIGN_FIELDS + ("curvature_dx",)
+# the figured anamorphic lenses: the toroid lens's generating-curve
+# terms (y^2, y^4: the JAX package's test_zmx_toroidal_polynomial_terms)
+# and an even figure (r^2, r^4) on the split-conic biconic's first row
+TOROID_FIGURE = [1e-5, 2e-8]
+BICONIC_FIGURE = [2e-4, -1e-6]
+ANAM_FIG_FD_STEP = 1e-7   # the figured toroid's y^2 coefficient
 # the lenses whose keys are timed: the cylinders' closed form, the Newton
 ANAM_TIMED = ("anamorphic pair", "split-conic biconic")
 N_ANAM = 1 << 16      # aimed rays a field of the CPU cross-check
@@ -2516,9 +2555,18 @@ ANAM_FD_PICKS = (("anamorphic pair", "curvature_dx", 3),
                  ("split-conic biconic", "curvature_dx", 1),
                  ("split-conic biconic", "conic_dx", 1),
                  ("toroid lens", "curvature_dx", 1))
-# K5's anamorphic columns after the six (no aspheric widths on these keys)
-ANAM_GRAD_FIELDS = GRAD_FIELDS + (("curvature_dx", slice(6, 7)),
-                                  ("conic_dx", slice(7, 8)))
+
+
+def anam_grad_fields(widths=(0, 0), opd=False):
+    """K5's and K7's cotangent columns by table field on an anamorphic
+    key (with `opd`, K9's): asph_grad_fields' and curvature_dx and
+    conic_dx after the coefficients."""
+    q = (7 if opd else 6) + sum(widths)
+    return asph_grad_fields(widths, opd) + (
+        ("curvature_dx", slice(q, q + 1)), ("conic_dx", slice(q + 1, q + 2)))
+
+
+ANAM_GRAD_FIELDS = anam_grad_fields()
 
 
 def split_biconic():
@@ -2573,6 +2621,53 @@ def anamorphic_cases():
     return out
 
 
+def figured_anamorphic_cases():
+    """{name: (system, table on the card, specs, figure widths)} of the
+    figured anamorphic lenses: the toroid lens with TOROID_FIGURE on its
+    first toroid's generating curve and the split-conic biconic with
+    BICONIC_FIGURE on its first row."""
+    from rayopt_tpu_torch.ops.cuda_trace import figure_widths
+    from rayopt_tpu_torch.ops.kernels import specialize
+    out = {}
+    for name, build, figure in (("figured toroid", toroid_lens, TOROID_FIGURE),
+                                ("figured biconic", split_biconic,
+                                 BICONIC_FIGURE)):
+        s = build()
+        s[1].aspherics = list(figure)
+        s.update()
+        table = s.table()
+        specs = specialize(table)
+        out[name] = (s, table, specs, figure_widths(table, specs))
+    return out
+
+
+def anam_stack(table):
+    """(stack of 3 tables, its specs) of an anamorphic lens for K3, K6
+    and K7: the lens's table with its refracting rows' mu grown by 0, 1
+    and 2 % of mu - 1 (the pair's glass is a constant index)."""
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    from rayopt_tpu_torch.ops.tables import stack_tables
+    tabs = stack_tables([table.replace(mu=1 + (table.mu - 1)*(1 + .01*li))
+                         for li in range(3)])
+    return tabs, multi_specs(tabs, None)
+
+
+def nbk7_pair():
+    """models.anamorphic_pair with its two lens materials N-BK7 (nd
+    1.5168, the pair's constant index, and N-BK7's dispersion): the
+    achromatization loop's lens.  The pair's own material has vd = inf:
+    its three wavelength tables are equal and its glass cotangents say
+    nothing."""
+    from rayopt_tpu_torch.formats import system_from_yaml
+    from rayopt_tpu_torch.models.prescriptions import ANAMORPHIC_YAML
+    text = ANAMORPHIC_YAML.replace("material: 1.5168", "material: N-BK7")
+    if text.count("N-BK7") != 2:
+        raise AssertionError("the pair's prescription changed: %r" % text)
+    s = system_from_yaml(text)
+    s.update()
+    return s
+
+
 def spherical_twin(table):
     """The table with every anamorphic row made spherical of the same
     vertex curvature (its curved axis's: c, or c + curvature_dx where c
@@ -2590,19 +2685,28 @@ def spherical_twin(table):
 
 def anamorphic_keys():
     """{tag: key} of the anamorphic keys this script runs: on each
-    anamorphic lens, in both dtypes, clip off and on, K1, K2, K4 and K5
-    (every field, with the ray cotangents); on the pair and the biconic
-    the designer loop's K5 (ANAM_SELECT, no ray cotangents: the pair's
-    loop, both lenses' timings) and their spherical twins' keys,
-    unclipped (K5 for OPT_FIELDS as the loop's), for the timings; in
-    float64 the finite-difference
-    checks' K5 (one field each)."""
+    anamorphic lens, in both dtypes, clip off and on, K1, K2, K4, K6,
+    K8 and K5, K7, K9 (every field, with the ray cotangents), and K3's
+    two modes, K6 and K7 on its stack (anam_stack); on the pair and the
+    biconic the loops' keys, no ray cotangents (the designer loop's K5
+    for ANAM_SELECT, the achromatization's K7 and the design's K9 and,
+    float64, K5, and the design step breakdown's K5 and K9; the pair's
+    loops, both lenses' checks and timings) and
+    their spherical twins' keys, unclipped (K5 for OPT_FIELDS, K7 for
+    ACHROM_FIELDS, K9 for DESIGN_FIELDS as the loops'), for the timings;
+    in float64 the finite-difference checks' K5, K7 and K9 (one field
+    each); on the figured lenses, float64 and unclipped, K1-K9 with
+    their widths."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.kernels import specialize
     keys = {}
+    f64 = torch.float64
     for name, (s, table, specs) in anamorphic_cases().items():
         tag = name.split()[0]
-        twin = specialize(spherical_twin(table))
+        _, mspecs = anam_stack(table)
+        ttab = spherical_twin(table)
+        twin = specialize(ttab)
+        _, tmspecs = anam_stack(ttab)
         for dtype in (torch.float32, torch.float64):
             dt = str(dtype)[6:]
             for clip in (False, True):
@@ -2612,6 +2716,39 @@ def anamorphic_keys():
                 keys["K4 " + sfx] = CS.moments_key(specs, dtype, clip)
                 keys["K5 %s all rays=True" % sfx] = CS.adjoint_key(
                     specs, dtype, clip)
+                keys["K6 " + sfx] = CS.moments_multi_key(mspecs, dtype, clip,
+                                                         3)
+                keys["K7 %s all rays=True" % sfx] = CS.adjoint_multi_key(
+                    mspecs, dtype, clip)
+                keys["K8 " + sfx] = CS.opd_key(specs, dtype, clip)
+                keys["K9 %s all rays=True" % sfx] = CS.opd_adjoint_key(
+                    specs, dtype, clip)
+            for mode in ("merit", "trace"):
+                keys["K3 %s %s %s" % (dt, tag, mode)] = CS.trace_multi_key(
+                    mspecs, dtype, 3, mode == "merit")
+            if tag != "toroid":
+                keys["K7 %s %s achromatization rays=False" % (dt, tag)] = \
+                    CS.adjoint_multi_key(mspecs, dtype, False,
+                                         ANAM_ACHROM_FIELDS, False)
+                keys["K9 %s %s design rays=False" % (dt, tag)] = \
+                    CS.opd_adjoint_key(specs, dtype, False,
+                                       ANAM_DESIGN_FIELDS, False)
+                tsfx = "%s %s twin" % (dt, tag)
+                for mode in ("merit", "trace"):
+                    keys["K3 %s %s" % (tsfx, mode)] = CS.trace_multi_key(
+                        tmspecs, dtype, 3, mode == "merit")
+                keys["K6 " + tsfx] = CS.moments_multi_key(tmspecs, dtype,
+                                                          False, 3)
+                keys["K7 %s all rays=True" % tsfx] = CS.adjoint_multi_key(
+                    tmspecs, dtype)
+                keys["K7 %s achromatization rays=False" % tsfx] = \
+                    CS.adjoint_multi_key(tmspecs, dtype, False,
+                                         ACHROM_FIELDS, False)
+                keys["K8 " + tsfx] = CS.opd_key(twin, dtype)
+                keys["K9 %s all rays=True" % tsfx] = CS.opd_adjoint_key(
+                    twin, dtype)
+                keys["K9 %s design rays=False" % tsfx] = CS.opd_adjoint_key(
+                    twin, dtype, False, DESIGN_FIELDS, False)
             if tag != "toroid":
                 # the designer loop's slot set (the pair's loop; both
                 # lenses' timings)
@@ -2631,6 +2768,42 @@ def anamorphic_keys():
                 keys["K5 float64 %s fd %s rays=False" % (tag, field)] = \
                     CS.adjoint_key(specs, torch.float64, fields=(field,),
                                    rays=False)
+        if tag == "anamorphic":
+            # the design step's spot key; the finite-difference checks of
+            # K7 and K9 (curvature_dx)
+            keys["K5 float64 anamorphic design rays=False"] = CS.adjoint_key(
+                specs, f64, False, ANAM_DESIGN_FIELDS, False)
+            # the design step's breakdown (curvature and offset)
+            keys["K5 float64 anamorphic breakdown rays=False"] = \
+                CS.adjoint_key(specs, f64, False, OPT_FIELDS, False)
+            keys["K9 float64 anamorphic breakdown rays=False"] = \
+                CS.opd_adjoint_key(specs, f64, False, DESIGN_FIELDS, False)
+            keys["K7 float64 anamorphic fd curvature_dx rays=False"] = \
+                CS.adjoint_multi_key(mspecs, f64, False, ("curvature_dx",),
+                                     False)
+            keys["K9 float64 anamorphic fd curvature_dx rays=False"] = \
+                CS.opd_adjoint_key(specs, f64, False, ("curvature_dx",),
+                                   False)
+    for name, (s, table, specs, widths) in figured_anamorphic_cases().items():
+        sfx = "float64 " + name.replace(" ", "-")
+        _, mspecs = anam_stack(table)
+        kw = dict(widths=widths)
+        keys["K1 " + sfx] = CS.trace_key(specs, f64, **kw)
+        keys["K2 " + sfx] = CS.merit_key(specs, f64, **kw)
+        keys["K4 " + sfx] = CS.moments_key(specs, f64, **kw)
+        keys["K5 %s all rays=True" % sfx] = CS.adjoint_key(specs, f64, **kw)
+        for mode in ("merit", "trace"):
+            keys["K3 %s %s" % (sfx, mode)] = CS.trace_multi_key(
+                mspecs, f64, 3, mode == "merit", **kw)
+        keys["K6 " + sfx] = CS.moments_multi_key(mspecs, f64, False, 3, **kw)
+        keys["K7 %s all rays=True" % sfx] = CS.adjoint_multi_key(mspecs, f64,
+                                                                 **kw)
+        keys["K8 " + sfx] = CS.opd_key(specs, f64, **kw)
+        keys["K9 %s all rays=True" % sfx] = CS.opd_adjoint_key(specs, f64,
+                                                               **kw)
+        if name == "figured toroid":
+            keys["K9 %s fd aspherics rays=False" % sfx] = CS.opd_adjoint_key(
+                specs, f64, False, ("aspherics",), False, **kw)
     return keys
 
 
@@ -2653,21 +2826,72 @@ def anam_wide(n, dtype, seed):
     return anam_bundle(n, dtype, seed, 1.5)
 
 
+def anam_opd_bundle(n, dtype, seed, widen=1.):
+    """The anamorphic bench bundle with ray 0 the chief ray, on the
+    axis; `widen` scales the footprint."""
+    state = [c.double().clone() for c in anam_bundle(n, torch.float64, seed,
+                                                      widen)]
+    state[0][0] = state[1][0] = 0.
+    return tuple(c.to(dtype).contiguous() for c in state)
+
+
+def anam_wide2(n, dtype, seed, widen=1.):
+    """The bench bundle twice as wide (times `widen`)."""
+    return anam_bundle(n, dtype, seed, 2*widen)
+
+
+def anam_opd_wide2(n, dtype, seed, widen=1.):
+    """anam_opd_bundle twice as wide (times `widen`)."""
+    return anam_opd_bundle(n, dtype, seed, 2*widen)
+
+
 def phase_anamorphic_check():
-    """K1, K2, K4 and K5 on each anamorphic key against their plain
-    versions on the card at N_CHECK rays (phase_check,
-    phase_grad_check): unclipped on the bench bundle, clipped on it 1.5x
-    wide; K5 with its curvature_dx and conic_dx columns.  Then K5's
-    float64 gradient against central differences of the K4 merit
+    """Every K1-K9 key on each anamorphic lens against its plain version
+    on the card at N_CHECK rays, in both dtypes: K1, K2, K4 and K5
+    (phase_check, phase_grad_check) unclipped on the bench bundle and
+    clipped on it 1.5x wide; K3, K6 and K7 on the lens's stack
+    (anam_stack, phase_multi_check) and K8 and K9 (phase_opd_check,
+    ray 0 the chief ray), clip off and on (clipped on the bundle twice
+    as wide, which the checks widen 1.5x again); the adjoints with their
+    curvature_dx and conic_dx columns and, on the pair and the biconic,
+    K7's and K9's loop keys.  Then K1-K9 on the figured lenses, float64
+    and unclipped, the adjoints with the coefficient columns too.  Then
+    K5's, K7's and K9's float64 gradients against central differences
     (phase_anamorphic_fd_check).  Returns the float32 errors."""
     worst = {}
+
+    def keep(errs):
+        worst.update({k: max(v, worst.get(k, 0.)) for k, v in errs.items()})
     for lens, (s, table, specs) in anamorphic_cases().items():
+        tabs, mspecs = anam_stack(table)
+        looped = lens in ANAM_TIMED
         for bundle, clips in ((anam_bundle, (False,)), (anam_wide, (True,))):
-            for errs in (phase_check(table, specs, lens, bundle, clips),
-                         phase_grad_check(table, specs, lens, bundle, clips,
-                                          ANAM_GRAD_FIELDS)):
-                worst.update({k: max(v, worst.get(k, 0.))
-                              for k, v in errs.items()})
+            keep(phase_check(table, specs, lens, bundle, clips))
+            keep(phase_grad_check(table, specs, lens, bundle, clips,
+                                  ANAM_GRAD_FIELDS))
+        # clipped, the check widens the bundle 1.5x: the bench bundle
+        # twice as wide reaches past the biconic's and the toroid's 10 mm
+        # apertures too
+        for bundle, opd_bundle_, clips in (
+                (anam_bundle, anam_opd_bundle, (False,)),
+                (anam_wide2, anam_opd_wide2, (True,))):
+            keep(phase_multi_check(tabs, mspecs, lens + ", its stack",
+                                   bundle, clips, ANAM_GRAD_FIELDS,
+                                   ANAM_ACHROM_FIELDS if looped else None))
+            keep(phase_opd_check(s, table, specs, lens, opd_bundle_, clips,
+                                 anam_grad_fields(opd=True),
+                                 ANAM_DESIGN_FIELDS if looped else None))
+    f64 = (torch.float64,)
+    for lens, (s, table, specs, widths) in \
+            figured_anamorphic_cases().items():
+        tabs, mspecs = anam_stack(table)
+        phase_check(table, specs, lens, anam_bundle, (False,), f64)
+        phase_grad_check(table, specs, lens, anam_bundle, (False,),
+                         anam_grad_fields(widths), f64)
+        phase_multi_check(tabs, mspecs, lens + ", its stack", anam_bundle,
+                          (False,), anam_grad_fields(widths), None, f64)
+        phase_opd_check(s, table, specs, lens, anam_opd_bundle, (False,),
+                        anam_grad_fields(widths, opd=True), None, f64)
     phase_anamorphic_fd_check()
     return worst
 
@@ -2677,7 +2901,7 @@ def phase_anamorphic_fd_check():
     bench rays) against central differences: curvature_dx of the pair's
     x-cylinder (row 3), curvature_dx and conic_dx of the split-conic
     biconic (row 1), and the toroid's rotation curvature (curvature_dx
-    of row 1)."""
+    of row 1); then K7's and K9's (phase_anamorphic_fd_adjoints)."""
     from rayopt_tpu_torch.ops.cuda_grad import spot_moments, weighted_moments
     from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
     cases = anamorphic_cases()
@@ -2716,9 +2940,86 @@ def phase_anamorphic_fd_check():
     if failures:
         raise AssertionError("K5 on the anamorphic lenses disagrees with "
                              "finite differences: " + ", ".join(failures))
+    phase_anamorphic_fd_adjoints()
 
 
-def phase_anamorphic_path():
+def phase_anamorphic_fd_adjoints():
+    """Float64, N_CHECK bench rays, against central differences: K7's
+    gradient of the K6 merit (the union spot RMS of the pair's stack,
+    anam_stack) w.r.t. curvature_dx of the x-cylinder (row 3, shared by
+    the stack's tables), and K9's of the K8 wavefront RMS (ray 0 the
+    chief ray) w.r.t. the same curvature_dx and the figured toroid's
+    first generating-curve coefficient (its y^2 term, row 1)."""
+    from rayopt_tpu_torch.ops.cuda_grad import (adjoint_wavefront_rms,
+                                                polychromatic_spot_rms)
+    cases = anamorphic_cases()
+    s, table, specs = cases["anamorphic pair"]
+    fs, ftab, fspecs, _ = figured_anamorphic_cases()["figured toroid"]
+    tabs, mspecs = anam_stack(table)
+    nlam = tabs.curvature.shape[0]
+    log("== K7 and K9 on the anamorphic lenses vs central differences of "
+        "the K6 merit and the K8 wavefront RMS (float64, %d bench rays; "
+        "steps curvature_dx %g, the figured toroid's y^2 coefficient %g)"
+        % (N_CHECK, ANAM_FD_STEP["curvature_dx"], ANAM_FIG_FD_STEP))
+    state = anam_bundle(N_CHECK, torch.float64, SEED)
+    w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+    y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+    ostate = anam_opd_bundle(N_CHECK, torch.float64, SEED)
+    oy, ou = torch.stack(ostate[:3], 1), torch.stack(ostate[3:], 1)
+
+    def k6(cdx):
+        return polychromatic_spot_rms(
+            tabs.replace(curvature_dx=cdx.expand(nlam, -1)), y0, u0, w,
+            specs=mspecs)
+
+    def k8(sys, tab, sp):
+        return adjoint_wavefront_rms(
+            tab, oy, ou, ref=0, radius=-sys.image.pupil.distance,
+            wavelength=sys.wavelengths[0], scale=sys.scale,
+            finite=sys.object.finite, specs=sp)
+
+    def bumped(base, idx, h):
+        v = base.clone()
+        v[idx] += h
+        return v
+    cdx0 = table.curvature_dx
+    a0 = ftab.aspherics
+    c7 = cdx0.clone().requires_grad_()
+    c9 = cdx0.clone().requires_grad_()
+    a9 = a0.clone().requires_grad_()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")    # the baked rows, as intended
+        k6(c7).backward()
+        k8(s, table.replace(curvature_dx=c9), specs).backward()
+        k8(fs, ftab.replace(aspherics=a9), fspecs).backward()
+    h, ha = ANAM_FD_STEP["curvature_dx"], ANAM_FIG_FD_STEP
+    picks = (
+        ("K7", "curvature_dx of the pair's row 3", float(c7.grad[3]), h,
+         lambda d: k6(bumped(cdx0, 3, d))),
+        ("K9", "curvature_dx of the pair's row 3", float(c9.grad[3]), h,
+         lambda d: k8(s, table.replace(curvature_dx=bumped(cdx0, 3, d)),
+                      specs)),
+        ("K9", "the figured toroid's y^2 coefficient (row 1)",
+         float(a9.grad[1, 0]), ha,
+         lambda d: k8(fs, ftab.replace(aspherics=bumped(a0, (1, 0), d)),
+                      fspecs)))
+    failures = []
+    with torch.no_grad():
+        for kern, what, g, step, merit in picks:
+            fd = (float(merit(step)) - float(merit(-step)))/(2*step)
+            rel = abs(g - fd)/abs(fd)
+            ok = rel <= FD_REL
+            log("%s, %s: kernel %.12g, central difference %.12g, rel %.2e "
+                "-> %s" % (kern, what, g, fd, rel, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("%s %s" % (kern, what))
+    if failures:
+        raise AssertionError("K7 or K9 on the anamorphic lenses disagrees "
+                             "with finite differences: "
+                             + ", ".join(failures))
+
+
+def phase_anamorphic_path(opt_step, glass_step, design_step):
     """The anamorphic slice's main path through the entry points a user
     calls, on the crossed-cylinder pair (models.anamorphic_pair): host
     pupils at fields 0, 0.7 and 1 of its 0.5 degree field, System.pupils
@@ -2726,11 +3027,19 @@ def phase_anamorphic_path():
     pupil aimed, so that the card solves it), N_AIMED rays a field aimed
     by the host through float64 and float32 K1 and K2, and the spot RMS
     of float64 K1's output on the first N_ANAM of them against the CPU
-    float64 plain trace (PARITY_REL, equal NaN masks); then the designer loop over
-    ANAM_SELECT (designer_loop; its step 0 against the CPU at N_ANAM
-    nrays a bundle on both devices).  Returns the path's launches (the
-    forward part's, counted from the caller's reset, and the loop's)
-    and the loop's later-step seconds."""
+    float64 plain trace (PARITY_REL, equal NaN masks); then its three
+    loops: the designer loop over ANAM_SELECT (designer_loop), the
+    achromatization loop (phase_glass_path: K3, K6 and K7, over
+    curvature, curvature_dx, distance and the two glasses) on the pair
+    in N-BK7 (nbk7_pair: the pair's constant index has no dispersion)
+    and the composite design step (phase_design_path over
+    ANAM_DESIGN_SELECT: K4, K5, K8 and K9, and the port's
+    first_order_penalty), each loop's step 0 against the CPU at
+    N_LOOP_CHECK nrays a bundle on both devices, its later steps logged beside the
+    double Gauss's (`opt_step`, `glass_step`, `design_step` seconds).
+    Returns the path's launches (the forward part's, counted from the
+    caller's reset, and each loop's) and the loops' later-step
+    seconds."""
     from rayopt_tpu_torch.models import anamorphic_pair
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
                                                  trace_merit)
@@ -2825,23 +3134,41 @@ def phase_anamorphic_path():
     torch.cuda.empty_cache()
     loop, step = designer_loop(anamorphic_pair(), "anamorphic designer "
                                "loop: crossed-cylinder pair", ANAM_SELECT,
-                               None, N_ANAM)
-    return {k: v + loop[k] for k, v in forward.items()}, step
+                               None, N_LOOP_CHECK)
+    log("the achromatization loop runs on a copy of the pair whose two "
+        "lens materials are N-BK7 (nd 1.5168, as the pair's constant "
+        "index): the constant index has vd = inf, equal wavelength tables "
+        "and no glass gradient")
+    glass, gstep = phase_glass_path(nbk7_pair(), "anamorphic pair in N-BK7",
+                                    N_LOOP_CHECK, slots=2)
+    design, dstep = phase_design_path(anamorphic_pair(), "anamorphic pair",
+                                      ANAM_DESIGN_SELECT, None, N_LOOP_CHECK)
+    steps = {"designer": step, "achromatization": gstep, "design": dstep}
+    log("later steps: %s" % ", ".join(
+        "%s loop anamorphic pair %.4f s, double Gauss %.4f s (%.2fx)"
+        % (k, v, t, v/t) for (k, v), t in zip(
+            steps.items(), (opt_step, glass_step, design_step))))
+    return ({k: v + loop[k] + glass[k] + design[k]
+             for k, v in forward.items()}, steps)
 
 
 def phase_anamorphic_throughput(card):
-    """K1, K2, K4 and K5 on the pair's and the split-conic biconic's keys
-    (ANAM_TIMED): phase_throughput and phase_grad_throughput on the
-    anamorphic bench bundle, beside each lens's spherical twin
-    (spherical_twin: the same rows made spherical of the same vertex
-    curvature), with K5 for ANAM_SELECT as the loop's key and float32
-    at N_BENCH rays, where the kernel outweighs the wrapper.
-    times[lens] = those phases' times."""
+    """Every K1-K9 key on the pair's and the split-conic biconic's keys
+    (ANAM_TIMED), beside each lens's spherical twin (spherical_twin: the
+    same rows made spherical of the same vertex curvature), on the
+    anamorphic bench bundle: K1, K2, K4 and K5 (phase_throughput,
+    phase_grad_throughput; K5 for ANAM_SELECT as the loop's key), K3,
+    K6 and K7 on the lens's stack (phase_multi_throughput; K7 for
+    ANAM_ACHROM_FIELDS) and K8 and K9 (phase_opd_throughput, ray 0 the
+    chief ray; K9 for ANAM_DESIGN_FIELDS), in both dtypes at N_GRAD_TIME
+    rays and float32 at N_BENCH, where the kernel outweighs the
+    wrapper.  times[lens] = those phases' times (K3, K6-K9: kernel,
+    plain, twin), live[lens] = the multi and OPD bundles' live rays."""
     from rayopt_tpu_torch.ops.kernels import specialize
     cases = anamorphic_cases()
-    times = {}
+    times, live = {}, {}
     for lens in ANAM_TIMED:
-        _, table, specs = cases[lens]
+        s, table, specs = cases[lens]
         ttab = spherical_twin(table)
         twin = (ttab, specialize(ttab))
         kw = dict(lens=lens, bundle=anam_bundle, twin_name="spherical twin")
@@ -2849,7 +3176,84 @@ def phase_anamorphic_throughput(card):
                                        N_BENCH, **kw)
         times[lens].update(phase_grad_throughput(table, specs, card, twin,
                                                  ANAM_SELECT, **kw))
-    return times
+        tabs, mspecs = anam_stack(table)
+        mtimes, mlive = phase_multi_throughput(
+            tabs, mspecs, card, anam_stack(ttab), ANAM_ACHROM_FIELDS, **kw)
+        kw["bundle"] = anam_opd_bundle
+        otimes, olive = phase_opd_throughput(
+            s, table, specs, card, (s, *twin), ANAM_DESIGN_FIELDS, **kw)
+        times[lens].update(mtimes)
+        times[lens].update(otimes)
+        live[lens] = {"multi": mlive, "opd": olive}
+    return times, live
+
+
+def phase_figured_throughput(card):
+    """Every K1-K9 key of the figured anamorphic lenses
+    (figured_anamorphic_cases), float64 at N_CHECK anamorphic bench rays
+    (ray 0 the chief ray; K3's merit, K6 and K7 on the lens's stack,
+    anam_stack), each against its plain version in turns (plain,
+    kernel, kernel, plain): N_CHECK, not N_GRAD_TIME, for time (the
+    plain versions took ~40 s of the script at N_GRAD_TIME).  Returns
+    times[lens][kernel] = (kernel, plain) ms and live[lens] = the
+    bundle's live rays."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_multi, merit_adjoint_multi_reference,
+        merit_adjoint_reference, opd_adjoint, opd_adjoint_reference,
+        opd_chain, opd_chain_reference, weighted_moments,
+        weighted_moments_multi, weighted_moments_multi_reference,
+        weighted_moments_reference)
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        trace_final, trace_final_reference, trace_merit,
+        trace_merit_reference, trace_multi, trace_multi_reference)
+    f64 = torch.float64
+    times, live = {}, {}
+    for lens, (s, tab, specs, widths) in figured_anamorphic_cases().items():
+        log("== K1-K9 throughput (%s, widths %s): %d bench rays, float64, "
+            "against the plain versions (%s)" % (lens, widths, N_CHECK,
+                                                 card))
+        tabs, mspecs = anam_stack(tab)
+        state = anam_opd_bundle(N_CHECK, f64, SEED + 1)
+        w = bench_weights(N_CHECK, f64, SEED + 3)
+        ct = rms_cotangent(weighted_moments(tab, specs, state, w))
+        mct = rms_cotangent(weighted_moments_multi(tabs, mspecs, state, w))
+        aux = opd_aux(s, tab, specs, state)
+        cts = opd_cotangents(*opd_chain(tab, specs, state, aux), "wavefront")
+        live[lens] = float(trace_merit(tab, specs, state)[0])
+        cases = (
+            ("trace_final", lambda: trace_final(tab, specs, state),
+             lambda: trace_final_reference(tab, specs, state)),
+            ("trace_merit", lambda: trace_merit(tab, specs, state),
+             lambda: trace_merit_reference(tab, specs, state)),
+            ("weighted_moments", lambda: weighted_moments(tab, specs, state,
+                                                          w),
+             lambda: weighted_moments_reference(tab, specs, state, w)),
+            ("merit_adjoint", lambda: merit_adjoint(tab, specs, state, w, ct),
+             lambda: merit_adjoint_reference(tab, specs, state, w, ct)),
+            ("trace_multi", lambda: trace_multi(tabs, mspecs, state, True),
+             lambda: trace_multi_reference(tabs, mspecs, state, True)),
+            ("weighted_moments_multi",
+             lambda: weighted_moments_multi(tabs, mspecs, state, w),
+             lambda: weighted_moments_multi_reference(tabs, mspecs, state,
+                                                      w)),
+            ("merit_adjoint_multi",
+             lambda: merit_adjoint_multi(tabs, mspecs, state, w, mct),
+             lambda: merit_adjoint_multi_reference(tabs, mspecs, state, w,
+                                                   mct)),
+            ("opd_chain", lambda: opd_chain(tab, specs, state, aux),
+             lambda: opd_chain_reference(tab, specs, state, aux)),
+            ("opd_adjoint", lambda: opd_adjoint(tab, specs, state, aux, cts),
+             lambda: opd_adjoint_reference(tab, specs, state, aux, cts)))
+        times[lens] = {}
+        for name, kernel, plain in cases:
+            (k, p, _), (k1, k2, p1, p2, _, _) = in_turns(kernel, plain)
+            times[lens][name] = (k, p)
+            log("%s float64: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
+                "(%.4f, %.4f), plain/kernel %.2fx | %s"
+                % (name, k, k1, k2, p, p1, p2, p/k, card))
+        del state, w, cts
+        torch.cuda.empty_cache()
+    return times, live
 
 
 #: flops of one biconic/toroid residual, slope (its normal and the dot
@@ -2862,32 +3266,51 @@ ANAM_FLOPS = {"biconic": dict(res=25, slope=48, refract=70, normal_vjp=90,
                              res_vjp=50)}
 
 
-def anam_row_flops(spec):
+def anam_figure_flops(na, no):
+    """(residual, slope) operations the figure of a key's widths adds to
+    a biconic's or toroid's residual and normal (csrc/trace_common.cuh):
+    the even and odd polynomials' Horner loops and subtractions (the odd
+    also its square root), and in the normal their derivatives' Horner
+    loops, the odd's floor and division, and the (x, y) products and
+    subtractions."""
+    res = (1 + 2*na + 1 if na else 0) + (2*no + 3 if no else 0)
+    slope = (2*na + 4 if na else 0) + (4*no + 8 if no else 0)
+    return res, slope
+
+
+def anam_row_flops(spec, widths=(0, 0)):
     """Operations of one surface_step on an anamorphic row: a cylinder's
     closed form and refraction counted as the conic's; a biconic's or
     toroid's seed (the conic's root, 33), ASPHERIC_ITERS Newton steps
     (residual, slope, update), the last residual and its test and the
-    refraction by its general normal."""
+    refraction by its general normal, each with the figure of the key's
+    `widths` (anam_figure_flops)."""
     f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0) + 8
     if spec.cyl_axis:
         return f + 31 + (37 if spec.kind else 0)
     c = ANAM_FLOPS["toroid" if spec.toroidal else "biconic"]
-    f += 33 + ASPHERIC_ITERS*(c["res"] + c["slope"] + 2) + c["res"] + 2
-    return f + (c["refract"] if spec.kind else 0)
+    fr, fs = anam_figure_flops(*widths)
+    res, slope = c["res"] + fr, c["slope"] + fs
+    f += 33 + ASPHERIC_ITERS*(res + slope + 2) + res + 2
+    return f + (c["refract"] + fs if spec.kind else 0)
 
 
-def anam_vjp_extra(spec):
+def anam_vjp_extra(spec, widths=(0, 0)):
     """The reverse of a biconic or toroid row beyond 3x its forward:
     its recompute (the whole Newton once) and its reverse -- the
     refraction's (~75), the normal's, the transfer's (9) and the
-    implicit step (one slope and the residual's gradient) -- less the
-    3x the estimate already counts.  A cylinder's reverse is the
-    conic's (the 3x estimate)."""
+    implicit step (one slope and the residual's gradient), with the
+    figure's (its slope's and its sag's reverses: 6 and 3 operations a
+    coefficient, 12 and 6 an odd one) -- less the 3x the estimate
+    already counts.  A cylinder's reverse is the conic's (the 3x
+    estimate)."""
     if spec.cyl_axis:
         return 0
     c = ANAM_FLOPS["toroid" if spec.toroidal else "biconic"]
-    rf = anam_row_flops(spec)
+    na, no = widths
+    rf = anam_row_flops(spec, widths)
     rev = (75 + c["normal_vjp"] + 9 + c["slope"] + c["res_vjp"]
+           + anam_figure_flops(na, no)[1] + 9*na + 18*no
            + (60 if spec.rotated else 0))
     return rf + rev - 3*rf
 
@@ -3525,7 +3948,8 @@ def phase_grad_throughput(table, specs, card, twin=None,
 
 
 def phase_multi_throughput(tabs, specs, card, twin=None,
-                           loop=ACHROM_FIELDS):
+                           loop=ACHROM_FIELDS, lens=None,
+                           bundle=bench_bundle, twin_name="double Gauss"):
     """K3 (merit and trace), K6 and K7 against their plain versions and
     their twins on the same bundle, with K7 for every field and the ray
     cotangents (the work of the earlier run-time-flag K7) beside K7 for
@@ -3533,11 +3957,13 @@ def phase_multi_throughput(tabs, specs, card, twin=None,
     ways in float64 at one achromatization bundle's N_OPT_BUNDLE rays;
     then the three alone at N_BENCH rays in float32, beside their
     twins.  The twins: nlam launches of the monochromatic twins (K2 and
-    K1, K4, K5), or, with `twin` (another lens's stack and specs: the
-    double Gauss's beside the aspheric one), that lens's keys (its
-    achromatization key for the loop's).  Returns the times (kernel,
-    plain, twin) and the live ray traces (summed over the wavelengths)
-    of each timing bundle."""
+    K1, K4, K5), or, with `twin` (another lens's stack and specs, named
+    `twin_name`: the double Gauss's beside the aspheric one, an
+    anamorphic lens's spherical twin), that lens's keys (its
+    ACHROM_FIELDS key for the loop's).  `lens` names the lens, `bundle`
+    makes the rays (bench_bundle's signature).  Returns the times
+    (kernel, plain, twin) and the live ray traces (summed over the
+    wavelengths) of each timing bundle."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         merit_adjoint, merit_adjoint_multi, merit_adjoint_multi_reference,
         weighted_moments, weighted_moments_multi,
@@ -3547,12 +3973,12 @@ def phase_multi_throughput(tabs, specs, card, twin=None,
     from rayopt_tpu_torch.ops.tables import table_at
     nlam = tabs.curvature.shape[0]
     one = [table_at(tabs, li) for li in range(nlam)]
-    what = ("the double Gauss's keys" if twin else
+    what = ("the %s's keys" % twin_name if twin else
             "%d launches of the monochromatic twin" % nlam)
     log("== K3/K6/K7 throughput%s: %d bench rays x %d wavelengths against "
         "the plain versions and %s, then %d rays kernel alone (%s)"
-        % (" (aspheric double Gauss)" if twin else "", N_GRAD_TIME, nlam,
-           what, N_BENCH, card))
+        % (" (%s)" % lens if lens else "", N_GRAD_TIME, nlam, what, N_BENCH,
+           card))
 
     def cases(state, w, ct, tb=tabs, sp=specs, lp=loop):
         return (
@@ -3580,7 +4006,7 @@ def phase_multi_throughput(tabs, specs, card, twin=None,
     def setup(n, dtype):
         """The bench bundle, its weights and the kernel and twin
         cases (name, kernel, plain, twin); the live ray traces."""
-        state = bench_bundle(n, dtype, SEED + 1)
+        state = bundle(n, dtype, SEED + 1)
         w = bench_weights(n, dtype, SEED + 3)
         ct = rms_cotangent(weighted_moments_multi(tabs, specs, state, w))
         out = cases(state, w, ct)
@@ -3634,7 +4060,8 @@ def phase_multi_throughput(tabs, specs, card, twin=None,
 
 
 def phase_opd_throughput(s, table, specs, card, twin=None,
-                         loop=DESIGN_FIELDS):
+                         loop=DESIGN_FIELDS, lens=None, bundle=opd_bundle,
+                         twin_name="double Gauss"):
     """K8 and K9 (wavefront-RMS cotangents; K9 for every field and the
     ray cotangents, the work of the earlier run-time-flag K9) against
     their plain versions at N_GRAD_TIME rays in float32 and float64,
@@ -3644,14 +4071,17 @@ def phase_opd_throughput(s, table, specs, card, twin=None,
     system, table and specs: the double Gauss beside the aspheric one),
     that lens's keys (its design key for the loop's) on the same rays,
     each with its own reference sphere and cotangents, in turns at
-    N_GRAD_TIME.  Returns the times (kernel, plain, twin) and the live
-    rays of each timing bundle (K9's reverse runs for these only)."""
+    N_GRAD_TIME (`twin_name` names it, `lens` the lens; `bundle` makes
+    the rays, opd_bundle's signature).  Returns the times (kernel, plain,
+    twin) and the live rays of each timing bundle (K9's reverse runs for
+    these only)."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         opd_adjoint, opd_adjoint_reference, opd_chain, opd_chain_reference)
+    note = twin_name + " key"
     log("== K8/K9 throughput%s: %d bench rays (ray 0 the chief ray) against "
         "the plain versions%s, then %d rays kernel alone (%s)"
-        % (" (aspheric double Gauss)" if twin else "", N_GRAD_TIME,
-           " and the double Gauss's keys" if twin else "", N_BENCH, card))
+        % (" (%s)" % lens if lens else "", N_GRAD_TIME,
+           " and the %s's keys" % twin_name if twin else "", N_BENCH, card))
 
     def pairs(state, sy=s, tb=table, sp=specs, lp=loop):
         aux = opd_aux(sy, tb, sp, state)
@@ -3670,7 +4100,7 @@ def phase_opd_throughput(s, table, specs, card, twin=None,
             int(torch.isfinite(k[0]).sum())
 
     def setup(n, dtype):
-        state = opd_bundle(n, dtype, SEED + 1)
+        state = bundle(n, dtype, SEED + 1)
         mine, nlive = pairs(state)
         twins = pairs(state, *twin, DESIGN_FIELDS)[0] if twin else \
             ((None, None, None),)*3
@@ -3686,7 +4116,7 @@ def phase_opd_throughput(s, table, specs, card, twin=None,
             log("%s %s: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
                 "(%.4f, %.4f), plain/kernel %.2fx%s | live rays %d | %s"
                 % (name, str(dtype)[6:], k, k1, k2, p, p1, p2, p/k,
-                   twin_note(k, t, t1, t2), live[dtype], card))
+                   twin_note(k, t, t1, t2, note), live[dtype], card))
         del cases
         torch.cuda.empty_cache()
     cases, live[N_OPT_BUNDLE] = setup(N_OPT_BUNDLE, torch.float64)
@@ -3696,16 +4126,21 @@ def phase_opd_throughput(s, table, specs, card, twin=None,
         times[(name, N_OPT_BUNDLE, "twin")] = t
         log("%s float64 at %d rays: kernel %.4f ms (%.4f, %.4f)%s, live "
             "rays %d | %s" % (name, N_OPT_BUNDLE, k, k1, k2,
-                              twin_note(k, t, t1, t2), live[N_OPT_BUNDLE],
-                              card))
+                              twin_note(k, t, t1, t2, note),
+                              live[N_OPT_BUNDLE], card))
     del cases
-    cases, nlive = setup(N_BENCH, torch.float32)
-    for name, kernel, _, _ in cases[:2]:
-        k = cuda_ms(kernel, 10)
+    cases, live[N_BENCH] = setup(N_BENCH, torch.float32)
+    nlive = live[N_BENCH]
+    for name, kernel, _, twin_fn in cases[:2]:
+        # with a twin, in turns beside its key (kernel, twin, kernel, twin)
+        (k, _, t), (_, _, _, _, t1, t2) = in_turns(kernel, None, twin_fn, 10)
         times[(name, N_BENCH)] = k
+        if twin:
+            times[(name, N_BENCH, "twin")] = t
         log("%s float32 at %d rays: kernel %.4f ms, live rays %d, peak "
-            "memory %.3f GiB | plain: not run (memory) | %s"
-            % (name, N_BENCH, k, nlive, peak_gib(kernel), card))
+            "memory %.3f GiB%s | plain: not run (memory) | %s"
+            % (name, N_BENCH, k, nlive, peak_gib(kernel),
+               twin_note(k, t, t1, t2, note), card))
     del cases
     torch.cuda.empty_cache()
     return times, live
@@ -3836,7 +4271,7 @@ def row_flops(spec, widths=(0, 0)):
     residual and its test, and the refraction by the radial normal with
     the flagged figures' slopes."""
     if spec.biconic or spec.toroidal or spec.cyl_axis:
-        return anam_row_flops(spec)
+        return anam_row_flops(spec, widths)
     f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0)
     na, no = widths
     figured = spec.aspheric or spec.odd
@@ -3886,7 +4321,7 @@ def chain_vjp_flops(specs, widths=(0, 0), path=False):
     total = 3*chain_flops(specs, widths)
     for sp in specs[1:]:
         if sp.biconic or sp.toroidal or sp.cyl_axis:
-            total += anam_vjp_extra(sp)
+            total += anam_vjp_extra(sp, widths)
         elif sp.aspheric or sp.odd:
             rf = row_flops(sp, widths)
             rev = (75 + (6*na if sp.aspheric else 0)
@@ -4288,24 +4723,47 @@ def asphere_entries(sources, launches, worst, times, ptxas, steps, opt_step,
     return out
 
 
-def anamorphic_entries(sources, launches, worst, times, ptxas, step,
-                       opt_step):
+def anamorphic_entries(sources, launches, worst, times, mlive, ptxas,
+                       steps, dg_steps, figured):
     """The kernels line's entries of the anamorphic keys (the crossed-
     cylinder pair): the anamorphic path's launches, the float32 errors
     of phase_anamorphic_check, the times of phase_anamorphic_throughput
     (the pair's keys beside their plain versions and spherical twins,
-    the split-conic biconic's -- the Newton -- beside its own; at
-    N_GRAD_TIME rays in both dtypes and at N_BENCH in float32), the
-    bounds (row_flops: the cylinders as the conic, the biconic's 10
-    Newton steps), and the loop keys' registers, stack and spills."""
+    the split-conic biconic's -- the Newton -- beside its own, under
+    "biconic_"; at N_GRAD_TIME rays in both dtypes and at N_BENCH in
+    float32; K3, K6 and K7 on the lens's stack of 3 tables, with their
+    live rays `mlive`), the bounds (row_flops: the cylinders as the
+    conic, the biconic's 10 Newton steps), the loop keys' registers,
+    stack and spills, and the loops' later-step seconds (`steps`) beside
+    the double Gauss's (`dg_steps`: designer, achromatization,
+    design); then each kernel's float64 times on the figured lenses
+    (`figured`: phase_figured_throughput's times and live rays) beside
+    their plain versions' and their bounds (with the figure's
+    operations), under "figured_toroid_" and "figured_biconic_"."""
     from rayopt_tpu_torch.ops.cuda_trace import trace_merit
     cases = anamorphic_cases()
+    fcases = figured_anamorphic_cases()
+    ftimes, flive = figured
+
+    def put_figured(entry, kname, lam):
+        """The figured lenses' float64 times of `kname`'s key."""
+        for lens, (_, ftab, fspecs, widths) in fcases.items():
+            k, p = ftimes[lens][kname]
+            sp = anam_stack(ftab)[1] if lam > 1 else fspecs
+            lv = flive[lens]*lam
+            pre = lens.replace(" ", "_") + "_"
+            entry.update({pre + "ms_f64": k, pre + "plain_ms_f64": p,
+                          pre + "rays": N_CHECK,
+                          pre + "bound_ms_f64": kernel_bound(
+                              kname, N_CHECK, torch.float64, sp, lam, lv,
+                              widths)[0]})
     # live rays of the timing bundles (K5's reverse runs for these only)
     live = {(lens, n, dtype): float(trace_merit(
         cases[lens][1], cases[lens][2], anam_bundle(n, dtype, SEED + 1))[0])
         for lens in ANAM_TIMED for n, dtype in (
             (N_GRAD_TIME, torch.float32), (N_GRAD_TIME, torch.float64),
             (N_BENCH, torch.float32))}
+    dg = dict(zip(("designer", "achromatization", "design"), dg_steps))
     loop = {"trace_final": "K1 %s anamorphic clip=False",
             "trace_merit": "K2 %s anamorphic clip=False",
             "weighted_moments": "K4 %s anamorphic clip=False",
@@ -4361,8 +4819,80 @@ def anamorphic_entries(sources, launches, worst, times, ptxas, step,
                               "spill_bytes_%s%s" % (key, sfx):
                                   stack + spill})
         if kname == "merit_adjoint":
-            entry.update({"designer_step_s": step,
-                          "spherical_optimizer_step_s": opt_step})
+            entry.update({"designer_step_s": steps["designer"],
+                          "spherical_optimizer_step_s": dg["designer"]})
+        put_figured(entry, kname, 1)
+        out.append(entry)
+    # K3, K6-K9 on each timed lens's keys (K3, K6, K7 on its stack):
+    # (the loop key's tag, the key for every field with the ray
+    # cotangents, wavelengths, the loop key's times, the loop's step)
+    multi = {"trace_multi": ("K3 %s %s merit", None, 3, "trace_multi_trace",
+                             "achromatization"),
+             "weighted_moments_multi": ("K6 %s %s clip=False", None, 3, None,
+                                        "achromatization"),
+             "merit_adjoint_multi": (
+                 "K7 %s %s achromatization rays=False",
+                 "K7 %s %s clip=False all rays=True", 3,
+                 "merit_adjoint_multi_loop", "achromatization"),
+             "opd_chain": ("K8 %s %s clip=False", None, 1, None, "design"),
+             "opd_adjoint": ("K9 %s %s design rays=False",
+                             "K9 %s %s clip=False all rays=True", 1,
+                             "opd_adjoint_loop", "design")}
+    for kname, (tag, all_tag, lam, loop_name, path) in multi.items():
+        source, replaces = sources[kname]
+        kind = "multi" if lam > 1 else "opd"
+        entry = {"name": kname + "_anamorphic", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": launches[kname], "max_abs_err": worst[kname],
+                 "library_ms": None, "rays": N_GRAD_TIME, "wavelengths": lam}
+        for lens, pre in zip(ANAM_TIMED, ("", "biconic_")):
+            specs, tt = cases[lens][2], times[lens]
+            kspecs = anam_stack(cases[lens][1])[1] if lam > 1 else specs
+            lv = mlive[lens][kind]
+
+            def bound(n, dtype, name=kname, sp=kspecs, lv=lv):
+                return kernel_bound(name, n, dtype, sp, lam,
+                                    lv[dtype if n == N_GRAD_TIME else n])
+            for dtype, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
+                k, p, t = tt[(kname, dtype)]
+                b, by = bound(N_GRAD_TIME, dtype)
+                entry.update({pre + "ms" + sfx: k, pre + "plain_ms" + sfx: p,
+                              pre + "ms_spherical_key" + sfx: t,
+                              pre + "bound_ms" + sfx: b})
+                if not pre and not sfx:
+                    entry["bound_by"] = by
+                if loop_name:
+                    lk, lp, lt = tt[(loop_name, dtype)]
+                    lsfx = ("_trace" if kname == "trace_multi"
+                            else "_loop_key") + sfx
+                    entry.update({pre + "ms" + lsfx: lk,
+                                  pre + "ms_spherical_key" + lsfx: lt,
+                                  pre + "bound_ms" + lsfx:
+                                      bound(N_GRAD_TIME, dtype,
+                                            loop_name)[0]})
+                    if kname == "trace_multi":
+                        entry[pre + "plain_ms" + lsfx] = lp
+            entry.update({pre + "ms" + big: tt[(kname, N_BENCH)],
+                          pre + "ms_spherical_key" + big:
+                              tt[(kname, N_BENCH, "twin")],
+                          pre + "bound_ms" + big:
+                              bound(N_BENCH, torch.float32)[0]})
+        for dt in ("float32", "float64"):
+            sfx = "" if dt == "float64" else "_f32"
+            for t, pre in ((tag, ""), (all_tag, "_all_rays")):
+                if t:
+                    regs, stack, spill = ptxas[t % (dt, "anamorphic")]
+                    entry.update({"regs" + pre + sfx: regs,
+                                  "stack_bytes" + pre + sfx: stack,
+                                  "spill_bytes" + pre + sfx: spill})
+            if kname == "trace_multi":
+                regs, stack, spill = ptxas["K3 %s anamorphic trace" % dt]
+                entry.update({"regs_trace" + sfx: regs,
+                              "stack_bytes_trace" + sfx: stack,
+                              "spill_bytes_trace" + sfx: spill})
+        entry.update({path + "_step_s": steps[path],
+                      "double_gauss_" + path + "_step_s": dg[path]})
+        put_figured(entry, kname, lam)
         out.append(entry)
     return out
 
@@ -4416,10 +4946,12 @@ def main():
     opt_launches, opt_step = phase_opt_path()     # counts from its reset
     launches.update({k: v for k, v in opt_launches.items()
                      if k in ("weighted_moments", "merit_adjoint")})
-    glass_launches, glass_step = phase_glass_path()   # counts from its reset
+    # counts from its reset
+    glass_launches, glass_step = phase_glass_path(check_nrays=N_LOOP_CHECK)
     multi = ("trace_multi", "weighted_moments_multi", "merit_adjoint_multi")
     launches.update({k: glass_launches[k] for k in multi})
-    design_launches, design_step = phase_design_path()
+    design_launches, design_step = phase_design_path(
+        check_nrays=N_LOOP_CHECK)
     opd = ("opd_chain", "opd_adjoint")
     launches.update({k: design_launches[k] for k in opd})
     aworst = phase_asphere_check()
@@ -4434,13 +4966,14 @@ def main():
                              "%s" % asph_launches)
     nworst = phase_anamorphic_check()
     reset_launches()
-    anam_launches, anam_step = phase_anamorphic_path()
+    anam_launches, anam_steps = phase_anamorphic_path(opt_step, glass_step,
+                                                      design_step)
     log("== launch counts on the anamorphic path: %s" % anam_launches)
-    anam = ("trace_final", "trace_merit", "weighted_moments", "merit_adjoint")
-    if not all(anam_launches[k] for k in anam):
+    if not all(anam_launches[k] for k in asph):
         raise AssertionError("a kernel of the anamorphic path never "
                              "launched: %s" % anam_launches)
-    ntimes = phase_anamorphic_throughput(card)
+    ntimes, nlive = phase_anamorphic_throughput(card)
+    ftimes, flive = phase_figured_throughput(card)
     times = phase_throughput(table, specs, card)
     gtimes = phase_grad_throughput(table, specs, card)
     mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
@@ -4456,10 +4989,12 @@ def main():
     atabs, amspecs = asphere_stack("aspheric double Gauss", as_, atab)
     amtimes, amlive = phase_multi_throughput(atabs, amspecs, card,
                                              (tabs, mspecs),
-                                             ASPH_ACHROM_FIELDS)
+                                             ASPH_ACHROM_FIELDS,
+                                             "aspheric double Gauss")
     aotimes, aolive = phase_opd_throughput(as_, atab, aspecs, card,
                                            (s, table, specs),
-                                           ASPH_DESIGN_FIELDS)
+                                           ASPH_DESIGN_FIELDS,
+                                           "aspheric double Gauss")
     amtimes.update(aotimes)
     # live rays of the K5 timing bundles (its reverse runs for these only)
     live_mono = float(trace_merit(table, specs, bench_bundle(
@@ -4611,7 +5146,9 @@ def main():
                                ptxas, asph_steps, opt_step, amtimes,
                                {"multi": amlive, "opd": aolive})
     kernels += anamorphic_entries(sources, anam_launches, nworst, ntimes,
-                                  ptxas, anam_step, opt_step)
+                                  nlive, ptxas, anam_steps,
+                                  (opt_step, glass_step, design_step),
+                                  (ftimes, flive))
     kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())

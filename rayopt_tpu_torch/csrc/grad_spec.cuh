@@ -16,13 +16,13 @@
 // and, in K5, K7 and K9, its implicit reverse -- K9's with the path
 // cotangent; the key carries the table's coefficient widths,
 // RAYOPT_N_ASP and RAYOPT_N_ODD, so the Horner loops have compile-time
-// bounds and a row grows by N_ASP + N_ODD words).  K1, K2, K4 and K5
-// also take the anamorphic rows (a conic cylinder's closed form, a
-// biconic's or toroid's seeded Newton, K5 their reverse by hand; the key
+// bounds and a row grows by N_ASP + N_ODD words).  Every kernel also
+// takes the anamorphic rows (a conic cylinder's closed form, a biconic's
+// or toroid's seeded Newton with the figure of the key's widths; K5, K7
+// and K9 their reverse by hand, K9's with the path cotangent; the key
 // defines RAYOPT_N_ANAM, so that a row grows by curvature_dx and conic_dx
-// and K5's slots by their cotangents).  Every key refuses the grating,
-// DOE and freeform rows, and K3, K6-K9 the anamorphic ones (ROADMAP
-// Queue 1 item 9).
+// and the adjoints' slots by their cotangents).  Every key refuses the
+// grating, DOE and freeform rows (ROADMAP Queue 1 item 9).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
@@ -149,9 +149,9 @@ static_assert(FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
 
 // The rows of one key: W holds a 64-bit word a row, its flags in the
 // low LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z,
-// mu, then K5's and K7's aspheric coefficients, then an anamorphic K5
-// key's curvature_dx and conic_dx; K9 n_before, then its coefficients)
-// that row reduces.
+// mu, then K5's and K7's aspheric coefficients, then an anamorphic
+// key's curvature_dx and conic_dx; K9 n_before, then its coefficients
+// and the anamorphic two) that row reduces.
 template <long long... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -565,7 +565,8 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_spec(
 
 // K5: the analytic adjoint of K4's moments dotted with ct (5 values).
 // out: (rows, FIG_SLOTS) parameter cotangents (SLOTS, then a figured
-// table's aspheric coefficients), zero where a slot is not live; with
+// table's aspheric coefficients, then an anamorphic key's curvature_dx
+// and conic_dx), zero where a slot is not live; with
 // RAYS the six ray and the weight cotangents a ray (zeros for a dead
 // ray).  Dynamic shared memory: the saved states, (rows - 1) * 6 *
 // BLOCK words.
@@ -697,8 +698,9 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_multi_spec(
 // K9: the analytic adjoint of the OPD (K8) for the cotangents (ct_k,
 // ct_lx, ct_ly) of its outputs k, lx, ly.  aux: the sphere centre x, y,
 // z, its radius and lam_scale.  out: (rows, OPD_FIG_SLOTS) parameter
-// cotangents (OPD_SLOTS, then a figured table's aspheric coefficients;
-// zero where a slot is not live), then the 3 centre cotangents; with RAYS the six ray cotangents a ray (zeros for a dead
+// cotangents (OPD_SLOTS, then a figured table's aspheric coefficients,
+// then an anamorphic key's curvature_dx and conic_dx; zero where a slot
+// is not live), then the 3 centre cotangents; with RAYS the six ray cotangents a ray (zeros for a dead
 // ray).  Dynamic shared memory: the states entering rows 1..S-2,
 // (rows - 2) * 6 * BLOCK words.
 template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int MINB>

@@ -20,11 +20,13 @@ constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
 // coefficients, then an anamorphic key's curvature_dx and conic_dx
 constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD + N_ANAM;
 // K9's a row: OPD_SLOTS (SLOTS, then n_before), then the even and the
-// odd coefficients (cuda_spec.opd_live_slots)
-constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD;
+// odd coefficients, then an anamorphic key's curvature_dx and conic_dx
+// (cuda_spec.opd_live_slots)
+constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD + N_ANAM;
 // a row's per-ray parameter cotangents, the widest of the two
 constexpr int PG_SLOTS = FIG_SLOTS > OPD_FIG_SLOTS ? FIG_SLOTS : OPD_FIG_SLOTS;
-// an anamorphic row's curvature_dx and conic_dx slots
+// an anamorphic row's curvature_dx and conic_dx slots (K5, K7; K9's
+// are one further on, past n_before)
 constexpr int Q_CDX = SLOTS + N_ASP + N_ODD;
 
 // Hand-derived reverse of refract_spec's refraction (kind 1) or mirror
@@ -76,6 +78,119 @@ __device__ __forceinline__ void refraction_vjp(int kind, bool unit, T mu,
   }
 }
 
+// Reverse of e = e - dpoly_even(r2) (EVEN) - dpoly_odd(r2) (ODD), the
+// figure's slope in a normal, from e's cotangent ge: adds the
+// coefficients' cotangents into ga, gb and r2's into gr2
+// (cuda_grad._figure_slope_vjp).
+template <bool EVEN, bool ODD, typename T>
+__device__ __forceinline__ void figure_slope_vjp(T r2, const Figure<T>& fg,
+                                                 T ge, T* ga, T* gb,
+                                                 T& gr2) {
+  if (EVEN) {
+    // d/dr2 and d/da_i of sum_i 2 (i+1) a_i r2^i, times -ge
+    T dd = T(0), pw = T(1);
+#pragma unroll
+    for (int i = N_ASP - 1; i >= 1; --i)
+      dd = dd * r2 + T(2 * (i + 1) * i) * fg.a[i];
+#pragma unroll
+    for (int i = 0; i < N_ASP; ++i) {
+      ga[i] = ga[i] - T(2 * (i + 1)) * pw * ge;
+      pw = pw * r2;
+    }
+    gr2 = gr2 - dd * ge;
+  }
+  if (ODD) {
+    // dpoly_odd = q/r + 2 r q', r = max(sqrt(r2), TINY), times -ge
+    T q = T(0), dq = T(0), ddq = T(0);
+#pragma unroll
+    for (int j = N_ODD - 1; j >= 0; --j) q = q * r2 + fg.b[j];
+#pragma unroll
+    for (int j = N_ODD - 1; j >= 1; --j) dq = dq * r2 + T(j) * fg.b[j];
+#pragma unroll
+    for (int j = N_ODD - 1; j >= 2; --j)
+      ddq = ddq * r2 + T(j * (j - 1)) * fg.b[j];
+    const T sr = sqrt(r2);
+    const T r = floor_at(sr, T(TINY));
+    const T gq = -ge / r;
+    const T gdq = -ge * T(2) * r;
+    const T gr = ge * q / (r * r) - ge * T(2) * dq;
+    const T gsr = sr >= T(TINY) ? gr : T(0);
+    gr2 = gr2 + gsr / (T(2) * sr) + gq * dq + gdq * ddq;
+    T pw = T(1), pw1 = T(1);
+#pragma unroll
+    for (int j = 0; j < N_ODD; ++j) {
+      gb[j] = gb[j] + gq * pw;
+      if (j >= 1) {
+        gb[j] = gb[j] + gdq * T(j) * pw1;
+        pw1 = pw1 * r2;
+      }
+      pw = pw * r2;
+    }
+  }
+}
+
+// Reverse of F = F - poly_even(r2) - poly_odd(r2) (every coefficient of
+// the table's widths), the figure's sag in a residual, from F's
+// cotangent gF: adds the coefficients' cotangents into ga, gb and r2's
+// into gr2 (cuda_grad._figure_sag_vjp).
+template <typename T>
+__device__ __forceinline__ void figure_sag_vjp(T r2, const Figure<T>& fg,
+                                               T gF, T* ga, T* gb, T& gr2) {
+  if (N_ASP) {
+    // -sum_i a_i r2^(i+1)
+    T d1 = T(0), pw = r2;
+#pragma unroll
+    for (int i = N_ASP - 1; i >= 0; --i)
+      d1 = d1 * r2 + T(i + 1) * fg.a[i];
+#pragma unroll
+    for (int i = 0; i < N_ASP; ++i) {
+      ga[i] = ga[i] - gF * pw;
+      pw = pw * r2;
+    }
+    gr2 = gr2 - gF * d1;
+  }
+  if (N_ODD) {
+    // -sqrt(r2) sum_j b_j r2^j
+    T q = T(0), dq = T(0);
+#pragma unroll
+    for (int j = N_ODD - 1; j >= 0; --j) q = q * r2 + fg.b[j];
+#pragma unroll
+    for (int j = N_ODD - 1; j >= 1; --j) dq = dq * r2 + T(j) * fg.b[j];
+    const T sr = sqrt(r2);
+    gr2 = gr2 - gF * q / (T(2) * sr) - gF * sr * dq;
+    T pw = sr;
+#pragma unroll
+    for (int j = 0; j < N_ODD; ++j) {
+      gb[j] = gb[j] - gF * pw;
+      pw = pw * r2;
+    }
+  }
+}
+
+// The coefficients' cotangents of a row, zeroed
+template <typename T>
+struct FigureGrad {
+  T a[N_ASP > 0 ? N_ASP : 1];
+  T b[N_ODD > 0 ? N_ODD : 1];
+  __device__ __forceinline__ FigureGrad() {
+#pragma unroll
+    for (int i = 0; i < N_ASP; ++i) a[i] = T(0);
+#pragma unroll
+    for (int j = 0; j < N_ODD; ++j) b[j] = T(0);
+  }
+};
+
+// The coefficients' cotangents into pg from slot q0: the even, then the
+// odd
+template <typename T>
+__device__ __forceinline__ void put_figure(const FigureGrad<T>& gf, T* pg,
+                                           int q0) {
+#pragma unroll
+  for (int i = 0; i < N_ASP; ++i) pg[q0 + i] = gf.a[i];
+#pragma unroll
+  for (int j = 0; j < N_ODD; ++j) pg[q0 + N_ASP + j] = gf.b[j];
+}
+
 // Hand-derived reverse of a FIGURED row's step (surface_step with
 // F_ASPHERIC or F_ODD) for one live ray, as surface_step_vjp: the
 // refraction (refraction_vjp) by the radial normal (x1 e, y1 e, 1) and
@@ -123,11 +238,7 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     rot_apply(p + P_ROT, gvx, gvy, gvz);
   }
   T gc = T(0), gk = T(0), gmu = T(0), gux, guy, guz;
-  T ga[N_ASP > 0 ? N_ASP : 1], gb[N_ODD > 0 ? N_ODD : 1];
-#pragma unroll
-  for (int i = 0; i < N_ASP; ++i) ga[i] = T(0);
-#pragma unroll
-  for (int j = 0; j < N_ODD; ++j) gb[j] = T(0);
+  FigureGrad<T> gf;
   // ---- reverse: refraction by the radial normal ----
   if (kind == 0) {
     gux = gvx; guy = gvy; guz = gvz;
@@ -154,47 +265,8 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     gk = gk - c * c * r2s * gm;
     gc = gc - T(2) * (T(1) + k) * c * r2s * gm;
     T gr2s = -kc2 * gm;
-    if (fl & F_ASPHERIC) {
-      // d/dr2 and d/da_i of sum_i 2 (i+1) a_i r2^i, times -ge
-      T dd = T(0), pw = T(1);
-#pragma unroll
-      for (int i = N_ASP - 1; i >= 1; --i)
-        dd = dd * r2s + T(2 * (i + 1) * i) * fg.a[i];
-#pragma unroll
-      for (int i = 0; i < N_ASP; ++i) {
-        ga[i] = ga[i] - T(2 * (i + 1)) * pw * ge;
-        pw = pw * r2s;
-      }
-      gr2s = gr2s - dd * ge;
-    }
-    if (fl & F_ODD) {
-      // dpoly_odd = q/r + 2 r q', r = max(sqrt(r2), TINY), times -ge
-      T q = T(0), dq = T(0), ddq = T(0);
-#pragma unroll
-      for (int j = N_ODD - 1; j >= 0; --j) q = q * r2s + fg.b[j];
-#pragma unroll
-      for (int j = N_ODD - 1; j >= 1; --j) dq = dq * r2s + T(j) * fg.b[j];
-#pragma unroll
-      for (int j = N_ODD - 1; j >= 2; --j)
-        ddq = ddq * r2s + T(j * (j - 1)) * fg.b[j];
-      const T sr = sqrt(r2s);
-      const T r = floor_at(sr, T(TINY));
-      const T gq = -ge / r;
-      const T gdq = -ge * T(2) * r;
-      const T gr = ge * q / (r * r) - ge * T(2) * dq;
-      const T gsr = sr >= T(TINY) ? gr : T(0);
-      gr2s = gr2s + gsr / (T(2) * sr) + gq * dq + gdq * ddq;
-      T pw = T(1), pw1 = T(1);
-#pragma unroll
-      for (int j = 0; j < N_ODD; ++j) {
-        gb[j] = gb[j] + gq * pw;
-        if (j >= 1) {
-          gb[j] = gb[j] + gdq * T(j) * pw1;
-          pw1 = pw1 * r2s;
-        }
-        pw = pw * r2s;
-      }
-    }
+    figure_slope_vjp<(fl & F_ASPHERIC) != 0, (fl & F_ODD) != 0>(
+        r2s, fg, ge, gf.a, gf.b, gr2s);
     gx1 = gx1 + T(2) * x1 * gr2s;
     gy1 = gy1 + T(2) * y1 * gr2s;
   }
@@ -224,35 +296,7 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     gk = gk - c * c * r2 * gw;
     gc = gc - T(2) * (T(1) + k) * c * r2 * gw + r2 * gnum;
     T gr2 = -kc2 * gw + c * gnum;
-    if (N_ASP) {
-      // -sum_i a_i r2^(i+1)
-      T d1 = T(0), pw = r2;
-#pragma unroll
-      for (int i = N_ASP - 1; i >= 0; --i)
-        d1 = d1 * r2 + T(i + 1) * fg.a[i];
-#pragma unroll
-      for (int i = 0; i < N_ASP; ++i) {
-        ga[i] = ga[i] - gF * pw;
-        pw = pw * r2;
-      }
-      gr2 = gr2 - gF * d1;
-    }
-    if (N_ODD) {
-      // -sqrt(r2) sum_j b_j r2^j
-      T q = T(0), dq = T(0);
-#pragma unroll
-      for (int j = N_ODD - 1; j >= 0; --j) q = q * r2 + fg.b[j];
-#pragma unroll
-      for (int j = N_ODD - 1; j >= 1; --j) dq = dq * r2 + T(j) * fg.b[j];
-      const T sr = sqrt(r2);
-      gr2 = gr2 - gF * q / (T(2) * sr) - gF * sr * dq;
-      T pw = sr;
-#pragma unroll
-      for (int j = 0; j < N_ODD; ++j) {
-        gb[j] = gb[j] - gF * pw;
-        pw = pw * r2;
-      }
-    }
+    figure_sag_vjp(r2, fg, gF, gf.a, gf.b, gr2);
     const T gpx = T(2) * px * gr2;
     const T gpy = T(2) * py * gr2;
     gx = gx + gpx; gy = gy + gpy; gz = gz + gF;
@@ -271,11 +315,7 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   pg[3] = off_axis ? -gy : T(0);
   pg[4] = -gz;
   pg[5] = gmu;
-  constexpr int q0 = PATH ? OPD_SLOTS : SLOTS;  // the first coefficient's
-#pragma unroll
-  for (int i = 0; i < N_ASP; ++i) pg[q0 + i] = ga[i];
-#pragma unroll
-  for (int j = 0; j < N_ODD; ++j) pg[q0 + N_ASP + j] = gb[j];
+  put_figure(gf, pg, PATH ? OPD_SLOTS : SLOTS);
 }
 
 // ---- the anamorphic rows' reverses (cuda_grad's torch models of the
@@ -311,10 +351,13 @@ __device__ __forceinline__ void biconic_ab_vjp(T px, T py, const Anam<T>& a,
 }
 
 // Reverse of the biconic's residual (cuda_grad._biconic_sag_vjp): adds
-// to gpx, gpy and gp (pz's cotangent is gF)
-template <typename T>
+// to gpx, gpy, gp and (FIG: the row's aspheric figure, in r2) gf (pz's
+// cotangent is gF)
+template <bool FIG, typename T>
 __device__ __forceinline__ void biconic_sag_vjp(T px, T py, const Anam<T>& a,
-                                                T gF, T& gpx, T& gpy, T* gp) {
+                                                const Figure<T>& fg, T gF,
+                                                T& gpx, T& gpy, T* gp,
+                                                FigureGrad<T>& gf) {
   const T x2 = px * px, y2 = py * py;
   const T num = a.pa * x2 + a.pc * y2;
   const T qx = (T(1) + a.pb) * a.pa * a.pa;
@@ -325,14 +368,22 @@ __device__ __forceinline__ void biconic_sag_vjp(T px, T py, const Anam<T>& a,
   const T ga = -gF / den;
   const T gb = -sqrt0_vjp(m, sq, gF * num / (den * den));
   biconic_ab_vjp(px, py, a, ga, gb, x2, y2, gpx, gpy, gp);
+  if constexpr (FIG) {
+    T gr2 = T(0);
+    figure_sag_vjp(x2 + y2, fg, gF, gf.a, gf.b, gr2);
+    gpx = gpx + T(2) * px * gr2;
+    gpy = gpy + T(2) * py * gr2;
+  }
 }
 
 // Reverse of biconic_normal (cuda_grad._biconic_normal_vjp) from the
-// cotangents of (gx, gy): adds to gx1, gy1 and gp
-template <typename T>
+// cotangents of (gx, gy): adds to gx1, gy1, gp and (FIG) gf
+template <bool FIG, typename T>
 __device__ __forceinline__ void biconic_normal_vjp(T x, T y, const Anam<T>& a,
+                                                   const Figure<T>& fg,
                                                    T ggx, T ggy, T& gx1,
-                                                   T& gy1, T* gp) {
+                                                   T& gy1, T* gp,
+                                                   FigureGrad<T>& gf) {
   const T x2 = x * x, y2 = y * y;
   const T num = a.pa * x2 + a.pc * y2;
   const T qx = (T(1) + a.pb) * a.pa * a.pa;
@@ -360,13 +411,29 @@ __device__ __forceinline__ void biconic_normal_vjp(T x, T y, const Anam<T>& a,
   gp[3] = gp[3] + gqy * a.pc * a.pc;
   const T gb = -sqrt0_vjp(m, sq, gsq);
   biconic_ab_vjp(x, y, a, ga, gb, x2, y2, gx1, gy1, gp);
+  if constexpr (FIG) {
+    // (gx, gy) -= (x, y) D(r2), D = dpoly_even + dpoly_odd
+    const T r2 = x2 + y2;
+    T d = T(0);
+    if (N_ASP) d = d + dpoly_even(r2, fg.a);
+    if (N_ODD) d = d + dpoly_odd(r2, fg.b);
+    gx1 = gx1 - d * ggx;
+    gy1 = gy1 - d * ggy;
+    T gr2 = T(0);
+    figure_slope_vjp<(N_ASP > 0), (N_ODD > 0)>(r2, fg, x * ggx + y * ggy,
+                                               gf.a, gf.b, gr2);
+    gx1 = gx1 + T(2) * x * gr2;
+    gy1 = gy1 + T(2) * y * gr2;
+  }
 }
 
 // Reverse of ycurve (cuda_grad._ycurve_vjp) from the cotangents of (zy,
-// dzy): adds to gy and to gcy, gky
-template <typename T>
-__device__ __forceinline__ void ycurve_vjp(T y, T cy, T ky, T gzy, T gdzy,
-                                           T& gy, T& gcy, T& gky) {
+// dzy): adds to gy, gcy, gky and (FIG: the figure in y^2) gf
+template <bool FIG, typename T>
+__device__ __forceinline__ void ycurve_vjp(T y, T cy, T ky,
+                                           const Figure<T>& fg, T gzy,
+                                           T gdzy, T& gy, T& gcy, T& gky,
+                                           FigureGrad<T>& gf) {
   const T y2 = y * y;
   const T m = T(1) - (T(1) + ky) * cy * cy * y2;
   const T sq = sqrt0(m);
@@ -380,16 +447,28 @@ __device__ __forceinline__ void ycurve_vjp(T y, T cy, T ky, T gzy, T gdzy,
   gky = gky - gm * cy * cy * y2;
   gcy = gcy - gm * T(2) * (T(1) + ky) * cy * y2;
   gy2 = gy2 - gm * (T(1) + ky) * cy * cy;
+  if constexpr (FIG) {
+    // zy += poly(y2), dzy += y D(y2), D = dpoly_even + dpoly_odd
+    T d = T(0);
+    if (N_ASP) d = d + dpoly_even(y2, fg.a);
+    if (N_ODD) d = d + dpoly_odd(y2, fg.b);
+    gy = gy + gdzy * d;
+    figure_sag_vjp(y2, fg, -gzy, gf.a, gf.b, gy2);
+    figure_slope_vjp<(N_ASP > 0), (N_ODD > 0)>(y2, fg, -gdzy * y, gf.a, gf.b,
+                                               gy2);
+  }
   gy = gy + T(2) * y * gy2;
 }
 
 // Reverse of the toroid's residual (cuda_grad._toroid_sag_vjp): adds to
-// gpx, gpy and gp = (gcr, gcy, gky) (pz's cotangent is gF)
-template <typename T>
+// gpx, gpy, gp = (gcr, gcy, gky) and (FIG) gf (pz's cotangent is gF)
+template <bool FIG, typename T>
 __device__ __forceinline__ void toroid_sag_vjp(T px, T py, const Anam<T>& a,
-                                               T gF, T& gpx, T& gpy, T* gp) {
+                                               const Figure<T>& fg, T gF,
+                                               T& gpx, T& gpy, T* gp,
+                                               FigureGrad<T>& gf) {
   T zy, dzy;
-  ycurve(py, a.pb, a.pc, zy, dzy);
+  ycurve<FIG>(py, a.pb, a.pc, fg, zy, dzy);
   const T den = T(1) - a.pa * zy;
   const T crp = a.pa / den;
   const T x2 = px * px;
@@ -402,18 +481,21 @@ __device__ __forceinline__ void toroid_sag_vjp(T px, T py, const Anam<T>& a,
   const T gx2 = gt * crp / d - gu * crp * crp;
   const T gden = -gcrp * a.pa / (den * den);
   gp[0] = gp[0] + gcrp / den - gden * zy;
-  ycurve_vjp(py, a.pb, a.pc, -gF - gden * a.pa, T(0), gpy, gp[1], gp[2]);
+  ycurve_vjp<FIG>(py, a.pb, a.pc, fg, -gF - gden * a.pa, T(0), gpy, gp[1],
+                  gp[2], gf);
   gpx = gpx + T(2) * px * gx2;
 }
 
 // Reverse of toroid_normal (cuda_grad._toroid_normal_vjp): adds to gx1,
-// gy1 and gp
-template <typename T>
+// gy1, gp and (FIG) gf
+template <bool FIG, typename T>
 __device__ __forceinline__ void toroid_normal_vjp(T x, T y, const Anam<T>& a,
+                                                  const Figure<T>& fg,
                                                   T ggx, T ggy, T& gx1,
-                                                  T& gy1, T* gp) {
+                                                  T& gy1, T* gp,
+                                                  FigureGrad<T>& gf) {
   T zy, dzy;
-  ycurve(y, a.pb, a.pc, zy, dzy);
+  ycurve<FIG>(y, a.pb, a.pc, fg, zy, dzy);
   const T den = T(1) - a.pa * zy;
   const T crp = a.pa / den;
   const T u = T(1) - x * x * crp * crp;
@@ -428,29 +510,41 @@ __device__ __forceinline__ void toroid_normal_vjp(T x, T y, const Anam<T>& a,
   gcrp = gcrp - gu * T(2) * x * x * crp;
   const T gden = -gcrp * a.pa / (den * den);
   gp[0] = gp[0] + gcrp / den - gden * zy;
-  ycurve_vjp(y, a.pb, a.pc, -gden * a.pa, gdzy, gy1, gp[1], gp[2]);
+  ycurve_vjp<FIG>(y, a.pb, a.pc, fg, -gden * a.pa, gdzy, gy1, gp[1], gp[2],
+                  gf);
   gx1 = gx1 + gx;
 }
 
 // Hand-derived reverse of an ANAMORPHIC row's step (surface_step with
-// F_CYL_Y, F_CYL_X, F_BICONIC or F_TOROID; no aspheric figure) for one
-// live ray, as surface_step_vjp (K5's and K7's layout, no path
-// cotangent).  A cylinder reverses its closed form in its curved
-// coordinate and its refraction by refraction_vjp on the normal with a
-// zero flat-axis component; a biconic or toroid refracts by its (gx, gy,
-// 1) normal, then its Newton root is differentiated implicitly, dF/dp
-// scaled by -gt / F_s.  pg: out, FIG_SLOTS cotangents (c, k, offset x,
-// y, z, mu, then curvature_dx and conic_dx at Q_CDX).  Its torch model is
-// cuda_grad._anamorphic_vjp_reference.
-template <typename T, typename Flags, typename Row>
+// F_CYL_Y, F_CYL_X, F_BICONIC or F_TOROID; a biconic or toroid with the
+// figure of the key's widths, when it has any) for one live ray, as
+// surface_step_vjp.  A cylinder
+// reverses its closed form in its curved coordinate and its refraction
+// by refraction_vjp on the normal with a zero flat-axis component; a
+// biconic or toroid refracts by its (gx, gy, 1) normal, then its Newton
+// root is differentiated implicitly, dF/dp scaled by -gt / F_s.  With
+// PATH (K9) the row's optical path t * n_before adds ct_path * n_before
+// to gt before the intercept's reverse (the implicit step's or the
+// closed form's), and n_before takes ct_path * t.  pg: out, without PATH
+// FIG_SLOTS cotangents (c, k, offset x, y, z, mu, a figured key's even
+// and odd coefficients -- a cylinder's zeros --, then curvature_dx and
+// conic_dx at Q_CDX), with
+// PATH OPD_FIG_SLOTS (n_before after mu; the rest one slot further on).
+// Its torch model is cuda_grad._anamorphic_vjp_reference.
+template <typename T, bool PATH, typename Flags, typename Row>
 __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
-                                                    T* g, T* pg) {
+                                                    T* g, T* pg, T ct_path) {
   constexpr int fl = Flags::value;
   constexpr bool off_axis = fl & F_OFF_AXIS;
   constexpr bool rotated = fl & F_ROTATED;
   constexpr int kind = (fl >> KIND_SHIFT) & 3;
   constexpr int cyl = (fl & F_CYL_Y) ? 1 : ((fl & F_CYL_X) ? 2 : 0);
   constexpr bool toroid = (fl & F_TOROID) != 0;
+  // a biconic's or toroid's Newton reads every coefficient of the key's
+  // widths, figured or not (surface_step)
+  constexpr bool fig = !cyl && N_ASP + N_ODD > 0;
+  static_assert(!cyl || !(fl & F_FIGURED),
+                "a cylinder row has no aspheric figure");
   const T c = p[P_C];
   const T k = p[P_K];
   const T mu = p[P_MU];
@@ -476,6 +570,9 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
   const T uw = cyl == 1 ? uy : ux;
   Anam<T> an{};
   if (!cyl) an = load_anam<toroid>(p, c, k);
+  Figure<T> fg{};
+  if constexpr (fig) fg = load_figure<T>(p);
+  FigureGrad<T> gf;
   T t, k1 = T(1), uyd = T(0), uu = T(0), yy = T(0), d = T(0), e = T(0);
   T f = T(0), sq = T(0), q = T(0), den = T(1);
   bool conj = false;
@@ -494,7 +591,7 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     if (den == T(0)) den = T(1);
     t = (conj ? f : -(d + q)) / den;
   } else {
-    t = anam_intercept<toroid>(x, y, z, ux, uy, uz, c, k, sg, an);
+    t = anam_intercept<toroid, fig>(x, y, z, ux, uy, uz, c, k, sg, an, fg);
   }
   const T x1 = x + t * ux;
   const T y1 = y + t * uy;
@@ -532,7 +629,7 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     gz1 = gz1 - kc * gnz;
   } else {
     T ngx, ngy, ggx, ggy, ggz;
-    anam_normal<toroid>(x1, y1, an, ngx, ngy);
+    anam_normal<toroid, fig>(x1, y1, an, fg, ngx, ngy);
     refraction_vjp(kind, false, mu, ux, uy, uz, ngx, ngy, T(1), gvx, gvy, gvz,
                    gux, guy, guz, ggx, ggy, ggz, gmu);
     if (kind == 2) {
@@ -542,21 +639,25 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
             (gvx * ngx + gvy * ngy + gvz);
     }
     if constexpr (toroid) {
-      toroid_normal_vjp(x1, y1, an, ggx, ggy, gx1, gy1, gp);
+      toroid_normal_vjp<fig>(x1, y1, an, fg, ggx, ggy, gx1, gy1, gp, gf);
     } else {
-      biconic_normal_vjp(x1, y1, an, ggx, ggy, gx1, gy1, gp);
+      biconic_normal_vjp<fig>(x1, y1, an, fg, ggx, ggy, gx1, gy1, gp, gf);
     }
   }
   // ---- reverse: transfer x1 = x + t u ----
   T gx = gx1, gy = gy1, gz = gz1;
   gux = gux + t * gx1; guy = guy + t * gy1; guz = guz + t * gz1;
-  const T gt = ux * gx1 + uy * gy1 + uz * gz1;
+  T gt = ux * gx1 + uy * gy1 + uz * gz1;
+  if constexpr (PATH) {
+    gt = gt + ct_path * p[P_NB];
+    pg[6] = ct_path * t;
+  }
   // ---- reverse: intercept ----
   if (cyl) {
-    T gd, gq, ge = T(0), gf = T(0);
+    T gd, gq, ge = T(0), gf0 = T(0);
     if (conj) {
       const T dd = q != d ? gt * f / (den * den) : T(0);
-      gf = gt / den;
+      gf0 = gt / den;
       gd = dd;
       gq = -dd;
     } else {
@@ -566,12 +667,12 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     const T gdisc = gq * sg * T(0.5) / sq;
     gd = gd + T(2) * d * gdisc;
     ge = ge - f * gdisc;
-    gf = gf - e * gdisc;
-    gp[0] = gp[0] + yy * gf + uu * ge + uyd * gd;
-    const T gyy = cc * gf;
+    gf0 = gf0 - e * gdisc;
+    gp[0] = gp[0] + yy * gf0 + uu * ge + uyd * gd;
+    const T gyy = cc * gf0;
     const T guyd = cc * gd;
     const T guu = cc * ge;
-    gz = gz - T(2) * gf + T(2) * k1 * z * gyy + k1 * uz * guyd;
+    gz = gz - T(2) * gf0 + T(2) * k1 * z * gyy + k1 * uz * guyd;
     guz = guz - gd + k1 * z * guyd + T(2) * k1 * uz * guu;
     const T gw = T(2) * w * gyy + uw * guyd;
     const T guw = w * guyd + T(2) * uw * guu;
@@ -585,14 +686,14 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     }
   } else {
     // the Newton root, implicitly: dF/dp * (-gt / F_s)
-    const T gF = -gt / anam_slope<toroid>(t, x, y, ux, uy, uz, an);
+    const T gF = -gt / anam_slope<toroid, fig>(t, x, y, ux, uy, uz, an, fg);
     const T px = x + t * ux;
     const T py = y + t * uy;
     T gpx = T(0), gpy = T(0);
     if constexpr (toroid) {
-      toroid_sag_vjp(px, py, an, gF, gpx, gpy, gp);
+      toroid_sag_vjp<fig>(px, py, an, fg, gF, gpx, gpy, gp, gf);
     } else {
-      biconic_sag_vjp(px, py, an, gF, gpx, gpy, gp);
+      biconic_sag_vjp<fig>(px, py, an, fg, gF, gpx, gpy, gp, gf);
     }
     gx = gx + gpx; gy = gy + gpy; gz = gz + gF;
     gux = gux + t * gpx; guy = guy + t * gpy; guz = guz + t * gF;
@@ -604,31 +705,36 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
   }
   g[0] = gx; g[1] = gy; g[2] = gz;
   g[3] = gux; g[4] = guy; g[5] = guz;
-  // the figure's parameters onto the row's
+  // the figure's parameters onto the row's: the coefficients from q0,
+  // curvature_dx and conic_dx after them
+  constexpr int q0 = PATH ? OPD_SLOTS : SLOTS;
+  constexpr int qd = q0 + N_ASP + N_ODD;
   if (cyl == 1) {
-    pg[0] = gp[0]; pg[1] = gp[1]; pg[Q_CDX] = T(0); pg[Q_CDX + 1] = T(0);
+    pg[0] = gp[0]; pg[1] = gp[1]; pg[qd] = T(0); pg[qd + 1] = T(0);
   } else if (cyl == 2) {
-    pg[0] = gp[0]; pg[1] = gp[1]; pg[Q_CDX] = gp[0]; pg[Q_CDX + 1] = gp[1];
+    pg[0] = gp[0]; pg[1] = gp[1]; pg[qd] = gp[0]; pg[qd + 1] = gp[1];
   } else if (toroid) {
     pg[0] = gp[0] + gp[1]; pg[1] = gp[2];
-    pg[Q_CDX] = gp[0]; pg[Q_CDX + 1] = T(0);
+    pg[qd] = gp[0]; pg[qd + 1] = T(0);
   } else {
     pg[0] = gp[0] + gp[2]; pg[1] = gp[1] + gp[3];
-    pg[Q_CDX] = gp[0]; pg[Q_CDX + 1] = gp[1];
+    pg[qd] = gp[0]; pg[qd + 1] = gp[1];
   }
   pg[2] = off_axis ? -gx : T(0);
   pg[3] = off_axis ? -gy : T(0);
   pg[4] = -gz;
   pg[5] = gmu;
+  put_figure(gf, pg, q0);
 }
 
 // Hand-derived reverse of surface_step for one live ray, the flags and
-// the row pointer as in surface_step (a figured row: figured_step_vjp;
-// an anamorphic row: anamorphic_step_vjp).
+// the row pointer as in surface_step (an anamorphic row, figured or not:
+// anamorphic_step_vjp; another figured row: figured_step_vjp).
 // s: the state entering the row (global frame).  g: in, the cotangent of
 // the state leaving the row; out, the cotangent of s.
 // pg: out, the row's parameter cotangents (c, k, offset x, y, z, mu;
-// with PATH also n_before; a figured row's coefficients after them).
+// with PATH also n_before; a figured row's coefficients after them, an
+// anamorphic row's curvature_dx and conic_dx last).
 // With PATH, ct_path is the cotangent of the row's optical path t *
 // n_before (K9); without it the path has none and the code is K5's and
 // K7's.  The aperture clip is a constant mask: a clipped ray is dead.
@@ -638,9 +744,7 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
                                                  const T* s, T* g, T* pg,
                                                  T ct_path = T(0)) {
   if constexpr ((Flags::value & F_ANAMORPHIC) != 0) {
-    static_assert(!PATH && !(Flags::value & F_FIGURED),
-                  "K9 and figured anamorphic rows are not traced yet");
-    anamorphic_step_vjp<T>(p, flags, s, g, pg);
+    anamorphic_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path);
     return;
   } else if constexpr ((Flags::value & F_FIGURED) != 0) {
     figured_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path);

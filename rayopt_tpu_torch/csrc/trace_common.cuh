@@ -6,7 +6,8 @@
 // constants (flat, spherical, conic and even/odd aspheric rows: the
 // latter by the seeded Newton intercept, `newton_intercept`; and the
 // anamorphic rows: a conic cylinder in closed form, `cyl_intercept`, a
-// biconic or toroid by the seeded Newton, `anam_intercept`), the
+// biconic or toroid, with or without an aspheric figure, by the seeded
+// Newton, `anam_intercept`), the
 // compile-time loop and the last block of a fused grid-wide sum.  Each
 // translation unit that includes it gets its own internal copies.
 
@@ -271,7 +272,7 @@ __device__ __forceinline__ T newton_intercept(T x, T y, T z, T ux, T uy,
   return s;
 }
 
-// ---- the anamorphic rows (no aspheric figure) ----
+// ---- the anamorphic rows ----
 
 // kernels.intercept_cyl: the closed-form root of the conic cylinder
 // c (w^2 + (1+k) z^2) - 2 z = 0 in its curved coordinate w, by the
@@ -329,19 +330,33 @@ struct Anam {
   T pa, pb, pc, pd;
 };
 
-// z - sag of a biconic (kernels.sag_biconic, no figure)
-template <typename T>
-__device__ __forceinline__ T biconic_sag(T px, T py, T pz, const Anam<T>& a) {
+// With FIG (a key of nonzero widths) a biconic or toroid adds the even
+// and odd polynomials of EVERY coefficient of the table's widths, as the
+// reference passes the whole coefficient rows, figured or not (a row of
+// zeros adds zeros): a biconic's in r2 = x^2 + y^2, a toroid's on its
+// generating curve in y^2 alone.
+
+// z - sag of a biconic (kernels.sag_biconic)
+template <bool FIG, typename T>
+__device__ __forceinline__ T biconic_sag(T px, T py, T pz, const Anam<T>& a,
+                                         const Figure<T>& fg) {
   const T x2 = px * px, y2 = py * py;
   const T num = a.pa * x2 + a.pc * y2;
   const T b = (T(1) + a.pb) * a.pa * a.pa * x2 + (T(1) + a.pd) * a.pc * a.pc * y2;
-  return pz - num / (T(1) + sqrt0(T(1) - b));
+  T e = pz - num / (T(1) + sqrt0(T(1) - b));
+  if constexpr (FIG) {
+    const T r2 = x2 + y2;
+    if (N_ASP) e = e - poly_even(r2, fg.a);
+    if (N_ODD) e = e - poly_odd(r2, fg.b);
+  }
+  return e;
 }
 
 // (gx, gy) of the biconic's normal (gx, gy, 1) (kernels.normal_biconic)
-template <typename T>
+template <bool FIG, typename T>
 __device__ __forceinline__ void biconic_normal(T x, T y, const Anam<T>& a,
-                                               T& gx, T& gy) {
+                                               const Figure<T>& fg, T& gx,
+                                               T& gy) {
   const T x2 = x * x, y2 = y * y;
   const T num = a.pa * x2 + a.pc * y2;
   const T qx = (T(1) + a.pb) * a.pa * a.pa;
@@ -351,64 +366,93 @@ __device__ __forceinline__ void biconic_normal(T x, T y, const Anam<T>& a,
   const T inv = T(1) / (T(1) + s);
   gx = -(T(2) * a.pa * x * (T(1) + s) + num * qx * x / ss) * inv * inv;
   gy = -(T(2) * a.pc * y * (T(1) + s) + num * qy * y / ss) * inv * inv;
+  if constexpr (FIG) {
+    const T r2 = x2 + y2;
+    if (N_ASP) {
+      const T d = dpoly_even(r2, fg.a);
+      gx = gx - x * d;
+      gy = gy - y * d;
+    }
+    if (N_ODD) {
+      const T d = dpoly_odd(r2, fg.b);
+      gx = gx - x * d;
+      gy = gy - y * d;
+    }
+  }
 }
 
-// The toroid's generating curve (kernels._ycurve, no figure): zy, dzy
-template <typename T>
-__device__ __forceinline__ void ycurve(T y, T cy, T ky, T& zy, T& dzy) {
+// The toroid's generating curve (kernels._ycurve): zy, dzy
+template <bool FIG, typename T>
+__device__ __forceinline__ void ycurve(T y, T cy, T ky, const Figure<T>& fg,
+                                       T& zy, T& dzy) {
   const T y2 = y * y;
   const T sq = sqrt0(T(1) - (T(1) + ky) * cy * cy * y2);
   zy = cy * y2 / (T(1) + sq);
   dzy = cy * y / floor_at(sq, T(TINY));
+  if constexpr (FIG) {
+    if (N_ASP) {
+      zy = zy + poly_even(y2, fg.a);
+      dzy = dzy + y * dpoly_even(y2, fg.a);
+    }
+    if (N_ODD) {
+      zy = zy + poly_odd(y2, fg.b);
+      dzy = dzy + y * dpoly_odd(y2, fg.b);
+    }
+  }
 }
 
-// z - sag of a toroid (kernels.sag_toroid, no figure)
-template <typename T>
-__device__ __forceinline__ T toroid_sag(T px, T py, T pz, const Anam<T>& a) {
+// z - sag of a toroid (kernels.sag_toroid)
+template <bool FIG, typename T>
+__device__ __forceinline__ T toroid_sag(T px, T py, T pz, const Anam<T>& a,
+                                        const Figure<T>& fg) {
   T zy, dzy;
-  ycurve(py, a.pb, a.pc, zy, dzy);
+  ycurve<FIG>(py, a.pb, a.pc, fg, zy, dzy);
   const T crp = a.pa / (T(1) - a.pa * zy);
   const T x2 = px * px;
   return pz - zy - crp * x2 / (T(1) + sqrt0(T(1) - x2 * crp * crp));
 }
 
 // (gx, gy) of the toroid's normal (kernels.normal_toroid)
-template <typename T>
+template <bool FIG, typename T>
 __device__ __forceinline__ void toroid_normal(T x, T y, const Anam<T>& a,
-                                              T& gx, T& gy) {
+                                              const Figure<T>& fg, T& gx,
+                                              T& gy) {
   T zy, dzy;
-  ycurve(y, a.pb, a.pc, zy, dzy);
+  ycurve<FIG>(y, a.pb, a.pc, fg, zy, dzy);
   const T crp = a.pa / (T(1) - a.pa * zy);
   const T w = floor_at(sqrt0(T(1) - x * x * crp * crp), T(TINY));
   gx = -x * crp / w;
   gy = -dzy / w;
 }
 
-template <bool TOROID, typename T>
-__device__ __forceinline__ T anam_sag(T px, T py, T pz, const Anam<T>& a) {
+template <bool TOROID, bool FIG, typename T>
+__device__ __forceinline__ T anam_sag(T px, T py, T pz, const Anam<T>& a,
+                                      const Figure<T>& fg) {
   if constexpr (TOROID) {
-    return toroid_sag(px, py, pz, a);
+    return toroid_sag<FIG>(px, py, pz, a, fg);
   } else {
-    return biconic_sag(px, py, pz, a);
+    return biconic_sag<FIG>(px, py, pz, a, fg);
   }
 }
 
-template <bool TOROID, typename T>
+template <bool TOROID, bool FIG, typename T>
 __device__ __forceinline__ void anam_normal(T x, T y, const Anam<T>& a,
-                                            T& gx, T& gy) {
+                                            const Figure<T>& fg, T& gx,
+                                            T& gy) {
   if constexpr (TOROID) {
-    toroid_normal(x, y, a, gx, gy);
+    toroid_normal<FIG>(x, y, a, fg, gx, gy);
   } else {
-    biconic_normal(x, y, a, gx, gy);
+    biconic_normal<FIG>(x, y, a, fg, gx, gy);
   }
 }
 
 // dF/ds of a biconic or toroid at distance s, a zero slope taken as 1
-template <bool TOROID, typename T>
+template <bool TOROID, bool FIG, typename T>
 __device__ __forceinline__ T anam_slope(T s, T x, T y, T ux, T uy, T uz,
-                                        const Anam<T>& a) {
+                                        const Anam<T>& a,
+                                        const Figure<T>& fg) {
   T gx, gy;
-  anam_normal<TOROID>(x + s * ux, y + s * uy, a, gx, gy);
+  anam_normal<TOROID, FIG>(x + s * ux, y + s * uy, a, fg, gx, gy);
   const T fp = ux * gx + uy * gy + uz;
   return fp == T(0) ? T(1) : fp;
 }
@@ -428,18 +472,21 @@ __device__ __forceinline__ Anam<T> load_anam(Row p, T c, T k) {
 // kernels.intercept_biconic / intercept_toroid: the y-conic root seeds
 // ASPHERIC_ITERS Newton steps (a missed seed restarts from the vertex
 // plane -z/uz), no early exit; a ray past newton_tol() is NaN.
-template <bool TOROID, typename T>
+template <bool TOROID, bool FIG, typename T>
 __device__ __forceinline__ T anam_intercept(T x, T y, T z, T ux, T uy, T uz,
                                             T cy, T ky, T sg,
-                                            const Anam<T>& a) {
+                                            const Anam<T>& a,
+                                            const Figure<T>& fg) {
   T s = conic_root(x, y, z, ux, uy, uz, cy, ky, sg);
   if (isnan(s)) s = -z / (uz == T(0) ? T(1) : uz);
 #pragma unroll 1
   for (int it = 0; it < ASPHERIC_ITERS; ++it) {
-    const T fn = anam_sag<TOROID>(x + s * ux, y + s * uy, z + s * uz, a);
-    s = s - fn / anam_slope<TOROID>(s, x, y, ux, uy, uz, a);
+    const T fn = anam_sag<TOROID, FIG>(x + s * ux, y + s * uy, z + s * uz, a,
+                                       fg);
+    s = s - fn / anam_slope<TOROID, FIG>(s, x, y, ux, uy, uz, a, fg);
   }
-  const T res = anam_sag<TOROID>(x + s * ux, y + s * uy, z + s * uz, a);
+  const T res = anam_sag<TOROID, FIG>(x + s * ux, y + s * uy, z + s * uz, a,
+                                      fg);
   if (!(fabs(res) <= newton_tol<T>() * (T(1) + fabs(s)))) s = qnan<T>();
   return s;
 }
@@ -496,9 +543,15 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   const T c = p[P_C];
   const T k = p[P_K];
   const bool figured = fl & F_FIGURED;
-  Figure<T> fg;
-  if (figured) fg = load_figure<T>(p);
   constexpr bool toroid = (Flags::value & F_TOROID) != 0;
+  // a biconic's or toroid's Newton reads every coefficient of the key's
+  // widths, figured or not (kernels.reads_figure; a figured cylinder is
+  // a biconic: specialize)
+  constexpr bool anam_fig = N_ASP + N_ODD > 0;
+  static_assert(!(Flags::value & F_CYL) || !(Flags::value & F_FIGURED),
+                "a cylinder row has no aspheric figure");
+  Figure<T> fg;
+  if (figured || ((fl & F_ANAM_NEWTON) && anam_fig)) fg = load_figure<T>(p);
   Anam<T> an{};
   if (fl & F_ANAM_NEWTON) an = load_anam<toroid>(p, c, k);
   // a cylinder's curvature and conic: (c, k) in y, (c + cdx, k + kdx) in x
@@ -516,7 +569,8 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   } else if (fl & F_CYL_X) {
     t = cyl_intercept(x, z, ux, uz, cc, kk, sg);
   } else if (fl & F_ANAM_NEWTON) {
-    t = anam_intercept<toroid>(x, y, z, ux, uy, uz, c, k, sg, an);
+    t = anam_intercept<toroid, anam_fig>(x, y, z, ux, uy, uz, c, k, sg,
+                                            an, fg);
   } else if (figured) {
     t = newton_intercept(x, y, z, ux, uy, uz, c, k,
                          (fl & F_ALTERNATE) ? T(-1) : T(1), fg);
@@ -571,7 +625,7 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
       cyl_refract(kind, x1, z1, mu, cc, kk, vx, vy, vz);
     } else if (fl & F_ANAM_NEWTON) {
       T gx, gy;
-      anam_normal<toroid>(x1, y1, an, gx, gy);
+      anam_normal<toroid, anam_fig>(x1, y1, an, fg, gx, gy);
       general_refract(kind, mu, gx, gy, vx, vy, vz);
     } else if (figured) {
       // the radial normal (x e, y e, 1) of _refract_figured: the conic

@@ -31,11 +31,15 @@ no), so autograd through the stacking (glass_tables, a broadcast
 curvature) sums the shared geometry.
 
 Every kernel here traces even- and odd-aspheric rows (the seeded Newton
-intercept); K5, K7 and K9 reverse such a row by hand (csrc/step_vjp.cuh
-figured_step_vjp): its refraction, then the Newton root implicitly, one
-residual gradient scaled by -gt/F_s, as kernels._NewtonRoot does (K9
-adds the row's path cotangent to gt first), and reduce the row's
-aspheric coefficients beside its six (K9: seven) columns.
+intercept) and the anamorphic rows (conic cylinders in closed form,
+biconics and toroids by the seeded Newton, with the figure of the
+table's widths); K5, K7 and K9 reverse such a row by hand
+(csrc/step_vjp.cuh figured_step_vjp, anamorphic_step_vjp): its
+refraction, then the Newton root implicitly, one residual gradient
+scaled by -gt/F_s, as kernels._NewtonRoot does (K9 adds the row's path
+cotangent to gt first), and reduce the row's aspheric coefficients
+beside its six (K9: seven) columns, then an anamorphic key's
+curvature_dx and conic_dx.
 
 `spot_moments` and `adjoint_spot_rms` bind K4/K5 in one
 torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`),
@@ -47,7 +51,8 @@ state and to the weights.  n_before, which feeds only the optical path,
 receives a zero cotangent.  The gradient semantics are those of the
 SPECIALIZED engine: a parameter the static specs bake out (the conic of
 a spherical row, the transverse offset of an on-axis row, mu of a
-passthrough row, the coefficients of a row with no figure) gets exactly
+passthrough row, the coefficients of a row that reads no figure --
+neither aspheric nor a biconic or toroid) gets exactly
 zero gradient, and the call warns once when such a parameter is the one
 being optimized.  rot is not
 differentiated: a rot (or tilt) that requires grad while some spec row
@@ -61,7 +66,8 @@ in a (5,) aux tensor) and returns k = -(path to the sphere)/lam_scale
 and the landing x, y per ray; K9 is its analytic adjoint, with the
 path cotangent feeding every row's t and n_before, so it returns
 OPD_SLOTS = 7 parameter cotangents a row (K5's six and n_before; then a
-figured table's coefficients) and the centre's three.
+figured table's coefficients and an anamorphic one's curvature_dx and
+conic_dx) and the centre's three.
 `adjoint_opd_rays` and `adjoint_wavefront_rms` bind them in `_OpdRays`
 (the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
@@ -107,11 +113,10 @@ OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
 AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
 #: differentiable table fields the autograd Functions carry (K9's
-#: fields; the spot moments' n_before gets a zero cotangent)
+#: fields, the anamorphic x figure last; the spot moments' n_before gets
+#: a zero cotangent)
 _DIFF = CS.OPD_FIELDS
-#: the spot moments' (_SpotMoments): K9's and the anamorphic x figure
-_MOMENT_DIFF = _DIFF + ("curvature_dx", "conic_dx")
-_NM = len(_MOMENT_DIFF)
+_NM = len(_DIFF)
 #: kernel-carried fields that never receive cotangents
 _NONDIFF = ("radius", "alternate")
 #: the fields the reference kernel carries (pallas_trace._FIELDS)
@@ -177,12 +182,31 @@ def _table_widths(table):
             int(table.aspherics_odd.shape[-1]))
 
 
-def _nslots(table, specs):
-    """K5's and K7's cotangent columns a row for a table and its specs:
-    SLOTS, the table's aspheric coefficients, and ANAM where a row is
-    anamorphic (cuda_trace.carries_anamorphic)."""
-    return SLOTS + sum(_table_widths(table)) \
+def _nslots(table, specs, base=SLOTS):
+    """K5's and K7's cotangent columns a row for a table and its specs
+    (K9's with base OPD_SLOTS): `base`, the table's aspheric
+    coefficients, and ANAM where a row is anamorphic
+    (cuda_trace.carries_anamorphic)."""
+    return base + sum(_table_widths(table)) \
         + (ANAM if carries_anamorphic(specs) else 0)
+
+
+def _key_columns(pg, key, nq, base=SLOTS):
+    """An adjoint key's (..., key.slots) cotangent columns widened to the
+    table's nq (_nslots): a key of a table with no aspheric row has no
+    coefficient columns, theirs are exact zeros (before the anamorphic
+    two)."""
+    if pg.shape[-1] == nq:
+        return pg
+    kq = base + key.na + key.no
+    return torch.cat([pg[..., :kq], pg.new_zeros(pg.shape[:-1] + (
+        nq - pg.shape[-1],)), pg[..., kq:]], -1)
+
+
+def _diff_values(table):
+    """The table's _DIFF fields, zeros for an absent anamorphic field."""
+    return [torch.zeros_like(table.curvature) if getattr(table, f) is None
+            else getattr(table, f) for f in _DIFF]
 
 
 def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
@@ -350,22 +374,23 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
     chain and tail of K8 dotted with cts = (ct_k, ct_lx, ct_ly).  A
     no-grad pre-trace finds the live rays (finite k); each dead ray is
     traced as the first live one (no NaN enters autograd) with zero
-    cotangents.  Returns (parameter cotangents (S, OPD_SLOTS + na + no):
-    c, k, offset x, y, z, mu, n_before, then the table's na even and no
-    odd aspheric coefficients; the six state cotangents; the (3,) centre
+    cotangents.  Returns (parameter cotangents (S, _nslots(table, specs,
+    OPD_SLOTS)): c, k, offset x, y, z, mu, n_before, then the table's na
+    even and no odd aspheric coefficients, then for anamorphic specs
+    curvature_dx and conic_dx; the six state cotangents; the (3,) centre
     cotangents), in the state's dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     with torch.no_grad():
         alive = torch.isfinite(_opd_chain(tab, specs, state, aux, clip)[0][0])
-    pg = torch.zeros((tab.nsurfaces, OPD_SLOTS + sum(_table_widths(tab))),
+    pg = torch.zeros((tab.nsurfaces, _nslots(tab, specs, OPD_SLOTS)),
                      dtype=x0.dtype, device=x0.device)
     if not bool(alive.any()):
         return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
             torch.zeros(3, dtype=x0.dtype, device=x0.device)
     i0 = int(torch.argmax(alive.to(torch.uint8)))
     nd = len(_DIFF)
-    leaves = [*(getattr(tab, f) for f in _DIFF), *state, aux]
+    leaves = [*_diff_values(tab), *state, aux]
     leaves = [v.detach().clone().requires_grad_() for v in leaves]
     with torch.enable_grad():
         sub = tuple(torch.where(alive, s, s[i0])
@@ -378,8 +403,9 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(leaves, grads)]
     g = tab.replace(**dict(zip(_DIFF, grads[:nd])))
-    pg = torch.cat([_param_rows(g)[:, :SLOTS], g.n_before[:, None],
-                    g.aspherics, g.aspherics_odd], 1)
+    rows = _param_rows(g, carries_anamorphic(specs))
+    pg = torch.cat([rows[:, :SLOTS], g.n_before[:, None], rows[:, SLOTS:]],
+                   1)
     return pg, tuple(grads[nd:nd + 6]), grads[-1][:3]
 
 
@@ -444,8 +470,7 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     rays never reach the reverse sweep."""
     K.check_supported(spec)
     if K.is_anamorphic_spec(spec):
-        CS.check_anamorphic(spec, "K9" if ct_path is not None else "K5")
-        return _anamorphic_vjp_reference(state, surf, spec, g)
+        return _anamorphic_vjp_reference(state, surf, spec, g, ct_path)
     if K.is_figured(spec):
         return _figured_vjp_reference(state, surf, spec, g, ct_path)
     x, y, z, ux, uy, uz = state
@@ -581,6 +606,64 @@ def _horner(r2, coeffs, scale=lambda i: 1, start=0):
     return d
 
 
+def _figure_slope_vjp(r2, asp, aspo, ge, ga, gb, gr2, even, odd):
+    """Reverse of e = e - _dpoly_even(r2) (`even`) - _dpoly_odd(r2)
+    (`odd`), a figure's slope in a normal, from e's cotangent ge: adds
+    the coefficients' cotangents into the lists ga, gb and returns gr2
+    plus r2's (csrc/step_vjp.cuh figure_slope_vjp)."""
+    if even:
+        dd = _horner(r2, asp, lambda i: 2*(i + 1)*i, 1)
+        pw = torch.ones_like(r2)
+        for i in range(asp.shape[-1]):
+            ga[i] = ga[i] - 2*(i + 1)*pw*ge
+            pw = pw*r2
+        gr2 = gr2 - dd*ge
+    if odd:
+        q = _horner(r2, aspo)
+        dq = _horner(r2, aspo, lambda j: j, 1)
+        ddq = _horner(r2, aspo, lambda j: j*(j - 1), 2)
+        sr = torch.sqrt(r2)
+        rr = torch.clamp(sr, min=K.TINY)
+        gq = -ge/rr
+        gdq = -ge*2*rr
+        gr = ge*q/(rr*rr) - ge*2*dq
+        gsr = torch.where(sr >= K.TINY, gr, 0.)
+        gr2 = gr2 + gsr/(2*sr) + gq*dq + gdq*ddq
+        pw = torch.ones_like(r2)
+        pw1 = torch.ones_like(r2)
+        for j in range(aspo.shape[-1]):
+            gb[j] = gb[j] + gq*pw
+            if j >= 1:
+                gb[j] = gb[j] + gdq*j*pw1
+                pw1 = pw1*r2
+            pw = pw*r2
+    return gr2
+
+
+def _figure_sag_vjp(r2, asp, aspo, gF, ga, gb, gr2):
+    """Reverse of F = F - _poly_even(r2) - _poly_odd(r2) (every
+    coefficient of the widths), a figure's sag in a residual, from F's
+    cotangent gF: adds the coefficients' cotangents into ga, gb and
+    returns gr2 plus r2's (csrc/step_vjp.cuh figure_sag_vjp)."""
+    if asp.shape[-1]:
+        d1 = _horner(r2, asp, lambda i: i + 1)
+        pw = r2
+        for i in range(asp.shape[-1]):
+            ga[i] = ga[i] - gF*pw
+            pw = pw*r2
+        gr2 = gr2 - gF*d1
+    if aspo.shape[-1]:
+        q = _horner(r2, aspo)
+        dq = _horner(r2, aspo, lambda j: j, 1)
+        sr = torch.sqrt(r2)
+        gr2 = gr2 - gF*q/(2*sr) - gF*sr*dq
+        pw = sr
+        for j in range(aspo.shape[-1]):
+            gb[j] = gb[j] - gF*pw
+            pw = pw*r2
+    return gr2
+
+
 def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     """Hand-derived reverse of an aspheric row's step (kernels.
     surface_step_spec with spec.aspheric or spec.odd) for live rays, the
@@ -643,33 +726,8 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
         gm = torch.where(m >= K.TINY, -.5*rs*rs*rs*(-c*ge), 0.)
         gk = gk - c*c*r2s*gm
         gc = gc - 2*(1 + k)*c*r2s*gm
-        gr2s = -kc2*gm
-        if spec.aspheric:
-            dd = _horner(r2s, asp, lambda i: 2*(i + 1)*i, 1)
-            pw = torch.ones_like(r2s)
-            for i in range(na):
-                ga[i] = ga[i] - 2*(i + 1)*pw*ge
-                pw = pw*r2s
-            gr2s = gr2s - dd*ge
-        if spec.odd:
-            q = _horner(r2s, aspo)
-            dq = _horner(r2s, aspo, lambda j: j, 1)
-            ddq = _horner(r2s, aspo, lambda j: j*(j - 1), 2)
-            sr = torch.sqrt(r2s)
-            rr = torch.clamp(sr, min=K.TINY)
-            gq = -ge/rr
-            gdq = -ge*2*rr
-            gr = ge*q/(rr*rr) - ge*2*dq
-            gsr = torch.where(sr >= K.TINY, gr, 0.)
-            gr2s = gr2s + gsr/(2*sr) + gq*dq + gdq*ddq
-            pw = torch.ones_like(r2s)
-            pw1 = torch.ones_like(r2s)
-            for j in range(no):
-                gb[j] = gb[j] + gq*pw
-                if j >= 1:
-                    gb[j] = gb[j] + gdq*j*pw1
-                    pw1 = pw1*r2s
-                pw = pw*r2s
+        gr2s = _figure_slope_vjp(r2s, asp, aspo, ge, ga, gb, -kc2*gm,
+                                 spec.aspheric, spec.odd)
         gx1, gy1 = gx1 + 2*x1*gr2s, gy1 + 2*y1*gr2s
     # ---- reverse: transfer x1 = x + t u ----
     gx, gy, gz = gx1, gy1, gz1
@@ -693,23 +751,7 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     gw = torch.where(w >= 0, gsq/(2*sq), 0.)
     gk = gk - c*c*r2*gw
     gc = gc - 2*(1 + k)*c*r2*gw + r2*gnum
-    gr2 = -kc2*gw + c*gnum
-    if na:
-        d1 = _horner(r2, asp, lambda i: i + 1)
-        pw = r2
-        for i in range(na):
-            ga[i] = ga[i] - gF*pw
-            pw = pw*r2
-        gr2 = gr2 - gF*d1
-    if no:
-        q = _horner(r2, aspo)
-        dq = _horner(r2, aspo, lambda j: j, 1)
-        sr = torch.sqrt(r2)
-        gr2 = gr2 - gF*q/(2*sr) - gF*sr*dq
-        pw = sr
-        for j in range(no):
-            gb[j] = gb[j] - gF*pw
-            pw = pw*r2
+    gr2 = _figure_sag_vjp(r2, asp, aspo, gF, ga, gb, -kc2*gw + c*gnum)
     gpx, gpy = 2*px*gr2, 2*py*gr2
     gx, gy, gz = gx + gpx, gy + gpy, gz + gF
     gux, guy, guz = gux + t*gpx, guy + t*gpy, guz + t*gF
@@ -735,9 +777,11 @@ def _floor_vjp(v, g):
     return torch.where(v >= K.TINY, g, 0.)
 
 
-def _biconic_sag_vjp(px, py, cx, kx, cy, ky, gF):
+def _biconic_sag_vjp(px, py, cx, kx, cy, ky, gF, fig=None):
     """Reverse of F = pz - (cx x^2 + cy y^2)/(1 + sqrt0(1 - B)),
-    B = (1+kx) cx^2 x^2 + (1+ky) cy^2 y^2 (kernels.sag_biconic): the
+    B = (1+kx) cx^2 x^2 + (1+ky) cy^2 y^2 (kernels.sag_biconic), less
+    the figure's polynomials in r2 = x^2 + y^2 with `fig` = (asp, aspo,
+    ga, gb) (their cotangents added into the lists ga, gb): the
     cotangents of (px, py, cx, kx, cy, ky) from gF (pz's is gF)."""
     x2, y2 = px*px, py*py
     a = cx*x2 + cy*y2
@@ -747,7 +791,12 @@ def _biconic_sag_vjp(px, py, cx, kx, cy, ky, gF):
     den = 1 + sq
     ga = -gF/den
     gb = -_sqrt0_vjp(m, sq, gF*a/(den*den))
-    return _biconic_ab_vjp(px, py, cx, kx, cy, ky, ga, gb, x2, y2)
+    gpx, gpy, *dp = _biconic_ab_vjp(px, py, cx, kx, cy, ky, ga, gb, x2, y2)
+    if fig is not None:
+        asp, aspo, fa, fb = fig
+        gr2 = _figure_sag_vjp(x2 + y2, asp, aspo, gF, fa, fb, 0.)
+        gpx, gpy = gpx + 2*px*gr2, gpy + 2*py*gr2
+    return (gpx, gpy, *dp)
 
 
 def _biconic_ab_vjp(px, py, cx, kx, cy, ky, ga, gb, x2, y2):
@@ -762,9 +811,20 @@ def _biconic_ab_vjp(px, py, cx, kx, cy, ky, ga, gb, x2, y2):
     return 2*px*gx2, 2*py*gy2, gcx, gkx, gcy, gky
 
 
-def _biconic_normal_vjp(x, y, cx, kx, cy, ky, ggx, ggy):
-    """Reverse of kernels.normal_biconic (no figure): the cotangents of
-    (x, y, cx, kx, cy, ky) from those of (gx, gy)."""
+def _figure_slope(r2, asp, aspo):
+    """D(r2) = _dpoly_even + _dpoly_odd of the widths present."""
+    d = torch.zeros_like(r2)
+    if asp.shape[-1]:
+        d = d + K._dpoly_even(r2, asp)
+    if aspo.shape[-1]:
+        d = d + K._dpoly_odd(r2, aspo)
+    return d
+
+
+def _biconic_normal_vjp(x, y, cx, kx, cy, ky, ggx, ggy, fig=None):
+    """Reverse of kernels.normal_biconic (with `fig` = (asp, aspo, ga,
+    gb) its figure's (x, y) D(r2) too): the cotangents of (x, y, cx, kx,
+    cy, ky) from those of (gx, gy)."""
     x2, y2 = x*x, y*y
     a = cx*x2 + cy*y2
     qx, qy = (1 + kx)*cx*cx, (1 + ky)*cy*cy
@@ -789,23 +849,43 @@ def _biconic_normal_vjp(x, y, cx, kx, cy, ky, ggx, ggy):
     gb = -_sqrt0_vjp(m, sq, gsq)
     dx, dy, dcx, dkx, dcy, dky = _biconic_ab_vjp(x, y, cx, kx, cy, ky, ga, gb,
                                                  x2, y2)
-    return (gx + dx, gy + dy, gcx + dcx, gkx + dkx, gcy + dcy, gky + dky)
+    gx, gy = gx + dx, gy + dy
+    if fig is not None:
+        asp, aspo, fa, fb = fig
+        r2 = x2 + y2
+        d = _figure_slope(r2, asp, aspo)
+        gx, gy = gx - d*ggx, gy - d*ggy
+        gr2 = _figure_slope_vjp(r2, asp, aspo, x*ggx + y*ggy, fa, fb, 0.,
+                                asp.shape[-1] > 0, aspo.shape[-1] > 0)
+        gx, gy = gx + 2*x*gr2, gy + 2*y*gr2
+    return (gx, gy, gcx + dcx, gkx + dkx, gcy + dcy, gky + dky)
 
 
-def _ycurve_fwd(y, cy, ky):
-    """The toroid's y curve (kernels._ycurve, no figure) with its
-    intermediates: (y2, m, sq, zy, sqs, dzy)."""
+def _ycurve_fwd(y, cy, ky, fig=None):
+    """The toroid's y curve (kernels._ycurve; with `fig` = (asp, aspo,
+    ...) its figure in y^2) with its intermediates: (y2, m, sq, zy, sqs,
+    dzy)."""
     y2 = y*y
     m = 1 - (1 + ky)*cy*cy*y2
     sq = K._sqrt0(m)
     zy = cy*y2/(1 + sq)
     sqs = torch.clamp(sq, min=K.TINY)
-    return y2, m, sq, zy, sqs, cy*y/sqs
+    dzy = cy*y/sqs
+    if fig is not None:
+        asp, aspo = fig[:2]
+        if asp.shape[-1]:
+            zy = zy + K._poly_even(y2, asp)
+            dzy = dzy + y*K._dpoly_even(y2, asp)
+        if aspo.shape[-1]:
+            zy = zy + K._poly_odd(y2, aspo)
+            dzy = dzy + y*K._dpoly_odd(y2, aspo)
+    return y2, m, sq, zy, sqs, dzy
 
 
-def _ycurve_vjp(y, cy, ky, gzy, gdzy):
-    """Reverse of _ycurve: the cotangents of (y, cy, ky) from those of
-    (zy, dzy)."""
+def _ycurve_vjp(y, cy, ky, gzy, gdzy, fig=None):
+    """Reverse of _ycurve (with `fig` = (asp, aspo, ga, gb) its figure
+    in y^2 too: zy + poly(y2), dzy + y D(y2)): the cotangents of (y, cy,
+    ky) from those of (zy, dzy)."""
     y2, m, sq, zy, sqs, dzy = _ycurve_fwd(y, cy, ky)
     gcy = gdzy*y/sqs + gzy*y2/(1 + sq)
     gy = gdzy*cy/sqs
@@ -815,14 +895,20 @@ def _ycurve_vjp(y, cy, ky, gzy, gdzy):
     gky = -gm*cy*cy*y2
     gcy = gcy - gm*2*(1 + ky)*cy*y2
     gy2 = gy2 - gm*(1 + ky)*cy*cy
+    if fig is not None:
+        asp, aspo, fa, fb = fig
+        gy = gy + gdzy*_figure_slope(y2, asp, aspo)
+        gy2 = _figure_sag_vjp(y2, asp, aspo, -gzy, fa, fb, gy2)
+        gy2 = _figure_slope_vjp(y2, asp, aspo, -gdzy*y, fa, fb, gy2,
+                                asp.shape[-1] > 0, aspo.shape[-1] > 0)
     return gy + 2*y*gy2, gcy, gky
 
 
-def _toroid_sag_vjp(px, py, cr, cy, ky, gF):
+def _toroid_sag_vjp(px, py, cr, cy, ky, gF, fig=None):
     """Reverse of F = pz - zy - crp x^2/(1 + sqrt0(1 - x^2 crp^2)),
-    crp = cr/(1 - cr zy) (kernels.sag_toroid): the cotangents of (px,
-    py, cr, cy, ky) from gF (pz's is gF)."""
-    zy = _ycurve_fwd(py, cy, ky)[3]
+    crp = cr/(1 - cr zy) (kernels.sag_toroid; `fig` as _ycurve_vjp's):
+    the cotangents of (px, py, cr, cy, ky) from gF (pz's is gF)."""
+    zy = _ycurve_fwd(py, cy, ky, fig)[3]
     den = 1 - cr*zy
     crp = cr/den
     x2 = px*px
@@ -835,14 +921,14 @@ def _toroid_sag_vjp(px, py, cr, cy, ky, gF):
     gx2 = gt*crp/d - gu*crp*crp
     gden = -gcrp*cr/(den*den)
     gcr = gcrp/den - gden*zy
-    gy, gcy, gky = _ycurve_vjp(py, cy, ky, -gF - gden*cr, 0.)
+    gy, gcy, gky = _ycurve_vjp(py, cy, ky, -gF - gden*cr, 0., fig)
     return 2*px*gx2, gy, gcr, gcy, gky
 
 
-def _toroid_normal_vjp(x, y, cr, cy, ky, ggx, ggy):
-    """Reverse of kernels.normal_toroid (no figure): the cotangents of
-    (x, y, cr, cy, ky) from those of (gx, gy)."""
-    _, _, _, zy, _, dzy = _ycurve_fwd(y, cy, ky)
+def _toroid_normal_vjp(x, y, cr, cy, ky, ggx, ggy, fig=None):
+    """Reverse of kernels.normal_toroid (`fig` as _ycurve_vjp's): the
+    cotangents of (x, y, cr, cy, ky) from those of (gx, gy)."""
+    _, _, _, zy, _, dzy = _ycurve_fwd(y, cy, ky, fig)
     den = 1 - cr*zy
     crp = cr/den
     u = 1 - x*x*crp*crp
@@ -857,36 +943,51 @@ def _toroid_normal_vjp(x, y, cr, cy, ky, ggx, ggy):
     gcrp = gcrp - gu*2*x*x*crp
     gden = -gcrp*cr/(den*den)
     gcr = gcrp/den - gden*zy
-    gy, gcy, gky = _ycurve_vjp(y, cy, ky, -gden*cr, gdzy)
+    gy, gcy, gky = _ycurve_vjp(y, cy, ky, -gden*cr, gdzy, fig)
     return gx, gy, gcr, gcy, gky
 
 
-def _general_normal(spec, x, y, c, k, cx, kx):
-    """The (gx, gy) normal of a biconic or toroid row (no figure)."""
+def _general_normal(spec, x, y, c, k, cx, kx, asp=None, aspo=None):
+    """The (gx, gy) normal of a biconic or toroid row (with asp, aspo
+    its aspheric figure)."""
     if spec.toroidal:
-        return K.normal_toroid(x, y, cx, c, k)
-    return K.normal_biconic(x, y, cx, kx, c, k)
+        return K.normal_toroid(x, y, cx, c, k, asp, aspo)
+    return K.normal_biconic(x, y, cx, kx, c, k, asp, aspo)
 
 
-def _anamorphic_vjp_reference(state, surf, spec, g):
+def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
     """Hand-derived reverse of an anamorphic row's step (kernels.
     surface_step_spec with spec.cyl_axis, spec.biconic or spec.toroidal;
-    no aspheric figure) for live rays, the line-for-line model of
-    `anamorphic_step_vjp` in csrc/step_vjp.cuh.  A cylinder reverses
-    its closed form in its one curved coordinate w (y for cyl_axis 1,
-    x for 2) and refracts by the normal (-C w, 1 - (1+K) C z); a biconic
-    or toroid refracts by its (gx, gy, 1) normal, then its Newton root
-    is differentiated implicitly, dF/dp scaled by -gt/F_s
-    (kernels._NewtonRoot).  The row reads (C, K) = (c, k) on a
+    a biconic or toroid also with an aspheric figure) for live rays, the
+    line-for-line model of `anamorphic_step_vjp` in csrc/step_vjp.cuh.
+    A cylinder reverses its closed form in its one curved coordinate w
+    (y for cyl_axis 1, x for 2) and refracts by the normal (-C w, 1 -
+    (1+K) C z); a biconic or toroid refracts by its (gx, gy, 1) normal,
+    then its Newton root is differentiated implicitly, dF/dp scaled by
+    -gt/F_s (kernels._NewtonRoot).  The row reads (C, K) = (c, k) on a
     y-cylinder, (c + curvature_dx, k + conic_dx) on an x-cylinder, (cx,
     kx, cy, ky) = (c + curvature_dx, k + conic_dx, c, k) on a biconic
-    and (cr, cy, ky) = (c + curvature_dx, c, k) on a toroid.  Returns
-    the entering state's cotangent and the per-ray parameter cotangents
-    (c, k, offset x, y, z, mu, then curvature_dx and conic_dx)."""
+    and (cr, cy, ky) = (c + curvature_dx, c, k) on a toroid; a biconic
+    or toroid, figured or not, every coefficient of the table's widths
+    (a biconic's in r^2, a toroid's in y^2).  With ct_path (K9's PATH) the row's optical path
+    t * n_before first adds ct_path * n_before to gt, and n_before
+    takes ct_path * t.  Returns the entering state's cotangent and the
+    per-ray parameter cotangents (c, k, offset x, y, z, mu, with ct_path
+    n_before, a biconic's or toroid's na even and no odd coefficients,
+    then curvature_dx and conic_dx)."""
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
     c, k, mu = surf.curvature, surf.conic, surf.mu
     cx, kx = c + surf.curvature_dx, k + surf.conic_dx
+    # a biconic's or toroid's Newton reads every coefficient of the
+    # table's widths, figured or not (kernels.reads_figure)
+    figured = K.reads_figure(spec) and bool(
+        surf.aspherics.shape[-1] + surf.aspherics_odd.shape[-1])
+    asp, aspo = ((surf.aspherics, surf.aspherics_odd) if figured
+                 else (None, None))
+    ga = [zero]*(asp.shape[-1] if figured else 0)
+    gb = [zero]*(aspo.shape[-1] if figured else 0)
+    fig = (asp, aspo, ga, gb) if figured else None
     # ---- forward recompute ----
     if spec.off_axis:
         x = x - surf.offset[0]
@@ -915,11 +1016,11 @@ def _anamorphic_vjp_reference(state, surf, spec, g):
         den = torch.where(den == 0, 1., den)
         t = torch.where(conj, f, -(d + q))/den
     elif spec.toroidal:
-        t = K.intercept_toroid(x, y, z, ux, uy, uz, cx, c, k, None,
-                               surf.alternate)
+        t = K.intercept_toroid(x, y, z, ux, uy, uz, cx, c, k, asp,
+                               surf.alternate, aspherics_odd=aspo)
     else:
-        t = K.intercept_biconic(x, y, z, ux, uy, uz, cx, kx, c, k, None,
-                                surf.alternate)
+        t = K.intercept_biconic(x, y, z, ux, uy, uz, cx, kx, c, k, asp,
+                                surf.alternate, aspherics_odd=aspo)
     x1, y1, z1 = x + t*ux, y + t*uy, z + t*uz
     # ---- reverse: leave the row's frame ----
     gx1, gy1, gz1, gvx, gvy, gvz = g
@@ -949,7 +1050,7 @@ def _anamorphic_vjp_reference(state, surf, spec, g):
             gx1 = gx1 - cc*gnw
         gz1 = gz1 - kc*gnz
     else:
-        ngx, ngy = _general_normal(spec, x1, y1, c, k, cx, kx)
+        ngx, ngy = _general_normal(spec, x1, y1, c, k, cx, kx, asp, aspo)
         (gux, guy, guz), (ggx, ggy, _), gmu = _refraction_vjp(
             spec.kind, False, mu, (ux, uy, uz), (ngx, ngy, 1.),
             (gvx, gvy, gvz))
@@ -960,15 +1061,19 @@ def _anamorphic_vjp_reference(state, surf, spec, g):
             gmu = -torch.sign(mu)*2*(ux*ngx + uy*ngy + uz)/nn \
                 * (gvx*ngx + gvy*ngy + gvz)
         if spec.toroidal:
-            dx, dy, *dp = _toroid_normal_vjp(x1, y1, cx, c, k, ggx, ggy)
+            dx, dy, *dp = _toroid_normal_vjp(x1, y1, cx, c, k, ggx, ggy, fig)
         else:
-            dx, dy, *dp = _biconic_normal_vjp(x1, y1, cx, kx, c, k, ggx, ggy)
+            dx, dy, *dp = _biconic_normal_vjp(x1, y1, cx, kx, c, k, ggx, ggy,
+                                              fig)
         gx1, gy1 = gx1 + dx, gy1 + dy
         gp = [a + b for a, b in zip(gp, dp)] + gp[len(dp):]
     # ---- reverse: transfer x1 = x + t u ----
     gx, gy, gz = gx1, gy1, gz1
     gux, guy, guz = gux + t*gx1, guy + t*gy1, guz + t*gz1
     gt = ux*gx1 + uy*gy1 + uz*gz1
+    if ct_path is not None:
+        gt = gt + ct_path*surf.n_before
+        gnb = ct_path*t
     # ---- reverse: intercept ----
     if cyl:
         dd = torch.where(conj & (q != d), gt*f/(den*den), 0.)
@@ -994,13 +1099,13 @@ def _anamorphic_vjp_reference(state, surf, spec, g):
     else:
         # the Newton root, implicitly: dF/dp * (-gt/F_s)
         px, py = x + t*ux, y + t*uy
-        ngx, ngy = _general_normal(spec, px, py, c, k, cx, kx)
+        ngx, ngy = _general_normal(spec, px, py, c, k, cx, kx, asp, aspo)
         fs = ux*ngx + uy*ngy + uz
         gF = -gt/torch.where(fs == 0, 1., fs)
         if spec.toroidal:
-            gpx, gpy, *dp = _toroid_sag_vjp(px, py, cx, c, k, gF)
+            gpx, gpy, *dp = _toroid_sag_vjp(px, py, cx, c, k, gF, fig)
         else:
-            gpx, gpy, *dp = _biconic_sag_vjp(px, py, cx, kx, c, k, gF)
+            gpx, gpy, *dp = _biconic_sag_vjp(px, py, cx, kx, c, k, gF, fig)
         gp = [a + b for a, b in zip(gp, dp)] + gp[len(dp):]
         gx, gy, gz = gx + gpx, gy + gpy, gz + gF
         gux, guy, guz = gux + t*gpx, guy + t*gpy, guz + t*gF
@@ -1019,8 +1124,9 @@ def _anamorphic_vjp_reference(state, surf, spec, g):
         gc, gk, gcdx, gkdx = gp[0] + gp[2], gp[1] + gp[3], gp[0], gp[1]
     gox = -gx if spec.off_axis else zero
     goy = -gy if spec.off_axis else zero
+    nb = () if ct_path is None else (gnb,)
     return ((gx, gy, gz, gux, guy, guz),
-            (gc, gk, gox, goy, -gz, gmu, gcdx, gkdx))
+            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, gcdx, gkdx))
 
 
 def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
@@ -1056,17 +1162,23 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     for j in range(nsurf - 1, 0, -1):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        sums = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
-        if K.is_anamorphic_spec(specs[j]):
-            # an anamorphic row's curvature_dx and conic_dx: the last two
-            pg[j, :SLOTS] = sums[:SLOTS]
-            pg[j, -ANAM:] = sums[SLOTS:]
-        else:
-            # a row with no figure has no aspheric slots (zeros)
-            pg[j, :len(pj)] = sums
+        _put_row(pg, j, specs[j], pj, live)
     if specs[0].rotated:
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
     return pg, g, ct_w
+
+
+def _put_row(pg, j, spec, pj, live):
+    """Row j of the by-hand models' parameter cotangents: the sums over
+    the live rays of _step_vjp_reference's per-ray ones (a row that
+    reads no figure has no aspheric slots: zeros; an anamorphic row's
+    curvature_dx and conic_dx are the last two)."""
+    sums = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+    if K.is_anamorphic_spec(spec):
+        pg[j, :len(pj) - ANAM] = sums[:-ANAM]
+        pg[j, -ANAM:] = sums[-ANAM:]
+    else:
+        pg[j, :len(pj)] = sums
 
 
 def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False):
@@ -1129,7 +1241,7 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
     g, pj, gc = _opd_tail_vjp_reference(tab.row(nsurf - 1), specs[nsurf - 1],
                                         o, ct_path, ct_lx, ct_ly)
     g = tuple(torch.where(live, v, 0.) for v in g)
-    pg = torch.zeros((nsurf, OPD_SLOTS + sum(_table_widths(tab))),
+    pg = torch.zeros((nsurf, _nslots(tab, specs, OPD_SLOTS)),
                      dtype=x0.dtype, device=x0.device)
     pg[nsurf - 1, :OPD_SLOTS] = torch.stack([torch.where(live, v, 0.).sum()
                                              for v in pj])
@@ -1138,9 +1250,7 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g,
                                     ct_path=ct_path)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        # a row with no figure has no aspheric slots (zeros)
-        pg[j, :len(pj)] = torch.stack([torch.where(live, v, 0.).sum()
-                                       for v in pj])
+        _put_row(pg, j, specs[j], pj, live)
     if specs[0].rotated:
         r0 = tab.rot[0]
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
@@ -1270,12 +1380,7 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                        *((o.data_ptr() for o in outs) if rays
                          else (None,)*7), n, grid, stream))
     merit_adjoint.launches += 1
-    if pg.shape[1] != nq:
-        # a key of a table with no aspheric row has no coefficient
-        # slots: theirs are exact zeros (before the anamorphic two)
-        kq = SLOTS + kern.key.na + kern.key.no
-        pg = torch.cat([pg[:, :kq], pg.new_zeros((len(specs), nq - pg.shape[1])),
-                        pg[:, kq:]], 1)
+    pg = _key_columns(pg, kern.key, nq)
     if not rays:
         return pg, None, None
     return pg, tuple(outs[:6]), outs[6]
@@ -1350,11 +1455,11 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
     na, no = _table_widths(tables)
+    nq = _nslots(tables, specs)
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
                                                    ct, clip)
-        live = CS.live_mask(CS.live_slots(specs, fields, (na, no)),
-                            _nslots(tables, specs))
+        live = CS.live_mask(CS.live_slots(specs, fields, (na, no)), nq)
         pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
@@ -1362,7 +1467,7 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                                  bool(rays), figure_widths(tables, specs))
     tab = packed(tables, specs, x)
     if not n:
-        pg = torch.zeros((nlam, len(specs), SLOTS + na + no), dtype=x.dtype,
+        pg = torch.zeros((nlam, len(specs), nq), dtype=x.dtype,
                          device=device)
         return (pg, tuple(torch.zeros_like(x) for _ in range(6)),
                 torch.zeros_like(x)) if rays else (pg, None, None)
@@ -1378,8 +1483,7 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                        *((o.data_ptr() for o in outs) if rays
                          else (None,)*7), n, nlam, grid, stream))
     merit_adjoint_multi.launches += 1
-    # a key of a stack with no aspheric row has no coefficient slots
-    pg = torch.nn.functional.pad(pg, (0, SLOTS + na + no - pg.shape[-1]))
+    pg = _key_columns(pg, kern.key, nq)
     if not rays:
         return pg, None, None
     return pg, tuple(outs[:6]), outs[6]
@@ -1438,7 +1542,7 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
     na, no = _table_widths(table)
-    nq = OPD_SLOTS + na + no
+    nq = _nslots(table, specs, OPD_SLOTS)
     if x.device.type == "cpu":
         pg, st, gc = opd_adjoint_reference(table, specs, state, aux, cts,
                                            clip)
@@ -1450,7 +1554,8 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
                                bool(rays), figure_widths(table, specs))
     tab = packed(table, specs, x)
     nsurf = len(specs)
-    # the key's columns: OPD_SLOTS, and the coefficients of a figured key
+    # the key's columns: OPD_SLOTS, the coefficients of a figured key and
+    # the anamorphic two of an anamorphic one
     kq = kern.key.slots
     if not n:
         out = torch.zeros(nsurf*kq + 3, dtype=x.dtype, device=device)
@@ -1468,9 +1573,8 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
                            *((o.data_ptr() for o in st) if rays
                              else (None,)*6), n, grid, stream))
         opd_adjoint.launches += 1
-    # a key of a table with no aspheric row has no coefficient slots
-    pg = torch.nn.functional.pad(out[:nsurf*kq].view(nsurf, kq),
-                                 (0, nq - kq))
+    pg = _key_columns(out[:nsurf*kq].view(nsurf, kq), kern.key, nq,
+                      OPD_SLOTS)
     return pg, st, out[nsurf*kq:]
 
 
@@ -1489,7 +1593,7 @@ class _SpotMoments(torch.autograd.Function):
         params, state, w = tensors[:_NM], tensors[_NM:_NM + 6], tensors[-1]
         ctx.table, ctx.specs, ctx.clip, ctx.multi = table, specs, clip, multi
         ctx.save_for_backward(*tensors)
-        tab = table.replace(**dict(zip(_MOMENT_DIFF, params)))
+        tab = table.replace(**dict(zip(_DIFF, params)))
         fwd = weighted_moments_multi if multi else weighted_moments
         return fwd(tab, specs, state, w, clip)
 
@@ -1497,10 +1601,10 @@ class _SpotMoments(torch.autograd.Function):
     def backward(ctx, ct):
         tensors = ctx.saved_tensors
         params, state, w = tensors[:_NM], tensors[_NM:_NM + 6], tensors[-1]
-        tab = ctx.table.replace(**dict(zip(_MOMENT_DIFF, params)))
+        tab = ctx.table.replace(**dict(zip(_DIFF, params)))
         # K5/K7 reduce only the slots autograd asks for, and write the
         # ray and weight cotangents only when they are wanted
-        need = dict(zip(_MOMENT_DIFF, ctx.needs_input_grad[4:4 + _NM]))
+        need = dict(zip(_DIFF, ctx.needs_input_grad[4:4 + _NM]))
         fields = tuple(f for f in CS.FIELDS if need[f])
         adjoint = merit_adjoint_multi if ctx.multi else merit_adjoint
         pg, ct_state, ct_w = adjoint(
@@ -1558,6 +1662,20 @@ def _warn_baked_params(specs, params):
                 % (f, rows, detail), stacklevel=4)
 
 
+def _warn_diff_params(table, specs):
+    """_warn_baked_params over the fields the adjoint merits carry: the
+    coefficient tables of nonzero width and, where a row reads it, the
+    anamorphic x figure."""
+    params = {f: getattr(table, f) for f in _FIELDS
+              if f not in ("aspherics", "aspherics_odd")
+              or getattr(table, f).shape[-1]}
+    if carries_anamorphic(specs):
+        params.update({f: getattr(table, f)
+                       for f in ("curvature_dx", "conic_dx")
+                       if getattr(table, f) is not None})
+    _warn_baked_params(specs, params)
+
+
 def _resolve_specs(table, specs, diff_pose):
     """Static specs: derived from the concrete table unless given.  A
     pose that requires grad keeps every row's rotated/off_axis flags
@@ -1609,20 +1727,10 @@ def _moments(table, specs, state, w, clip, multi):
             "the adjoint merit does not differentiate rot/tilt yet (the "
             "rot cotangent, ROADMAP Queue 1 item 9); use the generic "
             "engine (parallel.grad.spot_rms) for pose gradients")
-    params = {f: getattr(table, f) for f in _FIELDS
-              if f not in ("aspherics", "aspherics_odd")
-              or getattr(table, f).shape[-1]}
-    # the anamorphic x figure, where a row reads it
-    anam = {f: getattr(table, f) for f in ("curvature_dx", "conic_dx")
-            if getattr(table, f) is not None}
-    if carries_anamorphic(specs):
-        params.update(anam)
-    _warn_baked_params(specs, params)
+    _warn_diff_params(table, specs)
     x = state[0]
-    diff = [(anam[f] if f in anam else torch.zeros_like(table.curvature))
-            if f in ("curvature_dx", "conic_dx") else getattr(table, f)
-            for f in _MOMENT_DIFF]
-    diff = [v.to(device=x.device, dtype=x.dtype) for v in diff]
+    diff = [v.to(device=x.device, dtype=x.dtype)
+            for v in _diff_values(table)]
     w = torch.as_tensor(w).to(device=x.device, dtype=x.dtype)
     return _SpotMoments.apply(_constant_table(table, x), specs, bool(clip),
                               multi, *diff, *state, w)
@@ -1686,7 +1794,8 @@ class _OpdRays(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, specs, clip, *tensors):
-        params, state, aux = tensors[:7], tensors[7:13], tensors[13]
+        params, state, aux = (tensors[:_NM], tensors[_NM:_NM + 6],
+                              tensors[-1])
         ctx.table, ctx.specs, ctx.clip = table, specs, clip
         ctx.save_for_backward(*tensors)
         tab = table.replace(**dict(zip(_DIFF, params)))
@@ -1695,23 +1804,30 @@ class _OpdRays(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_k, ct_lx, ct_ly):
         tensors = ctx.saved_tensors
-        params, state, aux = tensors[:7], tensors[7:13], tensors[13]
+        params, state, aux = (tensors[:_NM], tensors[_NM:_NM + 6],
+                              tensors[-1])
         tab = ctx.table.replace(**dict(zip(_DIFF, params)))
         # K9 reduces only the slots autograd asks for (and the centre's
         # three: the sphere centre's trace may need them), and writes the
         # ray cotangents only when they are wanted
         need = ctx.needs_input_grad
-        fields = tuple(f for f, nd in zip(_DIFF, need[3:10]) if nd)
+        fields = tuple(f for f, nd in zip(_DIFF, need[3:3 + _NM]) if nd)
         pg, ct_state, ct_c = opd_adjoint(
             tab, ctx.specs, state, aux,
             tuple(c.contiguous() for c in (ct_k, ct_lx, ct_ly)), ctx.clip,
-            fields=fields, rays=any(need[10:16]))
+            fields=fields, rays=any(need[3 + _NM:9 + _NM]))
         if ct_state is None:
             ct_state = (None,)*6
-        na = params[5].shape[-1]
+        na, no = params[5].shape[-1], params[6].shape[-1]
+        q = OPD_SLOTS + na + no
+        if pg.shape[-1] > q:
+            # an anamorphic key's curvature_dx and conic_dx columns
+            gdx = (pg[:, q], pg[:, q + 1])
+        else:
+            gdx = (torch.zeros_like(params[7]), torch.zeros_like(params[8]))
         grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
                  pg[:, 6], pg[:, OPD_SLOTS:OPD_SLOTS + na].contiguous(),
-                 pg[:, OPD_SLOTS + na:].contiguous())
+                 pg[:, OPD_SLOTS + na:q].contiguous(), *gdx)
         # radius and lam_scale are constants of the merit
         ct_aux = torch.cat([ct_c, torch.zeros_like(ct_c[:2])])
         return (None, None, None, *grads, *ct_state, ct_aux)
@@ -1748,10 +1864,7 @@ def adjoint_opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
     y0 = torch.as_tensor(y0)
     u0 = torch.as_tensor(u0)
     x = y0
-    params = {f: getattr(table, f) for f in _FIELDS
-              if f not in ("aspherics", "aspherics_odd")
-              or getattr(table, f).shape[-1]}
-    _warn_baked_params(specs, params)
+    _warn_diff_params(table, specs)
     # the sphere centre: the reference ray's image point (local frame),
     # one differentiable ray through the plain trace
     yr, _, _ = trace_rays_final(table, y0[ref:ref + 1], u0[ref:ref + 1],
@@ -1759,8 +1872,8 @@ def adjoint_opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
     lam_scale = wavelength/scale
     aux = torch.cat([yr[0], torch.as_tensor(
         [float(radius), lam_scale], dtype=x.dtype).to(x.device)])
-    diff = [getattr(table, f).to(device=x.device, dtype=x.dtype)
-            for f in _DIFF]
+    diff = [v.to(device=x.device, dtype=x.dtype)
+            for v in _diff_values(table)]
     state = tuple(c.contiguous() for c in (*K.split(y0), *K.split(u0)))
     k, lx, ly = _OpdRays.apply(_constant_table(table, x), specs, bool(clip),
                                *diff, *state, aux)

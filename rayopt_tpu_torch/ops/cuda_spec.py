@@ -25,27 +25,28 @@ K3's and K6's wavelengths.
 
 Every K1-K9 key also takes even- and odd-aspheric rows: it carries the
 table's coefficient widths (Key.na, Key.no; cuda_trace.figure_widths, 0
-and 0 without an aspheric row), which the translation unit defines
+and 0 without a row that reads them), which the translation unit defines
 before the headers, so that a packed row grows by na + no words and the
-Newton's Horner loops have compile-time bounds.  The K1, K2, K4 and K5
-keys take the anamorphic rows (conic cylinders, biconics, toroids; not
-with an aspheric figure): such a key's rows grow by curvature_dx and
-conic_dx (Key.anamorphic, cuda_trace.carries_anamorphic; RAYOPT_N_ANAM),
-K5's slots by their cotangents.  K3 and K6-K9 refuse them, and every key
-refuses the grating, DOE and freeform rows (NotImplementedError,
-ROADMAP Queue 1 item 9).  A row word is 64 bits: its flags below
-LIVE_SHIFT, its live slots above.
+Newton's Horner loops have compile-time bounds.  Every K1-K9 key takes
+the anamorphic rows too (conic cylinders, biconics and toroids, the
+latter two also with an aspheric figure): such a key's rows grow by
+curvature_dx and conic_dx (Key.anamorphic, cuda_trace.
+carries_anamorphic; RAYOPT_N_ANAM), an adjoint's slots by their
+cotangents.  Every key refuses the grating, DOE and freeform rows
+(NotImplementedError, ROADMAP Queue 1 item 9).  A row word is 64 bits:
+its flags below LIVE_SHIFT, its live slots above.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns, then a figured key's na even and no odd
-coefficients, then an anamorphic K5 key's curvature_dx and conic_dx; K9
+coefficients, then an anamorphic key's curvature_dx and conic_dx; K9
 puts n_before between the six and the coefficients, OPD_SLOTS + na + no
-a row) are the fields asked for, minus what the
+[+ 2] a row) are the fields asked for, minus what the
 row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
 row, conic of a flat or spherical row -- both live on an aspheric row,
 whose Newton reads them through the sag --, the transverse offset of an
-on-axis row, mu of a passthrough row, the coefficients of a row with no
-figure); the axial offset is never baked out.  K9's image row is read
+on-axis row, mu of a passthrough row, the coefficients of a row that
+reads no figure: neither aspheric nor a biconic or toroid); the axial
+offset is never baked out.  K9's image row is read
 only by the reference-sphere tail, which reads its offset (the
 transverse part only off axis), its rotation and its n_before, never
 its curvature, conic or mu; every other row's n_before carries its
@@ -82,23 +83,19 @@ LIVE_SHIFT = 14    # a row word's live slots: keep in sync with grad_spec.cuh
 LIVE_BITS = 63 - LIVE_SHIFT   # the slots a (64-bit) row word can hold
 SLOTS = 6          # K5's and K7's cotangent columns a row (a figured
 #                    key adds its table's aspheric coefficients, an
-#                    anamorphic K5 key then curvature_dx and conic_dx)
-OPD_SLOTS = 7      # K9's: SLOTS and n_before (then a figured key's
-#                    coefficients)
+#                    anamorphic key then curvature_dx and conic_dx)
+OPD_SLOTS = 7      # K9's: SLOTS and n_before (then as K5's)
 #: the table field of each of K9's first OPD_SLOTS cotangent columns
 #: (K5/K7: the first SLOTS); the even, then the odd aspheric
 #: coefficients follow them
 SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
                "n_before")
 #: the fields K5 and K7 differentiate (a key of a table with no aspheric
-#: row: the first four; the last two only an anamorphic K5 key)
+#: row: the first four; the last two only an anamorphic key)
 FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd",
           "curvature_dx", "conic_dx")
 #: the fields K9 differentiates, in the order of cuda_grad._DIFF
-OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:6]
-#: the kernels whose keys take anamorphic rows; the others' keys refuse
-#: them (ROADMAP Queue 1 item 9)
-ANAMORPHIC_KERNELS = ("k1", "k2", "k4", "k5")
+OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:]
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
            "df32_common.cuh", "df32_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
@@ -169,7 +166,8 @@ def baked_out_rows(specs, field):
     pallas_grad._baked_out_rows).  An aspheric row's Newton reads its
     curvature and conic through the sag even when the row's flat or
     spherical flag is set, and every aspheric coefficient of both
-    widths; a row with neither figure reads none of them.  An
+    widths, as a biconic's or toroid's Newton does with or without a
+    figure (kernels.reads_figure); another row reads none of them.  An
     anamorphic row reads its curvature and conic always; curvature_dx
     on an x-cylinder, a biconic and a toroid, conic_dx on an x-cylinder
     and a biconic.  A y-cylinder reads neither: the reference's rule
@@ -193,8 +191,8 @@ def baked_out_rows(specs, field):
              "offset": lambda sp: not sp.off_axis,   # transverse x/y
              "mu": lambda sp: sp.kind == 0,
              "rot": lambda sp: not sp.rotated,
-             "aspherics": lambda sp: not K.is_figured(sp),
-             "aspherics_odd": lambda sp: not K.is_figured(sp)}.get(field)
+             "aspherics": lambda sp: not K.reads_figure(sp),
+             "aspherics_odd": lambda sp: not K.reads_figure(sp)}.get(field)
     if baked is None:
         return []
     return [j for j, sp in enumerate(specs) if j and baked(sp)]
@@ -207,6 +205,11 @@ def _coefficients(widths):
     return ("aspherics",)*na + ("aspherics_odd",)*no
 
 
+def _anamorphic(specs):
+    """The slot fields of an anamorphic key's two last slots."""
+    return ("curvature_dx", "conic_dx") if carries_anamorphic(specs) else ()
+
+
 def live_slots(specs, fields=FIELDS, widths=(0, 0)):
     """One mask a row of the slots K5 and K7 reduce -- SLOTS bits, then
     with `widths` = (na, no) (the key's, figure_widths) one a
@@ -214,23 +217,25 @@ def live_slots(specs, fields=FIELDS, widths=(0, 0)):
     curvature_dx and conic_dx: the `fields` asked for, minus the rows
     the specs bake them out of (the axial offset, slot 4, never is;
     baked_out_rows).  Row 0 has none."""
-    anam = ("curvature_dx", "conic_dx") if carries_anamorphic(specs) else ()
     return _live_slots(specs, fields, FIELDS,
-                       SLOT_FIELDS[:SLOTS] + _coefficients(widths) + anam)
+                       SLOT_FIELDS[:SLOTS] + _coefficients(widths)
+                       + _anamorphic(specs))
 
 
 def opd_live_slots(specs, fields=OPD_FIELDS, widths=(0, 0)):
     """One mask a row of the slots K9 reduces -- OPD_SLOTS bits, then
-    with `widths` one a coefficient (live_slots' layout with n_before,
-    slot 6, between mu and the coefficients): live_slots' rule with
-    n_before on every row but row 0, except on the image row, which the
+    with `widths` one a coefficient, then for anamorphic specs
+    curvature_dx and conic_dx (live_slots' layout with n_before, slot 6,
+    between mu and the coefficients): live_slots' rule with n_before on
+    every row but row 0, except on the image row, which the
     reference-sphere tail reads only through its offset (the transverse
-    part only off axis) and its n_before."""
+    part only off axis) and its n_before, whatever its figure."""
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
     masks = list(_live_slots(specs, fields, OPD_FIELDS,
-                             SLOT_FIELDS + _coefficients(widths)))
+                             SLOT_FIELDS + _coefficients(widths)
+                             + _anamorphic(specs)))
     tail = (1 << 4) | (1 << 6) | ((1 << 2) | (1 << 3)
                                   if specs[-1].off_axis else 0)
     masks[-1] &= tail
@@ -319,7 +324,7 @@ class Key(NamedTuple):
     @property
     def slots(self):
         """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS),
-        the coefficients and (K5) the anamorphic words."""
+        the coefficients and the anamorphic words."""
         return (OPD_SLOTS if self.kernel == "k9" else SLOTS) \
             + self.na + self.no + self.anam_words
 
@@ -370,29 +375,11 @@ def _dtype_name(dtype):
     raise TypeError("rays must be float32 or float64, got %s" % dtype)
 
 
-def check_anamorphic(spec, what, j=None):
-    """Raise NotImplementedError (item 9) for an anamorphic row that
-    `what`'s key ("K1" ... "K9") does not trace: one of K3, K6-K9, or
-    one with an aspheric figure (no key traces that yet)."""
-    if not K.is_anamorphic_spec(spec):
-        return
-    if what.lower() not in ANAMORPHIC_KERNELS:
-        K.check_supported(spec, j, what=what + "'s key", anamorphic=False)
-    if K.is_figured(spec):
-        raise NotImplementedError(
-            "surface row %s is anamorphic with an aspheric figure, which "
-            "%s's key does not trace yet (%s)"
-            % ("?" if j is None else j, what, K.ITEM9))
-
-
 def _words(specs, masks=None, kernel="k1"):
     """A key's row words; a row the kernels do not trace raises
-    NotImplementedError (item 9): the grating, DOE and freeform rows,
-    and the anamorphic rows outside ANAMORPHIC_KERNELS (or with an
-    aspheric figure)."""
+    NotImplementedError (item 9): the grating, DOE and freeform rows."""
     for j, spec in enumerate(specs[1:], 1):
         K.check_supported(spec, j, what=kernel.upper() + "'s key")
-        check_anamorphic(spec, kernel.upper(), j)
     flags = [_flags(s) for s in specs]
     if masks is None:
         return tuple(flags)
@@ -411,11 +398,13 @@ def _static(key):
 
 
 def _widths(specs, widths, slots=SLOTS):
-    """A key's (na, no): (0, 0) without an aspheric row (whatever the
-    table's widths), else `widths` (figure_widths of the table), refused
-    when `slots` (K9: OPD_SLOTS) and the coefficients are more than a row
-    word holds."""
-    if not any(K.is_figured(s) for s in specs[1:]):
+    """A key's (na, no): (0, 0) without a row that reads the figure
+    (kernels.reads_figure; whatever the table's widths), else `widths`
+    (figure_widths of the table), refused
+    when `slots` (an adjoint's other slots: K9's OPD_SLOTS, an anamorphic
+    key's two more) and the coefficients are more than a row word
+    holds."""
+    if not any(K.reads_figure(s) for s in specs[1:]):
         return (0, 0)
     na, no = (int(w) for w in widths)
     if na < 0 or no < 0 or slots + na + no > LIVE_BITS:
@@ -452,7 +441,7 @@ def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
     na, no = _widths(specs, widths)
     return _static(Key("k8", _dtype_name(dtype), words, bool(clip), False,
                        int(block or BLOCK_TRACE), int(min_blocks),
-                       na=na, no=no))
+                       na=na, no=no, anamorphic=carries_anamorphic(specs)))
 
 
 def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
@@ -522,21 +511,23 @@ def trace_multi_key(specs, dtype, nlam, merit=False, block=None,
     na, no = _widths(specs, widths)
     key = Key(kernel, _dtype_name(dtype), words, False, False, block,
               int(min_blocks), int(nlam),
-              MULTI_OUTER if outer is None else bool(outer), na, no)
+              MULTI_OUTER if outer is None else bool(outer), na, no,
+              carries_anamorphic(specs))
     return _static(_unrolled(key))
 
 
 def multi_most(kernel, specs, dtype, block=None, widths=(0, 0)):
     """The most wavelengths one key of `kernel` ("k3", "k3m" or "k6")
-    takes for this spec tuple (and `widths`, a figured key's grown
-    rows): MAX_NLAM, or fewer where that many tables (and the moments'
-    block reduction) outgrow static shared memory; 0 when one table
-    alone does."""
+    takes for this spec tuple (and `widths`, a figured key's grown rows;
+    an anamorphic key's rows grow by ANAM words): MAX_NLAM, or fewer
+    where that many tables (and the moments' block reduction) outgrow
+    static shared memory; 0 when one table alone does."""
     dt = _dtype_name(dtype)
     na, no = _widths(specs, widths)
     one = Key(kernel, dt, (0,)*len(specs), False, False,
               int(block or BLOCK_MULTI.get(kernel, {}).get(
-                  dt, BLOCK_MOMENTS)), na=na, no=no)
+                  dt, BLOCK_MOMENTS)), na=na, no=no,
+              anamorphic=carries_anamorphic(specs))
     # a key's static shared memory grows by one table's (and 5 reduced
     # moments') words a wavelength
     return min(MAX_NLAM, SMEM_LIMIT//one.shared_bytes)
@@ -566,7 +557,7 @@ def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
     wanted (see live_slots), whether the ray and weight cotangents are,
     and `widths` as trace_key's (a figured key's rows reduce their
     aspheric coefficients too)."""
-    widths = _widths(specs, widths)
+    widths = _widths(specs, widths, SLOTS + len(_anamorphic(specs)))
     return _adjoint("k5", specs, live_slots(specs, fields, widths), dtype,
                     clip, rays, block, min_blocks, widths)
 
@@ -575,7 +566,7 @@ def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
                       block=None, min_blocks=MIN_BLOCKS, widths=(0, 0)):
     """The K7 key of the spec tuple a stack of tables shares, as
     adjoint_key (the wavelength count is not part of it)."""
-    widths = _widths(specs, widths)
+    widths = _widths(specs, widths, SLOTS + len(_anamorphic(specs)))
     return _adjoint("k7", specs, live_slots(specs, fields, widths), dtype,
                     clip, rays, block, min_blocks, widths)
 
@@ -585,9 +576,10 @@ def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_FIELDS, rays=True,
     """The K9 key of a spec tuple, the fields whose cotangents are
     wanted (see opd_live_slots), whether the ray cotangents are, and
     `widths` as trace_key's (a figured key's rows reduce their aspheric
-    coefficients after n_before; OPD_SLOTS + na + no must fit a row
-    word); the three centre cotangents are always reduced."""
-    widths = _widths(specs, widths, OPD_SLOTS)
+    coefficients after n_before, an anamorphic key's curvature_dx and
+    conic_dx after them; OPD_SLOTS + na + no [+ 2] must fit a row word);
+    the three centre cotangents are always reduced."""
+    widths = _widths(specs, widths, OPD_SLOTS + len(_anamorphic(specs)))
     return _adjoint("k9", specs, opd_live_slots(specs, fields, widths),
                     dtype, clip, rays, block, min_blocks, widths)
 

@@ -16,8 +16,9 @@ tuple costs one nvcc run at its first call).  K1 and K2 trace flat,
 spherical, conic and even/odd aspheric rows (an aspheric row by the
 seeded Newton intercept, its key carrying the table's coefficient
 widths, `figure_widths`) and the anamorphic rows: conic cylinders in
-closed form, biconics and toroids by the seeded Newton (their key's
-rows carry curvature_dx and conic_dx, `carries_anamorphic`).
+closed form, biconics and toroids, with or without an aspheric figure,
+by the seeded Newton (their key's rows carry curvature_dx and conic_dx,
+`carries_anamorphic`).
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
 leading wavelength axis, System.tables) and ONE bundle traced through
@@ -28,8 +29,8 @@ compiled per (dtype, spec tuple, wavelength count) key too: its merit
 mode is K2's template at the stack's wavelengths, its trace K1's chain
 once a wavelength.  A stack past one key's wavelengths (cuda_spec.
 multi_most) runs in balanced runs, one launch each.  K3 traces the
-aspheric rows as K1 does, its key carrying the stack's coefficient
-widths; its key refuses anamorphic rows (ROADMAP Queue 1 item 9).
+aspheric and the anamorphic rows as K1 does, its key carrying the
+stack's coefficient widths and anamorphic words.
 
 The kernels are hand-written CUDA C++ (csrc/grad_spec.cuh), built with
 nvcc for sm_90a at first use (ops.cuda_build, ops.cuda_spec) and
@@ -158,9 +159,10 @@ def carries_anamorphic(specs):
 
 def figure_widths(table, specs):
     """(even, odd) aspheric coefficients a packed row carries: the
-    table's widths when some row of `specs` is figured (aspheric or
-    odd: its Newton reads every coefficient), else (0, 0)."""
-    if not any(K.is_figured(s) for s in specs[1:]):
+    table's widths when some row of `specs` reads them (an aspheric
+    row, a biconic or a toroid: its Newton reads every coefficient,
+    kernels.reads_figure), else (0, 0)."""
+    if not any(K.reads_figure(s) for s in specs[1:]):
         return (0, 0)
     return (int(table.aspherics.shape[-1]),
             int(table.aspherics_odd.shape[-1]))

@@ -536,8 +536,6 @@ class SurfaceSpec(NamedTuple):
 ITEM9 = "ROADMAP Queue 1 item 9"
 #: SurfaceSpec flags of the extended vocabulary, not ported yet
 EXTENDED = ("grating", "doe", "freeform")
-#: SurfaceSpec flags of the anamorphic rows
-ANAMORPHIC = ("biconic", "toroidal", "cyl_axis")
 
 
 def is_figured(spec):
@@ -550,16 +548,21 @@ def is_anamorphic_spec(spec):
     return bool(spec.biconic or spec.toroidal or spec.cyl_axis)
 
 
-def check_supported(spec, j=None, what="rayopt_tpu_torch",
-                    anamorphic=True):
+def reads_figure(spec):
+    """True for a row whose intercept and normal read every aspheric
+    coefficient of the table's widths: an aspheric row, and a biconic or
+    toroid, figured or not (the reference passes the whole coefficient
+    rows into their sags and normals; a cylinder's closed form reads
+    none)."""
+    return bool(is_figured(spec) or ((spec.biconic or spec.toroidal)
+                                     and not spec.cyl_axis))
+
+
+def check_supported(spec, j=None, what="rayopt_tpu_torch"):
     """Raise NotImplementedError, naming ROADMAP Queue 1 item 9, for a
     row that needs the extended surface vocabulary (`what`: the engine
-    or key that does not trace it): grating, DOE and freeform rows
-    everywhere, and anamorphic rows where `anamorphic` is False (the
-    kernels that do not take them yet)."""
+    or key that does not trace it): grating, DOE and freeform rows."""
     used = [f for f in EXTENDED if getattr(spec, f)]
-    if not anamorphic:
-        used += [f for f in ANAMORPHIC if getattr(spec, f)]
     if used:
         raise NotImplementedError(
             "surface row %s uses %s, which %s does not trace yet (%s)"

@@ -8,7 +8,10 @@ the reference's split-conic biconic and toroid lenses
 engines of ops.geometric on aimed bundles, the per-axis paraxial
 matrix, the YAML round trip, the cylinder's cancellation-free root, the
 Newton's gradient against jax.grad of the reference's specialized
-engine, and device aiming on the pair.  Traces agree to 1e-12 relative
+engine, device aiming on the pair, and the figured anamorphic rows (a
+toroid's generating-curve polynomial in y^2, a biconic's in r^2; a
+figured cylinder specializes as a biconic): their steps, traces and
+Newton gradients.  Traces agree to 1e-12 relative
 with identical NaN masks, gradients to 1e-8 of the largest of each
 field.  The kernel side (K5's hand reverse, the key words and slots,
 the refusals, optimize_grad) is tests/test_torch_spec_anamorphic.py."""
@@ -112,10 +115,40 @@ LENSES = {"pair": lambda mod: (jmodels if mod is jro else tmodels)
           .anamorphic_pair(),
           "biconic": split_biconic, "toroid": toroid_lens}
 
+#: the toroid's generating-curve terms (y^2, y^4: the reference's
+#: test_zmx_toroidal_polynomial_terms) and the biconic's even figure
+#: (r^2, r^4)
+TOROID_FIGURE = [1e-5, 2e-8]
+BICONIC_FIGURE = [2e-4, -1e-6]
+
+
+def figured_toroid(mod):
+    """The toroid lens with TOROID_FIGURE on its first toroid's
+    generating curve."""
+    s = toroid_lens(mod)
+    s[1].aspherics = list(TOROID_FIGURE)
+    s.update()
+    return s
+
+
+def figured_biconic(mod):
+    """The split-conic biconic with BICONIC_FIGURE on its first row."""
+    s = split_biconic(mod)
+    s[1].aspherics = list(BICONIC_FIGURE)
+    s.update()
+    return s
+
+
+#: the figured anamorphic lenses (the plain path: the tests at the end)
+FIGURED = {"figured toroid": figured_toroid,
+           "figured biconic": figured_biconic}
+
 
 def lens(name):
-    """(JAX system, port system) of one anamorphic lens."""
-    return LENSES[name](jro), LENSES[name](tro)
+    """(JAX system, port system) of one anamorphic lens (LENSES or
+    FIGURED)."""
+    make = LENSES.get(name) or FIGURED[name]
+    return make(jro), make(tro)
 
 
 def bundle(n, seed, half=4., slope=.01):
@@ -458,3 +491,136 @@ def test_device_aiming_on_the_pair_matches_the_host_pupil():
     nptest.assert_allclose(tz.numpy(), np.asarray(jz), rtol=1e-10)
     nptest.assert_allclose(tb.numpy(), np.asarray(jb), rtol=1e-10,
                            atol=1e-10)
+
+
+# -- the figured anamorphic rows ---------------------------------------------
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("name", sorted(FIGURED))
+def test_figured_surface_step_spec_matches_jax(name, variant):
+    """kernels.surface_step_spec on the figured biconic row (its even
+    polynomial in r^2 in the Newton residual, slope and normal) and the
+    figured toroid row (its polynomial in y^2 on the generating curve),
+    as is, rotated as a mirror and rotated with the alternate root,
+    against the reference's, to 1e-12 with equal NaN masks; the specs
+    are the reference's (aspheric and biconic or toroidal, no cylinder
+    axis)."""
+    js, ts = lens(name)
+    jt, tt = js.table(), ts.table()
+    specs = TK.specialize(tt)
+    assert TK.specs_from_tuple(JK.specialize(jt)) == specs
+    spec = specs[1]
+    assert spec.aspheric and (spec.biconic or spec.toroidal)
+    assert not spec.cyl_axis
+    jr, tr, spec = _variant(jt, tt, 1, spec, variant)
+    y0, u0 = bundle(64, 1, 6.)
+    y0[:, 2] = -80. if variant == "rotated alternate" else -2.
+    state = tuple(np.ascontiguousarray(c) for c in (*y0.T, *u0.T))
+    jspec = JK.SurfaceSpec(**spec._asdict())
+    for clip in (False, True):
+        want = JK.surface_step_spec(state, jr, jspec, clip)
+        got = TK.surface_step_spec(tuple(map(_t, state)), tr, spec, clip)
+        for g, w in zip((*got[0], got[1][3]), (*want[0], want[1][3])):
+            _same(g, w, msg="%s %s" % (name, variant))
+
+
+@pytest.mark.parametrize("name", sorted(FIGURED))
+def test_figured_traces_match_jax(name):
+    """ops.geometric on the figured lenses, bundles aimed by the host at
+    fields 0 and 1: the specialized engine and the generic one
+    (biconic=True), clipped and not, and trace_rays_final_fast on the
+    CPU, against the reference's to 1e-12 with equal NaN masks; the
+    figure moves the image against the lens without it."""
+    js, ts = lens(name)
+    jt, tt = js.table(), ts.table()
+    jspecs, specs = JK.specialize(jt), TK.specialize(tt)
+    bare = LENSES[name.split()[1]](tro).table()
+    rng = np.random.RandomState(8)
+    for field in (0., 1.):
+        z, p = ts.pupil((0., field))
+        yp = rng.uniform(-1.2, 1.2, (96, 2))
+        y0, u0 = ts.aim((0., field), yp, z, p, filter=False)
+        for clip in (False, True):
+            want = JG.trace_rays_final(jt, y0, u0, specs=jspecs,
+                                       unroll=True, clip=clip)
+            got = TG.trace_rays_final(tt, _t(y0), _t(u0), specs=specs,
+                                      clip=clip)
+            for g, w in zip(got, want):
+                _same(g, w, msg="specs field %g" % field)
+            want = JG.trace_rays_final(jt, y0, u0, biconic=True, clip=clip)
+            got = TG.trace_rays_final(tt, _t(y0), _t(u0), biconic=True,
+                                      clip=clip)
+            for g, w in zip(got, want):
+                _same(g, w, msg="generic field %g" % field)
+        fast = TG.trace_rays_final_fast(tt, _t(y0), _t(u0))
+        for g, w in zip(fast, want):
+            _same(g, w, msg="fast field %g" % field)
+        plain = TG.trace_rays_final(bare, _t(y0), _t(u0),
+                                    specs=TK.specialize(bare))
+        moved = np.nanmax(np.abs((fast[0] - plain[0]).numpy()))
+        assert moved > 1e-6, moved
+
+
+@pytest.mark.parametrize("name", sorted(FIGURED))
+def test_figured_newton_gradient_matches_jax_grad(name):
+    """The spot RMS through the specialized engine on the figured lens
+    (the Newton's implicit backward with the figure's terms)
+    differentiated w.r.t. curvature, conic, curvature_dx, conic_dx and
+    the even coefficients against jax.grad of the reference's
+    spot_rms(specs=..., unroll=True), to 1e-8 of each field's largest;
+    the figured row's coefficients get a nonzero gradient."""
+    js, ts = lens(name)
+    jt, tt = js.table(), ts.table()
+    jspecs, specs = JK.specialize(jt), TK.specialize(tt)
+    fields = FIELDS + ("aspherics",)
+    y0, u0 = bundle(256, 14)
+    w = np.full(256, 1/256)
+
+    def jloss(*vals):
+        return JGR.spot_rms(jt.replace(**dict(zip(fields, vals))), y0, u0,
+                            w, specs=jspecs, unroll=True)
+    jvals = [jnp.asarray(getattr(jt, f)) for f in fields]
+    want = jax.grad(jloss, argnums=tuple(range(len(fields))))(*jvals)
+    leaves = {f: getattr(tt, f).clone().requires_grad_() for f in fields}
+    v = TGR.spot_rms(tt.replace(**leaves), _t(y0), _t(u0), _t(w),
+                     specs=specs)
+    nptest.assert_allclose(float(v), float(jloss(*jvals)), rtol=1e-12)
+    v.backward()
+    for f, g in zip(fields, want):
+        g = np.asarray(g)
+        got = (leaves[f].grad if leaves[f].grad is not None
+               else torch.zeros_like(leaves[f])).numpy()
+        nptest.assert_allclose(got, g, rtol=GRAD_RTOL,
+                               atol=GRAD_RTOL*max(np.abs(g).max(), 1e-300),
+                               err_msg=f)
+    assert np.abs(np.asarray(want[-1])[1]).max() > 0
+
+
+def test_figured_cylinder_specializes_as_a_biconic():
+    """An x-cylinder with an aspheric figure (the pair's row 3 with an
+    even figure) is no longer a cylinder: specialize gives the
+    reference's spec (cyl_axis 0, biconic, aspheric), the key's row
+    flags are F_BICONIC | F_ASPHERIC and never a cylinder's, and the
+    step traces it by the biconic's Newton as the reference does
+    (1e-12, equal NaN masks)."""
+    js, ts = lens("pair")
+    for s in (js, ts):
+        s[3].aspherics = [1e-4]
+        s.update()
+    jt, tt = js.table(), ts.table()
+    specs = TK.specialize(tt)
+    assert TK.specs_from_tuple(JK.specialize(jt)) == specs
+    spec = specs[3]
+    assert spec.cyl_axis == 0 and spec.biconic and spec.aspheric
+    from rayopt_tpu_torch.ops import cuda_trace as CT
+    flags = CT._flags(spec)
+    assert flags & CT.F_BICONIC and flags & CT.F_ASPHERIC
+    assert not flags & (CT.F_CYL_X | CT.F_CYL_Y | CT.F_TOROID)
+    y0, u0 = bundle(64, 2, 5.)
+    y0[:, 2] = -2.
+    state = tuple(np.ascontiguousarray(c) for c in (*y0.T, *u0.T))
+    want = JK.surface_step_spec(state, jax_row(jt, 3),
+                                JK.SurfaceSpec(**spec._asdict()), False)
+    got = TK.surface_step_spec(tuple(map(_t, state)), tt.row(3), spec, False)
+    for g, w in zip((*got[0], got[1][3]), (*want[0], want[1][3])):
+        _same(g, w)

@@ -1786,11 +1786,15 @@ def test_aspheric_multi_and_opd_kernels_match_plain_on_card(cuda_device,
 
 # -- the anamorphic rows (K1, K2, K4, K5 keys) ---------------------------------
 
-def _anamorphic_case(name, device):
-    """(table on `device`, specs) of an anamorphic lens: the crossed-
-    cylinder pair, or the JAX package's split-conic biconic and toroid
-    lenses (tests/test_torch_anamorphic.py)."""
+def _anamorphic_system(name):
+    """An anamorphic lens: the crossed-cylinder pair, or the JAX
+    package's split-conic biconic and toroid lenses, or those two with
+    an aspheric figure on their first row ("figured biconic", "figured
+    toroid": tests/test_torch_anamorphic.py's FIGURED)."""
     from rayopt_tpu_torch import System
+    figure = {"figured toroid": [1e-5, 2e-8],
+              "figured biconic": [2e-4, -1e-6]}.get(name)
+    name = name.split()[-1]
     if name == "pair":
         s = models.anamorphic_pair()
     else:
@@ -1806,7 +1810,16 @@ def _anamorphic_case(name, device):
                     dict(distance=47. if name == "biconic" else 95.,
                          radius=10. if name == "biconic" else 20.)])
         s.update()
-    tab = s.table(device=device)
+    if figure:
+        s[1].aspherics = figure
+        s.update()
+    return s
+
+
+def _anamorphic_case(name, device):
+    """(table on `device`, specs) of an anamorphic lens
+    (_anamorphic_system)."""
+    tab = _anamorphic_system(name).table(device=device)
     return tab, specialize(tab)
 
 
@@ -1870,3 +1883,123 @@ def test_anamorphic_keys_match_plain_on_card(cuda_device, name, dtype, clip):
         scale = max(float(r.abs().max()) for r in sref)
         for g, r in zip(cst, sref):
             assert float((g - r).abs().max()) <= 1e-9*scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype", [
+    (n, d) for n in ("pair", "biconic", "toroid")
+    for d in (torch.float64, torch.float32)] + [
+    ("figured toroid", torch.float64), ("figured biconic", torch.float64)])
+def test_anamorphic_multi_and_opd_kernels_match_plain_on_card(cuda_device,
+                                                              name, dtype):
+    """K3 (trace and merit), K6, K7, K8 and K9 on an anamorphic lens's
+    keys (3 tables for the stacked kernels: the refracting rows' mu
+    grown by 0, 1 and 2 % of mu - 1; ray 0 the chief ray, on the axis)
+    and, on the figured lenses, K1, K2, K4 and K5 too, against their
+    plain versions on the card: float64 traces and moments to 1e-12,
+    the adjoints' cotangents (a figured lens's coefficients, then
+    curvature_dx and conic_dx last) to 1e-9 of each column's largest
+    (float32: 5e-5 mm, 1e-4 of the moments' and 1e-2 of the cotangents'
+    scale); each wrapper launches once."""
+    from rayopt_tpu_torch.ops.tables import stack_tables
+    s = _anamorphic_system(name)
+    tab = s.table(device=cuda_device)
+    specs = specialize(tab)
+    tabs = stack_tables([tab.replace(mu=1 + (tab.mu - 1)*(1 + .01*li))
+                         for li in range(3)])
+    f64 = dtype == torch.float64
+    n = 1 << 14
+    rng = np.random.RandomState(4)
+    xy = rng.uniform(-4., 4., (2, n))
+    xy[:, 0] = 0.
+    zero, one = np.zeros(n), np.ones(n)
+    state = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(cuda_device,
+                                                               dtype)
+                  for c in (*xy, zero, zero, zero, one))
+    w = torch.full((n,), 1/n, dtype=dtype, device=cuda_device)
+    tol, mtol, gtol = (1e-12, 1e-12, 1e-9) if f64 else (5e-5, 1e-4, 1e-2)
+    wrappers = (CT.trace_multi, CG.weighted_moments_multi,
+                CG.merit_adjoint_multi, CG.opd_chain, CG.opd_adjoint)
+    before = [f.launches for f in wrappers]
+    got = CT.trace_multi(tabs, specs, state)
+    mom = CT.trace_multi(tabs, specs, state, merit=True)
+    wm = CG.weighted_moments_multi(tabs, specs, state, w)
+    ref = CT.trace_multi_reference(tabs, specs, state)
+    mref = CT.trace_multi_reference(tabs, specs, state, merit=True)
+    wref = CG.weighted_moments_multi_reference(tabs, specs, state, w)
+    ct = torch.stack([_rms_cotangent(m) for m in wref])
+    pg, cst, cw = CG.merit_adjoint_multi(tabs, specs, state, w, ct)
+    pref, sref, cwref = CG.merit_adjoint_multi_reference(tabs, specs, state,
+                                                         w, ct)
+    chief, _ = CT.trace_final_reference(tab, specs,
+                                        tuple(c[:1] for c in state))
+    aux = torch.cat([torch.cat(chief[:3]), torch.tensor(
+        [-s.image.pupil.distance, s.wavelengths[0]/s.scale], dtype=dtype,
+        device=cuda_device)])
+    k = CG.opd_chain(tab, specs, state, aux)
+    kref = CG.opd_chain_reference(tab, specs, state, aux)
+    live = torch.isfinite(kref[0]) & torch.isfinite(k[0])
+    cts = (torch.where(live, 1e-3*w, 0.), torch.where(live, w, 0.),
+           torch.where(live, -w, 0.))
+    qg, qst, qc = CG.opd_adjoint(tab, specs, state, aux, cts)
+    qref, qsref, qcref = CG.opd_adjoint_reference(tab, specs, state, aux,
+                                                  cts)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [b + m for b, m in zip(
+        before, (2, 1, 1, 1, 1))]
+    for li in range(3):
+        for g, r in zip((*got[li][0], got[li][1]), (*ref[li][0], ref[li][1])):
+            g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+            if f64:
+                nptest.assert_array_equal(np.isnan(g), np.isnan(r))
+            ok = np.isfinite(g) & np.isfinite(r)
+            assert ok.mean() > .5
+            nptest.assert_allclose(g[ok], r[ok], atol=tol*max(1., np.abs(
+                r[ok]).max()), rtol=0)
+        for a, b in ((torch.stack(mom[li]), torch.stack(mref[li])),
+                     (wm[li], wref[li])):
+            nptest.assert_allclose(float(CT.spot_rms_from_moments(*a)),
+                                   float(CT.spot_rms_from_moments(*b)),
+                                   rtol=1e-10 if f64 else mtol)
+    nq = CG.SLOTS + sum(CT.figure_widths(tab, specs)) + CT.ANAM
+    assert pg.shape == pref.shape == (3, tab.nsurfaces, nq)
+    assert qg.shape == qref.shape == (tab.nsurfaces, nq + 1)
+    assert bool(pg[..., -2].any()) and bool(qg[:, -2].any())
+    for g, r in [(pg[li], pref[li]) for li in range(3)] + [(qg, qref)]:
+        for col in range(g.shape[1]):
+            assert torch.isfinite(g[:, col]).all()
+            if float(r[:, col].abs().max()):
+                assert _max_rel(g[:, col], r[:, col]) <= gtol, col
+    nptest.assert_allclose(qc.double().cpu().numpy(),
+                           qcref.double().cpu().numpy(), rtol=gtol,
+                           atol=gtol*float(qcref.abs().max()))
+    if f64:
+        for got_, want_ in (((*cst, cw), (*sref, cwref)), (qst, qsref)):
+            scale = max(float(r.abs().max()) for r in want_[:6])
+            for g, r in zip(got_[:6], want_[:6]):
+                assert float((g - r).abs().max()) <= gtol*scale
+    kk, kr = k[0][live].double(), kref[0][live].double()
+    assert float((kk - kr).abs().max()) <= (
+        tol if f64 else 4e-6)*float(kr.abs().max())
+    if name.startswith("figured"):
+        # K1, K2, K4 and K5 on the figured keys too
+        got = CT.trace_final(tab, specs, state)
+        ref = CT.trace_final_reference(tab, specs, state)
+        for g, r in zip((*got[0], got[1]), (*ref[0], ref[1])):
+            g, r = g.cpu().numpy(), r.cpu().numpy()
+            nptest.assert_array_equal(np.isnan(g), np.isnan(r))
+            ok = np.isfinite(g)
+            nptest.assert_allclose(g[ok], r[ok], rtol=0, atol=tol*max(
+                1., np.abs(r[ok]).max()))
+        nptest.assert_allclose(
+            float(CT.spot_rms_from_moments(*CT.trace_merit(tab, specs,
+                                                           state))),
+            float(CT.spot_rms_from_moments(*CT.trace_merit_reference(
+                tab, specs, state))), rtol=1e-10)
+        wct = _rms_cotangent(CG.weighted_moments(tab, specs, state, w))
+        pg, _, _ = CG.merit_adjoint(tab, specs, state, w, wct)
+        pref, _, _ = CG.merit_adjoint_reference(tab, specs, state, w, wct)
+        assert bool(pg[1, CG.SLOTS:CG.SLOTS + 2].any())
+        for col in range(pg.shape[1]):
+            if float(pref[:, col].abs().max()):
+                assert _max_rel(pg[:, col], pref[:, col]) <= gtol, col

@@ -5,8 +5,9 @@ csrc/step_vjp.cuh anamorphic_step_vjp) against autograd, the K5 model
 of the whole merit against the plain version, the key words (64-bit,
 the anamorphic flags below LIVE_SHIFT), the packed rows and K5's
 curvature_dx/conic_dx slots, the baked-out y-cylinder slots and their
-warning, the refusals of K3, K6-K9, the figured anamorphic row and
-df32.plan (NotImplementedError naming ROADMAP Queue 1 item 9),
+warning, the keys every kernel takes on the anamorphic and the figured
+anamorphic lenses and what still refuses (df32.plan; grating, DOE and
+freeform rows: NotImplementedError naming ROADMAP Queue 1 item 9),
 optimize_grad(engine="adjoint") over curvature and curvature_dx on the
 crossed-cylinder pair against the JAX package, and the JAX package's
 own Pallas K1 and K2 in interpret mode.  The lenses are those of
@@ -34,8 +35,9 @@ from rayopt_tpu_torch.ops import kernels as TK
 from rayopt_tpu_torch.ops import tables as TT
 from rayopt_tpu_torch.parallel import grad as TGR
 
-from test_torch_anamorphic import (LENSES, ROWS, _cpu_default,  # noqa: F401
-                                   _one_thread, _same, _t, bundle, lens)
+from test_torch_anamorphic import (FIGURED, LENSES, ROWS,  # noqa: F401
+                                   _cpu_default, _one_thread, _same, _t,
+                                   bundle, lens)
 
 F64 = torch.float64
 RTOL = 1e-12
@@ -196,34 +198,70 @@ def test_y_cylinder_curvature_dx_warns_and_is_zero():
 
 
 def test_refusals_name_item_9():
-    """K3, K6, K7, K8 and K9 keys refuse the anamorphic rows, so do an
-    anamorphic row with an aspheric figure in every key and df32.plan,
-    each naming ROADMAP Queue 1 item 9; the K1, K2, K4 and K5 keys take
-    the three lenses."""
-    for name in sorted(LENSES):
+    """What still refuses, naming ROADMAP Queue 1 item 9: df32.plan on
+    the three anamorphic lenses and the figured ones (item 9.2), and a
+    grating, DOE or freeform row in every K1-K9 key (its wrapper's
+    _step_vjp_reference model too).  Every K1-K9 key takes the three
+    lenses and the figured lenses (tests/test_torch_anamorphic.py), the
+    adjoints' with their anamorphic slots; the hand reverse takes the
+    PATH form (K9's) on every anamorphic row."""
+    def keys(sp):
+        return (CS.trace_key(sp, F64), CS.merit_key(sp, F64),
+                CS.moments_key(sp, F64), CS.adjoint_key(sp, F64),
+                CS.trace_multi_key(sp, F64, 3),
+                CS.trace_multi_key(sp, F64, 3, merit=True),
+                CS.moments_multi_key(sp, F64, False, 3),
+                CS.adjoint_multi_key(sp, F64), CS.opd_key(sp, F64),
+                CS.opd_adjoint_key(sp, F64))
+    for name in sorted(LENSES) + sorted(FIGURED):
         _, _, tt, specs = _tables(name)
-        for make in (CS.trace_key, CS.merit_key, CS.moments_key,
-                     CS.adjoint_key):
-            assert make(specs, F64).anamorphic
-        for make in (lambda sp: CS.trace_multi_key(sp, F64, 3),
+        widths = CT.figure_widths(tt, specs)
+        made = keys(specs) if widths == (0, 0) else (
+            CS.trace_key(specs, F64, widths=widths),
+            CS.merit_key(specs, F64, widths=widths),
+            CS.moments_key(specs, F64, widths=widths),
+            CS.adjoint_key(specs, F64, widths=widths),
+            CS.trace_multi_key(specs, F64, 3, widths=widths),
+            CS.trace_multi_key(specs, F64, 3, merit=True, widths=widths),
+            CS.moments_multi_key(specs, F64, False, 3, widths=widths),
+            CS.adjoint_multi_key(specs, F64, widths=widths),
+            CS.opd_key(specs, F64, widths=widths),
+            CS.opd_adjoint_key(specs, F64, widths=widths))
+        assert [k.kernel for k in made] == ["k1", "k2", "k4", "k5", "k3",
+                                            "k3m", "k6", "k7", "k8", "k9"]
+        for k in made:
+            assert k.anamorphic and (k.na, k.no) == widths, (name, k.kernel)
+            if k.kernel in ("k5", "k7", "k9"):
+                assert k.slots == (CS.OPD_SLOTS if k.kernel == "k9"
+                                   else CS.SLOTS) + sum(widths) + CT.ANAM
+        with pytest.raises(NotImplementedError, match="item 9"):
+            TD.plan(tt)
+        j = [i for i, sp in enumerate(specs) if TK.is_anamorphic_spec(sp)][0]
+        _, pg = CG._step_vjp_reference(
+            _state(*bundle(4, 1)), tt.row(j), specs[j],
+            (torch.zeros(4, dtype=F64),)*6, ct_path=torch.zeros(4, dtype=F64))
+        assert len(pg) == CS.OPD_SLOTS + (sum(widths) if TK.is_figured(
+            specs[j]) else 0) + CT.ANAM
+    # a grating, DOE or freeform row on the biconic lens, in every key
+    _, _, tt, specs = _tables("biconic")
+    for extended in TK.EXTENDED:
+        bad = list(specs)
+        bad[1] = bad[1]._replace(**{extended: True})
+        for make in (lambda sp: CS.trace_key(sp, F64),
+                     lambda sp: CS.merit_key(sp, F64),
+                     lambda sp: CS.moments_key(sp, F64),
+                     lambda sp: CS.adjoint_key(sp, F64),
+                     lambda sp: CS.trace_multi_key(sp, F64, 3),
                      lambda sp: CS.trace_multi_key(sp, F64, 3, merit=True),
                      lambda sp: CS.moments_multi_key(sp, F64, False, 3),
                      lambda sp: CS.adjoint_multi_key(sp, F64),
                      lambda sp: CS.opd_key(sp, F64),
                      lambda sp: CS.opd_adjoint_key(sp, F64)):
             with pytest.raises(NotImplementedError, match="item 9"):
-                make(specs)
+                make(tuple(bad))
         with pytest.raises(NotImplementedError, match="item 9"):
-            TD.plan(tt)
-    _, _, tt, specs = _tables("biconic")
-    figured = list(specs)
-    figured[1] = figured[1]._replace(aspheric=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CS.trace_key(tuple(figured), F64, widths=(1, 0))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CG._step_vjp_reference(_state(*bundle(4, 1)), tt.row(1), specs[1],
-                               (torch.zeros(4, dtype=F64),)*6,
-                               ct_path=torch.zeros(4, dtype=F64))
+            CG._step_vjp_reference(_state(*bundle(4, 1)), tt.row(1), bad[1],
+                                   (torch.zeros(4, dtype=F64),)*6)
 
 
 # -- the loop ------------------------------------------------------------------

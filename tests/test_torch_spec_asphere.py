@@ -425,32 +425,35 @@ def test_extended_rows_still_raise_everywhere(name):
     """Grating, DOE and freeform rows raise NotImplementedError naming
     item 9 in every key, the specialized and the generic plain step, the
     plain engines and the df32 plan.  Biconic, toroid and cylinder rows
-    are traced now (tests/test_torch_anamorphic.py): the K1, K2, K4 and
-    K5 keys take them, K3 and K6-K9 and the df32 plan still raise."""
+    are traced now (tests/test_torch_anamorphic.py): every K1-K9 key
+    takes them, the df32 plan still raises."""
     kw = dict(curvature=[0., 1/40.], mu=[1., 1/1.5])
     kw.update(EXTENDED[name])
     tt = TT.table_from_numpy(JT.make_table(**kw))
     specs = TK.specialize(tt)
     assert TK.specs_from_tuple(JK.specialize(JT.make_table(**kw))) == specs
     state = tuple(_t(c) for c in np.zeros((6, 4)) + np.array([[0.]]*5 + [[1.]]))
-    taken = (CS.trace_key, CS.merit_key, CS.moments_key, CS.adjoint_key)
-    refused = (CS.adjoint_multi_key,
-               lambda sp, dt: CS.trace_multi_key(sp, dt, 2),
-               lambda sp, dt: CS.trace_multi_key(sp, dt, 2, merit=True),
-               lambda sp, dt: CS.moments_multi_key(sp, dt, False, 2))
-    if name in ANAMORPHIC:
-        for make in taken:
-            assert make(specs, F64).anamorphic
-        taken = ()
-    for make in taken + refused:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make(specs, F64)
+    keys = (CS.trace_key, CS.merit_key, CS.moments_key, CS.adjoint_key,
+            CS.adjoint_multi_key,
+            lambda sp, dt: CS.trace_multi_key(sp, dt, 2),
+            lambda sp, dt: CS.trace_multi_key(sp, dt, 2, merit=True),
+            lambda sp, dt: CS.moments_multi_key(sp, dt, False, 2))
     # the OPD keys on the row and an image row behind it
     kw3 = {k: v + [v[-1]] for k, v in kw.items()}
     specs3 = TK.specialize(TT.table_from_numpy(JT.make_table(**kw3)))
-    for make in (CS.opd_key, CS.opd_adjoint_key):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            make(specs3, F64)
+    opd_keys = (CS.opd_key, CS.opd_adjoint_key)
+    if name in ANAMORPHIC:
+        for make in keys:
+            assert make(specs, F64).anamorphic
+        for make in opd_keys:
+            assert make(specs3, F64).anamorphic
+    else:
+        for make in keys:
+            with pytest.raises(NotImplementedError, match="item 9"):
+                make(specs, F64)
+        for make in opd_keys:
+            with pytest.raises(NotImplementedError, match="item 9"):
+                make(specs3, F64)
     if name in ANAMORPHIC:
         out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
         assert all(torch.isfinite(c).all() for c in out)
