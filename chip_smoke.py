@@ -38,14 +38,20 @@ loop (K3, K6, K7) and the composite design step (K4, K5, K8, K9) with
 row 7's aspheric coefficients among their parameters, after K1-K9 on
 its figured keys and on the odd singlet against their plain versions
 and K5, K7 and K9 against central differences of A4, A6, a conic and a
-glass's vd) -- and times the kernels against their plain versions (the
-stacked-wavelength ones also against their monochromatic twins, the
-aspheric keys against the double Gauss's).
+glass's vd) and its df32 path on the same aimed bundles, then the
+anamorphic path (the crossed-cylinder pair) and its df32 path, after
+K10-K13 on every Newton lens (aspheric rows, cylinders, biconics and
+toroids, figured or not) against their plain versions -- and times the
+kernels against their plain versions (the stacked-wavelength ones
+also against their monochromatic twins, the aspheric keys against the
+double Gauss's, K10-K13 on the Newton plans against their spherical
+twins').
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -504,8 +510,12 @@ def df32_keys(s):
     double Gauss's plan (K10, K12) and the plans of its wavelengths
     (K11, K13), fast and exact, clip off and on, K10 and K11 with and
     without the optical path (the check), the df32 path's among them
-    (fast, unclipped, K10 and K11 with the path); and the split phase's
-    runs of N_SPLIT_PLANS fast plans."""
+    (fast, unclipped, K10 and K11 with the path); each Newton lens's
+    (df32_newton_lenses: its plan, K10 with the path and K12, and its
+    K11/K13 plans, K11 with the path; fast and exact, clip off and on;
+    the df32 paths of the aspheric double Gauss and the pair among
+    them), those of the timed Newton lenses' spherical twins; and the
+    split phase's runs of N_SPLIT_PLANS fast plans."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.tables import table_at
@@ -524,9 +534,34 @@ def df32_keys(s):
                     plans, "k11", wp)
             keys["K12 " + tag] = CS.df32_multi_key(one, "k13")
             keys["K13 " + tag] = CS.df32_multi_key(plans, "k13")
+    for lens, (_, ltab, _, ltabs) in df32_newton_lenses().items():
+        for fast in (True, False):
+            for clip in (False, True):
+                one = [D.plan(ltab, clip=clip, fast=fast)]
+                plans = [D.plan(t, clip=clip, fast=fast) for t in ltabs]
+                tag = "%s %s clip=%s" % (lens, "fast" if fast else "exact",
+                                         clip)
+                keys["K10 %s path=True" % tag] = CS.df32_multi_key(
+                    one, "k11", True)
+                keys["K11 %s path=True" % tag] = CS.df32_multi_key(
+                    plans, "k11", True)
+                keys["K12 " + tag] = CS.df32_multi_key(one, "k13")
+                keys["K13 " + tag] = CS.df32_multi_key(plans, "k13")
+    # the timed Newton lenses' spherical twins (the aspheric double
+    # Gauss's: the double Gauss's keys above)
+    for lens in DF32_TIMED[1:]:
+        for fast in (True, False):
+            one, plans = df32_timed_plans(lens, fast)[1]
+            tag = "%s twin %s" % (lens, "fast" if fast else "exact")
+            keys["K10 %s path=True" % tag] = CS.df32_multi_key(
+                [one], "k11", True)
+            keys["K11 %s path=True" % tag] = CS.df32_multi_key(
+                plans, "k11", True)
+            keys["K12 " + tag] = CS.df32_multi_key([one], "k13")
+            keys["K13 " + tag] = CS.df32_multi_key(plans, "k13")
     plans = split_plans(s)
     for kernel, wp in (("k11", True), ("k13", False)):
-        for l0, l1 in CS.df32_runs(len(plans), len(plans[0]), kernel):
+        for l0, l1 in CS.df32_runs(CS.df32_flags(plans), kernel):
             keys["%s split %d-%d" % (kernel.upper(), l0, l1)] = \
                 CS.df32_multi_key(plans[l0:l1], kernel, wp)
     return keys
@@ -633,22 +668,23 @@ def phase_spec_build(keys):
     """Build every K1-K9 and K10-K13 specialization at once (one nvcc a
     key, in parallel): every kernel of the port; log each key's build
     seconds and ptxas lines, and the SASS size of the path's K3 keys and
-    the df32 keys.  The loops' keys (LOOP_KEYS: K1 of the forward path,
+    the unclipped fast df32 keys.  The loops' keys (LOOP_KEYS: K1 of the forward path,
     float32 and float64, and K2, float64; K5 for the optimizer's slot
     set; K3, K6 and K7 for the achromatization path's and K8 and K9 for
     the design path's, float64; K10-K13 of the df32 path) must have no
     stack frame and no spill.  Returns {tag: (registers, stack bytes, spill bytes)} and
-    {tag: (SASS instructions, bytes)} of the K3 and df32 keys."""
+    {tag: (SASS instructions, bytes)} of those K3 and df32 keys."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     log("== build: K1-K9 per spec tuple, K10-K13 per plan key: %d key "
         "tags, %d keys" % (len(keys), len(set(keys.values()))))
     t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
     log("built in %.2f s wall" % (time.perf_counter() - t0))
-    # the SASS size of each K3 key of the path and each df32 key, once a
-    # key, the cuobjdump runs in parallel
+    # the SASS size of each K3 key of the path and each unclipped fast
+    # df32 key (the df32 paths' keys among them), once a key, the
+    # cuobjdump runs in parallel
     counted = {key for tag, key in keys.items()
-               if isinstance(key, CS.Df32Key)
+               if (isinstance(key, CS.Df32Key) and "fast clip=False" in tag)
                or (key.kernel in ("k3", "k3m") and "split" not in tag)}
     with ThreadPoolExecutor(max_workers=8) as pool:
         sizes = dict(zip(counted, pool.map(lambda k: sass_size(built[k]),
@@ -2428,7 +2464,9 @@ def phase_asphere_path(opt_step, glass_step, design_step):
     its later steps logged beside the spherical double Gauss's
     (`opt_step`, `glass_step`, `design_step` seconds).  Returns the
     path's launches (the forward part's, counted from the caller's
-    reset, and each loop's) and the loops' later-step seconds."""
+    reset, and each loop's), the loops' later-step seconds and the
+    aimed bundles with their float64 K1 images and CPU references (the
+    df32 path's)."""
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
                                                  trace_merit)
     from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
@@ -2460,6 +2498,7 @@ def phase_asphere_path(opt_step, glass_step, design_step):
     if not ok:
         failures.append("System.pupils")
     rng = np.random.RandomState(SEED + 5)
+    aimed = []
     for (field, (zf, pf)) in zip(FIELDS, host):
         r = np.sqrt(rng.uniform(0, 1, N_ASPH))
         th = rng.uniform(0, 2*np.pi, N_ASPH)
@@ -2506,6 +2545,8 @@ def phase_asphere_path(opt_step, glass_step, design_step):
                "ok" if ok else "FAIL"))
         if not ok:
             failures.append("field %.1f" % field)
+        aimed.append(dict(field=field, y=yc, u=uc, y64=y64,
+                          rms_cpu=rms_cpu, live_cpu=live_cpu))
     if failures:
         raise AssertionError("aspheric path failed: " + ", ".join(failures))
     forward = read_launches()
@@ -2526,7 +2567,7 @@ def phase_asphere_path(opt_step, glass_step, design_step):
         % (k, v, t, v/t) for (k, v), t in zip(
             steps.items(), (opt_step, glass_step, design_step))))
     return ({k: v + loop[k] + glass[k] + design[k]
-             for k, v in forward.items()}, steps)
+             for k, v in forward.items()}, steps, aimed)
 
 
 # -- the anamorphic rows: every K1-K9 key on anamorphic rows -----------------
@@ -3038,8 +3079,9 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
     N_LOOP_CHECK nrays a bundle on both devices, its later steps logged beside the
     double Gauss's (`opt_step`, `glass_step`, `design_step` seconds).
     Returns the path's launches (the forward part's, counted from the
-    caller's reset, and each loop's) and the loops' later-step
-    seconds."""
+    caller's reset, and each loop's), the loops' later-step seconds and
+    the aimed bundles with their float64 K1 images and the CPU
+    reference of their first N_ANAM rays (the df32 path's)."""
     from rayopt_tpu_torch.models import anamorphic_pair
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
                                                  trace_merit)
@@ -3078,6 +3120,7 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
     if not ok:
         failures.append("System.pupils")
     rng = np.random.RandomState(SEED + 7)
+    aimed = []
     for field in FIELDS:
         t0 = time.perf_counter()
         zf, pf = s.pupil((0., field))
@@ -3126,7 +3169,9 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
                rel1, masks, t_aim, t_gpu, t_cpu, "ok" if ok else "FAIL"))
         if not ok:
             failures.append("field %.1f" % field)
-        del yc, uc, y64, u64, y32, u32, state64
+        aimed.append(dict(field=field, y=yc, u=uc, y64=y64,
+                          rms_cpu=rms_cpu, live_cpu=live_cpu, n_ref=N_ANAM))
+        del u64, y32, u32, state64
     if failures:
         raise AssertionError("anamorphic path failed: " + ", ".join(failures))
     forward = read_launches()
@@ -3149,7 +3194,7 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
         % (k, v, t, v/t) for (k, v), t in zip(
             steps.items(), (opt_step, glass_step, design_step))))
     return ({k: v + loop[k] + glass[k] + design[k]
-             for k, v in forward.items()}, steps)
+             for k, v in forward.items()}, steps, aimed)
 
 
 def phase_anamorphic_throughput(card):
@@ -3384,15 +3429,98 @@ def compare_df32(got, want):
     return words, masks, err, rel
 
 
-def phase_df32_check(s):
-    """K10-K13 against their plain versions on the card: the bench
-    bundle (1.5x wide when clipped), fast and exact plans, the optical
-    path off and on; K11/K13 at the 3 wavelengths.  The kernels round
-    every float32 operation as the plain versions do, so their words
-    should be identical (counted); moments are summed in another order."""
+def df32_check_case(tag, steps, plans, state, n, worst, failures,
+                    paths=(False, True)):
+    """K10 and K11 (the optical path off and on, as `paths`), K12 and
+    K13 against their plain versions on the card for one plan `steps`,
+    the plans of its wavelengths `plans` and one df32 bundle of n rays:
+    the words that differ (counted), equal NaN masks and DF32_REL of
+    max(1, |value|); the moments within DF32_REL of their scale and the
+    same count.  Adds to `worst` and `failures`."""
     from rayopt_tpu_torch.ops import cuda_df32 as CD
-    from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    for wp in paths:
+        got = CD.trace_final_df32(steps, state, with_path=wp)
+        want = CD.trace_final_df32_reference(steps, state, with_path=wp)
+        words, masks, err, rel = compare_df32(df32_pairs(got, wp),
+                                              df32_pairs(want, wp))
+        ok = masks == 0 and rel <= DF32_REL
+        worst["trace_final_df32"] = max(worst["trace_final_df32"], err)
+        log("K10 %s path=%s: differing words %d, NaN masks differ on %d "
+            "rays, NaN rays %d, max abs err %.3e, max rel err %.3e -> %s"
+            % (tag, wp, words, masks, int(torch.isnan(
+                got[0][3][0] if wp else got[3][0]).sum()), err, rel,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("K10 %s path=%s" % (tag, wp))
+        got = CD.trace_multi_df32(plans, state, with_path=wp)
+        want = CD.trace_multi_df32_reference(plans, state, with_path=wp)
+        res = [compare_df32(df32_pairs(g, wp), df32_pairs(w, wp))
+               for g, w in zip(got, want)]
+        words = sum(r[0] for r in res)
+        masks, err, rel = (max(r[i] for r in res) for i in (1, 2, 3))
+        ok = len(got) == len(plans) and masks == 0 and rel <= DF32_REL
+        worst["trace_multi_df32"] = max(worst["trace_multi_df32"], err)
+        log("K11 %s path=%s: differing words %d over %d plans, NaN masks "
+            "differ on %d rays, max abs err %.3e, max rel err %.3e -> %s"
+            % (tag, wp, words, len(plans), masks, err, rel,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("K11 %s path=%s" % (tag, wp))
+        del got, want
+    moms = [(CD.trace_merit_df32(steps, state),
+             CD.trace_merit_df32_reference(steps, state))]
+    moms += list(zip(CD.trace_merit_multi_df32(plans, state),
+                     CD.trace_merit_multi_df32_reference(plans, state)))
+    for i, (mg, mw) in enumerate(moms):
+        name = "K12" if i == 0 else "K13 plan %d" % (i - 1)
+        key = DF32_NAMES[2 if i == 0 else 3]
+        _, rel, dcount = compare_moments(mg, mw, torch.float64, n)
+        rg = float(spot_rms_from_moments(*mg))
+        rw = float(spot_rms_from_moments(*mw))
+        ok = dcount == 0 and rel <= DF32_REL
+        worst[key] = max(worst[key], abs(rg - rw))
+        log("%s %s: moments rel err %.3e, count %d (diff %d), spot RMS "
+            "kernel %.15g plain %.15g -> %s"
+            % (name, tag, rel, int(float(mw[0])), dcount, rg, rw,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s %s" % (name, tag))
+
+
+@functools.lru_cache(maxsize=None)
+def df32_newton_lenses():
+    """{name: (system, table on the card, bundle function, the tables of
+    its K11/K13 plans)} of the Newton lenses of the df32 checks: the
+    aspheric double Gauss (its 3 wavelengths) and the odd singlet
+    (asphere_stack), the three anamorphic lenses and the figured toroid
+    and biconic (anam_stack: mu grown by 0, 1 and 2 %); built once."""
+    from rayopt_tpu_torch.ops.tables import table_at
+    out = {}
+    for name, (s, table, _, _) in asphere_cases().items():
+        bundle = bench_bundle if name == "aspheric double Gauss" \
+            else singlet_bundle
+        out[name] = (s, table, bundle, asphere_stack(name, s, table)[0])
+    anam = {name: v[:2] for name, v in anamorphic_cases().items()}
+    anam.update({name: v[:2]
+                 for name, v in figured_anamorphic_cases().items()})
+    for name, (s, table) in anam.items():
+        out[name] = (s, table, anam_bundle, anam_stack(table)[0])
+    return {name: (s, table, bundle, [table_at(tabs, li) for li in range(
+        tabs.curvature.shape[0])]) for name, (s, table, bundle, tabs)
+        in out.items()}
+
+
+def phase_df32_check(s):
+    """K10-K13 against their plain versions on the card: the double
+    Gauss on the bench bundle (1.5x wide when clipped), fast and exact
+    plans, the optical path off and on, K11/K13 at the 3 wavelengths;
+    then every Newton lens (df32_newton_lenses: aspheric rows,
+    cylinders, biconics and toroids, figured or not) on its own bench
+    bundle the same way, with the path.  The kernels round every
+    float32 operation as the plain versions do, so their words should be
+    identical (counted); moments are summed in another order."""
+    from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.tables import table_at
     table, tabs = s.table(), s.tables()
     nlam = tabs.curvature.shape[0]
@@ -3405,64 +3533,26 @@ def phase_df32_check(s):
         state = df32_state(state64, 1.5 if clip else 1.)
         for fast in (True, False):
             tag = "clip=%s %s plan" % (clip, "fast" if fast else "exact")
-            steps = D.plan(table, clip=clip, fast=fast)
-            plans = [D.plan(table_at(tabs, li), clip=clip, fast=fast)
-                     for li in range(nlam)]
-            for wp in (False, True):
-                got = CD.trace_final_df32(steps, state, with_path=wp)
-                want = CD.trace_final_df32_reference(steps, state,
-                                                     with_path=wp)
-                words, masks, err, rel = compare_df32(df32_pairs(got, wp),
-                                                      df32_pairs(want, wp))
-                ok = masks == 0 and rel <= DF32_REL
-                worst["trace_final_df32"] = max(worst["trace_final_df32"],
-                                                err)
-                log("K10 %s path=%s: differing words %d, NaN masks differ "
-                    "on %d rays, NaN rays %d, max abs err %.3e, max rel err "
-                    "%.3e -> %s" % (tag, wp, words, masks,
-                                    int(torch.isnan(got[0][3][0] if wp
-                                                    else got[3][0]).sum()),
-                                    err, rel, "ok" if ok else "FAIL"))
-                if not ok:
-                    failures.append("K10 %s path=%s" % (tag, wp))
-                got = CD.trace_multi_df32(plans, state, with_path=wp)
-                want = CD.trace_multi_df32_reference(plans, state,
-                                                     with_path=wp)
-                res = [compare_df32(df32_pairs(g, wp), df32_pairs(w, wp))
-                       for g, w in zip(got, want)]
-                words = sum(r[0] for r in res)
-                masks, err, rel = (max(r[i] for r in res) for i in (1, 2, 3))
-                ok = len(got) == nlam and masks == 0 and rel <= DF32_REL
-                worst["trace_multi_df32"] = max(worst["trace_multi_df32"],
-                                                err)
-                log("K11 %s path=%s: differing words %d over %d "
-                    "wavelengths, NaN masks differ on %d rays, max abs err "
-                    "%.3e, max rel err %.3e -> %s"
-                    % (tag, wp, words, nlam, masks, err, rel,
-                       "ok" if ok else "FAIL"))
-                if not ok:
-                    failures.append("K11 %s path=%s" % (tag, wp))
-            moms = [(CD.trace_merit_df32(steps, state),
-                     CD.trace_merit_df32_reference(steps, state))]
-            moms += list(zip(CD.trace_merit_multi_df32(plans, state),
-                             CD.trace_merit_multi_df32_reference(plans,
-                                                                 state)))
-            for i, (mg, mw) in enumerate(moms):
-                name = "K12" if i == 0 else "K13 wavelength %d" % (i - 1)
-                key = DF32_NAMES[2 if i == 0 else 3]
-                _, rel, dcount = compare_moments(mg, mw, torch.float64,
-                                                 N_CHECK)
-                rg = float(spot_rms_from_moments(*mg))
-                rw = float(spot_rms_from_moments(*mw))
-                ok = dcount == 0 and rel <= DF32_REL
-                worst[key] = max(worst[key], abs(rg - rw))
-                log("%s %s: moments rel err %.3e, count %d (diff %d), spot "
-                    "RMS kernel %.15g plain %.15g -> %s"
-                    % (name, tag, rel, int(float(mw[0])), dcount, rg, rw,
-                       "ok" if ok else "FAIL"))
-                if not ok:
-                    failures.append("%s %s" % (name, tag))
+            df32_check_case(tag, D.plan(table, clip=clip, fast=fast),
+                            [D.plan(table_at(tabs, li), clip=clip, fast=fast)
+                             for li in range(nlam)],
+                            state, N_CHECK, worst, failures)
         del state
+    for lens, (ls, ltab, bundle, ltabs) in df32_newton_lenses().items():
+        log("== K10-K13 vs plain on the card: %s, %d bench rays (1.5x wide "
+            "when clipped), K11/K13 on %d plans, with the path"
+            % (lens, N_CHECK, len(ltabs)))
+        state64 = bundle(N_CHECK, torch.float64, SEED)
+        for clip in (False, True):
+            state = df32_state(state64, 1.5 if clip else 1.)
+            for fast in (True, False):
+                tag = "%s clip=%s %s plan" % (lens, clip,
+                                              "fast" if fast else "exact")
+                df32_check_case(tag, D.plan(ltab, clip=clip, fast=fast),
+                                [D.plan(t, clip=clip, fast=fast)
+                                 for t in ltabs],
+                                state, N_CHECK, worst, failures, (True,))
+            del state
     if failures:
         raise AssertionError("df32 kernel disagrees with its plain version: "
                              + ", ".join(failures))
@@ -3606,8 +3696,7 @@ def phase_split_check(s):
     ok = (len(got) == len(moms) == N_SPLIT_PLANS and words == 0
           and max(r[1] for r in res) == 0
           and all(dc == 0 and rel <= DF32_REL for _, rel, dc in mres)
-          and launched == tuple(len(CS.df32_runs(N_SPLIT_PLANS,
-                                                 len(plans[0]), k))
+          and launched == tuple(len(CS.df32_runs(CS.df32_flags(plans), k))
                                 for k in ("k11", "k13")))
     log("K11/K13 at %d plans: %s launches, differing words %d, NaN masks "
         "differ on %d rays, moments rel err max %.3e, counts differ %d -> %s"
@@ -3620,27 +3709,31 @@ def phase_split_check(s):
         raise AssertionError("split check failed: " + ", ".join(failures))
 
 
-def phase_df32_path(s, aimed):
-    """The parity-grade df32 path on the main path's aimed bundles:
-    df32.plan (fast and exact) -> state_from_f64 on the card -> K10 with
-    the optical path and K12; System.tables -> table_at -> one plan a
-    wavelength -> K11 (with the path) and K13.  Each spot RMS is held
-    against the CPU float64 plain trace, K10's image positions against
-    float64 K1 on the card; at the other wavelengths K11 is held on the
-    first N_DF32_REF rays of each bundle, whose CPU traces cost a quarter
-    of the full bundle's, and K13's moments of the whole bundle against
-    the spot RMS of K11's whole output from the same call."""
+def phase_df32_path(s, aimed, lens="double Gauss"):
+    """The parity-grade df32 path on a lens's aimed bundles: df32.plan
+    (fast and exact) -> state_from_f64 on the card -> K10 with the
+    optical path and K12; System.tables -> table_at -> one plan a
+    wavelength -> K11 (with the path) and K13.  Each bundle's CPU
+    float64 plain trace covers its first `n_ref` rays (all of them by
+    default): K10's spot RMS there is held against it, K10's image
+    positions against float64 K1 on the card (every ray), K12's moments
+    of the whole bundle against the CPU (or, where the CPU covers a part,
+    K10's spot RMS of the whole bundle); at the other wavelengths K11 is
+    held on the first N_DF32_REF rays (at most n_ref) of each bundle,
+    whose CPU traces cost a quarter of the full bundle's, and K13's
+    moments of the whole bundle against the spot RMS of K11's whole
+    output from the same call."""
     from rayopt_tpu_torch.ops import cuda_df32 as CD
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
     from rayopt_tpu_torch.ops.geometric import trace_rays_final_multi
-    from rayopt_tpu_torch.ops.tables import table_at
+    from rayopt_tpu_torch.ops.tables import is_anamorphic, table_at
     table, tabs = s.table(), s.tables()
     nlam = tabs.curvature.shape[0]
-    log("== parity-grade df32 path: double Gauss, the main path's %d aimed "
-        "rays per field -> df32.plan (fast and exact) -> state_from_f64 -> "
-        "K10 (with the path), K12; System.tables -> %d plans -> K11, K13"
-        % (N_AIMED, nlam))
+    log("== parity-grade df32 path: %s, %d aimed rays per field -> df32.plan "
+        "(fast and exact) -> state_from_f64 -> K10 (with the path), K12; "
+        "System.tables -> %d plans -> K11, K13"
+        % (lens, aimed[0]["y"].shape[0], nlam))
     plans = {fast: D.plan(table, fast=fast) for fast in (True, False)}
     lam_plans = [D.plan(table_at(tabs, li), fast=True) for li in range(nlam)]
     # the CPU float64 references of the other wavelengths (the first is
@@ -3649,6 +3742,9 @@ def phase_df32_path(s, aimed):
     failures = []
     for a in aimed:
         field = a["field"]
+        n = a["y"].shape[0]
+        n_ref = a.get("n_ref", n)
+        ref = slice(0, n_ref)
         state = D.state_from_f64(a["y"], a["u"])
         for fast in (True, False):
             t0 = time.perf_counter()
@@ -3658,25 +3754,29 @@ def phase_df32_path(s, aimed):
             torch.cuda.synchronize()
             t_gpu = time.perf_counter() - t0
             xy = torch.stack([D.to_f64(fin[0]), D.to_f64(fin[1])], 1)
-            uz = D.to_f64(fin[5])
-            rms10, live = spot_rms(xy, uz[:, None].expand(-1, 3))
+            uz = D.to_f64(fin[5])[:, None].expand(-1, 3)
+            rms_all, _ = spot_rms(xy, uz)
+            rms10, live = spot_rms(xy[ref], uz[ref])
             rms12 = float(spot_rms_from_moments(*mom))
+            rms12_ref = a["rms_cpu"] if n_ref == n else rms_all
             good = torch.isfinite(a["y64"][:, 0])
             same = torch.equal(good, torch.isfinite(xy[:, 0]))
             pos = float((xy[good] - a["y64"][good, :2]).abs().max())
             path_ok = bool(torch.isfinite(D.to_f64(path)[good]).all())
             rel10 = abs(rms10 - a["rms_cpu"])/a["rms_cpu"]
-            rel12 = abs(rms12 - a["rms_cpu"])/a["rms_cpu"]
+            rel12 = abs(rms12 - rms12_ref)/rms12_ref
             # K12's moments carry E[x^2] - c^2: off axis (centroid ~1e6
             # spot RMS) their df32 precision is reported, not gated
             ok = (same and live == a["live_cpu"] and pos <= DF32_F64_ATOL
                   and path_ok and rel10 <= PARITY_REL
                   and (field != 0. or rel12 <= PARITY_REL))
-            log("field %.1f %s plan: %d rays live | K10 image positions vs "
-                "f64 K1 max %.3e mm | spot RMS mm: CPU f64 %.15g | K10 "
-                "%.15g (rel %.3e) | K12 %.15g (rel %.3e) | card %.3f s -> %s"
-                % (field, "fast" if fast else "exact", live, pos,
-                   a["rms_cpu"], rms10, rel10, rms12, rel12, t_gpu,
+            log("field %.1f %s plan: %d of the first %d rays live | K10 "
+                "image positions vs f64 K1 max %.3e mm | spot RMS mm: CPU "
+                "f64 %.15g | K10 %.15g (rel %.3e) | K12 %.15g (rel %.3e vs "
+                "%s) | card %.3f s -> %s"
+                % (field, "fast" if fast else "exact", live, n_ref, pos,
+                   a["rms_cpu"], rms10, rel10, rms12, rel12,
+                   "the CPU" if n_ref == n else "K10", t_gpu,
                    "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("field %.1f %s" % (
@@ -3687,13 +3787,14 @@ def phase_df32_path(s, aimed):
         moms = CD.trace_merit_multi_df32(lam_plans, state)
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
-        sub = slice(0, N_DF32_REF)
+        sub = slice(0, min(N_DF32_REF, n_ref))
         t0 = time.perf_counter()
         ycpu, ucpu = a["y"][sub].cpu(), a["u"][sub].cpu()
         yh, uh, _ = trace_rays_final_multi(
             tabs_cpu, ycpu.expand(nlam - 1, -1, -1),
-            ucpu.expand(nlam - 1, -1, -1), clip=False)
-        ref = [a["rms_cpu"]] + [spot_rms(yh[li], uh[li])[0]
+            ucpu.expand(nlam - 1, -1, -1), clip=False,
+            biconic=is_anamorphic(tabs_cpu))
+        cpu = [a["rms_cpu"]] + [spot_rms(yh[li], uh[li])[0]
                                 for li in range(nlam - 1)]
         t_cpu = time.perf_counter() - t0
         del yh, uh
@@ -3702,33 +3803,46 @@ def phase_df32_path(s, aimed):
             uz = D.to_f64(fin[5])[:, None].expand(-1, 3)
             rms11, live = spot_rms(xy, uz)
             rms13 = float(spot_rms_from_moments(*mom))
-            # the first wavelength against the CPU on the whole bundle;
-            # the others K11 against it on the first N_DF32_REF rays and
-            # K13 against K11's whole output
-            if li == 0:
-                rms_ref, rms13_ref = rms11, ref[0]
-            else:
-                rms_ref, rms13_ref = spot_rms(xy[sub], uz[sub])[0], rms11
-            rel11 = abs(rms_ref - ref[li])/ref[li]
+            # the first wavelength against the CPU on its reference rays
+            # (and K13 too, where they are the whole bundle); the others
+            # K11 against it on the first N_DF32_REF rays and K13
+            # against K11's whole output
+            rms_ref = spot_rms(xy[ref] if li == 0 else xy[sub],
+                               uz[ref] if li == 0 else uz[sub])[0]
+            rms13_ref = cpu[0] if li == 0 and n_ref == n else rms11
+            rel11 = abs(rms_ref - cpu[li])/cpu[li]
             rel13 = abs(rms13 - rms13_ref)/rms13_ref
             ok = rel11 <= PARITY_REL and (field != 0. or rel13 <= PARITY_REL)
             log("field %.1f wavelength %d: %d of %d rays live | spot RMS "
                 "mm: K11 %.15g | K13 %.15g (rel %.3e vs %s) | %s: CPU f64 "
                 "%.15g, K11 %.15g (rel %.3e) -> %s"
-                % (field, li, live, xy.shape[0], rms11, rms13, rel13,
-                   "the CPU" if li == 0 else "K11",
-                   "all rays" if li == 0 else "the first %d rays"
-                   % N_DF32_REF, ref[li], rms_ref, rel11,
-                   "ok" if ok else "FAIL"))
+                % (field, li, live, n, rms11, rms13, rel13,
+                   "the CPU" if rms13_ref is cpu[0] else "K11",
+                   "the first %d rays" % (n_ref if li == 0 else sub.stop),
+                   cpu[li], rms_ref, rel11, "ok" if ok else "FAIL"))
             if not ok:
                 failures.append("field %.1f wavelength %d" % (field, li))
         log("field %.1f: K11 + K13 card %.3f s, CPU f64 trace of %d "
             "wavelengths at %d rays %.2f s" % (field, t_gpu, nlam - 1,
-                                               N_DF32_REF, t_cpu))
+                                               sub.stop, t_cpu))
         del outs, moms, state
     if failures:
-        raise AssertionError("df32 path parity failed at " +
-                             ", ".join(failures))
+        raise AssertionError("df32 path parity failed on the %s at %s"
+                             % (lens, ", ".join(failures)))
+
+
+def newton_df32_path(s, aimed, lens):
+    """A Newton lens's df32 path (phase_df32_path on the aimed bundles
+    of its own path), its launches counted from a reset just before it
+    and read just after; every kernel of it must have launched."""
+    reset_launches()
+    phase_df32_path(s, aimed, lens)
+    counts = read_launches()
+    log("== launch counts on the %s's df32 path: %s" % (lens, counts))
+    if not all(counts[k] for k in DF32_NAMES):
+        raise AssertionError("a kernel of the %s's df32 path never "
+                             "launched: %s" % (lens, counts))
+    return counts
 
 
 def _wrappers():
@@ -4230,6 +4344,85 @@ def phase_df32_throughput(s, card):
     return times, live
 
 
+# the Newton lenses whose K10-K13 are timed against their spherical twins:
+# the aspheric double Gauss at N_GRAD_TIME and N_BENCH bench rays, the
+# anamorphic lenses at N_GRAD_TIME
+DF32_TIMED = ("aspheric double Gauss", "anamorphic pair",
+              "split-conic biconic")
+
+
+def df32_timed_plans(lens, fast):
+    """(one plan, the K11/K13 plans) of a timed Newton lens and of its
+    spherical twin (the double Gauss for the aspheric double Gauss,
+    spherical_twin's table for an anamorphic lens, its stack
+    anam_stack's), and the lens's bench bundle function."""
+    from rayopt_tpu_torch.models import double_gauss
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.tables import table_at
+    s, table, bundle, tabs = df32_newton_lenses()[lens]
+    if lens == "aspheric double Gauss":
+        twin = double_gauss()
+        ttab, ttabs = twin.table(), twin.tables()
+    else:
+        ttab = spherical_twin(table)
+        ttabs = anam_stack(ttab)[0]
+    ttabs = [table_at(ttabs, li) for li in range(ttabs.curvature.shape[0])]
+    return ((D.plan(table, fast=fast), [D.plan(t, fast=fast) for t in tabs]),
+            (D.plan(ttab, fast=fast), [D.plan(t, fast=fast) for t in ttabs]),
+            bundle)
+
+
+def phase_df32_newton_throughput(card):
+    """K10 (with the optical path), K12, K11 (with the path) and K13 on
+    the Newton lenses' plans (DF32_TIMED) against the same kernels on
+    their spherical twins' plans, in turns in one call (kernel, twin,
+    kernel, twin), fast and exact, on each lens's bench bundle: the
+    aspheric double Gauss at N_GRAD_TIME and N_BENCH rays, the
+    anamorphic lenses at N_GRAD_TIME (the plain versions are timed on
+    the double Gauss, phase_df32_throughput).  Returns {(kernel, lens,
+    plan, n): (ms, twin ms)} and {(lens, n): live rays of the lens's
+    one-plan trace}."""
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    log("== K10-K13 on the Newton plans against their spherical twins' "
+        "(%s), in turns (%s)" % (", ".join(DF32_TIMED), card))
+    calls = {"trace_final_df32": lambda p, st: CD.trace_final_df32(
+                 p[0], st, with_path=True),
+             "trace_merit_df32": lambda p, st: CD.trace_merit_df32(p[0], st),
+             "trace_multi_df32": lambda p, st: CD.trace_multi_df32(
+                 p[1], st, with_path=True),
+             "trace_merit_multi_df32": lambda p, st: CD.trace_merit_multi_df32(
+                 p[1], st)}
+    times, live = {}, {}
+    for lens in DF32_TIMED:
+        sizes = (N_GRAD_TIME, N_BENCH) if lens == "aspheric double Gauss" \
+            else (N_GRAD_TIME,)
+        for n in sizes:
+            state = df32_state(df32_timed_plans(lens, True)[2](
+                n, torch.float64, SEED + 1))
+            for fast in (True, False):
+                plan = "fast" if fast else "exact"
+                newton, twin, _ = df32_timed_plans(lens, fast)
+                if fast:
+                    live[(lens, n)] = float(CD.trace_merit_df32(
+                        newton[0], state)[0])
+                for name, fn in calls.items():
+                    reps = 3 if n == N_BENCH else 10
+                    k1 = cuda_ms(lambda: fn(newton, state), reps)
+                    t1 = cuda_ms(lambda: fn(twin, state), reps)
+                    k2 = cuda_ms(lambda: fn(newton, state), reps)
+                    t2 = cuda_ms(lambda: fn(twin, state), reps)
+                    k, t = (k1 + k2)/2, (t1 + t2)/2
+                    times[(name, lens, plan, n)] = (k, t)
+                    log("%s %s %s plan at %d rays: kernel %.4f ms (%.4f, "
+                        "%.4f) | spherical twin %.4f ms (%.4f, %.4f), "
+                        "kernel/twin %.3fx | %s"
+                        % (name, lens, plan, n, k, k1, k2, t, t1, t2, k/t,
+                           card))
+            del state
+            torch.cuda.empty_cache()
+    return times, live
+
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
 # bytes/s, and flop/s outside the tensor cores by dtype
 PEAK_BYTES = 3.35e12
@@ -4404,22 +4597,110 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0)):
 # 24, sqr 23, div 89, div1 41, sqrt 88, sqrt1 41).
 DF_OPS = {"add": 11, "mul": 10, "sqr": 9, "scale": 2, "div": 61,
           "div1": 27, "sqrt": 60, "sqrt1": 27}
+DF_ASPHERIC_ITERS = 8   # an aspheric row's df32 rounds (ops.df32)
+
+
+def _df_figure_ops(na, no, dv, sq):
+    """float32 operations of the df32 figure functions of
+    csrc/df32_common.cuh at na even and no odd coefficients:
+    (poly_even, dpoly_even, poly_odd, dpoly_odd); a floor's compare
+    counts one."""
+    o = DF_OPS
+    def horner(n):
+        return n*o["mul"] + (n - 1)*o["add"]
+    pe = horner(na) if na else 0
+    de = na*o["scale"] + (na - 1)*(o["mul"] + o["add"]) if na else 0
+    po = horner(no) if no else 0
+    do = ((no - 1)*(o["mul"] + o["add"]) + 1 + dv
+          + ((no - 1)*o["scale"] + (no - 2)*(o["mul"] + o["add"]) + o["mul"]
+             + o["scale"] + o["add"] if no > 1 else 0)) if no else 0
+    return pe, de, po, do
+
+
+def df32_newton_ops(step):
+    """float32 operations of a Newton row's intercept and normal
+    (csrc/df32_common.cuh): (intercept, normal).  An aspheric row: its
+    conic root, DF_ASPHERIC_ITERS rounds (the point, sag_df,
+    normal_radial_df, the slope and the update) and the residual test,
+    then the radial factor of the generic normal; a biconic or toroid
+    row: the float32 seed (intercept_conic_32, ANAM_F32_ITERS float32
+    steps of the sag and normal, counted as float32 operations), the df32
+    rounds and the residual test, then its df32 normal; a conic
+    cylinder: its closed form, then its polynomial normal (N_w, N_z, u.N
+    and, conic, |N|^2).  The generic normal's |N|^2 and u.N, and the
+    refraction, are counted by df32_step_ops."""
+    o = DF_OPS
+    dv = o["div1"] if step["fast"] else o["div"]
+    sq = o["sqrt1"] if step["fast"] else o["sqrt"]
+    point = 3*(o["mul"] + o["add"])
+    an = step["anam"]
+    if an is None:
+        na, no = len(step["asp"]), len(step["asp_odd"])
+        pe, de, po, do = _df_figure_ops(na, no, dv, sq)
+        sag = (2*o["sqr"] + 3*o["mul"] + 4*o["add"] + sq + dv
+               + (o["add"] + pe if na else 0)
+               + (o["add"] + sq + po if no else 0))
+        normal = (3*o["sqr"] + 2*o["mul"] + 2*o["add"] + sq + dv
+                  + (o["add"] + de if na else 0)
+                  + (o["add"] + sq + do if no else 0))
+        rnd = point + sag + normal + 4*o["mul"] + 3*o["add"] + dv
+        return (DF_ASPHERIC_ITERS*rnd + point + sag + 3,
+                normal + 2*o["mul"])
+    if an["mode"] in ("cyl_y", "cyl_x"):
+        cept = (8*o["mul"] + 3*o["sqr"] + 8*o["add"] + o["scale"] + sq
+                + dv + 2)
+        normal = (4*o["mul"] + 2*o["add"]
+                  + (0 if an["circular"] else 2*o["sqr"] + o["add"]))
+        return cept, normal
+    na, no = len(an["asp"]), len(an["asp_odd"])
+    pe, de, po, do = _df_figure_ops(na, no, dv, sq)
+    if an["mode"] == "toroid":
+        ycurve = (o["sqr"] + o["mul"] + o["add"] + sq + 2*o["mul"]
+                  + o["add"] + 2*dv + 1
+                  + (pe + de + o["mul"] + 2*o["add"] if na else 0)
+                  + (sq + po + do + o["mul"] + 2*o["add"] if no else 0))
+        sag = (ycurve + 3*o["mul"] + 5*o["add"] + 2*o["sqr"] + sq + 2*dv)
+        normal = (ycurve + 3*o["mul"] + 2*o["add"] + 2*o["sqr"] + sq + 1
+                  + 3*dv)
+        sag32 = 30 + (6*na + 4 if na else 0) + (7*no + 6 if no else 0)
+    else:
+        fig = o["add"] if na or no else 0
+        sag = (2*o["sqr"] + 4*o["mul"] + 5*o["add"] + sq + dv + fig
+               + (o["add"] + pe if na else 0)
+               + (o["add"] + sq + po if no else 0))
+        normal = (2*o["sqr"] + 4*o["mul"] + 4*o["add"] + sq + 2*dv
+                  + o["sqr"] + 1 + 2*(4*o["mul"] + o["scale"] + o["add"])
+                  + (fig + de + do + (o["add"] if na and no else 0)
+                     + (sq if no else 0) + 2*(o["mul"] + o["add"])
+                     if na or no else 0))
+        sag32 = 49 + (5*na + 5 if na else 0) + (5*no + 9 if no else 0)
+    iters = 2 + (0 if step["fast"] else 1)
+    seed = 37 + 6*(13 + sag32)
+    rnd = point + sag + normal + 2*o["mul"] + 2*o["add"] + 1 + dv + o["add"]
+    return seed + iters*rnd + point + sag + 3, normal
 
 
 def df32_step_ops(step, path=False):
     """float32 operations of one surface_df (csrc/df32_common.cuh) for a
-    planned step (ops.df32.plan), and of the path's s * n_before."""
+    planned step (ops.df32.plan), and of the path's s * n_before; a
+    Newton row's intercept and normal by df32_newton_ops."""
     o = DF_OPS
     dv = o["div1"] if step["fast"] else o["div"]
     sq = o["sqrt1"] if step["fast"] else o["sqrt"]
     dot3 = 3*o["mul"] + 2*o["add"]
     flat, conic = step["flat"], step["k1"] is not None
+    an = step["anam"]
+    figured = bool(step["asp"] or step["asp_odd"]) and an is None
+    cyl = an is not None and an["mode"] in ("cyl_y", "cyl_x")
     f = o["add"]                                    # z - dz
     if step["dxy"] is not None:
         f += 2*o["add"]
     if step["rot_df"] is not None:                  # in and out of the frame
         f += 4*3*dot3
-    if flat:
+    newton = df32_newton_ops(step) if an is not None or figured else None
+    if an is not None:
+        f += newton[0]
+    elif flat:
         f += dv
     else:
         if conic:                                   # kz, u.y, y.y, u.u, e
@@ -4428,10 +4709,31 @@ def df32_step_ops(step, path=False):
             f += 2*dot3
         f += (3*o["mul"] + 3*o["add"] + o["scale"] + o["sqr"]  # d, f, disc
               + sq + o["add"] + dv)                 # g, num or den, s
+    if figured:
+        f += newton[0]                              # the polish
     f += 3*(o["mul"] + o["add"])                    # the transfer
     if step["clip"] and step["radius"] is not None:
         f += 3
-    if step["kind"]:
+    if step["kind"] and (newton is not None and not cyl):
+        # the generic normal (nx, ny, 1): |N|^2 and u.N, then the
+        # refraction or reflection on it
+        f += newton[1] + 2*o["sqr"] + 2*o["mul"] + 4*o["add"]
+        if step["kind"] == 2:
+            f += o["scale"] + dv + 2*(o["mul"] + o["add"]) + o["add"]
+        else:
+            f += (o["sqr"] + o["add"] + dv + 3*o["mul"] + o["sqr"]
+                  + 2*o["add"] + sq + 5*o["mul"] + 3*o["add"])
+    elif step["kind"] and cyl:
+        unit = an["circular"]
+        f += newton[1]
+        if step["kind"] == 2:
+            f += o["scale"] + (0 if unit else dv) + 2*(o["mul"] + o["add"])
+        else:
+            f += o["sqr"] + o["add"]                # mu^2 - 1
+            f += o["mul"] if unit else dv + 3*o["mul"]
+            f += o["sqr"] + 2*o["add"] + sq         # g
+            f += 5*o["mul"] + 2*o["add"]
+    elif step["kind"]:
         unit = flat or not conic
         if not flat:                                # nx, ny, nz, u.N
             f += 3*o["mul"] + o["add"] + dot3
@@ -4469,16 +4771,17 @@ def df32_bound(name, n, plans, live):
     (one plan for K10/K12, one a wavelength for K11/K13; K10/K11 with
     the optical path): 12 float32 words read a ray, 14 written a ray and
     plan (K10/K11) or the 5 float64 moments a plan (K12/K13), the plans'
-    words (their flags are compile-time), over the HBM rate; the float32
+    words (as the key packs them, cuda_spec.df32_plan_words; their flags
+    are compile-time), over the HBM rate; the float32
     operations of df32_chain_ops (and DF32_MOMENT_OPS for each of the
     `live` rays, summed over plans) over 67 TFLOP/s, the float32 peak
     outside the tensor cores, which counts a fused multiply-add as
     two."""
-    from rayopt_tpu_torch.ops.cuda_df32 import DW
+    from rayopt_tpu_torch.ops.cuda_spec import df32_flags, df32_plan_words
     merit = "merit" in name
     nlam = len(plans)
     out = nlam*5*2 if merit else n*14*nlam
-    nbytes = (n*12 + out + nlam*len(plans[0])*DW)*4
+    nbytes = (n*12 + out + nlam*df32_plan_words(df32_flags(plans)))*4
     flops = n*sum(df32_chain_ops(p, path=not merit) for p in plans)
     if merit:
         flops += live*DF32_MOMENT_OPS
@@ -4501,14 +4804,20 @@ DF32_LOOP_KEYS = {"trace_final_df32": "K10 fast clip=False path=True",
                   "trace_merit_multi_df32": "K13 fast clip=False"}
 
 
-def df32_entries(s, launches, worst, times, live, ptxas, sass):
+def df32_entries(s, launches, worst, times, live, ptxas, sass, newton):
     """The kernels-line entries of K10-K13: `ms`/`plain_ms` with the fast
     plan at N_GRAD_TIME rays, `ms_exact`/`plain_ms_exact` with the exact
     one, the N_BENCH times beside them; no float64 instance.  Each also
     carries its df32 path key's registers, stack, spills and SASS
-    size."""
+    size, and the Newton plans' (`newton`: phase_df32_newton_throughput's
+    times and live rays, the Newton df32 paths' launches): for each
+    timed lens its time, its spherical twin's and its bound, fast and
+    exact (the aspheric double Gauss's N_BENCH times too), the
+    registers and SASS of its path keys, and the launches of
+    the aspheric double Gauss's and the pair's df32 paths."""
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.tables import table_at
+    ntimes, nlive, nlaunches = newton
     tabs = s.tables()
     nlam = tabs.curvature.shape[0]
     entries = []
@@ -4547,13 +4856,38 @@ def df32_entries(s, launches, worst, times, live, ptxas, sass):
             if multi:
                 entry["twin_ms" + sfx] = t
                 entry["twin_ms%s_%d_rays" % (sfx, N_BENCH)] = big[2]
-        if kname == "trace_final_df32":
-            entry["f64_trace_final_ms"] = times[("f64_trace_final",
-                                                 N_GRAD_TIME)]
-            entry["f64_trace_final_ms_%d_rays" % N_BENCH] = times[
-                ("f64_trace_final", N_BENCH)]
+            for lens in DF32_TIMED:
+                short = DF32_SHORT[lens]
+                newton_plans = df32_timed_plans(lens, plan == "fast")[0]
+                nplans = newton_plans[1] if multi else [newton_plans[0]]
+                for n in (N_GRAD_TIME, N_BENCH):
+                    if (kname, lens, plan, n) not in ntimes:
+                        continue
+                    k, t = ntimes[(kname, lens, plan, n)]
+                    at = "%s%s%s" % (short, sfx, "" if n == N_GRAD_TIME
+                                     else "_%d_rays" % n)
+                    bound = df32_bound(kname, n, nplans,
+                                       nlive[(lens, n)]*len(nplans))[0]
+                    entry.update({"ms_" + at: k, "twin_ms_" + at: t,
+                                  "bound_ms_" + at: bound})
+        for lens in DF32_TIMED:
+            key = "%s %s fast clip=False%s" % (
+                DF32_LOOP_KEYS[kname][:3], lens,
+                " path=True" if "merit" not in kname else "")
+            regs, stack, spill = ptxas[key]
+            short = DF32_SHORT[lens]
+            entry.update({"regs_f32_" + short: regs,
+                          "spill_bytes_f32_" + short: spill,
+                          "sass_instructions_" + short: sass[key][0]})
+        for lens, counts in nlaunches.items():
+            entry["launches_" + DF32_SHORT[lens]] = counts[kname]
         entries.append(entry)
     return entries
+
+
+# the kernels line's names of the timed Newton lenses
+DF32_SHORT = {"aspheric double Gauss": "aspheric", "anamorphic pair": "pair",
+              "split-conic biconic": "biconic"}
 
 
 def asphere_entries(sources, launches, worst, times, ptxas, steps, opt_step,
@@ -4956,22 +5290,31 @@ def main():
     launches.update({k: design_launches[k] for k in opd})
     aworst = phase_asphere_check()
     reset_launches()
-    asph_launches, asph_steps = phase_asphere_path(opt_step, glass_step,
-                                                   design_step)
+    asph_launches, asph_steps, asph_aimed = phase_asphere_path(
+        opt_step, glass_step, design_step)
     log("== launch counts on the aspheric path: %s" % asph_launches)
     asph = ("trace_final", "trace_merit", "weighted_moments",
             "merit_adjoint") + multi + opd
     if not all(asph_launches[k] for k in asph):
         raise AssertionError("a kernel of the aspheric path never launched: "
                              "%s" % asph_launches)
+    newton_launches = {
+        "aspheric double Gauss": newton_df32_path(
+            aspheric_double_gauss(), asph_aimed, "aspheric double Gauss")}
+    del asph_aimed
     nworst = phase_anamorphic_check()
     reset_launches()
-    anam_launches, anam_steps = phase_anamorphic_path(opt_step, glass_step,
-                                                      design_step)
+    anam_launches, anam_steps, anam_aimed = phase_anamorphic_path(
+        opt_step, glass_step, design_step)
     log("== launch counts on the anamorphic path: %s" % anam_launches)
     if not all(anam_launches[k] for k in asph):
         raise AssertionError("a kernel of the anamorphic path never "
                              "launched: %s" % anam_launches)
+    from rayopt_tpu_torch.models import anamorphic_pair
+    newton_launches["anamorphic pair"] = newton_df32_path(
+        anamorphic_pair(), anam_aimed, "anamorphic pair")
+    del anam_aimed
+    torch.cuda.empty_cache()
     ntimes, nlive = phase_anamorphic_throughput(card)
     ftimes, flive = phase_figured_throughput(card)
     times = phase_throughput(table, specs, card)
@@ -4979,6 +5322,7 @@ def main():
     mtimes, mlive = phase_multi_throughput(tabs, mspecs, card)
     otimes, olive = phase_opd_throughput(s, table, specs, card)
     dtimes, dlive = phase_df32_throughput(s, card)
+    dntimes, dnlive = phase_df32_newton_throughput(card)
     _, atab, aspecs, _ = asphere_cases()["aspheric double Gauss"]
     atimes = phase_throughput(atab, aspecs, card, N_GRAD_TIME,
                               (table, specs), N_BENCH,
@@ -5149,7 +5493,8 @@ def main():
                                   nlive, ptxas, anam_steps,
                                   (opt_step, glass_step, design_step),
                                   (ftimes, flive))
-    kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass)
+    kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass,
+                            (dntimes, dnlive, newton_launches))
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())
     log("== keys built at first use, outside phase_spec_build: %d %s"

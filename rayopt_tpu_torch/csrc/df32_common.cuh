@@ -22,8 +22,8 @@
 
 namespace {
 
-// packed step layout: keep in sync with cuda_df32.py (DW, W_*)
-constexpr int DW = 36;
+// packed step layout: keep in sync with cuda_df32.py (DW, W_*, A_*)
+constexpr int DW = 36;     // the words of a step without a figure
 constexpr int W_C = 0;     // curvature
 constexpr int W_MU = 2;    // |mu|
 constexpr int W_DZ = 4;    // offset z
@@ -33,6 +33,15 @@ constexpr int W_DXY = 10;  // offset x, y
 constexpr int W_ROT = 14;  // rot, row-major 3x3 pairs
 constexpr int W_RAD = 32;  // squared aperture radius (one float)
 constexpr int W_NB = 33;   // n_before
+constexpr int W_FIG = DW;  // a figure's words, by its row kind:
+// an aspheric row: its even, then odd coefficients (pairs);
+// a conic cylinder: c1, 1 + k, (1 + k) c1 (pairs);
+// a biconic or toroid: cx, cy, cr, (1 + kx) cx^2, (1 + ky) cy^2 (pairs),
+// the seed's float32 kx and ky, then the even and odd coefficients
+// (pairs; the seed reads their hi words, and those of cx, cy and cr)
+constexpr int A_C1 = 0, A_K1 = 2, A_K1C = 4, CYL_WORDS = 6;
+constexpr int A_CX = 0, A_CY = 2, A_CR = 4, A_BXC = 6, A_BYC = 8, A_KX = 10,
+              A_KY = 11, A_COEF = 12;
 
 // flag bits: keep in sync with cuda_df32.py (G_*)
 constexpr int G_KIND = 3;          // 0 pass, 1 refract, 2 mirror
@@ -45,6 +54,36 @@ constexpr int G_ROT = 1 << 7;      // general df32 rotation
 constexpr int G_CLIP = 1 << 8;
 constexpr int G_FAST = 1 << 9;
 constexpr int G_PERM_SHIFT = 10;   // 3 bits a row: column (2), negate (1)
+constexpr int G_FIG_SHIFT = 19;    // 3 bits: the row kind (FIG_*)
+constexpr int G_NA_SHIFT = 22;     // 4 bits: even coefficients
+constexpr int G_NO_SHIFT = 26;     // 4 bits: odd coefficients
+constexpr int G_CYL_CONIC = 1 << 30;  // a conic cylinder: |N| is not 1
+constexpr int FIG_NONE = 0, FIG_RADIAL = 1, FIG_CYL_Y = 2, FIG_CYL_X = 3,
+              FIG_BICONIC = 4, FIG_TOROID = 5;
+
+__host__ __device__ constexpr int fig_of(int fl) {
+  return (fl >> G_FIG_SHIFT) & 7;
+}
+__host__ __device__ constexpr int na_of(int fl) {
+  return (fl >> G_NA_SHIFT) & 15;
+}
+__host__ __device__ constexpr int no_of(int fl) {
+  return (fl >> G_NO_SHIFT) & 15;
+}
+
+// The words of a step: DW, and its figure's (cuda_df32.step_words).
+__host__ __device__ constexpr int step_words(int fl) {
+  const int fig = fig_of(fl), coef = 2 * (na_of(fl) + no_of(fl));
+  return DW + (fig == FIG_RADIAL ? coef
+               : fig == FIG_CYL_Y || fig == FIG_CYL_X ? CYL_WORDS
+               : fig == FIG_BICONIC || fig == FIG_TOROID ? A_COEF + coef
+               : 0);
+}
+
+// the Newton's rounds and its residual test (ops/df32.py)
+constexpr int DF_ASPHERIC_ITERS = 8;
+constexpr int ANAM_F32_ITERS = 6;
+constexpr int ANAM_DF_ITERS = 2;   // 3 in the exact plan
 
 struct df {
   float hi, lo;
@@ -210,37 +249,492 @@ __device__ __forceinline__ void frame_apply(W w, int fl, df& x, df& y,
   }
 }
 
+// -- figures in df32 (ops/df32.py) ------------------------------------------
+//
+// A figure's coefficients are read from the step's words where they are
+// used: N pairs at w[at], N a compile-time count (the step's flags).
+
+constexpr float TINY32 = static_cast<float>(1e-30);
+constexpr float NEWTON_TOL = static_cast<float>(1e-9);
+
+// the pair floored at TINY32 on its hi word; NaN floors too (_max_tiny)
+__device__ __forceinline__ df max_tiny(df a) {
+  return a.hi > TINY32 ? a : df{TINY32, 0.f};
+}
+
+// sum c_i r2^(i+1) by Horner (_poly_even_df)
+template <int N, typename W>
+__device__ __forceinline__ df poly_even_df(df r2, W w, int at) {
+  df acc = ld(w, at + 2 * (N - 1));
+#pragma unroll
+  for (int i = N - 2; i >= 0; --i) acc = add(mul(acc, r2), ld(w, at + 2 * i));
+  return mul(acc, r2);
+}
+
+// sum 2(i+1) c_i r2^i (_dpoly_even_df)
+template <int N, typename W>
+__device__ __forceinline__ df dpoly_even_df(df r2, W w, int at) {
+  df acc = scale(ld(w, at + 2 * (N - 1)), float(2 * N));
+#pragma unroll
+  for (int i = N - 2; i >= 0; --i)
+    acc = add(mul(acc, r2), scale(ld(w, at + 2 * i), float(2 * (i + 1))));
+  return acc;
+}
+
+// sum c_j r^(2j+1), r = sqrt(r2) given (_poly_odd_df)
+template <int N, typename W>
+__device__ __forceinline__ df poly_odd_df(df r2, df r, W w, int at) {
+  df acc = ld(w, at + 2 * (N - 1));
+#pragma unroll
+  for (int j = N - 2; j >= 0; --j) acc = add(mul(acc, r2), ld(w, at + 2 * j));
+  return mul(r, acc);
+}
+
+// P(r2)/r + 2 r P'(r2), the cusp floored (_dpoly_odd_df)
+template <int N, typename W>
+__device__ __forceinline__ df dpoly_odd_df(df r2, df r, W w, int at,
+                                           bool fast) {
+  df p = ld(w, at + 2 * (N - 1));
+#pragma unroll
+  for (int j = N - 2; j >= 0; --j) p = add(mul(p, r2), ld(w, at + 2 * j));
+  df out = dv(p, max_tiny(r), fast);
+  if constexpr (N > 1) {
+    df dp = scale(ld(w, at + 2 * (N - 1)), float(N - 1));
+#pragma unroll
+    for (int j = N - 2; j >= 1; --j)
+      dp = add(mul(dp, r2), scale(ld(w, at + 2 * j), float(j)));
+    out = add(out, scale(mul(r, dp), 2.f));
+  }
+  return out;
+}
+
+// e - the even and odd figure at r2 (NA, then NO pairs at w[at])
+template <int NA, int NO, typename W>
+__device__ __forceinline__ df less_figure_df(df e, df r2, W w, int at,
+                                             bool fast) {
+  if constexpr (NA > 0) e = sub(e, poly_even_df<NA>(r2, w, at));
+  if constexpr (NO > 0)
+    e = sub(e, poly_odd_df<NO>(r2, sq(r2, fast), w, at + 2 * NA));
+  return e;
+}
+
+// z - sag of an aspheric row (_sag_df), its figure at w[W_FIG]
+template <int NA, int NO, typename W>
+__device__ __forceinline__ df sag_df(W w, df x, df y, df z, df c, df k1,
+                                     bool fast) {
+  const df one = {1.f, 0.f};
+  const df r2 = add(sqr(x), sqr(y));
+  const df cr2 = mul(c, r2);
+  const df den = add(one, sq(sub(one, mul(k1, mul(c, cr2))), fast));
+  return less_figure_df<NA, NO>(sub(z, dv(cr2, den, fast)), r2, w, W_FIG,
+                                fast);
+}
+
+// the radial factor e of an aspheric row's normal (x e, y e, 1)
+// (_normal_radial_df)
+template <int NA, int NO, typename W>
+__device__ __forceinline__ df normal_radial_df(W w, df x, df y, df c, df k1,
+                                               bool fast) {
+  const df one = {1.f, 0.f};
+  const df r2 = add(sqr(x), sqr(y));
+  df e = neg(dv(c, sq(sub(one, mul(k1, mul(sqr(c), r2))), fast), fast));
+  if constexpr (NA > 0) e = sub(e, dpoly_even_df<NA>(r2, w, W_FIG));
+  if constexpr (NO > 0)
+    e = sub(e, dpoly_odd_df<NO>(r2, sq(r2, fast), w, W_FIG + 2 * NA, fast));
+  return e;
+}
+
+// z - biconic sag (_sag_biconic_df)
+template <int NA, int NO, typename W>
+__device__ __forceinline__ df sag_biconic_df(W w, df x, df y, df z,
+                                             bool fast) {
+  const df one = {1.f, 0.f};
+  const df x2 = sqr(x), y2 = sqr(y);
+  const df a = add(mul(ld(w, W_FIG + A_CX), x2), mul(ld(w, W_FIG + A_CY), y2));
+  const df b = add(mul(ld(w, W_FIG + A_BXC), x2),
+                   mul(ld(w, W_FIG + A_BYC), y2));
+  const df e = sub(z, dv(a, add(one, sq(sub(one, b), fast)), fast));
+  return less_figure_df<NA, NO>(e, add(x2, y2), w, W_FIG + A_COEF, fast);
+}
+
+// (gx, gy) of the biconic normal (_normal_biconic_df)
+template <int NA, int NO, typename W>
+__device__ __forceinline__ void normal_biconic_df(W w, df x, df y, bool fast,
+                                                  df& gx, df& gy) {
+  const df one = {1.f, 0.f};
+  const df cx = ld(w, W_FIG + A_CX), cy = ld(w, W_FIG + A_CY);
+  const df bxc = ld(w, W_FIG + A_BXC), byc = ld(w, W_FIG + A_BYC);
+  const df x2 = sqr(x), y2 = sqr(y);
+  const df a = add(mul(cx, x2), mul(cy, y2));
+  const df b = add(mul(bxc, x2), mul(byc, y2));
+  const df s = sq(sub(one, b), fast);
+  const df one_s = add(one, s);
+  const df inv2 = sqr(dv(one, one_s, fast));
+  const df a_s = dv(a, max_tiny(s), fast);
+  gx = neg(mul(x, mul(add(scale(mul(cx, one_s), 2.f), mul(a_s, bxc)), inv2)));
+  gy = neg(mul(y, mul(add(scale(mul(cy, one_s), 2.f), mul(a_s, byc)), inv2)));
+  if constexpr (NA > 0 || NO > 0) {
+    constexpr int at = W_FIG + A_COEF;
+    const df r2 = add(x2, y2);
+    df d;
+    if constexpr (NA > 0) d = dpoly_even_df<NA>(r2, w, at);
+    if constexpr (NO > 0) {
+      const df dodd = dpoly_odd_df<NO>(r2, sq(r2, fast), w, at + 2 * NA, fast);
+      d = NA > 0 ? add(d, dodd) : dodd;
+    }
+    gx = sub(gx, mul(x, d));
+    gy = sub(gy, mul(y, d));
+  }
+}
+
+// (zy, dzy/dy) of the toroid's generating curve (_ycurve_df)
+template <int NA, int NO, typename W>
+__device__ __forceinline__ void ycurve_df(W w, df y, bool fast, df& zy,
+                                          df& dzy) {
+  const df one = {1.f, 0.f};
+  const df cy = ld(w, W_FIG + A_CY);
+  const df y2 = sqr(y);
+  const df sqv = sq(sub(one, mul(ld(w, W_FIG + A_BYC), y2)), fast);
+  zy = dv(mul(cy, y2), add(one, sqv), fast);
+  dzy = dv(mul(cy, y), max_tiny(sqv), fast);
+  constexpr int at = W_FIG + A_COEF;
+  if constexpr (NA > 0) {
+    zy = add(zy, poly_even_df<NA>(y2, w, at));
+    dzy = add(dzy, mul(y, dpoly_even_df<NA>(y2, w, at)));
+  }
+  if constexpr (NO > 0) {
+    const df ya = sq(y2, fast);
+    zy = add(zy, poly_odd_df<NO>(y2, ya, w, at + 2 * NA));
+    dzy = add(dzy, mul(y, dpoly_odd_df<NO>(y2, ya, w, at + 2 * NA, fast)));
+  }
+}
+
+// z - toroidal sag (_sag_toroid_df)
+template <int NA, int NO, typename W>
+__device__ __forceinline__ df sag_toroid_df(W w, df x, df y, df z,
+                                            bool fast) {
+  const df one = {1.f, 0.f};
+  const df cr = ld(w, W_FIG + A_CR);
+  df zy, dzy;
+  ycurve_df<NA, NO>(w, y, fast, zy, dzy);
+  const df crp = dv(cr, sub(one, mul(cr, zy)), fast);
+  const df x2 = sqr(x);
+  const df wr = sq(sub(one, mul(x2, sqr(crp))), fast);
+  return sub(sub(z, zy), dv(mul(crp, x2), add(one, wr), fast));
+}
+
+// (gx, gy) of the toroid normal (_normal_toroid_df)
+template <int NA, int NO, typename W>
+__device__ __forceinline__ void normal_toroid_df(W w, df x, df y, bool fast,
+                                                 df& gx, df& gy) {
+  const df one = {1.f, 0.f};
+  const df cr = ld(w, W_FIG + A_CR);
+  df zy, dzy;
+  ycurve_df<NA, NO>(w, y, fast, zy, dzy);
+  const df crp = dv(cr, sub(one, mul(cr, zy)), fast);
+  const df wr = max_tiny(sq(sub(one, mul(sqr(x), sqr(crp))), fast));
+  gx = neg(dv(mul(x, crp), wr, fast));
+  gy = neg(dv(dzy, wr, fast));
+}
+
+template <int FIG, int NA, int NO, typename W>
+__device__ __forceinline__ df sag_anam_df(W w, df x, df y, df z, bool fast) {
+  if constexpr (FIG == FIG_TOROID)
+    return sag_toroid_df<NA, NO>(w, x, y, z, fast);
+  else
+    return sag_biconic_df<NA, NO>(w, x, y, z, fast);
+}
+
+template <int FIG, int NA, int NO, typename W>
+__device__ __forceinline__ void normal_anam_df(W w, df x, df y, bool fast,
+                                               df& gx, df& gy) {
+  if constexpr (FIG == FIG_TOROID)
+    normal_toroid_df<NA, NO>(w, x, y, fast, gx, gy);
+  else
+    normal_biconic_df<NA, NO>(w, x, y, fast, gx, gy);
+}
+
+// -- the float32 seed of the anamorphic Newton (ops/df32._*_32) -------------
+//
+// Plain float32, every operation rounded where the plain version rounds
+// (the intrinsics, no contraction); the coefficients are the hi words of
+// their pairs.
+
+__device__ __forceinline__ float sqrt0_32(float x) {
+  return __fsqrt_rn(x < 0.f ? 0.f : x);  // NaN stays NaN
+}
+
+__device__ __forceinline__ float max_tiny32(float x) {
+  return x < TINY32 ? TINY32 : x;  // NaN stays NaN, as jnp.maximum
+}
+
+template <int N, typename W>
+__device__ __forceinline__ float poly_even_32(float r2, W w, int at) {
+  float d = 0.f;
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i) d = fm(fa(d, w[at + 2 * i]), r2);
+  return d;
+}
+
+template <int N, typename W>
+__device__ __forceinline__ float dpoly_even_32(float r2, W w, int at) {
+  float d = 0.f;
+#pragma unroll
+  for (int i = N - 1; i >= 0; --i)
+    d = fa(fm(d, r2), fm(float(2 * (i + 1)), w[at + 2 * i]));
+  return d;
+}
+
+template <int N, typename W>
+__device__ __forceinline__ float poly_odd_32(float r2, W w, int at) {
+  float d = 0.f;
+#pragma unroll
+  for (int j = N - 1; j >= 0; --j) d = fa(fm(d, r2), w[at + 2 * j]);
+  return fm(__fsqrt_rn(r2), d);
+}
+
+template <int N, typename W>
+__device__ __forceinline__ float dpoly_odd_32(float r2, W w, int at) {
+  float p = 0.f, dp = 0.f;
+#pragma unroll
+  for (int j = N - 1; j >= 0; --j) p = fa(fm(p, r2), w[at + 2 * j]);
+#pragma unroll
+  for (int j = N - 1; j >= 1; --j)
+    dp = fa(fm(dp, r2), fm(float(j), w[at + 2 * j]));
+  const float r = max_tiny32(__fsqrt_rn(r2));
+  return fa(fd(p, r), fm(fm(2.f, r), dp));
+}
+
+// kernels.intercept_conic in float32 (_intercept_conic_32)
+__device__ __forceinline__ float intercept_conic_32(float x, float y, float z,
+                                                    float ux, float uy,
+                                                    float uz, float c,
+                                                    float k, bool alt) {
+  const float k1 = fa(1.f, k);
+  const float uy_ = fa(fa(fm(ux, x), fm(uy, y)), fm(fm(k1, uz), z));
+  const float uu = fa(fa(fm(ux, ux), fm(uy, uy)), fm(fm(k1, uz), uz));
+  const float yy = fa(fa(fm(x, x), fm(y, y)), fm(fm(k1, z), z));
+  const float d = fs(fm(c, uy_), uz);
+  const float e = fm(c, uu);
+  const float f = fs(fm(c, yy), fm(2.f, z));
+  const float disc = fs(fm(d, d), fm(e, f));
+  float g = sqrt0_32(disc);
+  if (alt) g = -g;
+  const bool conj = fm(d, g) <= 0.f || e == 0.f;
+  const float num = conj ? f : -fa(d, g);
+  float den = conj ? fs(g, d) : e;
+  if (den == 0.f) den = 1.f;
+  float s = fd(num, den);
+  if (c == 0.f) s = fd(-z, uz == 0.f ? 1.f : uz);
+  if (c != 0.f && disc < 0.f) s = qnan<float>();
+  return s;
+}
+
+// the even and odd figure of a float32 sag at r2 (e - P)
+template <int NA, int NO, typename W>
+__device__ __forceinline__ float less_figure_32(float e, float r2, W w,
+                                                int at) {
+  if constexpr (NA > 0) e = fs(e, poly_even_32<NA>(r2, w, at));
+  if constexpr (NO > 0) e = fs(e, poly_odd_32<NO>(r2, w, at + 2 * NA));
+  return e;
+}
+
+// The float32 sag and (gx, gy) of a biconic (FIG_BICONIC) or toroid row
+// at (x, y, z) (_sag_*_32, _normal_*_32).
+template <int FIG, int NA, int NO, typename W>
+__device__ __forceinline__ void sag_normal_32(W w, float x, float y, float z,
+                                              float& fn, float& gx,
+                                              float& gy) {
+  constexpr int at = W_FIG + A_COEF;
+  const float cy = w[W_FIG + A_CY], ky = w[W_FIG + A_KY];
+  if constexpr (FIG == FIG_TOROID) {
+    const float cr = w[W_FIG + A_CR];
+    const float y2 = fm(y, y);
+    const float sqv = sqrt0_32(fs(1.f, fm(fm(fm(fa(1.f, ky), cy), cy), y2)));
+    float zy = fd(fm(cy, y2), fa(1.f, sqv));
+    float dzy = fd(fm(cy, y), max_tiny32(sqv));
+    if constexpr (NA > 0) {
+      zy = fa(zy, poly_even_32<NA>(y2, w, at));
+      dzy = fa(dzy, fm(y, dpoly_even_32<NA>(y2, w, at)));
+    }
+    if constexpr (NO > 0) {
+      zy = fa(zy, poly_odd_32<NO>(y2, w, at + 2 * NA));
+      dzy = fa(dzy, fm(y, dpoly_odd_32<NO>(y2, w, at + 2 * NA)));
+    }
+    const float crp = fd(cr, fs(1.f, fm(cr, zy)));
+    const float x2 = fm(x, x);
+    const float root = sqrt0_32(fs(1.f, fm(fm(x2, crp), crp)));
+    fn = fs(fs(z, zy), fd(fm(crp, x2), fa(1.f, root)));
+    const float wr = max_tiny32(root);
+    gx = fd(fm(-x, crp), wr);
+    gy = fd(-dzy, wr);
+  } else {
+    const float cx = w[W_FIG + A_CX], kx = w[W_FIG + A_KX];
+    const float x2 = fm(x, x), y2 = fm(y, y);
+    const float a = fa(fm(cx, x2), fm(cy, y2));
+    const float b = fa(fm(fm(fm(fa(1.f, kx), cx), cx), x2),
+                       fm(fm(fm(fa(1.f, ky), cy), cy), y2));
+    const float s = sqrt0_32(fs(1.f, b));
+    const float r2 = fa(x2, y2);
+    fn = less_figure_32<NA, NO>(fs(z, fd(a, fa(1.f, s))), r2, w, at);
+    const float s_safe = max_tiny32(s);
+    const float inv = fd(1.f, fa(1.f, s));
+    const float ax = fm(fm(fm(a, fa(1.f, kx)), cx), cx);
+    const float ay = fm(fm(fm(a, fa(1.f, ky)), cy), cy);
+    gx = fm(fm(-fa(fm(fm(fm(2.f, cx), x), fa(1.f, s)), fd(fm(ax, x), s_safe)),
+               inv), inv);
+    gy = fm(fm(-fa(fm(fm(fm(2.f, cy), y), fa(1.f, s)), fd(fm(ay, y), s_safe)),
+               inv), inv);
+    if constexpr (NA > 0) {
+      const float d = dpoly_even_32<NA>(r2, w, at);
+      gx = fs(gx, fm(x, d));
+      gy = fs(gy, fm(y, d));
+    }
+    if constexpr (NO > 0) {
+      const float d = dpoly_odd_32<NO>(r2, w, at + 2 * NA);
+      gx = fs(gx, fm(x, d));
+      gy = fs(gy, fm(y, d));
+    }
+  }
+}
+
+// -- intercepts ---------------------------------------------------------------
+
+// |res| <= tol (1 + |s|) on the hi words, false for NaN (_residual_ok)
+__device__ __forceinline__ df residual_test(df s, df res) {
+  if (!(fabsf(res.hi) <= fm(NEWTON_TOL, fa(1.f, fabsf(s.hi))))) {
+    const float nan = qnan<float>();
+    return {nan, nan};
+  }
+  return s;
+}
+
+// A conic cylinder's closed form in its curved axis w (_intercept_cyl_df).
+template <typename W>
+__device__ __forceinline__ df intercept_cyl_df(W w, df wv, df z, df uw, df uz,
+                                               bool alt, bool fast) {
+  const df c = ld(w, W_FIG + A_C1), k1 = ld(w, W_FIG + A_K1);
+  const df kz = mul(k1, z);
+  const df uy_ = add(mul(uw, wv), mul(uz, kz));
+  const df uu = add(sqr(uw), mul(k1, sqr(uz)));
+  const df yy = add(sqr(wv), mul(z, kz));
+  const df d = sub(mul(c, uy_), uz);
+  const df f = sub(mul(c, yy), scale(z, 2.f));
+  const df e_q = mul(c, uu);
+  const df disc = sub(sqr(d), mul(e_q, f));
+  df g = sq(disc, fast);
+  const bool ez = e_q.hi == 0.f;
+  bool stable;
+  if (alt) {
+    g = neg(g);
+    stable = ez;
+  } else {
+    stable = d.hi < 0.f || ez;  // false for NaN, as torch.where
+  }
+  const df num = stable ? f : neg(add(d, g));
+  df den = stable ? sub(g, d) : e_q;
+  if (den.hi == 0.f) den = {1.f, 0.f};
+  return dv(num, den, fast);
+}
+
+// A biconic's or toroid's mixed-precision Newton (_intercept_anam_df):
+// the float32 y-conic seed (the vertex plane where it misses), float32
+// steps, df32 rounds, the residual test.
+template <int FIG, int NA, int NO, typename W>
+__device__ __forceinline__ df intercept_anam_df(W w, df x, df y, df z, df ux,
+                                                df uy, df uz, bool alt,
+                                                bool fast) {
+  float s32 = intercept_conic_32(x.hi, y.hi, z.hi, ux.hi, uy.hi, uz.hi,
+                                 w[W_FIG + A_CY], w[W_FIG + A_KY], alt);
+  if (isnan(s32)) s32 = fd(-z.hi, uz.hi == 0.f ? 1.f : uz.hi);
+#pragma unroll 1
+  for (int it = 0; it < ANAM_F32_ITERS; ++it) {
+    float fn, gx, gy;
+    sag_normal_32<FIG, NA, NO>(w, fa(x.hi, fm(s32, ux.hi)),
+                               fa(y.hi, fm(s32, uy.hi)),
+                               fa(z.hi, fm(s32, uz.hi)), fn, gx, gy);
+    float fp = fa(fa(fm(ux.hi, gx), fm(uy.hi, gy)), uz.hi);
+    if (fp == 0.f) fp = 1.f;
+    s32 = fs(s32, fd(fn, fp));
+  }
+  df s = {s32, 0.f};
+  const int iters = ANAM_DF_ITERS + (fast ? 0 : 1);
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    const df px = add(x, mul(s, ux)), py = add(y, mul(s, uy));
+    const df fn = sag_anam_df<FIG, NA, NO>(w, px, py, add(z, mul(s, uz)),
+                                           fast);
+    df gx, gy;
+    normal_anam_df<FIG, NA, NO>(w, px, py, fast, gx, gy);
+    df fp = add(add(mul(ux, gx), mul(uy, gy)), uz);
+    if (fp.hi == 0.f) fp = {1.f, 0.f};  // NaN stays
+    s = sub(s, dv(fn, fp, fast));
+  }
+  return residual_test(s, sag_anam_df<FIG, NA, NO>(
+      w, add(x, mul(s, ux)), add(y, mul(s, uy)), add(z, mul(s, uz)), fast));
+}
+
+// An aspheric row's df32 Newton from its conic root s (_polish_radial_df):
+// no zero-slope guard, as the reference.
+template <int NA, int NO, typename W>
+__device__ __forceinline__ df polish_radial_df(W w, df x, df y, df z, df ux,
+                                               df uy, df uz, df s, df c,
+                                               df k1, bool fast) {
+#pragma unroll 1
+  for (int it = 0; it < DF_ASPHERIC_ITERS; ++it) {
+    const df px = add(x, mul(s, ux)), py = add(y, mul(s, uy));
+    const df fn = sag_df<NA, NO>(w, px, py, add(z, mul(s, uz)), c, k1, fast);
+    const df en = normal_radial_df<NA, NO>(w, px, py, c, k1, fast);
+    const df fp = add(add(mul(ux, mul(px, en)), mul(uy, mul(py, en))), uz);
+    s = sub(s, dv(fn, fp, fast));
+  }
+  return residual_test(s, sag_df<NA, NO>(w, add(x, mul(s, ux)),
+                                         add(y, mul(s, uy)),
+                                         add(z, mul(s, uz)), c, k1, fast));
+}
+
 // -- one step -----------------------------------------------------------------
 
 // One transfer-intercept-refract step (ops/df32._surface_df): state in
 // and out in the running frame, s the intercept distance.  The step's
 // flags arrive as std::integral_constant<int, F> (df32_spec.cuh): every
-// `fl & G_*` below, the permutation codes and the fast/exact choice are
-// constants and the branches not taken fold away.
+// `fl & G_*` below, the permutation codes, the row kind, the coefficient
+// counts and the fast/exact choice are constants and the branches not
+// taken fold away.  The Newton rounds stay rolled loops.
 template <typename Flags, typename W>
 __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
                                            df& z, df& ux, df& uy, df& uz,
                                            df& s) {
-  const int fl = flag_value(flags);
-  const bool fast = fl & G_FAST;
-  const bool flat = fl & G_FLAT;
-  const bool conic = fl & G_CONIC;
+  constexpr int FL = Flags::value;
+  constexpr int FIG = fig_of(FL), NA = na_of(FL), NO = no_of(FL);
+  constexpr bool fast = FL & G_FAST;
+  constexpr bool flat = FL & G_FLAT;
+  constexpr bool conic = FL & G_CONIC;
+  constexpr bool alt = FL & G_ALTERNATE;
+  constexpr bool cyl = FIG == FIG_CYL_Y || FIG == FIG_CYL_X;
+  constexpr bool newton = FIG == FIG_BICONIC || FIG == FIG_TOROID;
   const df one = {1.f, 0.f};
   z = sub(z, ld(w, W_DZ));
-  if (fl & G_OFF_AXIS) {
+  if (FL & G_OFF_AXIS) {
     x = sub(x, ld(w, W_DXY));
     y = sub(y, ld(w, W_DXY + 2));
   }
-  frame_apply<false>(w, fl, x, y, z);
-  frame_apply<false>(w, fl, ux, uy, uz);
+  frame_apply<false>(w, FL, x, y, z);
+  frame_apply<false>(w, FL, ux, uy, uz);
   const df c = ld(w, W_C);
-  if (flat) {
+  if constexpr (FIG == FIG_CYL_Y) {
+    s = intercept_cyl_df(w, y, z, uy, uz, alt, fast);
+  } else if constexpr (FIG == FIG_CYL_X) {
+    s = intercept_cyl_df(w, x, z, ux, uz, alt, fast);
+  } else if constexpr (newton) {
+    s = intercept_anam_df<FIG, NA, NO>(w, x, y, z, ux, uy, uz, alt, fast);
+  } else if constexpr (flat) {
     s = neg(dv(z, uz, fast));
   } else {
     // closed-form conic intercept; the two root forms -(d+g)/e and
     // f/(g-d) are each stable in the complementary sign regime of d
     df uy_, yy, e_q;
-    if (conic) {
+    if constexpr (conic) {
       const df k1 = ld(w, W_K1);
       const df kz = mul(k1, z);
       uy_ = dot3(ux, uy, uz, x, y, kz);
@@ -256,7 +750,7 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
     const df f = sub(mul(c, yy), scale(z, 2.f));
     const df disc = sub(sqr(d), mul(e_q, f));
     const df g = sq(disc, fast);
-    if (fl & G_ALTERNATE) {
+    if constexpr (alt) {
       s = dv(neg(sub(d, g)), e_q, fast);
     } else {
       const bool stable = d.hi < 0.f;  // false for NaN, as torch.where
@@ -265,40 +759,82 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
       s = dv(num, den, fast);
     }
   }
+  if constexpr (FIG == FIG_RADIAL)
+    s = polish_radial_df<NA, NO>(w, x, y, z, ux, uy, uz, s, c,
+                                 conic ? ld(w, W_K1) : one, fast);
   x = add(x, mul(s, ux));
   y = add(y, mul(s, uy));
   z = add(z, mul(s, uz));
-  if (fl & G_CLIP) {
+  if (FL & G_CLIP) {
     // aperture clip on the hi words: NaN the direction outside
     if (fa(fm(x.hi, x.hi), fm(y.hi, y.hi)) > w[W_RAD]) {
       const float nan = qnan<float>();
       ux = uy = uz = df{nan, nan};
     }
   }
-  const int kind = fl & G_KIND;
-  if (kind != 0) {
-    // polynomial implicit-gradient normal N = (-c x, -c y, 1 - c(1+k) z);
-    // |N| == 1 exactly on a sphere (unit)
+  constexpr int kind = FL & G_KIND;
+  if constexpr (kind != 0) {
+    // the normal N = (nx, ny, nzv): a component absent (has_* false) is
+    // zero, nzv absent is 1, and unit says |N|^2 == 1 exactly
     df nx, ny, nzv, dot, nn;
-    const bool unit = !conic || flat;
-    if (!flat) {
-      nx = neg(mul(c, x));
-      ny = neg(mul(c, y));
-      nzv = sub(one, mul(conic ? ld(w, W_K1C) : c, z));
-      dot = add(add(mul(ux, nx), mul(uy, ny)), mul(uz, nzv));
-      if (conic) nn = add(add(sqr(nx), sqr(ny)), sqr(nzv));
-    } else {
-      dot = uz;
-    }
-    if (kind == 2) {
-      const df a2 = unit ? scale(dot, 2.f) : scale(dv(dot, nn, fast), 2.f);
-      if (flat) {
-        uz = sub(uz, a2);
-      } else {
-        ux = sub(ux, mul(a2, nx));
-        uy = sub(uy, mul(a2, ny));
-        uz = sub(uz, mul(a2, nzv));
+    bool has_nx = false, has_ny = false, has_nz = false, unit = true;
+    if constexpr (cyl) {
+      // a conic cylinder's polynomial normal in its curved axis w:
+      // N_w = -c w, N_z = 1 - c(1+k) z, unit on a circular one
+      constexpr bool along_y = FIG == FIG_CYL_Y;
+      const df nw = neg(mul(ld(w, W_FIG + A_C1), along_y ? y : x));
+      nzv = sub(one, mul(ld(w, W_FIG + A_K1C), z));
+      has_nz = true;
+      dot = add(mul(along_y ? uy : ux, nw), mul(uz, nzv));
+      if (FL & G_CYL_CONIC) {
+        nn = add(sqr(nw), sqr(nzv));
+        unit = false;
       }
+      if (along_y) {
+        ny = nw;
+        has_ny = true;
+      } else {
+        nx = nw;
+        has_nx = true;
+      }
+    } else if constexpr (FIG == FIG_NONE) {
+      if (!flat) {
+        // polynomial implicit-gradient normal N = (-c x, -c y,
+        // 1 - c(1+k) z); |N| == 1 exactly on a sphere
+        nx = neg(mul(c, x));
+        ny = neg(mul(c, y));
+        nzv = sub(one, mul(conic ? ld(w, W_K1C) : c, z));
+        has_nx = has_ny = has_nz = true;
+        dot = add(add(mul(ux, nx), mul(uy, ny)), mul(uz, nzv));
+        if (conic) {
+          nn = add(add(sqr(nx), sqr(ny)), sqr(nzv));
+          unit = false;
+        }
+      } else {
+        dot = uz;
+      }
+    } else {
+      // the generic normal (nx, ny, 1) of an aspheric row (a flat one
+      // too) or a biconic or toroid row
+      if constexpr (FIG == FIG_RADIAL) {
+        const df e = normal_radial_df<NA, NO>(w, x, y, c,
+                                              conic ? ld(w, W_K1) : one,
+                                              fast);
+        nx = mul(x, e);
+        ny = mul(y, e);
+      } else {
+        normal_anam_df<FIG, NA, NO>(w, x, y, fast, nx, ny);
+      }
+      has_nx = has_ny = true;
+      unit = false;
+      nn = add(add(sqr(nx), sqr(ny)), one);
+      dot = add(add(mul(ux, nx), mul(uy, ny)), uz);
+    }
+    if constexpr (kind == 2) {
+      const df a2 = unit ? scale(dot, 2.f) : scale(dv(dot, nn, fast), 2.f);
+      if (has_nx) ux = sub(ux, mul(a2, nx));
+      if (has_ny) uy = sub(uy, mul(a2, ny));
+      uz = has_nz ? sub(uz, mul(a2, nzv)) : sub(uz, a2);
     } else {
       const df mu = ld(w, W_MU);
       const df b0 = sub(sqr(mu), one);
@@ -312,19 +848,13 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
         b = mul(b0, inv_nn);
       }
       const df g = sub(sq(sub(sqr(a), b), fast), a);
-      if (flat) {
-        ux = mul(mu, ux);
-        uy = mul(mu, uy);
-        uz = add(mul(mu, uz), g);
-      } else {
-        ux = add(mul(mu, ux), mul(g, nx));
-        uy = add(mul(mu, uy), mul(g, ny));
-        uz = add(mul(mu, uz), mul(g, nzv));
-      }
+      ux = has_nx ? add(mul(mu, ux), mul(g, nx)) : mul(mu, ux);
+      uy = has_ny ? add(mul(mu, uy), mul(g, ny)) : mul(mu, uy);
+      uz = has_nz ? add(mul(mu, uz), mul(g, nzv)) : add(mul(mu, uz), g);
     }
   }
-  frame_apply<true>(w, fl, x, y, z);
-  frame_apply<true>(w, fl, ux, uy, uz);
+  frame_apply<true>(w, FL, x, y, z);
+  frame_apply<true>(w, FL, ux, uy, uz);
 }
 
 // -- rays in and out, moments -------------------------------------------------

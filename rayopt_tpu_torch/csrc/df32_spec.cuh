@@ -3,12 +3,15 @@
 // plan) and K11 (one plan a wavelength), the merit K12 (one plan) and
 // K13.  A key is the distinct flag tuples of its plans (one flag word a
 // step: kind, flat, conic, alternate, off-axis, the signed-permutation
-// codes, rotation, clip and fast, cuda_df32._step_words), which tuple
-// each plan takes, the optical path (K10/K11), where the chain reads the
-// plan words, the block size and the launch bound.  The plan words
-// themselves (curvature, mu, offsets, rotation, ...) stay run-time data:
-// one build serves every wavelength of a table and every change of value
-// that keeps the flags.
+// codes, rotation, clip and fast, and a Newton row's kind -- aspheric,
+// conic cylinder in y or x, biconic, toroid -- with its even and odd
+// coefficient counts, cuda_df32._step_words), which tuple each plan
+// takes, the optical path (K10/K11), where the chain reads the plan
+// words, the block size and the launch bound.  The plan words themselves
+// (curvature, mu, offsets, rotation, coefficients, ...) stay run-time
+// data: one build serves every wavelength of a table and every change of
+// value that keeps the flags.  A step's words follow from its flags
+// (step_words): DW, then its figure's.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K10  rayopt_tpu/ops/df32.py  pallas_trace_df32             (kernel :1094)
@@ -27,7 +30,13 @@
 // 5,642 to 6,644 with the path (chip_smoke.df32_chain_ops, an FMA
 // counted twice), against 48 bytes read and 56 written a plan (K10/K11
 // with the path): bound by operations, and by the issue of unfused
-// float32 instructions, one a warp a clock.
+// float32 instructions, one a warp a clock.  The Newton rows cost more:
+// the aspheric double Gauss's plan (an even asphere polished in 8 df32
+// rounds, the generic normal) 10,675 to 13,257 operations, a biconic row
+// 2,535 to 3,986 and a toroid row 2,970 to 5,684 (its float32 seed, 6
+// float32 steps and 2-3 df32 rounds) against a spherical row's 591 to
+// 691.  Their rounds are rolled loops (#pragma unroll 1), so a Newton
+// row adds one round's code, not eight.
 //
 // What the design does about it.
 //  * two_prod takes its FMA form (df32_common.cuh): mul costs 9 float32
@@ -103,13 +112,35 @@ __host__ __device__ constexpr int step_flags(Plan<F...>, int j) {
 template <class P, int J>
 using StepFlags = std::integral_constant<int, step_flags(P{}, J)>;
 
-// The key's distinct flag tuples (one step count).
+// The first word of step j: the words of the steps before it, which
+// follow from their flags (step_words).
+template <int... F>
+__host__ __device__ constexpr int step_offset(Plan<F...>, int j) {
+  constexpr int f[] = {F...};
+  int off = 0;
+  for (int i = 0; i < j; ++i) off += step_words(f[i]);
+  return off;
+}
+
+// The words of the longest plan of the tuples P.
+template <class... P>
+__host__ __device__ constexpr int most_words() {
+  int most = 0;
+  ((most = step_offset(P{}, P::steps) > most ? step_offset(P{}, P::steps)
+                                             : most),
+   ...);
+  return most;
+}
+
+// The key's distinct flag tuples (one step count); `words`, the words of
+// its longest plan, is the stride from one plan's words to the next.
 template <class... P>
 struct Plans {
   static constexpr int count = sizeof...(P);
   template <int I>
   using at = std::tuple_element_t<I, std::tuple<P...>>;
   static constexpr int steps = at<0>::steps;
+  static constexpr int words = most_words<P...>();
 };
 
 // The tuple each plan takes, plan by plan.
@@ -127,10 +158,11 @@ __host__ __device__ constexpr int tuple_of(PlanMap<T...>, int l) {
   return out;
 }
 
-// The plan words of a key: nlam * steps * DW floats, plan after plan.
+// The plan words of a key: nlam * Ps::words floats, plan after plan (a
+// plan shorter than the longest padded with zeros).
 template <class Ps, class Map>
 __host__ __device__ constexpr int plan_words() {
-  return Map::nlam * Ps::steps * DW;
+  return Map::nlam * Ps::words;
 }
 
 // Where the chain reads the plan words: straight from the kernel's
@@ -163,13 +195,15 @@ __device__ __forceinline__ void trace_plan(W words, Rays& r, df& tacc) {
   tacc = {0.f, 0.f};
   static_for(std::make_integer_sequence<int, P::steps>{}, [&](auto jc) {
     constexpr int j = decltype(jc)::value;
-    const W w = words + j * DW;
+    constexpr int at = step_offset(P{}, j);
+    const W w = words + at;
     df s;
     surface_df(w, StepFlags<P, j>{}, r.x, r.y, r.z, r.ux, r.uy, r.uz, s);
     if (PATH) tacc = add(tacc, mul(s, ld(w, W_NB)));
   });
   constexpr int last = step_flags(P{}, P::steps - 1);
-  const W w = words + (P::steps - 1) * DW;
+  constexpr int at = step_offset(P{}, P::steps - 1);
+  const W w = words + at;
   frame_apply<false>(w, last, r.x, r.y, r.z);
   frame_apply<false>(w, last, r.ux, r.uy, r.uz);
 }
@@ -184,7 +218,7 @@ __device__ __forceinline__ void for_plans(W words, F&& f) {
 #pragma unroll 1
     for (int l = 0; l < Map::nlam; ++l)
       if (tuple_of(Map{}, l) == t)
-        f(tc, l, static_cast<W>(words + l * Ps::steps * DW));
+        f(tc, l, static_cast<W>(words + l * Ps::words));
   });
 }
 
@@ -315,7 +349,7 @@ __host__ inline KernelWords<Ps, Map, AT> kernel_words(const void* words) {
 
 }  // namespace
 
-// Trace launchers of one key: NAME(words (nlam, steps, DW) float32: in
+// Trace launchers of one key: NAME(words (nlam, Ps::words) float32: in
 // host memory, copied into the launch's parameters, or (WORDS_DEVICE) on
 // the device; the 12 input words; out (nlam, 12 or 14 with PATH, n); n,
 // grid, stream); NAME_blocks_per_sm(&blocks); NAME_error_string(err).

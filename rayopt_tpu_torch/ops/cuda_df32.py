@@ -21,13 +21,15 @@ for sm_90a per plan key (ops.cuda_spec.df32_multi_key: the plans' flag
 tuples, the path, where the chain reads the plan words, the block and
 launch bound; K10 and K12 are the keys of one plan) at first use, and
 launched on PyTorch's current stream through ctypes.  The plan words
-are passed from the host as kernel parameters, with no upload; only a
-single plan too long for the parameters is uploaded, once a call, as
-device words.  A plan list whose words pass the parameter limit is
-launched in balanced runs that fit (cuda_spec.df32_runs), one launch a
-run.  A wrapper takes the plain PyTorch version (`*_reference`,
-ops.df32) only for a bundle on the CPU; for a CUDA bundle it launches
-its kernel or raises.  Each wrapper counts its launches in
+are packed step after step (pack_plan: DW words a step, then a Newton
+row's figure, whose row kind and coefficient counts its flag word
+carries: step_words) and passed from the host as kernel parameters,
+with no upload; only a single plan too long for the parameters is
+uploaded, once a call, as device words.  A plan list whose words pass
+the parameter limit is launched in balanced runs that fit
+(cuda_spec.df32_runs), one launch a run.  A wrapper takes the plain
+PyTorch version (`*_reference`, ops.df32) only for a bundle on the CPU;
+for a CUDA bundle it launches its kernel or raises.  Each wrapper counts its launches in
 `<wrapper>.launches`.
 
 `state` is six (hi, lo) pairs of contiguous (N,) float32 tensors on
@@ -41,12 +43,45 @@ import torch
 from . import df32 as D
 
 # packed step layout and flag bits: keep in sync with csrc/df32_common.cuh
-DW = 36
+DW = 36              # the words of a step without a figure
 W_C, W_MU, W_DZ, W_K1, W_K1C, W_DXY, W_ROT, W_RAD, W_NB = (
     0, 2, 4, 6, 8, 10, 14, 32, 33)
+W_FIG = DW           # a figure's words, by its row kind (step_words)
+A_C1, A_K1, A_K1C, CYL_WORDS = 0, 2, 4, 6
+A_CX, A_CY, A_CR, A_BXC, A_BYC, A_KX, A_KY, A_COEF = (0, 2, 4, 6, 8, 10,
+                                                      11, 12)
 G_FLAT, G_CONIC, G_ALTERNATE, G_OFF_AXIS = 1 << 2, 1 << 3, 1 << 4, 1 << 5
 G_PERM, G_ROT, G_CLIP, G_FAST, G_PERM_SHIFT = (1 << 6, 1 << 7, 1 << 8,
                                                1 << 9, 10)
+G_FIG_SHIFT, G_NA_SHIFT, G_NO_SHIFT = 19, 22, 26
+G_CYL_CONIC = 1 << 30    # a conic cylinder: |N| is not 1
+FIG_RADIAL, FIG_CYL_Y, FIG_CYL_X, FIG_BICONIC, FIG_TOROID = 1, 2, 3, 4, 5
+MAX_COEFFS = 15          # even (or odd) coefficients a flag word counts
+_FIGS = {"cyl_y": FIG_CYL_Y, "cyl_x": FIG_CYL_X, "biconic": FIG_BICONIC,
+         "toroid": FIG_TOROID}
+
+
+def fig_of(fl):
+    """The row kind of a step's flag word (0 none, FIG_*)."""
+    return (fl >> G_FIG_SHIFT) & 7
+
+
+def step_words(fl):
+    """The words of a step with flag word fl: DW, then its figure's: an
+    aspheric row's even and odd coefficients (pairs); a conic cylinder's
+    c1, 1 + k and (1 + k) c1 (pairs); a biconic's or toroid's cx, cy,
+    cr, (1 + kx) cx^2, (1 + ky) cy^2 (pairs), its float32 seed's kx and
+    ky, then its coefficients (pairs; the seed reads the hi words of
+    those and of cx, cy and cr, its float32 values)."""
+    fig = fig_of(fl)
+    coef = 2*(((fl >> G_NA_SHIFT) & 15) + ((fl >> G_NO_SHIFT) & 15))
+    if fig == FIG_RADIAL:
+        return DW + coef
+    if fig in (FIG_CYL_Y, FIG_CYL_X):
+        return DW + CYL_WORDS
+    if fig in (FIG_BICONIC, FIG_TOROID):
+        return DW + A_COEF + coef
+    return DW
 
 
 def trace_final_df32_reference(steps, state, with_path=False):
@@ -69,6 +104,37 @@ def trace_merit_multi_df32_reference(plans, state):
     return D.trace_df32_merit_multi(plans, state)
 
 
+def _consts(consts):
+    return [float(v) for pair in consts for v in pair]
+
+
+def _figure_words(st):
+    """(flag bits, words after DW) of a step's figure."""
+    an = st["anam"]
+    if an is None:
+        if not (st["asp"] or st["asp_odd"]):
+            return 0, []
+        fig, asp, asp_odd = FIG_RADIAL, st["asp"], st["asp_odd"]
+        ext = _consts(asp) + _consts(asp_odd)
+    elif an["mode"] in ("cyl_y", "cyl_x"):
+        fl = _FIGS[an["mode"]] << G_FIG_SHIFT
+        if not an["circular"]:
+            fl |= G_CYL_CONIC
+        return fl, _consts((an["c1"], an["k1"], an["k1c"]))
+    else:
+        fig, asp, asp_odd = _FIGS[an["mode"]], an["asp"], an["asp_odd"]
+        f = an["f32"]
+        ext = (_consts([an[k] for k in ("cx", "cy", "cr", "bxc", "byc")])
+               + [float(f["kx"]), float(f["ky"])] + _consts(asp)
+               + _consts(asp_odd))
+    if max(len(asp), len(asp_odd)) > MAX_COEFFS:
+        raise ValueError("a df32 step holds at most %d even and %d odd "
+                         "coefficients, got %d and %d" % (
+                             MAX_COEFFS, MAX_COEFFS, len(asp), len(asp_odd)))
+    return (fig << G_FIG_SHIFT | len(asp) << G_NA_SHIFT
+            | len(asp_odd) << G_NO_SHIFT), ext
+
+
 def _step_words(st):
     w = [0.]*DW
     for key, at in (("c", W_C), ("mu", W_MU), ("dz", W_DZ), ("k1", W_K1),
@@ -84,7 +150,7 @@ def _step_words(st):
         fl |= G_ALTERNATE
     if st["dxy"] is not None:
         fl |= G_OFF_AXIS
-        w[W_DXY:W_DXY + 4] = [float(v) for pair in st["dxy"] for v in pair]
+        w[W_DXY:W_DXY + 4] = _consts(st["dxy"])
     if st["rotm"] is not None:
         fl |= G_PERM
         for r, row in enumerate(st["rotm"]):
@@ -103,13 +169,16 @@ def _step_words(st):
         w[W_RAD] = float(st["radius"])
     if st["fast"]:
         fl |= G_FAST
-    return w, fl
+    fig, ext = _figure_words(st)
+    return w + ext, fl | fig
 
 
 def pack_plan(plans, device):
     """One plan (a list of steps) or a sequence of plans as the kernels
-    read them: (S, DW) float32 words and (S,) int32 flags, or (L, S, DW)
-    and (L, S) for L plans of S steps each, on `device`."""
+    read them: a plan's words, step after step (step_words of each
+    step's flag word), as (W,) float32 and its (S,) int32 flags, or
+    (L, W) and (L, S) for L plans of S steps each, a plan shorter than
+    the longest padded with zeros to W, on `device`."""
     multi = bool(plans) and isinstance(plans[0], (list, tuple))
     group = list(plans) if multi else [plans]
     nsteps = {len(p) for p in group}
@@ -117,7 +186,9 @@ def pack_plan(plans, device):
         raise ValueError("plans must share one nonzero step count, got %s"
                          % sorted(nsteps))
     packed = [[_step_words(st) for st in p] for p in group]
-    words = torch.tensor([[w for w, _ in p] for p in packed],
+    rows = [[v for w, _ in p for v in w] for p in packed]
+    most = max(len(r) for r in rows)
+    words = torch.tensor([r + [0.]*(most - len(r)) for r in rows],
                          dtype=torch.float32)
     flags = torch.tensor([[f for _, f in p] for p in packed],
                          dtype=torch.int32)
@@ -165,14 +236,15 @@ def _runs(kernel, plans, with_path=False):
     packed, flags = pack_plan(list(plans), "cpu")
     flags = tuple(map(tuple, flags.tolist()))
     return [(l0, l1, _multi_kernel(kernel, flags[l0:l1], bool(with_path)))
-            for l0, l1 in df32_runs(len(flags), len(flags[0]), kernel)], \
-        packed
+            for l0, l1 in df32_runs(flags, kernel)], packed
 
 
 def _word_ptr(kern, packed, device):
-    """The launcher's plan words: the host-side words (copied into the
-    kernel's parameters), or a device copy (device words), kept alive by
-    the returned tensor."""
+    """The launcher's plan words (a run's rows of the packed words, cut to
+    its key's plan words): the host-side words (copied into the kernel's
+    parameters), or a device copy (device words), kept alive by the
+    returned tensor."""
+    packed = packed[:, :kern.key.plan_words].contiguous()
     if kern.key.device_words:
         packed = packed.to(device)
     return packed.data_ptr(), packed

@@ -628,10 +628,15 @@ class Df32Key(NamedTuple):
         return WORDS_AT[2 if self.device_words else int(bool(self.staged))]
 
     @property
+    def plan_words(self):
+        """The words of the key's longest plan (cuda_df32.step_words of
+        each step's flags): the stride of its plans' words."""
+        return df32_plan_words(self.tuples)
+
+    @property
     def word_bytes(self):
-        """The plan words: nlam * steps * DW float32."""
-        from .cuda_df32 import DW
-        return self.nlam*self.steps*DW*4
+        """The plan words: nlam * plan_words float32."""
+        return self.nlam*self.plan_words*4
 
     @property
     def param_bytes(self):
@@ -717,13 +722,22 @@ def df32_key_of(flags, kernel="k11", with_path=False, block=None,
     return key
 
 
-def df32_runs(nlam, steps, kernel):
-    """The balanced runs (runs) of nlam plans of `steps` steps whose
-    words each fit one key's kernel parameters; one plan a run when a
-    plan alone does not (its key takes device words)."""
-    from .cuda_df32 import DW
-    most = (PARAM_LIMIT - DF32_PARAM_BYTES[kernel])//(steps*DW*4)
-    return runs(nlam, max(1, most))
+def df32_plan_words(flags):
+    """The words of the longest of the plans whose flag words are
+    `flags` (one tuple a plan): what each plan's words take in a key's
+    parameters."""
+    from .cuda_df32 import step_words
+    return max(sum(step_words(f) for f in p) for p in flags)
+
+
+def df32_runs(flags, kernel):
+    """The balanced runs (runs) of the plans whose flag words are `flags`
+    (df32_flags) whose words each fit one key's kernel parameters, at
+    the words of the longest plan; one plan a run when a plan alone does
+    not (its key takes device words)."""
+    most = (PARAM_LIMIT - DF32_PARAM_BYTES[kernel])//(
+        df32_plan_words(flags)*4)
+    return runs(len(flags), max(1, most))
 
 
 def runs(n, most):

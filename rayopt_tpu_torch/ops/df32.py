@@ -29,12 +29,17 @@ as Dekker's split here).  That rests on three rules:
   float32 root (53 >= 2*24 + 2 bits); torch's float32 sqrt on the CPU
   is not always correctly rounded.
 
-The surface vocabulary is that of the fused kernel K1: flat, spherical
-and conic rows, refraction, mirrors, `alternate` intersections,
-decenters, exact signed-permutation folds and general tilts, the
-aperture clip, and the `fast` one-round div/sqrt refinements.  Rows
-with aspheric, anamorphic, grating, DOE or freeform figures raise
-NotImplementedError (ROADMAP Queue 1 item 9).
+The surface vocabulary: flat, spherical and conic rows, even and odd
+aspheric rows (ASPHERIC_ITERS df32 Newton rounds from the conic root,
+then a residual test), conic cylinders (closed form) and biconics and
+toroids, figured or not (a Newton seeded in float32, then polished in
+df32), refraction, mirrors, `alternate` intersections, decenters,
+exact signed-permutation folds and general tilts, the aperture clip,
+and the `fast` one-round div/sqrt refinements.  Rows with grating, DOE
+or freeform figures raise NotImplementedError (ROADMAP Queue 1 items
+9.4 and 9.5).  The float32 seed of the anamorphic Newton keeps its own
+copies of the ops.kernels functions, in the JAX package's operation
+order and with the correctly rounded root.
 
 On a CUDA card with native float64 the package's parity trace
 (ops.geometric.trace_rays_final_fast(precision="parity")) runs the
@@ -218,14 +223,437 @@ def _apply_rot_df(R, vx, vy, vz):
     return tuple(out)
 
 
+# -- aspheric figures in df32 -----------------------------------------------
+
+ASPHERIC_ITERS = 8   # df32 Newton rounds of an aspheric row
+ASPHERIC_TOL = 1e-9  # the residual test, as ops.kernels.ASPHERIC_TOL
+ANAM_F32_ITERS = 6   # float32 Newton steps that seed an anamorphic row
+ANAM_DF_ITERS = 2    # its df32 rounds (3 in the exact plan)
+_TINY32 = np.float32(1e-30)
+
+
+def _poly_even_df(r2, coeffs):
+    """Horner over even powers: sum coeffs[i] * r2^(i+1)."""
+    acc = None
+    for ci in coeffs[::-1]:
+        acc = ci if acc is None else add(mul(acc, r2), ci)
+    return mul(acc, r2)
+
+
+def _dpoly_even_df(r2, coeffs):
+    """d/d(r) of the even polynomial divided by r:
+    sum 2(i+1) coeffs[i] r2^i."""
+    acc = None
+    for i in range(len(coeffs) - 1, -1, -1):
+        ci = scale(coeffs[i], 2.*(i + 1))
+        acc = ci if acc is None else add(mul(acc, r2), ci)
+    return acc
+
+
+def _max_tiny(a):
+    """Floor the pair at a tiny positive value (division guards; the
+    floored case only arises for degenerate geometry).  NaN floors
+    too."""
+    ok = a[0] > _TINY32
+    return (torch.where(ok, a[0], torch.full_like(a[0], _TINY32)),
+            torch.where(ok, a[1], torch.zeros_like(a[1])))
+
+
+def _poly_odd_df(r2, r, coeffs):
+    """sum coeffs[j] * r^(2j+1) with r = sqrt(r2) precomputed."""
+    acc = None
+    for cj in coeffs[::-1]:
+        acc = cj if acc is None else add(mul(acc, r2), cj)
+    return mul(r, acc)
+
+
+def _dpoly_odd_df(r2, r, coeffs, dv):
+    """2 d/d(r2) of _poly_odd_df: P(r2)/r + 2 r P'(r2) (the vertex cusp
+    of the r^1 term floored by _max_tiny)."""
+    p = None
+    for cj in coeffs[::-1]:
+        p = cj if p is None else add(mul(p, r2), cj)
+    dp = None
+    for j in range(len(coeffs) - 1, 0, -1):
+        cj = scale(coeffs[j], float(j))
+        dp = cj if dp is None else add(mul(dp, r2), cj)
+    out = dv(p, _max_tiny(r))
+    if dp is not None:
+        out = add(out, scale(mul(r, dp), 2.))
+    return out
+
+
+def _sag_df(x, y, z, c, k1, asp, asp_odd, one, dv, sq):
+    """z - surface_sag(x, y) (kernels.sag in df32)."""
+    r2 = add(sqr(x), sqr(y))
+    cr2 = mul(c, r2)
+    den = add(one, sq(sub(one, mul(k1, mul(c, cr2)))))
+    e = sub(z, dv(cr2, den))
+    if asp:
+        e = sub(e, _poly_even_df(r2, asp))
+    if asp_odd:
+        e = sub(e, _poly_odd_df(r2, sq(r2), asp_odd))
+    return e
+
+
+def _normal_radial_df(x, y, c, k1, asp, asp_odd, one, dv, sq):
+    """Radial factor of the normal (kernels.normal_radial in df32)."""
+    r2 = add(sqr(x), sqr(y))
+    e = neg(dv(c, sq(sub(one, mul(k1, mul(sqr(c), r2))))))
+    if asp:
+        e = sub(e, _dpoly_even_df(r2, asp))
+    if asp_odd:
+        e = sub(e, _dpoly_odd_df(r2, sq(r2), asp_odd, dv))
+    return e
+
+
+# -- anamorphic rows in df32 --------------------------------------------------
+#
+# Conic cylinders are quadrics in one transverse coordinate and take the
+# conic's cancellation-free closed form.  Biconics and toroids run a
+# mixed-precision Newton: the y-conic closed form seeds it in float32,
+# ANAM_F32_ITERS float32 steps converge to float32 noise, and df_iters
+# df32 rounds land at df32 precision.
+
+def _sag_biconic_df(x, y, z, an, one, dv, sq):
+    """z - biconic_sag (kernels.sag_biconic in df32)."""
+    x2, y2 = sqr(x), sqr(y)
+    a = add(mul(an["cx"], x2), mul(an["cy"], y2))
+    b = add(mul(an["bxc"], x2), mul(an["byc"], y2))
+    e = sub(z, dv(a, add(one, sq(sub(one, b)))))
+    r2 = add(x2, y2)
+    if an["asp"]:
+        e = sub(e, _poly_even_df(r2, an["asp"]))
+    if an["asp_odd"]:
+        e = sub(e, _poly_odd_df(r2, sq(r2), an["asp_odd"]))
+    return e
+
+
+def _normal_biconic_df(x, y, an, one, dv, sq):
+    """Transverse normal components (kernels.normal_biconic in df32):
+    gx = -x (2 cx (1+s) + a bxc / s) / (1+s)^2, bxc = (1+kx) cx^2."""
+    x2, y2 = sqr(x), sqr(y)
+    a = add(mul(an["cx"], x2), mul(an["cy"], y2))
+    b = add(mul(an["bxc"], x2), mul(an["byc"], y2))
+    s = sq(sub(one, b))
+    one_s = add(one, s)
+    inv2 = sqr(dv(one, one_s))
+    a_s = dv(a, _max_tiny(s))
+    gx = neg(mul(x, mul(add(scale(mul(an["cx"], one_s), 2.),
+                            mul(a_s, an["bxc"])), inv2)))
+    gy = neg(mul(y, mul(add(scale(mul(an["cy"], one_s), 2.),
+                            mul(a_s, an["byc"])), inv2)))
+    r2 = add(x2, y2)
+    d = None
+    if an["asp"]:
+        d = _dpoly_even_df(r2, an["asp"])
+    if an["asp_odd"]:
+        do = _dpoly_odd_df(r2, sq(r2), an["asp_odd"], dv)
+        d = do if d is None else add(d, do)
+    if d is not None:
+        gx = sub(gx, mul(x, d))
+        gy = sub(gy, mul(y, d))
+    return gx, gy
+
+
+def _ycurve_df(y, an, one, dv, sq):
+    """(sag, d sag/dy) of the toroid's y-z generating curve in df32
+    (kernels._ycurve)."""
+    y2 = sqr(y)
+    sqv = sq(sub(one, mul(an["byc"], y2)))
+    zy = dv(mul(an["cy"], y2), add(one, sqv))
+    dzy = dv(mul(an["cy"], y), _max_tiny(sqv))
+    if an["asp"]:
+        zy = add(zy, _poly_even_df(y2, an["asp"]))
+        dzy = add(dzy, mul(y, _dpoly_even_df(y2, an["asp"])))
+    if an["asp_odd"]:
+        ya = sq(y2)
+        zy = add(zy, _poly_odd_df(y2, ya, an["asp_odd"]))
+        dzy = add(dzy, mul(y, _dpoly_odd_df(y2, ya, an["asp_odd"], dv)))
+    return zy, dzy
+
+
+def _sag_toroid_df(x, y, z, an, one, dv, sq):
+    """z - toroidal_sag (kernels.sag_toroid in df32)."""
+    zy, _ = _ycurve_df(y, an, one, dv, sq)
+    crp = dv(an["cr"], sub(one, mul(an["cr"], zy)))
+    x2 = sqr(x)
+    w = sq(sub(one, mul(x2, sqr(crp))))
+    return sub(sub(z, zy), dv(mul(crp, x2), add(one, w)))
+
+
+def _normal_toroid_df(x, y, an, one, dv, sq):
+    """(gx, gy) of the toroid normal (kernels.normal_toroid in df32)."""
+    zy, dzy = _ycurve_df(y, an, one, dv, sq)
+    crp = dv(an["cr"], sub(one, mul(an["cr"], zy)))
+    w = _max_tiny(sq(sub(one, mul(sqr(x), sqr(crp)))))
+    return neg(dv(mul(x, crp), w)), neg(dv(dzy, w))
+
+
+def _anam_funcs_df(an, one, dv, sq):
+    """(sag, normal) of a biconic or toroid row in df32."""
+    if an["mode"] == "toroid":
+        return (lambda x, y, z: _sag_toroid_df(x, y, z, an, one, dv, sq),
+                lambda x, y: _normal_toroid_df(x, y, an, one, dv, sq))
+    return (lambda x, y, z: _sag_biconic_df(x, y, z, an, one, dv, sq),
+            lambda x, y: _normal_biconic_df(x, y, an, one, dv, sq))
+
+
+# -- the float32 seed of the anamorphic Newton --------------------------------
+#
+# The JAX package seeds it with its ops.kernels functions, run eagerly in
+# float32 one operation at a time; these are their copies in the same
+# operation order, on float32 tensors and 0-d float32 scalars (scalar
+# products round in float32, as NumPy's float32 scalars do there), with
+# the correctly rounded square root of _sqrt_seed.
+
+def _sqrt0_32(x):
+    # torch.clamp lets NaN through, as jnp.maximum
+    return _sqrt_seed(torch.clamp(x, min=0.))
+
+
+def _poly_even_32(r2, coeffs):
+    d = torch.zeros_like(r2)
+    for ci in coeffs[::-1]:
+        d = (d + ci)*r2
+    return d
+
+
+def _dpoly_even_32(r2, coeffs):
+    d = torch.zeros_like(r2)
+    for i in range(len(coeffs) - 1, -1, -1):
+        d = d*r2 + 2*(i + 1)*coeffs[i]
+    return d
+
+
+def _poly_odd_32(r2, coeffs):
+    d = torch.zeros_like(r2)
+    for cj in coeffs[::-1]:
+        d = d*r2 + cj
+    return _sqrt_seed(r2)*d
+
+
+def _dpoly_odd_32(r2, coeffs):
+    p = torch.zeros_like(r2)
+    for cj in coeffs[::-1]:
+        p = p*r2 + cj
+    dp = torch.zeros_like(r2)
+    for j in range(len(coeffs) - 1, 0, -1):
+        dp = dp*r2 + j*coeffs[j]
+    r = torch.clamp(_sqrt_seed(r2), min=_TINY32)
+    return p/r + 2*r*dp
+
+
+def _intercept_conic_32(x, y, z, ux, uy, uz, c, k, alt):
+    """kernels.intercept_conic in float32: the cancellation-free closed
+    form, the vertex plane where c == 0, NaN for a miss."""
+    k1 = 1 + k
+    uy_ = ux*x + uy*y + k1*uz*z
+    uu = ux*ux + uy*uy + k1*uz*uz
+    yy = x*x + y*y + k1*z*z
+    d = c*uy_ - uz
+    e = c*uu
+    f = c*yy - 2*z
+    disc = d*d - e*f
+    g = _sqrt0_32(disc)*(1 - 2*alt)
+    conj = (d*g <= 0) | (e == 0)
+    num = torch.where(conj, f, -(d + g))
+    den = torch.where(conj, g - d, e)
+    s = num/torch.where(den == 0, torch.ones_like(den), den)
+    uz_safe = torch.where(uz == 0, torch.ones_like(uz), uz)
+    s = torch.where(c == 0, -z/uz_safe, s)
+    return torch.where((c != 0) & (disc < 0), torch.full_like(s, np.nan), s)
+
+
+def _sag_biconic_32(x, y, z, f):
+    """kernels.sag_biconic in float32."""
+    x2, y2 = x*x, y*y
+    a = f["cx"]*x2 + f["cy"]*y2
+    b = (1 + f["kx"])*f["cx"]*f["cx"]*x2 + (1 + f["ky"])*f["cy"]*f["cy"]*y2
+    e = z - a/(1 + _sqrt0_32(1 - b))
+    r2 = x2 + y2
+    if f["asp"]:
+        e = e - _poly_even_32(r2, f["asp"])
+    if f["asp_odd"]:
+        e = e - _poly_odd_32(r2, f["asp_odd"])
+    return e
+
+
+def _normal_biconic_32(x, y, f):
+    """kernels.normal_biconic in float32."""
+    cx, kx, cy, ky = f["cx"], f["kx"], f["cy"], f["ky"]
+    x2, y2 = x*x, y*y
+    a = cx*x2 + cy*y2
+    b = (1 + kx)*cx*cx*x2 + (1 + ky)*cy*cy*y2
+    s = _sqrt0_32(1 - b)
+    s_safe = torch.clamp(s, min=_TINY32)
+    inv = torch.ones_like(s)/(1 + s)
+    gx = -(2*cx*x*(1 + s) + a*(1 + kx)*cx*cx*x/s_safe)*inv*inv
+    gy = -(2*cy*y*(1 + s) + a*(1 + ky)*cy*cy*y/s_safe)*inv*inv
+    r2 = x2 + y2
+    if f["asp"]:
+        d = _dpoly_even_32(r2, f["asp"])
+        gx = gx - x*d
+        gy = gy - y*d
+    if f["asp_odd"]:
+        d = _dpoly_odd_32(r2, f["asp_odd"])
+        gx = gx - x*d
+        gy = gy - y*d
+    return gx, gy
+
+
+def _ycurve_32(y, f):
+    """kernels._ycurve in float32."""
+    cy = f["cy"]
+    y2 = y*y
+    sq = _sqrt0_32(1 - (1 + f["ky"])*cy*cy*y2)
+    zy = cy*y2/(1 + sq)
+    dzy = cy*y/torch.clamp(sq, min=_TINY32)
+    if f["asp"]:
+        zy = zy + _poly_even_32(y2, f["asp"])
+        dzy = dzy + y*_dpoly_even_32(y2, f["asp"])
+    if f["asp_odd"]:
+        zy = zy + _poly_odd_32(y2, f["asp_odd"])
+        dzy = dzy + y*_dpoly_odd_32(y2, f["asp_odd"])
+    return zy, dzy
+
+
+def _sag_toroid_32(x, y, z, f):
+    """kernels.sag_toroid in float32."""
+    cr = f["cr"]
+    zy, _ = _ycurve_32(y, f)
+    crp = cr/(1 - cr*zy)
+    x2 = x*x
+    return z - zy - crp*x2/(1 + _sqrt0_32(1 - x2*crp*crp))
+
+
+def _normal_toroid_32(x, y, f):
+    """kernels.normal_toroid in float32."""
+    cr = f["cr"]
+    zy, dzy = _ycurve_32(y, f)
+    crp = cr/(1 - cr*zy)
+    w = torch.clamp(_sqrt0_32(1 - x*x*crp*crp), min=_TINY32)
+    return -x*crp/w, -dzy/w
+
+
+def _anam_funcs_32(an):
+    """(sag, normal) of a biconic or toroid row in float32."""
+    f = an["f32"]
+    if an["mode"] == "toroid":
+        return (lambda x, y, z: _sag_toroid_32(x, y, z, f),
+                lambda x, y: _normal_toroid_32(x, y, f))
+    return (lambda x, y, z: _sag_biconic_32(x, y, z, f),
+            lambda x, y: _normal_biconic_32(x, y, f))
+
+
+# -- the anamorphic intercepts ------------------------------------------------
+
+def _intercept_cyl_df(w, z, uw, uz, an, dv, sq):
+    """Closed-form conic-cylinder intercept in df32: the quadric
+    c (w^2 + (1+k) z^2) - 2 z = 0 in one transverse coordinate w, with
+    the rotationally symmetric conic's cancellation-free root choice.
+    A degenerate quadric (e_q == 0: a ray parallel to the curved axis
+    of a parabolic cylinder) takes the conjugate-root form."""
+    c, k1 = an["c1"], an["k1"]
+    kz = mul(k1, z)
+    uy_ = add(mul(uw, w), mul(uz, kz))
+    uu = add(sqr(uw), mul(k1, sqr(uz)))
+    yy = add(sqr(w), mul(z, kz))
+    d = sub(mul(c, uy_), uz)
+    f = sub(mul(c, yy), scale(z, 2.))
+    e_q = mul(c, uu)
+    disc = sub(sqr(d), mul(e_q, f))
+    g = sq(disc)
+    ez = e_q[0] == 0
+    if an["alternate"]:
+        g = neg(g)
+        stable = ez
+    else:
+        stable = (d[0] < 0) | ez
+    num = where(stable, f, neg(add(d, g)))
+    den = where(stable, sub(g, d), e_q)
+    one = (torch.ones_like(den[0]), torch.zeros_like(den[1]))
+    return dv(num, where(den[0] == 0, one, den))
+
+
+def _residual_ok(s, res):
+    """Rays whose sag residual passes |res| <= tol (1 + |s|) on the hi
+    words (False for NaN)."""
+    return res[0].abs() <= ASPHERIC_TOL*(1 + s[0].abs())
+
+
+def _intercept_anam_df(x, y, z, ux, uy, uz, an, one, dv, sq):
+    """Anamorphic intercept: the closed form for conic cylinders, the
+    mixed-precision Newton for biconics and toroids (misses NaN)."""
+    mode = an["mode"]
+    if mode == "cyl_y":
+        return _intercept_cyl_df(y, z, uy, uz, an, dv, sq)
+    if mode == "cyl_x":
+        return _intercept_cyl_df(x, z, ux, uz, an, dv, sq)
+    f = an["f32"]
+    x0, y0, z0 = x[0], y[0], z[0]
+    ux0, uy0, uz0 = ux[0], uy[0], uz[0]
+    s32 = _intercept_conic_32(x0, y0, z0, ux0, uy0, uz0, f["cy"], f["ky"],
+                              f["alt"])
+    uz_safe = torch.where(uz0 == 0, torch.ones_like(uz0), uz0)
+    s32 = torch.where(torch.isnan(s32), -z0/uz_safe, s32)
+    sag32, grad32 = _anam_funcs_32(an)
+    for _ in range(ANAM_F32_ITERS):
+        px, py, pz = x0 + s32*ux0, y0 + s32*uy0, z0 + s32*uz0
+        fn = sag32(px, py, pz)
+        gx, gy = grad32(px, py)
+        fp = ux0*gx + uy0*gy + uz0
+        fp = torch.where(fp == 0, torch.ones_like(fp), fp)
+        s32 = s32 - fn/fp
+    sag_df, grad_df = _anam_funcs_df(an, one, dv, sq)
+    s = (s32, torch.zeros_like(s32))
+    for _ in range(an["df_iters"]):
+        px = add(x, mul(s, ux))
+        py = add(y, mul(s, uy))
+        pz = add(z, mul(s, uz))
+        fn = sag_df(px, py, pz)
+        gx, gy = grad_df(px, py)
+        fp = add(add(mul(ux, gx), mul(uy, gy)), uz)
+        ok = fp[0] != 0
+        fp = (torch.where(ok, fp[0], torch.ones_like(fp[0])),
+              torch.where(ok, fp[1], torch.zeros_like(fp[1])))
+        s = sub(s, dv(fn, fp))
+    res = sag_df(add(x, mul(s, ux)), add(y, mul(s, uy)), add(z, mul(s, uz)))
+    nan = torch.full_like(s[0], np.nan)
+    return where(_residual_ok(s, res), s, (nan, nan))
+
+
+def _polish_radial_df(x, y, z, ux, uy, uz, s, st, one, dv, sq):
+    """ASPHERIC_ITERS df32 Newton rounds of an aspheric row from its
+    conic root s (no zero-slope guard, as the reference), then the
+    residual test: misses are NaN."""
+    c, k1 = st["c"], st["k1"] if st["k1"] is not None else one
+    asp, asp_odd = st["asp"], st["asp_odd"]
+    for _ in range(ASPHERIC_ITERS):
+        px = add(x, mul(s, ux))
+        py = add(y, mul(s, uy))
+        pz = add(z, mul(s, uz))
+        fn = _sag_df(px, py, pz, c, k1, asp, asp_odd, one, dv, sq)
+        en = _normal_radial_df(px, py, c, k1, asp, asp_odd, one, dv, sq)
+        fp = add(add(mul(ux, mul(px, en)), mul(uy, mul(py, en))), uz)
+        s = sub(s, dv(fn, fp))
+    res = _sag_df(add(x, mul(s, ux)), add(y, mul(s, uy)),
+                  add(z, mul(s, uz)), c, k1, asp, asp_odd, one, dv, sq)
+    nan = torch.full_like(s[0], np.nan)
+    return where(_residual_ok(s, res), s, (nan, nan))
+
+
 def _surface_df(state, st):
     """One transfer-intercept-refract step in df32 for a planned step
     `st` whose constants are 0-d float32 tensors (`_on_device`).
-    Mirrors the reference's _surface_df for flat, spherical and conic
-    rows; returns the new state and the intercept distance s."""
+    Mirrors the reference's _surface_df for flat, spherical, conic,
+    aspheric and anamorphic rows; returns the new state and the
+    intercept distance s."""
     dv, sq = (div1, sqrt1) if st["fast"] else (div, sqrt)
     c, mu, kind, flat = st["c"], st["mu"], st["kind"], st["flat"]
-    k1, rotm, rot_df = st["k1"], st["rotm"], st["rot_df"]
+    k1, rotm, rot_df, anam = st["k1"], st["rotm"], st["rot_df"], st["anam"]
+    figured = bool(st["asp"] or st["asp_odd"])
+    one = st["one"]
     x, y, z, ux, uy, uz = state
     z = sub(z, st["dz"])
     if st["dxy"] is not None:
@@ -238,7 +666,9 @@ def _surface_df(state, st):
         x, y, z = _apply_rot_df(rot_df, x, y, z)
         ux, uy, uz = _apply_rot_df(rot_df, ux, uy, uz)
     conic = k1 is not None
-    if flat:
+    if anam is not None:
+        s = _intercept_anam_df(x, y, z, ux, uy, uz, anam, one, dv, sq)
+    elif flat:
         s = neg(dv(z, uz))
     else:
         # closed-form conic intercept, unit |u|; the two algebraically
@@ -265,6 +695,8 @@ def _surface_df(state, st):
             num = where(stable, f, neg(add(d, g)))
             den = where(stable, sub(g, d), e_q)
             s = dv(num, den)
+    if figured and anam is None:
+        s = _polish_radial_df(x, y, z, ux, uy, uz, s, st, one, dv, sq)
     x = add(x, mul(s, ux))
     y = add(y, mul(s, uy))
     z = add(z, mul(s, uz))
@@ -276,31 +708,53 @@ def _surface_df(state, st):
         ux = where(bad, (nan, nan), ux)
         uy = where(bad, (nan, nan), uy)
         uz = where(bad, (nan, nan), uz)
-    one = st["one"]
     if kind == 0:
         vx, vy, vz = ux, uy, uz
     else:
-        nx = ny = nzv = None
-        if not flat:
+        # the normal (nx, ny, nzv); None stands for a zero component,
+        # nzv None for 1 and nn None for an exactly unit |N|^2
+        nx = ny = nzv = nn = None
+        cyl = anam is not None and anam["mode"] in ("cyl_y", "cyl_x")
+        if cyl:
+            # a conic cylinder's polynomial normal in its curved axis w:
+            # N_w = -c w, N_z = 1 - c(1+k) z, |N| == 1 on a circular one
+            cy_ = anam["mode"] == "cyl_y"
+            w, uw = (y, uy) if cy_ else (x, ux)
+            nw = neg(mul(anam["c1"], w))
+            nzv = sub(one, mul(anam["k1c"], z))
+            dot = add(mul(uw, nw), mul(uz, nzv))
+            if not anam["circular"]:
+                nn = add(sqr(nw), sqr(nzv))
+            if cy_:
+                ny = nw
+            else:
+                nx = nw
+        elif not flat and anam is None and not figured:
             # polynomial implicit-gradient normal N = (-c x, -c y,
             # 1 - c(1+k) z); |N| == 1 exactly on a sphere
             nx, ny = neg(mul(c, x)), neg(mul(c, y))
-            if conic:
-                nzv = sub(one, mul(st["k1c"], z))
-            else:
-                nzv = sub(one, mul(c, z))
+            nzv = sub(one, mul(st["k1c"] if conic else c, z))
             dot = add(add(mul(ux, nx), mul(uy, ny)), mul(uz, nzv))
-            nn = add(add(sqr(nx), sqr(ny)), sqr(nzv)) if conic else None
+            if conic:
+                nn = add(add(sqr(nx), sqr(ny)), sqr(nzv))
+        elif anam is not None or figured:
+            # the generic normal (nx, ny, 1) of a figured or Newton row
+            # (a figured flat row too)
+            if anam is not None:
+                nx, ny = _anam_funcs_df(anam, one, dv, sq)[1](x, y)
+            else:
+                e = _normal_radial_df(x, y, c, k1 if conic else one,
+                                      st["asp"], st["asp_odd"], one, dv, sq)
+                nx, ny = mul(x, e), mul(y, e)
+            nn = add(add(sqr(nx), sqr(ny)), one)
+            dot = add(add(mul(ux, nx), mul(uy, ny)), uz)
         else:
-            nn, dot = None, uz
+            dot = uz
         if kind == 2:
             a2 = scale(dot, 2.) if nn is None else scale(dv(dot, nn), 2.)
-            if flat:
-                vx, vy, vz = ux, uy, sub(uz, a2)
-            else:
-                vx = sub(ux, mul(a2, nx))
-                vy = sub(uy, mul(a2, ny))
-                vz = sub(uz, mul(a2, nzv))
+            vx = ux if nx is None else sub(ux, mul(a2, nx))
+            vy = uy if ny is None else sub(uy, mul(a2, ny))
+            vz = sub(uz, a2) if nzv is None else sub(uz, mul(a2, nzv))
         else:
             # refraction: mu > 0 here (mirrors handled above)
             b0 = sub(sqr(mu), one)
@@ -312,13 +766,10 @@ def _surface_df(state, st):
                 a = mul(mul(mu, dot), inv_nn)
                 b = mul(b0, inv_nn)
             g = sub(sq(sub(sqr(a), b)), a)
-            if flat:
-                vx, vy = mul(mu, ux), mul(mu, uy)
-                vz = add(mul(mu, uz), g)
-            else:
-                vx = add(mul(mu, ux), mul(g, nx))
-                vy = add(mul(mu, uy), mul(g, ny))
-                vz = add(mul(mu, uz), mul(g, nzv))
+            vx = mul(mu, ux) if nx is None else add(mul(mu, ux), mul(g, nx))
+            vy = mul(mu, uy) if ny is None else add(mul(mu, uy), mul(g, ny))
+            vz = (add(mul(mu, uz), g) if nzv is None
+                  else add(mul(mu, uz), mul(g, nzv)))
     if rotm is not None:
         # back to the running (global) frame: from_normal = R^T
         x, y, z = _apply_signed(rotm.T, x, y, z)
@@ -333,8 +784,13 @@ def _surface_df(state, st):
 
 _ONE = (np.float32(1.), np.float32(0.))
 #: step keys that hold df32 constants (pairs, or nests of pairs)
-_CONST_KEYS = ("c", "mu", "dz", "k1", "k1c", "nb", "dxy", "rot_df")
-_EXTENDED = "ROADMAP Queue 1 item 9"
+_CONST_KEYS = ("c", "mu", "dz", "k1", "k1c", "nb", "dxy", "rot_df", "asp",
+               "asp_odd")
+#: an anamorphic row's df32 constants and its seed's float32 scalars
+_ANAM_CONSTS = ("c1", "k1", "k1c", "cx", "cy", "cr", "bxc", "byc", "asp",
+                "asp_odd")
+#: the ROADMAP item (Queue 1) that ports the rows df32.plan refuses
+_EXTENDED = {"grating_dy": "9.4", "doe": "9.4", "xy_poly": "9.5"}
 
 
 def _trim(coeffs):
@@ -349,23 +805,69 @@ def _host(table, name, shape_tail=()):
     return v.detach().cpu().numpy().astype(np.float64)
 
 
+def _cf(t):
+    """The float64 value of a df32 constant."""
+    return float(t[0]) + float(t[1])
+
+
+def _anamorphic_row(cy, ky, cdx, kdx, tor, alt, coeffs, codd, df_iters):
+    """The reference plan's decision for an anamorphic row: a conic
+    cylinder without its own figure takes the closed form (cyl_y or
+    cyl_x), a figured cylinder, a biconic or a toroid the Newton, and a
+    row flat in both axes is a plane (None)."""
+    if tor != 0:
+        cx, kx = 0., 0.          # placeholders (a toroid uses cr)
+        cr = cy + cdx
+        cylinder = cr == 0.      # degenerate: the pure y-curve
+        mode = "toroid"
+    else:
+        cx, kx = cy + cdx, ky + kdx
+        cr = 0.
+        cylinder = cx == 0. or cy == 0.
+        mode = "biconic"
+    if cylinder and not (coeffs.size or codd.size):
+        along_y = tor != 0 or cx == 0.
+        caxis, kaxis = (cy, ky) if along_y else (cx, kx)
+        if caxis == 0.:
+            return None
+        c1, k1 = const(caxis), const(1. + kaxis)
+        return dict(mode="cyl_y" if along_y else "cyl_x", c1=c1, k1=k1,
+                    k1c=const(_cf(k1)*_cf(c1)), circular=_cf(k1) == 1.,
+                    alternate=bool(alt))
+    return dict(
+        mode=mode, df_iters=df_iters,
+        cx=const(cx), cy=const(cy), cr=const(cr),
+        bxc=const((1. + kx)*cx*cx), byc=const((1. + ky)*cy*cy),
+        asp=tuple(const(a) for a in coeffs),
+        asp_odd=tuple(const(a) for a in codd),
+        f32=dict(cx=np.float32(cx), kx=np.float32(kx), cy=np.float32(cy),
+                 ky=np.float32(ky), cr=np.float32(cr), alt=np.float32(alt),
+                 asp=tuple(np.float32(a) for a in coeffs),
+                 asp_odd=tuple(np.float32(a) for a in codd)))
+
+
 def plan(table, clip=False, fast=False):
     """Host-side: per-surface df32 constants + static flags from a
     float64 SurfaceTable (on any device; read through .cpu()).
 
-    Each step is a dict with the reference plan's keys for the K1
-    vocabulary: c, mu, dz (df32 constants), kind (0 passthrough, 1
-    refract, 2 mirror), flat, k1 = const(1 + conic) for a conic row
-    (else None), k1c = const((1+k)c) baked from the df32 constants in
-    float64 (the reference computes it inside its step), alternate,
-    rotm (an exact signed permutation, integer 3x3) or rot_df (a 3x3
-    nest of df32 constants), dxy (the decenter pair or None), radius
-    (the float32 squared aperture radius when clipping, else None),
-    clip, fast, and nb (n_before, for the optical path).
+    Each step is a dict with the reference plan's keys: c, mu, dz (df32
+    constants), kind (0 passthrough, 1 refract, 2 mirror), flat, k1 =
+    const(1 + conic) for a conic row (else None), k1c = const((1+k)c)
+    baked from the df32 constants in float64 (the reference computes it
+    inside its step), asp and asp_odd (the row's trimmed even and odd
+    coefficients as df32 constants: an aspheric row's Newton polish),
+    anam (an anamorphic row's constants, else None: a conic cylinder's
+    c1, k1, k1c, circular and alternate, or a biconic's or toroid's cx,
+    cy, cr, bxc, byc, asp, asp_odd, df_iters and its float32 seed's
+    scalars `f32`), alternate, rotm (an exact signed permutation,
+    integer 3x3) or rot_df (a 3x3 nest of df32 constants), dxy (the
+    decenter pair or None), radius (the float32 squared aperture radius
+    when clipping, else None), clip, fast, and nb (n_before, for the
+    optical path).
 
     fast=True bakes one-round div/sqrt refinements into every step
-    (div1/sqrt1).  Rows that need the extended vocabulary raise
-    NotImplementedError."""
+    (div1/sqrt1) and one df32 round fewer into the anamorphic Newton.
+    Grating, DOE and XY-freeform rows raise NotImplementedError."""
     table = lower_pose(table)  # fold concrete tilt/decenter deltas
     curv = _host(table, "curvature")
     s_count = curv.shape[0]
@@ -376,19 +878,23 @@ def plan(table, clip=False, fast=False):
     rad = _host(table, "radius")
     alt = _host(table, "alternate")
     nbef = _host(table, "n_before")
-    figures = {name: _host(table, name, (0,)) for name in
-               ("aspherics", "aspherics_odd", "doe", "xy_poly")}
-    figures.update({name: _host(table, name) for name in
-                    ("curvature_dx", "conic_dx", "toroidal", "grating_dy")})
+    asp = _host(table, "aspherics", (0,))
+    asp_odd = _host(table, "aspherics_odd", (0,))
+    cdx, kdx, tor = (_host(table, name) for name in
+                     ("curvature_dx", "conic_dx", "toroidal"))
+    extended = {name: _host(table, name, () if name == "grating_dy"
+                            else (0,)) for name in _EXTENDED}
+    df_iters = ANAM_DF_ITERS + (0 if fast else 1)
     steps = []
     for j in range(1, s_count):
-        used = [name for name, v in figures.items()
+        used = [name for name, v in extended.items()
                 if v[j].size and _trim(np.atleast_1d(v[j])).size]
         if used:
             raise NotImplementedError(
                 "df32 plan: row %d uses %s, which rayopt_tpu_torch does "
-                "not trace yet (flat, spherical and conic rows only; %s)"
-                % (j, "/".join(used), _EXTENDED))
+                "not trace yet (ROADMAP Queue 1 item %s)" % (
+                    j, "/".join(used), "/".join(sorted(
+                        {_EXTENDED[name] for name in used}))))
         rotm = rot_df = None
         if not np.allclose(rot[j], np.eye(3)):
             ri = np.rint(rot[j]).astype(int)
@@ -405,16 +911,21 @@ def plan(table, clip=False, fast=False):
         if off[j, 0] or off[j, 1]:
             dxy = (const(off[j, 0]), const(off[j, 1]))
         kind = 0 if mu[j] == 1. else (2 if mu[j] == -1. else 1)
+        coeffs = _trim(asp[j] if asp.shape[1] else np.zeros(0))
+        codd = _trim(asp_odd[j] if asp_odd.shape[1] else np.zeros(0))
+        anam = None
+        if tor[j] != 0 or cdx[j] != 0 or kdx[j] != 0:
+            anam = _anamorphic_row(curv[j], conic[j], cdx[j], kdx[j],
+                                   tor[j], alt[j], coeffs, codd, df_iters)
         c = const(curv[j])
         k1 = const(1. + conic[j]) if conic[j] else None
-        k1c = None
-        if k1 is not None:
-            k1c = const((float(k1[0]) + float(k1[1]))
-                        * (float(c[0]) + float(c[1])))
         steps.append(dict(
             c=c, mu=const(abs(mu[j])), dz=const(off[j, 2]), kind=kind,
-            flat=curv[j] == 0., k1=k1, k1c=k1c, alternate=bool(alt[j]),
-            rotm=rotm, rot_df=rot_df, dxy=dxy,
+            flat=curv[j] == 0. and anam is None, k1=k1,
+            k1c=None if k1 is None else const(_cf(k1)*_cf(c)),
+            asp=tuple(const(a) for a in coeffs),
+            asp_odd=tuple(const(a) for a in codd), anam=anam,
+            alternate=bool(alt[j]), rotm=rotm, rot_df=rot_df, dxy=dxy,
             radius=(np.float32(rad[j])**2 if clip
                     and np.isfinite(rad[j]) else None),
             clip=clip, fast=fast, nb=const(nbef[j])))
@@ -422,21 +933,34 @@ def plan(table, clip=False, fast=False):
 
 
 def _on_device(st, like):
-    """The step with its df32 constants as 0-d float32 tensors on
-    like's device (and the radius and 1.0 beside them)."""
+    """The step with its df32 constants (and an anamorphic row's, and
+    its seed's float32 scalars) as 0-d float32 tensors on like's device
+    (and the radius and 1.0 beside them)."""
+    def scalar(v):
+        return torch.tensor(float(v), dtype=torch.float32,
+                            device=like.device)
+
     def conv(v):
-        if v is None:
-            return None
+        if v is None or not len(v):
+            return v
         if isinstance(v[0], tuple):
             return tuple(conv(w) for w in v)
-        return tuple(torch.tensor(float(w), dtype=torch.float32,
-                                  device=like.device) for w in v)
+        return tuple(scalar(w) for w in v)
     out = dict(st)
     for key in _CONST_KEYS:
         out[key] = conv(st[key])
     if st["radius"] is not None:
-        out["radius"] = torch.tensor(float(st["radius"]),
-                                     dtype=torch.float32, device=like.device)
+        out["radius"] = scalar(st["radius"])
+    if st["anam"] is not None:
+        an = dict(st["anam"])
+        for key in _ANAM_CONSTS:
+            if key in an:
+                an[key] = conv(an[key])
+        if "f32" in an:
+            an["f32"] = {k: (tuple(scalar(w) for w in v)
+                             if isinstance(v, tuple) else scalar(v))
+                         for k, v in an["f32"].items()}
+        out["anam"] = an
     out["one"] = conv(_ONE)
     return out
 

@@ -1444,6 +1444,153 @@ def test_df32_multi_splits_24_plans_on_card(cuda_device):
                                                     before[1] + 2)
 
 
+# -- K10-K13 on the Newton rows -----------------------------------------------
+
+def _port_system(rows, pupil=4.):
+    """A port System from element dicts, its pupil radius fixed."""
+    from rayopt_tpu_torch import System
+    s = System(rows)
+    s.object.pupil.radius = pupil
+    s.object.pupil.update_radius = False
+    s.update()
+    return s
+
+
+def _split_biconic(figure=None):
+    """The JAX package's split-conic biconic lens (its
+    tests/test_anamorphic.py), with an even figure on its first row."""
+    s = _port_system([
+        dict(material="air"),
+        dict(type="biconic", roc=25.84, curvature_x=.013, distance=5.,
+             material="SCHOTT-BK|N-BK7", radius=10.),
+        dict(type="biconic", distance=3., material="air", radius=10.),
+        dict(distance=47., radius=10.)])
+    s[1].conic, s[1].conic_x = -.4, .25
+    if figure:
+        s[1].aspherics = list(figure)
+    s.update()
+    return s
+
+
+def _toroid_lens(figure=None):
+    """The JAX package's toroid lens, with an even figure on its first
+    toroid's generating curve."""
+    s = _port_system([
+        dict(material="air"),
+        dict(type="toroid", roc=51.68, roc_rotation=200., distance=5.,
+             material="SCHOTT-BK|N-BK7", radius=10.),
+        dict(type="toroid", distance=3., material="air", radius=10.),
+        dict(distance=95., radius=20.)])
+    if figure:
+        s[1].aspherics = list(figure)
+        s.update()
+    return s
+
+
+def _aspheric_double_gauss():
+    s = double_gauss()
+    s[2].conic, s[5].conic = -.7, .4
+    s[7].aspherics = [0., 1.2e-7, -3e-11]
+    s.update()
+    return s
+
+
+def _odd_singlet():
+    from rayopt_tpu_torch import Spheroid, System, air
+    s = System()
+    s.append(Spheroid(material=air, radius=9.))
+    s.append(Spheroid(distance=8., curvature=1/45., conic=-.3,
+                      aspherics=[0., 2e-7], aspherics_odd=[0., 1e-5, -2e-8],
+                      material=1.6, radius=9.))
+    s.append(Spheroid(distance=5., curvature=-1/80., material=air,
+                      radius=9.))
+    s.append(Spheroid(distance=70., material=None, radius=9.))
+    s.wavelengths = [587.56e-9]
+    s.update()
+    return s
+
+
+#: name: (system factory, bench half width mm) of the Newton lenses:
+#: aspheric rows (df32 polish), conic cylinders (closed form), biconic
+#: and toroid rows (float32 seed, df32 polish), figured or not
+DF32_NEWTON = {
+    "aspheric_double_gauss": (_aspheric_double_gauss, 11.6),
+    "odd_singlet": (_odd_singlet, 6.),
+    "anamorphic_pair": (models.anamorphic_pair, 4.),
+    "split_biconic": (_split_biconic, 4.),
+    "toroid_lens": (_toroid_lens, 4.),
+    "figured_toroid": (lambda: _toroid_lens([1e-5, 2e-8]), 4.),
+    "figured_biconic": (lambda: _split_biconic([2e-4, -1e-6]), 4.)}
+
+
+def _df32_newton_case(name, fast, clip):
+    """One Newton lens's plan, its 2 plans for K11/K13 (refracting rows'
+    mu grown by 0 and 1 % of mu - 1) and the bench bundle at its half
+    width (2.5x wide when clipped: past the lenses' apertures), on the
+    card."""
+    make, half = DF32_NEWTON[name]
+    tab = make().table()
+    tabs = [tab, tab.replace(mu=torch.where(tab.mu.abs() != 1.,
+                                            1 + (tab.mu - 1)*1.01, tab.mu))]
+    plans = [D.plan(t, clip=clip, fast=fast) for t in tabs]
+    scale = half/11.6*(2.5 if clip else 1.)
+    state64 = _bench_state(1 << 16, 12, torch.device("cuda"), torch.float64)
+    state64 = tuple(c*scale if i < 2 else c for i, c in enumerate(state64))
+    st = D.state_from_f64(torch.stack(state64[:3], 1),
+                          torch.stack(state64[3:], 1))
+    return plans, st
+
+
+@functools.lru_cache(maxsize=None)
+def _prebuild_df32_newton():
+    """Build the keys of every Newton case at once (one nvcc a key, in
+    parallel), the first time a case asks."""
+    keys = []
+    for name in DF32_NEWTON:
+        for fast in (True, False):
+            for clip in (False, True):
+                plans, _ = _df32_newton_case(name, fast, clip)
+                keys += [CS.df32_multi_key(plans[:1], "k11", True),
+                         CS.df32_multi_key(plans[:1], "k13"),
+                         CS.df32_multi_key(plans, "k11", True),
+                         CS.df32_multi_key(plans, "k13")]
+    CS.prebuild(keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("name", sorted(DF32_NEWTON))
+def test_df32_newton_kernels_match_plain_on_card(cuda_device, name, fast):
+    """K10 and K11 (with the optical path), K12 and K13 on the Newton
+    lenses' plans against their plain versions on the card, clip off and
+    on: identical words (the kernels round every float32 operation of
+    the df32 polish and of the float32 seed as the plain versions do),
+    the same live count and the moments within 1e-13 of their scale."""
+    _prebuild_df32_newton()
+    for clip in (False, True):
+        plans, st = _df32_newton_case(name, fast, clip)
+        assert any(CD.fig_of(f) for f in CS.df32_flags(plans[:1])[0])
+        got = CD.trace_final_df32(plans[0], st, with_path=True)
+        want = CD.trace_final_df32_reference(plans[0], st, with_path=True)
+        torch.cuda.synchronize()
+        assert _differing_words(_df32_words(got, True),
+                                _df32_words(want, True)) == 0
+        assert bool(torch.isfinite(got[0][0][0]).any())
+        got = CD.trace_multi_df32(plans, st, with_path=True)
+        want = CD.trace_multi_df32_reference(plans, st, with_path=True)
+        torch.cuda.synchronize()
+        assert sum(_differing_words(_df32_words(g, True),
+                                    _df32_words(w, True))
+                   for g, w in zip(got, want)) == 0
+        moms = [(CD.trace_merit_df32(plans[0], st),
+                 CD.trace_merit_df32_reference(plans[0], st))]
+        moms += list(zip(CD.trace_merit_multi_df32(plans, st),
+                         CD.trace_merit_multi_df32_reference(plans, st)))
+        for m, r in moms:
+            assert float(m[0]) == float(r[0]) > 0
+            assert _moments_rel(m, r) <= 1e-13
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nlam", [12, 13])
 def test_polychromatic_adjoint_past_max_nlam_on_card(cuda_device, nlam):

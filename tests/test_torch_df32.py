@@ -310,17 +310,19 @@ def test_multi_matches_jax_on_two_wavelengths():
                    for a, b in zip(m, w))
 
 
-@pytest.mark.parametrize("field", ["aspherics", "curvature_dx",
-                                   "grating_dy"])
-def test_plan_refuses_extended_rows(field):
-    """An aspheric, a biconic and a grating row raise
-    NotImplementedError naming the ROADMAP item."""
-    values = {"aspherics": [[0., 0.], [0., 1e-6], [0., 0.]],
-              "curvature_dx": [0., .01, 0.],
+@pytest.mark.parametrize("field,item", [("doe", "9.4"), ("xy_poly", "9.5"),
+                                        ("grating_dy", "9.4")])
+def test_plan_refuses_extended_rows(field, item):
+    """A DOE, an XY-freeform and a grating row raise NotImplementedError
+    naming their ROADMAP item (the aspheric and anamorphic rows are
+    planned: tests/test_torch_df32_newton.py)."""
+    values = {"doe": [[0.], [1e-4], [0.]],
+              "xy_poly": [[0., 0.], [1e-4, 0.], [0., 0.]],
               "grating_dy": [0., .001, 0.]}
     tab = TT.make_table([0., .02, 0.], distance=[0., 5., 40.],
                         mu=[1., 1/1.5, 1.5], **{field: values[field]})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue 1 item %s" % item.replace(".", r"\.")):
         D.plan(tab)
 
 
@@ -415,7 +417,10 @@ def _model_trace(words, flags, state, with_path):
 
     pos, dirs = tuple(state[:3]), tuple(state[3:])
     tacc = D.zero_like(state[0])
-    for w, fl in zip(words, flags.tolist()):
+    # each step's words start where the words of the steps before end
+    at = np.cumsum([0] + [CD.step_words(f) for f in flags.tolist()])
+    for j, fl in enumerate(flags.tolist()):
+        w = words[at[j]:at[j + 1]]
         fast = bool(fl & CD.G_FAST)
         dv, sq = (D.div1, D.sqrt1) if fast else (D.div, D.sqrt)
         x, y, z = pos
@@ -490,7 +495,7 @@ def _model_trace(words, flags, state, with_path):
         pos, dirs = frame(fl, w, (x, y, z), (ux, uy, uz), True)
         if with_path:
             tacc = D.add(tacc, D.mul(s, ld(w, CD.W_NB)))
-    pos, dirs = frame(flags[-1].item(), words[-1], pos, dirs, False)
+    pos, dirs = frame(flags[-1].item(), words[at[-2]:], pos, dirs, False)
     return (*pos, *dirs), tacc
 
 
@@ -508,7 +513,9 @@ def test_packed_plan_decodes_like_the_kernel(fast, clip):
     assert any(st["alternate"] for st in steps)
     assert steps[-1]["rot_df"] is not None
     words, flags = CD.pack_plan(steps, "cpu")
-    assert words.shape == (len(steps), CD.DW) and flags.dtype == torch.int32
+    # no figure: DW words a step
+    assert words.shape == (len(steps)*CD.DW,) and flags.dtype == torch.int32
+    assert all(CD.step_words(f) == CD.DW for f in flags.tolist())
     rng = np.random.default_rng(5)
     y = np.zeros((256, 3))
     y[:, :2] = rng.uniform(-1, 1, (256, 2))*6.
@@ -535,11 +542,12 @@ def test_pack_plan_stacks_plans():
     plans = [D.plan(TT.table_from_numpy(js.table(lam)), fast=True)
              for lam in js.wavelengths]
     words, flags = CD.pack_plan(plans, "cpu")
-    assert words.shape == (3, len(plans[0]), CD.DW)
+    assert words.shape == (3, len(plans[0])*CD.DW)
     assert flags.shape == (3, len(plans[0]))
     one, fl = CD.pack_plan(plans[1], "cpu")
     assert torch.equal(one, words[1]) and torch.equal(fl, flags[1])
     assert bool((flags & CD.G_FAST).all())
     # the wavelengths differ in mu only
-    assert not torch.equal(words[0, :, CD.W_MU], words[1, :, CD.W_MU])
+    steps = words.view(3, len(plans[0]), CD.DW)
+    assert not torch.equal(steps[0, :, CD.W_MU], steps[1, :, CD.W_MU])
 

@@ -30,11 +30,11 @@ from rayopt_tpu.parallel import grad as JGR
 from rayopt_tpu_torch.ops import cuda_grad as CG
 from rayopt_tpu_torch.ops import cuda_spec as CS
 from rayopt_tpu_torch.ops import cuda_trace as CT
-from rayopt_tpu_torch.ops import df32 as TD
 from rayopt_tpu_torch.ops import kernels as TK
 from rayopt_tpu_torch.ops import tables as TT
 from rayopt_tpu_torch.parallel import grad as TGR
 
+from test_torch_df32_newton import df32_matches_jax
 from test_torch_anamorphic import (FIGURED, LENSES, ROWS,  # noqa: F401
                                    _cpu_default, _one_thread, _same, _t,
                                    bundle, lens)
@@ -198,13 +198,13 @@ def test_y_cylinder_curvature_dx_warns_and_is_zero():
 
 
 def test_refusals_name_item_9():
-    """What still refuses, naming ROADMAP Queue 1 item 9: df32.plan on
-    the three anamorphic lenses and the figured ones (item 9.2), and a
-    grating, DOE or freeform row in every K1-K9 key (its wrapper's
+    """What still refuses, naming ROADMAP Queue 1 item 9: a grating,
+    DOE or freeform row in every K1-K9 key (its wrapper's
     _step_vjp_reference model too).  Every K1-K9 key takes the three
     lenses and the figured lenses (tests/test_torch_anamorphic.py), the
     adjoints' with their anamorphic slots; the hand reverse takes the
-    PATH form (K9's) on every anamorphic row."""
+    PATH form (K9's) on every anamorphic row; df32.plan traces them as
+    the JAX package's eager df32 does, word for word (item 9.2)."""
     def keys(sp):
         return (CS.trace_key(sp, F64), CS.merit_key(sp, F64),
                 CS.moments_key(sp, F64), CS.adjoint_key(sp, F64),
@@ -234,8 +234,11 @@ def test_refusals_name_item_9():
             if k.kernel in ("k5", "k7", "k9"):
                 assert k.slots == (CS.OPD_SLOTS if k.kernel == "k9"
                                    else CS.SLOTS) + sum(widths) + CT.ANAM
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TD.plan(tt)
+        y, u = np.zeros((8, 3)), np.zeros((8, 3))
+        y[:, 0] = np.linspace(-3, 3, 8)
+        y[:, 1] = np.linspace(2.5, -2.5, 8)
+        u[:, 2] = 1.
+        assert df32_matches_jax(tt, y, u), name
         j = [i for i, sp in enumerate(specs) if TK.is_anamorphic_spec(sp)][0]
         _, pg = CG._step_vjp_reference(
             _state(*bundle(4, 1)), tt.row(j), specs[j],

@@ -37,6 +37,7 @@ from rayopt_tpu_torch.ops import kernels as TK
 from rayopt_tpu_torch.ops import tables as TT
 from rayopt_tpu_torch.parallel import grad as TGR
 
+from test_torch_df32_newton import df32_matches_jax
 from test_torch_asphere import (FIGURED_ROWS, _lens, _t, aspheric_doublet,
                                 figured_row, grad_bundle)
 
@@ -352,8 +353,8 @@ def test_all_spec_kernels_take_aspheric_rows():
     """Every K1-K9 key takes the odd singlet's aspheric rows, carrying
     the table's widths (K3 both modes, K6, K7, K8 and K9 too), and so do
     their wrappers (the plain versions here: finite values where the
-    plain trace is finite); the df32 plan still raises
-    NotImplementedError naming item 9."""
+    plain trace is finite); the df32 plan traces them as the JAX
+    package's eager df32 does, word for word."""
     tt, specs = _figured_specs("odd_singlet")
     widths = CT.figure_widths(tt, specs)
     keys = [CS.trace_key(specs, F32, widths=widths),
@@ -374,12 +375,11 @@ def test_all_spec_kernels_take_aspheric_rows():
             CT.ROW + sum(widths)
         assert "#define RAYOPT_N_ASP %d\n#define RAYOPT_N_ODD %d\n" % widths \
             in CS.translation_unit(key)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TD.plan(tt)
     y, u = np.zeros((8, 3)), np.zeros((8, 3))
     y[:, 0] = .3
     y[:, 1] = np.linspace(-5, 5, 8)
     u[:, 2] = 1.
+    assert df32_matches_jax(tt, y, u)
     state = tuple(_t(c) for c in (*y.T, *u.T))
     w = torch.full((8,), 1/8, dtype=F64)
     tabs = TT.stack_tables([tt, tt])
@@ -426,7 +426,8 @@ def test_extended_rows_still_raise_everywhere(name):
     item 9 in every key, the specialized and the generic plain step, the
     plain engines and the df32 plan.  Biconic, toroid and cylinder rows
     are traced now (tests/test_torch_anamorphic.py): every K1-K9 key
-    takes them, the df32 plan still raises."""
+    takes them, and the df32 plan traces them as the JAX package's
+    eager df32 does, word for word."""
     kw = dict(curvature=[0., 1/40.], mu=[1., 1/1.5])
     kw.update(EXTENDED[name])
     tt = TT.table_from_numpy(JT.make_table(**kw))
@@ -458,8 +459,11 @@ def test_extended_rows_still_raise_everywhere(name):
         out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
         assert all(torch.isfinite(c).all() for c in out)
         assert torch.isfinite(CT.trace_final(tt, specs, state)[0][0]).all()
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TD.plan(tt)
+        y, u = np.zeros((8, 3)), np.zeros((8, 3))
+        y[:, 0] = np.linspace(-4, 4, 8)
+        y[:, 1] = np.linspace(3, -3, 8)
+        u[:, 2] = 1.
+        assert df32_matches_jax(tt, y, u)
         return
     with pytest.raises(NotImplementedError, match="item 9"):
         TK.surface_step_spec(state, tt.row(1), specs[1], False)

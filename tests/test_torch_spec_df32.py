@@ -482,3 +482,122 @@ def test_two_prod_fma_form_on_edge_values():
     fma = (a.astype(np.float64)*b.astype(np.float64)
            - p.numpy().astype(np.float64)).astype(np.float32)
     assert np.array_equal(e.numpy(), fma)
+
+
+# -- the Newton rows' keys ----------------------------------------------------
+
+def _newton_plans(fast=True):
+    """{name: the port's plan} of Newton lenses (the JAX package's
+    aspheric double Gauss and its biconic lens, tests/test_anamorphic.py,
+    with a figure; the port's crossed-cylinder pair)."""
+    from rayopt_tpu_torch.models import anamorphic_pair
+    s = jmodels.double_gauss()
+    s[7].aspherics = [0., 1.2e-7, -3e-11]
+    s.update()
+    b = rayopt_tpu.System([
+        dict(material="air"),
+        dict(type="biconic", roc=25.84, curvature_x=.013, distance=5.,
+             material="SCHOTT-BK|N-BK7", radius=10.),
+        dict(type="biconic", distance=3., material="air", radius=10.),
+        dict(distance=47., radius=10.)])
+    b[1].aspherics = [2e-4, -1e-6]
+    b.update()
+    return {"aspheric": D.plan(TT.table_from_numpy(s.table()), fast=fast),
+            "pair": D.plan(anamorphic_pair().table(), fast=fast),
+            "biconic": D.plan(TT.table_from_numpy(b.table()), fast=fast)}
+
+
+#: the K11/K13 (3 plans) and K10/K12 keys of the double Gauss, fast and
+#: exact, as they were before the Newton rows: a plan without one keeps
+#: its flag words, its key and its build
+DOUBLE_GAUSS_KEYS = {
+    True: ("k11_f2e62749c4ef1726", "k13_a31118e3fd254cf4",
+           "k11_7aa7f6ece156e5f0", "k13_3923c40522c941b5"),
+    False: ("k11_42e5fb6dd8a5eb1b", "k13_42c66f7a1e411131",
+            "k11_0fa3ce0f5fb29074", "k13_00d92888c519140f")}
+
+
+@pytest.mark.parametrize("fast", [True, False])
+def test_plan_without_newton_rows_keeps_its_key(fast):
+    """The double Gauss's plans pack DW = 36 words a step, set no flag
+    bit from G_FIG_SHIFT up, and keep the key names they had before the
+    Newton rows (so their builds are those keys' builds)."""
+    from rayopt_tpu_torch.models import double_gauss
+    tabs = double_gauss().tables()
+    plans = [D.plan(TT.table_at(tabs, li), fast=fast) for li in range(3)]
+    words, flags = CD.pack_plan(plans, "cpu")
+    assert words.shape == (3, 12*CD.DW)
+    assert int(flags.max()) < 1 << CD.G_FIG_SHIFT
+    assert all(CD.step_words(f) == CD.DW for f in flags[0].tolist())
+    names = (CS.df32_multi_key(plans, "k11", True).name,
+             CS.df32_multi_key(plans, "k13").name,
+             CS.df32_multi_key(plans[:1], "k11", True).name,
+             CS.df32_multi_key(plans[:1], "k13").name)
+    assert names == DOUBLE_GAUSS_KEYS[fast]
+
+
+def test_row_kind_bits_change_the_key():
+    """A Newton row's flag word carries its kind (FIG_*), its even and
+    odd coefficient counts and, on a cylinder, whether it is conic; each
+    changes the key, and each step's words follow from its flag word
+    (step_words: the key's plan words)."""
+    plans = _newton_plans()
+    figs = {name: {CD.fig_of(f) for f in CS.df32_flags([p])[0]}
+            for name, p in plans.items()}
+    assert figs["aspheric"] == {0, CD.FIG_RADIAL}
+    assert figs["pair"] == {0, CD.FIG_CYL_Y, CD.FIG_CYL_X}
+    assert figs["biconic"] == {0, CD.FIG_BICONIC}
+    for name, p in plans.items():
+        key = CS.df32_multi_key([p], "k11")
+        words, flags = CD.pack_plan(p, "cpu")
+        assert key.plan_words == words.numel() == sum(
+            CD.step_words(f) for f in flags.tolist()) > len(p)*CD.DW
+        assert key.word_bytes == 4*words.numel()
+    # aspheric row 7 (step 6): 3 even coefficients, 6 words after DW
+    fl = CS.df32_flags([plans["aspheric"]])[0][6]
+    assert (fl >> CD.G_NA_SHIFT) & 15 == 3 and (fl >> CD.G_NO_SHIFT) & 15 == 0
+    assert CD.step_words(fl) == CD.DW + 6
+    base = CS.df32_multi_key([plans["aspheric"]], "k11")
+    st = plans["aspheric"][6]
+    variants = [
+        _flip(plans["aspheric"], 6, "asp", st["asp"][:2]),
+        _flip(plans["aspheric"], 6, "asp_odd", st["asp"][:1]),
+        _flip(plans["aspheric"], 6, "asp", ())]
+    pair = plans["pair"]
+    conic = dict(pair[0]["anam"], circular=False)
+    xcyl = dict(pair[0]["anam"], mode="cyl_x")
+    variants += [_flip(pair, 0, "anam", conic), _flip(pair, 0, "anam", xcyl)]
+    keys = [base] + [CS.df32_multi_key([p], "k11") for p in variants]
+    keys.append(CS.df32_multi_key([pair], "k11"))
+    assert len({k.name for k in keys}) == len(keys)
+    assert keys[3].plan_words == base.plan_words - 6
+    assert CS.df32_flags([variants[3]])[0][0] & CD.G_CYL_CONIC
+    # a biconic row: its 5 pairs, kx and ky, its 2 coefficients
+    fl = CS.df32_flags([plans["biconic"]])[0][0]
+    assert CD.step_words(fl) == CD.DW + CD.A_COEF + 4
+    with pytest.raises(ValueError, match="at most 15"):
+        CD.pack_plan(_flip(plans["aspheric"], 6, "asp", st["asp"]*6), "cpu")
+
+
+def test_runs_and_device_words_count_the_real_words():
+    """df32_runs and the device-words choice count a plan's real words
+    (its figures' too), not steps * DW: the figured biconic's 3-step
+    plan takes 4*(3*36 + 16) bytes, so 65 fit one key's parameters
+    where 3-step plans without a figure would fit 75; one plan of 210
+    such steps passes PARAM_LIMIT and takes device words, where 210
+    steps without a figure would not."""
+    plan = _newton_plans()["biconic"]
+    per = CD.pack_plan(plan, "cpu")[0].numel()*4
+    assert per == 4*(3*CD.DW + CD.A_COEF + 4)
+    fits = (CS.PARAM_LIMIT - CS.DF32_PARAM_BYTES["k11"])//per
+    assert fits == 65 < (CS.PARAM_LIMIT - CS.DF32_PARAM_BYTES["k11"])//(
+        3*CD.DW*4)
+    CS.df32_multi_key([plan]*fits, "k11")
+    with pytest.raises(ValueError, match="kernel parameters"):
+        CS.df32_multi_key([plan]*(fits + 1), "k11")
+    flags = CS.df32_flags([plan]*70)
+    assert CS.df32_runs(flags, "k11") == [(0, 35), (35, 70)]
+    long = plan*70
+    key = CS.df32_multi_key([long], "k13")
+    assert key.device_words and key.steps == 210
+    assert key.dynamic_smem == 70*per > CS.PARAM_LIMIT > 210*CD.DW*4
