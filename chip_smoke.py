@@ -41,11 +41,18 @@ and K5, K7 and K9 against central differences of A4, A6, a conic and a
 glass's vd) and its df32 path on the same aimed bundles, then the
 anamorphic path (the crossed-cylinder pair) and its df32 path, after
 K10-K13 on every Newton lens (aspheric rows, cylinders, biconics and
-toroids, figured or not) against their plain versions -- and times the
+toroids, figured or not) against their plain versions -- then the
+phase paths (K1, K2, K4 and K5 on six grating and DOE lenses against
+their plain versions and K5 against central differences of grating_dy
+and two DOE coefficients; the concave-grating spectrograph's forward
+path at each wavelength with its detector lines against the JAX
+package's golden; the hybrid achromat's forward path on aimed bundles
+and its designer loop over curvatures, distances and the kinoform's
+coefficient) -- and times the
 kernels against their plain versions (the stacked-wavelength ones
 also against their monochromatic twins, the aspheric keys against the
 double Gauss's, K10-K13 on the Newton plans against their spherical
-twins').
+twins', the grating and DOE keys against their phase-free twins').
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
@@ -636,7 +643,12 @@ LOOP_KEYS = ("K1 float32 clip=False",
              "K6 float64 anamorphic clip=False",
              "K7 float64 anamorphic achromatization rays=False",
              "K5 float64 anamorphic design rays=False",
-             "K9 float64 anamorphic design rays=False")
+             "K9 float64 anamorphic design rays=False",
+             "K1 float32 hybrid-achromat clip=False",
+             "K1 float64 hybrid-achromat clip=False",
+             "K2 float64 hybrid-achromat clip=False",
+             "K5 float32 hybrid-achromat designer rays=False",
+             "K5 float64 hybrid-achromat designer rays=False")
 
 
 def ptxas_stats(kern):
@@ -3360,6 +3372,582 @@ def anam_vjp_extra(spec, widths=(0, 0)):
     return rf + rev - 3*rf
 
 
+# ---- the grating and DOE rows (the phase rows) ----
+
+#: the hybrid achromat's designer loop: its curvatures, distances and the
+#: kinoform's DOE coefficient
+PHASE_SELECT = ("curvature", "distance", "doe")
+PHASE_LOOP_FIELDS = ("curvature", "offset", "doe")  # the loop's K5 slot set
+#: the lenses whose phase keys are timed, beside their phase-free twins
+PHASE_TIMED = ("hybrid achromat", "spectrograph")
+N_PHASE = 1 << 16     # aimed rays a field of the hybrid's CPU cross-check
+#: the spectrograph's detector line positions (the JAX package's golden,
+#: tests/test_goldens.py), mm at 450, 550 and 650 nm
+SPECTROGRAPH_LINES = (-56.06593593485528, -69.89487421806105,
+                      -84.67998616743552)
+LINES_REL = 1e-9      # the line positions on the card vs the golden
+#: (lens, field, index) of K5's finite-difference checks: the mirror
+#: grating's grating_dy, the curved hybrid's two DOE coefficients
+PHASE_FD_PICKS = (("mirror grating", "grating_dy", 1),
+                  ("curved hybrid", "doe", (1, 0)),
+                  ("curved hybrid", "doe", (1, 1)))
+PHASE_FD_STEP = {"grating_dy": 1e-6, "doe": 1e-3}   # relative steps
+PHASE_LAM0 = 550e-9
+PHASE_A1 = -np.pi/((PHASE_LAM0/1e-3)*100.)   # a kinoform of focal 100 mm
+
+
+def _phase_lens(rows, wavelengths, radius, angle=None):
+    from rayopt_tpu_torch import System
+    obj = dict(pupil=dict(radius=radius, update_radius=False))
+    if angle is not None:
+        obj["angle_deg"] = angle
+    s = System(rows, wavelengths=wavelengths, object=obj)
+    s.update()
+    return s
+
+
+def phase_lenses():
+    """{name: (system, table on the card, specs, bench half width)} of
+    the phase lenses: the two published models (models.hybrid_achromat,
+    models.spectrograph, full width) and four lenses of the JAX
+    package's own grating and DOE tests (the curved-substrate hybrid
+    with a two-term phase, the concave mirror grating, the refractive
+    grating on an R = 80 N-BK7 substrate, the reflective zone plate)."""
+    from rayopt_tpu_torch.models import hybrid_achromat, spectrograph
+    from rayopt_tpu_torch.ops.kernels import specialize
+    grating = dict(type="grating", grating_frequency=600., grating_order=1,
+                   radius=30.)
+    builds = {
+        "hybrid achromat": (hybrid_achromat, 6.),
+        "spectrograph": (spectrograph, 10.),
+        "curved hybrid": (lambda: _phase_lens([
+            dict(material="air"),
+            dict(type="binary2", roc=120., phase_coefficients=[
+                PHASE_A1, 1e-4], norm_radius=1., distance=5.,
+                 material="glass/N-BK7", radius=10.),
+            dict(roc=-150., distance=3., material="air", radius=10.),
+            dict(distance=60., radius=10.)], [PHASE_LAM0], 3.), 3.),
+        "mirror grating": (lambda: _phase_lens([
+            dict(material="air"),
+            dict(grating, distance=20., material="mirror", curvature=-.001),
+            dict(distance=-50., radius=100.)], [500e-9], 5.), 5.),
+        "bk7 grating": (lambda: _phase_lens([
+            dict(material="air"),
+            dict(grating, roc=80., distance=20., material="SCHOTT-BK|N-BK7"),
+            dict(distance=5., material="air", radius=30.),
+            dict(distance=50., radius=100.)], [500e-9], 5.), 5.),
+        "zone plate": (lambda: _phase_lens([
+            dict(material="vacuum"),
+            dict(type="binary2", phase_coefficients=[PHASE_A1],
+                 norm_radius=1., distance=50., material="mirror", radius=20.),
+            dict(distance=-100., radius=20.)], [PHASE_LAM0], 5., .2), 5.)}
+    out = {}
+    for name, (build, half) in builds.items():
+        s = build()
+        table = s.table()
+        out[name] = (s, table, specialize(table), half)
+    return out
+
+
+def phase_twin(name):
+    """The phase-free twin of a timed lens: the hybrid achromat with
+    `phase_coefficients: []`, the spectrograph with `grating_frequency:
+    0` -- (table on the card, specs)."""
+    from rayopt_tpu_torch.models import hybrid_achromat, spectrograph
+    from rayopt_tpu_torch.ops.kernels import specialize
+    if name == "hybrid achromat":
+        s = hybrid_achromat()
+        s[2].phase_coefficients = []
+    else:
+        s = spectrograph()
+        s[1].grating_frequency = 0.
+    s.update()
+    table = s.table()
+    return table, specialize(table)
+
+
+def phase_bundle_of(half):
+    """The phase lenses' bench bundle: x, y uniform in +-half mm (the
+    lens's pupil radius), u = (0, 0, 1), ray 0 on the axis."""
+    def bundle(n, dtype, seed, widen=1.):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        x = torch.empty(n, dtype=torch.float64, device=DEVICE)
+        y = torch.empty_like(x)
+        x.uniform_(-half*widen, half*widen, generator=gen)
+        y.uniform_(-half*widen, half*widen, generator=gen)
+        x[0] = y[0] = 0.
+        zero, one = torch.zeros_like(x), torch.ones_like(x)
+        return tuple(c.to(dtype).contiguous()
+                     for c in (x, y, zero, zero, zero, one))
+    return bundle
+
+
+def phase_grad_fields(table, specs):
+    """K5's cotangent columns by table field on a phase key: GRAD_FIELDS,
+    then a figured table's coefficients (none here), an anamorphic one's
+    curvature_dx and conic_dx (none here), grating_dy and the nd DOE
+    coefficients."""
+    from rayopt_tpu_torch.ops.cuda_trace import carries_grating, doe_width
+    q = 6 + sum(int(getattr(table, f).shape[-1])
+                for f in ("aspherics", "aspherics_odd"))
+    out = GRAD_FIELDS
+    if carries_grating(specs):
+        out += (("grating_dy", slice(q, q + 1)),)
+        q += 1
+    nd = doe_width(table, specs)
+    if nd:
+        out += (("doe", slice(q, q + nd)),)
+    return out
+
+
+def grating_keys():
+    """{tag: key} of the phase keys this script runs: K1, K2, K4 and K5
+    (every field, with the ray cotangents) in float64, unclipped, on
+    every phase lens, and on the two timed lenses also float32 unclipped
+    and float64 clipped; on the timed lenses the loops' K5 (the hybrid's
+    PHASE_LOOP_FIELDS, the spectrograph's OPT_FIELDS and grating_dy, no
+    ray cotangents) in both dtypes and their phase-free twins' keys
+    (K1, K2, K4, K5 every field and OPT_FIELDS); the finite-difference
+    checks' float64 K5 (one field each)."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import doe_width, figure_widths
+    keys = {}
+    f64 = torch.float64
+    for name, (s, table, specs, _) in phase_lenses().items():
+        tag = name.replace(" ", "-")
+        kw = dict(widths=figure_widths(table, specs),
+                  nd=doe_width(table, specs))
+        runs = [(f64, False)]
+        if name in PHASE_TIMED:
+            runs += [(torch.float32, False), (f64, True)]
+        for dtype, clip in runs:
+            sfx = "%s %s clip=%s" % (str(dtype)[6:], tag, clip)
+            keys["K1 " + sfx] = CS.trace_key(specs, dtype, clip, **kw)
+            keys["K2 " + sfx] = CS.merit_key(specs, dtype, clip, **kw)
+            keys["K4 " + sfx] = CS.moments_key(specs, dtype, clip, **kw)
+            keys["K5 %s all rays=True" % sfx] = CS.adjoint_key(
+                specs, dtype, clip, **kw)
+        if name in PHASE_TIMED:
+            loop = (PHASE_LOOP_FIELDS if name == "hybrid achromat"
+                    else OPT_FIELDS + ("grating_dy",))
+            _, twin = phase_twin(name)
+            for dtype in (torch.float32, f64):
+                dt = str(dtype)[6:]
+                keys["K5 %s %s designer rays=False" % (dt, tag)] = \
+                    CS.adjoint_key(specs, dtype, fields=loop, rays=False,
+                                   **kw)
+                tsfx = "%s %s twin" % (dt, tag)
+                keys["K1 " + tsfx] = CS.trace_key(twin, dtype)
+                keys["K2 " + tsfx] = CS.merit_key(twin, dtype)
+                keys["K4 " + tsfx] = CS.moments_key(twin, dtype)
+                keys["K5 %s all rays=True" % tsfx] = CS.adjoint_key(twin,
+                                                                    dtype)
+                keys["K5 %s designer rays=False" % tsfx] = CS.adjoint_key(
+                    twin, dtype, fields=OPT_FIELDS, rays=False)
+        for lens, field, _ in PHASE_FD_PICKS:
+            if lens == name:
+                keys["K5 float64 %s fd %s rays=False" % (tag, field)] = \
+                    CS.adjoint_key(specs, f64, fields=(field,), rays=False,
+                                   **kw)
+    return keys
+
+
+def phase_grating_check():
+    """K1, K2, K4 and K5 (every field, with the ray cotangents) on every
+    phase lens against their plain versions on the card at N_CHECK rays
+    of the lens's bench bundle (phase_bundle_of): float64 unclipped on
+    each (F64_REL of scale for K1 and K2, GRAD_F64_REL of a column's
+    largest for K5, its grating_dy and DOE columns among them); on the
+    timed lenses also float32 unclipped and float64 clipped on the
+    bundle 1.5x wide.  Then K5's float64 gradient against central
+    differences (phase_grating_fd_check).  Returns the float32
+    errors."""
+    worst = {}
+
+    def keep(errs):
+        worst.update({k: max(v, worst.get(k, 0.)) for k, v in errs.items()})
+    f64 = (torch.float64,)
+    for lens, (s, table, specs, half) in phase_lenses().items():
+        bundle = phase_bundle_of(half)
+        fields = phase_grad_fields(table, specs)
+        timed = lens in PHASE_TIMED
+        dtypes = (torch.float32, torch.float64) if timed else f64
+        if lens == "spectrograph":
+            # its image sits 56-85 mm off the axis: a float32 spot RMS
+            # from the five moments (E[y^2] - c^2, ROADMAP Queue 3)
+            # cancels to ~1e-3, so each dtype is held to its own plain
+            # version alone
+            log("the spectrograph's float32 K2 is not held to float64's "
+                "spot RMS, nor its float32 K4 and K5 to their plain "
+                "versions' (float64 only): its 56-85 mm off-axis centroid "
+                "cancels the moment formula's float32 digits")
+            for dt in dtypes:
+                keep(phase_check(table, specs, lens, bundle, (False,), (dt,)))
+            phase_grad_check(table, specs, lens, bundle, (False,), fields,
+                             f64)
+        else:
+            keep(phase_check(table, specs, lens, bundle, (False,), dtypes))
+            keep(phase_grad_check(table, specs, lens, bundle, (False,),
+                                  fields, dtypes))
+        if timed:
+            wide = functools.partial(bundle, widen=1.5)
+            phase_check(table, specs, lens, wide, (True,), f64)
+            phase_grad_check(table, specs, lens, wide, (True,), fields, f64)
+    phase_grating_fd_check()
+    return worst
+
+
+def phase_grating_fd_check():
+    """K5's float64 gradient of the K4 merit (the spot RMS of N_CHECK
+    bench rays) against central differences (steps PHASE_FD_STEP of
+    the value): the mirror grating's grating_dy and the curved hybrid's
+    two DOE coefficients."""
+    from rayopt_tpu_torch.ops.cuda_grad import spot_moments, weighted_moments
+    from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    cases = phase_lenses()
+    log("== K5 on the phase lenses vs central differences of the K4 merit "
+        "(float64, %d bench rays; relative steps %s)"
+        % (N_CHECK, PHASE_FD_STEP))
+    failures = []
+    for lens, field, idx in PHASE_FD_PICKS:
+        _, table, specs, half = cases[lens]
+        state = phase_bundle_of(half)(N_CHECK, torch.float64, SEED)
+        w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+        v = getattr(table, field).clone().requires_grad_()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # the baked rows, as intended
+            mom = spot_moments(table.replace(**{field: v}), state, w,
+                               specs=specs)
+        spot_rms_from_moments(*mom).backward()
+
+        def merit(tab):
+            return float(spot_rms_from_moments(*weighted_moments(
+                tab, specs, state, w)))
+        h = PHASE_FD_STEP[field]*abs(float(getattr(table, field)[idx]))
+        side = []
+        for sgn in (1., -1.):
+            b = getattr(table, field).clone()
+            b[idx] += sgn*h
+            side.append(merit(table.replace(**{field: b})))
+        fd = (side[0] - side[1])/(2*h)
+        g = float(v.grad[idx])
+        rel = abs(g - fd)/abs(fd)
+        ok = rel <= FD_REL
+        log("%s, %s %s: K5 %.12g, central difference %.12g (step %.3g), rel "
+            "%.2e -> %s" % (lens, field, idx, g, fd, h, rel,
+                            "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s %s %s" % (lens, field, idx))
+    if failures:
+        raise AssertionError("K5 on the phase lenses disagrees with finite "
+                             "differences: " + ", ".join(failures))
+
+
+def phase_spectrograph_path():
+    """The spectrograph's forward path at each wavelength's own table
+    (models.spectrograph, full width): N_AIMED bench rays (ray 0 the
+    on-axis ray, the detector line) through float64 K1 and K2 on the
+    card; the line position -- ray 0's image height -- against the JAX
+    package's golden (LINES_REL), K2's spot RMS against K1's, and the
+    first N_PHASE rays of K1's own output against the CPU float64 plain
+    trace (PARITY_REL, equal NaN masks).  The forward path's launches
+    are counted from the caller's reset."""
+    from rayopt_tpu_torch.models import spectrograph
+    from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
+                                                 trace_final, trace_merit)
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
+    from rayopt_tpu_torch.ops.kernels import specialize
+    s = spectrograph()
+    log("== spectrograph path: 600 lp/mm on an R = -400 mirror, order 1, "
+        "%d bench rays a wavelength through float64 K1 and K2 at each "
+        "wavelength's table" % N_AIMED)
+    failures = []
+    bundle = phase_bundle_of(10.)
+    for lam, want in zip(s.wavelengths, SPECTROGRAPH_LINES):
+        table = s.table(lam)
+        table_cpu = s.table(lam, device="cpu")
+        specs = specialize(table)
+        state = bundle(N_AIMED, torch.float64, SEED + 11)
+        t0 = time.perf_counter()
+        out, _ = trace_final(table, specs, state)
+        rms_k1, live = spot_rms(torch.stack(out[:3], 1),
+                                torch.stack(out[3:], 1))
+        rms_k2 = float(spot_rms_from_moments(*trace_merit(table, specs,
+                                                          state)))
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        line = float(out[1][0])
+        y = torch.stack(state[:3], 1)[:N_PHASE].cpu()
+        u = torch.stack(state[3:], 1)[:N_PHASE].cpu()
+        yh, uh, _ = trace_rays_final_fast(table_cpu, y, u)
+        rms_cpu, live_cpu = spot_rms(yh, uh)
+        sub = torch.stack(out[:3], 1)[:N_PHASE]
+        rms_sub, live_sub = spot_rms(sub, torch.stack(out[3:], 1)[:N_PHASE])
+        masks = int((torch.isnan(sub[:, 0].cpu())
+                     != torch.isnan(yh[:, 0])).sum())
+        rel_line = abs(line - want)/abs(want)
+        rel1 = abs(rms_sub - rms_cpu)/rms_cpu
+        ok = (rel_line <= LINES_REL and masks == 0 and live_sub == live_cpu
+              and rel1 <= PARITY_REL
+              and abs(rms_k2 - rms_k1)/rms_k1 <= 1e-9)
+        log("%.0f nm: line %.12f mm vs golden %.12f (rel %.2e) | %d of %d "
+            "rays live | spot RMS mm: K1 f64 %.12g, K2 f64 %.12g | the "
+            "first %d rays: K1 f64 %.12g vs CPU f64 %.12g (rel %.2e), NaN "
+            "masks differ on %d | card %.2f s -> %s"
+            % (lam*1e9, line, want, rel_line, live, N_AIMED, rms_k1, rms_k2,
+               N_PHASE, rms_sub, rms_cpu, rel1, masks, t_gpu,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%.0f nm" % (lam*1e9))
+        del out, state
+    if failures:
+        raise AssertionError("spectrograph path failed: "
+                             + ", ".join(failures))
+
+
+def phase_hybrid_path(opt_step):
+    """The hybrid achromat's main path through the entry points a user
+    calls (models.hybrid_achromat, full width): System.pupils of the
+    aimed lens on the card against the host pupil at tol AIM_HOST_TOL,
+    N_AIMED rays a field aimed by the host at fields 0, 0.7 and 1
+    through float64 and float32 K1 and K2, and the spot RMS of float64
+    K1's output on the first N_PHASE of them against the CPU float64
+    plain trace (PARITY_REL, equal NaN masks); then its designer loop
+    over PHASE_SELECT (designer_loop: 3 fields x 3 wavelengths, nrays
+    N_OPT, float64, OPT_STEPS Adam steps; step 0 against the CPU at
+    N_LOOP_CHECK nrays a bundle), its later steps logged beside the
+    double Gauss's (`opt_step` seconds).  Returns the path's launches
+    (the forward part's, counted from the caller's reset, and the
+    loop's) and the loop's later-step seconds."""
+    from rayopt_tpu_torch.models import hybrid_achromat
+    from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
+                                                 trace_merit)
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
+    s, table, specs, _ = phase_lenses()["hybrid achromat"]
+    table_cpu = s.table(device="cpu")
+    log("== hybrid achromat path: an N-BK7 singlet with a kinoform on its "
+        "exit face (row 2), %d aimed rays a field, no clip" % N_AIMED)
+    fields = [(0., f) for f in FIELDS]
+
+    def aimed_lens():
+        a = hybrid_achromat()
+        a.object.pupil.aim = True
+        a.update()
+        return a
+    a = aimed_lens()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")   # a host fallback fails
+        z, boxes = a.pupils(fields)
+    t_card = time.perf_counter() - t0
+    h = aimed_lens()
+    t0 = time.perf_counter()
+    tight = [h.pupil(f, tol=AIM_HOST_TOL) for f in fields]
+    t_host = time.perf_counter() - t0
+    zh = np.array([v[0] for v in tight])
+    bh = np.array([v[1] for v in tight])
+    rel_z = float((np.abs(z - zh)/np.abs(zh)).max())
+    rel_b = float((np.abs(boxes - bh)/np.abs(bh)).max())
+    failures = []
+    ok = rel_z <= AIM_REL and rel_b <= AIM_REL
+    log("System.pupils of the aimed hybrid on the card %.3f s vs host pupil "
+        "at tol %g %.3f s: z rel %.3e, boxes rel %.3e -> %s"
+        % (t_card, AIM_HOST_TOL, t_host, rel_z, rel_b,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        failures.append("System.pupils")
+    rng = np.random.RandomState(SEED + 9)
+    for field in FIELDS:
+        t0 = time.perf_counter()
+        zf, pf = s.pupil((0., field))
+        r = np.sqrt(rng.uniform(0, 1, N_AIMED))
+        th = rng.uniform(0, 2*np.pi, N_AIMED)
+        yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
+        y0, u0 = s.aim((0., field), yp, zf, pf, filter=False)
+        t_aim = time.perf_counter() - t0
+        yc, uc = (torch.from_numpy(v).to(DEVICE) for v in (y0, u0))
+        t0 = time.perf_counter()
+        y64, u64, _ = trace_rays_final_fast(table, yc, uc, specs=specs,
+                                            precision="parity")
+        rms_k1, live = spot_rms(y64, u64)
+        state64 = tuple(c.contiguous() for c in (*yc.T, *uc.T))
+        rms_k2 = float(spot_rms_from_moments(*trace_merit(table, specs,
+                                                          state64)))
+        y32, u32, _ = trace_rays_final_fast(table, yc.float(), uc.float(),
+                                            specs=specs)
+        rms_k1_32, _ = spot_rms(y32, u32)
+        rms_k2_32 = float(spot_rms_from_moments(*trace_merit(
+            table, specs, tuple(c.float() for c in state64))))
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        rms_sub, live_sub = spot_rms(y64[:N_PHASE], u64[:N_PHASE])
+        t0 = time.perf_counter()
+        yh, uh, _ = trace_rays_final_fast(table_cpu, yc[:N_PHASE].cpu(),
+                                          uc[:N_PHASE].cpu())
+        rms_cpu, live_cpu = spot_rms(yh, uh)
+        t_cpu = time.perf_counter() - t0
+        masks = int((torch.isnan(y64[:N_PHASE, 0].cpu())
+                     != torch.isnan(yh[:, 0])).sum())
+        rel1 = abs(rms_sub - rms_cpu)/rms_cpu
+        ok = (np.isfinite(rms_k1) and np.isfinite(rms_k2) and masks == 0
+              and live_sub == live_cpu and rel1 <= PARITY_REL
+              and abs(rms_k2 - rms_k1)/rms_k1 <= 1e-9)
+        log("field %.1f: pupil z %.6f, %d of %d rays live | spot RMS mm: K1 "
+            "f64 %.12g | K2 f64 %.12g | K1 f32 %.9g (rel %.2e) | K2 f32 "
+            "%.9g (rel %.2e) | the first %d rays: K1 f64 %.12g vs CPU f64 "
+            "%.12g (rel %.2e), NaN masks differ on %d | aim %.2f s, card "
+            "%.2f s, CPU %.2f s -> %s"
+            % (field, zf, live, N_AIMED, rms_k1, rms_k2, rms_k1_32,
+               abs(rms_k1_32 - rms_k1)/rms_k1, rms_k2_32,
+               abs(rms_k2_32 - rms_k1)/rms_k1, N_PHASE, rms_sub, rms_cpu,
+               rel1, masks, t_aim, t_gpu, t_cpu, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("field %.1f" % field)
+        del y64, u64, y32, u32, state64
+    if failures:
+        raise AssertionError("hybrid achromat path failed: "
+                             + ", ".join(failures))
+    forward = read_launches()
+    log("== launch counts on the hybrid achromat's forward path: %s"
+        % forward)
+    torch.cuda.empty_cache()
+    loop, step = designer_loop(hybrid_achromat(), "phase designer loop: "
+                               "hybrid achromat", PHASE_SELECT, None,
+                               N_LOOP_CHECK)
+    log("later steps: designer loop hybrid achromat %.4f s, double Gauss "
+        "%.4f s (%.2fx)" % (step, opt_step, step/opt_step))
+    return {k: v + loop[k] for k, v in forward.items()}, step
+
+
+def phase_grating_throughput(card):
+    """K1, K2, K4 and K5 on the timed phase lenses (PHASE_TIMED) beside
+    their phase-free twins (phase_twin: the hybrid without its kinoform,
+    the spectrograph at grating_frequency 0) on the lens's bench bundle:
+    phase_throughput and phase_grad_throughput (K5 also for the loop's
+    slot set) in both dtypes at N_GRAD_TIME rays and float32 at N_BENCH.
+    times[lens] = their times."""
+    cases = phase_lenses()
+    times = {}
+    for lens in PHASE_TIMED:
+        s, table, specs, half = cases[lens]
+        twin = phase_twin(lens)
+        loop = (PHASE_LOOP_FIELDS if lens == "hybrid achromat"
+                else OPT_FIELDS + ("grating_dy",))
+        kw = dict(lens=lens, bundle=phase_bundle_of(half),
+                  twin_name="phase-free twin")
+        times[lens] = phase_throughput(table, specs, card, N_GRAD_TIME, twin,
+                                       N_BENCH, **kw)
+        times[lens].update(phase_grad_throughput(table, specs, card, twin,
+                                                 loop, **kw))
+    return times
+
+
+PHASE_SOLVE_FLOPS = 55   # the grating/phase solve without the kick
+PHASE_RADIAL_FLOPS = 11  # a phase row's radial normal (kernels.normal_radial)
+
+
+def phase_row_flops(spec, widths=(0, 0), nd=0):
+    """Operations of one surface_step on a phase row: its substrate's
+    intercept and transfer (row_flops of the row as a passthrough), the
+    substrate's normal (a flat's none, the radial normal, a biconic's or
+    toroid's general one), the generalized solve (the groove vector and
+    its norm, b, Gamma's root and the new direction) and a DOE's kick
+    (Horner, 2 a coefficient) and optical path term."""
+    base = row_flops(spec._replace(kind=0, grating=False, doe=False),
+                     widths)
+    if spec.biconic or spec.toroidal:
+        c = ANAM_FLOPS["toroid" if spec.toroidal else "biconic"]
+        normal = c["refract"] - 37 + anam_figure_flops(*widths)[1]
+    elif spec.flat and not (spec.aspheric or spec.odd):
+        normal = 0
+    else:
+        normal = PHASE_RADIAL_FLOPS + (slope_flops(*widths) - 17
+                                       if spec.aspheric or spec.odd else 0)
+    kick = (2*nd + 7) + (2*nd + 4) if spec.doe else 0
+    return base + normal + PHASE_SOLVE_FLOPS + kick
+
+
+def grating_entries(sources, launches, worst, times, ptxas, step, dg_step):
+    """The kernels line's entries of the phase keys: the phase paths'
+    launches (the spectrograph's forward path, the hybrid's forward path
+    and designer loop), the float32 errors of phase_grating_check, the
+    times of phase_grating_throughput (the hybrid's DOE keys beside their
+    plain versions and their phase-free twin's keys; the spectrograph's
+    grating keys under "spectrograph_"), at N_GRAD_TIME rays in both
+    dtypes and N_BENCH in float32, the bounds (kernel_bound, the phase
+    rows by phase_row_flops), the keys' registers, stack and spills, and
+    the hybrid's designer loop's later-step seconds beside the double
+    Gauss's."""
+    from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
+                                                 trace_merit)
+    cases = phase_lenses()
+    live = {(lens, n, dtype): float(trace_merit(
+        cases[lens][1], cases[lens][2], phase_bundle_of(cases[lens][3])(
+            n, dtype, SEED + 1))[0])
+        for lens in PHASE_TIMED for n, dtype in (
+            (N_GRAD_TIME, torch.float32), (N_GRAD_TIME, torch.float64),
+            (N_BENCH, torch.float32))}
+    loop = {"trace_final": "K1 %s %s clip=False",
+            "trace_merit": "K2 %s %s clip=False",
+            "weighted_moments": "K4 %s %s clip=False",
+            "merit_adjoint": "K5 %s %s designer rays=False"}
+    big = "_f32_%d_rays" % N_BENCH
+    out = []
+    for kname, tag in loop.items():
+        source, replaces = sources[kname]
+        entry = {"name": kname + "_grating", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": launches[kname], "max_abs_err": worst[kname],
+                 "library_ms": None, "rays": N_GRAD_TIME, "wavelengths": 1}
+        for lens, pre in zip(PHASE_TIMED, ("", "spectrograph_")):
+            _, table, specs, _ = cases[lens]
+            tt = times[lens]
+
+            def bound(n, dtype, name=kname, tab=table, sp=specs, ln=lens):
+                return kernel_bound(name, n, dtype, sp, 1,
+                                    live[(ln, n, dtype)],
+                                    figure_widths(tab, sp),
+                                    doe_width(tab, sp))
+            for dtype, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
+                k, p = tt[(kname, dtype)]
+                b, by = bound(N_GRAD_TIME, dtype)
+                entry.update({pre + "ms" + sfx: k, pre + "plain_ms" + sfx: p,
+                              pre + "ms_twin_key" + sfx:
+                                  tt[(kname, dtype, "twin")],
+                              pre + "bound_ms" + sfx: b})
+                if not pre and not sfx:
+                    entry["bound_by"] = by
+                if kname == "merit_adjoint":
+                    opt = "merit_adjoint_optimizer"
+                    entry.update({
+                        pre + "ms_designer" + sfx: tt[(opt, dtype)],
+                        pre + "ms_twin_designer_key" + sfx:
+                            tt[(opt, dtype, "twin")],
+                        pre + "bound_ms_designer" + sfx:
+                            bound(N_GRAD_TIME, dtype, opt)[0]})
+            entry.update({pre + "ms" + big: tt[(kname, N_BENCH)],
+                          pre + "ms_twin_key" + big:
+                              tt[(kname, N_BENCH, "twin")],
+                          pre + "bound_ms" + big:
+                              bound(N_BENCH, torch.float32)[0]})
+            for dt in ("float32", "float64"):
+                lt = lens.replace(" ", "-")
+                sfx = "" if dt == "float64" else "_f32"
+                regs, stack, spill = ptxas[tag % (dt, lt)]
+                entry.update({pre + "regs" + sfx: regs,
+                              pre + "stack_bytes" + sfx: stack,
+                              pre + "spill_bytes" + sfx: spill})
+                regs, stack, spill = ptxas[(tag % (dt, lt + " twin"))
+                                           .replace(" clip=False", "")]
+                entry.update({pre + "regs_twin" + sfx: regs})
+        if kname == "merit_adjoint":
+            entry.update({"designer_step_s": step,
+                          "double_gauss_designer_step_s": dg_step})
+        out.append(entry)
+    return out
+
+
 def step_breakdown(table, specs, wave, parts):
     """Wall milliseconds of each part of the design merit's forward and
     backward on the card (the gradients of curvature and offset), and
@@ -4455,14 +5043,17 @@ def slope_flops(na, no):
     return 17 + (2*na + 1 if na else 0) + (4*no + 4 if no else 0)
 
 
-def row_flops(spec, widths=(0, 0)):
+def row_flops(spec, widths=(0, 0), nd=0):
     """Arithmetic operations (one per add, multiply, divide or square
     root) of one surface_step (csrc/trace_common.cuh) for a row of this
     spec; an aspheric row with the table's `widths` (na, no): its conic
     seed (33) and the hoisted constants, ASPHERIC_ITERS Newton steps (a
     residual, the slope's own work and the update each), the last
     residual and its test, and the refraction by the radial normal with
-    the flagged figures' slopes."""
+    the flagged figures' slopes; a grating or DOE row (nd DOE
+    coefficients) by phase_row_flops."""
+    if spec.grating or spec.doe:
+        return phase_row_flops(spec, widths, nd)
     if spec.biconic or spec.toroidal or spec.cyl_axis:
         return anam_row_flops(spec, widths)
     f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0)
@@ -4495,13 +5086,13 @@ def newton_flops(specs, widths=(0, 0)):
                if sp.aspheric or sp.odd)
 
 
-def chain_flops(specs, widths=(0, 0)):
+def chain_flops(specs, widths=(0, 0), nd=0):
     """Operations of one ray through the whole chain (trace_ray)."""
-    return (sum(row_flops(sp, widths) for sp in specs[1:])
+    return (sum(row_flops(sp, widths, nd) for sp in specs[1:])
             + 30*(int(specs[0].rotated) + int(specs[-1].rotated)))
 
 
-def chain_vjp_flops(specs, widths=(0, 0), path=False):
+def chain_vjp_flops(specs, widths=(0, 0), path=False, nd=0):
     """Operations of K5's and K7's reverse sweep for one live ray: 3x
     the forward chain (a row's recompute and its reverse, PERF.md's
     estimate), but an aspheric row counted from csrc/step_vjp.cuh
@@ -4511,7 +5102,7 @@ def chain_vjp_flops(specs, widths=(0, 0), path=False):
     `path` (K9's PATH form), an aspheric row also adds its optical
     path's cotangent to gt and takes n_before's (3)."""
     na, no = widths
-    total = 3*chain_flops(specs, widths)
+    total = 3*chain_flops(specs, widths, nd)
     for sp in specs[1:]:
         if sp.biconic or sp.toroidal or sp.cyl_axis:
             total += anam_vjp_extra(sp, widths)
@@ -4532,7 +5123,8 @@ OPD_TAIL_FLOPS = 40
 OPD_TAIL_VJP_FLOPS = 70
 
 
-def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0)):
+def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
+                 nd=0):
     """(bound_ms, bound_by) of one launch at n rays: the larger of the
     bytes it must move (each input read once, each output written once)
     over the HBM rate and its operations over the dtype's peak.  The
@@ -4541,10 +5133,11 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0)):
     chain (PERF.md's estimate for the adjoint; an aspheric row by
     chain_vjp_flops, K9's in its PATH form) plus the seeding (K9: the
     tail's reverse).  `widths`: a figured key's (na, no), its rows'
-    coefficients."""
+    coefficients; `nd`: a DOE key's coefficients (a phase row's reverse
+    is counted as 3x its forward, as a conic row's)."""
     word = 4 if dtype == torch.float32 else 8
-    chain = chain_flops(specs, widths)
-    vjp = chain_vjp_flops(specs, widths)
+    chain = chain_flops(specs, widths, nd)
+    vjp = chain_vjp_flops(specs, widths, nd=nd)
     # K8's chain stops at row S-2 and adds the sphere tail; K9's reverse
     # is 3x that, its aspheric rows counted as chain_vjp_flops' PATH form
     opd = chain - row_flops(specs[-1]) + OPD_TAIL_FLOPS
@@ -4578,8 +5171,9 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0)):
              if name.startswith("opd_adjoint") else 0)
     if name == "trace_multi":
         slots = 5*nlam
-    nbytes = (n*(words_in + words_out)
-              + nlam*len(specs)*(17 + sum(widths)) + slots)*word \
+    row = (17 + sum(widths) + int(any(sp.grating for sp in specs))
+           + (1 + nd if nd else 0))
+    nbytes = (n*(words_in + words_out) + nlam*len(specs)*row + slots)*word \
         + 4*len(specs)
     t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops)*1e3, ("bytes" if t_bytes >= t_ops
@@ -5248,6 +5842,7 @@ def main():
     keys.update(split_keys(s))
     keys.update(asphere_keys())
     keys.update(anamorphic_keys())
+    keys.update(grating_keys())
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -5315,6 +5910,24 @@ def main():
         anamorphic_pair(), anam_aimed, "anamorphic pair")
     del anam_aimed
     torch.cuda.empty_cache()
+    gworst = phase_grating_check()
+    reset_launches()
+    phase_spectrograph_path()
+    spec_launches = read_launches()
+    log("== launch counts on the spectrograph path: %s" % spec_launches)
+    reset_launches()
+    hyb_launches, hyb_step = phase_hybrid_path(opt_step)
+    log("== launch counts on the hybrid achromat path: %s" % hyb_launches)
+    phase_kernels = ("trace_final", "trace_merit", "weighted_moments",
+                     "merit_adjoint")
+    if not (spec_launches["trace_final"] and spec_launches["trace_merit"]
+            and all(hyb_launches[k] for k in phase_kernels)):
+        raise AssertionError("a kernel of the phase paths never launched: "
+                             "%s, %s" % (spec_launches, hyb_launches))
+    phase_launches = {k: spec_launches[k] + hyb_launches[k]
+                      for k in phase_kernels}
+    torch.cuda.empty_cache()
+    ptimes = phase_grating_throughput(card)
     ntimes, nlive = phase_anamorphic_throughput(card)
     ftimes, flive = phase_figured_throughput(card)
     times = phase_throughput(table, specs, card)
@@ -5493,6 +6106,8 @@ def main():
                                   nlive, ptxas, anam_steps,
                                   (opt_step, glass_step, design_step),
                                   (ftimes, flive))
+    kernels += grating_entries(sources, phase_launches, gworst, ptimes,
+                               ptxas, hyb_step, opt_step)
     kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass,
                             (dntimes, dnlive, newton_launches))
     from rayopt_tpu_torch.ops import cuda_spec as CS

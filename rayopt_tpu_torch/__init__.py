@@ -50,7 +50,8 @@ from .materials import (  # noqa: F401
     vacuum, mirror, air, fraunhofer, Thermal, GLASSES,
 )
 from .elements import (  # noqa: F401
-    Biconic, Element, Interface, Spheroid, Toroid, TransformMixin,
+    Biconic, DiffractiveSurface, Element, Grating, Interface, Spheroid,
+    Toroid, TransformMixin,
 )
 from .pupils import Pupil, RadiusPupil, NaPupil, SlopePupil, FnoPupil  # noqa: F401
 from .conjugates import Conjugate, FiniteConjugate, InfiniteConjugate  # noqa: F401

@@ -21,8 +21,14 @@
 // or toroid's seeded Newton with the figure of the key's widths; K5, K7
 // and K9 their reverse by hand, K9's with the path cotangent; the key
 // defines RAYOPT_N_ANAM, so that a row grows by curvature_dx and conic_dx
-// and the adjoints' slots by their cotangents).  Every key refuses the
-// grating, DOE and freeform rows (ROADMAP Queue 1 item 9).
+// and the adjoints' slots by their cotangents).  K1, K2, K4 and K5 take
+// the phase rows too -- a linear grating or a radial diffractive phase on
+// any substrate but a cylinder, by the generalized Spencer & Murty
+// solve; K5 its reverse by hand; the key defines RAYOPT_N_GRAT and
+// RAYOPT_N_DOE, so that a row grows by grating_dy and by n_after and the
+// DOE coefficients, K5's slots by their cotangents.  The keys of K3 and
+// K6-K9 refuse the phase rows (ROADMAP Queue 1 item 9.4, part two),
+// every key the freeform rows (item 9.5).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
@@ -140,7 +146,7 @@
 namespace {
 
 // a row word's live slots above its flags: cuda_spec.LIVE_SHIFT
-constexpr int LIVE_SHIFT = 14;
+constexpr int LIVE_SHIFT = 16;
 // the bits above it in a 64-bit word: K5's and K7's FIG_SLOTS, K9's
 // OPD_FIG_SLOTS (cuda_spec.LIVE_BITS)
 constexpr int LIVE_BITS = 63 - LIVE_SHIFT;
@@ -150,8 +156,9 @@ static_assert(FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
 // The rows of one key: W holds a 64-bit word a row, its flags in the
 // low LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z,
 // mu, then K5's and K7's aspheric coefficients, then an anamorphic
-// key's curvature_dx and conic_dx; K9 n_before, then its coefficients
-// and the anamorphic two) that row reduces.
+// key's curvature_dx and conic_dx, then K5's grating_dy and DOE
+// coefficients; K9 n_before, then its coefficients and the anamorphic
+// two) that row reduces.
 template <long long... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -566,7 +573,8 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_spec(
 // K5: the analytic adjoint of K4's moments dotted with ct (5 values).
 // out: (rows, FIG_SLOTS) parameter cotangents (SLOTS, then a figured
 // table's aspheric coefficients, then an anamorphic key's curvature_dx
-// and conic_dx), zero where a slot is not live; with
+// and conic_dx, then a phase key's grating_dy and DOE coefficients),
+// zero where a slot is not live; with
 // RAYS the six ray and the weight cotangents a ray (zeros for a dead
 // ray).  Dynamic shared memory: the saved states, (rows - 1) * 6 *
 // BLOCK words.

@@ -1,6 +1,7 @@
 // The hand-derived reverse of one surface step (trace_common.cuh
 // surface_step), run by the adjoints specialized per spec tuple in
-// grad_spec.cuh (K5, K7, K9; row flags as compile-time constants), and
+// grad_spec.cuh (K5, K7, K9; row flags as compile-time constants; the
+// phase rows' in K5 alone), and
 // the reference-sphere tail of the OPD (K8 and K9, both in
 // grad_spec.cuh with the image row's flags compile-time) with its
 // reverse.  Their torch models, line for line, are
@@ -17,8 +18,9 @@ constexpr int SLOTS = 6;      // parameter cotangents a row: cuda_grad.SLOTS
 constexpr int OPD_SLOTS = 7;  // K9's a row, + n_before: cuda_grad.OPD_SLOTS
 constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
 // K5's and K7's a row: SLOTS, then the even and the odd aspheric
-// coefficients, then an anamorphic key's curvature_dx and conic_dx
-constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD + N_ANAM;
+// coefficients, then an anamorphic key's curvature_dx and conic_dx, then
+// K5's grating_dy and DOE coefficients (a phase key)
+constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT + N_DOE;
 // K9's a row: OPD_SLOTS (SLOTS, then n_before), then the even and the
 // odd coefficients, then an anamorphic key's curvature_dx and conic_dx
 // (cuda_spec.opd_live_slots)
@@ -28,6 +30,9 @@ constexpr int PG_SLOTS = FIG_SLOTS > OPD_FIG_SLOTS ? FIG_SLOTS : OPD_FIG_SLOTS;
 // an anamorphic row's curvature_dx and conic_dx slots (K5, K7; K9's
 // are one further on, past n_before)
 constexpr int Q_CDX = SLOTS + N_ASP + N_ODD;
+// a grating row's grating_dy slot and a DOE row's coefficients' (K5)
+constexpr int Q_GDY = Q_CDX + N_ANAM;
+constexpr int Q_DOE = Q_GDY + N_GRAT;
 
 // Hand-derived reverse of refract_spec's refraction (kind 1) or mirror
 // (kind 2) of the direction u by the unnormalized normal n, shared by
@@ -191,6 +196,199 @@ __device__ __forceinline__ void put_figure(const FigureGrad<T>& gf, T* pg,
   for (int j = 0; j < N_ODD; ++j) pg[q0 + N_ASP + j] = gf.b[j];
 }
 
+// The cotangent of m from that of sq = sqrt0(m) (cuda_grad._sqrt0_vjp)
+template <typename T>
+__device__ __forceinline__ T sqrt0_vjp(T m, T sq, T g) {
+  return m >= T(0) ? g * T(0.5) / sq : T(0);
+}
+
+// The cotangent of v from that of max(v, TINY) (cuda_grad._floor_vjp)
+template <typename T>
+__device__ __forceinline__ T floor_vjp(T v, T g) {
+  return v >= T(TINY) ? g : T(0);
+}
+
+// ---- the phase rows' reverse (K5; cuda_grad's torch models of the same
+// names, line for line) ----
+
+// Hand-derived reverse of grating_refract (cuda_grad._grating_refract_vjp)
+// for one live ray: from the new direction's cotangent gv, the incoming
+// direction's (gu), the normal's (ggx, ggy), mu's, the grating term's
+// (ggdy) and (KICK) the DOE coefficients' (gdoe) and the point's (added
+// into gx1, gy1).  Gamma's two roots (the mirror's by sgn(bn), the
+// transmission's by sgn(mu)), |mu|, the groove vector's TINY floor and
+// the kick are reversed; sgn has no cotangent.  A row that passes the
+// ray on (phase_keep) hands gv on to u.
+template <bool KICK, typename T>
+__device__ __forceinline__ void grating_refract_vjp(
+    T mu, T gdy, T ngx, T ngy, T x1, T y1, const Doe<T>& dc, T ux, T uy,
+    T uz, T gvx, T gvy, T gvz, T& gux, T& guy, T& guz, T& ggx, T& ggy,
+    T& gmu, T& ggdy, T* gdoe, T& gx1, T& gy1) {
+#pragma unroll
+  for (int i = 0; i < N_DOE; ++i) gdoe[i] = T(0);
+  if (phase_keep<KICK>(mu, gdy, dc)) {
+    gux = gvx; guy = gvy; guz = gvz;
+    ggx = ggy = gmu = ggdy = T(0);
+    return;
+  }
+  // ---- forward recompute ----
+  const T inv = T(1) / (ngx * ngx + ngy * ngy + T(1));
+  const T muf = fabs(mu);
+  const T qx0 = -ngy * ngx * inv;
+  const T qy0 = T(1) - ngy * ngy * inv;
+  const T qz0 = -ngy * inv;
+  const T m = qx0 * qx0 + qy0 * qy0 + qz0 * qz0;
+  const T qn = T(1) / sqrt(floor_at(m, T(TINY)));
+  const T qx = qx0 * qn, qy = qy0 * qn, qz = qz0 * qn;
+  T bx = muf * ux + gdy * qx;
+  T by = muf * uy + gdy * qy;
+  const T bz = muf * uz + gdy * qz;
+  T r2 = T(0), ek = T(0);
+  if constexpr (KICK) {
+    r2 = x1 * x1 + y1 * y1;
+    ek = doe_slope(r2, dc);
+    bx = bx + ek * x1;
+    by = by + ek * y1;
+  }
+  const T dot = bx * ngx + by * ngy + bz;
+  const T bn = dot * inv;
+  const T bb = bx * bx + by * by + bz * bz;
+  const T disc = bn * bn - (bb - T(1)) * inv;
+  const T root = sqrt0(disc);
+  const bool mirror = mu == T(-1);
+  const T gam = mirror ? -bn - sgn(bn) * root : -bn + sgn(mu) * root;
+  // ---- reverse: u' = b + gam (ngx, ngy, 1) ----
+  T gbx = gvx, gby = gvy, gbz = gvz;
+  const T ggam = gvx * ngx + gvy * ngy + gvz;
+  ggx = gvx * gam;
+  ggy = gvy * gam;
+  T gbn = -ggam;
+  const T groot = (mirror ? -sgn(bn) : sgn(mu)) * ggam;
+  const T gdisc = sqrt0_vjp(disc, root, groot);
+  // disc = bn^2 - (bb - 1) inv
+  gbn = gbn + T(2) * bn * gdisc;
+  const T gbb = -inv * gdisc;
+  T ginv = -(bb - T(1)) * gdisc;
+  gbx = gbx + T(2) * bx * gbb;
+  gby = gby + T(2) * by * gbb;
+  gbz = gbz + T(2) * bz * gbb;
+  // bn = (b . (ngx, ngy, 1)) inv
+  const T gdot = gbn * inv;
+  ginv = ginv + gbn * dot;
+  gbx = gbx + gdot * ngx;
+  gby = gby + gdot * ngy;
+  gbz = gbz + gdot;
+  ggx = ggx + gdot * bx;
+  ggy = ggy + gdot * by;
+  // b = |mu| u + gdy q + s
+  const T gmuf = gbx * ux + gby * uy + gbz * uz;
+  gux = muf * gbx; guy = muf * gby; guz = muf * gbz;
+  ggdy = gbx * qx + gby * qy + gbz * qz;
+  const T gqx = gdy * gbx, gqy = gdy * gby, gqz = gdy * gbz;
+  if constexpr (KICK) {
+    // s = ek(r2) (x1, y1), ek = sum 2 (i+1) a_i r2^i
+    const T gek = gbx * x1 + gby * y1;
+    T dd = T(0), pw = T(1);
+#pragma unroll
+    for (int i = N_DOE - 1; i >= 1; --i)
+      dd = dd * r2 + T(2 * (i + 1) * i) * dc.a[i];
+#pragma unroll
+    for (int i = 0; i < N_DOE; ++i) {
+      gdoe[i] = T(2 * (i + 1)) * pw * gek;
+      pw = pw * r2;
+    }
+    const T gr2 = dd * gek;
+    gx1 = gx1 + (ek * gbx + T(2) * x1 * gr2);
+    gy1 = gy1 + (ek * gby + T(2) * y1 * gr2);
+  }
+  // q = q0 qn, qn = 1/sqrt(max(q0 . q0, TINY))
+  const T gqn = gqx * qx0 + gqy * qy0 + gqz * qz0;
+  const T gm = floor_vjp(m, T(-0.5) * qn * qn * qn * gqn);
+  const T gq0x = gqx * qn + T(2) * qx0 * gm;
+  const T gq0y = gqy * qn + T(2) * qy0 * gm;
+  const T gq0z = gqz * qn + T(2) * qz0 * gm;
+  // q0 = (-ngy ngx inv, 1 - ngy^2 inv, -ngy inv), inv = 1/|n|^2
+  ggx = ggx - ngy * inv * gq0x;
+  ggy = ggy - ngx * inv * gq0x - T(2) * ngy * inv * gq0y - inv * gq0z;
+  ginv = ginv - ngy * ngx * gq0x - ngy * ngy * gq0y - ngy * gq0z;
+  const T gnn = -inv * inv * ginv;
+  ggx = ggx + T(2) * ngx * gnn;
+  ggy = ggy + T(2) * ngy * gnn;
+  gmu = sgn(mu) * gmuf;
+}
+
+// Reverse of radial_phase_normal (cuda_grad._radial_phase_vjp) from the
+// normal's cotangents: adds into gx1, gy1, gc, gk and (FIG) gf.
+template <bool FLAT, bool FIG, typename T>
+__device__ __forceinline__ void radial_phase_vjp(T x1, T y1, T c, T k,
+                                                 const Figure<T>& fg, T ggx,
+                                                 T ggy, T& gx1, T& gy1,
+                                                 T& gc, T& gk,
+                                                 FigureGrad<T>& gf) {
+  if constexpr (!FLAT) {
+    const T r2 = x1 * x1 + y1 * y1;
+    const T kc2 = (T(1) + k) * c * c;
+    const T w = T(1) - kc2 * r2;
+    const T s = sqrt0(w);
+    T e = -c / s;
+    if constexpr (FIG) {
+      if (N_ASP) e = e - dpoly_even(r2, fg.a);
+      if (N_ODD) e = e - dpoly_odd(r2, fg.b);
+    }
+    const T ge = x1 * ggx + y1 * ggy;
+    gx1 = gx1 + e * ggx;
+    gy1 = gy1 + e * ggy;
+    gc = gc - ge / s;
+    const T gw = sqrt0_vjp(w, s, ge * c / (s * s));
+    gk = gk - c * c * r2 * gw;
+    gc = gc - T(2) * (T(1) + k) * c * r2 * gw;
+    T gr2 = -kc2 * gw;
+    if constexpr (FIG) {
+      figure_slope_vjp<(N_ASP > 0), (N_ODD > 0)>(r2, fg, ge, gf.a, gf.b, gr2);
+    }
+    gx1 = gx1 + T(2) * x1 * gr2;
+    gy1 = gy1 + T(2) * y1 * gr2;
+  }
+}
+
+// A phase row's grating_dy and DOE coefficients' cotangents into pg
+// (Q_GDY, Q_DOE): zeros where the row is no grating, no DOE.
+template <typename Flags, typename T>
+__device__ __forceinline__ void put_phase(Flags, T ggdy, const T* gdoe,
+                                          T* pg) {
+  if constexpr (N_GRAT > 0) {
+    pg[Q_GDY] = (Flags::value & F_GRATING) ? ggdy : T(0);
+  }
+#pragma unroll
+  for (int i = 0; i < N_DOE; ++i)
+    pg[Q_DOE + i] = (Flags::value & F_DOE) ? gdoe[i] : T(0);
+}
+
+// The phase solve's reverse on a radial (or flat) substrate, shared by
+// surface_step_vjp and figured_step_vjp: the solve's (grating_refract_vjp)
+// then the normal's (radial_phase_vjp); the incoming direction's
+// cotangents out, the point's, c's, k's and (FIG) the coefficients' added
+// in, mu's out, grating_dy's and the DOE's into pg.
+template <bool FLAT, bool FIG, typename T, typename Flags, typename Row>
+__device__ __forceinline__ void radial_phase_step_vjp(
+    Row p, Flags flags, T x1, T y1, T c, T k, T mu, const Figure<T>& fg,
+    T ux, T uy, T uz, T gvx, T gvy, T gvz, T& gux, T& guy, T& guz, T& gx1,
+    T& gy1, T& gc, T& gk, T& gmu, FigureGrad<T>& gf, T* pg) {
+  constexpr bool doe = (Flags::value & F_DOE) != 0;
+  Doe<T> dc{};
+  if constexpr (doe) dc = load_doe<T>(p);
+  T gdy = T(0);
+  if constexpr ((Flags::value & F_GRATING) != 0) gdy = p[P_GDY];
+  T ngx, ngy, ggx, ggy, ggdy, gdoe[N_DOE > 0 ? N_DOE : 1];
+  radial_phase_normal<FLAT, FIG>(x1, y1, c, k, fg, ngx, ngy);
+  grating_refract_vjp<doe>(mu, gdy, ngx, ngy, x1, y1, dc, ux, uy, uz, gvx,
+                           gvy, gvz, gux, guy, guz, ggx, ggy, gmu, ggdy,
+                           gdoe, gx1, gy1);
+  radial_phase_vjp<FLAT, FIG>(x1, y1, c, k, fg, ggx, ggy, gx1, gy1, gc, gk,
+                              gf);
+  put_phase(flags, ggdy, gdoe, pg);
+}
+
 // Hand-derived reverse of a FIGURED row's step (surface_step with
 // F_ASPHERIC or F_ODD) for one live ray, as surface_step_vjp: the
 // refraction (refraction_vjp) by the radial normal (x1 e, y1 e, 1) and
@@ -240,7 +438,13 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   T gc = T(0), gk = T(0), gmu = T(0), gux, guy, guz;
   FigureGrad<T> gf;
   // ---- reverse: refraction by the radial normal ----
-  if (kind == 0) {
+  if constexpr ((fl & F_PHASE) != 0) {
+    static_assert(!PATH, "K9 traces no phase row");
+    // the phase solve on the normal of every coefficient of the widths
+    radial_phase_step_vjp<false, true>(p, Flags{}, x1, y1, c, k, mu, fg, ux,
+                                       uy, uz, gvx, gvy, gvz, gux, guy, guz,
+                                       gx1, gy1, gc, gk, gmu, gf, pg);
+  } else if (kind == 0) {
     gux = gvx; guy = gvy; guz = gvz;
   } else {
     const T r2s = x1 * x1 + y1 * y1;
@@ -320,18 +524,6 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
 
 // ---- the anamorphic rows' reverses (cuda_grad's torch models of the
 // same names, line for line) ----
-
-// The cotangent of m from that of sq = sqrt0(m) (cuda_grad._sqrt0_vjp)
-template <typename T>
-__device__ __forceinline__ T sqrt0_vjp(T m, T sq, T g) {
-  return m >= T(0) ? g * T(0.5) / sq : T(0);
-}
-
-// The cotangent of v from that of max(v, TINY) (cuda_grad._floor_vjp)
-template <typename T>
-__device__ __forceinline__ T floor_vjp(T v, T g) {
-  return v >= T(TINY) ? g : T(0);
-}
 
 // Reverse of a = cx x2 + cy y2, B = (1+kx) cx^2 x2 + (1+ky) cy^2 y2 from
 // ga, gb: adds to gpx, gpy and ga4 = (gcx, gkx, gcy, gky)
@@ -607,7 +799,26 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
   // cy, ky), a toroid's (cr, cy, ky)
   T gp[4] = {T(0), T(0), T(0), T(0)};
   // ---- reverse: refraction ----
-  if (kind == 0) {
+  if constexpr ((fl & F_PHASE) != 0) {
+    static_assert(!PATH && !cyl, "K9 and a cylinder take no phase row");
+    // the phase solve on the biconic's or toroid's normal
+    constexpr bool doe = (fl & F_DOE) != 0;
+    Doe<T> dc{};
+    if constexpr (doe) dc = load_doe<T>(p);
+    T gdy = T(0);
+    if constexpr ((fl & F_GRATING) != 0) gdy = p[P_GDY];
+    T ngx, ngy, ggx, ggy, ggdy, gdoe[N_DOE > 0 ? N_DOE : 1];
+    anam_normal<toroid, fig>(x1, y1, an, fg, ngx, ngy);
+    grating_refract_vjp<doe>(mu, gdy, ngx, ngy, x1, y1, dc, ux, uy, uz, gvx,
+                             gvy, gvz, gux, guy, guz, ggx, ggy, gmu, ggdy,
+                             gdoe, gx1, gy1);
+    if constexpr (toroid) {
+      toroid_normal_vjp<fig>(x1, y1, an, fg, ggx, ggy, gx1, gy1, gp, gf);
+    } else {
+      biconic_normal_vjp<fig>(x1, y1, an, fg, ggx, ggy, gx1, gy1, gp, gf);
+    }
+    put_phase(Flags{}, ggdy, gdoe, pg);
+  } else if (kind == 0) {
     gux = gvx; guy = gvy; guz = gvz;
   } else if (cyl) {
     const T w1 = cyl == 1 ? y1 : x1;
@@ -809,7 +1020,15 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
   }
   T gc = T(0), gk = T(0), gmu = T(0), gux, guy, guz;
   // ---- reverse: refraction ----
-  if (kind == 0) {
+  if constexpr ((Flags::value & F_PHASE) != 0) {
+    static_assert(!PATH, "K9 traces no phase row");
+    // the phase solve on the radial normal (flat: (0, 0))
+    const Figure<T> fg{};
+    FigureGrad<T> gf;
+    radial_phase_step_vjp<(Flags::value & F_FLAT) != 0, false>(
+        p, flags, x1, y1, c, k, mu, fg, ux, uy, uz, gvx, gvy, gvz, gux, guy,
+        guz, gx1, gy1, gc, gk, gmu, gf, pg);
+  } else if (kind == 0) {
     gux = gvx; guy = gvy; guz = gvz;
   } else if (flat && kind == 2) {
     gux = gvx; guy = gvy; guz = -gvz;

@@ -7,7 +7,9 @@
 // latter by the seeded Newton intercept, `newton_intercept`; and the
 // anamorphic rows: a conic cylinder in closed form, `cyl_intercept`, a
 // biconic or toroid, with or without an aspheric figure, by the seeded
-// Newton, `anam_intercept`), the
+// Newton, `anam_intercept`; and the phase rows: a linear grating or a
+// radial diffractive phase on any of these substrates but a cylinder,
+// by the generalized Spencer & Murty solve, `grating_refract`), the
 // compile-time loop and the last block of a fused grid-wide sum.  Each
 // translation unit that includes it gets its own internal copies.
 
@@ -36,13 +38,27 @@ namespace {
 #ifndef RAYOPT_N_ANAM
 #define RAYOPT_N_ANAM 0
 #endif
+// The words a row carries after those where some row of the key is a
+// grating (grating_dy: cuda_trace.carries_grating), else 0, and the DOE
+// coefficients where some row is a DOE (n_after, then N_DOE of them:
+// cuda_trace.doe_width), else 0
+#ifndef RAYOPT_N_GRAT
+#define RAYOPT_N_GRAT 0
+#endif
+#ifndef RAYOPT_N_DOE
+#define RAYOPT_N_DOE 0
+#endif
 constexpr int N_ASP = RAYOPT_N_ASP;
 constexpr int N_ODD = RAYOPT_N_ODD;
 constexpr int N_ANAM = RAYOPT_N_ANAM;
+constexpr int N_GRAT = RAYOPT_N_GRAT;
+constexpr int N_DOE = RAYOPT_N_DOE;
 
 // packed row layout: keep in sync with cuda_trace.py (ROW, P_*); the
-// coefficients follow the 17 base words, then an anamorphic key's two
-constexpr int ROW = 17 + N_ASP + N_ODD + N_ANAM;
+// coefficients follow the 17 base words, then an anamorphic key's two,
+// a grating key's one, a DOE key's n_after and its coefficients
+constexpr int ROW = 17 + N_ASP + N_ODD + N_ANAM + N_GRAT +
+                    (N_DOE > 0 ? 1 + N_DOE : 0);
 constexpr int P_C = 0;     // curvature
 constexpr int P_K = 1;     // conic
 constexpr int P_OFF = 2;   // offset x, y, z
@@ -54,6 +70,9 @@ constexpr int P_ASP = 17;          // even aspheric coefficients (N_ASP)
 constexpr int P_ODD = 17 + N_ASP;  // odd aspheric coefficients (N_ODD)
 constexpr int P_CDX = 17 + N_ASP + N_ODD;  // curvature_dx (N_ANAM)
 constexpr int P_KDX = P_CDX + 1;           // conic_dx
+constexpr int P_GDY = P_CDX + N_ANAM;      // grating_dy (N_GRAT)
+constexpr int P_NA = P_GDY + N_GRAT;       // n_after (N_DOE > 0)
+constexpr int P_DOE = P_NA + 1;            // DOE coefficients (N_DOE)
 
 // flag bits: keep in sync with cuda_trace.py (F_*)
 constexpr int F_FLAT = 1;
@@ -74,6 +93,10 @@ constexpr int F_TOROID = 8192;   // (cr, cy, ky) by the seeded Newton
 constexpr int F_CYL = F_CYL_Y | F_CYL_X;
 constexpr int F_ANAM_NEWTON = F_BICONIC | F_TOROID;
 constexpr int F_ANAMORPHIC = F_CYL | F_ANAM_NEWTON;
+// the phase rows (a grating key: N_GRAT = 1; a DOE key: N_DOE > 0)
+constexpr int F_GRATING = 16384;  // grating_dy: the grating term T
+constexpr int F_DOE = 32768;      // the DOE's kick potential psi(r2)
+constexpr int F_PHASE = F_GRATING | F_DOE;
 
 // the Newton intercept of a figured row (kernels.intercept)
 constexpr int ASPHERIC_ITERS = 10;
@@ -513,8 +536,120 @@ __device__ __forceinline__ void general_refract(int kind, T mu, T gx, T gy,
   vz = muf * vz + g;
 }
 
+// ---- the phase rows ----
+
+// A DOE row's coefficients, read once into registers.
+template <typename T>
+struct Doe {
+  T a[N_DOE > 0 ? N_DOE : 1];
+};
+
+template <typename T, typename Row>
+__device__ __forceinline__ Doe<T> load_doe(Row p) {
+  Doe<T> d;
+#pragma unroll
+  for (int i = 0; i < N_DOE; ++i) d.a[i] = p[P_DOE + i];
+  return d;
+}
+
+// psi(r2) = sum_i a[i] r2^(i+1), the DOE's kick potential (its optical
+// path over n_after; kernels._poly_even)
+template <typename T>
+__device__ __forceinline__ T doe_psi(T r2, const Doe<T>& d) {
+  T s = T(0);
+#pragma unroll
+  for (int i = N_DOE - 1; i >= 0; --i) s = (s + d.a[i]) * r2;
+  return s;
+}
+
+// dpsi/d(r2) times 2: sum_i 2 (i+1) a[i] r2^i (kernels.doe_kick's factor)
+template <typename T>
+__device__ __forceinline__ T doe_slope(T r2, const Doe<T>& d) {
+  T s = T(0);
+#pragma unroll
+  for (int i = N_DOE - 1; i >= 0; --i) s = s * r2 + T(2 * (i + 1)) * d.a[i];
+  return s;
+}
+
+// Whether a phase row passes the ray on untouched: mu == 1, no grating
+// term and (KICK) every DOE coefficient 0 -- decided for the row, not a
+// ray (kernels.refract_grating's keep)
+template <bool KICK, typename T>
+__device__ __forceinline__ bool phase_keep(T mu, T gdy, const Doe<T>& d) {
+  bool keep = mu == T(1) && gdy == T(0);
+  if constexpr (KICK) {
+#pragma unroll
+    for (int i = 0; i < N_DOE; ++i) keep = keep && d.a[i] == T(0);
+  }
+  return keep;
+}
+
+// The normal (gx, gy, 1) of a phase row's radial substrate at (x1, y1):
+// (x1 e, y1 e), e = -c / sqrt0(1 - (1+k) c^2 r2) less the slopes of every
+// coefficient of the key's widths on a figured row (FIG;
+// kernels.normal_radial), zero on a flat row without a figure (FLAT)
+template <bool FLAT, bool FIG, typename T>
+__device__ __forceinline__ void radial_phase_normal(T x1, T y1, T c, T k,
+                                                    const Figure<T>& fg,
+                                                    T& gx, T& gy) {
+  if constexpr (FLAT) {
+    gx = T(0);
+    gy = T(0);
+  } else {
+    const T r2 = x1 * x1 + y1 * y1;
+    T e = -c / sqrt0(T(1) - (T(1) + k) * c * c * r2);
+    if constexpr (FIG) {
+      if (N_ASP) e = e - dpoly_even(r2, fg.a);
+      if (N_ODD) e = e - dpoly_odd(r2, fg.b);
+    }
+    gx = x1 * e;
+    gy = y1 * e;
+  }
+}
+
+// kernels.refract_grating: the generalized Spencer & Murty solve u' =
+// |mu| u + T q + s + Gamma (gx, gy, 1) on the substrate normal, with the
+// unit groove vector q (y-hat projected into the tangent plane, its
+// norm floored at TINY), the grating term T = gdy and (KICK) the DOE's
+// kick s = doe_slope(r2) (x1, y1); a mirror (mu == -1) takes Gamma's
+// root that flips the normal component, an evanescent order NaN.  The
+// row passes the ray on untouched where phase_keep.
+template <bool KICK, typename T>
+__device__ __forceinline__ void grating_refract(T mu, T gdy, T gx, T gy,
+                                                T x1, T y1,
+                                                const Doe<T>& dc, T& vx,
+                                                T& vy, T& vz) {
+  if (phase_keep<KICK>(mu, gdy, dc)) return;
+  const T inv_nn = T(1) / (gx * gx + gy * gy + T(1));
+  const T muf = fabs(mu);
+  T qx = -gy * gx * inv_nn;
+  T qy = T(1) - gy * gy * inv_nn;
+  T qz = -gy * inv_nn;
+  const T qn = T(1) / sqrt(floor_at(qx * qx + qy * qy + qz * qz, T(TINY)));
+  qx = qx * qn;
+  qy = qy * qn;
+  qz = qz * qn;
+  T bx = muf * vx + gdy * qx;
+  T by = muf * vy + gdy * qy;
+  const T bz = muf * vz + gdy * qz;
+  if constexpr (KICK) {
+    const T e = doe_slope(x1 * x1 + y1 * y1, dc);
+    bx = bx + e * x1;
+    by = by + e * y1;
+  }
+  const T bn = (bx * gx + by * gy + bz) * inv_nn;
+  const T bb = bx * bx + by * by + bz * bz;
+  const T disc = bn * bn - (bb - T(1)) * inv_nn;
+  const T root = sqrt0(disc);
+  T gam = mu == T(-1) ? -bn - sgn(bn) * root : -bn + sgn(mu) * root;
+  if (disc < T(0)) gam = qnan<T>();
+  vx = bx + gam * gx;
+  vy = by + gam * gy;
+  vz = bz + gam;
+}
+
 // One transfer-intercept-refract step: kernels.surface_step_spec for
-// flat, spherical, conic, even/odd aspheric and anamorphic rows.  State in and out
+// flat, spherical, conic, even/odd aspheric, anamorphic and phase rows.  State in and out
 // in the global (from_normal) frame; adds the optical path n_before * t
 // to tacc.
 // The row's flags arrive as std::integral_constant<int, F> (K1-K9,
@@ -530,6 +665,12 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   const int fl = flag_value(flags);
   static_assert(!(Flags::value & F_ANAMORPHIC) || N_ANAM == 2,
                 "an anamorphic row needs the key's curvature_dx, conic_dx");
+  static_assert(!(Flags::value & F_GRATING) || N_GRAT == 1,
+                "a grating row needs the key's grating_dy");
+  static_assert(!(Flags::value & F_DOE) || N_DOE > 0,
+                "a DOE row needs the key's DOE coefficients");
+  static_assert(!(Flags::value & F_PHASE) || !(Flags::value & F_CYL),
+                "no key traces a grating or DOE on a cylinder");
   if (fl & F_OFF_AXIS) {
     x = x - p[P_OFF];
     y = y - p[P_OFF + 1];
@@ -607,7 +748,15 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   const T x1 = x + t * ux;
   const T y1 = y + t * uy;
   const T z1 = z + t * uz;
-  tacc = tacc + t * p[P_NB];
+  constexpr bool doe = (Flags::value & F_DOE) != 0;
+  Doe<T> dc{};
+  if constexpr (doe) dc = load_doe<T>(p);
+  if constexpr (doe) {
+    // the DOE's imprinted phase is optical path: psi(r2) * n_after
+    tacc = tacc + (t * p[P_NB] + doe_psi(x1 * x1 + y1 * y1, dc) * p[P_NA]);
+  } else {
+    tacc = tacc + t * p[P_NB];
+  }
   // clip NaNs the INCOMING direction: the ray turns NaN one surface on
   T vx = ux, vy = uy, vz = uz;
   if (clip && (fl & F_FINITE)) {
@@ -616,7 +765,21 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   }
   // refract_spec
   const int kind = (fl >> KIND_SHIFT) & 3;
-  if (kind != 0) {
+  if constexpr ((Flags::value & F_PHASE) != 0) {
+    // the substrate's normal by its figure, then the grating/phase solve;
+    // before the passthrough: a grating row with mu == 1 still diffracts
+    T gx, gy;
+    if constexpr ((Flags::value & F_ANAM_NEWTON) != 0) {
+      anam_normal<toroid, anam_fig>(x1, y1, an, fg, gx, gy);
+    } else {
+      radial_phase_normal<(Flags::value & F_FLAT) != 0 &&
+                              !(Flags::value & F_FIGURED),
+                          (Flags::value & F_FIGURED) != 0>(x1, y1, c, k, fg,
+                                                           gx, gy);
+    }
+    const T gdy = (fl & F_GRATING) ? T(p[P_GDY]) : T(0);
+    grating_refract<doe>(T(p[P_MU]), gdy, gx, gy, x1, y1, dc, vx, vy, vz);
+  } else if (kind != 0) {
     const T mu = p[P_MU];
     const T muf = fabs(mu);
     if (fl & F_CYL_Y) {

@@ -1,8 +1,9 @@
-"""Element/Interface/Spheroid/Biconic/Toroid: the serializable surface
-front-end.
+"""Element/Interface/Spheroid/Biconic/Toroid/Grating/DiffractiveSurface:
+the serializable surface front-end.
 
 API parity with reference elements.py (TransformMixin:30, Element:179,
-Interface:276, Spheroid:413, Biconic:545, Toroid:671).  These objects are a thin, host-side
+Interface:276, Spheroid:413, Biconic:545, Toroid:671) and with the JAX
+package's Grating and DiffractiveSurface.  These objects are a thin, host-side
 description layer: `System` lowers a list of them into the
 struct-of-arrays `SurfaceTable` (ops.tables) that the trace engines
 consume.  The per-element numeric methods take and return NumPy
@@ -10,8 +11,8 @@ arrays; they evaluate the torch surface oracle (ops.surfaces) on CPU
 float64 tensors, so both paths share one implementation of the
 physics.
 
-The grating, diffractive and freeform element types of the JAX
-package (Grating ... ForbesQcon) are not ported yet.
+The freeform element types of the JAX package (XY polynomial, Zernike
+sag, Forbes Qcon ...) are not ported yet.
 """
 
 import numpy as np
@@ -698,3 +699,129 @@ class Toroid(Spheroid):
     def rescale(self, scale):
         super().rescale(scale)
         self.curvature_rotation /= scale
+
+
+@Element.register
+class Grating(Spheroid):
+    """Linear diffraction grating on a conic/aspheric substrate (the JAX
+    package's Grating): grooves ruled along the local x axis
+    (dispersion in y), constant line frequency.
+
+    grating_frequency: lines per system length unit (600. is 600 lp/mm
+    on a millimeter-scaled system).  grating_order: the traced
+    diffraction order m (0 reduces exactly to the substrate's
+    refraction or reflection).  The engines trace the generalized
+    Spencer & Murty construction n' u' = n u + T q + Gamma n with
+    T = m lambda G (kernels.refract_grating); an evanescent order
+    vignettes (NaN).  Tilt the element (angles) to orient the ruling.
+
+    The paraxial 4x4 covers the substrate only: the grating deviation
+    is affine, not linear."""
+
+    _type = "grating"
+
+    def __init__(self, grating_frequency=0., grating_order=1,
+                 blaze_deg=None, **kwargs):
+        super().__init__(**kwargs)
+        self.grating_frequency = grating_frequency
+        self.grating_order = int(grating_order)
+        self.blaze_deg = None if blaze_deg is None else float(blaze_deg)
+
+    def dict(self):
+        dat = super().dict()
+        if self.grating_frequency:
+            dat["grating_frequency"] = float(self.grating_frequency)
+        if self.grating_order != 1:
+            dat["grating_order"] = self.grating_order
+        if self.blaze_deg is not None:
+            dat["blaze_deg"] = self.blaze_deg
+        return dat
+
+    def efficiency(self, wavelength, order=None, incidence_deg=0.,
+                   scale=1e-3):
+        """Scalar blaze efficiency of `order` (default: the traced
+        order) at `wavelength` [m]; 1.0 without a blaze angle (the
+        model: rayopt_tpu_torch.gratings).  `scale`: the system length
+        unit in meters (pass system.scale when it is not mm)."""
+        if self.blaze_deg is None:
+            return np.ones_like(np.asarray(wavelength, float))
+        from .gratings import blaze_efficiency
+        return blaze_efficiency(
+            self.grating_order if order is None else order,
+            wavelength, self.grating_frequency, self.blaze_deg,
+            incidence_deg, scale)
+
+    def refract(self, y, u0, mu):
+        raise NotImplementedError(
+            "grating refraction is wavelength-dependent; trace "
+            "through System.trace_table / the torch engines")
+
+    def reverse(self):
+        super().reverse()
+        self.grating_frequency = -self.grating_frequency
+
+    def rescale(self, scale):
+        super().rescale(scale)
+        self.grating_frequency /= scale
+
+
+@Element.register
+class DiffractiveSurface(Spheroid):
+    """Radially symmetric diffractive phase profile (kinoform, the
+    Zemax Binary 2 model) on a conic/aspheric substrate (the JAX
+    package's DiffractiveSurface).
+
+    phase_coefficients: (A_1, A_2, ...), the imprinted phase in radians
+    phi(r) = sum_i A_i (r/norm_radius)**(2i); diffraction_order m
+    scales the whole profile (0 reduces exactly to the substrate).  The
+    engines trace the Spencer & Murty phase-surface construction
+    n' u' = n u + (m lambda/2 pi) grad phi + Gamma N, the kick baked per
+    trace wavelength into the table's `doe` column (System.table).
+
+    A_1 adds the paraxial power P = -m lambda A_1/(pi norm_radius^2),
+    for transmissive and reflective rows alike."""
+
+    _type = "binary2"
+
+    def __init__(self, phase_coefficients=(), norm_radius=1.,
+                 diffraction_order=1, **kwargs):
+        super().__init__(**kwargs)
+        self.phase_coefficients = [float(a) for a in phase_coefficients]
+        self.norm_radius = float(norm_radius)
+        self.diffraction_order = int(diffraction_order)
+
+    def dict(self):
+        dat = super().dict()
+        if self.phase_coefficients:
+            dat["phase_coefficients"] = [float(a) for a
+                                         in self.phase_coefficients]
+        if self.norm_radius != 1.:
+            dat["norm_radius"] = float(self.norm_radius)
+        if self.diffraction_order != 1:
+            dat["diffraction_order"] = self.diffraction_order
+        return dat
+
+    def paraxial_matrix(self, n0, l):
+        n, m = super().paraxial_matrix(n0, l)
+        if self.phase_coefficients and self.diffraction_order:
+            # System.update stamps _scale (system units per meter); l
+            # arrives in meters, A_1 needs it in system units
+            lam = l/getattr(self, "_scale", 1e-3)
+            p = (self.diffraction_order*lam*self.phase_coefficients[0]
+                 / (np.pi*self.norm_radius**2))
+            d = np.eye(4)
+            d[2, 0] = d[3, 1] = p  # -P_doe
+            # an infinite-conjugate gap feeds inf*0 through the
+            # composition, as the Seidel path does
+            with np.errstate(invalid="ignore"):
+                m = d @ m
+        return n, m
+
+    def refract(self, y, u0, mu):
+        raise NotImplementedError(
+            "diffractive refraction is wavelength-dependent; trace "
+            "through System.trace_table / the torch engines")
+
+    def rescale(self, scale):
+        super().rescale(scale)
+        self.norm_radius *= scale

@@ -1,7 +1,8 @@
 """Canonical optical prescriptions: the achromatic doublet, the OSLO
 50mm f/4 Cooke triplet, the classic 100mm f/3 double Gauss (the
-headline benchmark lens), an f/2 parabolic mirror and a crossed-cylinder
-anamorphic pair.  The YAML texts are the JAX package's
+headline benchmark lens), an f/2 parabolic mirror, a crossed-cylinder
+anamorphic pair, a concave-grating spectrograph and a hybrid
+refractive-diffractive achromat.  The YAML texts are the JAX package's
 (rayopt_tpu.models.prescriptions), so both packages build the same
 systems.
 """
@@ -101,6 +102,36 @@ elements:
 """
 
 
+# concave-grating spectrograph (600 lp/mm on an R=-400 mirror, order 1):
+# the JAX package's golden pins its detector line positions
+SPECTROGRAPH_YAML = """
+description: concave-grating spectrograph 600lp/mm
+wavelengths: [450.e-9, 550.e-9, 650.e-9]
+object: {angle_deg: 0., pupil: {radius: 10., update_radius: False}}
+elements:
+- {material: air}
+- {type: grating, grating_frequency: 600., grating_order: 1,
+   roc: -400., distance: 100., material: mirror, radius: 30.}
+- {distance: -200., radius: 60.}
+"""
+
+
+# hybrid refractive-diffractive achromat: an N-BK7 singlet whose axial
+# colour (~1.5 mm over 480-644 nm) a weak kinoform on the exit face
+# cancels (the DOE's Abbe number is ~ -3.45)
+HYBRID_ACHROMAT_YAML = """
+description: BK7 singlet + kinoform hybrid achromat
+wavelengths: [550.e-9, 480.e-9, 644.e-9]
+object: {angle_deg: 0.5, pupil: {radius: 6., update_radius: False}}
+elements:
+- {material: air}
+- {roc: 54.4, distance: 4., material: glass/N-BK7, radius: 10.}
+- {type: binary2, distance: 3., material: air, radius: 10.,
+   phase_coefficients: [-2.9292239194310423], norm_radius: 1.}
+- {distance: 95., radius: 10.}
+"""
+
+
 def _build(yaml_text, update=True):
     s = system_from_yaml(yaml_text)
     if update:
@@ -128,10 +159,20 @@ def anamorphic_pair(update=True):
     return _build(ANAMORPHIC_YAML, update)
 
 
+def spectrograph(update=True):
+    return _build(SPECTROGRAPH_YAML, update)
+
+
+def hybrid_achromat(update=True):
+    return _build(HYBRID_ACHROMAT_YAML, update)
+
+
 PRESCRIPTIONS = {
     "doublet": doublet,
     "cooke": cooke_triplet,
     "double_gauss": double_gauss,
     "parabolic": parabolic_mirror,
     "anamorphic_pair": anamorphic_pair,
+    "spectrograph": spectrograph,
+    "hybrid_achromat": hybrid_achromat,
 }

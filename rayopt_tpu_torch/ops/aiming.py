@@ -19,7 +19,7 @@ iteration count.
 The loops never wait on the host: fixed trip counts, torch.where for
 every guard, and no .item(), bool(tensor) or nonzero inside them.  The
 table's checks that read it on the host (the pose lowering, the
-refusal of the anamorphic vocabulary) run once before them
+refusal of the freeform rows) run once before them
 (`_prepared`).  Each merit is a trace through the plain ops.geometric
 engine, in the table's dtype on its device (an aspheric row by its
 fixed-count Newton): on a CUDA table a few hundred small launches.
@@ -41,27 +41,25 @@ from .surfaces import surface_sag
 from .tables import lower_pose
 
 #: the table fields the loops never read once `_prepared` checked them
-#: (the aspheric coefficients and the anamorphic columns stay: the
-#: traces read them on the device, and tests only their static widths)
-_CHECKED = ("grating_dy", "doe", "xy_poly", "tilt", "decenter")
+#: (the aspheric coefficients, the anamorphic columns, grating_dy and
+#: doe stay: the traces read them on the device, and tests only their
+#: static widths)
+_CHECKED = ("xy_poly", "tilt", "decenter")
 
 
 def _prepared(table, specs, rim=False):
     """The table detached, its pose folded, and refused (once, here)
-    where the loops would refuse it: a grating, DOE or freeform row (the
-    port's traces take the flat, spherical, conic, even/odd aspheric and
-    anamorphic rows), and rim mode on such specs (ROADMAP Queue 1 item
-    9).  The fields those checks read become None, so that the loops'
+    where the loops would refuse it: a freeform row (the port's traces
+    take the flat, spherical, conic, even/odd aspheric, anamorphic,
+    grating and DOE rows; ROADMAP Queue 1 item 9.5), in stop and in rim
+    mode.  The fields those checks read become None, so that the loops'
     traces and sags read nothing back to the host.  Idempotent."""
-    if rim and specs and any(s.grating or s.doe or s.freeform
-                             for s in specs):
-        # rim mode traces every row with the general trace
-        from ..parallel.grad import _not_ported
-        _not_ported("rim-mode aiming through the grating, DOE and "
-                    "freeform rows", 9)
     table = lower_pose(type(table)(*(None if f is None else f.detach()
                                      for f in table)))
     K.require_radial(table)
+    if specs and any(s.freeform for s in specs):
+        K.check_supported(next(s for s in specs if s.freeform),
+                          what="aiming")
     return table.replace(**dict.fromkeys(_CHECKED))
 
 
@@ -226,12 +224,12 @@ def _clearance(table, specs, stop, fx, fy, z, px, py, scale, r2,
     state = _seed(table, fx, fy, z, px, py, scale, slope, radius,
                   finite, projection)
     if rim:
-        # the generic trace: `_prepared` refused the anamorphic rows
         y0 = torch.stack(state[:3], -1)
         u0 = torch.stack(state[3:], -1)
-        # anamorphic rows need the general walk's anamorphic step (specs
-        # are static: a branch on the host)
-        ext = bool(specs) and any(K.is_anamorphic_spec(s) for s in specs)
+        # anamorphic, grating and DOE rows need the general walk's
+        # anamorphic step (specs are static: a branch on the host)
+        ext = bool(specs) and any(K.is_anamorphic_spec(s) or K.is_phase(s)
+                                  for s in specs)
         ys = trace_rays(table, y0, u0, biconic=ext)[0]
         h2 = torch.square(ys[1:-1, :, :2]).sum(-1)
         d = h2/torch.square(table.radius[1:-1])[:, None] - 1.

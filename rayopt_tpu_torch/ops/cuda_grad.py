@@ -39,7 +39,14 @@ refraction, then the Newton root implicitly, one residual gradient
 scaled by -gt/F_s, as kernels._NewtonRoot does (K9 adds the row's path
 cotangent to gt first), and reduce the row's aspheric coefficients
 beside its six (K9: seven) columns, then an anamorphic key's
-curvature_dx and conic_dx.
+curvature_dx and conic_dx.  K4 and K5 also trace the phase rows (a
+grating or a DOE on any substrate but a cylinder); K5 reverses the
+generalized Spencer & Murty solve by hand (csrc/step_vjp.cuh
+grating_refract_vjp: the Gamma root of either branch, the groove
+vector's normalization, the DOE's kick) and then the substrate's normal,
+and reduces grating_dy and the DOE coefficients after the other
+columns.  K6-K9 refuse the phase rows (ROADMAP Queue 1 item 9.4, part
+two).
 
 `spot_moments` and `adjoint_spot_rms` bind K4/K5 in one
 torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`),
@@ -104,19 +111,22 @@ from . import cuda_spec as CS
 from . import kernels as K
 from .cuda_spec import launch_moments, packed, spec_launch
 from .cuda_trace import (ANAM, _check_state, carries_anamorphic,
-                         figure_widths, spot_rms_from_moments,
-                         trace_final_reference)
+                         carries_grating, doe_width, figure_widths,
+                         spot_rms_from_moments, trace_final_reference)
 from .tables import lower_pose, table_at
 
 SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
 OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
 AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
-#: differentiable table fields the autograd Functions carry (K9's
-#: fields, the anamorphic x figure last; the spot moments' n_before gets
-#: a zero cotangent)
+#: differentiable table fields _OpdRays carries (K9's fields, the
+#: anamorphic x figure last)
 _DIFF = CS.OPD_FIELDS
-_NM = len(_DIFF)
+_NO = len(_DIFF)
+#: those _SpotMoments carries: _DIFF, then the phase rows' grating_dy
+#: and doe (the spot moments' n_before gets a zero cotangent)
+_SPOT = _DIFF + CS.FIELDS[8:]
+_NM = len(_SPOT)
 #: kernel-carried fields that never receive cotangents
 _NONDIFF = ("radius", "alternate")
 #: the fields the reference kernel carries (pallas_trace._FIELDS)
@@ -163,17 +173,31 @@ def _constant_table(table, like):
                          for f in _folded(table)))
 
 
-def _param_rows(tab, anamorphic=False):
-    """(S, SLOTS + na + no [+ ANAM]) view of the differentiated fields
-    of a table: c, k, offset x, y, z, mu, then its aspheric
-    coefficients, then (anamorphic, cuda_trace.carries_anamorphic)
-    curvature_dx and conic_dx."""
+def _param_rows(tab, anamorphic=False, grating=False, nd=0):
+    """(S, SLOTS + na + no [+ ANAM] [+ 1] [+ nd]) view of the
+    differentiated fields of a table: c, k, offset x, y, z, mu, then its
+    aspheric coefficients, then (anamorphic, cuda_trace.
+    carries_anamorphic) curvature_dx and conic_dx, then (grating,
+    carries_grating) grating_dy, then (nd, doe_width) the DOE
+    coefficients."""
     cols = [torch.stack([tab.curvature, tab.conic, tab.offset[:, 0],
                          tab.offset[:, 1], tab.offset[:, 2], tab.mu], 1),
             tab.aspherics, tab.aspherics_odd]
     if anamorphic:
         cols.append(torch.stack([tab.curvature_dx, tab.conic_dx], 1))
+    if grating:
+        cols.append(tab.grating_dy[:, None])
+    if nd:
+        cols.append(tab.doe)
     return torch.cat(cols, 1)
+
+
+def _phase_layout(table, specs, base=SLOTS):
+    """(grating, nd) of the phase columns of K5's parameter cotangents
+    (K7, K9: none; they refuse the phase rows on the card)."""
+    if base != SLOTS:
+        return False, 0
+    return carries_grating(specs), doe_width(table, specs)
 
 
 def _table_widths(table):
@@ -185,10 +209,12 @@ def _table_widths(table):
 def _nslots(table, specs, base=SLOTS):
     """K5's and K7's cotangent columns a row for a table and its specs
     (K9's with base OPD_SLOTS): `base`, the table's aspheric
-    coefficients, and ANAM where a row is anamorphic
-    (cuda_trace.carries_anamorphic)."""
+    coefficients, ANAM where a row is anamorphic (cuda_trace.
+    carries_anamorphic), then (base SLOTS) one where a row is a grating
+    and the DOE width where a row is a DOE (_phase_layout)."""
+    grating, nd = _phase_layout(table, specs, base)
     return base + sum(_table_widths(table)) \
-        + (ANAM if carries_anamorphic(specs) else 0)
+        + (ANAM if carries_anamorphic(specs) else 0) + int(grating) + nd
 
 
 def _key_columns(pg, key, nq, base=SLOTS):
@@ -203,10 +229,17 @@ def _key_columns(pg, key, nq, base=SLOTS):
         nq - pg.shape[-1],)), pg[..., kq:]], -1)
 
 
-def _diff_values(table):
-    """The table's _DIFF fields, zeros for an absent anamorphic field."""
-    return [torch.zeros_like(table.curvature) if getattr(table, f) is None
-            else getattr(table, f) for f in _DIFF]
+def _diff_values(table, fields=_DIFF):
+    """The table's `fields`, zeros for an absent anamorphic or grating
+    field (an empty (S, 0) block for an absent doe)."""
+    def value(f):
+        v = getattr(table, f)
+        if v is not None:
+            return v
+        if f == "doe":
+            return table.curvature.new_zeros(table.curvature.shape + (0,))
+        return torch.zeros_like(table.curvature)
+    return [value(f) for f in fields]
 
 
 def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
@@ -216,12 +249,14 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     weight.  Returns (parameter cotangents (S, _nslots) in the order
     c, k, offset x, y, z, mu, then the table's na even and no odd
     aspheric coefficients, then for anamorphic specs
-    (cuda_trace.carries_anamorphic) curvature_dx and conic_dx; the six
-    state cotangents; the weight cotangent), all in the state's
+    (cuda_trace.carries_anamorphic) curvature_dx and conic_dx, then for
+    grating specs grating_dy, for DOE specs the DOE coefficients; the
+    six state cotangents; the weight cotangent), all in the state's
     dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     anam = carries_anamorphic(specs)
+    grating, nd = _phase_layout(tab, specs)
     with torch.no_grad():
         out, _ = trace_final_reference(tab, specs, state, clip)
         alive = _live(out)
@@ -233,7 +268,8 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     i0 = int(torch.argmax(alive.to(torch.uint8)))
     fields = ("curvature", "conic", "offset", "mu", "aspherics",
               "aspherics_odd") + (("curvature_dx", "conic_dx") if anam
-                                  else ())
+                                  else ()) \
+        + (("grating_dy",) if grating else ()) + (("doe",) if nd else ())
     nf = len(fields)
     leaves = [*(getattr(tab, f) for f in fields), *state, w]
     leaves = [v.detach().clone().requires_grad_() for v in leaves]
@@ -247,7 +283,8 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
                                     allow_unused=True)
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(leaves, grads)]
-    pg = _param_rows(tab.replace(**dict(zip(fields, grads[:nf]))), anam)
+    pg = _param_rows(tab.replace(**dict(zip(fields, grads[:nf]))), anam,
+                     grating, nd)
     return pg, tuple(grads[nf:nf + 6]), grads[nf + 6]
 
 
@@ -455,6 +492,155 @@ def _refraction_vjp(kind, unit, mu, u, n, gv):
     return (gux, guy, guz), (gnx, gny, gnz), gmu
 
 
+def _grating_refract_vjp(x1, y1, u, mu, gdy, ngx, ngy, doe, gv):
+    """Hand-derived reverse of kernels.refract_grating for live rays,
+    the line-for-line model of `grating_refract_vjp` in
+    csrc/step_vjp.cuh: from the new direction's cotangent gv, those of
+    the incoming direction u, the normal (ngx, ngy), mu, the grating
+    term gdy (0. on a DOE row that is no grating), the DOE coefficients
+    (doe: the row's, or None) and the point (x1, y1) the kick reads.
+    Gamma's two roots (the mirror's by sign(bn), the transmission's by
+    sign(mu)), |mu|, the groove vector's TINY floor and the kick are
+    reversed; sign() has no cotangent.  A row that passes (mu == 1, no
+    grating term, no kick) hands gv on to u.  Returns ((gux, guy, guz),
+    (ggx, ggy), gmu, ggdy, [gdoe_i], gx1, gy1)."""
+    ux, uy, uz = u
+    gvx, gvy, gvz = gv
+    zero = torch.zeros_like(ux)
+    inv = 1./(ngx*ngx + ngy*ngy + 1.)
+    muf = torch.abs(mu)
+    qx0, qy0, qz0 = -ngy*ngx*inv, 1. - ngy*ngy*inv, -ngy*inv
+    m = qx0*qx0 + qy0*qy0 + qz0*qz0
+    qn = torch.rsqrt(torch.clamp(m, min=K.TINY))
+    qx, qy, qz = qx0*qn, qy0*qn, qz0*qn
+    bx, by, bz = muf*ux + gdy*qx, muf*uy + gdy*qy, muf*uz + gdy*qz
+    keep = (mu == 1) & (torch.as_tensor(gdy) == 0)
+    kick = doe is not None and doe.shape[-1] > 0
+    if kick:
+        r2 = x1*x1 + y1*y1
+        ek = K._dpoly_even(r2, doe)
+        bx, by = bx + ek*x1, by + ek*y1
+        keep = keep & torch.all(doe == 0, dim=-1)
+    dot = bx*ngx + by*ngy + bz
+    bn = dot*inv
+    bb = bx*bx + by*by + bz*bz
+    disc = bn*bn - (bb - 1.)*inv
+    root = K._sqrt0(disc)
+    mirror = mu == -1
+    gam = torch.where(mirror, -bn - torch.sign(bn)*root,
+                      -bn + torch.sign(mu)*root)
+    # ---- reverse: u' = b + gam (ngx, ngy, 1) ----
+    gbx, gby, gbz = gvx, gvy, gvz
+    ggam = gvx*ngx + gvy*ngy + gvz
+    ggx, ggy = gvx*gam, gvy*gam
+    gbn = -ggam
+    groot = torch.where(mirror, -torch.sign(bn), torch.sign(mu))*ggam
+    gdisc = _sqrt0_vjp(disc, root, groot)
+    # disc = bn^2 - (bb - 1) inv
+    gbn = gbn + 2*bn*gdisc
+    gbb = -inv*gdisc
+    ginv = -(bb - 1.)*gdisc
+    gbx, gby, gbz = gbx + 2*bx*gbb, gby + 2*by*gbb, gbz + 2*bz*gbb
+    # bn = (b . (ngx, ngy, 1)) inv
+    gdot = gbn*inv
+    ginv = ginv + gbn*dot
+    gbx, gby, gbz = gbx + gdot*ngx, gby + gdot*ngy, gbz + gdot
+    ggx, ggy = ggx + gdot*bx, ggy + gdot*by
+    # b = |mu| u + gdy q + s
+    gmuf = gbx*ux + gby*uy + gbz*uz
+    gux, guy, guz = muf*gbx, muf*gby, muf*gbz
+    ggdy = gbx*qx + gby*qy + gbz*qz
+    gqx, gqy, gqz = gdy*gbx, gdy*gby, gdy*gbz
+    gx1, gy1, gdoe = zero, zero, []
+    if kick:
+        # s = E(r2) (x1, y1), E = sum 2 (i+1) doe_i r2^i
+        gek = gbx*x1 + gby*y1
+        gx1, gy1 = ek*gbx, ek*gby
+        gr2 = _horner(r2, doe, lambda i: 2*(i + 1)*i, 1)*gek
+        pw = torch.ones_like(r2)
+        for i in range(doe.shape[-1]):
+            gdoe.append(2*(i + 1)*pw*gek)
+            pw = pw*r2
+        gx1, gy1 = gx1 + 2*x1*gr2, gy1 + 2*y1*gr2
+    # q = q0 qn, qn = rsqrt(max(q0 . q0, TINY))
+    gqn = gqx*qx0 + gqy*qy0 + gqz*qz0
+    gq0x, gq0y, gq0z = gqx*qn, gqy*qn, gqz*qn
+    gm = _floor_vjp(m, -.5*qn*qn*qn*gqn)
+    gq0x, gq0y, gq0z = gq0x + 2*qx0*gm, gq0y + 2*qy0*gm, gq0z + 2*qz0*gm
+    # q0 = (-ngy ngx inv, 1 - ngy^2 inv, -ngy inv), inv = 1/|n|^2
+    ggx = ggx - ngy*inv*gq0x
+    ggy = ggy - ngx*inv*gq0x - 2*ngy*inv*gq0y - inv*gq0z
+    ginv = ginv - ngy*ngx*gq0x - ngy*ngy*gq0y - ngy*gq0z
+    gnn = -inv*inv*ginv
+    ggx, ggy = ggx + 2*ngx*gnn, ggy + 2*ngy*gnn
+    gmu = torch.sign(mu)*gmuf
+
+    def moved(v):
+        return torch.where(keep, 0., v)
+    return ((torch.where(keep, gvx, gux), torch.where(keep, gvy, guy),
+             torch.where(keep, gvz, guz)), (moved(ggx), moved(ggy)),
+            moved(gmu), moved(ggdy), [moved(v) for v in gdoe], moved(gx1),
+            moved(gy1))
+
+
+def _phase_row(surf, spec):
+    """A phase row's grating term (0. where it is no grating) and DOE
+    coefficients (None where it is no DOE), as surface_step_spec reads
+    them."""
+    return (surf.grating_dy if spec.grating else 0.,
+            surf.doe if spec.doe else None)
+
+
+def _phase_tail(surf, spec, ggdy, gdoe):
+    """The per-ray cotangents a phase row appends after its other slots:
+    grating_dy (zero on a DOE that is no grating), then the row's DOE
+    coefficients (none on a grating that is no DOE)."""
+    return (ggdy if spec.grating else torch.zeros_like(ggdy),) \
+        + (tuple(gdoe) if spec.doe else ())
+
+
+def _radial_phase_vjp(x1, y1, c, k, asp, aspo, ggx, ggy, ga, gb, flat):
+    """Reverse of a phase row's radial normal (x1 e, y1 e) with e =
+    -c/sqrt0(1 - (1+k) c^2 r2) less the slopes of every coefficient of
+    the figure's widths (kernels.normal_radial; asp and aspo None for a
+    row without a figure, whose flat substrate has the normal (0, 0):
+    `flat`), from the normal's cotangents: returns (gx1, gy1, gc, gk),
+    the coefficients' cotangents added into ga, gb (the model of
+    `radial_phase_vjp` in csrc/step_vjp.cuh)."""
+    zero = torch.zeros_like(x1)
+    if flat:
+        return zero, zero, zero, zero
+    r2 = x1*x1 + y1*y1
+    kc2 = (1 + k)*c*c
+    w = 1 - kc2*r2
+    s = K._sqrt0(w)
+    e = -c/s
+    if asp is not None and asp.shape[-1]:
+        e = e - K._dpoly_even(r2, asp)
+    if aspo is not None and aspo.shape[-1]:
+        e = e - K._dpoly_odd(r2, aspo)
+    ge = x1*ggx + y1*ggy
+    gx1, gy1 = e*ggx, e*ggy
+    gc = -ge/s
+    gw = _sqrt0_vjp(w, s, ge*c/(s*s))
+    gk = -c*c*r2*gw
+    gc = gc - 2*(1 + k)*c*r2*gw
+    gr2 = -kc2*gw
+    if asp is not None:
+        gr2 = _figure_slope_vjp(r2, asp, aspo, ge, ga, gb, gr2,
+                                asp.shape[-1] > 0, aspo.shape[-1] > 0)
+    return gx1 + 2*x1*gr2, gy1 + 2*y1*gr2, gc, gk
+
+
+def _radial_phase_normal(x1, y1, c, k, asp, aspo, flat):
+    """The (ngx, ngy) normal of a phase row's flat, conic or figured
+    substrate (surface_step_spec's phase branch)."""
+    if flat:
+        return torch.zeros_like(x1), torch.zeros_like(y1)
+    e = K.normal_radial(x1, y1, c, k, asp, aspo)
+    return x1*e, y1*e
+
+
 def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     """Hand-derived reverse of kernels.surface_step_spec for live rays,
     the line-for-line model of `surface_step_vjp` in csrc/step_vjp.cuh.
@@ -468,7 +654,7 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     table's even and odd coefficients, `_figured_vjp_reference`)).  The
     aperture clip is a constant mask: a clipped ray is dead, and dead
     rays never reach the reverse sweep."""
-    K.check_supported(spec)
+    K.check_key_row(spec, what="K5's reverse", kernel="k5")
     if K.is_anamorphic_spec(spec):
         return _anamorphic_vjp_reference(state, surf, spec, g, ct_path)
     if K.is_figured(spec):
@@ -517,8 +703,20 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
         gx1, gy1, gz1 = K.rot_apply(r, gx1, gy1, gz1)
         gvx, gvy, gvz = K.rot_apply(r, gvx, gvy, gvz)
     gc, gk, gmu = zero, zero, zero
+    phase = ()
     # ---- reverse: refraction ----
-    if spec.kind == 0:
+    if K.is_phase(spec):
+        # the grating/phase solve on the radial (or flat) normal
+        gdy, doe = _phase_row(surf, spec)
+        ngx, ngy = _radial_phase_normal(x1, y1, c, k, None, None, spec.flat)
+        (gux, guy, guz), (ggx, ggy), gmu, ggdy, gdoe, dx1, dy1 = \
+            _grating_refract_vjp(x1, y1, (ux, uy, uz), mu, gdy, ngx, ngy, doe,
+                                 (gvx, gvy, gvz))
+        nx1, ny1, gc, gk = _radial_phase_vjp(x1, y1, c, k, None, None, ggx,
+                                             ggy, [], [], spec.flat)
+        gx1, gy1 = gx1 + dx1 + nx1, gy1 + dy1 + ny1
+        phase = _phase_tail(surf, spec, ggdy, gdoe)
+    elif spec.kind == 0:
         gux, guy, guz = gvx, gvy, gvz
     elif spec.flat and spec.kind == 2:
         gux, guy, guz = gvx, gvy, -gvz
@@ -594,7 +792,7 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     pg = (gc, gk, gox, goy, -gz, gmu)
     if ct_path is not None:
         pg = pg + (gnb,)
-    return (gx, gy, gz, gux, guy, guz), pg
+    return (gx, gy, gz, gux, guy, guz), pg + phase
 
 
 def _horner(r2, coeffs, scale=lambda i: 1, start=0):
@@ -702,8 +900,21 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     gc, gk, gmu = zero, zero, zero
     ga = [zero]*na
     gb = [zero]*no
+    phase = ()
     # ---- reverse: refraction by the radial normal ----
-    if spec.kind == 0:
+    if K.is_phase(spec):
+        # the grating/phase solve on the radial normal of every
+        # coefficient of the widths (kernels.normal_radial)
+        gdy, doe = _phase_row(surf, spec)
+        ngx, ngy = _radial_phase_normal(x1, y1, c, k, asp, aspo, False)
+        (gux, guy, guz), (ggx, ggy), gmu, ggdy, gdoe, dx1, dy1 = \
+            _grating_refract_vjp(x1, y1, (ux, uy, uz), mu, gdy, ngx, ngy, doe,
+                                 (gvx, gvy, gvz))
+        nx1, ny1, gc, gk = _radial_phase_vjp(x1, y1, c, k, asp, aspo, ggx,
+                                             ggy, ga, gb, False)
+        gx1, gy1 = gx1 + dx1 + nx1, gy1 + dy1 + ny1
+        phase = _phase_tail(surf, spec, ggdy, gdoe)
+    elif spec.kind == 0:
         gux, guy, guz = gvx, gvy, gvz
     else:
         r2s = x1*x1 + y1*y1
@@ -763,7 +974,7 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     goy = -gy if spec.off_axis else zero
     nb = () if ct_path is None else (gnb,)
     return ((gx, gy, gz, gux, guy, guz),
-            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb))
+            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, *phase))
 
 
 def _sqrt0_vjp(m, sq, g):
@@ -1031,8 +1242,24 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
     # the figure's parameter cotangents: (C, K) of a cylinder, (cx, kx,
     # cy, ky) of a biconic, (cr, cy, ky) of a toroid (gp[3] unused)
     gp = [zero, zero, zero, zero]
+    phase = ()
     # ---- reverse: refraction ----
-    if spec.kind == 0:
+    if K.is_phase(spec) and not cyl:
+        # the grating/phase solve on the biconic or toroid normal
+        gdy, doe = _phase_row(surf, spec)
+        ngx, ngy = _general_normal(spec, x1, y1, c, k, cx, kx, asp, aspo)
+        (gux, guy, guz), (ggx, ggy), gmu, ggdy, gdoe, dx1, dy1 = \
+            _grating_refract_vjp(x1, y1, (ux, uy, uz), mu, gdy, ngx, ngy, doe,
+                                 (gvx, gvy, gvz))
+        if spec.toroidal:
+            dx, dy, *dp = _toroid_normal_vjp(x1, y1, cx, c, k, ggx, ggy, fig)
+        else:
+            dx, dy, *dp = _biconic_normal_vjp(x1, y1, cx, kx, c, k, ggx, ggy,
+                                              fig)
+        gx1, gy1 = gx1 + dx + dx1, gy1 + dy + dy1
+        gp = [a + b for a, b in zip(gp, dp)] + gp[len(dp):]
+        phase = _phase_tail(surf, spec, ggdy, gdoe)
+    elif spec.kind == 0:
         gux, guy, guz = gvx, gvy, gvz
     elif cyl:
         w1 = y1 if cyl == 1 else x1
@@ -1126,7 +1353,7 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
     goy = -gy if spec.off_axis else zero
     nb = () if ct_path is None else (gnb,)
     return ((gx, gy, gz, gux, guy, guz),
-            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, gcdx, gkdx))
+            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, gcdx, gkdx, *phase))
 
 
 def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
@@ -1159,26 +1386,37 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     g = tuple(torch.where(live, v, 0.) for v in (*g3, zero, zero, zero))
     pg = torch.zeros((nsurf, _nslots(tab, specs)), dtype=x0.dtype,
                      device=x0.device)
+    nd = _phase_layout(tab, specs)[1]
     for j in range(nsurf - 1, 0, -1):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        _put_row(pg, j, specs[j], pj, live)
+        _put_row(pg, j, specs[j], pj, live, specs, nd=nd)
     if specs[0].rotated:
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
     return pg, g, ct_w
 
 
-def _put_row(pg, j, spec, pj, live):
+def _put_row(pg, j, spec, pj, live, specs, base=SLOTS, nd=0):
     """Row j of the by-hand models' parameter cotangents: the sums over
     the live rays of _step_vjp_reference's per-ray ones (a row that
     reads no figure has no aspheric slots: zeros; an anamorphic row's
-    curvature_dx and conic_dx are the last two)."""
+    curvature_dx and conic_dx follow the coefficients; a phase row's
+    grating_dy and its nd DOE coefficients come last)."""
     sums = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+    anam = carries_anamorphic(specs)
+    grating = carries_grating(specs) and base == SLOTS
+    q = pg.shape[-1] - int(grating) - nd - (ANAM if anam else 0)
+    nph = (1 + (nd if spec.doe else 0)) if K.is_phase(spec) else 0
+    head = len(pj) - nph - (ANAM if K.is_anamorphic_spec(spec) else 0)
+    pg[j, :head] = sums[:head]
     if K.is_anamorphic_spec(spec):
-        pg[j, :len(pj) - ANAM] = sums[:-ANAM]
-        pg[j, -ANAM:] = sums[-ANAM:]
-    else:
-        pg[j, :len(pj)] = sums
+        pg[j, q:q + ANAM] = sums[head:head + ANAM]
+    if nph:
+        q = pg.shape[-1] - nd
+        if grating:
+            pg[j, q - 1] = sums[-nph]
+        if spec.doe:
+            pg[j, q:] = sums[-nd:]
 
 
 def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False):
@@ -1250,7 +1488,7 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g,
                                     ct_path=ct_path)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        _put_row(pg, j, specs[j], pj, live)
+        _put_row(pg, j, specs[j], pj, live, specs, OPD_SLOTS)
     if specs[0].rotated:
         r0 = tab.rot[0]
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
@@ -1272,8 +1510,8 @@ def _check_vector(v, state, name, shape=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _moments_kernel(specs, dtype, clip, widths):
-    return CS.load(CS.moments_key(specs, dtype, clip, widths=widths))
+def _moments_kernel(specs, dtype, clip, widths, nd=0):
+    return CS.load(CS.moments_key(specs, dtype, clip, widths=widths, nd=nd))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1283,9 +1521,9 @@ def _moments_multi_kernel(specs, dtype, clip, nlam, widths=(0, 0)):
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_kernel(specs, dtype, clip, fields, rays, widths):
+def _adjoint_kernel(specs, dtype, clip, fields, rays, widths, nd=0):
     return CS.load(CS.adjoint_key(specs, dtype, clip, fields, rays,
-                                  widths=widths))
+                                  widths=widths, nd=nd))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1319,7 +1557,8 @@ def weighted_moments(table, specs, state, w, clip=False):
     spec_launch(state)
     specs = tuple(specs)
     out = launch_moments(_moments_kernel(specs, x.dtype, bool(clip),
-                                         figure_widths(table, specs)),
+                                         figure_widths(table, specs),
+                                         doe_width(table, specs)),
                          table, specs, state, w)
     if x.shape[0]:
         weighted_moments.launches += 1
@@ -1356,13 +1595,14 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_reference(table, specs, state, w, ct,
                                              clip)
-        live = CS.live_mask(CS.live_slots(specs, fields, (na, no)), nq)
+        live = CS.live_mask(CS.live_slots(specs, fields, (na, no),
+                                          doe_width(table, specs)), nq)
         pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
     widths = figure_widths(table, specs)
     kern = _adjoint_kernel(specs, x.dtype, bool(clip), fields, bool(rays),
-                           widths)
+                           widths, doe_width(table, specs))
     tab = packed(table, specs, x)
     if not n:
         pg = torch.zeros((len(specs), nq), dtype=x.dtype, device=device)
@@ -1459,7 +1699,8 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
                                                    ct, clip)
-        live = CS.live_mask(CS.live_slots(specs, fields, (na, no)), nq)
+        live = CS.live_mask(CS.live_slots(specs, fields, (na, no),
+                                          doe_width(tables, specs)), nq)
         pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
@@ -1593,7 +1834,7 @@ class _SpotMoments(torch.autograd.Function):
         params, state, w = tensors[:_NM], tensors[_NM:_NM + 6], tensors[-1]
         ctx.table, ctx.specs, ctx.clip, ctx.multi = table, specs, clip, multi
         ctx.save_for_backward(*tensors)
-        tab = table.replace(**dict(zip(_DIFF, params)))
+        tab = table.replace(**dict(zip(_SPOT, params)))
         fwd = weighted_moments_multi if multi else weighted_moments
         return fwd(tab, specs, state, w, clip)
 
@@ -1601,10 +1842,10 @@ class _SpotMoments(torch.autograd.Function):
     def backward(ctx, ct):
         tensors = ctx.saved_tensors
         params, state, w = tensors[:_NM], tensors[_NM:_NM + 6], tensors[-1]
-        tab = ctx.table.replace(**dict(zip(_DIFF, params)))
+        tab = ctx.table.replace(**dict(zip(_SPOT, params)))
         # K5/K7 reduce only the slots autograd asks for, and write the
         # ray and weight cotangents only when they are wanted
-        need = dict(zip(_DIFF, ctx.needs_input_grad[4:4 + _NM]))
+        need = dict(zip(_SPOT, ctx.needs_input_grad[4:4 + _NM]))
         fields = tuple(f for f in CS.FIELDS if need[f])
         adjoint = merit_adjoint_multi if ctx.multi else merit_adjoint
         pg, ct_state, ct_w = adjoint(
@@ -1614,15 +1855,23 @@ class _SpotMoments(torch.autograd.Function):
             ct_state = (None,)*6
         na, no = params[5].shape[-1], params[6].shape[-1]
         q = SLOTS + na + no
-        if pg.shape[-1] > q:
+        if carries_anamorphic(ctx.specs):
             # an anamorphic key's curvature_dx and conic_dx columns
             gdx = (pg[..., q], pg[..., q + 1])
+            q += ANAM
         else:
             gdx = (torch.zeros_like(params[7]), torch.zeros_like(params[8]))
+        # a phase key's grating_dy and DOE columns, last
+        grating, nd = _phase_layout(tab, ctx.specs)
+        ggdy = pg[..., q] if grating else torch.zeros_like(params[9])
+        q += int(grating)
+        gdoe = (pg[..., q:q + nd].contiguous() if nd
+                else torch.zeros_like(params[10]))
         grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
                  pg[..., 5], torch.zeros_like(params[4]),
                  pg[..., SLOTS:SLOTS + na].contiguous(),
-                 pg[..., SLOTS + na:q].contiguous(), *gdx)
+                 pg[..., SLOTS + na:SLOTS + na + no].contiguous(), *gdx,
+                 ggdy, gdoe)
         return (None, None, None, None, *grads, *ct_state, ct_w)
 
 
@@ -1673,6 +1922,10 @@ def _warn_diff_params(table, specs):
         params.update({f: getattr(table, f)
                        for f in ("curvature_dx", "conic_dx")
                        if getattr(table, f) is not None})
+    if any(K.is_phase(s) for s in specs[1:]):
+        params.update({f: getattr(table, f) for f in ("grating_dy", "doe")
+                       if getattr(table, f) is not None
+                       and getattr(table, f).numel()})
     _warn_baked_params(specs, params)
 
 
@@ -1730,7 +1983,7 @@ def _moments(table, specs, state, w, clip, multi):
     _warn_diff_params(table, specs)
     x = state[0]
     diff = [v.to(device=x.device, dtype=x.dtype)
-            for v in _diff_values(table)]
+            for v in _diff_values(table, _SPOT)]
     w = torch.as_tensor(w).to(device=x.device, dtype=x.dtype)
     return _SpotMoments.apply(_constant_table(table, x), specs, bool(clip),
                               multi, *diff, *state, w)
@@ -1794,7 +2047,7 @@ class _OpdRays(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, specs, clip, *tensors):
-        params, state, aux = (tensors[:_NM], tensors[_NM:_NM + 6],
+        params, state, aux = (tensors[:_NO], tensors[_NO:_NO + 6],
                               tensors[-1])
         ctx.table, ctx.specs, ctx.clip = table, specs, clip
         ctx.save_for_backward(*tensors)
@@ -1804,18 +2057,18 @@ class _OpdRays(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_k, ct_lx, ct_ly):
         tensors = ctx.saved_tensors
-        params, state, aux = (tensors[:_NM], tensors[_NM:_NM + 6],
+        params, state, aux = (tensors[:_NO], tensors[_NO:_NO + 6],
                               tensors[-1])
         tab = ctx.table.replace(**dict(zip(_DIFF, params)))
         # K9 reduces only the slots autograd asks for (and the centre's
         # three: the sphere centre's trace may need them), and writes the
         # ray cotangents only when they are wanted
         need = ctx.needs_input_grad
-        fields = tuple(f for f, nd in zip(_DIFF, need[3:3 + _NM]) if nd)
+        fields = tuple(f for f, nd in zip(_DIFF, need[3:3 + _NO]) if nd)
         pg, ct_state, ct_c = opd_adjoint(
             tab, ctx.specs, state, aux,
             tuple(c.contiguous() for c in (ct_k, ct_lx, ct_ly)), ctx.clip,
-            fields=fields, rays=any(need[3 + _NM:9 + _NM]))
+            fields=fields, rays=any(need[3 + _NO:9 + _NO]))
         if ct_state is None:
             ct_state = (None,)*6
         na, no = params[5].shape[-1], params[6].shape[-1]

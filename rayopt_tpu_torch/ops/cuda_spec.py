@@ -32,21 +32,31 @@ the anamorphic rows too (conic cylinders, biconics and toroids, the
 latter two also with an aspheric figure): such a key's rows grow by
 curvature_dx and conic_dx (Key.anamorphic, cuda_trace.
 carries_anamorphic; RAYOPT_N_ANAM), an adjoint's slots by their
-cotangents.  Every key refuses the grating, DOE and freeform rows
-(NotImplementedError, ROADMAP Queue 1 item 9).  A row word is 64 bits:
-its flags below LIVE_SHIFT, its live slots above.
+cotangents.  The keys of K1, K2, K4 and K5 take the phase rows -- a
+linear grating or a radial diffractive phase (DOE) on a flat,
+spherical, conic, aspheric, biconic or toroidal substrate --: such a
+key's rows grow by grating_dy (Key.grating, cuda_trace.carries_grating;
+RAYOPT_N_GRAT) and by n_after and the table's nd DOE coefficients
+(Key.nd, cuda_trace.doe_width; RAYOPT_N_DOE), K5's slots by the
+cotangents of grating_dy and of the coefficients.  The keys of K3 and
+K6-K9, and every key on a phase row whose substrate is a cylinder,
+refuse the phase rows (NotImplementedError, ROADMAP Queue 1 item 9.4,
+part two); every key refuses the freeform rows (item 9.5).  A row word
+is 64 bits: its flags below LIVE_SHIFT, its live slots above.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns, then a figured key's na even and no odd
-coefficients, then an anamorphic key's curvature_dx and conic_dx; K9
-puts n_before between the six and the coefficients, OPD_SLOTS + na + no
+coefficients, then an anamorphic key's curvature_dx and conic_dx, then
+a grating key's grating_dy, then a DOE key's nd coefficients; K9 puts
+n_before between the six and the coefficients, OPD_SLOTS + na + no
 [+ 2] a row) are the fields asked for, minus what the
 row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
 row, conic of a flat or spherical row -- both live on an aspheric row,
 whose Newton reads them through the sag --, the transverse offset of an
 on-axis row, mu of a passthrough row, the coefficients of a row that
-reads no figure: neither aspheric nor a biconic or toroid); the axial
-offset is never baked out.  K9's image row is read
+reads no figure: neither aspheric nor a biconic or toroid, grating_dy
+of a row that is no grating, the DOE coefficients of a row that is no
+DOE); the axial offset is never baked out.  K9's image row is read
 only by the reference-sphere tail, which reads its offset (the
 transverse part only off axis), its rotation and its n_before, never
 its curvature, conic or mu; every other row's n_before carries its
@@ -77,13 +87,15 @@ import torch
 
 from . import kernels as K
 from .cuda_trace import ANAM, ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, \
-    carries_anamorphic, figure_widths, pack_values, sm_count
+    carries_anamorphic, carries_grating, doe_width, figure_widths, \
+    pack_values, sm_count
 
-LIVE_SHIFT = 14    # a row word's live slots: keep in sync with grad_spec.cuh
+LIVE_SHIFT = 16    # a row word's live slots: keep in sync with grad_spec.cuh
 LIVE_BITS = 63 - LIVE_SHIFT   # the slots a (64-bit) row word can hold
 SLOTS = 6          # K5's and K7's cotangent columns a row (a figured
 #                    key adds its table's aspheric coefficients, an
-#                    anamorphic key then curvature_dx and conic_dx)
+#                    anamorphic key then curvature_dx and conic_dx, K5's
+#                    phase key grating_dy and the DOE coefficients)
 OPD_SLOTS = 7      # K9's: SLOTS and n_before (then as K5's)
 #: the table field of each of K9's first OPD_SLOTS cotangent columns
 #: (K5/K7: the first SLOTS); the even, then the odd aspheric
@@ -91,11 +103,12 @@ OPD_SLOTS = 7      # K9's: SLOTS and n_before (then as K5's)
 SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
                "n_before")
 #: the fields K5 and K7 differentiate (a key of a table with no aspheric
-#: row: the first four; the last two only an anamorphic key)
+#: row: the first four; curvature_dx and conic_dx only an anamorphic
+#: key, grating_dy and doe only K5's key of a grating or DOE table)
 FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd",
-          "curvature_dx", "conic_dx")
+          "curvature_dx", "conic_dx", "grating_dy", "doe")
 #: the fields K9 differentiates, in the order of cuda_grad._DIFF
-OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:]
+OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:8]
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
            "df32_common.cuh", "df32_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
@@ -172,9 +185,16 @@ def baked_out_rows(specs, field):
     on an x-cylinder, a biconic and a toroid, conic_dx on an x-cylinder
     and a biconic.  A y-cylinder reads neither: the reference's rule
     keeps them (their gradient is zero there all the same), the port
-    bakes them out, so that the call warns (ROADMAP Queue 3)."""
+    bakes them out, so that the call warns (ROADMAP Queue 3).  A
+    grating or DOE row keeps its curvature and conic live as the
+    reference's rule does (the radial normal of its solve reads the
+    conic of a spherical row); grating_dy is read by a grating row only
+    and the DOE coefficients by a DOE row only, which the reference's
+    rule does not name (it keeps them everywhere; the port bakes them
+    out, so that the call warns: ROADMAP Queue 3)."""
     def fig(sp):
-        return K.is_figured(sp) or K.is_anamorphic_spec(sp)
+        return (K.is_figured(sp) or K.is_anamorphic_spec(sp)
+                or K.is_phase(sp))
 
     def reads_cdx(sp):
         return sp.cyl_axis == 2 or (not sp.cyl_axis
@@ -192,7 +212,9 @@ def baked_out_rows(specs, field):
              "mu": lambda sp: sp.kind == 0,
              "rot": lambda sp: not sp.rotated,
              "aspherics": lambda sp: not K.reads_figure(sp),
-             "aspherics_odd": lambda sp: not K.reads_figure(sp)}.get(field)
+             "aspherics_odd": lambda sp: not K.reads_figure(sp),
+             "grating_dy": lambda sp: not sp.grating,
+             "doe": lambda sp: not sp.doe}.get(field)
     if baked is None:
         return []
     return [j for j, sp in enumerate(specs) if j and baked(sp)]
@@ -206,20 +228,28 @@ def _coefficients(widths):
 
 
 def _anamorphic(specs):
-    """The slot fields of an anamorphic key's two last slots."""
+    """The slot fields of an anamorphic key's two slots."""
     return ("curvature_dx", "conic_dx") if carries_anamorphic(specs) else ()
 
 
-def live_slots(specs, fields=FIELDS, widths=(0, 0)):
+def _phase(specs, nd):
+    """The slot fields of a phase key's last slots: grating_dy
+    (carries_grating), then nd DOE coefficients."""
+    return (("grating_dy",) if carries_grating(specs) else ()) \
+        + ("doe",)*nd
+
+
+def live_slots(specs, fields=FIELDS, widths=(0, 0), nd=0):
     """One mask a row of the slots K5 and K7 reduce -- SLOTS bits, then
     with `widths` = (na, no) (the key's, figure_widths) one a
     coefficient, then for anamorphic specs (carries_anamorphic)
-    curvature_dx and conic_dx: the `fields` asked for, minus the rows
-    the specs bake them out of (the axial offset, slot 4, never is;
-    baked_out_rows).  Row 0 has none."""
+    curvature_dx and conic_dx, then for grating specs (carries_grating)
+    grating_dy and nd (the key's, doe_width) DOE coefficients: the
+    `fields` asked for, minus the rows the specs bake them out of (the
+    axial offset, slot 4, never is; baked_out_rows).  Row 0 has none."""
     return _live_slots(specs, fields, FIELDS,
                        SLOT_FIELDS[:SLOTS] + _coefficients(widths)
-                       + _anamorphic(specs))
+                       + _anamorphic(specs) + _phase(specs, nd))
 
 
 def opd_live_slots(specs, fields=OPD_FIELDS, widths=(0, 0)):
@@ -279,9 +309,12 @@ class Key(NamedTuple):
     kernel, K7 included: it stages one table at a time), whether K3's
     trace runs the wavelengths outermost, the even and odd aspheric
     coefficients a row carries (na, no: a figured table's widths; 0 and
-    0 without an aspheric row) and whether a row is anamorphic
+    0 without an aspheric row), whether a row is anamorphic
     (anamorphic: a packed row then carries ANAM words more, its
-    curvature_dx and conic_dx)."""
+    curvature_dx and conic_dx), whether a row is a grating (a packed row
+    then carries grating_dy, K5 its slot) and the DOE coefficients a row
+    carries (nd: a DOE table's width, 0 without a DOE row; a packed row
+    then carries n_after and the nd coefficients, K5 their slots)."""
 
     kernel: str
     dtype: str
@@ -295,6 +328,8 @@ class Key(NamedTuple):
     na: int = 0
     no: int = 0
     anamorphic: bool = False
+    grating: bool = False
+    nd: int = 0
 
     @property
     def name(self):
@@ -308,6 +343,10 @@ class Key(NamedTuple):
             text += " figure %d %d" % (self.na, self.no)
         if self.anamorphic:
             text += " anamorphic"
+        if self.grating:
+            text += " grating"
+        if self.nd:
+            text += " doe %d" % self.nd
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
@@ -317,16 +356,20 @@ class Key(NamedTuple):
 
     @property
     def row_words(self):
-        """A packed row's words: ROW, the aspheric coefficients and the
-        anamorphic words."""
-        return ROW + self.na + self.no + self.anam_words
+        """A packed row's words: ROW, the aspheric coefficients, the
+        anamorphic words, grating_dy, and n_after with the DOE
+        coefficients."""
+        return ROW + self.na + self.no + self.anam_words + int(self.grating) \
+            + (1 + self.nd if self.nd else 0)
 
     @property
     def slots(self):
         """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS),
-        the coefficients and the anamorphic words."""
+        the coefficients, the anamorphic words, grating_dy and the DOE
+        coefficients."""
         return (OPD_SLOTS if self.kernel == "k9" else SLOTS) \
-            + self.na + self.no + self.anam_words
+            + self.na + self.no + self.anam_words + int(self.grating) \
+            + self.nd
 
     @property
     def anam_words(self):
@@ -376,10 +419,12 @@ def _dtype_name(dtype):
 
 
 def _words(specs, masks=None, kernel="k1"):
-    """A key's row words; a row the kernels do not trace raises
-    NotImplementedError (item 9): the grating, DOE and freeform rows."""
+    """A key's row words; a row the kernel does not trace raises
+    NotImplementedError: a freeform row (item 9.5), a grating or DOE row
+    in K3 and K6-K9, and one whose substrate is a cylinder in every key
+    (item 9.4, part two)."""
     for j, spec in enumerate(specs[1:], 1):
-        K.check_supported(spec, j, what=kernel.upper() + "'s key")
+        K.check_key_row(spec, j, kernel.upper() + "'s key", kernel)
     flags = [_flags(s) for s in specs]
     if masks is None:
         return tuple(flags)
@@ -418,15 +463,28 @@ def _widths(specs, widths, slots=SLOTS):
     return na, no
 
 
+def _nd(specs, nd):
+    """A key's DOE coefficients: 0 without a DOE row (whatever the
+    table's width), else `nd` (doe_width of the table), refused at 0."""
+    if not any(s.doe for s in specs[1:]):
+        return 0
+    if int(nd) < 1:
+        raise ValueError("DOE width %r: a DOE row needs the table's doe "
+                         "coefficients (cuda_trace.doe_width)" % (nd,))
+    return int(nd)
+
+
 def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
-              widths=(0, 0)):
+              widths=(0, 0), nd=0):
     """The K1 key of a spec tuple; `widths` the table's (na, no) aspheric
-    coefficients (figure_widths), read only when a row is figured."""
+    coefficients (figure_widths), read only when a row is figured; `nd`
+    the table's DOE coefficients (doe_width), read only by a DOE row."""
     words = _words(specs)
     na, no = _widths(specs, widths)
     return _static(Key("k1", _dtype_name(dtype), words, bool(clip), False,
                        int(block or BLOCK_TRACE), int(min_blocks),
-                       na=na, no=no, anamorphic=carries_anamorphic(specs)))
+                       na=na, no=no, anamorphic=carries_anamorphic(specs),
+                       grating=carries_grating(specs), nd=_nd(specs, nd)))
 
 
 def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
@@ -445,7 +503,7 @@ def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
 
 
 def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
-             widths=(0, 0)):
+             widths=(0, 0), nd=0):
     """A moment kernel's key, refused when its staged tables and block
     reduction outgrow static shared memory, or (K3, K6) past MAX_NLAM
     wavelengths."""
@@ -453,7 +511,8 @@ def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
     na, no = _widths(specs, widths)
     key = Key(kernel, _dtype_name(dtype), words, bool(clip), False,
               int(block or BLOCK_MOMENTS), int(min_blocks), int(nlam),
-              na=na, no=no, anamorphic=carries_anamorphic(specs))
+              na=na, no=no, anamorphic=carries_anamorphic(specs),
+              grating=carries_grating(specs), nd=_nd(specs, nd))
     return _static(_unrolled(key))
 
 
@@ -470,15 +529,17 @@ def _unrolled(key):
 
 
 def merit_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
-              widths=(0, 0)):
-    """The K2 key of a spec tuple (`widths` as trace_key's)."""
-    return _moments("k2", specs, dtype, clip, 1, block, min_blocks, widths)
+              widths=(0, 0), nd=0):
+    """The K2 key of a spec tuple (`widths` and `nd` as trace_key's)."""
+    return _moments("k2", specs, dtype, clip, 1, block, min_blocks, widths,
+                    nd)
 
 
 def moments_key(specs, dtype, clip=False, block=None,
-                min_blocks=MIN_BLOCKS, widths=(0, 0)):
-    """The K4 key of a spec tuple (`widths` as trace_key's)."""
-    return _moments("k4", specs, dtype, clip, 1, block, min_blocks, widths)
+                min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0):
+    """The K4 key of a spec tuple (`widths` and `nd` as trace_key's)."""
+    return _moments("k4", specs, dtype, clip, 1, block, min_blocks, widths,
+                    nd)
 
 
 def moments_multi_key(specs, dtype, clip, nlam, block=None,
@@ -534,14 +595,15 @@ def multi_most(kernel, specs, dtype, block=None, widths=(0, 0)):
 
 
 def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
-             widths=(0, 0)):
+             widths=(0, 0), nd=0):
     """An adjoint's key, refused when a block's saved states and
     reduction outgrow the shared memory it may opt in to."""
     na, no = widths
     key = Key(kernel, _dtype_name(dtype), _words(specs, masks, kernel),
               bool(clip), bool(rays), int(block or BLOCK_ADJOINT),
               int(min_blocks), na=na, no=no,
-              anamorphic=carries_anamorphic(specs))
+              anamorphic=carries_anamorphic(specs),
+              grating=carries_grating(specs), nd=nd)
     if key.shared_bytes > SMEM_OPTIN:
         raise ValueError(
             "%s keeps %d rows of saved state at %d threads a block in %s: "
@@ -552,14 +614,17 @@ def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
 
 
 def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
-                block=None, min_blocks=MIN_BLOCKS, widths=(0, 0)):
+                block=None, min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0):
     """The K5 key of a spec tuple, the fields whose cotangents are
     wanted (see live_slots), whether the ray and weight cotangents are,
-    and `widths` as trace_key's (a figured key's rows reduce their
-    aspheric coefficients too)."""
-    widths = _widths(specs, widths, SLOTS + len(_anamorphic(specs)))
-    return _adjoint("k5", specs, live_slots(specs, fields, widths), dtype,
-                    clip, rays, block, min_blocks, widths)
+    and `widths` and `nd` as trace_key's (a figured key's rows reduce
+    their aspheric coefficients too, a grating key's grating_dy, a DOE
+    key's DOE coefficients)."""
+    nd = _nd(specs, nd)
+    widths = _widths(specs, widths, SLOTS + len(_anamorphic(specs))
+                     + len(_phase(specs, nd)))
+    return _adjoint("k5", specs, live_slots(specs, fields, widths, nd),
+                    dtype, clip, rays, block, min_blocks, widths, nd)
 
 
 def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
@@ -780,12 +845,16 @@ def translation_unit(key):
         return _df32_unit(key)
     ctype = "float" if key.dtype == "f32" else "double"
     words = ", ".join(str(w) for w in key.words)
-    # a figured key's coefficient widths and an anamorphic key's words,
-    # before the headers read them
+    # a figured key's coefficient widths, an anamorphic key's words and a
+    # phase key's, before the headers read them
     figure = ("#define RAYOPT_N_ASP %d\n#define RAYOPT_N_ODD %d\n"
               % (key.na, key.no) if key.na or key.no else "")
     if key.anamorphic:
         figure += "#define RAYOPT_N_ANAM %d\n" % ANAM
+    if key.grating:
+        figure += "#define RAYOPT_N_GRAT 1\n"
+    if key.nd:
+        figure += "#define RAYOPT_N_DOE %d\n" % key.nd
     head = ("// %s, specialized by rayopt_tpu_torch.ops.cuda_spec\n"
             "// key: %r\n%s#include \"grad_spec.cuh\"\n\n"
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"
@@ -902,9 +971,12 @@ def packed(table, specs, x):
     """The table (or a stack of tables) packed in the rays' dtype on
     their device, with one spec a row (a figured table's rows with its
     aspheric coefficients, cuda_trace.figure_widths; an anamorphic
-    table's with curvature_dx and conic_dx, carries_anamorphic)."""
+    table's with curvature_dx and conic_dx, carries_anamorphic; a
+    grating table's with grating_dy, carries_grating; a DOE table's with
+    n_after and its coefficients, doe_width)."""
     tab = pack_values(table, x.dtype, x.device, figure_widths(table, specs),
-                      carries_anamorphic(specs))
+                      carries_anamorphic(specs), carries_grating(specs),
+                      doe_width(table, specs))
     if tab.shape[-2] != len(specs):
         raise ValueError("%d specs for a table of %d rows"
                          % (len(specs), tab.shape[-2]))

@@ -18,7 +18,11 @@ seeded Newton intercept, its key carrying the table's coefficient
 widths, `figure_widths`) and the anamorphic rows: conic cylinders in
 closed form, biconics and toroids, with or without an aspheric figure,
 by the seeded Newton (their key's rows carry curvature_dx and conic_dx,
-`carries_anamorphic`).
+`carries_anamorphic`), and the phase rows: a linear grating or a radial
+diffractive phase (DOE) on any substrate but a cylinder, by the
+generalized Spencer & Murty solve (their key's rows carry grating_dy,
+`carries_grating`, and n_after and the DOE coefficients, `doe_width`;
+K1 adds the DOE's phase to the optical path).
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
 leading wavelength axis, System.tables) and ONE bundle traced through
@@ -57,7 +61,8 @@ from .tables import lower_pose, table_at
 # packed row layout and flag bits: keep in sync with csrc/trace_common.cuh;
 # a figured table's rows carry its even, then its odd aspheric
 # coefficients after the ROW base words (P_ASP on), then an anamorphic
-# table's curvature_dx and conic_dx
+# table's curvature_dx and conic_dx, then a grating key's grating_dy,
+# then a DOE key's n_after and its nd coefficients
 P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
 P_ASP = ROW
 F_FLAT, F_SPHERICAL, F_ROTATED, F_OFF_AXIS = 1, 2, 4, 8
@@ -68,6 +73,8 @@ F_ASPHERIC, F_ODD = 256, 512
 F_CYL_Y, F_CYL_X, F_BICONIC, F_TOROID = 1024, 2048, 4096, 8192
 #: an anamorphic key's words a row (and K5's slots): curvature_dx, conic_dx
 ANAM = 2
+# the phase rows: a linear grating, a radial diffractive phase (DOE)
+F_GRATING, F_DOE = 16384, 32768
 
 SMEM_LIMIT = 48*1024  # static shared memory, or dynamic without an opt-in
 SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (the adjoints)
@@ -137,7 +144,9 @@ def _flags(spec):
             | (int(spec.kind) << KIND_SHIFT)
             | (F_ASPHERIC if spec.aspheric else 0)
             | (F_ODD if spec.odd else 0)
-            | _anamorphic_flag(spec))
+            | _anamorphic_flag(spec)
+            | (F_GRATING if spec.grating else 0)
+            | (F_DOE if spec.doe else 0))
 
 
 def _anamorphic_flag(spec):
@@ -168,12 +177,30 @@ def figure_widths(table, specs):
             int(table.aspherics_odd.shape[-1]))
 
 
-def pack_values(table, dtype, device, widths=(0, 0), anamorphic=False):
+def carries_grating(specs):
+    """Whether a packed row carries grating_dy (K5's slots too): some
+    row of `specs` is a grating."""
+    return any(s.grating for s in specs[1:])
+
+
+def doe_width(table, specs):
+    """The DOE coefficients a packed row carries (after n_after; K5's
+    slots: the coefficients): the table's doe width when some row of
+    `specs` is a DOE, else 0."""
+    if not any(s.doe for s in specs[1:]):
+        return 0
+    return int(table.doe.shape[-1])
+
+
+def pack_values(table, dtype, device, widths=(0, 0), anamorphic=False,
+                grating=False, nd=0):
     """The lowered table's values as one contiguous (S, ROW + na + no
-    [+ ANAM]) tensor in `dtype` on `device` -- (L, S, ...) for a stacked
-    table -- with `widths` = (na, no) (figure_widths) the aspheric
-    coefficients a row carries after its ROW base words, then with
-    `anamorphic` (carries_anamorphic) its curvature_dx and conic_dx."""
+    [+ ANAM] [+ 1] [+ 1 + nd]) tensor in `dtype` on `device` -- (L, S,
+    ...) for a stacked table -- with `widths` = (na, no) (figure_widths)
+    the aspheric coefficients a row carries after its ROW base words,
+    then with `anamorphic` (carries_anamorphic) its curvature_dx and
+    conic_dx, with `grating` (carries_grating) its grating_dy, and with
+    nd (doe_width) its n_after and nd DOE coefficients."""
     table = lower_pose(table)
     na, no = widths
     cols = [table.curvature[..., None], table.conic[..., None], table.offset,
@@ -185,17 +212,21 @@ def pack_values(table, dtype, device, widths=(0, 0), anamorphic=False):
         cols.append(table.aspherics_odd)
     if anamorphic:
         cols += [table.curvature_dx[..., None], table.conic_dx[..., None]]
+    if grating:
+        cols.append(table.grating_dy[..., None])
+    if nd:
+        cols += [table.n_after[..., None], table.doe]
     # cast first (the kernel traces in `dtype`), then move
     return torch.cat(cols, dim=-1).to(dtype=dtype).to(
         device=device).contiguous()
 
 
 def pack_table(table, specs, dtype, device):
-    """The lowered table as one contiguous (S, ROW + na + no [+ ANAM])
-    tensor in `dtype` on `device` (figure_widths, carries_anamorphic) --
-    (L, S, ...) for a stacked table, whose tables share the specs --
-    plus the (S,) int32 flags that encode each row's SurfaceSpec.  Rows
-    that need the grating, DOE or freeform vocabulary raise
+    """The lowered table as one contiguous (S, ROW + na + no [+ ANAM]
+    [+ 1] [+ 1 + nd]) tensor in `dtype` on `device` (figure_widths,
+    carries_anamorphic, carries_grating, doe_width) -- (L, S, ...) for a
+    stacked table, whose tables share the specs -- plus the (S,) int32
+    flags that encode each row's SurfaceSpec.  Freeform rows raise
     NotImplementedError."""
     nsurf = table.curvature.shape[-1]
     if len(specs) != nsurf:
@@ -206,7 +237,8 @@ def pack_table(table, specs, dtype, device):
     flags = torch.tensor([_flags(s) for s in specs], dtype=torch.int32,
                          device=device)
     return pack_values(table, dtype, device, figure_widths(table, specs),
-                       carries_anamorphic(specs)), flags
+                       carries_anamorphic(specs), carries_grating(specs),
+                       doe_width(table, specs)), flags
 
 
 @functools.lru_cache(maxsize=None)
@@ -237,9 +269,9 @@ def _check_state(state):
 
 
 @functools.lru_cache(maxsize=None)
-def _trace_kernel(specs, dtype, clip, widths):
+def _trace_kernel(specs, dtype, clip, widths, nd=0):
     from . import cuda_spec as CS     # cuda_spec imports this module
-    return CS.load(CS.trace_key(specs, dtype, clip, widths=widths))
+    return CS.load(CS.trace_key(specs, dtype, clip, widths=widths, nd=nd))
 
 
 def trace_final(table, specs, state, clip=False):
@@ -256,7 +288,7 @@ def trace_final(table, specs, state, clip=False):
     device, n, stream = spec_launch(state)
     specs = tuple(specs)
     kern = _trace_kernel(specs, x.dtype, bool(clip),
-                         figure_widths(table, specs))
+                         figure_widths(table, specs), doe_width(table, specs))
     tab = packed(table, specs, x)
     outs = [torch.empty_like(x) for _ in range(7)]
     if n:
@@ -271,9 +303,9 @@ trace_final.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _merit_kernel(specs, dtype, clip, widths):
+def _merit_kernel(specs, dtype, clip, widths, nd=0):
     from . import cuda_spec as CS     # cuda_spec imports this module
-    return CS.load(CS.merit_key(specs, dtype, clip, widths=widths))
+    return CS.load(CS.merit_key(specs, dtype, clip, widths=widths, nd=nd))
 
 
 def trace_merit(table, specs, state, clip=False):
@@ -290,7 +322,8 @@ def trace_merit(table, specs, state, clip=False):
     spec_launch(state)
     specs = tuple(specs)
     out = launch_moments(_merit_kernel(specs, x.dtype, bool(clip),
-                                       figure_widths(table, specs)),
+                                       figure_widths(table, specs),
+                                       doe_width(table, specs)),
                          table, specs, state)
     if x.shape[0]:
         trace_merit.launches += 1

@@ -7,8 +7,9 @@ seeded Newton intercept) -- and the anamorphic rows: with `specs` each
 row's own branch (a conic cylinder in closed form, a biconic or toroid
 by the seeded Newton), without them the generic walk's anamorphic step
 when `biconic=True` (set it when ops.tables.is_anamorphic(table), as in
-the reference).  A grating, DOE or freeform row raises
-NotImplementedError (ROADMAP Queue 1 item 9).  The JAX package
+the reference; its grating and DOE rows take the generalized Spencer
+& Murty solve there, as they do with specs).  A freeform row raises
+NotImplementedError (ROADMAP Queue 1 item 9.5).  The JAX package
 runs the generic walk as one `lax.scan`; here it is a Python loop over
 rows, each a handful of elementwise torch operations on the whole
 bundle.

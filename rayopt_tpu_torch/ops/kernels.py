@@ -14,9 +14,11 @@ toroids (rotated, off-axis, passthrough, refracting and mirror rows,
 aperture clip).  An aspheric, biconic or toroidal row is intercepted
 by a fixed-count Newton seeded from the (y-)conic (`intercept`,
 `intercept_biconic`, `intercept_toroid`), differentiated implicitly at
-the root (`_NewtonRoot`).  The rest of the extended vocabulary
-(grating, DOE and freeform rows, ROADMAP Queue 1 item 9) is not ported
-yet: a row that needs it raises NotImplementedError.
+the root (`_NewtonRoot`).  A linear grating or a radial diffractive
+phase (DOE) on any of these substrates takes the generalized Spencer &
+Murty solve (`refract_grating`, `doe_kick`).  The freeform XY rows
+(ROADMAP Queue 1 item 9.5) are not ported yet: a row that needs them
+raises NotImplementedError.
 
 NaN marks a vignetted or missed ray.  `_sqrt0` clamps negative
 arguments to 0 but lets NaN through, and every miss is set to NaN
@@ -399,6 +401,57 @@ def intercept_toroid(x, y, z, ux, uy, uz, cr, cy, ky, aspherics,
                             aspherics_odd)
 
 
+def doe_kick(x, y, doe):
+    """Per-ray tangential kick (sx, sy) of a radially symmetric
+    diffractive phase: the table column `doe` holds the dimensionless
+    kick potential psi(r^2) = sum doe[i] r**(2i+2) (= m lambda phi(r)/
+    (2 pi n_after), phi the imprinted phase in radians), so the Spencer
+    & Murty kick is grad psi = dpsi/d(r^2) * (2x, 2y)."""
+    e = _dpoly_even(x*x + y*y, doe)
+    return e*x, e*y
+
+
+def refract_grating(x, y, ux, uy, uz, mu, gdy, gx, gy, doe=None):
+    """Diffraction-grating refraction or reflection on an arbitrary
+    substrate normal (gx, gy, 1), the JAX package's refract_grating: the
+    generalized Spencer & Murty construction u' = |mu| u + T q + s +
+    Gamma n with the unit groove vector q (y-hat projected into the
+    tangent plane), the grating term T = m lambda G / n_after (the
+    table's grating_dy) and an optional radial diffractive kick s =
+    grad psi(r^2) (the table's doe row).  A mirror (mu == -1) takes the
+    root that flips the normal component.  T == 0 and s == 0 reduce
+    exactly to Snell or the mirror; the row passes untouched only where
+    mu == 1, T == 0 and every doe coefficient is 0 -- decided for the
+    row, not a ray (an on-axis ray has s == 0 and still takes the
+    solve).  An evanescent order (no real Gamma) gives NaN."""
+    nn = gx*gx + gy*gy + 1.
+    inv_nn = 1./nn
+    muf = torch.abs(mu)
+    qx, qy, qz = -gy*gx*inv_nn, 1. - gy*gy*inv_nn, -gy*inv_nn
+    qn = torch.rsqrt(torch.clamp(qx*qx + qy*qy + qz*qz, min=TINY))
+    qx, qy, qz = qx*qn, qy*qn, qz*qn
+    bx = muf*ux + gdy*qx
+    by = muf*uy + gdy*qy
+    bz = muf*uz + gdy*qz
+    keep = (mu == 1) & (torch.as_tensor(gdy) == 0)
+    if _width(doe):
+        sx, sy = doe_kick(x, y, doe)
+        bx = bx + sx
+        by = by + sy
+        keep = keep & torch.all(doe == 0, dim=-1)
+    bn = (bx*gx + by*gy + bz)*inv_nn
+    bb = bx*bx + by*by + bz*bz
+    disc = bn*bn - (bb - 1.)*inv_nn
+    root = _sqrt0(disc)
+    gam_t = -bn + torch.sign(mu)*root
+    gam_r = -bn - torch.sign(bn)*root
+    gam = torch.where(mu == -1, gam_r, gam_t)
+    gam = torch.where(disc < 0, NAN, gam)
+    ox, oy, oz = bx + gam*gx, by + gam*gy, bz + gam
+    return (torch.where(keep, ux, ox), torch.where(keep, uy, oy),
+            torch.where(keep, uz, oz))
+
+
 def _refract_general(x, y, ux, uy, uz, mu, gx, gy):
     """Snell/mirror on an arbitrary (gx, gy, 1) normal (reference
     kernels._refract_general)."""
@@ -534,8 +587,16 @@ class SurfaceSpec(NamedTuple):
 
 #: where the extended vocabulary waits (its NotImplementedError says so)
 ITEM9 = "ROADMAP Queue 1 item 9"
-#: SurfaceSpec flags of the extended vocabulary, not ported yet
-EXTENDED = ("grating", "doe", "freeform")
+#: SurfaceSpec flags of the extended vocabulary no engine traces yet
+EXTENDED = ("freeform",)
+#: the phase rows (a grating or a DOE on any substrate), traced by the
+#: torch path and by the keys of PHASE_KERNELS
+PHASE = ("grating", "doe")
+#: the kernels whose keys take the phase rows
+PHASE_KERNELS = ("k1", "k2", "k4", "k5")
+#: the ROADMAP item each row kind waits on where it is refused
+ITEMS = {"grating": "9.4 (part two)", "doe": "9.4 (part two)",
+         "freeform": "9.5"}
 
 
 def is_figured(spec):
@@ -558,30 +619,51 @@ def reads_figure(spec):
                                      and not spec.cyl_axis))
 
 
-def check_supported(spec, j=None, what="rayopt_tpu_torch"):
-    """Raise NotImplementedError, naming ROADMAP Queue 1 item 9, for a
-    row that needs the extended surface vocabulary (`what`: the engine
-    or key that does not trace it): grating, DOE and freeform rows."""
+def is_phase(spec):
+    """True for a grating or DOE row (the generalized solve)."""
+    return bool(spec.grating or spec.doe)
+
+
+def check_supported(spec, j=None, what="rayopt_tpu_torch", kernel=None):
+    """Raise NotImplementedError, naming its ROADMAP Queue 1 item, for a
+    row that `what` (the engine or key) does not trace: a freeform row
+    anywhere (item 9.5), and with `kernel` ("k1" ... "k9", "df32") a
+    grating or DOE row where that kernel is not one of PHASE_KERNELS
+    (item 9.4, part two)."""
     used = [f for f in EXTENDED if getattr(spec, f)]
+    if kernel is not None and kernel not in PHASE_KERNELS:
+        used += [f for f in PHASE if getattr(spec, f)]
     if used:
         raise NotImplementedError(
-            "surface row %s uses %s, which %s does not trace yet (%s)"
-            % ("?" if j is None else j, "/".join(used), what, ITEM9))
+            "surface row %s uses %s, which %s does not trace yet "
+            "(ROADMAP Queue 1 %s)"
+            % ("?" if j is None else j, "/".join(used), what,
+               " and ".join(sorted({"item " + ITEMS[f] for f in used}))))
+
+
+def check_key_row(spec, j=None, what="rayopt_tpu_torch", kernel="k1"):
+    """check_supported for a row of `kernel`'s key, which also refuses a
+    grating or DOE on a cylinder (ROADMAP Queue 1 item 9.4, part two):
+    the plain torch path traces it, no key does."""
+    check_supported(spec, j, what, kernel)
+    if is_phase(spec) and spec.cyl_axis:
+        raise NotImplementedError(
+            "surface row %s is a grating or DOE on a cylinder, which %s "
+            "does not trace yet (ROADMAP Queue 1 item %s)"
+            % ("?" if j is None else j, what, ITEMS["grating"]))
 
 
 def require_radial(table):
-    """Raise NotImplementedError (item 9) when the generic (spec-free)
-    trace would need the unported vocabulary for some row of `table`:
-    a grating, DOE or freeform row.  (Its anamorphic rows are traced by
-    surface_step(biconic=True), or as the radial rows their y figure
-    makes without the flag, as in the reference.)"""
-    def any_nonzero(f):
-        return f is not None and f.numel() and bool(torch.any(f != 0))
-    if any(any_nonzero(getattr(table, f))
-           for f in ("grating_dy", "doe", "xy_poly")):
+    """Raise NotImplementedError (item 9.5) when the generic (spec-free)
+    trace would need the unported vocabulary for some row of `table`: a
+    freeform row.  (Its anamorphic, grating and DOE rows are traced by
+    surface_step(biconic=True); without the flag they trace as the
+    radial rows their y figure makes, as in the reference.)"""
+    xy = table.xy_poly
+    if xy is not None and xy.numel() and bool(torch.any(xy != 0)):
         raise NotImplementedError(
-            "the table has grating, DOE or freeform rows, which "
-            "rayopt_tpu_torch does not trace yet (%s)" % ITEM9)
+            "the table has freeform rows, which rayopt_tpu_torch does not "
+            "trace yet (%s.5)" % ITEM9)
 
 
 def specialize(table):
@@ -820,7 +902,30 @@ def surface_step_spec(state, surf, spec, clip):
         ux0 = torch.where(bad, NAN, ux0)
         uy0 = torch.where(bad, NAN, uy0)
         uz0 = torch.where(bad, NAN, uz0)
-    if is_anamorphic_spec(spec) and spec.kind == 0:
+    if is_phase(spec):
+        # the substrate's normal by its figure, then the generalized
+        # grating/phase solve (exact Snell at order zero); before the
+        # passthrough: a grating row with mu == 1 still diffracts
+        if spec.toroidal:
+            ngx, ngy = normal_toroid(x1, y1, cx, c, k, surf.aspherics,
+                                     surf.aspherics_odd)
+        elif spec.biconic:
+            ngx, ngy = normal_biconic(x1, y1, cx, kx, c, k, surf.aspherics,
+                                      surf.aspherics_odd)
+        elif spec.flat and not is_figured(spec):
+            ngx, ngy = torch.zeros_like(x1), torch.zeros_like(y1)
+        else:
+            e = normal_radial(x1, y1, c, k, surf.aspherics,
+                              surf.aspherics_odd)
+            ngx, ngy = x1*e, y1*e
+        ux1, uy1, uz1 = refract_grating(
+            x1, y1, ux0, uy0, uz0, surf.mu,
+            surf.grating_dy if spec.grating else 0., ngx, ngy,
+            doe=surf.doe if spec.doe else None)
+        if spec.doe:
+            # the imprinted phase is optical path: psi * n_after
+            topt = topt + _poly_even(x1*x1 + y1*y1, surf.doe)*surf.n_after
+    elif is_anamorphic_spec(spec) and spec.kind == 0:
         # a passthrough anamorphic row skips the normal and Snell
         ux1, uy1, uz1 = ux0, uy0, uz0
     elif spec.cyl_axis == 1:
@@ -866,10 +971,11 @@ def _intercept_anam(x, y, z, ux, uy, uz, surf):
 
 
 def _refract_anam(x, y, ux, uy, uz, surf):
-    """The dynamic walk's refraction of an anamorphic table: the
-    biconic-or-toroid normal, then the reference's generalized
-    (grating) solve at zero grating term and no diffractive kick --
-    Snell, or a mirror's reflection, on the (gx, gy, 1) normal."""
+    """The dynamic walk's refraction of an anamorphic (or grating, or
+    DOE) table: the biconic-or-toroid normal, then the generalized
+    grating/phase solve with the row's grating term and diffractive
+    kick (refract_grating) -- at zero both, Snell or a mirror's
+    reflection on the (gx, gy, 1) normal."""
     c, k, mu = surf.curvature, surf.conic, surf.mu
     cx, kx = c + surf.curvature_dx, k + surf.conic_dx
     gbx, gby = normal_biconic(x, y, cx, kx, c, k, surf.aspherics,
@@ -879,21 +985,8 @@ def _refract_anam(x, y, ux, uy, uz, surf):
     tor = surf.toroidal != 0
     gx = torch.where(tor, gtx, gbx)
     gy = torch.where(tor, gty, gby)
-    inv_nn = 1./(gx*gx + gy*gy + 1.)
-    muf = torch.abs(mu)
-    bx, by, bz = muf*ux, muf*uy, muf*uz
-    bn = (bx*gx + by*gy + bz)*inv_nn
-    bb = bx*bx + by*by + bz*bz
-    disc = bn*bn - (bb - 1.)*inv_nn
-    root = _sqrt0(disc)
-    gam_t = -bn + torch.sign(mu)*root
-    gam_r = -bn - torch.sign(bn)*root
-    gam = torch.where(mu == -1, gam_r, gam_t)
-    gam = torch.where(disc < 0, NAN, gam)
-    ox, oy, oz = bx + gam*gx, by + gam*gy, bz + gam
-    keep = mu == 1
-    return (torch.where(keep, ux, ox), torch.where(keep, uy, oy),
-            torch.where(keep, uz, oz))
+    gdy = 0. if surf.grating_dy is None else surf.grating_dy
+    return refract_grating(x, y, ux, uy, uz, mu, gdy, gx, gy, doe=surf.doe)
 
 
 def surface_step(state, surf, clip, biconic=False):
@@ -904,7 +997,8 @@ def surface_step(state, surf, clip, biconic=False):
     refracted with the radial normal, with no static specialization.
     biconic (static; set it when ops.tables.is_anamorphic(table)): every
     row takes the anamorphic sag instead -- the biconic-or-toroid
-    seeded Newton and normal (_intercept_anam, _refract_anam).
+    seeded Newton and normal (_intercept_anam), and the generalized
+    grating/phase solve (_refract_anam) with the DOE's path term.
     Returns (next_state, local_outputs) with the per-surface (y, u, i,
     t) in the surface-normal frame (reference system.py:459-464).
     Callers check the table with `require_radial` first."""
@@ -929,6 +1023,10 @@ def surface_step(state, surf, clip, biconic=False):
     topt = t*surf.n_before
     if biconic:
         ux1, uy1, uz1 = _refract_anam(x1, y1, ux0, uy0, uz0, surf)
+        if _width(surf.doe):
+            # the imprinted phase is optical path (surface_step_spec); a
+            # row of zero coefficients adds zero
+            topt = topt + _poly_even(x1*x1 + y1*y1, surf.doe)*surf.n_after
     else:
         ux1, uy1, uz1 = refract(x1, y1, ux0, uy0, uz0, surf.mu,
                                 surf.curvature, surf.conic,

@@ -12,7 +12,7 @@ intercept is the conic root refined by a fixed trip-count Newton over
 the whole bundle (ASPHERIC_ITERS, unrolled: its gradient is that of
 the iterations, as in the reference's oracle).  A freeform XY figure
 (`xy_poly` of nonzero width) is not ported yet and raises
-NotImplementedError (ROADMAP Queue 1 item 9).
+NotImplementedError (ROADMAP Queue 1 item 9.5).
 """
 
 import torch
@@ -41,7 +41,7 @@ def _no_freeform(xy_poly):
     if xy_poly is not None and torch.as_tensor(xy_poly).shape[-1]:
         raise NotImplementedError(
             "freeform XY figures are not ported to rayopt_tpu_torch yet "
-            "(%s)" % ITEM9)
+            "(%s.5)" % ITEM9)
 
 
 def surface_sag(xyz, curvature, conic, aspherics, aspherics_odd=None,

@@ -305,6 +305,11 @@ class System(AimingMixin, list):
             self.refractive_index(self.wavelengths[0], 0)
         self.image.pupil.refractive_index = \
             self.refractive_index(self.wavelengths[0], -1)
+        for e in self:
+            if hasattr(e, "phase_coefficients"):
+                # the diffractive paraxial power needs the wavelength in
+                # system units; the element alone cannot know the scale
+                e._scale = self.scale
         self.paraxial.update_conjugates()
         self.paraxial.update()
         self.validate()
@@ -524,6 +529,10 @@ class System(AimingMixin, list):
         curvature_dx = np.zeros(s)
         conic_dx = np.zeros(s)
         toroidal = np.zeros(s)
+        grating_dy = np.zeros(s)
+        kd = max((len(getattr(e, "phase_coefficients", None) or ())
+                  for e in self), default=0)
+        doe = np.zeros((s, kd))
         aspherics = np.zeros((s, kmax))
         aspherics_odd = np.zeros((s, kmax_odd))
         offset = np.zeros((s, 3))
@@ -563,13 +572,27 @@ class System(AimingMixin, list):
             if hasattr(e, "get_n_mu"):
                 n0, mu[j] = e.get_n_mu(n0, wavelength)
             n_after[j] = n0
+            if getattr(e, "grating_frequency", 0.):
+                # the dimensionless linear-grating term m lambda G / n'
+                grating_dy[j] = (e.grating_order*(wavelength/self.scale)
+                                 * e.grating_frequency/abs(n0))
+            pc = getattr(e, "phase_coefficients", None)
+            if pc and getattr(e, "diffraction_order", 1):
+                # the radial kick potential psi(r^2) = m lambda phi(r)/
+                # (2 pi n'): doe[j, i] multiplies r**(2i+2), phi = sum
+                # A_i (r/R)**(2i)
+                fac = (e.diffraction_order*(wavelength/self.scale)
+                       / (2*np.pi*abs(n0)))
+                for i, a in enumerate(pc):
+                    doe[j, i] = fac*a/e.norm_radius**(2*(i + 1))
         return make_table(
             curvature=curvature, conic=conic, aspherics=aspherics,
             aspherics_odd=aspherics_odd, offset=offset, rot=rot,
             radius=radius, alternate=alternate, mu=mu,
             n_before=n_before, n_after=n_after, distance=distance,
             curvature_dx=curvature_dx, conic_dx=conic_dx,
-            toroidal=toroidal, dtype=dtype, device=device)
+            toroidal=toroidal, grating_dy=grating_dy, doe=doe,
+            dtype=dtype, device=device)
 
     def tables(self, wavelengths=None, dtype=torch.float64, device=None):
         """Stacked SurfaceTable with a leading wavelength axis, for

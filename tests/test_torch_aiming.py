@@ -210,15 +210,16 @@ def test_bundles_device_aim_matches_jax_and_host():
 
 
 def test_rim_mode_refuses_the_extended_vocabulary():
-    """Rim mode traces every row with the general trace, whose extended
-    vocabulary (ROADMAP Queue 1 item 9) is not ported: an extended spec
-    raises naming the item (the JAX package's
-    test_rim_aiming_sees_extended_vocabulary waits for it); stop mode
-    and conic rows are unaffected."""
+    """Rim mode traces every row with the general trace, whose freeform
+    rows (ROADMAP Queue 1 item 9.5) are not ported: a freeform spec
+    raises naming the item (the grating and DOE rows are traced: the
+    JAX package's test_rim_aiming_sees_extended_vocabulary is
+    tests/test_torch_grating.py's); stop mode and conic rows are
+    unaffected."""
     _, ts = _pair("cooke_triplet")
     tt = ts.table()
     specs = list(specialize(tt))
-    specs[2] = specs[2]._replace(doe=True)
+    specs[2] = specs[2]._replace(freeform=True)
     f = _meridional((1.,))
     with pytest.raises(NotImplementedError, match="item 9"):
         TA.aim_marginal_batched(tt, f, ts.object.pupil.distance,

@@ -2150,3 +2150,178 @@ def test_anamorphic_multi_and_opd_kernels_match_plain_on_card(cuda_device,
         for col in range(pg.shape[1]):
             if float(pref[:, col].abs().max()):
                 assert _max_rel(pg[:, col], pref[:, col]) <= gtol, col
+
+
+# -- the grating and DOE rows (K1, K2, K4, K5 keys) ---------------------------
+
+_A1 = -np.pi/((550e-9/1e-3)*100.)   # a kinoform of focal 100 mm at 550 nm
+
+
+def _phase_system(name):
+    """A grating or DOE lens: the published hybrid achromat and
+    spectrograph, and the JAX package's test lenses (the curved hybrid
+    with a two-term phase, the concave mirror grating, the refractive
+    grating on an R = 80 N-BK7 substrate, the reflective zone plate:
+    tests/test_torch_grating.py's LENSES); returns (system, bench half
+    width)."""
+    from rayopt_tpu_torch import System
+    if name in ("hybrid_achromat", "spectrograph"):
+        return getattr(models, name)(), 6. if name == "hybrid_achromat" \
+            else 10.
+    grating = dict(type="grating", grating_frequency=600., radius=30.)
+    rows, lam, obj = {
+        "curved hybrid": ([
+            dict(material="air"),
+            dict(type="binary2", roc=120., phase_coefficients=[_A1, 1e-4],
+                 distance=5., material="glass/N-BK7", radius=10.),
+            dict(roc=-150., distance=3., material="air", radius=10.),
+            dict(distance=60., radius=10.)], 550e-9, dict(radius=3.)),
+        "mirror grating": ([
+            dict(material="air"),
+            dict(grating, distance=20., material="mirror",
+                 curvature=-.001),
+            dict(distance=-50., radius=100.)], 500e-9, dict(radius=5.)),
+        "bk7 grating": ([
+            dict(material="air"),
+            dict(grating, roc=80., distance=20.,
+                 material="SCHOTT-BK|N-BK7"),
+            dict(distance=5., material="air", radius=30.),
+            dict(distance=50., radius=100.)], 500e-9, dict(radius=5.)),
+        "zone plate": ([
+            dict(material="vacuum"),
+            dict(type="binary2", phase_coefficients=[_A1],
+                 distance=50., material="mirror", radius=20.),
+            dict(distance=-100., radius=20.)], 550e-9, dict(radius=5.))}[name]
+    s = System(rows, wavelengths=[lam], object=dict(
+        pupil=dict(obj, update_radius=False)))
+    s.update()
+    return s, obj["radius"]
+
+
+#: gratings and DOEs on an asphere, a biconic and a toroid (make_table
+#: keyword arguments; tests/test_torch_spec_grating.py's SUBSTRATES)
+_PHASE_SUBSTRATES = {
+    "asphere": dict(curvature=[0., 1/80., 0.], conic=[0., -.5, 0.],
+                    aspherics=[[0., 0.], [1e-6, -2e-9], [0., 0.]],
+                    aspherics_odd=[[0.], [3e-6], [0.]],
+                    grating_dy=[0., .15, 0.], doe=[[0.], [-1e-3], [0.]]),
+    "biconic": dict(curvature=[0., 1/60., 0.], curvature_dx=[0., .004, 0.],
+                    conic_dx=[0., .3, 0.], doe=[[0., 0.], [-2e-3, 1e-6],
+                                                [0., 0.]]),
+    "toroid": dict(curvature=[0., 1/60., 0.], curvature_dx=[0., -.01, 0.],
+                   toroidal=[0., 1., 0.], conic=[0., -.2, 0.],
+                   grating_dy=[0., .2, 0.], doe=[[0.], [-1.5e-3], [0.]])}
+
+
+def _phase_case(name, device):
+    """(table on `device`, specs, bench half width) of a phase lens
+    (_phase_system) or substrate (_PHASE_SUBSTRATES)."""
+    if name in _PHASE_SUBSTRATES:
+        kw = dict(mu=[1., 1/1.5, 1.], n_before=[1., 1., 1.5],
+                  n_after=[1., 1.5, 1.5], distance=[0., 5., 40.],
+                  radius=[np.inf, 12., np.inf])
+        kw.update(_PHASE_SUBSTRATES[name])
+        tab = make_table(**kw, device=device)
+        half = 3.
+    else:
+        s, half = _phase_system(name)
+        tab = s.table(device=device)
+    return tab, specialize(tab), half
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["hybrid_achromat", "spectrograph",
+                                  "curved hybrid", "mirror grating",
+                                  "bk7 grating", "zone plate", "asphere",
+                                  "biconic", "toroid"])
+def test_phase_keys_match_plain_on_card(cuda_device, name, dtype, clip):
+    """K1, K2, K4 and K5 on a grating or DOE key against their plain
+    versions on the card, the bench bundle within the lens's pupil (1.5x
+    wide clipped): float64 rays and optical path (the DOE's phase term)
+    to 1e-12 of scale with equal NaN masks, float32 to 5e-5; the moments
+    to 1e-10 (float32 1e-4) of their scale; K5's columns (grating_dy
+    and the DOE coefficients last) for a fixed moment cotangent to 1e-9
+    (float32 1e-3) of each column's largest; each wrapper launches its
+    kernel once."""
+    tab, specs, half = _phase_case(name, cuda_device)
+    f64 = dtype == torch.float64
+    n = 1 << 14
+    rng = np.random.RandomState(5)
+    xy = rng.uniform(-half, half, (2, n))*(1.5 if clip else 1.)
+    zero, one = np.zeros(n), np.ones(n)
+    state = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(cuda_device,
+                                                               dtype)
+                  for c in (*xy, zero, zero, zero, one))
+    w = torch.full((n,), 1/n, dtype=dtype, device=cuda_device)
+    wrappers = (CT.trace_final, CT.trace_merit, CG.weighted_moments,
+                CG.merit_adjoint)
+    before = [f.launches for f in wrappers]
+    got = CT.trace_final(tab, specs, state, clip)
+    ref = CT.trace_final_reference(tab, specs, state, clip)
+    mom = CT.trace_merit(tab, specs, state, clip)
+    mref = CT.trace_merit_reference(tab, specs, state, clip)
+    wm = CG.weighted_moments(tab, specs, state, w, clip)
+    wref = CG.weighted_moments_reference(tab, specs, state, w, clip)
+    # a fixed moment cotangent: with the spot RMS's, a column such as
+    # grating_dy's (a shift of the whole spot) is a residual of
+    # cancelling terms, which float32 sums hold to ~1e-3 only (the
+    # float32 plain version's own error against float64's)
+    ct = torch.tensor([.3, -.2, .5, 1., .7], dtype=dtype, device=cuda_device)
+    pg, cst, cw = CG.merit_adjoint(tab, specs, state, w, ct, clip)
+    pref, sref, wr = CG.merit_adjoint_reference(tab, specs, state, w, ct,
+                                                clip)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [b + 1 for b in before]
+    tol = 1e-12 if f64 else 5e-5
+    for g, r in zip((*got[0], got[1]), (*ref[0], ref[1])):
+        g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+        if f64:
+            nptest.assert_array_equal(np.isnan(g), np.isnan(r))
+        ok = np.isfinite(g) & np.isfinite(r)
+        assert ok.mean() > .5
+        nptest.assert_allclose(g[ok], r[ok], atol=tol*max(1., np.abs(
+            r[ok]).max()), rtol=0)
+    for a, b in ((torch.stack(mom), torch.stack(mref)), (wm, wref)):
+        a, b = a.double().cpu(), b.double().cpu()
+        scale = max(float(b.abs().max()), 1.)
+        assert float((a - b).abs().max()) <= (1e-10 if f64 else 1e-4)*scale
+    nq = CG._nslots(tab, specs)
+    assert pg.shape == pref.shape == (tab.nsurfaces, nq)
+    assert nq == (CG.SLOTS + sum(CG._table_widths(tab))
+                  + (CT.ANAM if CT.carries_anamorphic(specs) else 0)
+                  + int(CT.carries_grating(specs)) + CT.doe_width(tab, specs))
+    gtol = 1e-9 if f64 else 1e-3
+    for col in range(pg.shape[1]):
+        assert torch.isfinite(pg[:, col]).all()
+        if float(pref[:, col].abs().max()):
+            assert _max_rel(pg[:, col], pref[:, col]) <= gtol, col
+    if f64:
+        scale = max(float(r.abs().max()) for r in sref)
+        for g, r in zip(cst, sref):
+            assert float((g - r).abs().max()) <= 1e-9*scale
+
+
+@pytest.mark.cuda
+def test_phase_rows_refuse_the_other_kernels_on_card(cuda_device):
+    """On a CUDA bundle K3, K6, K7, K8 and K9 raise NotImplementedError
+    naming ROADMAP Queue 1 item 9.4 on the hybrid achromat's DOE row,
+    and df32.plan does; none falls back to its plain version."""
+    s, half = _phase_system("hybrid_achromat")
+    tabs = s.tables()
+    tab = s.table()
+    specs = specialize(tab)
+    state = _bench_state(64, 1, cuda_device, torch.float64)
+    w = torch.full((64,), 1/64, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
+        CT.trace_multi(tabs, None, state)
+    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
+        CG.weighted_moments_multi(tabs, CT.multi_specs(tabs, None), state,
+                                  w)
+    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
+        CG.opd_chain(tab, specs, state, torch.zeros(CG.AUX,
+                                                    dtype=torch.float64,
+                                                    device=cuda_device))
+    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
+        D.plan(tab)

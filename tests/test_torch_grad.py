@@ -497,12 +497,13 @@ def test_unported_options_raise():
         TGR.optimize_grad(tt, tb, steps=1, engine="pallas")
     with pytest.raises(NotImplementedError, match="item 16"):
         TGR.trace_rms_merit(tt, tb, mesh=object())
-    # biconic=True is ported (tests/test_torch_anamorphic.py); a grating
-    # row is not
+    # biconic=True is ported (tests/test_torch_anamorphic.py, with the
+    # grating and DOE rows tests/test_torch_grating.py); a freeform row
+    # is not
+    xy = torch.zeros(tt.nsurfaces, 5, dtype=torch.float64)
+    xy[1, 2] = 1e-3
     with pytest.raises(NotImplementedError, match="item 9"):
-        TGR.spot_rms(tt.replace(grating_dy=torch.full_like(tt.curvature,
-                                                           1e-3)),
-                     *tb[0][:3], biconic=True)
+        TGR.spot_rms(tt.replace(xy_poly=xy), *tb[0][:3], biconic=True)
     # the adjoint engine does not differentiate rot: a tilt that
     # requires grad keeps every row rotated, and raises
     tilt = torch.zeros(tt.nsurfaces, 3, dtype=torch.float64,

@@ -422,12 +422,15 @@ ANAMORPHIC = ("biconic", "cylinder", "toroid")
 
 @pytest.mark.parametrize("name", sorted(EXTENDED))
 def test_extended_rows_still_raise_everywhere(name):
-    """Grating, DOE and freeform rows raise NotImplementedError naming
-    item 9 in every key, the specialized and the generic plain step, the
-    plain engines and the df32 plan.  Biconic, toroid and cylinder rows
-    are traced now (tests/test_torch_anamorphic.py): every K1-K9 key
-    takes them, and the df32 plan traces them as the JAX package's
-    eager df32 does, word for word."""
+    """Freeform rows raise NotImplementedError naming item 9 in every
+    key, the specialized and the generic plain step, the plain engines
+    and the df32 plan.  Biconic, toroid and cylinder rows are traced now
+    (tests/test_torch_anamorphic.py): every K1-K9 key takes them, and the
+    df32 plan traces them as the JAX package's eager df32 does, word for
+    word.  Grating and DOE rows are traced by the plain path and by the
+    keys of K1, K2, K4 and K5 (tests/test_torch_grating.py,
+    tests/test_torch_spec_grating.py); the keys of K3 and K6-K9 and the
+    df32 plan still raise naming item 9 (9.4, part two)."""
     kw = dict(curvature=[0., 1/40.], mu=[1., 1/1.5])
     kw.update(EXTENDED[name])
     tt = TT.table_from_numpy(JT.make_table(**kw))
@@ -448,6 +451,17 @@ def test_extended_rows_still_raise_everywhere(name):
             assert make(specs, F64).anamorphic
         for make in opd_keys:
             assert make(specs3, F64).anamorphic
+    elif name in ("grating", "doe"):
+        nd = CT.doe_width(tt, specs)
+        for make in keys[:4]:
+            key = make(specs, F64, nd=nd)
+            assert (key.grating, key.nd) == (name == "grating", nd)
+        for make in keys[4:]:
+            with pytest.raises(NotImplementedError, match="item 9"):
+                make(specs, F64)
+        for make in opd_keys:
+            with pytest.raises(NotImplementedError, match="item 9"):
+                make(specs3, F64)
     else:
         for make in keys:
             with pytest.raises(NotImplementedError, match="item 9"):
@@ -464,6 +478,13 @@ def test_extended_rows_still_raise_everywhere(name):
         y[:, 1] = np.linspace(3, -3, 8)
         u[:, 2] = 1.
         assert df32_matches_jax(tt, y, u)
+        return
+    if name in ("grating", "doe"):
+        out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
+        assert all(torch.isfinite(c).all() for c in out)
+        assert torch.isfinite(CT.trace_final(tt, specs, state)[0][0]).all()
+        with pytest.raises(NotImplementedError, match="item 9"):
+            TD.plan(tt)
         return
     with pytest.raises(NotImplementedError, match="item 9"):
         TK.surface_step_spec(state, tt.row(1), specs[1], False)

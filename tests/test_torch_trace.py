@@ -176,14 +176,14 @@ def test_surface_step_generic_matches_jax(name):
 
 
 def test_extended_vocabulary_raises():
-    # a grating row: the vocabulary still to port (aspheric and
-    # anamorphic rows are traced now, tests/test_torch_asphere.py and
-    # tests/test_torch_anamorphic.py)
-    jt = JT.make_table(curvature=[0., 1/40.], grating_dy=[0., 1e-3],
-                       mu=[1., 1/1.5])
+    # a freeform row: the vocabulary still to port (aspheric, anamorphic,
+    # grating and DOE rows are traced now, tests/test_torch_asphere.py,
+    # tests/test_torch_anamorphic.py and tests/test_torch_grating.py)
+    jt = JT.make_table(curvature=[0., 1/40.], mu=[1., 1/1.5],
+                       xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]])
     tt = TT.table_from_numpy(jt)
     specs = TK.specialize(tt)
-    assert specs[1].grating
+    assert specs[1].freeform
     state = _torch(_components(*_bundle(8, 0, 1.)))
     with pytest.raises(NotImplementedError):
         TK.surface_step_spec(state, tt.row(1), specs[1], False)
