@@ -72,6 +72,16 @@ import torch
 DEVICE = "cuda"      # the card: every tensor but the CPU references
 N_CHECK = 1 << 20    # rays in the kernel-vs-plain checks
 N_AIMED = 1 << 22    # rays per field on the main path
+#: the main path's CPU float64 cross-check: the first N_MAIN_REF rays of
+#: each field's float64 K1 and K2 output (the whole 2^22 took ~33 s of
+#: CPU a field)
+N_MAIN_REF = 1 << 20
+#: aimed rays a field on the anamorphic pair's and the hybrid achromat's
+#: forward paths (the host's numpy aim of 2^22 took ~2.5 s a field)
+N_AIMED_LENS = 1 << 20
+#: bench rays of the figured anamorphic keys' timings against their
+#: plain versions (2^20 took ~17 s of the script)
+N_FIGURED_TIME = 1 << 18
 N_BENCH = 1 << 26    # rays in the throughput phase
 N_OPT = 1 << 20      # hexapolar nrays a bundle on the optimizer path
 N_GRAD_TIME = 1 << 22  # rays in the K3-K7 kernel-vs-plain timings
@@ -212,9 +222,10 @@ def bench_bundle(n, dtype, seed):
                  for c in (x, y, zero, zero, zero, one))
 
 
-def compare_final(got, want, dtype):
+def compare_final(got, want, dtype, f32_abs=F32_ABS):
     """Max abs error over rays live in both, NaN-mask mismatches, and
-    the pass/fail of one K1 comparison."""
+    the pass/fail of one K1 comparison (float32 positions and
+    directions within `f32_abs`)."""
     errs, rels, bad_masks = [], [], 0
     n = got[0].shape[0]
     for i, (a, b) in enumerate(zip(got, want)):
@@ -232,7 +243,7 @@ def compare_final(got, want, dtype):
     if dtype == torch.float64:
         ok = bad_masks == 0 and max(rels) <= F64_REL
     else:
-        ok = (bad_masks <= F32_NAN_FRAC*n and max(errs[:6]) <= F32_ABS
+        ok = (bad_masks <= F32_NAN_FRAC*n and max(errs[:6]) <= f32_abs
               and rels[6] <= F32_T_REL)
     return ok, max(errs[:6]), max(rels), bad_masks
 
@@ -936,9 +947,12 @@ def spot_rms(y, u):
 
 
 def phase_main_path():
-    """The port's main path, through the entry points a user calls.
-    Returns the aimed bundles (on the card), their float64 K1 image
-    positions and their CPU float64 spot RMS, for the df32 path."""
+    """The port's main path, through the entry points a user calls:
+    N_AIMED aimed rays a field through float64 and float32 K1 and K2, the
+    first N_MAIN_REF of float64 K1's and K2's own output held against the
+    CPU float64 plain trace.  Returns the aimed bundles (on the card),
+    their float64 K1 image positions and the CPU float64 spot RMS of
+    their first N_MAIN_REF rays, for the df32 path."""
     from rayopt_tpu_torch.models import double_gauss
     from rayopt_tpu_torch.ops.kernels import specialize
     from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
@@ -986,32 +1000,45 @@ def phase_main_path():
             *trace_merit(table, specs, state32, clip=False)))
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
+        # the CPU cross-check on the first N_MAIN_REF rays of float64
+        # K1's and K2's own output
+        sub = slice(0, N_MAIN_REF)
+        rms_sub, live_sub = spot_rms(y64[sub], u64[sub])
+        mom_sub = trace_merit(table, specs, tuple(c[sub] for c in state64),
+                              clip=False)
         t0 = time.perf_counter()
-        yh, uh, _ = trace_rays_final_fast(table_cpu, torch.from_numpy(y0),
-                                          torch.from_numpy(u0), clip=False)
+        yh, uh, _ = trace_rays_final_fast(table_cpu,
+                                          torch.from_numpy(y0[sub]),
+                                          torch.from_numpy(u0[sub]),
+                                          clip=False)
         rms_cpu, live_cpu = spot_rms(yh, uh)
         mom_cpu = trace_merit(table_cpu, specs,
-                              tuple(c.cpu() for c in state64), clip=False)
+                              tuple(c[sub].cpu() for c in state64),
+                              clip=False)
         t_cpu = time.perf_counter() - t0
-        rel1 = abs(rms_k1 - rms_cpu)/rms_cpu
-        mom_ok, mom_rel, _ = compare_moments(mom64, mom_cpu, torch.float64,
-                                             N_AIMED)
-        ok = (np.isfinite(rms_k1) and live == live_cpu
-              and rel1 <= PARITY_REL and mom_ok)
+        rel1 = abs(rms_sub - rms_cpu)/rms_cpu
+        mom_ok, mom_rel, _ = compare_moments(mom_sub, mom_cpu, torch.float64,
+                                             N_MAIN_REF)
+        ok = (np.isfinite(rms_k1) and live_sub == live_cpu
+              and rel1 <= PARITY_REL and mom_ok
+              and abs(rms_k2 - rms_k1)/rms_k1 <= 1e-9)
         log("field %.1f: pupil z %.6f, %d of %d rays live | spot RMS mm: "
-            "CPU f64 %.12g | K1 f64 %.12g (rel %.2e) | K2 f64 %.12g (rel "
-            "%.2e; moments vs CPU rel %.2e) | K1 f32 %.9g (rel %.2e) | K2 "
-            "f32 %.9g (rel %.2e) | aim %.2f s (host pupil %.3f s, numpy aim "
-            "of the rays %.2f s), card %.2f s, CPU %.2f s -> %s"
-            % (field, z, live, N_AIMED, rms_cpu, rms_k1, rel1, rms_k2,
-               abs(rms_k2 - rms_cpu)/rms_cpu, mom_rel, rms_k1_32,
-               abs(rms_k1_32 - rms_cpu)/rms_cpu, rms_k2_32,
-               abs(rms_k2_32 - rms_cpu)/rms_cpu, t_aim, t_pupil,
-               t_aim - t_pupil, t_gpu, t_cpu, "ok" if ok else "FAIL"))
+            "K1 f64 %.12g | K2 f64 %.12g (rel %.2e) | K1 f32 %.9g (rel "
+            "%.2e) | K2 f32 %.9g (rel %.2e) | the first %d rays: K1 f64 "
+            "%.12g vs CPU f64 %.12g (rel %.2e), K2 f64 moments vs CPU rel "
+            "%.2e | aim %.2f s (host pupil %.3f s, numpy aim of the rays "
+            "%.2f s), card %.2f s, CPU %.2f s -> %s"
+            % (field, z, live, N_AIMED, rms_k1, rms_k2,
+               abs(rms_k2 - rms_k1)/rms_k1, rms_k1_32,
+               abs(rms_k1_32 - rms_k1)/rms_k1, rms_k2_32,
+               abs(rms_k2_32 - rms_k1)/rms_k1, N_MAIN_REF, rms_sub, rms_cpu,
+               rel1, mom_rel, t_aim, t_pupil, t_aim - t_pupil, t_gpu, t_cpu,
+               "ok" if ok else "FAIL"))
         if not ok:
             failures.append("field %.1f" % field)
         aimed.append(dict(field=field, y=yc, u=uc, y64=y64,
-                          rms_cpu=rms_cpu, live_cpu=live_cpu))
+                          rms_cpu=rms_cpu, live_cpu=live_cpu,
+                          n_ref=N_MAIN_REF))
     if failures:
         raise AssertionError("main path parity failed at " +
                              ", ".join(failures))
@@ -1202,20 +1229,25 @@ def _live_of(out):
 def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
                       clips=(False, True), fields=GRAD_FIELDS,
                       loop=ACHROM_FIELDS,
-                      dtypes=(torch.float32, torch.float64)):
+                      dtypes=(torch.float32, torch.float64), moments=True):
     """K3, K6 and K7 against their plain versions on the card at N_CHECK
     rays of `bundle` in `dtypes` (the aspheric lenses: unclipped only);
     K7's parameter cotangents by `fields` (the aspheric lenses: the
     coefficient columns too; the anamorphic ones curvature_dx and
-    conic_dx) and, unclipped, its loop key for the fields `loop` (None:
-    none).  Returns the float32 errors."""
+    conic_dx; the phase ones grating_dy and the DOE coefficients) and,
+    unclipped, its loop key for the fields `loop` (None: none).  Without
+    `moments`, K3's trace alone (the spectrograph's float32: its 56-85 mm
+    off-axis centroid cancels the moment formula's float32 digits), its
+    float32 positions held to F32_ABS scaled from the double Gauss's ~30
+    mm coordinates to the image's (the same float32 ulps).  Returns the
+    float32 errors."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
         _nslots, weighted_moments_multi, weighted_moments_multi_reference,
         merit_adjoint_multi, merit_adjoint_multi_reference,
         union_spot_rms_from_moments)
     from rayopt_tpu_torch.ops.cuda_trace import (
-        figure_widths, spot_rms_from_moments, trace_final,
+        doe_width, figure_widths, spot_rms_from_moments, trace_final,
         trace_final_reference, trace_multi, trace_multi_reference)
     from rayopt_tpu_torch.ops.tables import table_at
     nlam = tabs.curvature.shape[0]
@@ -1234,14 +1266,30 @@ def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
         w = bench_weights(N_CHECK, dtype, SEED + 2)
         got = trace_multi(tabs, specs, state)
         want = trace_multi_reference(tabs, specs, state)
-        mom = trace_multi(tabs, specs, state, merit=True)
-        mref = trace_multi_reference(tabs, specs, state, merit=True)
+        if moments:
+            mom = trace_multi(tabs, specs, state, merit=True)
+            mref = trace_multi_reference(tabs, specs, state, merit=True)
         torch.cuda.synchronize()
         for li in range(nlam):
+            f32_abs = F32_ABS
+            if not moments:
+                image = max(float(c[torch.isfinite(c)].double().abs().max())
+                            for c in want[li][0][:3])
+                f32_abs = F32_ABS*max(1., image/30.)
             ok, err, rel, masks = compare_final((*got[li][0], got[li][1]),
                                                 (*want[li][0], want[li][1]),
-                                                dtype)
+                                                dtype, f32_abs)
             ok = ok and masks == 0
+            if not moments:
+                log("K3 %s wavelength %d: trace max abs err %.3e (limit "
+                    "%.3e), max rel err %.3e, NaN masks differ on %d rays "
+                    "-> %s" % (dt, li, err, f32_abs, rel, masks,
+                               "ok" if ok else "FAIL"))
+                if not ok:
+                    failures.append("K3 %s wavelength %d" % (dt, li))
+                if not f64:
+                    worst["trace_multi"] = max(worst["trace_multi"], err)
+                continue
             mok, mrel, dcount = compare_moments(mom[li], mref[li], dtype,
                                                 N_CHECK)
             log("K3 %s wavelength %d: trace max abs err %.3e, max rel err "
@@ -1257,7 +1305,7 @@ def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
                 spot_rms_from_moments(*mom[li]))
             if not f64:
                 worst["trace_multi"] = max(worst["trace_multi"], err)
-        for clip in clips:
+        for clip in clips if moments else ():
             tag = "%s clip=%s" % (dt, clip)
             if clip:
                 # widen the bundle 1.5x so that the apertures vignette
@@ -1322,7 +1370,8 @@ def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
                 # the achromatization path's key: its slots, no ray
                 # cotangents, the rest exact zeros
                 live_slots = CS.live_mask(CS.live_slots(
-                    specs, loop, figure_widths(tabs, specs)), nq).to(DEVICE)
+                    specs, loop, figure_widths(tabs, specs),
+                    doe_width(tabs, specs)), nq).to(DEVICE)
                 pa, ca, wa = merit_adjoint_multi(tabs, specs, state, w, ct,
                                                  clip, fields=loop,
                                                  rays=False)
@@ -1406,7 +1455,10 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
     polychromatic adjoint merit at three fields and torch.optim.Adam
     (over curvatures, distances, the glasses and, on an aspheric lens,
     row ASPH_ROW's coefficients over ASPH_SCALES, on an anamorphic lens
-    curvature_dx at the curvatures' lr), with K3 reporting the spots.  Step 0 is held against
+    curvature_dx at the curvatures' lr, on a lens with a kinoform its
+    phase coefficient A at PHASE_A_LR, each wavelength's DOE row written
+    as System.table writes it, m lambda/(2 pi n') A/R^2), with K3
+    reporting the spots.  Step 0 is held against
     the same call on the CPU plain versions (step0_cross_check; with
     check_nrays K3's float64 spot RMS on those bundles against the
     CPU's too).  Returns (the launches of the loop and its K3 reports,
@@ -1423,14 +1475,24 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
     asph = bool(tabs.aspherics.shape[-1])
     specs = multi_specs(tabs, None)
     anam = carries_anamorphic(specs)
+    # a kinoform's row, element and the factor of its coefficient in each
+    # wavelength's doe column (System.table's m lambda/(2 pi n') / R^2)
+    kino = next((j for j, sp in enumerate(specs) if sp.doe), None)
+    if kino is not None:
+        el = s[kino]
+        a_fac = torch.tensor([
+            el.diffraction_order*(lam/s.scale)/(2*np.pi)/el.norm_radius**2
+            for lam in s.wavelengths], dtype=torch.float64)
     log("== achromatization path: %s, System.tables -> glass_assignment -> "
         "glass_tables(glass_box_decode(logits)) -> "
         "glass.polychromatic_spot_rms(engine='adjoint') at fields %s, "
-        "float64, %d Adam steps, lr %s%s%s" % (
+        "float64, %d Adam steps, lr %s%s%s%s" % (
             lens, FIELDS, GLASS_STEPS, GLASS_LR,
             ", row %d's aspherics over scales %s at the curvatures' lr"
             % (ASPH_ROW, ASPH_SCALES["aspherics"]) if asph else "",
-            ", curvature_dx at the curvatures' lr" if anam else ""))
+            ", curvature_dx at the curvatures' lr" if anam else "",
+            ", row %d's kinoform coefficient A at lr %g" % (kino, PHASE_A_LR)
+            if kino is not None else ""))
     t0 = time.perf_counter()
     nlam = tabs.curvature.shape[0]
     asg = glass.glass_assignment(s)
@@ -1473,6 +1535,10 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
         if anam:
             out["curvature_dx"] = tabs.curvature_dx[0].detach().to(
                 device).clone()
+        if kino is not None:
+            out["phase_a"] = torch.tensor(
+                [float(s[kino].phase_coefficients[0])], dtype=torch.float64,
+                device=device)
         return out
 
     def relaxed(params, tables):
@@ -1491,7 +1557,15 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
             tb = tb.replace(curvature_dx=params["curvature_dx"].expand(
                 nlam, -1))
         nd, vd = glass.glass_box_decode(params["xi_nd"], params["xi_vd"])
-        return glass.glass_tables(tb, nd, vd, asg, s.wavelengths)
+        tb = glass.glass_tables(tb, nd, vd, asg, s.wavelengths)
+        if kino is not None:
+            # each wavelength's psi(r^2) coefficient from A and its own
+            # n' (System.table's), the other coefficients as they are
+            doe = tb.doe.clone()
+            doe[:, kino, 0] = (a_fac.to(dev)*params["phase_a"]
+                               / tb.n_after[:, kino].abs())
+            tb = tb.replace(doe=doe)
+        return tb
 
     def merit(params, tables, bundles):
         tb = relaxed(params, tables)
@@ -1529,6 +1603,9 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
                 log("row %d's aspherics %s: %s" % (
                     ASPH_ROW, when, (params["aspherics"].cpu()
                                      * scales).tolist()))
+            if kino is not None:
+                log("row %d's kinoform coefficient A %s: %.12g" % (
+                    kino, when, float(params["phase_a"])))
 
     def step0(device, b):
         p = {k: v.requires_grad_() for k, v in start(device).items()}
@@ -1550,6 +1627,8 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
     if anam:
         groups.append({"params": [params["curvature_dx"]],
                        "lr": GLASS_LR["curvature"]})
+    if kino is not None:
+        groups.append({"params": [params["phase_a"]], "lr": PHASE_A_LR})
     opt = torch.optim.Adam(groups)
     hist, grads0, ends = [], None, []
     t0 = time.perf_counter()
@@ -1678,7 +1757,7 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
     from rayopt_tpu_torch.ops.cuda_grad import (
         _nslots, opd_adjoint, opd_adjoint_reference, opd_chain,
         opd_chain_reference)
-    from rayopt_tpu_torch.ops.cuda_trace import figure_widths
+    from rayopt_tpu_torch.ops.cuda_trace import doe_width, figure_widths
     bundle = bundle or opd_bundle
     fields = fields or OPD_GRAD_FIELDS
     # K9's columns: OPD_SLOTS, the table's coefficients, the anamorphic two
@@ -1793,8 +1872,8 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
                     # the design path's key: its slots and the centre, no
                     # ray cotangents, the rest exact zeros
                     live_slots = CS.live_mask(CS.opd_live_slots(
-                        specs, design, figure_widths(table, specs)),
-                        nq).to(DEVICE)
+                        specs, design, figure_widths(table, specs),
+                        doe_width(table, specs)), nq).to(DEVICE)
                     pd, sd, cd = opd_adjoint(table, specs, state, aux, cts,
                                              clip, fields=design,
                                              rays=False)
@@ -3077,7 +3156,7 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
     calls, on the crossed-cylinder pair (models.anamorphic_pair): host
     pupils at fields 0, 0.7 and 1 of its 0.5 degree field, System.pupils
     on the card against the host pupil at tol AIM_HOST_TOL (the pair's
-    pupil aimed, so that the card solves it), N_AIMED rays a field aimed
+    pupil aimed, so that the card solves it), N_AIMED_LENS rays a field aimed
     by the host through float64 and float32 K1 and K2, and the spot RMS
     of float64 K1's output on the first N_ANAM of them against the CPU
     float64 plain trace (PARITY_REL, equal NaN masks); then its three
@@ -3102,7 +3181,7 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
     table_cpu = s.table(device="cpu")
     log("== anamorphic path: the crossed-cylinder pair (a y-cylinder on "
         "row 1, an x-cylinder on row 3), %d aimed rays a field, no clip"
-        % N_AIMED)
+        % N_AIMED_LENS)
     fields = [(0., f) for f in FIELDS]
     aimed = anamorphic_pair()
     aimed.object.pupil.aim = True
@@ -3136,8 +3215,8 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
     for field in FIELDS:
         t0 = time.perf_counter()
         zf, pf = s.pupil((0., field))
-        r = np.sqrt(rng.uniform(0, 1, N_AIMED))
-        th = rng.uniform(0, 2*np.pi, N_AIMED)
+        r = np.sqrt(rng.uniform(0, 1, N_AIMED_LENS))
+        th = rng.uniform(0, 2*np.pi, N_AIMED_LENS)
         yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
         y0, u0 = s.aim((0., field), yp, zf, pf, filter=False)
         t_aim = time.perf_counter() - t0
@@ -3175,7 +3254,7 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
             "%.9g (rel %.2e) | the first %d rays: K1 f64 %.12g vs CPU f64 "
             "%.12g (rel %.2e), NaN masks differ on %d | aim %.2f s, card "
             "%.2f s, CPU %.2f s -> %s"
-            % (field, zf, live, N_AIMED, rms_k1, rms_k2, rms_k1_32,
+            % (field, zf, live, N_AIMED_LENS, rms_k1, rms_k2, rms_k1_32,
                abs(rms_k1_32 - rms_k1)/rms_k1, rms_k2_32,
                abs(rms_k2_32 - rms_k1)/rms_k1, N_ANAM, rms_sub, rms_cpu,
                rel1, masks, t_aim, t_gpu, t_cpu, "ok" if ok else "FAIL"))
@@ -3247,11 +3326,12 @@ def phase_anamorphic_throughput(card):
 
 def phase_figured_throughput(card):
     """Every K1-K9 key of the figured anamorphic lenses
-    (figured_anamorphic_cases), float64 at N_CHECK anamorphic bench rays
-    (ray 0 the chief ray; K3's merit, K6 and K7 on the lens's stack,
-    anam_stack), each against its plain version in turns (plain,
-    kernel, kernel, plain): N_CHECK, not N_GRAD_TIME, for time (the
-    plain versions took ~40 s of the script at N_GRAD_TIME).  Returns
+    (figured_anamorphic_cases), float64 at N_FIGURED_TIME anamorphic
+    bench rays (ray 0 the chief ray; K3's merit, K6 and K7 on the lens's
+    stack, anam_stack), each against its plain version in turns (plain,
+    kernel, kernel, plain): N_FIGURED_TIME, not N_GRAD_TIME, for time
+    (the plain versions took ~40 s of the script at N_GRAD_TIME, ~17 s
+    at 2^20).  Returns
     times[lens][kernel] = (kernel, plain) ms and live[lens] = the
     bundle's live rays."""
     from rayopt_tpu_torch.ops.cuda_grad import (
@@ -3267,11 +3347,11 @@ def phase_figured_throughput(card):
     times, live = {}, {}
     for lens, (s, tab, specs, widths) in figured_anamorphic_cases().items():
         log("== K1-K9 throughput (%s, widths %s): %d bench rays, float64, "
-            "against the plain versions (%s)" % (lens, widths, N_CHECK,
+            "against the plain versions (%s)" % (lens, widths, N_FIGURED_TIME,
                                                  card))
         tabs, mspecs = anam_stack(tab)
-        state = anam_opd_bundle(N_CHECK, f64, SEED + 1)
-        w = bench_weights(N_CHECK, f64, SEED + 3)
+        state = anam_opd_bundle(N_FIGURED_TIME, f64, SEED + 1)
+        w = bench_weights(N_FIGURED_TIME, f64, SEED + 3)
         ct = rms_cotangent(weighted_moments(tab, specs, state, w))
         mct = rms_cotangent(weighted_moments_multi(tabs, mspecs, state, w))
         aux = opd_aux(s, tab, specs, state)
@@ -3378,6 +3458,13 @@ def anam_vjp_extra(spec, widths=(0, 0)):
 #: kinoform's DOE coefficient
 PHASE_SELECT = ("curvature", "distance", "doe")
 PHASE_LOOP_FIELDS = ("curvature", "offset", "doe")  # the loop's K5 slot set
+#: the hybrid's achromatization loop: Adam's lr on the kinoform's phase
+#: coefficient A (rad at rho = 1; -2.93 in models.hybrid_achromat), and
+#: its K7's slot set (the glass moves mu, A the DOE coefficients)
+PHASE_A_LR = 1e-3
+PHASE_ACHROM_FIELDS = ACHROM_FIELDS + ("doe",)
+#: the hybrid's design step's K9 slot set (PHASE_SELECT's fields)
+PHASE_DESIGN_FIELDS = PHASE_LOOP_FIELDS
 #: the lenses whose phase keys are timed, beside their phase-free twins
 PHASE_TIMED = ("hybrid achromat", "spectrograph")
 N_PHASE = 1 << 16     # aimed rays a field of the hybrid's CPU cross-check
@@ -3392,6 +3479,19 @@ PHASE_FD_PICKS = (("mirror grating", "grating_dy", 1),
                   ("curved hybrid", "doe", (1, 0)),
                   ("curved hybrid", "doe", (1, 1)))
 PHASE_FD_STEP = {"grating_dy": 1e-6, "doe": 1e-3}   # relative steps
+#: K7's and K9's relative steps (the union spot RMS's curvature in a DOE
+#: coefficient leaves 4.5e-6 of truncation at 1e-3, on the CPU at 2^11
+#: rays)
+PHASE_FD_ADJOINT_STEP = {"grating_dy": 1e-6, "doe": 1e-4, "n_after": 1e-6}
+#: (kernel, lens, field, index) of K7's and K9's finite-difference
+#: checks: grating_dy of the mirror grating, the curved hybrid's first
+#: DOE coefficient and (K9) its DOE row's n_after (the path term's);
+#: K7's on its stack's first table
+PHASE_FD_ADJOINT_PICKS = (("K7", "mirror grating", "grating_dy", (0, 1)),
+                          ("K7", "curved hybrid", "doe", (0, 1, 0)),
+                          ("K9", "mirror grating", "grating_dy", 1),
+                          ("K9", "curved hybrid", "doe", (1, 0)),
+                          ("K9", "curved hybrid", "n_after", 1))
 PHASE_LAM0 = 550e-9
 PHASE_A1 = -np.pi/((PHASE_LAM0/1e-3)*100.)   # a kinoform of focal 100 mm
 
@@ -3449,12 +3549,11 @@ def phase_lenses():
     return out
 
 
-def phase_twin(name):
+def phase_twin_system(name):
     """The phase-free twin of a timed lens: the hybrid achromat with
     `phase_coefficients: []`, the spectrograph with `grating_frequency:
-    0` -- (table on the card, specs)."""
+    0`."""
     from rayopt_tpu_torch.models import hybrid_achromat, spectrograph
-    from rayopt_tpu_torch.ops.kernels import specialize
     if name == "hybrid achromat":
         s = hybrid_achromat()
         s[2].phase_coefficients = []
@@ -3462,8 +3561,56 @@ def phase_twin(name):
         s = spectrograph()
         s[1].grating_frequency = 0.
     s.update()
-    table = s.table()
+    return s
+
+
+def phase_twin(name):
+    """The phase-free twin of a timed lens (phase_twin_system): (table on
+    the card, specs)."""
+    from rayopt_tpu_torch.ops.kernels import specialize
+    table = phase_twin_system(name).table()
     return table, specialize(table)
+
+
+def phase_stack(s):
+    """The stack of a phase lens's three wavelength tables on the card
+    (System.tables: each table its own grating term and DOE
+    coefficients; a lens of one wavelength at 1, 0.9 and 1.1 times it)
+    and the specs they share (the first table's, multi_specs)."""
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    lam = list(s.wavelengths)
+    if len(lam) < 3:
+        lam = [lam[0], .9*lam[0], 1.1*lam[0]]
+    tabs = s.tables(lam)
+    return tabs, multi_specs(tabs, None)
+
+
+def phase_opd_grad_fields(table, specs):
+    """K9's cotangent columns by table field on a phase key:
+    OPD_GRAD_FIELDS, then grating_dy, n_after and the nd DOE
+    coefficients (the phase lenses have no figure, no anamorphic row)."""
+    from rayopt_tpu_torch.ops.cuda_trace import carries_grating, doe_width
+    q = 7
+    out = OPD_GRAD_FIELDS
+    if carries_grating(specs):
+        out += (("grating_dy", slice(q, q + 1)),)
+        q += 1
+    nd = doe_width(table, specs)
+    if nd:
+        out += (("n_after", slice(q, q + 1)), ("doe", slice(q + 1,
+                                                            q + 1 + nd)))
+    return out
+
+
+def kinoform():
+    """The JAX package's kinoform of tests/test_doe.py (a flat zone lens
+    of focal 100 mm in air at 550 nm, on axis), the lens of its
+    test_doe_phase_enters_optical_path."""
+    return _phase_lens([
+        dict(material="air"),
+        dict(type="binary2", phase_coefficients=[PHASE_A1], norm_radius=1.,
+             distance=5., material="air", radius=10.),
+        dict(distance=100., radius=10.)], [PHASE_LAM0], 3., 0.)
 
 
 def phase_bundle_of(half):
@@ -3508,15 +3655,103 @@ def grating_keys():
     PHASE_LOOP_FIELDS, the spectrograph's OPT_FIELDS and grating_dy, no
     ray cotangents) in both dtypes and their phase-free twins' keys
     (K1, K2, K4, K5 every field and OPT_FIELDS); the finite-difference
-    checks' float64 K5 (one field each)."""
+    checks' float64 K5 (one field each).  Then K3's two modes, K6 and K7
+    (every field, with the ray cotangents) on each lens's stack
+    (phase_stack) and K8 and K9 on its table: float64, clip off and on
+    (K3 unclipped), and on the timed lenses also float32 (clip off and
+    on; the spectrograph's K6 and K7 unclipped: their float32 moments
+    are timed, not held); the hybrid's achromatization K7 and design K9
+    (and the design step breakdown's K5 and K9), float64, and the timed
+    lenses' loop K7 and K9 and their phase-free twins' K3, K6-K9 in
+    float32 for the timings; the finite-difference checks' K7 and K9
+    (one field each); the kinoform's K8."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_trace import doe_width, figure_widths
+    from rayopt_tpu_torch.ops.kernels import specialize
     keys = {}
-    f64 = torch.float64
+    f64, f32 = torch.float64, torch.float32
     for name, (s, table, specs, _) in phase_lenses().items():
         tag = name.replace(" ", "-")
         kw = dict(widths=figure_widths(table, specs),
                   nd=doe_width(table, specs))
+        tabs, mspecs = phase_stack(s)
+        mkw = dict(widths=figure_widths(tabs, mspecs),
+                   nd=doe_width(tabs, mspecs))
+        timed = name in PHASE_TIMED
+        for dtype in (f64, f32) if timed else (f64,):
+            dt = str(dtype)[6:]
+            if dtype == f64 or name == "hybrid achromat":
+                # the clipped K7 check's agreement traces: K1 on each table
+                # of the stack
+                keys["K1 %s %s clip=True stack" % (dt, tag)] = CS.trace_key(
+                    mspecs, dtype, True, **mkw)
+            for mode in ("merit", "trace"):
+                keys["K3 %s %s %s" % (dt, tag, mode)] = CS.trace_multi_key(
+                    mspecs, dtype, 3, mode == "merit", **mkw)
+            for clip in (False, True):
+                sfx = "%s %s clip=%s" % (dt, tag, clip)
+                keys["K8 " + sfx] = CS.opd_key(specs, dtype, clip, **kw)
+                keys["K9 %s all rays=True" % sfx] = CS.opd_adjoint_key(
+                    specs, dtype, clip, **kw)
+                if clip and dtype == f32 and name == "spectrograph":
+                    continue
+                keys["K6 " + sfx] = CS.moments_multi_key(mspecs, dtype,
+                                                         clip, 3, **mkw)
+                keys["K7 %s all rays=True" % sfx] = CS.adjoint_multi_key(
+                    mspecs, dtype, clip, **mkw)
+        if timed:
+            # the loops' K7 and K9 (the hybrid's achromatization and
+            # design keys; the spectrograph's for its timings) and the
+            # phase-free twins' keys, for the timings
+            mloop = (PHASE_ACHROM_FIELDS if name == "hybrid achromat"
+                     else ACHROM_FIELDS + ("grating_dy",))
+            oloop = (PHASE_DESIGN_FIELDS if name == "hybrid achromat"
+                     else DESIGN_FIELDS + ("grating_dy",))
+            ts = phase_twin_system(name)
+            ttable = ts.table()
+            tspecs = specialize(ttable)
+            _, tmspecs = phase_stack(ts)
+            for dtype in (f64, f32):
+                dt = str(dtype)[6:]
+                keys["K7 %s %s achromatization rays=False" % (dt, tag)] = \
+                    CS.adjoint_multi_key(mspecs, dtype, False, mloop, False,
+                                         **mkw)
+                keys["K9 %s %s design rays=False" % (dt, tag)] = \
+                    CS.opd_adjoint_key(specs, dtype, False, oloop, False,
+                                       **kw)
+            tsfx = "float32 %s twin" % tag
+            for mode in ("merit", "trace"):
+                keys["K3 %s %s" % (tsfx, mode)] = CS.trace_multi_key(
+                    tmspecs, f32, 3, mode == "merit")
+            keys["K6 " + tsfx] = CS.moments_multi_key(tmspecs, f32, False, 3)
+            keys["K7 %s all rays=True" % tsfx] = CS.adjoint_multi_key(
+                tmspecs, f32)
+            keys["K7 %s achromatization rays=False" % tsfx] = \
+                CS.adjoint_multi_key(tmspecs, f32, False, ACHROM_FIELDS,
+                                     False)
+            keys["K8 " + tsfx] = CS.opd_key(tspecs, f32)
+            keys["K9 %s all rays=True" % tsfx] = CS.opd_adjoint_key(tspecs,
+                                                                   f32)
+            keys["K9 %s design rays=False" % tsfx] = CS.opd_adjoint_key(
+                tspecs, f32, False, DESIGN_FIELDS, False)
+        if name == "hybrid achromat":
+            # the design step's breakdown (curvature and offset)
+            keys["K5 float64 %s breakdown rays=False" % tag] = \
+                CS.adjoint_key(specs, f64, False, OPT_FIELDS, False, **kw)
+            keys["K9 float64 %s breakdown rays=False" % tag] = \
+                CS.opd_adjoint_key(specs, f64, False, DESIGN_FIELDS, False,
+                                   **kw)
+        for kern, lens, field, _ in PHASE_FD_ADJOINT_PICKS:
+            if lens != name:
+                continue
+            if kern == "K7":
+                keys["K7 float64 %s fd %s rays=False" % (tag, field)] = \
+                    CS.adjoint_multi_key(mspecs, f64, False, (field,),
+                                         False, **mkw)
+            else:
+                keys["K9 float64 %s fd %s rays=False" % (tag, field)] = \
+                    CS.opd_adjoint_key(specs, f64, False, (field,), False,
+                                       **kw)
         runs = [(f64, False)]
         if name in PHASE_TIMED:
             runs += [(torch.float32, False), (f64, True)]
@@ -3549,6 +3784,10 @@ def grating_keys():
                 keys["K5 float64 %s fd %s rays=False" % (tag, field)] = \
                     CS.adjoint_key(specs, f64, fields=(field,), rays=False,
                                    **kw)
+    kt = kinoform().table()
+    ks = specialize(kt)
+    keys["K8 float64 kinoform clip=False"] = CS.opd_key(
+        ks, f64, widths=figure_widths(kt, ks), nd=doe_width(kt, ks))
     return keys
 
 
@@ -3559,8 +3798,16 @@ def phase_grating_check():
     each (F64_REL of scale for K1 and K2, GRAD_F64_REL of a column's
     largest for K5, its grating_dy and DOE columns among them); on the
     timed lenses also float32 unclipped and float64 clipped on the
-    bundle 1.5x wide.  Then K5's float64 gradient against central
-    differences (phase_grating_fd_check).  Returns the float32
+    bundle 1.5x wide.  Then K3, K6 and K7 on the lens's stack
+    (phase_stack, phase_multi_check) and K8 and K9 (phase_opd_check, ray
+    0 the chief ray), float64, clip off and on (clipped on the bundle
+    phase_clip_bundle widens past the apertures), the adjoints with
+    their grating_dy, n_after (K9) and DOE columns, the hybrid's loop
+    keys among them; on the timed lenses also float32 (the
+    spectrograph's K3 trace alone: its off-axis moments, as its K4's).
+    Then K5's float64 gradient against central differences
+    (phase_grating_fd_check), K7's and K9's (phase_grating_fd_adjoints)
+    and K8 on the kinoform (phase_kinoform_check).  Returns the float32
     errors."""
     worst = {}
 
@@ -3593,8 +3840,37 @@ def phase_grating_check():
             wide = functools.partial(bundle, widen=1.5)
             phase_check(table, specs, lens, wide, (True,), f64)
             phase_grad_check(table, specs, lens, wide, (True,), fields, f64)
+        tabs, mspecs = phase_stack(s)
+        mfields = phase_grad_fields(tabs, mspecs)
+        ofields = phase_opd_grad_fields(table, specs)
+        hybrid = lens == "hybrid achromat"
+        mloop = PHASE_ACHROM_FIELDS if hybrid else None
+        oloop = PHASE_DESIGN_FIELDS if hybrid else None
+        f32 = (torch.float32,)
+        mtypes = (torch.float32, torch.float64) if hybrid else f64
+        otypes = (torch.float64, torch.float32) if timed else f64
+        clipped = phase_clip_bundle(table, half)
+        for bund, clips in ((bundle, (False,)), (clipped, (True,))):
+            keep(phase_multi_check(tabs, mspecs, lens + ", its stack", bund,
+                                   clips, mfields, mloop, mtypes))
+            if lens == "spectrograph":
+                phase_multi_check(tabs, mspecs, lens + ", its stack", bund,
+                                  clips, mfields, None, f32, moments=False)
+            keep(phase_opd_check(s, table, specs, lens, bund, clips,
+                                 ofields, oloop, otypes))
     phase_grating_fd_check()
+    phase_grating_fd_adjoints()
+    phase_kinoform_check()
     return worst
+
+
+def phase_clip_bundle(table, half):
+    """The clipped checks' bench bundle of a phase lens: phase_bundle_of
+    widened so that, 1.5x wide again (the checks' clip), it reaches 1.2x
+    past the lens's smallest aperture."""
+    rad = table.radius[1:].detach().cpu().double()
+    rmin = float(rad[torch.isfinite(rad)].min())
+    return phase_bundle_of(half*max(1., 1.2*rmin/(1.5*half)))
 
 
 def phase_grating_fd_check():
@@ -3643,6 +3919,121 @@ def phase_grating_fd_check():
                              "differences: " + ", ".join(failures))
 
 
+def phase_grating_fd_adjoints():
+    """Float64, N_CHECK bench rays, against central differences (steps
+    PHASE_FD_ADJOINT_STEP of the value): K7's gradient of the K6 merit
+    (the union spot RMS of the lens's stack, phase_stack) w.r.t. one
+    table's
+    grating_dy of the mirror grating and DOE coefficient of the curved
+    hybrid, and K9's of the K8 wavefront RMS (ray 0 the chief ray) w.r.t.
+    the mirror grating's grating_dy, the curved hybrid's DOE coefficient
+    and its DOE row's n_after (the phase term psi(r2) n_after)."""
+    from rayopt_tpu_torch.ops.cuda_grad import (adjoint_wavefront_rms,
+                                                polychromatic_spot_rms)
+    cases = phase_lenses()
+    log("== K7 and K9 on the phase lenses vs central differences of the K6 "
+        "merit and the K8 wavefront RMS (float64, %d bench rays; relative "
+        "steps %s)" % (N_CHECK, PHASE_FD_ADJOINT_STEP))
+    failures = []
+    for kern, lens, field, idx in PHASE_FD_ADJOINT_PICKS:
+        s, table, specs, half = cases[lens]
+        state = phase_bundle_of(half)(N_CHECK, torch.float64, SEED)
+        w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+        y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+        if kern == "K7":
+            tab, sp = phase_stack(s)
+
+            def merit(tb, sp=sp):
+                return polychromatic_spot_rms(tb, y0, u0, w, specs=sp)
+        else:
+            tab, sp = table, specs
+
+            def merit(tb, s=s, sp=sp):
+                return adjoint_wavefront_rms(
+                    tb, y0, u0, w, ref=0, radius=-s.image.pupil.distance,
+                    wavelength=s.wavelengths[0], scale=s.scale,
+                    finite=s.object.finite, specs=sp)
+        base = getattr(tab, field)
+        v = base.clone().requires_grad_()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # the baked rows, as intended
+            merit(tab.replace(**{field: v})).backward()
+        h = PHASE_FD_ADJOINT_STEP[field]*abs(float(base[idx]))
+        side = []
+        with torch.no_grad():
+            for sgn in (1., -1.):
+                b = base.clone()
+                b[idx] += sgn*h
+                side.append(float(merit(tab.replace(**{field: b}))))
+        fd = (side[0] - side[1])/(2*h)
+        g = float(v.grad[idx])
+        rel = abs(g - fd)/abs(fd)
+        ok = rel <= FD_REL
+        log("%s, %s %s %s: kernel %.12g, central difference %.12g (step "
+            "%.3g), rel %.2e -> %s" % (kern, lens, field, idx, g, fd, h, rel,
+                                       "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s %s %s" % (kern, lens, field))
+    if failures:
+        raise AssertionError("K7 or K9 on the phase lenses disagrees with "
+                             "finite differences: " + ", ".join(failures))
+
+
+def phase_kinoform_check():
+    """K8 on the JAX package's kinoform (kinoform(): a flat zone lens of
+    focal 100 mm), as its test_doe_phase_enters_optical_path: 8 rays up
+    the y axis to 2.5 mm through adjoint_opd_rays (K8, float64) on the
+    card; the focused wavefront is flat to < 0.02 waves (the DOE's
+    phase psi(r2) n_after in the path) and equals the CPU plain version
+    to 1e-12 of the largest optical path; without that term (n_after 0
+    on its row) it carries tens of waves.  Then N_CHECK rays of the 3 mm
+    bench bundle: K8 against the CPU plain version to 1e-12 of the
+    largest optical path, equal NaN masks."""
+    from rayopt_tpu_torch.ops.cuda_grad import adjoint_opd_rays, opd_chain
+    from rayopt_tpu_torch.ops.kernels import specialize
+    s = kinoform()
+    table, cpu = s.table(), s.table(device="cpu")
+    specs = specialize(table)
+    n = 8
+    y = torch.zeros((n, 3), dtype=torch.float64)
+    y[:, 1] = torch.linspace(0., 2.5, n, dtype=torch.float64)
+    u = torch.zeros_like(y)
+    u[:, 2] = 1.
+    kw = dict(ref=0, radius=-100., wavelength=PHASE_LAM0, specs=specs)
+    before = opd_chain.launches
+    card = adjoint_opd_rays(table, y.to(DEVICE), u.to(DEVICE), **kw)
+    plain = adjoint_opd_rays(cpu, y, u, **kw)
+    bare = adjoint_opd_rays(table.replace(n_after=torch.zeros_like(
+        table.n_after)), y.to(DEVICE), u.to(DEVICE), **kw)
+    state = phase_bundle_of(3.)(N_CHECK, torch.float64, SEED)
+    yb, ub = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+    big = adjoint_opd_rays(table, yb, ub, **kw).detach().cpu()
+    torch.cuda.synchronize()
+    launched = opd_chain.launches - before
+    big_plain = adjoint_opd_rays(cpu, yb.cpu(), ub.cpu(), **kw).detach()
+    card, bare = card.detach().cpu(), bare.detach().cpu()
+    flat = float(card.abs().max())
+    err = float((card - plain.detach()).abs().max())
+    path = 5.*1. + 100.       # the axial path to the sphere, mm
+    scale = path/(PHASE_LAM0/s.scale)
+    masks = int((torch.isnan(big) != torch.isnan(big_plain)).sum())
+    good = torch.isfinite(big_plain)
+    err_big = float((big[good] - big_plain[good]).abs().max())
+    ok = (flat < .02 and err <= 1e-12*scale and float(bare.abs().max()) > 10.
+          and masks == 0 and err_big <= 1e-12*scale and launched == 3)
+    log("== K8 on the kinoform (f = 100 mm at %g m, 8 rays up y to 2.5 mm, "
+        "float64): max |OPD| %.3e waves (the JAX package asserts < 0.02) | "
+        "vs the CPU plain version %.3e waves (of |k| ~%.4g) | without the "
+        "phase term %.4g waves | %d bench rays in +-3 mm: max |OPD| %.4g "
+        "waves, vs the CPU plain version %.3e waves, NaN masks differ on %d "
+        "| K8 launches %d -> %s"
+        % (PHASE_LAM0, flat, err, scale, float(bare.abs().max()), N_CHECK,
+           float(big_plain[good].abs().max()), err_big, masks, launched,
+           "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("K8 on the kinoform failed")
+
+
 def phase_spectrograph_path():
     """The spectrograph's forward path at each wavelength's own table
     (models.spectrograph, full width): N_AIMED bench rays (ray 0 the
@@ -3650,18 +4041,23 @@ def phase_spectrograph_path():
     card; the line position -- ray 0's image height -- against the JAX
     package's golden (LINES_REL), K2's spot RMS against K1's, and the
     first N_PHASE rays of K1's own output against the CPU float64 plain
-    trace (PARITY_REL, equal NaN masks).  The forward path's launches
-    are counted from the caller's reset."""
+    trace (PARITY_REL, equal NaN masks).  Then K3's trace of the same
+    rays through the three wavelengths' stack (System.tables, one launch:
+    each table its own grating term): its image positions against float64
+    K1's at each wavelength's table (F64_REL of scale, equal NaN masks)
+    and its detector lines against the golden (LINES_REL).  The forward
+    path's launches are counted from the caller's reset."""
     from rayopt_tpu_torch.models import spectrograph
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
-                                                 trace_final, trace_merit)
+                                                 trace_final, trace_merit,
+                                                 trace_multi)
     from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
     from rayopt_tpu_torch.ops.kernels import specialize
     s = spectrograph()
     log("== spectrograph path: 600 lp/mm on an R = -400 mirror, order 1, "
         "%d bench rays a wavelength through float64 K1 and K2 at each "
         "wavelength's table" % N_AIMED)
-    failures = []
+    failures, k1 = [], []
     bundle = phase_bundle_of(10.)
     for lam, want in zip(s.wavelengths, SPECTROGRAPH_LINES):
         table = s.table(lam)
@@ -3699,26 +4095,58 @@ def phase_spectrograph_path():
                "ok" if ok else "FAIL"))
         if not ok:
             failures.append("%.0f nm" % (lam*1e9))
-        del out, state
+        k1.append(torch.stack(out[:3], 1))
+        del out
+    t0 = time.perf_counter()
+    tabs = s.tables()
+    multi = trace_multi(tabs, None, state)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    for li, ((lam, want), y1) in enumerate(zip(zip(s.wavelengths,
+                                                   SPECTROGRAPH_LINES), k1)):
+        y3 = torch.stack(multi[li][0][:3], 1)
+        masks = int((torch.isnan(y3[:, 0]) != torch.isnan(y1[:, 0])).sum())
+        good = torch.isfinite(y3[:, 0]) & torch.isfinite(y1[:, 0])
+        err = float((y3[good] - y1[good]).abs().max())
+        scale = max(float(y1[good].abs().max()), 1.)
+        line = float(y3[0, 1])
+        rel_line = abs(line - want)/abs(want)
+        ok = masks == 0 and err <= F64_REL*scale and rel_line <= LINES_REL
+        log("K3 f64 trace of the 3-wavelength stack, %.0f nm: image "
+            "positions vs f64 K1 at its table max %.3e mm (of %.6g), NaN "
+            "masks differ on %d | line %.12f mm vs golden %.12f (rel %.2e) "
+            "| card %.2f s for the stack -> %s"
+            % (lam*1e9, err, scale, masks, line, want, rel_line, t_gpu,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("K3 %.0f nm" % (lam*1e9))
+    del multi, k1, state
     if failures:
         raise AssertionError("spectrograph path failed: "
                              + ", ".join(failures))
 
 
-def phase_hybrid_path(opt_step):
+def phase_hybrid_path(opt_step, glass_step, design_step):
     """The hybrid achromat's main path through the entry points a user
     calls (models.hybrid_achromat, full width): System.pupils of the
     aimed lens on the card against the host pupil at tol AIM_HOST_TOL,
-    N_AIMED rays a field aimed by the host at fields 0, 0.7 and 1
+    N_AIMED_LENS rays a field aimed by the host at fields 0, 0.7 and 1
     through float64 and float32 K1 and K2, and the spot RMS of float64
     K1's output on the first N_PHASE of them against the CPU float64
     plain trace (PARITY_REL, equal NaN masks); then its designer loop
     over PHASE_SELECT (designer_loop: 3 fields x 3 wavelengths, nrays
     N_OPT, float64, OPT_STEPS Adam steps; step 0 against the CPU at
-    N_LOOP_CHECK nrays a bundle), its later steps logged beside the
-    double Gauss's (`opt_step` seconds).  Returns the path's launches
-    (the forward part's, counted from the caller's reset, and the
-    loop's) and the loop's later-step seconds."""
+    N_LOOP_CHECK nrays a bundle), its achromatization loop
+    (phase_glass_path: K3, K6 and K7 over the three wavelengths, over the
+    curvatures, the distances, the singlet's glass and the kinoform's
+    phase coefficient A) and its design step (phase_design_path over
+    PHASE_SELECT: K4, K5, K8 and K9, the DOE's phase in the optical path;
+    the spot bundles' chroma does not override the DOE coefficients, as
+    the reference's), each loop's step 0 against the CPU at N_LOOP_CHECK
+    nrays a bundle, its later steps logged beside the double Gauss's
+    (`opt_step`, `glass_step`, `design_step` seconds).  Returns the
+    path's launches (the forward part's, counted from the caller's
+    reset, and each loop's) and the loops' later-step seconds."""
     from rayopt_tpu_torch.models import hybrid_achromat
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
                                                  trace_merit)
@@ -3726,7 +4154,7 @@ def phase_hybrid_path(opt_step):
     s, table, specs, _ = phase_lenses()["hybrid achromat"]
     table_cpu = s.table(device="cpu")
     log("== hybrid achromat path: an N-BK7 singlet with a kinoform on its "
-        "exit face (row 2), %d aimed rays a field, no clip" % N_AIMED)
+        "exit face (row 2), %d aimed rays a field, no clip" % N_AIMED_LENS)
     fields = [(0., f) for f in FIELDS]
 
     def aimed_lens():
@@ -3761,8 +4189,8 @@ def phase_hybrid_path(opt_step):
     for field in FIELDS:
         t0 = time.perf_counter()
         zf, pf = s.pupil((0., field))
-        r = np.sqrt(rng.uniform(0, 1, N_AIMED))
-        th = rng.uniform(0, 2*np.pi, N_AIMED)
+        r = np.sqrt(rng.uniform(0, 1, N_AIMED_LENS))
+        th = rng.uniform(0, 2*np.pi, N_AIMED_LENS)
         yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
         y0, u0 = s.aim((0., field), yp, zf, pf, filter=False)
         t_aim = time.perf_counter() - t0
@@ -3798,7 +4226,7 @@ def phase_hybrid_path(opt_step):
             "%.9g (rel %.2e) | the first %d rays: K1 f64 %.12g vs CPU f64 "
             "%.12g (rel %.2e), NaN masks differ on %d | aim %.2f s, card "
             "%.2f s, CPU %.2f s -> %s"
-            % (field, zf, live, N_AIMED, rms_k1, rms_k2, rms_k1_32,
+            % (field, zf, live, N_AIMED_LENS, rms_k1, rms_k2, rms_k1_32,
                abs(rms_k1_32 - rms_k1)/rms_k1, rms_k2_32,
                abs(rms_k2_32 - rms_k1)/rms_k1, N_PHASE, rms_sub, rms_cpu,
                rel1, masks, t_aim, t_gpu, t_cpu, "ok" if ok else "FAIL"))
@@ -3815,9 +4243,17 @@ def phase_hybrid_path(opt_step):
     loop, step = designer_loop(hybrid_achromat(), "phase designer loop: "
                                "hybrid achromat", PHASE_SELECT, None,
                                N_LOOP_CHECK)
-    log("later steps: designer loop hybrid achromat %.4f s, double Gauss "
-        "%.4f s (%.2fx)" % (step, opt_step, step/opt_step))
-    return {k: v + loop[k] for k, v in forward.items()}, step
+    glass, gstep = phase_glass_path(hybrid_achromat(), "hybrid achromat",
+                                    N_LOOP_CHECK, slots=1)
+    design, dstep = phase_design_path(hybrid_achromat(), "hybrid achromat",
+                                      PHASE_SELECT, None, N_LOOP_CHECK)
+    steps = {"designer": step, "achromatization": gstep, "design": dstep}
+    log("later steps: %s" % ", ".join(
+        "%s loop hybrid achromat %.4f s, double Gauss %.4f s (%.2fx)"
+        % (k, v, t, v/t) for (k, v), t in zip(
+            steps.items(), (opt_step, glass_step, design_step))))
+    return ({k: v + loop[k] + glass[k] + design[k]
+             for k, v in forward.items()}, steps)
 
 
 def phase_grating_throughput(card):
@@ -3841,6 +4277,109 @@ def phase_grating_throughput(card):
         times[lens].update(phase_grad_throughput(table, specs, card, twin,
                                                  loop, **kw))
     return times
+
+
+def phase_multi_throughput_grating(card):
+    """K3 (merit and trace), K6, K7 (every field with the ray
+    cotangents, and the loop's key), K8 and K9 (the same two) on the
+    timed phase lenses (PHASE_TIMED; K3, K6 and K7 on the lens's stack,
+    phase_stack; ray 0 the chief ray) in float32: at N_CHECK bench rays
+    against their plain versions in turns (plain, kernel, kernel,
+    plain), then at N_BENCH rays against the phase-free twins' keys
+    (phase_twin_system, its stack and table; kernel, twin, kernel,
+    twin), where the kernel outweighs the wrapper's ~0.2 ms.  Returns
+    times[lens][(name, n)] = (kernel, plain or twin) ms and
+    live[lens][n] = (the multi bundle's live ray traces summed over the
+    wavelengths, the OPD bundle's live rays)."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint_multi, merit_adjoint_multi_reference, opd_adjoint,
+        opd_adjoint_reference, opd_chain, opd_chain_reference,
+        weighted_moments_multi, weighted_moments_multi_reference)
+    from rayopt_tpu_torch.ops.cuda_trace import (trace_multi,
+                                                 trace_multi_reference)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    cases = phase_lenses()
+    f32 = torch.float32
+    times, live = {}, {}
+    for lens in PHASE_TIMED:
+        s, table, specs, half = cases[lens]
+        tabs, mspecs = phase_stack(s)
+        ts = phase_twin_system(lens)
+        ttable = ts.table()
+        tspecs = specialize(ttable)
+        ttabs, tmspecs = phase_stack(ts)
+        hybrid = lens == "hybrid achromat"
+        mloop = (PHASE_ACHROM_FIELDS if hybrid
+                 else ACHROM_FIELDS + ("grating_dy",))
+        oloop = (PHASE_DESIGN_FIELDS if hybrid
+                 else DESIGN_FIELDS + ("grating_dy",))
+        bundle = phase_bundle_of(half)
+        log("== K3/K6-K9 throughput (%s, phase keys, float32): %d bench rays "
+            "x 3 wavelengths against the plain versions, then %d rays "
+            "against the phase-free twin's keys (%s)"
+            % (lens, N_CHECK, N_BENCH, card))
+
+        def cases_of(state, w, sy, tb, sp, tbs, msp, ml, ol):
+            ct = rms_cotangent(weighted_moments_multi(tbs, msp, state, w))
+            aux = opd_aux(sy, tb, sp, state)
+            k = opd_chain(tb, sp, state, aux)
+            cts = opd_cotangents(*k, "wavefront")
+            nlive = (sum(float(m[0]) for m in trace_multi(
+                tbs, msp, state, merit=True)), int(torch.isfinite(k[0]).sum()))
+            return (
+                ("trace_multi",
+                 lambda: trace_multi(tbs, msp, state, merit=True),
+                 lambda: trace_multi_reference(tbs, msp, state, merit=True)),
+                ("trace_multi_trace",
+                 lambda: trace_multi(tbs, msp, state),
+                 lambda: trace_multi_reference(tbs, msp, state)),
+                ("weighted_moments_multi",
+                 lambda: weighted_moments_multi(tbs, msp, state, w),
+                 lambda: weighted_moments_multi_reference(tbs, msp, state,
+                                                          w)),
+                ("merit_adjoint_multi",
+                 lambda: merit_adjoint_multi(tbs, msp, state, w, ct),
+                 lambda: merit_adjoint_multi_reference(tbs, msp, state, w,
+                                                       ct)),
+                ("merit_adjoint_multi_loop",
+                 lambda: merit_adjoint_multi(tbs, msp, state, w, ct,
+                                             fields=ml, rays=False), None),
+                ("opd_chain", lambda: opd_chain(tb, sp, state, aux),
+                 lambda: opd_chain_reference(tb, sp, state, aux)),
+                ("opd_adjoint", lambda: opd_adjoint(tb, sp, state, aux, cts),
+                 lambda: opd_adjoint_reference(tb, sp, state, aux, cts)),
+                ("opd_adjoint_loop",
+                 lambda: opd_adjoint(tb, sp, state, aux, cts, fields=ol,
+                                     rays=False), None)), nlive
+        times[lens], live[lens] = {}, {}
+        for n in (N_CHECK, N_BENCH):
+            state = bundle(n, f32, SEED + 1)
+            w = bench_weights(n, f32, SEED + 3)
+            mine, live[lens][n] = cases_of(state, w, s, table, specs, tabs,
+                                           mspecs, mloop, oloop)
+            twins = cases_of(state, w, ts, ttable, tspecs, ttabs, tmspecs,
+                             ACHROM_FIELDS, DESIGN_FIELDS)[0] \
+                if n == N_BENCH else None
+            for case, (name, kernel, plain) in enumerate(mine):
+                if n == N_CHECK:
+                    if plain is None:
+                        continue
+                    (k, p, _), (k1, k2, p1, p2, _, _) = in_turns(kernel, plain,
+                                                                 reps=10)
+                    times[lens][(name, n)] = (k, p)
+                    log("%s float32 at %d rays: kernel %.4f ms (%.4f, %.4f), "
+                        "plain %.4f ms (%.4f, %.4f), plain/kernel %.2fx | %s"
+                        % (name, n, k, k1, k2, p, p1, p2, p/k, card))
+                else:
+                    (k, _, t), (k1, k2, _, _, t1, t2) = in_turns(
+                        kernel, None, twins[case][1], 10)
+                    times[lens][(name, n)] = (k, t)
+                    log("%s float32 at %d rays: kernel %.4f ms (%.4f, %.4f)"
+                        "%s | %s" % (name, n, k, k1, k2, twin_note(
+                            k, t, t1, t2, "phase-free twin key"), card))
+            del mine, twins, state, w
+            torch.cuda.empty_cache()
+    return times, live
 
 
 PHASE_SOLVE_FLOPS = 55   # the grating/phase solve without the kick
@@ -3944,6 +4483,103 @@ def grating_entries(sources, launches, worst, times, ptxas, step, dg_step):
         if kname == "merit_adjoint":
             entry.update({"designer_step_s": step,
                           "double_gauss_designer_step_s": dg_step})
+        out.append(entry)
+    return out
+
+
+def grating_multi_entries(sources, launches, worst, times, live, ptxas,
+                          steps, dg_steps):
+    """The kernels line's entries of K3, K6, K7, K8 and K9's phase keys:
+    the phase paths' launches (the spectrograph's K3 trace, the hybrid's
+    achromatization loop and design step), the float32 errors of
+    phase_grating_check, the times of phase_multi_throughput_grating
+    (the hybrid's at N_CHECK against the plain versions and at N_BENCH
+    against the phase-free twin's keys; the spectrograph's under
+    "spectrograph_"), the bounds (kernel_bound at each size's live rays,
+    the phase rows by phase_row_flops), the keys' registers, stack and
+    spills (float64: the hybrid's loop keys), and the hybrid's loops'
+    later-step seconds beside the double Gauss's."""
+    from rayopt_tpu_torch.ops.cuda_trace import doe_width, figure_widths
+    cases = phase_lenses()
+    # the tags in ptxas of each kernel's key (K3: its merit mode; K7 and
+    # K9: every field with the ray cotangents) and its loop key
+    tags = {"trace_multi": "K3 %s %s merit",
+            "weighted_moments_multi": "K6 %s %s clip=False",
+            "merit_adjoint_multi": "K7 %s %s clip=False all rays=True",
+            "opd_chain": "K8 %s %s clip=False",
+            "opd_adjoint": "K9 %s %s clip=False all rays=True"}
+    loop_tags = {"trace_multi": "K3 %s %s trace",
+                 "merit_adjoint_multi": "K7 %s %s achromatization rays=False",
+                 "opd_adjoint": "K9 %s %s design rays=False"}
+    big = "_f32_%d_rays" % N_BENCH
+    out = []
+    for kname, tag in tags.items():
+        source, replaces = sources[kname]
+        multi = kname in ("trace_multi", "weighted_moments_multi",
+                          "merit_adjoint_multi")
+        entry = {"name": kname + "_grating", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": launches[kname], "max_abs_err": worst[kname],
+                 "library_ms": None, "rays": N_CHECK,
+                 "wavelengths": 3 if multi else 1}
+        extra = {"trace_multi": "trace_multi_trace",
+                 "merit_adjoint_multi": "merit_adjoint_multi_loop",
+                 "opd_adjoint": "opd_adjoint_loop"}.get(kname)
+        for lens, pre in zip(PHASE_TIMED, ("", "spectrograph_")):
+            s, table, specs, _ = cases[lens]
+            tabs, mspecs = phase_stack(s)
+            tb, sp = (tabs, mspecs) if multi else (table, specs)
+            tt = times[lens]
+
+            def bound(name, n, tb=tb, sp=sp, ln=lens):
+                nlive = live[ln][n][0 if multi else 1]
+                return kernel_bound(name, n, torch.float32, sp,
+                                    3 if multi else 1, nlive,
+                                    figure_widths(tb, sp), doe_width(tb, sp))
+            k, p = tt[(kname, N_CHECK)]
+            b, by = bound(kname, N_CHECK)
+            kb, tw = tt[(kname, N_BENCH)]
+            entry.update({pre + "ms": k, pre + "plain_ms": p,
+                          pre + "bound_ms": b, pre + "ms" + big: kb,
+                          pre + "ms_twin_key" + big: tw,
+                          pre + "bound_ms" + big: bound(kname, N_BENCH)[0]})
+            if not pre:
+                entry["bound_by"] = by
+            if extra:
+                sfx = "_trace" if kname == "trace_multi" else "_loop_key"
+                if (extra, N_CHECK) in tt:
+                    ke, pe = tt[(extra, N_CHECK)]
+                    entry.update({pre + "ms" + sfx: ke,
+                                  pre + "plain_ms" + sfx: pe,
+                                  pre + "bound_ms" + sfx:
+                                      bound(extra, N_CHECK)[0]})
+                ke, te = tt[(extra, N_BENCH)]
+                entry.update({pre + "ms" + sfx + big: ke,
+                              pre + "ms_twin_key" + sfx + big: te,
+                              pre + "bound_ms" + sfx + big:
+                                  bound(extra, N_BENCH)[0]})
+            lt = lens.replace(" ", "-")
+            for dt in ("float32", "float64"):
+                sfx = "" if dt == "float64" else "_f32"
+                regs, stack, spill = ptxas[tag % (dt, lt)]
+                entry.update({pre + "regs" + sfx: regs,
+                              pre + "stack_bytes" + sfx: stack,
+                              pre + "spill_bytes" + sfx: spill})
+                if kname in loop_tags:
+                    regs, stack, spill = ptxas[loop_tags[kname] % (dt, lt)]
+                    lsfx = "_trace" if kname == "trace_multi" else "_loop_key"
+                    entry.update({pre + "regs" + lsfx + sfx: regs,
+                                  pre + "spill_bytes" + lsfx + sfx: spill})
+            twin_tag = (tag % ("float32", lt + " twin")).replace(
+                " clip=False", "")
+            entry[pre + "regs_twin_f32"] = ptxas[twin_tag][0]
+        if kname == "merit_adjoint_multi":
+            entry.update({"achromatization_step_s": steps["achromatization"],
+                          "double_gauss_achromatization_step_s":
+                              dg_steps["achromatization"]})
+        if kname == "opd_adjoint":
+            entry.update({"design_step_s": steps["design"],
+                          "double_gauss_design_step_s": dg_steps["design"]})
         out.append(entry)
     return out
 
@@ -5167,12 +5803,12 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
     }[name]
     # K9 also writes its parameter and centre cotangents, K3's merit its
     # moments
-    slots = (len(specs)*(7 + sum(widths)) + 3
-             if name.startswith("opd_adjoint") else 0)
+    grating = int(any(sp.grating for sp in specs))
+    slots = (len(specs)*(7 + sum(widths) + grating + (1 + nd if nd else 0))
+             + 3 if name.startswith("opd_adjoint") else 0)
     if name == "trace_multi":
         slots = 5*nlam
-    row = (17 + sum(widths) + int(any(sp.grating for sp in specs))
-           + (1 + nd if nd else 0))
+    row = 17 + sum(widths) + grating + (1 + nd if nd else 0)
     nbytes = (n*(words_in + words_out) + nlam*len(specs)*row + slots)*word \
         + 4*len(specs)
     t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[dtype]
@@ -5681,10 +6317,10 @@ def anamorphic_entries(sources, launches, worst, times, mlive, ptxas,
             lv = flive[lens]*lam
             pre = lens.replace(" ", "_") + "_"
             entry.update({pre + "ms_f64": k, pre + "plain_ms_f64": p,
-                          pre + "rays": N_CHECK,
+                          pre + "rays": N_FIGURED_TIME,
                           pre + "bound_ms_f64": kernel_bound(
-                              kname, N_CHECK, torch.float64, sp, lam, lv,
-                              widths)[0]})
+                              kname, N_FIGURED_TIME, torch.float64, sp, lam,
+                              lv, widths)[0]})
     # live rays of the timing bundles (K5's reverse runs for these only)
     live = {(lens, n, dtype): float(trace_merit(
         cases[lens][1], cases[lens][2], anam_bundle(n, dtype, SEED + 1))[0])
@@ -5916,11 +6552,13 @@ def main():
     spec_launches = read_launches()
     log("== launch counts on the spectrograph path: %s" % spec_launches)
     reset_launches()
-    hyb_launches, hyb_step = phase_hybrid_path(opt_step)
+    hyb_launches, hyb_steps = phase_hybrid_path(opt_step, glass_step,
+                                                design_step)
     log("== launch counts on the hybrid achromat path: %s" % hyb_launches)
     phase_kernels = ("trace_final", "trace_merit", "weighted_moments",
-                     "merit_adjoint")
+                     "merit_adjoint") + multi + opd
     if not (spec_launches["trace_final"] and spec_launches["trace_merit"]
+            and spec_launches["trace_multi"]
             and all(hyb_launches[k] for k in phase_kernels)):
         raise AssertionError("a kernel of the phase paths never launched: "
                              "%s, %s" % (spec_launches, hyb_launches))
@@ -5928,6 +6566,7 @@ def main():
                       for k in phase_kernels}
     torch.cuda.empty_cache()
     ptimes = phase_grating_throughput(card)
+    pmtimes, pmlive = phase_multi_throughput_grating(card)
     ntimes, nlive = phase_anamorphic_throughput(card)
     ftimes, flive = phase_figured_throughput(card)
     times = phase_throughput(table, specs, card)
@@ -6107,7 +6746,10 @@ def main():
                                   (opt_step, glass_step, design_step),
                                   (ftimes, flive))
     kernels += grating_entries(sources, phase_launches, gworst, ptimes,
-                               ptxas, hyb_step, opt_step)
+                               ptxas, hyb_steps["designer"], opt_step)
+    kernels += grating_multi_entries(
+        sources, phase_launches, gworst, pmtimes, pmlive, ptxas, hyb_steps,
+        {"achromatization": glass_step, "design": design_step})
     kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass,
                             (dntimes, dnlive, newton_launches))
     from rayopt_tpu_torch.ops import cuda_spec as CS

@@ -21,14 +21,17 @@
 // or toroid's seeded Newton with the figure of the key's widths; K5, K7
 // and K9 their reverse by hand, K9's with the path cotangent; the key
 // defines RAYOPT_N_ANAM, so that a row grows by curvature_dx and conic_dx
-// and the adjoints' slots by their cotangents).  K1, K2, K4 and K5 take
-// the phase rows too -- a linear grating or a radial diffractive phase on
+// and the adjoints' slots by their cotangents).  Every kernel takes the
+// phase rows too -- a linear grating or a radial diffractive phase on
 // any substrate but a cylinder, by the generalized Spencer & Murty
-// solve; K5 its reverse by hand; the key defines RAYOPT_N_GRAT and
-// RAYOPT_N_DOE, so that a row grows by grating_dy and by n_after and the
-// DOE coefficients, K5's slots by their cotangents.  The keys of K3 and
-// K6-K9 refuse the phase rows (ROADMAP Queue 1 item 9.4, part two),
-// every key the freeform rows (item 9.5).
+// solve, a DOE's imprinted phase psi(r2) n_after added to the optical
+// path; K5, K7 and K9 their reverse by hand, K9's with the path term's
+// cotangent; the key defines RAYOPT_N_GRAT and RAYOPT_N_DOE, so that a
+// row grows by grating_dy and by n_after and the DOE coefficients, the
+// adjoints' slots by their cotangents (K9's by n_after's too).  K3 and
+// K6 stage each table's own phase words; K7 reduces them per table.
+// Only a phase row on a cylinder (ROADMAP Queue 1 item 9.4, part three)
+// and the freeform rows (item 9.5) are refused, by every key.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
@@ -156,9 +159,9 @@ static_assert(FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
 // The rows of one key: W holds a 64-bit word a row, its flags in the
 // low LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z,
 // mu, then K5's and K7's aspheric coefficients, then an anamorphic
-// key's curvature_dx and conic_dx, then K5's grating_dy and DOE
-// coefficients; K9 n_before, then its coefficients and the anamorphic
-// two) that row reduces.
+// key's curvature_dx and conic_dx, then a phase key's grating_dy and DOE
+// coefficients; K9 n_before, then its coefficients, the anamorphic two,
+// grating_dy, and n_after before the DOE coefficients) that row reduces.
 template <long long... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -631,8 +634,9 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_spec(
 // K7: K5 for each table of an nlam stack (table: nlam * rows * ROW
 // words), the wavelengths outermost; ct holds nlam rows of the five
 // moment cotangents.  out: (nlam, rows, FIG_SLOTS) parameter cotangents
-// per wavelength (SLOTS, then a figured table's aspheric coefficients),
-// zero where a slot is not live; with RAYS the six ray and
+// per wavelength (K5's columns: a phase stack's grating_dy and DOE
+// coefficients are each table's own), zero where a slot is not live;
+// with RAYS the six ray and
 // the weight cotangents summed over the wavelengths (a ray dead at a
 // wavelength adds zeros there).  partials: (grid, nlam, live slots).
 // Dynamic shared memory: the saved states, as K5's.
@@ -707,9 +711,10 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_multi_spec(
 // ct_lx, ct_ly) of its outputs k, lx, ly.  aux: the sphere centre x, y,
 // z, its radius and lam_scale.  out: (rows, OPD_FIG_SLOTS) parameter
 // cotangents (OPD_SLOTS, then a figured table's aspheric coefficients,
-// then an anamorphic key's curvature_dx and conic_dx; zero where a slot
-// is not live), then the 3 centre cotangents; with RAYS the six ray cotangents a ray (zeros for a dead
-// ray).  Dynamic shared memory: the states entering rows 1..S-2,
+// then an anamorphic key's curvature_dx and conic_dx, then a phase key's
+// grating_dy, n_after and DOE coefficients; zero where a slot is not
+// live), then the 3 centre cotangents; with RAYS the six ray cotangents
+// a ray (zeros for a dead ray).  Dynamic shared memory: the states entering rows 1..S-2,
 // (rows - 2) * 6 * BLOCK words.
 template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int MINB>
 __global__ void __launch_bounds__(BLOCK, MINB) opd_adjoint_spec(

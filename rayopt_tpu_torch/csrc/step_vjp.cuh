@@ -1,7 +1,7 @@
 // The hand-derived reverse of one surface step (trace_common.cuh
 // surface_step), run by the adjoints specialized per spec tuple in
-// grad_spec.cuh (K5, K7, K9; row flags as compile-time constants; the
-// phase rows' in K5 alone), and
+// grad_spec.cuh (K5, K7, K9; row flags as compile-time constants; K9's
+// with the optical path's cotangent, a DOE row's phase term too), and
 // the reference-sphere tail of the OPD (K8 and K9, both in
 // grad_spec.cuh with the image row's flags compile-time) with its
 // reverse.  Their torch models, line for line, are
@@ -19,18 +19,22 @@ constexpr int OPD_SLOTS = 7;  // K9's a row, + n_before: cuda_grad.OPD_SLOTS
 constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
 // K5's and K7's a row: SLOTS, then the even and the odd aspheric
 // coefficients, then an anamorphic key's curvature_dx and conic_dx, then
-// K5's grating_dy and DOE coefficients (a phase key)
+// a phase key's grating_dy and DOE coefficients
 constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT + N_DOE;
 // K9's a row: OPD_SLOTS (SLOTS, then n_before), then the even and the
-// odd coefficients, then an anamorphic key's curvature_dx and conic_dx
-// (cuda_spec.opd_live_slots)
-constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD + N_ANAM;
+// odd coefficients, then an anamorphic key's curvature_dx and conic_dx,
+// then a phase key's grating_dy, then a DOE key's n_after and DOE
+// coefficients (cuda_spec.opd_live_slots)
+constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT +
+                              (N_DOE > 0 ? 1 + N_DOE : 0);
 // a row's per-ray parameter cotangents, the widest of the two
 constexpr int PG_SLOTS = FIG_SLOTS > OPD_FIG_SLOTS ? FIG_SLOTS : OPD_FIG_SLOTS;
 // an anamorphic row's curvature_dx and conic_dx slots (K5, K7; K9's
 // are one further on, past n_before)
 constexpr int Q_CDX = SLOTS + N_ASP + N_ODD;
-// a grating row's grating_dy slot and a DOE row's coefficients' (K5)
+// a grating row's grating_dy slot and a DOE row's coefficients' (K5,
+// K7; K9's are one further on, past n_before, and its n_after's sits
+// where K5's coefficients start)
 constexpr int Q_GDY = Q_CDX + N_ANAM;
 constexpr int Q_DOE = Q_GDY + N_GRAT;
 
@@ -208,8 +212,8 @@ __device__ __forceinline__ T floor_vjp(T v, T g) {
   return v >= T(TINY) ? g : T(0);
 }
 
-// ---- the phase rows' reverse (K5; cuda_grad's torch models of the same
-// names, line for line) ----
+// ---- the phase rows' reverse (K5, K7, K9; cuda_grad's torch models of
+// the same names, line for line) ----
 
 // Hand-derived reverse of grating_refract (cuda_grad._grating_refract_vjp)
 // for one live ray: from the new direction's cotangent gv, the incoming
@@ -351,29 +355,58 @@ __device__ __forceinline__ void radial_phase_vjp(T x1, T y1, T c, T k,
   }
 }
 
-// A phase row's grating_dy and DOE coefficients' cotangents into pg
-// (Q_GDY, Q_DOE): zeros where the row is no grating, no DOE.
-template <typename Flags, typename T>
-__device__ __forceinline__ void put_phase(Flags, T ggdy, const T* gdoe,
-                                          T* pg) {
-  if constexpr (N_GRAT > 0) {
-    pg[Q_GDY] = (Flags::value & F_GRATING) ? ggdy : T(0);
+// Reverse of a DOE row's optical path term psi(r2) n_after (K9's PATH;
+// cuda_grad._doe_path_vjp): coefficient i's cotangent ct_path n_after
+// r2^(i+1) added into gdoe, the intercept point's ct_path n_after
+// psi'(r2) 2 (x1, y1) into gx1, gy1; returns n_after's, ct_path psi(r2).
+template <typename T, typename Row>
+__device__ __forceinline__ T doe_path_vjp(Row p, T x1, T y1, const Doe<T>& dc,
+                                          T ct_path, T* gdoe, T& gx1,
+                                          T& gy1) {
+  const T r2 = x1 * x1 + y1 * y1;
+  const T gp = ct_path * p[P_NA];
+  T pw = r2;
+#pragma unroll
+  for (int i = 0; i < N_DOE; ++i) {
+    gdoe[i] = gdoe[i] + gp * pw;
+    pw = pw * r2;
   }
+  const T e = gp * doe_slope(r2, dc);
+  gx1 = gx1 + e * x1;
+  gy1 = gy1 + e * y1;
+  return ct_path * doe_psi(r2, dc);
+}
+
+// A phase row's grating_dy, (PATH) n_after and DOE coefficients'
+// cotangents into pg: K5's and K7's at Q_GDY and Q_DOE, K9's one slot
+// further on with n_after's at Q_DOE + 1; zeros where the row is no
+// grating, no DOE.
+template <bool PATH, typename Flags, typename T>
+__device__ __forceinline__ void put_phase(Flags, T ggdy, const T* gdoe,
+                                          T gna, T* pg) {
+  constexpr int q = PATH ? 1 : 0;
+  constexpr bool doe = (Flags::value & F_DOE) != 0;
+  if constexpr (N_GRAT > 0) {
+    pg[Q_GDY + q] = (Flags::value & F_GRATING) ? ggdy : T(0);
+  }
+  if constexpr (PATH && N_DOE > 0) pg[Q_DOE + 1] = doe ? gna : T(0);
 #pragma unroll
   for (int i = 0; i < N_DOE; ++i)
-    pg[Q_DOE + i] = (Flags::value & F_DOE) ? gdoe[i] : T(0);
+    pg[Q_DOE + 2 * q + i] = doe ? gdoe[i] : T(0);
 }
 
 // The phase solve's reverse on a radial (or flat) substrate, shared by
 // surface_step_vjp and figured_step_vjp: the solve's (grating_refract_vjp)
-// then the normal's (radial_phase_vjp); the incoming direction's
-// cotangents out, the point's, c's, k's and (FIG) the coefficients' added
-// in, mu's out, grating_dy's and the DOE's into pg.
-template <bool FLAT, bool FIG, typename T, typename Flags, typename Row>
+// then the normal's (radial_phase_vjp), then (PATH) a DOE's path term's
+// (doe_path_vjp); the incoming direction's cotangents out, the point's,
+// c's, k's and (FIG) the coefficients' added in, mu's out, grating_dy's,
+// (PATH) n_after's and the DOE's into pg.
+template <bool FLAT, bool FIG, bool PATH, typename T, typename Flags,
+          typename Row>
 __device__ __forceinline__ void radial_phase_step_vjp(
     Row p, Flags flags, T x1, T y1, T c, T k, T mu, const Figure<T>& fg,
     T ux, T uy, T uz, T gvx, T gvy, T gvz, T& gux, T& guy, T& guz, T& gx1,
-    T& gy1, T& gc, T& gk, T& gmu, FigureGrad<T>& gf, T* pg) {
+    T& gy1, T& gc, T& gk, T& gmu, FigureGrad<T>& gf, T* pg, T ct_path) {
   constexpr bool doe = (Flags::value & F_DOE) != 0;
   Doe<T> dc{};
   if constexpr (doe) dc = load_doe<T>(p);
@@ -386,7 +419,10 @@ __device__ __forceinline__ void radial_phase_step_vjp(
                            gdoe, gx1, gy1);
   radial_phase_vjp<FLAT, FIG>(x1, y1, c, k, fg, ggx, ggy, gx1, gy1, gc, gk,
                               gf);
-  put_phase(flags, ggdy, gdoe, pg);
+  T gna = T(0);
+  if constexpr (PATH && doe)
+    gna = doe_path_vjp(p, x1, y1, dc, ct_path, gdoe, gx1, gy1);
+  put_phase<PATH>(flags, ggdy, gdoe, gna, pg);
 }
 
 // Hand-derived reverse of a FIGURED row's step (surface_step with
@@ -439,11 +475,10 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   FigureGrad<T> gf;
   // ---- reverse: refraction by the radial normal ----
   if constexpr ((fl & F_PHASE) != 0) {
-    static_assert(!PATH, "K9 traces no phase row");
     // the phase solve on the normal of every coefficient of the widths
-    radial_phase_step_vjp<false, true>(p, Flags{}, x1, y1, c, k, mu, fg, ux,
-                                       uy, uz, gvx, gvy, gvz, gux, guy, guz,
-                                       gx1, gy1, gc, gk, gmu, gf, pg);
+    radial_phase_step_vjp<false, true, PATH>(
+        p, Flags{}, x1, y1, c, k, mu, fg, ux, uy, uz, gvx, gvy, gvz, gux, guy,
+        guz, gx1, gy1, gc, gk, gmu, gf, pg, ct_path);
   } else if (kind == 0) {
     gux = gvx; guy = gvy; guz = gvz;
   } else {
@@ -800,7 +835,7 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
   T gp[4] = {T(0), T(0), T(0), T(0)};
   // ---- reverse: refraction ----
   if constexpr ((fl & F_PHASE) != 0) {
-    static_assert(!PATH && !cyl, "K9 and a cylinder take no phase row");
+    static_assert(!cyl, "a cylinder takes no phase row");
     // the phase solve on the biconic's or toroid's normal
     constexpr bool doe = (fl & F_DOE) != 0;
     Doe<T> dc{};
@@ -817,7 +852,10 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     } else {
       biconic_normal_vjp<fig>(x1, y1, an, fg, ggx, ggy, gx1, gy1, gp, gf);
     }
-    put_phase(Flags{}, ggdy, gdoe, pg);
+    T gna = T(0);
+    if constexpr (PATH && doe)
+      gna = doe_path_vjp(p, x1, y1, dc, ct_path, gdoe, gx1, gy1);
+    put_phase<PATH>(Flags{}, ggdy, gdoe, gna, pg);
   } else if (kind == 0) {
     gux = gvx; guy = gvy; guz = gvz;
   } else if (cyl) {
@@ -1021,13 +1059,12 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
   T gc = T(0), gk = T(0), gmu = T(0), gux, guy, guz;
   // ---- reverse: refraction ----
   if constexpr ((Flags::value & F_PHASE) != 0) {
-    static_assert(!PATH, "K9 traces no phase row");
     // the phase solve on the radial normal (flat: (0, 0))
     const Figure<T> fg{};
     FigureGrad<T> gf;
-    radial_phase_step_vjp<(Flags::value & F_FLAT) != 0, false>(
+    radial_phase_step_vjp<(Flags::value & F_FLAT) != 0, false, PATH>(
         p, flags, x1, y1, c, k, mu, fg, ux, uy, uz, gvx, gvy, gvz, gux, guy,
-        guz, gx1, gy1, gc, gk, gmu, gf, pg);
+        guz, gx1, gy1, gc, gk, gmu, gf, pg, ct_path);
   } else if (kind == 0) {
     gux = gvx; guy = gvy; guz = gvz;
   } else if (flat && kind == 2) {

@@ -39,14 +39,17 @@ refraction, then the Newton root implicitly, one residual gradient
 scaled by -gt/F_s, as kernels._NewtonRoot does (K9 adds the row's path
 cotangent to gt first), and reduce the row's aspheric coefficients
 beside its six (K9: seven) columns, then an anamorphic key's
-curvature_dx and conic_dx.  K4 and K5 also trace the phase rows (a
-grating or a DOE on any substrate but a cylinder); K5 reverses the
-generalized Spencer & Murty solve by hand (csrc/step_vjp.cuh
-grating_refract_vjp: the Gamma root of either branch, the groove
-vector's normalization, the DOE's kick) and then the substrate's normal,
-and reduces grating_dy and the DOE coefficients after the other
-columns.  K6-K9 refuse the phase rows (ROADMAP Queue 1 item 9.4, part
-two).
+curvature_dx and conic_dx.  Every kernel here also traces the phase
+rows (a grating or a DOE on any substrate but a cylinder); K5, K7 and
+K9 reverse the generalized Spencer & Murty solve by hand
+(csrc/step_vjp.cuh grating_refract_vjp: the Gamma root of either
+branch, the groove vector's normalization, the DOE's kick) and then the
+substrate's normal, and reduce grating_dy and the DOE coefficients
+after the other columns (K7 per table of the stack, as mu).  K8 adds a
+DOE row's imprinted phase psi(r2) n_after to the optical path, and K9
+reverses it (doe_path_vjp): n_after takes ct_path psi(r2), coefficient
+i ct_path n_after r2^(i+1) and the intercept ct_path n_after psi'(r2)
+2 (x1, y1); K9's DOE rows reduce n_after before the coefficients.
 
 `spot_moments` and `adjoint_spot_rms` bind K4/K5 in one
 torch.autograd.Function (the JAX package's jax.custom_vjp `_moments`),
@@ -73,8 +76,9 @@ in a (5,) aux tensor) and returns k = -(path to the sphere)/lam_scale
 and the landing x, y per ray; K9 is its analytic adjoint, with the
 path cotangent feeding every row's t and n_before, so it returns
 OPD_SLOTS = 7 parameter cotangents a row (K5's six and n_before; then a
-figured table's coefficients and an anamorphic one's curvature_dx and
-conic_dx) and the centre's three.
+figured table's coefficients, an anamorphic one's curvature_dx and
+conic_dx, a grating one's grating_dy, a DOE one's n_after and
+coefficients) and the centre's three.
 `adjoint_opd_rays` and `adjoint_wavefront_rms` bind them in `_OpdRays`
 (the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
@@ -119,13 +123,14 @@ SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
 OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
 AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
-#: differentiable table fields _OpdRays carries (K9's fields, the
-#: anamorphic x figure last)
-_DIFF = CS.OPD_FIELDS
+#: differentiable table fields _OpdRays carries (K9's fields: the
+#: anamorphic x figure, then the phase rows' grating_dy, n_after and doe)
+_DIFF = CS.OPD_DIFF
 _NO = len(_DIFF)
-#: those _SpotMoments carries: _DIFF, then the phase rows' grating_dy
-#: and doe (the spot moments' n_before gets a zero cotangent)
-_SPOT = _DIFF + CS.FIELDS[8:]
+#: those _SpotMoments carries: _DIFF up to the anamorphic x figure, then
+#: the phase rows' grating_dy and doe (the spot moments' n_before gets a
+#: zero cotangent)
+_SPOT = _DIFF[:9] + CS.FIELDS[8:]
 _NM = len(_SPOT)
 #: kernel-carried fields that never receive cotangents
 _NONDIFF = ("radius", "alternate")
@@ -173,13 +178,13 @@ def _constant_table(table, like):
                          for f in _folded(table)))
 
 
-def _param_rows(tab, anamorphic=False, grating=False, nd=0):
+def _param_rows(tab, anamorphic=False, grating=False, nd=0, opd=False):
     """(S, SLOTS + na + no [+ ANAM] [+ 1] [+ nd]) view of the
     differentiated fields of a table: c, k, offset x, y, z, mu, then its
     aspheric coefficients, then (anamorphic, cuda_trace.
     carries_anamorphic) curvature_dx and conic_dx, then (grating,
     carries_grating) grating_dy, then (nd, doe_width) the DOE
-    coefficients."""
+    coefficients -- with `opd` (K9's) n_after before them."""
     cols = [torch.stack([tab.curvature, tab.conic, tab.offset[:, 0],
                          tab.offset[:, 1], tab.offset[:, 2], tab.mu], 1),
             tab.aspherics, tab.aspherics_odd]
@@ -188,15 +193,16 @@ def _param_rows(tab, anamorphic=False, grating=False, nd=0):
     if grating:
         cols.append(tab.grating_dy[:, None])
     if nd:
+        if opd:
+            cols.append(tab.n_after[:, None])
         cols.append(tab.doe)
     return torch.cat(cols, 1)
 
 
-def _phase_layout(table, specs, base=SLOTS):
-    """(grating, nd) of the phase columns of K5's parameter cotangents
-    (K7, K9: none; they refuse the phase rows on the card)."""
-    if base != SLOTS:
-        return False, 0
+def _phase_layout(table, specs):
+    """(grating, nd) of the phase columns of an adjoint's parameter
+    cotangents: whether a row is a grating (cuda_trace.carries_grating)
+    and the DOE width (doe_width)."""
     return carries_grating(specs), doe_width(table, specs)
 
 
@@ -210,11 +216,13 @@ def _nslots(table, specs, base=SLOTS):
     """K5's and K7's cotangent columns a row for a table and its specs
     (K9's with base OPD_SLOTS): `base`, the table's aspheric
     coefficients, ANAM where a row is anamorphic (cuda_trace.
-    carries_anamorphic), then (base SLOTS) one where a row is a grating
-    and the DOE width where a row is a DOE (_phase_layout)."""
-    grating, nd = _phase_layout(table, specs, base)
+    carries_anamorphic), then one where a row is a grating and the DOE
+    width where a row is a DOE (_phase_layout; K9 one more there, its
+    n_after)."""
+    grating, nd = _phase_layout(table, specs)
     return base + sum(_table_widths(table)) \
-        + (ANAM if carries_anamorphic(specs) else 0) + int(grating) + nd
+        + (ANAM if carries_anamorphic(specs) else 0) + int(grating) + nd \
+        + int(base == OPD_SLOTS and nd > 0)
 
 
 def _key_columns(pg, key, nq, base=SLOTS):
@@ -230,8 +238,9 @@ def _key_columns(pg, key, nq, base=SLOTS):
 
 
 def _diff_values(table, fields=_DIFF):
-    """The table's `fields`, zeros for an absent anamorphic or grating
-    field (an empty (S, 0) block for an absent doe)."""
+    """The table's `fields` (every field _OpdRays carries by default),
+    zeros for an absent anamorphic or grating field (an empty (S, 0)
+    block for an absent doe)."""
     def value(f):
         v = getattr(table, f)
         if v is not None:
@@ -414,8 +423,9 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
     cotangents.  Returns (parameter cotangents (S, _nslots(table, specs,
     OPD_SLOTS)): c, k, offset x, y, z, mu, n_before, then the table's na
     even and no odd aspheric coefficients, then for anamorphic specs
-    curvature_dx and conic_dx; the six state cotangents; the (3,) centre
-    cotangents), in the state's dtype."""
+    curvature_dx and conic_dx, for grating specs grating_dy, for DOE
+    specs n_after and the DOE coefficients; the six state cotangents;
+    the (3,) centre cotangents), in the state's dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     with torch.no_grad():
@@ -440,7 +450,8 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(leaves, grads)]
     g = tab.replace(**dict(zip(_DIFF, grads[:nd])))
-    rows = _param_rows(g, carries_anamorphic(specs))
+    rows = _param_rows(g, carries_anamorphic(specs),
+                       *_phase_layout(tab, specs), opd=True)
     pg = torch.cat([rows[:, :SLOTS], g.n_before[:, None], rows[:, SLOTS:]],
                    1)
     return pg, tuple(grads[nd:nd + 6]), grads[-1][:3]
@@ -591,12 +602,34 @@ def _phase_row(surf, spec):
             surf.doe if spec.doe else None)
 
 
-def _phase_tail(surf, spec, ggdy, gdoe):
+def _phase_tail(surf, spec, ggdy, gdoe, gna=None):
     """The per-ray cotangents a phase row appends after its other slots:
-    grating_dy (zero on a DOE that is no grating), then the row's DOE
-    coefficients (none on a grating that is no DOE)."""
-    return (ggdy if spec.grating else torch.zeros_like(ggdy),) \
+    grating_dy (zero on a DOE that is no grating), then (K9's PATH,
+    `gna` given) n_after's, then the row's DOE coefficients (none on a
+    grating that is no DOE)."""
+    na = () if gna is None or not spec.doe else (gna,)
+    return (ggdy if spec.grating else torch.zeros_like(ggdy),) + na \
         + (tuple(gdoe) if spec.doe else ())
+
+
+def _doe_path_vjp(surf, spec, x1, y1, ct_path, gdoe, gx1, gy1):
+    """Reverse of a DOE row's optical path term psi(r2) n_after (K9's
+    PATH), the model of `doe_path_vjp` in csrc/step_vjp.cuh: n_after's
+    cotangent ct_path psi(r2), coefficient i's ct_path n_after r2^(i+1)
+    added into gdoe, the intercept point's ct_path n_after psi'(r2) 2
+    (x1, y1) into gx1, gy1.  Returns (gna, gdoe, gx1, gy1); gna None and
+    the rest as given without ct_path or on a row that is no DOE."""
+    if ct_path is None or not spec.doe:
+        return None, gdoe, gx1, gy1
+    doe = surf.doe
+    r2 = x1*x1 + y1*y1
+    gp = ct_path*surf.n_after
+    pw, out = r2, []
+    for i in range(doe.shape[-1]):
+        out.append(gdoe[i] + gp*pw)
+        pw = pw*r2
+    e = gp*K._dpoly_even(r2, doe)
+    return ct_path*K._poly_even(r2, doe), out, gx1 + e*x1, gy1 + e*y1
 
 
 def _radial_phase_vjp(x1, y1, c, k, asp, aspo, ggx, ggy, ga, gb, flat):
@@ -715,7 +748,9 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
         nx1, ny1, gc, gk = _radial_phase_vjp(x1, y1, c, k, None, None, ggx,
                                              ggy, [], [], spec.flat)
         gx1, gy1 = gx1 + dx1 + nx1, gy1 + dy1 + ny1
-        phase = _phase_tail(surf, spec, ggdy, gdoe)
+        gna, gdoe, gx1, gy1 = _doe_path_vjp(surf, spec, x1, y1, ct_path,
+                                            gdoe, gx1, gy1)
+        phase = _phase_tail(surf, spec, ggdy, gdoe, gna)
     elif spec.kind == 0:
         gux, guy, guz = gvx, gvy, gvz
     elif spec.flat and spec.kind == 2:
@@ -913,7 +948,9 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
         nx1, ny1, gc, gk = _radial_phase_vjp(x1, y1, c, k, asp, aspo, ggx,
                                              ggy, ga, gb, False)
         gx1, gy1 = gx1 + dx1 + nx1, gy1 + dy1 + ny1
-        phase = _phase_tail(surf, spec, ggdy, gdoe)
+        gna, gdoe, gx1, gy1 = _doe_path_vjp(surf, spec, x1, y1, ct_path,
+                                            gdoe, gx1, gy1)
+        phase = _phase_tail(surf, spec, ggdy, gdoe, gna)
     elif spec.kind == 0:
         gux, guy, guz = gvx, gvy, gvz
     else:
@@ -1256,9 +1293,11 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
         else:
             dx, dy, *dp = _biconic_normal_vjp(x1, y1, cx, kx, c, k, ggx, ggy,
                                               fig)
-        gx1, gy1 = gx1 + dx + dx1, gy1 + dy + dy1
+        gx1, gy1 = gx1 + dx1 + dx, gy1 + dy1 + dy
         gp = [a + b for a, b in zip(gp, dp)] + gp[len(dp):]
-        phase = _phase_tail(surf, spec, ggdy, gdoe)
+        gna, gdoe, gx1, gy1 = _doe_path_vjp(surf, spec, x1, y1, ct_path,
+                                            gdoe, gx1, gy1)
+        phase = _phase_tail(surf, spec, ggdy, gdoe, gna)
     elif spec.kind == 0:
         gux, guy, guz = gvx, gvy, gvz
     elif cyl:
@@ -1401,22 +1440,25 @@ def _put_row(pg, j, spec, pj, live, specs, base=SLOTS, nd=0):
     the live rays of _step_vjp_reference's per-ray ones (a row that
     reads no figure has no aspheric slots: zeros; an anamorphic row's
     curvature_dx and conic_dx follow the coefficients; a phase row's
-    grating_dy and its nd DOE coefficients come last)."""
+    grating_dy, then (K9, base OPD_SLOTS) n_after, then its nd DOE
+    coefficients come last)."""
     sums = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
     anam = carries_anamorphic(specs)
-    grating = carries_grating(specs) and base == SLOTS
-    q = pg.shape[-1] - int(grating) - nd - (ANAM if anam else 0)
-    nph = (1 + (nd if spec.doe else 0)) if K.is_phase(spec) else 0
+    grating = carries_grating(specs)
+    # the DOE block: K9's n_after, then the coefficients
+    ndoe = nd + int(base == OPD_SLOTS) if nd else 0
+    q = pg.shape[-1] - int(grating) - ndoe - (ANAM if anam else 0)
+    nph = (1 + (ndoe if spec.doe else 0)) if K.is_phase(spec) else 0
     head = len(pj) - nph - (ANAM if K.is_anamorphic_spec(spec) else 0)
     pg[j, :head] = sums[:head]
     if K.is_anamorphic_spec(spec):
         pg[j, q:q + ANAM] = sums[head:head + ANAM]
     if nph:
-        q = pg.shape[-1] - nd
+        q = pg.shape[-1] - ndoe
         if grating:
             pg[j, q - 1] = sums[-nph]
         if spec.doe:
-            pg[j, q:] = sums[-nd:]
+            pg[j, q:] = sums[-ndoe:]
 
 
 def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False):
@@ -1481,6 +1523,7 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
     g = tuple(torch.where(live, v, 0.) for v in g)
     pg = torch.zeros((nsurf, _nslots(tab, specs, OPD_SLOTS)),
                      dtype=x0.dtype, device=x0.device)
+    nd = _phase_layout(tab, specs)[1]
     pg[nsurf - 1, :OPD_SLOTS] = torch.stack([torch.where(live, v, 0.).sum()
                                              for v in pj])
     gcen = torch.stack([torch.where(live, v, 0.).sum() for v in gc])
@@ -1488,7 +1531,7 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g,
                                     ct_path=ct_path)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        _put_row(pg, j, specs[j], pj, live, specs, OPD_SLOTS)
+        _put_row(pg, j, specs[j], pj, live, specs, OPD_SLOTS, nd)
     if specs[0].rotated:
         r0 = tab.rot[0]
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
@@ -1515,9 +1558,9 @@ def _moments_kernel(specs, dtype, clip, widths, nd=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _moments_multi_kernel(specs, dtype, clip, nlam, widths=(0, 0)):
+def _moments_multi_kernel(specs, dtype, clip, nlam, widths=(0, 0), nd=0):
     return CS.load(CS.moments_multi_key(specs, dtype, clip, nlam,
-                                        widths=widths))
+                                        widths=widths, nd=nd))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1527,20 +1570,22 @@ def _adjoint_kernel(specs, dtype, clip, fields, rays, widths, nd=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_multi_kernel(specs, dtype, clip, fields, rays, widths=(0, 0)):
+def _adjoint_multi_kernel(specs, dtype, clip, fields, rays, widths=(0, 0),
+                          nd=0):
     return CS.load(CS.adjoint_multi_key(specs, dtype, clip, fields, rays,
-                                        widths=widths))
+                                        widths=widths, nd=nd))
 
 
 @functools.lru_cache(maxsize=None)
-def _opd_kernel(specs, dtype, clip, widths=(0, 0)):
-    return CS.load(CS.opd_key(specs, dtype, clip, widths=widths))
+def _opd_kernel(specs, dtype, clip, widths=(0, 0), nd=0):
+    return CS.load(CS.opd_key(specs, dtype, clip, widths=widths, nd=nd))
 
 
 @functools.lru_cache(maxsize=None)
-def _opd_adjoint_kernel(specs, dtype, clip, fields, rays, widths=(0, 0)):
+def _opd_adjoint_kernel(specs, dtype, clip, fields, rays, widths=(0, 0),
+                        nd=0):
     return CS.load(CS.opd_adjoint_key(specs, dtype, clip, fields, rays,
-                                      widths=widths))
+                                      widths=widths, nd=nd))
 
 
 def weighted_moments(table, specs, state, w, clip=False):
@@ -1629,18 +1674,18 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
 merit_adjoint.launches = 0
 
 
-def _moments_multi_runs(specs, dtype, clip, nlam, widths=(0, 0)):
+def _moments_multi_runs(specs, dtype, clip, nlam, widths=(0, 0), nd=0):
     """K6's launches for a stack of nlam tables (`widths` the stack's,
-    figure_widths): (l0, l1, loaded key) of each balanced run of at most
-    cuda_spec.multi_most wavelengths (MAX_NLAM, fewer where the tables
-    outgrow static shared memory; cuda_spec.runs: 12 -> 6 + 6, 13 ->
-    7 + 6)."""
-    most = CS.multi_most("k6", specs, dtype, widths=widths)
+    figure_widths; `nd` its doe_width): (l0, l1, loaded key) of each
+    balanced run of at most cuda_spec.multi_most wavelengths (MAX_NLAM,
+    fewer where the tables outgrow static shared memory; cuda_spec.runs:
+    12 -> 6 + 6, 13 -> 7 + 6)."""
+    most = CS.multi_most("k6", specs, dtype, widths=widths, nd=nd)
     if most < 1:
         # raises, saying why
-        CS.moments_multi_key(specs, dtype, clip, 1, widths=widths)
+        CS.moments_multi_key(specs, dtype, clip, 1, widths=widths, nd=nd)
     return [(l0, l1, _moments_multi_kernel(specs, dtype, clip, l1 - l0,
-                                           widths))
+                                           widths, nd))
             for l0, l1 in CS.runs(nlam, most)]
 
 
@@ -1664,7 +1709,8 @@ def weighted_moments_multi(tables, specs, state, w, clip=False):
     specs = tuple(specs)
     runs = _moments_multi_runs(specs, x.dtype, bool(clip),
                                tables.curvature.shape[0],
-                               figure_widths(tables, specs))
+                               figure_widths(tables, specs),
+                               doe_width(tables, specs))
     outs = [launch_moments(kern, table_at(tables, slice(l0, l1)), specs,
                            state, w) for l0, l1, kern in runs]
     if x.shape[0]:
@@ -1677,8 +1723,9 @@ weighted_moments_multi.launches = 0
 
 def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                         fields=CS.FIELDS, rays=True):
-    """K7: (parameter cotangents (nlam, S, SLOTS + na + no) per table of
-    the stack, in merit_adjoint's columns; the six state cotangents and
+    """K7: (parameter cotangents (nlam, S, _nslots) per table of the
+    stack, in merit_adjoint's columns -- a phase table's grating_dy and
+    DOE coefficients too, each table's own; the six state cotangents and
     the weight cotangent, each summed over the tables) of the (nlam, 5)
     weighted moments dotted with `ct`, an (nlam, 5) tensor of moment
     cotangents on the rays' device.  `fields` and `rays` as
@@ -1705,7 +1752,8 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
     kern = _adjoint_multi_kernel(specs, x.dtype, bool(clip), fields,
-                                 bool(rays), figure_widths(tables, specs))
+                                 bool(rays), figure_widths(tables, specs),
+                                 doe_width(tables, specs))
     tab = packed(tables, specs, x)
     if not n:
         pg = torch.zeros((nlam, len(specs), nq), dtype=x.dtype,
@@ -1748,7 +1796,7 @@ def opd_chain(table, specs, state, aux, clip=False):
     device, n, stream = spec_launch(state)
     specs = tuple(specs)
     kern = _opd_kernel(specs, x.dtype, bool(clip),
-                       figure_widths(table, specs))
+                       figure_widths(table, specs), doe_width(table, specs))
     tab = packed(table, specs, x)
     outs = [torch.empty_like(x) for _ in range(3)]
     if n:
@@ -1763,10 +1811,13 @@ opd_chain.launches = 0
 
 
 def opd_adjoint(table, specs, state, aux, cts, clip=False,
-                fields=CS.OPD_FIELDS, rays=True):
-    """K9: (parameter cotangents (S, OPD_SLOTS + na + no): c, k, offset
-    x, y, z, mu, n_before, then the table's na even and no odd aspheric
-    coefficients; the six state cotangents; the (3,) centre cotangents)
+                fields=CS.OPD_DIFF, rays=True):
+    """K9: (parameter cotangents (S, _nslots(table, specs, OPD_SLOTS)):
+    c, k, offset x, y, z, mu, n_before, then the table's na even and no
+    odd aspheric coefficients, then an anamorphic table's curvature_dx
+    and conic_dx, a grating table's grating_dy, a DOE table's n_after
+    and DOE coefficients; the six state cotangents; the (3,) centre
+    cotangents)
     of K8's outputs dotted with cts = (ct_k, ct_lx, ct_ly), three (N,)
     tensors on the rays' device.  `fields`: the table fields whose
     cotangents are wanted; a slot outside them, or never read by the
@@ -1787,16 +1838,18 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
     if x.device.type == "cpu":
         pg, st, gc = opd_adjoint_reference(table, specs, state, aux, cts,
                                            clip)
-        live = CS.live_mask(CS.opd_live_slots(specs, fields, (na, no)), nq)
+        live = CS.live_mask(CS.opd_live_slots(specs, fields, (na, no),
+                                              doe_width(table, specs)), nq)
         pg = torch.where(live, pg, 0.)
         return (pg, st, gc) if rays else (pg, None, gc)
     device, n, stream = spec_launch(state)
     kern = _opd_adjoint_kernel(specs, x.dtype, bool(clip), fields,
-                               bool(rays), figure_widths(table, specs))
+                               bool(rays), figure_widths(table, specs),
+                               doe_width(table, specs))
     tab = packed(table, specs, x)
     nsurf = len(specs)
-    # the key's columns: OPD_SLOTS, the coefficients of a figured key and
-    # the anamorphic two of an anamorphic one
+    # the key's columns: OPD_SLOTS, the coefficients of a figured key,
+    # the anamorphic two of an anamorphic one, then the phase columns
     kq = kern.key.slots
     if not n:
         out = torch.zeros(nsurf*kq + 3, dtype=x.dtype, device=device)
@@ -2073,14 +2126,24 @@ class _OpdRays(torch.autograd.Function):
             ct_state = (None,)*6
         na, no = params[5].shape[-1], params[6].shape[-1]
         q = OPD_SLOTS + na + no
-        if pg.shape[-1] > q:
+        if carries_anamorphic(ctx.specs):
             # an anamorphic key's curvature_dx and conic_dx columns
             gdx = (pg[:, q], pg[:, q + 1])
+            q += ANAM
         else:
             gdx = (torch.zeros_like(params[7]), torch.zeros_like(params[8]))
+        # a phase key's grating_dy, then a DOE key's n_after and
+        # coefficients, last
+        grating, nd = _phase_layout(tab, ctx.specs)
+        ggdy = pg[:, q] if grating else torch.zeros_like(params[9])
+        q += int(grating)
+        gna = pg[:, q] if nd else torch.zeros_like(params[10])
+        gdoe = (pg[:, q + 1:q + 1 + nd].contiguous() if nd
+                else torch.zeros_like(params[11]))
         grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
                  pg[:, 6], pg[:, OPD_SLOTS:OPD_SLOTS + na].contiguous(),
-                 pg[:, OPD_SLOTS + na:q].contiguous(), *gdx)
+                 pg[:, OPD_SLOTS + na:OPD_SLOTS + na + no].contiguous(),
+                 *gdx, ggdy, gna, gdoe)
         # radius and lam_scale are constants of the merit
         ct_aux = torch.cat([ct_c, torch.zeros_like(ct_c[:2])])
         return (None, None, None, *grads, *ct_state, ct_aux)
@@ -2102,7 +2165,8 @@ def adjoint_opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
     k - k[ref] difference stay outside the kernel, so gradients reach
     the sphere placement and the bundle exactly as in the plain engine.
     Gradients reach curvature, conic, offset, mu, n_before, aspherics
-    and aspherics_odd (K9's slots), the rays, and through
+    and aspherics_odd, curvature_dx and conic_dx, grating_dy, n_after (a
+    DOE row's) and doe (K9's slots), the rays, and through
     tables.lower_pose decenter; a rot or
     tilt that requires grad while a spec row is rotated raises
     NotImplementedError."""

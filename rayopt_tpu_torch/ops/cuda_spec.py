@@ -32,35 +32,37 @@ the anamorphic rows too (conic cylinders, biconics and toroids, the
 latter two also with an aspheric figure): such a key's rows grow by
 curvature_dx and conic_dx (Key.anamorphic, cuda_trace.
 carries_anamorphic; RAYOPT_N_ANAM), an adjoint's slots by their
-cotangents.  The keys of K1, K2, K4 and K5 take the phase rows -- a
-linear grating or a radial diffractive phase (DOE) on a flat,
-spherical, conic, aspheric, biconic or toroidal substrate --: such a
-key's rows grow by grating_dy (Key.grating, cuda_trace.carries_grating;
+cotangents.  Every K1-K9 key takes the phase rows too -- a linear
+grating or a radial diffractive phase (DOE) on a flat, spherical,
+conic, aspheric, biconic or toroidal substrate --: such a key's rows
+grow by grating_dy (Key.grating, cuda_trace.carries_grating;
 RAYOPT_N_GRAT) and by n_after and the table's nd DOE coefficients
-(Key.nd, cuda_trace.doe_width; RAYOPT_N_DOE), K5's slots by the
-cotangents of grating_dy and of the coefficients.  The keys of K3 and
-K6-K9, and every key on a phase row whose substrate is a cylinder,
-refuse the phase rows (NotImplementedError, ROADMAP Queue 1 item 9.4,
-part two); every key refuses the freeform rows (item 9.5).  A row word
-is 64 bits: its flags below LIVE_SHIFT, its live slots above.
+(Key.nd, cuda_trace.doe_width; RAYOPT_N_DOE), K5's and K7's slots by
+the cotangents of grating_dy and of the coefficients, K9's by those of
+grating_dy, of n_after (the DOE's optical path psi(r2) n_after) and of
+the coefficients.  Only a phase row whose substrate is a cylinder is
+refused, by every key (NotImplementedError, ROADMAP Queue 1 item 9.4,
+part three); every key refuses the freeform rows (item 9.5).  A row
+word is 64 bits: its flags below LIVE_SHIFT, its live slots above.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns, then a figured key's na even and no odd
 coefficients, then an anamorphic key's curvature_dx and conic_dx, then
 a grating key's grating_dy, then a DOE key's nd coefficients; K9 puts
-n_before between the six and the coefficients, OPD_SLOTS + na + no
-[+ 2] a row) are the fields asked for, minus what the
+n_before between the six and the coefficients and n_after before the
+DOE coefficients, OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] a row)
+are the fields asked for, minus what the
 row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
 row, conic of a flat or spherical row -- both live on an aspheric row,
 whose Newton reads them through the sag --, the transverse offset of an
 on-axis row, mu of a passthrough row, the coefficients of a row that
 reads no figure: neither aspheric nor a biconic or toroid, grating_dy
-of a row that is no grating, the DOE coefficients of a row that is no
-DOE); the axial offset is never baked out.  K9's image row is read
-only by the reference-sphere tail, which reads its offset (the
-transverse part only off axis), its rotation and its n_before, never
-its curvature, conic or mu; every other row's n_before carries its
-optical path.  Row 0 has none.  A slot that is not live comes back as
+of a row that is no grating, the DOE coefficients -- and K9's n_after
+-- of a row that is no DOE); the axial offset is never baked out.
+K9's image row is read only by the reference-sphere tail, which reads
+its offset (the transverse part only off axis), its rotation and its
+n_before, never its curvature, conic or mu; every other row's n_before
+carries its optical path.  Row 0 has none.  A slot that is not live comes back as
 an exact zero.
 
 The df32 trace and merit (csrc/df32_spec.cuh) are keyed the same way
@@ -94,9 +96,10 @@ LIVE_SHIFT = 16    # a row word's live slots: keep in sync with grad_spec.cuh
 LIVE_BITS = 63 - LIVE_SHIFT   # the slots a (64-bit) row word can hold
 SLOTS = 6          # K5's and K7's cotangent columns a row (a figured
 #                    key adds its table's aspheric coefficients, an
-#                    anamorphic key then curvature_dx and conic_dx, K5's
+#                    anamorphic key then curvature_dx and conic_dx, a
 #                    phase key grating_dy and the DOE coefficients)
-OPD_SLOTS = 7      # K9's: SLOTS and n_before (then as K5's)
+OPD_SLOTS = 7      # K9's: SLOTS and n_before (then as K5's, with n_after
+#                    before a DOE key's coefficients)
 #: the table field of each of K9's first OPD_SLOTS cotangent columns
 #: (K5/K7: the first SLOTS); the even, then the odd aspheric
 #: coefficients follow them
@@ -104,11 +107,15 @@ SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
                "n_before")
 #: the fields K5 and K7 differentiate (a key of a table with no aspheric
 #: row: the first four; curvature_dx and conic_dx only an anamorphic
-#: key, grating_dy and doe only K5's key of a grating or DOE table)
+#: key, grating_dy and doe only a key of a grating or DOE table)
 FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd",
           "curvature_dx", "conic_dx", "grating_dy", "doe")
-#: the fields K9 differentiates, in the order of cuda_grad._DIFF
-OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:8]
+#: the fields K9 differentiates that K5 and K7 do, and n_before
+OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:]
+#: every field K9 differentiates, in the order of cuda_grad._DIFF:
+#: OPD_FIELDS and n_after, read only by a DOE row (its optical path
+#: psi(r2) n_after)
+OPD_DIFF = OPD_FIELDS[:10] + ("n_after",) + OPD_FIELDS[10:]
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
            "df32_common.cuh", "df32_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
@@ -252,20 +259,36 @@ def live_slots(specs, fields=FIELDS, widths=(0, 0), nd=0):
                        + _anamorphic(specs) + _phase(specs, nd))
 
 
-def opd_live_slots(specs, fields=OPD_FIELDS, widths=(0, 0)):
+def _opd_phase(specs, nd):
+    """The slot fields of a K9 phase key's last slots: grating_dy
+    (carries_grating), then with nd DOE coefficients n_after and the
+    coefficients."""
+    return (("grating_dy",) if carries_grating(specs) else ()) \
+        + (("n_after",) + ("doe",)*nd if nd else ())
+
+
+def opd_live_slots(specs, fields=OPD_DIFF, widths=(0, 0), nd=0):
     """One mask a row of the slots K9 reduces -- OPD_SLOTS bits, then
     with `widths` one a coefficient, then for anamorphic specs
-    curvature_dx and conic_dx (live_slots' layout with n_before, slot 6,
-    between mu and the coefficients): live_slots' rule with n_before on
-    every row but row 0, except on the image row, which the
-    reference-sphere tail reads only through its offset (the transverse
-    part only off axis) and its n_before, whatever its figure."""
+    curvature_dx and conic_dx, then for grating specs grating_dy and
+    with nd (the key's, doe_width) n_after and nd DOE coefficients
+    (live_slots' layout with n_before, slot 6, between mu and the
+    coefficients, and n_after before the DOE's): live_slots' rule with
+    n_before on every row but row 0 and n_after on a DOE row only (the
+    one row whose optical path reads it), except on the image row,
+    which the reference-sphere tail reads only through its offset (the
+    transverse part only off axis) and its n_before, whatever its
+    figure."""
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
-    masks = list(_live_slots(specs, fields, OPD_FIELDS,
-                             SLOT_FIELDS + _coefficients(widths)
-                             + _anamorphic(specs)))
+    slot_fields = (SLOT_FIELDS + _coefficients(widths) + _anamorphic(specs)
+                   + _opd_phase(specs, nd))
+    masks = list(_live_slots(specs, fields, OPD_DIFF, slot_fields))
+    if nd:
+        q = slot_fields.index("n_after")
+        masks = [m & ~(1 << q) if not sp.doe else m
+                 for m, sp in zip(masks, specs)]
     tail = (1 << 4) | (1 << 6) | ((1 << 2) | (1 << 3)
                                   if specs[-1].off_axis else 0)
     masks[-1] &= tail
@@ -312,9 +335,10 @@ class Key(NamedTuple):
     0 without an aspheric row), whether a row is anamorphic
     (anamorphic: a packed row then carries ANAM words more, its
     curvature_dx and conic_dx), whether a row is a grating (a packed row
-    then carries grating_dy, K5 its slot) and the DOE coefficients a row
-    carries (nd: a DOE table's width, 0 without a DOE row; a packed row
-    then carries n_after and the nd coefficients, K5 their slots)."""
+    then carries grating_dy, an adjoint its slot) and the DOE
+    coefficients a row carries (nd: a DOE table's width, 0 without a DOE
+    row; a packed row then carries n_after and the nd coefficients, an
+    adjoint their slots, K9 also n_after's)."""
 
     kernel: str
     dtype: str
@@ -366,10 +390,11 @@ class Key(NamedTuple):
     def slots(self):
         """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS),
         the coefficients, the anamorphic words, grating_dy and the DOE
-        coefficients."""
-        return (OPD_SLOTS if self.kernel == "k9" else SLOTS) \
+        coefficients (K9: n_after, then the coefficients)."""
+        k9 = self.kernel == "k9"
+        return (OPD_SLOTS if k9 else SLOTS) \
             + self.na + self.no + self.anam_words + int(self.grating) \
-            + self.nd
+            + (self.nd + int(k9) if self.nd else 0)
 
     @property
     def anam_words(self):
@@ -420,9 +445,8 @@ def _dtype_name(dtype):
 
 def _words(specs, masks=None, kernel="k1"):
     """A key's row words; a row the kernel does not trace raises
-    NotImplementedError: a freeform row (item 9.5), a grating or DOE row
-    in K3 and K6-K9, and one whose substrate is a cylinder in every key
-    (item 9.4, part two)."""
+    NotImplementedError: a freeform row (item 9.5) and a grating or DOE
+    row whose substrate is a cylinder (item 9.4, part three)."""
     for j, spec in enumerate(specs[1:], 1):
         K.check_key_row(spec, j, kernel.upper() + "'s key", kernel)
     flags = [_flags(s) for s in specs]
@@ -453,8 +477,9 @@ def _widths(specs, widths, slots=SLOTS):
         return (0, 0)
     na, no = (int(w) for w in widths)
     if na < 0 or no < 0 or slots + na + no > LIVE_BITS:
-        raise ValueError("aspheric widths %s: a row word holds %d slots, "
-                         "%d + na + no" % ((na, no), LIVE_BITS, slots))
+        raise ValueError("aspheric widths %s: %d slots a row, above the %d "
+                         "a row word holds (%d + na + no)"
+                         % ((na, no), slots + na + no, LIVE_BITS, slots))
     if (any(s.aspheric for s in specs) and not na) or \
             (any(s.odd for s in specs) and not no):
         raise ValueError("aspheric widths %s: an even (odd) aspheric row "
@@ -488,10 +513,11 @@ def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
 
 
 def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
-            widths=(0, 0)):
+            widths=(0, 0), nd=0):
     """The K8 key of a spec tuple: object, exit and image rows at least
     (the chain runs rows 1..S-2, the sphere tail the image row);
-    `widths` as trace_key's."""
+    `widths` and `nd` as trace_key's (a DOE row adds its psi(r2)
+    n_after to the optical path)."""
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
@@ -499,7 +525,8 @@ def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
     na, no = _widths(specs, widths)
     return _static(Key("k8", _dtype_name(dtype), words, bool(clip), False,
                        int(block or BLOCK_TRACE), int(min_blocks),
-                       na=na, no=no, anamorphic=carries_anamorphic(specs)))
+                       na=na, no=no, anamorphic=carries_anamorphic(specs),
+                       grating=carries_grating(specs), nd=_nd(specs, nd)))
 
 
 def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
@@ -543,22 +570,24 @@ def moments_key(specs, dtype, clip=False, block=None,
 
 
 def moments_multi_key(specs, dtype, clip, nlam, block=None,
-                      min_blocks=MIN_BLOCKS, widths=(0, 0)):
+                      min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0):
     """The K6 key of the spec tuple a stack of `nlam` tables shares (the
-    first wavelength's, cuda_trace.multi_specs); `widths` as
-    trace_key's."""
+    first wavelength's, cuda_trace.multi_specs); `widths` and `nd` as
+    trace_key's (each table of the stack packs its own grating_dy,
+    n_after and DOE coefficients)."""
     return _moments("k6", specs, dtype, clip, nlam, block, min_blocks,
-                    widths)
+                    widths, nd)
 
 
 def trace_multi_key(specs, dtype, nlam, merit=False, block=None,
-                    min_blocks=MIN_BLOCKS, outer=None, widths=(0, 0)):
+                    min_blocks=MIN_BLOCKS, outer=None, widths=(0, 0), nd=0):
     """The K3 key of the spec tuple a stack of `nlam` tables shares (the
     first wavelength's, cuda_trace.multi_specs): its merit mode ("k3m",
     K6's template unweighted) or its trace ("k3", wavelengths outermost
     as MULTI_OUTER when `outer` is None); block BLOCK_MULTI's for the
-    mode and dtype when None; `widths` as trace_key's.  No clip, as the
-    TPU kernel.  Refused past MAX_NLAM wavelengths or past static shared
+    mode and dtype when None; `widths` and `nd` as trace_key's (each
+    table of the stack packs its own phase words).  No clip, as the TPU
+    kernel.  Refused past MAX_NLAM wavelengths or past static shared
     memory (multi_most: the stack a key takes)."""
     kernel = "k3m" if merit else "k3"
     block = int(block or BLOCK_MULTI[kernel][_dtype_name(dtype)])
@@ -567,28 +596,31 @@ def trace_multi_key(specs, dtype, nlam, merit=False, block=None,
             raise ValueError("K3's merit reads each ray once: it has no "
                              "outer order")
         return _moments(kernel, specs, dtype, False, nlam, block, min_blocks,
-                        widths)
+                        widths, nd)
     words = _words(specs, kernel=kernel)
     na, no = _widths(specs, widths)
     key = Key(kernel, _dtype_name(dtype), words, False, False, block,
               int(min_blocks), int(nlam),
               MULTI_OUTER if outer is None else bool(outer), na, no,
-              carries_anamorphic(specs))
+              carries_anamorphic(specs), carries_grating(specs),
+              _nd(specs, nd))
     return _static(_unrolled(key))
 
 
-def multi_most(kernel, specs, dtype, block=None, widths=(0, 0)):
+def multi_most(kernel, specs, dtype, block=None, widths=(0, 0), nd=0):
     """The most wavelengths one key of `kernel` ("k3", "k3m" or "k6")
     takes for this spec tuple (and `widths`, a figured key's grown rows;
-    an anamorphic key's rows grow by ANAM words): MAX_NLAM, or fewer
-    where that many tables (and the moments' block reduction) outgrow
-    static shared memory; 0 when one table alone does."""
+    an anamorphic key's rows grow by ANAM words, a phase key's by
+    grating_dy and by n_after and `nd` DOE coefficients): MAX_NLAM, or
+    fewer where that many tables (and the moments' block reduction)
+    outgrow static shared memory; 0 when one table alone does."""
     dt = _dtype_name(dtype)
     na, no = _widths(specs, widths)
     one = Key(kernel, dt, (0,)*len(specs), False, False,
               int(block or BLOCK_MULTI.get(kernel, {}).get(
                   dt, BLOCK_MOMENTS)), na=na, no=no,
-              anamorphic=carries_anamorphic(specs))
+              anamorphic=carries_anamorphic(specs),
+              grating=carries_grating(specs), nd=_nd(specs, nd))
     # a key's static shared memory grows by one table's (and 5 reduced
     # moments') words a wavelength
     return min(MAX_NLAM, SMEM_LIMIT//one.shared_bytes)
@@ -628,25 +660,33 @@ def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
 
 
 def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
-                      block=None, min_blocks=MIN_BLOCKS, widths=(0, 0)):
+                      block=None, min_blocks=MIN_BLOCKS, widths=(0, 0),
+                      nd=0):
     """The K7 key of the spec tuple a stack of tables shares, as
-    adjoint_key (the wavelength count is not part of it)."""
-    widths = _widths(specs, widths, SLOTS + len(_anamorphic(specs)))
-    return _adjoint("k7", specs, live_slots(specs, fields, widths), dtype,
-                    clip, rays, block, min_blocks, widths)
+    adjoint_key (the wavelength count is not part of it; a phase key's
+    grating_dy and DOE coefficients are reduced per table, as mu is)."""
+    nd = _nd(specs, nd)
+    widths = _widths(specs, widths, SLOTS + len(_anamorphic(specs))
+                     + len(_phase(specs, nd)))
+    return _adjoint("k7", specs, live_slots(specs, fields, widths, nd),
+                    dtype, clip, rays, block, min_blocks, widths, nd)
 
 
-def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_FIELDS, rays=True,
-                    block=None, min_blocks=MIN_BLOCKS, widths=(0, 0)):
+def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_DIFF, rays=True,
+                    block=None, min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0):
     """The K9 key of a spec tuple, the fields whose cotangents are
     wanted (see opd_live_slots), whether the ray cotangents are, and
-    `widths` as trace_key's (a figured key's rows reduce their aspheric
-    coefficients after n_before, an anamorphic key's curvature_dx and
-    conic_dx after them; OPD_SLOTS + na + no [+ 2] must fit a row word);
-    the three centre cotangents are always reduced."""
-    widths = _widths(specs, widths, OPD_SLOTS + len(_anamorphic(specs)))
-    return _adjoint("k9", specs, opd_live_slots(specs, fields, widths),
-                    dtype, clip, rays, block, min_blocks, widths)
+    `widths` and `nd` as trace_key's (a figured key's rows reduce their
+    aspheric coefficients after n_before, an anamorphic key's
+    curvature_dx and conic_dx after them, a grating key's grating_dy,
+    then a DOE key's n_after and DOE coefficients; OPD_SLOTS + na + no
+    [+ 2] [+ 1] [+ 1 + nd] must fit a row word); the three centre
+    cotangents are always reduced."""
+    nd = _nd(specs, nd)
+    widths = _widths(specs, widths, OPD_SLOTS + len(_anamorphic(specs))
+                     + len(_opd_phase(specs, nd)))
+    return _adjoint("k9", specs, opd_live_slots(specs, fields, widths, nd),
+                    dtype, clip, rays, block, min_blocks, widths, nd)
 
 
 class Df32Key(NamedTuple):

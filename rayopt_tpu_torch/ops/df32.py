@@ -790,8 +790,8 @@ _CONST_KEYS = ("c", "mu", "dz", "k1", "k1c", "nb", "dxy", "rot_df", "asp",
 _ANAM_CONSTS = ("c1", "k1", "k1c", "cx", "cy", "cr", "bxc", "byc", "asp",
                 "asp_odd")
 #: the ROADMAP item (Queue 1) that ports the rows df32.plan refuses
-_EXTENDED = {"grating_dy": "9.4 (part two)", "doe": "9.4 (part two)",
-             "xy_poly": "9.5"}
+_EXTENDED = {"grating_dy": "9.4 (part three)",
+             "doe": "9.4 (part three)", "xy_poly": "9.5"}
 
 
 def _trim(coeffs):
@@ -869,7 +869,7 @@ def plan(table, clip=False, fast=False):
     fast=True bakes one-round div/sqrt refinements into every step
     (div1/sqrt1) and one df32 round fewer into the anamorphic Newton.
     Grating and DOE rows raise NotImplementedError (ROADMAP Queue 1 item
-    9.4, part two), XY-freeform rows too (item 9.5)."""
+    9.4, part three), XY-freeform rows too (item 9.5)."""
     table = lower_pose(table)  # fold concrete tilt/decenter deltas
     curv = _host(table, "curvature")
     s_count = curv.shape[0]

@@ -592,10 +592,12 @@ EXTENDED = ("freeform",)
 #: the phase rows (a grating or a DOE on any substrate), traced by the
 #: torch path and by the keys of PHASE_KERNELS
 PHASE = ("grating", "doe")
-#: the kernels whose keys take the phase rows
-PHASE_KERNELS = ("k1", "k2", "k4", "k5")
+#: the kernels whose keys take the phase rows: every K1-K9 key (K3's
+#: trace "k3" and merit "k3m"); the df32 plan ("df32") does not
+PHASE_KERNELS = ("k1", "k2", "k3", "k3m", "k4", "k5", "k6", "k7", "k8",
+                 "k9")
 #: the ROADMAP item each row kind waits on where it is refused
-ITEMS = {"grating": "9.4 (part two)", "doe": "9.4 (part two)",
+ITEMS = {"grating": "9.4 (part three)", "doe": "9.4 (part three)",
          "freeform": "9.5"}
 
 
@@ -628,8 +630,8 @@ def check_supported(spec, j=None, what="rayopt_tpu_torch", kernel=None):
     """Raise NotImplementedError, naming its ROADMAP Queue 1 item, for a
     row that `what` (the engine or key) does not trace: a freeform row
     anywhere (item 9.5), and with `kernel` ("k1" ... "k9", "df32") a
-    grating or DOE row where that kernel is not one of PHASE_KERNELS
-    (item 9.4, part two)."""
+    grating or DOE row where that kernel is not one of PHASE_KERNELS:
+    the df32 plan (item 9.4, part three)."""
     used = [f for f in EXTENDED if getattr(spec, f)]
     if kernel is not None and kernel not in PHASE_KERNELS:
         used += [f for f in PHASE if getattr(spec, f)]
@@ -643,7 +645,7 @@ def check_supported(spec, j=None, what="rayopt_tpu_torch", kernel=None):
 
 def check_key_row(spec, j=None, what="rayopt_tpu_torch", kernel="k1"):
     """check_supported for a row of `kernel`'s key, which also refuses a
-    grating or DOE on a cylinder (ROADMAP Queue 1 item 9.4, part two):
+    grating or DOE on a cylinder (ROADMAP Queue 1 item 9.4, part three):
     the plain torch path traces it, no key does."""
     check_supported(spec, j, what, kernel)
     if is_phase(spec) and spec.cyl_axis:

@@ -2303,25 +2303,172 @@ def test_phase_keys_match_plain_on_card(cuda_device, name, dtype, clip):
             assert float((g - r).abs().max()) <= 1e-9*scale
 
 
+def _phase_stack(name, device):
+    """(stack of 3 tables on `device`, its specs, the first table, the
+    OPD's sphere radius and wavelength, bench half width) of a phase lens
+    (its System.tables at its wavelengths, or at 0.9 and 1.1 times its
+    one) or substrate (mu grown 1 % and 2 % of mu - 1, grating_dy and the
+    DOE coefficients 5 % and 10 %)."""
+    if name in _PHASE_SUBSTRATES:
+        tab, specs, half = _phase_case(name, device)
+        tabs = type(tab)(*(None if f is None else torch.stack([f]*3)
+                           for f in tab))
+        grow = torch.tensor([0., 1., 2.], dtype=torch.float64,
+                            device=device)
+        tabs = tabs.replace(
+            mu=1 + (tabs.mu - 1)*(1 + .01*grow[:, None]),
+            grating_dy=tabs.grating_dy*(1 + .05*grow[:, None]),
+            doe=tabs.doe*(1 + .05*grow[:, None, None]))
+        return tabs, specs, tab, (-40., 550e-9), half
+    s, half = _phase_system(name)
+    lam = list(s.wavelengths)
+    if len(lam) < 3:
+        lam = [lam[0], .9*lam[0], 1.1*lam[0]]
+    tabs = s.tables(lam, device=device)
+    tab = s.table(device=device)
+    return tabs, specialize(tab), tab, (-s.image.pupil.distance,
+                                        s.wavelengths[0]), half
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["hybrid_achromat", "spectrograph",
+                                  "curved hybrid", "mirror grating",
+                                  "bk7 grating", "zone plate", "asphere",
+                                  "biconic", "toroid"])
+def test_phase_multi_and_opd_keys_match_plain_on_card(cuda_device, name,
+                                                      dtype, clip):
+    """K3 (trace and merit), K6, K7, K8 and K9 on a grating or DOE key
+    against their plain versions on the card, the bench bundle within
+    the lens's pupil (1.5x wide clipped; K3 has no clip), ray 0 the
+    chief ray: K3's rays and optical path through each of the stack's
+    three tables (each its own grating term and DOE coefficients) to
+    1e-12 of scale in float64 with equal NaN masks, float32 5e-5; K3's
+    and K6's moments to 1e-10 (float32 1e-4) of their scale; K7's
+    columns (grating_dy and the DOE coefficients last, per table) for a
+    fixed moment cotangent to 1e-9 (float32 1e-3) of each column's
+    largest; K8's k to 1e-12 of max |k| (float32 1e-4), and in float64
+    K9's columns (grating_dy, n_after and the DOE coefficients last)
+    for a fixed cotangent to 1e-9 of each column's largest; each
+    wrapper launches its kernel once a call."""
+    tabs, specs, tab, (radius, lam), half = _phase_stack(name, cuda_device)
+    f64 = dtype == torch.float64
+    n = 1 << 14
+    rng = np.random.RandomState(6)
+    xy = rng.uniform(-half, half, (2, n))*(1.5 if clip else 1.)
+    xy[:, 0] = (.05, .03)
+    zero, one = np.zeros(n), np.ones(n)
+    state = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(cuda_device,
+                                                               dtype)
+                  for c in (*xy, zero, zero, zero, one))
+    w = torch.full((n,), 1/n, dtype=dtype, device=cuda_device)
+    wrappers = (CT.trace_multi, CG.weighted_moments_multi,
+                CG.merit_adjoint_multi, CG.opd_chain, CG.opd_adjoint)
+    before = [f.launches for f in wrappers]
+    tol = 1e-12 if f64 else 5e-5
+    if not clip:
+        got = CT.trace_multi(tabs, specs, state)
+        ref = CT.trace_multi_reference(tabs, specs, state)
+        mom = CT.trace_multi(tabs, specs, state, merit=True)
+        mref = CT.trace_multi_reference(tabs, specs, state, merit=True)
+        for li in range(3):
+            for g, r in zip((*got[li][0], got[li][1]),
+                            (*ref[li][0], ref[li][1])):
+                g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+                if f64:
+                    nptest.assert_array_equal(np.isnan(g), np.isnan(r))
+                ok = np.isfinite(g) & np.isfinite(r)
+                assert ok.mean() > .5
+                nptest.assert_allclose(g[ok], r[ok], rtol=0, atol=tol*max(
+                    1., np.abs(r[ok]).max()))
+            a = torch.stack(mom[li]).double().cpu()
+            b = torch.stack(mref[li]).double().cpu()
+            assert float((a - b).abs().max()) <= (1e-10 if f64 else 1e-4)*max(
+                float(b.abs().max()), 1.)
+    wm = CG.weighted_moments_multi(tabs, specs, state, w, clip)
+    wref = CG.weighted_moments_multi_reference(tabs, specs, state, w, clip)
+    a, b = wm.double().cpu(), wref.double().cpu()
+    assert float((a - b).abs().max()) <= (1e-10 if f64 else 1e-4)*max(
+        float(b.abs().max()), 1.)
+    ct = torch.tensor([[.3, -.2, .5, 1., .7]]*3, dtype=dtype,
+                      device=cuda_device)
+    pg, _, _ = CG.merit_adjoint_multi(tabs, specs, state, w, ct, clip)
+    pref, _, _ = CG.merit_adjoint_multi_reference(tabs, specs, state, w,
+                                                  ct, clip)
+    nq = CG._nslots(tabs, specs)
+    assert pg.shape == pref.shape == (3, tab.nsurfaces, nq)
+    gtol = 1e-9 if f64 else 1e-3
+    for li in range(3):
+        for col in range(nq):
+            assert torch.isfinite(pg[li, :, col]).all()
+            if float(pref[li, :, col].abs().max()):
+                assert _max_rel(pg[li, :, col], pref[li, :, col]) <= gtol
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    y0 = torch.stack([c[:1] for c in state[:3]], 1).double()
+    u0 = torch.stack([c[:1] for c in state[3:]], 1).double()
+    yr, _, _ = trace_rays_final(tab, y0, u0, specs=specs)
+    aux = torch.cat([yr[0], torch.tensor([radius, lam/1e-3],
+                                         dtype=torch.float64,
+                                         device=cuda_device)]).to(dtype)
+    k = CG.opd_chain(tab, specs, state, aux, clip)
+    kref = CG.opd_chain_reference(tab, specs, state, aux, clip)
+    g, r = k[0].double().cpu().numpy(), kref[0].double().cpu().numpy()
+    ok = np.isfinite(g) & np.isfinite(r)
+    assert ok.mean() > .5
+    nptest.assert_allclose(g[ok], r[ok], rtol=0, atol=(
+        1e-12 if f64 else 1e-4)*max(1., np.abs(r[ok]).max()))
+    if f64:
+        live = torch.from_numpy(ok).to(cuda_device)
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        cts = tuple(torch.where(live, torch.randn(n, generator=gen,
+                                                  dtype=dtype).to(
+            cuda_device), 0.) for _ in range(3))
+        pg, _, cc = CG.opd_adjoint(tab, specs, state, aux, cts, clip)
+        pref, _, cr = CG.opd_adjoint_reference(tab, specs, state, aux, cts,
+                                               clip)
+        nq = CG._nslots(tab, specs, CS.OPD_SLOTS)
+        assert pg.shape == pref.shape == (tab.nsurfaces, nq)
+        for col in range(nq):
+            assert torch.isfinite(pg[:, col]).all()
+            if float(pref[:, col].abs().max()):
+                assert _max_rel(pg[:, col], pref[:, col]) <= 1e-9, col
+        assert _max_rel(cc, cr) <= 1e-9
+    torch.cuda.synchronize()
+    calls = [2 if not clip else 0, 1, 1, 1, 1 if f64 else 0]
+    assert [f.launches for f in wrappers] == [b + c for b, c in
+                                              zip(before, calls)]
+
+
 @pytest.mark.cuda
 def test_phase_rows_refuse_the_other_kernels_on_card(cuda_device):
-    """On a CUDA bundle K3, K6, K7, K8 and K9 raise NotImplementedError
-    naming ROADMAP Queue 1 item 9.4 on the hybrid achromat's DOE row,
-    and df32.plan does; none falls back to its plain version."""
+    """On a CUDA bundle a grating on a cylinder makes K3, K6, K7, K8 and
+    K9 (as K1, K2, K4 and K5) raise NotImplementedError naming ROADMAP
+    Queue 1 item 9.4 (part three), and df32.plan raises on the hybrid
+    achromat's DOE row; none falls back to its plain version."""
     s, half = _phase_system("hybrid_achromat")
-    tabs = s.tables()
     tab = s.table()
-    specs = specialize(tab)
-    state = _bench_state(64, 1, cuda_device, torch.float64)
-    w = torch.full((64,), 1/64, dtype=torch.float64, device=cuda_device)
-    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
-        CT.trace_multi(tabs, None, state)
-    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
-        CG.weighted_moments_multi(tabs, CT.multi_specs(tabs, None), state,
-                                  w)
-    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
-        CG.opd_chain(tab, specs, state, torch.zeros(CG.AUX,
-                                                    dtype=torch.float64,
-                                                    device=cuda_device))
     with pytest.raises(NotImplementedError, match=r"item 9\.4"):
         D.plan(tab)
+    cyl = make_table(curvature=[0., 1/40., 0.], curvature_dx=[0., -1/40., 0.],
+                     mu=[1., 1/1.5, 1.], distance=[0., 5., 10.],
+                     grating_dy=[0., .1, 0.], device=cuda_device)
+    specs = specialize(cyl)
+    assert specs[1].cyl_axis and specs[1].grating
+    tabs = type(cyl)(*(None if f is None else torch.stack([f]*2)
+                       for f in cyl))
+    state = _bench_state(64, 1, cuda_device, torch.float64)
+    w = torch.full((64,), 1/64, dtype=torch.float64, device=cuda_device)
+    aux = torch.zeros(CG.AUX, dtype=torch.float64, device=cuda_device)
+    cts = tuple(torch.zeros_like(w) for _ in range(3))
+    before = (CT.trace_multi.launches, CG.opd_chain.launches)
+    for call in (lambda: CT.trace_multi(tabs, specs, state),
+                 lambda: CG.weighted_moments_multi(tabs, specs, state, w),
+                 lambda: CG.merit_adjoint_multi(
+                     tabs, specs, state, w, torch.ones(2, 5, dtype=w.dtype,
+                                                       device=cuda_device)),
+                 lambda: CG.opd_chain(cyl, specs, state, aux),
+                 lambda: CG.opd_adjoint(cyl, specs, state, aux, cts)):
+        with pytest.raises(NotImplementedError, match=r"cylinder.*9\.4"):
+            call()
+    assert (CT.trace_multi.launches, CG.opd_chain.launches) == before

@@ -427,10 +427,11 @@ def test_extended_rows_still_raise_everywhere(name):
     and the df32 plan.  Biconic, toroid and cylinder rows are traced now
     (tests/test_torch_anamorphic.py): every K1-K9 key takes them, and the
     df32 plan traces them as the JAX package's eager df32 does, word for
-    word.  Grating and DOE rows are traced by the plain path and by the
-    keys of K1, K2, K4 and K5 (tests/test_torch_grating.py,
-    tests/test_torch_spec_grating.py); the keys of K3 and K6-K9 and the
-    df32 plan still raise naming item 9 (9.4, part two)."""
+    word.  Grating and DOE rows are traced by the plain path and by
+    every K1-K9 key (tests/test_torch_grating.py,
+    tests/test_torch_spec_grating.py, tests/test_torch_spec_grating_
+    paths.py); the df32 plan still raises naming item 9 (9.4, part
+    three)."""
     kw = dict(curvature=[0., 1/40.], mu=[1., 1/1.5])
     kw.update(EXTENDED[name])
     tt = TT.table_from_numpy(JT.make_table(**kw))
@@ -453,15 +454,14 @@ def test_extended_rows_still_raise_everywhere(name):
             assert make(specs3, F64).anamorphic
     elif name in ("grating", "doe"):
         nd = CT.doe_width(tt, specs)
-        for make in keys[:4]:
+        for make in keys[:5]:
             key = make(specs, F64, nd=nd)
             assert (key.grating, key.nd) == (name == "grating", nd)
-        for make in keys[4:]:
-            with pytest.raises(NotImplementedError, match="item 9"):
-                make(specs, F64)
-        for make in opd_keys:
-            with pytest.raises(NotImplementedError, match="item 9"):
-                make(specs3, F64)
+        for key in (CS.trace_multi_key(specs, F64, 2, nd=nd),
+                    CS.trace_multi_key(specs, F64, 2, merit=True, nd=nd),
+                    CS.moments_multi_key(specs, F64, False, 2, nd=nd),
+                    *(make(specs3, F64, nd=nd) for make in opd_keys)):
+            assert (key.grating, key.nd) == (name == "grating", nd)
     else:
         for make in keys:
             with pytest.raises(NotImplementedError, match="item 9"):

@@ -7,10 +7,13 @@ and on gratings and DOEs on an asphere, a biconic, a toroid and a flat,
 the K5 model of the whole merit against the plain version, the key
 words (F_GRATING, F_DOE below LIVE_SHIFT), the packed rows and K5's
 grating_dy and DOE slots, the baked-out phase slots and their warning,
-what still refuses (K3 and K6-K9 and df32.plan: item 9.4, part two; a
-phase row on a cylinder in every key; freeform rows everywhere: item
-9.5), and optimize_grad(engine="adjoint") over curvature, distance and
-doe on the hybrid achromat against the JAX package.  The kernels
+the keys of K3 and K6-K9 on the phase rows (their slots: K7's as K5's,
+K9's with n_after), what still refuses (df32.plan: item 9.4, part
+three; a phase row on a cylinder in every key; freeform rows
+everywhere: item 9.5), and optimize_grad(engine="adjoint") over
+curvature, distance and doe on the hybrid achromat against the JAX
+package.  The paths of K3 and K6-K9 on the phase rows are
+tests/test_torch_spec_grating_paths.py.  The kernels
 themselves build and run only on a CUDA card
 (tests/test_torch_cuda.py)."""
 
@@ -185,9 +188,9 @@ def test_key_words_rows_and_slots():
     no slots; a table without a phase row keys as before."""
     assert (CT.F_GRATING, CT.F_DOE) == (1 << 14, 1 << 15)
     assert CS.LIVE_SHIFT == 16 and CS.LIVE_BITS == 47
-    # K9's next layout, OPD_SLOTS + na + no + 2 + 1 + nd, fits a word for
+    # K9's layout, OPD_SLOTS + na + no + 2 + 1 + 1 + nd, fits a word for
     # the widths of the tables here
-    assert CS.OPD_SLOTS + 4 + 2 + 1 + 4 <= CS.LIVE_BITS
+    assert CS.OPD_SLOTS + 4 + 2 + 1 + 1 + 4 <= CS.LIVE_BITS
     tt = substrate("flat")
     specs = TK.specialize(tt)
     key = CS.adjoint_key(specs, F64, nd=CT.doe_width(tt, specs))
@@ -293,35 +296,69 @@ def _phase_specs():
 
 @pytest.mark.parametrize("name", ["grating", "doe"])
 def test_the_other_kernels_refuse_phase_rows(name):
-    """K3, K6, K7, K8 and K9 (their keys, so their CUDA wrappers) and the
-    df32 plan raise NotImplementedError naming ROADMAP Queue 1 item 9.4
-    (part two) on a grating or DOE row; K1, K2, K4 and K5 take it; their
-    plain versions on the CPU trace it."""
+    """Only the df32 plan refuses a grating or DOE row now: it raises
+    NotImplementedError naming ROADMAP Queue 1 item 9.4 (part three).
+    The keys of K3 (trace and merit), K6, K7, K8 and K9, as K1, K2, K4
+    and K5's, take it: grating and nd set, the rows packed with
+    grating_dy and with n_after and the DOE coefficients; K7's slots are
+    K5's (SLOTS [+ 1] [+ nd]), K9's OPD_SLOTS [+ 1] [+ 1 + nd] with
+    n_after live on the DOE row alone; a DOE key without its width
+    raises.  Their plain versions on the CPU trace it."""
     tt = TT.table_from_numpy(JT.make_table(**_phase_specs()[name]))
     specs = TK.specialize(tt)
     nd = CT.doe_width(tt, specs)
-    for make in (lambda sp: CS.trace_multi_key(sp, F64, 2),
-                 lambda sp: CS.trace_multi_key(sp, F64, 2, merit=True),
-                 lambda sp: CS.moments_multi_key(sp, F64, False, 2),
-                 lambda sp: CS.adjoint_multi_key(sp, F64),
-                 lambda sp: CS.opd_key(sp, F64),
-                 lambda sp: CS.opd_adjoint_key(sp, F64)):
-        with pytest.raises(NotImplementedError, match=r"item 9\.4"):
-            make(specs)
+    grating = name == "grating"
+    assert nd == (0 if grating else 1)
     with pytest.raises(NotImplementedError, match=r"item 9\.4"):
         TD.plan(tt)
-    for make in (CS.trace_key, CS.merit_key, CS.moments_key,
-                 CS.adjoint_key):
-        assert make(specs, F64, nd=nd).grating == (name == "grating")
+    makes = {"k1": lambda sp, **kw: CS.trace_key(sp, F64, **kw),
+             "k2": lambda sp, **kw: CS.merit_key(sp, F64, **kw),
+             "k3": lambda sp, **kw: CS.trace_multi_key(sp, F64, 2, **kw),
+             "k3m": lambda sp, **kw: CS.trace_multi_key(sp, F64, 2, True,
+                                                        **kw),
+             "k4": lambda sp, **kw: CS.moments_key(sp, F64, **kw),
+             "k5": lambda sp, **kw: CS.adjoint_key(sp, F64, **kw),
+             "k6": lambda sp, **kw: CS.moments_multi_key(sp, F64, False, 2,
+                                                         **kw),
+             "k7": lambda sp, **kw: CS.adjoint_multi_key(sp, F64, **kw),
+             "k8": lambda sp, **kw: CS.opd_key(sp, F64, **kw),
+             "k9": lambda sp, **kw: CS.opd_adjoint_key(sp, F64, **kw)}
+    for kernel, make in makes.items():
+        key = make(specs, nd=nd)
+        assert key.kernel == kernel
+        assert (key.grating, key.nd) == (grating, nd)
+        assert key.row_words == CT.ROW + (1 if grating else 2)
+        flags = key.words[1] & ((1 << CS.LIVE_SHIFT) - 1)
+        assert bool(flags & CT.F_GRATING) == grating
+        assert bool(flags & CT.F_DOE) == (not grating)
+        if kernel in ("k5", "k7"):
+            assert key.slots == CS.SLOTS + 1
+            assert key.words[1] >> CS.LIVE_SHIFT >> CS.SLOTS == 1
+        elif kernel == "k9":
+            assert key.slots == CS.OPD_SLOTS + (1 if grating else 2)
+            # grating_dy, or n_after and the coefficient, live on row 1
+            # only (the image row's slots are the tail's)
+            live = [w >> CS.LIVE_SHIFT >> CS.OPD_SLOTS for w in key.words]
+            assert live == [0, 1 if grating else 3, 0]
+        else:
+            assert key.nlive == 0
+        if not grating:
+            with pytest.raises(ValueError, match="DOE width"):
+                make(specs)
     state = _state(*bundle(8, 1, 2.))
     out, _ = CT.trace_final(tt, specs, state)
     assert torch.isfinite(out[0]).all()
+    tabs = type(tt)(*(None if f is None else torch.stack([f, f])
+                      for f in tt))
+    for (x, *_), _ in CT.trace_multi(tabs, specs, state):
+        nptest.assert_array_equal(x.numpy(), out[0].numpy())
 
 
 def test_a_phase_cylinder_and_a_freeform_row_refuse():
-    """A grating on a cylinder: the plain path traces it, every key and
-    K5's reverse refuse it (item 9.4, part two); a freeform row raises
-    naming item 9.5 in the specialized and the generic step."""
+    """A grating on a cylinder: the plain path traces it, every K1-K9 key
+    and the hand reverse (K5's and K9's PATH form) refuse it (item 9.4,
+    part three); a freeform row raises naming item 9.5 in the
+    specialized and the generic step."""
     kw = dict(curvature=[0., 1/40., 0.], curvature_dx=[0., -1/40., 0.],
               mu=[1., 1/1.5, 1.], distance=[0., 5., 10.],
               grating_dy=[0., .1, 0.])
@@ -332,12 +369,18 @@ def test_a_phase_cylinder_and_a_freeform_row_refuse():
     out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
     assert all(torch.isfinite(c).all() for c in out)
     for make in (CS.trace_key, CS.merit_key, CS.moments_key,
-                 CS.adjoint_key):
+                 CS.adjoint_key, CS.adjoint_multi_key, CS.opd_key,
+                 CS.opd_adjoint_key,
+                 lambda sp, dt: CS.trace_multi_key(sp, dt, 2),
+                 lambda sp, dt: CS.trace_multi_key(sp, dt, 2, merit=True),
+                 lambda sp, dt: CS.moments_multi_key(sp, dt, False, 2)):
         with pytest.raises(NotImplementedError, match=r"cylinder.*9\.4"):
             make(specs, F64)
-    with pytest.raises(NotImplementedError, match=r"9\.4"):
-        CG._step_vjp_reference(state, tt.row(1), specs[1],
-                               (torch.zeros(8, dtype=F64),)*6)
+    for ct_path in (None, torch.ones(8, dtype=F64)):
+        with pytest.raises(NotImplementedError, match=r"9\.4"):
+            CG._step_vjp_reference(state, tt.row(1), specs[1],
+                                   (torch.zeros(8, dtype=F64),)*6,
+                                   ct_path=ct_path)
     kw = dict(curvature=[0., 1/40.], mu=[1., 1/1.5],
               xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]])
     ft = TT.table_from_numpy(JT.make_table(**kw))
