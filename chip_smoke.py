@@ -48,11 +48,19 @@ and two DOE coefficients; the concave-grating spectrograph's forward
 path at each wavelength with its detector lines against the JAX
 package's golden; the hybrid achromat's forward path on aimed bundles
 and its designer loop over curvatures, distances and the kinoform's
-coefficient) -- and times the
-kernels against their plain versions (the stacked-wavelength ones
-also against their monochromatic twins, the aspheric keys against the
-double Gauss's, K10-K13 on the Newton plans against their spherical
-twins', the grating and DOE keys against their phase-free twins').
+coefficient) -- then the phase rows in df32 (K10-K13 on the six phase
+lenses, the kinoform and two phase cylinders against their plain
+versions, word for word; the parity-grade df32 path on the hybrid
+achromat's aimed bundles, the spectrograph's detector lines against
+the golden and the kinoform's optical path) and on a cylinder (K1-K9
+on a grating on a biconic-made y-cylinder and a DOE on a toroid-made
+one against their plain versions and central differences) -- and
+times the kernels against their plain versions (the
+stacked-wavelength ones also against their monochromatic twins, the
+aspheric keys against the double Gauss's, K10-K13 on the Newton plans
+against their spherical twins', the grating and DOE keys and the df32
+phase plans against their phase-free twins', the phase cylinders'
+keys against the plain cylinders').
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
@@ -95,7 +103,7 @@ N_GLASS = 1 << 20    # hexapolar nrays a field on the achromatization path
 # the first rays of each aimed bundle whose CPU float64 traces at the df32
 # path's other wavelengths hold K11 and K13 there (the first wavelength is
 # held at full depth by the main path's reference)
-N_DF32_REF = 1 << 20
+N_DF32_REF = 1 << 18
 FIELDS = (0., .7, 1.)
 SEED = 0
 OPT_SELECT = ("curvature", "distance")
@@ -165,6 +173,10 @@ OPT_GRAD_REL = 1e-8   # optimizer step 0 gradient, of its field's max
 OPD_F32_REL = 4e-6   # float32 K8 vs float32 plain, of max |k| (~1.1e5
 #                      waves on the double Gauss: a float32 ulp is
 #                      ~0.008); each is ~1e-6 of it off the float64 one
+F32_SUM_REL = 1e-5   # a float32 K5/K7 column whose terms cancel (a phase
+#                      cylinder's grating_dy, ~5e-5 of its sum of |term|)
+#                      vs the float64 plain version, of that sum; the
+#                      float32 versions ~1e-7 of it off (H100 and CPU)
 OPD_F32_SUM_REL = 1e-2  # float32 K9 parameter/centre sums vs the float64
 #                        plain version, of its sum of |term|: each ray's
 #                        reverse cancels (the path is stationary, Fermat)
@@ -523,6 +535,16 @@ def spec_keys(specs, mspecs, nlam, extra=()):
     return keys
 
 
+def df32_quad(tag, one, plans):
+    """{tag: key} of K10 and K11 (with the optical path), K12 and K13 on
+    one plan `one` and the plans of its wavelengths `plans`."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    return {"K10 %s path=True" % tag: CS.df32_multi_key([one], "k11", True),
+            "K11 %s path=True" % tag: CS.df32_multi_key(plans, "k11", True),
+            "K12 " + tag: CS.df32_multi_key([one], "k13"),
+            "K13 " + tag: CS.df32_multi_key(plans, "k13")}
+
+
 def df32_keys(s):
     """{tag: key} of the K10-K13 specializations this script runs: the
     double Gauss's plan (K10, K12) and the plans of its wavelengths
@@ -555,28 +577,18 @@ def df32_keys(s):
     for lens, (_, ltab, _, ltabs) in df32_newton_lenses().items():
         for fast in (True, False):
             for clip in (False, True):
-                one = [D.plan(ltab, clip=clip, fast=fast)]
-                plans = [D.plan(t, clip=clip, fast=fast) for t in ltabs]
-                tag = "%s %s clip=%s" % (lens, "fast" if fast else "exact",
-                                         clip)
-                keys["K10 %s path=True" % tag] = CS.df32_multi_key(
-                    one, "k11", True)
-                keys["K11 %s path=True" % tag] = CS.df32_multi_key(
-                    plans, "k11", True)
-                keys["K12 " + tag] = CS.df32_multi_key(one, "k13")
-                keys["K13 " + tag] = CS.df32_multi_key(plans, "k13")
+                keys.update(df32_quad(
+                    "%s %s clip=%s" % (lens, "fast" if fast else "exact",
+                                       clip),
+                    D.plan(ltab, clip=clip, fast=fast),
+                    [D.plan(t, clip=clip, fast=fast) for t in ltabs]))
     # the timed Newton lenses' spherical twins (the aspheric double
     # Gauss's: the double Gauss's keys above)
     for lens in DF32_TIMED[1:]:
         for fast in (True, False):
-            one, plans = df32_timed_plans(lens, fast)[1]
-            tag = "%s twin %s" % (lens, "fast" if fast else "exact")
-            keys["K10 %s path=True" % tag] = CS.df32_multi_key(
-                [one], "k11", True)
-            keys["K11 %s path=True" % tag] = CS.df32_multi_key(
-                plans, "k11", True)
-            keys["K12 " + tag] = CS.df32_multi_key([one], "k13")
-            keys["K13 " + tag] = CS.df32_multi_key(plans, "k13")
+            keys.update(df32_quad(
+                "%s twin %s" % (lens, "fast" if fast else "exact"),
+                *df32_timed_plans(lens, fast)[1]))
     plans = split_plans(s)
     for kernel, wp in (("k11", True), ("k13", False)):
         for l0, l1 in CS.df32_runs(CS.df32_flags(plans), kernel):
@@ -664,7 +676,7 @@ LOOP_KEYS = ("K1 float32 clip=False",
 
 def ptxas_stats(kern):
     """(registers, stack frame bytes, spill store + load bytes) of a
-    one-kernel specialized library's -Xptxas -v report."""
+    key's -Xptxas -v report (its own kernel's lines)."""
     import re
     text = kern.build_log
     regs = re.search(r"Used (\d+) registers", text)
@@ -677,32 +689,37 @@ def ptxas_stats(kern):
 
 
 def sass_size(kern):
-    """(instructions, bytes) of a one-kernel specialized library's SASS
+    """(instructions, bytes) of a key's kernel in its library's SASS
     (cuda_build.sass_size), or (None, None) without cuobjdump."""
     from rayopt_tpu_torch.ops.cuda_build import sass_size as size
     try:
-        return size(kern.path)
+        return size(kern.path, kern.entry)
     except (OSError, subprocess.CalledProcessError) as err:
         log("cuobjdump --dump-sass %s: not run (%s)" % (kern.path.name, err))
         return None, None
 
 
 def phase_spec_build(keys):
-    """Build every K1-K9 and K10-K13 specialization at once (one nvcc a
-    key, in parallel): every kernel of the port; log each key's build
-    seconds and ptxas lines, and the SASS size of the path's K3 keys and
-    the unclipped fast df32 keys.  The loops' keys (LOOP_KEYS: K1 of the forward path,
-    float32 and float64, and K2, float64; K5 for the optimizer's slot
-    set; K3, K6 and K7 for the achromatization path's and K8 and K9 for
-    the design path's, float64; K10-K13 of the df32 path) must have no
-    stack frame and no spill.  Returns {tag: (registers, stack bytes, spill bytes)} and
+    """Build every K1-K9 and K10-K13 specialization at once (cuda_spec.
+    prebuild: a few keys a translation unit, one nvcc a unit, as many at
+    a time as the process may use cores): every kernel of the port; log
+    each key's build seconds (its unit's) and ptxas lines, and the SASS
+    size of the path's K3 keys and the unclipped fast df32 keys.  The
+    loops' keys (LOOP_KEYS: K1 of the forward path, float32 and float64,
+    and K2, float64; K5 for the optimizer's slot set; K3, K6 and K7 for
+    the achromatization path's and K8 and K9 for the design path's,
+    float64; K10-K13 of the df32 path) must have no stack frame and no
+    spill.  Returns {tag: (registers, stack bytes, spill bytes)} and
     {tag: (SASS instructions, bytes)} of those K3 and df32 keys."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     log("== build: K1-K9 per spec tuple, K10-K13 per plan key: %d key "
         "tags, %d keys" % (len(keys), len(set(keys.values()))))
     t0 = time.perf_counter()
     built = CS.prebuild(list(keys.values()))
-    log("built in %.2f s wall" % (time.perf_counter() - t0))
+    units = {k.path for k in built.values()}
+    log("built in %.2f s wall: %d units, %.2f nvcc seconds in all" % (
+        time.perf_counter() - t0, len(units),
+        sum({k.path: k.build_seconds for k in built.values()}.values())))
     # the SASS size of each K3 key of the path and each unclipped fast
     # df32 key (the df32 paths' keys among them), once a key, the
     # cuobjdump runs in parallel
@@ -731,7 +748,27 @@ def phase_spec_build(keys):
     if failures:
         raise AssertionError("a loop's key has a stack frame or spills: %s"
                              % failures)
+    log_late_builds(set(keys.values()))
     return stats, sass
+
+
+def log_late_builds(known):
+    """From now on, log each key built at first use (one serial nvcc, a
+    key missing from phase_spec_build) with the script's functions that
+    asked for it, innermost last."""
+    import traceback
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    build = CS.prebuild
+
+    def prebuild(keys):
+        late = [k.name for k in keys if k not in CS._LOADED
+                and k not in known]
+        if late:
+            where = [f.name for f in traceback.extract_stack()
+                     if f.filename == __file__][:-1]
+            log("late key build %s from %s" % (late, " > ".join(where)))
+        return build(keys)
+    CS.prebuild = prebuild
 
 
 def phase_spec_check(table, specs):
@@ -2268,7 +2305,8 @@ def asphere_keys():
     (ASPH_DESIGN_FIELDS), K7 for the achromatization loop's
     (ASPH_ACHROM_FIELDS), K9 for the design loop's -- and, in float64,
     the finite-difference checks' (K5: conic and aspherics; K7: mu and
-    aspherics; K9: conic and aspherics)."""
+    aspherics; K9: conic and aspherics) and the design step breakdown's
+    (K5 and K9 for DESIGN_FIELDS)."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     keys = {}
     for name, (s, table, specs, widths) in asphere_cases().items():
@@ -2324,6 +2362,13 @@ def asphere_keys():
             keys["K9 float64 aspheric fd rays=False"] = CS.opd_adjoint_key(
                 specs, f64, False, ("conic", "aspherics"), False,
                 widths=widths)
+            # the design step breakdown's (curvature and offset)
+            keys["K5 float64 aspheric breakdown rays=False"] = \
+                CS.adjoint_key(specs, f64, fields=DESIGN_FIELDS, rays=False,
+                               widths=widths)
+            keys["K9 float64 aspheric breakdown rays=False"] = \
+                CS.opd_adjoint_key(specs, f64, False, DESIGN_FIELDS, False,
+                                   widths=widths)
     return keys
 
 
@@ -4146,7 +4191,10 @@ def phase_hybrid_path(opt_step, glass_step, design_step):
     nrays a bundle, its later steps logged beside the double Gauss's
     (`opt_step`, `glass_step`, `design_step` seconds).  Returns the
     path's launches (the forward part's, counted from the caller's
-    reset, and each loop's) and the loops' later-step seconds."""
+    reset, and each loop's), the loops' later-step seconds and the
+    aimed bundles (on the card, with their float64 K1 image positions
+    and the CPU float64 spot RMS of their first N_PHASE rays: the df32
+    path's)."""
     from rayopt_tpu_torch.models import hybrid_achromat
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
                                                  trace_merit)
@@ -4186,6 +4234,7 @@ def phase_hybrid_path(opt_step, glass_step, design_step):
     if not ok:
         failures.append("System.pupils")
     rng = np.random.RandomState(SEED + 9)
+    aimed = []
     for field in FIELDS:
         t0 = time.perf_counter()
         zf, pf = s.pupil((0., field))
@@ -4232,7 +4281,10 @@ def phase_hybrid_path(opt_step, glass_step, design_step):
                rel1, masks, t_aim, t_gpu, t_cpu, "ok" if ok else "FAIL"))
         if not ok:
             failures.append("field %.1f" % field)
-        del y64, u64, y32, u32, state64
+        aimed.append(dict(field=field, y=yc, u=uc, y64=y64,
+                          rms_cpu=rms_cpu, live_cpu=live_cpu,
+                          n_ref=N_PHASE))
+        del u64, y32, u32, state64
     if failures:
         raise AssertionError("hybrid achromat path failed: "
                              + ", ".join(failures))
@@ -4253,7 +4305,7 @@ def phase_hybrid_path(opt_step, glass_step, design_step):
         % (k, v, t, v/t) for (k, v), t in zip(
             steps.items(), (opt_step, glass_step, design_step))))
     return ({k: v + loop[k] + glass[k] + design[k]
-             for k, v in forward.items()}, steps)
+             for k, v in forward.items()}, steps, aimed)
 
 
 def phase_grating_throughput(card):
@@ -4388,9 +4440,11 @@ PHASE_RADIAL_FLOPS = 11  # a phase row's radial normal (kernels.normal_radial)
 
 def phase_row_flops(spec, widths=(0, 0), nd=0):
     """Operations of one surface_step on a phase row: its substrate's
-    intercept and transfer (row_flops of the row as a passthrough), the
-    substrate's normal (a flat's none, the radial normal, a biconic's or
-    toroid's general one), the generalized solve (the groove vector and
+    intercept and transfer (row_flops of the row as a passthrough: a
+    phase cylinder's closed form), the substrate's normal (a flat's
+    none, the radial normal, a biconic's or toroid's general one, a
+    phase cylinder's too: the biconic's or toroid's that made it), the
+    generalized solve (the groove vector and
     its norm, b, Gamma's root and the new direction) and a DOE's kick
     (Horner, 2 a coefficient) and optical path term."""
     base = row_flops(spec._replace(kind=0, grating=False, doe=False),
@@ -4582,6 +4636,869 @@ def grating_multi_entries(sources, launches, worst, times, live, ptxas,
                           "double_gauss_design_step_s": dg_steps["design"]})
         out.append(entry)
     return out
+
+
+# ---- the phase rows in df32 (K10-K13) and on a cylinder (K1-K9) ----
+
+#: the phase cylinders (make_table keyword arguments; row 1 between the
+#: object and an image plane, glass after it): a grating on a
+#: biconic-made y-cylinder (cx = 0) and a DOE on a toroid-made one (cr =
+#: 0)
+PHASE_CYLINDERS = {
+    "grating cylinder": dict(curvature=[0., 1/40., 0.],
+                             curvature_dx=[0., -1/40., 0.],
+                             conic=[0., -.3, 0.], conic_dx=[0., .5, 0.],
+                             grating_dy=[0., .1, 0.]),
+    "doe cylinder": dict(curvature=[0., 1/50., 0.],
+                         curvature_dx=[0., -1/50., 0.],
+                         toroidal=[0., 1., 0.], conic=[0., .2, 0.],
+                         doe=[[0., 0.], [-1.5e-3, 2e-7], [0., 0.]])}
+PHASE_CYL_HALF = 3.   # the cylinders' bench half width, mm
+PHASE_CYL_OPD = dict(radius=-40., wavelength=550e-9, scale=1e-3)
+#: the df32 phase cases of the df32 path (held at N_CHECK rays, fast
+#: unclipped, exact unclipped and clipped: the path's plans and a clip);
+#: the phase cylinders (N_CHECK rays) and the JAX package's four test
+#: lenses (N_DF32_PHASE_CUT rays) at (fast, unclipped) and (exact,
+#: clipped): fast and exact, clip off and on, in two pairs
+DF32_PHASE_PATH = ("hybrid achromat", "spectrograph", "kinoform")
+DF32_PHASE_CUT = ("curved hybrid", "mirror grating", "bk7 grating",
+                  "zone plate")
+N_DF32_PHASE_CUT = 1 << 18
+#: (kernel, cylinder, field, index) of the phase cylinders' central
+#: differences (K5 of the K4 merit, K7 of the K6 union merit on the
+#: cylinder's stack, K9 of the K8 wavefront RMS) and their relative
+#: steps; grating_dy by K9 alone: it shifts the spot, so the spot RMS
+#: moves by 3e-4 of it and its central difference is at the float64
+#: sum's noise (6e-6 rel on the CPU at 2^11 rays)
+PHASE_CYL_FD_PICKS = (("K5", "grating cylinder", "curvature_dx", 1),
+                      ("K5", "doe cylinder", "doe", (1, 0)),
+                      ("K7", "grating cylinder", "curvature_dx", (0, 1)),
+                      ("K7", "doe cylinder", "doe", (0, 1, 0)),
+                      ("K9", "grating cylinder", "grating_dy", 1),
+                      ("K9", "doe cylinder", "curvature_dx", 1))
+PHASE_CYL_FD_STEP = {"curvature_dx": 1e-6, "grating_dy": 1e-6, "doe": 1e-4}
+#: the df32 phase plans timed against their phase-free twins' at
+#: N_GRAD_TIME and N_BENCH rays
+DF32_PHASE_TIMED = PHASE_TIMED
+
+
+def phase_cylinder_system():
+    """What the K8/K9 checks read of a system for a phase cylinder: the
+    reference sphere's radius (its image plane 40 mm on), the
+    wavelength, the scale."""
+    from types import SimpleNamespace
+    return SimpleNamespace(
+        image=SimpleNamespace(pupil=SimpleNamespace(
+            distance=-PHASE_CYL_OPD["radius"])),
+        wavelengths=[PHASE_CYL_OPD["wavelength"]],
+        scale=PHASE_CYL_OPD["scale"], object=SimpleNamespace(finite=False))
+
+
+def phase_cylinder_table(name, phase=True, device=None):
+    """A phase cylinder's table (phase False: its plain-cylinder twin,
+    grating_dy and the DOE coefficients zero)."""
+    from rayopt_tpu_torch.ops.tables import make_table
+    kw = dict(mu=[1., 1/1.5, 1.], n_before=[1., 1., 1.5],
+              n_after=[1., 1.5, 1.5], distance=[0., 5., 40.],
+              radius=[np.inf, 12., np.inf])
+    kw.update(PHASE_CYLINDERS[name])
+    if not phase:
+        kw.pop("grating_dy", None)
+        kw.pop("doe", None)
+    return make_table(**kw, device=device or DEVICE)
+
+
+def phase_cylinder_stack(table):
+    """Three tables of a phase cylinder (mu grown by 0, 1 and 2 % of mu
+    - 1, grating_dy and the DOE coefficients by 0, 5 and 10 %: each
+    wavelength's own phase words) on its device, and the specs they
+    share."""
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    tabs = type(table)(*(None if f is None else torch.stack([f]*3)
+                         for f in table))
+    grow = torch.tensor([0., 1., 2.], dtype=torch.float64,
+                        device=table.curvature.device)
+    tabs = tabs.replace(
+        mu=1 + (tabs.mu - 1)*(1 + .01*grow[:, None]),
+        grating_dy=tabs.grating_dy*(1 + .05*grow[:, None]),
+        doe=tabs.doe*(1 + .05*grow[:, None, None]))
+    return tabs, multi_specs(tabs, None)
+
+
+@functools.lru_cache(maxsize=None)
+def phase_cylinders():
+    """{name: (table on the card, specs, stack, stack specs, twin table,
+    twin specs)} of PHASE_CYLINDERS (the twin: the plain cylinder)."""
+    from rayopt_tpu_torch.ops.kernels import specialize
+    out = {}
+    for name in PHASE_CYLINDERS:
+        table = phase_cylinder_table(name)
+        twin = phase_cylinder_table(name, phase=False)
+        tabs, mspecs = phase_cylinder_stack(table)
+        out[name] = (table, specialize(table), tabs, mspecs, twin,
+                     specialize(twin))
+    return out
+
+
+def cyl_grad_fields(opd=False, nd=0):
+    """K5's and K7's (with `opd`, K9's) cotangent columns by table field
+    on a phase cylinder's key: GRAD_FIELDS (K9: and n_before), the
+    anamorphic key's curvature_dx and conic_dx, then grating_dy (nd 0)
+    or (K9: n_after and) the nd DOE coefficients."""
+    q = 7 if opd else 6
+    out = (OPD_GRAD_FIELDS if opd else GRAD_FIELDS) + (
+        ("curvature_dx", slice(q, q + 1)), ("conic_dx", slice(q + 1, q + 2)))
+    q += 2
+    if not nd:
+        return out + (("grating_dy", slice(q, q + 1)),)
+    if opd:
+        out += (("n_after", slice(q, q + 1)),)
+        q += 1
+    return out + (("doe", slice(q, q + nd)),)
+
+
+@functools.lru_cache(maxsize=None)
+def df32_phase_cases():
+    """{name: (table on the card, its three wavelength tables, bench
+    bundle function, [(fast, clip), ...] held)} of the df32 phase
+    checks: the six phase lenses (their System.tables, or 1, 0.9 and 1.1
+    times a lens's one wavelength), the kinoform and the two phase
+    cylinders (phase_cylinder_stack)."""
+    from rayopt_tpu_torch.ops.tables import table_at
+    path = [(True, False), (False, False), (False, True)]
+    cut = [(True, False), (False, True)]
+    out = {}
+    lenses = dict(phase_lenses())
+    ks = kinoform()
+    lenses["kinoform"] = (ks, ks.table(), None, 3.)
+    for name, (s, table, _, half) in lenses.items():
+        tabs, _ = phase_stack(s)
+        out[name] = (table, [table_at(tabs, li) for li in range(3)],
+                     phase_bundle_of(half),
+                     path if name in DF32_PHASE_PATH else cut)
+    for name, (table, _, tabs, _, _, _) in phase_cylinders().items():
+        out[name] = (table, [table_at(tabs, li) for li in range(3)],
+                     phase_bundle_of(PHASE_CYL_HALF), cut)
+    return out
+
+
+def df32_phase_twin_plans(lens, fast):
+    """((one plan, the three wavelength plans) of a timed phase lens,
+    the same of its phase-free twin (phase_twin_system))."""
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.tables import table_at
+    table, lam_tabs, _, _ = df32_phase_cases()[lens]
+    tw = phase_twin_system(lens)
+    ttabs = phase_stack(tw)[0]
+    return ((D.plan(table, fast=fast),
+             [D.plan(t, fast=fast) for t in lam_tabs]),
+            (D.plan(tw.table(), fast=fast),
+             [D.plan(table_at(ttabs, li), fast=fast) for li in range(3)]))
+
+
+def df32_phase_keys():
+    """{tag: key} of the df32 phase checks, paths and timings: each case
+    of df32_phase_cases at its (fast, clip) pairs, K10 (with the path)
+    and K12 on its plan, K11 (with the path) and K13 on its three
+    wavelength plans (the hybrid's df32 path, the spectrograph's and the
+    kinoform's among them); and the timed lenses' phase-free twins' plans,
+    fast and exact."""
+    from rayopt_tpu_torch.ops import df32 as D
+    keys = {}
+    for name, (table, lam_tabs, _, pairs) in df32_phase_cases().items():
+        for fast, clip in pairs:
+            keys.update(df32_quad(
+                "%s %s clip=%s" % (name, "fast" if fast else "exact", clip),
+                D.plan(table, clip=clip, fast=fast),
+                [D.plan(t, clip=clip, fast=fast) for t in lam_tabs]))
+    for lens in DF32_PHASE_TIMED:
+        for fast in (True, False):
+            keys.update(df32_quad(
+                "%s twin %s" % (lens, "fast" if fast else "exact"),
+                *df32_phase_twin_plans(lens, fast)[1]))
+    return keys
+
+
+def phase_cylinder_keys():
+    """{tag: key} of the phase cylinders' K1-K9 checks and timings: K1,
+    K2, K4, K5, K6, K7, K8 and K9 (the adjoints every field, with the
+    ray cotangents) in float64 clip off and on and in float32 clip off,
+    K3's two modes in both dtypes; the central differences' K5, K7 and
+    K9 (one field each, float64); and the plain-cylinder twins' keys in
+    float32 for the timings."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import doe_width, figure_widths
+    f64, f32 = torch.float64, torch.float32
+    keys = {}
+    for name, (table, specs, tabs, mspecs, twin, tspecs) in \
+            phase_cylinders().items():
+        tag = name.replace(" ", "-")
+        kw = dict(widths=figure_widths(table, specs),
+                  nd=doe_width(table, specs))
+        for dtype, clips in ((f64, (False, True)), (f32, (False,))):
+            dt = str(dtype)[6:]
+            for mode in ("merit", "trace"):
+                keys["K3 %s %s %s" % (dt, tag, mode)] = CS.trace_multi_key(
+                    mspecs, dtype, 3, mode == "merit", **kw)
+            for clip in clips:
+                sfx = "%s %s clip=%s" % (dt, tag, clip)
+                keys["K1 " + sfx] = CS.trace_key(specs, dtype, clip, **kw)
+                keys["K2 " + sfx] = CS.merit_key(specs, dtype, clip, **kw)
+                keys["K4 " + sfx] = CS.moments_key(specs, dtype, clip, **kw)
+                keys["K5 %s all rays=True" % sfx] = CS.adjoint_key(
+                    specs, dtype, clip, **kw)
+                keys["K6 " + sfx] = CS.moments_multi_key(mspecs, dtype,
+                                                         clip, 3, **kw)
+                keys["K7 %s all rays=True" % sfx] = CS.adjoint_multi_key(
+                    mspecs, dtype, clip, **kw)
+                keys["K8 " + sfx] = CS.opd_key(specs, dtype, clip, **kw)
+                keys["K9 %s all rays=True" % sfx] = CS.opd_adjoint_key(
+                    specs, dtype, clip, **kw)
+        for kern, cyl, field, _ in PHASE_CYL_FD_PICKS:
+            if cyl != name:
+                continue
+            make = {"K5": CS.adjoint_key, "K7": CS.adjoint_multi_key,
+                    "K9": CS.opd_adjoint_key}[kern]
+            keys["%s float64 %s fd %s rays=False" % (kern, tag, field)] = \
+                make(mspecs if kern == "K7" else specs, f64, False,
+                     (field,), False, **kw)
+        tsfx = "float32 %s twin" % tag
+        for mode in ("merit", "trace"):
+            keys["K3 %s %s" % (tsfx, mode)] = CS.trace_multi_key(
+                tspecs, f32, 3, mode == "merit")
+        keys["K1 " + tsfx] = CS.trace_key(tspecs, f32)
+        keys["K2 " + tsfx] = CS.merit_key(tspecs, f32)
+        keys["K4 " + tsfx] = CS.moments_key(tspecs, f32)
+        keys["K5 %s all rays=True" % tsfx] = CS.adjoint_key(tspecs, f32)
+        keys["K6 " + tsfx] = CS.moments_multi_key(tspecs, f32, False, 3)
+        keys["K7 %s all rays=True" % tsfx] = CS.adjoint_multi_key(tspecs,
+                                                                 f32)
+        keys["K8 " + tsfx] = CS.opd_key(tspecs, f32)
+        keys["K9 %s all rays=True" % tsfx] = CS.opd_adjoint_key(tspecs, f32)
+    return keys
+
+
+def phase_df32_phase_check():
+    """K10-K13 against their plain versions on the card on the phase
+    plans (df32_phase_cases): the hybrid achromat, the spectrograph and
+    the kinoform at N_CHECK bench rays, fast unclipped, exact unclipped
+    and clipped (1.5x wide when clipped); the two phase cylinders at
+    N_CHECK and the JAX package's four test lenses at N_DF32_PHASE_CUT
+    rays, (fast, unclipped) and (exact, clipped); K10 and K11 with the
+    optical path (a DOE's
+    phase term), K11/K13 on the three wavelength plans.  The kernels
+    round every float32 operation as the plain versions do: the words
+    that differ are counted (0 expected)."""
+    from rayopt_tpu_torch.ops import df32 as D
+    worst = dict.fromkeys(DF32_NAMES, 0.)
+    failures = []
+    for name, (table, lam_tabs, bundle, pairs) in df32_phase_cases().items():
+        n = N_DF32_PHASE_CUT if name in DF32_PHASE_CUT else N_CHECK
+        log("== K10-K13 vs plain on the card: %s (phase plans), %d bench "
+            "rays (1.5x wide when clipped), K11/K13 on its 3 wavelength "
+            "plans, with the path, at %s" % (
+                name, n, ", ".join("%s clip=%s" % (
+                    "fast" if f else "exact", c) for f, c in pairs)))
+        state64 = bundle(n, torch.float64, SEED)
+        for fast, clip in pairs:
+            state = df32_state(state64, 1.5 if clip else 1.)
+            tag = "%s clip=%s %s plan" % (name, clip,
+                                          "fast" if fast else "exact")
+            df32_check_case(tag, D.plan(table, clip=clip, fast=fast),
+                            [D.plan(t, clip=clip, fast=fast)
+                             for t in lam_tabs],
+                            state, n, worst, failures, (True,))
+            del state
+    if failures:
+        raise AssertionError("df32 kernel disagrees with its plain version "
+                             "on a phase plan: " + ", ".join(failures))
+    return worst
+
+
+def phase_cylinder_check():
+    """K1-K9 on the two phase cylinders against their plain versions on
+    the card at N_CHECK rays of their bench bundle (ray 0 the chief
+    ray): K1, K2 (phase_check), K4, K5 (phase_grad_check, curvature_dx,
+    conic_dx and the phase columns among K5's), K3, K6, K7
+    (phase_multi_check on the cylinder's stack) and K8, K9
+    (phase_opd_check) in float64 clip off and on (clipped on the bundle
+    phase_clip_bundle widens past the aperture) and in float32 clip
+    off; then K5, K7 and K9 against central differences
+    (phase_cylinder_fd_check).  Returns the float32 errors."""
+    from rayopt_tpu_torch.ops.cuda_trace import doe_width
+    worst = {}
+
+    def keep(errs):
+        worst.update({k: max(v, worst.get(k, 0.)) for k, v in errs.items()})
+    bundle = phase_bundle_of(PHASE_CYL_HALF)
+    s = phase_cylinder_system()
+    for name, (table, specs, tabs, mspecs, _, _) in \
+            phase_cylinders().items():
+        nd = doe_width(table, specs)
+        lens = "phase cylinder (%s)" % name
+        fields, ofields = cyl_grad_fields(False, nd), cyl_grad_fields(True,
+                                                                      nd)
+        # float32: grating_dy shifts the whole spot, so its K5 and K7
+        # column is a residual of cancelling float32 terms: held against
+        # the float64 plain version (phase_f32_column_check)
+        f32_fields = tuple(f for f in fields if f[0] != "grating_dy")
+        # clipped: on a bundle that reaches past the 12 mm aperture
+        clipped = phase_clip_bundle(table, PHASE_CYL_HALF)
+        for dtypes, bund, clips in (((torch.float64,), bundle, (False,)),
+                                    ((torch.float64,), clipped, (True,)),
+                                    ((torch.float32,), bundle, (False,))):
+            kf = f32_fields if dtypes[0] == torch.float32 else fields
+            if len(kf) < len(fields):
+                log("%s float32: K5's and K7's grating_dy column is held "
+                    "against the float64 plain version below" % lens)
+            keep(phase_check(table, specs, lens, bund, clips, dtypes))
+            keep(phase_grad_check(table, specs, lens, bund, clips, kf,
+                                  dtypes))
+            keep(phase_multi_check(tabs, mspecs, lens + ", its stack",
+                                   bund, clips, kf, None, dtypes))
+            keep(phase_opd_check(s, table, specs, lens, bund, clips,
+                                 ofields, None, dtypes))
+        for field, cols in fields:
+            if field == "grating_dy":
+                keep(phase_f32_column_check(table, specs, tabs, mspecs,
+                                            lens, bundle, field, cols))
+    phase_cylinder_fd_check()
+    return worst
+
+
+def column_mass(tb, sp, state, w, ct, field):
+    """The sum over rays of |each ray's term| of a K5 (`tb` one table,
+    `ct` (5,)) or K7 (a stack, `ct` (nlam, 5)) parameter column, float64:
+    w (ct . d(1, x, y, x^2, y^2)/dp) at the image, p the `field` of each
+    row where it is nonzero (central differences of the plain float64
+    trace, step 1e-6 of the value); the largest over those rows."""
+    from rayopt_tpu_torch.ops.cuda_trace import trace_final_reference
+    from rayopt_tpu_torch.ops.tables import table_at
+    multi = ct.dim() == 2
+    tables = [table_at(tb, li) for li in range(ct.shape[0])] if multi \
+        else [tb]
+    cts = ct if multi else ct[None]
+    rows = torch.nonzero(getattr(tables[0], field) != 0)[:, 0].tolist()
+    mass = 0.
+    for row in rows:
+        total = 0.
+        for one, c in zip(tables, cts):
+            base = getattr(one, field)
+            h = 1e-6*abs(float(base[row]))
+            x, y = trace_final_reference(one, sp, state)[0][:2]
+            side = []
+            for sgn in (1., -1.):
+                v = base.clone()
+                v[row] += sgn*h
+                side.append(trace_final_reference(one.replace(**{field: v}),
+                                                  sp, state)[0][:2])
+            dx = (side[0][0] - side[1][0])/(2*h)
+            dy = (side[0][1] - side[1][1])/(2*h)
+            term = w*(c[1]*dx + c[2]*dy + 2*c[3]*x*dx + 2*c[4]*y*dy)
+            total += float(torch.nansum(term.abs()))
+        mass = max(mass, total)
+    return mass
+
+
+def phase_f32_column_check(table, specs, tabs, mspecs, lens, bundle, field,
+                           cols):
+    """Float32 K5 and K7 (unclipped, every field, with the ray
+    cotangents) at N_CHECK rays of `bundle`: the parameter column
+    `field` (`cols`), a sum whose terms cancel, against the float64
+    plain version on the same inputs (the float32 rays, weights and
+    moment cotangent in float64), within F32_SUM_REL of the sum of
+    |term| (column_mass), as K9's float32 sums are held; the plain
+    float32 version's error is logged beside the kernel's.  Returns the
+    kernels' float32 errors."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_multi, merit_adjoint_multi_reference,
+        merit_adjoint_reference, weighted_moments_multi_reference,
+        weighted_moments_reference)
+    state = bundle(N_CHECK, torch.float32, SEED)
+    w = bench_weights(N_CHECK, torch.float32, SEED + 2)
+    s64, w64 = tuple(c.double() for c in state), w.double()
+    worst, failures = {}, []
+    for name, kern, ref, moments, tb, sp in (
+            ("merit_adjoint", merit_adjoint, merit_adjoint_reference,
+             weighted_moments_reference, table, specs),
+            ("merit_adjoint_multi", merit_adjoint_multi,
+             merit_adjoint_multi_reference, weighted_moments_multi_reference,
+             tabs, mspecs)):
+        ct = rms_cotangent(moments(tb, sp, state, w))
+        got = kern(tb, sp, state, w, ct)[0][..., cols].double()
+        plain = ref(tb, sp, state, w, ct)[0][..., cols].double()
+        want = ref(tb, sp, s64, w64, ct.double())[0][..., cols]
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        perr = float((plain - want).abs().max())
+        mass = column_mass(tb, sp, s64, w64, ct.double(), field)
+        ok = bool(torch.isfinite(got).all()) and err <= F32_SUM_REL*mass
+        worst[name] = err
+        log("%s %s float32 %s column vs the float64 plain version: kernel "
+            "err %.3e, plain float32 err %.3e, of max |column| %.3e and "
+            "sum of |term| %.3e (limit %.3e) -> %s"
+            % ("K5" if name == "merit_adjoint" else "K7", lens, field, err,
+               perr, float(want.abs().max()), mass, F32_SUM_REL*mass,
+               "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise AssertionError("float32 %s column disagrees with the float64 "
+                             "plain version on the %s: %s"
+                             % (field, lens, ", ".join(failures)))
+    return worst
+
+
+def phase_cylinder_fd_check():
+    """Float64, N_CHECK bench rays, against central differences (steps
+    PHASE_CYL_FD_STEP of the value): K5's gradient of the K4 merit (the
+    spot RMS), K7's of the K6 merit (the union spot RMS of the
+    cylinder's stack) and K9's of the K8 wavefront RMS (ray 0 the chief
+    ray), w.r.t. curvature_dx (read by the normal of the biconic or
+    toroid that made the cylinder), grating_dy and a DOE coefficient
+    (PHASE_CYL_FD_PICKS)."""
+    from rayopt_tpu_torch.ops.cuda_grad import (adjoint_wavefront_rms,
+                                                polychromatic_spot_rms,
+                                                spot_moments,
+                                                weighted_moments)
+    from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    cases = phase_cylinders()
+    log("== K5, K7 and K9 on the phase cylinders vs central differences "
+        "(float64, %d bench rays; relative steps %s)"
+        % (N_CHECK, PHASE_CYL_FD_STEP))
+    failures = []
+    opd = dict(PHASE_CYL_OPD, ref=0, finite=False)
+    for kern, name, field, idx in PHASE_CYL_FD_PICKS:
+        table, specs, tabs, mspecs, _, _ = cases[name]
+        state = phase_bundle_of(PHASE_CYL_HALF)(N_CHECK, torch.float64, SEED)
+        w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+        y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+        if kern == "K5":
+            tab, sp = table, specs
+
+            def merit(tb, sp=sp):
+                return spot_rms_from_moments(*spot_moments(
+                    tb, state, w, specs=sp))
+
+            def value(tb, sp=sp):
+                return spot_rms_from_moments(*weighted_moments(
+                    tb, sp, state, w))
+        elif kern == "K7":
+            tab, sp = tabs, mspecs
+
+            def merit(tb, sp=sp):
+                return polychromatic_spot_rms(tb, y0, u0, w, specs=sp)
+            value = merit
+        else:
+            tab, sp = table, specs
+
+            def merit(tb, sp=sp):
+                return adjoint_wavefront_rms(tb, y0, u0, w, specs=sp, **opd)
+            value = merit
+        base = getattr(tab, field)
+        v = base.clone().requires_grad_()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # the baked rows, as intended
+            merit(tab.replace(**{field: v})).backward()
+        h = PHASE_CYL_FD_STEP[field]*abs(float(base[idx]))
+        side = []
+        with torch.no_grad():
+            for sgn in (1., -1.):
+                b = base.clone()
+                b[idx] += sgn*h
+                side.append(float(value(tab.replace(**{field: b}))))
+        fd = (side[0] - side[1])/(2*h)
+        g = float(v.grad[idx])
+        rel = abs(g - fd)/abs(fd)
+        ok = rel <= FD_REL
+        log("%s, %s %s %s: kernel %.12g, central difference %.12g (step "
+            "%.3g), rel %.2e -> %s" % (kern, name, field, idx, g, fd, h,
+                                       rel, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s %s %s" % (kern, name, field))
+    if failures:
+        raise AssertionError("K5, K7 or K9 on a phase cylinder disagrees "
+                             "with finite differences: "
+                             + ", ".join(failures))
+
+
+def phase_df32_phase_path(hyb_aimed):
+    """The parity-grade df32 path on the phase rows, its launches counted
+    from the caller's reset: the hybrid achromat's aimed bundles at
+    fields 0, 0.7 and 1 (phase_hybrid_path's: K10's spot RMS on their
+    first N_PHASE rays against the CPU float64 plain trace, its image
+    positions against float64 K1 on the card; K11/K13 at the other two
+    wavelengths; phase_df32_path); the spectrograph's bench bundle at its
+    three wavelengths' plans, K10 (fast and exact) and K11 (one launch):
+    the detector lines (ray 0's image height) against the JAX package's
+    golden (LINES_REL), the image positions against float64 K1 at each
+    table (DF32_F64_ATOL), K12's and K13's moments against K10's and
+    K11's own output; the kinoform (the JAX package's
+    test_doe_phase_enters_optical_path): K10's optical path with_path of
+    8 rays up y to 2.5 mm and of the 3 mm bench bundle against the CPU
+    float64 path (1e-10 mm, as the reference asserts)."""
+    from rayopt_tpu_torch.models import hybrid_achromat, spectrograph
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
+                                                 trace_final)
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    from rayopt_tpu_torch.ops.kernels import specialize
+    phase_df32_path(hybrid_achromat(), hyb_aimed, "hybrid achromat")
+    s = spectrograph()
+    log("== df32 path: the spectrograph's %d bench rays through its three "
+        "wavelengths' plans: K10 (fast and exact, with the path), K12; "
+        "K11 (with the path), K13" % N_AIMED)
+    failures = []
+    state64 = phase_bundle_of(10.)(N_AIMED, torch.float64, SEED + 11)
+    state = df32_state(state64)
+    k1 = []
+    for lam in s.wavelengths:
+        table = s.table(lam)
+        k1.append(torch.stack(trace_final(table, specialize(table),
+                                          state64)[0][:2], 1))
+    for fast in (True, False):
+        plans = [D.plan(s.table(lam), fast=fast) for lam in s.wavelengths]
+        t0 = time.perf_counter()
+        multi = CD.trace_multi_df32(plans, state, with_path=True)
+        moms = CD.trace_merit_multi_df32(plans, state)
+        torch.cuda.synchronize()
+        t_multi = time.perf_counter() - t0
+        for li, (lam, want) in enumerate(zip(s.wavelengths,
+                                             SPECTROGRAPH_LINES)):
+            fin, _ = CD.trace_final_df32(plans[li], state, with_path=True)
+            mom = CD.trace_merit_df32(plans[li], state)
+            xy = torch.stack([D.to_f64(fin[0]), D.to_f64(fin[1])], 1)
+            xy11 = torch.stack([D.to_f64(multi[li][0][0]),
+                                D.to_f64(multi[li][0][1])], 1)
+            line, line11 = float(xy[0, 1]), float(xy11[0, 1])
+            good = torch.isfinite(k1[li][:, 0])
+            masks = int((torch.isfinite(xy[:, 0]) != good).sum())
+            pos = float((xy[good] - k1[li][good]).abs().max())
+            same11 = bool(torch.equal(xy11[good], xy[good]))
+            uz = D.to_f64(fin[5])[:, None].expand(-1, 3)
+            rms10, _ = spot_rms(xy, uz)
+            rms12 = float(spot_rms_from_moments(*mom))
+            rms13 = float(spot_rms_from_moments(*moms[li]))
+            rel_line = abs(line - want)/abs(want)
+            rel11 = abs(line11 - want)/abs(want)
+            # the moments of a 56-85 mm off-axis spot cancel (E[y^2] -
+            # c^2): reported against K10's output, held to 1e-6
+            rel12 = abs(rms12 - rms10)/rms10
+            rel13 = abs(rms13 - rms10)/rms10
+            ok = (rel_line <= LINES_REL and rel11 <= LINES_REL
+                  and masks == 0 and pos <= DF32_F64_ATOL and same11
+                  and rel12 <= 1e-6 and rel13 <= 1e-6)
+            log("%s plan, %.0f nm: K10 line %.12f mm, K11 %.12f, golden "
+                "%.12f (rel %.2e, %.2e) | image positions vs f64 K1 max "
+                "%.3e mm, NaN masks differ on %d, K11 equal to K10 %s | spot "
+                "RMS mm: K10 %.12g, K12 %.12g (rel %.2e), K13 %.12g (rel "
+                "%.2e) | K11 + K13 card %.3f s -> %s"
+                % ("fast" if fast else "exact", lam*1e9, line, line11, want,
+                   rel_line, rel11, pos, masks, same11, rms10, rms12, rel12,
+                   rms13, rel13, t_multi, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("spectrograph %s %.0f nm" % (
+                    "fast" if fast else "exact", lam*1e9))
+        del multi, moms
+    del state, state64, k1
+    ks = kinoform()
+    table, cpu = ks.table(), ks.table(device="cpu")
+    n = 8
+    y = torch.zeros((n, 3), dtype=torch.float64)
+    y[:, 1] = torch.linspace(0., 2.5, n, dtype=torch.float64)
+    u = torch.zeros_like(y)
+    u[:, 2] = 1.
+    bench = phase_bundle_of(3.)(N_CHECK, torch.float64, SEED)
+    yb = torch.stack(bench[:3], 1).cpu()
+    ub = torch.stack(bench[3:], 1).cpu()
+    for what, (yy, uu) in (("8 rays up y", (y, u)),
+                           ("%d bench rays" % N_CHECK, (yb, ub))):
+        _, _, t64 = trace_rays_final(cpu, yy, uu, biconic=True)
+        for fast in (False, True):
+            st = D.state_from_f64(yy.to(DEVICE), uu.to(DEVICE))
+            _, path = CD.trace_final_df32(D.plan(table, fast=fast), st,
+                                          with_path=True)
+            got = D.to_f64(path).cpu()
+            good = torch.isfinite(t64)
+            masks = int((torch.isfinite(got) != good).sum())
+            err = float((got[good] - t64[good]).abs().max())
+            ok = masks == 0 and err <= 1e-10
+            log("kinoform, %s, %s plan: K10 optical path vs CPU f64 max "
+                "%.3e mm (the JAX package asserts 1e-10), NaN masks differ "
+                "on %d -> %s" % (what, "exact" if not fast else "fast", err,
+                                 masks, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("kinoform %s %s" % (what, fast))
+    if failures:
+        raise AssertionError("df32 phase path failed: " + ", ".join(failures))
+
+
+#: the K1-K9 wrappers of the phase cylinders' timings, by kernel name
+CYL_KERNELS = ("trace_final", "trace_merit", "weighted_moments",
+               "merit_adjoint", "trace_multi", "trace_multi_trace",
+               "weighted_moments_multi", "merit_adjoint_multi", "opd_chain",
+               "opd_adjoint")
+
+
+def cyl_calls(kname, table, specs, tabs, mspecs, state, w):
+    """(kernel call, plain call) of one K1-K9 wrapper on a cylinder's
+    table (its stack for K3, K6, K7) and bench state: the adjoints every
+    field with the ray cotangents, for a fixed moment (K5, K7) or
+    wavefront (K9) cotangent."""
+    from rayopt_tpu_torch.ops import cuda_grad as CG
+    from rayopt_tpu_torch.ops import cuda_trace as CT
+    dtype, device = state[0].dtype, state[0].device
+    ct = torch.tensor([.3, -.2, .5, 1., .7], dtype=dtype, device=device)
+    ct3 = ct.expand(3, -1).contiguous()
+    if kname in ("opd_chain", "opd_adjoint"):
+        from rayopt_tpu_torch.ops.geometric import trace_rays_final
+        y0 = torch.stack([c[:1] for c in state[:3]], 1).double()
+        u0 = torch.stack([c[:1] for c in state[3:]], 1).double()
+        yr, _, _ = trace_rays_final(table, y0, u0, specs=specs)
+        aux = torch.cat([yr[0], torch.tensor(
+            [PHASE_CYL_OPD["radius"],
+             PHASE_CYL_OPD["wavelength"]/PHASE_CYL_OPD["scale"]],
+            dtype=torch.float64, device=device)]).to(dtype)
+        gen = torch.Generator(device=device).manual_seed(SEED + 5)
+        cts = tuple(torch.randn(state[0].shape[0], generator=gen,
+                                dtype=dtype, device=device)
+                    for _ in range(3))
+    return {
+        "trace_final": (lambda: CT.trace_final(table, specs, state),
+                        lambda: CT.trace_final_reference(table, specs,
+                                                         state)),
+        "trace_merit": (lambda: CT.trace_merit(table, specs, state),
+                        lambda: CT.trace_merit_reference(table, specs,
+                                                         state)),
+        "weighted_moments": (
+            lambda: CG.weighted_moments(table, specs, state, w),
+            lambda: CG.weighted_moments_reference(table, specs, state, w)),
+        "merit_adjoint": (
+            lambda: CG.merit_adjoint(table, specs, state, w, ct),
+            lambda: CG.merit_adjoint_reference(table, specs, state, w, ct)),
+        "trace_multi": (
+            lambda: CT.trace_multi(tabs, mspecs, state, merit=True),
+            lambda: CT.trace_multi_reference(tabs, mspecs, state,
+                                             merit=True)),
+        "trace_multi_trace": (
+            lambda: CT.trace_multi(tabs, mspecs, state),
+            lambda: CT.trace_multi_reference(tabs, mspecs, state)),
+        "weighted_moments_multi": (
+            lambda: CG.weighted_moments_multi(tabs, mspecs, state, w),
+            lambda: CG.weighted_moments_multi_reference(tabs, mspecs,
+                                                        state, w)),
+        "merit_adjoint_multi": (
+            lambda: CG.merit_adjoint_multi(tabs, mspecs, state, w, ct3),
+            lambda: CG.merit_adjoint_multi_reference(tabs, mspecs, state,
+                                                     w, ct3)),
+        "opd_chain": (lambda: CG.opd_chain(table, specs, state, aux),
+                      lambda: CG.opd_chain_reference(table, specs, state,
+                                                     aux)),
+        "opd_adjoint": (
+            lambda: CG.opd_adjoint(table, specs, state, aux, cts),
+            lambda: CG.opd_adjoint_reference(table, specs, state, aux,
+                                             cts))}[kname]
+
+
+def phase_cylinder_path():
+    """The phase cylinders' K1-K9 keys driven once, as a user calls
+    them, the launch counts read by the caller from a reset just before:
+    on each phase cylinder, float32, unclipped, N_CHECK bench rays (its
+    stack for K3, K6 and K7), every wrapper of CYL_KERNELS as cyl_calls
+    calls it (the adjoints every field, with the ray cotangents).
+    Every output must be finite: the bench bundle lies inside the
+    aperture, so every ray is live."""
+    log("== phase cylinder path: K1-K9 on the two phase cylinders, "
+        "float32, %d bench rays, one call of each wrapper" % N_CHECK)
+    failures = []
+    for name, (table, specs, tabs, mspecs, _, _) in \
+            phase_cylinders().items():
+        state = phase_bundle_of(PHASE_CYL_HALF)(N_CHECK, torch.float32,
+                                                SEED + 4)
+        w = bench_weights(N_CHECK, torch.float32, SEED + 5)
+        finite = {}
+        for kname in CYL_KERNELS:
+            out = cyl_calls(kname, table, specs, tabs, mspecs, state, w)[0]()
+            flat = []
+            todo = [out]
+            while todo:
+                o = todo.pop()
+                if isinstance(o, torch.Tensor):
+                    flat.append(o)
+                elif o is not None:
+                    todo.extend(o)
+            finite[kname] = all(bool(torch.isfinite(o).all()) for o in flat)
+        torch.cuda.synchronize()
+        ok = all(finite.values())
+        log("%s: every output finite %s -> %s"
+            % (name, finite, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise AssertionError("phase cylinder path failed: "
+                             + ", ".join(failures))
+
+
+def phase_cylinder_throughput(card):
+    """K1-K9 on the phase cylinders' float32 keys (CYL_KERNELS, unclipped;
+    the adjoints every field, with the ray cotangents) against their
+    plain versions at N_GRAD_TIME bench rays and against the
+    plain-cylinder twins' keys at N_GRAD_TIME and N_BENCH, in turns in
+    one call (in_turns).  Returns {(kernel, cylinder, n): (ms, twin ms,
+    plain ms or NaN)} and {(cylinder, n): live rays}."""
+    from rayopt_tpu_torch.ops.cuda_trace import trace_merit
+    log("== K1-K9 on the phase cylinders (float32) against their plain "
+        "versions at %d rays and their plain-cylinder twins' keys at %d "
+        "and %d rays, in turns (%s)" % (N_GRAD_TIME, N_GRAD_TIME, N_BENCH,
+                                        card))
+    times, live = {}, {}
+    for name, (table, specs, tabs, mspecs, twin, tspecs) in \
+            phase_cylinders().items():
+        ttabs, tmspecs = phase_cylinder_stack(twin)
+        for n in (N_GRAD_TIME, N_BENCH):
+            big = n == N_BENCH
+            state = phase_bundle_of(PHASE_CYL_HALF)(n, torch.float32,
+                                                    SEED + 1)
+            w = bench_weights(n, torch.float32, SEED + 2)
+            live[(name, n)] = float(trace_merit(table, specs, state)[0])
+            for kname in CYL_KERNELS:
+                kern, plain = cyl_calls(kname, table, specs, tabs, mspecs,
+                                        state, w)
+                tw, _ = cyl_calls(kname, twin, tspecs, ttabs, tmspecs,
+                                  state, w)
+                (k, p, t), (k1, k2, p1, p2, t1, t2) = in_turns(
+                    kern, None if big else plain, tw, 5 if big else 10, 1)
+                times[(kname, name, n)] = (k, t, p)
+                log("%s %s float32 at %d rays: kernel %.4f ms (%.4f, %.4f)"
+                    "%s%s | %s"
+                    % (kname, name, n, k, k1, k2,
+                       twin_note(k, t, t1, t2, "plain-cylinder twin"),
+                       "" if big else " | plain %.4f ms (%.4f, %.4f), "
+                       "plain/kernel %.2fx" % (p, p1, p2, p/k), card))
+            del state, w
+            torch.cuda.empty_cache()
+    return times, live
+
+
+DF32_PHASE_SHORT = {"hybrid achromat": "hybrid", "spectrograph":
+                    "spectrograph"}
+
+
+def df32_phase_entries(launches, worst, times, live, ptxas, sass):
+    """The kernels line's entries of K10-K13 on the phase plans (named
+    "<kernel>_phase"): the phase df32 path's launches (counted from a
+    reset just before it), the errors of phase_df32_phase_check, the
+    times of phase_df32_phase_throughput (the hybrid's fast plan at
+    N_GRAD_TIME rays as `ms`, its plain version's as `plain_ms`, the rest
+    under the lens's short name, exact under "_exact", N_BENCH under
+    "_<n>_rays"), each beside its phase-free twin's and its bound
+    (df32_bound: df32_step_ops counts the phase step's operations), and
+    the hybrid's and spectrograph's path keys' registers and SASS."""
+    entries = []
+    for kname in DF32_NAMES:
+        multi = "multi" in kname
+        entry = {"name": kname + "_phase", "route": "cuda",
+                 "source": "rayopt_tpu_torch/csrc/df32_spec.cuh",
+                 "replaces": DF32_REPLACES[kname],
+                 "launches": launches[kname], "max_abs_err": worst[kname],
+                 "library_ms": None, "rays": N_GRAD_TIME,
+                 "wavelengths": 3 if multi else 1}
+        for lens in DF32_PHASE_TIMED:
+            short = DF32_PHASE_SHORT[lens]
+            for fast in (True, False):
+                plan = "fast" if fast else "exact"
+                phase, twin = df32_phase_twin_plans(lens, fast)
+                pl = phase[1] if multi else [phase[0]]
+                tpl = twin[1] if multi else [twin[0]]
+                for n in (N_GRAD_TIME, N_BENCH):
+                    k, t, p = times[(kname, lens, plan, n)]
+                    nl = live[(lens, n)]*len(pl)
+                    b, by = df32_bound(kname, n, pl, nl)
+                    at = "%s%s%s" % ("" if lens == DF32_PHASE_TIMED[0]
+                                     else short + "_",
+                                     "" if fast else "exact_",
+                                     "" if n == N_GRAD_TIME
+                                     else "%d_rays_" % n)
+                    entry.update({at + "ms": k, at + "twin_ms": t,
+                                  at + "bound_ms": b,
+                                  at + "twin_bound_ms": df32_bound(
+                                      kname, n, tpl, nl)[0]})
+                    if p == p:
+                        entry[at + "plain_ms"] = p
+                    if at == "":
+                        entry["bound_by"] = by
+            key = "%s %s fast clip=False%s" % (
+                DF32_LOOP_KEYS[kname][:3], lens,
+                " path=True" if "merit" not in kname else "")
+            regs, stack, spill = ptxas[key]
+            entry.update({"regs_f32_" + short: regs,
+                          "spill_bytes_f32_" + short: spill,
+                          "sass_instructions_" + short: sass[key][0]})
+        entries.append(entry)
+    return entries
+
+
+def cylinder_entries(sources, launches, worst, times, live, ptxas):
+    """The kernels line's entries of K1-K9 on the phase cylinders'
+    float32 keys (named "<kernel>_phase_cylinder"): the launches of
+    phase_cylinder_path (counted from a reset just before it; K3's two
+    modes share its count), the float32 errors of
+    phase_cylinder_check, the times of
+    phase_cylinder_throughput (the grating cylinder's at N_GRAD_TIME as
+    `ms`/`plain_ms`, the DOE cylinder's under "doe_", N_BENCH under
+    "_<n>_rays") beside the plain-cylinder twins' and the bounds
+    (kernel_bound: phase_row_flops counts a phase cylinder's row), and
+    the keys' registers, stack and spills."""
+    from rayopt_tpu_torch.ops.cuda_trace import doe_width, figure_widths
+    cases = phase_cylinders()
+    tags = {"trace_final": "K1 float32 %s clip=False",
+            "trace_merit": "K2 float32 %s clip=False",
+            "weighted_moments": "K4 float32 %s clip=False",
+            "merit_adjoint": "K5 float32 %s clip=False all rays=True",
+            "trace_multi": "K3 float32 %s merit",
+            "trace_multi_trace": "K3 float32 %s trace",
+            "weighted_moments_multi": "K6 float32 %s clip=False",
+            "merit_adjoint_multi": "K7 float32 %s clip=False all rays=True",
+            "opd_chain": "K8 float32 %s clip=False",
+            "opd_adjoint": "K9 float32 %s clip=False all rays=True"}
+    entries = []
+    for kname in CYL_KERNELS:
+        base = "trace_multi" if kname == "trace_multi_trace" else kname
+        source, replaces = sources[base]
+        entry = {"name": kname + "_phase_cylinder", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": launches[base],
+                 "max_abs_err": worst.get(base, 0.),
+                 "library_ms": None, "rays": N_GRAD_TIME,
+                 "wavelengths": 3 if "multi" in kname else 1}
+        for name, (table, specs, _, mspecs, _, tspecs) in cases.items():
+            pre = "" if name == "grating cylinder" else "doe_"
+            multi = "multi" in kname
+            sp = mspecs if multi else specs
+            kw = dict(widths=figure_widths(table, specs),
+                      nd=doe_width(table, specs))
+            for n in (N_GRAD_TIME, N_BENCH):
+                k, t, p = times[(kname, name, n)]
+                nl = live[(name, n)]*(3 if multi else 1)
+                b, by = kernel_bound(kname, n, torch.float32, sp,
+                                     3 if multi else 1, nl, **kw)
+                at = pre + ("" if n == N_GRAD_TIME else "%d_rays_" % n)
+                entry.update({at + "ms": k, at + "twin_ms": t,
+                              at + "bound_ms": b,
+                              at + "twin_bound_ms": kernel_bound(
+                                  kname, n, torch.float32, tspecs,
+                                  3 if multi else 1, nl)[0]})
+                if p == p:
+                    entry[at + "plain_ms"] = p
+                if at == "":
+                    entry["bound_by"] = by
+            regs, stack, spill = ptxas[tags[kname] % name.replace(" ", "-")]
+            entry.update({pre + "regs_f32": regs,
+                          pre + "stack_bytes_f32": stack,
+                          pre + "spill_bytes_f32": spill})
+        entries.append(entry)
+    return entries
 
 
 def step_breakdown(table, specs, wave, parts):
@@ -5103,17 +6020,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop)/reps
 
 
-def in_turns(kernel, plain=None, twin=None, reps=20):
+def in_turns(kernel, plain=None, twin=None, reps=20, plain_reps=3):
     """Mean ms of kernel, plain and twin on the card, in turns: plain,
     kernel, twin, kernel, twin, plain (NaN for one not given); then each
     run's (kernel, kernel, plain, plain, twin, twin)."""
     nan = float("nan")
-    p1 = cuda_ms(plain, 3) if plain else nan
+    p1 = cuda_ms(plain, plain_reps) if plain else nan
     k1 = cuda_ms(kernel, reps)
     s1 = cuda_ms(twin, reps) if twin else nan
     k2 = cuda_ms(kernel, reps)
     s2 = cuda_ms(twin, reps) if twin else nan
-    p2 = cuda_ms(plain, 3) if plain else nan
+    p2 = cuda_ms(plain, plain_reps) if plain else nan
     return ((k1 + k2)/2, (p1 + p2)/2, (s1 + s2)/2), (k1, k2, p1, p2, s1, s2)
 
 
@@ -5596,55 +6513,88 @@ def df32_timed_plans(lens, fast):
             bundle)
 
 
-def phase_df32_newton_throughput(card):
+def df32_twin_throughput(card, title, twin_name, cases, plain=False):
     """K10 (with the optical path), K12, K11 (with the path) and K13 on
-    the Newton lenses' plans (DF32_TIMED) against the same kernels on
-    their spherical twins' plans, in turns in one call (kernel, twin,
-    kernel, twin), fast and exact, on each lens's bench bundle: the
-    aspheric double Gauss at N_GRAD_TIME and N_BENCH rays, the
-    anamorphic lenses at N_GRAD_TIME (the plain versions are timed on
-    the double Gauss, phase_df32_throughput).  Returns {(kernel, lens,
-    plan, n): (ms, twin ms)} and {(lens, n): live rays of the lens's
-    one-plan trace}."""
+    the plans of `cases` against the same kernels on their twins' plans,
+    fast and exact, in turns in one call (kernel, twin, kernel, twin;
+    with `plain`, at N_GRAD_TIME rays, their plain versions first and
+    last).  `cases`: {lens: (ray counts, plans(fast) -> ((one plan, the
+    K11/K13 plans), the same of the twin), bench bundle function)}.
+    Returns {(kernel, lens, plan, n): (ms, twin ms, plain ms or NaN)}
+    and {(lens, n): live rays of the lens's one-plan trace}."""
     from rayopt_tpu_torch.ops import cuda_df32 as CD
-    log("== K10-K13 on the Newton plans against their spherical twins' "
-        "(%s), in turns (%s)" % (", ".join(DF32_TIMED), card))
-    calls = {"trace_final_df32": lambda p, st: CD.trace_final_df32(
-                 p[0], st, with_path=True),
-             "trace_merit_df32": lambda p, st: CD.trace_merit_df32(p[0], st),
-             "trace_multi_df32": lambda p, st: CD.trace_multi_df32(
-                 p[1], st, with_path=True),
-             "trace_merit_multi_df32": lambda p, st: CD.trace_merit_multi_df32(
-                 p[1], st)}
+    log("== K10-K13 on %s, in turns (%s)" % (title, card))
+    calls = {"trace_final_df32": (
+                 lambda p, st: CD.trace_final_df32(p[0], st, with_path=True),
+                 lambda p, st: CD.trace_final_df32_reference(
+                     p[0], st, with_path=True)),
+             "trace_merit_df32": (
+                 lambda p, st: CD.trace_merit_df32(p[0], st),
+                 lambda p, st: CD.trace_merit_df32_reference(p[0], st)),
+             "trace_multi_df32": (
+                 lambda p, st: CD.trace_multi_df32(p[1], st, with_path=True),
+                 lambda p, st: CD.trace_multi_df32_reference(
+                     p[1], st, with_path=True)),
+             "trace_merit_multi_df32": (
+                 lambda p, st: CD.trace_merit_multi_df32(p[1], st),
+                 lambda p, st: CD.trace_merit_multi_df32_reference(p[1],
+                                                                   st))}
     times, live = {}, {}
-    for lens in DF32_TIMED:
-        sizes = (N_GRAD_TIME, N_BENCH) if lens == "aspheric double Gauss" \
-            else (N_GRAD_TIME,)
+    for lens, (sizes, plans_of, bundle) in cases.items():
         for n in sizes:
-            state = df32_state(df32_timed_plans(lens, True)[2](
-                n, torch.float64, SEED + 1))
+            state = df32_state(bundle(n, torch.float64, SEED + 1))
             for fast in (True, False):
                 plan = "fast" if fast else "exact"
-                newton, twin, _ = df32_timed_plans(lens, fast)
+                mine, twin = plans_of(fast)
                 if fast:
                     live[(lens, n)] = float(CD.trace_merit_df32(
-                        newton[0], state)[0])
-                for name, fn in calls.items():
-                    reps = 3 if n == N_BENCH else 10
-                    k1 = cuda_ms(lambda: fn(newton, state), reps)
-                    t1 = cuda_ms(lambda: fn(twin, state), reps)
-                    k2 = cuda_ms(lambda: fn(newton, state), reps)
-                    t2 = cuda_ms(lambda: fn(twin, state), reps)
-                    k, t = (k1 + k2)/2, (t1 + t2)/2
-                    times[(name, lens, plan, n)] = (k, t)
+                        mine[0], state)[0])
+                for name, (fn, ref) in calls.items():
+                    big = n == N_BENCH
+                    (k, p, t), (k1, k2, p1, p2, t1, t2) = in_turns(
+                        lambda: fn(mine, state),
+                        None if big or not plain else
+                        (lambda: ref(mine, state)),
+                        lambda: fn(twin, state), 3 if big else 10, 1)
+                    times[(name, lens, plan, n)] = (k, t, p)
                     log("%s %s %s plan at %d rays: kernel %.4f ms (%.4f, "
-                        "%.4f) | spherical twin %.4f ms (%.4f, %.4f), "
-                        "kernel/twin %.3fx | %s"
-                        % (name, lens, plan, n, k, k1, k2, t, t1, t2, k/t,
-                           card))
+                        "%.4f)%s%s | %s"
+                        % (name, lens, plan, n, k, k1, k2,
+                           twin_note(k, t, t1, t2, twin_name),
+                           "" if p != p else " | plain %.4f ms (%.4f, %.4f), "
+                           "plain/kernel %.2fx" % (p, p1, p2, p/k), card))
             del state
             torch.cuda.empty_cache()
     return times, live
+
+
+def phase_df32_newton_throughput(card):
+    """df32_twin_throughput on the Newton lenses' plans (DF32_TIMED)
+    against their spherical twins': the aspheric double Gauss at
+    N_GRAD_TIME and N_BENCH rays, the anamorphic lenses at N_GRAD_TIME
+    (the plain versions are timed on the double Gauss,
+    phase_df32_throughput)."""
+    return df32_twin_throughput(
+        card, "the Newton plans against their spherical twins' (%s)"
+        % ", ".join(DF32_TIMED), "spherical twin",
+        {lens: ((N_GRAD_TIME, N_BENCH) if lens == "aspheric double Gauss"
+                else (N_GRAD_TIME,),
+                functools.partial(lambda ln, fast: df32_timed_plans(
+                    ln, fast)[:2], lens), df32_timed_plans(lens, True)[2])
+         for lens in DF32_TIMED})
+
+
+def phase_df32_phase_throughput(card):
+    """df32_twin_throughput on the timed phase lenses' plans
+    (DF32_PHASE_TIMED) against their phase-free twins', at N_GRAD_TIME
+    (with the plain versions) and N_BENCH rays."""
+    return df32_twin_throughput(
+        card, "the phase plans against their phase-free twins' (%s)"
+        % ", ".join(DF32_PHASE_TIMED), "phase-free twin",
+        {lens: ((N_GRAD_TIME, N_BENCH),
+                functools.partial(df32_phase_twin_plans, lens),
+                df32_phase_cases()[lens][2]) for lens in DF32_PHASE_TIMED},
+        plain=True)
 
 
 # the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
@@ -5910,10 +6860,59 @@ def df32_newton_ops(step):
     return seed + iters*rnd + point + sag + 3, normal
 
 
+def df32_phase_ops(step):
+    """float32 operations of a grating or DOE step's phase part
+    (csrc/df32_common.cuh surface_df): the DOE's path term (r^2, Horner
+    over its nd path coefficients, the product and the sum into s), the
+    substrate's normal (a conic cylinder's normal_cyl_df, a biconic's or
+    toroid's df32 normal by df32_newton_ops, the radial one of a curved
+    or figured row; none on a plane), the DOE's kick (r^2, Horner, two
+    products) and the solve (grating_refract_df: on a plane b and the
+    root of 1 - bx^2 - by^2; else 1/|n|^2, the groove vector q and its
+    norm's inverse (a floor's compare counts one) for a grating, b,
+    b.n, |b|^2, Gamma's root, the mirror's select and the new
+    direction)."""
+    o = DF_OPS
+    dv = o["div1"] if step["fast"] else o["div"]
+    sq = o["sqrt1"] if step["fast"] else o["sqrt"]
+    an, doe = step["anam"], step["doe"]
+    nd = len(doe) if doe is not None else 0
+    grat = step["grat"] is not None
+    horner = (nd - 1)*(o["mul"] + o["add"])
+    r2 = 2*o["sqr"] + o["add"]
+    f = r2 + horner + o["mul"] + o["add"] if nd else 0      # the path term
+    figured = bool(step["asp"] or step["asp_odd"])
+    plane = an is None and step["flat"] and not figured
+    if an is not None and an["mode"] in ("cyl_y", "cyl_x"):
+        f += o["sqr"] + 3*o["mul"] + o["add"] + sq + dv
+    elif an is not None:
+        f += df32_newton_ops(step)[1]
+    elif not plane:
+        f += df32_newton_ops(step)[1]
+    if nd:
+        f += r2 + horner + 2*o["mul"] + 2*o["add"]           # the kick
+    mirror = 1 if step["kind"] == 2 else 0
+    if plane:
+        f += (3*o["mul"] + (o["add"] if grat else 0) + 2*o["sqr"]
+              + 2*o["add"] + sq + o["add"] + mirror + o["add"])
+        return f
+    f += 2*o["sqr"] + 2*o["add"] + dv + 3*o["mul"]            # 1/|n|^2, mu u
+    if grat:
+        f += (4*o["mul"] + o["sqr"] + o["add"]                # qx, qy, qz
+              + 3*o["sqr"] + 2*o["add"] + sq + 1 + dv         # 1/|q|
+              + 3*(2*o["mul"] + o["add"]))                    # b += T q
+    f += (4*o["mul"] + 2*o["add"]                             # b.n/|n|^2
+          + 3*o["sqr"] + 2*o["add"]                           # |b|^2
+          + o["sqr"] + 2*o["add"] + o["mul"] + sq             # the root
+          + o["add"] + mirror + 3*o["add"] + 2*o["mul"])      # Gamma, u'
+    return f
+
+
 def df32_step_ops(step, path=False):
     """float32 operations of one surface_df (csrc/df32_common.cuh) for a
     planned step (ops.df32.plan), and of the path's s * n_before; a
-    Newton row's intercept and normal by df32_newton_ops."""
+    Newton row's intercept and normal by df32_newton_ops, a grating or
+    DOE row's phase part by df32_phase_ops."""
     o = DF_OPS
     dv = o["div1"] if step["fast"] else o["div"]
     sq = o["sqrt1"] if step["fast"] else o["sqrt"]
@@ -5944,7 +6943,9 @@ def df32_step_ops(step, path=False):
     f += 3*(o["mul"] + o["add"])                    # the transfer
     if step["clip"] and step["radius"] is not None:
         f += 3
-    if step["kind"] and (newton is not None and not cyl):
+    if step.get("grat") is not None or step.get("doe") is not None:
+        f += df32_phase_ops(step)
+    elif step["kind"] and (newton is not None and not cyl):
         # the generic normal (nx, ny, 1): |N|^2 and u.N, then the
         # refraction or reflection on it
         f += newton[1] + 2*o["sqr"] + 2*o["mul"] + 4*o["add"]
@@ -6093,7 +7094,7 @@ def df32_entries(s, launches, worst, times, live, ptxas, sass, newton):
                 for n in (N_GRAD_TIME, N_BENCH):
                     if (kname, lens, plan, n) not in ntimes:
                         continue
-                    k, t = ntimes[(kname, lens, plan, n)]
+                    k, t, _ = ntimes[(kname, lens, plan, n)]
                     at = "%s%s%s" % (short, sfx, "" if n == N_GRAD_TIME
                                      else "_%d_rays" % n)
                     bound = df32_bound(kname, n, nplans,
@@ -6479,6 +7480,8 @@ def main():
     keys.update(asphere_keys())
     keys.update(anamorphic_keys())
     keys.update(grating_keys())
+    keys.update(df32_phase_keys())
+    keys.update(phase_cylinder_keys())
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -6552,8 +7555,8 @@ def main():
     spec_launches = read_launches()
     log("== launch counts on the spectrograph path: %s" % spec_launches)
     reset_launches()
-    hyb_launches, hyb_steps = phase_hybrid_path(opt_step, glass_step,
-                                                design_step)
+    hyb_launches, hyb_steps, hyb_aimed = phase_hybrid_path(
+        opt_step, glass_step, design_step)
     log("== launch counts on the hybrid achromat path: %s" % hyb_launches)
     phase_kernels = ("trace_final", "trace_merit", "weighted_moments",
                      "merit_adjoint") + multi + opd
@@ -6565,6 +7568,26 @@ def main():
     phase_launches = {k: spec_launches[k] + hyb_launches[k]
                       for k in phase_kernels}
     torch.cuda.empty_cache()
+    dpworst = phase_df32_phase_check()
+    reset_launches()
+    phase_df32_phase_path(hyb_aimed)
+    dp_launches = read_launches()
+    log("== launch counts on the df32 phase path (the hybrid achromat, the "
+        "spectrograph, the kinoform): %s" % dp_launches)
+    if not all(dp_launches[k] for k in DF32_NAMES):
+        raise AssertionError("a kernel of the df32 phase path never "
+                             "launched: %s" % dp_launches)
+    del hyb_aimed
+    torch.cuda.empty_cache()
+    cworst = phase_cylinder_check()
+    reset_launches()
+    phase_cylinder_path()
+    cyl_launches = read_launches()
+    log("== launch counts on the phase cylinder path: %s" % cyl_launches)
+    if not all(cyl_launches[k] for k in CYL_KERNELS
+               if k != "trace_multi_trace"):
+        raise AssertionError("a kernel of the phase cylinder path never "
+                             "launched: %s" % cyl_launches)
     ptimes = phase_grating_throughput(card)
     pmtimes, pmlive = phase_multi_throughput_grating(card)
     ntimes, nlive = phase_anamorphic_throughput(card)
@@ -6575,6 +7598,8 @@ def main():
     otimes, olive = phase_opd_throughput(s, table, specs, card)
     dtimes, dlive = phase_df32_throughput(s, card)
     dntimes, dnlive = phase_df32_newton_throughput(card)
+    dptimes, dplive = phase_df32_phase_throughput(card)
+    ctimes, clive = phase_cylinder_throughput(card)
     _, atab, aspecs, _ = asphere_cases()["aspheric double Gauss"]
     atimes = phase_throughput(atab, aspecs, card, N_GRAD_TIME,
                               (table, specs), N_BENCH,
@@ -6752,6 +7777,10 @@ def main():
         {"achromatization": glass_step, "design": design_step})
     kernels += df32_entries(s, launches, worst, dtimes, dlive, ptxas, sass,
                             (dntimes, dnlive, newton_launches))
+    kernels += df32_phase_entries(dp_launches, dpworst, dptimes, dplive,
+                                  ptxas, sass)
+    kernels += cylinder_entries(sources, cyl_launches, cworst, ctimes,
+                                clive, ptxas)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())
     log("== keys built at first use, outside phase_spec_build: %d %s"

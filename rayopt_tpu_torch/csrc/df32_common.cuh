@@ -35,49 +35,70 @@ constexpr int W_RAD = 32;  // squared aperture radius (one float)
 constexpr int W_NB = 33;   // n_before
 constexpr int W_FIG = DW;  // a figure's words, by its row kind:
 // an aspheric row: its even, then odd coefficients (pairs);
-// a conic cylinder: c1, 1 + k, (1 + k) c1 (pairs);
+// a conic cylinder: c1, 1 + k, (1 + k) c1 (pairs), and on a phase row
+// (1 + k) c1^2 (a pair, its normal's);
 // a biconic or toroid: cx, cy, cr, (1 + kx) cx^2, (1 + ky) cy^2 (pairs),
 // the seed's float32 kx and ky, then the even and odd coefficients
-// (pairs; the seed reads their hi words, and those of cx, cy and cr)
-constexpr int A_C1 = 0, A_K1 = 2, A_K1C = 4, CYL_WORDS = 6;
+// (pairs; the seed reads their hi words, and those of cx, cy and cr);
+// then a phase row's words (phase_at): grating_dy (a pair, G_GRATING),
+// the DOE's kick coefficients 2 (i + 1) a_i and its path coefficients
+// a_i n_after / n_before (nd pairs each, G_DOE)
+constexpr int A_C1 = 0, A_K1 = 2, A_K1C = 4, A_BC = 6, CYL_WORDS = 6;
 constexpr int A_CX = 0, A_CY = 2, A_CR = 4, A_BXC = 6, A_BYC = 8, A_KX = 10,
               A_KY = 11, A_COEF = 12;
 
-// flag bits: keep in sync with cuda_df32.py (G_*)
-constexpr int G_KIND = 3;          // 0 pass, 1 refract, 2 mirror
-constexpr int G_FLAT = 1 << 2;
-constexpr int G_CONIC = 1 << 3;
-constexpr int G_ALTERNATE = 1 << 4;
-constexpr int G_OFF_AXIS = 1 << 5;
-constexpr int G_PERM = 1 << 6;     // exact signed-permutation fold
-constexpr int G_ROT = 1 << 7;      // general df32 rotation
-constexpr int G_CLIP = 1 << 8;
-constexpr int G_FAST = 1 << 9;
-constexpr int G_PERM_SHIFT = 10;   // 3 bits a row: column (2), negate (1)
-constexpr int G_FIG_SHIFT = 19;    // 3 bits: the row kind (FIG_*)
-constexpr int G_NA_SHIFT = 22;     // 4 bits: even coefficients
-constexpr int G_NO_SHIFT = 26;     // 4 bits: odd coefficients
-constexpr int G_CYL_CONIC = 1 << 30;  // a conic cylinder: |N| is not 1
+// flag bits of a step's 64-bit flag word: keep in sync with cuda_df32.py
+// (G_*)
+using Flag = long long;
+constexpr Flag G_KIND = 3;          // 0 pass, 1 refract, 2 mirror
+constexpr Flag G_FLAT = 1LL << 2;
+constexpr Flag G_CONIC = 1LL << 3;
+constexpr Flag G_ALTERNATE = 1LL << 4;
+constexpr Flag G_OFF_AXIS = 1LL << 5;
+constexpr Flag G_PERM = 1LL << 6;   // exact signed-permutation fold
+constexpr Flag G_ROT = 1LL << 7;    // general df32 rotation
+constexpr Flag G_CLIP = 1LL << 8;
+constexpr Flag G_FAST = 1LL << 9;
+constexpr int G_PERM_SHIFT = 10;    // 3 bits a row: column (2), negate (1)
+constexpr int G_FIG_SHIFT = 19;     // 3 bits: the row kind (FIG_*)
+constexpr int G_NA_SHIFT = 22;      // 4 bits: even coefficients
+constexpr int G_NO_SHIFT = 26;      // 4 bits: odd coefficients
+constexpr Flag G_CYL_CONIC = 1LL << 30;  // a conic cylinder: |N| is not 1
+constexpr Flag G_GRATING = 1LL << 31;    // a linear grating: grating_dy
+constexpr Flag G_DOE = 1LL << 32;        // a radial diffractive phase
+constexpr int G_ND_SHIFT = 33;           // 4 bits: its coefficients
+constexpr Flag G_PHASE = G_GRATING | G_DOE;
 constexpr int FIG_NONE = 0, FIG_RADIAL = 1, FIG_CYL_Y = 2, FIG_CYL_X = 3,
               FIG_BICONIC = 4, FIG_TOROID = 5;
 
-__host__ __device__ constexpr int fig_of(int fl) {
-  return (fl >> G_FIG_SHIFT) & 7;
+__host__ __device__ constexpr int fig_of(Flag fl) {
+  return int((fl >> G_FIG_SHIFT) & 7);
 }
-__host__ __device__ constexpr int na_of(int fl) {
-  return (fl >> G_NA_SHIFT) & 15;
+__host__ __device__ constexpr int na_of(Flag fl) {
+  return int((fl >> G_NA_SHIFT) & 15);
 }
-__host__ __device__ constexpr int no_of(int fl) {
-  return (fl >> G_NO_SHIFT) & 15;
+__host__ __device__ constexpr int no_of(Flag fl) {
+  return int((fl >> G_NO_SHIFT) & 15);
+}
+__host__ __device__ constexpr int nd_of(Flag fl) {
+  return int((fl >> G_ND_SHIFT) & 15);
 }
 
-// The words of a step: DW, and its figure's (cuda_df32.step_words).
-__host__ __device__ constexpr int step_words(int fl) {
+// The first word of a step's phase words: DW and its figure's.
+__host__ __device__ constexpr int phase_at(Flag fl) {
   const int fig = fig_of(fl), coef = 2 * (na_of(fl) + no_of(fl));
   return DW + (fig == FIG_RADIAL ? coef
-               : fig == FIG_CYL_Y || fig == FIG_CYL_X ? CYL_WORDS
+               : fig == FIG_CYL_Y || fig == FIG_CYL_X
+                   ? CYL_WORDS + ((fl & G_PHASE) ? 2 : 0)
                : fig == FIG_BICONIC || fig == FIG_TOROID ? A_COEF + coef
                : 0);
+}
+
+// The words of a step: DW, its figure's and its phase words
+// (cuda_df32.step_words).
+__host__ __device__ constexpr int step_words(Flag fl) {
+  return phase_at(fl) + ((fl & G_GRATING) ? 2 : 0) +
+         ((fl & G_DOE) ? 4 * nd_of(fl) : 0);
 }
 
 // the Newton's rounds and its residual test (ops/df32.py)
@@ -197,11 +218,11 @@ __device__ __forceinline__ df pick(int col, df x, df y, df z) {
 }
 
 // v <- R v for the step's signed permutation (exact: swaps and flips)
-__device__ __forceinline__ void perm_apply(int fl, df& x, df& y, df& z) {
+__device__ __forceinline__ void perm_apply(Flag fl, df& x, df& y, df& z) {
   df o[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    const int code = (fl >> (G_PERM_SHIFT + 3 * r)) & 7;
+    const int code = int((fl >> (G_PERM_SHIFT + 3 * r)) & 7);
     const df v = pick(code & 3, x, y, z);
     o[r] = (code & 4) ? neg(v) : v;
   }
@@ -209,11 +230,11 @@ __device__ __forceinline__ void perm_apply(int fl, df& x, df& y, df& z) {
 }
 
 // v <- R^T v: component r of v lands, signed, in its row's column
-__device__ __forceinline__ void perm_apply_t(int fl, df& x, df& y, df& z) {
+__device__ __forceinline__ void perm_apply_t(Flag fl, df& x, df& y, df& z) {
   const df v[3] = {x, y, z};
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    const int code = (fl >> (G_PERM_SHIFT + 3 * r)) & 7;
+    const int code = int((fl >> (G_PERM_SHIFT + 3 * r)) & 7);
     const df s = (code & 4) ? neg(v[r]) : v[r];
     const int col = code & 3;
     if (col == 0) x = s;
@@ -239,7 +260,7 @@ __device__ __forceinline__ void rot_apply_df(W w, df& x, df& y, df& z) {
 
 // v <- the step's frame change (R v) or its inverse (R^T v, T = true)
 template <bool T, typename W>
-__device__ __forceinline__ void frame_apply(W w, int fl, df& x, df& y,
+__device__ __forceinline__ void frame_apply(W w, Flag fl, df& x, df& y,
                                             df& z) {
   if (fl & G_PERM) {
     if (T) perm_apply_t(fl, x, y, z);
@@ -693,19 +714,102 @@ __device__ __forceinline__ df polish_radial_df(W w, df x, df y, df z, df ux,
                                          add(z, mul(s, uz)), c, k1, fast));
 }
 
+// -- the phase rows (ops/df32._phase_df) -------------------------------------
+
+// sum c_i r2^i by Horner from the last of N pairs at w[at]
+// (_poly_horner_df)
+template <int N, typename W>
+__device__ __forceinline__ df horner_df(W w, int at, df r2) {
+  df acc = ld(w, at + 2 * (N - 1));
+#pragma unroll
+  for (int i = N - 2; i >= 0; --i) acc = add(mul(acc, r2), ld(w, at + 2 * i));
+  return acc;
+}
+
+// A conic cylinder's normal component in its curved axis: w e, e =
+// -c1 / sqrt(1 - (1 + k) c1^2 w^2) (_normal_cyl_df)
+template <typename W>
+__device__ __forceinline__ df normal_cyl_df(W w, df wv, bool fast) {
+  const df one = {1.f, 0.f};
+  const df e = neg(dv(ld(w, W_FIG + A_C1),
+                      sq(sub(one, mul(ld(w, W_FIG + A_BC), sqr(wv))), fast),
+                      fast));
+  return mul(wv, e);
+}
+
+// The grating/phase solve (_refract_grating_df): b = mu u + T q + s, q
+// the y axis projected into the tangent plane of the normal (gx, gy, 1)
+// and normalised (PLANE: the y axis), s the DOE's kick (KICK), then u' =
+// b + Gamma n; a mirror (KIND 2) takes the root that flips the normal
+// component.  An evanescent order is NaN.
+template <int KIND, bool PLANE, bool GRAT, bool KICK>
+__device__ __forceinline__ void grating_refract_df(df mu, df gdy, df gx,
+                                                   df gy, df kx, df ky,
+                                                   bool fast, df& ux, df& uy,
+                                                   df& uz) {
+  const df one = {1.f, 0.f};
+  if constexpr (PLANE) {
+    df bx = mul(mu, ux);
+    df by = GRAT ? add(mul(mu, uy), gdy) : mul(mu, uy);
+    if constexpr (KICK) {
+      bx = add(bx, kx);
+      by = add(by, ky);
+    }
+    const df bz = mul(mu, uz);
+    const df root = sq(sub(sub(one, sqr(bx)), sqr(by)), fast);
+    df gam;
+    if constexpr (KIND == 2)
+      gam = sub(neg(bz), bz.hi >= 0.f ? root : neg(root));
+    else
+      gam = sub(root, bz);
+    ux = bx;
+    uy = by;
+    uz = add(bz, gam);
+  } else {
+    const df inv_nn = dv(one, add(add(sqr(gx), sqr(gy)), one), fast);
+    df bx = mul(mu, ux), by = mul(mu, uy), bz = mul(mu, uz);
+    if constexpr (GRAT) {
+      const df qx = neg(mul(mul(gy, gx), inv_nn));
+      const df qy = sub(one, mul(sqr(gy), inv_nn));
+      const df qz = neg(mul(gy, inv_nn));
+      const df qinv = dv(
+          one, max_tiny(sq(add(add(sqr(qx), sqr(qy)), sqr(qz)), fast)), fast);
+      bx = add(bx, mul(gdy, mul(qx, qinv)));
+      by = add(by, mul(gdy, mul(qy, qinv)));
+      bz = add(bz, mul(gdy, mul(qz, qinv)));
+    }
+    if constexpr (KICK) {
+      bx = add(bx, kx);
+      by = add(by, ky);
+    }
+    const df bn = mul(add(add(mul(bx, gx), mul(by, gy)), bz), inv_nn);
+    const df bb = add(add(sqr(bx), sqr(by)), sqr(bz));
+    const df root = sq(sub(sqr(bn), mul(sub(bb, one), inv_nn)), fast);
+    df gam;
+    if constexpr (KIND == 2)
+      gam = sub(neg(bn), bn.hi >= 0.f ? root : neg(root));
+    else
+      gam = sub(root, bn);
+    ux = add(bx, mul(gam, gx));
+    uy = add(by, mul(gam, gy));
+    uz = add(bz, gam);
+  }
+}
+
 // -- one step -----------------------------------------------------------------
 
 // One transfer-intercept-refract step (ops/df32._surface_df): state in
-// and out in the running frame, s the intercept distance.  The step's
-// flags arrive as std::integral_constant<int, F> (df32_spec.cuh): every
-// `fl & G_*` below, the permutation codes, the row kind, the coefficient
-// counts and the fast/exact choice are constants and the branches not
-// taken fold away.  The Newton rounds stay rolled loops.
+// and out in the running frame, s the intercept distance (a DOE row's
+// with its phase term).  The step's flags arrive as
+// std::integral_constant<Flag, F> (df32_spec.cuh): every `fl & G_*`
+// below, the permutation codes, the row kind, the coefficient counts and
+// the fast/exact choice are constants and the branches not taken fold
+// away.  The Newton rounds stay rolled loops.
 template <typename Flags, typename W>
 __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
                                            df& z, df& ux, df& uy, df& uz,
                                            df& s) {
-  constexpr int FL = Flags::value;
+  constexpr Flag FL = Flags::value;
   constexpr int FIG = fig_of(FL), NA = na_of(FL), NO = no_of(FL);
   constexpr bool fast = FL & G_FAST;
   constexpr bool flat = FL & G_FLAT;
@@ -772,8 +876,49 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
       ux = uy = uz = df{nan, nan};
     }
   }
-  constexpr int kind = FL & G_KIND;
-  if constexpr (kind != 0) {
+  constexpr int kind = int(FL & G_KIND);
+  constexpr bool grating = (FL & G_GRATING) != 0;
+  constexpr bool doe = (FL & G_DOE) != 0;
+  constexpr int PH = phase_at(FL), ND = nd_of(FL);
+  if constexpr (doe) {
+    // the DOE's imprinted phase is optical path: psi(r2) n_after /
+    // n_before folded into the length, which the caller scales by
+    // n_before
+    const df r2p = add(sqr(x), sqr(y));
+    s = add(s, mul(horner_df<ND>(w, PH + (grating ? 2 : 0) + 2 * ND, r2p),
+                   r2p));
+  }
+  if constexpr (grating || doe) {
+    // the substrate's normal (gx, gy, 1): a cylinder's in its curved
+    // axis, a biconic's or toroid's, the radial one of a curved or
+    // figured row; none on a plane.  Before the passthrough: a grating
+    // row in air still diffracts.
+    constexpr bool plane = FIG == FIG_NONE && flat;
+    const df zero = {0.f, 0.f};
+    df gx = zero, gy = zero;
+    if constexpr (FIG == FIG_CYL_Y) {
+      gy = normal_cyl_df(w, y, fast);
+    } else if constexpr (FIG == FIG_CYL_X) {
+      gx = normal_cyl_df(w, x, fast);
+    } else if constexpr (newton) {
+      normal_anam_df<FIG, NA, NO>(w, x, y, fast, gx, gy);
+    } else if constexpr (!plane) {
+      const df e = normal_radial_df<NA, NO>(w, x, y, c,
+                                            conic ? ld(w, W_K1) : one, fast);
+      gx = mul(x, e);
+      gy = mul(y, e);
+    }
+    df kx = zero, ky = zero;
+    if constexpr (doe) {
+      const df ek = horner_df<ND>(w, PH + (grating ? 2 : 0),
+                                  add(sqr(x), sqr(y)));
+      kx = mul(ek, x);
+      ky = mul(ek, y);
+    }
+    grating_refract_df<kind, plane, grating, doe>(
+        ld(w, W_MU), grating ? ld(w, PH) : zero, gx, gy, kx, ky, fast, ux,
+        uy, uz);
+  } else if constexpr (kind != 0) {
     // the normal N = (nx, ny, nzv): a component absent (has_* false) is
     // zero, nzv absent is 1, and unit says |N|^2 == 1 exactly
     df nx, ny, nzv, dot, nn;

@@ -1,17 +1,18 @@
 // The df32 ("double-single") parity-grade trace and spot-moment merit
 // for NVIDIA Hopper (sm_90a), compiled per plan key: the trace K10 (one
 // plan) and K11 (one plan a wavelength), the merit K12 (one plan) and
-// K13.  A key is the distinct flag tuples of its plans (one flag word a
-// step: kind, flat, conic, alternate, off-axis, the signed-permutation
-// codes, rotation, clip and fast, and a Newton row's kind -- aspheric,
-// conic cylinder in y or x, biconic, toroid -- with its even and odd
-// coefficient counts, cuda_df32._step_words), which tuple each plan
-// takes, the optical path (K10/K11), where the chain reads the plan
+// K13.  A key is the distinct flag tuples of its plans (one 64-bit flag
+// word a step: kind, flat, conic, alternate, off-axis, the
+// signed-permutation codes, rotation, clip and fast, a Newton row's kind
+// -- aspheric, conic cylinder in y or x, biconic, toroid -- with its even
+// and odd coefficient counts, and a phase row's grating and DOE bits with
+// the DOE's coefficient count, cuda_df32._step_words), which tuple each
+// plan takes, the optical path (K10/K11), where the chain reads the plan
 // words, the block size and the launch bound.  The plan words themselves
-// (curvature, mu, offsets, rotation, coefficients, ...) stay run-time
-// data: one build serves every wavelength of a table and every change of
-// value that keeps the flags.  A step's words follow from its flags
-// (step_words): DW, then its figure's.
+// (curvature, mu, offsets, rotation, coefficients, grating term, ...)
+// stay run-time data: one build serves every wavelength of a table and
+// every change of value that keeps the flags.  A step's words follow from
+// its flags (step_words): DW, then its figure's, then its phase words.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K10  rayopt_tpu/ops/df32.py  pallas_trace_df32             (kernel :1094)
@@ -97,26 +98,26 @@
 
 namespace {
 
-// One flag tuple: a step's flag word a step.
-template <int... F>
+// One flag tuple: a step's 64-bit flag word a step.
+template <Flag... F>
 struct Plan {
   static constexpr int steps = sizeof...(F);
 };
 
-template <int... F>
-__host__ __device__ constexpr int step_flags(Plan<F...>, int j) {
-  constexpr int f[] = {F...};
+template <Flag... F>
+__host__ __device__ constexpr Flag step_flags(Plan<F...>, int j) {
+  constexpr Flag f[] = {F...};
   return f[j];
 }
 
 template <class P, int J>
-using StepFlags = std::integral_constant<int, step_flags(P{}, J)>;
+using StepFlags = std::integral_constant<Flag, step_flags(P{}, J)>;
 
 // The first word of step j: the words of the steps before it, which
 // follow from their flags (step_words).
-template <int... F>
+template <Flag... F>
 __host__ __device__ constexpr int step_offset(Plan<F...>, int j) {
-  constexpr int f[] = {F...};
+  constexpr Flag f[] = {F...};
   int off = 0;
   for (int i = 0; i < j; ++i) off += step_words(f[i]);
   return off;
@@ -201,7 +202,7 @@ __device__ __forceinline__ void trace_plan(W words, Rays& r, df& tacc) {
     surface_df(w, StepFlags<P, j>{}, r.x, r.y, r.z, r.ux, r.uy, r.uz, s);
     if (PATH) tacc = add(tacc, mul(s, ld(w, W_NB)));
   });
-  constexpr int last = step_flags(P{}, P::steps - 1);
+  constexpr Flag last = step_flags(P{}, P::steps - 1);
   constexpr int at = step_offset(P{}, P::steps - 1);
   const W w = words + at;
   frame_apply<false>(w, last, r.x, r.y, r.z);

@@ -23,15 +23,16 @@
 // defines RAYOPT_N_ANAM, so that a row grows by curvature_dx and conic_dx
 // and the adjoints' slots by their cotangents).  Every kernel takes the
 // phase rows too -- a linear grating or a radial diffractive phase on
-// any substrate but a cylinder, by the generalized Spencer & Murty
-// solve, a DOE's imprinted phase psi(r2) n_after added to the optical
+// any substrate (on a cylinder: its closed-form intercept and the normal
+// of the biconic or toroid that made it), by the generalized Spencer &
+// Murty solve, a DOE's imprinted phase psi(r2) n_after added to the optical
 // path; K5, K7 and K9 their reverse by hand, K9's with the path term's
 // cotangent; the key defines RAYOPT_N_GRAT and RAYOPT_N_DOE, so that a
 // row grows by grating_dy and by n_after and the DOE coefficients, the
 // adjoints' slots by their cotangents (K9's by n_after's too).  K3 and
 // K6 stage each table's own phase words; K7 reduces them per table.
-// Only a phase row on a cylinder (ROADMAP Queue 1 item 9.4, part three)
-// and the freeform rows (item 9.5) are refused, by every key.
+// Only the freeform rows (ROADMAP Queue 1 item 9.5) are refused, by
+// every key.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)

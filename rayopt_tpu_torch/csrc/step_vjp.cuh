@@ -749,7 +749,12 @@ __device__ __forceinline__ void toroid_normal_vjp(T x, T y, const Anam<T>& a,
 // reverses its closed form in its curved coordinate and its refraction
 // by refraction_vjp on the normal with a zero flat-axis component; a
 // biconic or toroid refracts by its (gx, gy, 1) normal, then its Newton
-// root is differentiated implicitly, dF/dp scaled by -gt / F_s.  With
+// root is differentiated implicitly, dF/dp scaled by -gt / F_s.  A
+// grating or DOE on a cylinder (F_BICONIC or F_TOROID beside F_CYL_*)
+// reverses the phase solve on the normal of the biconic or toroid that
+// made it (with the figure of the key's widths), then the cylinder's
+// closed form; its (C, K) and the normal's parameters both land on the
+// row's c, k, curvature_dx and conic_dx.  With
 // PATH (K9) the row's optical path t * n_before adds ct_path * n_before
 // to gt before the intercept's reverse (the implicit step's or the
 // closed form's), and n_before takes ct_path * t.  pg: out, without PATH
@@ -767,9 +772,12 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
   constexpr int kind = (fl >> KIND_SHIFT) & 3;
   constexpr int cyl = (fl & F_CYL_Y) ? 1 : ((fl & F_CYL_X) ? 2 : 0);
   constexpr bool toroid = (fl & F_TOROID) != 0;
-  // a biconic's or toroid's Newton reads every coefficient of the key's
-  // widths, figured or not (surface_step)
-  constexpr bool fig = !cyl && N_ASP + N_ODD > 0;
+  // the normal of a biconic or toroid: a Newton row's, a phase
+  // cylinder's (surface_step)
+  constexpr bool anam_n = (fl & F_ANAM_NEWTON) != 0;
+  // a biconic's or toroid's Newton and normal read every coefficient of
+  // the key's widths, figured or not (surface_step)
+  constexpr bool fig = anam_n && N_ASP + N_ODD > 0;
   static_assert(!cyl || !(fl & F_FIGURED),
                 "a cylinder row has no aspheric figure");
   const T c = p[P_C];
@@ -796,7 +804,7 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
   const T w = cyl == 1 ? y : x;
   const T uw = cyl == 1 ? uy : ux;
   Anam<T> an{};
-  if (!cyl) an = load_anam<toroid>(p, c, k);
+  if (anam_n) an = load_anam<toroid>(p, c, k);
   Figure<T> fg{};
   if constexpr (fig) fg = load_figure<T>(p);
   FigureGrad<T> gf;
@@ -830,12 +838,12 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     rot_apply(p + P_ROT, gvx, gvy, gvz);
   }
   T gmu = T(0), gux, guy, guz;
-  // the figure's cotangents: a cylinder's (C, K), a biconic's (cx, kx,
-  // cy, ky), a toroid's (cr, cy, ky)
+  // the figure's cotangents: a biconic's (cx, kx, cy, ky), a toroid's
+  // (cr, cy, ky), and a cylinder's (C, K)
   T gp[4] = {T(0), T(0), T(0), T(0)};
+  T gck[2] = {T(0), T(0)};
   // ---- reverse: refraction ----
   if constexpr ((fl & F_PHASE) != 0) {
-    static_assert(!cyl, "a cylinder takes no phase row");
     // the phase solve on the biconic's or toroid's normal
     constexpr bool doe = (fl & F_DOE) != 0;
     Doe<T> dc{};
@@ -868,8 +876,8 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
                    cyl == 1 ? nw : T(0), nz, gvx, gvy, gvz, gux, guy, guz,
                    gnx, gny, gnz, gmu);
     const T gnw = cyl == 1 ? gny : gnx;
-    gp[1] = gp[1] - cc * z1 * gnz;
-    gp[0] = gp[0] - w1 * gnw - (T(1) + kk) * z1 * gnz;
+    gck[1] = gck[1] - cc * z1 * gnz;
+    gck[0] = gck[0] - w1 * gnw - (T(1) + kk) * z1 * gnz;
     if (cyl == 1) {
       gy1 = gy1 - cc * gnw;
     } else {
@@ -917,7 +925,7 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     gd = gd + T(2) * d * gdisc;
     ge = ge - f * gdisc;
     gf0 = gf0 - e * gdisc;
-    gp[0] = gp[0] + yy * gf0 + uu * ge + uyd * gd;
+    gck[0] = gck[0] + yy * gf0 + uu * ge + uyd * gd;
     const T gyy = cc * gf0;
     const T guyd = cc * gd;
     const T guu = cc * ge;
@@ -925,7 +933,7 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     guz = guz - gd + k1 * z * guyd + T(2) * k1 * uz * guu;
     const T gw = T(2) * w * gyy + uw * guyd;
     const T guw = w * guyd + T(2) * uw * guu;
-    gp[1] = gp[1] + z * z * gyy + uz * uz * guu + uz * z * guyd;
+    gck[1] = gck[1] + z * z * gyy + uz * uz * guu + uz * z * guyd;
     if (cyl == 1) {
       gy = gy + gw;
       guy = guy + guw;
@@ -958,10 +966,23 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
   // curvature_dx and conic_dx after them
   constexpr int q0 = PATH ? OPD_SLOTS : SLOTS;
   constexpr int qd = q0 + N_ASP + N_ODD;
-  if (cyl == 1) {
-    pg[0] = gp[0]; pg[1] = gp[1]; pg[qd] = T(0); pg[qd + 1] = T(0);
+  if constexpr (cyl && anam_n) {
+    // a phase cylinder: (C, K) is (c, k) in y, (c + cdx, k + kdx) in x;
+    // the normal's as a toroid's (cr = c + cdx) or a biconic's
+    if constexpr (toroid) {
+      pg[0] = gck[0] + (gp[0] + gp[1]); pg[1] = gck[1] + gp[2];
+      pg[qd] = gp[0]; pg[qd + 1] = T(0);
+    } else if constexpr (cyl == 1) {
+      pg[0] = gck[0] + (gp[0] + gp[2]); pg[1] = gck[1] + (gp[1] + gp[3]);
+      pg[qd] = gp[0]; pg[qd + 1] = gp[1];
+    } else {
+      pg[0] = gck[0] + (gp[0] + gp[2]); pg[1] = gck[1] + (gp[1] + gp[3]);
+      pg[qd] = gck[0] + gp[0]; pg[qd + 1] = gck[1] + gp[1];
+    }
+  } else if (cyl == 1) {
+    pg[0] = gck[0]; pg[1] = gck[1]; pg[qd] = T(0); pg[qd + 1] = T(0);
   } else if (cyl == 2) {
-    pg[0] = gp[0]; pg[1] = gp[1]; pg[qd] = gp[0]; pg[qd + 1] = gp[1];
+    pg[0] = gck[0]; pg[1] = gck[1]; pg[qd] = gck[0]; pg[qd + 1] = gck[1];
   } else if (toroid) {
     pg[0] = gp[0] + gp[1]; pg[1] = gp[2];
     pg[qd] = gp[0]; pg[qd + 1] = T(0);

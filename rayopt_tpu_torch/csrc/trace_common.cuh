@@ -8,8 +8,11 @@
 // anamorphic rows: a conic cylinder in closed form, `cyl_intercept`, a
 // biconic or toroid, with or without an aspheric figure, by the seeded
 // Newton, `anam_intercept`; and the phase rows: a linear grating or a
-// radial diffractive phase on any of these substrates but a cylinder,
-// by the generalized Spencer & Murty solve, `grating_refract`), the
+// radial diffractive phase on any of these substrates, by the
+// generalized Spencer & Murty solve, `grating_refract`; on a cylinder
+// with the closed-form intercept and the normal of the biconic or toroid
+// that made it, whose flag its row word sets beside F_CYL_Y or F_CYL_X),
+// the
 // compile-time loop and the last block of a fused grid-wide sum.  Each
 // translation unit that includes it gets its own internal copies.
 
@@ -85,7 +88,8 @@ constexpr int KIND_SHIFT = 6;  // 2 bits: 0 pass, 1 refract, 2 mirror
 constexpr int F_ASPHERIC = 256;  // even figure: its slopes in the normal
 constexpr int F_ODD = 512;       // odd figure: its slopes in the normal
 constexpr int F_FIGURED = F_ASPHERIC | F_ODD;  // the seeded Newton intercept
-// the anamorphic rows, one of them a row (an anamorphic key: N_ANAM = 2)
+// the anamorphic rows, one of them a row (an anamorphic key: N_ANAM = 2;
+// a phase row on a cylinder sets F_BICONIC or F_TOROID beside F_CYL_*)
 constexpr int F_CYL_Y = 1024;    // conic cylinder curved in y: c, k
 constexpr int F_CYL_X = 2048;    // curved in x: c + cdx, k + kdx
 constexpr int F_BICONIC = 4096;  // (cx, kx, cy, ky) by the seeded Newton
@@ -669,8 +673,9 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
                 "a grating row needs the key's grating_dy");
   static_assert(!(Flags::value & F_DOE) || N_DOE > 0,
                 "a DOE row needs the key's DOE coefficients");
-  static_assert(!(Flags::value & F_PHASE) || !(Flags::value & F_CYL),
-                "no key traces a grating or DOE on a cylinder");
+  static_assert(!(Flags::value & F_CYL) || !(Flags::value & F_ANAM_NEWTON) ||
+                    (Flags::value & F_PHASE),
+                "only a phase row marks its cylinder's origin");
   if (fl & F_OFF_AXIS) {
     x = x - p[P_OFF];
     y = y - p[P_OFF + 1];
@@ -702,8 +707,8 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
     kk = k + p[P_KDX];
   }
   const T sg = (fl & F_ALTERNATE) ? T(-1) : T(1);
-  // intercept_spec, a cylinder's closed form, or the seeded Newton of a
-  // figured, biconic or toroidal row
+  // intercept_spec, a cylinder's closed form (a phase cylinder's too),
+  // or the seeded Newton of a figured, biconic or toroidal row
   T t;
   if (fl & F_CYL_Y) {
     t = cyl_intercept(y, z, uy, uz, cc, kk, sg);
@@ -766,8 +771,9 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   // refract_spec
   const int kind = (fl >> KIND_SHIFT) & 3;
   if constexpr ((Flags::value & F_PHASE) != 0) {
-    // the substrate's normal by its figure, then the grating/phase solve;
-    // before the passthrough: a grating row with mu == 1 still diffracts
+    // the substrate's normal by its figure (a cylinder's by the biconic or
+    // toroid that made it), then the grating/phase solve; before the
+    // passthrough: a grating row with mu == 1 still diffracts
     T gx, gy;
     if constexpr ((Flags::value & F_ANAM_NEWTON) != 0) {
       anam_normal<toroid, anam_fig>(x1, y1, an, fg, gx, gy);

@@ -22,8 +22,9 @@ tuples, the path, where the chain reads the plan words, the block and
 launch bound; K10 and K12 are the keys of one plan) at first use, and
 launched on PyTorch's current stream through ctypes.  The plan words
 are packed step after step (pack_plan: DW words a step, then a Newton
-row's figure, whose row kind and coefficient counts its flag word
-carries: step_words) and passed from the host as kernel parameters,
+row's figure and a grating or DOE row's phase words, whose row kind,
+phase bits and coefficient counts its 64-bit flag word carries:
+step_words) and passed from the host as kernel parameters,
 with no upload; only a single plan too long for the parameters is
 uploaded, once a call, as device words.  A plan list whose words pass
 the parameter limit is launched in balanced runs that fit
@@ -47,7 +48,7 @@ DW = 36              # the words of a step without a figure
 W_C, W_MU, W_DZ, W_K1, W_K1C, W_DXY, W_ROT, W_RAD, W_NB = (
     0, 2, 4, 6, 8, 10, 14, 32, 33)
 W_FIG = DW           # a figure's words, by its row kind (step_words)
-A_C1, A_K1, A_K1C, CYL_WORDS = 0, 2, 4, 6
+A_C1, A_K1, A_K1C, A_BC, CYL_WORDS = 0, 2, 4, 6, 6
 A_CX, A_CY, A_CR, A_BXC, A_BYC, A_KX, A_KY, A_COEF = (0, 2, 4, 6, 8, 10,
                                                       11, 12)
 G_FLAT, G_CONIC, G_ALTERNATE, G_OFF_AXIS = 1 << 2, 1 << 3, 1 << 4, 1 << 5
@@ -55,8 +56,11 @@ G_PERM, G_ROT, G_CLIP, G_FAST, G_PERM_SHIFT = (1 << 6, 1 << 7, 1 << 8,
                                                1 << 9, 10)
 G_FIG_SHIFT, G_NA_SHIFT, G_NO_SHIFT = 19, 22, 26
 G_CYL_CONIC = 1 << 30    # a conic cylinder: |N| is not 1
+# a phase row (a 64-bit flag word): a linear grating, a radial
+# diffractive phase (DOE) and its coefficient count
+G_GRATING, G_DOE, G_ND_SHIFT = 1 << 31, 1 << 32, 33
 FIG_RADIAL, FIG_CYL_Y, FIG_CYL_X, FIG_BICONIC, FIG_TOROID = 1, 2, 3, 4, 5
-MAX_COEFFS = 15          # even (or odd) coefficients a flag word counts
+MAX_COEFFS = 15          # even, odd (or DOE) coefficients a flag word counts
 _FIGS = {"cyl_y": FIG_CYL_Y, "cyl_x": FIG_CYL_X, "biconic": FIG_BICONIC,
          "toroid": FIG_TOROID}
 
@@ -66,22 +70,33 @@ def fig_of(fl):
     return (fl >> G_FIG_SHIFT) & 7
 
 
-def step_words(fl):
-    """The words of a step with flag word fl: DW, then its figure's: an
+def phase_at(fl):
+    """The first of a step's phase words: DW, then its figure's words: an
     aspheric row's even and odd coefficients (pairs); a conic cylinder's
-    c1, 1 + k and (1 + k) c1 (pairs); a biconic's or toroid's cx, cy,
-    cr, (1 + kx) cx^2, (1 + ky) cy^2 (pairs), its float32 seed's kx and
-    ky, then its coefficients (pairs; the seed reads the hi words of
-    those and of cx, cy and cr, its float32 values)."""
+    c1, 1 + k and (1 + k) c1 (pairs), and on a phase row (1 + k) c1^2
+    (a pair, its normal's); a biconic's or toroid's cx, cy, cr, (1 + kx)
+    cx^2, (1 + ky) cy^2 (pairs), its float32 seed's kx and ky, then its
+    coefficients (pairs; the seed reads the hi words of those and of cx,
+    cy and cr, its float32 values)."""
     fig = fig_of(fl)
     coef = 2*(((fl >> G_NA_SHIFT) & 15) + ((fl >> G_NO_SHIFT) & 15))
     if fig == FIG_RADIAL:
         return DW + coef
     if fig in (FIG_CYL_Y, FIG_CYL_X):
-        return DW + CYL_WORDS
+        return DW + CYL_WORDS + (2 if fl & (G_GRATING | G_DOE) else 0)
     if fig in (FIG_BICONIC, FIG_TOROID):
         return DW + A_COEF + coef
     return DW
+
+
+def step_words(fl):
+    """The words of a step with flag word fl: phase_at, then a phase
+    row's grating_dy (a pair, G_GRATING), the DOE's nd kick coefficients
+    2 (i + 1) a_i and its nd path coefficients a_i n_after / n_before
+    (pairs, G_DOE)."""
+    nd = (fl >> G_ND_SHIFT) & 15
+    return phase_at(fl) + (2 if fl & G_GRATING else 0) \
+        + (4*nd if fl & G_DOE else 0)
 
 
 def trace_final_df32_reference(steps, state, with_path=False):
@@ -120,7 +135,8 @@ def _figure_words(st):
         fl = _FIGS[an["mode"]] << G_FIG_SHIFT
         if not an["circular"]:
             fl |= G_CYL_CONIC
-        return fl, _consts((an["c1"], an["k1"], an["k1c"]))
+        return fl, _consts((an["c1"], an["k1"], an["k1c"])
+                           + ((an["bc"],) if "bc" in an else ()))
     else:
         fig, asp, asp_odd = _FIGS[an["mode"]], an["asp"], an["asp_odd"]
         f = an["f32"]
@@ -170,13 +186,24 @@ def _step_words(st):
     if st["fast"]:
         fl |= G_FAST
     fig, ext = _figure_words(st)
-    return w + ext, fl | fig
+    fl |= fig
+    if st.get("grat") is not None:
+        fl |= G_GRATING
+        ext = ext + _consts((st["grat"],))
+    if st.get("doe") is not None:
+        nd = len(st["doe"])
+        if nd > MAX_COEFFS:
+            raise ValueError("a df32 step holds at most %d DOE coefficients, "
+                             "got %d" % (MAX_COEFFS, nd))
+        fl |= G_DOE | nd << G_ND_SHIFT
+        ext = ext + _consts(st["doe"]) + _consts(st["doe_path"])
+    return w + ext, fl
 
 
 def pack_plan(plans, device):
     """One plan (a list of steps) or a sequence of plans as the kernels
     read them: a plan's words, step after step (step_words of each
-    step's flag word), as (W,) float32 and its (S,) int32 flags, or
+    step's flag word), as (W,) float32 and its (S,) int64 flags, or
     (L, W) and (L, S) for L plans of S steps each, a plan shorter than
     the longest padded with zeros to W, on `device`."""
     multi = bool(plans) and isinstance(plans[0], (list, tuple))
@@ -191,7 +218,7 @@ def pack_plan(plans, device):
     words = torch.tensor([r + [0.]*(most - len(r)) for r in rows],
                          dtype=torch.float32)
     flags = torch.tensor([[f for _, f in p] for p in packed],
-                         dtype=torch.int32)
+                         dtype=torch.int64)
     if not multi:
         words, flags = words[0], flags[0]
     return words.to(device), flags.to(device)

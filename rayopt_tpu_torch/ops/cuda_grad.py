@@ -40,11 +40,13 @@ scaled by -gt/F_s, as kernels._NewtonRoot does (K9 adds the row's path
 cotangent to gt first), and reduce the row's aspheric coefficients
 beside its six (K9: seven) columns, then an anamorphic key's
 curvature_dx and conic_dx.  Every kernel here also traces the phase
-rows (a grating or a DOE on any substrate but a cylinder); K5, K7 and
+rows (a grating or a DOE on any substrate; on a cylinder by its closed
+form and the normal of the biconic or toroid that made it); K5, K7 and
 K9 reverse the generalized Spencer & Murty solve by hand
 (csrc/step_vjp.cuh grating_refract_vjp: the Gamma root of either
 branch, the groove vector's normalization, the DOE's kick) and then the
-substrate's normal, and reduce grating_dy and the DOE coefficients
+substrate's normal (a phase cylinder's, then its closed form), and
+reduce grating_dy and the DOE coefficients
 after the other columns (K7 per table of the stack, as mu).  K8 adds a
 DOE row's imprinted phase psi(r2) n_after to the optical path, and K9
 reverses it (doe_path_vjp): n_after takes ct_path psi(r2), coefficient
@@ -687,7 +689,7 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     table's even and odd coefficients, `_figured_vjp_reference`)).  The
     aperture clip is a constant mask: a clipped ray is dead, and dead
     rays never reach the reverse sweep."""
-    K.check_key_row(spec, what="K5's reverse", kernel="k5")
+    K.check_supported(spec, what="K5's reverse")
     if K.is_anamorphic_spec(spec):
         return _anamorphic_vjp_reference(state, surf, spec, g, ct_path)
     if K.is_figured(spec):
@@ -1212,13 +1214,16 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
     (y for cyl_axis 1, x for 2) and refracts by the normal (-C w, 1 -
     (1+K) C z); a biconic or toroid refracts by its (gx, gy, 1) normal,
     then its Newton root is differentiated implicitly, dF/dp scaled by
-    -gt/F_s (kernels._NewtonRoot).  The row reads (C, K) = (c, k) on a
-    y-cylinder, (c + curvature_dx, k + conic_dx) on an x-cylinder, (cx,
-    kx, cy, ky) = (c + curvature_dx, k + conic_dx, c, k) on a biconic
-    and (cr, cy, ky) = (c + curvature_dx, c, k) on a toroid; a biconic
-    or toroid, figured or not, every coefficient of the table's widths
-    (a biconic's in r^2, a toroid's in y^2).  With ct_path (K9's PATH) the row's optical path
-    t * n_before first adds ct_path * n_before to gt, and n_before
+    -gt/F_s (kernels._NewtonRoot).  A grating or DOE on a cylinder
+    reverses the phase solve on the normal of the biconic or toroid that
+    made it, then the cylinder's closed form.  The row reads (C, K) =
+    (c, k) on a y-cylinder, (c + curvature_dx, k + conic_dx) on an
+    x-cylinder, (cx, kx, cy, ky) = (c + curvature_dx, k + conic_dx, c,
+    k) on a biconic and (cr, cy, ky) = (c + curvature_dx, c, k) on a
+    toroid; a biconic or toroid, figured or not (a phase cylinder's
+    normal too), every coefficient of the table's widths (a biconic's in
+    r^2, a toroid's in y^2).  With ct_path (K9's PATH) the row's optical
+    path t * n_before first adds ct_path * n_before to gt, and n_before
     takes ct_path * t.  Returns the entering state's cotangent and the
     per-ray parameter cotangents (c, k, offset x, y, z, mu, with ct_path
     n_before, a biconic's or toroid's na even and no odd coefficients,
@@ -1276,13 +1281,15 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
         gx1, gy1, gz1 = K.rot_apply(r, gx1, gy1, gz1)
         gvx, gvy, gvz = K.rot_apply(r, gvx, gvy, gvz)
     gmu = zero
-    # the figure's parameter cotangents: (C, K) of a cylinder, (cx, kx,
-    # cy, ky) of a biconic, (cr, cy, ky) of a toroid (gp[3] unused)
+    # the figure's parameter cotangents: (cx, kx, cy, ky) of a biconic,
+    # (cr, cy, ky) of a toroid (gp[3] unused), and (C, K) of a cylinder
     gp = [zero, zero, zero, zero]
+    gck = [zero, zero]
     phase = ()
     # ---- reverse: refraction ----
-    if K.is_phase(spec) and not cyl:
-        # the grating/phase solve on the biconic or toroid normal
+    if K.is_phase(spec):
+        # the grating/phase solve on the biconic or toroid normal (a
+        # cylinder's: the one that made it)
         gdy, doe = _phase_row(surf, spec)
         ngx, ngy = _general_normal(spec, x1, y1, c, k, cx, kx, asp, aspo)
         (gux, guy, guz), (ggx, ggy), gmu, ggdy, gdoe, dx1, dy1 = \
@@ -1308,8 +1315,8 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
         (gux, guy, guz), gn, gmu = _refraction_vjp(
             spec.kind, False, mu, (ux, uy, uz), n, (gvx, gvy, gvz))
         gnw, gnz = gn[cyl % 2], gn[2]
-        gp[1] = gp[1] - cc*z1*gnz
-        gp[0] = gp[0] - w1*gnw - (1 + kk)*z1*gnz
+        gck[1] = gck[1] - cc*z1*gnz
+        gck[0] = gck[0] - w1*gnw - (1 + kk)*z1*gnz
         if cyl == 1:
             gy1 = gy1 - cc*gnw
         else:
@@ -1351,13 +1358,13 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
         gd = gd + 2*d*gdisc
         ge = ge - f*gdisc
         gf = gf - e*gdisc
-        gp[0] = gp[0] + yy*gf + uu*ge + uyd*gd
+        gck[0] = gck[0] + yy*gf + uu*ge + uyd*gd
         gyy, guyd, guu = cc*gf, cc*gd, cc*ge
         gz = gz - 2*gf + 2*k1*z*gyy + k1*uz*guyd
         guz = guz - gd + k1*z*guyd + 2*k1*uz*guu
         gw = 2*w*gyy + uw*guyd
         guw = w*guyd + 2*uw*guu
-        gp[1] = gp[1] + z*z*gyy + uz*uz*guu + uz*z*guyd
+        gck[1] = gck[1] + z*z*gyy + uz*uz*guu + uz*z*guyd
         if cyl == 1:
             gy, guy = gy + gw, guy + guw
         else:
@@ -1380,10 +1387,20 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
         gx, gy, gz = K.rot_apply_t(r, gx, gy, gz)
         gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
     # the figure's parameters onto the table's
-    if cyl == 1:
-        gc, gk, gcdx, gkdx = gp[0], gp[1], zero, zero
+    if cyl and K.is_phase(spec):
+        # (C, K) is (c, k) in y, (c + cdx, k + kdx) in x; the normal's
+        # as a toroid's (cr = c + cdx) or a biconic's
+        if spec.toroidal:
+            gc, gk = gck[0] + (gp[0] + gp[1]), gck[1] + gp[2]
+            gcdx, gkdx = gp[0], zero
+        else:
+            gc, gk = gck[0] + (gp[0] + gp[2]), gck[1] + (gp[1] + gp[3])
+            gcdx, gkdx = ((gp[0], gp[1]) if cyl == 1
+                          else (gck[0] + gp[0], gck[1] + gp[1]))
+    elif cyl == 1:
+        gc, gk, gcdx, gkdx = gck[0], gck[1], zero, zero
     elif cyl == 2:
-        gc, gk, gcdx, gkdx = gp[0], gp[1], gp[0], gp[1]
+        gc, gk, gcdx, gkdx = gck[0], gck[1], gck[0], gck[1]
     elif spec.toroidal:
         gc, gk, gcdx, gkdx = gp[0] + gp[1], gp[2], gp[0], zero
     else:

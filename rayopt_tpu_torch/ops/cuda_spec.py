@@ -18,10 +18,10 @@ templates with the row words as a template parameter pack, so the row
 loop unrolls and every flag branch folds, and that export launchers
 named by the key's hash.  nvcc builds it at first use into its own
 shared library under build/torch_kernels/ (one nvcc run a new key,
-seconds; `prebuild` starts several at once), cached by a hash of the
-headers, the flags and the unit's text.  This is how the JAX package's
-Pallas kernels are specialized too: on specs, clip and diff_fields, and
-K3's and K6's wavelengths.
+seconds; `prebuild` runs several at once, a few keys a unit), cached
+by a hash of the headers, the flags and the unit's text.  This is how
+the JAX package's Pallas kernels are specialized too: on specs, clip
+and diff_fields, and K3's and K6's wavelengths.
 
 Every K1-K9 key also takes even- and odd-aspheric rows: it carries the
 table's coefficient widths (Key.na, Key.no; cuda_trace.figure_widths, 0
@@ -40,10 +40,12 @@ RAYOPT_N_GRAT) and by n_after and the table's nd DOE coefficients
 (Key.nd, cuda_trace.doe_width; RAYOPT_N_DOE), K5's and K7's slots by
 the cotangents of grating_dy and of the coefficients, K9's by those of
 grating_dy, of n_after (the DOE's optical path psi(r2) n_after) and of
-the coefficients.  Only a phase row whose substrate is a cylinder is
-refused, by every key (NotImplementedError, ROADMAP Queue 1 item 9.4,
-part three); every key refuses the freeform rows (item 9.5).  A row
-word is 64 bits: its flags below LIVE_SHIFT, its live slots above.
+the coefficients.  A phase row on a cylinder keeps the cylinder's
+closed-form intercept and takes the normal of the biconic or toroid
+that made it (its row word sets F_BICONIC or F_TOROID beside F_CYL_Y or
+F_CYL_X, cuda_trace._anamorphic_flag); every key refuses the freeform
+rows (NotImplementedError, ROADMAP Queue 1 item 9.5).  A row word is 64
+bits: its flags below LIVE_SHIFT, its live slots above.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns, then a figured key's na even and no odd
@@ -193,19 +195,25 @@ def baked_out_rows(specs, field):
     and a biconic.  A y-cylinder reads neither: the reference's rule
     keeps them (their gradient is zero there all the same), the port
     bakes them out, so that the call warns (ROADMAP Queue 3).  A
-    grating or DOE row keeps its curvature and conic live as the
-    reference's rule does (the radial normal of its solve reads the
-    conic of a spherical row); grating_dy is read by a grating row only
-    and the DOE coefficients by a DOE row only, which the reference's
-    rule does not name (it keeps them everywhere; the port bakes them
-    out, so that the call warns: ROADMAP Queue 3)."""
+    grating or DOE on a y-cylinder reads curvature_dx (the normal of the
+    biconic or toroid that made it: cx = c + curvature_dx, or the
+    toroid's cr) and every coefficient of the table's widths
+    (reads_figure); its conic_dx only through (1 + kx) cx^2 at cx = 0,
+    whose cotangent is exactly zero, so it stays baked out as the plain
+    y-cylinder's (the slot rule jax.grad of the reference gives, ROADMAP
+    Queue 3).  A grating or DOE row keeps its curvature and conic live
+    as the reference's rule does (the radial normal of its solve reads
+    the conic of a spherical row); grating_dy is read by a grating row
+    only and the DOE coefficients by a DOE row only, which the
+    reference's rule does not name (it keeps them everywhere; the port
+    bakes them out, so that the call warns: ROADMAP Queue 3)."""
     def fig(sp):
         return (K.is_figured(sp) or K.is_anamorphic_spec(sp)
                 or K.is_phase(sp))
 
     def reads_cdx(sp):
-        return sp.cyl_axis == 2 or (not sp.cyl_axis
-                                    and (sp.biconic or sp.toroidal))
+        return sp.cyl_axis == 2 or (K.is_phase(sp) and sp.cyl_axis == 1) \
+            or (not sp.cyl_axis and (sp.biconic or sp.toroidal))
 
     def reads_kdx(sp):
         return sp.cyl_axis == 2 or (not sp.cyl_axis and sp.biconic
@@ -445,10 +453,9 @@ def _dtype_name(dtype):
 
 def _words(specs, masks=None, kernel="k1"):
     """A key's row words; a row the kernel does not trace raises
-    NotImplementedError: a freeform row (item 9.5) and a grating or DOE
-    row whose substrate is a cylinder (item 9.4, part three)."""
+    NotImplementedError: a freeform row (item 9.5)."""
     for j, spec in enumerate(specs[1:], 1):
-        K.check_key_row(spec, j, kernel.upper() + "'s key", kernel)
+        K.check_supported(spec, j, kernel.upper() + "'s key")
     flags = [_flags(s) for s in specs]
     if masks is None:
         return tuple(flags)
@@ -800,6 +807,7 @@ def df32_key_of(flags, kernel="k11", with_path=False, block=None,
     if not flags or len(steps) != 1 or 0 in steps:
         raise ValueError("plans must share one nonzero step count, got %s"
                          % sorted(steps))
+    _check_phase_bits(flags)
     tuples = tuple(dict.fromkeys(flags))
     defaults = ONE_PLAN[kernel] if len(flags) == 1 else kernel
     key = Df32Key(kernel, tuples, tuple(tuples.index(p) for p in flags),
@@ -825,6 +833,23 @@ def df32_key_of(flags, kernel="k11", with_path=False, block=None,
                                          key.shared_bytes + key.dynamic_smem,
                                          SMEM_OPTIN))
     return key
+
+
+def _check_phase_bits(flags):
+    """Refuse plans (one a wavelength) whose steps differ in their phase
+    bits: a step is a grating or a DOE of nd coefficients at every
+    wavelength (its values, the grating term and the coefficients, scale
+    with the wavelength in each plan's words)."""
+    from .cuda_df32 import G_DOE, G_GRATING, G_ND_SHIFT
+    mask = G_GRATING | G_DOE | 15 << G_ND_SHIFT
+    for j, step in enumerate(zip(*flags)):
+        bits = sorted({f & mask for f in step})
+        if len(bits) > 1:
+            raise ValueError(
+                "step %d of the plans is not the same phase row at every "
+                "wavelength: grating/DOE/DOE-count bits %s (plans %s)"
+                % (j, ", ".join("%#x" % b for b in bits),
+                   ", ".join("%#x" % (f & mask) for f in step)))
 
 
 def df32_plan_words(flags):
@@ -914,14 +939,17 @@ def translation_unit(key):
 
 class SpecKernel:
     """One key's loaded library: `fn` the launcher, `grid(n, device)`
-    the launch shape (cached per device), `build_seconds` and
-    `build_log` (nvcc's output with the -Xptxas -v lines)."""
+    the launch shape (cached per device), `build_seconds` (its unit's),
+    `build_log` (nvcc's output with the key's -Xptxas -v lines) and
+    `entry` (its kernel's mangled name in a unit of several keys, else
+    None)."""
 
-    def __init__(self, key, path, build_seconds, build_log):
+    def __init__(self, key, path, build_seconds, build_log, entry=None):
         self.key = key
         self.path = path
         self.build_seconds = build_seconds
         self.build_log = build_log
+        self.entry = entry
         self._lib = ctypes.CDLL(str(path))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.fn = getattr(self._lib, key.name)
@@ -976,18 +1004,125 @@ class SpecKernel:
 
 
 _LOADED = {}
+#: keys a translation unit at most when several build at once: a unit
+#: parses the headers, and compiles and links its host side, once (~2 s
+#: of a lone key's 3-4 s of nvcc on the H100's host, PERF.md §6)
+GROUP_MOST = 8
+#: the kernel template each key kind instantiates
+_TEMPLATES = {"k1": "trace_spec", "k3": "trace_multi_spec",
+              "k8": "opd_spec", "k2": "moments_spec", "k3m": "moments_spec",
+              "k4": "moments_spec", "k6": "moments_spec",
+              "k5": "merit_adjoint_spec", "k7": "merit_adjoint_multi_spec",
+              "k9": "opd_adjoint_spec", "k11": "df32_trace_spec",
+              "k13": "df32_merit_spec"}
+
+
+def template_args(key):
+    """(the kernel template `key` instantiates, its dtype's letter ("" for
+    K10-K13), the integer template arguments in order): what the
+    kernel's mangled name spells (`entry_args`)."""
+    tmpl = _TEMPLATES[key.kernel]
+    if isinstance(key, Df32Key):
+        head = [f for t in key.tuples for f in t] + list(key.plan_map)
+        path = [key.with_path] if key.kernel == "k11" else []
+        return tmpl, "", tuple(int(v) for v in head + path + [
+            WORDS_AT.index(key.words_at), key.block, key.min_blocks])
+    if key.kernel == "k3":
+        mid = [key.outer, key.nlam]
+    elif key.kernel in MOMENTS:
+        mid = [key.clip, key.kernel in ("k4", "k6"),
+               key.nlam if key.kernel in MULTI else 1]
+    elif key.kernel in TRACES:
+        mid = [key.clip]
+    else:
+        mid = [key.clip, key.rays]
+    return tmpl, "f" if key.dtype == "f32" else "d", tuple(
+        int(v) for v in list(key.words) + mid + [key.block, key.min_blocks])
+
+
+def entry_args(entry):
+    """template_args read back from a kernel's mangled (Itanium) name,
+    None for a name that is not one of the keys' kernels."""
+    import re
+    for tmpl in set(_TEMPLATES.values()):
+        at = entry.find("%d%sI" % (len(tmpl), tmpl))
+        if at < 0:
+            continue
+        rest = entry[at + len(tmpl) + len(str(len(tmpl))) + 1:]
+        head = rest[:rest.find("Ev")]
+        dtype = "" if tmpl.startswith("df32") else head[:1]
+        return tmpl, dtype, tuple(
+            int(d) * (-1 if neg else 1)
+            for neg, d in re.findall(r"L[a-z](n?)(\d+)E", head))
+    return None
+
+
+def _unit_parts(key):
+    """A key's translation unit cut in two: the defines and the header's
+    include, then the key's own instantiation."""
+    text = translation_unit(key)
+    at = text.index("#include")
+    end = text.index("\n", at) + 1
+    return (text[:at].split("// key: ")[-1].partition("\n")[2]
+            + text[at:end], text[end:])
+
+
+def _group_units(keys, most):
+    """{unit name: (text, keys)}: the keys with the same defines and
+    header `most` a unit, each instantiation in a namespace of its own."""
+    by_head = {}
+    for k in keys:
+        head, body = _unit_parts(k)
+        by_head.setdefault(head, []).append((k, body))
+    units = {}
+    for head, members in by_head.items():
+        for i in range(0, len(members), most):
+            part = members[i:i + most]
+            name = "g%d_%s" % (len(part), hashlib.sha256(" ".join(
+                k.name for k, _ in part).encode()).hexdigest()[:16])
+            units[name] = ("// %d keys, specialized by rayopt_tpu_torch."
+                           "ops.cuda_spec\n" % len(part) + head + "".join(
+                               "\nnamespace unit_%s {\n%s}  // namespace\n"
+                               % (k.name, body) for k, body in part),
+                           [k for k, _ in part])
+    return units
 
 
 def prebuild(keys):
-    """Build every key not yet loaded, one nvcc each, in parallel, and
-    load them.  Returns {key: SpecKernel}."""
-    from .cuda_build import build_shared
-    todo = {k.name: k for k in keys if k not in _LOADED}
-    if todo:
-        built = build_shared({name: translation_unit(k)
-                              for name, k in todo.items()}, HEADERS)
-        for name, k in todo.items():
-            _LOADED[k] = SpecKernel(k, *built[name])
+    """Build every key not yet loaded and load them: one nvcc a unit, as
+    many at a time as the process may use cores, up to GROUP_MOST keys
+    a unit when there are more keys than twice the cores (each key's
+    ptxas lines cut out of its unit's by its kernel's mangled name; a
+    key not found there, or of a unit that fails, builds alone).
+    Returns {key: SpecKernel}."""
+    from .cuda_build import _cores, build_shared, entry_reports
+    todo = list({k: None for k in keys if k not in _LOADED})
+    most = min(GROUP_MOST, -(-len(todo) // (2 * _cores())))
+    alone = todo
+    if most > 1:
+        units = _group_units(todo, most)
+        built = build_shared({n: text for n, (text, _) in units.items()},
+                             HEADERS, strict=False)
+        alone = []
+        for name, (_, members) in units.items():
+            if name not in built:
+                alone += members
+                continue
+            path, seconds, log = built[name]
+            head, reports = entry_reports(log)
+            found = {entry_args(e): (e, r) for e, r in reports.items()}
+            for k in members:
+                entry, report = found.get(template_args(k), (None, None))
+                if entry is None:
+                    alone.append(k)
+                else:
+                    _LOADED[k] = SpecKernel(k, path, seconds, head + report,
+                                            entry)
+    if alone:
+        built = build_shared({k.name: translation_unit(k) for k in alone},
+                             HEADERS)
+        for k in alone:
+            _LOADED[k] = SpecKernel(k, *built[k.name])
     return {k: _LOADED[k] for k in keys}
 
 

@@ -19,8 +19,8 @@ widths, `figure_widths`) and the anamorphic rows: conic cylinders in
 closed form, biconics and toroids, with or without an aspheric figure,
 by the seeded Newton (their key's rows carry curvature_dx and conic_dx,
 `carries_anamorphic`), and the phase rows: a linear grating or a radial
-diffractive phase (DOE) on any substrate but a cylinder, by the
-generalized Spencer & Murty solve (their key's rows carry grating_dy,
+diffractive phase (DOE) on any of these substrates, by the generalized
+Spencer & Murty solve (their key's rows carry grating_dy,
 `carries_grating`, and n_after and the DOE coefficients, `doe_width`;
 K1 adds the DOE's phase to the optical path).
 
@@ -154,9 +154,16 @@ def _flags(spec):
 
 def _anamorphic_flag(spec):
     """A row's anamorphic flag: the cylinder first (a cylinder's
-    biconic or toroidal flag is set too), then the toroid."""
+    biconic or toroidal flag is set too), then the toroid.  A grating or
+    DOE on a cylinder keeps its origin beside the cylinder's flag
+    (F_BICONIC or F_TOROID): its intercept is the cylinder's closed form,
+    its phase solve takes the normal of the biconic or toroid that made
+    it, as the reference's surface_step_spec."""
     if spec.cyl_axis:
-        return F_CYL_Y if spec.cyl_axis == 1 else F_CYL_X
+        cyl = F_CYL_Y if spec.cyl_axis == 1 else F_CYL_X
+        if K.is_phase(spec):
+            cyl |= F_TOROID if spec.toroidal else F_BICONIC
+        return cyl
     if spec.toroidal:
         return F_TOROID
     return F_BICONIC if spec.biconic else 0

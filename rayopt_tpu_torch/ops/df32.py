@@ -35,9 +35,13 @@ then a residual test), conic cylinders (closed form) and biconics and
 toroids, figured or not (a Newton seeded in float32, then polished in
 df32), refraction, mirrors, `alternate` intersections, decenters,
 exact signed-permutation folds and general tilts, the aperture clip,
-and the `fast` one-round div/sqrt refinements.  Rows with grating, DOE
-or freeform figures raise NotImplementedError (ROADMAP Queue 1 items
-9.4 and 9.5).  The float32 seed of the anamorphic Newton keeps its own
+the `fast` one-round div/sqrt refinements, and the phase rows: a linear
+grating or a radial diffractive phase (DOE) on any of these substrates,
+by the generalized grating solve (the DOE's kick in its b vector and
+its phase psi(r^2) n_after/n_before folded into the step's length, so
+that the optical path carries it).  Rows with freeform figures raise
+NotImplementedError (ROADMAP Queue 1 item 9.5).  The float32 seed of
+the anamorphic Newton keeps its own
 copies of the ops.kernels functions, in the JAX package's operation
 order and with the correctly rounded root.
 
@@ -623,6 +627,101 @@ def _intercept_anam_df(x, y, z, ux, uy, uz, an, one, dv, sq):
     return where(_residual_ok(s, res), s, (nan, nan))
 
 
+# -- the phase rows in df32 ---------------------------------------------------
+
+def _normal_cyl_df(w, an, one, dv, sq):
+    """A conic cylinder's normal component in its curved axis, g_w = w e
+    with e = -c/sqrt(1 - (1+k) c^2 w^2) (read by a phase cylinder)."""
+    e = neg(dv(an["c1"], sq(sub(one, mul(an["bc"], sqr(w))))))
+    return mul(w, e)
+
+
+def _normal_anam_df(x, y, an, one, dv, sq):
+    """(gx, gy) of an anamorphic row's normal (gx, gy, 1)."""
+    if an["mode"] == "cyl_y":
+        return zero_like(x), _normal_cyl_df(y, an, one, dv, sq)
+    if an["mode"] == "cyl_x":
+        return _normal_cyl_df(x, an, one, dv, sq), zero_like(y)
+    return _anam_funcs_df(an, one, dv, sq)[1](x, y)
+
+
+def _poly_horner_df(coeffs, r2):
+    """sum coeffs[i] r2^i by Horner from the last coefficient."""
+    acc = coeffs[-1]
+    for cdf in coeffs[-2::-1]:
+        acc = add(mul(acc, r2), cdf)
+    return acc
+
+
+def _refract_grating_df(ux, uy, uz, mu, kind, gdy, nrm, one, dv, sq,
+                        kick=None):
+    """The grating/phase refraction or reflection in df32 (kernels.
+    refract_grating with the branch choice static): b = mu u + T q + s,
+    q the y axis projected into the tangent plane and normalised, s the
+    DOE's radial kick (sx, sy) or None, then u' = b + Gamma n.  nrm is
+    (gx, gy) of the substrate normal (gx, gy, 1), None on a plane (q is
+    the y axis exactly); a mirror (kind 2) takes the root that flips the
+    normal component.  An evanescent order is NaN (the root of a
+    negative)."""
+    if nrm is None:
+        bx = mul(mu, ux)
+        by = mul(mu, uy) if gdy is None else add(mul(mu, uy), gdy)
+        if kick is not None:
+            bx = add(bx, kick[0])
+            by = add(by, kick[1])
+        bz = mul(mu, uz)
+        root = sq(sub(sub(one, sqr(bx)), sqr(by)))
+        if kind == 2:
+            gam = sub(neg(bz), where(bz[0] >= 0, root, neg(root)))
+        else:
+            gam = sub(root, bz)
+        return bx, by, add(bz, gam)
+    gx, gy = nrm
+    inv_nn = dv(one, add(add(sqr(gx), sqr(gy)), one))
+    bx, by, bz = mul(mu, ux), mul(mu, uy), mul(mu, uz)
+    if gdy is not None:
+        qx = neg(mul(mul(gy, gx), inv_nn))
+        qy = sub(one, mul(sqr(gy), inv_nn))
+        qz = neg(mul(gy, inv_nn))
+        qinv = dv(one, _max_tiny(sq(add(add(sqr(qx), sqr(qy)), sqr(qz)))))
+        bx = add(bx, mul(gdy, mul(qx, qinv)))
+        by = add(by, mul(gdy, mul(qy, qinv)))
+        bz = add(bz, mul(gdy, mul(qz, qinv)))
+    if kick is not None:
+        bx = add(bx, kick[0])
+        by = add(by, kick[1])
+    bn = mul(add(add(mul(bx, gx), mul(by, gy)), bz), inv_nn)
+    bb = add(add(sqr(bx), sqr(by)), sqr(bz))
+    root = sq(sub(sqr(bn), mul(sub(bb, one), inv_nn)))
+    if kind == 2:
+        gam = sub(neg(bn), where(bn[0] >= 0, root, neg(root)))
+    else:
+        gam = sub(root, bn)
+    return add(bx, mul(gam, gx)), add(by, mul(gam, gy)), add(bz, gam)
+
+
+def _phase_df(x, y, ux, uy, uz, st, one, dv, sq):
+    """A grating or DOE row's new direction: the substrate's normal (a
+    cylinder's, a biconic's or toroid's, the radial one of a curved or
+    figured row; none on a plane), the DOE's kick sum 2(i+1) a_i r^(2i)
+    (x, y) (its coefficients scaled in the plan), then the solve."""
+    c, k1, anam = st["c"], st["k1"], st["anam"]
+    figured = bool(st["asp"] or st["asp_odd"])
+    nrm = None
+    if anam is not None:
+        nrm = _normal_anam_df(x, y, anam, one, dv, sq)
+    elif not st["flat"] or figured:
+        e = _normal_radial_df(x, y, c, k1 if k1 is not None else one,
+                              st["asp"], st["asp_odd"], one, dv, sq)
+        nrm = mul(x, e), mul(y, e)
+    kick = None
+    if st["doe"] is not None:
+        ek = _poly_horner_df(st["doe"], add(sqr(x), sqr(y)))
+        kick = mul(ek, x), mul(ek, y)
+    return _refract_grating_df(ux, uy, uz, st["mu"], st["kind"], st["grat"],
+                               nrm, one, dv, sq, kick=kick)
+
+
 def _polish_radial_df(x, y, z, ux, uy, uz, s, st, one, dv, sq):
     """ASPHERIC_ITERS df32 Newton rounds of an aspheric row from its
     conic root s (no zero-slope guard, as the reference), then the
@@ -647,8 +746,8 @@ def _surface_df(state, st):
     """One transfer-intercept-refract step in df32 for a planned step
     `st` whose constants are 0-d float32 tensors (`_on_device`).
     Mirrors the reference's _surface_df for flat, spherical, conic,
-    aspheric and anamorphic rows; returns the new state and the
-    intercept distance s."""
+    aspheric, anamorphic and phase rows; returns the new state and the
+    intercept distance s (a DOE row's with its phase term)."""
     dv, sq = (div1, sqrt1) if st["fast"] else (div, sqrt)
     c, mu, kind, flat = st["c"], st["mu"], st["kind"], st["flat"]
     k1, rotm, rot_df, anam = st["k1"], st["rotm"], st["rot_df"], st["anam"]
@@ -708,7 +807,15 @@ def _surface_df(state, st):
         ux = where(bad, (nan, nan), ux)
         uy = where(bad, (nan, nan), uy)
         uz = where(bad, (nan, nan), uz)
-    if kind == 0:
+    if st["doe_path"] is not None:
+        # the DOE's imprinted phase is optical path: psi(r^2) n_after /
+        # n_before folded into the length, which the caller scales by
+        # n_before
+        r2p = add(sqr(x), sqr(y))
+        s = add(s, mul(_poly_horner_df(st["doe_path"], r2p), r2p))
+    if st["grat"] is not None or st["doe"] is not None:
+        vx, vy, vz = _phase_df(x, y, ux, uy, uz, st, one, dv, sq)
+    elif kind == 0:
         vx, vy, vz = ux, uy, uz
     else:
         # the normal (nx, ny, nzv); None stands for a zero component,
@@ -785,13 +892,10 @@ def _surface_df(state, st):
 _ONE = (np.float32(1.), np.float32(0.))
 #: step keys that hold df32 constants (pairs, or nests of pairs)
 _CONST_KEYS = ("c", "mu", "dz", "k1", "k1c", "nb", "dxy", "rot_df", "asp",
-               "asp_odd")
+               "asp_odd", "grat", "doe", "doe_path")
 #: an anamorphic row's df32 constants and its seed's float32 scalars
-_ANAM_CONSTS = ("c1", "k1", "k1c", "cx", "cy", "cr", "bxc", "byc", "asp",
-                "asp_odd")
-#: the ROADMAP item (Queue 1) that ports the rows df32.plan refuses
-_EXTENDED = {"grating_dy": "9.4 (part three)",
-             "doe": "9.4 (part three)", "xy_poly": "9.5"}
+_ANAM_CONSTS = ("c1", "k1", "k1c", "bc", "cx", "cy", "cr", "bxc", "byc",
+                "asp", "asp_odd")
 
 
 def _trim(coeffs):
@@ -811,11 +915,14 @@ def _cf(t):
     return float(t[0]) + float(t[1])
 
 
-def _anamorphic_row(cy, ky, cdx, kdx, tor, alt, coeffs, codd, df_iters):
+def _anamorphic_row(cy, ky, cdx, kdx, tor, alt, coeffs, codd, df_iters,
+                    phase=False):
     """The reference plan's decision for an anamorphic row: a conic
     cylinder without its own figure takes the closed form (cyl_y or
     cyl_x), a figured cylinder, a biconic or a toroid the Newton, and a
-    row flat in both axes is a plane (None)."""
+    row flat in both axes is a plane (None).  A cylinder that carries a
+    grating or DOE (`phase`) also keeps bc = (1+k) c^2, which only its
+    phase normal reads."""
     if tor != 0:
         cx, kx = 0., 0.          # placeholders (a toroid uses cr)
         cr = cy + cdx
@@ -832,9 +939,12 @@ def _anamorphic_row(cy, ky, cdx, kdx, tor, alt, coeffs, codd, df_iters):
         if caxis == 0.:
             return None
         c1, k1 = const(caxis), const(1. + kaxis)
-        return dict(mode="cyl_y" if along_y else "cyl_x", c1=c1, k1=k1,
-                    k1c=const(_cf(k1)*_cf(c1)), circular=_cf(k1) == 1.,
-                    alternate=bool(alt))
+        out = dict(mode="cyl_y" if along_y else "cyl_x", c1=c1, k1=k1,
+                   k1c=const(_cf(k1)*_cf(c1)), circular=_cf(k1) == 1.,
+                   alternate=bool(alt))
+        if phase:
+            out["bc"] = const((1. + kaxis)*caxis*caxis)
+        return out
     return dict(
         mode=mode, df_iters=df_iters,
         cx=const(cx), cy=const(cy), cr=const(cr),
@@ -858,18 +968,21 @@ def plan(table, clip=False, fast=False):
     inside its step), asp and asp_odd (the row's trimmed even and odd
     coefficients as df32 constants: an aspheric row's Newton polish),
     anam (an anamorphic row's constants, else None: a conic cylinder's
-    c1, k1, k1c, circular and alternate, or a biconic's or toroid's cx,
-    cy, cr, bxc, byc, asp, asp_odd, df_iters and its float32 seed's
-    scalars `f32`), alternate, rotm (an exact signed permutation,
-    integer 3x3) or rot_df (a 3x3 nest of df32 constants), dxy (the
-    decenter pair or None), radius (the float32 squared aperture radius
-    when clipping, else None), clip, fast, and nb (n_before, for the
-    optical path).
+    c1, k1, k1c, circular and alternate, and on a grating or DOE row bc
+    = (1+k) c1^2, or a biconic's or toroid's cx, cy, cr, bxc, byc, asp,
+    asp_odd, df_iters and its float32 seed's scalars `f32`), grat (the
+    grating term grating_dy, else None), doe (the DOE's kick
+    coefficients 2(i+1) a_i over its trimmed coefficients a_i, else
+    None), doe_path (its path coefficients a_i n_after/n_before, else
+    None), alternate, rotm (an exact signed permutation, integer 3x3) or
+    rot_df (a 3x3 nest of df32 constants), dxy (the decenter pair or
+    None), radius (the float32 squared aperture radius when clipping,
+    else None), clip, fast, and nb (n_before, for the optical path).
 
     fast=True bakes one-round div/sqrt refinements into every step
     (div1/sqrt1) and one df32 round fewer into the anamorphic Newton.
-    Grating and DOE rows raise NotImplementedError (ROADMAP Queue 1 item
-    9.4, part three), XY-freeform rows too (item 9.5)."""
+    XY-freeform rows raise NotImplementedError (ROADMAP Queue 1 item
+    9.5)."""
     table = lower_pose(table)  # fold concrete tilt/decenter deltas
     curv = _host(table, "curvature")
     s_count = curv.shape[0]
@@ -882,21 +995,19 @@ def plan(table, clip=False, fast=False):
     nbef = _host(table, "n_before")
     asp = _host(table, "aspherics", (0,))
     asp_odd = _host(table, "aspherics_odd", (0,))
-    cdx, kdx, tor = (_host(table, name) for name in
-                     ("curvature_dx", "conic_dx", "toroidal"))
-    extended = {name: _host(table, name, () if name == "grating_dy"
-                            else (0,)) for name in _EXTENDED}
+    nafter = _host(table, "n_after")
+    cdx, kdx, tor, gdy = (_host(table, name) for name in
+                          ("curvature_dx", "conic_dx", "toroidal",
+                           "grating_dy"))
+    doe_tab = _host(table, "doe", (0,))
+    xy_tab = _host(table, "xy_poly", (0,))
     df_iters = ANAM_DF_ITERS + (0 if fast else 1)
     steps = []
     for j in range(1, s_count):
-        used = [name for name, v in extended.items()
-                if v[j].size and _trim(np.atleast_1d(v[j])).size]
-        if used:
+        if xy_tab.shape[1] and np.any(xy_tab[j] != 0):
             raise NotImplementedError(
-                "df32 plan: row %d uses %s, which rayopt_tpu_torch does "
-                "not trace yet (ROADMAP Queue 1 item %s)" % (
-                    j, "/".join(used), "/".join(sorted(
-                        {_EXTENDED[name] for name in used}))))
+                "df32 plan: row %d uses xy_poly, which rayopt_tpu_torch "
+                "does not trace yet (ROADMAP Queue 1 item 9.5)" % j)
         rotm = rot_df = None
         if not np.allclose(rot[j], np.eye(3)):
             ri = np.rint(rot[j]).astype(int)
@@ -915,10 +1026,12 @@ def plan(table, clip=False, fast=False):
         kind = 0 if mu[j] == 1. else (2 if mu[j] == -1. else 1)
         coeffs = _trim(asp[j] if asp.shape[1] else np.zeros(0))
         codd = _trim(asp_odd[j] if asp_odd.shape[1] else np.zeros(0))
+        doe = _trim(doe_tab[j]) if doe_tab.shape[1] else np.zeros(0)
         anam = None
         if tor[j] != 0 or cdx[j] != 0 or kdx[j] != 0:
             anam = _anamorphic_row(curv[j], conic[j], cdx[j], kdx[j],
-                                   tor[j], alt[j], coeffs, codd, df_iters)
+                                   tor[j], alt[j], coeffs, codd, df_iters,
+                                   phase=bool(gdy[j] != 0 or doe.size))
         c = const(curv[j])
         k1 = const(1. + conic[j]) if conic[j] else None
         steps.append(dict(
@@ -927,6 +1040,11 @@ def plan(table, clip=False, fast=False):
             k1c=None if k1 is None else const(_cf(k1)*_cf(c)),
             asp=tuple(const(a) for a in coeffs),
             asp_odd=tuple(const(a) for a in codd), anam=anam,
+            grat=const(gdy[j]) if gdy[j] != 0 else None,
+            doe=(tuple(const(2.*(i + 1)*a) for i, a in enumerate(doe))
+                 if doe.size else None),
+            doe_path=(tuple(const(a*float(nafter[j])/float(nbef[j]))
+                            for a in doe) if doe.size else None),
             alternate=bool(alt[j]), rotm=rotm, rot_df=rot_df, dxy=dxy,
             radius=(np.float32(rad[j])**2 if clip
                     and np.isfinite(rad[j]) else None),
@@ -950,7 +1068,7 @@ def _on_device(st, like):
         return tuple(scalar(w) for w in v)
     out = dict(st)
     for key in _CONST_KEYS:
-        out[key] = conv(st[key])
+        out[key] = conv(st.get(key))
     if st["radius"] is not None:
         out["radius"] = scalar(st["radius"])
     if st["anam"] is not None:

@@ -588,17 +588,11 @@ class SurfaceSpec(NamedTuple):
 #: where the extended vocabulary waits (its NotImplementedError says so)
 ITEM9 = "ROADMAP Queue 1 item 9"
 #: SurfaceSpec flags of the extended vocabulary no engine traces yet
+#: (the phase rows, a grating or a DOE on any substrate, a cylinder
+#: included, are traced by every engine and key)
 EXTENDED = ("freeform",)
-#: the phase rows (a grating or a DOE on any substrate), traced by the
-#: torch path and by the keys of PHASE_KERNELS
-PHASE = ("grating", "doe")
-#: the kernels whose keys take the phase rows: every K1-K9 key (K3's
-#: trace "k3" and merit "k3m"); the df32 plan ("df32") does not
-PHASE_KERNELS = ("k1", "k2", "k3", "k3m", "k4", "k5", "k6", "k7", "k8",
-                 "k9")
 #: the ROADMAP item each row kind waits on where it is refused
-ITEMS = {"grating": "9.4 (part three)", "doe": "9.4 (part three)",
-         "freeform": "9.5"}
+ITEMS = {"freeform": "9.5"}
 
 
 def is_figured(spec):
@@ -612,13 +606,16 @@ def is_anamorphic_spec(spec):
 
 
 def reads_figure(spec):
-    """True for a row whose intercept and normal read every aspheric
-    coefficient of the table's widths: an aspheric row, and a biconic or
+    """True for a row whose intercept or normal reads every aspheric
+    coefficient of the table's widths: an aspheric row, a biconic or
     toroid, figured or not (the reference passes the whole coefficient
-    rows into their sags and normals; a cylinder's closed form reads
+    rows into their sags and normals), and a grating or DOE on a
+    cylinder, whose phase solve takes the normal of the biconic or
+    toroid that made it (a plain cylinder's closed form and normal read
     none)."""
     return bool(is_figured(spec) or ((spec.biconic or spec.toroidal)
-                                     and not spec.cyl_axis))
+                                     and (not spec.cyl_axis
+                                          or is_phase(spec))))
 
 
 def is_phase(spec):
@@ -626,33 +623,17 @@ def is_phase(spec):
     return bool(spec.grating or spec.doe)
 
 
-def check_supported(spec, j=None, what="rayopt_tpu_torch", kernel=None):
+def check_supported(spec, j=None, what="rayopt_tpu_torch"):
     """Raise NotImplementedError, naming its ROADMAP Queue 1 item, for a
     row that `what` (the engine or key) does not trace: a freeform row
-    anywhere (item 9.5), and with `kernel` ("k1" ... "k9", "df32") a
-    grating or DOE row where that kernel is not one of PHASE_KERNELS:
-    the df32 plan (item 9.4, part three)."""
+    (item 9.5)."""
     used = [f for f in EXTENDED if getattr(spec, f)]
-    if kernel is not None and kernel not in PHASE_KERNELS:
-        used += [f for f in PHASE if getattr(spec, f)]
     if used:
         raise NotImplementedError(
             "surface row %s uses %s, which %s does not trace yet "
             "(ROADMAP Queue 1 %s)"
             % ("?" if j is None else j, "/".join(used), what,
                " and ".join(sorted({"item " + ITEMS[f] for f in used}))))
-
-
-def check_key_row(spec, j=None, what="rayopt_tpu_torch", kernel="k1"):
-    """check_supported for a row of `kernel`'s key, which also refuses a
-    grating or DOE on a cylinder (ROADMAP Queue 1 item 9.4, part three):
-    the plain torch path traces it, no key does."""
-    check_supported(spec, j, what, kernel)
-    if is_phase(spec) and spec.cyl_axis:
-        raise NotImplementedError(
-            "surface row %s is a grating or DOE on a cylinder, which %s "
-            "does not trace yet (ROADMAP Queue 1 item %s)"
-            % ("?" if j is None else j, what, ITEMS["grating"]))
 
 
 def require_radial(table):

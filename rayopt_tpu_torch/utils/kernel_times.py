@@ -3,7 +3,7 @@ trees of the port on the same card in one call.
 
     python -m rayopt_tpu_torch.utils.kernel_times [--variants] [--steps N]
                                                   [--df32] [--multi]
-                                                  [--long-plan]
+                                                  [--long-plan] [--newton]
 
 Times, with CUDA events (the mean of many launches after a warm-up),
 on the double Gauss and the bench bundle (x, y uniform in +-11.6 mm,
@@ -66,9 +66,17 @@ launch at K3's sizes, with each build's registers, stack, spills and
 SASS size (with --multi, these variants alone).  Prints one JSON
 object; needs a CUDA card.
 
+--newton alone builds and times K10-K13 on the Newton lenses' fast and
+exact plans (NEWTON_LENSES: the double Gauss with conics on rows 2 and
+5 and an even asphere on row 7, models.anamorphic_pair, a split-conic
+biconic singlet; K11/K13 on three plans: the double Gauss's three
+wavelengths, the others' refracting rows' mu grown by 0, 1 and 2 % of
+mu - 1) at 2^22 bench rays of each lens's half width, with each key's
+registers, stack, spills and SASS size.
+
 To compare a parent tree's K10-K13 (or K3) with this tree's on one
-card, run --df32 (or --multi) from each tree in one call (parent, this,
-this, parent).
+card, run --df32, --newton (or --multi) from each tree in one call
+(parent, this, this, parent).
 """
 
 import argparse
@@ -276,6 +284,105 @@ def _variant_keys(kernel, plans, variants):
         for at, block, minb in variants}
 
 
+#: --newton's lenses and their bench bundles' half widths, mm
+NEWTON_LENSES = (("aspheric double Gauss", 11.6), ("anamorphic pair", 4.),
+                 ("split-conic biconic", 4.))
+
+
+def newton_system(name):
+    """A lens of NEWTON_LENSES."""
+    from rayopt_tpu_torch import System
+    from rayopt_tpu_torch.models import anamorphic_pair, double_gauss
+    if name == "anamorphic pair":
+        return anamorphic_pair()
+    if name == "aspheric double Gauss":
+        s = double_gauss()
+        s[2].conic = -.7
+        s[5].conic = .4
+        s[7].aspherics = [0., 1.2e-7, -3e-11]
+        s.update()
+        return s
+    s = System([dict(material="air"),
+                dict(type="biconic", roc=25.84, curvature_x=.013,
+                     distance=5., material="SCHOTT-BK|N-BK7", radius=10.),
+                dict(type="biconic", distance=3., material="air",
+                     radius=10.),
+                dict(distance=47., radius=10.)])
+    s.object.pupil.radius = 4.
+    s.object.pupil.update_radius = False
+    s.update()
+    s[1].conic = -.4
+    s[1].conic_x = .25
+    s.update()
+    return s
+
+
+def newton_times():
+    """K10 (with the optical path) and K12 on each NEWTON_LENSES lens's
+    plan, K11 (with the path) and K13 on its three plans, fast and exact,
+    at 2^22 bench rays (x, y uniform in the lens's half width, seed 1):
+    {"<lens> <kernel> <fast|exact>": {ms, registers, stack and spill
+    bytes, SASS instructions}} and the keys' build seconds."""
+    import re
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.cuda_build import sass_size
+    from rayopt_tpu_torch.ops.tables import table_at
+    n = 1 << 22
+    cases = {}
+    for name, half in NEWTON_LENSES:
+        s = newton_system(name)
+        table = s.table()
+        if name == "aspheric double Gauss":
+            tabs = s.tables()
+            lam = [table_at(tabs, li) for li in range(tabs.curvature.shape[0])]
+        else:
+            lam = [table.replace(mu=1 + (table.mu - 1)*(1 + .01*li))
+                   for li in range(3)]
+        for fast in (True, False):
+            one = D.plan(table, fast=fast)
+            plans = [D.plan(t, fast=fast) for t in lam]
+            tag = "%s %%s %s" % (name, "fast" if fast else "exact")
+            cases[tag % "K10"] = (CS.df32_multi_key([one], "k11", True),
+                                  half, lambda st, p=one: CD.trace_final_df32(
+                                      p, st, with_path=True))
+            cases[tag % "K12"] = (CS.df32_multi_key([one], "k13"), half,
+                                  lambda st, p=one: CD.trace_merit_df32(p, st))
+            cases[tag % "K11"] = (CS.df32_multi_key(plans, "k11", True), half,
+                                  lambda st, p=plans: CD.trace_multi_df32(
+                                      p, st, with_path=True))
+            cases[tag % "K13"] = (CS.df32_multi_key(plans, "k13"), half,
+                                  lambda st, p=plans:
+                                      CD.trace_merit_multi_df32(p, st))
+    t0 = time.perf_counter()
+    built = CS.prebuild([c[0] for c in cases.values()])
+    out = {"build_s": time.perf_counter() - t0}
+    for tag, (key, half, fn) in cases.items():
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.empty(n, dtype=torch.float64, device="cuda")
+        y = torch.empty_like(x)
+        x.uniform_(-half, half, generator=gen)
+        y.uniform_(-half, half, generator=gen)
+        zero = torch.zeros_like(x)
+        state = D.state_from_f64(torch.stack([x, y, zero], 1),
+                                 torch.stack([zero, zero, zero + 1], 1))
+        kern = built[key]
+        text = kern.build_log
+        regs = re.search(r"Used (\d+) registers", text)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", text)
+        out[tag] = {"ms": cuda_ms(lambda: fn(state), 20),
+                    "registers": int(regs.group(1)),
+                    "stack_bytes": int(frame.group(1)),
+                    "spill_bytes": int(frame.group(2)) + int(frame.group(3)),
+                    "sass_instructions": sass_size(kern.path,
+                                                   kern.entry)[0]}
+        del state
+    torch.cuda.empty_cache()
+    return out
+
+
 def df32_variant_times(s):
     """K11 (with the path) and K13 on the fast plans of the 3
     wavelengths at each of DF32_VARIANTS, and K10 (with the path) and
@@ -325,7 +432,8 @@ def df32_variant_times(s):
                                ptxas=[ln for ln in kern.ptxas_lines()
                                       if "registers" in ln
                                       or "stack frame" in ln],
-                               sass_instructions=sass_size(kern.path)[0],
+                               sass_instructions=sass_size(
+                                   kern.path, kern.entry)[0],
                                nvcc_s=kern.build_seconds)
         for row in rows.values():
             row["ms"] = float(np.mean(row["runs_ms"]))
@@ -407,7 +515,8 @@ def long_plan_times():
                      "dynamic_smem": key.dynamic_smem,
                      "ptxas": [ln for ln in kern.ptxas_lines()
                                if "registers" in ln or "stack frame" in ln],
-                     "sass_instructions": sass_size(kern.path)[0]}
+                     "sass_instructions": sass_size(kern.path,
+                                                   kern.entry)[0]}
     st = df32_state(1 << 14)
     got = CD.trace_final_df32(plan, st, with_path=True)
     want = CD.trace_final_df32_reference(plan, st, with_path=True)
@@ -712,7 +821,7 @@ def multi_variant_times(s, specs):
                     lambda: kern.check(kern.fn(*args)), reps))
                 if "ptxas" not in row:
                     try:
-                        sass = sass_size(kern.path)[0]
+                        sass = sass_size(kern.path, kern.entry)[0]
                     except (OSError, subprocess.CalledProcessError):
                         sass = None
                     row.update(grid=grid, blocks_per_sm=kern.blocks_per_sm(
@@ -855,6 +964,9 @@ def main():
     ap.add_argument("--multi", action="store_true",
                     help="time K3 (and with --variants its variants) "
                     "alone")
+    ap.add_argument("--newton", action="store_true",
+                    help="build and time K10-K13 on the Newton lenses' "
+                    "plans alone")
     ap.add_argument("--long-plan", action="store_true",
                     help="build and time K10 and K12 on a %d-step plan "
                     "(device words) alone" % LONG_STEPS)
@@ -868,6 +980,10 @@ def main():
                           text=True).stdout.strip()
     table = double_gauss().table()
     specs = specialize(table)
+    if args.newton:
+        print(json.dumps({"card": card, "newton": newton_times()}))
+        sys.stdout.flush()
+        return
     if args.long_plan:
         print(json.dumps({"card": card,
                           "long_plan": long_plan_times()}))

@@ -21,7 +21,7 @@ from rayopt_tpu_torch.ops import cuda_df32 as CD
 from rayopt_tpu_torch.ops import cuda_spec as CS
 from rayopt_tpu_torch.ops import cuda_trace as CT
 from rayopt_tpu_torch.ops import df32 as D
-from rayopt_tpu_torch.ops.tables import make_table, rodrigues
+from rayopt_tpu_torch.ops.tables import make_table, rodrigues, table_at
 from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
 from rayopt_tpu_torch.ops.kernels import specialize
 
@@ -2440,35 +2440,127 @@ def test_phase_multi_and_opd_keys_match_plain_on_card(cuda_device, name,
                                               zip(before, calls)]
 
 
+#: gratings and DOEs on cylinders (make_table keyword arguments; row 1):
+#: a grating on a biconic-made y-cylinder, a DOE on a toroid-made one, a
+#: grating on an x-cylinder (tests/test_torch_spec_phase_cylinder.py)
+_PHASE_CYLINDERS = {
+    "grating biconic y": dict(curvature=[0., 1/40., 0.],
+                              curvature_dx=[0., -1/40., 0.],
+                              conic=[0., -.3, 0.], conic_dx=[0., .5, 0.],
+                              grating_dy=[0., .1, 0.]),
+    "doe toroid y": dict(curvature=[0., 1/50., 0.],
+                         curvature_dx=[0., -1/50., 0.],
+                         toroidal=[0., 1., 0.], conic=[0., .2, 0.],
+                         doe=[[0., 0.], [-1.5e-3, 2e-7], [0., 0.]]),
+    "grating biconic x": dict(curvature=[0., 0., 0.],
+                              curvature_dx=[0., 1/45., 0.],
+                              conic_dx=[0., -.4, 0.],
+                              grating_dy=[0., -.15, 0.])}
+_PHASE_SUBSTRATES.update(_PHASE_CYLINDERS)
+#: the df32 phase cases: the phase lenses and the phase cylinders
+_DF32_PHASE = ("hybrid_achromat", "spectrograph", "curved hybrid",
+               "mirror grating", "bk7 grating", "zone plate",
+               "grating biconic y", "doe toroid y")
+
+
+def _df32_phase_case(name, fast, clip):
+    """A phase case's three wavelength plans (_phase_stack's tables) and
+    the bench bundle at its half width (2.5x wide when clipped), on the
+    card, as df32 words."""
+    tabs, _, _, _, half = _phase_stack(name, torch.device("cuda"))
+    plans = [D.plan(table_at(tabs, li), clip=clip, fast=fast)
+             for li in range(3)]
+    scale = half/11.6*(2.5 if clip else 1.)
+    state64 = _bench_state(1 << 16, 14, torch.device("cuda"), torch.float64)
+    state64 = tuple(c*scale if i < 2 else c for i, c in enumerate(state64))
+    return plans, D.state_from_f64(torch.stack(state64[:3], 1),
+                                   torch.stack(state64[3:], 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _prebuild_df32_phase():
+    """Build the keys of every df32 phase case at once (one nvcc a key,
+    in parallel), the first time a case asks."""
+    keys = []
+    for name in _DF32_PHASE:
+        for fast in (True, False):
+            for clip in (False, True):
+                plans, _ = _df32_phase_case(name, fast, clip)
+                keys += [CS.df32_multi_key(plans[:1], "k11", True),
+                         CS.df32_multi_key(plans[:1], "k13"),
+                         CS.df32_multi_key(plans, "k11", True),
+                         CS.df32_multi_key(plans, "k13")]
+    CS.prebuild(keys)
+
+
 @pytest.mark.cuda
-def test_phase_rows_refuse_the_other_kernels_on_card(cuda_device):
-    """On a CUDA bundle a grating on a cylinder makes K3, K6, K7, K8 and
-    K9 (as K1, K2, K4 and K5) raise NotImplementedError naming ROADMAP
-    Queue 1 item 9.4 (part three), and df32.plan raises on the hybrid
-    achromat's DOE row; none falls back to its plain version."""
-    s, half = _phase_system("hybrid_achromat")
-    tab = s.table()
-    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
-        D.plan(tab)
-    cyl = make_table(curvature=[0., 1/40., 0.], curvature_dx=[0., -1/40., 0.],
-                     mu=[1., 1/1.5, 1.], distance=[0., 5., 10.],
-                     grating_dy=[0., .1, 0.], device=cuda_device)
-    specs = specialize(cyl)
-    assert specs[1].cyl_axis and specs[1].grating
-    tabs = type(cyl)(*(None if f is None else torch.stack([f]*2)
-                       for f in cyl))
-    state = _bench_state(64, 1, cuda_device, torch.float64)
-    w = torch.full((64,), 1/64, dtype=torch.float64, device=cuda_device)
-    aux = torch.zeros(CG.AUX, dtype=torch.float64, device=cuda_device)
-    cts = tuple(torch.zeros_like(w) for _ in range(3))
-    before = (CT.trace_multi.launches, CG.opd_chain.launches)
-    for call in (lambda: CT.trace_multi(tabs, specs, state),
-                 lambda: CG.weighted_moments_multi(tabs, specs, state, w),
-                 lambda: CG.merit_adjoint_multi(
-                     tabs, specs, state, w, torch.ones(2, 5, dtype=w.dtype,
-                                                       device=cuda_device)),
-                 lambda: CG.opd_chain(cyl, specs, state, aux),
-                 lambda: CG.opd_adjoint(cyl, specs, state, aux, cts)):
-        with pytest.raises(NotImplementedError, match=r"cylinder.*9\.4"):
-            call()
-    assert (CT.trace_multi.launches, CG.opd_chain.launches) == before
+@pytest.mark.parametrize("case", [("df32", n) for n in _DF32_PHASE]
+                         + [("cylinder %s" % dt, n) for n in _PHASE_CYLINDERS
+                            for dt in ("f64", "f32")])
+def test_phase_rows_refuse_the_other_kernels_on_card(cuda_device, case):
+    """No kernel refuses a phase row on the card now.  "df32": K10 and
+    K11 (with the optical path: a DOE's phase term), K12 and K13 on a
+    phase lens's or phase cylinder's three wavelength plans (one flag
+    tuple) against their plain versions, fast and exact, clip off and
+    on: identical words, the same live count (some live ray unclipped),
+    the moments within 1e-13 of their scale; a freeform row still raises
+    naming item 9.5.
+    "cylinder": a grating or DOE on a cylinder in K1, K2, K4, K5 and K3,
+    K6-K9, in float64 and float32, clip off and on, against their plain
+    versions (test_phase_keys_match_plain_on_card's and
+    test_phase_multi_and_opd_keys_match_plain_on_card's tolerances); no
+    wrapper falls back to its plain version."""
+    kind, name = case
+    if kind.startswith("cylinder"):
+        dtype = torch.float64 if kind.endswith("f64") else torch.float32
+        tab, specs, _ = _phase_case(name, cuda_device)
+        assert specs[1].cyl_axis and (specs[1].grating or specs[1].doe)
+        for clip in (False, True):
+            test_phase_keys_match_plain_on_card(cuda_device, name, dtype,
+                                                clip)
+            test_phase_multi_and_opd_keys_match_plain_on_card(
+                cuda_device, name, dtype, clip)
+        return
+    _prebuild_df32_phase()
+    wrappers = (CD.trace_final_df32, CD.trace_multi_df32,
+                CD.trace_merit_df32, CD.trace_merit_multi_df32)
+    for fast in (True, False):
+        for clip in (False, True):
+            plans, st = _df32_phase_case(name, fast, clip)
+            flags = CS.df32_flags(plans)
+            assert len(set(flags)) == 1
+            assert any(f & (CD.G_GRATING | CD.G_DOE) for f in flags[0])
+            before = [f.launches for f in wrappers]
+            got = CD.trace_final_df32(plans[0], st, with_path=True)
+            want = CD.trace_final_df32_reference(plans[0], st,
+                                                 with_path=True)
+            torch.cuda.synchronize()
+            assert _differing_words(_df32_words(got, True),
+                                    _df32_words(want, True)) == 0
+            assert bool(torch.isfinite(got[0][0][0]).any())
+            got = CD.trace_multi_df32(plans, st, with_path=True)
+            want = CD.trace_multi_df32_reference(plans, st, with_path=True)
+            torch.cuda.synchronize()
+            assert sum(_differing_words(_df32_words(g, True),
+                                        _df32_words(w, True))
+                       for g, w in zip(got, want)) == 0
+            moms = [(CD.trace_merit_df32(plans[0], st),
+                     CD.trace_merit_df32_reference(plans[0], st))]
+            moms += list(zip(CD.trace_merit_multi_df32(plans, st),
+                             CD.trace_merit_multi_df32_reference(plans, st)))
+            for m, r in moms:
+                # clipped, the spectrograph's detector aperture (60 mm)
+                # stops its 56-85 mm off-axis image: no ray is live
+                assert float(m[0]) == float(r[0])
+                assert float(m[0]) > 0 or clip
+                if float(r[0]):
+                    assert _moments_rel(m, r) <= 1e-13
+                else:
+                    assert all(float(a) == float(b) == 0.
+                               for a, b in zip(m, r))
+            assert [f.launches for f in wrappers] == [b + 1 for b in before]
+    free = make_table(curvature=[0., 1/40.], mu=[1., 1/1.5],
+                      xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]],
+                      device=cuda_device)
+    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
+        D.plan(free)

@@ -313,17 +313,35 @@ def test_multi_matches_jax_on_two_wavelengths():
 @pytest.mark.parametrize("field,item", [("doe", "9.4"), ("xy_poly", "9.5"),
                                         ("grating_dy", "9.4")])
 def test_plan_refuses_extended_rows(field, item):
-    """A DOE, an XY-freeform and a grating row raise NotImplementedError
-    naming their ROADMAP item (the aspheric and anamorphic rows are
-    planned: tests/test_torch_df32_newton.py)."""
+    """An XY-freeform row raises NotImplementedError naming its ROADMAP
+    item (9.5); a DOE and a grating row (item 9.4, ported) are planned
+    and traced as the JAX package's eager df32 does, word for word with
+    the optical path (the aspheric and anamorphic rows:
+    tests/test_torch_df32_newton.py; the phase rows in full:
+    tests/test_torch_df32_phase.py)."""
     values = {"doe": [[0.], [1e-4], [0.]],
               "xy_poly": [[0., 0.], [1e-4, 0.], [0., 0.]],
               "grating_dy": [0., .001, 0.]}
     tab = TT.make_table([0., .02, 0.], distance=[0., 5., 40.],
                         mu=[1., 1/1.5, 1.5], **{field: values[field]})
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item %s" % item.replace(".", r"\.")):
-        D.plan(tab)
+    if item == "9.5":
+        with pytest.raises(NotImplementedError,
+                           match="Queue 1 item %s" % item.replace(".",
+                                                                  r"\.")):
+            D.plan(tab)
+        return
+    steps = D.plan(tab)
+    assert (steps[0]["grat"] is not None) == (field == "grating_dy")
+    assert (steps[0]["doe"] is not None) == (field == "doe")
+    jtab = TT.SurfaceTable(*(None if f is None else f.cpu().numpy()
+                             for f in tab))
+    y, u = _bundle(4., n=64)
+    jst, jt = JD.trace_df32_final(JD.plan(jtab), JD.state_from_f64(y, u),
+                                  with_path=True)
+    tst, tt = D.trace_df32_final(steps, D.state_from_f64(
+        torch.from_numpy(y), torch.from_numpy(u)), with_path=True)
+    for g, w in zip((*tst, tt), (*jst, jt)):
+        assert _same_words(g, _pair(w))
 
 
 # -- the wrappers on the CPU and the packed plan ----------------------------
@@ -514,7 +532,7 @@ def test_packed_plan_decodes_like_the_kernel(fast, clip):
     assert steps[-1]["rot_df"] is not None
     words, flags = CD.pack_plan(steps, "cpu")
     # no figure: DW words a step
-    assert words.shape == (len(steps)*CD.DW,) and flags.dtype == torch.int32
+    assert words.shape == (len(steps)*CD.DW,) and flags.dtype == torch.int64
     assert all(CD.step_words(f) == CD.DW for f in flags.tolist())
     rng = np.random.default_rng(5)
     y = np.zeros((256, 3))

@@ -430,8 +430,9 @@ def test_extended_rows_still_raise_everywhere(name):
     word.  Grating and DOE rows are traced by the plain path and by
     every K1-K9 key (tests/test_torch_grating.py,
     tests/test_torch_spec_grating.py, tests/test_torch_spec_grating_
-    paths.py); the df32 plan still raises naming item 9 (9.4, part
-    three)."""
+    paths.py), and the df32 plan traces them as the JAX package's eager
+    df32 does, word for word with the optical path
+    (tests/test_torch_df32_phase.py)."""
     kw = dict(curvature=[0., 1/40.], mu=[1., 1/1.5])
     kw.update(EXTENDED[name])
     tt = TT.table_from_numpy(JT.make_table(**kw))
@@ -483,8 +484,14 @@ def test_extended_rows_still_raise_everywhere(name):
         out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
         assert all(torch.isfinite(c).all() for c in out)
         assert torch.isfinite(CT.trace_final(tt, specs, state)[0][0]).all()
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TD.plan(tt)
+        y, u = np.zeros((8, 3)), np.zeros((8, 3))
+        y[:, 0] = np.linspace(-4, 4, 8)
+        y[:, 1] = np.linspace(3, -3, 8)
+        u[:, 2] = 1.
+        steps = TD.plan(tt)
+        assert (steps[0]["grat"] is None) == (name == "doe")
+        assert (steps[0]["doe"] is None) == (name == "grating")
+        assert df32_matches_jax(tt, y, u)
         return
     with pytest.raises(NotImplementedError, match="item 9"):
         TK.surface_step_spec(state, tt.row(1), specs[1], False)

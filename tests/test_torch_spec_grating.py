@@ -8,9 +8,11 @@ the K5 model of the whole merit against the plain version, the key
 words (F_GRATING, F_DOE below LIVE_SHIFT), the packed rows and K5's
 grating_dy and DOE slots, the baked-out phase slots and their warning,
 the keys of K3 and K6-K9 on the phase rows (their slots: K7's as K5's,
-K9's with n_after), what still refuses (df32.plan: item 9.4, part
-three; a phase row on a cylinder in every key; freeform rows
-everywhere: item 9.5), and optimize_grad(engine="adjoint") over
+K9's with n_after), the df32 plan of the phase rows (traced as the JAX
+package's eager df32: tests/test_torch_df32_phase.py) and a phase row
+on a cylinder in every key (tests/test_torch_spec_phase_cylinder.py),
+what still refuses (freeform rows everywhere: item 9.5), and
+optimize_grad(engine="adjoint") over
 curvature, distance and doe on the hybrid achromat against the JAX
 package.  The paths of K3 and K6-K9 on the phase rows are
 tests/test_torch_spec_grating_paths.py.  The kernels
@@ -38,6 +40,7 @@ from rayopt_tpu_torch.parallel import grad as TGR
 
 from test_torch_anamorphic import (_cpu_default, _one_thread,  # noqa: F401
                                    _t, bundle)
+from test_torch_df32_newton import df32_matches_jax
 from test_torch_grating import LENSES, PHASE_ROWS, lens
 
 F64 = torch.float64
@@ -296,10 +299,12 @@ def _phase_specs():
 
 @pytest.mark.parametrize("name", ["grating", "doe"])
 def test_the_other_kernels_refuse_phase_rows(name):
-    """Only the df32 plan refuses a grating or DOE row now: it raises
-    NotImplementedError naming ROADMAP Queue 1 item 9.4 (part three).
-    The keys of K3 (trace and merit), K6, K7, K8 and K9, as K1, K2, K4
-    and K5's, take it: grating and nd set, the rows packed with
+    """No kernel refuses a grating or DOE row now: the df32 plan plans
+    it (its grating term, or the DOE's kick and path coefficients) and
+    traces it as the JAX package's eager df32 does, word for word with
+    the optical path.  The keys of K3 (trace and merit), K6, K7, K8 and
+    K9, as K1, K2, K4 and K5's, take it: grating and nd set, the rows
+    packed with
     grating_dy and with n_after and the DOE coefficients; K7's slots are
     K5's (SLOTS [+ 1] [+ nd]), K9's OPD_SLOTS [+ 1] [+ 1 + nd] with
     n_after live on the DOE row alone; a DOE key without its width
@@ -309,8 +314,11 @@ def test_the_other_kernels_refuse_phase_rows(name):
     nd = CT.doe_width(tt, specs)
     grating = name == "grating"
     assert nd == (0 if grating else 1)
-    with pytest.raises(NotImplementedError, match=r"item 9\.4"):
-        TD.plan(tt)
+    steps = TD.plan(tt)
+    assert (steps[0]["grat"] is not None) == grating
+    assert (steps[0]["doe"] is not None) == (not grating)
+    y, u = bundle(16, 3, 3.)
+    assert df32_matches_jax(tt, y, u)
     makes = {"k1": lambda sp, **kw: CS.trace_key(sp, F64, **kw),
              "k2": lambda sp, **kw: CS.merit_key(sp, F64, **kw),
              "k3": lambda sp, **kw: CS.trace_multi_key(sp, F64, 2, **kw),
@@ -355,10 +363,12 @@ def test_the_other_kernels_refuse_phase_rows(name):
 
 
 def test_a_phase_cylinder_and_a_freeform_row_refuse():
-    """A grating on a cylinder: the plain path traces it, every K1-K9 key
-    and the hand reverse (K5's and K9's PATH form) refuse it (item 9.4,
-    part three); a freeform row raises naming item 9.5 in the
-    specialized and the generic step."""
+    """A grating on a cylinder: the plain path traces it, and every K1-K9
+    key and the hand reverse (K5's and K9's PATH form) take it (the key
+    row marks the biconic that made the cylinder; the reverse against
+    autograd: tests/test_torch_spec_phase_cylinder.py); a freeform row
+    raises naming item 9.5 in the specialized and the generic step and
+    in a key."""
     kw = dict(curvature=[0., 1/40., 0.], curvature_dx=[0., -1/40., 0.],
               mu=[1., 1/1.5, 1.], distance=[0., 5., 10.],
               grating_dy=[0., .1, 0.])
@@ -374,13 +384,19 @@ def test_a_phase_cylinder_and_a_freeform_row_refuse():
                  lambda sp, dt: CS.trace_multi_key(sp, dt, 2),
                  lambda sp, dt: CS.trace_multi_key(sp, dt, 2, merit=True),
                  lambda sp, dt: CS.moments_multi_key(sp, dt, False, 2)):
-        with pytest.raises(NotImplementedError, match=r"cylinder.*9\.4"):
-            make(specs, F64)
+        key = make(specs, F64)
+        assert key.grating and key.anamorphic
+        fl = key.words[1] & ((1 << CS.LIVE_SHIFT) - 1)
+        assert fl & CT.F_CYL_Y and fl & CT.F_BICONIC and fl & CT.F_GRATING
+    g = tuple(torch.from_numpy(v) for v in
+              np.random.RandomState(2).normal(size=(6, 8)))
     for ct_path in (None, torch.ones(8, dtype=F64)):
-        with pytest.raises(NotImplementedError, match=r"9\.4"):
-            CG._step_vjp_reference(state, tt.row(1), specs[1],
-                                   (torch.zeros(8, dtype=F64),)*6,
-                                   ct_path=ct_path)
+        gs, gp = CG._step_vjp_reference(state, tt.row(1), specs[1], g,
+                                        ct_path=ct_path)
+        assert all(torch.isfinite(v).all() for v in (*gs, *gp))
+        # curvature_dx's cotangent: the normal of the biconic (cx = 0)
+        q = 6 + (ct_path is not None)
+        assert bool(gp[q].any())
     kw = dict(curvature=[0., 1/40.], mu=[1., 1/1.5],
               xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]])
     ft = TT.table_from_numpy(JT.make_table(**kw))
