@@ -162,6 +162,12 @@ DF32_REL = 1e-13     # df32 kernel vs plain: of max(1, |value|) per output
 DF32_F64_ATOL = 1e-10  # mm: df32 K10 image positions vs float64 K1
 GRAD_F64_REL = 1e-9  # float64 K5 cotangents, of their field's/kind's max
 GRAD_F32_REL = 1e-3  # float32 K5 on axis: sums of 2^20 float32 terms
+COLUMN_FLOOR = 1e-9  # a parameter field is held to its largest plain
+#                      cotangent, or to this share of the key's largest
+#                      where that is more: a field that vanishes (mu
+#                      through a flat plate at normal incidence, 1e-9 of
+#                      the plate's xy_poly 2.5e5) is the rounding of the
+#                      key's terms; a field at zero stays exact
 F32_RAY_REL = 1e-2   # float32 K5 ray cotangents: a float32 image
 #                      coordinate carries K1's ~2e-5 mm on a ~0.03 mm
 #                      spot, twice that on the weight cotangent's squares
@@ -371,15 +377,19 @@ GRAD_FIELDS = (("curvature", slice(0, 1)), ("conic", slice(1, 2)),
 
 def compare_param_grads(got, want, rel, fields=GRAD_FIELDS):
     """{field: (max abs error, max |plain|, ok)}: each field of `fields`
-    (name, its columns) against its largest plain cotangent; a field
-    the specialization bakes out on every row (plain all zero) must come
-    out exactly zero."""
+    (name, its columns) against its largest plain cotangent, floored at
+    COLUMN_FLOOR of the largest over all fields; a field the
+    specialization bakes out on every row (plain all zero) must come out
+    exactly zero."""
     out = {}
+    top = max(float(want[:, cols].double().abs().max())
+              for _, cols in fields)
     for name, cols in fields:
         g, w = got[:, cols].double(), want[:, cols].double()
         err, scale = float((g - w).abs().max()), float(w.abs().max())
+        held = max(scale, COLUMN_FLOOR*top) if scale else 0.
         out[name] = (err, scale,
-                     bool(torch.isfinite(g).all()) and err <= rel*scale)
+                     bool(torch.isfinite(g).all()) and err <= rel*held)
     return out
 
 
@@ -1183,29 +1193,33 @@ def step0_cross_check(step0, card0, bundles, aimed, check_nrays):
                               if not v <= OPT_GRAD_REL]
 
 
-def designer_loop(s, title, select, scales=None, check_nrays=None):
-    """bundles_from_system (3 fields x 3 wavelengths, hexapolar nrays
-    N_OPT) -> optimize_grad(engine="adjoint", select, scales) in float64
-    for OPT_STEPS Adam steps on the card, its step 0 against the same
-    call on the CPU plain versions (step0_cross_check), then
-    write_back_table of the fields with an element attribute.  Returns
-    (the launches of the card's run, counted from 0 at its start; mean
-    seconds of the later steps)."""
+def designer_loop(s, title, select, scales=None, check_nrays=None,
+                  fields=None, lr=OPT_LR):
+    """bundles_from_system (3 fields -- or `fields` -- x 3 wavelengths,
+    hexapolar nrays N_OPT) -> optimize_grad(engine="adjoint", select,
+    scales) in float64 for OPT_STEPS Adam steps at `lr` on the card, its
+    step 0 against the same call on the CPU plain versions
+    (step0_cross_check), then write_back_table of the fields with an
+    element attribute.  Returns (the launches of the card's run, counted
+    from 0 at its start; mean seconds of the later steps)."""
     from rayopt_tpu_torch.parallel import (
         bundles_from_system, bundles_to, optimize_grad, write_back_table)
     from rayopt_tpu_torch.parallel.grad import _WRITE_BACK
     log("== %s, bundles_from_system (hexapolar, nrays %d) -> "
         "optimize_grad(engine='adjoint', select=%s, scales=%s), float64, %d "
-        "Adam steps at lr %g" % (title, N_OPT, select, scales, OPT_STEPS,
-                                 OPT_LR))
+        "Adam steps at lr %g" % (title, N_OPT, select, scales and {
+            k: getattr(v, "shape", v) for k, v in scales.items()},
+            OPT_STEPS, lr))
     t0 = time.perf_counter()
     efl0 = float(s.paraxial.focal_length[1])
+    fields = s.fields if fields is None else fields
 
     def aimed(nrays):
-        return bundles_from_system(s, nrays=nrays, distribution="hexapolar")
+        return bundles_from_system(s, fields=fields, nrays=nrays,
+                                   distribution="hexapolar")
     bundles = aimed(N_OPT)
     log("%d bundles (%d fields x %d wavelengths) of %d rays, %d rays in "
-        "all, aimed in %.2f s" % (len(bundles), len(s.fields),
+        "all, aimed in %.2f s" % (len(bundles), len(fields),
                                  len(s.wavelengths), bundles[0][0].shape[0],
                                  sum(b[0].shape[0] for b in bundles),
                                  time.perf_counter() - t0))
@@ -1215,7 +1229,7 @@ def designer_loop(s, title, select, scales=None, check_nrays=None):
         grads = {}
         _, (merit,) = optimize_grad(s.table(device=device),
                                     bundles_to(b, device), select=select,
-                                    steps=1, lr=OPT_LR, scales=scales,
+                                    steps=1, lr=lr, scales=scales,
                                     engine="adjoint",
                                     callback=step0_grads(grads))
         return merit, grads
@@ -1227,7 +1241,7 @@ def designer_loop(s, title, select, scales=None, check_nrays=None):
         # intended
         warnings.simplefilter("ignore")
         tab_opt, hist = optimize_grad(table, bundles, select=select,
-                                      steps=OPT_STEPS, lr=OPT_LR,
+                                      steps=OPT_STEPS, lr=lr,
                                       scales=scales, engine="adjoint",
                                       callback=step0_grads(grads0, ends))
         torch.cuda.synchronize()
@@ -1248,7 +1262,9 @@ def designer_loop(s, title, select, scales=None, check_nrays=None):
     log("== launch counts on the %s: %s" % (title.split(":")[0], launches))
     if not hist[-1] < hist[0]:
         failures.append("the merit did not fall")
-    if not np.isfinite(efl1):
+    if np.isfinite(efl0) and not np.isfinite(efl1):
+        # (an on-axis object, as the Schmidt corrector's, has no
+        # paraxial chief ray: its EFL is NaN before and after)
         failures.append("EFL after write-back")
     if not (launches["weighted_moments"] and launches["merit_adjoint"]):
         failures.append("K4 or K5 never launched: %s" % launches)
@@ -2175,7 +2191,9 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
     failures += host_opd_check(s, opd_kw)
     if not all(b < a for a, b in zip(hist[:-1], hist[1:])):
         failures.append("the merit did not fall at every step")
-    if not np.isfinite(efl1):
+    if np.isfinite(efl0) and not np.isfinite(efl1):
+        # (an on-axis object, as the Schmidt corrector's, has no
+        # paraxial chief ray: its EFL is NaN before and after)
         failures.append("EFL after write-back")
     path = ("weighted_moments", "merit_adjoint", "opd_chain", "opd_adjoint")
     if not all(launches[k] for k in path):
@@ -4438,7 +4456,7 @@ PHASE_SOLVE_FLOPS = 55   # the grating/phase solve without the kick
 PHASE_RADIAL_FLOPS = 11  # a phase row's radial normal (kernels.normal_radial)
 
 
-def phase_row_flops(spec, widths=(0, 0), nd=0):
+def phase_row_flops(spec, widths=(0, 0), nd=0, nxy=0):
     """Operations of one surface_step on a phase row: its substrate's
     intercept and transfer (row_flops of the row as a passthrough: a
     phase cylinder's closed form), the substrate's normal (a flat's
@@ -4448,8 +4466,10 @@ def phase_row_flops(spec, widths=(0, 0), nd=0):
     its norm, b, Gamma's root and the new direction) and a DOE's kick
     (Horner, 2 a coefficient) and optical path term."""
     base = row_flops(spec._replace(kind=0, grating=False, doe=False),
-                     widths)
-    if spec.biconic or spec.toroidal:
+                     widths, nxy=nxy)
+    if spec.freeform:
+        normal = slope_flops(*widths) - 6 + xy_flops(nxy)[1]
+    elif spec.biconic or spec.toroidal:
         c = ANAM_FLOPS["toroid" if spec.toroidal else "biconic"]
         normal = c["refract"] - 37 + anam_figure_flops(*widths)[1]
     elif spec.flat and not (spec.aspheric or spec.odd):
@@ -5499,6 +5519,640 @@ def cylinder_entries(sources, launches, worst, times, live, ptxas):
                           pre + "spill_bytes_f32": spill})
         entries.append(entry)
     return entries
+
+
+# -- the freeform XY rows ----------------------------------------------------
+
+#: the freeform designer loop: Adam on the normalized XY coefficients
+#: (optimize_grad's scales, freeform_scales), at the JAX package's
+#: test_optimize_grad_xy_poly_scales rate
+FF_LR = 2e-4
+FF_SELECT = ("xy_poly",)
+#: the freeform lens timed against its freeform-free twin
+FF_TIMED = "schmidt corrector"
+#: the CPU float64 check's rays of each forward-path bundle (its first)
+N_FF_REF = 1 << 18
+#: K5 vs central differences: a relative step of the XY singlet's
+#: quadratic terms, and mm of sag at the norm radius of the Schmidt
+#: plate's x^4 term (its value is the 1e-10 seed)
+FF_FD_REL_STEP = 1e-6
+FF_FD_SAG = 1e-6
+FF_FD_PICKS = (("xy singlet", 2), ("xy singlet", 3), ("xy singlet", 4),
+               ("schmidt corrector", 9))
+#: K1's freeform key vs the biconic key on the quadratic pair, of scale
+FF_TWIN_REL = 1e-13
+#: a figured Schmidt plate (normalized coefficients, mm of sag at R): the
+#: x^2/y^2 and x^4/x^2y^2/y^4 terms of a Schmidt profile, and small
+#: asymmetric terms
+SCHMIDT_FIGURE = [0., 0., -.02, .001, -.021, 0., 1e-4, 0., -2e-4, .012, 0.,
+                  .024, 1e-4, .0118]
+
+
+def schmidt_corrector(coefficients=None):
+    """The JAX package's freeform Schmidt corrector
+    (tests/test_freeform.py test_freeform_corrector_design): a degree-4
+    xypoly plate (14 terms seeded at 1e-10: an exactly-zero row is baked
+    out of the specialization; norm radius 25 mm, N-BK7) 5 mm ahead of
+    an f/2 R = -200 mm mirror, a 25 mm pupil, on axis; `coefficients`
+    replaces the seed (coefficients=[]: the freeform-free twin)."""
+    from rayopt_tpu_torch import System
+    s = System([
+        dict(material="air"),
+        dict(type="xypoly", xy_coefficients=[1e-10]*14 if coefficients
+             is None else coefficients, norm_radius=25., distance=5.,
+             material="SCHOTT-BK|N-BK7", radius=26.),
+        dict(distance=4., material="air", radius=26.),
+        dict(roc=-200., distance=100., material="mirror", radius=30.),
+        dict(distance=-95., radius=5.)])
+    s.object.pupil.radius = 25.
+    s.object.pupil.update_radius = False
+    s.update()
+    return s
+
+
+def zernike_corrector():
+    """The JAX package's Zernike corrector (tests/test_freeform.py
+    _zernike_system): Z11 = 0.002 at a 10 mm norm radius on an N-BK7
+    plate, an R = -100 mirror fold."""
+    from rayopt_tpu_torch import System
+    s = System([
+        dict(material="air"),
+        dict(type="zernike", zernike_coefficients=[0.]*10 + [.002],
+             norm_radius=10., distance=5., material="SCHOTT-BK|N-BK7",
+             radius=10.),
+        dict(distance=3., material="air", radius=10.),
+        dict(roc=-100., distance=50., material="mirror", radius=12.),
+        dict(distance=-48., radius=5.)])
+    s.object.pupil.radius = 8.
+    s.object.pupil.update_radius = False
+    s.update()
+    return s
+
+
+def xy_singlet():
+    """The JAX package's quadratic XY singlet (tests/test_freeform.py
+    _xysystem): a degree-2 figure with an xy cross term."""
+    from rayopt_tpu_torch import System
+    s = System([
+        dict(material="air"),
+        dict(type="xypoly", xy_coefficients=[0, 0, .25, .02, .4],
+             norm_radius=5., distance=5., material="SCHOTT-BK|N-BK7",
+             radius=4.),
+        dict(distance=3., material="air", radius=4.),
+        dict(distance=40., radius=5.)])
+    s.object.pupil.radius = 2.
+    s.object.pupil.update_radius = False
+    s.update()
+    return s
+
+
+def freeform_tables():
+    """make_table keyword arguments of the table lenses (the freeform row
+    is row 1): the JAX package's quadratic freeform singlet
+    (_freeform_table) and its biconic paraboloid twin, a freeform on a
+    curved conic base with an even aspheric term, a freeform on a
+    grating row."""
+    cx, cy = 1/80., 1/50.
+    rows = dict(distance=[0., 10., 3., 40.], n_before=[1., 1., 1.5, 1.],
+                n_after=[1., 1.5, 1., 1.], mu=[1., 1/1.5, 1.5, 1.])
+    return {
+        "quadratic freeform": dict(
+            rows, curvature=[0.]*4,
+            xy_poly=[[0.]*5, [0., 0., cx/2, 0., cy/2], [0.]*5, [0.]*5]),
+        "biconic paraboloid": dict(
+            rows, curvature=[0., cy, 0., 0.], conic=[0., -1., 0., 0.],
+            curvature_dx=[0., cx - cy, 0., 0.]),
+        "aspheric base": dict(
+            curvature=[0., 1/60., -1/80., 0.], conic=[0., -.6, 0., 0.],
+            aspherics=[[0., 0.], [2e-6, -3e-9], [0., 0.], [0., 0.]],
+            xy_poly=[[0.]*9, [1e-4, -2e-4, 3e-3, 1e-3, -2e-3, 2e-5, -1e-5,
+                              3e-5, 1e-5], [0.]*9, [0.]*9],
+            distance=[0., 10., 4., 40.], n_before=[1., 1., 1.5, 1.],
+            n_after=[1., 1.5, 1., 1.], mu=[1., 1/1.5, 1.5, 1.],
+            radius=[np.inf, 9., 9., 20.]),
+        "freeform grating": dict(
+            rows, curvature=[0., 1/70., 0., 0.], grating_dy=[0., .08, 0., 0.],
+            xy_poly=[[0.]*5, [0., 0., 2e-3, -1e-3, 1.5e-3], [0.]*5, [0.]*5],
+            radius=[np.inf, 9., 9., 20.])}
+
+
+def freeform_lenses():
+    """{name: (system or None, table on the card, specs, bench half
+    width)} of the freeform lenses: the Schmidt corrector (seeded, as
+    its designer loop runs it, and figured), the Zernike corrector, the
+    quadratic XY singlet and three table lenses (freeform_tables: the
+    quadratic freeform singlet, a freeform on an aspheric base and on a
+    grating row)."""
+    from rayopt_tpu_torch.ops.kernels import specialize
+    from rayopt_tpu_torch.ops.tables import make_table
+    builds = {"schmidt corrector": (schmidt_corrector, 17.),
+              "figured schmidt": (lambda: schmidt_corrector(SCHMIDT_FIGURE),
+                                  17.),
+              "zernike corrector": (zernike_corrector, 7.),
+              "xy singlet": (xy_singlet, 2.5)}
+    out = {}
+    for name, (build, half) in builds.items():
+        s = build()
+        table = s.table()
+        out[name] = (s, table, specialize(table), half)
+    for name, kw in freeform_tables().items():
+        if name == "biconic paraboloid":
+            continue
+        table = make_table(**kw)
+        out[name] = (None, table, specialize(table), 5.)
+    return out
+
+
+def freeform_bundle_of(half, slope=.03):
+    """The freeform checks' bench bundle: x, y uniform in +-half mm and
+    direction slopes uniform in +-slope (0: collimated on the axis, as
+    the Schmidt corrector's loop runs; its mu column then vanishes
+    through the nearly flat plate, COLUMN_FLOOR), ray 0 on the axis."""
+    def bundle(n, dtype, seed, widen=1.):
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        c = torch.empty((4, n), dtype=torch.float64, device=DEVICE)
+        c[:2].uniform_(-half*widen, half*widen, generator=gen)
+        c[2:].uniform_(-slope, slope, generator=gen)
+        c[:, 0] = 0.
+        uz = torch.sqrt(1 - c[2]*c[2] - c[3]*c[3])
+        return tuple(v.to(dtype).contiguous() for v in (
+            c[0], c[1], torch.zeros_like(uz), c[2], c[3], uz))
+    return bundle
+
+
+def freeform_grad_fields(table, specs):
+    """K5's cotangent columns by table field on a freeform key:
+    GRAD_FIELDS, the table's aspheric coefficients (read by the freeform
+    row), grating_dy where a row is a grating, then the XY coefficients
+    (xy_width), last."""
+    from rayopt_tpu_torch.ops.cuda_trace import (carries_grating,
+                                                 figure_widths, xy_width)
+    q = 6
+    out = GRAD_FIELDS
+    for f, w in zip(("aspherics", "aspherics_odd"),
+                    figure_widths(table, specs)):
+        if w:
+            out += ((f, slice(q, q + w)),)
+            q += w
+    if carries_grating(specs):
+        out += (("grating_dy", slice(q, q + 1)),)
+        q += 1
+    return out + (("xy_poly", slice(q, q + xy_width(table, specs))),)
+
+
+def freeform_twin():
+    """The Schmidt corrector's freeform-free twin (the plate with
+    `xy_coefficients: []`): (table on the card, specs)."""
+    from rayopt_tpu_torch.ops.kernels import specialize
+    table = schmidt_corrector([]).table()
+    return table, specialize(table)
+
+
+def freeform_keys():
+    """{tag: key} of the freeform keys this script runs: K1, K2, K4 and
+    K5 (every field, with the ray cotangents) in float64, unclipped, on
+    every freeform lens, and on the Schmidt correctors also float32
+    unclipped and float64 clipped; the Schmidt corrector's loop K5
+    (xy_poly, no ray cotangents) in both dtypes, its freeform-free
+    twin's keys (K1, K2, K4, K5 every field and OPT_FIELDS) in both
+    dtypes, the finite-difference checks' float64 K5 (xy_poly), the
+    biconic twin of the quadratic freeform's K1 and the forward path's
+    keys at each of the Schmidt corrector's and the Zernike corrector's
+    wavelengths."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
+                                                 xy_width)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    from rayopt_tpu_torch.ops.tables import make_table
+    f64, f32 = torch.float64, torch.float32
+    keys = {}
+
+    def kw(table, specs):
+        return dict(widths=figure_widths(table, specs),
+                    nd=doe_width(table, specs), nxy=xy_width(table, specs))
+    for name, (s, table, specs, _) in freeform_lenses().items():
+        tag = name.replace(" ", "-")
+        schmidt = name.endswith("schmidt") or name == FF_TIMED
+        runs = [(f64, False)] + ([(f32, False), (f64, True)] if schmidt
+                                 else [])
+        for dtype, clip in runs:
+            sfx = "%s %s clip=%s" % (str(dtype)[6:], tag, clip)
+            keys["K1 " + sfx] = CS.trace_key(specs, dtype, clip,
+                                             **kw(table, specs))
+            keys["K2 " + sfx] = CS.merit_key(specs, dtype, clip,
+                                             **kw(table, specs))
+            keys["K4 " + sfx] = CS.moments_key(specs, dtype, clip,
+                                               **kw(table, specs))
+            keys["K5 %s all rays=True" % sfx] = CS.adjoint_key(
+                specs, dtype, clip, **kw(table, specs))
+        for lens, _ in FF_FD_PICKS:
+            if lens == name:
+                keys["K5 float64 %s fd xy_poly rays=False" % tag] = \
+                    CS.adjoint_key(specs, f64, fields=FF_SELECT, rays=False,
+                                   **kw(table, specs))
+        if s is not None and name in (FF_TIMED, "zernike corrector"):
+            # the forward path: each wavelength's table (its specs)
+            for li, lam in enumerate(s.wavelengths):
+                t = s.table(lam)
+                sp = specialize(t)
+                for dtype in (f64, f32):
+                    dt = str(dtype)[6:]
+                    keys["K1 %s %s path %d" % (dt, tag, li)] = CS.trace_key(
+                        sp, dtype, **kw(t, sp))
+                    keys["K2 %s %s path %d" % (dt, tag, li)] = CS.merit_key(
+                        sp, dtype, **kw(t, sp))
+        if name == FF_TIMED:
+            twin, tspecs = freeform_twin()
+            for dtype in (f32, f64):
+                dt = str(dtype)[6:]
+                keys["K5 %s %s designer rays=False" % (dt, tag)] = \
+                    CS.adjoint_key(specs, dtype, fields=FF_SELECT,
+                                   rays=False, **kw(table, specs))
+                tsfx = "%s %s twin" % (dt, tag)
+                keys["K1 " + tsfx] = CS.trace_key(tspecs, dtype)
+                keys["K2 " + tsfx] = CS.merit_key(tspecs, dtype)
+                keys["K4 " + tsfx] = CS.moments_key(tspecs, dtype)
+                keys["K5 %s all rays=True" % tsfx] = CS.adjoint_key(tspecs,
+                                                                    dtype)
+                keys["K5 %s designer rays=False" % tsfx] = CS.adjoint_key(
+                    tspecs, dtype, fields=OPT_FIELDS, rays=False)
+    bt = make_table(**freeform_tables()["biconic paraboloid"])
+    keys["K1 float64 biconic-paraboloid clip=False"] = CS.trace_key(
+        specialize(bt), f64)
+    return keys
+
+
+def phase_freeform_check():
+    """K1, K2, K4 and K5 (every field, with the ray cotangents) on every
+    freeform lens against their plain versions on the card at N_CHECK
+    rays of the lens's bench bundle (freeform_bundle_of): float64
+    unclipped
+    on each (F64_REL of scale for K1 and K2, GRAD_F64_REL of a column's
+    largest for K5, its XY columns among them); on the Schmidt correctors
+    also float32 unclipped and float64 clipped on the bundle 1.5x wide,
+    and K4/K5 float64 unclipped on the collimated bundle.
+    Then K1's freeform key against the biconic key on the quadratic pair
+    (FF_TWIN_REL) and K5's float64 gradient against central differences
+    (phase_freeform_fd_check).  The bundle: freeform_bundle_of, slopes
+    within +-0.03.  Returns the float32 errors."""
+    worst = {}
+
+    def keep(errs):
+        worst.update({k: max(v, worst.get(k, 0.)) for k, v in errs.items()})
+    f64 = (torch.float64,)
+    for lens, (s, table, specs, half) in freeform_lenses().items():
+        bundle = freeform_bundle_of(half)
+        fields = freeform_grad_fields(table, specs)
+        schmidt = lens.endswith("schmidt") or lens == FF_TIMED
+        dtypes = (torch.float32, torch.float64) if schmidt else f64
+        keep(phase_check(table, specs, lens, bundle, (False,), dtypes))
+        keep(phase_grad_check(table, specs, lens, bundle, (False,), fields,
+                              dtypes))
+        if schmidt:
+            wide = functools.partial(bundle, widen=1.5)
+            phase_check(table, specs, lens, wide, (True,), f64)
+            phase_grad_check(table, specs, lens, wide, (True,), fields, f64)
+            phase_grad_check(table, specs, lens + ", collimated",
+                             freeform_bundle_of(half, 0.), (False,), fields,
+                             f64)
+    freeform_twin_check()
+    phase_freeform_fd_check()
+    return worst
+
+
+def freeform_twin_check():
+    """K1's freeform key on the quadratic freeform singlet against K1's
+    biconic key on its biconic paraboloid twin (a quadratic freeform IS
+    that biconic: the JAX package's exactness oracle), float64, N_CHECK
+    rays of the bench bundle, each output within FF_TWIN_REL of its
+    scale, equal NaN masks."""
+    from rayopt_tpu_torch.ops.cuda_trace import trace_final
+    from rayopt_tpu_torch.ops.kernels import specialize
+    from rayopt_tpu_torch.ops.tables import make_table
+    log("== K1's freeform key vs its biconic key on the quadratic pair "
+        "(float64, %d rays)" % N_CHECK)
+    kws = freeform_tables()
+    state = phase_bundle_of(5.)(N_CHECK, torch.float64, SEED)
+    out = []
+    for name in ("quadratic freeform", "biconic paraboloid"):
+        table = make_table(**kws[name])
+        specs = specialize(table)
+        out.append(trace_final(table, specs, state))
+    torch.cuda.synchronize()
+    masks, rel = 0, 0.
+    for a, b in zip((*out[0][0], out[0][1]), (*out[1][0], out[1][1])):
+        masks = max(masks, int((torch.isnan(a) != torch.isnan(b)).sum()))
+        live = ~(torch.isnan(a) | torch.isnan(b))
+        scale = max(float(b[live].abs().max()), 1.)
+        rel = max(rel, float((a[live] - b[live]).abs().max())/scale)
+    ok = masks == 0 and rel <= FF_TWIN_REL
+    log("K1 freeform key vs biconic key: max rel err %.3e, NaN masks differ "
+        "on %d rays -> %s" % (rel, masks, "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("K1's freeform key disagrees with the biconic "
+                             "key on the quadratic pair")
+
+
+def phase_freeform_fd_check():
+    """K5's float64 gradient of the K4 merit (the spot RMS of N_CHECK
+    bench rays) in xy_poly against central differences: the XY
+    singlet's x^2, xy and y^2 terms (a relative step FF_FD_REL_STEP) and
+    the seeded Schmidt plate's x^4 term (FF_FD_SAG mm of sag at its norm
+    radius)."""
+    from rayopt_tpu_torch.ops.cuda_grad import spot_moments, weighted_moments
+    from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    cases = freeform_lenses()
+    log("== K5 on the freeform lenses vs central differences of the K4 "
+        "merit (float64, %d bench rays)" % N_CHECK)
+    failures = []
+    for lens, idx in FF_FD_PICKS:
+        _, table, specs, half = cases[lens]
+        state = phase_bundle_of(half)(N_CHECK, torch.float64, SEED)
+        w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+        v = table.xy_poly.clone().requires_grad_()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")    # the baked rows, as intended
+            mom = spot_moments(table.replace(xy_poly=v), state, w,
+                               specs=specs)
+        spot_rms_from_moments(*mom).backward()
+
+        def merit(tab):
+            return float(spot_rms_from_moments(*weighted_moments(
+                tab, specs, state, w)))
+        value = float(table.xy_poly[1, idx])
+        h = (FF_FD_SAG/25.**4 if lens == "schmidt corrector"
+             else FF_FD_REL_STEP*abs(value))
+        side = []
+        for sgn in (1., -1.):
+            b = table.xy_poly.clone()
+            b[1, idx] += sgn*h
+            side.append(merit(table.replace(xy_poly=b)))
+        fd = (side[0] - side[1])/(2*h)
+        g = float(v.grad[1, idx])
+        rel = abs(g - fd)/abs(fd)
+        ok = rel <= FD_REL
+        log("%s, xy_poly[1, %d] (value %.6g): K5 %.12g, central difference "
+            "%.12g (step %.3g), rel %.2e -> %s"
+            % (lens, idx, value, g, fd, h, rel, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s xy_poly %d" % (lens, idx))
+    if failures:
+        raise AssertionError("K5 on the freeform lenses disagrees with "
+                             "finite differences: " + ", ".join(failures))
+
+
+def freeform_forward(s, title, n, n_ref):
+    """One freeform lens's forward path at field 0: at each of its
+    wavelengths, n rays aimed by the host into the pupil (uniform on the
+    disc), float64 K1 (trace_rays_final_fast, precision "parity") and K2,
+    float32 K1 and K2, and the spot RMS of float64 K1's output on the
+    first n_ref rays against the CPU float64 plain trace (the generic
+    walk, PARITY_REL, equal NaN masks)."""
+    from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
+                                                 trace_merit)
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
+    from rayopt_tpu_torch.ops.kernels import specialize
+    log("== %s forward path: field 0, %d aimed rays at each of its %d "
+        "wavelengths, no clip" % (title, n, len(s.wavelengths)))
+    rng = np.random.RandomState(SEED + 11)
+    failures = []
+    for lam in s.wavelengths:
+        table = s.table(lam)
+        table_cpu = s.table(lam, device="cpu")
+        specs = specialize(table)
+        t0 = time.perf_counter()
+        zf, pf = s.pupil((0., 0.), l=lam)
+        r = np.sqrt(rng.uniform(0, 1, n))
+        th = rng.uniform(0, 2*np.pi, n)
+        yp = np.stack([r*np.cos(th), r*np.sin(th)], 1)
+        y0, u0 = s.aim((0., 0.), yp, zf, pf, filter=False)
+        t_aim = time.perf_counter() - t0
+        yc, uc = (torch.from_numpy(v).to(DEVICE) for v in (y0, u0))
+        t0 = time.perf_counter()
+        y64, u64, _ = trace_rays_final_fast(table, yc, uc, specs=specs,
+                                            precision="parity")
+        rms_k1, live = spot_rms(y64, u64)
+        state64 = tuple(c.contiguous() for c in (*yc.T, *uc.T))
+        rms_k2 = float(spot_rms_from_moments(*trace_merit(table, specs,
+                                                          state64)))
+        y32, u32, _ = trace_rays_final_fast(table, yc.float(), uc.float(),
+                                            specs=specs)
+        rms_k1_32, _ = spot_rms(y32, u32)
+        rms_k2_32 = float(spot_rms_from_moments(*trace_merit(
+            table, specs, tuple(c.float() for c in state64))))
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        rms_sub, live_sub = spot_rms(y64[:n_ref], u64[:n_ref])
+        t0 = time.perf_counter()
+        yh, uh, _ = trace_rays_final_fast(table_cpu, yc[:n_ref].cpu(),
+                                          uc[:n_ref].cpu())
+        rms_cpu, live_cpu = spot_rms(yh, uh)
+        t_cpu = time.perf_counter() - t0
+        masks = int((torch.isnan(y64[:n_ref, 0].cpu())
+                     != torch.isnan(yh[:, 0])).sum())
+        rel1 = abs(rms_sub - rms_cpu)/rms_cpu
+        ok = (np.isfinite(rms_k1) and np.isfinite(rms_k2) and masks == 0
+              and live_sub == live_cpu and rel1 <= PARITY_REL
+              and abs(rms_k2 - rms_k1)/rms_k1 <= 1e-9)
+        log("%.1f nm: pupil z %.6f, %d of %d rays live | spot RMS mm: K1 f64 "
+            "%.12g | K2 f64 %.12g | K1 f32 %.9g (rel %.2e) | K2 f32 %.9g "
+            "(rel %.2e) | the first %d rays: K1 f64 %.12g vs CPU f64 %.12g "
+            "(rel %.2e), NaN masks differ on %d | aim %.2f s, card %.2f s, "
+            "CPU %.2f s -> %s"
+            % (lam*1e9, zf, live, n, rms_k1, rms_k2, rms_k1_32,
+               abs(rms_k1_32 - rms_k1)/rms_k1, rms_k2_32,
+               abs(rms_k2_32 - rms_k1)/rms_k1, n_ref, rms_sub, rms_cpu,
+               rel1, masks, t_aim, t_gpu, t_cpu, "ok" if ok else "FAIL"))
+        if not ok:
+            failures.append("%s %.1f nm" % (title, lam*1e9))
+        del yc, uc, y64, u64, y32, u32, state64
+    torch.cuda.empty_cache()
+    return failures
+
+
+def phase_freeform_path(opt_step):
+    """The freeform main path through the entry points a user calls:
+    the Schmidt corrector's forward path (freeform_forward: N_AIMED rays
+    at field 0 and each of its 3 wavelengths, the CPU check on the first
+    N_FF_REF), the Zernike corrector's (N_AIMED_LENS rays a wavelength),
+    then the Schmidt corrector's designer loop (designer_loop: field 0 x
+    3 wavelengths, hexapolar nrays N_OPT, float64, OPT_STEPS Adam steps
+    at FF_LR over xy_poly with freeform_scales; step 0 against the CPU at
+    N_LOOP_CHECK nrays a bundle), its later steps logged beside the
+    double Gauss's (`opt_step` seconds).  Returns the path's launches
+    (the forward part's, counted from the caller's reset, and the
+    loop's) and the loop's later-step seconds."""
+    from rayopt_tpu_torch.parallel import freeform_scales
+    failures = freeform_forward(schmidt_corrector(), "Schmidt corrector",
+                                N_AIMED, N_FF_REF)
+    failures += freeform_forward(zernike_corrector(), "Zernike corrector",
+                                 N_AIMED_LENS, N_FF_REF)
+    if failures:
+        raise AssertionError("freeform forward path failed: "
+                             + ", ".join(failures))
+    forward = read_launches()
+    log("== launch counts on the freeform forward path: %s" % forward)
+    s = schmidt_corrector()
+    loop, step = designer_loop(s, "freeform designer loop: Schmidt "
+                               "corrector", FF_SELECT,
+                               {"xy_poly": freeform_scales(s)}, N_LOOP_CHECK,
+                               fields=(0.,), lr=FF_LR)
+    log("later steps: designer loop Schmidt corrector %.4f s, double Gauss "
+        "%.4f s (%.2fx)" % (step, opt_step, step/opt_step))
+    return {k: v + loop[k] for k, v in forward.items()}, step
+
+
+def phase_freeform_throughput(card):
+    """K1, K2, K4 and K5 on the Schmidt corrector (FF_TIMED) beside its
+    freeform-free twin (freeform_twin) on the bench bundle:
+    phase_throughput and phase_grad_throughput (K5 also for the loop's
+    slot set, xy_poly) in both dtypes at N_GRAD_TIME rays and float32 at
+    N_BENCH.  Returns their times."""
+    _, table, specs, half = freeform_lenses()[FF_TIMED]
+    kw = dict(lens=FF_TIMED, bundle=phase_bundle_of(half),
+              twin_name="freeform-free twin")
+    twin = freeform_twin()
+    times = phase_throughput(table, specs, card, N_GRAD_TIME, twin, N_BENCH,
+                             **kw)
+    times.update(phase_grad_throughput(table, specs, card, twin, FF_SELECT,
+                                       **kw))
+    return times
+
+
+def xy_flops(nxy):
+    """Operations of a freeform row's XY figure for nxy terms
+    (ops.kernels._xy_terms; csrc/trace_common.cuh poly_xy and dpoly_xy,
+    csrc/step_vjp.cuh xy_normal_vjp and xy_sag_vjp), each shared
+    expression counted once: (residual, slope, hoisted, reverse).  The
+    residual at a point: the powers of x and y (2 (D - 1) products), the
+    products x^i y^j where i and j are both nonzero, each term's scaling
+    and sum (2), the subtraction from the base's.  The slopes at the same
+    point add the monomials of the first derivatives not already made,
+    each nonzero exponent's scaling and sum (2; its factor i a hoisted)
+    and the two subtractions.  Hoisted, once a row: the factors i a and
+    j a of the exponents past 1.  The reverse, all at the hit point whose
+    monomials the recompute's last residual made: the slopes once (the
+    normal's, the implicit step's and the residual gradient's), the
+    second derivatives' new monomials, the coefficients' cotangents
+    through the normal (2 or 4 a term) and the residual (2 a term), the
+    point's through the second derivatives (3 or 5 an axis of a term,
+    their constant factors past 1) and the residual (4)."""
+    from rayopt_tpu_torch.ops.kernels import _xy_terms
+    deg = 0
+    while deg*(deg + 3)//2 < nxy:
+        deg += 1
+    terms = _xy_terms(deg)[:nxy]
+
+    def mixed(pairs):
+        return {(a, b) for a, b in pairs if a > 0 and b > 0}
+    value = mixed(terms)
+    first = mixed([(i - 1, j) for i, j in terms if i]
+                  + [(i, j - 1) for i, j in terms if j]) - value
+    second = mixed([(i - 2, j) for i, j in terms if i > 1]
+                   + [(i - 1, j - 1) for i, j in terms if i and j]
+                   + [(i, j - 2) for i, j in terms if j > 1]) - value - first
+    nexp = sum((i > 0) + (j > 0) for i, j in terms)
+    res = 2*max(deg - 1, 0) + len(value) + 2*nxy + 1
+    slope = len(first) + 2*nexp + 2
+    hoisted = sum((i > 1) + (j > 1) for i, j in terms)
+    rev = slope + len(second) + 2*nxy + 4 + 2
+    for i, j in terms:
+        rev += 4 if i and j else 2            # gxy through the normal
+        rev += (i > 1) + (j > 1)              # the slopes' factors
+        hxx, hxy, hyy = i > 1, i > 0 and j > 0, j > 1
+        rev += (i*(i - 1) > 1) + (i*j > 1) + (j*(j - 1) > 1)
+        for a, b in ((hxx, hxy), (hxy, hyy)):
+            rev += 5 if a and b else (3 if a or b else 0)
+    return res, slope, hoisted, rev
+
+
+def freeform_row_flops(spec, widths=(0, 0), nxy=0):
+    """Operations of one surface_step on a freeform row: the conic seed
+    (33), the vertex-plane restart (2), the hoisted constants,
+    ASPHERIC_ITERS Newton steps on the residual less the XY figure (the
+    base's residual and slope at every coefficient of the widths, the XY
+    figure's, the update), the last residual and its test, the transfer,
+    and the refraction by the freeform normal (the radial normal, the XY
+    slopes, the general Snell or mirror: 37)."""
+    f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0)
+    res, slope, hoisted = figure_flops(*widths)
+    xres, xslope, xhoisted, _ = xy_flops(nxy)
+    f += 35 + hoisted + xhoisted + ASPHERIC_ITERS*(res + xres + slope + xslope + 2) \
+        + res + xres + 2 + 8
+    if spec.kind and not (spec.grating or spec.doe):
+        f += slope_flops(*widths) - 6 + xslope + 37
+    return f
+
+
+def freeform_entries(sources, launches, worst, times, ptxas, step, dg_step):
+    """The kernels line's entries of the freeform keys: the freeform
+    path's launches (the Schmidt and Zernike correctors' forward paths,
+    the Schmidt corrector's designer loop), the float32 errors of
+    phase_freeform_check, the times of phase_freeform_throughput (the
+    Schmidt corrector's keys beside their plain versions and their
+    freeform-free twin's keys) at N_GRAD_TIME rays in both dtypes and
+    N_BENCH in float32, the bounds (kernel_bound, the freeform row by
+    freeform_row_flops), the keys' registers, stack and spills, and the
+    designer loop's later-step seconds beside the double Gauss's."""
+    from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
+                                                 trace_merit, xy_width)
+    _, table, specs, half = freeform_lenses()[FF_TIMED]
+    bundle = phase_bundle_of(half)
+    live = {(n, dtype): float(trace_merit(table, specs, bundle(
+        n, dtype, SEED + 1))[0]) for n, dtype in (
+            (N_GRAD_TIME, torch.float32), (N_GRAD_TIME, torch.float64),
+            (N_BENCH, torch.float32))}
+    loop = {"trace_final": "K1 %s %s clip=False",
+            "trace_merit": "K2 %s %s clip=False",
+            "weighted_moments": "K4 %s %s clip=False",
+            "merit_adjoint": "K5 %s %s designer rays=False"}
+    big = "_f32_%d_rays" % N_BENCH
+    tag = FF_TIMED.replace(" ", "-")
+    out = []
+    for kname, ktag in loop.items():
+        source, replaces = sources[kname]
+        entry = {"name": kname + "_freeform", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": launches[kname], "max_abs_err": worst[kname],
+                 "library_ms": None, "rays": N_GRAD_TIME, "wavelengths": 1}
+
+        def bound(n, dtype, name=kname):
+            return kernel_bound(name, n, dtype, specs, 1, live[(n, dtype)],
+                                figure_widths(table, specs),
+                                doe_width(table, specs),
+                                xy_width(table, specs))
+        for dtype, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
+            k, p = times[(kname, dtype)]
+            b, by = bound(N_GRAD_TIME, dtype)
+            entry.update({"ms" + sfx: k, "plain_ms" + sfx: p,
+                          "ms_twin_key" + sfx: times[(kname, dtype, "twin")],
+                          "bound_ms" + sfx: b})
+            if not sfx:
+                entry["bound_by"] = by
+            if kname == "merit_adjoint":
+                opt = "merit_adjoint_optimizer"
+                entry.update({
+                    "ms_designer" + sfx: times[(opt, dtype)],
+                    "ms_twin_designer_key" + sfx: times[(opt, dtype,
+                                                         "twin")],
+                    "bound_ms_designer" + sfx:
+                        bound(N_GRAD_TIME, dtype, opt)[0]})
+        entry.update({"ms" + big: times[(kname, N_BENCH)],
+                      "ms_twin_key" + big: times[(kname, N_BENCH, "twin")],
+                      "bound_ms" + big: bound(N_BENCH, torch.float32)[0]})
+        for dt in ("float32", "float64"):
+            sfx = "" if dt == "float64" else "_f32"
+            regs, stack, spill = ptxas[ktag % (dt, tag)]
+            entry.update({"regs" + sfx: regs, "stack_bytes" + sfx: stack,
+                          "spill_bytes" + sfx: spill})
+            regs, _, _ = ptxas[(ktag % (dt, tag + " twin"))
+                               .replace(" clip=False", "")]
+            entry["regs_twin" + sfx] = regs
+        if kname == "merit_adjoint":
+            entry.update({"designer_step_s": step,
+                          "double_gauss_designer_step_s": dg_step})
+        out.append(entry)
+    return out
 
 
 def step_breakdown(table, specs, wave, parts):
@@ -6629,7 +7283,7 @@ def slope_flops(na, no):
     return 17 + (2*na + 1 if na else 0) + (4*no + 4 if no else 0)
 
 
-def row_flops(spec, widths=(0, 0), nd=0):
+def row_flops(spec, widths=(0, 0), nd=0, nxy=0):
     """Arithmetic operations (one per add, multiply, divide or square
     root) of one surface_step (csrc/trace_common.cuh) for a row of this
     spec; an aspheric row with the table's `widths` (na, no): its conic
@@ -6637,9 +7291,12 @@ def row_flops(spec, widths=(0, 0), nd=0):
     residual, the slope's own work and the update each), the last
     residual and its test, and the refraction by the radial normal with
     the flagged figures' slopes; a grating or DOE row (nd DOE
-    coefficients) by phase_row_flops."""
+    coefficients) by phase_row_flops; a freeform row (nxy XY
+    coefficients) by freeform_row_flops."""
     if spec.grating or spec.doe:
-        return phase_row_flops(spec, widths, nd)
+        return phase_row_flops(spec, widths, nd, nxy)
+    if spec.freeform:
+        return freeform_row_flops(spec, widths, nxy)
     if spec.biconic or spec.toroidal or spec.cyl_axis:
         return anam_row_flops(spec, widths)
     f = 1 + (2 if spec.off_axis else 0) + (60 if spec.rotated else 0)
@@ -6672,13 +7329,13 @@ def newton_flops(specs, widths=(0, 0)):
                if sp.aspheric or sp.odd)
 
 
-def chain_flops(specs, widths=(0, 0), nd=0):
+def chain_flops(specs, widths=(0, 0), nd=0, nxy=0):
     """Operations of one ray through the whole chain (trace_ray)."""
-    return (sum(row_flops(sp, widths, nd) for sp in specs[1:])
+    return (sum(row_flops(sp, widths, nd, nxy) for sp in specs[1:])
             + 30*(int(specs[0].rotated) + int(specs[-1].rotated)))
 
 
-def chain_vjp_flops(specs, widths=(0, 0), path=False, nd=0):
+def chain_vjp_flops(specs, widths=(0, 0), path=False, nd=0, nxy=0):
     """Operations of K5's and K7's reverse sweep for one live ray: 3x
     the forward chain (a row's recompute and its reverse, PERF.md's
     estimate), but an aspheric row counted from csrc/step_vjp.cuh
@@ -6686,18 +7343,24 @@ def chain_vjp_flops(specs, widths=(0, 0), path=False, nd=0):
     refraction's reverse (~75 and the figures' terms), the transfer's,
     and the implicit step: one slope and the residual's gradient.  With
     `path` (K9's PATH form), an aspheric row also adds its optical
-    path's cotangent to gt and takes n_before's (3)."""
+    path's cotangent to gt and takes n_before's (3).  A freeform row
+    (nxy XY coefficients) is counted as an aspheric row of the table's
+    widths, its recompute with the XY figure (freeform_row_flops) and
+    its reverse with the XY figure's (xy_flops)."""
     na, no = widths
-    total = 3*chain_flops(specs, widths, nd)
+    total = 3*chain_flops(specs, widths, nd, nxy)
     for sp in specs[1:]:
         if sp.biconic or sp.toroidal or sp.cyl_axis:
             total += anam_vjp_extra(sp, widths)
-        elif sp.aspheric or sp.odd:
-            rf = row_flops(sp, widths)
-            rev = (75 + (6*na if sp.aspheric else 0)
-                   + (12*no if sp.odd else 0) + 9 + slope_flops(na, no)
-                   + 38 + 3*na + 6*no + (60 if sp.rotated else 0)
-                   + (3 if path else 0))
+        elif sp.aspheric or sp.odd or sp.freeform:
+            ff = sp.freeform
+            rf = row_flops(sp, widths, nd, nxy) if ff else row_flops(sp,
+                                                                    widths)
+            rev = (75 + (6*na if sp.aspheric or ff else 0)
+                   + (12*no if sp.odd or ff else 0) + 9
+                   + slope_flops(na, no) + 38 + 3*na + 6*no
+                   + (60 if sp.rotated else 0) + (3 if path else 0)
+                   + (xy_flops(nxy)[3] if ff else 0))
             total += rf + rev - 3*rf
     return total
 
@@ -6710,7 +7373,7 @@ OPD_TAIL_VJP_FLOPS = 70
 
 
 def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
-                 nd=0):
+                 nd=0, nxy=0):
     """(bound_ms, bound_by) of one launch at n rays: the larger of the
     bytes it must move (each input read once, each output written once)
     over the HBM rate and its operations over the dtype's peak.  The
@@ -6720,10 +7383,11 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
     chain_vjp_flops, K9's in its PATH form) plus the seeding (K9: the
     tail's reverse).  `widths`: a figured key's (na, no), its rows'
     coefficients; `nd`: a DOE key's coefficients (a phase row's reverse
-    is counted as 3x its forward, as a conic row's)."""
+    is counted as 3x its forward, as a conic row's); `nxy`: a freeform
+    key's XY coefficients (its row's reverse counted so too)."""
     word = 4 if dtype == torch.float32 else 8
-    chain = chain_flops(specs, widths, nd)
-    vjp = chain_vjp_flops(specs, widths, nd=nd)
+    chain = chain_flops(specs, widths, nd, nxy)
+    vjp = chain_vjp_flops(specs, widths, nd=nd, nxy=nxy)
     # K8's chain stops at row S-2 and adds the sphere tail; K9's reverse
     # is 3x that, its aspheric rows counted as chain_vjp_flops' PATH form
     opd = chain - row_flops(specs[-1]) + OPD_TAIL_FLOPS
@@ -6758,7 +7422,7 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
              + 3 if name.startswith("opd_adjoint") else 0)
     if name == "trace_multi":
         slots = 5*nlam
-    row = 17 + sum(widths) + grating + (1 + nd if nd else 0)
+    row = 17 + sum(widths) + grating + (1 + nd if nd else 0) + nxy
     nbytes = (n*(words_in + words_out) + nlam*len(specs)*row + slots)*word \
         + 4*len(specs)
     t_bytes, t_ops = nbytes/PEAK_BYTES, flops/PEAK_FLOPS[dtype]
@@ -7482,6 +8146,7 @@ def main():
     keys.update(grating_keys())
     keys.update(df32_phase_keys())
     keys.update(phase_cylinder_keys())
+    keys.update(freeform_keys())
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -7588,6 +8253,16 @@ def main():
                if k != "trace_multi_trace"):
         raise AssertionError("a kernel of the phase cylinder path never "
                              "launched: %s" % cyl_launches)
+    torch.cuda.empty_cache()
+    fworst = phase_freeform_check()
+    reset_launches()
+    ff_launches, ff_step = phase_freeform_path(opt_step)
+    log("== launch counts on the freeform path: %s" % ff_launches)
+    if not all(ff_launches[k] for k in ("trace_final", "trace_merit",
+                                        "weighted_moments",
+                                        "merit_adjoint")):
+        raise AssertionError("a kernel of the freeform path never launched: "
+                             "%s" % ff_launches)
     ptimes = phase_grating_throughput(card)
     pmtimes, pmlive = phase_multi_throughput_grating(card)
     ntimes, nlive = phase_anamorphic_throughput(card)
@@ -7600,6 +8275,7 @@ def main():
     dntimes, dnlive = phase_df32_newton_throughput(card)
     dptimes, dplive = phase_df32_phase_throughput(card)
     ctimes, clive = phase_cylinder_throughput(card)
+    fftimes = phase_freeform_throughput(card)
     _, atab, aspecs, _ = asphere_cases()["aspheric double Gauss"]
     atimes = phase_throughput(atab, aspecs, card, N_GRAD_TIME,
                               (table, specs), N_BENCH,
@@ -7781,6 +8457,8 @@ def main():
                                   ptxas, sass)
     kernels += cylinder_entries(sources, cyl_launches, cworst, ctimes,
                                 clive, ptxas)
+    kernels += freeform_entries(sources, ff_launches, fworst, fftimes, ptxas,
+                                ff_step, opt_step)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())
     log("== keys built at first use, outside phase_spec_build: %d %s"

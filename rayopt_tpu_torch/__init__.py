@@ -50,8 +50,8 @@ from .materials import (  # noqa: F401
     vacuum, mirror, air, fraunhofer, Thermal, GLASSES,
 )
 from .elements import (  # noqa: F401
-    Biconic, DiffractiveSurface, Element, Grating, Interface, Spheroid,
-    Toroid, TransformMixin,
+    Biconic, DiffractiveSurface, Element, FreeformXY, Grating, Interface,
+    Spheroid, Toroid, TransformMixin, ZernikeSag,
 )
 from .pupils import Pupil, RadiusPupil, NaPupil, SlopePupil, FnoPupil  # noqa: F401
 from .conjugates import Conjugate, FiniteConjugate, InfiniteConjugate  # noqa: F401

@@ -31,8 +31,13 @@
 // row grows by grating_dy and by n_after and the DOE coefficients, the
 // adjoints' slots by their cotangents (K9's by n_after's too).  K3 and
 // K6 stage each table's own phase words; K7 reduces them per table.
-// Only the freeform rows (ROADMAP Queue 1 item 9.5) are refused, by
-// every key.
+// K1, K2, K4 and K5 take the freeform XY rows (a conic or aspheric base
+// plus a triangular XY-monomial figure: the seeded Newton with the
+// vertex-plane restart, the freeform normal; K5 its reverse by hand,
+// with the figure's second derivatives); the key defines RAYOPT_N_XY, so
+// that a row grows by the XY coefficients and K5's slots by their
+// cotangents, last.  The K3 and K6-K9 keys refuse the freeform rows
+// (ROADMAP Queue 1 item 9.5, part two).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
@@ -150,19 +155,20 @@
 namespace {
 
 // a row word's live slots above its flags: cuda_spec.LIVE_SHIFT
-constexpr int LIVE_SHIFT = 16;
+constexpr int LIVE_SHIFT = 17;
 // the bits above it in a 64-bit word: K5's and K7's FIG_SLOTS, K9's
 // OPD_FIG_SLOTS (cuda_spec.LIVE_BITS)
 constexpr int LIVE_BITS = 63 - LIVE_SHIFT;
 constexpr long long FLAG_MASK = (1LL << LIVE_SHIFT) - 1;
-static_assert(FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
+static_assert(FIG_SLOTS <= LIVE_BITS, "too many coefficients a row");
 
 // The rows of one key: W holds a 64-bit word a row, its flags in the
 // low LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z,
 // mu, then K5's and K7's aspheric coefficients, then an anamorphic
 // key's curvature_dx and conic_dx, then a phase key's grating_dy and DOE
-// coefficients; K9 n_before, then its coefficients, the anamorphic two,
-// grating_dy, and n_after before the DOE coefficients) that row reduces.
+// coefficients, then K5's XY coefficients; K9 n_before, then its
+// coefficients, the anamorphic two, grating_dy, and n_after before the
+// DOE coefficients) that row reduces.
 template <long long... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -577,7 +583,8 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_spec(
 // K5: the analytic adjoint of K4's moments dotted with ct (5 values).
 // out: (rows, FIG_SLOTS) parameter cotangents (SLOTS, then a figured
 // table's aspheric coefficients, then an anamorphic key's curvature_dx
-// and conic_dx, then a phase key's grating_dy and DOE coefficients),
+// and conic_dx, then a phase key's grating_dy and DOE coefficients, then
+// a freeform key's XY coefficients),
 // zero where a slot is not live; with
 // RAYS the six ray and the weight cotangents a ray (zeros for a dead
 // ray).  Dynamic shared memory: the saved states, (rows - 1) * 6 *

@@ -19,14 +19,17 @@ constexpr int OPD_SLOTS = 7;  // K9's a row, + n_before: cuda_grad.OPD_SLOTS
 constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
 // K5's and K7's a row: SLOTS, then the even and the odd aspheric
 // coefficients, then an anamorphic key's curvature_dx and conic_dx, then
-// a phase key's grating_dy and DOE coefficients
-constexpr int FIG_SLOTS = SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT + N_DOE;
+// a phase key's grating_dy and DOE coefficients, then a freeform key's XY
+// coefficients
+constexpr int FIG_SLOTS =
+    SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT + N_DOE + N_XY;
 // K9's a row: OPD_SLOTS (SLOTS, then n_before), then the even and the
 // odd coefficients, then an anamorphic key's curvature_dx and conic_dx,
 // then a phase key's grating_dy, then a DOE key's n_after and DOE
-// coefficients (cuda_spec.opd_live_slots)
+// coefficients (cuda_spec.opd_live_slots), then the XY coefficients
+// (N_XY is 0 in a K9 key: it refuses the freeform rows)
 constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT +
-                              (N_DOE > 0 ? 1 + N_DOE : 0);
+                              (N_DOE > 0 ? 1 + N_DOE : 0) + N_XY;
 // a row's per-ray parameter cotangents, the widest of the two
 constexpr int PG_SLOTS = FIG_SLOTS > OPD_FIG_SLOTS ? FIG_SLOTS : OPD_FIG_SLOTS;
 // an anamorphic row's curvature_dx and conic_dx slots (K5, K7; K9's
@@ -37,6 +40,9 @@ constexpr int Q_CDX = SLOTS + N_ASP + N_ODD;
 // where K5's coefficients start)
 constexpr int Q_GDY = Q_CDX + N_ANAM;
 constexpr int Q_DOE = Q_GDY + N_GRAT;
+// a freeform row's XY coefficients' slots, last (K5's; with PATH one
+// further on, and one more past a DOE key's n_after)
+constexpr int Q_XY = Q_DOE + N_DOE;
 
 // Hand-derived reverse of refract_spec's refraction (kind 1) or mirror
 // (kind 2) of the direction u by the unnormalized normal n, shared by
@@ -210,6 +216,59 @@ __device__ __forceinline__ T sqrt0_vjp(T m, T sq, T g) {
 template <typename T>
 __device__ __forceinline__ T floor_vjp(T v, T g) {
   return v >= T(TINY) ? g : T(0);
+}
+
+// ---- the freeform figure's reverse (cuda_grad's torch models of the
+// same names) ----
+
+// Reverse of (gx, gy) -= (dP/dx, dP/dy)(x1, y1), P = poly_xy, the XY
+// figure's slopes in a normal, from the normal's cotangents (ggx, ggy):
+// term t = (i, j) adds -(ggx i x^(i-1) y^j + ggy j x^i y^(j-1)) into
+// gxy[t], and the point takes the figure's second derivatives
+// (cuda_grad._xy_normal_vjp).
+template <typename T>
+__device__ __forceinline__ void xy_normal_vjp(T x1, T y1, const XyFig<T>& xf,
+                                              T ggx, T ggy, T& gx1, T& gy1,
+                                              T* gxy) {
+  T xp[XY_DEG + 1], yp[XY_DEG + 1];
+  xy_powers(x1, xp);
+  xy_powers(y1, yp);
+  T hx = T(0), hy = T(0);
+  static_for(std::make_integer_sequence<int, N_XY>{}, [&](auto tc) {
+    constexpr int t = decltype(tc)::value;
+    constexpr int i = xy_term_i(t), j = xy_term_j(t);
+    T mx = T(0), my = T(0), hxx = T(0), hxy = T(0), hyy = T(0);
+    if constexpr (i > 0) mx = T(i) * xp[i - 1] * yp[j];
+    if constexpr (j > 0) my = T(j) * xp[i] * yp[j - 1];
+    gxy[t] = gxy[t] - (ggx * mx + ggy * my);
+    if constexpr (i > 1) hxx = T(i * (i - 1)) * xp[i - 2] * yp[j];
+    if constexpr (i > 0 && j > 0) hxy = T(i * j) * xp[i - 1] * yp[j - 1];
+    if constexpr (j > 1) hyy = T(j * (j - 1)) * xp[i] * yp[j - 2];
+    hx = hx - xf.a[t] * (ggx * hxx + ggy * hxy);
+    hy = hy - xf.a[t] * (ggx * hxy + ggy * hyy);
+  });
+  gx1 = gx1 + hx;
+  gy1 = gy1 + hy;
+}
+
+// Reverse of F -= P(px, py), the XY figure in a residual, from F's
+// cotangent gF: term t = (i, j) adds -gF x^i y^j into gxy[t], the point
+// -gF (dP/dx, dP/dy) into gpx, gpy (cuda_grad._xy_sag_vjp).
+template <typename T>
+__device__ __forceinline__ void xy_sag_vjp(T px, T py, const XyFig<T>& xf,
+                                           T gF, T& gpx, T& gpy, T* gxy) {
+  T xp[XY_DEG + 1], yp[XY_DEG + 1];
+  xy_powers(px, xp);
+  xy_powers(py, yp);
+  static_for(std::make_integer_sequence<int, N_XY>{}, [&](auto tc) {
+    constexpr int t = decltype(tc)::value;
+    constexpr int i = xy_term_i(t), j = xy_term_j(t);
+    gxy[t] = gxy[t] - gF * (xp[i] * yp[j]);
+  });
+  T dpx, dpy;
+  dpoly_xy(px, py, xf, dpx, dpy);
+  gpx = gpx + -gF * dpx;
+  gpy = gpy + -gF * dpy;
 }
 
 // ---- the phase rows' reverse (K5, K7, K9; cuda_grad's torch models of
@@ -397,28 +456,35 @@ __device__ __forceinline__ void put_phase(Flags, T ggdy, const T* gdoe,
 
 // The phase solve's reverse on a radial (or flat) substrate, shared by
 // surface_step_vjp and figured_step_vjp: the solve's (grating_refract_vjp)
-// then the normal's (radial_phase_vjp), then (PATH) a DOE's path term's
+// then the normal's (radial_phase_vjp; XY: a freeform row's, less the XY
+// slopes, xy_normal_vjp into gxy), then (PATH) a DOE's path term's
 // (doe_path_vjp); the incoming direction's cotangents out, the point's,
 // c's, k's and (FIG) the coefficients' added in, mu's out, grating_dy's,
 // (PATH) n_after's and the DOE's into pg.
-template <bool FLAT, bool FIG, bool PATH, typename T, typename Flags,
-          typename Row>
+template <bool FLAT, bool FIG, bool PATH, bool XY = false, typename T,
+          typename Flags, typename Row>
 __device__ __forceinline__ void radial_phase_step_vjp(
     Row p, Flags flags, T x1, T y1, T c, T k, T mu, const Figure<T>& fg,
     T ux, T uy, T uz, T gvx, T gvy, T gvz, T& gux, T& guy, T& guz, T& gx1,
-    T& gy1, T& gc, T& gk, T& gmu, FigureGrad<T>& gf, T* pg, T ct_path) {
+    T& gy1, T& gc, T& gk, T& gmu, FigureGrad<T>& gf, T* pg, T ct_path,
+    const XyFig<T>* xf = nullptr, T* gxy = nullptr) {
   constexpr bool doe = (Flags::value & F_DOE) != 0;
   Doe<T> dc{};
   if constexpr (doe) dc = load_doe<T>(p);
   T gdy = T(0);
   if constexpr ((Flags::value & F_GRATING) != 0) gdy = p[P_GDY];
   T ngx, ngy, ggx, ggy, ggdy, gdoe[N_DOE > 0 ? N_DOE : 1];
-  radial_phase_normal<FLAT, FIG>(x1, y1, c, k, fg, ngx, ngy);
+  if constexpr (XY) {
+    freeform_normal(x1, y1, c, k, fg, *xf, ngx, ngy);
+  } else {
+    radial_phase_normal<FLAT, FIG>(x1, y1, c, k, fg, ngx, ngy);
+  }
   grating_refract_vjp<doe>(mu, gdy, ngx, ngy, x1, y1, dc, ux, uy, uz, gvx,
                            gvy, gvz, gux, guy, guz, ggx, ggy, gmu, ggdy,
                            gdoe, gx1, gy1);
   radial_phase_vjp<FLAT, FIG>(x1, y1, c, k, fg, ggx, ggy, gx1, gy1, gc, gk,
                               gf);
+  if constexpr (XY) xy_normal_vjp(x1, y1, *xf, ggx, ggy, gx1, gy1, gxy);
   T gna = T(0);
   if constexpr (PATH && doe)
     gna = doe_path_vjp(p, x1, y1, dc, ct_path, gdoe, gx1, gy1);
@@ -431,7 +497,15 @@ __device__ __forceinline__ void radial_phase_step_vjp(
 // the figures' slopes in e, the transfer, then the Newton intercept
 // differentiated implicitly at its root -- one residual gradient dF/dp
 // scaled by -gt / F_s, the seed holding no cotangent
-// (kernels._NewtonRoot).  With PATH (K9) the row's optical path t *
+// (kernels._NewtonRoot).  A FREEFORM row (F_FREEFORM, with or without an
+// aspheric figure) takes its Newton with the XY figure and the
+// vertex-plane restart (freeform_intercept), and refracts, or solves its
+// phase, on the freeform normal (freeform_normal: every coefficient of
+// the widths, less the XY slopes; Snell or a mirror by general_refract's
+// form, whose mirror reads |mu|): the normal's reverse takes the XY
+// figure's second derivatives (xy_normal_vjp), the residual's each
+// coefficient's -gF x^i y^j (xy_sag_vjp); the XY coefficients'
+// cotangents go to pg from Q_XY, last.  With PATH (K9) the row's optical path t *
 // n_before adds ct_path * n_before to gt before that step, and n_before
 // takes ct_path * t.  pg: out, without PATH FIG_SLOTS cotangents (c, k,
 // offset x, y, z, mu, the even, then the odd coefficients), with PATH
@@ -446,10 +520,13 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   constexpr bool off_axis = fl & F_OFF_AXIS;
   constexpr bool rotated = fl & F_ROTATED;
   constexpr int kind = (fl >> KIND_SHIFT) & 3;
+  constexpr bool ff = (fl & F_FREEFORM) != 0;
   const T c = p[P_C];
   const T k = p[P_K];
   const T mu = p[P_MU];
   const Figure<T> fg = load_figure<T>(p);
+  XyFig<T> xf{};
+  if constexpr (ff) xf = load_xy<T>(p);
   T x = s[0], y = s[1], z = s[2], ux = s[3], uy = s[4], uz = s[5];
   // ---- forward recompute ----
   if (off_axis) {
@@ -461,8 +538,13 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     rot_apply(p + P_ROT, x, y, z);
     rot_apply(p + P_ROT, ux, uy, uz);
   }
-  const T t = newton_intercept(x, y, z, ux, uy, uz, c, k,
-                               (fl & F_ALTERNATE) ? T(-1) : T(1), fg);
+  const T sg = (fl & F_ALTERNATE) ? T(-1) : T(1);
+  T t;
+  if constexpr (ff) {
+    t = freeform_intercept(x, y, z, ux, uy, uz, c, k, sg, fg, xf);
+  } else {
+    t = newton_intercept(x, y, z, ux, uy, uz, c, k, sg, fg);
+  }
   const T x1 = x + t * ux;
   const T y1 = y + t * uy;
   // ---- reverse: leave the row's frame ----
@@ -473,14 +555,33 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   }
   T gc = T(0), gk = T(0), gmu = T(0), gux, guy, guz;
   FigureGrad<T> gf;
-  // ---- reverse: refraction by the radial normal ----
+  T gxy[N_XY > 0 ? N_XY : 1];
+#pragma unroll
+  for (int q = 0; q < N_XY; ++q) gxy[q] = T(0);
+  // ---- reverse: refraction by the radial (or freeform) normal ----
   if constexpr ((fl & F_PHASE) != 0) {
     // the phase solve on the normal of every coefficient of the widths
-    radial_phase_step_vjp<false, true, PATH>(
+    // (a freeform row's less its XY slopes)
+    radial_phase_step_vjp<false, true, PATH, ff>(
         p, Flags{}, x1, y1, c, k, mu, fg, ux, uy, uz, gvx, gvy, gvz, gux, guy,
-        guz, gx1, gy1, gc, gk, gmu, gf, pg, ct_path);
+        guz, gx1, gy1, gc, gk, gmu, gf, pg, ct_path, &xf, gxy);
   } else if (kind == 0) {
     gux = gvx; guy = gvy; guz = gvz;
+  } else if constexpr (ff) {
+    // Snell or a mirror on the freeform normal (gx, gy, 1)
+    T ngx, ngy, gnx, gny, gnz;
+    freeform_normal(x1, y1, c, k, fg, xf, ngx, ngy);
+    refraction_vjp(kind, false, mu, ux, uy, uz, ngx, ngy, T(1), gvx, gvy, gvz,
+                   gux, guy, guz, gnx, gny, gnz, gmu);
+    if (kind == 2) {
+      // the reflection's a = |mu| (u . n) / |n|^2 with |mu| = 1
+      const T nn = ngx * ngx + ngy * ngy + T(1);
+      gmu = -sgn(mu) * T(2) * (ux * ngx + uy * ngy + uz) / nn *
+            (gvx * ngx + gvy * ngy + gvz);
+    }
+    radial_phase_vjp<false, true>(x1, y1, c, k, fg, gnx, gny, gx1, gy1, gc,
+                                  gk, gf);
+    xy_normal_vjp(x1, y1, xf, gnx, gny, gx1, gy1, gxy);
   } else {
     const T r2s = x1 * x1 + y1 * y1;
     const T kc2 = (T(1) + k) * c * c;
@@ -518,7 +619,13 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     pg[6] = ct_path * t;
   }
   // ---- reverse: the Newton root, implicitly: dF/dp * (-gt / F_s) ----
-  const T gF = -gt / newton_slope(t, x, y, ux, uy, uz, c, k, fg);
+  T fs;
+  if constexpr (ff) {
+    fs = freeform_slope(t, x, y, ux, uy, uz, c, k, fg, xf);
+  } else {
+    fs = newton_slope(t, x, y, ux, uy, uz, c, k, fg);
+  }
+  const T gF = -gt / fs;
   {
     // F = pz - c r2 / (1 + sqrt0(w)) - poly_even(r2) - poly_odd(r2),
     // w = 1 - (1+k) c^2 r2, at p = (x, y, z) + t u
@@ -536,8 +643,9 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     gc = gc - T(2) * (T(1) + k) * c * r2 * gw + r2 * gnum;
     T gr2 = -kc2 * gw + c * gnum;
     figure_sag_vjp(r2, fg, gF, gf.a, gf.b, gr2);
-    const T gpx = T(2) * px * gr2;
-    const T gpy = T(2) * py * gr2;
+    T gpx = T(2) * px * gr2;
+    T gpy = T(2) * py * gr2;
+    if constexpr (ff) xy_sag_vjp(px, py, xf, gF, gpx, gpy, gxy);
     gx = gx + gpx; gy = gy + gpy; gz = gz + gF;
     gux = gux + t * gpx; guy = guy + t * gpy; guz = guz + t * gF;
   }
@@ -555,6 +663,11 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   pg[4] = -gz;
   pg[5] = gmu;
   put_figure(gf, pg, PATH ? OPD_SLOTS : SLOTS);
+  if constexpr (ff) {
+    constexpr int q = Q_XY + (PATH ? 1 + (N_DOE > 0 ? 1 : 0) : 0);
+#pragma unroll
+    for (int t = 0; t < N_XY; ++t) pg[q + t] = gxy[t];
+  }
 }
 
 // ---- the anamorphic rows' reverses (cuda_grad's torch models of the
@@ -999,7 +1112,8 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
 
 // Hand-derived reverse of surface_step for one live ray, the flags and
 // the row pointer as in surface_step (an anamorphic row, figured or not:
-// anamorphic_step_vjp; another figured row: figured_step_vjp).
+// anamorphic_step_vjp; another figured row or a freeform row:
+// figured_step_vjp).
 // s: the state entering the row (global frame).  g: in, the cotangent of
 // the state leaving the row; out, the cotangent of s.
 // pg: out, the row's parameter cotangents (c, k, offset x, y, z, mu;
@@ -1016,7 +1130,7 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
   if constexpr ((Flags::value & F_ANAMORPHIC) != 0) {
     anamorphic_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path);
     return;
-  } else if constexpr ((Flags::value & F_FIGURED) != 0) {
+  } else if constexpr ((Flags::value & (F_FIGURED | F_FREEFORM)) != 0) {
     figured_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path);
     return;
   }

@@ -11,8 +11,10 @@
 // radial diffractive phase on any of these substrates, by the
 // generalized Spencer & Murty solve, `grating_refract`; on a cylinder
 // with the closed-form intercept and the normal of the biconic or toroid
-// that made it, whose flag its row word sets beside F_CYL_Y or F_CYL_X),
-// the
+// that made it, whose flag its row word sets beside F_CYL_Y or F_CYL_X;
+// and the freeform XY rows: a conic or aspheric base plus a triangular
+// XY-monomial figure, by the seeded Newton with the vertex-plane restart,
+// `freeform_intercept`, and the freeform normal, `freeform_normal`), the
 // compile-time loop and the last block of a fused grid-wide sum.  Each
 // translation unit that includes it gets its own internal copies.
 
@@ -51,17 +53,24 @@ namespace {
 #ifndef RAYOPT_N_DOE
 #define RAYOPT_N_DOE 0
 #endif
+// The XY-monomial coefficients a row carries last where some row of the
+// key is freeform (the table's xy_poly width: cuda_trace.xy_width), else 0
+#ifndef RAYOPT_N_XY
+#define RAYOPT_N_XY 0
+#endif
 constexpr int N_ASP = RAYOPT_N_ASP;
 constexpr int N_ODD = RAYOPT_N_ODD;
 constexpr int N_ANAM = RAYOPT_N_ANAM;
 constexpr int N_GRAT = RAYOPT_N_GRAT;
 constexpr int N_DOE = RAYOPT_N_DOE;
+constexpr int N_XY = RAYOPT_N_XY;
 
 // packed row layout: keep in sync with cuda_trace.py (ROW, P_*); the
 // coefficients follow the 17 base words, then an anamorphic key's two,
-// a grating key's one, a DOE key's n_after and its coefficients
+// a grating key's one, a DOE key's n_after and its coefficients, a
+// freeform key's XY coefficients
 constexpr int ROW = 17 + N_ASP + N_ODD + N_ANAM + N_GRAT +
-                    (N_DOE > 0 ? 1 + N_DOE : 0);
+                    (N_DOE > 0 ? 1 + N_DOE : 0) + N_XY;
 constexpr int P_C = 0;     // curvature
 constexpr int P_K = 1;     // conic
 constexpr int P_OFF = 2;   // offset x, y, z
@@ -76,6 +85,7 @@ constexpr int P_KDX = P_CDX + 1;           // conic_dx
 constexpr int P_GDY = P_CDX + N_ANAM;      // grating_dy (N_GRAT)
 constexpr int P_NA = P_GDY + N_GRAT;       // n_after (N_DOE > 0)
 constexpr int P_DOE = P_NA + 1;            // DOE coefficients (N_DOE)
+constexpr int P_XY = P_GDY + N_GRAT + (N_DOE > 0 ? 1 + N_DOE : 0);  // N_XY
 
 // flag bits: keep in sync with cuda_trace.py (F_*)
 constexpr int F_FLAT = 1;
@@ -101,6 +111,33 @@ constexpr int F_ANAMORPHIC = F_CYL | F_ANAM_NEWTON;
 constexpr int F_GRATING = 16384;  // grating_dy: the grating term T
 constexpr int F_DOE = 32768;      // the DOE's kick potential psi(r2)
 constexpr int F_PHASE = F_GRATING | F_DOE;
+// the freeform XY rows (a freeform key: N_XY > 0): the Newton on the sag
+// less the XY figure, the normal less its slopes
+constexpr int F_FREEFORM = 65536;
+
+// The XY figure's degree D of N_XY = D (D + 3) / 2 terms, and term t's
+// exponents (i, j) in the triangular order of kernels._xy_terms: degree
+// d = 1..D, within a degree from x^d down to y^d (degree d's terms start
+// at (d - 1) (d + 2) / 2)
+__host__ __device__ constexpr int xy_degree_of(int n) {
+  int d = 0, m = 0;
+  while (m < n) m += ++d + 1;
+  return d;
+}
+constexpr int XY_DEG = xy_degree_of(N_XY);
+static_assert(XY_DEG * (XY_DEG + 3) / 2 == N_XY,
+              "N_XY must be a triangle D (D + 3) / 2");
+__host__ __device__ constexpr int xy_term_d(int t) {
+  int d = 1;
+  while (d * (d + 3) / 2 <= t) ++d;
+  return d;
+}
+__host__ __device__ constexpr int xy_term_j(int t) {
+  return t - (xy_term_d(t) - 1) * (xy_term_d(t) + 2) / 2;
+}
+__host__ __device__ constexpr int xy_term_i(int t) {
+  return xy_term_d(t) - xy_term_j(t);
+}
 
 // the Newton intercept of a figured row (kernels.intercept)
 constexpr int ASPHERIC_ITERS = 10;
@@ -170,6 +207,68 @@ __device__ __forceinline__ Figure<T> load_figure(Row p) {
 #pragma unroll
   for (int j = 0; j < N_ODD; ++j) f.b[j] = p[P_ODD + j];
   return f;
+}
+
+// A freeform row's XY coefficients, read once into registers.
+template <typename T>
+struct XyFig {
+  T a[N_XY > 0 ? N_XY : 1];
+};
+
+template <typename T, typename Row>
+__device__ __forceinline__ XyFig<T> load_xy(Row p) {
+  XyFig<T> f;
+#pragma unroll
+  for (int t = 0; t < N_XY; ++t) f.a[t] = p[P_XY + t];
+  return f;
+}
+
+// f(std::integral_constant<int, I>{}) for each I of the sequence, in order
+template <typename F, int... I>
+__device__ __forceinline__ void static_for(std::integer_sequence<int, I...>,
+                                           F&& f) {
+  (f(std::integral_constant<int, I>{}), ...);
+}
+
+// pw = [1, v, v^2, ..., v^XY_DEG] by repeated products (kernels._xy_pows)
+template <typename T>
+__device__ __forceinline__ void xy_powers(T v, T* pw) {
+  pw[0] = T(1);
+#pragma unroll
+  for (int d = 1; d <= XY_DEG; ++d) pw[d] = pw[d - 1] * v;
+}
+
+// sum_t a[t] x^i y^j (kernels._poly_xy), each term's exponents
+// compile-time
+template <typename T>
+__device__ __forceinline__ T poly_xy(T x, T y, const XyFig<T>& f) {
+  T xp[XY_DEG + 1], yp[XY_DEG + 1];
+  xy_powers(x, xp);
+  xy_powers(y, yp);
+  T out = T(0);
+  static_for(std::make_integer_sequence<int, N_XY>{}, [&](auto tc) {
+    constexpr int t = decltype(tc)::value;
+    constexpr int i = xy_term_i(t), j = xy_term_j(t);
+    out = out + f.a[t] * (xp[i] * yp[j]);
+  });
+  return out;
+}
+
+// (d/dx, d/dy) of poly_xy (kernels._dpoly_xy)
+template <typename T>
+__device__ __forceinline__ void dpoly_xy(T x, T y, const XyFig<T>& f, T& gx,
+                                         T& gy) {
+  T xp[XY_DEG + 1], yp[XY_DEG + 1];
+  xy_powers(x, xp);
+  xy_powers(y, yp);
+  gx = T(0);
+  gy = T(0);
+  static_for(std::make_integer_sequence<int, N_XY>{}, [&](auto tc) {
+    constexpr int t = decltype(tc)::value;
+    constexpr int i = xy_term_i(t), j = xy_term_j(t);
+    if constexpr (i > 0) gx = gx + (T(i) * f.a[t]) * (xp[i - 1] * yp[j]);
+    if constexpr (j > 0) gy = gy + (T(j) * f.a[t]) * (xp[i] * yp[j - 1]);
+  });
 }
 
 // max(x, lo) that lets NaN through (torch.clamp, jnp.maximum)
@@ -296,6 +395,70 @@ __device__ __forceinline__ T newton_intercept(T x, T y, T z, T ux, T uy,
   const T res = sag_residual(x + s * ux, y + s * uy, z + s * uz, c, k, fg);
   if (!(fabs(res) <= newton_tol<T>() * (T(1) + fabs(s)))) s = qnan<T>();
   if (isnan(seed) && c != T(0)) s = qnan<T>();
+  return s;
+}
+
+// ---- the freeform rows ----
+
+// The Newton residual of a freeform row: sag_residual (the conic and
+// every coefficient of the table's widths) less the XY figure
+// (kernels._newton_residual with xy)
+template <typename T>
+__device__ __forceinline__ T freeform_residual(T px, T py, T pz, T c, T k,
+                                               const Figure<T>& fg,
+                                               const XyFig<T>& xf) {
+  return sag_residual(px, py, pz, c, k, fg) - poly_xy(px, py, xf);
+}
+
+// The freeform normal (gx, gy, 1) at (x1, y1): the radial normal (x1 e,
+// y1 e), e = -c / sqrt0(1 - (1+k) c^2 r2) less the slopes of every
+// coefficient of the table's widths, less the XY figure's slopes
+// (kernels.normal_freeform)
+template <typename T>
+__device__ __forceinline__ void freeform_normal(T x1, T y1, T c, T k,
+                                                const Figure<T>& fg,
+                                                const XyFig<T>& xf, T& gx,
+                                                T& gy) {
+  const T e = radial_factor(x1, y1, c, k, fg);
+  T dpx, dpy;
+  dpoly_xy(x1, y1, xf, dpx, dpy);
+  gx = x1 * e - dpx;
+  gy = y1 * e - dpy;
+}
+
+// dF/ds of a freeform row at distance s, a zero slope taken as 1
+template <typename T>
+__device__ __forceinline__ T freeform_slope(T s, T x, T y, T ux, T uy, T uz,
+                                            T c, T k, const Figure<T>& fg,
+                                            const XyFig<T>& xf) {
+  T gx, gy;
+  freeform_normal(x + s * ux, y + s * uy, c, k, fg, xf, gx, gy);
+  const T fp = ux * gx + uy * gy + uz;
+  return fp == T(0) ? T(1) : fp;
+}
+
+// kernels.intercept with xy_poly: the generic conic root (conic_root)
+// seeds ASPHERIC_ITERS Newton steps on the freeform residual, a ray whose
+// seed misses restarting from the vertex plane -z/uz (the figure breaks
+// the symmetry: the true surface can catch what the conic misses); no
+// early exit, and no mask of the seed's misses after: a ray past
+// newton_tol() is NaN.  sg: -1 for the alternate root.
+template <typename T>
+__device__ __forceinline__ T freeform_intercept(T x, T y, T z, T ux, T uy,
+                                                T uz, T c, T k, T sg,
+                                                const Figure<T>& fg,
+                                                const XyFig<T>& xf) {
+  T s = conic_root(x, y, z, ux, uy, uz, c, k, sg);
+  if (isnan(s)) s = -z / (uz == T(0) ? T(1) : uz);
+#pragma unroll 1
+  for (int it = 0; it < ASPHERIC_ITERS; ++it) {
+    const T fn =
+        freeform_residual(x + s * ux, y + s * uy, z + s * uz, c, k, fg, xf);
+    s = s - fn / freeform_slope(s, x, y, ux, uy, uz, c, k, fg, xf);
+  }
+  const T res =
+      freeform_residual(x + s * ux, y + s * uy, z + s * uz, c, k, fg, xf);
+  if (!(fabs(res) <= newton_tol<T>() * (T(1) + fabs(s)))) s = qnan<T>();
   return s;
 }
 
@@ -653,7 +816,8 @@ __device__ __forceinline__ void grating_refract(T mu, T gdy, T gx, T gy,
 }
 
 // One transfer-intercept-refract step: kernels.surface_step_spec for
-// flat, spherical, conic, even/odd aspheric, anamorphic and phase rows.  State in and out
+// flat, spherical, conic, even/odd aspheric, anamorphic, phase and
+// freeform rows.  State in and out
 // in the global (from_normal) frame; adds the optical path n_before * t
 // to tacc.
 // The row's flags arrive as std::integral_constant<int, F> (K1-K9,
@@ -676,6 +840,10 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   static_assert(!(Flags::value & F_CYL) || !(Flags::value & F_ANAM_NEWTON) ||
                     (Flags::value & F_PHASE),
                 "only a phase row marks its cylinder's origin");
+  static_assert(!(Flags::value & F_FREEFORM) || N_XY > 0,
+                "a freeform row needs the key's XY coefficients");
+  static_assert(!(Flags::value & F_FREEFORM) || !(Flags::value & F_ANAMORPHIC),
+                "a freeform figure takes a radial base");
   if (fl & F_OFF_AXIS) {
     x = x - p[P_OFF];
     y = y - p[P_OFF + 1];
@@ -696,8 +864,14 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   constexpr bool anam_fig = N_ASP + N_ODD > 0;
   static_assert(!(Flags::value & F_CYL) || !(Flags::value & F_FIGURED),
                 "a cylinder row has no aspheric figure");
+  // a freeform row's Newton and normal read every coefficient of the
+  // widths too (kernels.reads_figure), and its XY figure
+  constexpr bool freeform = (Flags::value & F_FREEFORM) != 0;
   Figure<T> fg;
-  if (figured || ((fl & F_ANAM_NEWTON) && anam_fig)) fg = load_figure<T>(p);
+  if (figured || ((fl & (F_ANAM_NEWTON | F_FREEFORM)) && anam_fig))
+    fg = load_figure<T>(p);
+  XyFig<T> xf{};
+  if constexpr (freeform) xf = load_xy<T>(p);
   Anam<T> an{};
   if (fl & F_ANAM_NEWTON) an = load_anam<toroid>(p, c, k);
   // a cylinder's curvature and conic: (c, k) in y, (c + cdx, k + kdx) in x
@@ -708,7 +882,7 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   }
   const T sg = (fl & F_ALTERNATE) ? T(-1) : T(1);
   // intercept_spec, a cylinder's closed form (a phase cylinder's too),
-  // or the seeded Newton of a figured, biconic or toroidal row
+  // or the seeded Newton of a figured, biconic, toroidal or freeform row
   T t;
   if (fl & F_CYL_Y) {
     t = cyl_intercept(y, z, uy, uz, cc, kk, sg);
@@ -717,6 +891,8 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
   } else if (fl & F_ANAM_NEWTON) {
     t = anam_intercept<toroid, anam_fig>(x, y, z, ux, uy, uz, c, k, sg,
                                             an, fg);
+  } else if (freeform) {
+    t = freeform_intercept(x, y, z, ux, uy, uz, c, k, sg, fg, xf);
   } else if (figured) {
     t = newton_intercept(x, y, z, ux, uy, uz, c, k,
                          (fl & F_ALTERNATE) ? T(-1) : T(1), fg);
@@ -777,6 +953,8 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
     T gx, gy;
     if constexpr ((Flags::value & F_ANAM_NEWTON) != 0) {
       anam_normal<toroid, anam_fig>(x1, y1, an, fg, gx, gy);
+    } else if constexpr (freeform) {
+      freeform_normal(x1, y1, c, k, fg, xf, gx, gy);
     } else {
       radial_phase_normal<(Flags::value & F_FLAT) != 0 &&
                               !(Flags::value & F_FIGURED),
@@ -795,6 +973,11 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
     } else if (fl & F_ANAM_NEWTON) {
       T gx, gy;
       anam_normal<toroid, anam_fig>(x1, y1, an, fg, gx, gy);
+      general_refract(kind, mu, gx, gy, vx, vy, vz);
+    } else if (freeform) {
+      // kernels.refract_freeform: Snell or a mirror on the freeform normal
+      T gx, gy;
+      freeform_normal(x1, y1, c, k, fg, xf, gx, gy);
       general_refract(kind, mu, gx, gy, vx, vy, vz);
     } else if (figured) {
       // the radial normal (x e, y e, 1) of _refract_figured: the conic
@@ -872,13 +1055,6 @@ __device__ __forceinline__ void surface_step(Row p, Flags flags, bool clip,
     rot_apply_t(p + P_ROT, x, y, z);
     rot_apply_t(p + P_ROT, ux, uy, uz);
   }
-}
-
-// f(std::integral_constant<int, I>{}) for each I of the sequence, in order
-template <typename F, int... I>
-__device__ __forceinline__ void static_for(std::integer_sequence<int, I...>,
-                                           F&& f) {
-  (f(std::integral_constant<int, I>{}), ...);
 }
 
 // True in the last block to finish, once every block has written its

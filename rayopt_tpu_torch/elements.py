@@ -1,18 +1,17 @@
-"""Element/Interface/Spheroid/Biconic/Toroid/Grating/DiffractiveSurface:
-the serializable surface front-end.
+"""Element/Interface/Spheroid/Biconic/Toroid/FreeformXY/ZernikeSag/
+Grating/DiffractiveSurface: the serializable surface front-end.
 
 API parity with reference elements.py (TransformMixin:30, Element:179,
 Interface:276, Spheroid:413, Biconic:545, Toroid:671) and with the JAX
-package's Grating and DiffractiveSurface.  These objects are a thin, host-side
-description layer: `System` lowers a list of them into the
-struct-of-arrays `SurfaceTable` (ops.tables) that the trace engines
-consume.  The per-element numeric methods take and return NumPy
+package's FreeformXY, ZernikeSag, Grating and DiffractiveSurface.
+These objects are a thin, host-side description layer: `System` lowers
+a list of them into the struct-of-arrays `SurfaceTable` (ops.tables)
+that the trace engines consume.  The per-element numeric methods take and return NumPy
 arrays; they evaluate the torch surface oracle (ops.surfaces) on CPU
 float64 tensors, so both paths share one implementation of the
 physics.
 
-The freeform element types of the JAX package (XY polynomial, Zernike
-sag, Forbes Qcon ...) are not ported yet.
+The JAX package's Forbes Qcon element is not ported yet.
 """
 
 import numpy as np
@@ -699,6 +698,165 @@ class Toroid(Spheroid):
     def rescale(self, scale):
         super().rescale(scale)
         self.curvature_rotation /= scale
+
+
+@Element.register
+class FreeformXY(Spheroid):
+    """Freeform surface (the JAX package's FreeformXY): a conic/aspheric
+    base plus a general XY-polynomial figure,
+
+        sag = conic(r2) + poly(r2) + sum_t A_t (x/R)^i (y/R)^j
+
+    with the triangular term ordering of ops.kernels._xy_terms (x, y,
+    x^2, xy, y^2, x^3, ...) and no constant term: sag(0, 0) == 0 and the
+    vertex carries any piston.  `norm_radius` R normalizes the
+    coordinates, so each A_t is the term's sag (in lens units) at the
+    normalization radius; System.table lowers the row to the
+    denormalized monomials A_t/R^(i+j) (`_xy_arr`).
+
+    Linear terms tilt the vertex tangent plane and add no paraxial
+    power; the quadratic terms feed per-axis paraxial power (cx += 2
+    A_(2,0)/R^2, cy += 2 A_(0,2)/R^2; the xy cross term is ignored at
+    first order).  Optimize the normalized coefficients:
+    parallel.grad.optimize_grad(select=("xy_poly",), scales={"xy_poly":
+    freeform_scales(system)}), seeding the row with tiny nonzero values
+    (an exactly-zero row is baked out of the specialization and carries
+    zero gradient by design)."""
+
+    _type = "xypoly"
+
+    def __init__(self, xy_coefficients=None, norm_radius=1., **kwargs):
+        super().__init__(**kwargs)
+        self.xy_coefficients = (None if xy_coefficients is None
+                                else list(xy_coefficients))
+        self.norm_radius = float(norm_radius)
+
+    def dict(self):
+        dat = super().dict()
+        if self.xy_coefficients is not None:
+            dat["xy_coefficients"] = list(map(float, self.xy_coefficients))
+        if self.norm_radius != 1.:
+            dat["norm_radius"] = float(self.norm_radius)
+        return dat
+
+    @property
+    def _xy_arr(self):
+        """Denormalized monomial coefficients, zero-padded to a full
+        triangle: term t multiplies x^i y^j in lens units."""
+        from .ops.kernels import _xy_terms
+        a = np.asarray(self.xy_coefficients or (), dtype=float)
+        if not a.size:
+            return np.zeros(0)
+        deg, n = 0, 0
+        while n < a.size:
+            deg += 1
+            n += deg + 1
+        out = np.zeros(n)
+        out[:a.size] = a
+        scale = np.array([self.norm_radius**(i + j)
+                          for i, j in _xy_terms(deg)])
+        return out/scale
+
+    def surface_sag(self, xyz):
+        return _np(_ops.surface_sag(_t(xyz), self.curvature, self.conic,
+                                    self._aspheric_arr,
+                                    self._aspheric_odd_arr,
+                                    _t(self._xy_arr)))
+
+    def surface_normal(self, xyz):
+        return _np(_ops.surface_normal(_t(xyz), self.curvature,
+                                       self.conic, self._aspheric_arr,
+                                       self._aspheric_odd_arr,
+                                       _t(self._xy_arr)))
+
+    def intercept(self, y, u):
+        return _np(_ops.intercept(
+            _t(y), _t(u), self.curvature, self.conic,
+            self._aspheric_arr,
+            alternate=1. if self.alternate_intersection else 0.,
+            aspherics_odd=self._aspheric_odd_arr,
+            xy_poly=_t(self._xy_arr)))
+
+    def refract(self, y, u0, mu):
+        return _np(_ops.refract(_t(y), _t(u0), mu, self.curvature,
+                                self.conic, self._aspheric_arr,
+                                aspherics_odd=self._aspheric_odd_arr,
+                                xy_poly=_t(self._xy_arr)))
+
+    def _xy_quadratic(self):
+        """(2 c20, 2 c11, 2 c02): the freeform figure's second-derivative
+        curvatures at the vertex (denormalized)."""
+        a = self._xy_arr
+        if a.size < 5:
+            return 0., 0., 0.
+        return 2*a[2], 2*a[3], 2*a[4]
+
+    def _vertex_power(self):
+        return super()._vertex_power() + self._xy_quadratic()[2]
+
+    def _vertex_power_x(self):
+        return super()._vertex_power() + self._xy_quadratic()[0]
+
+    def reverse(self):
+        super().reverse()
+        if self.xy_coefficients is not None:
+            self.xy_coefficients = [-a for a in self.xy_coefficients]
+
+    def rescale(self, scale):
+        super().rescale(scale)
+        self.norm_radius *= scale
+        if self.xy_coefficients is not None:
+            # A_t is a sag (a length): it scales with the system
+            self.xy_coefficients = [a*scale for a in self.xy_coefficients]
+
+
+@Element.register
+class ZernikeSag(FreeformXY):
+    """Zernike-sag freeform surface (the JAX package's ZernikeSag): a
+    conic/aspheric base plus sum_j z_j Z_j(x/R, y/R) with Z_j the
+    orthonormal Noll-ordered Zernikes of utils.zernike, the coefficients
+    sag RMS contributions over the normalization disc, in lens units.
+
+    At construction the Zernike sum is lowered exactly onto the
+    XY-monomial basis (utils.zernike.zernike_xy_coefficients) and traced
+    as a FreeformXY.  The constant (piston) part is dropped so that
+    sag(0, 0) == 0 (`piston` keeps it: the vertex is re-referenced to
+    the surface)."""
+
+    _type = "zernike"
+
+    def __init__(self, zernike_coefficients=None, norm_radius=1.,
+                 **kwargs):
+        super().__init__(norm_radius=norm_radius, **kwargs)
+        self.zernike_coefficients = list(zernike_coefficients or ())
+        self._relower()
+
+    def _relower(self):
+        """Recompute the traced XY-monomial lowering from
+        `zernike_coefficients` (after in-place edits)."""
+        from .utils.zernike import zernike_xy_coefficients
+        xy, const = zernike_xy_coefficients(self.zernike_coefficients)
+        self.xy_coefficients = xy
+        self.piston = const  # the dropped constant (vertex re-reference)
+
+    def dict(self):
+        dat = super().dict()
+        dat.pop("xy_coefficients", None)
+        if self.zernike_coefficients:
+            dat["zernike_coefficients"] = list(
+                map(float, self.zernike_coefficients))
+        return dat
+
+    def reverse(self):
+        super().reverse()
+        self.zernike_coefficients = [-z for z in self.zernike_coefficients]
+        self.piston = -self.piston
+
+    def rescale(self, scale):
+        super().rescale(scale)
+        self.zernike_coefficients = [z*scale
+                                     for z in self.zernike_coefficients]
+        self.piston *= scale
 
 
 @Element.register

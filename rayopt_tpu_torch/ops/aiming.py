@@ -18,11 +18,11 @@ iteration count.
 
 The loops never wait on the host: fixed trip counts, torch.where for
 every guard, and no .item(), bool(tensor) or nonzero inside them.  The
-table's checks that read it on the host (the pose lowering, the
-refusal of the freeform rows) run once before them
-(`_prepared`).  Each merit is a trace through the plain ops.geometric
-engine, in the table's dtype on its device (an aspheric row by its
-fixed-count Newton): on a CUDA table a few hundred small launches.
+table's check that reads it on the host (the pose lowering) runs once
+before them (`_prepared`).  Each merit is a trace through the plain
+ops.geometric engine, in the table's dtype on its device (an aspheric
+or freeform row by its fixed-count Newton): on a CUDA table a few
+hundred small launches.
 
 Field coordinates: `field` is (F, 2) fractional object coordinates.
 For the infinite conjugate pass `slope=tan(object.angle)` (or
@@ -40,26 +40,21 @@ from .geometric import trace_components_final, trace_rays
 from .surfaces import surface_sag
 from .tables import lower_pose
 
-#: the table fields the loops never read once `_prepared` checked them
-#: (the aspheric coefficients, the anamorphic columns, grating_dy and
-#: doe stay: the traces read them on the device, and tests only their
-#: static widths)
-_CHECKED = ("xy_poly", "tilt", "decenter")
+#: the table fields the loops never read once `_prepared` folded them
+#: (the aspheric coefficients, the anamorphic columns, grating_dy, doe
+#: and xy_poly stay: the traces read them on the device, and tests only
+#: their static widths)
+_CHECKED = ("tilt", "decenter")
 
 
-def _prepared(table, specs, rim=False):
-    """The table detached, its pose folded, and refused (once, here)
-    where the loops would refuse it: a freeform row (the port's traces
-    take the flat, spherical, conic, even/odd aspheric, anamorphic,
-    grating and DOE rows; ROADMAP Queue 1 item 9.5), in stop and in rim
-    mode.  The fields those checks read become None, so that the loops'
-    traces and sags read nothing back to the host.  Idempotent."""
+def _prepared(table):
+    """The table detached and its pose folded, once, here: the fields
+    the pose lowering reads become None, so that the loops' traces and
+    sags read nothing back to the host.  Every row the port traces is
+    let through, the freeform rows included, in stop and in rim mode.
+    Idempotent."""
     table = lower_pose(type(table)(*(None if f is None else f.detach()
                                      for f in table)))
-    K.require_radial(table)
-    if specs and any(s.freeform for s in specs):
-        K.check_supported(next(s for s in specs if s.freeform),
-                          what="aiming")
     return table.replace(**dict.fromkeys(_CHECKED))
 
 
@@ -172,7 +167,8 @@ def _seed_finite(table, fx, fy, z, px, py, scale, radius):
     object surface at -field*radius, direction at the axial pupil
     point, tilted by scale*(px, py) in the pupil plane
     (reference conjugates.py:137-166).  The object surface is a conic
-    with even/odd aspheric figure (`_prepared` refused a freeform)."""
+    with even/odd aspheric figure (its freeform figure is not read, as
+    in the reference)."""
     ox = -fx*radius
     oy = -fy*radius
     pos = torch.stack([ox, oy, torch.zeros_like(ox)], -1)
@@ -256,7 +252,7 @@ def aim_chief_batched(table, field, z0, stop, specs=None, iters=12,
     Returns (F,) solved distances, plus the (F,) final merit residuals
     when with_residual is set.
     """
-    table = _prepared(table, specs)
+    table = _prepared(table)
     field = _field(field, table)
     fx = field[:, 0]
     fy = field[:, 1]
@@ -300,7 +296,7 @@ def aim_marginal_batched(table, field, z, p0, stop, specs=None,
     outside.  Returns (F,) scales a*p0, plus the (F,) final bracket
     half-widths (relative) when with_residual is set.
     """
-    table = _prepared(table, specs, rim)
+    table = _prepared(table)
     field = _field(field, table)
     fx = field[:, 0]
     fy = field[:, 1]
@@ -348,7 +344,7 @@ def pupil_batched(table, field, z0, p0, stop, specs=None, slope=None,
     [[-sag, -mer], [+sag, +mer]]; with_residuals additionally returns
     (chief residual (F,), max marginal bracket width (F,)).
     """
-    table = _prepared(table, specs, rim)
+    table = _prepared(table)
     kw = dict(specs=specs, slope=slope, radius=radius, finite=finite,
               projection=projection)
     z = aim_chief_batched(table, field, z0, stop,

@@ -47,7 +47,16 @@ K9 reverse the generalized Spencer & Murty solve by hand
 branch, the groove vector's normalization, the DOE's kick) and then the
 substrate's normal (a phase cylinder's, then its closed form), and
 reduce grating_dy and the DOE coefficients
-after the other columns (K7 per table of the stack, as mu).  K8 adds a
+after the other columns (K7 per table of the stack, as mu).  K4 and K5
+also trace the freeform XY rows (a conic or aspheric base plus a
+triangular XY-monomial figure: the seeded Newton with the vertex-plane
+restart, the freeform normal); K5 reverses such a row in
+figured_step_vjp (csrc/step_vjp.cuh): the refraction or phase solve on
+the freeform normal, whose reverse reads the figure's second
+derivatives, then the Newton root implicitly, each XY coefficient's
+cotangent -gF x^i y^j through the residual and i x^(i-1) y^j, j x^i
+y^(j-1) through the normal's slopes; its slots are the last columns,
+one a coefficient of the table's xy_poly width.  K8 adds a
 DOE row's imprinted phase psi(r2) n_after to the optical path, and K9
 reverses it (doe_path_vjp): n_after takes ct_path psi(r2), coefficient
 i ct_path n_after r2^(i+1) and the intercept ct_path n_after psi'(r2)
@@ -118,7 +127,8 @@ from . import kernels as K
 from .cuda_spec import launch_moments, packed, spec_launch
 from .cuda_trace import (ANAM, _check_state, carries_anamorphic,
                          carries_grating, doe_width, figure_widths,
-                         spot_rms_from_moments, trace_final_reference)
+                         spot_rms_from_moments, trace_final_reference,
+                         xy_width)
 from .tables import lower_pose, table_at
 
 SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
@@ -130,8 +140,8 @@ AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 _DIFF = CS.OPD_DIFF
 _NO = len(_DIFF)
 #: those _SpotMoments carries: _DIFF up to the anamorphic x figure, then
-#: the phase rows' grating_dy and doe (the spot moments' n_before gets a
-#: zero cotangent)
+#: the phase rows' grating_dy and doe and the freeform rows' xy_poly (the
+#: spot moments' n_before gets a zero cotangent)
 _SPOT = _DIFF[:9] + CS.FIELDS[8:]
 _NM = len(_SPOT)
 #: kernel-carried fields that never receive cotangents
@@ -180,13 +190,15 @@ def _constant_table(table, like):
                          for f in _folded(table)))
 
 
-def _param_rows(tab, anamorphic=False, grating=False, nd=0, opd=False):
-    """(S, SLOTS + na + no [+ ANAM] [+ 1] [+ nd]) view of the
+def _param_rows(tab, anamorphic=False, grating=False, nd=0, opd=False,
+                nxy=0):
+    """(S, SLOTS + na + no [+ ANAM] [+ 1] [+ nd] [+ nxy]) view of the
     differentiated fields of a table: c, k, offset x, y, z, mu, then its
     aspheric coefficients, then (anamorphic, cuda_trace.
     carries_anamorphic) curvature_dx and conic_dx, then (grating,
     carries_grating) grating_dy, then (nd, doe_width) the DOE
-    coefficients -- with `opd` (K9's) n_after before them."""
+    coefficients -- with `opd` (K9's) n_after before them --, then (nxy,
+    xy_width) the XY coefficients."""
     cols = [torch.stack([tab.curvature, tab.conic, tab.offset[:, 0],
                          tab.offset[:, 1], tab.offset[:, 2], tab.mu], 1),
             tab.aspherics, tab.aspherics_odd]
@@ -198,6 +210,8 @@ def _param_rows(tab, anamorphic=False, grating=False, nd=0, opd=False):
         if opd:
             cols.append(tab.n_after[:, None])
         cols.append(tab.doe)
+    if nxy:
+        cols.append(tab.xy_poly)
     return torch.cat(cols, 1)
 
 
@@ -220,11 +234,13 @@ def _nslots(table, specs, base=SLOTS):
     coefficients, ANAM where a row is anamorphic (cuda_trace.
     carries_anamorphic), then one where a row is a grating and the DOE
     width where a row is a DOE (_phase_layout; K9 one more there, its
-    n_after)."""
+    n_after), then (K5's and K7's) the xy_poly width where a row is
+    freeform (cuda_trace.xy_width)."""
     grating, nd = _phase_layout(table, specs)
+    k9 = base == OPD_SLOTS
     return base + sum(_table_widths(table)) \
         + (ANAM if carries_anamorphic(specs) else 0) + int(grating) + nd \
-        + int(base == OPD_SLOTS and nd > 0)
+        + int(k9 and nd > 0) + (0 if k9 else xy_width(table, specs))
 
 
 def _key_columns(pg, key, nq, base=SLOTS):
@@ -247,7 +263,7 @@ def _diff_values(table, fields=_DIFF):
         v = getattr(table, f)
         if v is not None:
             return v
-        if f == "doe":
+        if f in ("doe", "xy_poly"):
             return table.curvature.new_zeros(table.curvature.shape + (0,))
         return torch.zeros_like(table.curvature)
     return [value(f) for f in fields]
@@ -261,13 +277,14 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     c, k, offset x, y, z, mu, then the table's na even and no odd
     aspheric coefficients, then for anamorphic specs
     (cuda_trace.carries_anamorphic) curvature_dx and conic_dx, then for
-    grating specs grating_dy, for DOE specs the DOE coefficients; the
-    six state cotangents; the weight cotangent), all in the state's
-    dtype."""
+    grating specs grating_dy, for DOE specs the DOE coefficients, for
+    freeform specs the XY coefficients; the six state cotangents; the
+    weight cotangent), all in the state's dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     anam = carries_anamorphic(specs)
     grating, nd = _phase_layout(tab, specs)
+    nxy = xy_width(tab, specs)
     with torch.no_grad():
         out, _ = trace_final_reference(tab, specs, state, clip)
         alive = _live(out)
@@ -280,7 +297,8 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     fields = ("curvature", "conic", "offset", "mu", "aspherics",
               "aspherics_odd") + (("curvature_dx", "conic_dx") if anam
                                   else ()) \
-        + (("grating_dy",) if grating else ()) + (("doe",) if nd else ())
+        + (("grating_dy",) if grating else ()) + (("doe",) if nd else ()) \
+        + (("xy_poly",) if nxy else ())
     nf = len(fields)
     leaves = [*(getattr(tab, f) for f in fields), *state, w]
     leaves = [v.detach().clone().requires_grad_() for v in leaves]
@@ -295,7 +313,7 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(leaves, grads)]
     pg = _param_rows(tab.replace(**dict(zip(fields, grads[:nf]))), anam,
-                     grating, nd)
+                     grating, nd, nxy=nxy)
     return pg, tuple(grads[nf:nf + 6]), grads[nf + 6]
 
 
@@ -685,14 +703,16 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     of the row's optical path t * n_before (K9's PATH instantiation), or
     None (K5's and K7's: the path has no cotangent).  Returns (cotangent
     of the entering state, per-ray parameter cotangents (c, k, offset x,
-    y, z, mu, and with ct_path n_before; an aspheric row then its
-    table's even and odd coefficients, `_figured_vjp_reference`)).  The
-    aperture clip is a constant mask: a clipped ray is dead, and dead
-    rays never reach the reverse sweep."""
-    K.check_supported(spec, what="K5's reverse")
+    y, z, mu, and with ct_path n_before; an aspheric or freeform row
+    then its table's even and odd coefficients, a freeform row its XY
+    coefficients last, `_figured_vjp_reference`)).  The aperture clip is
+    a constant mask: a clipped ray is dead, and dead rays never reach
+    the reverse sweep.  A freeform figure on an anamorphic base raises
+    (kernels.check_supported), as every key does."""
+    K.check_supported(spec, what="K5's reverse", kernel="k5")
     if K.is_anamorphic_spec(spec):
         return _anamorphic_vjp_reference(state, surf, spec, g, ct_path)
-    if K.is_figured(spec):
+    if K.is_figured(spec) or spec.freeform:
         return _figured_vjp_reference(state, surf, spec, g, ct_path)
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
@@ -899,6 +919,52 @@ def _figure_sag_vjp(r2, asp, aspo, gF, ga, gb, gr2):
     return gr2
 
 
+def _xy_powers(v, deg):
+    """[1, v, v^2, ..., v^deg] by repeated products (csrc/
+    trace_common.cuh xy_powers)."""
+    pw = [torch.ones_like(v), v]
+    for _ in range(2, deg + 1):
+        pw.append(pw[-1]*v)
+    return pw[:deg + 1]
+
+
+def _xy_normal_vjp(x1, y1, xy, ggx, ggy, gxy):
+    """Reverse of (gx, gy) -= (dP/dx, dP/dy)(x1, y1), P = _poly_xy, the
+    freeform figure's slopes in a normal, from the normal's cotangents
+    (ggx, ggy): term t = (i, j) adds -(ggx i x^(i-1) y^j + ggy j x^i
+    y^(j-1)) into gxy[t], and the point takes the figure's second
+    derivatives.  Returns (gx1, gy1) (csrc/step_vjp.cuh
+    xy_normal_vjp)."""
+    deg = K.xy_degree(xy.shape[-1])
+    xp, yp = _xy_powers(x1, deg), _xy_powers(y1, deg)
+    gx1 = torch.zeros_like(x1)
+    gy1 = torch.zeros_like(x1)
+    for t, (i, j) in enumerate(K._xy_terms(deg)):
+        c = xy[..., t]
+        mx = i*xp[i - 1]*yp[j] if i else 0.
+        my = j*xp[i]*yp[j - 1] if j else 0.
+        gxy[t] = gxy[t] - (ggx*mx + ggy*my)
+        hxx = i*(i - 1)*xp[i - 2]*yp[j] if i >= 2 else 0.
+        hxy = i*j*xp[i - 1]*yp[j - 1] if i and j else 0.
+        hyy = j*(j - 1)*xp[i]*yp[j - 2] if j >= 2 else 0.
+        gx1 = gx1 - c*(ggx*hxx + ggy*hxy)
+        gy1 = gy1 - c*(ggx*hxy + ggy*hyy)
+    return gx1, gy1
+
+
+def _xy_sag_vjp(px, py, xy, gF, gxy):
+    """Reverse of F -= P(px, py), the freeform figure in a residual,
+    from F's cotangent gF: term t = (i, j) adds -gF x^i y^j into gxy[t];
+    returns the point's (-gF dP/dx, -gF dP/dy) (csrc/step_vjp.cuh
+    xy_sag_vjp)."""
+    deg = K.xy_degree(xy.shape[-1])
+    xp, yp = _xy_powers(px, deg), _xy_powers(py, deg)
+    for t, (i, j) in enumerate(K._xy_terms(deg)):
+        gxy[t] = gxy[t] - gF*(xp[i]*yp[j])
+    dpx, dpy = K._dpoly_xy(px, py, xy)
+    return -gF*dpx, -gF*dpy
+
+
 def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     """Hand-derived reverse of an aspheric row's step (kernels.
     surface_step_spec with spec.aspheric or spec.odd) for live rays, the
@@ -908,15 +974,22 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     intercept differentiated implicitly at its root, dF/dp scaled by
     -gt/F_s (kernels._NewtonRoot); with ct_path (K9's PATH) the row's
     optical path t * n_before first adds ct_path * n_before to gt, and
-    n_before takes ct_path * t.  Returns the entering state's cotangent
-    and the per-ray parameter cotangents (c, k, offset x, y, z, mu, with
-    ct_path n_before, then the table's na even and no odd
-    coefficients)."""
+    n_before takes ct_path * t.  A freeform row (spec.freeform) takes its
+    Newton with the XY figure and the vertex-plane restart, and refracts
+    (or solves its phase) on the freeform normal: the radial normal of
+    every coefficient of the widths less the XY slopes (kernels.
+    normal_freeform), Snell or a mirror by _refract_general's form.
+    Returns the entering state's cotangent and the per-ray parameter
+    cotangents (c, k, offset x, y, z, mu, with ct_path n_before, then
+    the table's na even and no odd coefficients, a phase row's, then a
+    freeform row's XY coefficients)."""
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
     c, k, mu = surf.curvature, surf.conic, surf.mu
     asp, aspo = surf.aspherics, surf.aspherics_odd
     na, no = asp.shape[-1], aspo.shape[-1]
+    ff = bool(spec.freeform)
+    xy = surf.xy_poly if ff else None
     # ---- forward recompute ----
     if spec.off_axis:
         x = x - surf.offset[0]
@@ -927,7 +1000,7 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
         x, y, z = K.rot_apply(r, x, y, z)
         ux, uy, uz = K.rot_apply(r, ux, uy, uz)
     t = K.intercept(x, y, z, ux, uy, uz, c, k, asp, surf.alternate,
-                    aspherics_odd=aspo)
+                    aspherics_odd=aspo, xy_poly=xy)
     x1, y1 = x + t*ux, y + t*uy
     # ---- reverse: leave the row's frame ----
     gx1, gy1, gz1, gvx, gvy, gvz = g
@@ -937,24 +1010,46 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     gc, gk, gmu = zero, zero, zero
     ga = [zero]*na
     gb = [zero]*no
+    gxy = [zero]*(xy.shape[-1] if ff else 0)
     phase = ()
-    # ---- reverse: refraction by the radial normal ----
+    # ---- reverse: refraction by the radial (or freeform) normal ----
     if K.is_phase(spec):
         # the grating/phase solve on the radial normal of every
-        # coefficient of the widths (kernels.normal_radial)
+        # coefficient of the widths (kernels.normal_radial), less a
+        # freeform row's XY slopes
         gdy, doe = _phase_row(surf, spec)
-        ngx, ngy = _radial_phase_normal(x1, y1, c, k, asp, aspo, False)
+        ngx, ngy = (K.normal_freeform(x1, y1, c, k, asp, aspo, xy) if ff
+                    else _radial_phase_normal(x1, y1, c, k, asp, aspo,
+                                              False))
         (gux, guy, guz), (ggx, ggy), gmu, ggdy, gdoe, dx1, dy1 = \
             _grating_refract_vjp(x1, y1, (ux, uy, uz), mu, gdy, ngx, ngy, doe,
                                  (gvx, gvy, gvz))
         nx1, ny1, gc, gk = _radial_phase_vjp(x1, y1, c, k, asp, aspo, ggx,
                                              ggy, ga, gb, False)
         gx1, gy1 = gx1 + dx1 + nx1, gy1 + dy1 + ny1
+        if ff:
+            hx1, hy1 = _xy_normal_vjp(x1, y1, xy, ggx, ggy, gxy)
+            gx1, gy1 = gx1 + hx1, gy1 + hy1
         gna, gdoe, gx1, gy1 = _doe_path_vjp(surf, spec, x1, y1, ct_path,
                                             gdoe, gx1, gy1)
         phase = _phase_tail(surf, spec, ggdy, gdoe, gna)
     elif spec.kind == 0:
         gux, guy, guz = gvx, gvy, gvz
+    elif ff:
+        # Snell or a mirror on the freeform normal (gx, gy, 1)
+        ngx, ngy = K.normal_freeform(x1, y1, c, k, asp, aspo, xy)
+        (gux, guy, guz), (gnx, gny, _), gmu = _refraction_vjp(
+            spec.kind, False, mu, (ux, uy, uz), (ngx, ngy, 1.),
+            (gvx, gvy, gvz))
+        if spec.kind == 2:
+            # the reflection's a = |mu| (u . n) / |n|^2 with |mu| = 1
+            nn = ngx*ngx + ngy*ngy + 1.
+            gmu = -torch.sign(mu)*2*(ux*ngx + uy*ngy + uz)/nn \
+                * (gvx*ngx + gvy*ngy + gvz)
+        nx1, ny1, gc, gk = _radial_phase_vjp(x1, y1, c, k, asp, aspo, gnx,
+                                             gny, ga, gb, False)
+        hx1, hy1 = _xy_normal_vjp(x1, y1, xy, gnx, gny, gxy)
+        gx1, gy1 = gx1 + nx1 + hx1, gy1 + ny1 + hy1
     else:
         r2s = x1*x1 + y1*y1
         kc2 = (1 + k)*c*c
@@ -988,7 +1083,7 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
         gnb = ct_path*t
     # ---- reverse: the Newton root, implicitly: dF/dp * (-gt/F_s) ----
     fs = K._newton_slope("radial", t, x, y, z, ux, uy, uz, c, k, None, None,
-                         asp, aspo)
+                         asp, aspo, xy)
     gF = -gt/torch.where(fs == 0, 1., fs)
     px, py = x + t*ux, y + t*uy
     r2 = px*px + py*py
@@ -1003,6 +1098,9 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     gc = gc - 2*(1 + k)*c*r2*gw + r2*gnum
     gr2 = _figure_sag_vjp(r2, asp, aspo, gF, ga, gb, -kc2*gw + c*gnum)
     gpx, gpy = 2*px*gr2, 2*py*gr2
+    if ff:
+        hpx, hpy = _xy_sag_vjp(px, py, xy, gF, gxy)
+        gpx, gpy = gpx + hpx, gpy + hpy
     gx, gy, gz = gx + gpx, gy + gpy, gz + gF
     gux, guy, guz = gux + t*gpx, guy + t*gpy, guz + t*gF
     # ---- reverse: enter the row's frame ----
@@ -1013,7 +1111,7 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     goy = -gy if spec.off_axis else zero
     nb = () if ct_path is None else (gnb,)
     return ((gx, gy, gz, gux, guy, guz),
-            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, *phase))
+            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, *phase, *gxy))
 
 
 def _sqrt0_vjp(m, sq, g):
@@ -1443,39 +1541,43 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     pg = torch.zeros((nsurf, _nslots(tab, specs)), dtype=x0.dtype,
                      device=x0.device)
     nd = _phase_layout(tab, specs)[1]
+    nxy = xy_width(tab, specs)
     for j in range(nsurf - 1, 0, -1):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        _put_row(pg, j, specs[j], pj, live, specs, nd=nd)
+        _put_row(pg, j, specs[j], pj, live, specs, nd=nd, nxy=nxy)
     if specs[0].rotated:
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
     return pg, g, ct_w
 
 
-def _put_row(pg, j, spec, pj, live, specs, base=SLOTS, nd=0):
+def _put_row(pg, j, spec, pj, live, specs, base=SLOTS, nd=0, nxy=0):
     """Row j of the by-hand models' parameter cotangents: the sums over
     the live rays of _step_vjp_reference's per-ray ones (a row that
     reads no figure has no aspheric slots: zeros; an anamorphic row's
     curvature_dx and conic_dx follow the coefficients; a phase row's
     grating_dy, then (K9, base OPD_SLOTS) n_after, then its nd DOE
-    coefficients come last)."""
+    coefficients; a freeform row's nxy XY coefficients come last)."""
     sums = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+    if spec.freeform and nxy:
+        pg[j, pg.shape[-1] - nxy:] = sums[len(pj) - nxy:]
+        sums, pj = sums[:len(pj) - nxy], pj[:len(pj) - nxy]
     anam = carries_anamorphic(specs)
     grating = carries_grating(specs)
     # the DOE block: K9's n_after, then the coefficients
     ndoe = nd + int(base == OPD_SLOTS) if nd else 0
-    q = pg.shape[-1] - int(grating) - ndoe - (ANAM if anam else 0)
+    q = pg.shape[-1] - nxy - int(grating) - ndoe - (ANAM if anam else 0)
     nph = (1 + (ndoe if spec.doe else 0)) if K.is_phase(spec) else 0
     head = len(pj) - nph - (ANAM if K.is_anamorphic_spec(spec) else 0)
     pg[j, :head] = sums[:head]
     if K.is_anamorphic_spec(spec):
         pg[j, q:q + ANAM] = sums[head:head + ANAM]
     if nph:
-        q = pg.shape[-1] - ndoe
+        q = pg.shape[-1] - nxy - ndoe
         if grating:
             pg[j, q - 1] = sums[-nph]
         if spec.doe:
-            pg[j, q:] = sums[-ndoe:]
+            pg[j, q:q + ndoe] = sums[-ndoe:]
 
 
 def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False):
@@ -1570,8 +1672,9 @@ def _check_vector(v, state, name, shape=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _moments_kernel(specs, dtype, clip, widths, nd=0):
-    return CS.load(CS.moments_key(specs, dtype, clip, widths=widths, nd=nd))
+def _moments_kernel(specs, dtype, clip, widths, nd=0, nxy=0):
+    return CS.load(CS.moments_key(specs, dtype, clip, widths=widths, nd=nd,
+                                  nxy=nxy))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1581,9 +1684,9 @@ def _moments_multi_kernel(specs, dtype, clip, nlam, widths=(0, 0), nd=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _adjoint_kernel(specs, dtype, clip, fields, rays, widths, nd=0):
+def _adjoint_kernel(specs, dtype, clip, fields, rays, widths, nd=0, nxy=0):
     return CS.load(CS.adjoint_key(specs, dtype, clip, fields, rays,
-                                  widths=widths, nd=nd))
+                                  widths=widths, nd=nd, nxy=nxy))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1620,7 +1723,8 @@ def weighted_moments(table, specs, state, w, clip=False):
     specs = tuple(specs)
     out = launch_moments(_moments_kernel(specs, x.dtype, bool(clip),
                                          figure_widths(table, specs),
-                                         doe_width(table, specs)),
+                                         doe_width(table, specs),
+                                         xy_width(table, specs)),
                          table, specs, state, w)
     if x.shape[0]:
         weighted_moments.launches += 1
@@ -1635,8 +1739,9 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
     """K5: (parameter cotangents (S, _nslots): c, k,
     offset x, y, z, mu, then the table's na even and no odd aspheric
     coefficients, then for anamorphic specs (cuda_trace.
-    carries_anamorphic) curvature_dx and conic_dx; the six state
-    cotangents; the weight cotangent) of
+    carries_anamorphic) curvature_dx and conic_dx, then a phase table's
+    grating_dy and DOE coefficients, then a freeform table's XY
+    coefficients; the six state cotangents; the weight cotangent) of
     the weighted moments dotted with `ct`, a (5,) tensor of moment
     cotangents on the rays' device.  `fields`: the table fields whose
     cotangents are wanted; a slot outside them, or baked out by the
@@ -1658,13 +1763,15 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
         pg, st, gw = merit_adjoint_reference(table, specs, state, w, ct,
                                              clip)
         live = CS.live_mask(CS.live_slots(specs, fields, (na, no),
-                                          doe_width(table, specs)), nq)
+                                          doe_width(table, specs),
+                                          xy_width(table, specs)), nq)
         pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
     widths = figure_widths(table, specs)
     kern = _adjoint_kernel(specs, x.dtype, bool(clip), fields, bool(rays),
-                           widths, doe_width(table, specs))
+                           widths, doe_width(table, specs),
+                           xy_width(table, specs))
     tab = packed(table, specs, x)
     if not n:
         pg = torch.zeros((len(specs), nq), dtype=x.dtype, device=device)
@@ -1764,7 +1871,8 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
         pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
                                                    ct, clip)
         live = CS.live_mask(CS.live_slots(specs, fields, (na, no),
-                                          doe_width(tables, specs)), nq)
+                                          doe_width(tables, specs),
+                                          xy_width(tables, specs)), nq)
         pg = torch.where(live, pg, 0.)
         return (pg, st, gw) if rays else (pg, None, None)
     device, n, stream = spec_launch(state)
@@ -1937,11 +2045,16 @@ class _SpotMoments(torch.autograd.Function):
         q += int(grating)
         gdoe = (pg[..., q:q + nd].contiguous() if nd
                 else torch.zeros_like(params[10]))
+        q += nd
+        # a freeform key's XY columns, last
+        nxy = xy_width(tab, ctx.specs)
+        gxy = (pg[..., q:q + nxy].contiguous() if nxy
+               else torch.zeros_like(params[11]))
         grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
                  pg[..., 5], torch.zeros_like(params[4]),
                  pg[..., SLOTS:SLOTS + na].contiguous(),
                  pg[..., SLOTS + na:SLOTS + na + no].contiguous(), *gdx,
-                 ggdy, gdoe)
+                 ggdy, gdoe, gxy)
         return (None, None, None, None, *grads, *ct_state, ct_w)
 
 
@@ -1996,6 +2109,8 @@ def _warn_diff_params(table, specs):
         params.update({f: getattr(table, f) for f in ("grating_dy", "doe")
                        if getattr(table, f) is not None
                        and getattr(table, f).numel()})
+    if any(s.freeform for s in specs[1:]):
+        params["xy_poly"] = table.xy_poly
     _warn_baked_params(specs, params)
 
 

@@ -43,24 +43,30 @@ grating_dy, of n_after (the DOE's optical path psi(r2) n_after) and of
 the coefficients.  A phase row on a cylinder keeps the cylinder's
 closed-form intercept and takes the normal of the biconic or toroid
 that made it (its row word sets F_BICONIC or F_TOROID beside F_CYL_Y or
-F_CYL_X, cuda_trace._anamorphic_flag); every key refuses the freeform
-rows (NotImplementedError, ROADMAP Queue 1 item 9.5).  A row word is 64
-bits: its flags below LIVE_SHIFT, its live slots above.
+F_CYL_X, cuda_trace._anamorphic_flag).  The K1, K2, K4 and K5 keys take
+the freeform XY rows (F_FREEFORM): such a key's rows grow by the table's
+nxy XY-monomial coefficients, last (Key.nxy, cuda_trace.xy_width;
+RAYOPT_N_XY), K5's slots by their cotangents; the K3 and K6-K9 keys
+refuse them (NotImplementedError, ROADMAP Queue 1 item 9.5 part two).
+A row word is 64 bits: its flags below LIVE_SHIFT, its live slots
+above.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns, then a figured key's na even and no odd
 coefficients, then an anamorphic key's curvature_dx and conic_dx, then
-a grating key's grating_dy, then a DOE key's nd coefficients; K9 puts
-n_before between the six and the coefficients and n_after before the
-DOE coefficients, OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] a row)
-are the fields asked for, minus what the
+a grating key's grating_dy, then a DOE key's nd coefficients, then a
+freeform key's nxy XY coefficients; K9 puts n_before between the six
+and the coefficients and n_after before the DOE coefficients,
+OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] a row) are the fields asked
+for, minus what the
 row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
 row, conic of a flat or spherical row -- both live on an aspheric row,
 whose Newton reads them through the sag --, the transverse offset of an
 on-axis row, mu of a passthrough row, the coefficients of a row that
 reads no figure: neither aspheric nor a biconic or toroid, grating_dy
 of a row that is no grating, the DOE coefficients -- and K9's n_after
--- of a row that is no DOE); the axial offset is never baked out.
+-- of a row that is no DOE, the XY coefficients of a row that is not
+freeform); the axial offset is never baked out.
 K9's image row is read only by the reference-sphere tail, which reads
 its offset (the transverse part only off axis), its rotation and its
 n_before, never its curvature, conic or mu; every other row's n_before
@@ -92,9 +98,9 @@ import torch
 from . import kernels as K
 from .cuda_trace import ANAM, ROW, SMEM_LIMIT, SMEM_OPTIN, _flags, \
     carries_anamorphic, carries_grating, doe_width, figure_widths, \
-    pack_values, sm_count
+    pack_values, sm_count, xy_width
 
-LIVE_SHIFT = 16    # a row word's live slots: keep in sync with grad_spec.cuh
+LIVE_SHIFT = 17    # a row word's live slots: keep in sync with grad_spec.cuh
 LIVE_BITS = 63 - LIVE_SHIFT   # the slots a (64-bit) row word can hold
 SLOTS = 6          # K5's and K7's cotangent columns a row (a figured
 #                    key adds its table's aspheric coefficients, an
@@ -109,11 +115,13 @@ SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
                "n_before")
 #: the fields K5 and K7 differentiate (a key of a table with no aspheric
 #: row: the first four; curvature_dx and conic_dx only an anamorphic
-#: key, grating_dy and doe only a key of a grating or DOE table)
+#: key, grating_dy and doe only a key of a grating or DOE table, xy_poly
+#: only a K5 key of a freeform table)
 FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd",
-          "curvature_dx", "conic_dx", "grating_dy", "doe")
-#: the fields K9 differentiates that K5 and K7 do, and n_before
-OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:]
+          "curvature_dx", "conic_dx", "grating_dy", "doe", "xy_poly")
+#: the fields K9 differentiates that K5 and K7 do (not xy_poly: K9
+#: refuses the freeform rows), and n_before
+OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:10]
 #: every field K9 differentiates, in the order of cuda_grad._DIFF:
 #: OPD_FIELDS and n_after, read only by a DOE row (its optical path
 #: psi(r2) n_after)
@@ -206,10 +214,15 @@ def baked_out_rows(specs, field):
     the conic of a spherical row); grating_dy is read by a grating row
     only and the DOE coefficients by a DOE row only, which the
     reference's rule does not name (it keeps them everywhere; the port
-    bakes them out, so that the call warns: ROADMAP Queue 3)."""
+    bakes them out, so that the call warns: ROADMAP Queue 3).  A freeform
+    row keeps its curvature and conic live (its Newton and normal read
+    them through the base's sag) and reads every aspheric coefficient of
+    the table's widths (reads_figure); xy_poly is read by a freeform row
+    only, which the reference's rule does not name either (the port
+    bakes it out elsewhere and warns: ROADMAP Queue 3)."""
     def fig(sp):
         return (K.is_figured(sp) or K.is_anamorphic_spec(sp)
-                or K.is_phase(sp))
+                or K.is_phase(sp) or sp.freeform)
 
     def reads_cdx(sp):
         return sp.cyl_axis == 2 or (K.is_phase(sp) and sp.cyl_axis == 1) \
@@ -229,7 +242,8 @@ def baked_out_rows(specs, field):
              "aspherics": lambda sp: not K.reads_figure(sp),
              "aspherics_odd": lambda sp: not K.reads_figure(sp),
              "grating_dy": lambda sp: not sp.grating,
-             "doe": lambda sp: not sp.doe}.get(field)
+             "doe": lambda sp: not sp.doe,
+             "xy_poly": lambda sp: not sp.freeform}.get(field)
     if baked is None:
         return []
     return [j for j, sp in enumerate(specs) if j and baked(sp)]
@@ -254,17 +268,19 @@ def _phase(specs, nd):
         + ("doe",)*nd
 
 
-def live_slots(specs, fields=FIELDS, widths=(0, 0), nd=0):
+def live_slots(specs, fields=FIELDS, widths=(0, 0), nd=0, nxy=0):
     """One mask a row of the slots K5 and K7 reduce -- SLOTS bits, then
     with `widths` = (na, no) (the key's, figure_widths) one a
     coefficient, then for anamorphic specs (carries_anamorphic)
     curvature_dx and conic_dx, then for grating specs (carries_grating)
-    grating_dy and nd (the key's, doe_width) DOE coefficients: the
-    `fields` asked for, minus the rows the specs bake them out of (the
-    axial offset, slot 4, never is; baked_out_rows).  Row 0 has none."""
+    grating_dy and nd (the key's, doe_width) DOE coefficients, then nxy
+    (the key's, xy_width) XY coefficients: the `fields` asked for, minus
+    the rows the specs bake them out of (the axial offset, slot 4, never
+    is; baked_out_rows).  Row 0 has none."""
     return _live_slots(specs, fields, FIELDS,
                        SLOT_FIELDS[:SLOTS] + _coefficients(widths)
-                       + _anamorphic(specs) + _phase(specs, nd))
+                       + _anamorphic(specs) + _phase(specs, nd)
+                       + ("xy_poly",)*nxy)
 
 
 def _opd_phase(specs, nd):
@@ -346,7 +362,10 @@ class Key(NamedTuple):
     then carries grating_dy, an adjoint its slot) and the DOE
     coefficients a row carries (nd: a DOE table's width, 0 without a DOE
     row; a packed row then carries n_after and the nd coefficients, an
-    adjoint their slots, K9 also n_after's)."""
+    adjoint their slots, K9 also n_after's) and the XY-monomial
+    coefficients a row carries (nxy: a freeform table's xy_poly width, 0
+    without a freeform row; a packed row then carries them last, K5
+    their slots)."""
 
     kernel: str
     dtype: str
@@ -362,6 +381,7 @@ class Key(NamedTuple):
     anamorphic: bool = False
     grating: bool = False
     nd: int = 0
+    nxy: int = 0
 
     @property
     def name(self):
@@ -379,6 +399,8 @@ class Key(NamedTuple):
             text += " grating"
         if self.nd:
             text += " doe %d" % self.nd
+        if self.nxy:
+            text += " xy %d" % self.nxy
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
@@ -389,20 +411,21 @@ class Key(NamedTuple):
     @property
     def row_words(self):
         """A packed row's words: ROW, the aspheric coefficients, the
-        anamorphic words, grating_dy, and n_after with the DOE
-        coefficients."""
+        anamorphic words, grating_dy, n_after with the DOE coefficients,
+        and the XY coefficients."""
         return ROW + self.na + self.no + self.anam_words + int(self.grating) \
-            + (1 + self.nd if self.nd else 0)
+            + (1 + self.nd if self.nd else 0) + self.nxy
 
     @property
     def slots(self):
         """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS),
-        the coefficients, the anamorphic words, grating_dy and the DOE
-        coefficients (K9: n_after, then the coefficients)."""
+        the coefficients, the anamorphic words, grating_dy, the DOE
+        coefficients (K9: n_after, then the coefficients) and the XY
+        coefficients."""
         k9 = self.kernel == "k9"
         return (OPD_SLOTS if k9 else SLOTS) \
             + self.na + self.no + self.anam_words + int(self.grating) \
-            + (self.nd + int(k9) if self.nd else 0)
+            + (self.nd + int(k9) if self.nd else 0) + self.nxy
 
     @property
     def anam_words(self):
@@ -451,11 +474,17 @@ def _dtype_name(dtype):
     raise TypeError("rays must be float32 or float64, got %s" % dtype)
 
 
-def _words(specs, masks=None, kernel="k1"):
-    """A key's row words; a row the kernel does not trace raises
-    NotImplementedError: a freeform row (item 9.5)."""
+def _check_rows(specs, kernel):
+    """Raise NotImplementedError for a row `kernel`'s key does not trace:
+    a freeform row outside K1, K2, K4 and K5 (item 9.5, part two), a
+    freeform figure on an anamorphic base (kernels.check_supported)."""
     for j, spec in enumerate(specs[1:], 1):
-        K.check_supported(spec, j, kernel.upper() + "'s key")
+        K.check_supported(spec, j, kernel.upper() + "'s key", kernel)
+
+
+def _words(specs, masks=None, kernel="k1"):
+    """A key's row words (_check_rows first)."""
+    _check_rows(specs, kernel)
     flags = [_flags(s) for s in specs]
     if masks is None:
         return tuple(flags)
@@ -506,17 +535,34 @@ def _nd(specs, nd):
     return int(nd)
 
 
+def _nxy(specs, nxy):
+    """A key's XY coefficients: 0 without a freeform row (whatever the
+    table's width), else `nxy` (xy_width of the table), refused where it
+    is no triangle deg (deg + 3)/2 of a degree >= 1."""
+    if not any(s.freeform for s in specs[1:]):
+        return 0
+    if int(nxy) < 2:
+        raise ValueError("XY width %r: a freeform row needs the table's "
+                         "xy_poly coefficients (cuda_trace.xy_width)"
+                         % (nxy,))
+    K.xy_degree(int(nxy))
+    return int(nxy)
+
+
 def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
-              widths=(0, 0), nd=0):
+              widths=(0, 0), nd=0, nxy=0):
     """The K1 key of a spec tuple; `widths` the table's (na, no) aspheric
     coefficients (figure_widths), read only when a row is figured; `nd`
-    the table's DOE coefficients (doe_width), read only by a DOE row."""
+    the table's DOE coefficients (doe_width), read only by a DOE row;
+    `nxy` the table's XY coefficients (xy_width), read only by a
+    freeform row."""
     words = _words(specs)
     na, no = _widths(specs, widths)
     return _static(Key("k1", _dtype_name(dtype), words, bool(clip), False,
                        int(block or BLOCK_TRACE), int(min_blocks),
                        na=na, no=no, anamorphic=carries_anamorphic(specs),
-                       grating=carries_grating(specs), nd=_nd(specs, nd)))
+                       grating=carries_grating(specs), nd=_nd(specs, nd),
+                       nxy=_nxy(specs, nxy)))
 
 
 def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
@@ -537,7 +583,7 @@ def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
 
 
 def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
-             widths=(0, 0), nd=0):
+             widths=(0, 0), nd=0, nxy=0):
     """A moment kernel's key, refused when its staged tables and block
     reduction outgrow static shared memory, or (K3, K6) past MAX_NLAM
     wavelengths."""
@@ -546,7 +592,8 @@ def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
     key = Key(kernel, _dtype_name(dtype), words, bool(clip), False,
               int(block or BLOCK_MOMENTS), int(min_blocks), int(nlam),
               na=na, no=no, anamorphic=carries_anamorphic(specs),
-              grating=carries_grating(specs), nd=_nd(specs, nd))
+              grating=carries_grating(specs), nd=_nd(specs, nd),
+              nxy=_nxy(specs, nxy))
     return _static(_unrolled(key))
 
 
@@ -563,17 +610,19 @@ def _unrolled(key):
 
 
 def merit_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
-              widths=(0, 0), nd=0):
-    """The K2 key of a spec tuple (`widths` and `nd` as trace_key's)."""
+              widths=(0, 0), nd=0, nxy=0):
+    """The K2 key of a spec tuple (`widths`, `nd` and `nxy` as
+    trace_key's)."""
     return _moments("k2", specs, dtype, clip, 1, block, min_blocks, widths,
-                    nd)
+                    nd, nxy)
 
 
 def moments_key(specs, dtype, clip=False, block=None,
-                min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0):
-    """The K4 key of a spec tuple (`widths` and `nd` as trace_key's)."""
+                min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0, nxy=0):
+    """The K4 key of a spec tuple (`widths`, `nd` and `nxy` as
+    trace_key's)."""
     return _moments("k4", specs, dtype, clip, 1, block, min_blocks, widths,
-                    nd)
+                    nd, nxy)
 
 
 def moments_multi_key(specs, dtype, clip, nlam, block=None,
@@ -634,7 +683,7 @@ def multi_most(kernel, specs, dtype, block=None, widths=(0, 0), nd=0):
 
 
 def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
-             widths=(0, 0), nd=0):
+             widths=(0, 0), nd=0, nxy=0):
     """An adjoint's key, refused when a block's saved states and
     reduction outgrow the shared memory it may opt in to."""
     na, no = widths
@@ -642,7 +691,7 @@ def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
               bool(clip), bool(rays), int(block or BLOCK_ADJOINT),
               int(min_blocks), na=na, no=no,
               anamorphic=carries_anamorphic(specs),
-              grating=carries_grating(specs), nd=nd)
+              grating=carries_grating(specs), nd=nd, nxy=nxy)
     if key.shared_bytes > SMEM_OPTIN:
         raise ValueError(
             "%s keeps %d rows of saved state at %d threads a block in %s: "
@@ -653,17 +702,24 @@ def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
 
 
 def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
-                block=None, min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0):
+                block=None, min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0,
+                nxy=0):
     """The K5 key of a spec tuple, the fields whose cotangents are
     wanted (see live_slots), whether the ray and weight cotangents are,
-    and `widths` and `nd` as trace_key's (a figured key's rows reduce
-    their aspheric coefficients too, a grating key's grating_dy, a DOE
-    key's DOE coefficients)."""
+    and `widths`, `nd` and `nxy` as trace_key's (a figured key's rows
+    reduce their aspheric coefficients too, a grating key's grating_dy, a
+    DOE key's DOE coefficients, a freeform key's XY coefficients;
+    SLOTS + na + no [+ 2] [+ 1] + nd + nxy must fit a row word)."""
+    _check_rows(specs, "k5")
     nd = _nd(specs, nd)
-    widths = _widths(specs, widths, SLOTS + len(_anamorphic(specs))
-                     + len(_phase(specs, nd)))
-    return _adjoint("k5", specs, live_slots(specs, fields, widths, nd),
-                    dtype, clip, rays, block, min_blocks, widths, nd)
+    nxy = _nxy(specs, nxy)
+    other = SLOTS + len(_anamorphic(specs)) + len(_phase(specs, nd)) + nxy
+    if other > LIVE_BITS:
+        raise ValueError("XY width %d: %d slots a row, above the %d a row "
+                         "word holds" % (nxy, other, LIVE_BITS))
+    widths = _widths(specs, widths, other)
+    return _adjoint("k5", specs, live_slots(specs, fields, widths, nd, nxy),
+                    dtype, clip, rays, block, min_blocks, widths, nd, nxy)
 
 
 def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
@@ -910,8 +966,8 @@ def translation_unit(key):
         return _df32_unit(key)
     ctype = "float" if key.dtype == "f32" else "double"
     words = ", ".join(str(w) for w in key.words)
-    # a figured key's coefficient widths, an anamorphic key's words and a
-    # phase key's, before the headers read them
+    # a figured key's coefficient widths, an anamorphic key's words, a
+    # phase key's and a freeform key's, before the headers read them
     figure = ("#define RAYOPT_N_ASP %d\n#define RAYOPT_N_ODD %d\n"
               % (key.na, key.no) if key.na or key.no else "")
     if key.anamorphic:
@@ -920,6 +976,8 @@ def translation_unit(key):
         figure += "#define RAYOPT_N_GRAT 1\n"
     if key.nd:
         figure += "#define RAYOPT_N_DOE %d\n" % key.nd
+    if key.nxy:
+        figure += "#define RAYOPT_N_XY %d\n" % key.nxy
     head = ("// %s, specialized by rayopt_tpu_torch.ops.cuda_spec\n"
             "// key: %r\n%s#include \"grad_spec.cuh\"\n\n"
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"
@@ -1148,10 +1206,11 @@ def packed(table, specs, x):
     aspheric coefficients, cuda_trace.figure_widths; an anamorphic
     table's with curvature_dx and conic_dx, carries_anamorphic; a
     grating table's with grating_dy, carries_grating; a DOE table's with
-    n_after and its coefficients, doe_width)."""
+    n_after and its coefficients, doe_width; a freeform table's with its
+    XY coefficients, xy_width)."""
     tab = pack_values(table, x.dtype, x.device, figure_widths(table, specs),
                       carries_anamorphic(specs), carries_grating(specs),
-                      doe_width(table, specs))
+                      doe_width(table, specs), xy_width(table, specs))
     if tab.shape[-2] != len(specs):
         raise ValueError("%d specs for a table of %d rows"
                          % (len(specs), tab.shape[-2]))

@@ -22,7 +22,10 @@ by the seeded Newton (their key's rows carry curvature_dx and conic_dx,
 diffractive phase (DOE) on any of these substrates, by the generalized
 Spencer & Murty solve (their key's rows carry grating_dy,
 `carries_grating`, and n_after and the DOE coefficients, `doe_width`;
-K1 adds the DOE's phase to the optical path).
+K1 adds the DOE's phase to the optical path), and the freeform XY rows:
+a conic or aspheric base plus a triangular XY-monomial figure, by the
+seeded Newton with the vertex-plane restart and the freeform normal
+(their key's rows carry the table's xy_poly coefficients, `xy_width`).
 
 K3 `trace_multi` is their polychromatic twin: a stacked table (a
 leading wavelength axis, System.tables) and ONE bundle traced through
@@ -33,7 +36,9 @@ compiled per (dtype, spec tuple, wavelength count) key too: its merit
 mode is K2's template at the stack's wavelengths, its trace K1's chain
 once a wavelength.  A stack past one key's wavelengths (cuda_spec.
 multi_most) runs in balanced runs, one launch each.  K3 traces the
-aspheric, the anamorphic and the phase rows as K1 does, its key
+aspheric, the anamorphic and the phase rows as K1 does (not the
+freeform rows: its key refuses them, ROADMAP Queue 1 item 9.5 part
+two), its key
 carrying the stack's coefficient widths, anamorphic words and phase
 words (each table of the stack packs its own grating_dy, n_after and
 DOE coefficients: they differ by wavelength while the specs are
@@ -65,7 +70,8 @@ from .tables import lower_pose, table_at
 # a figured table's rows carry its even, then its odd aspheric
 # coefficients after the ROW base words (P_ASP on), then an anamorphic
 # table's curvature_dx and conic_dx, then a grating key's grating_dy,
-# then a DOE key's n_after and its nd coefficients
+# then a DOE key's n_after and its nd coefficients, then a freeform key's
+# nxy XY-monomial coefficients
 P_C, P_K, P_OFF, P_ROT, P_RAD, P_MU, P_NB, ROW = 0, 1, 2, 5, 14, 15, 16, 17
 P_ASP = ROW
 F_FLAT, F_SPHERICAL, F_ROTATED, F_OFF_AXIS = 1, 2, 4, 8
@@ -78,6 +84,8 @@ F_CYL_Y, F_CYL_X, F_BICONIC, F_TOROID = 1024, 2048, 4096, 8192
 ANAM = 2
 # the phase rows: a linear grating, a radial diffractive phase (DOE)
 F_GRATING, F_DOE = 16384, 32768
+# the freeform XY rows: the Newton on the sag less the XY figure
+F_FREEFORM = 65536
 
 SMEM_LIMIT = 48*1024  # static shared memory, or dynamic without an opt-in
 SMEM_OPTIN = 227*1024  # what a block may opt in to on Hopper (the adjoints)
@@ -149,7 +157,8 @@ def _flags(spec):
             | (F_ODD if spec.odd else 0)
             | _anamorphic_flag(spec)
             | (F_GRATING if spec.grating else 0)
-            | (F_DOE if spec.doe else 0))
+            | (F_DOE if spec.doe else 0)
+            | (F_FREEFORM if spec.freeform else 0))
 
 
 def _anamorphic_flag(spec):
@@ -202,15 +211,25 @@ def doe_width(table, specs):
     return int(table.doe.shape[-1])
 
 
+def xy_width(table, specs):
+    """The XY-monomial coefficients a packed row carries (last; K5's
+    slots: the last columns): the table's xy_poly width when some row of
+    `specs` is freeform, else 0."""
+    if not any(s.freeform for s in specs[1:]):
+        return 0
+    return int(table.xy_poly.shape[-1])
+
+
 def pack_values(table, dtype, device, widths=(0, 0), anamorphic=False,
-                grating=False, nd=0):
+                grating=False, nd=0, nxy=0):
     """The lowered table's values as one contiguous (S, ROW + na + no
-    [+ ANAM] [+ 1] [+ 1 + nd]) tensor in `dtype` on `device` -- (L, S,
-    ...) for a stacked table -- with `widths` = (na, no) (figure_widths)
-    the aspheric coefficients a row carries after its ROW base words,
-    then with `anamorphic` (carries_anamorphic) its curvature_dx and
-    conic_dx, with `grating` (carries_grating) its grating_dy, and with
-    nd (doe_width) its n_after and nd DOE coefficients."""
+    [+ ANAM] [+ 1] [+ 1 + nd] [+ nxy]) tensor in `dtype` on `device` --
+    (L, S, ...) for a stacked table -- with `widths` = (na, no)
+    (figure_widths) the aspheric coefficients a row carries after its
+    ROW base words, then with `anamorphic` (carries_anamorphic) its
+    curvature_dx and conic_dx, with `grating` (carries_grating) its
+    grating_dy, with nd (doe_width) its n_after and nd DOE coefficients,
+    and with nxy (xy_width) its XY-monomial coefficients."""
     table = lower_pose(table)
     na, no = widths
     cols = [table.curvature[..., None], table.conic[..., None], table.offset,
@@ -226,6 +245,8 @@ def pack_values(table, dtype, device, widths=(0, 0), anamorphic=False,
         cols.append(table.grating_dy[..., None])
     if nd:
         cols += [table.n_after[..., None], table.doe]
+    if nxy:
+        cols.append(table.xy_poly)
     # cast first (the kernel traces in `dtype`), then move
     return torch.cat(cols, dim=-1).to(dtype=dtype).to(
         device=device).contiguous()
@@ -233,22 +254,20 @@ def pack_values(table, dtype, device, widths=(0, 0), anamorphic=False,
 
 def pack_table(table, specs, dtype, device):
     """The lowered table as one contiguous (S, ROW + na + no [+ ANAM]
-    [+ 1] [+ 1 + nd]) tensor in `dtype` on `device` (figure_widths,
-    carries_anamorphic, carries_grating, doe_width) -- (L, S, ...) for a
-    stacked table, whose tables share the specs -- plus the (S,) int32
-    flags that encode each row's SurfaceSpec.  Freeform rows raise
-    NotImplementedError."""
+    [+ 1] [+ 1 + nd] [+ nxy]) tensor in `dtype` on `device`
+    (figure_widths, carries_anamorphic, carries_grating, doe_width,
+    xy_width) -- (L, S, ...) for a stacked table, whose tables share the
+    specs -- plus the (S,) int32 flags that encode each row's
+    SurfaceSpec."""
     nsurf = table.curvature.shape[-1]
     if len(specs) != nsurf:
         raise ValueError("%d specs for a table of %d rows"
                          % (len(specs), nsurf))
-    for j, spec in enumerate(specs[1:], 1):
-        K.check_supported(spec, j)
     flags = torch.tensor([_flags(s) for s in specs], dtype=torch.int32,
                          device=device)
     return pack_values(table, dtype, device, figure_widths(table, specs),
                        carries_anamorphic(specs), carries_grating(specs),
-                       doe_width(table, specs)), flags
+                       doe_width(table, specs), xy_width(table, specs)), flags
 
 
 @functools.lru_cache(maxsize=None)
@@ -279,9 +298,10 @@ def _check_state(state):
 
 
 @functools.lru_cache(maxsize=None)
-def _trace_kernel(specs, dtype, clip, widths, nd=0):
+def _trace_kernel(specs, dtype, clip, widths, nd=0, nxy=0):
     from . import cuda_spec as CS     # cuda_spec imports this module
-    return CS.load(CS.trace_key(specs, dtype, clip, widths=widths, nd=nd))
+    return CS.load(CS.trace_key(specs, dtype, clip, widths=widths, nd=nd,
+                                nxy=nxy))
 
 
 def trace_final(table, specs, state, clip=False):
@@ -298,7 +318,8 @@ def trace_final(table, specs, state, clip=False):
     device, n, stream = spec_launch(state)
     specs = tuple(specs)
     kern = _trace_kernel(specs, x.dtype, bool(clip),
-                         figure_widths(table, specs), doe_width(table, specs))
+                         figure_widths(table, specs), doe_width(table, specs),
+                         xy_width(table, specs))
     tab = packed(table, specs, x)
     outs = [torch.empty_like(x) for _ in range(7)]
     if n:
@@ -313,9 +334,10 @@ trace_final.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _merit_kernel(specs, dtype, clip, widths, nd=0):
+def _merit_kernel(specs, dtype, clip, widths, nd=0, nxy=0):
     from . import cuda_spec as CS     # cuda_spec imports this module
-    return CS.load(CS.merit_key(specs, dtype, clip, widths=widths, nd=nd))
+    return CS.load(CS.merit_key(specs, dtype, clip, widths=widths, nd=nd,
+                                nxy=nxy))
 
 
 def trace_merit(table, specs, state, clip=False):
@@ -333,7 +355,8 @@ def trace_merit(table, specs, state, clip=False):
     specs = tuple(specs)
     out = launch_moments(_merit_kernel(specs, x.dtype, bool(clip),
                                        figure_widths(table, specs),
-                                       doe_width(table, specs)),
+                                       doe_width(table, specs),
+                                       xy_width(table, specs)),
                          table, specs, state)
     if x.shape[0]:
         trace_merit.launches += 1

@@ -1006,8 +1006,9 @@ def plan(table, clip=False, fast=False):
     for j in range(1, s_count):
         if xy_tab.shape[1] and np.any(xy_tab[j] != 0):
             raise NotImplementedError(
-                "df32 plan: row %d uses xy_poly, which rayopt_tpu_torch "
-                "does not trace yet (ROADMAP Queue 1 item 9.5)" % j)
+                "df32 plan: row %d uses xy_poly, which the df32 engine "
+                "does not trace yet (ROADMAP Queue 1 item 9.5, part three)"
+                % j)
         rotm = rot_df = None
         if not np.allclose(rot[j], np.eye(3)):
             ri = np.rint(rot[j]).astype(int)

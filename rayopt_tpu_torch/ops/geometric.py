@@ -8,8 +8,11 @@ row's own branch (a conic cylinder in closed form, a biconic or toroid
 by the seeded Newton), without them the generic walk's anamorphic step
 when `biconic=True` (set it when ops.tables.is_anamorphic(table), as in
 the reference; its grating and DOE rows take the generalized Spencer
-& Murty solve there, as they do with specs).  A freeform row raises
-NotImplementedError (ROADMAP Queue 1 item 9.5).  The JAX package
+& Murty solve there, as they do with specs), and the freeform XY rows:
+with `specs` the freeform row's seeded Newton and normal, without them
+every row of a table whose xy_poly column has a nonzero width (the
+reference's rule: the column's width decides, not the row).  The JAX
+package
 runs the generic walk as one `lax.scan`; here it is a Python loop over
 rows, each a handful of elementwise torch operations on the whole
 bundle.
@@ -54,8 +57,6 @@ def _exit(table, state, specs=None):
 
 def _steps(table, state, clip, specs, biconic=False):
     """Yield (state, local outputs) after each row 1..S-1."""
-    if specs is None:
-        K.require_radial(table)
     for j in range(1, table.curvature.shape[0]):
         surf = table.row(j)
         if specs is None:

@@ -16,15 +16,19 @@ by a fixed-count Newton seeded from the (y-)conic (`intercept`,
 `intercept_biconic`, `intercept_toroid`), differentiated implicitly at
 the root (`_NewtonRoot`).  A linear grating or a radial diffractive
 phase (DOE) on any of these substrates takes the generalized Spencer &
-Murty solve (`refract_grating`, `doe_kick`).  The freeform XY rows
-(ROADMAP Queue 1 item 9.5) are not ported yet: a row that needs them
-raises NotImplementedError.
+Murty solve (`refract_grating`, `doe_kick`).  A freeform XY row -- a
+conic or even/odd aspheric base plus a triangular XY-monomial figure
+(`_poly_xy`) -- is intercepted by the same Newton on the residual sag
+minus the polynomial, a ray whose conic seed misses restarting from the
+vertex plane, and refracted by its normal (`normal_freeform`,
+`refract_freeform`).
 
 NaN marks a vignetted or missed ray.  `_sqrt0` clamps negative
 arguments to 0 but lets NaN through, and every miss is set to NaN
 explicitly, as in the JAX package.
 """
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -144,6 +148,61 @@ def xy_degree(nterms):
     return deg
 
 
+@functools.lru_cache()
+def _xy_terms(deg):
+    """Triangular XY-monomial ordering: total degree d = 1..deg, within
+    each degree from x^d down to y^d, i.e. (i, j) exponent pairs (d, 0),
+    (d-1, 1), ..., (0, d).  No (0, 0) term: a constant sag is a vertex
+    shift and belongs in the surface position."""
+    return tuple((d - j, j) for d in range(1, deg + 1)
+                 for j in range(d + 1))
+
+
+def _xy_pows(v, deg):
+    """[None, v, v^2, ..., v^deg] by repeated products."""
+    pows = [None, v]
+    for _ in range(2, deg + 1):
+        pows.append(pows[-1]*v)
+    return pows
+
+
+def _poly_xy(x, y, coeffs):
+    """sum_t coeffs[t] x^i y^j over the triangular ordering (_xy_terms):
+    the freeform XY-polynomial figure."""
+    deg = xy_degree(coeffs.shape[-1])
+    xp = _xy_pows(x, deg)
+    yp = _xy_pows(y, deg)
+    out = torch.zeros_like(x)
+    for t, (i, j) in enumerate(_xy_terms(deg)):
+        m = xp[i] if i else yp[j]
+        if i and j:
+            m = m*yp[j]
+        out = out + coeffs[..., t]*m
+    return out
+
+
+def _dpoly_xy(x, y, coeffs):
+    """(d/dx, d/dy) of _poly_xy."""
+    deg = xy_degree(coeffs.shape[-1])
+    xp = _xy_pows(x, deg)
+    yp = _xy_pows(y, deg)
+    gx = torch.zeros_like(x)
+    gy = torch.zeros_like(x)
+    for t, (i, j) in enumerate(_xy_terms(deg)):
+        c = coeffs[..., t]
+        if i:
+            m = xp[i - 1] if i > 1 else None
+            if j:
+                m = yp[j] if m is None else m*yp[j]
+            gx = gx + (i*c if m is None else (i*c)*m)
+        if j:
+            m = yp[j - 1] if j > 1 else None
+            if i:
+                m = xp[i] if m is None else m*xp[i]
+            gy = gy + (j*c if m is None else (j*c)*m)
+    return gx, gy
+
+
 def intercept_conic(x, y, z, ux, uy, uz, c, k, alternate):
     """Closed-form conic intercept on components.
 
@@ -252,22 +311,29 @@ def normal_toroid(x, y, cr, cy, ky, aspherics=None, aspherics_odd=None):
 
 
 def _newton_residual(kind, s, x, y, z, ux, uy, uz, pa, pb, pc, pd, asp,
-                     aspo):
+                     aspo, xy=None):
     """Sag residual F(s) at distance s along the ray for the three
     Newton-refined figures (the reference's kinds): "radial" (pa, pb =
     c, k: a conic with even/odd aspheric figure), "biconic" (pa..pd =
-    cx, kx, cy, ky) and "toroid" (pa..pc = cr, cy, ky)."""
+    cx, kx, cy, ky) and "toroid" (pa..pc = cr, cy, ky).  A nonzero-width
+    `xy` (triangular XY-monomial coefficients) adds the freeform figure
+    on top of any base."""
     px, py, pz = x + s*ux, y + s*uy, z + s*uz
     if kind == "radial":
-        return sag(px, py, pz, pa, pb, asp, aspo)
-    if kind == "biconic":
-        return sag_biconic(px, py, pz, pa, pb, pc, pd, asp, aspo)
-    return sag_toroid(px, py, pz, pa, pb, pc, asp, aspo)
+        e = sag(px, py, pz, pa, pb, asp, aspo)
+    elif kind == "biconic":
+        e = sag_biconic(px, py, pz, pa, pb, pc, pd, asp, aspo)
+    else:
+        e = sag_toroid(px, py, pz, pa, pb, pc, asp, aspo)
+    if _width(xy):
+        e = e - _poly_xy(px, py, xy)
+    return e
 
 
 def _newton_slope(kind, s, x, y, z, ux, uy, uz, pa, pb, pc, pd, asp,
-                  aspo):
-    """dF/ds = u . grad(z - sag) by the kind's hand-written normal."""
+                  aspo, xy=None):
+    """dF/ds = u . grad(z - sag) by the kind's hand-written normal (and
+    the freeform figure's slopes)."""
     px, py = x + s*ux, y + s*uy
     if kind == "radial":
         e = normal_radial(px, py, pa, pb, asp, aspo)
@@ -276,6 +342,10 @@ def _newton_slope(kind, s, x, y, z, ux, uy, uz, pa, pb, pc, pd, asp,
         gx, gy = normal_biconic(px, py, pa, pb, pc, pd, asp, aspo)
     else:
         gx, gy = normal_toroid(px, py, pa, pb, pc, asp, aspo)
+    if _width(xy):
+        dpx, dpy = _dpoly_xy(px, py, xy)
+        gx = gx - dpx
+        gy = gy - dpy
     return ux*gx + uy*gy + uz
 
 
@@ -284,10 +354,11 @@ class _NewtonRoot(torch.autograd.Function):
     counterpart of the reference's `_newton_root` (a jax.custom_jvp).
 
     forward(seed, x, y, z, ux, uy, uz, pa, pb, asp, aspo, iters, tol,
-    kind="radial", pc=None, pd=None): `iters` Newton steps from the
-    seed on the residual of `kind` (_newton_residual; a zero slope
-    steps by F), then a ray whose residual exceeds tol*(1 + |s|) (tol
-    floored by _tol_for) becomes NaN.
+    kind="radial", pc=None, pd=None, xy=None): `iters` Newton steps from
+    the seed on the residual of `kind` (_newton_residual, with the
+    freeform figure of `xy`; a zero slope steps by F), then a ray whose
+    residual exceeds tol*(1 + |s|) (tol floored by _tol_for) becomes
+    NaN.
 
     backward: the implicit-function theorem at the converged root,
     p_bar = -s_bar * dF/dp / F_s (one residual gradient), not the
@@ -299,11 +370,12 @@ class _NewtonRoot(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, seed, x, y, z, ux, uy, uz, pa, pb, asp, aspo, iters,
-                tol, kind="radial", pc=None, pd=None):
+                tol, kind="radial", pc=None, pd=None, xy=None):
         zero = pa.new_zeros(())
         pc = zero if pc is None else pc
         pd = zero if pd is None else pd
-        args = (x, y, z, ux, uy, uz, pa, pb, pc, pd, asp, aspo)
+        xy = pa.new_zeros((0,)) if xy is None else xy
+        args = (x, y, z, ux, uy, uz, pa, pb, pc, pd, asp, aspo, xy)
         s = seed
         for _ in range(iters):
             fn = _newton_residual(kind, s, *args)
@@ -321,10 +393,11 @@ class _NewtonRoot(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, ct):
         s, *args = ctx.saved_tensors
-        given = len(ctx.needs_input_grad)     # kind, pc, pd may be absent
-        n = tuple(ctx.needs_input_grad) + (False,)*(16 - given)
-        # the inputs in _newton_residual's order: x .. pb, pc, pd, asp, aspo
-        need = (*n[1:9], *n[14:16], *n[9:11])
+        given = len(ctx.needs_input_grad)   # kind, pc, pd, xy may be absent
+        n = tuple(ctx.needs_input_grad) + (False,)*(17 - given)
+        # the inputs in _newton_residual's order: x .. pb, pc, pd, asp,
+        # aspo, xy
+        need = (*n[1:9], *n[14:16], *n[9:11], n[16])
         kind = ctx.kind
         with torch.enable_grad():
             leaves = [a.detach().requires_grad_() if nd else a.detach()
@@ -340,36 +413,48 @@ class _NewtonRoot(torch.autograd.Function):
         for a, nd in zip(args, need):
             g = next(grads) if nd else None
             out.append(torch.zeros_like(a) if nd and g is None else g)
-        return (None, *out[:8], *out[10:], None, None, None,
-                *out[8:10])[:given]
+        return (None, *out[:8], *out[10:12], None, None, None,
+                *out[8:10], out[12])[:given]
 
 
 def intercept(x, y, z, ux, uy, uz, c, k, aspherics, alternate,
-              iters=ASPHERIC_ITERS, tol=ASPHERIC_TOL, aspherics_odd=None):
-    """Ray length to a conic surface with even/odd aspheric figure: the
-    closed conic root, refined by a fixed-count Newton on the exact
-    sag when either coefficient table has a nonzero width (a static
-    shape, as in the reference).  A ray whose conic seed misses a
-    curved row stays NaN; so does a ray the Newton does not
-    converge."""
+              iters=ASPHERIC_ITERS, tol=ASPHERIC_TOL, aspherics_odd=None,
+              xy_poly=None):
+    """Ray length to a conic surface with even/odd aspheric figure and
+    (xy_poly) a freeform XY figure: the closed conic root, refined by a
+    fixed-count Newton on the exact sag when any coefficient table has a
+    nonzero width (a static shape, as in the reference).  A ray whose
+    conic seed misses a curved row stays NaN -- unless the row has a
+    freeform column: the figure breaks the symmetry, so such a ray
+    restarts from the vertex plane -z/uz and is not masked after the
+    Newton.  A ray the Newton does not converge is NaN."""
     s = intercept_conic(x, y, z, ux, uy, uz, c, k, alternate)
-    if not (_width(aspherics) or _width(aspherics_odd)):
+    has_xy = _width(xy_poly)
+    if not (_width(aspherics) or _width(aspherics_odd) or has_xy):
         return s
     zeros = s.new_zeros((0,))
     asp = aspherics if aspherics is not None else zeros
     aspo = aspherics_odd if aspherics_odd is not None else zeros
     s0 = s
     x, y, z, ux, uy, uz = torch.broadcast_tensors(x, y, z, ux, uy, uz)
+    if has_xy:
+        uz_safe = torch.where(uz == 0, 1., uz)
+        s0 = torch.where(torch.isnan(s0), -z/uz_safe, s0)
     s = _NewtonRoot.apply(s0, x, y, z, ux, uy, uz, c, k, asp, aspo,
-                          iters, tol)
+                          iters, tol, "radial", None, None,
+                          xy_poly if has_xy else None)
+    if has_xy:
+        return s
     return torch.where(torch.isnan(s0) & (c != 0), NAN, s)
 
 
 def _anamorphic_root(kind, x, y, z, ux, uy, uz, pa, pb, pc, pd, cy, ky,
-                     aspherics, alternate, iters, tol, aspherics_odd):
-    """The seeded Newton of a biconic or toroid: the y-conic closed
-    form seeds it, a ray whose seed misses restarts from the vertex
-    plane -z/uz; a ray the Newton does not converge is NaN."""
+                     aspherics, alternate, iters, tol, aspherics_odd,
+                     xy_poly=None):
+    """The seeded Newton of a biconic or toroid (with the freeform
+    figure of a nonzero-width xy_poly: the generic walk's): the y-conic
+    closed form seeds it, a ray whose seed misses restarts from the
+    vertex plane -z/uz; a ray the Newton does not converge is NaN."""
     seed = intercept_conic(x, y, z, ux, uy, uz, cy, ky, alternate)
     uz_safe = torch.where(uz == 0, 1., uz)
     seed = torch.where(torch.isnan(seed), -z/uz_safe, seed)
@@ -378,27 +463,28 @@ def _anamorphic_root(kind, x, y, z, ux, uy, uz, pa, pb, pc, pd, cy, ky,
     aspo = aspherics_odd if aspherics_odd is not None else zeros
     x, y, z, ux, uy, uz = torch.broadcast_tensors(x, y, z, ux, uy, uz)
     return _NewtonRoot.apply(seed, x, y, z, ux, uy, uz, pa, pb, asp, aspo,
-                             iters, tol, kind, pc, pd)
+                             iters, tol, kind, pc, pd,
+                             xy_poly if _width(xy_poly) else None)
 
 
 def intercept_biconic(x, y, z, ux, uy, uz, cx, kx, cy, ky, aspherics,
                       alternate, iters=ASPHERIC_ITERS, tol=ASPHERIC_TOL,
-                      aspherics_odd=None):
+                      aspherics_odd=None, xy_poly=None):
     """Ray length to a biconic surface (reference intercept_biconic):
     the y-axis conic seeds a fixed-count Newton on the exact sag."""
     return _anamorphic_root("biconic", x, y, z, ux, uy, uz, cx, kx, cy, ky,
                             cy, ky, aspherics, alternate, iters, tol,
-                            aspherics_odd)
+                            aspherics_odd, xy_poly)
 
 
 def intercept_toroid(x, y, z, ux, uy, uz, cr, cy, ky, aspherics,
                      alternate, iters=ASPHERIC_ITERS, tol=ASPHERIC_TOL,
-                     aspherics_odd=None):
+                     aspherics_odd=None, xy_poly=None):
     """Ray length to a toroidal surface (reference intercept_toroid):
     the y-conic seeds a fixed-count Newton on the exact sag."""
     return _anamorphic_root("toroid", x, y, z, ux, uy, uz, cr, cy, ky,
                             None, cy, ky, aspherics, alternate, iters, tol,
-                            aspherics_odd)
+                            aspherics_odd, xy_poly)
 
 
 def doe_kick(x, y, doe):
@@ -471,6 +557,27 @@ def _refract_general(x, y, ux, uy, uz, mu, gx, gy):
     oy = torch.where(mu == 1, uy, oy)
     oz = torch.where(mu == 1, uz, oz)
     return ox, oy, oz
+
+
+def normal_freeform(x, y, c, k, aspherics, aspherics_odd, xy_poly):
+    """Transverse components (gx, gy) of the unnormalized normal
+    (gx, gy, 1) = grad(z - sag) of a freeform row: the conic/aspheric
+    base's radial normal (normal_radial, every coefficient of the
+    widths) less the XY figure's slopes (reference normal_freeform)."""
+    e = normal_radial(x, y, c, k, aspherics, aspherics_odd)
+    gx, gy = x*e, y*e
+    if _width(xy_poly):
+        dpx, dpy = _dpoly_xy(x, y, xy_poly)
+        gx = gx - dpx
+        gy = gy - dpy
+    return gx, gy
+
+
+def refract_freeform(x, y, ux, uy, uz, mu, c, k, aspherics, aspherics_odd,
+                     xy_poly):
+    """Snell/mirror refraction with the freeform normal."""
+    gx, gy = normal_freeform(x, y, c, k, aspherics, aspherics_odd, xy_poly)
+    return _refract_general(x, y, ux, uy, uz, mu, gx, gy)
 
 
 def refract_biconic(x, y, ux, uy, uz, mu, cx, kx, cy, ky, aspherics=None,
@@ -585,14 +692,14 @@ class SurfaceSpec(NamedTuple):
     freeform: bool = False
 
 
-#: where the extended vocabulary waits (its NotImplementedError says so)
-ITEM9 = "ROADMAP Queue 1 item 9"
-#: SurfaceSpec flags of the extended vocabulary no engine traces yet
-#: (the phase rows, a grating or a DOE on any substrate, a cylinder
-#: included, are traced by every engine and key)
+#: SurfaceSpec flags of the vocabulary some engines do not trace yet:
+#: the freeform rows, traced by the plain torch path and by the keys of
+#: FREEFORM_KERNELS only
 EXTENDED = ("freeform",)
+#: the kernels whose keys take the freeform rows (K1, K2, K4, K5)
+FREEFORM_KERNELS = ("k1", "k2", "k4", "k5")
 #: the ROADMAP item each row kind waits on where it is refused
-ITEMS = {"freeform": "9.5"}
+ITEMS = {"freeform": "9.5 (part two)"}
 
 
 def is_figured(spec):
@@ -607,15 +714,16 @@ def is_anamorphic_spec(spec):
 
 def reads_figure(spec):
     """True for a row whose intercept or normal reads every aspheric
-    coefficient of the table's widths: an aspheric row, a biconic or
-    toroid, figured or not (the reference passes the whole coefficient
-    rows into their sags and normals), and a grating or DOE on a
-    cylinder, whose phase solve takes the normal of the biconic or
-    toroid that made it (a plain cylinder's closed form and normal read
-    none)."""
-    return bool(is_figured(spec) or ((spec.biconic or spec.toroidal)
-                                     and (not spec.cyl_axis
-                                          or is_phase(spec))))
+    coefficient of the table's widths: an aspheric row, a freeform row
+    (its sag and normal_radial take the whole coefficient rows, zeros
+    included), a biconic or toroid, figured or not (the reference passes
+    the whole coefficient rows into their sags and normals), and a
+    grating or DOE on a cylinder, whose phase solve takes the normal of
+    the biconic or toroid that made it (a plain cylinder's closed form
+    and normal read none)."""
+    return bool(is_figured(spec) or spec.freeform
+                or ((spec.biconic or spec.toroidal)
+                    and (not spec.cyl_axis or is_phase(spec))))
 
 
 def is_phase(spec):
@@ -623,30 +731,28 @@ def is_phase(spec):
     return bool(spec.grating or spec.doe)
 
 
-def check_supported(spec, j=None, what="rayopt_tpu_torch"):
-    """Raise NotImplementedError, naming its ROADMAP Queue 1 item, for a
-    row that `what` (the engine or key) does not trace: a freeform row
-    (item 9.5)."""
+def check_supported(spec, j=None, what="rayopt_tpu_torch", kernel=None):
+    """Raise NotImplementedError for a row that `what` (a key of
+    `kernel`, "k1" ... "k9", or the hand reverse's model) does not
+    trace: a freeform row where the kernel is not one of
+    FREEFORM_KERNELS (ROADMAP Queue 1 item 9.5, part two), and in any
+    key a freeform figure on a biconic or toroidal base, which
+    `specialize` refuses (as the JAX package's does)."""
+    if kernel is None or not spec.freeform:
+        return
+    row = "?" if j is None else j
+    if is_anamorphic_spec(spec):
+        raise NotImplementedError(
+            "surface row %s combines an anamorphic base with a freeform XY "
+            "figure, which %s does not trace (specialize refuses it: "
+            "express the full figure in xy_poly)" % (row, what))
     used = [f for f in EXTENDED if getattr(spec, f)]
-    if used:
+    if kernel not in FREEFORM_KERNELS and used:
         raise NotImplementedError(
             "surface row %s uses %s, which %s does not trace yet "
             "(ROADMAP Queue 1 %s)"
-            % ("?" if j is None else j, "/".join(used), what,
+            % (row, "/".join(used), what,
                " and ".join(sorted({"item " + ITEMS[f] for f in used}))))
-
-
-def require_radial(table):
-    """Raise NotImplementedError (item 9.5) when the generic (spec-free)
-    trace would need the unported vocabulary for some row of `table`: a
-    freeform row.  (Its anamorphic, grating and DOE rows are traced by
-    surface_step(biconic=True); without the flag they trace as the
-    radial rows their y figure makes, as in the reference.)"""
-    xy = table.xy_poly
-    if xy is not None and xy.numel() and bool(torch.any(xy != 0)):
-        raise NotImplementedError(
-            "the table has freeform rows, which rayopt_tpu_torch does not "
-            "trace yet (%s.5)" % ITEM9)
 
 
 def specialize(table):
@@ -710,6 +816,11 @@ def specialize(table):
             doe=bool(doe_all[j].size and np.any(doe_all[j] != 0)),
             freeform=bool(xy_all[j].size and np.any(xy_all[j] != 0)),
         ))
+        if specs[-1].freeform and (specs[-1].biconic or specs[-1].toroidal):
+            raise NotImplementedError(
+                "row %d combines an anamorphic base with a freeform XY "
+                "figure; express the full figure in xy_poly (quadratic "
+                "terms carry the cylinder power)" % j)
     return tuple(specs)
 
 
@@ -845,7 +956,6 @@ def surface_step_spec(state, surf, spec, clip):
     surface_step; static branches from SurfaceSpec).  Returns
     (next_state, ((x1, y1, z1), (ux1, uy1, uz1), (ux, uy, uz), topt))
     with the local outputs in the surface-normal frame."""
-    check_supported(spec)
     x, y, z, ux, uy, uz = state
     if spec.off_axis:
         x = x - surf.offset[0]
@@ -870,6 +980,10 @@ def surface_step_spec(state, surf, spec, clip):
         t = intercept_biconic(x, y, z, ux, uy, uz, cx, kx, c, k,
                               surf.aspherics, surf.alternate,
                               aspherics_odd=surf.aspherics_odd)
+    elif spec.freeform:
+        t = intercept(x, y, z, ux, uy, uz, c, k, surf.aspherics,
+                      surf.alternate, aspherics_odd=surf.aspherics_odd,
+                      xy_poly=surf.xy_poly)
     elif is_figured(spec):
         t = intercept(x, y, z, ux, uy, uz, c, k, surf.aspherics,
                       surf.alternate, aspherics_odd=surf.aspherics_odd)
@@ -895,6 +1009,9 @@ def surface_step_spec(state, surf, spec, clip):
         elif spec.biconic:
             ngx, ngy = normal_biconic(x1, y1, cx, kx, c, k, surf.aspherics,
                                       surf.aspherics_odd)
+        elif spec.freeform:
+            ngx, ngy = normal_freeform(x1, y1, c, k, surf.aspherics,
+                                       surf.aspherics_odd, surf.xy_poly)
         elif spec.flat and not is_figured(spec):
             ngx, ngy = torch.zeros_like(x1), torch.zeros_like(y1)
         else:
@@ -925,6 +1042,14 @@ def surface_step_spec(state, surf, spec, clip):
         ux1, uy1, uz1 = refract_biconic(x1, y1, ux0, uy0, uz0, surf.mu, cx,
                                         kx, c, k, surf.aspherics,
                                         surf.aspherics_odd)
+    elif spec.freeform:
+        # a passthrough freeform row keeps the ray (its intercept stands)
+        if spec.kind == 0:
+            ux1, uy1, uz1 = ux0, uy0, uz0
+        else:
+            ux1, uy1, uz1 = refract_freeform(
+                x1, y1, ux0, uy0, uz0, surf.mu, c, k, surf.aspherics,
+                surf.aspherics_odd, surf.xy_poly)
     else:
         ux1, uy1, uz1 = refract_spec(x1, y1, z1, ux0, uy0, uz0, surf.mu,
                                      c, k, spec, surf.aspherics,
@@ -939,26 +1064,29 @@ def surface_step_spec(state, surf, spec, clip):
     return nstate, out
 
 
-def _intercept_anam(x, y, z, ux, uy, uz, surf):
+def _intercept_anam(x, y, z, ux, uy, uz, surf, xy=None):
     """Per-row biconic-or-toroid intercept of the dynamic walk (the row
     kind is a value: both candidates evaluate and a select picks one,
-    as the reference's _intercept_anam)."""
+    as the reference's _intercept_anam).  A freeform XY figure (`xy`,
+    the zero-padded table column) rides both candidates: a symmetric
+    base plus the monomial terms is exactly the freeform sag."""
     cx, kx = surf.curvature + surf.curvature_dx, surf.conic + surf.conic_dx
     tb = intercept_biconic(x, y, z, ux, uy, uz, cx, kx, surf.curvature,
                            surf.conic, surf.aspherics, surf.alternate,
-                           aspherics_odd=surf.aspherics_odd)
+                           aspherics_odd=surf.aspherics_odd, xy_poly=xy)
     tt = intercept_toroid(x, y, z, ux, uy, uz, cx, surf.curvature,
                           surf.conic, surf.aspherics, surf.alternate,
-                          aspherics_odd=surf.aspherics_odd)
+                          aspherics_odd=surf.aspherics_odd, xy_poly=xy)
     return torch.where(surf.toroidal != 0, tt, tb)
 
 
-def _refract_anam(x, y, ux, uy, uz, surf):
-    """The dynamic walk's refraction of an anamorphic (or grating, or
-    DOE) table: the biconic-or-toroid normal, then the generalized
-    grating/phase solve with the row's grating term and diffractive
-    kick (refract_grating) -- at zero both, Snell or a mirror's
-    reflection on the (gx, gy, 1) normal."""
+def _refract_anam(x, y, ux, uy, uz, surf, xy=None):
+    """The dynamic walk's refraction of an anamorphic (or grating, DOE or
+    freeform) table: the biconic-or-toroid normal less the freeform
+    figure's slopes (`xy`), then the generalized grating/phase solve
+    with the row's grating term and diffractive kick (refract_grating)
+    -- at zero both, Snell or a mirror's reflection on the (gx, gy, 1)
+    normal."""
     c, k, mu = surf.curvature, surf.conic, surf.mu
     cx, kx = c + surf.curvature_dx, k + surf.conic_dx
     gbx, gby = normal_biconic(x, y, cx, kx, c, k, surf.aspherics,
@@ -968,6 +1096,10 @@ def _refract_anam(x, y, ux, uy, uz, surf):
     tor = surf.toroidal != 0
     gx = torch.where(tor, gtx, gbx)
     gy = torch.where(tor, gty, gby)
+    if _width(xy):
+        dpx, dpy = _dpoly_xy(x, y, xy)
+        gx = gx - dpx
+        gy = gy - dpy
     gdy = 0. if surf.grating_dy is None else surf.grating_dy
     return refract_grating(x, y, ux, uy, uz, mu, gdy, gx, gy, doe=surf.doe)
 
@@ -982,20 +1114,25 @@ def surface_step(state, surf, clip, biconic=False):
     row takes the anamorphic sag instead -- the biconic-or-toroid
     seeded Newton and normal (_intercept_anam), and the generalized
     grating/phase solve (_refract_anam) with the DOE's path term.
-    Returns (next_state, local_outputs) with the per-surface (y, u, i,
-    t) in the surface-normal frame (reference system.py:459-464).
-    Callers check the table with `require_radial` first."""
+    A table whose xy_poly column has a nonzero width gives EVERY row
+    the freeform figure of its (zero-padded) coefficients -- decided by
+    the column's width, not by the row, as in the reference: the Newton
+    with the vertex-plane restart and the freeform normal, zeros
+    included.  Returns (next_state, local_outputs) with the per-surface
+    (y, u, i, t) in the surface-normal frame (reference
+    system.py:459-464)."""
     x, y, z, ux, uy, uz = state
     ox, oy, oz = surf.offset[0], surf.offset[1], surf.offset[2]
     r = surf.rot
     x, y, z = rot_apply(r, x - ox, y - oy, z - oz)
     ix, iy, iz = rot_apply(r, ux, uy, uz)
+    xy = surf.xy_poly if _width(surf.xy_poly) else None
     if biconic:
-        t = _intercept_anam(x, y, z, ix, iy, iz, surf)
+        t = _intercept_anam(x, y, z, ix, iy, iz, surf, xy)
     else:
         t = intercept(x, y, z, ix, iy, iz, surf.curvature, surf.conic,
                       surf.aspherics, surf.alternate,
-                      aspherics_odd=surf.aspherics_odd)
+                      aspherics_odd=surf.aspherics_odd, xy_poly=xy)
     x1, y1, z1 = x + t*ix, y + t*iy, z + t*iz
     ux0, uy0, uz0 = ix, iy, iz
     if clip:
@@ -1005,11 +1142,16 @@ def surface_step(state, surf, clip, biconic=False):
         uz0 = torch.where(bad, NAN, uz0)
     topt = t*surf.n_before
     if biconic:
-        ux1, uy1, uz1 = _refract_anam(x1, y1, ux0, uy0, uz0, surf)
+        ux1, uy1, uz1 = _refract_anam(x1, y1, ux0, uy0, uz0, surf, xy)
         if _width(surf.doe):
             # the imprinted phase is optical path (surface_step_spec); a
             # row of zero coefficients adds zero
             topt = topt + _poly_even(x1*x1 + y1*y1, surf.doe)*surf.n_after
+    elif xy is not None:
+        ux1, uy1, uz1 = refract_freeform(x1, y1, ux0, uy0, uz0, surf.mu,
+                                         surf.curvature, surf.conic,
+                                         surf.aspherics, surf.aspherics_odd,
+                                         xy)
     else:
         ux1, uy1, uz1 = refract(x1, y1, ux0, uy0, uz0, surf.mu,
                                 surf.curvature, surf.conic,

@@ -11,14 +11,17 @@ Conic surfaces with even and odd aspheric figure: an aspheric
 intercept is the conic root refined by a fixed trip-count Newton over
 the whole bundle (ASPHERIC_ITERS, unrolled: its gradient is that of
 the iterations, as in the reference's oracle).  A freeform XY figure
-(`xy_poly` of nonzero width) is not ported yet and raises
-NotImplementedError (ROADMAP Queue 1 item 9.5).
+(`xy_poly` of nonzero width, the triangular monomials of
+kernels._poly_xy) adds to the sag and its slopes to the normal; its
+intercept restarts a ray whose conic seed misses from the vertex plane,
+as the reference's oracle does.
 """
 
 import torch
 
-from .kernels import (ASPHERIC_ITERS, ASPHERIC_TOL, ITEM9, _dpoly_even,
-                      _dpoly_odd, _poly_even, _poly_odd, _sqrt0)
+from .kernels import (ASPHERIC_ITERS, ASPHERIC_TOL, _dpoly_even,
+                      _dpoly_odd, _dpoly_xy, _poly_even, _poly_odd, _poly_xy,
+                      _sqrt0)
 
 
 def _scalars(ref, *vals):
@@ -37,19 +40,11 @@ def _coeffs(ref, coeffs):
     return coeffs if coeffs.shape[-1] else None
 
 
-def _no_freeform(xy_poly):
-    if xy_poly is not None and torch.as_tensor(xy_poly).shape[-1]:
-        raise NotImplementedError(
-            "freeform XY figures are not ported to rayopt_tpu_torch yet "
-            "(%s.5)" % ITEM9)
-
-
 def surface_sag(xyz, curvature, conic, aspherics, aspherics_odd=None,
                 xy_poly=None):
     """Signed distance along z from the surface: z - sag(x, y)
-    (reference elements.py:440), with the even and odd aspheric
-    terms."""
-    _no_freeform(xy_poly)
+    (reference elements.py:440), with the even and odd aspheric terms
+    and the freeform XY figure."""
     e = xyz[..., 2]
     r2 = torch.square(xyz[..., :2]).sum(-1)
     c, k = _scalars(xyz, curvature, conic)
@@ -60,14 +55,17 @@ def surface_sag(xyz, curvature, conic, aspherics, aspherics_odd=None,
         e = e - _poly_even(r2, asp)
     if aspo is not None:
         e = e - _poly_odd(r2, aspo)
+    xy = _coeffs(xyz, xy_poly)
+    if xy is not None:
+        e = e - _poly_xy(xyz[..., 0], xyz[..., 1], xy)
     return e
 
 
 def surface_normal(xyz, curvature, conic, aspherics,
                    aspherics_odd=None, xy_poly=None):
     """(Unnormalized) surface normal of the sag function, pointing +z
-    (reference elements.py:457)."""
-    _no_freeform(xy_poly)
+    (reference elements.py:457), the freeform figure's slopes
+    included."""
     r2 = torch.square(xyz[..., :2]).sum(-1)
     c, k = _scalars(xyz, curvature, conic)
     e = -c/_sqrt0(1 - (1 + k)*c**2*r2)
@@ -78,6 +76,11 @@ def surface_normal(xyz, curvature, conic, aspherics,
         e = e - _dpoly_odd(r2, aspo)
     gx = xyz[..., 0]*e
     gy = xyz[..., 1]*e
+    xy = _coeffs(xyz, xy_poly)
+    if xy is not None:
+        dpx, dpy = _dpoly_xy(xyz[..., 0], xyz[..., 1], xy)
+        gx = gx - dpx
+        gy = gy - dpy
     return torch.stack([gx, gy, torch.ones_like(e)], dim=-1)
 
 
@@ -114,24 +117,34 @@ def intercept(y, u, curvature, conic, aspherics, alternate=0.,
     root, refined when aspheric coefficients are present (a static
     shape) by a fixed trip-count Newton on the full sag (replacing the
     per-ray scipy.newton loop of reference elements.py:333-349).  A
-    ray that does not converge, or whose conic seed misses a curved
-    surface, is NaN."""
-    _no_freeform(xy_poly)
+    ray that does not converge is NaN; so is one whose conic seed misses
+    a curved surface, unless the surface has a freeform figure: that ray
+    restarts from the vertex plane (the symmetric seed can miss rays the
+    true surface catches)."""
     s = intercept_conic(y, u, curvature, conic, alternate)
-    if _coeffs(y, aspherics) is None and _coeffs(y, aspherics_odd) is None:
+    has_xy = _coeffs(y, xy_poly) is not None
+    if (_coeffs(y, aspherics) is None and _coeffs(y, aspherics_odd) is None
+            and not has_xy):
         return s
     s0 = s
+    if has_xy:
+        uz_safe = torch.where(u[..., 2] == 0, 1., u[..., 2])
+        s = torch.where(torch.isnan(s0), -y[..., 2]/uz_safe, s0)
     for _ in range(iters):
         p = y + s[..., None]*u
-        fn = surface_sag(p, curvature, conic, aspherics, aspherics_odd)
+        fn = surface_sag(p, curvature, conic, aspherics, aspherics_odd,
+                         xy_poly)
         fp = (surface_normal(p, curvature, conic, aspherics,
-                             aspherics_odd)*u).sum(-1)
+                             aspherics_odd, xy_poly)*u).sum(-1)
         fp = torch.where(fp == 0, 1., fp)
         s = s - fn/fp
     p = y + s[..., None]*u
-    res = surface_sag(p, curvature, conic, aspherics, aspherics_odd)
+    res = surface_sag(p, curvature, conic, aspherics, aspherics_odd,
+                      xy_poly)
     s = torch.where(torch.abs(res) <= tol*(1 + torch.abs(s)), s,
                     float("nan"))
+    if has_xy:
+        return s
     c, = _scalars(y, curvature)
     return torch.where(torch.isnan(s0) & (c != 0), float("nan"), s)
 

@@ -14,11 +14,11 @@ Two engines compute the spot-RMS merit:
   a CUDA bundle, their plain versions on a CPU bundle.  No autograd
   residuals; specialized-engine gradient semantics.
 
-Both take even- and odd-aspheric rows, and `select` may hold
-"aspherics" and "aspherics_odd" (with `scales`, one per coefficient
-column, as the reference's freeform_scales are); the adjoint engine
-moves the coefficients of the rows that are figured in the nominal
-table only.
+Both take even- and odd-aspheric rows and the freeform XY rows, and
+`select` may hold "aspherics", "aspherics_odd" and "xy_poly" (with
+`scales`, one per coefficient column: `freeform_scales` for xy_poly);
+the adjoint engine moves the coefficients of the rows that are figured
+(or freeform) in the nominal table only.
 
 The wavefront merits follow the same split: opd_rays/wavefront_rms
 here are autograd through the plain trace's full history, and
@@ -407,6 +407,28 @@ def _adjoint_merit(table, bundles, select):
     return merit
 
 
+def freeform_scales(system):
+    """(S, KXY) preconditioning matrix for optimizing `xy_poly` (the JAX
+    package's freeform_scales).  The table holds denormalized monomial
+    coefficients c = A/R**d (A the normalized coefficient, d the total
+    degree), so a degree-d column spans ~R**-d; optimize_grad stores
+    params = value/scale, so the scale of a degree-d term is R**-d and
+    the optimizer steps in the normalized A.  Rows without a freeform
+    element scale by 1."""
+    from ..ops.kernels import _xy_terms, xy_degree
+    rows = [np.asarray(getattr(e, "_xy_arr", np.zeros(0))) for e in system]
+    kxy = max((r.size for r in rows), default=0)
+    if not kxy:
+        return np.ones((len(system), 0))
+    terms = _xy_terms(xy_degree(kxy))
+    out = np.ones((len(system), kxy))
+    for j, (e, r_j) in enumerate(zip(system, rows)):
+        r = float(getattr(e, "norm_radius", 0.) or 0.)
+        if r and r_j.size:
+            out[j] = [r**-(i + k) for i, k in terms]
+    return out
+
+
 def optimize_grad(table, bundles, select=("curvature",), steps=100,
                   lr=1e-4, optimizer=None, merit=None, callback=None,
                   mesh=None, axis="rays", checkpoint_dir=None,
@@ -433,9 +455,9 @@ def optimize_grad(table, bundles, select=("curvature",), steps=100,
                "adjoint" (ops.cuda_grad.adjoint_spot_rms: K4/K5 on a
                CUDA bundle, specialized-engine gradient semantics from
                the nominal table's specs: "aspherics" and
-               "aspherics_odd" move on its aspheric rows only; select
-               may not hold tilt or decenter).  Ignored when `merit` is
-               passed.
+               "aspherics_odd" move on its aspheric rows only, "xy_poly"
+               on its freeform rows only; select may not hold tilt or
+               decenter).  Ignored when `merit` is passed.
 
     `mesh`, `checkpoint_dir` and `jit_steps` are not ported yet and
     raise NotImplementedError.  Returns (optimized table, history of

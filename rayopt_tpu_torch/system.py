@@ -533,6 +533,17 @@ class System(AimingMixin, list):
         kd = max((len(getattr(e, "phase_coefficients", None) or ())
                   for e in self), default=0)
         doe = np.zeros((s, kd))
+        # the freeform rows' denormalized monomials, every row padded to
+        # the widest triangle
+        xy_rows = [np.asarray(getattr(e, "_xy_arr", np.zeros(0)))
+                   for e in self]
+        kxy = max((r.size for r in xy_rows), default=0)
+        xy_poly = np.zeros((s, kxy))
+        if kxy:
+            from .ops.kernels import xy_degree
+            xy_degree(kxy)
+            for j, r in enumerate(xy_rows):
+                xy_poly[j, :r.size] = r
         aspherics = np.zeros((s, kmax))
         aspherics_odd = np.zeros((s, kmax_odd))
         offset = np.zeros((s, 3))
@@ -592,7 +603,7 @@ class System(AimingMixin, list):
             n_before=n_before, n_after=n_after, distance=distance,
             curvature_dx=curvature_dx, conic_dx=conic_dx,
             toroidal=toroidal, grating_dy=grating_dy, doe=doe,
-            dtype=dtype, device=device)
+            xy_poly=xy_poly, dtype=dtype, device=device)
 
     def tables(self, wavelengths=None, dtype=torch.float64, device=None):
         """Stacked SurfaceTable with a leading wavelength axis, for

@@ -4,6 +4,8 @@ trees of the port on the same card in one call.
     python -m rayopt_tpu_torch.utils.kernel_times [--variants] [--steps N]
                                                   [--df32] [--multi]
                                                   [--long-plan] [--newton]
+                                                  [--registers]
+    python -m rayopt_tpu_torch.utils.kernel_times --compare A.json B.json
 
 Times, with CUDA events (the mean of many launches after a warm-up),
 on the double Gauss and the bench bundle (x, y uniform in +-11.6 mm,
@@ -77,6 +79,14 @@ registers, stack, spills and SASS size.
 To compare a parent tree's K10-K13 (or K3) with this tree's on one
 card, run --df32, --newton (or --multi) from each tree in one call
 (parent, this, this, parent).
+
+--registers alone builds the K1-K9 keys of REGISTER_LENSES (the double
+Gauss, NEWTON_LENSES and the phase models) in both dtypes, clip off and
+on (cuda_spec.prebuild), and prints {tag: [registers, stack bytes,
+spill bytes, SASS instructions]}; --compare A.json B.json prints the
+tags whose entries differ between two such outputs and the counts of
+equal ones.  Both build no key the parent tree cannot, so the two
+trees' outputs compare key for key.
 """
 
 import argparse
@@ -381,6 +391,101 @@ def newton_times():
         del state
     torch.cuda.empty_cache()
     return out
+
+
+#: --registers' lenses: the double Gauss, NEWTON_LENSES and the phase models
+REGISTER_LENSES = (("double Gauss",) + tuple(n for n, _ in NEWTON_LENSES)
+                   + ("hybrid achromat", "spectrograph"))
+
+
+def register_keys():
+    """{tag: key} of --registers: K1, K2, K4, K8, K5 and K9 (every field,
+    with the ray cotangents) and K5 for OPT_FIELDS without them, K3's two
+    modes, K6 and K7 on the 3-wavelength stack, in float32 and float64,
+    clip off and on, on each lens of REGISTER_LENSES (a key its
+    constructor refuses left out)."""
+    from rayopt_tpu_torch import models
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
+                                                 multi_specs)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    keys = {}
+    for name in REGISTER_LENSES:
+        if name in dict(NEWTON_LENSES):
+            s = newton_system(name)
+        else:
+            s = getattr(models, name.lower().replace(" ", "_"))()
+        table, tabs = s.table(), s.tables()
+        specs = specialize(table)
+        mspecs = multi_specs(tabs, None)
+        kw = dict(widths=figure_widths(table, specs),
+                  nd=doe_width(table, specs))
+        for dtype in (torch.float32, torch.float64):
+            for clip in (False, True):
+                tag = "%s %s clip=%s %%s" % (name, str(dtype)[6:], clip)
+                make = {
+                    "K1": lambda: CS.trace_key(specs, dtype, clip, **kw),
+                    "K2": lambda: CS.merit_key(specs, dtype, clip, **kw),
+                    "K4": lambda: CS.moments_key(specs, dtype, clip, **kw),
+                    "K8": lambda: CS.opd_key(specs, dtype, clip, **kw),
+                    "K5": lambda: CS.adjoint_key(specs, dtype, clip, **kw),
+                    "K5 optimizer": lambda: CS.adjoint_key(
+                        specs, dtype, clip, fields=OPT_FIELDS, rays=False,
+                        **kw),
+                    "K9": lambda: CS.opd_adjoint_key(specs, dtype, clip,
+                                                     **kw),
+                    "K3 merit": lambda: CS.trace_multi_key(
+                        mspecs, dtype, 3, merit=True, **kw),
+                    "K3 trace": lambda: CS.trace_multi_key(
+                        mspecs, dtype, 3, **kw),
+                    "K6": lambda: CS.moments_multi_key(mspecs, dtype, clip,
+                                                       3, **kw),
+                    "K7": lambda: CS.adjoint_multi_key(mspecs, dtype, clip,
+                                                       **kw)}
+                for kname, fn in make.items():
+                    try:
+                        keys[tag % kname] = fn()
+                    except (NotImplementedError, ValueError):
+                        pass
+    return keys
+
+
+def register_stats():
+    """{tag: [registers, stack bytes, spill bytes, SASS instructions]}
+    of register_keys' keys, built at once."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_build import sass_size
+    keys = register_keys()
+    built = CS.prebuild(list(keys.values()))
+    kerns = {key: built[key] for key in set(keys.values())}
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        sass = dict(zip(kerns, pool.map(
+            lambda k: sass_size(k.path, k.entry)[0], kerns.values())))
+    out = {}
+    for tag, key in keys.items():
+        text = kerns[key].build_log
+        regs = re.search(r"Used (\d+) registers", text)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", text)
+        out[tag] = [int(regs.group(1)), int(frame.group(1)),
+                    int(frame.group(2)) + int(frame.group(3)), sass[key]]
+    return out
+
+
+def compare_registers(path_a, path_b):
+    """Print the tags whose --registers entries differ between two
+    outputs, and the counts."""
+    a, b = (json.load(open(p))["registers"] for p in (path_a, path_b))
+    common = sorted(set(a) & set(b))
+    differ = [t for t in common if a[t][:3] != b[t][:3]]
+    sass = [t for t in common if a[t][3] != b[t][3]]
+    for t in sorted(set(differ) | set(sass)):
+        print("%s: %s -> %s" % (t, a[t], b[t]))
+    print("%d common key tags (%d in one only): registers, stack and "
+          "spills differ on %d, SASS instructions on %d"
+          % (len(common), len(set(a) ^ set(b)), len(differ), len(sass)))
 
 
 def df32_variant_times(s):
@@ -970,7 +1075,16 @@ def main():
     ap.add_argument("--long-plan", action="store_true",
                     help="build and time K10 and K12 on a %d-step plan "
                     "(device words) alone" % LONG_STEPS)
+    ap.add_argument("--registers", action="store_true",
+                    help="build the K1-K9 keys of REGISTER_LENSES and "
+                    "print their registers, stack, spills and SASS size "
+                    "alone")
+    ap.add_argument("--compare", nargs=2, metavar="JSON",
+                    help="compare two --registers outputs")
     args = ap.parse_args()
+    if args.compare:
+        compare_registers(*args.compare)
+        return
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times needs a CUDA card")
     from rayopt_tpu_torch.models import double_gauss
@@ -980,6 +1094,10 @@ def main():
                           text=True).stdout.strip()
     table = double_gauss().table()
     specs = specialize(table)
+    if args.registers:
+        print(json.dumps({"card": card, "registers": register_stats()}))
+        sys.stdout.flush()
+        return
     if args.newton:
         print(json.dumps({"card": card, "newton": newton_times()}))
         sys.stdout.flush()

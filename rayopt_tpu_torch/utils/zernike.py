@@ -219,17 +219,9 @@ def zernike_xy(j):
     return {k: v for k, v in out.items() if v != 0.}
 
 
-def _xy_terms(deg):
-    """Triangular XY-monomial ordering: total degree d = 1..deg, within
-    each degree from x^d down to y^d, i.e. (i, j) exponent pairs (d, 0),
-    (d-1, 1), ..., (0, d); no (0, 0) term."""
-    return tuple((d - j, j) for d in range(1, deg + 1)
-                 for j in range(d + 1))
-
-
 def zernike_xy_coefficients(coeff, drop_piston=True):
     """Lower a Noll coefficient vector (coeff[0] = Z1) onto the
-    triangular XY-monomial ordering of _xy_terms.
+    triangular XY-monomial ordering of ops.kernels._xy_terms.
 
     Returns (xy, const): xy is the flat triangular coefficient list
     (unit-disc coordinates; callers divide term t by R^(i+j) to
@@ -237,6 +229,7 @@ def zernike_xy_coefficients(coeff, drop_piston=True):
     freeform basis re-references the vertex so sag(0, 0) == 0; the
     constant is reported for callers that track the vertex shift.
     """
+    from ..ops.kernels import _xy_terms
     mono = {}
     for j, c in enumerate(coeff, start=1):
         if not c:

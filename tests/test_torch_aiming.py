@@ -210,22 +210,30 @@ def test_bundles_device_aim_matches_jax_and_host():
 
 
 def test_rim_mode_refuses_the_extended_vocabulary():
-    """Rim mode traces every row with the general trace, whose freeform
-    rows (ROADMAP Queue 1 item 9.5) are not ported: a freeform spec
-    raises naming the item (the grating and DOE rows are traced: the
-    JAX package's test_rim_aiming_sees_extended_vocabulary is
-    tests/test_torch_grating.py's); stop mode and conic rows are
-    unaffected."""
+    """Rim mode traces every row with the general trace, which traces
+    the whole extended vocabulary now: a freeform flag on a row (the
+    freeform rows are ported, ROADMAP Queue 1 item 9.5; the JAX package's
+    rim mode on a freeform lens is tests/test_torch_freeform.py's, its
+    test_rim_aiming_sees_extended_vocabulary tests/test_torch_grating.py's)
+    refuses nothing: the cooke triplet's rim-mode margins and pupils
+    with the flag equal those without to 1e-13 (its xy_poly column is
+    empty; the flagged row's stop-mode step refracts by the general
+    form, refract_freeform, rather than the spherical one)."""
     _, ts = _pair("cooke_triplet")
     tt = ts.table()
     specs = list(specialize(tt))
-    specs[2] = specs[2]._replace(freeform=True)
+    flagged = list(specs)
+    flagged[2] = specs[2]._replace(freeform=True)
     f = _meridional((1.,))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TA.aim_marginal_batched(tt, f, ts.object.pupil.distance,
-                                ts.object.pupil.radius, ts.stop,
-                                specs=tuple(specs), rim=True, **_kw(ts))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TA.pupil_batched(tt, f, ts.object.pupil.distance,
-                         ts.object.pupil.radius, ts.stop,
-                         specs=specs_from_tuple(specs), rim=True, **_kw(ts))
+    a = [TA.aim_marginal_batched(tt, f, ts.object.pupil.distance,
+                                 ts.object.pupil.radius, ts.stop,
+                                 specs=tuple(sp), rim=True, **_kw(ts))
+         for sp in (specs, flagged)]
+    nptest.assert_allclose(a[1].numpy(), a[0].numpy(), rtol=1e-13)
+    z = [TA.pupil_batched(tt, f, ts.object.pupil.distance,
+                          ts.object.pupil.radius, ts.stop,
+                          specs=specs_from_tuple(sp), rim=True, **_kw(ts))
+         for sp in (specs, flagged)]
+    for got, want in zip(z[1], z[0]):
+        nptest.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                               rtol=1e-13, atol=1e-13)

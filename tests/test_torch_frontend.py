@@ -144,8 +144,9 @@ def test_spheroid_oracle_matches_jax(curvature, conic):
 
 def test_aspheric_element_not_ported():
     """An aspheric Spheroid's element oracle (even and odd figure) is
-    ported now: it agrees with the JAX element to 1e-12; a freeform XY
-    figure is what still raises (ROADMAP Queue 1 item 9)."""
+    ported now: it agrees with the JAX element to 1e-12; so does the
+    surface oracle with a freeform XY figure (ROADMAP Queue 1 item 9.5,
+    ported; the freeform elements: tests/test_torch_freeform.py)."""
     rng = np.random.RandomState(5)
     n = 64
     y = np.zeros((n, 3))
@@ -168,10 +169,14 @@ def test_aspheric_element_not_ported():
     for mu in (1/1.5, -1.):
         nptest.assert_allclose(te.refract(p, u, mu), je.refract(p, u, mu),
                                rtol=1e-12, atol=1e-12, equal_nan=True)
+    from rayopt_tpu.ops import surfaces as JS
     from rayopt_tpu_torch.ops import surfaces as TS
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TS.surface_sag(torch.zeros(1, 3, dtype=torch.float64), .02, 0.,
-                       None, xy_poly=torch.ones(2, dtype=torch.float64))
+    xy = np.array([1e-3, -2e-3, 4e-4, 1e-4, -3e-4])
+    got = TS.surface_sag(torch.from_numpy(p), .02, 0., None,
+                         xy_poly=torch.from_numpy(xy))
+    want = JS.surface_sag(p, .02, 0., np.zeros(0), xy_poly=xy)
+    nptest.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12,
+                           atol=1e-12)
 
 
 @pytest.mark.parametrize("name", ["cooke_triplet", "double_gauss"])

@@ -498,12 +498,16 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="item 16"):
         TGR.trace_rms_merit(tt, tb, mesh=object())
     # biconic=True is ported (tests/test_torch_anamorphic.py, with the
-    # grating and DOE rows tests/test_torch_grating.py); a freeform row
-    # is not
+    # grating and DOE rows tests/test_torch_grating.py), and so is a
+    # freeform row (tests/test_torch_freeform.py): the generic and the
+    # specialized merits agree on it
     xy = torch.zeros(tt.nsurfaces, 5, dtype=torch.float64)
     xy[1, 2] = 1e-3
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TGR.spot_rms(tt.replace(xy_poly=xy), *tb[0][:3], biconic=True)
+    ft = tt.replace(xy_poly=xy)
+    nptest.assert_allclose(
+        float(TGR.spot_rms(ft, *tb[0][:3], biconic=True)),
+        float(TGR.spot_rms(ft, *tb[0][:3], specs=TK.specialize(ft))),
+        rtol=1e-12)
     # the adjoint engine does not differentiate rot: a tilt that
     # requires grad keeps every row rotated, and raises
     tilt = torch.zeros(tt.nsurfaces, 3, dtype=torch.float64,

@@ -198,9 +198,11 @@ def test_y_cylinder_curvature_dx_warns_and_is_zero():
 
 
 def test_refusals_name_item_9():
-    """What still refuses, naming ROADMAP Queue 1 item 9: a grating,
-    DOE or freeform row in every K1-K9 key (its wrapper's
-    _step_vjp_reference model too).  Every K1-K9 key takes the three
+    """What still refuses: a freeform figure on an anamorphic base, in
+    every K1-K9 key and the _step_vjp_reference model (specialize
+    refuses it, as the reference's; the freeform rows on a radial base,
+    ROADMAP Queue 1 item 9.5, are tests/test_torch_spec_freeform.py's).
+    Every K1-K9 key takes the three
     lenses and the figured lenses (tests/test_torch_anamorphic.py), the
     adjoints' with their anamorphic slots; the hand reverse takes the
     PATH form (K9's) on every anamorphic row; df32.plan traces them as
@@ -245,7 +247,7 @@ def test_refusals_name_item_9():
             (torch.zeros(4, dtype=F64),)*6, ct_path=torch.zeros(4, dtype=F64))
         assert len(pg) == CS.OPD_SLOTS + (sum(widths) if TK.is_figured(
             specs[j]) else 0) + CT.ANAM
-    # a grating, DOE or freeform row on the biconic lens, in every key
+    # a freeform flag on the biconic lens's biconic row, in every key
     _, _, tt, specs = _tables("biconic")
     for extended in TK.EXTENDED:
         bad = list(specs)
@@ -260,9 +262,9 @@ def test_refusals_name_item_9():
                      lambda sp: CS.adjoint_multi_key(sp, F64),
                      lambda sp: CS.opd_key(sp, F64),
                      lambda sp: CS.opd_adjoint_key(sp, F64)):
-            with pytest.raises(NotImplementedError, match="item 9"):
+            with pytest.raises(NotImplementedError, match="anamorphic base"):
                 make(tuple(bad))
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match="anamorphic base"):
             CG._step_vjp_reference(_state(*bundle(4, 1)), tt.row(1), bad[1],
                                    (torch.zeros(4, dtype=F64),)*6)
 

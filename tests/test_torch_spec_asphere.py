@@ -422,9 +422,11 @@ ANAMORPHIC = ("biconic", "cylinder", "toroid")
 
 @pytest.mark.parametrize("name", sorted(EXTENDED))
 def test_extended_rows_still_raise_everywhere(name):
-    """Freeform rows raise NotImplementedError naming item 9 in every
-    key, the specialized and the generic plain step, the plain engines
-    and the df32 plan.  Biconic, toroid and cylinder rows are traced now
+    """Freeform rows are traced by the specialized and the generic plain
+    step and the plain engines and taken by the K1, K2, K4 and K5 keys
+    (tests/test_torch_freeform.py, tests/test_torch_spec_freeform.py);
+    the K3 and K6-K9 keys and the df32 plan raise NotImplementedError on
+    them, naming item 9.5.  Biconic, toroid and cylinder rows are traced now
     (tests/test_torch_anamorphic.py): every K1-K9 key takes them, and the
     df32 plan traces them as the JAX package's eager df32 does, word for
     word.  Grating and DOE rows are traced by the plain path and by
@@ -464,11 +466,14 @@ def test_extended_rows_still_raise_everywhere(name):
                     *(make(specs3, F64, nd=nd) for make in opd_keys)):
             assert (key.grating, key.nd) == (name == "grating", nd)
     else:
-        for make in keys:
-            with pytest.raises(NotImplementedError, match="item 9"):
+        nxy = CT.xy_width(tt, specs)
+        for make in keys[:4]:
+            assert make(specs, F64, nxy=nxy).nxy == nxy
+        for make in keys[4:]:
+            with pytest.raises(NotImplementedError, match=r"item 9\.5"):
                 make(specs, F64)
         for make in opd_keys:
-            with pytest.raises(NotImplementedError, match="item 9"):
+            with pytest.raises(NotImplementedError, match=r"item 9\.5"):
                 make(specs3, F64)
     if name in ANAMORPHIC:
         out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
@@ -493,12 +498,12 @@ def test_extended_rows_still_raise_everywhere(name):
         assert (steps[0]["doe"] is None) == (name == "grating")
         assert df32_matches_jax(tt, y, u)
         return
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TK.surface_step_spec(state, tt.row(1), specs[1], False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TG.trace_rays_final(tt, torch.zeros(4, 3, dtype=F64),
-                            torch.ones(4, 3, dtype=F64))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CT.trace_final(tt, specs, state)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
+    assert all(torch.isfinite(c).all() for c in out)
+    y = TG.trace_rays_final(tt, torch.zeros(4, 3, dtype=F64),
+                            torch.ones(4, 3, dtype=F64)/np.sqrt(3.),
+                            biconic=True)[0]
+    assert torch.isfinite(y).all()
+    assert torch.isfinite(CT.trace_final(tt, specs, state)[0][0]).all()
+    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
         TD.plan(tt)

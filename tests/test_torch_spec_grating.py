@@ -183,14 +183,14 @@ def test_merit_adjoint_by_hand_matches_the_plain_version(kind, name, clip):
 # -- the keys -----------------------------------------------------------------
 
 def test_key_words_rows_and_slots():
-    """The phase keys: F_GRATING and F_DOE below LIVE_SHIFT (16), rows
+    """The phase keys: F_GRATING and F_DOE below LIVE_SHIFT (17), rows
     packed with grating_dy, n_after and the DOE coefficients, K5's
     SLOTS [+ na + no] + 1 + nd slots with grating_dy live on the grating
     row and the coefficients on the DOE row only, the units'
     RAYOPT_N_GRAT and RAYOPT_N_DOE; the forward keys carry the rows and
     no slots; a table without a phase row keys as before."""
     assert (CT.F_GRATING, CT.F_DOE) == (1 << 14, 1 << 15)
-    assert CS.LIVE_SHIFT == 16 and CS.LIVE_BITS == 47
+    assert CS.LIVE_SHIFT == 17 and CS.LIVE_BITS == 46
     # K9's layout, OPD_SLOTS + na + no + 2 + 1 + 1 + nd, fits a word for
     # the widths of the tables here
     assert CS.OPD_SLOTS + 4 + 2 + 1 + 1 + 4 <= CS.LIVE_BITS
@@ -366,9 +366,10 @@ def test_a_phase_cylinder_and_a_freeform_row_refuse():
     """A grating on a cylinder: the plain path traces it, and every K1-K9
     key and the hand reverse (K5's and K9's PATH form) take it (the key
     row marks the biconic that made the cylinder; the reverse against
-    autograd: tests/test_torch_spec_phase_cylinder.py); a freeform row
-    raises naming item 9.5 in the specialized and the generic step and
-    in a key."""
+    autograd: tests/test_torch_spec_phase_cylinder.py).  A freeform row
+    is traced by the specialized and the generic step and taken by the
+    K1 key (tests/test_torch_freeform.py), and refused by K3's and K8's
+    keys, naming item 9.5 (part two)."""
     kw = dict(curvature=[0., 1/40., 0.], curvature_dx=[0., -1/40., 0.],
               mu=[1., 1/1.5, 1.], distance=[0., 5., 10.],
               grating_dy=[0., .1, 0.])
@@ -401,12 +402,15 @@ def test_a_phase_cylinder_and_a_freeform_row_refuse():
               xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]])
     ft = TT.table_from_numpy(JT.make_table(**kw))
     fspecs = TK.specialize(ft)
+    out, _ = TK.surface_step_spec(state, ft.row(1), fspecs[1], False)
+    assert all(torch.isfinite(c).all() for c in out)
+    out, _ = TK.surface_step(state, ft.row(1), False)
+    assert all(torch.isfinite(c).all() for c in out)
+    assert CS.trace_key(fspecs, F64, nxy=CT.xy_width(ft, fspecs)).nxy == 5
     with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-        TK.surface_step_spec(state, ft.row(1), fspecs[1], False)
+        CS.trace_multi_key(fspecs, F64, 2)
     with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-        TK.require_radial(ft)
-    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-        CS.trace_key(fspecs, F64)
+        CS.opd_key(fspecs + fspecs[-1:], F64)
 
 
 # -- the loop -----------------------------------------------------------------

@@ -176,23 +176,35 @@ def test_surface_step_generic_matches_jax(name):
 
 
 def test_extended_vocabulary_raises():
-    # a freeform row: the vocabulary still to port (aspheric, anamorphic,
-    # grating and DOE rows are traced now, tests/test_torch_asphere.py,
-    # tests/test_torch_anamorphic.py and tests/test_torch_grating.py)
+    # a freeform row: the last of the vocabulary, traced now by the plain
+    # path and K1 (tests/test_torch_freeform.py; the aspheric,
+    # anamorphic, grating and DOE rows: tests/test_torch_asphere.py,
+    # tests/test_torch_anamorphic.py and tests/test_torch_grating.py);
+    # what raises is the K3 key (item 9.5, part two) and the df32 plan
+    # (part three)
     jt = JT.make_table(curvature=[0., 1/40.], mu=[1., 1/1.5],
                        xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]])
     tt = TT.table_from_numpy(jt)
     specs = TK.specialize(tt)
     assert specs[1].freeform
     state = _torch(_components(*_bundle(8, 0, 1.)))
-    with pytest.raises(NotImplementedError):
-        TK.surface_step_spec(state, tt.row(1), specs[1], False)
-    with pytest.raises(NotImplementedError):
-        CT.trace_final(tt, specs, state)
-    with pytest.raises(NotImplementedError):
-        CT.pack_table(tt, specs, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError):
-        TG.trace_rays_final(tt, torch.zeros(2, 3), torch.ones(2, 3))
+    out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
+    want, _ = JK.surface_step_spec(_components(*_bundle(8, 0, 1.)),
+                                   JT.SurfaceTable(*(
+                                       None if f is None
+                                       else jnp.asarray(f)[1] for f in jt)),
+                                   JK.SurfaceSpec(**specs[1]._asdict()),
+                                   False)
+    _assert_rays(out, want)
+    assert torch.isfinite(CT.trace_final(tt, specs, state)[0][0]).all()
+    packed, flags = CT.pack_table(tt, specs, torch.float32, "cpu")
+    assert packed.shape == (2, CT.ROW + 5) and flags[1] & CT.F_FREEFORM
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import df32 as TD
+    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
+        CS.trace_multi_key(specs, torch.float64, 2)
+    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
+        TD.plan(tt)
 
 
 # -- tables -------------------------------------------------------------
