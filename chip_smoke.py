@@ -54,13 +54,19 @@ versions, word for word; the parity-grade df32 path on the hybrid
 achromat's aimed bundles, the spectrograph's detector lines against
 the golden and the kinoform's optical path) and on a cylinder (K1-K9
 on a grating on a biconic-made y-cylinder and a DOE on a toroid-made
-one against their plain versions and central differences) -- and
-times the kernels against their plain versions (the
-stacked-wavelength ones also against their monochromatic twins, the
-aspheric keys against the double Gauss's, K10-K13 on the Newton plans
-against their spherical twins', the grating and DOE keys and the df32
-phase plans against their phase-free twins', the phase cylinders'
-keys against the plain cylinders').
+one against their plain versions and central differences) -- then
+the freeform XY rows (K1-K9 on seven freeform lenses against their
+plain versions, K5, K7 and K9 against central differences of xy_poly,
+K8 on the reference's Zernike imprint; the Schmidt and Zernike
+correctors' forward paths; the Schmidt corrector's designer loop,
+achromatization loop and design step with its plate's xy_poly among
+their parameters) -- and times the kernels against their plain
+versions (the stacked-wavelength ones also against their monochromatic
+twins, the aspheric keys against the double Gauss's, K10-K13 on the
+Newton plans against their spherical twins', the grating and DOE keys
+and the df32 phase plans against their phase-free twins', the phase
+cylinders' keys against the plain cylinders', the freeform keys
+against the freeform-free Schmidt plate's).
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
@@ -162,6 +168,13 @@ DF32_REL = 1e-13     # df32 kernel vs plain: of max(1, |value|) per output
 DF32_F64_ATOL = 1e-10  # mm: df32 K10 image positions vs float64 K1
 GRAD_F64_REL = 1e-9  # float64 K5 cotangents, of their field's/kind's max
 GRAD_F32_REL = 1e-3  # float32 K5 on axis: sums of 2^20 float32 terms
+OPD_COLUMN_FLOOR = 1e-5  # K9 in float64: a field held to 1e-9 of its
+#                      largest or of this share of the key's largest, 1e-14
+#                      of it: each ray's cotangents carry the path to the
+#                      reference sphere (~7e6 waves on the Schmidt plates)
+#                      and the mu column's cancel to ~6e-8 of the key's
+#                      largest, off by ~4e-16 of it (the order of a
+#                      2^20-ray sum's float64 rounding)
 COLUMN_FLOOR = 1e-9  # a parameter field is held to its largest plain
 #                      cotangent, or to this share of the key's largest
 #                      where that is more: a field that vanishes (mu
@@ -1301,7 +1314,7 @@ def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
         union_spot_rms_from_moments)
     from rayopt_tpu_torch.ops.cuda_trace import (
         doe_width, figure_widths, spot_rms_from_moments, trace_final,
-        trace_final_reference, trace_multi, trace_multi_reference)
+        trace_final_reference, trace_multi, trace_multi_reference, xy_width)
     from rayopt_tpu_torch.ops.tables import table_at
     nlam = tabs.curvature.shape[0]
     # K7's columns: SLOTS, the table's coefficients, the anamorphic two
@@ -1424,7 +1437,8 @@ def phase_multi_check(tabs, specs, lens="double Gauss", bundle=bench_bundle,
                 # cotangents, the rest exact zeros
                 live_slots = CS.live_mask(CS.live_slots(
                     specs, loop, figure_widths(tabs, specs),
-                    doe_width(tabs, specs)), nq).to(DEVICE)
+                    doe_width(tabs, specs), xy_width(tabs, specs)),
+                    nq).to(DEVICE)
                 pa, ca, wa = merit_adjoint_multi(tabs, specs, state, w, ct,
                                                  clip, fields=loop,
                                                  rays=False)
@@ -1501,17 +1515,47 @@ def phase_glass_fd_check(s, tabs, specs):
         raise AssertionError("K7 disagrees with finite differences of vd")
 
 
+def glass_slots(s):
+    """(glass assignment, mirror rows) of a system: glass.
+    glass_assignment's map, or for a system with a mirror (which it
+    refuses: past a mirror the propagated indices flip sign) the same
+    map of its solid elements ahead of the mirror, the mirror and every
+    row after it fixed, and the mirror rows, whose mu (-1) glass_tables'
+    n_before/n_after ratio would overwrite.  A solid element past a
+    mirror raises."""
+    from rayopt_tpu_torch import glass
+    mirrors = [j for j, e in enumerate(s)
+               if getattr(getattr(e, "material", None), "mirror", False)]
+    if not mirrors:
+        return glass.glass_assignment(s), mirrors
+    a_before, a_after, owners, cur = [], [], [], -1
+    for j, e in enumerate(s):
+        a_before.append(cur)
+        mat = getattr(e, "material", None)
+        if mat is not None:
+            solid = getattr(mat, "solid", False) and j not in mirrors
+            if solid and j > mirrors[0]:
+                raise NotImplementedError("a solid element past a mirror")
+            if solid:
+                owners.append(j)
+            cur = len(owners) - 1 if solid else -1
+        a_after.append(cur)
+    return (np.asarray(a_before, np.int32), np.asarray(a_after, np.int32),
+            owners), mirrors
+
+
 def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
-                     slots=6):
+                     slots=6, fields=None):
     """The achromatization path, through the entry points a user calls:
     stacked tables, glass relaxation of the lens's `slots` glasses, the
-    polychromatic adjoint merit at three fields and torch.optim.Adam
-    (over curvatures, distances, the glasses and, on an aspheric lens,
-    row ASPH_ROW's coefficients over ASPH_SCALES, on an anamorphic lens
-    curvature_dx at the curvatures' lr, on a lens with a kinoform its
-    phase coefficient A at PHASE_A_LR, each wavelength's DOE row written
-    as System.table writes it, m lambda/(2 pi n') A/R^2), with K3
-    reporting the spots.  Step 0 is held against
+    polychromatic adjoint merit at three fields (or `fields`) and
+    torch.optim.Adam (over curvatures, distances, the glasses and, on an
+    aspheric lens, row ASPH_ROW's coefficients over ASPH_SCALES, on an
+    anamorphic lens curvature_dx at the curvatures' lr, on a lens with a
+    kinoform its phase coefficient A at PHASE_A_LR, each wavelength's
+    DOE row written as System.table writes it, m lambda/(2 pi n')
+    A/R^2, on a freeform lens xy_poly over freeform_scales at FF_LR),
+    with K3 reporting the spots.  Step 0 is held against
     the same call on the CPU plain versions (step0_cross_check; with
     check_nrays K3's float64 spot RMS on those bundles against the
     CPU's too).  Returns (the launches of the loop and its K3 reports,
@@ -1522,12 +1566,19 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
     from rayopt_tpu_torch.ops.cuda_trace import (
         carries_anamorphic, multi_specs, spot_rms_from_moments, trace_multi,
         trace_multi_reference)
-    from rayopt_tpu_torch.parallel import bundles_from_system, bundles_to
+    from rayopt_tpu_torch.parallel import (bundles_from_system, bundles_to,
+                                           freeform_scales)
     s = s or double_gauss()
+    fields = FIELDS if fields is None else fields
     tabs = s.tables()            # the default device: the card
     asph = bool(tabs.aspherics.shape[-1])
     specs = multi_specs(tabs, None)
     anam = carries_anamorphic(specs)
+    # a freeform lens's XY coefficients, normalized (optimize_grad's
+    # scales): the plate's figure in mm of sag at its norm radius
+    ff = any(sp.freeform for sp in specs)
+    xy_scale = torch.from_numpy(freeform_scales(s))
+    xy0 = tabs.xy_poly[0].detach().cpu() if ff else None
     # a kinoform's row, element and the factor of its coefficient in each
     # wavelength's doe column (System.table's m lambda/(2 pi n') / R^2)
     kino = next((j for j, sp in enumerate(specs) if sp.doe), None)
@@ -1536,19 +1587,23 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
         a_fac = torch.tensor([
             el.diffraction_order*(lam/s.scale)/(2*np.pi)/el.norm_radius**2
             for lam in s.wavelengths], dtype=torch.float64)
-    log("== achromatization path: %s, System.tables -> glass_assignment -> "
+    asg, mirrors = glass_slots(s)
+    log("== achromatization path: %s, System.tables -> %s -> "
         "glass_tables(glass_box_decode(logits)) -> "
         "glass.polychromatic_spot_rms(engine='adjoint') at fields %s, "
-        "float64, %d Adam steps, lr %s%s%s%s" % (
-            lens, FIELDS, GLASS_STEPS, GLASS_LR,
+        "float64, %d Adam steps, lr %s%s%s%s%s" % (
+            lens, "glass_slots (the solids ahead of mirror row(s) %s; "
+            "their mu kept)" % mirrors if mirrors else "glass_assignment",
+            fields, GLASS_STEPS, GLASS_LR,
             ", row %d's aspherics over scales %s at the curvatures' lr"
             % (ASPH_ROW, ASPH_SCALES["aspherics"]) if asph else "",
             ", curvature_dx at the curvatures' lr" if anam else "",
             ", row %d's kinoform coefficient A at lr %g" % (kino, PHASE_A_LR)
-            if kino is not None else ""))
+            if kino is not None else "",
+            ", xy_poly over freeform_scales at lr %g" % FF_LR if ff
+            else ""))
     t0 = time.perf_counter()
     nlam = tabs.curvature.shape[0]
-    asg = glass.glass_assignment(s)
     nd0, vd0 = glass.initial_glass_params(s, asg[2])
     log("%d wavelengths %s; %d glass slots owned by elements %s: nd %s, "
         "vd %s" % (nlam, s.wavelengths, len(asg[2]), asg[2],
@@ -1558,13 +1613,13 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
                              % (slots, asg[2]))
 
     def aimed(nrays):
-        return bundles_from_system(s, fields=FIELDS,
+        return bundles_from_system(s, fields=fields,
                                    wavelengths=[s.wavelengths[0]],
                                    nrays=nrays, distribution="hexapolar")
     bundles = aimed(N_GLASS)
     log("bundles: distribution hexapolar, nrays %d -> %s rays at fields %s,"
         " aimed at %g m in %.2f s" % (N_GLASS, [b[0].shape[0] for b in
-                                                  bundles], FIELDS,
+                                                  bundles], fields,
                                       s.wavelengths[0],
                                       time.perf_counter() - t0))
     # distance is optimized, the trace reads offset = unit * distance
@@ -1592,6 +1647,8 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
             out["phase_a"] = torch.tensor(
                 [float(s[kino].phase_coefficients[0])], dtype=torch.float64,
                 device=device)
+        if ff:
+            out["xy_poly"] = (xy0/xy_scale).to(device)
         return out
 
     def relaxed(params, tables):
@@ -1609,8 +1666,16 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
         if anam:
             tb = tb.replace(curvature_dx=params["curvature_dx"].expand(
                 nlam, -1))
+        if ff:
+            tb = tb.replace(xy_poly=(params["xy_poly"]*xy_scale.to(dev))
+                            .expand(nlam, -1, -1))
         nd, vd = glass.glass_box_decode(params["xi_nd"], params["xi_vd"])
         tb = glass.glass_tables(tb, nd, vd, asg, s.wavelengths)
+        if mirrors:
+            # the mirror rows keep their mu (-1)
+            mu = tb.mu.clone()
+            mu[:, mirrors] = -1.
+            tb = tb.replace(mu=mu)
         if kino is not None:
             # each wavelength's psi(r^2) coefficient from A and its own
             # n' (System.table's), the other coefficients as they are
@@ -1642,7 +1707,7 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
     def report(params, when):
         with torch.no_grad():
             tb = relaxed(params, tabs)
-            for field, (per, union, live) in zip(FIELDS, spots(
+            for field, (per, union, live) in zip(fields, spots(
                     tb, bundles, trace_multi)):
                 log("K3 %s, field %.1f: spot RMS mm per wavelength %s, union "
                     "%.9g, live rays %s" % (when, field, " ".join(
@@ -1659,6 +1724,12 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
             if kino is not None:
                 log("row %d's kinoform coefficient A %s: %.12g" % (
                     kino, when, float(params["phase_a"])))
+            if ff:
+                rows = [j for j, sp in enumerate(specs) if sp.freeform]
+                log("the freeform rows' normalized xy_poly %s: %s" % (
+                    when, " | ".join(
+                        " ".join("%.6g" % v for v in params["xy_poly"][j])
+                        for j in rows)))
 
     def step0(device, b):
         p = {k: v.requires_grad_() for k, v in start(device).items()}
@@ -1682,6 +1753,8 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
                        "lr": GLASS_LR["curvature"]})
     if kino is not None:
         groups.append({"params": [params["phase_a"]], "lr": PHASE_A_LR})
+    if ff:
+        groups.append({"params": [params["xy_poly"]], "lr": FF_LR})
     opt = torch.optim.Adam(groups)
     hist, grads0, ends = [], None, []
     t0 = time.perf_counter()
@@ -1715,7 +1788,7 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
                              trace_multi)
                 host = spots(relaxed(start("cpu"), s.tables(device="cpu")),
                              check_cpu, trace_multi_reference)
-            for field, (pc, uc, lc), (ph, uh, lh) in zip(FIELDS, card, host):
+            for field, (pc, uc, lc), (ph, uh, lh) in zip(fields, card, host):
                 rel = max(abs(a - b)/b for a, b in zip(pc + [uc], ph + [uh]))
                 ok = rel <= PARITY_REL and lc == lh
                 log("K3 float64 vs the CPU plain trace, field %.1f (%d "
@@ -1795,7 +1868,7 @@ OPD_GRAD_FIELDS = GRAD_FIELDS + (("n_before", slice(6, 7)),)
 
 def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
                     clips=(False, True), fields=None, design=DESIGN_FIELDS,
-                    dtypes=(torch.float64, torch.float32)):
+                    dtypes=(torch.float64, torch.float32), hold_f32_k9=True):
     """K8 and K9 against their plain versions on the card: K8's k and
     landing; K9's parameter (n_before included; the aspheric lenses:
     the coefficient columns too, `fields`), ray and centre cotangents
@@ -1805,12 +1878,19 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
     K9's sums against the float64 plain version on the same inputs (see
     below).  `bundle(n, dtype, seed, widen)`: opd_bundle's (the aspheric
     lenses: unclipped only); `dtypes` (the figured anamorphic lenses:
-    float64 only).  Returns the float32 errors."""
+    float64 only).  In float64 a parameter field is held to its scale
+    floored at OPD_COLUMN_FLOOR of the largest field's, as
+    compare_param_grads floors K5's at COLUMN_FLOOR.  Without
+    `hold_f32_k9` K9's float32 sums are logged, not held
+    (the Schmidt plates: their ~7e6-wave paths leave the float32 plain
+    version's mu column ~6% of its sum of |term| off the float64 one).
+    Returns the float32 errors."""
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
         _nslots, opd_adjoint, opd_adjoint_reference, opd_chain,
         opd_chain_reference)
-    from rayopt_tpu_torch.ops.cuda_trace import doe_width, figure_widths
+    from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
+                                                 xy_width)
     bundle = bundle or opd_bundle
     fields = fields or OPD_GRAD_FIELDS
     # K9's columns: OPD_SLOTS, the table's coefficients, the anamorphic two
@@ -1823,6 +1903,12 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
 
     def err(a, b):
         return float((a.double() - b.double()).abs().max())
+
+    def held(scales, f64):
+        # float64: each field's scale, floored at OPD_COLUMN_FLOOR of the
+        # largest
+        top = max(scales)*(OPD_COLUMN_FLOOR if f64 else 0.)
+        return [max(sc, top) if sc else 0. for sc in scales]
     for dtype in dtypes:
         f64 = dtype == torch.float64
         dt = str(dtype)[6:]
@@ -1891,13 +1977,15 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
                         tuple(c.abs() for c in cts64), clip)
                 torch.cuda.synchronize()
                 errs = {}
-                for name, cols in fields:
+                scales = held([float(mass[:, cols].double().abs().max())
+                               for _, cols in fields], f64)
+                for (name, cols), hs in zip(fields, scales):
                     e = err(pg[:, cols], base[:, cols])
                     ep = 0. if f64 else err(pr[:, cols], base[:, cols])
                     sc = float(mass[:, cols].double().abs().max())
                     errs[name] = (e, ep, sc,
                                   bool(torch.isfinite(pg[:, cols]).all())
-                                  and e <= lim*sc)
+                                  and e <= lim*hs)
                 ce = err(cc, base_c)
                 cep = 0. if f64 else err(cr, base_c)
                 cscale = float(mass_c.double().abs().max())
@@ -1912,21 +2000,25 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
                       and dead_zero and ce <= lim*cscale
                       and ray_rel <= (GRAD_F64_REL if f64 else F32_RAY_REL)
                       and not pg[0].any())
+                held_here = f64 or hold_f32_k9
                 log("K9 %s %s: %s; centre err %.3e (plain %.3e) of scale "
                     "%.3e | rays rel err %.3e, dead rays all zero %s, all "
                     "finite %s -> %s"
                     % (tag, kind, "; ".join(
                         "%s err %.3e (plain %.3e) of scale %.3e" % (k, *v[:3])
                         for k, v in errs.items()), ce, cep, cscale, ray_rel,
-                       dead_zero, finite, "ok" if ok else "FAIL"))
-                if not ok:
+                       dead_zero, finite, ("ok" if ok else "FAIL")
+                       if held_here else "not held (%s)"
+                       % ("within" if ok else "outside")))
+                if not ok and held_here:
                     failures.append("K9 %s %s" % (tag, kind))
                 if not clip and kind == "wavefront" and design:
                     # the design path's key: its slots and the centre, no
                     # ray cotangents, the rest exact zeros
                     live_slots = CS.live_mask(CS.opd_live_slots(
                         specs, design, figure_widths(table, specs),
-                        doe_width(table, specs)), nq).to(DEVICE)
+                        doe_width(table, specs), xy_width(table, specs)),
+                        nq).to(DEVICE)
                     pd, sd, cd = opd_adjoint(table, specs, state, aux, cts,
                                              clip, fields=design,
                                              rays=False)
@@ -1937,7 +2029,8 @@ def phase_opd_check(s, table, specs, lens="double Gauss", bundle=None,
                     scales = [float(mass[:, cols].double().abs().max())
                               for _, cols in fields]
                     dead_zero = not bool(pd[~live_slots].any())
-                    ok = (all(e <= lim*sc for e, sc in zip(derrs, scales))
+                    ok = (all(e <= lim*sc for e, sc in zip(
+                        derrs, held(scales, f64)))
                           and err(cd, base_c) <= lim*cscale and dead_zero
                           and sd is None)
                     log("K9 %s, the design key (%d live slots and the "
@@ -2038,15 +2131,18 @@ def phase_opd_fd_check(s, table, specs):
 
 
 def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
-                      scales=None, check_nrays=None):
+                      scales=None, check_nrays=None, fields=None,
+                      lr=DESIGN_LR):
     """The composite design step, through the entry points a user
-    calls: 9 spot bundles (K4/K5), 3 wavefront bundles (K8/K9) and a
-    focal-length penalty, optimize_grad over `select` (with `scales`),
-    write_back_table; then the step's breakdown, the Strehl, PSF and MTF
-    report and the host OPD/Zernike cross-check.  Step 0 is held against
-    the same call on the CPU plain versions (step0_cross_check).
-    Returns the launches of the optimize_grad run and the mean seconds
-    of its later steps."""
+    calls: 9 spot bundles (K4/K5; 3 fields -- or `fields` -- x 3
+    wavelengths), 3 wavefront bundles (K8/K9; a field each) and a
+    focal-length penalty (none where the paraxial EFL is not finite: an
+    on-axis object, as the Schmidt corrector's), optimize_grad over
+    `select` (with `scales`) at `lr`, write_back_table; then the step's
+    breakdown, the Strehl, PSF and MTF report and the host OPD/Zernike
+    cross-check.  Step 0 is held against the same call on the CPU plain
+    versions (step0_cross_check).  Returns the launches of the
+    optimize_grad run and the mean seconds of its later steps."""
     from rayopt_tpu_torch.models import double_gauss
     from rayopt_tpu_torch.ops.cuda_grad import (adjoint_spot_rms,
                                                 adjoint_wavefront_rms)
@@ -2055,19 +2151,27 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
         bundles_from_system, bundles_to, composite_merit, first_order_penalty,
         mtf_radial, optimize_grad, paraxial_seed, psf_grid, psf_polychromatic,
         strehl_marechal, strehl_ratio, write_back_table)
-    log("== design path: %s, 9 spot bundles (3 fields x 3 wavelengths, "
-        "adjoint_spot_rms) + 3 wavefront bundles (fields %s at %g m, "
-        "adjoint_wavefront_rms) + %g x focal-length penalty -> "
-        "optimize_grad(select=%s, scales=%s), float64, %d Adam steps at lr "
-        "%g" % (lens, FIELDS, 587.56e-9, DESIGN_PENALTY, select, scales,
-                DESIGN_STEPS, DESIGN_LR))
-    t0 = time.perf_counter()
     s = s or double_gauss()
+    fields = FIELDS if fields is None else fields
+    efl0 = float(s.paraxial.focal_length[1])
+    nspot = len(fields)*len(s.wavelengths)
+    log("== design path: %s, %d spot bundles (%d fields x %d wavelengths, "
+        "adjoint_spot_rms) + %d wavefront bundles (fields %s at %g m, "
+        "adjoint_wavefront_rms)%s -> optimize_grad(select=%s, scales=%s), "
+        "float64, %d Adam steps at lr %g"
+        % (lens, nspot, len(fields), len(s.wavelengths), len(fields),
+           fields, s.wavelengths[0],
+           " + %g x focal-length penalty" % DESIGN_PENALTY
+           if np.isfinite(efl0) else " (no focal-length penalty: the "
+           "paraxial EFL is %g)" % efl0, select, scales and {
+               k: getattr(v, "shape", v) for k, v in scales.items()},
+           DESIGN_STEPS, lr))
+    t0 = time.perf_counter()
 
     def aimed(nrays):
-        return (bundles_from_system(s, fields=FIELDS, nrays=nrays,
+        return (bundles_from_system(s, fields=fields, nrays=nrays,
                                     distribution="hexapolar"),
-                bundles_from_system(s, fields=FIELDS,
+                bundles_from_system(s, fields=fields,
                                     wavelengths=[s.wavelengths[0]],
                                     nrays=nrays, distribution="hexapolar"))
     spot, wave = aimed(N_DESIGN)
@@ -2077,7 +2181,6 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
     table = s.table()
     specs = specialize(table)
     seed = paraxial_seed(s)
-    efl0 = float(s.paraxial.focal_length[1])
     opd_kw = dict(ref=0, radius=-s.image.pupil.distance,
                   wavelength=s.wavelengths[0], scale=s.scale,
                   finite=s.object.finite, specs=specs)
@@ -2097,12 +2200,14 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
                        for y0, u0, w, _ in wave)
 
         def penalty(tab):
+            if not np.isfinite(efl0):
+                return 0.*tab.curvature.sum()
             return DESIGN_PENALTY*first_order_penalty(
                 tab, seed, {"focal_length": (1, efl0)})
         return spots, wavefronts, penalty
 
     def report(tab, when):
-        for field, (y0, u0, w, _) in zip(FIELDS, wave):
+        for field, (y0, u0, w, _) in zip(fields, wave):
             st = float(strehl_ratio(tab, y0, u0, w, engine="adjoint",
                                     **opd_kw))
             sm = float(strehl_marechal(tab, y0, u0, w, engine="adjoint",
@@ -2119,7 +2224,7 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
         spot_d, wave_d = (bundles_to(x, device) for x in b)
         grads = {}
         _, (merit,) = optimize_grad(s.table(device=device), spot_d,
-                                    select=select, steps=1, lr=DESIGN_LR,
+                                    select=select, steps=1, lr=lr,
                                     scales=scales,
                                     merit=composite_merit(
                                         *merit_parts(spot_d, wave_d)),
@@ -2134,7 +2239,7 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
         reset_launches()
         t0 = time.perf_counter()
         tab_opt, hist = optimize_grad(table, spot, select=select,
-                                      steps=DESIGN_STEPS, lr=DESIGN_LR,
+                                      steps=DESIGN_STEPS, lr=lr,
                                       scales=scales,
                                       merit=composite_merit(
                                           *merit_parts(spot, wave)),
@@ -2143,15 +2248,16 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
         t_card = time.perf_counter() - t0
         launches = read_launches()
         steps = np.diff([t0] + ends[:DESIGN_STEPS])
-        log("merit history (9 spot RMS mm + 3 wavefront RMS waves + "
+        log("merit history (%d spot RMS mm + %d wavefront RMS waves + "
             "penalty): %s | card %.2f s for %d steps (step 0 %.3f s, later "
             "steps mean %.4f s, min %.4f s)"
-            % (" ".join("%.12g" % v for v in hist), t_card, DESIGN_STEPS,
-               steps[0], steps[1:].mean(), steps[1:].min()))
+            % (nspot, len(fields), " ".join("%.12g" % v for v in hist),
+               t_card, DESIGN_STEPS, steps[0], steps[1:].mean(),
+               steps[1:].min()))
         _, failures = step0_cross_check(step0, (hist[0], grads0),
                                         (spot, wave), aimed, check_nrays)
         breakdown = step_breakdown(tab_opt, specs, wave,
-                                   merit_parts(spot, wave))
+                                   merit_parts(spot, wave), nspot)
         report(tab_opt, "after")
     log("design step by part, forward and backward on the card (wall ms, "
         "mean of %d after one warm-up; not counted as launches of the "
@@ -2169,7 +2275,7 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
                              **opd_kw)
         freq, mtf_x, mtf_y = mtf_radial(tab_opt, y0, u0, w, ngrid=64,
                                         engine="adjoint", **opd_kw)
-        poly = [spot[li*len(FIELDS)] for li in range(len(s.wavelengths))]
+        poly = [spot[li*len(fields)] for li in range(len(s.wavelengths))]
         kw_poly = {k: v for k, v in opd_kw.items() if k != "wavelength"}
         pp, qp, psf_p = psf_polychromatic(tab_opt, poly, ngrid=64,
                                           engine="adjoint", **kw_poly)
@@ -4353,102 +4459,118 @@ def phase_multi_throughput_grating(card):
     """K3 (merit and trace), K6, K7 (every field with the ray
     cotangents, and the loop's key), K8 and K9 (the same two) on the
     timed phase lenses (PHASE_TIMED; K3, K6 and K7 on the lens's stack,
-    phase_stack; ray 0 the chief ray) in float32: at N_CHECK bench rays
-    against their plain versions in turns (plain, kernel, kernel,
-    plain), then at N_BENCH rays against the phase-free twins' keys
-    (phase_twin_system, its stack and table; kernel, twin, kernel,
-    twin), where the kernel outweighs the wrapper's ~0.2 ms.  Returns
+    phase_stack; ray 0 the chief ray) in float32 (multi_opd_throughput:
+    against their plain versions at N_CHECK bench rays, against the
+    phase-free twins' keys, phase_twin_system, at N_BENCH).  Returns
     times[lens][(name, n)] = (kernel, plain or twin) ms and
     live[lens][n] = (the multi bundle's live ray traces summed over the
     wavelengths, the OPD bundle's live rays)."""
+    from rayopt_tpu_torch.ops.kernels import specialize
+    cases = phase_lenses()
+    times, live = {}, {}
+    for lens in PHASE_TIMED:
+        s, table, specs, half = cases[lens]
+        ts = phase_twin_system(lens)
+        ttable = ts.table()
+        hybrid = lens == "hybrid achromat"
+        mloop = (PHASE_ACHROM_FIELDS if hybrid
+                 else ACHROM_FIELDS + ("grating_dy",))
+        oloop = (PHASE_DESIGN_FIELDS if hybrid
+                 else DESIGN_FIELDS + ("grating_dy",))
+        times[lens], live[lens] = multi_opd_throughput(
+            card, lens, "phase keys", (s, table, specs, *phase_stack(s)),
+            (ts, ttable, specialize(ttable), *phase_stack(ts)),
+            (mloop, oloop), (ACHROM_FIELDS, DESIGN_FIELDS),
+            phase_bundle_of(half), "phase-free twin key")
+    return times, live
+
+
+def multi_opd_throughput(card, lens, what, mine, twin, loops, twin_loops,
+                         bundle, twin_name, big=None):
+    """K3 (merit and trace), K6, K7 (every field with the ray
+    cotangents, and the loop's key for the fields loops[0]), K8 and K9
+    (the same two, loops[1]) of one lens in float32: mine and twin are
+    (system, table, specs, stack, stack specs) of the lens and of its
+    twin (twin_loops its loop keys' fields).  At N_CHECK rays of
+    `bundle` (ray 0 the chief ray) against their plain versions in turns
+    (plain, kernel, kernel, plain), then at big[name] rays (N_BENCH when
+    not given) against the twin's keys (kernel, twin, kernel, twin),
+    where the kernel outweighs the wrapper's ~0.2 ms.  Returns
+    (times[(name, n)] = (kernel, plain or twin) ms, live[n] = (the multi
+    bundle's live ray traces summed over the wavelengths, the OPD
+    bundle's live rays))."""
     from rayopt_tpu_torch.ops.cuda_grad import (
         merit_adjoint_multi, merit_adjoint_multi_reference, opd_adjoint,
         opd_adjoint_reference, opd_chain, opd_chain_reference,
         weighted_moments_multi, weighted_moments_multi_reference)
     from rayopt_tpu_torch.ops.cuda_trace import (trace_multi,
                                                  trace_multi_reference)
-    from rayopt_tpu_torch.ops.kernels import specialize
-    cases = phase_lenses()
     f32 = torch.float32
-    times, live = {}, {}
-    for lens in PHASE_TIMED:
-        s, table, specs, half = cases[lens]
-        tabs, mspecs = phase_stack(s)
-        ts = phase_twin_system(lens)
-        ttable = ts.table()
-        tspecs = specialize(ttable)
-        ttabs, tmspecs = phase_stack(ts)
-        hybrid = lens == "hybrid achromat"
-        mloop = (PHASE_ACHROM_FIELDS if hybrid
-                 else ACHROM_FIELDS + ("grating_dy",))
-        oloop = (PHASE_DESIGN_FIELDS if hybrid
-                 else DESIGN_FIELDS + ("grating_dy",))
-        bundle = phase_bundle_of(half)
-        log("== K3/K6-K9 throughput (%s, phase keys, float32): %d bench rays "
-            "x 3 wavelengths against the plain versions, then %d rays "
-            "against the phase-free twin's keys (%s)"
-            % (lens, N_CHECK, N_BENCH, card))
+    big = big or {}
+    sizes = sorted({big.get(n, N_BENCH) for n in (
+        "trace_multi", "trace_multi_trace", "weighted_moments_multi",
+        "merit_adjoint_multi", "merit_adjoint_multi_loop", "opd_chain",
+        "opd_adjoint", "opd_adjoint_loop")})
+    log("== K3/K6-K9 throughput (%s, %s, float32): %d bench rays x 3 "
+        "wavelengths against the plain versions, then %s rays against the "
+        "%ss (%s)" % (lens, what, N_CHECK, big or N_BENCH, twin_name, card))
 
-        def cases_of(state, w, sy, tb, sp, tbs, msp, ml, ol):
-            ct = rms_cotangent(weighted_moments_multi(tbs, msp, state, w))
-            aux = opd_aux(sy, tb, sp, state)
-            k = opd_chain(tb, sp, state, aux)
-            cts = opd_cotangents(*k, "wavefront")
-            nlive = (sum(float(m[0]) for m in trace_multi(
-                tbs, msp, state, merit=True)), int(torch.isfinite(k[0]).sum()))
-            return (
-                ("trace_multi",
-                 lambda: trace_multi(tbs, msp, state, merit=True),
-                 lambda: trace_multi_reference(tbs, msp, state, merit=True)),
-                ("trace_multi_trace",
-                 lambda: trace_multi(tbs, msp, state),
-                 lambda: trace_multi_reference(tbs, msp, state)),
-                ("weighted_moments_multi",
-                 lambda: weighted_moments_multi(tbs, msp, state, w),
-                 lambda: weighted_moments_multi_reference(tbs, msp, state,
-                                                          w)),
-                ("merit_adjoint_multi",
-                 lambda: merit_adjoint_multi(tbs, msp, state, w, ct),
-                 lambda: merit_adjoint_multi_reference(tbs, msp, state, w,
-                                                       ct)),
-                ("merit_adjoint_multi_loop",
-                 lambda: merit_adjoint_multi(tbs, msp, state, w, ct,
-                                             fields=ml, rays=False), None),
-                ("opd_chain", lambda: opd_chain(tb, sp, state, aux),
-                 lambda: opd_chain_reference(tb, sp, state, aux)),
-                ("opd_adjoint", lambda: opd_adjoint(tb, sp, state, aux, cts),
-                 lambda: opd_adjoint_reference(tb, sp, state, aux, cts)),
-                ("opd_adjoint_loop",
-                 lambda: opd_adjoint(tb, sp, state, aux, cts, fields=ol,
-                                     rays=False), None)), nlive
-        times[lens], live[lens] = {}, {}
-        for n in (N_CHECK, N_BENCH):
-            state = bundle(n, f32, SEED + 1)
-            w = bench_weights(n, f32, SEED + 3)
-            mine, live[lens][n] = cases_of(state, w, s, table, specs, tabs,
-                                           mspecs, mloop, oloop)
-            twins = cases_of(state, w, ts, ttable, tspecs, ttabs, tmspecs,
-                             ACHROM_FIELDS, DESIGN_FIELDS)[0] \
-                if n == N_BENCH else None
-            for case, (name, kernel, plain) in enumerate(mine):
-                if n == N_CHECK:
-                    if plain is None:
-                        continue
-                    (k, p, _), (k1, k2, p1, p2, _, _) = in_turns(kernel, plain,
-                                                                 reps=10)
-                    times[lens][(name, n)] = (k, p)
-                    log("%s float32 at %d rays: kernel %.4f ms (%.4f, %.4f), "
-                        "plain %.4f ms (%.4f, %.4f), plain/kernel %.2fx | %s"
-                        % (name, n, k, k1, k2, p, p1, p2, p/k, card))
-                else:
-                    (k, _, t), (k1, k2, _, _, t1, t2) = in_turns(
-                        kernel, None, twins[case][1], 10)
-                    times[lens][(name, n)] = (k, t)
-                    log("%s float32 at %d rays: kernel %.4f ms (%.4f, %.4f)"
-                        "%s | %s" % (name, n, k, k1, k2, twin_note(
-                            k, t, t1, t2, "phase-free twin key"), card))
-            del mine, twins, state, w
-            torch.cuda.empty_cache()
+    def cases_of(state, w, sy, tb, sp, tbs, msp, ml, ol):
+        ct = rms_cotangent(weighted_moments_multi(tbs, msp, state, w))
+        aux = opd_aux(sy, tb, sp, state)
+        k = opd_chain(tb, sp, state, aux)
+        cts = opd_cotangents(*k, "wavefront")
+        nlive = (sum(float(m[0]) for m in trace_multi(
+            tbs, msp, state, merit=True)), int(torch.isfinite(k[0]).sum()))
+        return (
+            ("trace_multi",
+             lambda: trace_multi(tbs, msp, state, merit=True),
+             lambda: trace_multi_reference(tbs, msp, state, merit=True)),
+            ("trace_multi_trace",
+             lambda: trace_multi(tbs, msp, state),
+             lambda: trace_multi_reference(tbs, msp, state)),
+            ("weighted_moments_multi",
+             lambda: weighted_moments_multi(tbs, msp, state, w),
+             lambda: weighted_moments_multi_reference(tbs, msp, state, w)),
+            ("merit_adjoint_multi",
+             lambda: merit_adjoint_multi(tbs, msp, state, w, ct),
+             lambda: merit_adjoint_multi_reference(tbs, msp, state, w, ct)),
+            ("merit_adjoint_multi_loop",
+             lambda: merit_adjoint_multi(tbs, msp, state, w, ct, fields=ml,
+                                         rays=False), None),
+            ("opd_chain", lambda: opd_chain(tb, sp, state, aux),
+             lambda: opd_chain_reference(tb, sp, state, aux)),
+            ("opd_adjoint", lambda: opd_adjoint(tb, sp, state, aux, cts),
+             lambda: opd_adjoint_reference(tb, sp, state, aux, cts)),
+            ("opd_adjoint_loop",
+             lambda: opd_adjoint(tb, sp, state, aux, cts, fields=ol,
+                                 rays=False), None)), nlive
+    times, live = {}, {}
+    for n in (N_CHECK, *sizes):
+        state = bundle(n, f32, SEED + 1)
+        w = bench_weights(n, f32, SEED + 3)
+        mine_cases, live[n] = cases_of(state, w, *mine, *loops)
+        twins = (cases_of(state, w, *twin, *twin_loops)[0]
+                 if n != N_CHECK else None)
+        for case, (name, kernel, plain) in enumerate(mine_cases):
+            if n == N_CHECK:
+                if plain is None:
+                    continue
+                (k, p, _), (k1, k2, p1, p2, _, _) = in_turns(kernel, plain,
+                                                             reps=10)
+                times[(name, n)] = (k, p)
+                log("%s float32 at %d rays: kernel %.4f ms (%.4f, %.4f), "
+                    "plain %.4f ms (%.4f, %.4f), plain/kernel %.2fx | %s"
+                    % (name, n, k, k1, k2, p, p1, p2, p/k, card))
+            elif big.get(name, N_BENCH) == n:
+                (k, _, t), (k1, k2, _, _, t1, t2) = in_turns(
+                    kernel, None, twins[case][1], 10)
+                times[(name, n)] = (k, t)
+                log("%s float32 at %d rays: kernel %.4f ms (%.4f, %.4f)%s | "
+                    "%s" % (name, n, k, k1, k2, twin_note(k, t, t1, t2,
+                                                          twin_name), card))
+        del mine_cases, twins, state, w
+        torch.cuda.empty_cache()
     return times, live
 
 
@@ -6019,6 +6141,542 @@ def phase_freeform_throughput(card):
     return times
 
 
+# -- the freeform rows in K3 and K6-K9: the Schmidt corrector's loops ----
+
+#: the Schmidt corrector's loops: on axis, at its 3 wavelengths
+FF_FIELDS = (0.,)
+#: the Schmidt corrector's achromatization loop's K7 slot set (the glass
+#: moves mu, Adam the plate's xy_poly too) and its design step's K9 slot
+#: set (FF_SELECT's field)
+FF_ACHROM_FIELDS = ACHROM_FIELDS + ("xy_poly",)
+FF_DESIGN_FIELDS = FF_SELECT
+#: the table lenses' reference sphere for K8 and K9 (mm) and wavelength
+FF_TABLE_SPHERE = (-40., 550e-9)
+#: K7's and K9's central differences on FF_FD_PICKS: a relative step of
+#: the XY singlet's terms, and mm of sag at the Schmidt plate's norm
+#: radius (on the CPU plain versions: <= 9e-9 of the gradient, against
+#: 1.3e-6 at K5's 1e-6 steps, whose wavefront RMS rounds at ~1e-9 waves)
+FF_FD_ADJOINT_REL_STEP = 1e-4
+FF_FD_ADJOINT_SAG = 1e-4
+#: the reference's Zernike imprint (tests/test_freeform.py
+#: test_zernike_sag_imprints_wavefront): Z11 of a ZernikeSag plate ahead
+#: of an R = -400 paraboloid mirror, its hexapolar rays, and the
+#: recovered Z11's tolerance, relative to (n - 1) Z11/(lambda/scale)
+FF_IMPRINT_Z11 = 5e-4
+FF_IMPRINT_NRAYS = 128
+FF_IMPRINT_REL = 1e-3
+
+
+def freeform_stack(s, table):
+    """The stack of a freeform lens's three wavelength tables on the
+    card and the specs they share (the first table's, multi_specs): a
+    system's own (System.tables: the same XY coefficients, mu by
+    wavelength); a table lens's with mu grown by 1 and 2 % of mu - 1 and
+    its XY coefficients by 3 and 6 % (each table packs its own)."""
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    from rayopt_tpu_torch.ops.tables import stack_tables
+    if s is not None:
+        tabs = s.tables()
+    else:
+        tabs = stack_tables([table.replace(
+            mu=1 + (table.mu - 1)*(1 + .01*li),
+            xy_poly=table.xy_poly*(1 + .03*li)) for li in range(3)])
+    return tabs, multi_specs(tabs, None)
+
+
+def freeform_opd_system(s):
+    """What K8's aux reads of a lens (opd_aux): the system, or for a
+    table lens its sphere (FF_TABLE_SPHERE) and wavelength at scale 1e-3,
+    object at infinity."""
+    import types
+    if s is not None:
+        return s
+    radius, lam = FF_TABLE_SPHERE
+    return types.SimpleNamespace(
+        image=types.SimpleNamespace(pupil=types.SimpleNamespace(
+            distance=-radius)), wavelengths=[lam], scale=1e-3,
+        object=types.SimpleNamespace(finite=False))
+
+
+def freeform_opd_grad_fields(table, specs):
+    """K9's cotangent columns by table field on a freeform key:
+    freeform_grad_fields' with n_before at 6 and the rest one further
+    on."""
+    return OPD_GRAD_FIELDS + tuple(
+        (f, slice(c.start + 1, c.stop + 1))
+        for f, c in freeform_grad_fields(table, specs)[len(GRAD_FIELDS):])
+
+
+def freeform_multi_keys():
+    """{tag: key} of the freeform K3, K6-K9 keys this script runs: K3's
+    two modes, K6 and K7 (every field, with the ray cotangents) on each
+    freeform lens's stack (freeform_stack) and K8 and K9 on its table,
+    float64 unclipped, on the Schmidt plates also float32 unclipped and
+    float64 clipped (K3 unclipped; the clipped K7 check's agreement
+    traces K1 on each table), the K7 and K9 loop keys (FF_ACHROM_FIELDS,
+    FF_DESIGN_FIELDS) in both dtypes and the design step's breakdown keys
+    on the Schmidt corrector, its freeform-free twin's K3, K6-K9 in
+    float32 for the timings, the finite-difference checks' float64 K7
+    and K9 (xy_poly) and the Zernike imprint's K8 (the plate with and
+    without its figure); and the host OPD checks' K8 on each design
+    path's written-back lens (host_opd_keys)."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
+                                                 xy_width)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    f64, f32 = torch.float64, torch.float32
+    keys = {}
+
+    def kw(table, specs):
+        return dict(widths=figure_widths(table, specs),
+                    nd=doe_width(table, specs), nxy=xy_width(table, specs))
+    fd = {lens for lens, _ in FF_FD_PICKS}
+    for name, (s, table, specs, _) in freeform_lenses().items():
+        tag = name.replace(" ", "-")
+        tabs, mspecs = freeform_stack(s, table)
+        okw, mkw = kw(table, specs), kw(tabs, mspecs)
+        schmidt = name.endswith("schmidt") or name == FF_TIMED
+        runs = [(f64, False)] + ([(f32, False), (f64, True)] if schmidt
+                                 else [])
+        for dtype, clip in runs:
+            dt = str(dtype)[6:]
+            sfx = "%s %s clip=%s" % (dt, tag, clip)
+            if not clip:
+                for mode in ("merit", "trace"):
+                    keys["K3 %s %s %s" % (dt, tag, mode)] = \
+                        CS.trace_multi_key(mspecs, dtype, 3, mode == "merit",
+                                           **mkw)
+            else:
+                keys["K1 %s %s clip=True stack" % (dt, tag)] = CS.trace_key(
+                    mspecs, dtype, True, **mkw)
+            keys["K6 " + sfx] = CS.moments_multi_key(mspecs, dtype, clip, 3,
+                                                     **mkw)
+            keys["K7 %s all rays=True" % sfx] = CS.adjoint_multi_key(
+                mspecs, dtype, clip, **mkw)
+            keys["K8 " + sfx] = CS.opd_key(specs, dtype, clip, **okw)
+            keys["K9 %s all rays=True" % sfx] = CS.opd_adjoint_key(
+                specs, dtype, clip, **okw)
+        if name in fd:
+            keys["K7 float64 %s fd xy_poly rays=False" % tag] = \
+                CS.adjoint_multi_key(mspecs, f64, False, FF_SELECT, False,
+                                     **mkw)
+            keys["K9 float64 %s fd xy_poly rays=False" % tag] = \
+                CS.opd_adjoint_key(specs, f64, False, FF_SELECT, False, **okw)
+        if name != FF_TIMED:
+            continue
+        for dtype in (f64, f32):
+            dt = str(dtype)[6:]
+            keys["K7 %s %s achromatization rays=False" % (dt, tag)] = \
+                CS.adjoint_multi_key(mspecs, dtype, False, FF_ACHROM_FIELDS,
+                                     False, **mkw)
+            keys["K9 %s %s design rays=False" % (dt, tag)] = \
+                CS.opd_adjoint_key(specs, dtype, False, FF_DESIGN_FIELDS,
+                                   False, **okw)
+        # the design step's breakdown (curvature and offset)
+        keys["K5 float64 %s breakdown rays=False" % tag] = CS.adjoint_key(
+            specs, f64, False, OPT_FIELDS, False, **okw)
+        keys["K9 float64 %s breakdown rays=False" % tag] = \
+            CS.opd_adjoint_key(specs, f64, False, DESIGN_FIELDS, False, **okw)
+        # the freeform-free twin's keys, for the timings
+        ts = schmidt_corrector([])
+        ttable = ts.table()
+        tspecs = specialize(ttable)
+        _, tmspecs = freeform_stack(ts, ttable)
+        tsfx = "float32 %s twin" % tag
+        for mode in ("merit", "trace"):
+            keys["K3 %s %s" % (tsfx, mode)] = CS.trace_multi_key(
+                tmspecs, f32, 3, mode == "merit")
+        keys["K6 " + tsfx] = CS.moments_multi_key(tmspecs, f32, False, 3)
+        keys["K7 %s all rays=True" % tsfx] = CS.adjoint_multi_key(tmspecs,
+                                                                  f32)
+        keys["K7 %s achromatization rays=False" % tsfx] = \
+            CS.adjoint_multi_key(tmspecs, f32, False, ACHROM_FIELDS, False)
+        keys["K8 " + tsfx] = CS.opd_key(tspecs, f32)
+        keys["K9 %s all rays=True" % tsfx] = CS.opd_adjoint_key(tspecs, f32)
+        keys["K9 %s design rays=False" % tsfx] = CS.opd_adjoint_key(
+            tspecs, f32, False, DESIGN_FIELDS, False)
+    for z11 in (0., FF_IMPRINT_Z11):
+        t = imprint_system(z11).table()
+        sp = specialize(t)
+        keys["K8 float64 imprint z11=%g" % z11] = CS.opd_key(sp, f64,
+                                                            **kw(t, sp))
+    keys.update(host_opd_keys())
+    return keys
+
+
+def host_opd_keys():
+    """{tag: key} of K8 on each design path's written-back lens
+    (host_opd_check passes specs=None): the focal-length penalty moves
+    the curvature of a flat refracting or reflecting row off zero (the
+    spot and wavefront terms bake it out; the paraxial power (n' - n) c
+    reads it, and its gradient is nonzero once the first step has moved
+    the focal length off its target), so that row specializes as a
+    sphere after write_back_table.  The lens is rebuilt with those
+    rows' curvature at 1e-9 and specialized."""
+    from rayopt_tpu_torch.models import (anamorphic_pair, double_gauss,
+                                         hybrid_achromat)
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
+                                                 xy_width)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    paths = {"double-Gauss": (double_gauss, OPT_SELECT),
+             "aspheric-double-Gauss": (aspheric_double_gauss,
+                                       ASPH_DESIGN_SELECT),
+             "anamorphic-pair": (anamorphic_pair, ANAM_DESIGN_SELECT),
+             "hybrid-achromat": (hybrid_achromat, PHASE_SELECT),
+             "schmidt-corrector": (schmidt_corrector, FF_SELECT)}
+    keys = {}
+    for tag, (build, select) in paths.items():
+        s = build()
+        if "curvature" in select and np.isfinite(
+                float(s.paraxial.focal_length[1])):
+            for j, sp in enumerate(specialize(s.table(device="cpu"))):
+                if j and sp.flat and sp.kind:
+                    s[j].curvature = 1e-9
+            s.update()
+        t = s.table()
+        sp = specialize(t)
+        keys["K8 float64 %s written back" % tag] = CS.opd_key(
+            sp, torch.float64, widths=figure_widths(t, sp),
+            nd=doe_width(t, sp), nxy=xy_width(t, sp))
+    return keys
+
+
+def imprint_system(z11):
+    """The reference's Zernike imprint system (tests/test_freeform.py
+    test_zernike_sag_imprints_wavefront): a ZernikeSag plate (Z11 =
+    `z11` at an 8 mm norm radius, N-BK7, 3 mm thick) 5 mm ahead of an
+    R = -400 paraboloid mirror, an 8 mm pupil, on axis."""
+    from rayopt_tpu_torch import System
+    s = System([
+        dict(material="air"),
+        dict(type="zernike", zernike_coefficients=[0.]*10 + [z11],
+             norm_radius=8., distance=5., material="SCHOTT-BK|N-BK7",
+             radius=9.),
+        dict(distance=3., material="air", radius=9.),
+        dict(roc=-400., conic=-1., distance=20., material="mirror",
+             radius=12.),
+        dict(distance=-200., radius=9.)])
+    s.object.pupil.radius = 8.
+    s.object.pupil.update_radius = False
+    s.update()
+    return s
+
+
+def phase_freeform_multi_check():
+    """K3, K6 and K7 on each freeform lens's stack (freeform_stack, three
+    wavelengths; phase_multi_check) and K8 and K9 on its table
+    (phase_opd_check; ray 0 the chief ray on the axis; a table lens's
+    sphere FF_TABLE_SPHERE), the adjoints' XY columns among their
+    fields, a field held to its largest or to COLUMN_FLOOR of the key's:
+    float64 unclipped on the lens's bench bundle (freeform_bundle_of,
+    slopes +-0.03) on each; on the Schmidt plates also float32 unclipped
+    and float64 clipped (the bundle 1.5x wide), and float64 on the
+    collimated on-axis bundle the loops run, with the Schmidt corrector's
+    loop keys (FF_ACHROM_FIELDS, FF_DESIGN_FIELDS).  Then K7 and K9
+    against central differences (phase_freeform_fd_adjoints) and K8 on
+    the reference's Zernike imprint (phase_zernike_imprint_check).
+    Returns the float32 errors."""
+    worst = {}
+
+    def keep(errs):
+        worst.update({k: max(v, worst.get(k, 0.)) for k, v in errs.items()})
+    f64 = (torch.float64,)
+    for lens, (s, table, specs, half) in freeform_lenses().items():
+        bundle = freeform_bundle_of(half)
+        tabs, mspecs = freeform_stack(s, table)
+        mfields = freeform_grad_fields(tabs, mspecs)
+        ofields = freeform_opd_grad_fields(table, specs)
+        sy = freeform_opd_system(s)
+        schmidt = lens.endswith("schmidt") or lens == FF_TIMED
+        loops = ((FF_ACHROM_FIELDS, FF_DESIGN_FIELDS) if lens == FF_TIMED
+                 else (None, None))
+        dtypes = (torch.float32, torch.float64) if schmidt else f64
+        keep(phase_multi_check(tabs, mspecs, lens + ", its stack", bundle,
+                               (False,), mfields, loops[0], dtypes))
+        # float32 K9 on the Schmidt plates: logged, not held (its sums
+        # cancel past the float32 plain version's own reach)
+        keep(phase_opd_check(sy, table, specs, lens, bundle, (False,),
+                             ofields, loops[1], dtypes[::-1],
+                             hold_f32_k9=not schmidt))
+        if schmidt:
+            phase_multi_check(tabs, mspecs, lens + ", its stack", bundle,
+                              (True,), mfields, None, f64)
+            phase_opd_check(sy, table, specs, lens, bundle, (True,),
+                            ofields, None, f64)
+            flat = freeform_bundle_of(half, 0.)
+            phase_multi_check(tabs, mspecs, lens + ", its stack, collimated",
+                              flat, (False,), mfields, loops[0], f64)
+            phase_opd_check(sy, table, specs, lens + ", collimated", flat,
+                            (False,), ofields, loops[1], f64)
+    phase_freeform_fd_adjoints()
+    phase_zernike_imprint_check()
+    return worst
+
+
+def phase_freeform_fd_adjoints():
+    """Float64, N_CHECK rays of the collimated on-axis bundle
+    (freeform_bundle_of(half, 0)), against central differences (steps
+    FF_FD_ADJOINT_REL_STEP of the value, or FF_FD_ADJOINT_SAG mm of sag
+    at the Schmidt plate's norm radius) on FF_FD_PICKS: K7's gradient of
+    the K6 merit (the union spot RMS of the lens's stack) w.r.t. the
+    stack's first table's xy_poly coefficient, and K9's of the K8
+    wavefront RMS (ray 0 the chief ray) w.r.t. the table's."""
+    from rayopt_tpu_torch.ops.cuda_grad import (adjoint_wavefront_rms,
+                                                polychromatic_spot_rms)
+    cases = freeform_lenses()
+    log("== K7 and K9 on the freeform lenses vs central differences of the "
+        "K6 merit and the K8 wavefront RMS (float64, %d collimated rays)"
+        % N_CHECK)
+    failures = []
+    for kern in ("K7", "K9"):
+        for lens, idx in FF_FD_PICKS:
+            s, table, specs, half = cases[lens]
+            state = freeform_bundle_of(half, 0.)(N_CHECK, torch.float64, SEED)
+            w = bench_weights(N_CHECK, torch.float64, SEED + 2)
+            y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+            if kern == "K7":
+                tab, sp = freeform_stack(s, table)
+                at = (0, 1, idx)
+
+                def merit(tb, sp=sp):
+                    return polychromatic_spot_rms(tb, y0, u0, w, specs=sp)
+            else:
+                tab, sp, at = table, specs, (1, idx)
+
+                def merit(tb, s=s, sp=sp):
+                    return adjoint_wavefront_rms(
+                        tb, y0, u0, w, ref=0, radius=-s.image.pupil.distance,
+                        wavelength=s.wavelengths[0], scale=s.scale,
+                        finite=s.object.finite, specs=sp)
+            base = tab.xy_poly
+            v = base.clone().requires_grad_()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")    # the baked rows
+                merit(tab.replace(xy_poly=v)).backward()
+            value = float(base[at])
+            h = (FF_FD_ADJOINT_SAG/25.**4 if lens == "schmidt corrector"
+                 else FF_FD_ADJOINT_REL_STEP*abs(value))
+            side = []
+            with torch.no_grad():
+                for sgn in (1., -1.):
+                    b = base.clone()
+                    b[at] += sgn*h
+                    side.append(float(merit(tab.replace(xy_poly=b))))
+            fd = (side[0] - side[1])/(2*h)
+            g = float(v.grad[at])
+            rel = abs(g - fd)/abs(fd)
+            ok = rel <= FD_REL
+            log("%s, %s xy_poly%s (value %.6g): kernel %.12g, central "
+                "difference %.12g (step %.3g), rel %.2e -> %s"
+                % (kern, lens, list(at), value, g, fd, h, rel,
+                   "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("%s %s xy_poly %d" % (kern, lens, idx))
+    if failures:
+        raise AssertionError("K7 or K9 on the freeform lenses disagrees "
+                             "with finite differences: "
+                             + ", ".join(failures))
+
+
+def phase_zernike_imprint_check():
+    """K8 on the reference's Zernike imprint (imprint_system, its
+    test_zernike_sag_imprints_wavefront): FF_IMPRINT_NRAYS hexapolar
+    rays on axis (GeometricTrace.rays_point, unclipped) through
+    adjoint_opd_rays (K8, float64, with the landing on the sphere) at
+    Z11 = 0 and FF_IMPRINT_Z11, each wavefront fitted by
+    utils.zernike.fit_zernike (16 Noll terms, the landing normalized to
+    the unit disc, the host's weights): the baseline is stigmatic
+    (|c[1:]| < 1e-6 waves), the Z11 difference equals (n - 1) Z11 /
+    (lambda/scale) to FF_IMPRINT_REL, and every other mode but piston
+    and defocus stays below FF_IMPRINT_REL of it; the host's
+    GeometricTrace.zernike of the same rays beside it."""
+    from rayopt_tpu_torch import GeometricTrace
+    from rayopt_tpu_torch.ops.cuda_grad import adjoint_opd_rays, opd_chain
+    from rayopt_tpu_torch.utils.zernike import fit_zernike
+    coeff, host, launched = {}, {}, 0
+    for z11 in (0., FF_IMPRINT_Z11):
+        s = imprint_system(z11)
+        g = GeometricTrace(s)
+        g.rays_point((0., 0.), nrays=FF_IMPRINT_NRAYS,
+                     distribution="hexapolar", clip=False)
+        before = opd_chain.launches
+        waves, land = adjoint_opd_rays(
+            s.table(), torch.from_numpy(g.y[0]).to(DEVICE),
+            torch.from_numpy(g.u[0]).to(DEVICE), ref=g.ref,
+            radius=-s.image.pupil.distance, wavelength=s.wavelengths[0],
+            scale=s.scale, finite=s.object.finite, with_pupil=True)
+        launched += opd_chain.launches - before
+        waves = waves.detach().cpu().numpy()
+        land = land.detach().cpu().numpy()
+        h = np.nanmax(np.hypot(land[:, 0], land[:, 1]))
+        coeff[z11], _ = fit_zernike(land[:, 0]/h, land[:, 1]/h, waves,
+                                    nterms=16, w=g.w)
+        host[z11], _ = g.zernike(nterms=16)
+    lam = s.wavelengths[0]
+    n = s[1].material.refractive_index(lam)
+    expected = (n - 1)*FF_IMPRINT_Z11/(lam/s.scale)
+    d = coeff[FF_IMPRINT_Z11] - coeff[0.]
+    dh = host[FF_IMPRINT_Z11] - host[0.]
+    rel = abs(d[10] - expected)/expected
+    other = float(np.abs(np.delete(d, [0, 3, 10])).max())
+    base = float(np.abs(coeff[0.][1:]).max())
+    ok = (rel <= FF_IMPRINT_REL and other <= FF_IMPRINT_REL*expected
+          and base < 1e-6 and launched == 2)
+    log("== K8 on the Zernike imprint (ZernikeSag Z11 = %g ahead of an "
+        "R = -400 paraboloid, %d hexapolar rays, float64): Z11 difference "
+        "%.9g waves vs (n - 1) Z11/(lambda/scale) %.9g (rel %.2e; the host "
+        "%.9g), the largest other mode but piston and defocus %.3e waves "
+        "(%.2e of it), the baseline's largest mode %.3e waves, K8 launches "
+        "%d -> %s" % (FF_IMPRINT_Z11, FF_IMPRINT_NRAYS, d[10], expected, rel,
+                      dh[10], other, other/expected, base, launched,
+                      "ok" if ok else "FAIL"))
+    if not ok:
+        raise AssertionError("K8 on the Zernike imprint failed")
+
+
+def phase_freeform_loops(glass_step, design_step):
+    """The Schmidt corrector's achromatization loop (phase_glass_path:
+    K3, K6 and K7 at FF_FIELDS x its 3 wavelengths, over the curvatures,
+    the distances, the plate's glass and, at FF_LR, its xy_poly over
+    freeform_scales; K3 reporting the spots), on the figured plate
+    (SCHMIDT_FIGURE: the seeded plate is flat, and collimated light
+    meets it at normal incidence, so its glass has no first-order
+    effect there: the glass logits' gradient is a ~1e-9 residue of the
+    K7 mu column's cancellation, which card and CPU round apart by
+    ~6e-7 of it), and its design step
+    (phase_design_path over FF_SELECT with freeform_scales at FF_LR: K4,
+    K5, K8 and K9 at FF_FIELDS; no focal-length term, its paraxial EFL is
+    not finite on axis), each step 0 against the CPU at N_LOOP_CHECK
+    nrays a bundle, their later steps logged beside the double Gauss's
+    (`glass_step`, `design_step` seconds).  Returns (the loops'
+    launches, their later-step seconds)."""
+    from rayopt_tpu_torch.parallel import freeform_scales
+    glass, gstep = phase_glass_path(
+        schmidt_corrector(SCHMIDT_FIGURE), "figured Schmidt corrector",
+        N_LOOP_CHECK, slots=1, fields=FF_FIELDS)
+    s = schmidt_corrector()
+    design, dstep = phase_design_path(
+        s, "Schmidt corrector", FF_SELECT, {"xy_poly": freeform_scales(s)},
+        N_LOOP_CHECK, fields=FF_FIELDS, lr=FF_LR)
+    steps = {"achromatization": gstep, "design": dstep}
+    log("later steps: %s" % ", ".join(
+        "%s loop Schmidt corrector %.4f s, double Gauss %.4f s (%.2fx)"
+        % (k, v, t, v/t) for (k, v), t in zip(
+            steps.items(), (glass_step, design_step))))
+    return {k: v + design[k] for k, v in glass.items()}, steps
+
+
+def phase_freeform_multi_throughput(card):
+    """K3 (merit and trace), K6, K7 (every field, and the loop's key),
+    K8 and K9 (the same two) on the Schmidt corrector (FF_TIMED; K3, K6
+    and K7 on its stack) beside its freeform-free twin's keys
+    (multi_opd_throughput, float32): against their plain versions at
+    N_CHECK bench rays, then the forward kernels at N_BENCH rays and the
+    adjoints at N_GRAD_TIME against the twin's.  Returns (times, live)
+    as multi_opd_throughput's."""
+    from rayopt_tpu_torch.ops.kernels import specialize
+    s, table, specs, half = freeform_lenses()[FF_TIMED]
+    ts = schmidt_corrector([])
+    ttable = ts.table()
+    return multi_opd_throughput(
+        card, FF_TIMED, "freeform keys",
+        (s, table, specs, *freeform_stack(s, table)),
+        (ts, ttable, specialize(ttable), *freeform_stack(ts, ttable)),
+        (FF_ACHROM_FIELDS, FF_DESIGN_FIELDS), (ACHROM_FIELDS, DESIGN_FIELDS),
+        phase_bundle_of(half), "freeform-free twin key",
+        {name: N_GRAD_TIME for name in ("merit_adjoint_multi",
+                                        "merit_adjoint_multi_loop",
+                                        "opd_adjoint", "opd_adjoint_loop")})
+
+
+def freeform_multi_entries(sources, launches, worst, times, live, ptxas,
+                           steps, dg_steps):
+    """The kernels line's entries of K3, K6, K7, K8 and K9's freeform
+    keys: the freeform path's launches (the Schmidt corrector's
+    achromatization loop and design step), the float32 errors of
+    phase_freeform_multi_check, the times of
+    phase_freeform_multi_throughput (at N_CHECK against the plain
+    versions; the forward kernels at N_BENCH and the adjoints at
+    N_GRAD_TIME against the freeform-free twin's keys), the bounds
+    (kernel_bound at each size's live rays, the freeform row by
+    freeform_row_flops and xy_flops), the keys' registers, stack and
+    spills (float64 and float32; the loop keys' too), and the loops'
+    later-step seconds beside the double Gauss's."""
+    from rayopt_tpu_torch.ops.cuda_trace import figure_widths, xy_width
+    s, table, specs, _ = freeform_lenses()[FF_TIMED]
+    tabs, mspecs = freeform_stack(s, table)
+    tags = {"trace_multi": "K3 %s %s merit",
+            "weighted_moments_multi": "K6 %s %s clip=False",
+            "merit_adjoint_multi": "K7 %s %s clip=False all rays=True",
+            "opd_chain": "K8 %s %s clip=False",
+            "opd_adjoint": "K9 %s %s clip=False all rays=True"}
+    loop_tags = {"trace_multi": "K3 %s %s trace",
+                 "merit_adjoint_multi": "K7 %s %s achromatization rays=False",
+                 "opd_adjoint": "K9 %s %s design rays=False"}
+    extras = {"trace_multi": "trace_multi_trace",
+              "merit_adjoint_multi": "merit_adjoint_multi_loop",
+              "opd_adjoint": "opd_adjoint_loop"}
+    tag = FF_TIMED.replace(" ", "-")
+    big = {n for _, n in times if n != N_CHECK}
+    out = []
+    for kname, ktag in tags.items():
+        source, replaces = sources[kname]
+        multi = kname in ("trace_multi", "weighted_moments_multi",
+                          "merit_adjoint_multi")
+        tb, sp = (tabs, mspecs) if multi else (table, specs)
+        entry = {"name": kname + "_freeform", "route": "cuda",
+                 "source": source, "replaces": replaces,
+                 "launches": launches[kname], "max_abs_err": worst[kname],
+                 "library_ms": None, "rays": N_CHECK,
+                 "wavelengths": 3 if multi else 1}
+
+        def bound(name, n, tb=tb, sp=sp, multi=multi):
+            return kernel_bound(name, n, torch.float32, sp,
+                                3 if multi else 1, live[n][0 if multi else 1],
+                                figure_widths(tb, sp), 0, xy_width(tb, sp))
+        for name, sfx in ((kname, ""), (extras.get(kname), None)):
+            if name is None:
+                continue
+            if sfx is None:
+                sfx = "_trace" if kname == "trace_multi" else "_loop_key"
+            if (name, N_CHECK) in times:
+                k, p = times[(name, N_CHECK)]
+                b, by = bound(name, N_CHECK)
+                entry.update({"ms" + sfx: k, "plain_ms" + sfx: p,
+                              "bound_ms" + sfx: b})
+                if not sfx:
+                    entry["bound_by"] = by
+            for n in big:
+                if (name, n) in times:
+                    kb, tw = times[(name, n)]
+                    at = "_f32_%d_rays" % n
+                    entry.update({"ms" + sfx + at: kb,
+                                  "ms_twin_key" + sfx + at: tw,
+                                  "bound_ms" + sfx + at: bound(name, n)[0]})
+        for dt in ("float32", "float64"):
+            sfx = "" if dt == "float64" else "_f32"
+            regs, stack, spill = ptxas[ktag % (dt, tag)]
+            entry.update({"regs" + sfx: regs, "stack_bytes" + sfx: stack,
+                          "spill_bytes" + sfx: spill})
+            if kname in loop_tags:
+                regs, stack, spill = ptxas[loop_tags[kname] % (dt, tag)]
+                lsfx = "_trace" if kname == "trace_multi" else "_loop_key"
+                entry.update({"regs" + lsfx + sfx: regs,
+                              "spill_bytes" + lsfx + sfx: spill})
+        entry["regs_twin_f32"] = ptxas[(ktag % ("float32", tag + " twin"))
+                                       .replace(" clip=False", "")][0]
+        if kname == "merit_adjoint_multi":
+            entry.update({"achromatization_step_s": steps["achromatization"],
+                          "double_gauss_achromatization_step_s":
+                              dg_steps["achromatization"]})
+        if kname == "opd_adjoint":
+            entry.update({"design_step_s": steps["design"],
+                          "double_gauss_design_step_s": dg_steps["design"]})
+        out.append(entry)
+    return out
+
+
 def xy_flops(nxy):
     """Operations of a freeform row's XY figure for nxy terms
     (ops.kernels._xy_terms; csrc/trace_common.cuh poly_xy and dpoly_xy,
@@ -6155,18 +6813,21 @@ def freeform_entries(sources, launches, worst, times, ptxas, step, dg_step):
     return out
 
 
-def step_breakdown(table, specs, wave, parts):
+def step_breakdown(table, specs, wave, parts, nspot=9):
     """Wall milliseconds of each part of the design merit's forward and
     backward on the card (the gradients of curvature and offset), and
-    of the 3 one-ray sphere-centre traces the wavefront terms hold."""
+    of the one-ray sphere-centre traces the wavefront terms hold (one a
+    wavefront bundle)."""
     from rayopt_tpu_torch.ops.geometric import trace_rays_final
 
     def centres(tab):
         return sum(trace_rays_final(tab, y0[:1], u0[:1], clip=False,
                                     specs=specs)[0].sum()
                    for y0, u0, _, _ in wave)
-    named = dict(zip(("9 spot terms", "3 wavefront terms", "penalty",
-                      "3 sphere-centre traces"), (*parts, centres)))
+    named = dict(zip(("%d spot terms" % nspot,
+                      "%d wavefront terms" % len(wave), "penalty",
+                      "%d sphere-centre traces" % len(wave)),
+                     (*parts, centres)))
     out = {}
     for name, part in named.items():
         def run():
@@ -7391,8 +8052,8 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
     # K8's chain stops at row S-2 and adds the sphere tail; K9's reverse
     # is 3x that, its aspheric rows counted as chain_vjp_flops' PATH form
     opd = chain - row_flops(specs[-1]) + OPD_TAIL_FLOPS
-    opd_vjp = (3*opd + chain_vjp_flops(specs[:-1], widths, path=True)
-               - 3*chain_flops(specs[:-1], widths))
+    opd_vjp = (3*opd + chain_vjp_flops(specs[:-1], widths, True, nd, nxy)
+               - 3*chain_flops(specs[:-1], widths, nd, nxy))
     words_in, words_out, flops = {
         "opd_chain": (6, 3, n*opd),
         "opd_adjoint": (9, 6, n*opd + live*(opd_vjp + OPD_TAIL_VJP_FLOPS)),
@@ -7418,8 +8079,8 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
     # K9 also writes its parameter and centre cotangents, K3's merit its
     # moments
     grating = int(any(sp.grating for sp in specs))
-    slots = (len(specs)*(7 + sum(widths) + grating + (1 + nd if nd else 0))
-             + 3 if name.startswith("opd_adjoint") else 0)
+    slots = (len(specs)*(7 + sum(widths) + grating + (1 + nd if nd else 0)
+                         + nxy) + 3 if name.startswith("opd_adjoint") else 0)
     if name == "trace_multi":
         slots = 5*nlam
     row = 17 + sum(widths) + grating + (1 + nd if nd else 0) + nxy
@@ -8147,6 +8808,7 @@ def main():
     keys.update(df32_phase_keys())
     keys.update(phase_cylinder_keys())
     keys.update(freeform_keys())
+    keys.update(freeform_multi_keys())
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -8255,6 +8917,7 @@ def main():
                              "launched: %s" % cyl_launches)
     torch.cuda.empty_cache()
     fworst = phase_freeform_check()
+    fmworst = phase_freeform_multi_check()
     reset_launches()
     ff_launches, ff_step = phase_freeform_path(opt_step)
     log("== launch counts on the freeform path: %s" % ff_launches)
@@ -8263,6 +8926,12 @@ def main():
                                         "merit_adjoint")):
         raise AssertionError("a kernel of the freeform path never launched: "
                              "%s" % ff_launches)
+    reset_launches()
+    ffl_launches, ffl_steps = phase_freeform_loops(glass_step, design_step)
+    log("== launch counts on the freeform loops: %s" % ffl_launches)
+    if not all(ffl_launches[k] for k in multi + opd):
+        raise AssertionError("a kernel of the freeform loops never "
+                             "launched: %s" % ffl_launches)
     ptimes = phase_grating_throughput(card)
     pmtimes, pmlive = phase_multi_throughput_grating(card)
     ntimes, nlive = phase_anamorphic_throughput(card)
@@ -8276,6 +8945,7 @@ def main():
     dptimes, dplive = phase_df32_phase_throughput(card)
     ctimes, clive = phase_cylinder_throughput(card)
     fftimes = phase_freeform_throughput(card)
+    fmtimes, fmlive = phase_freeform_multi_throughput(card)
     _, atab, aspecs, _ = asphere_cases()["aspheric double Gauss"]
     atimes = phase_throughput(atab, aspecs, card, N_GRAD_TIME,
                               (table, specs), N_BENCH,
@@ -8459,6 +9129,9 @@ def main():
                                 clive, ptxas)
     kernels += freeform_entries(sources, ff_launches, fworst, fftimes, ptxas,
                                 ff_step, opt_step)
+    kernels += freeform_multi_entries(
+        sources, ffl_launches, fmworst, fmtimes, fmlive, ptxas, ffl_steps,
+        {"achromatization": glass_step, "design": design_step})
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())
     log("== keys built at first use, outside phase_spec_build: %d %s"

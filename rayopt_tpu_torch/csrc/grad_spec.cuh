@@ -31,13 +31,16 @@
 // row grows by grating_dy and by n_after and the DOE coefficients, the
 // adjoints' slots by their cotangents (K9's by n_after's too).  K3 and
 // K6 stage each table's own phase words; K7 reduces them per table.
-// K1, K2, K4 and K5 take the freeform XY rows (a conic or aspheric base
-// plus a triangular XY-monomial figure: the seeded Newton with the
-// vertex-plane restart, the freeform normal; K5 its reverse by hand,
-// with the figure's second derivatives); the key defines RAYOPT_N_XY, so
-// that a row grows by the XY coefficients and K5's slots by their
-// cotangents, last.  The K3 and K6-K9 keys refuse the freeform rows
-// (ROADMAP Queue 1 item 9.5, part two).
+// Every kernel takes the freeform XY rows (a conic or aspheric base plus
+// a triangular XY-monomial figure: the seeded Newton with the
+// vertex-plane restart, the freeform normal; K5, K7 and K9 their reverse
+// by hand, with the figure's second derivatives, K9's with the path
+// cotangent: a freeform row's optical path is t n_before, as a figured
+// row's); the key defines RAYOPT_N_XY, so that a row grows by the XY
+// coefficients and the adjoints' slots by their cotangents, last.  K3
+// and K6 stage each table's own XY words; K7 reduces them per table.
+// Only a freeform figure on an anamorphic base is refused, by every key
+// (specialize refuses it).
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
@@ -166,9 +169,9 @@ static_assert(FIG_SLOTS <= LIVE_BITS, "too many coefficients a row");
 // low LIVE_SHIFT bits and above them the slots (c, k, offset x, y, z,
 // mu, then K5's and K7's aspheric coefficients, then an anamorphic
 // key's curvature_dx and conic_dx, then a phase key's grating_dy and DOE
-// coefficients, then K5's XY coefficients; K9 n_before, then its
-// coefficients, the anamorphic two, grating_dy, and n_after before the
-// DOE coefficients) that row reduces.
+// coefficients, then a freeform key's XY coefficients; K9 n_before,
+// then its coefficients, the anamorphic two, grating_dy, n_after before
+// the DOE coefficients, and the XY coefficients) that row reduces.
 template <long long... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -643,7 +646,8 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_spec(
 // words), the wavelengths outermost; ct holds nlam rows of the five
 // moment cotangents.  out: (nlam, rows, FIG_SLOTS) parameter cotangents
 // per wavelength (K5's columns: a phase stack's grating_dy and DOE
-// coefficients are each table's own), zero where a slot is not live;
+// coefficients and a freeform stack's XY coefficients are each table's
+// own), zero where a slot is not live;
 // with RAYS the six ray and
 // the weight cotangents summed over the wavelengths (a ray dead at a
 // wavelength adds zeros there).  partials: (grid, nlam, live slots).
@@ -720,8 +724,9 @@ __global__ void __launch_bounds__(BLOCK, MINB) merit_adjoint_multi_spec(
 // z, its radius and lam_scale.  out: (rows, OPD_FIG_SLOTS) parameter
 // cotangents (OPD_SLOTS, then a figured table's aspheric coefficients,
 // then an anamorphic key's curvature_dx and conic_dx, then a phase key's
-// grating_dy, n_after and DOE coefficients; zero where a slot is not
-// live), then the 3 centre cotangents; with RAYS the six ray cotangents
+// grating_dy, n_after and DOE coefficients, then a freeform key's XY
+// coefficients; zero where a slot is not live), then the 3 centre
+// cotangents; with RAYS the six ray cotangents
 // a ray (zeros for a dead ray).  Dynamic shared memory: the states entering rows 1..S-2,
 // (rows - 2) * 6 * BLOCK words.
 template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int MINB>
@@ -739,7 +744,7 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_adjoint_spec(
   constexpr int S = C::rows;
   constexpr int NL = live_count<C>();
   constexpr int NV = NL + 3;        // the live slots, then the centre
-  static_assert(OPD_FIG_SLOTS <= LIVE_BITS, "too many aspheric coefficients");
+  static_assert(OPD_FIG_SLOTS <= LIVE_BITS, "too many coefficients a row");
   using ImgFlags = RowFlags<C, S - 1>;
   __shared__ T s_tab[S * ROW];
   __shared__ T s_aux[AUX];

@@ -26,8 +26,9 @@ constexpr int FIG_SLOTS =
 // K9's a row: OPD_SLOTS (SLOTS, then n_before), then the even and the
 // odd coefficients, then an anamorphic key's curvature_dx and conic_dx,
 // then a phase key's grating_dy, then a DOE key's n_after and DOE
-// coefficients (cuda_spec.opd_live_slots), then the XY coefficients
-// (N_XY is 0 in a K9 key: it refuses the freeform rows)
+// coefficients (cuda_spec.opd_live_slots), then a freeform key's XY
+// coefficients, last (figured_step_vjp puts them at Q_XY + 1, one more
+// past a DOE key's n_after)
 constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT +
                               (N_DOE > 0 ? 1 + N_DOE : 0) + N_XY;
 // a row's per-ray parameter cotangents, the widest of the two
@@ -40,8 +41,8 @@ constexpr int Q_CDX = SLOTS + N_ASP + N_ODD;
 // where K5's coefficients start)
 constexpr int Q_GDY = Q_CDX + N_ANAM;
 constexpr int Q_DOE = Q_GDY + N_GRAT;
-// a freeform row's XY coefficients' slots, last (K5's; with PATH one
-// further on, and one more past a DOE key's n_after)
+// a freeform row's XY coefficients' slots, last (K5's and K7's; with
+// PATH one further on, and one more past a DOE key's n_after)
 constexpr int Q_XY = Q_DOE + N_DOE;
 
 // Hand-derived reverse of refract_spec's refraction (kind 1) or mirror

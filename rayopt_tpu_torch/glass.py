@@ -132,7 +132,9 @@ def polychromatic_spot_rms(tables, y0, u0, w=None, specs=None,
     sqrt(r2 + 1e-30) about the union centroid.  engine="adjoint": the
     stacked-wavelength kernels (ops.cuda_grad.polychromatic_spot_rms:
     K6 forward, K7 backward on a CUDA bundle, their plain versions on
-    a CPU one), root sqrt(max(var, 0) + 1e-30) of the moments.
+    a CPU one), root sqrt(max(var, 0) + 1e-30) of the moments.  Both
+    take every row kind the plain trace does, the freeform XY rows
+    included (their xy_poly is differentiated).
     `unroll`, `tile` and `interpret` (JAX/TPU options) are accepted
     and ignored; `biconic` selects the generic walk's anamorphic step
     (engine="xla", without specs)."""

@@ -47,16 +47,18 @@ K9 reverse the generalized Spencer & Murty solve by hand
 branch, the groove vector's normalization, the DOE's kick) and then the
 substrate's normal (a phase cylinder's, then its closed form), and
 reduce grating_dy and the DOE coefficients
-after the other columns (K7 per table of the stack, as mu).  K4 and K5
-also trace the freeform XY rows (a conic or aspheric base plus a
-triangular XY-monomial figure: the seeded Newton with the vertex-plane
-restart, the freeform normal); K5 reverses such a row in
-figured_step_vjp (csrc/step_vjp.cuh): the refraction or phase solve on
-the freeform normal, whose reverse reads the figure's second
-derivatives, then the Newton root implicitly, each XY coefficient's
-cotangent -gF x^i y^j through the residual and i x^(i-1) y^j, j x^i
-y^(j-1) through the normal's slopes; its slots are the last columns,
-one a coefficient of the table's xy_poly width.  K8 adds a
+after the other columns (K7 per table of the stack, as mu).  Every
+kernel here also traces the freeform XY rows (a conic or aspheric base
+plus a triangular XY-monomial figure: the seeded Newton with the
+vertex-plane restart, the freeform normal); K5, K7 and K9 reverse such
+a row in figured_step_vjp (csrc/step_vjp.cuh): the refraction or phase
+solve on the freeform normal, whose reverse reads the figure's second
+derivatives, then the Newton root implicitly (K9 adds the row's path
+cotangent ct_path n_before to gt first, as a figured row's), each XY
+coefficient's cotangent -gF x^i y^j through the residual and i x^(i-1)
+y^j, j x^i y^(j-1) through the normal's slopes; its slots are the last
+columns, one a coefficient of the table's xy_poly width (K7 per table
+of the stack).  K8 adds a
 DOE row's imprinted phase psi(r2) n_after to the optical path, and K9
 reverses it (doe_path_vjp): n_after takes ct_path psi(r2), coefficient
 i ct_path n_after r2^(i+1) and the intercept ct_path n_after psi'(r2)
@@ -89,7 +91,8 @@ path cotangent feeding every row's t and n_before, so it returns
 OPD_SLOTS = 7 parameter cotangents a row (K5's six and n_before; then a
 figured table's coefficients, an anamorphic one's curvature_dx and
 conic_dx, a grating one's grating_dy, a DOE one's n_after and
-coefficients) and the centre's three.
+coefficients, a freeform one's XY coefficients) and the centre's
+three.
 `adjoint_opd_rays` and `adjoint_wavefront_rms` bind them in `_OpdRays`
 (the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
@@ -136,7 +139,8 @@ OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
 AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
 #: differentiable table fields _OpdRays carries (K9's fields: the
-#: anamorphic x figure, then the phase rows' grating_dy, n_after and doe)
+#: anamorphic x figure, then the phase rows' grating_dy, n_after and doe,
+#: then the freeform rows' xy_poly, last)
 _DIFF = CS.OPD_DIFF
 _NO = len(_DIFF)
 #: those _SpotMoments carries: _DIFF up to the anamorphic x figure, then
@@ -234,13 +238,13 @@ def _nslots(table, specs, base=SLOTS):
     coefficients, ANAM where a row is anamorphic (cuda_trace.
     carries_anamorphic), then one where a row is a grating and the DOE
     width where a row is a DOE (_phase_layout; K9 one more there, its
-    n_after), then (K5's and K7's) the xy_poly width where a row is
-    freeform (cuda_trace.xy_width)."""
+    n_after), then the xy_poly width where a row is freeform
+    (cuda_trace.xy_width)."""
     grating, nd = _phase_layout(table, specs)
     k9 = base == OPD_SLOTS
     return base + sum(_table_widths(table)) \
         + (ANAM if carries_anamorphic(specs) else 0) + int(grating) + nd \
-        + int(k9 and nd > 0) + (0 if k9 else xy_width(table, specs))
+        + int(k9 and nd > 0) + xy_width(table, specs)
 
 
 def _key_columns(pg, key, nq, base=SLOTS):
@@ -444,8 +448,9 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
     OPD_SLOTS)): c, k, offset x, y, z, mu, n_before, then the table's na
     even and no odd aspheric coefficients, then for anamorphic specs
     curvature_dx and conic_dx, for grating specs grating_dy, for DOE
-    specs n_after and the DOE coefficients; the six state cotangents;
-    the (3,) centre cotangents), in the state's dtype."""
+    specs n_after and the DOE coefficients, for freeform specs the XY
+    coefficients; the six state cotangents; the (3,) centre
+    cotangents), in the state's dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     with torch.no_grad():
@@ -471,7 +476,8 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
              for v, g in zip(leaves, grads)]
     g = tab.replace(**dict(zip(_DIFF, grads[:nd])))
     rows = _param_rows(g, carries_anamorphic(specs),
-                       *_phase_layout(tab, specs), opd=True)
+                       *_phase_layout(tab, specs), opd=True,
+                       nxy=xy_width(tab, specs))
     pg = torch.cat([rows[:, :SLOTS], g.n_before[:, None], rows[:, SLOTS:]],
                    1)
     return pg, tuple(grads[nd:nd + 6]), grads[-1][:3]
@@ -1643,6 +1649,7 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
     pg = torch.zeros((nsurf, _nslots(tab, specs, OPD_SLOTS)),
                      dtype=x0.dtype, device=x0.device)
     nd = _phase_layout(tab, specs)[1]
+    nxy = xy_width(tab, specs)
     pg[nsurf - 1, :OPD_SLOTS] = torch.stack([torch.where(live, v, 0.).sum()
                                              for v in pj])
     gcen = torch.stack([torch.where(live, v, 0.).sum() for v in gc])
@@ -1650,7 +1657,7 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g,
                                     ct_path=ct_path)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        _put_row(pg, j, specs[j], pj, live, specs, OPD_SLOTS, nd)
+        _put_row(pg, j, specs[j], pj, live, specs, OPD_SLOTS, nd, nxy)
     if specs[0].rotated:
         r0 = tab.rot[0]
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
@@ -1678,9 +1685,10 @@ def _moments_kernel(specs, dtype, clip, widths, nd=0, nxy=0):
 
 
 @functools.lru_cache(maxsize=None)
-def _moments_multi_kernel(specs, dtype, clip, nlam, widths=(0, 0), nd=0):
+def _moments_multi_kernel(specs, dtype, clip, nlam, widths=(0, 0), nd=0,
+                          nxy=0):
     return CS.load(CS.moments_multi_key(specs, dtype, clip, nlam,
-                                        widths=widths, nd=nd))
+                                        widths=widths, nd=nd, nxy=nxy))
 
 
 @functools.lru_cache(maxsize=None)
@@ -1691,21 +1699,22 @@ def _adjoint_kernel(specs, dtype, clip, fields, rays, widths, nd=0, nxy=0):
 
 @functools.lru_cache(maxsize=None)
 def _adjoint_multi_kernel(specs, dtype, clip, fields, rays, widths=(0, 0),
-                          nd=0):
+                          nd=0, nxy=0):
     return CS.load(CS.adjoint_multi_key(specs, dtype, clip, fields, rays,
-                                        widths=widths, nd=nd))
+                                        widths=widths, nd=nd, nxy=nxy))
 
 
 @functools.lru_cache(maxsize=None)
-def _opd_kernel(specs, dtype, clip, widths=(0, 0), nd=0):
-    return CS.load(CS.opd_key(specs, dtype, clip, widths=widths, nd=nd))
+def _opd_kernel(specs, dtype, clip, widths=(0, 0), nd=0, nxy=0):
+    return CS.load(CS.opd_key(specs, dtype, clip, widths=widths, nd=nd,
+                              nxy=nxy))
 
 
 @functools.lru_cache(maxsize=None)
 def _opd_adjoint_kernel(specs, dtype, clip, fields, rays, widths=(0, 0),
-                        nd=0):
+                        nd=0, nxy=0):
     return CS.load(CS.opd_adjoint_key(specs, dtype, clip, fields, rays,
-                                      widths=widths, nd=nd))
+                                      widths=widths, nd=nd, nxy=nxy))
 
 
 def weighted_moments(table, specs, state, w, clip=False):
@@ -1798,18 +1807,20 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
 merit_adjoint.launches = 0
 
 
-def _moments_multi_runs(specs, dtype, clip, nlam, widths=(0, 0), nd=0):
+def _moments_multi_runs(specs, dtype, clip, nlam, widths=(0, 0), nd=0,
+                        nxy=0):
     """K6's launches for a stack of nlam tables (`widths` the stack's,
-    figure_widths; `nd` its doe_width): (l0, l1, loaded key) of each
-    balanced run of at most cuda_spec.multi_most wavelengths (MAX_NLAM,
-    fewer where the tables outgrow static shared memory; cuda_spec.runs:
-    12 -> 6 + 6, 13 -> 7 + 6)."""
-    most = CS.multi_most("k6", specs, dtype, widths=widths, nd=nd)
+    figure_widths; `nd` its doe_width, `nxy` its xy_width): (l0, l1,
+    loaded key) of each balanced run of at most cuda_spec.multi_most
+    wavelengths (MAX_NLAM, fewer where the tables outgrow static shared
+    memory; cuda_spec.runs: 12 -> 6 + 6, 13 -> 7 + 6)."""
+    most = CS.multi_most("k6", specs, dtype, widths=widths, nd=nd, nxy=nxy)
     if most < 1:
         # raises, saying why
-        CS.moments_multi_key(specs, dtype, clip, 1, widths=widths, nd=nd)
+        CS.moments_multi_key(specs, dtype, clip, 1, widths=widths, nd=nd,
+                             nxy=nxy)
     return [(l0, l1, _moments_multi_kernel(specs, dtype, clip, l1 - l0,
-                                           widths, nd))
+                                           widths, nd, nxy))
             for l0, l1 in CS.runs(nlam, most)]
 
 
@@ -1834,7 +1845,8 @@ def weighted_moments_multi(tables, specs, state, w, clip=False):
     runs = _moments_multi_runs(specs, x.dtype, bool(clip),
                                tables.curvature.shape[0],
                                figure_widths(tables, specs),
-                               doe_width(tables, specs))
+                               doe_width(tables, specs),
+                               xy_width(tables, specs))
     outs = [launch_moments(kern, table_at(tables, slice(l0, l1)), specs,
                            state, w) for l0, l1, kern in runs]
     if x.shape[0]:
@@ -1849,7 +1861,8 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                         fields=CS.FIELDS, rays=True):
     """K7: (parameter cotangents (nlam, S, _nslots) per table of the
     stack, in merit_adjoint's columns -- a phase table's grating_dy and
-    DOE coefficients too, each table's own; the six state cotangents and
+    DOE coefficients and a freeform table's XY coefficients too, each
+    table's own; the six state cotangents and
     the weight cotangent, each summed over the tables) of the (nlam, 5)
     weighted moments dotted with `ct`, an (nlam, 5) tensor of moment
     cotangents on the rays' device.  `fields` and `rays` as
@@ -1878,7 +1891,8 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
     device, n, stream = spec_launch(state)
     kern = _adjoint_multi_kernel(specs, x.dtype, bool(clip), fields,
                                  bool(rays), figure_widths(tables, specs),
-                                 doe_width(tables, specs))
+                                 doe_width(tables, specs),
+                                 xy_width(tables, specs))
     tab = packed(tables, specs, x)
     if not n:
         pg = torch.zeros((nlam, len(specs), nq), dtype=x.dtype,
@@ -1921,7 +1935,8 @@ def opd_chain(table, specs, state, aux, clip=False):
     device, n, stream = spec_launch(state)
     specs = tuple(specs)
     kern = _opd_kernel(specs, x.dtype, bool(clip),
-                       figure_widths(table, specs), doe_width(table, specs))
+                       figure_widths(table, specs), doe_width(table, specs),
+                       xy_width(table, specs))
     tab = packed(table, specs, x)
     outs = [torch.empty_like(x) for _ in range(3)]
     if n:
@@ -1941,8 +1956,8 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
     c, k, offset x, y, z, mu, n_before, then the table's na even and no
     odd aspheric coefficients, then an anamorphic table's curvature_dx
     and conic_dx, a grating table's grating_dy, a DOE table's n_after
-    and DOE coefficients; the six state cotangents; the (3,) centre
-    cotangents)
+    and DOE coefficients, a freeform table's XY coefficients; the six
+    state cotangents; the (3,) centre cotangents)
     of K8's outputs dotted with cts = (ct_k, ct_lx, ct_ly), three (N,)
     tensors on the rays' device.  `fields`: the table fields whose
     cotangents are wanted; a slot outside them, or never read by the
@@ -1964,17 +1979,20 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
         pg, st, gc = opd_adjoint_reference(table, specs, state, aux, cts,
                                            clip)
         live = CS.live_mask(CS.opd_live_slots(specs, fields, (na, no),
-                                              doe_width(table, specs)), nq)
+                                              doe_width(table, specs),
+                                              xy_width(table, specs)), nq)
         pg = torch.where(live, pg, 0.)
         return (pg, st, gc) if rays else (pg, None, gc)
     device, n, stream = spec_launch(state)
     kern = _opd_adjoint_kernel(specs, x.dtype, bool(clip), fields,
                                bool(rays), figure_widths(table, specs),
-                               doe_width(table, specs))
+                               doe_width(table, specs),
+                               xy_width(table, specs))
     tab = packed(table, specs, x)
     nsurf = len(specs)
     # the key's columns: OPD_SLOTS, the coefficients of a figured key,
-    # the anamorphic two of an anamorphic one, then the phase columns
+    # the anamorphic two of an anamorphic one, then the phase columns,
+    # then the XY columns
     kq = kern.key.slots
     if not n:
         out = torch.zeros(nsurf*kq + 3, dtype=x.dtype, device=device)
@@ -2210,8 +2228,9 @@ def polychromatic_spot_rms(tables, y0, u0, w=None, specs=None, clip=False,
     glass.polychromatic_spot_rms.  Every wavelength traces the same
     (y0, u0) bundle at weight w/nlam (w defaults to 1/N), vignetted rays
     drop out per wavelength, and the RMS is taken about the shared
-    union centroid.  `tile` and `interpret` (TPU options) are accepted
-    and ignored."""
+    union centroid.  Gradients reach the fields spot_moments_multi's
+    do, a freeform table's xy_poly among them (K7's last columns).
+    `tile` and `interpret` (TPU options) are accepted and ignored."""
     y0 = torch.as_tensor(y0)
     u0 = torch.as_tensor(u0)
     nlam = tables.curvature.shape[0]
@@ -2272,10 +2291,15 @@ class _OpdRays(torch.autograd.Function):
         gna = pg[:, q] if nd else torch.zeros_like(params[10])
         gdoe = (pg[:, q + 1:q + 1 + nd].contiguous() if nd
                 else torch.zeros_like(params[11]))
+        q += nd + int(nd > 0)
+        # a freeform key's XY columns, last
+        nxy = xy_width(tab, ctx.specs)
+        gxy = (pg[:, q:q + nxy].contiguous() if nxy
+               else torch.zeros_like(params[12]))
         grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
                  pg[:, 6], pg[:, OPD_SLOTS:OPD_SLOTS + na].contiguous(),
                  pg[:, OPD_SLOTS + na:OPD_SLOTS + na + no].contiguous(),
-                 *gdx, ggdy, gna, gdoe)
+                 *gdx, ggdy, gna, gdoe, gxy)
         # radius and lam_scale are constants of the merit
         ct_aux = torch.cat([ct_c, torch.zeros_like(ct_c[:2])])
         return (None, None, None, *grads, *ct_state, ct_aux)
@@ -2298,7 +2322,7 @@ def adjoint_opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
     the sphere placement and the bundle exactly as in the plain engine.
     Gradients reach curvature, conic, offset, mu, n_before, aspherics
     and aspherics_odd, curvature_dx and conic_dx, grating_dy, n_after (a
-    DOE row's) and doe (K9's slots), the rays, and through
+    DOE row's), doe and xy_poly (K9's slots), the rays, and through
     tables.lower_pose decenter; a rot or
     tilt that requires grad while a spec row is rotated raises
     NotImplementedError."""
@@ -2343,7 +2367,9 @@ def adjoint_wavefront_rms(table, y0, u0, w=None, ref=0, radius=None,
     differentiable through K9 -- the production-scale counterpart of
     parallel.grad.wavefront_rms (the JAX package's
     pallas_wavefront_rms).  NaN (vignetted) rays drop out of the
-    moments and carry zero cotangent."""
+    moments and carry zero cotangent.  Gradients reach the fields
+    adjoint_opd_rays names, a freeform table's xy_poly among them (K9's
+    last columns)."""
     opd = adjoint_opd_rays(table, y0, u0, ref=ref, radius=radius,
                            wavelength=wavelength, scale=scale, finite=finite,
                            specs=specs, clip=clip, diff_pose=diff_pose)

@@ -43,13 +43,15 @@ grating_dy, of n_after (the DOE's optical path psi(r2) n_after) and of
 the coefficients.  A phase row on a cylinder keeps the cylinder's
 closed-form intercept and takes the normal of the biconic or toroid
 that made it (its row word sets F_BICONIC or F_TOROID beside F_CYL_Y or
-F_CYL_X, cuda_trace._anamorphic_flag).  The K1, K2, K4 and K5 keys take
-the freeform XY rows (F_FREEFORM): such a key's rows grow by the table's
+F_CYL_X, cuda_trace._anamorphic_flag).  Every K1-K9 key takes the
+freeform XY rows too (F_FREEFORM): such a key's rows grow by the table's
 nxy XY-monomial coefficients, last (Key.nxy, cuda_trace.xy_width;
-RAYOPT_N_XY), K5's slots by their cotangents; the K3 and K6-K9 keys
-refuse them (NotImplementedError, ROADMAP Queue 1 item 9.5 part two).
-A row word is 64 bits: its flags below LIVE_SHIFT, its live slots
-above.
+RAYOPT_N_XY; K3 and K6 stage each table's own), an adjoint's slots by
+their cotangents, last (K7 per table of the stack); a freeform row's
+optical path is t n_before, as a figured row's.  Only a freeform figure
+on an anamorphic base is refused (NotImplementedError, as `specialize`
+refuses it).  A row word is 64 bits: its flags below LIVE_SHIFT, its
+live slots above.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns, then a figured key's na even and no odd
@@ -57,8 +59,8 @@ coefficients, then an anamorphic key's curvature_dx and conic_dx, then
 a grating key's grating_dy, then a DOE key's nd coefficients, then a
 freeform key's nxy XY coefficients; K9 puts n_before between the six
 and the coefficients and n_after before the DOE coefficients,
-OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] a row) are the fields asked
-for, minus what the
+OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] + nxy a row) are the fields
+asked for, minus what the
 row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
 row, conic of a flat or spherical row -- both live on an aspheric row,
 whose Newton reads them through the sag --, the transverse offset of an
@@ -116,15 +118,14 @@ SLOT_FIELDS = ("curvature", "conic", "offset", "offset", "offset", "mu",
 #: the fields K5 and K7 differentiate (a key of a table with no aspheric
 #: row: the first four; curvature_dx and conic_dx only an anamorphic
 #: key, grating_dy and doe only a key of a grating or DOE table, xy_poly
-#: only a K5 key of a freeform table)
+#: only a key of a freeform table)
 FIELDS = ("curvature", "conic", "offset", "mu", "aspherics", "aspherics_odd",
           "curvature_dx", "conic_dx", "grating_dy", "doe", "xy_poly")
-#: the fields K9 differentiates that K5 and K7 do (not xy_poly: K9
-#: refuses the freeform rows), and n_before
-OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:10]
+#: the fields K9 differentiates that K5 and K7 do, and n_before
+OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:]
 #: every field K9 differentiates, in the order of cuda_grad._DIFF:
 #: OPD_FIELDS and n_after, read only by a DOE row (its optical path
-#: psi(r2) n_after)
+#: psi(r2) n_after) before doe; xy_poly last
 OPD_DIFF = OPD_FIELDS[:10] + ("n_after",) + OPD_FIELDS[10:]
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
            "df32_common.cuh", "df32_spec.cuh")
@@ -291,13 +292,15 @@ def _opd_phase(specs, nd):
         + (("n_after",) + ("doe",)*nd if nd else ())
 
 
-def opd_live_slots(specs, fields=OPD_DIFF, widths=(0, 0), nd=0):
+def opd_live_slots(specs, fields=OPD_DIFF, widths=(0, 0), nd=0, nxy=0):
     """One mask a row of the slots K9 reduces -- OPD_SLOTS bits, then
     with `widths` one a coefficient, then for anamorphic specs
     curvature_dx and conic_dx, then for grating specs grating_dy and
-    with nd (the key's, doe_width) n_after and nd DOE coefficients
-    (live_slots' layout with n_before, slot 6, between mu and the
-    coefficients, and n_after before the DOE's): live_slots' rule with
+    with nd (the key's, doe_width) n_after and nd DOE coefficients, then
+    nxy (the key's, xy_width) XY coefficients (live_slots' layout with
+    n_before, slot 6, between mu and the coefficients, and n_after
+    before the DOE's): OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] + nxy
+    slots, refused past LIVE_BITS; live_slots' rule with
     n_before on every row but row 0 and n_after on a DOE row only (the
     one row whose optical path reads it), except on the image row,
     which the reference-sphere tail reads only through its offset (the
@@ -307,7 +310,7 @@ def opd_live_slots(specs, fields=OPD_DIFF, widths=(0, 0), nd=0):
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
     slot_fields = (SLOT_FIELDS + _coefficients(widths) + _anamorphic(specs)
-                   + _opd_phase(specs, nd))
+                   + _opd_phase(specs, nd) + ("xy_poly",)*nxy)
     masks = list(_live_slots(specs, fields, OPD_DIFF, slot_fields))
     if nd:
         q = slot_fields.index("n_after")
@@ -364,8 +367,8 @@ class Key(NamedTuple):
     row; a packed row then carries n_after and the nd coefficients, an
     adjoint their slots, K9 also n_after's) and the XY-monomial
     coefficients a row carries (nxy: a freeform table's xy_poly width, 0
-    without a freeform row; a packed row then carries them last, K5
-    their slots)."""
+    without a freeform row; a packed row then carries them last, an
+    adjoint their slots, last)."""
 
     kernel: str
     dtype: str
@@ -476,8 +479,7 @@ def _dtype_name(dtype):
 
 def _check_rows(specs, kernel):
     """Raise NotImplementedError for a row `kernel`'s key does not trace:
-    a freeform row outside K1, K2, K4 and K5 (item 9.5, part two), a
-    freeform figure on an anamorphic base (kernels.check_supported)."""
+    a freeform figure on an anamorphic base (kernels.check_supported)."""
     for j, spec in enumerate(specs[1:], 1):
         K.check_supported(spec, j, kernel.upper() + "'s key", kernel)
 
@@ -566,11 +568,12 @@ def trace_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
 
 
 def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
-            widths=(0, 0), nd=0):
+            widths=(0, 0), nd=0, nxy=0):
     """The K8 key of a spec tuple: object, exit and image rows at least
     (the chain runs rows 1..S-2, the sphere tail the image row);
-    `widths` and `nd` as trace_key's (a DOE row adds its psi(r2)
-    n_after to the optical path)."""
+    `widths`, `nd` and `nxy` as trace_key's (a DOE row adds its psi(r2)
+    n_after to the optical path; a freeform row's path is t n_before, as
+    a figured row's)."""
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
@@ -579,7 +582,8 @@ def opd_key(specs, dtype, clip=False, block=None, min_blocks=MIN_BLOCKS,
     return _static(Key("k8", _dtype_name(dtype), words, bool(clip), False,
                        int(block or BLOCK_TRACE), int(min_blocks),
                        na=na, no=no, anamorphic=carries_anamorphic(specs),
-                       grating=carries_grating(specs), nd=_nd(specs, nd)))
+                       grating=carries_grating(specs), nd=_nd(specs, nd),
+                       nxy=_nxy(specs, nxy)))
 
 
 def _moments(kernel, specs, dtype, clip, nlam, block, min_blocks,
@@ -626,23 +630,25 @@ def moments_key(specs, dtype, clip=False, block=None,
 
 
 def moments_multi_key(specs, dtype, clip, nlam, block=None,
-                      min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0):
+                      min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0, nxy=0):
     """The K6 key of the spec tuple a stack of `nlam` tables shares (the
-    first wavelength's, cuda_trace.multi_specs); `widths` and `nd` as
-    trace_key's (each table of the stack packs its own grating_dy,
-    n_after and DOE coefficients)."""
+    first wavelength's, cuda_trace.multi_specs); `widths`, `nd` and `nxy`
+    as trace_key's (each table of the stack packs its own grating_dy,
+    n_after, DOE and XY coefficients)."""
     return _moments("k6", specs, dtype, clip, nlam, block, min_blocks,
-                    widths, nd)
+                    widths, nd, nxy)
 
 
 def trace_multi_key(specs, dtype, nlam, merit=False, block=None,
-                    min_blocks=MIN_BLOCKS, outer=None, widths=(0, 0), nd=0):
+                    min_blocks=MIN_BLOCKS, outer=None, widths=(0, 0), nd=0,
+                    nxy=0):
     """The K3 key of the spec tuple a stack of `nlam` tables shares (the
     first wavelength's, cuda_trace.multi_specs): its merit mode ("k3m",
     K6's template unweighted) or its trace ("k3", wavelengths outermost
     as MULTI_OUTER when `outer` is None); block BLOCK_MULTI's for the
-    mode and dtype when None; `widths` and `nd` as trace_key's (each
-    table of the stack packs its own phase words).  No clip, as the TPU
+    mode and dtype when None; `widths`, `nd` and `nxy` as trace_key's
+    (each table of the stack packs its own phase and XY words).  No
+    clip, as the TPU
     kernel.  Refused past MAX_NLAM wavelengths or past static shared
     memory (multi_most: the stack a key takes)."""
     kernel = "k3m" if merit else "k3"
@@ -652,22 +658,24 @@ def trace_multi_key(specs, dtype, nlam, merit=False, block=None,
             raise ValueError("K3's merit reads each ray once: it has no "
                              "outer order")
         return _moments(kernel, specs, dtype, False, nlam, block, min_blocks,
-                        widths, nd)
+                        widths, nd, nxy)
     words = _words(specs, kernel=kernel)
     na, no = _widths(specs, widths)
     key = Key(kernel, _dtype_name(dtype), words, False, False, block,
               int(min_blocks), int(nlam),
               MULTI_OUTER if outer is None else bool(outer), na, no,
               carries_anamorphic(specs), carries_grating(specs),
-              _nd(specs, nd))
+              _nd(specs, nd), _nxy(specs, nxy))
     return _static(_unrolled(key))
 
 
-def multi_most(kernel, specs, dtype, block=None, widths=(0, 0), nd=0):
+def multi_most(kernel, specs, dtype, block=None, widths=(0, 0), nd=0,
+               nxy=0):
     """The most wavelengths one key of `kernel` ("k3", "k3m" or "k6")
     takes for this spec tuple (and `widths`, a figured key's grown rows;
     an anamorphic key's rows grow by ANAM words, a phase key's by
-    grating_dy and by n_after and `nd` DOE coefficients): MAX_NLAM, or
+    grating_dy and by n_after and `nd` DOE coefficients, a freeform
+    key's by `nxy` XY coefficients): MAX_NLAM, or
     fewer where that many tables (and the moments' block reduction)
     outgrow static shared memory; 0 when one table alone does."""
     dt = _dtype_name(dtype)
@@ -676,7 +684,8 @@ def multi_most(kernel, specs, dtype, block=None, widths=(0, 0), nd=0):
               int(block or BLOCK_MULTI.get(kernel, {}).get(
                   dt, BLOCK_MOMENTS)), na=na, no=no,
               anamorphic=carries_anamorphic(specs),
-              grating=carries_grating(specs), nd=_nd(specs, nd))
+              grating=carries_grating(specs), nd=_nd(specs, nd),
+              nxy=_nxy(specs, nxy))
     # a key's static shared memory grows by one table's (and 5 reduced
     # moments') words a wavelength
     return min(MAX_NLAM, SMEM_LIMIT//one.shared_bytes)
@@ -710,46 +719,56 @@ def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
     reduce their aspheric coefficients too, a grating key's grating_dy, a
     DOE key's DOE coefficients, a freeform key's XY coefficients;
     SLOTS + na + no [+ 2] [+ 1] + nd + nxy must fit a row word)."""
-    _check_rows(specs, "k5")
-    nd = _nd(specs, nd)
-    nxy = _nxy(specs, nxy)
-    other = SLOTS + len(_anamorphic(specs)) + len(_phase(specs, nd)) + nxy
-    if other > LIVE_BITS:
-        raise ValueError("XY width %d: %d slots a row, above the %d a row "
-                         "word holds" % (nxy, other, LIVE_BITS))
-    widths = _widths(specs, widths, other)
+    nd, nxy, widths = _adjoint_widths(specs, "k5", SLOTS, _phase, widths,
+                                      nd, nxy)
     return _adjoint("k5", specs, live_slots(specs, fields, widths, nd, nxy),
                     dtype, clip, rays, block, min_blocks, widths, nd, nxy)
 
 
+def _adjoint_widths(specs, kernel, base, phase, widths, nd, nxy):
+    """An adjoint key's (nd, nxy, (na, no)): its other slots -- `base`,
+    the anamorphic two, the `phase` slots (_phase, K9 _opd_phase) and the
+    XY coefficients -- refused past LIVE_BITS with the coefficients
+    (_check_rows first)."""
+    _check_rows(specs, kernel)
+    nd, nxy = _nd(specs, nd), _nxy(specs, nxy)
+    other = base + len(_anamorphic(specs)) + len(phase(specs, nd)) + nxy
+    if other > LIVE_BITS:
+        raise ValueError("XY width %d: %d slots a row, above the %d a row "
+                         "word holds" % (nxy, other, LIVE_BITS))
+    return nd, nxy, _widths(specs, widths, other)
+
+
 def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
                       block=None, min_blocks=MIN_BLOCKS, widths=(0, 0),
-                      nd=0):
+                      nd=0, nxy=0):
     """The K7 key of the spec tuple a stack of tables shares, as
     adjoint_key (the wavelength count is not part of it; a phase key's
-    grating_dy and DOE coefficients are reduced per table, as mu is)."""
-    nd = _nd(specs, nd)
-    widths = _widths(specs, widths, SLOTS + len(_anamorphic(specs))
-                     + len(_phase(specs, nd)))
-    return _adjoint("k7", specs, live_slots(specs, fields, widths, nd),
-                    dtype, clip, rays, block, min_blocks, widths, nd)
+    grating_dy and DOE coefficients and a freeform key's XY coefficients
+    are reduced per table, as mu is)."""
+    nd, nxy, widths = _adjoint_widths(specs, "k7", SLOTS, _phase, widths,
+                                      nd, nxy)
+    return _adjoint("k7", specs, live_slots(specs, fields, widths, nd, nxy),
+                    dtype, clip, rays, block, min_blocks, widths, nd, nxy)
 
 
 def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_DIFF, rays=True,
-                    block=None, min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0):
+                    block=None, min_blocks=MIN_BLOCKS, widths=(0, 0), nd=0,
+                    nxy=0):
     """The K9 key of a spec tuple, the fields whose cotangents are
     wanted (see opd_live_slots), whether the ray cotangents are, and
-    `widths` and `nd` as trace_key's (a figured key's rows reduce their
-    aspheric coefficients after n_before, an anamorphic key's
+    `widths`, `nd` and `nxy` as trace_key's (a figured key's rows reduce
+    their aspheric coefficients after n_before, an anamorphic key's
     curvature_dx and conic_dx after them, a grating key's grating_dy,
-    then a DOE key's n_after and DOE coefficients; OPD_SLOTS + na + no
-    [+ 2] [+ 1] [+ 1 + nd] must fit a row word); the three centre
-    cotangents are always reduced."""
-    nd = _nd(specs, nd)
-    widths = _widths(specs, widths, OPD_SLOTS + len(_anamorphic(specs))
-                     + len(_opd_phase(specs, nd)))
-    return _adjoint("k9", specs, opd_live_slots(specs, fields, widths, nd),
-                    dtype, clip, rays, block, min_blocks, widths, nd)
+    then a DOE key's n_after and DOE coefficients, then a freeform key's
+    XY coefficients; OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] + nxy
+    must fit a row word); the three centre cotangents are always
+    reduced."""
+    nd, nxy, widths = _adjoint_widths(specs, "k9", OPD_SLOTS, _opd_phase,
+                                      widths, nd, nxy)
+    return _adjoint("k9", specs, opd_live_slots(specs, fields, widths, nd,
+                                                nxy),
+                    dtype, clip, rays, block, min_blocks, widths, nd, nxy)
 
 
 class Df32Key(NamedTuple):

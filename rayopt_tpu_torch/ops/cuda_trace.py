@@ -36,13 +36,11 @@ compiled per (dtype, spec tuple, wavelength count) key too: its merit
 mode is K2's template at the stack's wavelengths, its trace K1's chain
 once a wavelength.  A stack past one key's wavelengths (cuda_spec.
 multi_most) runs in balanced runs, one launch each.  K3 traces the
-aspheric, the anamorphic and the phase rows as K1 does (not the
-freeform rows: its key refuses them, ROADMAP Queue 1 item 9.5 part
-two), its key
-carrying the stack's coefficient widths, anamorphic words and phase
-words (each table of the stack packs its own grating_dy, n_after and
-DOE coefficients: they differ by wavelength while the specs are
-shared).
+aspheric, the anamorphic, the phase and the freeform rows as K1 does,
+its key carrying the stack's coefficient widths, anamorphic words,
+phase words and XY width (each table of the stack packs its own
+grating_dy, n_after, DOE and XY coefficients: the phase words differ by
+wavelength while the specs are shared).
 
 The kernels are hand-written CUDA C++ (csrc/grad_spec.cuh), built with
 nvcc for sm_90a at first use (ops.cuda_build, ops.cuda_spec) and
@@ -367,28 +365,30 @@ trace_merit.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _multi_kernel(specs, dtype, nlam, merit, widths=(0, 0), nd=0):
+def _multi_kernel(specs, dtype, nlam, merit, widths=(0, 0), nd=0, nxy=0):
     from . import cuda_spec as CS     # cuda_spec imports this module
     return CS.load(CS.trace_multi_key(specs, dtype, nlam, merit,
-                                      widths=widths, nd=nd))
+                                      widths=widths, nd=nd, nxy=nxy))
 
 
-def _multi_runs(specs, dtype, nlam, merit, widths=(0, 0), nd=0):
+def _multi_runs(specs, dtype, nlam, merit, widths=(0, 0), nd=0, nxy=0):
     """K3's launches for a stack of nlam tables (`widths` the stack's,
-    figure_widths; `nd` its doe_width): (l0, l1, loaded key) of each
-    balanced run
+    figure_widths; `nd` its doe_width, `nxy` its xy_width): (l0, l1,
+    loaded key) of each balanced run
     (cuda_spec.runs: 12 -> 6 + 6, 13 -> 7 + 6) of at most
     cuda_spec.multi_most wavelengths, equal runs on one key.  Each merit
     run reads the rays again, the price of the split (the trace,
     wavelengths outermost, reads them once a wavelength anyway)."""
     from . import cuda_spec as CS
     kernel = "k3m" if merit else "k3"
-    most = CS.multi_most(kernel, specs, dtype, widths=widths, nd=nd)
+    most = CS.multi_most(kernel, specs, dtype, widths=widths, nd=nd,
+                         nxy=nxy)
     if most < 1:
         # raises, saying why
-        CS.trace_multi_key(specs, dtype, 1, merit, widths=widths, nd=nd)
+        CS.trace_multi_key(specs, dtype, 1, merit, widths=widths, nd=nd,
+                           nxy=nxy)
     return [(l0, l1, _multi_kernel(specs, dtype, l1 - l0, merit, widths,
-                                   nd))
+                                   nd, nxy))
             for l0, l1 in CS.runs(nlam, most)]
 
 
@@ -414,7 +414,8 @@ def trace_multi(tables, specs, state, merit=False):
     specs = multi_specs(tables, specs)
     nlam = tables.curvature.shape[0]
     runs = _multi_runs(specs, x.dtype, nlam, merit,
-                       figure_widths(tables, specs), doe_width(tables, specs))
+                       figure_widths(tables, specs), doe_width(tables, specs),
+                       xy_width(tables, specs))
     if merit:
         out = torch.cat([launch_moments(kern, table_at(tables, slice(l0, l1)),
                                         specs, state)

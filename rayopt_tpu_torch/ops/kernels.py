@@ -692,16 +692,6 @@ class SurfaceSpec(NamedTuple):
     freeform: bool = False
 
 
-#: SurfaceSpec flags of the vocabulary some engines do not trace yet:
-#: the freeform rows, traced by the plain torch path and by the keys of
-#: FREEFORM_KERNELS only
-EXTENDED = ("freeform",)
-#: the kernels whose keys take the freeform rows (K1, K2, K4, K5)
-FREEFORM_KERNELS = ("k1", "k2", "k4", "k5")
-#: the ROADMAP item each row kind waits on where it is refused
-ITEMS = {"freeform": "9.5 (part two)"}
-
-
 def is_figured(spec):
     """True for an even- or odd-aspheric row (the Newton intercept)."""
     return bool(spec.aspheric or spec.odd)
@@ -734,25 +724,17 @@ def is_phase(spec):
 def check_supported(spec, j=None, what="rayopt_tpu_torch", kernel=None):
     """Raise NotImplementedError for a row that `what` (a key of
     `kernel`, "k1" ... "k9", or the hand reverse's model) does not
-    trace: a freeform row where the kernel is not one of
-    FREEFORM_KERNELS (ROADMAP Queue 1 item 9.5, part two), and in any
-    key a freeform figure on a biconic or toroidal base, which
-    `specialize` refuses (as the JAX package's does)."""
+    trace: a freeform figure on a biconic or toroidal base, which
+    `specialize` refuses (as the JAX package's does).  Every K1-K9 key
+    takes every other row."""
     if kernel is None or not spec.freeform:
         return
-    row = "?" if j is None else j
     if is_anamorphic_spec(spec):
         raise NotImplementedError(
             "surface row %s combines an anamorphic base with a freeform XY "
             "figure, which %s does not trace (specialize refuses it: "
-            "express the full figure in xy_poly)" % (row, what))
-    used = [f for f in EXTENDED if getattr(spec, f)]
-    if kernel not in FREEFORM_KERNELS and used:
-        raise NotImplementedError(
-            "surface row %s uses %s, which %s does not trace yet "
-            "(ROADMAP Queue 1 %s)"
-            % (row, "/".join(used), what,
-               " and ".join(sorted({"item " + ITEMS[f] for f in used}))))
+            "express the full figure in xy_poly)"
+            % ("?" if j is None else j, what))
 
 
 def specialize(table):

@@ -23,7 +23,9 @@ the adjoint engine moves the coefficients of the rows that are figured
 The wavefront merits follow the same split: opd_rays/wavefront_rms
 here are autograd through the plain trace's full history, and
 ops.cuda_grad.adjoint_opd_rays/adjoint_wavefront_rms run the OPD
-kernel (K8) forward and its adjoint (K9) backward.
+kernel (K8) forward and its adjoint (K9) backward; both take the
+freeform XY rows too, so a composite merit of spot (K4/K5) and
+wavefront (K8/K9) terms moves xy_poly through either engine.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): ray sharding over a device mesh (`mesh`), checkpointed resume

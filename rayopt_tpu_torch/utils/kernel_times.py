@@ -4,7 +4,7 @@ trees of the port on the same card in one call.
     python -m rayopt_tpu_torch.utils.kernel_times [--variants] [--steps N]
                                                   [--df32] [--multi]
                                                   [--long-plan] [--newton]
-                                                  [--registers]
+                                                  [--registers] [--freeform]
     python -m rayopt_tpu_torch.utils.kernel_times --compare A.json B.json
 
 Times, with CUDA events (the mean of many launches after a warm-up),
@@ -81,12 +81,26 @@ card, run --df32, --newton (or --multi) from each tree in one call
 (parent, this, this, parent).
 
 --registers alone builds the K1-K9 keys of REGISTER_LENSES (the double
-Gauss, NEWTON_LENSES and the phase models) in both dtypes, clip off and
-on (cuda_spec.prebuild), and prints {tag: [registers, stack bytes,
-spill bytes, SASS instructions]}; --compare A.json B.json prints the
-tags whose entries differ between two such outputs and the counts of
-equal ones.  Both build no key the parent tree cannot, so the two
-trees' outputs compare key for key.
+Gauss, NEWTON_LENSES, the phase models and the freeform Schmidt
+corrector) in both dtypes, clip off and on (cuda_spec.prebuild), and
+prints {tag: [registers, stack bytes, spill bytes, SASS instructions]};
+--compare A.json B.json prints the tags whose entries differ between
+two such outputs and the counts of equal ones.  A key a tree's
+constructors refuse is left out of its output (an older tree's K3 and
+K6-K9 on the freeform rows), so the two trees' outputs compare key for
+key on the keys both build.
+
+--freeform alone times K3 (merit and trace), K6, K7 (every field with
+the ray cotangents, and the achromatization loop's key: curvature,
+offset, mu and xy_poly without them), K8 and K9 (every field with the
+ray cotangents, and the design step's key: xy_poly without them) on the
+freeform Schmidt corrector (a degree-4 xypoly plate, 14 terms seeded at
+1e-10, ahead of an f/2 R = -200 mirror; K3, K6 and K7 on its 3
+wavelengths' stack) beside the same kernels on its freeform-free twin
+(the plate with no XY coefficients; its loop keys without xy_poly), in
+turns (key, twin, key, twin), at FREEFORM_SIZES on its bench bundle
+(x, y uniform in +-17 mm, u = (0, 0, 1), ray 0 on the axis: the OPD's
+chief ray), with each key's registers, stack and spills.
 """
 
 import argparse
@@ -393,9 +407,10 @@ def newton_times():
     return out
 
 
-#: --registers' lenses: the double Gauss, NEWTON_LENSES and the phase models
+#: --registers' lenses: the double Gauss, NEWTON_LENSES, the phase models
+#: and the freeform Schmidt corrector
 REGISTER_LENSES = (("double Gauss",) + tuple(n for n, _ in NEWTON_LENSES)
-                   + ("hybrid achromat", "spectrograph"))
+                   + ("hybrid achromat", "spectrograph", "schmidt corrector"))
 
 
 def register_keys():
@@ -403,16 +418,20 @@ def register_keys():
     with the ray cotangents) and K5 for OPT_FIELDS without them, K3's two
     modes, K6 and K7 on the 3-wavelength stack, in float32 and float64,
     clip off and on, on each lens of REGISTER_LENSES (a key its
-    constructor refuses left out)."""
+    constructor refuses, or whose XY width an older tree's constructor
+    does not take, left out; the XY width passed only where a row is
+    freeform)."""
     from rayopt_tpu_torch import models
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
-                                                 multi_specs)
+                                                 multi_specs, xy_width)
     from rayopt_tpu_torch.ops.kernels import specialize
     keys = {}
     for name in REGISTER_LENSES:
         if name in dict(NEWTON_LENSES):
             s = newton_system(name)
+        elif name == "schmidt corrector":
+            s = schmidt_system()
         else:
             s = getattr(models, name.lower().replace(" ", "_"))()
         table, tabs = s.table(), s.tables()
@@ -420,6 +439,8 @@ def register_keys():
         mspecs = multi_specs(tabs, None)
         kw = dict(widths=figure_widths(table, specs),
                   nd=doe_width(table, specs))
+        if xy_width(table, specs):
+            kw["nxy"] = xy_width(table, specs)
         for dtype in (torch.float32, torch.float64):
             for clip in (False, True):
                 tag = "%s %s clip=%s %%s" % (name, str(dtype)[6:], clip)
@@ -445,9 +466,137 @@ def register_keys():
                 for kname, fn in make.items():
                     try:
                         keys[tag % kname] = fn()
-                    except (NotImplementedError, ValueError):
+                    except (NotImplementedError, ValueError, TypeError):
                         pass
     return keys
+
+
+#: --freeform's sizes: (dtype, rays, whether the adjoints run there)
+FREEFORM_SIZES = ((torch.float32, 1 << 22, True),
+                  (torch.float64, 1 << 22, True),
+                  (torch.float32, 1 << 26, False))
+FREEFORM_HALF = 17.   # mm: the Schmidt corrector's bench half width
+#: the Schmidt corrector's loops' K7 (achromatization) and K9 (design)
+#: slot sets; its twin's without xy_poly
+FF_ACHROM_FIELDS = ACHROM_FIELDS + ("xy_poly",)
+FF_DESIGN_FIELDS = ("xy_poly",)
+
+
+def schmidt_system(coefficients=None):
+    """The JAX package's freeform Schmidt corrector (its
+    tests/test_freeform.py): a degree-4 xypoly plate (14 terms seeded at
+    1e-10, norm radius 25 mm, N-BK7) 5 mm ahead of an f/2 R = -200 mm
+    mirror, a 25 mm pupil, on axis; `coefficients` replaces the seed
+    (coefficients=[]: the freeform-free twin)."""
+    from rayopt_tpu_torch import System
+    s = System([
+        dict(material="air"),
+        dict(type="xypoly", xy_coefficients=[1e-10]*14 if coefficients
+             is None else coefficients, norm_radius=25., distance=5.,
+             material="SCHOTT-BK|N-BK7", radius=26.),
+        dict(distance=4., material="air", radius=26.),
+        dict(roc=-200., distance=100., material="mirror", radius=30.),
+        dict(distance=-95., radius=5.)])
+    s.object.pupil.radius = 25.
+    s.object.pupil.update_radius = False
+    s.update()
+    return s
+
+
+def freeform_times():
+    """K3, K6-K9 on the Schmidt corrector against its freeform-free twin
+    (the module docstring's --freeform), every key built first at once:
+    ({"<kernel> <dtype> <rays>": {"ms": ..., "twin_ms": ...}},
+    {"<kernel> <dtype>": [registers, stack bytes, spill bytes]} of the
+    Schmidt corrector's keys)."""
+    import re
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint_multi, opd_adjoint, opd_chain, weighted_moments_multi)
+    from rayopt_tpu_torch.ops.cuda_trace import (
+        doe_width, figure_widths, multi_specs, trace_multi, xy_width)
+    from rayopt_tpu_torch.ops.kernels import specialize
+    lenses = {}
+    for which, coefficients in (("key", None), ("twin", [])):
+        s = schmidt_system(coefficients)
+        table, tabs = s.table(), s.tables()
+        lenses[which] = (s, table, specialize(table), tabs,
+                         multi_specs(tabs, None))
+    loops = {"key": (FF_ACHROM_FIELDS, FF_DESIGN_FIELDS),
+             "twin": (ACHROM_FIELDS, OPT_FIELDS)}
+
+    def keys_of(which, dtype):
+        _, table, specs, tabs, mspecs = lenses[which]
+        ml, ol = loops[which]
+        kw = dict(widths=figure_widths(table, specs),
+                  nd=doe_width(table, specs), nxy=xy_width(table, specs))
+        mkw = dict(widths=figure_widths(tabs, mspecs),
+                   nd=doe_width(tabs, mspecs), nxy=xy_width(tabs, mspecs))
+        return {
+            "K3 merit": CS.trace_multi_key(mspecs, dtype, 3, True, **mkw),
+            "K3 trace": CS.trace_multi_key(mspecs, dtype, 3, **mkw),
+            "K6": CS.moments_multi_key(mspecs, dtype, False, 3, **mkw),
+            "K7": CS.adjoint_multi_key(mspecs, dtype, **mkw),
+            "K7 achromatization": CS.adjoint_multi_key(
+                mspecs, dtype, False, ml, False, **mkw),
+            "K8": CS.opd_key(specs, dtype, **kw),
+            "K9": CS.opd_adjoint_key(specs, dtype, **kw),
+            "K9 design": CS.opd_adjoint_key(specs, dtype, False, ol, False,
+                                            **kw)}
+    mine = {dtype: keys_of("key", dtype)
+            for dtype in (torch.float32, torch.float64)}
+    built = CS.prebuild([k for dtype in mine for k in mine[dtype].values()]
+                        + [k for dtype in mine
+                           for k in keys_of("twin", dtype).values()])
+    regs = {}
+    for dtype, keys in mine.items():
+        for name, key in keys.items():
+            text = built[key].build_log
+            r = re.search(r"Used (\d+) registers", text)
+            f = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", text)
+            regs["%s %s" % (name, str(dtype)[6:])] = [
+                int(r.group(1)), int(f.group(1)),
+                int(f.group(2)) + int(f.group(3))]
+
+    def cases(which, state, w):
+        s, table, specs, tabs, mspecs = lenses[which]
+        ml, ol = loops[which]
+        ctm = torch.stack([rms_cotangent(m) for m in weighted_moments_multi(
+            tabs, mspecs, state, w)])
+        aux, cts = opd_inputs(s, table, specs, state)
+        return {
+            "K3 merit": lambda: trace_multi(tabs, mspecs, state, merit=True),
+            "K3 trace": lambda: trace_multi(tabs, mspecs, state),
+            "K6": lambda: weighted_moments_multi(tabs, mspecs, state, w),
+            "K8": lambda: opd_chain(table, specs, state, aux),
+            "K7": lambda: merit_adjoint_multi(tabs, mspecs, state, w, ctm),
+            "K7 achromatization": lambda: merit_adjoint_multi(
+                tabs, mspecs, state, w, ctm, fields=ml, rays=False),
+            "K9": lambda: opd_adjoint(table, specs, state, aux, cts),
+            "K9 design": lambda: opd_adjoint(table, specs, state, aux, cts,
+                                             fields=ol, rays=False)}
+    out = {}
+    for dtype, n, adjoints in FREEFORM_SIZES:
+        state, w = bench_bundle(n, dtype)
+        state = tuple(c*FREEFORM_HALF/11.6 if i < 2 else c
+                      for i, c in enumerate(state))
+        for c, v in zip(state, (0., 0., 0., 0., 0., 1.)):
+            c[0] = v
+        key, twin = cases("key", state, w), cases("twin", state, w)
+        reps = 5 if n > 1 << 22 else 10
+        for name in key:
+            if name.startswith(("K7", "K9")) and not adjoints:
+                continue
+            k1 = cuda_ms(key[name], reps)
+            t1 = cuda_ms(twin[name], reps)
+            k2 = cuda_ms(key[name], reps)
+            t2 = cuda_ms(twin[name], reps)
+            out["%s %s %d" % (name, str(dtype)[6:], n)] = {
+                "ms": (k1 + k2)/2, "twin_ms": (t1 + t2)/2}
+        del state, w, key, twin
+        torch.cuda.empty_cache()
+    return out, regs
 
 
 def register_stats():
@@ -1081,6 +1230,9 @@ def main():
                     "alone")
     ap.add_argument("--compare", nargs=2, metavar="JSON",
                     help="compare two --registers outputs")
+    ap.add_argument("--freeform", action="store_true",
+                    help="time K3, K6-K9 on the freeform Schmidt corrector "
+                    "beside its freeform-free twin alone")
     args = ap.parse_args()
     if args.compare:
         compare_registers(*args.compare)
@@ -1096,6 +1248,12 @@ def main():
     specs = specialize(table)
     if args.registers:
         print(json.dumps({"card": card, "registers": register_stats()}))
+        sys.stdout.flush()
+        return
+    if args.freeform:
+        times, regs = freeform_times()
+        print(json.dumps({"card": card, "freeform_ms": times,
+                          "freeform_registers": regs}))
         sys.stdout.flush()
         return
     if args.newton:

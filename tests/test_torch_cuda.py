@@ -21,7 +21,8 @@ from rayopt_tpu_torch.ops import cuda_df32 as CD
 from rayopt_tpu_torch.ops import cuda_spec as CS
 from rayopt_tpu_torch.ops import cuda_trace as CT
 from rayopt_tpu_torch.ops import df32 as D
-from rayopt_tpu_torch.ops.tables import make_table, rodrigues, table_at
+from rayopt_tpu_torch.ops.tables import (make_table, rodrigues,
+                                         stack_tables, table_at)
 from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
 from rayopt_tpu_torch.ops.kernels import specialize
 
@@ -2737,36 +2738,147 @@ def _check_freeform_keys(tab, specs, state, clip, cuda_device):
             assert float((g - r).abs().max()) <= 1e-9*scale
 
 
+def _freeform_stack(name, device):
+    """(stack of 3 wavelength tables, their specs, the first table, (sphere
+    radius, wavelength), bench half width) of a freeform lens: a system's
+    own tables (System.tables) and exit pupil; a table lens's with mu
+    grown by 1 and 2 % of mu - 1 and its XY coefficients by 3 and 6 %, a
+    sphere of radius -40 mm at 550 nm."""
+    if name in _FREEFORM_TABLES:
+        tab, _, half = _freeform_case(name, device)
+        tabs = stack_tables([tab.replace(mu=1 + (tab.mu - 1)*(1 + .01*li),
+                                         xy_poly=tab.xy_poly*(1 + .03*li))
+                             for li in range(3)])
+        sphere = (-40., 550e-9)
+    else:
+        s, half = _freeform_system(name)
+        tab, tabs = s.table(device=device), s.tables(device=device)
+        sphere = (-s.image.pupil.distance, s.wavelengths[0])
+    return tabs, CT.multi_specs(tabs, None), tab, sphere, half
+
+
 @pytest.mark.cuda
-def test_freeform_rows_refuse_the_other_kernels_on_card(cuda_device):
-    """On a CUDA bundle K3, K6, K7, K8, K9 and df32.plan raise
-    NotImplementedError on a freeform row, naming ROADMAP Queue 1 item
-    9.5 (parts two and three): no wrapper falls back to its plain
-    version, and none launches."""
-    tab, specs, half = _freeform_case("xy singlet", cuda_device)
-    tabs = type(tab)(*(None if f is None else torch.stack([f]*3)
-                       for f in tab))
-    state = _bench_state(256, 3, cuda_device, torch.float64)
-    state = tuple(c*(half/11.6) if i < 2 else c
-                  for i, c in enumerate(state))
-    w = torch.full((256,), 1/256, dtype=torch.float64, device=cuda_device)
-    ct = torch.ones((3, 5), dtype=torch.float64, device=cuda_device)
-    aux = torch.tensor([0., 0., 40., -40., 5e-4], dtype=torch.float64,
-                       device=cuda_device)
-    cts = tuple(torch.ones(256, dtype=torch.float64, device=cuda_device)
-                for _ in range(3))
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", ["schmidt", "zernike corrector",
+                                  "xy singlet", "aspheric base",
+                                  "freeform grating"])
+def test_freeform_rows_refuse_the_other_kernels_on_card(cuda_device, name,
+                                                        dtype, clip):
+    """K3 (trace and merit), K6, K7, K8 and K9 on a freeform key against
+    their plain versions on the card (the other kernels took the
+    freeform rows in ROADMAP Queue 1 item 9.5 part two; only df32.plan
+    still raises NotImplementedError on them, naming part three), the
+    bench bundle within the lens's aperture (1.5x wide clipped; K3 has no
+    clip), slopes within +-0.03, ray 0 the chief ray on the axis: K3's
+    rays and optical path through each of the stack's three tables to
+    1e-12 of scale in float64 with equal NaN masks, float32 5e-5; K3's
+    and K6's moments to 1e-10 (float32 1e-4) of their scale; K7's
+    columns (the XY coefficients last, per table) for a fixed moment
+    cotangent to 1e-9 (float32 1e-3) of each column's largest, floored
+    at 1e-9 of the largest column's; K8's k to 1e-12 of max |k| (float32
+    1e-4), and in float64 K9's columns (the XY coefficients last) for a
+    fixed cotangent as K7's, floored at 1e-5 of the largest column's (a
+    ray's cotangents carry its path to the reference sphere, ~7e6 waves
+    on the Schmidt plate: the mu column cancels to ~3e-7 of the largest
+    and is off by up to 2e-15 of it, float64 rounding); each wrapper
+    launches its kernel once a call and falls back to no plain
+    version."""
+    tabs, specs, tab, (radius, lam), half = _freeform_stack(name,
+                                                            cuda_device)
+    assert any(sp.freeform for sp in specs)
+    f64 = dtype == torch.float64
+    n = 1 << 14
+    rng = np.random.RandomState(6)
+    xy = rng.uniform(-half, half, (2, n))*(1.5 if clip else 1.)
+    uv = rng.uniform(-.03, .03, (2, n))
+    xy[:, 0] = uv[:, 0] = 0.
+    uz = np.sqrt(1 - np.square(uv).sum(0))
+    state = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(cuda_device,
+                                                               dtype)
+                  for c in (*xy, np.zeros(n), *uv, uz))
+    w = torch.full((n,), 1/n, dtype=dtype, device=cuda_device)
     wrappers = (CT.trace_multi, CG.weighted_moments_multi,
                 CG.merit_adjoint_multi, CG.opd_chain, CG.opd_adjoint)
     before = [f.launches for f in wrappers]
-    calls = (lambda: CT.trace_multi(tabs, specs, state),
-             lambda: CT.trace_multi(tabs, specs, state, merit=True),
-             lambda: CG.weighted_moments_multi(tabs, specs, state, w),
-             lambda: CG.merit_adjoint_multi(tabs, specs, state, w, ct),
-             lambda: CG.opd_chain(tab, specs, state, aux),
-             lambda: CG.opd_adjoint(tab, specs, state, aux, cts))
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-            call()
-    assert [f.launches for f in wrappers] == before
-    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
+    tol = 1e-12 if f64 else 5e-5
+    if not clip:
+        got = CT.trace_multi(tabs, specs, state)
+        ref = CT.trace_multi_reference(tabs, specs, state)
+        mom = CT.trace_multi(tabs, specs, state, merit=True)
+        mref = CT.trace_multi_reference(tabs, specs, state, merit=True)
+        for li in range(3):
+            for g, r in zip((*got[li][0], got[li][1]),
+                            (*ref[li][0], ref[li][1])):
+                g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+                if f64:
+                    nptest.assert_array_equal(np.isnan(g), np.isnan(r))
+                ok = np.isfinite(g) & np.isfinite(r)
+                assert ok.mean() > .5
+                nptest.assert_allclose(g[ok], r[ok], rtol=0, atol=tol*max(
+                    1., np.abs(r[ok]).max()))
+            a = torch.stack(mom[li]).double().cpu()
+            b = torch.stack(mref[li]).double().cpu()
+            assert float((a - b).abs().max()) <= (1e-10 if f64 else 1e-4)*max(
+                float(b.abs().max()), 1.)
+    wm = CG.weighted_moments_multi(tabs, specs, state, w, clip)
+    wref = CG.weighted_moments_multi_reference(tabs, specs, state, w, clip)
+    a, b = wm.double().cpu(), wref.double().cpu()
+    assert float((a - b).abs().max()) <= (1e-10 if f64 else 1e-4)*max(
+        float(b.abs().max()), 1.)
+    gtol = 1e-9 if f64 else 1e-3
+
+    def close_columns(pg, pref, floor=1e-9):
+        top = float(pref.double().abs().max())
+        for col in range(pg.shape[-1]):
+            assert torch.isfinite(pg[..., col]).all()
+            scale = float(pref[..., col].double().abs().max())
+            if scale:
+                err = float((pg[..., col].double() - pref[..., col].double())
+                            .abs().max())
+                assert err <= gtol*max(scale, floor*top), col
+    nxy = CT.xy_width(tab, specs)
+    ct = torch.tensor([[.3, -.2, .5, 1., .7]]*3, dtype=dtype,
+                      device=cuda_device)
+    pg, _, _ = CG.merit_adjoint_multi(tabs, specs, state, w, ct, clip)
+    pref, _, _ = CG.merit_adjoint_multi_reference(tabs, specs, state, w,
+                                                  ct, clip)
+    nq = CG._nslots(tabs, specs)
+    assert pg.shape == pref.shape == (3, tab.nsurfaces, nq)
+    assert float(pref[..., nq - nxy:].abs().max()) > 0
+    for li in range(3):
+        close_columns(pg[li], pref[li])
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    y0 = torch.stack([c[:1] for c in state[:3]], 1).double()
+    u0 = torch.stack([c[:1] for c in state[3:]], 1).double()
+    yr, _, _ = trace_rays_final(tab, y0, u0, specs=specs)
+    aux = torch.cat([yr[0], torch.tensor([radius, lam/1e-3],
+                                         dtype=torch.float64,
+                                         device=cuda_device)]).to(dtype)
+    k = CG.opd_chain(tab, specs, state, aux, clip)
+    kref = CG.opd_chain_reference(tab, specs, state, aux, clip)
+    g, r = k[0].double().cpu().numpy(), kref[0].double().cpu().numpy()
+    ok = np.isfinite(g) & np.isfinite(r)
+    assert ok.mean() > .5
+    nptest.assert_allclose(g[ok], r[ok], rtol=0, atol=(
+        1e-12 if f64 else 1e-4)*max(1., np.abs(r[ok]).max()))
+    if f64:
+        live = torch.from_numpy(ok).to(cuda_device)
+        gen = torch.Generator(device="cpu").manual_seed(7)
+        cts = tuple(torch.where(live, torch.randn(n, generator=gen,
+                                                  dtype=dtype).to(
+            cuda_device), 0.) for _ in range(3))
+        pg, _, cc = CG.opd_adjoint(tab, specs, state, aux, cts, clip)
+        pref, _, cr = CG.opd_adjoint_reference(tab, specs, state, aux, cts,
+                                               clip)
+        nq = CG._nslots(tab, specs, CS.OPD_SLOTS)
+        assert pg.shape == pref.shape == (tab.nsurfaces, nq)
+        assert float(pref[:, nq - nxy:].abs().max()) > 0
+        close_columns(pg, pref, 1e-5)
+        assert _max_rel(cc, cr) <= 1e-9
+    torch.cuda.synchronize()
+    calls = [2 if not clip else 0, 1, 1, 1, 1 if f64 else 0]
+    assert [f.launches for f in wrappers] == [b + c for b, c in
+                                              zip(before, calls)]
+    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
         D.plan(tab)

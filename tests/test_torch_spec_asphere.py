@@ -423,10 +423,11 @@ ANAMORPHIC = ("biconic", "cylinder", "toroid")
 @pytest.mark.parametrize("name", sorted(EXTENDED))
 def test_extended_rows_still_raise_everywhere(name):
     """Freeform rows are traced by the specialized and the generic plain
-    step and the plain engines and taken by the K1, K2, K4 and K5 keys
-    (tests/test_torch_freeform.py, tests/test_torch_spec_freeform.py);
-    the K3 and K6-K9 keys and the df32 plan raise NotImplementedError on
-    them, naming item 9.5.  Biconic, toroid and cylinder rows are traced now
+    step and the plain engines and taken by every K1-K9 key, each
+    carrying the table's XY width (tests/test_torch_freeform.py,
+    tests/test_torch_spec_freeform.py, tests/test_torch_spec_freeform_
+    paths.py); the df32 plan raises NotImplementedError on them, naming
+    item 9.5, part three.  Biconic, toroid and cylinder rows are traced now
     (tests/test_torch_anamorphic.py): every K1-K9 key takes them, and the
     df32 plan traces them as the JAX package's eager df32 does, word for
     word.  Grating and DOE rows are traced by the plain path and by
@@ -467,14 +468,12 @@ def test_extended_rows_still_raise_everywhere(name):
             assert (key.grating, key.nd) == (name == "grating", nd)
     else:
         nxy = CT.xy_width(tt, specs)
-        for make in keys[:4]:
-            assert make(specs, F64, nxy=nxy).nxy == nxy
-        for make in keys[4:]:
-            with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-                make(specs, F64)
-        for make in opd_keys:
-            with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-                make(specs3, F64)
+        for key in (*(make(specs, F64, nxy=nxy) for make in keys[:5]),
+                    CS.trace_multi_key(specs, F64, 2, nxy=nxy),
+                    CS.trace_multi_key(specs, F64, 2, merit=True, nxy=nxy),
+                    CS.moments_multi_key(specs, F64, False, 2, nxy=nxy),
+                    *(make(specs3, F64, nxy=nxy) for make in opd_keys)):
+            assert key.nxy == nxy
     if name in ANAMORPHIC:
         out, _ = TK.surface_step_spec(state, tt.row(1), specs[1], False)
         assert all(torch.isfinite(c).all() for c in out)
@@ -505,5 +504,5 @@ def test_extended_rows_still_raise_everywhere(name):
                             biconic=True)[0]
     assert torch.isfinite(y).all()
     assert torch.isfinite(CT.trace_final(tt, specs, state)[0][0]).all()
-    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
+    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
         TD.plan(tt)

@@ -8,9 +8,10 @@ rotated, as a mirror and passing), the K5 model of the whole merit
 against the plain version, the plain K5 against the JAX package's
 interpret-mode adjoint kernel on the quadratic XY singlet, the key
 words (F_FREEFORM below LIVE_SHIFT 17), the packed rows and K5's XY
-slots, the baked-out XY slots and their warning, the refusals (K3,
-K6-K9 and df32.plan on freeform rows, naming ROADMAP Queue 1 item 9.5;
-a freeform figure on a biconic base, as the reference), and
+slots, the baked-out XY slots and their warning, every K1-K9 key's
+XY width and df32.plan's refusal (naming ROADMAP Queue 1 item 9.5,
+part three; a freeform figure on a biconic base refused, as the
+reference), and
 optimize_grad(engine="adjoint", select=("xy_poly",),
 scales=freeform_scales) on the Schmidt corrector against the JAX
 package.  The kernels themselves build and run only on a CUDA card
@@ -275,27 +276,30 @@ def test_xy_slots_bake_out_and_warn():
 # -- the refusals -------------------------------------------------------------
 
 def test_the_other_kernels_refuse_freeform_rows():
-    """K3, K6-K9 and df32.plan raise NotImplementedError on a freeform
-    row, naming ROADMAP Queue 1 item 9.5 (parts two and three); K1, K2,
-    K4 and K5 take it.  A freeform figure on a biconic base raises in
-    specialize as the reference's does, and every key and the hand
-    reverse refuse such a spec."""
+    """Every K1-K9 key takes a freeform row and carries the table's XY
+    width (K3's trace and merit, K6, K7, K8 and K9 since item 9.5 part
+    two; the adjoints' XY slots last); only df32.plan raises
+    NotImplementedError on it, naming ROADMAP Queue 1 item 9.5, part
+    three.  A freeform figure on a biconic base raises in specialize as
+    the reference's does, and every key and the hand reverse refuse such
+    a spec."""
     _, tt = tables("aspheric base")
     specs = TK.specialize(tt)
     kw = dict(widths=CT.figure_widths(tt, specs))
     nxy = CT.xy_width(tt, specs)
     for make in (CS.trace_key, CS.merit_key, CS.moments_key,
-                 CS.adjoint_key):
-        assert make(specs, F64, nxy=nxy, **kw).nxy == nxy
-    for make in (lambda sp: CS.trace_multi_key(sp, F64, 3, **kw),
-                 lambda sp: CS.trace_multi_key(sp, F64, 3, merit=True, **kw),
-                 lambda sp: CS.moments_multi_key(sp, F64, False, 3, **kw),
-                 lambda sp: CS.adjoint_multi_key(sp, F64, **kw),
-                 lambda sp: CS.opd_key(sp, F64, **kw),
-                 lambda sp: CS.opd_adjoint_key(sp, F64, **kw)):
-        with pytest.raises(NotImplementedError,
-                           match=r"item 9\.5 \(part two\)"):
-            make(specs)
+                 CS.adjoint_key,
+                 lambda sp, dt, **k: CS.trace_multi_key(sp, dt, 3, **k),
+                 lambda sp, dt, **k: CS.trace_multi_key(sp, dt, 3, merit=True,
+                                                        **k),
+                 lambda sp, dt, **k: CS.moments_multi_key(sp, dt, False, 3,
+                                                          **k),
+                 CS.adjoint_multi_key, CS.opd_key, CS.opd_adjoint_key):
+        key = make(specs, F64, nxy=nxy, **kw)
+        assert key.nxy == nxy
+        if key.kernel in ("k5", "k7", "k9"):
+            assert key.slots == (CS.OPD_SLOTS if key.kernel == "k9"
+                                 else CS.SLOTS) + sum(kw["widths"]) + nxy
     with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
         TD.plan(tt)
     bad = dict(TABLES["quadratic freeform"])
@@ -306,10 +310,10 @@ def test_the_other_kernels_refuse_freeform_rows():
         TK.specialize(TT.table_from_numpy(JT.make_table(**bad)))
     mixed = list(specs)
     mixed[1] = mixed[1]._replace(biconic=True)
-    for make in (CS.trace_key, CS.adjoint_key, CS.opd_key):
+    for make in (CS.trace_key, CS.adjoint_key, CS.opd_key,
+                 CS.adjoint_multi_key, CS.opd_adjoint_key):
         with pytest.raises(NotImplementedError, match="anamorphic base"):
-            make(tuple(mixed), F64, nxy=nxy, **kw) if make is not CS.opd_key \
-                else make(tuple(mixed), F64, **kw)
+            make(tuple(mixed), F64, nxy=nxy, **kw)
     state = _state(*lens_bundle("aspheric base", 4, 1))
     with pytest.raises(NotImplementedError, match="anamorphic base"):
         CG._step_vjp_reference(state, tt.row(1), mixed[1],

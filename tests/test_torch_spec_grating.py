@@ -368,8 +368,10 @@ def test_a_phase_cylinder_and_a_freeform_row_refuse():
     row marks the biconic that made the cylinder; the reverse against
     autograd: tests/test_torch_spec_phase_cylinder.py).  A freeform row
     is traced by the specialized and the generic step and taken by the
-    K1 key (tests/test_torch_freeform.py), and refused by K3's and K8's
-    keys, naming item 9.5 (part two)."""
+    K1, K3 and K8 keys, each carrying the table's XY width
+    (tests/test_torch_freeform.py, tests/test_torch_spec_freeform_
+    paths.py); only the df32 plan refuses it, naming item 9.5, part
+    three."""
     kw = dict(curvature=[0., 1/40., 0.], curvature_dx=[0., -1/40., 0.],
               mu=[1., 1/1.5, 1.], distance=[0., 5., 10.],
               grating_dy=[0., .1, 0.])
@@ -406,11 +408,12 @@ def test_a_phase_cylinder_and_a_freeform_row_refuse():
     assert all(torch.isfinite(c).all() for c in out)
     out, _ = TK.surface_step(state, ft.row(1), False)
     assert all(torch.isfinite(c).all() for c in out)
-    assert CS.trace_key(fspecs, F64, nxy=CT.xy_width(ft, fspecs)).nxy == 5
-    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-        CS.trace_multi_key(fspecs, F64, 2)
-    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-        CS.opd_key(fspecs + fspecs[-1:], F64)
+    nxy = CT.xy_width(ft, fspecs)
+    assert CS.trace_key(fspecs, F64, nxy=nxy).nxy == 5
+    assert CS.trace_multi_key(fspecs, F64, 2, nxy=nxy).nxy == 5
+    assert CS.opd_key(fspecs + fspecs[-1:], F64, nxy=nxy).nxy == 5
+    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
+        TD.plan(ft)
 
 
 # -- the loop -----------------------------------------------------------------

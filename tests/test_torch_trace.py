@@ -177,11 +177,11 @@ def test_surface_step_generic_matches_jax(name):
 
 def test_extended_vocabulary_raises():
     # a freeform row: the last of the vocabulary, traced now by the plain
-    # path and K1 (tests/test_torch_freeform.py; the aspheric,
-    # anamorphic, grating and DOE rows: tests/test_torch_asphere.py,
+    # path and every K1-K9 key (tests/test_torch_freeform.py and
+    # tests/test_torch_spec_freeform_paths.py; the aspheric, anamorphic,
+    # grating and DOE rows: tests/test_torch_asphere.py,
     # tests/test_torch_anamorphic.py and tests/test_torch_grating.py);
-    # what raises is the K3 key (item 9.5, part two) and the df32 plan
-    # (part three)
+    # what raises is the df32 plan (item 9.5, part three)
     jt = JT.make_table(curvature=[0., 1/40.], mu=[1., 1/1.5],
                        xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]])
     tt = TT.table_from_numpy(jt)
@@ -201,9 +201,9 @@ def test_extended_vocabulary_raises():
     assert packed.shape == (2, CT.ROW + 5) and flags[1] & CT.F_FREEFORM
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops import df32 as TD
-    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-        CS.trace_multi_key(specs, torch.float64, 2)
-    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
+    assert CS.trace_multi_key(specs, torch.float64, 2,
+                              nxy=CT.xy_width(tt, specs)).nxy == 5
+    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
         TD.plan(tt)
 
 
