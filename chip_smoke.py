@@ -6029,7 +6029,9 @@ def freeform_forward(s, title, n, n_ref):
     disc), float64 K1 (trace_rays_final_fast, precision "parity") and K2,
     float32 K1 and K2, and the spot RMS of float64 K1's output on the
     first n_ref rays against the CPU float64 plain trace (the generic
-    walk, PARITY_REL, equal NaN masks)."""
+    walk, PARITY_REL, equal NaN masks).  Returns the failures and the
+    first wavelength's aimed bundle with its float64 K1 image and the
+    CPU's spot RMS and live rays (phase_df32_path's `aimed`)."""
     from rayopt_tpu_torch.ops.cuda_trace import (spot_rms_from_moments,
                                                  trace_merit)
     from rayopt_tpu_torch.ops.geometric import trace_rays_final_fast
@@ -6087,9 +6089,12 @@ def freeform_forward(s, title, n, n_ref):
                rel1, masks, t_aim, t_gpu, t_cpu, "ok" if ok else "FAIL"))
         if not ok:
             failures.append("%s %.1f nm" % (title, lam*1e9))
+        if lam == s.wavelengths[0]:
+            aimed = [dict(field=0., y=yc, u=uc, y64=y64, rms_cpu=rms_cpu,
+                          live_cpu=live_cpu, n_ref=n_ref)]
         del yc, uc, y64, u64, y32, u32, state64
     torch.cuda.empty_cache()
-    return failures
+    return failures, aimed
 
 
 def phase_freeform_path(opt_step):
@@ -6103,12 +6108,16 @@ def phase_freeform_path(opt_step):
     N_LOOP_CHECK nrays a bundle), its later steps logged beside the
     double Gauss's (`opt_step` seconds).  Returns the path's launches
     (the forward part's, counted from the caller's reset, and the
-    loop's) and the loop's later-step seconds."""
+    loop's), the loop's later-step seconds and the two correctors'
+    aimed bundles ({lens: freeform_forward's aimed}, the df32 path's)."""
     from rayopt_tpu_torch.parallel import freeform_scales
-    failures = freeform_forward(schmidt_corrector(), "Schmidt corrector",
-                                N_AIMED, N_FF_REF)
-    failures += freeform_forward(zernike_corrector(), "Zernike corrector",
-                                 N_AIMED_LENS, N_FF_REF)
+    failures, schmidt = freeform_forward(schmidt_corrector(),
+                                         "Schmidt corrector", N_AIMED,
+                                         N_FF_REF)
+    more, zernike = freeform_forward(zernike_corrector(),
+                                     "Zernike corrector", N_AIMED_LENS,
+                                     N_FF_REF)
+    failures += more
     if failures:
         raise AssertionError("freeform forward path failed: "
                              + ", ".join(failures))
@@ -6121,7 +6130,8 @@ def phase_freeform_path(opt_step):
                                fields=(0.,), lr=FF_LR)
     log("later steps: designer loop Schmidt corrector %.4f s, double Gauss "
         "%.4f s (%.2fx)" % (step, opt_step, step/opt_step))
-    return {k: v + loop[k] for k, v in forward.items()}, step
+    return ({k: v + loop[k] for k, v in forward.items()}, step,
+            {FF_TIMED: schmidt, "zernike corrector": zernike})
 
 
 def phase_freeform_throughput(card):
@@ -6677,6 +6687,246 @@ def freeform_multi_entries(sources, launches, worst, times, live, ptxas,
     return out
 
 
+# -- the freeform XY rows in K10-K13 -----------------------------------------
+
+#: the degree-7 row of the df32 checks: the aspheric-base lens's row
+#: widened to 35 terms, some zero, with nonzero terms of degree 7 (past
+#: the degree-6 term mask: a dense step, cuda_df32.FIG_XY_DENSE)
+DF32_FF_DEG7 = [1e-4, 0., 3e-3, 0., -2e-3, 2e-5, 0., 0., 1e-5, 1e-6, 0.,
+                2e-6, 0., -1e-6, 0., 3e-8, 0., 0., 0., -2e-8, 1e-9, 0., 0.,
+                0., 0., 0., 2e-9, 0., 0., 4e-11, 0., 0., 0., 0., -3e-11]
+#: the freeform lenses held at all four (fast, clip) pairs and N_CHECK
+#: rays (the Schmidt plates, and the Zernike corrector, whose df32 path
+#: runs the unclipped plans); the others at N_DF32_FF_CUT rays, (fast,
+#: unclipped) and (exact, clipped)
+DF32_FF_FULL = ("schmidt corrector", "figured schmidt", "zernike corrector")
+N_DF32_FF_CUT = 1 << 18
+#: the freeform plans timed against the freeform-free twin's: the seeded
+#: Schmidt plate (all 14 terms) with the plain versions, and the figured
+#: plate (9 terms) beside it at N_GRAD_TIME
+DF32_FF_TIMED = (FF_TIMED, "figured schmidt")
+DF32_FF_SHORT = {FF_TIMED: "schmidt", "figured schmidt": "figured"}
+
+
+def df32_freeform_tables():
+    """make_table keyword arguments of the df32-only freeform lenses: the
+    aspheric-base lens (freeform_tables) with the degree-7 row
+    DF32_FF_DEG7, and with its freeform row decentered and tilted (a
+    general df32 rotation)."""
+    base = freeform_tables()["aspheric base"]
+    zero = [[0.]*3]*4
+    return {"degree-7 freeform": dict(base, xy_poly=[[0.]*35, DF32_FF_DEG7,
+                                                     [0.]*35, [0.]*35]),
+            "tilted freeform": dict(
+                base, tilt=[zero[0], [.02, -.03, .01]] + zero[2:],
+                decenter=[zero[0], [.2, -.1, 0.]] + zero[2:])}
+
+
+@functools.lru_cache(maxsize=None)
+def df32_freeform_cases():
+    """{name: (table on the card, its three wavelength tables, bench
+    bundle function, [(fast, clip), ...] held, rays)} of the df32
+    freeform checks: every freeform lens (freeform_lenses: a system's
+    System.tables, a table lens's anam_stack, mu grown by 0, 1 and 2 %)
+    and the two df32-only tables (df32_freeform_tables)."""
+    from rayopt_tpu_torch.ops.tables import make_table, table_at
+    full = [(True, False), (True, True), (False, False), (False, True)]
+    cut = [(True, False), (False, True)]
+    lenses = {name: (s, table, half)
+              for name, (s, table, _, half) in freeform_lenses().items()}
+    for name, kw in df32_freeform_tables().items():
+        lenses[name] = (None, make_table(**kw), 5.)
+    out = {}
+    for name, (s, table, half) in lenses.items():
+        tabs = s.tables() if s is not None else anam_stack(table)[0]
+        out[name] = (table, [table_at(tabs, li)
+                             for li in range(tabs.curvature.shape[0])],
+                     freeform_bundle_of(half),
+                     full if name in DF32_FF_FULL else cut,
+                     N_CHECK if name in DF32_FF_FULL else N_DF32_FF_CUT)
+    return out
+
+
+def df32_freeform_twin_plans(lens, fast):
+    """((one plan, the three wavelength plans) of a timed freeform lens,
+    the same of the Schmidt corrector's freeform-free twin)."""
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.tables import table_at
+    table, lam_tabs = df32_freeform_cases()[lens][:2]
+    tw = schmidt_corrector([])
+    ttabs = tw.tables()
+    return ((D.plan(table, fast=fast),
+             [D.plan(t, fast=fast) for t in lam_tabs]),
+            (D.plan(tw.table(), fast=fast),
+             [D.plan(table_at(ttabs, li), fast=fast) for li in range(3)]))
+
+
+def df32_freeform_keys():
+    """{tag: key} of the df32 freeform checks, paths and timings: each
+    case of df32_freeform_cases at its (fast, clip) pairs, K10 (with the
+    path) and K12 on its plan, K11 (with the path) and K13 on its three
+    wavelength plans (the Schmidt and Zernike correctors' df32 paths
+    among them); and the freeform-free twin's plans, fast and exact."""
+    from rayopt_tpu_torch.ops import df32 as D
+    keys = {}
+    for name, (table, lam_tabs, _, pairs, _) in \
+            df32_freeform_cases().items():
+        for fast, clip in pairs:
+            keys.update(df32_quad(
+                "%s %s clip=%s" % (name, "fast" if fast else "exact", clip),
+                D.plan(table, clip=clip, fast=fast),
+                [D.plan(t, clip=clip, fast=fast) for t in lam_tabs]))
+    for fast in (True, False):
+        keys.update(df32_quad(
+            "freeform-free twin %s" % ("fast" if fast else "exact"),
+            *df32_freeform_twin_plans(FF_TIMED, fast)[1]))
+    return keys
+
+
+def phase_df32_freeform_check():
+    """K10-K13 against their plain versions on the card on the freeform
+    plans (df32_freeform_cases): the Schmidt plates and the Zernike
+    corrector at N_CHECK bench rays (freeform_bundle_of: slopes within
+    +-0.03) at every (fast, clip) pair, and on the collimated on-axis
+    bundle, fast and exact unclipped; the other lenses (the XY singlet,
+    the quadratic freeform, the freeform on an aspheric base and on a
+    grating row, the degree-7 row, the tilted row) at N_DF32_FF_CUT
+    rays, (fast, unclipped) and (exact, clipped); 1.5x wide when
+    clipped, K10 and K11 with the optical path, K11/K13 on the three
+    wavelength plans.  The kernels round every float32 operation as the
+    plain versions do: the words that differ are counted (0
+    expected)."""
+    from rayopt_tpu_torch.ops import df32 as D
+    worst = dict.fromkeys(DF32_NAMES, 0.)
+    failures = []
+    for name, (table, lam_tabs, bundle, pairs, n) in \
+            df32_freeform_cases().items():
+        log("== K10-K13 vs plain on the card: %s (freeform plans), %d bench "
+            "rays (1.5x wide when clipped), K11/K13 on its 3 wavelength "
+            "plans, with the path, at %s" % (
+                name, n, ", ".join("%s clip=%s" % (
+                    "fast" if f else "exact", c) for f, c in pairs)))
+        bundles = [("", bundle)]
+        if name in DF32_FF_FULL:
+            bundles.append((" collimated", freeform_bundle_of(
+                freeform_lenses()[name][3], 0.)))
+        for what, make in bundles:
+            state64 = make(n, torch.float64, SEED)
+            for fast, clip in pairs:
+                if what and clip:
+                    continue
+                state = df32_state(state64, 1.5 if clip else 1.)
+                tag = "%s%s clip=%s %s plan" % (name, what, clip,
+                                                "fast" if fast else "exact")
+                df32_check_case(tag, D.plan(table, clip=clip, fast=fast),
+                                [D.plan(t, clip=clip, fast=fast)
+                                 for t in lam_tabs],
+                                state, n, worst, failures, (True,))
+                del state
+            del state64
+    if failures:
+        raise AssertionError("df32 kernel disagrees with its plain version "
+                             "on a freeform plan: " + ", ".join(failures))
+    return worst
+
+
+def phase_df32_freeform_path(aimed):
+    """The parity-grade df32 path on the freeform rows: newton_df32_path
+    (its launches counted from a reset just before it) on the Schmidt
+    corrector's and the Zernike corrector's aimed bundles (`aimed`:
+    phase_freeform_path's, field 0; K10's spot RMS on their first
+    N_FF_REF rays against the CPU float64 plain trace, its image
+    positions against float64 K1 on the card, K11/K13 at the other two
+    wavelengths).  Returns {lens: launches}."""
+    return {lens: newton_df32_path(build(), aimed[lens], title)
+            for lens, build, title in (
+                (FF_TIMED, schmidt_corrector, "Schmidt corrector"),
+                ("zernike corrector", zernike_corrector,
+                 "Zernike corrector"))}
+
+
+def phase_df32_freeform_throughput(card):
+    """df32_twin_throughput on the timed freeform plans (DF32_FF_TIMED)
+    against the Schmidt corrector's freeform-free twin's: the seeded
+    plate at N_GRAD_TIME (with the plain versions) and N_BENCH rays, the
+    figured plate at N_GRAD_TIME."""
+    times, live = {}, {}
+    for lens in DF32_FF_TIMED:
+        seeded = lens == FF_TIMED
+        t, lv = df32_twin_throughput(
+            card, "the %s's freeform plans against its freeform-free twin's"
+            % lens, "freeform-free twin",
+            {lens: ((N_GRAD_TIME, N_BENCH) if seeded else (N_GRAD_TIME,),
+                    functools.partial(df32_freeform_twin_plans, lens),
+                    df32_freeform_cases()[lens][2])}, plain=seeded)
+        times.update(t)
+        live.update(lv)
+    return times, live
+
+
+def df32_freeform_entries(launches, worst, times, live, ptxas, sass):
+    """The kernels line's entries of K10-K13 on the freeform plans (named
+    "<kernel>_freeform"): the launches of the freeform df32 paths (the
+    Schmidt and the Zernike correctors', each counted from a reset just
+    before it; summed, and each under "launches_<lens>"), the errors of
+    phase_df32_freeform_check, the times of
+    phase_df32_freeform_throughput (the Schmidt corrector's fast plan at
+    N_GRAD_TIME rays as `ms`, its plain version's as `plain_ms`, exact
+    under "exact_", N_BENCH under "<n>_rays_", the figured plate's under
+    "figured_"), each beside the freeform-free twin's and its bound
+    (df32_bound: df32_newton_ops counts the freeform terms the step
+    holds), and the path keys' registers, spills and SASS."""
+    entries = []
+    for kname in DF32_NAMES:
+        multi = "multi" in kname
+        entry = {"name": kname + "_freeform", "route": "cuda",
+                 "source": "rayopt_tpu_torch/csrc/df32_spec.cuh",
+                 "replaces": DF32_REPLACES[kname],
+                 "launches": sum(c[kname] for c in launches.values()),
+                 "max_abs_err": worst[kname], "library_ms": None,
+                 "rays": N_GRAD_TIME, "wavelengths": 3 if multi else 1}
+        for lens, counts in launches.items():
+            entry["launches_" + lens.split()[0]] = counts[kname]
+        for lens in DF32_FF_TIMED:
+            short = DF32_FF_SHORT[lens]
+            for fast in (True, False):
+                plan = "fast" if fast else "exact"
+                mine, twin = df32_freeform_twin_plans(lens, fast)
+                pl = mine[1] if multi else [mine[0]]
+                tpl = twin[1] if multi else [twin[0]]
+                for n in (N_GRAD_TIME, N_BENCH):
+                    if (kname, lens, plan, n) not in times:
+                        continue
+                    k, t, p = times[(kname, lens, plan, n)]
+                    nl = live[(lens, n)]*len(pl)
+                    b, by = df32_bound(kname, n, pl, nl)
+                    at = "%s%s%s" % ("" if lens == FF_TIMED
+                                     else short + "_",
+                                     "" if fast else "exact_",
+                                     "" if n == N_GRAD_TIME
+                                     else "%d_rays_" % n)
+                    entry.update({at + "ms": k, at + "twin_ms": t,
+                                  at + "bound_ms": b,
+                                  at + "twin_bound_ms": df32_bound(
+                                      kname, n, tpl, nl)[0]})
+                    if p == p:
+                        entry[at + "plain_ms"] = p
+                    if at == "":
+                        entry["bound_by"] = by
+        for lens in ("schmidt corrector", "zernike corrector"):
+            key = "%s %s fast clip=False%s" % (
+                DF32_LOOP_KEYS[kname][:3], lens,
+                " path=True" if "merit" not in kname else "")
+            regs, stack, spill = ptxas[key]
+            short = lens.split()[0]
+            entry.update({"regs_f32_" + short: regs,
+                          "stack_bytes_f32_" + short: stack,
+                          "spill_bytes_f32_" + short: spill,
+                          "sass_instructions_" + short: sass[key][0]})
+        entries.append(entry)
+    return entries
+
+
 def xy_flops(nxy):
     """Operations of a freeform row's XY figure for nxy terms
     (ops.kernels._xy_terms; csrc/trace_common.cuh poly_xy and dpoly_xy,
@@ -6973,9 +7223,11 @@ def phase_df32_check(s):
     plans, the optical path off and on, K11/K13 at the 3 wavelengths;
     then every Newton lens (df32_newton_lenses: aspheric rows,
     cylinders, biconics and toroids, figured or not) on its own bench
-    bundle the same way, with the path.  The kernels round every
-    float32 operation as the plain versions do, so their words should be
-    identical (counted); moments are summed in another order."""
+    bundle the same way, with the path (the phase and freeform rows:
+    phase_df32_phase_check, phase_df32_freeform_check).  The kernels
+    round every float32 operation as the plain versions do, so their
+    words should be identical (counted); moments are summed in another
+    order."""
     from rayopt_tpu_torch.ops import df32 as D
     from rayopt_tpu_torch.ops.tables import table_at
     table, tabs = s.table(), s.tables()
@@ -8157,6 +8409,8 @@ def df32_newton_ops(step):
         normal = (4*o["mul"] + 2*o["add"]
                   + (0 if an["circular"] else 2*o["sqr"] + o["add"]))
         return cept, normal
+    if an["mode"] == "freeform":
+        return df32_freeform_ops(step, dv, sq)
     na, no = len(an["asp"]), len(an["asp_odd"])
     pe, de, po, do = _df_figure_ops(na, no, dv, sq)
     if an["mode"] == "toroid":
@@ -8183,6 +8437,56 @@ def df32_newton_ops(step):
     seed = 37 + 6*(13 + sag32)
     rnd = point + sag + normal + 2*o["mul"] + 2*o["add"] + 1 + dv + o["add"]
     return seed + iters*rnd + point + sag + 3, normal
+
+
+def df32_freeform_ops(step, dv, sq):
+    """df32_newton_ops of a freeform row, over the XY terms its packed
+    step holds (cuda_df32.xy_terms: the mask's, or every term of a dense
+    row's degree): the float32 seed (intercept_conic_32, ANAM_F32_ITERS
+    steps of sag_normal_freeform_32: the base's sag and radial factor,
+    the powers, a product and a sum a value term, the slope terms'
+    products and sums), the df32 rounds (the point, the powers, shared
+    by the sag and the normal at one point, sag_freeform_df,
+    normal_freeform_df, the slope and the update), the residual test,
+    then the normal at the intercept with its powers."""
+    from rayopt_tpu_torch.ops.cuda_df32 import _step_words, xy_terms
+    o = DF_OPS
+    an = step["anam"]
+    terms = xy_terms(_step_words(step)[1])
+    na, no = len(an["asp"]), len(an["asp_odd"])
+    pe, de, po, do = _df_figure_ops(na, no, dv, sq)
+    pw = (max(max(i for i, _ in terms) - 1, 0)
+          + max(max(j for _, j in terms) - 1, 0))   # a product a power
+
+    def poly(exps):
+        # a product a monomial of two powers, one a term, a sum a term
+        # after the first
+        muls = sum((i > 0 or j > 0) + (i > 0 and j > 0) for i, j in exps)
+        return muls*o["mul"] + (len(exps) - 1)*o["add"]
+    sx = [(i - 1, j) for i, j in terms if i]
+    sy = [(i, j - 1) for i, j in terms if j]
+    sag = (2*o["sqr"] + 3*o["mul"] + 4*o["add"] + sq + dv
+           + (o["add"] + pe if na else 0) + (o["add"] + sq + po if no else 0)
+           + poly(terms) + o["add"])
+    normal = (3*o["sqr"] + 4*o["mul"] + 2*o["add"] + sq + dv
+              + (o["add"] + de if na else 0)
+              + (o["add"] + sq + do if no else 0)
+              + (poly(sx) + o["add"] if sx else 0)
+              + (poly(sy) + o["add"] if sy else 0))
+    powers = pw*o["mul"]
+    t32 = sum(2 + (i > 0 and j > 0)
+              + (2 + (i > 1 and j > 0) + (i > 1 or j > 0) if i else 0)
+              + (2 + (j > 1 and i > 0) + (j > 1 or i > 0) if j else 0)
+              for i, j in terms)
+    sag32 = (16 + (2*na + 1 if na else 0) + (2*no + 3 if no else 0)
+             + (3*na + 1 if na else 0) + (5*no + 4 if no else 0)
+             + pw + t32 + 5)
+    iters = 2 + (0 if step["fast"] else 1)
+    seed = 37 + 6*(13 + sag32)
+    point = 3*(o["mul"] + o["add"])
+    rnd = (point + powers + sag + normal + 2*o["mul"] + 2*o["add"] + 1 + dv
+           + o["add"])
+    return seed + iters*rnd + point + powers + sag + 3, normal + powers
 
 
 def df32_phase_ops(step):
@@ -8809,6 +9113,7 @@ def main():
     keys.update(phase_cylinder_keys())
     keys.update(freeform_keys())
     keys.update(freeform_multi_keys())
+    keys.update(df32_freeform_keys())
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -8919,7 +9224,7 @@ def main():
     fworst = phase_freeform_check()
     fmworst = phase_freeform_multi_check()
     reset_launches()
-    ff_launches, ff_step = phase_freeform_path(opt_step)
+    ff_launches, ff_step, ff_aimed = phase_freeform_path(opt_step)
     log("== launch counts on the freeform path: %s" % ff_launches)
     if not all(ff_launches[k] for k in ("trace_final", "trace_merit",
                                         "weighted_moments",
@@ -8932,6 +9237,11 @@ def main():
     if not all(ffl_launches[k] for k in multi + opd):
         raise AssertionError("a kernel of the freeform loops never "
                              "launched: %s" % ffl_launches)
+    torch.cuda.empty_cache()
+    dfworst = phase_df32_freeform_check()
+    dff_launches = phase_df32_freeform_path(ff_aimed)
+    del ff_aimed
+    torch.cuda.empty_cache()
     ptimes = phase_grating_throughput(card)
     pmtimes, pmlive = phase_multi_throughput_grating(card)
     ntimes, nlive = phase_anamorphic_throughput(card)
@@ -8946,6 +9256,7 @@ def main():
     ctimes, clive = phase_cylinder_throughput(card)
     fftimes = phase_freeform_throughput(card)
     fmtimes, fmlive = phase_freeform_multi_throughput(card)
+    dftimes, dflive = phase_df32_freeform_throughput(card)
     _, atab, aspecs, _ = asphere_cases()["aspheric double Gauss"]
     atimes = phase_throughput(atab, aspecs, card, N_GRAD_TIME,
                               (table, specs), N_BENCH,
@@ -9132,6 +9443,8 @@ def main():
     kernels += freeform_multi_entries(
         sources, ffl_launches, fmworst, fmtimes, fmlive, ptxas, ffl_steps,
         {"achromatization": glass_step, "design": design_step})
+    kernels += df32_freeform_entries(dff_launches, dfworst, dftimes, dflive,
+                                     ptxas, sass)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())
     log("== keys built at first use, outside phase_spec_build: %d %s"

@@ -40,12 +40,17 @@ constexpr int W_FIG = DW;  // a figure's words, by its row kind:
 // a biconic or toroid: cx, cy, cr, (1 + kx) cx^2, (1 + ky) cy^2 (pairs),
 // the seed's float32 kx and ky, then the even and odd coefficients
 // (pairs; the seed reads their hi words, and those of cx, cy and cr);
+// a freeform row (the base's c and 1 + conic are W_C and W_K1): the
+// seed's float32 conic, the base's even and odd coefficients (pairs),
+// then the XY figure's value terms a, x-slope terms i a and y-slope terms
+// j a (pairs, in term order; xy_terms);
 // then a phase row's words (phase_at): grating_dy (a pair, G_GRATING),
 // the DOE's kick coefficients 2 (i + 1) a_i and its path coefficients
 // a_i n_after / n_before (nd pairs each, G_DOE)
 constexpr int A_C1 = 0, A_K1 = 2, A_K1C = 4, A_BC = 6, CYL_WORDS = 6;
 constexpr int A_CX = 0, A_CY = 2, A_CR = 4, A_BXC = 6, A_BYC = 8, A_KX = 10,
               A_KY = 11, A_COEF = 12;
+constexpr int F_KY = 0, F_COEF = 1;
 
 // flag bits of a step's 64-bit flag word: keep in sync with cuda_df32.py
 // (G_*)
@@ -68,8 +73,14 @@ constexpr Flag G_GRATING = 1LL << 31;    // a linear grating: grating_dy
 constexpr Flag G_DOE = 1LL << 32;        // a radial diffractive phase
 constexpr int G_ND_SHIFT = 33;           // 4 bits: its coefficients
 constexpr Flag G_PHASE = G_GRATING | G_DOE;
+// bits 37-63: a freeform row's XY terms, one bit a term of the triangular
+// order (FIG_FREEFORM, up to XY_MASK_TERMS: degree 6), or the degree of
+// a dense row (FIG_XY_DENSE: every term of the degree, zeros included)
+constexpr int G_XY_SHIFT = 37;
+constexpr int XY_MASK_TERMS = 27;
 constexpr int FIG_NONE = 0, FIG_RADIAL = 1, FIG_CYL_Y = 2, FIG_CYL_X = 3,
-              FIG_BICONIC = 4, FIG_TOROID = 5;
+              FIG_BICONIC = 4, FIG_TOROID = 5, FIG_FREEFORM = 6,
+              FIG_XY_DENSE = 7;
 
 __host__ __device__ constexpr int fig_of(Flag fl) {
   return int((fl >> G_FIG_SHIFT) & 7);
@@ -84,14 +95,65 @@ __host__ __device__ constexpr int nd_of(Flag fl) {
   return int((fl >> G_ND_SHIFT) & 15);
 }
 
+// -- a freeform row's XY terms (cuda_df32.xy_terms) ---------------------------
+//
+// Term t of the triangular order (xy_term_i, xy_term_j: trace_common.cuh)
+// has a value term (a, i, j), an x-slope term (i a, i - 1, j) where i > 0
+// and a y-slope term (j a, i, j - 1) where j > 0 (KIND 0, 1, 2).
+
+__host__ __device__ constexpr bool freeform_fig(int fig) {
+  return fig == FIG_FREEFORM || fig == FIG_XY_DENSE;
+}
+
+// the mask (FIG_FREEFORM) or the degree (FIG_XY_DENSE)
+__host__ __device__ constexpr long long xy_field(Flag fl) {
+  return (fl >> G_XY_SHIFT) & ((1LL << (64 - G_XY_SHIFT)) - 1);
+}
+
+// the terms t < xy_slots whose words a step holds
+__host__ __device__ constexpr int xy_slots(Flag fl) {
+  return fig_of(fl) == FIG_XY_DENSE
+             ? int(xy_field(fl) * (xy_field(fl) + 3) / 2)
+             : fig_of(fl) == FIG_FREEFORM ? XY_MASK_TERMS : 0;
+}
+
+__host__ __device__ constexpr bool xy_holds(Flag fl, int t, int kind) {
+  return t < xy_slots(fl) &&
+         (fig_of(fl) == FIG_XY_DENSE || ((xy_field(fl) >> t) & 1)) &&
+         (kind == 0 || (kind == 1 ? xy_term_i(t) > 0 : xy_term_j(t) > 0));
+}
+
+// the pairs of kind before term t (t = xy_slots: all of them)
+__host__ __device__ constexpr int xy_rank(Flag fl, int t, int kind) {
+  int r = 0;
+  for (int q = 0; q < t; ++q) r += xy_holds(fl, q, kind);
+  return r;
+}
+
+// the highest total degree of the step's terms
+__host__ __device__ constexpr int xy_top(Flag fl) {
+  int d = 0;
+  for (int t = 0; t < xy_slots(fl); ++t)
+    if (xy_holds(fl, t, 0) && xy_term_d(t) > d) d = xy_term_d(t);
+  return d;
+}
+
+// the first word of the step's pairs of kind
+__host__ __device__ constexpr int xy_at(Flag fl, int kind) {
+  int at = DW + F_COEF + 2 * (na_of(fl) + no_of(fl));
+  for (int k = 0; k < kind; ++k) at += 2 * xy_rank(fl, xy_slots(fl), k);
+  return at;
+}
+
 // The first word of a step's phase words: DW and its figure's.
 __host__ __device__ constexpr int phase_at(Flag fl) {
   const int fig = fig_of(fl), coef = 2 * (na_of(fl) + no_of(fl));
-  return DW + (fig == FIG_RADIAL ? coef
-               : fig == FIG_CYL_Y || fig == FIG_CYL_X
-                   ? CYL_WORDS + ((fl & G_PHASE) ? 2 : 0)
-               : fig == FIG_BICONIC || fig == FIG_TOROID ? A_COEF + coef
-               : 0);
+  return freeform_fig(fig) ? xy_at(fl, 3)
+         : DW + (fig == FIG_RADIAL ? coef
+                 : fig == FIG_CYL_Y || fig == FIG_CYL_X
+                     ? CYL_WORDS + ((fl & G_PHASE) ? 2 : 0)
+                 : fig == FIG_BICONIC || fig == FIG_TOROID ? A_COEF + coef
+                 : 0);
 }
 
 // The words of a step: DW, its figure's and its phase words
@@ -339,29 +401,28 @@ __device__ __forceinline__ df less_figure_df(df e, df r2, W w, int at,
   return e;
 }
 
-// z - sag of an aspheric row (_sag_df), its figure at w[W_FIG]
-template <int NA, int NO, typename W>
+// z - sag of an aspheric row (_sag_df), its figure at w[AT]
+template <int NA, int NO, int AT = W_FIG, typename W>
 __device__ __forceinline__ df sag_df(W w, df x, df y, df z, df c, df k1,
                                      bool fast) {
   const df one = {1.f, 0.f};
   const df r2 = add(sqr(x), sqr(y));
   const df cr2 = mul(c, r2);
   const df den = add(one, sq(sub(one, mul(k1, mul(c, cr2))), fast));
-  return less_figure_df<NA, NO>(sub(z, dv(cr2, den, fast)), r2, w, W_FIG,
-                                fast);
+  return less_figure_df<NA, NO>(sub(z, dv(cr2, den, fast)), r2, w, AT, fast);
 }
 
 // the radial factor e of an aspheric row's normal (x e, y e, 1)
-// (_normal_radial_df)
-template <int NA, int NO, typename W>
+// (_normal_radial_df), its figure at w[AT]
+template <int NA, int NO, int AT = W_FIG, typename W>
 __device__ __forceinline__ df normal_radial_df(W w, df x, df y, df c, df k1,
                                                bool fast) {
   const df one = {1.f, 0.f};
   const df r2 = add(sqr(x), sqr(y));
   df e = neg(dv(c, sq(sub(one, mul(k1, mul(sqr(c), r2))), fast), fast));
-  if constexpr (NA > 0) e = sub(e, dpoly_even_df<NA>(r2, w, W_FIG));
+  if constexpr (NA > 0) e = sub(e, dpoly_even_df<NA>(r2, w, AT));
   if constexpr (NO > 0)
-    e = sub(e, dpoly_odd_df<NO>(r2, sq(r2, fast), w, W_FIG + 2 * NA, fast));
+    e = sub(e, dpoly_odd_df<NO>(r2, sq(r2, fast), w, AT + 2 * NA, fast));
   return e;
 }
 
@@ -458,18 +519,106 @@ __device__ __forceinline__ void normal_toroid_df(W w, df x, df y, bool fast,
   gy = neg(dv(dzy, wr, fast));
 }
 
-template <int FIG, int NA, int NO, typename W>
+// p = [-, v, v^2, ..., v^D] by repeated df32 products (_xy_pows_df)
+template <int D>
+__device__ __forceinline__ void xy_pows_df(df v, df* p) {
+  if constexpr (D > 0) p[1] = v;
+#pragma unroll
+  for (int d = 2; d <= D; ++d) p[d] = mul(p[d - 1], v);
+}
+
+// The XY figure's terms of KIND (0 value, 1 x slope, 2 y slope) in df32
+// (_poly_xy_df): each term the step holds, in term order, its pair read
+// where it is used; a (0, 0) exponent is the constant itself; the sum
+// starts from the first.  The terms are a compile-time list (xy_holds):
+// no other term costs anything.  At least one term.
+template <Flag FL, int KIND, typename W>
+__device__ __forceinline__ df poly_xy_df(W w, const df* xp, const df* yp) {
+  df acc;
+  static_for(std::make_integer_sequence<int, xy_slots(FL)>{}, [&](auto tc) {
+    constexpr int t = decltype(tc)::value;
+    if constexpr (xy_holds(FL, t, KIND)) {
+      constexpr int i = xy_term_i(t) - (KIND == 1);
+      constexpr int j = xy_term_j(t) - (KIND == 2);
+      constexpr int r = xy_rank(FL, t, KIND);
+      const df cdf = ld(w, xy_at(FL, KIND) + 2 * r);
+      df term;
+      if constexpr (i == 0 && j == 0) {
+        term = cdf;
+      } else {
+        df m;
+        if constexpr (i > 0) m = xp[i];
+        else m = yp[j];
+        if constexpr (i > 0 && j > 0) m = mul(m, yp[j]);
+        term = mul(cdf, m);
+      }
+      if constexpr (r == 0) acc = term;
+      else acc = add(acc, term);
+    }
+  });
+  return acc;
+}
+
+// a freeform row's base 1 + conic: W_K1, or 1 exactly without a conic
+template <Flag FL, typename W>
+__device__ __forceinline__ df freeform_k1(W w) {
+  if constexpr ((FL & G_CONIC) != 0) return ld(w, W_K1);
+  else return df{1.f, 0.f};
+}
+
+// z - freeform sag (_sag_freeform_df): the base less the value terms
+template <Flag FL, typename W>
+__device__ __forceinline__ df sag_freeform_df(W w, df x, df y, df z,
+                                              bool fast) {
+  constexpr int D = xy_top(FL);
+  df xp[D + 1], yp[D + 1];
+  xy_pows_df<D>(x, xp);
+  xy_pows_df<D>(y, yp);
+  return sub(sag_df<na_of(FL), no_of(FL), W_FIG + F_COEF>(
+                 w, x, y, z, ld(w, W_C), freeform_k1<FL>(w), fast),
+             poly_xy_df<FL, 0>(w, xp, yp));
+}
+
+// (gx, gy) of the freeform normal (_normal_freeform_df): the base's
+// radial factor times (x, y) less the slope terms
+template <Flag FL, typename W>
+__device__ __forceinline__ void normal_freeform_df(W w, df x, df y,
+                                                   bool fast, df& gx,
+                                                   df& gy) {
+  constexpr int D = xy_top(FL);
+  df xp[D + 1], yp[D + 1];
+  xy_pows_df<D>(x, xp);
+  xy_pows_df<D>(y, yp);
+  const df e = normal_radial_df<na_of(FL), no_of(FL), W_FIG + F_COEF>(
+      w, x, y, ld(w, W_C), freeform_k1<FL>(w), fast);
+  gx = mul(x, e);
+  gy = mul(y, e);
+  if constexpr (xy_rank(FL, xy_slots(FL), 1) > 0)
+    gx = sub(gx, poly_xy_df<FL, 1>(w, xp, yp));
+  if constexpr (xy_rank(FL, xy_slots(FL), 2) > 0)
+    gy = sub(gy, poly_xy_df<FL, 2>(w, xp, yp));
+}
+
+// the sag and normal of a Newton row of flags FL: a biconic, a toroid or
+// a freeform row
+template <Flag FL, typename W>
 __device__ __forceinline__ df sag_anam_df(W w, df x, df y, df z, bool fast) {
-  if constexpr (FIG == FIG_TOROID)
+  constexpr int FIG = fig_of(FL), NA = na_of(FL), NO = no_of(FL);
+  if constexpr (freeform_fig(FIG))
+    return sag_freeform_df<FL>(w, x, y, z, fast);
+  else if constexpr (FIG == FIG_TOROID)
     return sag_toroid_df<NA, NO>(w, x, y, z, fast);
   else
     return sag_biconic_df<NA, NO>(w, x, y, z, fast);
 }
 
-template <int FIG, int NA, int NO, typename W>
+template <Flag FL, typename W>
 __device__ __forceinline__ void normal_anam_df(W w, df x, df y, bool fast,
                                                df& gx, df& gy) {
-  if constexpr (FIG == FIG_TOROID)
+  constexpr int FIG = fig_of(FL), NA = na_of(FL), NO = no_of(FL);
+  if constexpr (freeform_fig(FIG))
+    normal_freeform_df<FL>(w, x, y, fast, gx, gy);
+  else if constexpr (FIG == FIG_TOROID)
     normal_toroid_df<NA, NO>(w, x, y, fast, gx, gy);
   else
     normal_biconic_df<NA, NO>(w, x, y, fast, gx, gy);
@@ -560,13 +709,86 @@ __device__ __forceinline__ float less_figure_32(float e, float r2, W w,
   return e;
 }
 
-// The float32 sag and (gx, gy) of a biconic (FIG_BICONIC) or toroid row
-// at (x, y, z) (_sag_*_32, _normal_*_32).
-template <int FIG, int NA, int NO, typename W>
+// v^0 .. v^D by repeated float32 products (kernels._xy_pows)
+template <int D>
+__device__ __forceinline__ void xy_pows_32(float v, float* p) {
+  if constexpr (D > 0) p[1] = v;
+#pragma unroll
+  for (int d = 2; d <= D; ++d) p[d] = fm(p[d - 1], v);
+}
+
+// A freeform row's float32 sag and normal (_sag_freeform_32,
+// _normal_freeform_32: kernels.sag less kernels._poly_xy, and
+// kernels.normal_freeform).  The coefficients are the hi words of the
+// value pairs; the reference's seed also adds the row's zero terms,
+// 0 * m, an exact zero on finite values: only the terms the step holds
+// are added here.
+template <Flag FL, typename W>
+__device__ __forceinline__ void sag_normal_freeform_32(W w, float x, float y,
+                                                       float z, float& fn,
+                                                       float& gx, float& gy) {
+  constexpr int NA = na_of(FL), NO = no_of(FL), D = xy_top(FL);
+  constexpr int at = W_FIG + F_COEF;
+  const float c = w[W_C];
+  const float r2 = fa(fm(x, x), fm(y, y));
+  const float root = sqrt0_32(
+      fs(1.f, fm(fm(fm(fa(1.f, w[W_FIG + F_KY]), c), c), r2)));
+  const float e = less_figure_32<NA, NO>(fs(z, fd(fm(c, r2), fa(1.f, root))),
+                                         r2, w, at);
+  float er = fd(-c, root);
+  if constexpr (NA > 0) er = fs(er, dpoly_even_32<NA>(r2, w, at));
+  if constexpr (NO > 0) er = fs(er, dpoly_odd_32<NO>(r2, w, at + 2 * NA));
+  float xp[D + 1], yp[D + 1];
+  xy_pows_32<D>(x, xp);
+  xy_pows_32<D>(y, yp);
+  float pv = 0.f, px = 0.f, py = 0.f;
+  static_for(std::make_integer_sequence<int, xy_slots(FL)>{}, [&](auto tc) {
+    constexpr int t = decltype(tc)::value;
+    if constexpr (xy_holds(FL, t, 0)) {
+      constexpr int i = xy_term_i(t), j = xy_term_j(t);
+      const float a = w[xy_at(FL, 0) + 2 * xy_rank(FL, t, 0)];
+      float m;
+      if constexpr (i > 0) m = xp[i];
+      else m = yp[j];
+      if constexpr (i > 0 && j > 0) m = fm(m, yp[j]);
+      pv = fa(pv, fm(a, m));
+      // the slopes (i a) x^(i-1) y^j and (j a) y^(j-1) x^i, each
+      // monomial's powers multiplied as kernels._dpoly_xy does
+      if constexpr (i > 0) {
+        const float ia = fm(float(i), a);
+        if constexpr (i > 1 && j > 0)
+          px = fa(px, fm(ia, fm(xp[i - 1], yp[j])));
+        else if constexpr (i > 1) px = fa(px, fm(ia, xp[i - 1]));
+        else if constexpr (j > 0) px = fa(px, fm(ia, yp[j]));
+        else px = fa(px, ia);
+      }
+      if constexpr (j > 0) {
+        const float ja = fm(float(j), a);
+        if constexpr (j > 1 && i > 0)
+          py = fa(py, fm(ja, fm(yp[j - 1], xp[i])));
+        else if constexpr (j > 1) py = fa(py, fm(ja, yp[j - 1]));
+        else if constexpr (i > 0) py = fa(py, fm(ja, xp[i]));
+        else py = fa(py, ja);
+      }
+    }
+  });
+  fn = fs(e, pv);
+  gx = fs(fm(x, er), px);
+  gy = fs(fm(y, er), py);
+}
+
+// The float32 sag and (gx, gy) of a biconic (FIG_BICONIC), toroid or
+// freeform row at (x, y, z) (_sag_*_32, _normal_*_32).
+template <Flag FL, typename W>
 __device__ __forceinline__ void sag_normal_32(W w, float x, float y, float z,
                                               float& fn, float& gx,
                                               float& gy) {
+  constexpr int FIG = fig_of(FL), NA = na_of(FL), NO = no_of(FL);
   constexpr int at = W_FIG + A_COEF;
+  if constexpr (freeform_fig(FIG)) {
+    sag_normal_freeform_32<FL>(w, x, y, z, fn, gx, gy);
+    return;
+  }
   const float cy = w[W_FIG + A_CY], ky = w[W_FIG + A_KY];
   if constexpr (FIG == FIG_TOROID) {
     const float cr = w[W_FIG + A_CR];
@@ -658,22 +880,24 @@ __device__ __forceinline__ df intercept_cyl_df(W w, df wv, df z, df uw, df uz,
   return dv(num, den, fast);
 }
 
-// A biconic's or toroid's mixed-precision Newton (_intercept_anam_df):
-// the float32 y-conic seed (the vertex plane where it misses), float32
-// steps, df32 rounds, the residual test.
-template <int FIG, int NA, int NO, typename W>
+// A biconic's, toroid's or freeform row's mixed-precision Newton
+// (_intercept_anam_df): the float32 y-conic seed (a freeform row's base
+// conic; the vertex plane where it misses), float32 steps, df32 rounds,
+// the residual test.
+template <Flag FL, typename W>
 __device__ __forceinline__ df intercept_anam_df(W w, df x, df y, df z, df ux,
                                                 df uy, df uz, bool alt,
                                                 bool fast) {
+  constexpr bool ff = freeform_fig(fig_of(FL));
   float s32 = intercept_conic_32(x.hi, y.hi, z.hi, ux.hi, uy.hi, uz.hi,
-                                 w[W_FIG + A_CY], w[W_FIG + A_KY], alt);
+                                 ff ? w[W_C] : w[W_FIG + A_CY],
+                                 ff ? w[W_FIG + F_KY] : w[W_FIG + A_KY], alt);
   if (isnan(s32)) s32 = fd(-z.hi, uz.hi == 0.f ? 1.f : uz.hi);
 #pragma unroll 1
   for (int it = 0; it < ANAM_F32_ITERS; ++it) {
     float fn, gx, gy;
-    sag_normal_32<FIG, NA, NO>(w, fa(x.hi, fm(s32, ux.hi)),
-                               fa(y.hi, fm(s32, uy.hi)),
-                               fa(z.hi, fm(s32, uz.hi)), fn, gx, gy);
+    sag_normal_32<FL>(w, fa(x.hi, fm(s32, ux.hi)), fa(y.hi, fm(s32, uy.hi)),
+                      fa(z.hi, fm(s32, uz.hi)), fn, gx, gy);
     float fp = fa(fa(fm(ux.hi, gx), fm(uy.hi, gy)), uz.hi);
     if (fp == 0.f) fp = 1.f;
     s32 = fs(s32, fd(fn, fp));
@@ -683,15 +907,14 @@ __device__ __forceinline__ df intercept_anam_df(W w, df x, df y, df z, df ux,
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
     const df px = add(x, mul(s, ux)), py = add(y, mul(s, uy));
-    const df fn = sag_anam_df<FIG, NA, NO>(w, px, py, add(z, mul(s, uz)),
-                                           fast);
+    const df fn = sag_anam_df<FL>(w, px, py, add(z, mul(s, uz)), fast);
     df gx, gy;
-    normal_anam_df<FIG, NA, NO>(w, px, py, fast, gx, gy);
+    normal_anam_df<FL>(w, px, py, fast, gx, gy);
     df fp = add(add(mul(ux, gx), mul(uy, gy)), uz);
     if (fp.hi == 0.f) fp = {1.f, 0.f};  // NaN stays
     s = sub(s, dv(fn, fp, fast));
   }
-  return residual_test(s, sag_anam_df<FIG, NA, NO>(
+  return residual_test(s, sag_anam_df<FL>(
       w, add(x, mul(s, ux)), add(y, mul(s, uy)), add(z, mul(s, uz)), fast));
 }
 
@@ -816,7 +1039,8 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
   constexpr bool conic = FL & G_CONIC;
   constexpr bool alt = FL & G_ALTERNATE;
   constexpr bool cyl = FIG == FIG_CYL_Y || FIG == FIG_CYL_X;
-  constexpr bool newton = FIG == FIG_BICONIC || FIG == FIG_TOROID;
+  constexpr bool newton =
+      FIG == FIG_BICONIC || FIG == FIG_TOROID || freeform_fig(FIG);
   const df one = {1.f, 0.f};
   z = sub(z, ld(w, W_DZ));
   if (FL & G_OFF_AXIS) {
@@ -831,7 +1055,7 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
   } else if constexpr (FIG == FIG_CYL_X) {
     s = intercept_cyl_df(w, x, z, ux, uz, alt, fast);
   } else if constexpr (newton) {
-    s = intercept_anam_df<FIG, NA, NO>(w, x, y, z, ux, uy, uz, alt, fast);
+    s = intercept_anam_df<FL>(w, x, y, z, ux, uy, uz, alt, fast);
   } else if constexpr (flat) {
     s = neg(dv(z, uz, fast));
   } else {
@@ -890,9 +1114,9 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
   }
   if constexpr (grating || doe) {
     // the substrate's normal (gx, gy, 1): a cylinder's in its curved
-    // axis, a biconic's or toroid's, the radial one of a curved or
-    // figured row; none on a plane.  Before the passthrough: a grating
-    // row in air still diffracts.
+    // axis, a biconic's, toroid's or freeform row's, the radial one of a
+    // curved or figured row; none on a plane.  Before the passthrough: a
+    // grating row in air still diffracts.
     constexpr bool plane = FIG == FIG_NONE && flat;
     const df zero = {0.f, 0.f};
     df gx = zero, gy = zero;
@@ -901,7 +1125,7 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
     } else if constexpr (FIG == FIG_CYL_X) {
       gx = normal_cyl_df(w, x, fast);
     } else if constexpr (newton) {
-      normal_anam_df<FIG, NA, NO>(w, x, y, fast, gx, gy);
+      normal_anam_df<FL>(w, x, y, fast, gx, gy);
     } else if constexpr (!plane) {
       const df e = normal_radial_df<NA, NO>(w, x, y, c,
                                             conic ? ld(w, W_K1) : one, fast);
@@ -960,7 +1184,7 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
       }
     } else {
       // the generic normal (nx, ny, 1) of an aspheric row (a flat one
-      // too) or a biconic or toroid row
+      // too) or a biconic, toroid or freeform row
       if constexpr (FIG == FIG_RADIAL) {
         const df e = normal_radial_df<NA, NO>(w, x, y, c,
                                               conic ? ld(w, W_K1) : one,
@@ -968,7 +1192,7 @@ __device__ __forceinline__ void surface_df(W w, Flags flags, df& x, df& y,
         nx = mul(x, e);
         ny = mul(y, e);
       } else {
-        normal_anam_df<FIG, NA, NO>(w, x, y, fast, nx, ny);
+        normal_anam_df<FL>(w, x, y, fast, nx, ny);
       }
       has_nx = has_ny = true;
       unit = false;

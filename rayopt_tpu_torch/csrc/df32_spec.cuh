@@ -4,9 +4,10 @@
 // K13.  A key is the distinct flag tuples of its plans (one 64-bit flag
 // word a step: kind, flat, conic, alternate, off-axis, the
 // signed-permutation codes, rotation, clip and fast, a Newton row's kind
-// -- aspheric, conic cylinder in y or x, biconic, toroid -- with its even
-// and odd coefficient counts, and a phase row's grating and DOE bits with
-// the DOE's coefficient count, cuda_df32._step_words), which tuple each
+// -- aspheric, conic cylinder in y or x, biconic, toroid, freeform --
+// with its even and odd coefficient counts and a freeform row's XY term
+// mask (or a dense row's degree), and a phase row's grating and DOE bits
+// with the DOE's coefficient count, cuda_df32._step_words), which tuple each
 // plan takes, the optical path (K10/K11), where the chain reads the plan
 // words, the block size and the launch bound.  The plan words themselves
 // (curvature, mu, offsets, rotation, coefficients, grating term, ...)
@@ -36,8 +37,11 @@
 // rounds, the generic normal) 10,675 to 13,257 operations, a biconic row
 // 2,535 to 3,986 and a toroid row 2,970 to 5,684 (its float32 seed, 6
 // float32 steps and 2-3 df32 rounds) against a spherical row's 591 to
-// 691.  Their rounds are rolled loops (#pragma unroll 1), so a Newton
-// row adds one round's code, not eight.
+// 691, and the seeded Schmidt plate's freeform row (14 XY terms, each
+// round's sag and normal over them) 5,163 to 7,175.  Their rounds are
+// rolled loops (#pragma unroll 1), so a Newton row adds one round's
+// code, not eight; a freeform row's terms are a compile-time list from
+// its flag word, so a term it does not hold costs nothing.
 //
 // What the design does about it.
 //  * two_prod takes its FMA form (df32_common.cuh): mul costs 9 float32

@@ -23,8 +23,9 @@ launch bound; K10 and K12 are the keys of one plan) at first use, and
 launched on PyTorch's current stream through ctypes.  The plan words
 are packed step after step (pack_plan: DW words a step, then a Newton
 row's figure and a grating or DOE row's phase words, whose row kind,
-phase bits and coefficient counts its 64-bit flag word carries:
-step_words) and passed from the host as kernel parameters,
+phase bits, coefficient counts and, on a freeform row, XY term mask (or
+dense degree) its 64-bit flag word carries: step_words) and passed
+from the host as kernel parameters,
 with no upload; only a single plan too long for the parameters is
 uploaded, once a call, as device words.  A plan list whose words pass
 the parameter limit is launched in balanced runs that fit
@@ -42,6 +43,7 @@ import functools
 import torch
 
 from . import df32 as D
+from .kernels import _xy_terms
 
 # packed step layout and flag bits: keep in sync with csrc/df32_common.cuh
 DW = 36              # the words of a step without a figure
@@ -59,7 +61,13 @@ G_CYL_CONIC = 1 << 30    # a conic cylinder: |N| is not 1
 # a phase row (a 64-bit flag word): a linear grating, a radial
 # diffractive phase (DOE) and its coefficient count
 G_GRATING, G_DOE, G_ND_SHIFT = 1 << 31, 1 << 32, 33
+# a freeform row: bits 37-63 hold its XY term mask (FIG_FREEFORM, one bit
+# a term of the triangular order, up to XY_MASK_TERMS: degree 6) or, for
+# a row with a nonzero term past the mask (FIG_XY_DENSE), its degree
+G_XY_SHIFT, XY_MASK_TERMS = 37, 27
 FIG_RADIAL, FIG_CYL_Y, FIG_CYL_X, FIG_BICONIC, FIG_TOROID = 1, 2, 3, 4, 5
+FIG_FREEFORM, FIG_XY_DENSE = 6, 7
+F_KY, F_COEF = 0, 1      # a freeform row's words after DW (xy_at)
 MAX_COEFFS = 15          # even, odd (or DOE) coefficients a flag word counts
 _FIGS = {"cyl_y": FIG_CYL_Y, "cyl_x": FIG_CYL_X, "biconic": FIG_BICONIC,
          "toroid": FIG_TOROID}
@@ -70,6 +78,33 @@ def fig_of(fl):
     return (fl >> G_FIG_SHIFT) & 7
 
 
+def xy_terms(fl):
+    """The (i, j) exponents of the XY terms whose pairs a freeform step
+    holds, in term order: the mask's (FIG_FREEFORM) or every term of the
+    degree (FIG_XY_DENSE, zeros included); () for another step."""
+    fig, field = fig_of(fl), (fl >> G_XY_SHIFT) & ((1 << 27) - 1)
+    if fig == FIG_XY_DENSE:
+        return _xy_terms(field)
+    if fig == FIG_FREEFORM:
+        return tuple(ij for t, ij in enumerate(_xy_terms(6))
+                     if field >> t & 1)
+    return ()
+
+
+def xy_at(fl, kind):
+    """The first word of a freeform step's value (kind 0), x-slope (1) or
+    y-slope (2) pairs, or (kind 3) the word after them: DW, the seed's
+    float32 conic, the base's coefficients, then the pairs of each kind
+    in term order (a value pair every term, an x-slope pair where i > 0,
+    a y-slope pair where j > 0)."""
+    terms = xy_terms(fl)
+    at = DW + F_COEF + 2*(((fl >> G_NA_SHIFT) & 15)
+                          + ((fl >> G_NO_SHIFT) & 15))
+    counts = (len(terms), sum(i > 0 for i, _ in terms),
+              sum(j > 0 for _, j in terms))
+    return at + 2*sum(counts[:kind])
+
+
 def phase_at(fl):
     """The first of a step's phase words: DW, then its figure's words: an
     aspheric row's even and odd coefficients (pairs); a conic cylinder's
@@ -77,7 +112,8 @@ def phase_at(fl):
     (a pair, its normal's); a biconic's or toroid's cx, cy, cr, (1 + kx)
     cx^2, (1 + ky) cy^2 (pairs), its float32 seed's kx and ky, then its
     coefficients (pairs; the seed reads the hi words of those and of cx,
-    cy and cr, its float32 values)."""
+    cy and cr, its float32 values); a freeform row's words (xy_at: its
+    base's c and 1 + conic are the step's own)."""
     fig = fig_of(fl)
     coef = 2*(((fl >> G_NA_SHIFT) & 15) + ((fl >> G_NO_SHIFT) & 15))
     if fig == FIG_RADIAL:
@@ -86,6 +122,8 @@ def phase_at(fl):
         return DW + CYL_WORDS + (2 if fl & (G_GRATING | G_DOE) else 0)
     if fig in (FIG_BICONIC, FIG_TOROID):
         return DW + A_COEF + coef
+    if fig in (FIG_FREEFORM, FIG_XY_DENSE):
+        return xy_at(fl, 3)
     return DW
 
 
@@ -123,9 +161,54 @@ def _consts(consts):
     return [float(v) for pair in consts for v in pair]
 
 
+def _freeform_words(st):
+    """(row kind, XY flag bits, words after DW) of a freeform step:
+    FIG_FREEFORM and its term mask where its nonzero terms fit
+    XY_MASK_TERMS, else FIG_XY_DENSE and its degree, every term's pairs,
+    zeros included (a
+    zero term adds an exact zero on finite values, so the kernel keeps
+    the plain version's words; one flag word stays enough at any
+    degree).  The kernel reads the base's c and 1 + conic from the
+    step's own words and the float32 seed's coefficients from the hi
+    words of their pairs: both are checked here."""
+    an, f = st["anam"], st["anam"]["f32"]
+    k1 = st["k1"] if st["k1"] is not None else D._ONE
+    same = (tuple(an["c"]) == tuple(st["c"]) and tuple(an["k1"]) == tuple(k1)
+            and an["asp"] == st["asp"] and an["asp_odd"] == st["asp_odd"]
+            and f["cy"] == an["c"][0]
+            and f["asp"] == tuple(p[0] for p in an["asp"])
+            and f["asp_odd"] == tuple(p[0] for p in an["asp_odd"]))
+    terms = _xy_terms(an["deg"])
+    index = {ij: t for t, ij in enumerate(terms)}
+    held = [index[(i, j)] for _, i, j in an["xy"]]
+    same = same and all(f["xy"][t] == (an["xy"][held.index(t)][0][0]
+                                       if t in held else 0.)
+                        for t in range(len(terms)))
+    if not same:
+        raise ValueError("a freeform step's base or seed differs from the "
+                         "words the kernel reads for them")
+    if max(held) < XY_MASK_TERMS:
+        fig, bits = FIG_FREEFORM, sum(1 << t for t in held) << G_XY_SHIFT
+        value, gx, gy = an["xy"], an["xy_gx"], an["xy_gy"]
+    else:
+        fig, bits = FIG_XY_DENSE, an["deg"] << G_XY_SHIFT
+        # the plan's pairs where it holds the term (a slope term's
+        # exponents name it), exact zeros elsewhere
+        zero = (0., 0.)
+        val, sx, sy = ({(i, j): p for p, i, j in an[k]}
+                       for k in ("xy", "xy_gx", "xy_gy"))
+        value = [(val.get((i, j), zero), i, j) for i, j in terms]
+        gx = [(sx.get((i - 1, j), zero), i - 1, j) for i, j in terms if i]
+        gy = [(sy.get((i, j - 1), zero), i, j - 1) for i, j in terms if j]
+    ext = ([float(f["ky"])] + _consts(an["asp"]) + _consts(an["asp_odd"])
+           + _consts([p for p, _, _ in (*value, *gx, *gy)]))
+    return fig, bits, ext
+
+
 def _figure_words(st):
     """(flag bits, words after DW) of a step's figure."""
     an = st["anam"]
+    bits = 0
     if an is None:
         if not (st["asp"] or st["asp_odd"]):
             return 0, []
@@ -137,6 +220,9 @@ def _figure_words(st):
             fl |= G_CYL_CONIC
         return fl, _consts((an["c1"], an["k1"], an["k1c"])
                            + ((an["bc"],) if "bc" in an else ()))
+    elif an["mode"] == "freeform":
+        fig, bits, ext = _freeform_words(st)
+        asp, asp_odd = an["asp"], an["asp_odd"]
     else:
         fig, asp, asp_odd = _FIGS[an["mode"]], an["asp"], an["asp_odd"]
         f = an["f32"]
@@ -147,7 +233,7 @@ def _figure_words(st):
         raise ValueError("a df32 step holds at most %d even and %d odd "
                          "coefficients, got %d and %d" % (
                              MAX_COEFFS, MAX_COEFFS, len(asp), len(asp_odd)))
-    return (fig << G_FIG_SHIFT | len(asp) << G_NA_SHIFT
+    return (fig << G_FIG_SHIFT | bits | len(asp) << G_NA_SHIFT
             | len(asp_odd) << G_NO_SHIFT), ext
 
 
@@ -197,7 +283,9 @@ def _step_words(st):
                              "got %d" % (MAX_COEFFS, nd))
         fl |= G_DOE | nd << G_ND_SHIFT
         ext = ext + _consts(st["doe"]) + _consts(st["doe_path"])
-    return w + ext, fl
+    # the flag word as the kernels' signed 64-bit Flag holds it: bit 63,
+    # the mask's last term, makes it negative
+    return w + ext, fl - (1 << 64) if fl >> 63 else fl
 
 
 def pack_plan(plans, device):

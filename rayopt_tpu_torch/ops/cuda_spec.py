@@ -77,7 +77,9 @@ an exact zero.
 
 The df32 trace and merit (csrc/df32_spec.cuh) are keyed the same way
 on their plans (`df32_multi_key`): the distinct flag tuples of the plans
-(one cuda_df32 step flag word a step), the tuple each plan takes, the
+(one cuda_df32 step flag word a step: every row kind, the freeform rows
+too, whose XY term mask -- or a dense row's degree -- sits in bits 37-63
+and makes the word negative at bit 63), the tuple each plan takes, the
 optical path (the trace), where the chain reads the plan words (see
 Df32Key), the block and the launch bound.  One plan is K10 (the trace)
 or K12 (the merit), several are K11 or K13: one template each.  The

@@ -39,11 +39,14 @@ the `fast` one-round div/sqrt refinements, and the phase rows: a linear
 grating or a radial diffractive phase (DOE) on any of these substrates,
 by the generalized grating solve (the DOE's kick in its b vector and
 its phase psi(r^2) n_after/n_before folded into the step's length, so
-that the optical path carries it).  Rows with freeform figures raise
-NotImplementedError (ROADMAP Queue 1 item 9.5).  The float32 seed of
-the anamorphic Newton keeps its own
-copies of the ops.kernels functions, in the JAX package's operation
-order and with the correctly rounded root.
+that the optical path carries it), and the freeform rows: an XY
+figure on a conic or aspheric base, by the same seeded Newton on the
+base's sag less the figure's nonzero value terms, its normal the base's
+less the slope terms (a freeform figure on an anamorphic base raises
+NotImplementedError, as the reference's plan does).  The float32 seed
+of the Newton keeps its own copies of the ops.kernels functions that
+take a square root, in the JAX package's operation order and with the
+correctly rounded root.
 
 On a CUDA card with native float64 the package's parity trace
 (ops.geometric.trace_rays_final_fast(precision="parity")) runs the
@@ -55,6 +58,7 @@ it by name.
 import numpy as np
 import torch
 
+from .kernels import _dpoly_xy, _poly_xy, _xy_terms, xy_degree
 from .tables import lower_pose
 
 _SPLITTER = 4097.  # 2^12 + 1 (f32 has a 24-bit significand)
@@ -314,10 +318,10 @@ def _normal_radial_df(x, y, c, k1, asp, asp_odd, one, dv, sq):
 # -- anamorphic rows in df32 --------------------------------------------------
 #
 # Conic cylinders are quadrics in one transverse coordinate and take the
-# conic's cancellation-free closed form.  Biconics and toroids run a
-# mixed-precision Newton: the y-conic closed form seeds it in float32,
-# ANAM_F32_ITERS float32 steps converge to float32 noise, and df_iters
-# df32 rounds land at df32 precision.
+# conic's cancellation-free closed form.  Biconics and toroids (and the
+# freeform rows below) run a mixed-precision Newton: the y-conic closed
+# form seeds it in float32, ANAM_F32_ITERS float32 steps converge to
+# float32 noise, and df_iters df32 rounds land at df32 precision.
 
 def _sag_biconic_df(x, y, z, an, one, dv, sq):
     """z - biconic_sag (kernels.sag_biconic in df32)."""
@@ -394,8 +398,60 @@ def _normal_toroid_df(x, y, an, one, dv, sq):
     return neg(dv(mul(x, crp), w)), neg(dv(dzy, w))
 
 
+def _xy_pows_df(v, deg):
+    """[None, v, v^2, ..., v^deg] by repeated df32 products."""
+    pows = [None, v]
+    for _ in range(2, deg + 1):
+        pows.append(mul(pows[-1], v))
+    return pows
+
+
+def _poly_xy_df(x, y, terms, deg):
+    """sum c x^i y^j in df32 over `terms`, (df32 constant, i, j) triples
+    in term order; a (0, 0) exponent broadcasts its constant (the slope
+    lists hold them).  The sum starts from the first term."""
+    xp = _xy_pows_df(x, deg)
+    yp = _xy_pows_df(y, deg)
+    acc = None
+    for cdf, i, j in terms:
+        if i == 0 and j == 0:
+            t = (cdf[0].expand_as(x[0]), cdf[1].expand_as(x[0]))
+        else:
+            m = xp[i] if i else yp[j]
+            if i and j:
+                m = mul(m, yp[j])
+            t = mul(cdf, m)
+        acc = t if acc is None else add(acc, t)
+    return acc
+
+
+def _sag_freeform_df(x, y, z, an, one, dv, sq):
+    """z - freeform sag: the conic/aspheric base (_sag_df) less the XY
+    figure's value terms."""
+    e = _sag_df(x, y, z, an["c"], an["k1"], an["asp"], an["asp_odd"], one,
+                dv, sq)
+    return sub(e, _poly_xy_df(x, y, an["xy"], an["deg"]))
+
+
+def _normal_freeform_df(x, y, an, one, dv, sq):
+    """(gx, gy) of the freeform normal: the base's radial factor times
+    (x, y) less the XY figure's slope terms (their constants i a and j a
+    baked by the plan)."""
+    e = _normal_radial_df(x, y, an["c"], an["k1"], an["asp"], an["asp_odd"],
+                          one, dv, sq)
+    gx, gy = mul(x, e), mul(y, e)
+    if an["xy_gx"]:
+        gx = sub(gx, _poly_xy_df(x, y, an["xy_gx"], an["deg"]))
+    if an["xy_gy"]:
+        gy = sub(gy, _poly_xy_df(x, y, an["xy_gy"], an["deg"]))
+    return gx, gy
+
+
 def _anam_funcs_df(an, one, dv, sq):
-    """(sag, normal) of a biconic or toroid row in df32."""
+    """(sag, normal) of a biconic, toroid or freeform row in df32."""
+    if an["mode"] == "freeform":
+        return (lambda x, y, z: _sag_freeform_df(x, y, z, an, one, dv, sq),
+                lambda x, y: _normal_freeform_df(x, y, an, one, dv, sq))
     if an["mode"] == "toroid":
         return (lambda x, y, z: _sag_toroid_df(x, y, z, an, one, dv, sq),
                 lambda x, y: _normal_toroid_df(x, y, an, one, dv, sq))
@@ -540,9 +596,53 @@ def _normal_toroid_32(x, y, f):
     return -x*crp/w, -dzy/w
 
 
+def _sag_32(x, y, z, f):
+    """kernels.sag in float32: a freeform row's conic/aspheric base."""
+    c = f["cy"]
+    r2 = x*x + y*y
+    e = z - c*r2/(1 + _sqrt0_32(1 - (1 + f["ky"])*c*c*r2))
+    if f["asp"]:
+        e = e - _poly_even_32(r2, f["asp"])
+    if f["asp_odd"]:
+        e = e - _poly_odd_32(r2, f["asp_odd"])
+    return e
+
+
+def _normal_radial_32(x, y, f):
+    """kernels.normal_radial in float32."""
+    c = f["cy"]
+    r2 = x*x + y*y
+    e = -c/_sqrt0_32(1 - (1 + f["ky"])*c*c*r2)
+    if f["asp"]:
+        e = e - _dpoly_even_32(r2, f["asp"])
+    if f["asp_odd"]:
+        e = e - _dpoly_odd_32(r2, f["asp_odd"])
+    return e
+
+
+# The XY figure and its slopes take no square root: the seed calls
+# ops.kernels' _poly_xy and _dpoly_xy, whose operation order is the JAX
+# package's, on the float32 row (zeros included, as the reference's seed).
+
+def _sag_freeform_32(x, y, z, f):
+    """kernels.sag less kernels._poly_xy in float32."""
+    return _sag_32(x, y, z, f) - _poly_xy(x, y, f["xy"])
+
+
+def _normal_freeform_32(x, y, f):
+    """kernels.normal_freeform in float32."""
+    e = _normal_radial_32(x, y, f)
+    gx, gy = x*e, y*e
+    dpx, dpy = _dpoly_xy(x, y, f["xy"])
+    return gx - dpx, gy - dpy
+
+
 def _anam_funcs_32(an):
-    """(sag, normal) of a biconic or toroid row in float32."""
+    """(sag, normal) of a biconic, toroid or freeform row in float32."""
     f = an["f32"]
+    if an["mode"] == "freeform":
+        return (lambda x, y, z: _sag_freeform_32(x, y, z, f),
+                lambda x, y: _normal_freeform_32(x, y, f))
     if an["mode"] == "toroid":
         return (lambda x, y, z: _sag_toroid_32(x, y, z, f),
                 lambda x, y: _normal_toroid_32(x, y, f))
@@ -588,7 +688,8 @@ def _residual_ok(s, res):
 
 def _intercept_anam_df(x, y, z, ux, uy, uz, an, one, dv, sq):
     """Anamorphic intercept: the closed form for conic cylinders, the
-    mixed-precision Newton for biconics and toroids (misses NaN)."""
+    mixed-precision Newton for biconics, toroids and freeform rows
+    (misses NaN)."""
     mode = an["mode"]
     if mode == "cyl_y":
         return _intercept_cyl_df(y, z, uy, uz, an, dv, sq)
@@ -702,9 +803,10 @@ def _refract_grating_df(ux, uy, uz, mu, kind, gdy, nrm, one, dv, sq,
 
 def _phase_df(x, y, ux, uy, uz, st, one, dv, sq):
     """A grating or DOE row's new direction: the substrate's normal (a
-    cylinder's, a biconic's or toroid's, the radial one of a curved or
-    figured row; none on a plane), the DOE's kick sum 2(i+1) a_i r^(2i)
-    (x, y) (its coefficients scaled in the plan), then the solve."""
+    cylinder's, a biconic's, toroid's or freeform row's, the radial one
+    of a curved or figured row; none on a plane), the DOE's kick sum
+    2(i+1) a_i r^(2i) (x, y) (its coefficients scaled in the plan), then
+    the solve."""
     c, k1, anam = st["c"], st["k1"], st["anam"]
     figured = bool(st["asp"] or st["asp_odd"])
     nrm = None
@@ -893,9 +995,11 @@ _ONE = (np.float32(1.), np.float32(0.))
 #: step keys that hold df32 constants (pairs, or nests of pairs)
 _CONST_KEYS = ("c", "mu", "dz", "k1", "k1c", "nb", "dxy", "rot_df", "asp",
                "asp_odd", "grat", "doe", "doe_path")
-#: an anamorphic row's df32 constants and its seed's float32 scalars
-_ANAM_CONSTS = ("c1", "k1", "k1c", "bc", "cx", "cy", "cr", "bxc", "byc",
+#: an anamorphic or freeform row's df32 constants
+_ANAM_CONSTS = ("c", "c1", "k1", "k1c", "bc", "cx", "cy", "cr", "bxc", "byc",
                 "asp", "asp_odd")
+#: a freeform row's term lists: (df32 constant, i, j) triples
+_XY_TERMS = ("xy", "xy_gx", "xy_gy")
 
 
 def _trim(coeffs):
@@ -957,6 +1061,35 @@ def _anamorphic_row(cy, ky, cdx, kdx, tor, alt, coeffs, codd, df_iters,
                  asp_odd=tuple(np.float32(a) for a in codd)))
 
 
+def _freeform_row(xy_row, c, conic, alt, coeffs, codd, df_iters):
+    """The reference plan's freeform row: the conic/aspheric base's c, k1
+    = const(1 + conic) (also where the conic is 0), asp and asp_odd, the
+    degree of the row's width, and the nonzero XY terms in term order as
+    (df32 constant, i, j) triples: the value terms (a, i, j), the x-slope
+    terms (i a, i - 1, j) and the y-slope terms (j a, i, j - 1), each
+    slope constant const of its float64 product; the float32 seed's
+    scalars and the whole float32 row, zeros included."""
+    deg = xy_degree(xy_row.size)
+    val, gx, gy = [], [], []
+    for a, (i, j) in zip(xy_row, _xy_terms(deg)):
+        if a == 0.:
+            continue
+        val.append((const(a), i, j))
+        if i:
+            gx.append((const(i*a), i - 1, j))
+        if j:
+            gy.append((const(j*a), i, j - 1))
+    return dict(
+        mode="freeform", df_iters=df_iters, deg=deg, c=const(c),
+        k1=const(1. + conic), asp=tuple(const(a) for a in coeffs),
+        asp_odd=tuple(const(a) for a in codd), xy=tuple(val),
+        xy_gx=tuple(gx), xy_gy=tuple(gy),
+        f32=dict(cy=np.float32(c), ky=np.float32(conic), alt=np.float32(alt),
+                 asp=tuple(np.float32(a) for a in coeffs),
+                 asp_odd=tuple(np.float32(a) for a in codd),
+                 xy=np.asarray(xy_row, np.float32)))
+
+
 def plan(table, clip=False, fast=False):
     """Host-side: per-surface df32 constants + static flags from a
     float64 SurfaceTable (on any device; read through .cpu()).
@@ -967,10 +1100,12 @@ def plan(table, clip=False, fast=False):
     baked from the df32 constants in float64 (the reference computes it
     inside its step), asp and asp_odd (the row's trimmed even and odd
     coefficients as df32 constants: an aspheric row's Newton polish),
-    anam (an anamorphic row's constants, else None: a conic cylinder's
-    c1, k1, k1c, circular and alternate, and on a grating or DOE row bc
-    = (1+k) c1^2, or a biconic's or toroid's cx, cy, cr, bxc, byc, asp,
-    asp_odd, df_iters and its float32 seed's scalars `f32`), grat (the
+    anam (an anamorphic or freeform row's constants, else None: a conic
+    cylinder's c1, k1, k1c, circular and alternate, and on a grating or
+    DOE row bc = (1+k) c1^2; a biconic's or toroid's cx, cy, cr, bxc,
+    byc, asp, asp_odd, df_iters and its float32 seed's scalars `f32`; or
+    a freeform row's c, k1, asp, asp_odd, deg, its term lists xy, xy_gx
+    and xy_gy, df_iters and `f32`, _freeform_row), grat (the
     grating term grating_dy, else None), doe (the DOE's kick
     coefficients 2(i+1) a_i over its trimmed coefficients a_i, else
     None), doe_path (its path coefficients a_i n_after/n_before, else
@@ -980,9 +1115,10 @@ def plan(table, clip=False, fast=False):
     else None), clip, fast, and nb (n_before, for the optical path).
 
     fast=True bakes one-round div/sqrt refinements into every step
-    (div1/sqrt1) and one df32 round fewer into the anamorphic Newton.
-    XY-freeform rows raise NotImplementedError (ROADMAP Queue 1 item
-    9.5)."""
+    (div1/sqrt1) and one df32 round fewer into the Newton of an
+    anamorphic or freeform row.  A row whose XY figure is all zero plans
+    as its base row; a freeform figure on an anamorphic base raises
+    NotImplementedError, as the reference's plan does."""
     table = lower_pose(table)  # fold concrete tilt/decenter deltas
     curv = _host(table, "curvature")
     s_count = curv.shape[0]
@@ -1004,11 +1140,6 @@ def plan(table, clip=False, fast=False):
     df_iters = ANAM_DF_ITERS + (0 if fast else 1)
     steps = []
     for j in range(1, s_count):
-        if xy_tab.shape[1] and np.any(xy_tab[j] != 0):
-            raise NotImplementedError(
-                "df32 plan: row %d uses xy_poly, which the df32 engine "
-                "does not trace yet (ROADMAP Queue 1 item 9.5, part three)"
-                % j)
         rotm = rot_df = None
         if not np.allclose(rot[j], np.eye(3)):
             ri = np.rint(rot[j]).astype(int)
@@ -1029,7 +1160,15 @@ def plan(table, clip=False, fast=False):
         codd = _trim(asp_odd[j] if asp_odd.shape[1] else np.zeros(0))
         doe = _trim(doe_tab[j]) if doe_tab.shape[1] else np.zeros(0)
         anam = None
-        if tor[j] != 0 or cdx[j] != 0 or kdx[j] != 0:
+        xy_row = xy_tab[j] if xy_tab.shape[1] else np.zeros(0)
+        if np.any(xy_row != 0):
+            if tor[j] != 0 or cdx[j] != 0 or kdx[j] != 0:
+                raise NotImplementedError(
+                    "row %d combines an anamorphic base with a freeform XY "
+                    "figure; express the full figure in xy_poly" % j)
+            anam = _freeform_row(xy_row, curv[j], conic[j], alt[j], coeffs,
+                                 codd, df_iters)
+        elif tor[j] != 0 or cdx[j] != 0 or kdx[j] != 0:
             anam = _anamorphic_row(curv[j], conic[j], cdx[j], kdx[j],
                                    tor[j], alt[j], coeffs, codd, df_iters,
                                    phase=bool(gdy[j] != 0 or doe.size))
@@ -1054,9 +1193,10 @@ def plan(table, clip=False, fast=False):
 
 
 def _on_device(st, like):
-    """The step with its df32 constants (and an anamorphic row's, and
-    its seed's float32 scalars) as 0-d float32 tensors on like's device
-    (and the radius and 1.0 beside them)."""
+    """The step with its df32 constants (and an anamorphic or freeform
+    row's, its term lists' and its seed's float32 scalars) as 0-d float32
+    tensors on like's device (and the radius and 1.0 beside them; a
+    freeform seed's XY row as one float32 tensor)."""
     def scalar(v):
         return torch.tensor(float(v), dtype=torch.float32,
                             device=like.device)
@@ -1077,9 +1217,14 @@ def _on_device(st, like):
         for key in _ANAM_CONSTS:
             if key in an:
                 an[key] = conv(an[key])
+        for key in _XY_TERMS:
+            if key in an:
+                an[key] = tuple((conv(cdf), i, j) for cdf, i, j in an[key])
         if "f32" in an:
             an["f32"] = {k: (tuple(scalar(w) for w in v)
-                             if isinstance(v, tuple) else scalar(v))
+                             if isinstance(v, tuple)
+                             else torch.as_tensor(v, device=like.device)
+                             if isinstance(v, np.ndarray) else scalar(v))
                          for k, v in an["f32"].items()}
         out["anam"] = an
     out["one"] = conv(_ONE)

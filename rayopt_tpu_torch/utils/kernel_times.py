@@ -82,7 +82,10 @@ card, run --df32, --newton (or --multi) from each tree in one call
 
 --registers alone builds the K1-K9 keys of REGISTER_LENSES (the double
 Gauss, NEWTON_LENSES, the phase models and the freeform Schmidt
-corrector) in both dtypes, clip off and on (cuda_spec.prebuild), and
+corrector) in both dtypes, clip off and on, and their K10-K13 plan keys
+(K10 and K12 on the first wavelength's plan, K11 and K13 on the 3
+wavelengths' plans; fast and exact, clip off and on)
+(cuda_spec.prebuild), and
 prints {tag: [registers, stack bytes, spill bytes, SASS instructions]};
 --compare A.json B.json prints the tags whose entries differ between
 two such outputs and the counts of equal ones.  A key a tree's
@@ -100,7 +103,12 @@ wavelengths' stack) beside the same kernels on its freeform-free twin
 (the plate with no XY coefficients; its loop keys without xy_poly), in
 turns (key, twin, key, twin), at FREEFORM_SIZES on its bench bundle
 (x, y uniform in +-17 mm, u = (0, 0, 1), ray 0 on the axis: the OPD's
-chief ray), with each key's registers, stack and spills.
+chief ray), with each key's registers, stack and spills.  With --df32
+it times K10 (with the optical path) and K12 on the Schmidt corrector's
+first wavelength's plan, K11 (with the path) and K13 on its 3
+wavelengths' plans, fast and exact, beside the same kernels on the
+freeform-free twin's plans, in turns, at DF32_SIZES on that bench
+bundle, with each key's registers, stack, spills and SASS size.
 """
 
 import argparse
@@ -141,6 +149,18 @@ def cuda_ms(fn, reps):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop)/reps
+
+
+def ptxas_stats(kern):
+    """[registers, stack bytes, spill bytes] of a built key, from its
+    ptxas lines."""
+    import re
+    text = kern.build_log
+    regs = re.search(r"Used (\d+) registers", text)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", text)
+    return [int(regs.group(1)), int(frame.group(1)),
+            int(frame.group(2)) + int(frame.group(3))]
 
 
 def bench_bundle(n, dtype, seed=1):
@@ -347,7 +367,6 @@ def newton_times():
     at 2^22 bench rays (x, y uniform in the lens's half width, seed 1):
     {"<lens> <kernel> <fast|exact>": {ms, registers, stack and spill
     bytes, SASS instructions}} and the keys' build seconds."""
-    import re
     from rayopt_tpu_torch.ops import cuda_df32 as CD
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops import df32 as D
@@ -392,14 +411,10 @@ def newton_times():
         state = D.state_from_f64(torch.stack([x, y, zero], 1),
                                  torch.stack([zero, zero, zero + 1], 1))
         kern = built[key]
-        text = kern.build_log
-        regs = re.search(r"Used (\d+) registers", text)
-        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", text)
+        regs, stack, spill = ptxas_stats(kern)
         out[tag] = {"ms": cuda_ms(lambda: fn(state), 20),
-                    "registers": int(regs.group(1)),
-                    "stack_bytes": int(frame.group(1)),
-                    "spill_bytes": int(frame.group(2)) + int(frame.group(3)),
+                    "registers": regs, "stack_bytes": stack,
+                    "spill_bytes": spill,
                     "sass_instructions": sass_size(kern.path,
                                                    kern.entry)[0]}
         del state
@@ -435,6 +450,7 @@ def register_keys():
         else:
             s = getattr(models, name.lower().replace(" ", "_"))()
         table, tabs = s.table(), s.tables()
+        keys.update(df32_register_keys(name, table, tabs))
         specs = specialize(table)
         mspecs = multi_specs(tabs, None)
         kw = dict(widths=figure_widths(table, specs),
@@ -468,6 +484,32 @@ def register_keys():
                         keys[tag % kname] = fn()
                     except (NotImplementedError, ValueError, TypeError):
                         pass
+    return keys
+
+
+def df32_register_keys(name, table, tabs):
+    """{tag: key} of --registers' K10-K13 keys of one lens: K10 (with
+    the optical path) and K12 on its first wavelength's plan, K11 (with
+    the path) and K13 on its wavelengths' plans, fast and exact, clip off
+    and on (none where an older tree's plan refuses a row)."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.tables import table_at
+    keys = {}
+    for fast in (True, False):
+        for clip in (False, True):
+            try:
+                one = D.plan(table, clip=clip, fast=fast)
+                plans = [D.plan(table_at(tabs, li), clip=clip, fast=fast)
+                         for li in range(tabs.curvature.shape[0])]
+            except NotImplementedError:
+                continue
+            tag = "%s %s clip=%s %%s" % (name, "fast" if fast else "exact",
+                                         clip)
+            keys[tag % "K10"] = CS.df32_multi_key([one], "k11", True)
+            keys[tag % "K12"] = CS.df32_multi_key([one], "k13")
+            keys[tag % "K11"] = CS.df32_multi_key(plans, "k11", True)
+            keys[tag % "K13"] = CS.df32_multi_key(plans, "k13")
     return keys
 
 
@@ -509,7 +551,6 @@ def freeform_times():
     ({"<kernel> <dtype> <rays>": {"ms": ..., "twin_ms": ...}},
     {"<kernel> <dtype>": [registers, stack bytes, spill bytes]} of the
     Schmidt corrector's keys)."""
-    import re
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_grad import (
         merit_adjoint_multi, opd_adjoint, opd_chain, weighted_moments_multi)
@@ -551,13 +592,7 @@ def freeform_times():
     regs = {}
     for dtype, keys in mine.items():
         for name, key in keys.items():
-            text = built[key].build_log
-            r = re.search(r"Used (\d+) registers", text)
-            f = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", text)
-            regs["%s %s" % (name, str(dtype)[6:])] = [
-                int(r.group(1)), int(f.group(1)),
-                int(f.group(2)) + int(f.group(3))]
+            regs["%s %s" % (name, str(dtype)[6:])] = ptxas_stats(built[key])
 
     def cases(which, state, w):
         s, table, specs, tabs, mspecs = lenses[which]
@@ -599,10 +634,74 @@ def freeform_times():
     return out, regs
 
 
+def df32_freeform_times():
+    """K10-K13 on the Schmidt corrector's plans against the
+    freeform-free twin's (the module docstring's --freeform --df32),
+    every key built first at once: ({"<kernel> <fast|exact> <rays>":
+    {"ms": ..., "twin_ms": ...}}, {"<kernel> <fast|exact>": [registers,
+    stack bytes, spill bytes, SASS instructions]} of the Schmidt
+    corrector's keys)."""
+    from rayopt_tpu_torch.ops import cuda_df32 as CD
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops import df32 as D
+    from rayopt_tpu_torch.ops.cuda_build import sass_size
+    from rayopt_tpu_torch.ops.tables import table_at
+    plans = {}
+    for which, coefficients in (("key", None), ("twin", [])):
+        s = schmidt_system(coefficients)
+        table, tabs = s.table(), s.tables()
+        for fast in (True, False):
+            plans[(which, fast)] = (
+                D.plan(table, fast=fast),
+                [D.plan(table_at(tabs, li), fast=fast)
+                 for li in range(tabs.curvature.shape[0])])
+    kinds = {"K10": ("k11", True, 0), "K12": ("k13", False, 0),
+             "K11": ("k11", True, 1), "K13": ("k13", False, 1)}
+    keys = {(name, which, fast): CS.df32_multi_key(
+                [p[0]] if not multi else p[1], kernel, path)
+            for (which, fast), p in plans.items()
+            for name, (kernel, path, multi) in kinds.items()}
+    built = CS.prebuild(list(keys.values()))
+    regs = {}
+    for (name, which, fast), key in keys.items():
+        if which != "key":
+            continue
+        regs["%s %s" % (name, "fast" if fast else "exact")] = ptxas_stats(
+            built[key]) + [sass_size(built[key].path, built[key].entry)[0]]
+
+    def call(name, which, fast, state):
+        one, lam = plans[(which, fast)]
+        return {"K10": lambda: CD.trace_final_df32(one, state,
+                                                   with_path=True),
+                "K12": lambda: CD.trace_merit_df32(one, state),
+                "K11": lambda: CD.trace_multi_df32(lam, state,
+                                                   with_path=True),
+                "K13": lambda: CD.trace_merit_multi_df32(lam, state)}[name]
+    out = {}
+    for n in DF32_SIZES:
+        st, _ = bench_bundle(n, torch.float64)
+        st = tuple(c*FREEFORM_HALF/11.6 if i < 2 else c
+                   for i, c in enumerate(st))
+        state = D.state_from_f64(torch.stack(st[:3], 1),
+                                 torch.stack(st[3:], 1))
+        del st
+        reps = 5 if n > 1 << 22 else 20
+        for fast in (True, False):
+            for name in kinds:
+                key = call(name, "key", fast, state)
+                twin = call(name, "twin", fast, state)
+                k1, t1 = cuda_ms(key, reps), cuda_ms(twin, reps)
+                k2, t2 = cuda_ms(key, reps), cuda_ms(twin, reps)
+                out["%s %s %d" % (name, "fast" if fast else "exact", n)] = {
+                    "ms": (k1 + k2)/2, "twin_ms": (t1 + t2)/2}
+        del state
+        torch.cuda.empty_cache()
+    return out, regs
+
+
 def register_stats():
     """{tag: [registers, stack bytes, spill bytes, SASS instructions]}
     of register_keys' keys, built at once."""
-    import re
     from concurrent.futures import ThreadPoolExecutor
     from rayopt_tpu_torch.ops import cuda_spec as CS
     from rayopt_tpu_torch.ops.cuda_build import sass_size
@@ -614,12 +713,7 @@ def register_stats():
             lambda k: sass_size(k.path, k.entry)[0], kerns.values())))
     out = {}
     for tag, key in keys.items():
-        text = kerns[key].build_log
-        regs = re.search(r"Used (\d+) registers", text)
-        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
-                          r"stores, (\d+) bytes spill loads", text)
-        out[tag] = [int(regs.group(1)), int(frame.group(1)),
-                    int(frame.group(2)) + int(frame.group(3)), sass[key]]
+        out[tag] = ptxas_stats(kerns[key]) + [sass[key]]
     return out
 
 
@@ -1231,8 +1325,9 @@ def main():
     ap.add_argument("--compare", nargs=2, metavar="JSON",
                     help="compare two --registers outputs")
     ap.add_argument("--freeform", action="store_true",
-                    help="time K3, K6-K9 on the freeform Schmidt corrector "
-                    "beside its freeform-free twin alone")
+                    help="time K3, K6-K9 (with --df32: K10-K13) on the "
+                    "freeform Schmidt corrector beside its freeform-free "
+                    "twin alone")
     args = ap.parse_args()
     if args.compare:
         compare_registers(*args.compare)
@@ -1248,6 +1343,12 @@ def main():
     specs = specialize(table)
     if args.registers:
         print(json.dumps({"card": card, "registers": register_stats()}))
+        sys.stdout.flush()
+        return
+    if args.freeform and args.df32:
+        times, regs = df32_freeform_times()
+        print(json.dumps({"card": card, "df32_freeform_ms": times,
+                          "df32_freeform_registers": regs}))
         sys.stdout.flush()
         return
     if args.freeform:

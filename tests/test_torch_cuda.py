@@ -2492,18 +2492,81 @@ def _df32_phase_case(name, fast, clip):
 
 @functools.lru_cache(maxsize=None)
 def _prebuild_df32_phase():
-    """Build the keys of every df32 phase case at once (one nvcc a key,
-    in parallel), the first time a case asks."""
+    """Build the keys of every df32 phase case and of the degree-7
+    freeform singlet at once (one nvcc a key, in parallel), the first
+    time a case asks."""
     keys = []
-    for name in _DF32_PHASE:
+    for name in _DF32_PHASE + ("degree 7",):
         for fast in (True, False):
             for clip in (False, True):
-                plans, _ = _df32_phase_case(name, fast, clip)
+                plans, _ = (_df32_deg7_case(fast, clip) if name == "degree 7"
+                            else _df32_phase_case(name, fast, clip))
                 keys += [CS.df32_multi_key(plans[:1], "k11", True),
                          CS.df32_multi_key(plans[:1], "k13"),
                          CS.df32_multi_key(plans, "k11", True),
                          CS.df32_multi_key(plans, "k13")]
     CS.prebuild(keys)
+
+
+def _df32_plans_match_on_card(plans, st, clip):
+    """K10 and K11 (with the optical path), K12 and K13 on `plans` (one
+    a wavelength; K10/K12 on the first) against their plain versions on
+    the card: identical words, the same live count (some live ray
+    unclipped), the moments within 1e-13 of their scale; each wrapper
+    launches its kernel once."""
+    wrappers = (CD.trace_final_df32, CD.trace_multi_df32,
+                CD.trace_merit_df32, CD.trace_merit_multi_df32)
+    before = [f.launches for f in wrappers]
+    got = CD.trace_final_df32(plans[0], st, with_path=True)
+    want = CD.trace_final_df32_reference(plans[0], st, with_path=True)
+    torch.cuda.synchronize()
+    assert _differing_words(_df32_words(got, True),
+                            _df32_words(want, True)) == 0
+    assert bool(torch.isfinite(got[0][0][0]).any())
+    got = CD.trace_multi_df32(plans, st, with_path=True)
+    want = CD.trace_multi_df32_reference(plans, st, with_path=True)
+    torch.cuda.synchronize()
+    assert sum(_differing_words(_df32_words(g, True), _df32_words(w, True))
+               for g, w in zip(got, want)) == 0
+    moms = [(CD.trace_merit_df32(plans[0], st),
+             CD.trace_merit_df32_reference(plans[0], st))]
+    moms += list(zip(CD.trace_merit_multi_df32(plans, st),
+                     CD.trace_merit_multi_df32_reference(plans, st)))
+    for m, r in moms:
+        # clipped, the spectrograph's detector aperture (60 mm) stops its
+        # 56-85 mm off-axis image: no ray is live
+        assert float(m[0]) == float(r[0])
+        assert float(m[0]) > 0 or clip
+        if float(r[0]):
+            assert _moments_rel(m, r) <= 1e-13
+        else:
+            assert all(float(a) == float(b) == 0. for a, b in zip(m, r))
+    assert [f.launches for f in wrappers] == [b + 1 for b in before]
+
+
+#: a degree-7 freeform row (35 terms, some zero): past the kernels'
+#: degree-6 term mask, a dense step
+_DEG7 = [1e-4, 0., 3e-3, 0., -2e-3, 2e-5, 0., 0., 1e-5, 1e-6, 0., 2e-6, 0.,
+         -1e-6, 0., 3e-8, 0., 0., 0., -2e-8, 1e-9, 0., 0., 0., 0., 0., 2e-9,
+         0., 0., 4e-11, 0., 0., 0., 0., -3e-11]
+
+
+def _df32_deg7_case(fast, clip):
+    """The degree-7 freeform singlet's three plans (refracting rows' mu
+    grown by 0, 1 and 2 % of mu - 1) and a 5 mm bench bundle (2.5x wide
+    when clipped), on the card, as df32 words."""
+    tab = make_table(curvature=[0., 1/60., -1/80., 0.],
+                     xy_poly=[[0.]*35, _DEG7, [0.]*35, [0.]*35],
+                     distance=[0., 10., 4., 40.], mu=[1., 1/1.5, 1.5, 1.],
+                     n_before=[1., 1., 1.5, 1.], n_after=[1., 1.5, 1., 1.],
+                     radius=[np.inf, 9., 9., 20.], device="cuda")
+    plans = [D.plan(tab.replace(mu=1 + (tab.mu - 1)*(1 + .01*li)), clip=clip,
+                    fast=fast) for li in range(3)]
+    scale = 5./11.6*(2.5 if clip else 1.)
+    state64 = _bench_state(1 << 16, 15, torch.device("cuda"), torch.float64)
+    state64 = tuple(c*scale if i < 2 else c for i, c in enumerate(state64))
+    return plans, D.state_from_f64(torch.stack(state64[:3], 1),
+                                   torch.stack(state64[3:], 1))
 
 
 @pytest.mark.cuda
@@ -2515,9 +2578,9 @@ def test_phase_rows_refuse_the_other_kernels_on_card(cuda_device, case):
     K11 (with the optical path: a DOE's phase term), K12 and K13 on a
     phase lens's or phase cylinder's three wavelength plans (one flag
     tuple) against their plain versions, fast and exact, clip off and
-    on: identical words, the same live count (some live ray unclipped),
-    the moments within 1e-13 of their scale; a freeform row still raises
-    naming item 9.5.
+    on (_df32_plans_match_on_card); and, since the df32 plan takes the
+    freeform rows too, the same on a degree-7 freeform singlet (a dense
+    step: no row refuses).
     "cylinder": a grating or DOE on a cylinder in K1, K2, K4, K5 and K3,
     K6-K9, in float64 and float32, clip off and on, against their plain
     versions (test_phase_keys_match_plain_on_card's and
@@ -2535,48 +2598,17 @@ def test_phase_rows_refuse_the_other_kernels_on_card(cuda_device, case):
                 cuda_device, name, dtype, clip)
         return
     _prebuild_df32_phase()
-    wrappers = (CD.trace_final_df32, CD.trace_multi_df32,
-                CD.trace_merit_df32, CD.trace_merit_multi_df32)
     for fast in (True, False):
         for clip in (False, True):
             plans, st = _df32_phase_case(name, fast, clip)
             flags = CS.df32_flags(plans)
             assert len(set(flags)) == 1
             assert any(f & (CD.G_GRATING | CD.G_DOE) for f in flags[0])
-            before = [f.launches for f in wrappers]
-            got = CD.trace_final_df32(plans[0], st, with_path=True)
-            want = CD.trace_final_df32_reference(plans[0], st,
-                                                 with_path=True)
-            torch.cuda.synchronize()
-            assert _differing_words(_df32_words(got, True),
-                                    _df32_words(want, True)) == 0
-            assert bool(torch.isfinite(got[0][0][0]).any())
-            got = CD.trace_multi_df32(plans, st, with_path=True)
-            want = CD.trace_multi_df32_reference(plans, st, with_path=True)
-            torch.cuda.synchronize()
-            assert sum(_differing_words(_df32_words(g, True),
-                                        _df32_words(w, True))
-                       for g, w in zip(got, want)) == 0
-            moms = [(CD.trace_merit_df32(plans[0], st),
-                     CD.trace_merit_df32_reference(plans[0], st))]
-            moms += list(zip(CD.trace_merit_multi_df32(plans, st),
-                             CD.trace_merit_multi_df32_reference(plans, st)))
-            for m, r in moms:
-                # clipped, the spectrograph's detector aperture (60 mm)
-                # stops its 56-85 mm off-axis image: no ray is live
-                assert float(m[0]) == float(r[0])
-                assert float(m[0]) > 0 or clip
-                if float(r[0]):
-                    assert _moments_rel(m, r) <= 1e-13
-                else:
-                    assert all(float(a) == float(b) == 0.
-                               for a, b in zip(m, r))
-            assert [f.launches for f in wrappers] == [b + 1 for b in before]
-    free = make_table(curvature=[0., 1/40.], mu=[1., 1/1.5],
-                      xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]],
-                      device=cuda_device)
-    with pytest.raises(NotImplementedError, match=r"item 9\.5"):
-        D.plan(free)
+            _df32_plans_match_on_card(plans, st, clip)
+            plans, st = _df32_deg7_case(fast, clip)
+            assert any(CD.fig_of(f) == CD.FIG_XY_DENSE
+                       for f in CS.df32_flags(plans)[0])
+            _df32_plans_match_on_card(plans, st, clip)
 
 
 # -- the freeform XY rows ------------------------------------------------------
@@ -2757,18 +2789,22 @@ def _freeform_stack(name, device):
     return tabs, CT.multi_specs(tabs, None), tab, sphere, half
 
 
+#: the freeform lenses of the K3, K6-K9 and K10-K13 card test
+_FREEFORM_CARD = ("schmidt", "zernike corrector", "xy singlet",
+                  "aspheric base", "freeform grating")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("clip", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("name", ["schmidt", "zernike corrector",
-                                  "xy singlet", "aspheric base",
-                                  "freeform grating"])
+@pytest.mark.parametrize("name", _FREEFORM_CARD)
 def test_freeform_rows_refuse_the_other_kernels_on_card(cuda_device, name,
                                                         dtype, clip):
     """K3 (trace and merit), K6, K7, K8 and K9 on a freeform key against
     their plain versions on the card (the other kernels took the
-    freeform rows in ROADMAP Queue 1 item 9.5 part two; only df32.plan
-    still raises NotImplementedError on them, naming part three), the
+    freeform rows in ROADMAP Queue 1 item 9.5 part two, K10-K13 in part
+    three: in float64, K10-K13 on the lens's three wavelength plans, fast
+    and exact, as _df32_plans_match_on_card holds them), the
     bench bundle within the lens's aperture (1.5x wide clipped; K3 has no
     clip), slopes within +-0.03, ray 0 the chief ray on the axis: K3's
     rays and optical path through each of the stack's three tables to
@@ -2880,5 +2916,36 @@ def test_freeform_rows_refuse_the_other_kernels_on_card(cuda_device, name,
     calls = [2 if not clip else 0, 1, 1, 1, 1 if f64 else 0]
     assert [f.launches for f in wrappers] == [b + c for b, c in
                                               zip(before, calls)]
-    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
-        D.plan(tab)
+    if f64:
+        _prebuild_df32_freeform()
+        st = D.state_from_f64(torch.stack(state[:3], 1),
+                              torch.stack(state[3:], 1))
+        for fast in (True, False):
+            plans = _df32_freeform_plans(name, fast, clip)
+            assert any(CD.fig_of(f) == CD.FIG_FREEFORM
+                       for f in CS.df32_flags(plans)[0])
+            _df32_plans_match_on_card(plans, st, clip)
+
+
+def _df32_freeform_plans(name, fast, clip):
+    """A freeform lens's three wavelength plans (_freeform_stack's
+    tables), on the card."""
+    tabs = _freeform_stack(name, torch.device("cuda"))[0]
+    return [D.plan(table_at(tabs, li), clip=clip, fast=fast)
+            for li in range(3)]
+
+
+@functools.lru_cache(maxsize=None)
+def _prebuild_df32_freeform():
+    """Build the K10-K13 keys of every freeform lens of the card test at
+    once, the first time a case asks."""
+    keys = []
+    for name in _FREEFORM_CARD:
+        for fast in (True, False):
+            for clip in (False, True):
+                plans = _df32_freeform_plans(name, fast, clip)
+                keys += [CS.df32_multi_key(plans[:1], "k11", True),
+                         CS.df32_multi_key(plans[:1], "k13"),
+                         CS.df32_multi_key(plans, "k11", True),
+                         CS.df32_multi_key(plans, "k13")]
+    CS.prebuild(keys)

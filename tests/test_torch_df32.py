@@ -313,26 +313,24 @@ def test_multi_matches_jax_on_two_wavelengths():
 @pytest.mark.parametrize("field,item", [("doe", "9.4"), ("xy_poly", "9.5"),
                                         ("grating_dy", "9.4")])
 def test_plan_refuses_extended_rows(field, item):
-    """An XY-freeform row raises NotImplementedError naming its ROADMAP
-    item (9.5); a DOE and a grating row (item 9.4, ported) are planned
-    and traced as the JAX package's eager df32 does, word for word with
-    the optical path (the aspheric and anamorphic rows:
-    tests/test_torch_df32_newton.py; the phase rows in full:
-    tests/test_torch_df32_phase.py)."""
+    """No extended row is refused now: an XY-freeform row (item 9.5), a
+    DOE and a grating row (item 9.4) are planned and traced as the JAX
+    package's eager df32 does, word for word with the optical path (the
+    aspheric and anamorphic rows: tests/test_torch_df32_newton.py; the
+    phase rows in full: tests/test_torch_df32_phase.py; the freeform
+    rows: tests/test_torch_df32_freeform.py)."""
     values = {"doe": [[0.], [1e-4], [0.]],
               "xy_poly": [[0., 0.], [1e-4, 0.], [0., 0.]],
               "grating_dy": [0., .001, 0.]}
     tab = TT.make_table([0., .02, 0.], distance=[0., 5., 40.],
                         mu=[1., 1/1.5, 1.5], **{field: values[field]})
-    if item == "9.5":
-        with pytest.raises(NotImplementedError,
-                           match="Queue 1 item %s" % item.replace(".",
-                                                                  r"\.")):
-            D.plan(tab)
-        return
     steps = D.plan(tab)
     assert (steps[0]["grat"] is not None) == (field == "grating_dy")
     assert (steps[0]["doe"] is not None) == (field == "doe")
+    assert (steps[0]["anam"] is not None) == (item == "9.5")
+    if item == "9.5":
+        assert steps[0]["anam"]["mode"] == "freeform"
+        assert steps[0]["anam"]["deg"] == 1
     jtab = TT.SurfaceTable(*(None if f is None else f.cpu().numpy()
                              for f in tab))
     y, u = _bundle(4., n=64)

@@ -426,7 +426,7 @@ def _unpack(words, flags):
                 k1c=pair(f0 + CD.A_K1C),
                 circular=not fl & CD.G_CYL_CONIC,
                 alternate=st["alternate"])
-        elif fig:
+        elif fig in (CD.FIG_BICONIC, CD.FIG_TOROID):
             coef = f0 + CD.A_COEF
             an = dict(mode="toroid" if fig == CD.FIG_TOROID else "biconic",
                       df_iters=D.ANAM_DF_ITERS + (0 if fast else 1),

@@ -12,11 +12,13 @@ package's engine of the same kind, with the reference's tolerances:
 and for df32 equal NaN masks, 1e-9 mm on the image positions and 1e-10
 relative on the optical path.  Four more trials put a grating or a DOE
 on a cylinder (a y-cylinder made by a biconic or a toroid, an
-x-cylinder) on one row of a reference-style draw, held the same way.
-The port's engines are also held against each other as the
-reference's are.  The JAX package's generic walk is compiled once for
-every trial (one table shape), its specialized step runs eagerly
-(jax.disable_jit: a trial's compile would cost more than its trace).
+x-cylinder) on one row of a reference-style draw, and four put an XY
+freeform figure there (on a flat, a conic, an odd-aspheric base and on
+a grating row), held the same way.  The port's engines are also held
+against each other as the reference's are.  The JAX package's generic
+walk is compiled once for each table shape (the freeform trials share
+one XY width), its specialized step runs eagerly (jax.disable_jit: a
+trial's compile would cost more than its trace).
 """
 
 import numpy as np
@@ -115,10 +117,45 @@ def _phase_cylinder(kw, rng, j, kind):
         kw["doe"][j] = (rng.uniform(-3e-3, 3e-3), rng.uniform(-1e-5, 1e-5))
 
 
+#: the freeform rows a freeform trial puts on one of its rows: a
+#: degree-2 figure on a flat base, a degree-4 one on a conic base (some
+#: terms zero), a degree-3 one on a grating row, a degree-4 one on an
+#: odd-aspheric base; the trials share the degree-4 width (14 terms)
+FREEFORM_KINDS = ("quadratic flat", "quartic conic", "cubic grating",
+                  "quartic odd")
+
+
+def _freeform_row(kw, rng, j, kind):
+    """Make row j of a trial's keywords the freeform row `kind` (its mu
+    kept, its anamorphic figure and its DOE cleared: a freeform figure
+    on an anamorphic base is refused): an xy_poly column of 14 terms,
+    zero but on row j, each term of degree d within +-1e-3 / 2^(d - 2)
+    (a few micrometres of sag at the trial's 2-4 mm heights)."""
+    for f in ("curvature_dx", "conic_dx", "toroidal", "grating_dy"):
+        kw[f][j] = 0.
+    kw["aspherics_odd"][j] = kw["doe"][j] = 0.
+    deg = {"quadratic flat": 2, "cubic grating": 3}.get(kind, 4)
+    if kind == "quadratic flat":
+        kw["curvature"][j] = kw["conic"][j] = 0.
+    elif kind == "quartic conic":
+        kw["curvature"][j] = kw["curvature"][j] or rng.uniform(.01, .02)
+        kw["conic"][j] = rng.uniform(-1., .5)
+    elif kind == "cubic grating":
+        kw["grating_dy"][j] = rng.uniform(-.2, .2)
+    else:
+        kw["aspherics_odd"][j] = rng.uniform(-1e-5, 1e-5, 2)
+    xy = np.zeros((len(kw["curvature"]), 14))
+    for t, (i, k) in enumerate(JK._xy_terms(4)):
+        if i + k <= deg and rng.random() < .75:
+            xy[j, t] = rng.uniform(-1e-3, 1e-3)/2.**(i + k - 2)
+    kw["xy_poly"] = xy
+
+
 def _trials():
-    """The reference's 8 trials (its seed 21, its draws), and one trial a
+    """The reference's 8 trials (its seed 21, its draws), one trial a
     kind of CYLINDER_KINDS (seed 23: a reference-style draw, then one
-    row made that phase cylinder)."""
+    row made that phase cylinder) and one a kind of FREEFORM_KINDS (seed
+    25, the same way)."""
     rng = np.random.default_rng(21)
     out = {("reference", i): _trial_inputs(rng) for i in range(8)}
     rng = np.random.default_rng(23)
@@ -126,6 +163,11 @@ def _trials():
         kw, y0, u0 = _trial_inputs(rng)
         _phase_cylinder(kw, rng, 1 + i % 3, kind)
         out[("cylinder", kind)] = kw, y0, u0
+    rng = np.random.default_rng(25)
+    for i, kind in enumerate(FREEFORM_KINDS):
+        kw, y0, u0 = _trial_inputs(rng)
+        _freeform_row(kw, rng, 1 + i % 3, kind)
+        out[("freeform", kind)] = kw, y0, u0
     return out
 
 
@@ -166,6 +208,10 @@ def test_fuzz_extended_vocabulary_parity(key):
     assert TK.specs_from_tuple(jspecs) == specs
     if key[0] == "cylinder":
         assert any(sp.cyl_axis and TK.is_phase(sp) for sp in specs)
+    if key[0] == "freeform":
+        assert sum(sp.freeform for sp in specs) == 1
+        assert sum(st["anam"] is not None and st["anam"]["mode"]
+                   == "freeform" for st in D.plan(ttab)) == 1
     yt, ut = torch.from_numpy(y0), torch.from_numpy(u0)
     a = TG.trace_rays(ttab, yt, ut, biconic=True)
     b = TG.trace_rays(ttab, yt, ut, specs=specs)
@@ -217,3 +263,24 @@ def test_cylinder_trials_cover_every_kind():
                            bool(sp.doe)))
     assert kinds == {(1, False, True, False), (1, True, False, True),
                      (2, False, True, False), (1, False, True, True)}
+
+
+def test_freeform_trials_cover_every_kind():
+    """The freeform trials put a degree-2 figure on a flat base, a
+    degree-4 one on a conic base, a degree-3 one on a grating row and a
+    degree-4 one on an odd-aspheric base, each specialized and planned
+    so (the freeform row's base and phase flags, the top degree of its
+    df32 plan's value terms)."""
+    kinds = {}
+    for (group, kind), (kw, _, _) in TRIALS.items():
+        if group != "freeform":
+            continue
+        ttab = TT.table_from_numpy(JT.make_table(**kw))
+        sp = [s for s in TK.specialize(ttab) if s.freeform][0]
+        an = [st["anam"] for st in D.plan(ttab) if st["anam"] is not None
+              and st["anam"]["mode"] == "freeform"][0]
+        kinds[kind] = (max(i + j for _, i, j in an["xy"]), sp.flat,
+                       not (sp.flat or sp.spherical), sp.grating, sp.odd)
+    deg, flat, conic, grating, odd = zip(*(kinds[k] for k in FREEFORM_KINDS))
+    assert deg == (2, 4, 3, 4)
+    assert flat[0] and conic[1] and grating[2] and odd[3]

@@ -426,8 +426,10 @@ def test_extended_rows_still_raise_everywhere(name):
     step and the plain engines and taken by every K1-K9 key, each
     carrying the table's XY width (tests/test_torch_freeform.py,
     tests/test_torch_spec_freeform.py, tests/test_torch_spec_freeform_
-    paths.py); the df32 plan raises NotImplementedError on them, naming
-    item 9.5, part three.  Biconic, toroid and cylinder rows are traced now
+    paths.py), and the df32 plan traces them as the JAX package's eager
+    df32 does, word for word with the optical path
+    (tests/test_torch_df32_freeform.py).  Biconic, toroid and cylinder
+    rows are traced now
     (tests/test_torch_anamorphic.py): every K1-K9 key takes them, and the
     df32 plan traces them as the JAX package's eager df32 does, word for
     word.  Grating and DOE rows are traced by the plain path and by
@@ -504,5 +506,9 @@ def test_extended_rows_still_raise_everywhere(name):
                             biconic=True)[0]
     assert torch.isfinite(y).all()
     assert torch.isfinite(CT.trace_final(tt, specs, state)[0][0]).all()
-    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
-        TD.plan(tt)
+    assert TD.plan(tt)[0]["anam"]["mode"] == "freeform"
+    y, u = np.zeros((8, 3)), np.zeros((8, 3))
+    y[:, 0] = np.linspace(-4, 4, 8)
+    y[:, 1] = np.linspace(3, -3, 8)
+    u[:, 2] = 1.
+    assert df32_matches_jax(tt, y, u)

@@ -9,9 +9,8 @@ against the plain version, the plain K5 against the JAX package's
 interpret-mode adjoint kernel on the quadratic XY singlet, the key
 words (F_FREEFORM below LIVE_SHIFT 17), the packed rows and K5's XY
 slots, the baked-out XY slots and their warning, every K1-K9 key's
-XY width and df32.plan's refusal (naming ROADMAP Queue 1 item 9.5,
-part three; a freeform figure on a biconic base refused, as the
-reference), and
+XY width and df32.plan's freeform row (the JAX package's eager words;
+a freeform figure on a biconic base refused, as the reference), and
 optimize_grad(engine="adjoint", select=("xy_poly",),
 scales=freeform_scales) on the Schmidt corrector against the JAX
 package.  The kernels themselves build and run only on a CUDA card
@@ -41,6 +40,7 @@ from rayopt_tpu_torch.parallel import grad as TGR
 
 from test_torch_anamorphic import (_cpu_default, _one_thread,  # noqa: F401
                                    _t)
+from test_torch_df32_newton import df32_matches_jax
 from test_torch_freeform import (TABLES, lens_bundle, schmidt, tables,
                                  xysystem)
 
@@ -278,11 +278,12 @@ def test_xy_slots_bake_out_and_warn():
 def test_the_other_kernels_refuse_freeform_rows():
     """Every K1-K9 key takes a freeform row and carries the table's XY
     width (K3's trace and merit, K6, K7, K8 and K9 since item 9.5 part
-    two; the adjoints' XY slots last); only df32.plan raises
-    NotImplementedError on it, naming ROADMAP Queue 1 item 9.5, part
-    three.  A freeform figure on a biconic base raises in specialize as
-    the reference's does, and every key and the hand reverse refuse such
-    a spec."""
+    two; the adjoints' XY slots last), and since part three df32.plan
+    plans it and traces it as the JAX package's eager df32 does, word for
+    word with the optical path (tests/test_torch_df32_freeform.py).  A
+    freeform figure on a biconic base raises in specialize and in
+    df32.plan as the reference's do, and every key and the hand reverse
+    refuse such a spec."""
     _, tt = tables("aspheric base")
     specs = TK.specialize(tt)
     kw = dict(widths=CT.figure_widths(tt, specs))
@@ -300,14 +301,17 @@ def test_the_other_kernels_refuse_freeform_rows():
         if key.kernel in ("k5", "k7", "k9"):
             assert key.slots == (CS.OPD_SLOTS if key.kernel == "k9"
                                  else CS.SLOTS) + sum(kw["widths"]) + nxy
-    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
-        TD.plan(tt)
+    assert TD.plan(tt)[0]["anam"]["mode"] == "freeform"
+    y0, u0 = lens_bundle("aspheric base", 16, 2)
+    assert df32_matches_jax(tt, y0, u0)
     bad = dict(TABLES["quadratic freeform"])
     bad["curvature_dx"] = [0., 1e-3, 0., 0.]
     with pytest.raises(NotImplementedError, match="anamorphic"):
         JK.specialize(JT.make_table(**bad))
     with pytest.raises(NotImplementedError, match="anamorphic"):
         TK.specialize(TT.table_from_numpy(JT.make_table(**bad)))
+    with pytest.raises(NotImplementedError, match="anamorphic"):
+        TD.plan(TT.table_from_numpy(JT.make_table(**bad)))
     mixed = list(specs)
     mixed[1] = mixed[1]._replace(biconic=True)
     for make in (CS.trace_key, CS.adjoint_key, CS.opd_key,

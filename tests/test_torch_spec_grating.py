@@ -370,8 +370,9 @@ def test_a_phase_cylinder_and_a_freeform_row_refuse():
     is traced by the specialized and the generic step and taken by the
     K1, K3 and K8 keys, each carrying the table's XY width
     (tests/test_torch_freeform.py, tests/test_torch_spec_freeform_
-    paths.py); only the df32 plan refuses it, naming item 9.5, part
-    three."""
+    paths.py), and the df32 plan traces it as the JAX package's eager
+    df32 does (tests/test_torch_df32_freeform.py): no row refuses
+    now."""
     kw = dict(curvature=[0., 1/40., 0.], curvature_dx=[0., -1/40., 0.],
               mu=[1., 1/1.5, 1.], distance=[0., 5., 10.],
               grating_dy=[0., .1, 0.])
@@ -412,8 +413,13 @@ def test_a_phase_cylinder_and_a_freeform_row_refuse():
     assert CS.trace_key(fspecs, F64, nxy=nxy).nxy == 5
     assert CS.trace_multi_key(fspecs, F64, 2, nxy=nxy).nxy == 5
     assert CS.opd_key(fspecs + fspecs[-1:], F64, nxy=nxy).nxy == 5
-    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
-        TD.plan(ft)
+    assert TD.plan(ft)[0]["anam"]["mode"] == "freeform"
+    y0 = np.zeros((8, 3))
+    y0[:, 0] = np.linspace(-3, 3, 8)
+    y0[:, 1] = np.linspace(2, -2, 8)
+    u0 = np.zeros((8, 3))
+    u0[:, 2] = 1.
+    assert df32_matches_jax(ft, y0, u0)
 
 
 # -- the loop -----------------------------------------------------------------

@@ -181,7 +181,8 @@ def test_extended_vocabulary_raises():
     # tests/test_torch_spec_freeform_paths.py; the aspheric, anamorphic,
     # grating and DOE rows: tests/test_torch_asphere.py,
     # tests/test_torch_anamorphic.py and tests/test_torch_grating.py);
-    # what raises is the df32 plan (item 9.5, part three)
+    # the df32 plan takes it too (item 9.5, part three:
+    # tests/test_torch_df32_freeform.py): nothing of the vocabulary raises
     jt = JT.make_table(curvature=[0., 1/40.], mu=[1., 1/1.5],
                        xy_poly=[[0.]*5, [0., 0., 1e-3, 0., 0.]])
     tt = TT.table_from_numpy(jt)
@@ -203,8 +204,9 @@ def test_extended_vocabulary_raises():
     from rayopt_tpu_torch.ops import df32 as TD
     assert CS.trace_multi_key(specs, torch.float64, 2,
                               nxy=CT.xy_width(tt, specs)).nxy == 5
-    with pytest.raises(NotImplementedError, match=r"item 9\.5, part three"):
-        TD.plan(tt)
+    steps = TD.plan(tt)
+    assert steps[0]["anam"]["mode"] == "freeform"
+    assert [t[1:] for t in steps[0]["anam"]["xy"]] == [(2, 0)]
 
 
 # -- tables -------------------------------------------------------------
