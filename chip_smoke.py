@@ -60,13 +60,21 @@ plain versions, K5, K7 and K9 against central differences of xy_poly,
 K8 on the reference's Zernike imprint; the Schmidt and Zernike
 correctors' forward paths; the Schmidt corrector's designer loop,
 achromatization loop and design step with its plate's xy_poly among
-their parameters) -- and times the kernels against their plain
+their parameters) -- then the rot cotangent (the K5, K7 and K9 rot keys
+on a tilted sphere, conic, asphere, biconic, toroid, DOE, grating,
+freeform plate and image row against their plain versions and central
+differences of tilt and decenter; on the misaligned double Gauss the
+alignment-compensation loop, optimize_grad(select=("tilt", "decenter"),
+engine="adjoint") on the designer loop's bundles, and one
+achromatization and one design step over tilt and decenter, every
+K5/K7/K9 launch under a rot key) -- and times the kernels against their plain
 versions (the stacked-wavelength ones also against their monochromatic
 twins, the aspheric keys against the double Gauss's, K10-K13 on the
 Newton plans against their spherical twins', the grating and DOE keys
 and the df32 phase plans against their phase-free twins', the phase
 cylinders' keys against the plain cylinders', the freeform keys
-against the freeform-free Schmidt plate's).
+against the freeform-free Schmidt plate's, the rot keys against their
+twins without rot).
 Every phase raises on a failure; the script exits non-zero and prints
 no result without a CUDA device.  The last line of stdout is the
 device JSON, the line before it the kernels JSON.
@@ -1154,8 +1162,8 @@ def phase_device_aiming(s):
 def phase_opt_path():
     """The designer loop on the double Gauss, through the entry points a
     user calls, its step 0 against the CPU at N_LOOP_CHECK nrays a
-    bundle.  Returns (launch counts, mean seconds of the later
-    steps)."""
+    bundle.  Returns (launch counts, mean seconds of the later steps,
+    the bundles)."""
     from rayopt_tpu_torch.models import double_gauss
     return designer_loop(double_gauss(), "optimizer path: double Gauss",
                          OPT_SELECT, check_nrays=N_LOOP_CHECK)
@@ -1214,7 +1222,7 @@ def designer_loop(s, title, select, scales=None, check_nrays=None,
     step 0 against the same call on the CPU plain versions
     (step0_cross_check), then write_back_table of the fields with an
     element attribute.  Returns (the launches of the card's run, counted
-    from 0 at its start; mean seconds of the later steps)."""
+    from 0 at its start; mean seconds of the later steps; the bundles)."""
     from rayopt_tpu_torch.parallel import (
         bundles_from_system, bundles_to, optimize_grad, write_back_table)
     from rayopt_tpu_torch.parallel.grad import _WRITE_BACK
@@ -1283,7 +1291,7 @@ def designer_loop(s, title, select, scales=None, check_nrays=None,
         failures.append("K4 or K5 never launched: %s" % launches)
     if failures:
         raise AssertionError("%s failed: %s" % (title, ", ".join(failures)))
-    return launches, float(steps[1:].mean())
+    return launches, float(steps[1:].mean()), bundles
 
 
 def _live_of(out):
@@ -1559,7 +1567,8 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
     the same call on the CPU plain versions (step0_cross_check; with
     check_nrays K3's float64 spot RMS on those bundles against the
     CPU's too).  Returns (the launches of the loop and its K3 reports,
-    counted from 0 at their start; mean seconds of the later steps)."""
+    counted from 0 at their start; mean seconds of the later steps; the
+    bundles)."""
     from rayopt_tpu_torch import glass
     from rayopt_tpu_torch.models import double_gauss
     from rayopt_tpu_torch.ops.cuda_grad import union_spot_rms_from_moments
@@ -1810,7 +1819,7 @@ def phase_glass_path(s=None, lens="double Gauss", check_nrays=None,
     if failures:
         raise AssertionError("achromatization path on the %s failed: %s"
                              % (lens, ", ".join(failures)))
-    return launches, float(steps[1:].mean())
+    return launches, float(steps[1:].mean()), bundles
 
 
 def opd_aux(s, table, specs, state):
@@ -2142,7 +2151,8 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
     breakdown, the Strehl, PSF and MTF report and the host OPD/Zernike
     cross-check.  Step 0 is held against the same call on the CPU plain
     versions (step0_cross_check).  Returns the launches of the
-    optimize_grad run and the mean seconds of its later steps."""
+    optimize_grad run, the mean seconds of its later steps and the (spot,
+    wavefront) bundles."""
     from rayopt_tpu_torch.models import double_gauss
     from rayopt_tpu_torch.ops.cuda_grad import (adjoint_spot_rms,
                                                 adjoint_wavefront_rms)
@@ -2307,7 +2317,7 @@ def phase_design_path(s=None, lens="double Gauss", select=OPT_SELECT,
     if failures:
         raise AssertionError("design path on the %s failed: %s"
                              % (lens, ", ".join(failures)))
-    return launches, float(steps[1:].mean())
+    return launches, float(steps[1:].mean()), (spot, wave)
 
 
 def host_opd_check(s, opd_kw):
@@ -2811,16 +2821,16 @@ def phase_asphere_path(opt_step, glass_step, design_step):
         raise AssertionError("aspheric path failed: " + ", ".join(failures))
     forward = read_launches()
     log("== launch counts on the aspheric forward path: %s" % forward)
-    loop, step = designer_loop(aspheric_double_gauss(),
-                               "aspheric designer loop: aspheric double "
-                               "Gauss", ASPH_SELECT, ASPH_SCALES,
-                               N_LOOP_CHECK)
-    glass, gstep = phase_glass_path(aspheric_double_gauss(),
-                                    "aspheric double Gauss", N_LOOP_CHECK)
-    design, dstep = phase_design_path(aspheric_double_gauss(),
-                                      "aspheric double Gauss",
-                                      ASPH_DESIGN_SELECT, ASPH_SCALES,
-                                      N_LOOP_CHECK)
+    loop, step, _ = designer_loop(aspheric_double_gauss(),
+                                  "aspheric designer loop: aspheric double "
+                                  "Gauss", ASPH_SELECT, ASPH_SCALES,
+                                  N_LOOP_CHECK)
+    glass, gstep, _ = phase_glass_path(aspheric_double_gauss(),
+                                       "aspheric double Gauss", N_LOOP_CHECK)
+    design, dstep, _ = phase_design_path(aspheric_double_gauss(),
+                                         "aspheric double Gauss",
+                                         ASPH_DESIGN_SELECT, ASPH_SCALES,
+                                         N_LOOP_CHECK)
     steps = {"designer": step, "achromatization": gstep, "design": dstep}
     log("later steps: %s" % ", ".join(
         "%s loop aspheric double Gauss %.4f s, double Gauss %.4f s (%.2fx)"
@@ -3437,17 +3447,19 @@ def phase_anamorphic_path(opt_step, glass_step, design_step):
     forward = read_launches()
     log("== launch counts on the anamorphic forward path: %s" % forward)
     torch.cuda.empty_cache()
-    loop, step = designer_loop(anamorphic_pair(), "anamorphic designer "
-                               "loop: crossed-cylinder pair", ANAM_SELECT,
-                               None, N_LOOP_CHECK)
+    loop, step, _ = designer_loop(anamorphic_pair(), "anamorphic designer "
+                                  "loop: crossed-cylinder pair", ANAM_SELECT,
+                                  None, N_LOOP_CHECK)
     log("the achromatization loop runs on a copy of the pair whose two "
         "lens materials are N-BK7 (nd 1.5168, as the pair's constant "
         "index): the constant index has vd = inf, equal wavelength tables "
         "and no glass gradient")
-    glass, gstep = phase_glass_path(nbk7_pair(), "anamorphic pair in N-BK7",
-                                    N_LOOP_CHECK, slots=2)
-    design, dstep = phase_design_path(anamorphic_pair(), "anamorphic pair",
-                                      ANAM_DESIGN_SELECT, None, N_LOOP_CHECK)
+    glass, gstep, _ = phase_glass_path(nbk7_pair(),
+                                       "anamorphic pair in N-BK7",
+                                       N_LOOP_CHECK, slots=2)
+    design, dstep, _ = phase_design_path(anamorphic_pair(), "anamorphic pair",
+                                         ANAM_DESIGN_SELECT, None,
+                                         N_LOOP_CHECK)
     steps = {"designer": step, "achromatization": gstep, "design": dstep}
     log("later steps: %s" % ", ".join(
         "%s loop anamorphic pair %.4f s, double Gauss %.4f s (%.2fx)"
@@ -4416,13 +4428,13 @@ def phase_hybrid_path(opt_step, glass_step, design_step):
     log("== launch counts on the hybrid achromat's forward path: %s"
         % forward)
     torch.cuda.empty_cache()
-    loop, step = designer_loop(hybrid_achromat(), "phase designer loop: "
-                               "hybrid achromat", PHASE_SELECT, None,
-                               N_LOOP_CHECK)
-    glass, gstep = phase_glass_path(hybrid_achromat(), "hybrid achromat",
-                                    N_LOOP_CHECK, slots=1)
-    design, dstep = phase_design_path(hybrid_achromat(), "hybrid achromat",
-                                      PHASE_SELECT, None, N_LOOP_CHECK)
+    loop, step, _ = designer_loop(hybrid_achromat(), "phase designer loop: "
+                                  "hybrid achromat", PHASE_SELECT, None,
+                                  N_LOOP_CHECK)
+    glass, gstep, _ = phase_glass_path(hybrid_achromat(), "hybrid achromat",
+                                       N_LOOP_CHECK, slots=1)
+    design, dstep, _ = phase_design_path(hybrid_achromat(), "hybrid achromat",
+                                         PHASE_SELECT, None, N_LOOP_CHECK)
     steps = {"designer": step, "achromatization": gstep, "design": dstep}
     log("later steps: %s" % ", ".join(
         "%s loop hybrid achromat %.4f s, double Gauss %.4f s (%.2fx)"
@@ -6124,10 +6136,10 @@ def phase_freeform_path(opt_step):
     forward = read_launches()
     log("== launch counts on the freeform forward path: %s" % forward)
     s = schmidt_corrector()
-    loop, step = designer_loop(s, "freeform designer loop: Schmidt "
-                               "corrector", FF_SELECT,
-                               {"xy_poly": freeform_scales(s)}, N_LOOP_CHECK,
-                               fields=(0.,), lr=FF_LR)
+    loop, step, _ = designer_loop(s, "freeform designer loop: Schmidt "
+                                  "corrector", FF_SELECT,
+                                  {"xy_poly": freeform_scales(s)},
+                                  N_LOOP_CHECK, fields=(0.,), lr=FF_LR)
     log("later steps: designer loop Schmidt corrector %.4f s, double Gauss "
         "%.4f s (%.2fx)" % (step, opt_step, step/opt_step))
     return ({k: v + loop[k] for k, v in forward.items()}, step,
@@ -6562,11 +6574,11 @@ def phase_freeform_loops(glass_step, design_step):
     (`glass_step`, `design_step` seconds).  Returns (the loops'
     launches, their later-step seconds)."""
     from rayopt_tpu_torch.parallel import freeform_scales
-    glass, gstep = phase_glass_path(
+    glass, gstep, _ = phase_glass_path(
         schmidt_corrector(SCHMIDT_FIGURE), "figured Schmidt corrector",
         N_LOOP_CHECK, slots=1, fields=FF_FIELDS)
     s = schmidt_corrector()
-    design, dstep = phase_design_path(
+    design, dstep, _ = phase_design_path(
         s, "Schmidt corrector", FF_SELECT, {"xy_poly": freeform_scales(s)},
         N_LOOP_CHECK, fields=FF_FIELDS, lr=FF_LR)
     steps = {"achromatization": gstep, "design": dstep}
@@ -7553,6 +7565,832 @@ def newton_df32_path(s, aimed, lens):
     return counts
 
 
+# -- the rot cotangent: pose gradients through K5, K7 and K9 ------------
+
+POSE_SELECT = ("tilt", "decenter")
+#: the table fields POSE_SELECT moves: the slot set of the pose loops'
+#: K5, K7 and K9 (rot keys)
+POSE_FIELDS = ("offset", "rot")
+#: the alignment loop's manufacturing error on the double Gauss: row 3's
+#: tilt (rad) and row 9's decenter (mm), baked into the table
+#: (tables.lower_pose); the loop moves every row's tilt and decenter from
+#: zero, its step-0 merit at least POSE_HURT times the nominal lens's on
+#: the same bundles (the reference's test_alignment_compensation)
+POSE_ERROR = {"tilt": (3, (4e-3, -2e-3, 0.)), "decenter": (9, (.04, -.02, 0.))}
+POSE_HURT = 1.5
+POSE_LR = 1e-4       # Adam on tilt (rad) and decenter (mm): the merit falls
+#                      at every step on the CPU (2000 nrays a bundle)
+POSE_STEPS = 10
+N_POSE = 1 << 18     # rays of the pose checks
+POSE_FD_STEP = 1e-6  # central differences: rad of tilt, mm of decenter
+POSE_FD_REL = 1e-6
+#: (field, row, component) of the double Gauss's central differences: an
+#: interior tilt, the image row's tilt (its two uses of the rotation in
+#: K5 and K7, the sphere tail's in K9), two decenters
+POSE_FD_PICKS = (("tilt", 3, 1), ("tilt", 12, 0), ("decenter", 9, 0),
+                 ("decenter", 5, 1))
+#: the image row's tilt on every pose case (rad)
+POSE_IMAGE_TILT = (1e-3, 2e-3, 0.)
+
+
+def pose_lenses():
+    """{name: (build, {row: tilt}, {row: decenter}, bench bundle, with
+    every pose live, float32 held)} of the pose checks: a tilted and
+    decentred sphere (the double Gauss, with_pose: the loops' specs), a
+    tilted conic and asphere (the aspheric double Gauss), a tilted
+    biconic and toroid, a tilted DOE (the hybrid achromat) and grating
+    (the spectrograph), the tilted freeform plate of the figured Schmidt
+    corrector; the image row tilted on each.  The spectrograph's float32
+    K5 and K7 are logged, not held (its 56-85 mm off-axis centroid
+    cancels the moment formula's float32 digits, phase_grating_check),
+    and so is the Schmidt plates' float32 K9 (phase_opd_check's
+    hold_f32_k9)."""
+    from rayopt_tpu_torch.models import (double_gauss, hybrid_achromat,
+                                         spectrograph)
+    img = POSE_IMAGE_TILT
+    return {
+        "posed double Gauss": (double_gauss, {3: (4e-3, -2e-3, 0.), 12: img},
+                               {9: (.04, -.02, 0.)}, opd_bundle, True,
+                               (True, True)),
+        "posed aspheric double Gauss": (
+            aspheric_double_gauss, {ASPH_ROW: (3e-3, -1e-3, 0.),
+                                    2: (2e-3, 1e-3, 0.), 12: img},
+            {5: (.03, .02, 0.)}, opd_bundle, False, (True, True)),
+        "posed biconic": (split_biconic, {1: (8e-3, -5e-3, 0.), 3: img},
+                          {1: (.05, -.03, 0.)}, anam_opd_bundle, False,
+                          (True, True)),
+        "posed toroid lens": (toroid_lens, {1: (6e-3, 4e-3, 0.), 3: img},
+                              {2: (.04, .02, 0.)}, anam_opd_bundle, False,
+                              (True, True)),
+        "posed hybrid achromat": (
+            hybrid_achromat, {2: (5e-3, -3e-3, 0.), 3: img},
+            {1: (.03, 0., 0.)}, phase_bundle_of(6.), False, (True, True)),
+        "posed spectrograph": (spectrograph, {1: (2e-3, -1e-3, 0.),
+                                              2: img}, {},
+                               phase_bundle_of(10.), False, (False, True)),
+        "posed Schmidt corrector": (
+            lambda: schmidt_corrector(SCHMIDT_FIGURE),
+            {1: (4e-3, -3e-3, 0.), 4: img}, {1: (.1, -.05, 0.)},
+            freeform_bundle_of(17.), False, (True, False))}
+
+
+def posed(table, tilts, decs):
+    """The table (or stack) with the given rows' tilt and decenter folded
+    into its rot and offset (tables.lower_pose)."""
+    from rayopt_tpu_torch.ops.tables import lower_pose
+    shape = table.offset.shape
+    t = torch.zeros(shape[-2:], dtype=torch.float64)
+    d = torch.zeros_like(t)
+    for j, v in tilts.items():
+        t[j] = torch.tensor(v, dtype=torch.float64)
+    for j, v in decs.items():
+        d[j] = torch.tensor(v, dtype=torch.float64)
+    dev = table.offset.device
+    return lower_pose(table.replace(tilt=t.expand(shape).to(dev),
+                                    decenter=d.expand(shape).to(dev)))
+
+
+def pose_cases():
+    """{name: (system, posed table on the card, its specs, posed stack of
+    three tables, its specs, bundle, float32 held (K5/K7, K9))} of
+    pose_lenses: the stack is the system's three wavelength tables, or
+    for a lens of one glass its table with mu grown by 0, 1 and 2 % of
+    mu - 1 (anam_stack) or at 1, 0.9 and 1.1 times its wavelength
+    (phase_stack), each posed alike."""
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    from rayopt_tpu_torch.ops.kernels import specialize, with_pose
+    out = {}
+    for name, (build, tilts, decs, bundle, live, hold) in \
+            pose_lenses().items():
+        s = build()
+        if name in ("posed biconic", "posed toroid lens"):
+            tabs = anam_stack(s.table())[0]
+        elif name in ("posed hybrid achromat", "posed spectrograph"):
+            tabs = phase_stack(s)[0]
+        else:
+            tabs = s.tables()
+        table, tabs = posed(s.table(), tilts, decs), posed(tabs, tilts, decs)
+        specs, mspecs = specialize(table), multi_specs(tabs, None)
+        if live:
+            specs, mspecs = with_pose(specs), with_pose(mspecs)
+        out[name] = (s, table, specs, tabs, mspecs, bundle, hold)
+    return out
+
+
+def pose_keys(cases=None):
+    """{tag: key} of the pose phases: the K5, K7 and K9 rot keys (every
+    field and rot, with the ray cotangents; float64 and float32, clip off
+    and on) of each pose case, with the K8 keys that give K9 its
+    cotangents; on the posed double Gauss the forward keys K2 (the live
+    rays of the timings, its table and its stack's specs), K4, K6 (3
+    wavelengths) and K8 and the loops' rot keys (POSE_FIELDS, no ray
+    cotangents) beside their twins without rot, in both dtypes; and the
+    pose path's (the double Gauss with every pose live and row 3's tilt
+    and row 9's decenter baked in, float64)."""
+    from rayopt_tpu_torch.models import double_gauss
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_trace import (doe_width, figure_widths,
+                                                 multi_specs, xy_width)
+    from rayopt_tpu_torch.ops.kernels import specialize, with_pose
+    cases = cases or pose_cases()
+    keys = {}
+    every, every9 = CS.FIELDS + ("rot",), CS.OPD_DIFF + ("rot",)
+    for name, (s, table, specs, tabs, mspecs, _, _) in cases.items():
+        kw = dict(widths=figure_widths(table, specs),
+                  nd=doe_width(table, specs), nxy=xy_width(table, specs))
+        mkw = dict(widths=figure_widths(tabs, mspecs),
+                   nd=doe_width(tabs, mspecs), nxy=xy_width(tabs, mspecs))
+        for dtype in (torch.float32, torch.float64):
+            for clip in (False, True):
+                tag = "%%s %s %s clip=%s rot" % (name, str(dtype)[6:], clip)
+                keys[tag % "K5"] = CS.adjoint_key(specs, dtype, clip, every,
+                                                  **kw)
+                keys[tag % "K7"] = CS.adjoint_multi_key(mspecs, dtype, clip,
+                                                        every, **mkw)
+                keys[tag % "K9"] = CS.opd_adjoint_key(specs, dtype, clip,
+                                                      every9, **kw)
+                keys[tag % "K8"] = CS.opd_key(specs, dtype, clip, **kw)
+    _, table, specs, tabs, mspecs, _, _ = cases["posed double Gauss"]
+    s = double_gauss()
+    err = posed(s.table(), *pose_error())
+    errs = posed(s.tables(), *pose_error())
+    pspecs = with_pose(specialize(err))
+    pmspecs = with_pose(multi_specs(errs, None))
+    loop = POSE_FIELDS
+    twin = POSE_FIELDS[:-1]
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype)[6:]
+        for lens, sp, msp in (("posed double Gauss", specs, mspecs),
+                              ("pose path", pspecs, pmspecs)):
+            keys["K2 %s %s" % (lens, dt)] = CS.merit_key(sp, dtype)
+            keys["K2 %s %s stack" % (lens, dt)] = CS.merit_key(msp, dtype)
+            keys["K4 %s %s" % (lens, dt)] = CS.moments_key(sp, dtype)
+            keys["K6 %s %s nlam=3" % (lens, dt)] = CS.moments_multi_key(
+                msp, dtype, False, 3)
+            keys["K8 %s %s" % (lens, dt)] = CS.opd_key(sp, dtype)
+            for fields, what in ((loop, "rot"), (twin, "twin")):
+                keys["K5 %s %s loop %s" % (lens, dt, what)] = \
+                    CS.adjoint_key(sp, dtype, False, fields, False)
+                keys["K7 %s %s loop %s" % (lens, dt, what)] = \
+                    CS.adjoint_multi_key(msp, dtype, False, fields, False)
+                keys["K9 %s %s loop %s" % (lens, dt, what)] = \
+                    CS.opd_adjoint_key(sp, dtype, False, fields, False)
+    return keys
+
+
+def pose_error():
+    """({row: tilt}, {row: decenter}) of POSE_ERROR."""
+    (tr, tv), (dr, dv) = POSE_ERROR["tilt"], POSE_ERROR["decenter"]
+    return {tr: tv}, {dr: dv}
+
+
+def pose_columns(got, want, rel, floor):
+    """(worst error of a column over its held scale, ok): each parameter
+    column (the last axis) against its largest plain value, floored at
+    `floor` of the key's largest; a column at zero must be exactly
+    zero."""
+    g, w = got.double(), want.double()
+    dims = tuple(range(w.dim() - 1))
+    scale = w.abs().amax(dim=dims)
+    err = (g - w).abs().amax(dim=dims)
+    top = float(scale.max())
+    held = torch.where(scale > 0, torch.clamp(scale, min=floor*top),
+                       torch.zeros_like(scale))
+    ok = bool(torch.isfinite(g).all()) and bool((err <= rel*held).all())
+    worst = float(torch.where(held > 0, err/torch.where(held > 0, held, 1.),
+                              torch.where(err > 0, float("inf"), 0.)).max())
+    return worst, ok
+
+
+def pose_groups(table, specs, nq, k9=False):
+    """K5's (K9's: `k9`) parameter columns of a table grouped by field
+    ((name, column indices) of the nq columns, a rot key's rotation
+    last: the groups compare_param_grads holds float32 to)."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_grad import _table_widths
+    from rayopt_tpu_torch.ops.cuda_trace import doe_width, xy_width
+    na, no = _table_widths(table)
+    head = CS.SLOT_FIELDS if k9 else CS.SLOT_FIELDS[:CS.SLOTS]
+    phase = (CS._opd_phase if k9 else CS._phase)(specs, doe_width(table,
+                                                                  specs))
+    cols = (head + ("aspherics",)*na + ("aspherics_odd",)*no
+            + CS._anamorphic(specs) + phase
+            + ("xy_poly",)*xy_width(table, specs))
+    cols = cols + ("rot",)*(nq - len(cols))
+    groups = {}
+    for q, f in enumerate(cols):
+        groups.setdefault(f, []).append(q)
+    return tuple(groups.items())
+
+
+def pose_f32_groups(got, want, groups, rel, mass=None):
+    """(worst error over its held scale, ok) of float32 parameter
+    cotangents by field group: each held to its largest plain value
+    floored at COLUMN_FLOOR of the largest group's (compare_param_grads),
+    or with `mass` to that of the sums of |term|."""
+    base = want if mass is None else mass
+    scales = [float(base[..., c].double().abs().max()) for _, c in groups]
+    top = max(scales)
+    worst, ok = 0., bool(torch.isfinite(got).all())
+    for (_, c), sc in zip(groups, scales):
+        e = float((got[..., c].double() - want[..., c].double()).abs().max())
+        held = max(sc, COLUMN_FLOOR*top) if mass is None else sc
+        if held:
+            worst = max(worst, e/held)
+            ok = ok and e <= rel*held
+        else:
+            ok = ok and e == 0.
+    return worst, ok
+
+
+def phase_pose_check(cases):
+    """The K5, K7 and K9 rot keys (every field and rot, with the ray
+    cotangents) against their plain versions on the card, at N_POSE rays
+    of each pose case's bench bundle (ray 0 the chief ray; 1.5x wide
+    clipped), clip off and on: float64 each slot column within
+    GRAD_F64_REL of its largest plain value, floored at COLUMN_FLOOR
+    (K9: OPD_COLUMN_FLOOR) of the key's largest, the ray cotangents
+    within GRAD_F64_REL; float32 by field group, K5 and K7 within
+    GRAD_F32_REL of the float32 plain version (compare_param_grads), K9
+    within OPD_F32_SUM_REL of the float64 plain version's sums of |term|
+    (phase_opd_check).  Returns the float32 errors."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_multi, merit_adjoint_multi_reference,
+        merit_adjoint_reference, opd_adjoint, opd_adjoint_reference,
+        opd_chain, weighted_moments_multi_reference,
+        weighted_moments_reference)
+    every, every9 = CS.FIELDS + ("rot",), CS.OPD_DIFF + ("rot",)
+    worst = {"merit_adjoint": 0., "merit_adjoint_multi": 0.,
+             "opd_adjoint": 0.}
+    failures = []
+    log("== K5/K7/K9 rot keys vs plain on the card (every field and rot, "
+        "with the ray cotangents; %d rays; float64 a slot column within "
+        "%g of its largest, floored at %g (K9 %g) of the key's largest)"
+        % (N_POSE, GRAD_F64_REL, COLUMN_FLOOR, OPD_COLUMN_FLOOR))
+    for name, (s, table, specs, tabs, mspecs, bundle, hold) in \
+            cases.items():
+        rotated = [j for j, sp in enumerate(specs) if j and sp.rotated]
+        for dtype in (torch.float64, torch.float32):
+            f64 = dtype == torch.float64
+            for clip in (False, True):
+                tag = "%s %s clip=%s" % (name, str(dtype)[6:], clip)
+                state = bundle(N_POSE, dtype, SEED, 1.5 if clip else 1.)
+                w = bench_weights(N_POSE, dtype, SEED + 2)
+                # K5
+                ct = rms_cotangent(weighted_moments_reference(
+                    table, specs, state, w, clip))
+                pg, cst, cw = merit_adjoint(table, specs, state, w, ct, clip,
+                                            fields=every)
+                pr, sr, wr = merit_adjoint_reference(table, specs, state, w,
+                                                     ct, clip, rot=True)
+                # K7
+                mct = rms_cotangent(weighted_moments_multi_reference(
+                    tabs, mspecs, state, w, clip))
+                pm, mst, mw = merit_adjoint_multi(tabs, mspecs, state, w,
+                                                  mct, clip, fields=every)
+                pmr, msr, mwr = merit_adjoint_multi_reference(
+                    tabs, mspecs, state, w, mct, clip, rot=True)
+                # K9, the wavefront RMS's cotangents
+                aux = opd_aux(s, table, specs, state)
+                k, lx, ly = opd_chain(table, specs, state, aux, clip)
+                cts = opd_cotangents(k, lx, ly, "wavefront")
+                po, ost, oc = opd_adjoint(table, specs, state, aux, cts,
+                                          clip, fields=every9)
+                torch.cuda.synchronize()
+                nq, nq9 = pg.shape[-1], po.shape[-1]
+                rot_live = bool(pr[rotated][:, nq - CS.ROT:].abs().max() > 0
+                                and pmr[:, rotated][..., nq - CS.ROT:]
+                                .abs().max() > 0)
+                if f64:
+                    por, osr, ocr = opd_adjoint_reference(
+                        table, specs, state, aux, cts, clip, rot=True)
+                    e5, ok5 = pose_columns(pg, pr, GRAD_F64_REL,
+                                           COLUMN_FLOOR)
+                    e7, ok7 = pose_columns(pm, pmr, GRAD_F64_REL,
+                                           COLUMN_FLOOR)
+                    e9, ok9 = pose_columns(po, por, GRAD_F64_REL,
+                                           OPD_COLUMN_FLOOR)
+                    r5 = compare_ray_grads(cst, cw, sr, wr)
+                    r7 = compare_ray_grads(mst, mw, msr, mwr)
+                    ray9 = max(float((a - b).abs().max())
+                               / max(float(b.abs().max()), 1e-300)
+                               for a, b in zip(ost, osr))
+                    cen = float((oc - ocr).abs().max()) \
+                        / max(float(ocr.abs().max()), 1e-300)
+                    ok5 = ok5 and r5[0] <= GRAD_F64_REL and not r5[1]
+                    ok7 = ok7 and r7[0] <= GRAD_F64_REL and not r7[1]
+                    ok9 = (ok9 and ray9 <= GRAD_F64_REL
+                           and cen <= GRAD_F64_REL)
+                    log("%s: K5 columns %.3e, rays %.3e; K7 columns %.3e, "
+                        "rays %.3e; K9 columns %.3e, rays %.3e, centre "
+                        "%.3e (of the held scales); rot slots live on rows "
+                        "%s: %s -> %s"
+                        % (tag, e5, r5[0], e7, r7[0], e9, ray9, cen,
+                           rotated, rot_live, "ok" if ok5 and ok7 and ok9
+                           and rot_live else "FAIL"))
+                    held = (True, True)
+                else:
+                    e5, ok5 = pose_f32_groups(pg, pr, pose_groups(
+                        table, specs, nq), GRAD_F32_REL)
+                    e7, ok7 = pose_f32_groups(pm, pmr, pose_groups(
+                        tabs, mspecs, nq), GRAD_F32_REL)
+                    s64 = tuple(c.double() for c in state)
+                    a64 = aux.double()
+                    c64 = tuple(c.double() for c in cts)
+                    base = opd_adjoint_reference(table, specs, s64, a64, c64,
+                                                 clip, rot=True)[0]
+                    mass = opd_adjoint_reference(
+                        table, specs, s64, a64, tuple(c.abs() for c in c64),
+                        clip, rot=True)[0]
+                    e9, ok9 = pose_f32_groups(po, base, pose_groups(
+                        table, specs, nq9, True), OPD_F32_SUM_REL, mass)
+                    held = hold
+                    log("%s: K5 %.3e, K7 %.3e of GRAD_F32_REL's scales "
+                        "(%s); K9 %.3e of the sums of |term| (%s) -> %s"
+                        % (tag, e5, e7, "held" if hold[0] else "not held",
+                           e9, "held" if hold[1] else "not held",
+                           "ok" if (ok5 and ok7 or not hold[0])
+                           and (ok9 or not hold[1]) else "FAIL"))
+                    # the held keys' absolute errors, for the kernels
+                    # line
+                    for kname, got, want, h in (
+                            ("merit_adjoint", pg, pr, hold[0]),
+                            ("merit_adjoint_multi", pm, pmr, hold[0]),
+                            ("opd_adjoint", po, base, hold[1])):
+                        if h:
+                            worst[kname] = max(worst[kname], float(
+                                (got.double() - want.double()).abs().max()))
+                if not ((ok5 and ok7) or not held[0]):
+                    failures.append("K5/K7 " + tag)
+                if not (ok9 or not held[1]):
+                    failures.append("K9 " + tag)
+                if f64 and not rot_live:
+                    failures.append("rot slots %s" % tag)
+                del state, w
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("a rot key disagrees with its plain version: "
+                             + ", ".join(failures))
+    return worst
+
+
+def phase_pose_fd_check(cases):
+    """On the posed double Gauss, float64, N_POSE rays, against central
+    differences (step POSE_FD_STEP) of the forward kernels' merits at
+    POSE_FD_PICKS: d/d(tilt, decenter) of K5 (the spot RMS of K4's
+    moments), K7 (the union spot RMS of K6's) and K9 (the wavefront RMS
+    of K8's k, ray 0 the chief ray), each through autograd of
+    tables.lower_pose, within POSE_FD_REL."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        adjoint_wavefront_rms, spot_moments, spot_moments_multi,
+        union_spot_rms_from_moments, wavefront_rms_of, weighted_moments,
+        weighted_moments_multi, opd_chain)
+    from rayopt_tpu_torch.ops.cuda_trace import spot_rms_from_moments
+    s, table, specs, tabs, mspecs, bundle, _ = cases["posed double Gauss"]
+    nsurf, nlam = table.curvature.shape[0], tabs.curvature.shape[0]
+    state = bundle(N_POSE, torch.float64, SEED)
+    w = bench_weights(N_POSE, torch.float64, SEED + 2)
+    y0 = torch.stack(state[:3], 1)
+    u0 = torch.stack(state[3:], 1)
+    aux = opd_aux(s, table, specs, state)
+    kw = dict(ref=0, radius=float(aux[3]), wavelength=s.wavelengths[0],
+              scale=s.scale, finite=s.object.finite)
+    zero = torch.zeros((nsurf, 3), dtype=torch.float64, device=DEVICE)
+
+    def merits(tilt, dec):
+        tb = table.replace(tilt=tilt, decenter=dec)
+        tbs = tabs.replace(tilt=tilt.expand(nlam, -1, -1),
+                           decenter=dec.expand(nlam, -1, -1))
+        return {"K5": lambda: spot_rms_from_moments(*spot_moments(
+                    tb, state, w, specs=specs)),
+                "K7": lambda: union_spot_rms_from_moments(
+                    spot_moments_multi(tbs, state, w/nlam, specs=mspecs)),
+                "K9": lambda: adjoint_wavefront_rms(tb, y0, u0, w,
+                                                    specs=specs, **kw)}
+
+    def forward(tilt, dec):
+        from rayopt_tpu_torch.ops.tables import lower_pose
+        tb = lower_pose(table.replace(tilt=tilt, decenter=dec))
+        tbs = lower_pose(tabs.replace(tilt=tilt.expand(nlam, -1, -1),
+                                      decenter=dec.expand(nlam, -1, -1)))
+        # the sphere centre follows the chief ray's image point
+        k = opd_chain(tb, specs, state, opd_aux(s, tb, specs, state))[0]
+        return {"K5": float(spot_rms_from_moments(*weighted_moments(
+                    tb, specs, state, w))),
+                "K7": float(union_spot_rms_from_moments(
+                    weighted_moments_multi(tbs, mspecs, state, w/nlam))),
+                "K9": float(wavefront_rms_of(k - k[0], w))}
+    log("== K5/K7/K9 rot keys vs central differences of the K4/K6/K8 "
+        "merits (posed double Gauss, float64, %d rays; step %g rad of tilt, "
+        "%g mm of decenter; held to %g)" % (N_POSE, POSE_FD_STEP,
+                                            POSE_FD_STEP, POSE_FD_REL))
+    grads = {}
+    for kname in ("K5", "K7", "K9"):
+        tilt = zero.clone().requires_grad_()
+        dec = zero.clone().requires_grad_()
+        merits(tilt, dec)[kname]().backward()
+        grads[kname] = {"tilt": tilt.grad, "decenter": dec.grad}
+    failures = []
+    for field, row, comp in POSE_FD_PICKS:
+        side = []
+        for sgn in (1., -1.):
+            v = zero.clone()
+            v[row, comp] = sgn*POSE_FD_STEP
+            side.append(forward(v, zero) if field == "tilt"
+                        else forward(zero, v))
+        for kname in ("K5", "K7", "K9"):
+            fd = (side[0][kname] - side[1][kname])/(2*POSE_FD_STEP)
+            g = float(grads[kname][field][row, comp])
+            rel = abs(g - fd)/abs(fd)
+            ok = rel <= POSE_FD_REL
+            log("%s d/d %s[%d, %d]: adjoint %.12g, central difference "
+                "%.12g, rel %.2e -> %s" % (kname, field, row, comp, g, fd,
+                                           rel, "ok" if ok else "FAIL"))
+            if not ok:
+                failures.append("%s %s[%d, %d]" % (kname, field, row, comp))
+    for kname in ("K5", "K7", "K9"):
+        if float(grads[kname]["tilt"][0].abs().max()) != 0.:
+            failures.append("%s row 0's tilt gradient" % kname)
+    if failures:
+        raise AssertionError("a rot key disagrees with central differences: "
+                             + ", ".join(failures))
+
+
+def read_rot_launches():
+    """The rot keys' launches of the three adjoints (their wrappers'
+    rot_launches), counted from 0 at reset_launches."""
+    from rayopt_tpu_torch.ops import cuda_grad
+    return {fn.__name__: fn.rot_launches for fn in (
+        cuda_grad.merit_adjoint, cuda_grad.merit_adjoint_multi,
+        cuda_grad.opd_adjoint)}
+
+
+def reset_rot_launches():
+    from rayopt_tpu_torch.ops import cuda_grad
+    for fn in (cuda_grad.merit_adjoint, cuda_grad.merit_adjoint_multi,
+               cuda_grad.opd_adjoint):
+        fn.rot_launches = 0
+
+
+def phase_pose_path(base_steps, bundles):
+    """The pose path on the double Gauss at full width, through the
+    entry points a user calls, every K5/K7/K9 launch under a rot key:
+    (a) the alignment-compensation loop: POSE_ERROR baked into the table
+    (tables.lower_pose), the optimizer path's 9 bundles (3 fields x 3
+    wavelengths, N_OPT_BUNDLE rays, float64), optimize_grad(select=
+    POSE_SELECT, engine="adjoint") for POSE_STEPS Adam steps at POSE_LR
+    (K4, K5); its step-0 merit at least POSE_HURT times the nominal
+    table's on the same bundles, the merit falling at every step; (b) one
+    achromatization step: the union polychromatic merit
+    (polychromatic_spot_rms, K6/K7) at the 3 fields over tilt and
+    decenter of the perturbed stack, every pose live; (c) one design step:
+    9 spot bundles (K4/K5) and 3 wavefront bundles (K8/K9) over tilt and
+    decenter.  Each step 0 held against the CPU plain versions at
+    N_LOOP_CHECK nrays a bundle (step0_cross_check).  `base_steps`: the
+    optimizer, achromatization and design paths' later-step seconds;
+    `bundles`: their bundles (the same nominal lens: no aiming again).
+    Returns (launches, rot launches, {loop: later-step seconds})."""
+    from rayopt_tpu_torch.models import double_gauss
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        adjoint_spot_rms, adjoint_wavefront_rms, polychromatic_spot_rms)
+    from rayopt_tpu_torch.ops.cuda_trace import multi_specs
+    from rayopt_tpu_torch.ops.kernels import specialize, with_pose
+    from rayopt_tpu_torch.parallel import (bundles_from_system, bundles_to,
+                                           composite_merit, optimize_grad)
+    spot, gb, db = bundles
+    s = double_gauss()
+    fields = FIELDS
+    table0 = s.table()
+    err = posed(table0, *pose_error())
+    errs = posed(s.tables(), *pose_error())
+    specs = with_pose(specialize(err))
+    mspecs = with_pose(multi_specs(errs, None))
+    failures, steps = [], {}
+    log("== pose path: double Gauss, row %d tilted %s rad and row %d "
+        "decentred %s mm (baked into the table); every pose live "
+        "(kernels.with_pose), float64, Adam at lr %g over %s"
+        % (POSE_ERROR["tilt"][0], POSE_ERROR["tilt"][1],
+           POSE_ERROR["decenter"][0], POSE_ERROR["decenter"][1], POSE_LR,
+           POSE_SELECT))
+
+    def spot_bundles(nrays):
+        return bundles_from_system(s, fields=fields, nrays=nrays,
+                                   distribution="hexapolar")
+    log("(a) alignment loop: the optimizer path's %d bundles of %d rays"
+        % (len(spot), spot[0][0].shape[0]))
+
+    def nominal(tab, bundles):
+        with torch.no_grad():
+            return float(sum(adjoint_spot_rms(
+                tab.replace(**{k: v.to(tab.curvature.device)
+                               for k, v in ch.items() if k != "wavelength"}),
+                y0, u0, w, specs=specs) for y0, u0, w, ch in bundles))
+    m_nom = nominal(table0, spot)
+
+    def step0_a(device, b):
+        grads = {}
+        _, (merit,) = optimize_grad(err.to(device=device),
+                                    bundles_to(b, device),
+                                    select=POSE_SELECT, steps=1, lr=POSE_LR,
+                                    engine="adjoint",
+                                    callback=step0_grads(grads))
+        return merit, grads
+    grads0, ends = {}, []
+    reset_launches()
+    reset_rot_launches()
+    t0 = time.perf_counter()
+    tab_fix, hist = optimize_grad(err, spot, select=POSE_SELECT,
+                                  steps=POSE_STEPS, lr=POSE_LR,
+                                  engine="adjoint",
+                                  callback=step0_grads(grads0, ends))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    st = np.diff([t0] + ends[:POSE_STEPS])
+    steps["alignment"] = float(st[1:].mean())
+    log("merit history (sum of %d spot RMS, mm): %s | nominal lens %.12g, "
+        "step 0 / nominal %.4f | card %.2f s for %d steps (step 0 %.3f s, "
+        "later steps mean %.4f s)"
+        % (len(spot), " ".join("%.12g" % v for v in hist), m_nom,
+           hist[0]/m_nom, t_card, POSE_STEPS, st[0], st[1:].mean()))
+    log("compensating tilt (rad) by row: %s" % " ".join(
+        "%d:(%.3g, %.3g)" % (j, float(v[0]), float(v[1]))
+        for j, v in enumerate(tab_fix.tilt.detach().cpu())))
+    _, fa = step0_cross_check(step0_a, (hist[0], grads0), spot,
+                              spot_bundles, N_LOOP_CHECK)
+    failures += ["(a) " + f for f in fa]
+    if not hist[0] >= POSE_HURT*m_nom:
+        failures.append("(a) the error hurts by %.3fx only" % (hist[0]/m_nom))
+    if not all(b < a for a, b in zip(hist[:-1], hist[1:])):
+        failures.append("(a) the merit did not fall at every step")
+    launches = read_launches()
+    rot = read_rot_launches()
+    log("== launch counts on the alignment loop: %s, rot keys %s"
+        % (launches, rot))
+    # (b) one achromatization step
+    def glass_bundles(nrays):
+        return bundles_from_system(s, fields=fields,
+                                   wavelengths=[s.wavelengths[0]],
+                                   nrays=nrays, distribution="hexapolar")
+    log("(b) achromatization step: the union polychromatic merit over %d "
+        "wavelengths at fields %s, the achromatization path's %d bundles "
+        "of %d rays" % (errs.curvature.shape[0], fields, len(gb),
+                        gb[0][0].shape[0]))
+    nlam = errs.curvature.shape[0]
+
+    def poly(tabs, bundles):
+        def merit(tab):
+            tb = tabs.replace(tilt=tab.tilt.expand(nlam, -1, -1),
+                              decenter=tab.decenter.expand(nlam, -1, -1))
+            return sum(polychromatic_spot_rms(tb, y0, u0, w, specs=mspecs)
+                       for y0, u0, w, _ in bundles)
+        return merit
+
+    def one_step(device, tab, merit, b):
+        grads = {}
+        _, (value,) = optimize_grad(tab.to(device=device), b,
+                                    select=POSE_SELECT, steps=1, lr=POSE_LR,
+                                    merit=merit, callback=step0_grads(grads))
+        return value, grads
+    reset_launches()
+    reset_rot_launches()
+    grads0, ends = {}, []
+    t0 = time.perf_counter()
+    _, h = optimize_grad(err, gb, select=POSE_SELECT, steps=2, lr=POSE_LR,
+                         merit=poly(errs, gb),
+                         callback=step0_grads(grads0, ends))
+    torch.cuda.synchronize()
+    steps["achromatization"] = float(ends[1] - ends[0])
+    log("merit (sum of %d union spot RMS, mm) before and after one step: "
+        "%s | card: step 0 %.3f s, step 1 %.4f s"
+        % (len(gb), " ".join("%.12g" % v for v in h), ends[0] - t0,
+           steps["achromatization"]))
+    glass_launches = read_launches()
+    glass_rot = read_rot_launches()
+
+    def step0_b(dev, b):
+        bb = bundles_to(b, dev)
+        return one_step(dev, err, poly(errs.to(device=dev), bb), bb)
+    _, fb = step0_cross_check(step0_b, (h[0], grads0), gb, glass_bundles,
+                              N_LOOP_CHECK)
+    failures += ["(b) " + f for f in fb]
+    if not h[1] < h[0]:
+        failures.append("(b) the merit did not fall")
+    log("== launch counts on the achromatization step: %s, rot keys %s"
+        % (glass_launches, glass_rot))
+    # (c) one design step
+    def design_bundles(nrays):
+        return (bundles_from_system(s, fields=fields, nrays=nrays,
+                                    distribution="hexapolar"),
+                bundles_from_system(s, fields=fields,
+                                    wavelengths=[s.wavelengths[0]],
+                                    nrays=nrays, distribution="hexapolar"))
+    log("(c) design step: the design path's %d spot and %d wavefront "
+        "bundles of %d rays" % (len(db[0]), len(db[1]),
+                                db[0][0][0].shape[0]))
+    opd_kw = dict(ref=0, radius=-s.image.pupil.distance,
+                  wavelength=s.wavelengths[0], scale=s.scale,
+                  finite=s.object.finite, specs=specs)
+
+    def design_merit(b):
+        spot_b, wave_b = b
+
+        def spots(tab):
+            return sum(adjoint_spot_rms(tab.replace(**{
+                k: v.to(tab.curvature.device) for k, v in ch.items()
+                if k != "wavelength"}), y0, u0, w, specs=specs)
+                for y0, u0, w, ch in spot_b)
+
+        def wavefronts(tab):
+            return sum(adjoint_wavefront_rms(tab, y0, u0, w, **opd_kw)
+                       for y0, u0, w, _ in wave_b)
+        return composite_merit(spots, wavefronts)
+    reset_launches()
+    reset_rot_launches()
+    grads0, ends = {}, []
+    t0 = time.perf_counter()
+    _, h = optimize_grad(err, db[0], select=POSE_SELECT, steps=2,
+                            lr=POSE_LR, merit=design_merit(db),
+                            callback=step0_grads(grads0, ends))
+    torch.cuda.synchronize()
+    steps["design"] = float(ends[1] - ends[0])
+    log("merit (%d spot RMS mm + %d wavefront RMS waves) before and after "
+        "one step: %s | card: step 0 %.3f s, step 1 %.4f s"
+        % (len(db[0]), len(db[1]), " ".join("%.12g" % v for v in h),
+           ends[0] - t0, steps["design"]))
+    design_launches = read_launches()
+    design_rot = read_rot_launches()
+
+    def step0_c(dev, b):
+        bb = tuple(bundles_to(x, dev) for x in b)
+        return one_step(dev, err, design_merit(bb), bb[0])
+    _, fc = step0_cross_check(step0_c, (h[0], grads0), db, design_bundles,
+                              N_LOOP_CHECK)
+    failures += ["(c) " + f for f in fc]
+    if not h[1] < h[0]:
+        failures.append("(c) the merit did not fall")
+    log("== launch counts on the design step: %s, rot keys %s"
+        % (design_launches, design_rot))
+    total = {k: launches[k] + glass_launches[k] + design_launches[k]
+             for k in launches}
+    rot_total = {k: rot[k] + glass_rot[k] + design_rot[k] for k in rot}
+    log("pose loops' later steps (s): alignment %.4f (the optimizer path's "
+        "%.4f), achromatization %.4f (%.4f), design %.4f (%.4f)"
+        % (steps["alignment"], base_steps[0], steps["achromatization"],
+           base_steps[1], steps["design"], base_steps[2]))
+    if not (rot_total["merit_adjoint"] and rot_total["merit_adjoint_multi"]
+            and rot_total["opd_adjoint"]):
+        failures.append("a rot key never launched: %s" % rot_total)
+    if failures:
+        raise AssertionError("pose path on the double Gauss failed: %s"
+                             % ", ".join(failures))
+    return total, rot_total, steps
+
+
+#: float operations of a rotated row's rotation cotangent in a rot key's
+#: reverse (csrc/step_vjp.cuh): leaving the row (rot_leave_vjp), (R so)
+#: for the position and the direction (2 x 15) and 9 entries of two
+#: products and a sum (27); entering it (rot_enter_vjp), 9 entries of two
+#: products and two sums.  K5/K7 step every row 1..S-1 so; K9 steps rows
+#: 1..S-2 so, and its sphere tail only enters the image row's frame
+ROT_LEAVE_FLOPS = 57
+ROT_ENTER_FLOPS = 36
+#: K5/K7's second use of the image row's rotation, the moment frame
+#: (moments_adjoint_ray): 6 products and their 6 sums into the slots
+ROT_MOMENT_FLOPS = 12
+
+
+def rot_vjp_flops(name, specs):
+    """float operations a live ray of a rot key's rotation cotangents:
+    each rotated row 1..S-1 of K5/K7 left and entered, and the moment
+    frame's on a rotated image row; K9's rows 1..S-2 the same, its
+    rotated image row entered only (the sphere tail)."""
+    opd = name.startswith("opd_adjoint")
+    flops = sum(ROT_LEAVE_FLOPS + ROT_ENTER_FLOPS
+                for sp in specs[1:-1] if sp.rotated)
+    if specs[-1].rotated:
+        flops += (ROT_ENTER_FLOPS if opd else
+                  ROT_LEAVE_FLOPS + ROT_ENTER_FLOPS + ROT_MOMENT_FLOPS)
+    return flops
+
+
+def phase_pose_throughput(card, cases):
+    """The pose loops' rot keys -- K5, K7 (3 wavelengths) and K9 for
+    POSE_FIELDS without the ray cotangents on the posed double Gauss,
+    every pose live -- beside their plain versions (rot) and their twins
+    without rot (the same specs and ("offset",)), at N_GRAD_TIME rays of
+    its bench bundle (ray 0 the chief ray) in float32 and float64, in
+    turns.  Returns ({(kernel, dtype): (ms, plain ms, twin ms)}, {(kernel,
+    dtype): live ray traces})."""
+    from rayopt_tpu_torch.ops.cuda_grad import (
+        merit_adjoint, merit_adjoint_multi, merit_adjoint_multi_reference,
+        merit_adjoint_reference, opd_adjoint, opd_adjoint_reference,
+        opd_chain, weighted_moments, weighted_moments_multi)
+    from rayopt_tpu_torch.ops.cuda_trace import trace_merit
+    from rayopt_tpu_torch.ops.tables import table_at
+    s, table, specs, tabs, mspecs, bundle, _ = cases["posed double Gauss"]
+    log("== pose keys' throughput (posed double Gauss, every pose live): "
+        "K5, K7 (%d wavelengths) and K9 for %s without ray cotangents at %d "
+        "rays against the plain versions and the twin keys without rot "
+        "(%s)" % (tabs.curvature.shape[0], POSE_FIELDS, N_GRAD_TIME, card))
+    times, live = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        state = bundle(N_GRAD_TIME, dtype, SEED + 1)
+        w = bench_weights(N_GRAD_TIME, dtype, SEED + 3)
+        ct = rms_cotangent(weighted_moments(table, specs, state, w))
+        mct = rms_cotangent(weighted_moments_multi(tabs, mspecs, state, w))
+        aux = opd_aux(s, table, specs, state)
+        k, lx, ly = opd_chain(table, specs, state, aux)
+        cts = opd_cotangents(k, lx, ly, "wavefront")
+        live[("merit_adjoint", dtype)] = float(trace_merit(
+            table, specs, state)[0])
+        live[("merit_adjoint_multi", dtype)] = sum(
+            float(trace_merit(table_at(tabs, li), mspecs, state)[0])
+            for li in range(tabs.curvature.shape[0]))
+        live[("opd_adjoint", dtype)] = float(torch.isfinite(k).sum())
+        calls = {
+            "merit_adjoint": (
+                lambda f: merit_adjoint(table, specs, state, w, ct,
+                                        fields=f, rays=False),
+                lambda: merit_adjoint_reference(table, specs, state, w, ct,
+                                                rot=True)),
+            "merit_adjoint_multi": (
+                lambda f: merit_adjoint_multi(tabs, mspecs, state, w, mct,
+                                              fields=f, rays=False),
+                lambda: merit_adjoint_multi_reference(
+                    tabs, mspecs, state, w, mct, rot=True)),
+            "opd_adjoint": (
+                lambda f: opd_adjoint(table, specs, state, aux, cts,
+                                      fields=f, rays=False),
+                lambda: opd_adjoint_reference(table, specs, state, aux, cts,
+                                              rot=True))}
+        for name, (kern, plain) in calls.items():
+            (km, pm, tm), (k1, k2, p1, p2, t1, t2) = in_turns(
+                lambda: kern(POSE_FIELDS), plain,
+                lambda: kern(POSE_FIELDS[:-1]), reps=10, plain_reps=1)
+            times[(name, dtype)] = (km, pm, tm)
+            log("%s %s rot key: kernel %.4f ms (%.4f, %.4f), plain %.4f ms "
+                "(%.4f, %.4f), twin without rot %.4f ms (%.4f, %.4f), "
+                "rot/twin %.3fx | %s" % (name, str(dtype)[6:], km, k1, k2,
+                                         pm, p1, p2, tm, t1, t2, km/tm,
+                                         card))
+        del state, w
+        torch.cuda.empty_cache()
+    return times, live
+
+
+def pose_entries(sources, rot_launches, worst, times, live, ptxas, steps,
+                 base_steps, cases):
+    """The kernels line's entries of the rot keys: the pose path's rot
+    launches, the float32 errors of phase_pose_check, the times of
+    phase_pose_throughput (kernel, plain version, twin without rot) at
+    N_GRAD_TIME rays in both dtypes, the bounds (kernel_bound of the
+    loop key and rot_vjp_flops), the keys' registers,
+    stack and spills beside the twins', and the pose loops' later-step
+    seconds beside the earlier loops'."""
+    _, table, specs, tabs, mspecs, _, _ = cases["posed double Gauss"]
+    nlam = tabs.curvature.shape[0]
+    rotated = sum(1 for j, sp in enumerate(specs) if j and sp.rotated)
+    out = []
+    for kname, bname, ktag, lam, loop in (
+            ("merit_adjoint", "merit_adjoint_optimizer", "K5", 1,
+             "alignment"),
+            ("merit_adjoint_multi", "merit_adjoint_multi_loop", "K7", nlam,
+             "achromatization"),
+            ("opd_adjoint", "opd_adjoint_loop", "K9", 1, "design")):
+        source, replaces = sources[kname]
+        entry = {"name": kname + "_pose", "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": rot_launches[kname],
+                 "max_abs_err": worst[kname], "library_ms": None,
+                 "rays": N_GRAD_TIME, "wavelengths": lam,
+                 "rotated_rows": rotated, "fields": list(POSE_FIELDS)}
+        for dtype, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
+            k, p, t = times[(kname, dtype)]
+            n_live = live[(kname, dtype)]
+            sp = mspecs if lam > 1 else specs
+            b = kernel_bound(bname, N_GRAD_TIME, dtype, sp, lam, n_live,
+                             rot=True)
+            entry.update({"ms" + sfx: k, "plain_ms" + sfx: p,
+                          "ms_twin_key" + sfx: t, "bound_ms" + sfx: b[0],
+                          "bound_ms_twin_key" + sfx: kernel_bound(
+                              bname, N_GRAD_TIME, dtype, sp, lam,
+                              n_live)[0]})
+            if not sfx:
+                entry["bound_by"] = b[1]
+            dt = str(dtype)[6:]
+            for what, key_sfx in (("rot", ""), ("twin", "_twin")):
+                regs, stack, spill = ptxas["%s posed double Gauss %s loop %s"
+                                           % (ktag, dt, what)]
+                rs = "" if dt == "float64" else "_f32"
+                entry.update({"regs%s%s" % (key_sfx, rs): regs,
+                              "stack_bytes%s%s" % (key_sfx, rs): stack,
+                              "spill_bytes%s%s" % (key_sfx, rs): spill})
+        entry.update({"pose_%s_step_s" % loop: steps[loop],
+                      "earlier_%s_step_s" % loop: base_steps[loop]})
+        out.append(entry)
+    return out
+
+
 def _wrappers():
     from rayopt_tpu_torch.ops import cuda_df32, cuda_grad, cuda_trace
     return (cuda_trace.trace_final, cuda_trace.trace_merit,
@@ -8286,7 +9124,7 @@ OPD_TAIL_VJP_FLOPS = 70
 
 
 def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
-                 nd=0, nxy=0):
+                 nd=0, nxy=0, rot=False):
     """(bound_ms, bound_by) of one launch at n rays: the larger of the
     bytes it must move (each input read once, each output written once)
     over the HBM rate and its operations over the dtype's peak.  The
@@ -8297,7 +9135,9 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
     tail's reverse).  `widths`: a figured key's (na, no), its rows'
     coefficients; `nd`: a DOE key's coefficients (a phase row's reverse
     is counted as 3x its forward, as a conic row's); `nxy`: a freeform
-    key's XY coefficients (its row's reverse counted so too)."""
+    key's XY coefficients (its row's reverse counted so too); `rot`: a
+    rot key, rot_vjp_flops a live ray (K9 also writes nine slots more a
+    row)."""
     word = 4 if dtype == torch.float32 else 8
     chain = chain_flops(specs, widths, nd, nxy)
     vjp = chain_vjp_flops(specs, widths, nd=nd, nxy=nxy)
@@ -8332,7 +9172,10 @@ def kernel_bound(name, n, dtype, specs, nlam=1, live=0, widths=(0, 0),
     # moments
     grating = int(any(sp.grating for sp in specs))
     slots = (len(specs)*(7 + sum(widths) + grating + (1 + nd if nd else 0)
-                         + nxy) + 3 if name.startswith("opd_adjoint") else 0)
+                         + nxy + (9 if rot else 0)) + 3
+             if name.startswith("opd_adjoint") else 0)
+    if rot:
+        flops = flops + live*rot_vjp_flops(name, specs)
     if name == "trace_multi":
         slots = 5*nlam
     row = 17 + sum(widths) + grating + (1 + nd if nd else 0) + nxy
@@ -9114,6 +9957,8 @@ def main():
     keys.update(freeform_keys())
     keys.update(freeform_multi_keys())
     keys.update(df32_freeform_keys())
+    pcases = pose_cases()
+    keys.update(pose_keys(pcases))
     ptxas, sass = phase_spec_build(keys)
     worst = phase_check(table, specs)
     phase_spec_check(table, specs)
@@ -9143,17 +9988,30 @@ def main():
     launches.update({k: df32_launches[k] for k in DF32_NAMES})
     del aimed
     torch.cuda.empty_cache()
-    opt_launches, opt_step = phase_opt_path()     # counts from its reset
+    # counts from its reset; the loops' bundles serve the pose path too
+    opt_launches, opt_step, opt_bundles = phase_opt_path()
     launches.update({k: v for k, v in opt_launches.items()
                      if k in ("weighted_moments", "merit_adjoint")})
     # counts from its reset
-    glass_launches, glass_step = phase_glass_path(check_nrays=N_LOOP_CHECK)
+    glass_launches, glass_step, glass_bundles = phase_glass_path(
+        check_nrays=N_LOOP_CHECK)
     multi = ("trace_multi", "weighted_moments_multi", "merit_adjoint_multi")
     launches.update({k: glass_launches[k] for k in multi})
-    design_launches, design_step = phase_design_path(
+    design_launches, design_step, design_bundles = phase_design_path(
         check_nrays=N_LOOP_CHECK)
     opd = ("opd_chain", "opd_adjoint")
     launches.update({k: design_launches[k] for k in opd})
+    # the rot cotangent: the rot keys against their plain versions and
+    # central differences, then the pose path (counts from its resets)
+    pworst = phase_pose_check(pcases)
+    phase_pose_fd_check(pcases)
+    pose_launches, pose_rot, pose_steps = phase_pose_path(
+        (opt_step, glass_step, design_step),
+        (opt_bundles, glass_bundles, design_bundles))
+    log("== launch counts on the pose path: %s, rot keys %s"
+        % (pose_launches, pose_rot))
+    del opt_bundles, glass_bundles, design_bundles
+    torch.cuda.empty_cache()
     aworst = phase_asphere_check()
     reset_launches()
     asph_launches, asph_steps, asph_aimed = phase_asphere_path(
@@ -9257,6 +10115,7 @@ def main():
     fftimes = phase_freeform_throughput(card)
     fmtimes, fmlive = phase_freeform_multi_throughput(card)
     dftimes, dflive = phase_df32_freeform_throughput(card)
+    potimes, polive = phase_pose_throughput(card, pcases)
     _, atab, aspecs, _ = asphere_cases()["aspheric double Gauss"]
     atimes = phase_throughput(atab, aspecs, card, N_GRAD_TIME,
                               (table, specs), N_BENCH,
@@ -9445,6 +10304,11 @@ def main():
         {"achromatization": glass_step, "design": design_step})
     kernels += df32_freeform_entries(dff_launches, dfworst, dftimes, dflive,
                                      ptxas, sass)
+    kernels += pose_entries(sources, pose_rot, pworst, potimes, polive,
+                            ptxas, pose_steps,
+                            {"alignment": opt_step,
+                             "achromatization": glass_step,
+                             "design": design_step}, pcases)
     from rayopt_tpu_torch.ops import cuda_spec as CS
     late = sorted(k.name for k in CS._LOADED if k not in keys.values())
     log("== keys built at first use, outside phase_spec_build: %d %s"

@@ -40,7 +40,13 @@
 // coefficients and the adjoints' slots by their cotangents, last.  K3
 // and K6 stage each table's own XY words; K7 reduces them per table.
 // Only a freeform figure on an anamorphic base is refused, by every key
-// (specialize refuses it).
+// (specialize refuses it).  An adjoint key (K5, K7, K9) asked for the
+// rotation (a rot key: RAYOPT_ROT) also reduces each rotated row's nine
+// rotation cotangents, R[i][j], after every other slot -- the image
+// row's with its second use, the moment frame (K5, K7), or its sphere
+// tail's (K9) -- and keeps one more saved state a ray, the state leaving
+// the last row its reverse steps through; a key without it compiles as
+// before.
 //
 // Replaces the JAX package's Pallas TPU kernels
 //   K1  rayopt_tpu/ops/pallas_trace.py  _trace_kernel         (pallas_trace_final)
@@ -171,7 +177,8 @@ static_assert(FIG_SLOTS <= LIVE_BITS, "too many coefficients a row");
 // key's curvature_dx and conic_dx, then a phase key's grating_dy and DOE
 // coefficients, then a freeform key's XY coefficients; K9 n_before,
 // then its coefficients, the anamorphic two, grating_dy, n_after before
-// the DOE coefficients, and the XY coefficients) that row reduces.
+// the DOE coefficients, and the XY coefficients; then a rot key's
+// rotation) that row reduces.
 template <long long... W>
 struct Chain {
   static constexpr int rows = sizeof...(W);
@@ -307,6 +314,17 @@ __device__ __forceinline__ void add_slots(const T* pg, T (&acc)[NA]) {
   });
 }
 
+// Add v[0..N) into row J's live slots Q..Q+N of the accumulators (a rot
+// key's second use of the image row's rotation).
+template <class C, int J, int Q, int N, typename T, int NA>
+__device__ __forceinline__ void add_slots_at(const T* v, T (&acc)[NA]) {
+  static_for(std::make_integer_sequence<int, N>{}, [&](auto c) {
+    constexpr int q = decltype(c)::value;
+    constexpr int k = slot_index<C>(J, Q + q);
+    if constexpr (k >= 0) acc[k] += v[q];
+  });
+}
+
 // The forward chain for one ray, its row flags compile-time: row 0's
 // frame, then rows 1..R-1; save(j) runs before row j.  Returns
 // the optical path.  tab: the staged table, read through a volatile
@@ -348,8 +366,10 @@ __device__ __forceinline__ T trace_final_ray(const volatile T* tab, T* s) {
 // The reverse sweep, rows R-1 .. 1: g holds the cotangent of the state
 // leaving row R-1 and ends as that of the state entering row 1; each
 // row's live slots are added into acc.  saved: this thread's states,
-// saved[((j - 1) * 6 + q) * BLOCK] entering row j.  With PATH, ct_path
-// is the cotangent of every row's optical path (K9).
+// saved[((j - 1) * 6 + q) * BLOCK] entering row j (a rot key's also the
+// state leaving row R-1 at j = R, read as the state leaving a rotated
+// row).  With PATH, ct_path is the cotangent of every row's optical path
+// (K9).
 template <typename T, class C, bool PATH, int R, int BLOCK, int NA>
 __device__ __forceinline__ void chain_reverse(const volatile T* tab,
                                              const volatile T* saved, T* g,
@@ -360,17 +380,25 @@ __device__ __forceinline__ void chain_reverse(const volatile T* tab,
     T st[6], pg[PG_SLOTS];
 #pragma unroll
     for (int q = 0; q < 6; ++q) st[q] = saved[((j - 1) * 6 + q) * BLOCK];
+    [[maybe_unused]] T so[6];
+    if constexpr (N_ROT > 0 && (flags_at<C>(j) & F_ROTATED) != 0) {
+#pragma unroll
+      for (int q = 0; q < 6; ++q) so[q] = saved[(j * 6 + q) * BLOCK];
+    }
     surface_step_vjp<T, PATH>(tab + j * ROW, RowFlags<C, j>{}, st, g, pg,
-                              ct_path);
+                              ct_path, so);
     add_slots<C, j, PATH ? OPD_FIG_SLOTS : FIG_SLOTS>(pg, acc);
   });
 }
 
 // One ray of K5 or K7 through one table: (a) the forward recompute,
-// keeping the state entering each row; (b) liveness; (c) the seed from
-// the five moment cotangents c; (d) the reverse sweep, the live slots
-// added into acc.  s: in, the ray.  g, gw: out, the six state and
-// (with RAYS) the weight cotangents, zeros for a dead ray.
+// keeping the state entering each row (a rot key's with a rotated image
+// row also the state leaving it); (b) liveness; (c) the seed from the
+// five moment cotangents c (a rot key's also the image row's rotation
+// cotangent of the moment frame, its second use of that rotation); (d)
+// the reverse sweep, the live slots added into acc.  s: in, the ray.
+// g, gw: out, the six state and (with RAYS) the weight cotangents, zeros
+// for a dead ray.
 template <typename T, class C, bool CLIP, bool RAYS, int BLOCK, int NA>
 __device__ __forceinline__ void moments_adjoint_ray(
     const volatile T* tab, volatile T* saved, T* s, const T* __restrict__ w,
@@ -383,6 +411,14 @@ __device__ __forceinline__ void moments_adjoint_ray(
 #pragma unroll
     for (int q = 0; q < 6; ++q) saved[((j - 1) * 6 + q) * BLOCK] = s[q];
   });
+  // a rot key: the final position in the global frame
+  constexpr bool rot_fin = N_ROT > 0 && last_rot;
+  [[maybe_unused]] T sf[3];
+  if constexpr (rot_fin) {
+#pragma unroll
+    for (int q = 0; q < 6; ++q) saved[((S - 1) * 6 + q) * BLOCK] = s[q];
+    sf[0] = s[0]; sf[1] = s[1]; sf[2] = s[2];
+  }
   if (last_rot) {
     rot_apply(rl, s[0], s[1], s[2]);
     rot_apply(rl, s[3], s[4], s[5]);
@@ -398,6 +434,18 @@ __device__ __forceinline__ void moments_adjoint_ray(
   g[1] = wi * (c[2] + T(2) * yl * c[4]);
   if (RAYS)
     gw = c[0] + xl * c[1] + yl * c[2] + xl * xl * c[3] + yl * yl * c[4];
+  if constexpr (rot_fin) {
+    // the moment frame (x, y) = (R sf)[0..1] reads the image row's
+    // rotation a second time (pallas_grad._adjoint_one's final3)
+    T pr[N_ROT];
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      pr[q] = g[0] * sf[q];
+      pr[3 + q] = g[1] * sf[q];
+      pr[6 + q] = T(0);
+    }
+    add_slots_at<C, S - 1, Q_ROT, N_ROT>(pr, acc);
+  }
   if (last_rot) rot_apply_t(rl, g[0], g[1], g[2]);
   chain_reverse<T, C, false, S, BLOCK>(tab, saved, g, acc);
   if (first_rot) {
@@ -771,6 +819,11 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_adjoint_spec(
 #pragma unroll
       for (int q = 0; q < 6; ++q) saved[((j - 1) * 6 + q) * BLOCK] = s[q];
     });
+    if constexpr (N_ROT > 0 && (flags_at<C>(S - 2) & F_ROTATED) != 0) {
+      // a rot key: the state leaving row S-2, for that row's rotation
+#pragma unroll
+      for (int q = 0; q < 6; ++q) saved[((S - 2) * 6 + q) * BLOCK] = s[q];
+    }
     const SphereTail<T> o = sphere_tail(pimg, ImgFlags{}, vaux, s);
     const T lam_scale = vaux[4];
     const T k = -(tacc + o.ti * pimg[P_NB]) / lam_scale;
@@ -779,10 +832,13 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_adjoint_spec(
     T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
     if (isfinite(k)) {
       const T ct_path = -ctk[i] / lam_scale;  // reaches every t_j and q
-      T pg[OPD_SLOTS], gc[3];
+      // the image row's slots: OPD_SLOTS (a rot key's: its rotation too,
+      // the last N_ROT of OPD_FIG_SLOTS; the tail writes no other)
+      constexpr int TQ = N_ROT > 0 ? OPD_FIG_SLOTS : OPD_SLOTS;
+      T pg[TQ], gc[3];
       sphere_tail_vjp(pimg, ImgFlags{}, o, ct_path, ctlx[i], ctly[i], g, pg,
-                      gc);
-      add_slots<C, S - 1, OPD_SLOTS>(pg, acc);
+                      gc, s);
+      add_slots<C, S - 1, TQ>(pg, acc);
       acc[NL] += gc[0];
       acc[NL + 1] += gc[1];
       acc[NL + 2] += gc[2];
@@ -808,15 +864,15 @@ __global__ void __launch_bounds__(BLOCK, MINB) opd_adjoint_spec(
 }
 
 // The saved states of K5/K7 ((rows - 1) * 6 words a thread) and K9
-// ((rows - 2) * 6)
+// ((rows - 2) * 6); a rot key's one row more (cuda_spec.Key.dynamic_smem)
 template <typename T, class C, int BLOCK>
 constexpr size_t adjoint_dynamic_smem() {
-  return size_t(C::rows - 1) * 6 * BLOCK * sizeof(T);
+  return size_t(C::rows - 1 + (N_ROT > 0 ? 1 : 0)) * 6 * BLOCK * sizeof(T);
 }
 
 template <typename T, class C, int BLOCK>
 constexpr size_t opd_dynamic_smem() {
-  return size_t(C::rows - 2) * 6 * BLOCK * sizeof(T);
+  return size_t(C::rows - 2 + (N_ROT > 0 ? 1 : 0)) * 6 * BLOCK * sizeof(T);
 }
 
 }  // namespace

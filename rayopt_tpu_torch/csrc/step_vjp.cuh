@@ -6,7 +6,10 @@
 // grad_spec.cuh with the image row's flags compile-time) with its
 // reverse.  Their torch models, line for line, are
 // cuda_grad._step_vjp_reference, _sphere_tail and
-// _opd_tail_vjp_reference.
+// _opd_tail_vjp_reference.  A rot key (RAYOPT_ROT) also differentiates
+// each rotated row's rotation: every reverse enters and leaves the row's
+// frame through rot_enter_vjp and rot_leave_vjp, which add the row's
+// nine rotation cotangents to its last slots.
 
 #pragma once
 
@@ -17,20 +20,27 @@ namespace {
 constexpr int SLOTS = 6;      // parameter cotangents a row: cuda_grad.SLOTS
 constexpr int OPD_SLOTS = 7;  // K9's a row, + n_before: cuda_grad.OPD_SLOTS
 constexpr int AUX = 5;        // K8/K9's centre xyz, radius, lam_scale
+// a rot key's nine rotation slots a row, R[i][j] row-major, last
+// (cuda_spec.ROT, Key.rot); 0 in every other key
+#ifdef RAYOPT_ROT
+constexpr int N_ROT = 9;
+#else
+constexpr int N_ROT = 0;
+#endif
 // K5's and K7's a row: SLOTS, then the even and the odd aspheric
 // coefficients, then an anamorphic key's curvature_dx and conic_dx, then
 // a phase key's grating_dy and DOE coefficients, then a freeform key's XY
-// coefficients
+// coefficients, then a rot key's rotation
 constexpr int FIG_SLOTS =
-    SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT + N_DOE + N_XY;
+    SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT + N_DOE + N_XY + N_ROT;
 // K9's a row: OPD_SLOTS (SLOTS, then n_before), then the even and the
 // odd coefficients, then an anamorphic key's curvature_dx and conic_dx,
 // then a phase key's grating_dy, then a DOE key's n_after and DOE
 // coefficients (cuda_spec.opd_live_slots), then a freeform key's XY
-// coefficients, last (figured_step_vjp puts them at Q_XY + 1, one more
-// past a DOE key's n_after)
+// coefficients (figured_step_vjp puts them at Q_XY + 1, one more past a
+// DOE key's n_after), then a rot key's rotation, last
 constexpr int OPD_FIG_SLOTS = OPD_SLOTS + N_ASP + N_ODD + N_ANAM + N_GRAT +
-                              (N_DOE > 0 ? 1 + N_DOE : 0) + N_XY;
+                              (N_DOE > 0 ? 1 + N_DOE : 0) + N_XY + N_ROT;
 // a row's per-ray parameter cotangents, the widest of the two
 constexpr int PG_SLOTS = FIG_SLOTS > OPD_FIG_SLOTS ? FIG_SLOTS : OPD_FIG_SLOTS;
 // an anamorphic row's curvature_dx and conic_dx slots (K5, K7; K9's
@@ -44,6 +54,46 @@ constexpr int Q_DOE = Q_GDY + N_GRAT;
 // a freeform row's XY coefficients' slots, last (K5's and K7's; with
 // PATH one further on, and one more past a DOE key's n_after)
 constexpr int Q_XY = Q_DOE + N_DOE;
+// a rot key's rotation slots, last (K5's and K7's; with PATH, K9's, one
+// further on, and one more past a DOE key's n_after)
+constexpr int Q_ROT = Q_XY + N_XY;
+template <bool PATH>
+__host__ __device__ constexpr int rot_slot() {
+  return Q_ROT + (PATH ? 1 + (N_DOE > 0 ? 1 : 0) : 0);
+}
+
+// The rotation's cotangent where a reverse leaves a row's frame (a rot
+// key's; cuda_grad._rot_leave_vjp): the forward wrote the state leaving
+// the row as R^T of its local one, so with so that state (global frame)
+// and g its cotangent, pr[3 i + j] = (R so)[i] g[j] + (R so_u)[i] g[3 + j].
+template <typename R, typename T>
+__device__ __forceinline__ void rot_leave_vjp(R r, const T* so, const T* g,
+                                              T* pr) {
+  T ox = so[0], oy = so[1], oz = so[2], vx = so[3], vy = so[4], vz = so[5];
+  rot_apply(r, ox, oy, oz);
+  rot_apply(r, vx, vy, vz);
+  const T ol[3] = {ox, oy, oz};
+  const T vl[3] = {vx, vy, vz};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) pr[3 * i + j] = ol[i] * g[j] + vl[i] * g[3 + j];
+}
+
+// The rotation's cotangent where a reverse enters a row's frame
+// (cuda_grad._rot_enter_vjp): the forward took x_l = R d and u_l = R u
+// (d the position less the row's offset, u the direction, both in the
+// global frame: e[0..2] and e[3..5]), so pr[3 i + j] gains g_xl[i] d[j]
+// + g_ul[i] u[j] from the local cotangents gl.
+template <typename T>
+__device__ __forceinline__ void rot_enter_vjp(const T* e, const T* gl,
+                                              T* pr) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      pr[3 * i + j] = pr[3 * i + j] + gl[i] * e[j] + gl[3 + i] * e[3 + j];
+}
 
 // Hand-derived reverse of refract_spec's refraction (kind 1) or mirror
 // (kind 2) of the direction u by the unnormalized normal n, shared by
@@ -516,10 +566,13 @@ __device__ __forceinline__ void radial_phase_step_vjp(
 // autograd and the reference give.
 template <typename T, bool PATH, typename Flags, typename Row>
 __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
-                                                 T* g, T* pg, T ct_path) {
+                                                 T* g, T* pg, T ct_path,
+                                                 const T* so) {
   constexpr int fl = Flags::value;
   constexpr bool off_axis = fl & F_OFF_AXIS;
   constexpr bool rotated = fl & F_ROTATED;
+  // a rot key's rotation cotangent on a rotated row
+  constexpr bool rot_g = N_ROT > 0 && rotated;
   constexpr int kind = (fl >> KIND_SHIFT) & 3;
   constexpr bool ff = (fl & F_FREEFORM) != 0;
   const T c = p[P_C];
@@ -535,6 +588,11 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     y = y - p[P_OFF + 1];
   }
   z = z - p[P_OFF + 2];
+  // a rot key's entering position less the offset, and direction
+  [[maybe_unused]] T e0[6];
+  if constexpr (rot_g) {
+    e0[0] = x; e0[1] = y; e0[2] = z; e0[3] = ux; e0[4] = uy; e0[5] = uz;
+  }
   if (rotated) {
     rot_apply(p + P_ROT, x, y, z);
     rot_apply(p + P_ROT, ux, uy, uz);
@@ -549,6 +607,8 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
   const T x1 = x + t * ux;
   const T y1 = y + t * uy;
   // ---- reverse: leave the row's frame ----
+  [[maybe_unused]] T* pr = pg + rot_slot<PATH>();
+  if constexpr (rot_g) rot_leave_vjp(p + P_ROT, so, g, pr);
   T gx1 = g[0], gy1 = g[1], gz1 = g[2], gvx = g[3], gvy = g[4], gvz = g[5];
   if (rotated) {
     rot_apply(p + P_ROT, gx1, gy1, gz1);
@@ -651,6 +711,10 @@ __device__ __forceinline__ void figured_step_vjp(Row p, Flags, const T* s,
     gux = gux + t * gpx; guy = guy + t * gpy; guz = guz + t * gF;
   }
   // ---- reverse: enter the row's frame ----
+  if constexpr (rot_g) {
+    const T gl[6] = {gx, gy, gz, gux, guy, guz};
+    rot_enter_vjp(e0, gl, pr);
+  }
   if (rotated) {
     rot_apply_t(p + P_ROT, gx, gy, gz);
     rot_apply_t(p + P_ROT, gux, guy, guz);
@@ -879,10 +943,13 @@ __device__ __forceinline__ void toroid_normal_vjp(T x, T y, const Anam<T>& a,
 // Its torch model is cuda_grad._anamorphic_vjp_reference.
 template <typename T, bool PATH, typename Flags, typename Row>
 __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
-                                                    T* g, T* pg, T ct_path) {
+                                                    T* g, T* pg, T ct_path,
+                                                    const T* so) {
   constexpr int fl = Flags::value;
   constexpr bool off_axis = fl & F_OFF_AXIS;
   constexpr bool rotated = fl & F_ROTATED;
+  // a rot key's rotation cotangent on a rotated row
+  constexpr bool rot_g = N_ROT > 0 && rotated;
   constexpr int kind = (fl >> KIND_SHIFT) & 3;
   constexpr int cyl = (fl & F_CYL_Y) ? 1 : ((fl & F_CYL_X) ? 2 : 0);
   constexpr bool toroid = (fl & F_TOROID) != 0;
@@ -905,6 +972,11 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     y = y - p[P_OFF + 1];
   }
   z = z - p[P_OFF + 2];
+  // a rot key's entering position less the offset, and direction
+  [[maybe_unused]] T e0[6];
+  if constexpr (rot_g) {
+    e0[0] = x; e0[1] = y; e0[2] = z; e0[3] = ux; e0[4] = uy; e0[5] = uz;
+  }
   if (rotated) {
     rot_apply(p + P_ROT, x, y, z);
     rot_apply(p + P_ROT, ux, uy, uz);
@@ -946,6 +1018,8 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
   const T y1 = y + t * uy;
   const T z1 = z + t * uz;
   // ---- reverse: leave the row's frame ----
+  [[maybe_unused]] T* pr = pg + rot_slot<PATH>();
+  if constexpr (rot_g) rot_leave_vjp(p + P_ROT, so, g, pr);
   T gx1 = g[0], gy1 = g[1], gz1 = g[2], gvx = g[3], gvy = g[4], gvz = g[5];
   if (rotated) {
     rot_apply(p + P_ROT, gx1, gy1, gz1);
@@ -1070,6 +1144,10 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
     gux = gux + t * gpx; guy = guy + t * gpy; guz = guz + t * gF;
   }
   // ---- reverse: enter the row's frame ----
+  if constexpr (rot_g) {
+    const T gl[6] = {gx, gy, gz, gux, guy, guz};
+    rot_enter_vjp(e0, gl, pr);
+  }
   if (rotated) {
     rot_apply_t(p + P_ROT, gx, gy, gz);
     rot_apply_t(p + P_ROT, gux, guy, guz);
@@ -1123,18 +1201,23 @@ __device__ __forceinline__ void anamorphic_step_vjp(Row p, Flags, const T* s,
 // With PATH, ct_path is the cotangent of the row's optical path t *
 // n_before (K9); without it the path has none and the code is K5's and
 // K7's.  The aperture clip is a constant mask: a clipped ray is dead.
+// so: the state leaving the row (global frame), read by a rot key on a
+// rotated row only, whose rotation cotangents go to pg from
+// rot_slot<PATH>().
 template <typename T, bool PATH = false, typename Flags,
           typename Row = const T*>
 __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
                                                  const T* s, T* g, T* pg,
-                                                 T ct_path = T(0)) {
+                                                 T ct_path = T(0),
+                                                 const T* so = nullptr) {
   if constexpr ((Flags::value & F_ANAMORPHIC) != 0) {
-    anamorphic_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path);
+    anamorphic_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path, so);
     return;
   } else if constexpr ((Flags::value & (F_FIGURED | F_FREEFORM)) != 0) {
-    figured_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path);
+    figured_step_vjp<T, PATH>(p, flags, s, g, pg, ct_path, so);
     return;
   }
+  constexpr bool rot_g = N_ROT > 0 && (Flags::value & F_ROTATED) != 0;
   const int fl = flag_value(flags);
   const bool off_axis = fl & F_OFF_AXIS;
   const bool rotated = fl & F_ROTATED;
@@ -1151,6 +1234,11 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
     y = y - p[P_OFF + 1];
   }
   z = z - p[P_OFF + 2];
+  // a rot key's entering position less the offset, and direction
+  [[maybe_unused]] T e0[6];
+  if constexpr (rot_g) {
+    e0[0] = x; e0[1] = y; e0[2] = z; e0[3] = ux; e0[4] = uy; e0[5] = uz;
+  }
   if (rotated) {
     rot_apply(p + P_ROT, x, y, z);
     rot_apply(p + P_ROT, ux, uy, uz);
@@ -1187,6 +1275,8 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
   const T y1 = y + t * uy;
   const T z1 = z + t * uz;
   // ---- reverse: leave the row's frame ----
+  [[maybe_unused]] T* pr = pg + rot_slot<PATH>();
+  if constexpr (rot_g) rot_leave_vjp(p + P_ROT, so, g, pr);
   T gx1 = g[0], gy1 = g[1], gz1 = g[2], gvx = g[3], gvy = g[4], gvz = g[5];
   if (rotated) {
     rot_apply(p + P_ROT, gx1, gy1, gz1);
@@ -1280,6 +1370,10 @@ __device__ __forceinline__ void surface_step_vjp(Row p, Flags flags,
     }
   }
   // ---- reverse: enter the row's frame ----
+  if constexpr (rot_g) {
+    const T gl[6] = {gx, gy, gz, gux, guy, guz};
+    rot_enter_vjp(e0, gl, pr);
+  }
   if (rotated) {
     rot_apply_t(p + P_ROT, gx, gy, gz);
     rot_apply_t(p + P_ROT, gux, guy, guz);
@@ -1342,14 +1436,17 @@ __device__ __forceinline__ SphereTail<T> sphere_tail(Row p, Flags flags,
 // Hand-derived reverse of the tail for one live ray, from the
 // cotangents of q = ti * n_image (ct_q), lx = px + ti dx and ly = py +
 // ti dy.  g: out, the cotangent of the state leaving row S-2; pg: out,
-// the image row's parameter cotangents (OPD_SLOTS); gc: out, the centre
-// cotangents.
+// the image row's parameter cotangents (OPD_SLOTS; a rot key's rotated
+// image row also its rotation's, from rot_slot<true>(), the tail's
+// entering state s read for them); gc: out, the centre cotangents.
 template <typename T, typename Flags, typename Row = const T*>
 __device__ __forceinline__ void sphere_tail_vjp(Row p, Flags flags,
                                                 const SphereTail<T>& o,
                                                 T ct_q, T ct_lx, T ct_ly,
-                                                T* g, T* pg, T* gc) {
+                                                T* g, T* pg, T* gc,
+                                                const T* s = nullptr) {
   const int fl = flag_value(flags);
+  constexpr bool rot_g = N_ROT > 0 && (Flags::value & F_ROTATED) != 0;
   const T nb = p[P_NB];
   const T gti = ct_q * nb + ct_lx * o.dx + ct_ly * o.dy;
   T gpx = ct_lx, gpy = ct_ly, gpz = T(0);
@@ -1376,6 +1473,19 @@ __device__ __forceinline__ void sphere_tail_vjp(Row p, Flags flags,
   gpy = gpy + o.dy * guyd + T(2) * o.py * gyy;
   gpz = gpz + o.dz * guyd + T(2) * o.pz * gyy;
   gc[0] = -gpx; gc[1] = -gpy; gc[2] = -gpz;
+  if constexpr (rot_g) {
+    // the image row's frame, entered from the state s leaving row S-2
+    T e0[6] = {s[0], s[1], s[2] - p[P_OFF + 2], s[3], s[4], s[5]};
+    if (fl & F_OFF_AXIS) {
+      e0[0] = e0[0] - p[P_OFF];
+      e0[1] = e0[1] - p[P_OFF + 1];
+    }
+    const T gl[6] = {gpx, gpy, gpz, gdx, gdy, gdz};
+    T* pr = pg + rot_slot<true>();
+#pragma unroll
+    for (int q = 0; q < N_ROT; ++q) pr[q] = T(0);
+    rot_enter_vjp(e0, gl, pr);
+  }
   if (fl & F_ROTATED) {
     rot_apply_t(p + P_ROT, gpx, gpy, gpz);
     rot_apply_t(p + P_ROT, gdx, gdy, gdz);

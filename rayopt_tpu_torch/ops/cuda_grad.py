@@ -77,9 +77,14 @@ a spherical row, the transverse offset of an on-axis row, mu of a
 passthrough row, the coefficients of a row that reads no figure --
 neither aspheric nor a biconic or toroid) gets exactly
 zero gradient, and the call warns once when such a parameter is the one
-being optimized.  rot is not
-differentiated: a rot (or tilt) that requires grad while some spec row
-is rotated raises NotImplementedError.
+being optimized.  A rot that requires grad (a tilt lowered through
+tables.lower_pose) while some spec row is rotated is differentiated too:
+the adjoint key is then a rot key (cuda_spec.carries_rot), whose nine
+slots a row more carry each rotated row's rotation cotangent (the image
+row's with its second use, the moment frame), and autograd through
+lower_pose's Rodrigues turns them into d/d(tilt), as in the reference.
+Row 0's rotation is never a slot: its tilt gradient is zero, as the
+reference's.
 
 K8 `opd_chain` and K9 `opd_adjoint` are the exit-pupil wavefront
 plane (`pallas_grad._opd_kernel`, `_opd_adjoint_kernel`): K8 traces
@@ -96,7 +101,8 @@ three.
 `adjoint_opd_rays` and `adjoint_wavefront_rms` bind them in `_OpdRays`
 (the reference's custom_vjp `_opd`); the
 sphere centre, the input-plane term and k - k[ref] stay outside the
-kernel, in autograd.
+kernel, in autograd.  A rot that requires grad makes K9's key a rot key
+too (its image row's rotation read by the reference-sphere tail).
 
 The kernels are hand-written CUDA C++.  K4-K9 are compiled for each
 (dtype, spec tuple, clip) key, K6 also for its wavelength count,
@@ -111,7 +117,8 @@ version (`weighted_moments_reference`, `merit_adjoint_reference`,
 `weighted_moments_multi_reference`, `merit_adjoint_multi_reference`,
 `opd_chain_reference`, `opd_adjoint_reference`) only for a bundle on
 the CPU; for a CUDA bundle it launches its kernel or raises.  Each
-wrapper counts its launches in `<wrapper>.launches`.
+wrapper counts its launches in `<wrapper>.launches`, and the adjoints
+those of a rot key also in `<wrapper>.rot_launches`.
 `_step_vjp_reference`, `_merit_adjoint_by_hand`,
 `_merit_adjoint_multi_by_hand`, `_opd_tail_vjp_reference` and
 `_opd_adjoint_by_hand` write the kernels' hand-derived reverse in
@@ -138,15 +145,16 @@ SLOTS = CS.SLOTS          # parameter cotangents a row: c, k, offset x/y/z, mu
 OPD_SLOTS = CS.OPD_SLOTS  # K9's a row: SLOTS and n_before
 AUX = CS.AUX    # K8/K9's aux vector: centre x, y, z, radius, lam_scale
 
+ROT = CS.ROT    # a rot key's slots a row: the rotation, last
 #: differentiable table fields _OpdRays carries (K9's fields: the
 #: anamorphic x figure, then the phase rows' grating_dy, n_after and doe,
-#: then the freeform rows' xy_poly, last)
-_DIFF = CS.OPD_DIFF
+#: then the freeform rows' xy_poly, then rot, last)
+_DIFF = CS.OPD_DIFF + (CS.ROT_FIELD,)
 _NO = len(_DIFF)
 #: those _SpotMoments carries: _DIFF up to the anamorphic x figure, then
-#: the phase rows' grating_dy and doe and the freeform rows' xy_poly (the
-#: spot moments' n_before gets a zero cotangent)
-_SPOT = _DIFF[:9] + CS.FIELDS[8:]
+#: the phase rows' grating_dy and doe, the freeform rows' xy_poly and rot
+#: (the spot moments' n_before gets a zero cotangent)
+_SPOT = _DIFF[:9] + CS.FIELDS[8:] + (CS.ROT_FIELD,)
 _NM = len(_SPOT)
 #: kernel-carried fields that never receive cotangents
 _NONDIFF = ("radius", "alternate")
@@ -195,14 +203,15 @@ def _constant_table(table, like):
 
 
 def _param_rows(tab, anamorphic=False, grating=False, nd=0, opd=False,
-                nxy=0):
-    """(S, SLOTS + na + no [+ ANAM] [+ 1] [+ nd] [+ nxy]) view of the
-    differentiated fields of a table: c, k, offset x, y, z, mu, then its
-    aspheric coefficients, then (anamorphic, cuda_trace.
+                nxy=0, rot=False):
+    """(S, SLOTS + na + no [+ ANAM] [+ 1] [+ nd] [+ nxy] [+ ROT]) view of
+    the differentiated fields of a table: c, k, offset x, y, z, mu, then
+    its aspheric coefficients, then (anamorphic, cuda_trace.
     carries_anamorphic) curvature_dx and conic_dx, then (grating,
     carries_grating) grating_dy, then (nd, doe_width) the DOE
     coefficients -- with `opd` (K9's) n_after before them --, then (nxy,
-    xy_width) the XY coefficients."""
+    xy_width) the XY coefficients, then (rot, cuda_spec.carries_rot) the
+    rotation, row-major."""
     cols = [torch.stack([tab.curvature, tab.conic, tab.offset[:, 0],
                          tab.offset[:, 1], tab.offset[:, 2], tab.mu], 1),
             tab.aspherics, tab.aspherics_odd]
@@ -216,6 +225,8 @@ def _param_rows(tab, anamorphic=False, grating=False, nd=0, opd=False,
         cols.append(tab.doe)
     if nxy:
         cols.append(tab.xy_poly)
+    if rot:
+        cols.append(tab.rot.flatten(-2))
     return torch.cat(cols, 1)
 
 
@@ -232,19 +243,20 @@ def _table_widths(table):
             int(table.aspherics_odd.shape[-1]))
 
 
-def _nslots(table, specs, base=SLOTS):
+def _nslots(table, specs, base=SLOTS, rot=False):
     """K5's and K7's cotangent columns a row for a table and its specs
     (K9's with base OPD_SLOTS): `base`, the table's aspheric
     coefficients, ANAM where a row is anamorphic (cuda_trace.
     carries_anamorphic), then one where a row is a grating and the DOE
     width where a row is a DOE (_phase_layout; K9 one more there, its
     n_after), then the xy_poly width where a row is freeform
-    (cuda_trace.xy_width)."""
+    (cuda_trace.xy_width), then ROT for a rot key (`rot`,
+    cuda_spec.carries_rot)."""
     grating, nd = _phase_layout(table, specs)
     k9 = base == OPD_SLOTS
     return base + sum(_table_widths(table)) \
         + (ANAM if carries_anamorphic(specs) else 0) + int(grating) + nd \
-        + int(k9 and nd > 0) + xy_width(table, specs)
+        + int(k9 and nd > 0) + xy_width(table, specs) + (ROT if rot else 0)
 
 
 def _key_columns(pg, key, nq, base=SLOTS):
@@ -273,7 +285,8 @@ def _diff_values(table, fields=_DIFF):
     return [value(f) for f in fields]
 
 
-def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
+def merit_adjoint_reference(table, specs, state, w, ct, clip=False,
+                            rot=False):
     """Plain PyTorch version of K5: torch autograd through the plain
     trace.  A no-grad pre-trace finds the live rays; each dead ray is
     traced as the first live one (so no NaN enters autograd) at zero
@@ -282,8 +295,9 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     aspheric coefficients, then for anamorphic specs
     (cuda_trace.carries_anamorphic) curvature_dx and conic_dx, then for
     grating specs grating_dy, for DOE specs the DOE coefficients, for
-    freeform specs the XY coefficients; the six state cotangents; the
-    weight cotangent), all in the state's dtype."""
+    freeform specs the XY coefficients, with `rot` (a rot key's) the
+    rotation last; the six state cotangents; the weight cotangent), all
+    in the state's dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     anam = carries_anamorphic(specs)
@@ -292,8 +306,8 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     with torch.no_grad():
         out, _ = trace_final_reference(tab, specs, state, clip)
         alive = _live(out)
-    pg = torch.zeros((tab.nsurfaces, _nslots(tab, specs)), dtype=x0.dtype,
-                     device=x0.device)
+    pg = torch.zeros((tab.nsurfaces, _nslots(tab, specs, rot=rot)),
+                     dtype=x0.dtype, device=x0.device)
     if not bool(alive.any()):
         return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
             torch.zeros_like(x0)
@@ -302,7 +316,7 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
               "aspherics_odd") + (("curvature_dx", "conic_dx") if anam
                                   else ()) \
         + (("grating_dy",) if grating else ()) + (("doe",) if nd else ()) \
-        + (("xy_poly",) if nxy else ())
+        + (("xy_poly",) if nxy else ()) + (("rot",) if rot else ())
     nf = len(fields)
     leaves = [*(getattr(tab, f) for f in fields), *state, w]
     leaves = [v.detach().clone().requires_grad_() for v in leaves]
@@ -317,7 +331,7 @@ def merit_adjoint_reference(table, specs, state, w, ct, clip=False):
     grads = [torch.zeros_like(v) if g is None else g
              for v, g in zip(leaves, grads)]
     pg = _param_rows(tab.replace(**dict(zip(fields, grads[:nf]))), anam,
-                     grating, nd, nxy=nxy)
+                     grating, nd, nxy=nxy, rot=rot)
     return pg, tuple(grads[nf:nf + 6]), grads[nf + 6]
 
 
@@ -330,29 +344,32 @@ def weighted_moments_multi_reference(tables, specs, state, w, clip=False):
         for li in range(tables.curvature.shape[0])])
 
 
-def _sum_over_tables(one, tables, specs, state, w, ct, clip):
+def _sum_over_tables(one, tables, specs, state, w, ct, clip, rot=False):
     """K7's reduction of a per-table adjoint `one`: parameter
     cotangents stacked per table, ray and weight cotangents summed over
     the tables in order."""
     pgs, st, gw = [], [torch.zeros_like(state[0]) for _ in range(6)], \
         torch.zeros_like(state[0])
     for li in range(tables.curvature.shape[0]):
-        pg, sl, wl = one(table_at(tables, li), specs, state, w, ct[li], clip)
+        pg, sl, wl = one(table_at(tables, li), specs, state, w, ct[li], clip,
+                         rot=rot)
         pgs.append(pg)
         st = [a + b for a, b in zip(st, sl)]
         gw = gw + wl
     return torch.stack(pgs), tuple(st), gw
 
 
-def merit_adjoint_multi_reference(tables, specs, state, w, ct, clip=False):
+def merit_adjoint_multi_reference(tables, specs, state, w, ct, clip=False,
+                                  rot=False):
     """Plain PyTorch version of K7: for each table of the stack,
     torch autograd through the plain trace (merit_adjoint_reference,
     re-traced under enable_grad) of that table's weighted moments
     dotted with its row of the (nlam, 5) cotangents `ct`.  Returns
-    (parameter cotangents (nlam, S, SLOTS); the six state cotangents
-    and the weight cotangent, each summed over the tables)."""
+    (parameter cotangents (nlam, S, _nslots), with `rot` each table's
+    rotation last; the six state cotangents and the weight cotangent,
+    each summed over the tables)."""
     return _sum_over_tables(merit_adjoint_reference, tables, specs, state,
-                            w, ct, clip)
+                            w, ct, clip, rot)
 
 
 class _Tail(NamedTuple):
@@ -403,7 +420,8 @@ def _sphere_tail(state, surf, spec, aux):
 
 def _opd_chain(tab, specs, state, aux, clip):
     """K8's computation in torch: (k, lx, ly) per ray, and the states
-    entering rows 1..S-2 (index j; None at 0) with the tail's
+    entering rows 1..S-1 (index j; None at 0; at S-1 the state the
+    reference-sphere tail steps to the image row) with the tail's
     intermediates for the hand-written reverse."""
     nsurf = tab.nsurfaces
     s = tuple(state)
@@ -416,6 +434,7 @@ def _opd_chain(tab, specs, state, aux, clip):
         saved.append(s)
         s, out = K.surface_step_spec(s, tab.row(j), specs[j], clip)
         path = path + out[3]
+    saved.append(s)
     img = tab.row(nsurf - 1)
     o = _sphere_tail(s, img, specs[nsurf - 1], aux)
     k = -(path + o.ti*img.n_before)/aux[4]
@@ -439,7 +458,8 @@ def opd_chain_reference(table, specs, state, aux, clip=False):
     return _opd_chain(tab, specs, state, aux, clip)[0]
 
 
-def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
+def opd_adjoint_reference(table, specs, state, aux, cts, clip=False,
+                          rot=False):
     """Plain PyTorch version of K9: torch autograd through the plain
     chain and tail of K8 dotted with cts = (ct_k, ct_lx, ct_ly).  A
     no-grad pre-trace finds the live rays (finite k); each dead ray is
@@ -449,13 +469,14 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
     even and no odd aspheric coefficients, then for anamorphic specs
     curvature_dx and conic_dx, for grating specs grating_dy, for DOE
     specs n_after and the DOE coefficients, for freeform specs the XY
-    coefficients; the six state cotangents; the (3,) centre
-    cotangents), in the state's dtype."""
+    coefficients, with `rot` (a rot key's) the rotation last; the six
+    state cotangents; the (3,) centre cotangents), in the state's
+    dtype."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     with torch.no_grad():
         alive = torch.isfinite(_opd_chain(tab, specs, state, aux, clip)[0][0])
-    pg = torch.zeros((tab.nsurfaces, _nslots(tab, specs, OPD_SLOTS)),
+    pg = torch.zeros((tab.nsurfaces, _nslots(tab, specs, OPD_SLOTS, rot)),
                      dtype=x0.dtype, device=x0.device)
     if not bool(alive.any()):
         return pg, tuple(torch.zeros_like(x0) for _ in range(6)), \
@@ -477,7 +498,7 @@ def opd_adjoint_reference(table, specs, state, aux, cts, clip=False):
     g = tab.replace(**dict(zip(_DIFF, grads[:nd])))
     rows = _param_rows(g, carries_anamorphic(specs),
                        *_phase_layout(tab, specs), opd=True,
-                       nxy=xy_width(tab, specs))
+                       nxy=xy_width(tab, specs), rot=rot)
     pg = torch.cat([rows[:, :SLOTS], g.n_before[:, None], rows[:, SLOTS:]],
                    1)
     return pg, tuple(grads[nd:nd + 6]), grads[-1][:3]
@@ -700,26 +721,51 @@ def _radial_phase_normal(x1, y1, c, k, asp, aspo, flat):
     return x1*e, y1*e
 
 
-def _step_vjp_reference(state, surf, spec, g, ct_path=None):
+def _rot_leave_vjp(r, so, g):
+    """The rotation's cotangent where a reverse leaves a row's frame, the
+    model of `rot_leave_vjp` in csrc/step_vjp.cuh: the forward wrote the
+    state leaving the row as R^T of its local one, so with `so` that
+    state (global frame) and g its cotangent, entry 3 i + j is (R so)[i]
+    g[j] + (R so_u)[i] g[3 + j].  Returns the nine, R[i][j] row-major."""
+    ol = K.rot_apply(r, *so[:3])
+    vl = K.rot_apply(r, *so[3:])
+    return [ol[i]*g[j] + vl[i]*g[3 + j] for i in range(3) for j in range(3)]
+
+
+def _rot_enter_vjp(pr, e, gl):
+    """The rotation's cotangent where a reverse enters a row's frame, the
+    model of `rot_enter_vjp` in csrc/step_vjp.cuh: the forward took x_l =
+    R d and u_l = R u (`e` = d, the position less the row's offset, then
+    u, global frame), so entry 3 i + j of `pr` gains g_xl[i] d[j] +
+    g_ul[i] u[j] from the local cotangents gl."""
+    return [pr[3*i + j] + gl[i]*e[j] + gl[3 + i]*e[3 + j]
+            for i in range(3) for j in range(3)]
+
+
+def _step_vjp_reference(state, surf, spec, g, ct_path=None, out=None):
     """Hand-derived reverse of kernels.surface_step_spec for live rays,
     the line-for-line model of `surface_step_vjp` in csrc/step_vjp.cuh.
 
     state: the six components entering the row (global frame); g: the
     cotangent of the six components leaving it; ct_path: the cotangent
     of the row's optical path t * n_before (K9's PATH instantiation), or
-    None (K5's and K7's: the path has no cotangent).  Returns (cotangent
+    None (K5's and K7's: the path has no cotangent); out: the six
+    components leaving the row (a rot key's, whose rotated rows return
+    their rotation's nine cotangents last), or None.  Returns (cotangent
     of the entering state, per-ray parameter cotangents (c, k, offset x,
     y, z, mu, and with ct_path n_before; an aspheric or freeform row
     then its table's even and odd coefficients, a freeform row its XY
-    coefficients last, `_figured_vjp_reference`)).  The aperture clip is
-    a constant mask: a clipped ray is dead, and dead rays never reach
-    the reverse sweep.  A freeform figure on an anamorphic base raises
+    coefficients, `_figured_vjp_reference`; with `out` a rotated row's
+    rotation R[i][j] last)).  The aperture clip is a constant mask: a
+    clipped ray is dead, and dead rays never reach the reverse sweep.  A
+    freeform figure on an anamorphic base raises
     (kernels.check_supported), as every key does."""
     K.check_supported(spec, what="K5's reverse", kernel="k5")
     if K.is_anamorphic_spec(spec):
-        return _anamorphic_vjp_reference(state, surf, spec, g, ct_path)
+        return _anamorphic_vjp_reference(state, surf, spec, g, ct_path, out)
     if K.is_figured(spec) or spec.freeform:
-        return _figured_vjp_reference(state, surf, spec, g, ct_path)
+        return _figured_vjp_reference(state, surf, spec, g, ct_path, out)
+    rot_g = out is not None and spec.rotated
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
     c, k, mu = surf.curvature, surf.conic, surf.mu
@@ -728,6 +774,7 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
         x = x - surf.offset[0]
         y = y - surf.offset[1]
     z = z - surf.offset[2]
+    e0 = (x, y, z, ux, uy, uz)
     if spec.rotated:
         r = surf.rot
         x, y, z = K.rot_apply(r, x, y, z)
@@ -759,6 +806,7 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
         t = torch.where(conj, f, -(d + q))/den
     x1, y1, z1 = x + t*ux, y + t*uy, z + t*uz
     # ---- reverse: leave the row's frame ----
+    pr = _rot_leave_vjp(r, out, g) if rot_g else []
     gx1, gy1, gz1, gvx, gvy, gvz = g
     if spec.rotated:
         gx1, gy1, gz1 = K.rot_apply(r, gx1, gy1, gz1)
@@ -847,6 +895,8 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
             guz = guz + 2*k1*uz*guu
             gk = gk + z*z*gyy + uz*uz*guu + uz*z*guyd
     # ---- reverse: enter the row's frame ----
+    if rot_g:
+        pr = _rot_enter_vjp(pr, e0, (gx, gy, gz, gux, guy, guz))
     if spec.rotated:
         gx, gy, gz = K.rot_apply_t(r, gx, gy, gz)
         gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
@@ -855,7 +905,7 @@ def _step_vjp_reference(state, surf, spec, g, ct_path=None):
     pg = (gc, gk, gox, goy, -gz, gmu)
     if ct_path is not None:
         pg = pg + (gnb,)
-    return (gx, gy, gz, gux, guy, guz), pg + phase
+    return (gx, gy, gz, gux, guy, guz), pg + phase + tuple(pr)
 
 
 def _horner(r2, coeffs, scale=lambda i: 1, start=0):
@@ -971,7 +1021,7 @@ def _xy_sag_vjp(px, py, xy, gF, gxy):
     return -gF*dpx, -gF*dpy
 
 
-def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
+def _figured_vjp_reference(state, surf, spec, g, ct_path=None, out=None):
     """Hand-derived reverse of an aspheric row's step (kernels.
     surface_step_spec with spec.aspheric or spec.odd) for live rays, the
     line-for-line model of `figured_step_vjp` in csrc/step_vjp.cuh: the
@@ -988,7 +1038,9 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     Returns the entering state's cotangent and the per-ray parameter
     cotangents (c, k, offset x, y, z, mu, with ct_path n_before, then
     the table's na even and no odd coefficients, a phase row's, then a
-    freeform row's XY coefficients)."""
+    freeform row's XY coefficients, then with `out` a rotated row's
+    rotation, _step_vjp_reference)."""
+    rot_g = out is not None and spec.rotated
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
     c, k, mu = surf.curvature, surf.conic, surf.mu
@@ -1001,6 +1053,7 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
         x = x - surf.offset[0]
         y = y - surf.offset[1]
     z = z - surf.offset[2]
+    e0 = (x, y, z, ux, uy, uz)
     if spec.rotated:
         r = surf.rot
         x, y, z = K.rot_apply(r, x, y, z)
@@ -1009,6 +1062,7 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
                     aspherics_odd=aspo, xy_poly=xy)
     x1, y1 = x + t*ux, y + t*uy
     # ---- reverse: leave the row's frame ----
+    pr = _rot_leave_vjp(r, out, g) if rot_g else []
     gx1, gy1, gz1, gvx, gvy, gvz = g
     if spec.rotated:
         gx1, gy1, gz1 = K.rot_apply(r, gx1, gy1, gz1)
@@ -1110,6 +1164,8 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     gx, gy, gz = gx + gpx, gy + gpy, gz + gF
     gux, guy, guz = gux + t*gpx, guy + t*gpy, guz + t*gF
     # ---- reverse: enter the row's frame ----
+    if rot_g:
+        pr = _rot_enter_vjp(pr, e0, (gx, gy, gz, gux, guy, guz))
     if spec.rotated:
         gx, gy, gz = K.rot_apply_t(r, gx, gy, gz)
         gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
@@ -1117,7 +1173,7 @@ def _figured_vjp_reference(state, surf, spec, g, ct_path=None):
     goy = -gy if spec.off_axis else zero
     nb = () if ct_path is None else (gnb,)
     return ((gx, gy, gz, gux, guy, guz),
-            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, *phase, *gxy))
+            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, *phase, *gxy, *pr))
 
 
 def _sqrt0_vjp(m, sq, g):
@@ -1309,7 +1365,8 @@ def _general_normal(spec, x, y, c, k, cx, kx, asp=None, aspo=None):
     return K.normal_biconic(x, y, cx, kx, c, k, asp, aspo)
 
 
-def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
+def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None,
+                              out=None):
     """Hand-derived reverse of an anamorphic row's step (kernels.
     surface_step_spec with spec.cyl_axis, spec.biconic or spec.toroidal;
     a biconic or toroid also with an aspheric figure) for live rays, the
@@ -1331,7 +1388,9 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
     takes ct_path * t.  Returns the entering state's cotangent and the
     per-ray parameter cotangents (c, k, offset x, y, z, mu, with ct_path
     n_before, a biconic's or toroid's na even and no odd coefficients,
-    then curvature_dx and conic_dx)."""
+    then curvature_dx and conic_dx, then a phase row's, then with `out` a
+    rotated row's rotation, _step_vjp_reference)."""
+    rot_g = out is not None and spec.rotated
     x, y, z, ux, uy, uz = state
     zero = torch.zeros_like(x)
     c, k, mu = surf.curvature, surf.conic, surf.mu
@@ -1350,6 +1409,7 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
         x = x - surf.offset[0]
         y = y - surf.offset[1]
     z = z - surf.offset[2]
+    e0 = (x, y, z, ux, uy, uz)
     if spec.rotated:
         r = surf.rot
         x, y, z = K.rot_apply(r, x, y, z)
@@ -1380,6 +1440,7 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
                                 surf.alternate, aspherics_odd=aspo)
     x1, y1, z1 = x + t*ux, y + t*uy, z + t*uz
     # ---- reverse: leave the row's frame ----
+    pr = _rot_leave_vjp(r, out, g) if rot_g else []
     gx1, gy1, gz1, gvx, gvy, gvz = g
     if spec.rotated:
         gx1, gy1, gz1 = K.rot_apply(r, gx1, gy1, gz1)
@@ -1487,6 +1548,8 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
         gx, gy, gz = gx + gpx, gy + gpy, gz + gF
         gux, guy, guz = gux + t*gpx, guy + t*gpy, guz + t*gF
     # ---- reverse: enter the row's frame ----
+    if rot_g:
+        pr = _rot_enter_vjp(pr, e0, (gx, gy, gz, gux, guy, guz))
     if spec.rotated:
         gx, gy, gz = K.rot_apply_t(r, gx, gy, gz)
         gux, guy, guz = K.rot_apply_t(r, gux, guy, guz)
@@ -1513,13 +1576,17 @@ def _anamorphic_vjp_reference(state, surf, spec, g, ct_path=None):
     goy = -gy if spec.off_axis else zero
     nb = () if ct_path is None else (gnb,)
     return ((gx, gy, gz, gux, guy, guz),
-            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, gcdx, gkdx, *phase))
+            (gc, gk, gox, goy, -gz, gmu, *nb, *ga, *gb, gcdx, gkdx, *phase,
+             *pr))
 
 
-def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
+def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False,
+                           rot=False):
     """K5 written in torch with _step_vjp_reference, the model of
     `moments_adjoint_ray` in csrc/grad_spec.cuh: same outputs as
-    merit_adjoint_reference."""
+    merit_adjoint_reference (with `rot`, a rot key's: each rotated row's
+    rotation from the state leaving it, the image row's with the moment
+    frame's second use)."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     nsurf = tab.nsurfaces
@@ -1531,8 +1598,10 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     for j in range(1, nsurf):
         saved.append(s)
         s, _ = K.surface_step_spec(s, tab.row(j), specs[j], clip)
+    saved.append(s)
     rl = tab.rot[nsurf - 1]
-    if specs[nsurf - 1].rotated:
+    last_rot = specs[nsurf - 1].rotated
+    if last_rot:
         s = (*K.rot_apply(rl, *s[:3]), *K.rot_apply(rl, *s[3:]))
     x, y = s[0], s[1]
     live = _live(s)
@@ -1541,29 +1610,46 @@ def _merit_adjoint_by_hand(table, specs, state, w, ct, clip=False):
     cty = w*(ct2 + 2*y*ct4)
     ct_w = torch.where(live, ct0 + x*ct1 + y*ct2 + x*x*ct3 + y*y*ct4, 0.)
     zero = torch.zeros_like(x0)
-    g3 = (K.rot_apply_t(rl, ctx, cty, zero)
-          if specs[nsurf - 1].rotated else (ctx, cty, zero))
-    g = tuple(torch.where(live, v, 0.) for v in (*g3, zero, zero, zero))
-    pg = torch.zeros((nsurf, _nslots(tab, specs)), dtype=x0.dtype,
+    pg = torch.zeros((nsurf, _nslots(tab, specs, rot=rot)), dtype=x0.dtype,
                      device=x0.device)
+    if rot and last_rot:
+        # the moment frame (x, y) = (R s)[0..1] reads the image row's
+        # rotation a second time
+        sf = saved[nsurf]
+        pr = [v*sf[q] for v in (ctx, cty) for q in range(3)]
+        pg[nsurf - 1, -ROT:-3] = torch.stack(
+            [torch.where(live, v, 0.).sum() for v in pr])
+    g3 = (K.rot_apply_t(rl, ctx, cty, zero)
+          if last_rot else (ctx, cty, zero))
+    g = tuple(torch.where(live, v, 0.) for v in (*g3, zero, zero, zero))
     nd = _phase_layout(tab, specs)[1]
     nxy = xy_width(tab, specs)
     for j in range(nsurf - 1, 0, -1):
-        g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g)
+        g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g,
+                                    out=saved[j + 1] if rot else None)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        _put_row(pg, j, specs[j], pj, live, specs, nd=nd, nxy=nxy)
+        _put_row(pg, j, specs[j], pj, live, specs, nd=nd, nxy=nxy, rot=rot)
     if specs[0].rotated:
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
     return pg, g, ct_w
 
 
-def _put_row(pg, j, spec, pj, live, specs, base=SLOTS, nd=0, nxy=0):
+def _put_row(pg, j, spec, pj, live, specs, base=SLOTS, nd=0, nxy=0,
+             rot=False):
     """Row j of the by-hand models' parameter cotangents: the sums over
     the live rays of _step_vjp_reference's per-ray ones (a row that
     reads no figure has no aspheric slots: zeros; an anamorphic row's
     curvature_dx and conic_dx follow the coefficients; a phase row's
     grating_dy, then (K9, base OPD_SLOTS) n_after, then its nd DOE
-    coefficients; a freeform row's nxy XY coefficients come last)."""
+    coefficients; a freeform row's nxy XY coefficients come next; with
+    `rot` a rotated row's rotation last, added to what the row holds
+    there)."""
+    if rot:
+        if spec.rotated:
+            pg[j, -ROT:] += torch.stack([torch.where(live, v, 0.).sum()
+                                         for v in pj[-ROT:]])
+            pj = pj[:-ROT]
+        pg = pg[:, :-ROT]
     sums = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
     if spec.freeform and nxy:
         pg[j, pg.shape[-1] - nxy:] = sums[len(pj) - nxy:]
@@ -1586,23 +1672,26 @@ def _put_row(pg, j, spec, pj, live, specs, base=SLOTS, nd=0, nxy=0):
             pg[j, q:q + ndoe] = sums[-ndoe:]
 
 
-def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False):
+def _merit_adjoint_multi_by_hand(tables, specs, state, w, ct, clip=False,
+                                 rot=False):
     """K7 written in torch: the K5 model run once per table of the stack
     on the same state (each table's dead rays zeroed for it alone), the
     ray and weight cotangents summed over the tables in order, the model
     of `merit_adjoint_multi_spec` in csrc/grad_spec.cuh; same outputs as
     merit_adjoint_multi_reference."""
     return _sum_over_tables(_merit_adjoint_by_hand, tables, specs, state,
-                            w, ct, clip)
+                            w, ct, clip, rot)
 
 
-def _opd_tail_vjp_reference(surf, spec, o, ct_q, ct_lx, ct_ly):
+def _opd_tail_vjp_reference(surf, spec, o, ct_q, ct_lx, ct_ly, state=None):
     """Hand-derived reverse of the sphere tail for live rays, the
     line-for-line model of `sphere_tail_vjp` in csrc/step_vjp.cuh.  o: the
     tail's intermediates (_sphere_tail); ct_q, ct_lx, ct_ly: the
-    cotangents of q = ti * n_image and of the landing x, y.  Returns
-    (cotangent of the state leaving row S-2, the image row's per-ray
-    parameter cotangents (OPD_SLOTS), the centre cotangents (3))."""
+    cotangents of q = ti * n_image and of the landing x, y; state: the
+    state leaving row S-2 (a rot key's, whose rotated image row returns
+    its rotation's nine cotangents last), or None.  Returns (cotangent of
+    the state leaving row S-2, the image row's per-ray parameter
+    cotangents (OPD_SLOTS [+ ROT]), the centre cotangents (3))."""
     zero = torch.zeros_like(o.ti)
     gti = ct_q*surf.n_before + ct_lx*o.dx + ct_ly*o.dy
     gpx, gpy, gpz = ct_lx, ct_ly, zero
@@ -1624,18 +1713,29 @@ def _opd_tail_vjp_reference(surf, spec, o, ct_q, ct_lx, ct_ly):
     gpy = gpy + o.dy*guyd + 2*o.py*gyy
     gpz = gpz + o.dz*guyd + 2*o.pz*gyy
     gc = (-gpx, -gpy, -gpz)
+    pr = []
+    if state is not None and spec.rotated:
+        # the image row's frame, entered from the state leaving row S-2
+        e0 = [state[0], state[1], state[2] - surf.offset[2], *state[3:]]
+        if spec.off_axis:
+            e0[0] = e0[0] - surf.offset[0]
+            e0[1] = e0[1] - surf.offset[1]
+        pr = _rot_enter_vjp([zero]*ROT, e0, (gpx, gpy, gpz, gdx, gdy, gdz))
     if spec.rotated:
         gpx, gpy, gpz = K.rot_apply_t(surf.rot, gpx, gpy, gpz)
         gdx, gdy, gdz = K.rot_apply_t(surf.rot, gdx, gdy, gdz)
     pg = (zero, zero, -gpx if spec.off_axis else zero,
           -gpy if spec.off_axis else zero, -gpz, zero, ct_q*o.ti)
-    return (gpx, gpy, gpz, gdx, gdy, gdz), pg, gc
+    return (gpx, gpy, gpz, gdx, gdy, gdz), pg + tuple(pr), gc
 
 
-def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
+def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False,
+                        rot=False):
     """K9 written in torch with _opd_tail_vjp_reference and
     _step_vjp_reference(ct_path=), the model of `opd_adjoint_spec` in
-    csrc/grad_spec.cuh: same outputs as opd_adjoint_reference."""
+    csrc/grad_spec.cuh: same outputs as opd_adjoint_reference (with
+    `rot`, a rot key's: each rotated row's rotation, the image row's
+    from the tail)."""
     x0 = state[0]
     tab = _constant_table(table, x0)
     nsurf = tab.nsurfaces
@@ -1644,20 +1744,24 @@ def _opd_adjoint_by_hand(table, specs, state, aux, cts, clip=False):
     ct_k, ct_lx, ct_ly = (torch.where(live, c, 0.) for c in cts)
     ct_path = -ct_k/aux[4]
     g, pj, gc = _opd_tail_vjp_reference(tab.row(nsurf - 1), specs[nsurf - 1],
-                                        o, ct_path, ct_lx, ct_ly)
+                                        o, ct_path, ct_lx, ct_ly,
+                                        saved[nsurf - 1] if rot else None)
     g = tuple(torch.where(live, v, 0.) for v in g)
-    pg = torch.zeros((nsurf, _nslots(tab, specs, OPD_SLOTS)),
+    pg = torch.zeros((nsurf, _nslots(tab, specs, OPD_SLOTS, rot)),
                      dtype=x0.dtype, device=x0.device)
     nd = _phase_layout(tab, specs)[1]
     nxy = xy_width(tab, specs)
-    pg[nsurf - 1, :OPD_SLOTS] = torch.stack([torch.where(live, v, 0.).sum()
-                                             for v in pj])
+    sums = torch.stack([torch.where(live, v, 0.).sum() for v in pj])
+    pg[nsurf - 1, :OPD_SLOTS] = sums[:OPD_SLOTS]
+    if len(pj) > OPD_SLOTS:
+        pg[nsurf - 1, -ROT:] = sums[OPD_SLOTS:]
     gcen = torch.stack([torch.where(live, v, 0.).sum() for v in gc])
     for j in range(nsurf - 2, 0, -1):
         g, pj = _step_vjp_reference(saved[j], tab.row(j), specs[j], g,
-                                    ct_path=ct_path)
+                                    ct_path=ct_path,
+                                    out=saved[j + 1] if rot else None)
         g = tuple(torch.where(live, v, 0.) for v in g)
-        _put_row(pg, j, specs[j], pj, live, specs, OPD_SLOTS, nd, nxy)
+        _put_row(pg, j, specs[j], pj, live, specs, OPD_SLOTS, nd, nxy, rot)
     if specs[0].rotated:
         r0 = tab.rot[0]
         g = (*K.rot_apply(r0, *g[:3]), *K.rot_apply(r0, *g[3:]))
@@ -1750,12 +1854,15 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
     coefficients, then for anamorphic specs (cuda_trace.
     carries_anamorphic) curvature_dx and conic_dx, then a phase table's
     grating_dy and DOE coefficients, then a freeform table's XY
-    coefficients; the six state cotangents; the weight cotangent) of
+    coefficients, then with "rot" in `fields` and a rotated row
+    (cuda_spec.carries_rot) the rotation, row-major; the six state
+    cotangents; the weight cotangent) of
     the weighted moments dotted with `ct`, a (5,) tensor of moment
     cotangents on the rays' device.  `fields`: the table fields whose
     cotangents are wanted; a slot outside them, or baked out by the
     specs (cuda_spec.live_slots: an aspheric coefficient is live only
-    on an aspheric row), is an exact zero.  rays=False: the state and
+    on an aspheric row, a rotation on a rotated row), is an exact
+    zero.  rays=False: the state and
     weight cotangents are not computed and come back as None.  CUDA
     bundles launch the kernel compiled for (dtype, specs, clip, live
     slots, rays, aspheric widths) (ops.cuda_spec: one launch, the
@@ -1767,10 +1874,11 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
     na, no = _table_widths(table)
-    nq = _nslots(table, specs)
+    rot = CS.carries_rot(specs, fields)
+    nq = _nslots(table, specs, rot=rot)
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_reference(table, specs, state, w, ct,
-                                             clip)
+                                             clip, rot)
         live = CS.live_mask(CS.live_slots(specs, fields, (na, no),
                                           doe_width(table, specs),
                                           xy_width(table, specs)), nq)
@@ -1798,6 +1906,7 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
                        *((o.data_ptr() for o in outs) if rays
                          else (None,)*7), n, grid, stream))
     merit_adjoint.launches += 1
+    merit_adjoint.rot_launches += int(rot)
     pg = _key_columns(pg, kern.key, nq)
     if not rays:
         return pg, None, None
@@ -1805,6 +1914,7 @@ def merit_adjoint(table, specs, state, w, ct, clip=False, fields=CS.FIELDS,
 
 
 merit_adjoint.launches = 0
+merit_adjoint.rot_launches = 0
 
 
 def _moments_multi_runs(specs, dtype, clip, nlam, widths=(0, 0), nd=0,
@@ -1861,8 +1971,8 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                         fields=CS.FIELDS, rays=True):
     """K7: (parameter cotangents (nlam, S, _nslots) per table of the
     stack, in merit_adjoint's columns -- a phase table's grating_dy and
-    DOE coefficients and a freeform table's XY coefficients too, each
-    table's own; the six state cotangents and
+    DOE coefficients, a freeform table's XY coefficients and a rot key's
+    rotation too, each table's own; the six state cotangents and
     the weight cotangent, each summed over the tables) of the (nlam, 5)
     weighted moments dotted with `ct`, an (nlam, 5) tensor of moment
     cotangents on the rays' device.  `fields` and `rays` as
@@ -1879,10 +1989,11 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
     na, no = _table_widths(tables)
-    nq = _nslots(tables, specs)
+    rot = CS.carries_rot(specs, fields)
+    nq = _nslots(tables, specs, rot=rot)
     if x.device.type == "cpu":
         pg, st, gw = merit_adjoint_multi_reference(tables, specs, state, w,
-                                                   ct, clip)
+                                                   ct, clip, rot)
         live = CS.live_mask(CS.live_slots(specs, fields, (na, no),
                                           doe_width(tables, specs),
                                           xy_width(tables, specs)), nq)
@@ -1911,6 +2022,7 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
                        *((o.data_ptr() for o in outs) if rays
                          else (None,)*7), n, nlam, grid, stream))
     merit_adjoint_multi.launches += 1
+    merit_adjoint_multi.rot_launches += int(rot)
     pg = _key_columns(pg, kern.key, nq)
     if not rays:
         return pg, None, None
@@ -1918,6 +2030,7 @@ def merit_adjoint_multi(tables, specs, state, w, ct, clip=False,
 
 
 merit_adjoint_multi.launches = 0
+merit_adjoint_multi.rot_launches = 0
 
 
 def opd_chain(table, specs, state, aux, clip=False):
@@ -1956,8 +2069,10 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
     c, k, offset x, y, z, mu, n_before, then the table's na even and no
     odd aspheric coefficients, then an anamorphic table's curvature_dx
     and conic_dx, a grating table's grating_dy, a DOE table's n_after
-    and DOE coefficients, a freeform table's XY coefficients; the six
-    state cotangents; the (3,) centre cotangents)
+    and DOE coefficients, a freeform table's XY coefficients, then with
+    "rot" in `fields` and a rotated row (cuda_spec.carries_rot) the
+    rotation, row-major, the image row's among them; the six state
+    cotangents; the (3,) centre cotangents)
     of K8's outputs dotted with cts = (ct_k, ct_lx, ct_ly), three (N,)
     tensors on the rays' device.  `fields`: the table fields whose
     cotangents are wanted; a slot outside them, or never read by the
@@ -1974,10 +2089,11 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
     x = state[0]
     specs, fields = tuple(specs), tuple(fields)
     na, no = _table_widths(table)
-    nq = _nslots(table, specs, OPD_SLOTS)
+    rot = CS.carries_rot(specs, fields)
+    nq = _nslots(table, specs, OPD_SLOTS, rot)
     if x.device.type == "cpu":
         pg, st, gc = opd_adjoint_reference(table, specs, state, aux, cts,
-                                           clip)
+                                           clip, rot)
         live = CS.live_mask(CS.opd_live_slots(specs, fields, (na, no),
                                               doe_width(table, specs),
                                               xy_width(table, specs)), nq)
@@ -1992,7 +2108,7 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
     nsurf = len(specs)
     # the key's columns: OPD_SLOTS, the coefficients of a figured key,
     # the anamorphic two of an anamorphic one, then the phase columns,
-    # then the XY columns
+    # then the XY columns, then a rot key's rotation
     kq = kern.key.slots
     if not n:
         out = torch.zeros(nsurf*kq + 3, dtype=x.dtype, device=device)
@@ -2010,12 +2126,14 @@ def opd_adjoint(table, specs, state, aux, cts, clip=False,
                            *((o.data_ptr() for o in st) if rays
                              else (None,)*6), n, grid, stream))
         opd_adjoint.launches += 1
+        opd_adjoint.rot_launches += int(rot)
     pg = _key_columns(out[:nsurf*kq].view(nsurf, kq), kern.key, nq,
                       OPD_SLOTS)
     return pg, st, out[nsurf*kq:]
 
 
 opd_adjoint.launches = 0
+opd_adjoint.rot_launches = 0
 
 
 # -- the differentiable merit --------------------------------------------
@@ -2042,7 +2160,7 @@ class _SpotMoments(torch.autograd.Function):
         # K5/K7 reduce only the slots autograd asks for, and write the
         # ray and weight cotangents only when they are wanted
         need = dict(zip(_SPOT, ctx.needs_input_grad[4:4 + _NM]))
-        fields = tuple(f for f in CS.FIELDS if need[f])
+        fields = tuple(f for f in CS.FIELDS + (CS.ROT_FIELD,) if need[f])
         adjoint = merit_adjoint_multi if ctx.multi else merit_adjoint
         pg, ct_state, ct_w = adjoint(
             tab, ctx.specs, state, w, ct.contiguous(), ctx.clip,
@@ -2068,11 +2186,15 @@ class _SpotMoments(torch.autograd.Function):
         nxy = xy_width(tab, ctx.specs)
         gxy = (pg[..., q:q + nxy].contiguous() if nxy
                else torch.zeros_like(params[11]))
+        # a rot key's rotation, last
+        grot = (pg[..., -ROT:].reshape(params[12].shape)
+                if CS.carries_rot(ctx.specs, fields)
+                else torch.zeros_like(params[12]))
         grads = (pg[..., 0], pg[..., 1], pg[..., 2:5].contiguous(),
                  pg[..., 5], torch.zeros_like(params[4]),
                  pg[..., SLOTS:SLOTS + na].contiguous(),
                  pg[..., SLOTS + na:SLOTS + na + no].contiguous(), *gdx,
-                 ggdy, gdoe, gxy)
+                 ggdy, gdoe, gxy, grot)
         return (None, None, None, None, *grads, *ct_state, ct_w)
 
 
@@ -2154,8 +2276,10 @@ def spot_moments(table, state, w, specs=None, clip=False, diff_pose=None):
     a CUDA bundle, their plain versions on a CPU bundle.  state: six
     contiguous (N,) components; w: (N,) weights.  Gradients reach the
     table's curvature, conic, offset, mu, aspherics and aspherics_odd
-    (n_before: zero), the state and the weights (see the module
-    docstring)."""
+    (n_before: zero), its rot (through tables.lower_pose tilt and
+    decenter; a pose that requires grad keeps every row but the
+    object's rotated and off axis, diff_pose), the state and the
+    weights (see the module docstring)."""
     mom = _moments(table, _resolve_specs(table, specs, diff_pose), state, w,
                    clip, False)
     return tuple(mom[i] for i in range(5))
@@ -2178,11 +2302,6 @@ def _moments(table, specs, state, w, clip, multi):
     """The autograd call shared by spot_moments and spot_moments_multi
     (a stacked table with `multi`)."""
     table = _folded(table)
-    if table.rot.requires_grad and any(s.rotated for s in specs):
-        raise NotImplementedError(
-            "the adjoint merit does not differentiate rot/tilt yet (the "
-            "rot cotangent, ROADMAP Queue 1 item 9); use the generic "
-            "engine (parallel.grad.spot_rms) for pose gradients")
     _warn_diff_params(table, specs)
     x = state[0]
     diff = [v.to(device=x.device, dtype=x.dtype)
@@ -2296,10 +2415,14 @@ class _OpdRays(torch.autograd.Function):
         nxy = xy_width(tab, ctx.specs)
         gxy = (pg[:, q:q + nxy].contiguous() if nxy
                else torch.zeros_like(params[12]))
+        # a rot key's rotation, last
+        grot = (pg[:, -ROT:].reshape(params[13].shape)
+                if CS.carries_rot(ctx.specs, fields)
+                else torch.zeros_like(params[13]))
         grads = (pg[:, 0], pg[:, 1], pg[:, 2:5].contiguous(), pg[:, 5],
                  pg[:, 6], pg[:, OPD_SLOTS:OPD_SLOTS + na].contiguous(),
                  pg[:, OPD_SLOTS + na:OPD_SLOTS + na + no].contiguous(),
-                 *gdx, ggdy, gna, gdoe, gxy)
+                 *gdx, ggdy, gna, gdoe, gxy, grot)
         # radius and lam_scale are constants of the merit
         ct_aux = torch.cat([ct_c, torch.zeros_like(ct_c[:2])])
         return (None, None, None, *grads, *ct_state, ct_aux)
@@ -2322,18 +2445,13 @@ def adjoint_opd_rays(table, y0, u0, ref=0, radius=None, wavelength=None,
     the sphere placement and the bundle exactly as in the plain engine.
     Gradients reach curvature, conic, offset, mu, n_before, aspherics
     and aspherics_odd, curvature_dx and conic_dx, grating_dy, n_after (a
-    DOE row's), doe and xy_poly (K9's slots), the rays, and through
-    tables.lower_pose decenter; a rot or
-    tilt that requires grad while a spec row is rotated raises
-    NotImplementedError."""
+    DOE row's), doe, xy_poly and rot (K9's slots; the sphere centre's
+    trace by autograd), the rays, and through tables.lower_pose tilt and
+    decenter (a pose that requires grad keeps every row but the
+    object's rotated and off axis, diff_pose)."""
     from .geometric import trace_rays_final
     specs = _resolve_specs(table, specs, diff_pose)
     table = lower_pose(table)
-    if table.rot.requires_grad and any(s.rotated for s in specs):
-        raise NotImplementedError(
-            "the adjoint OPD does not differentiate rot/tilt yet (the rot "
-            "cotangent, ROADMAP Queue 1 item 9); use parallel.grad.opd_rays "
-            "for pose gradients")
     y0 = torch.as_tensor(y0)
     u0 = torch.as_tensor(u0)
     x = y0

@@ -51,15 +51,22 @@ their cotangents, last (K7 per table of the stack); a freeform row's
 optical path is t n_before, as a figured row's.  Only a freeform figure
 on an anamorphic base is refused (NotImplementedError, as `specialize`
 refuses it).  A row word is 64 bits: its flags below LIVE_SHIFT, its
-live slots above.
+live slots above.  An adjoint key (K5, K7, K9) differentiates the rows'
+rotation too when "rot" is among the fields asked for and some row of
+its specs is rotated (`carries_rot`, the reference's _rot_diff_fields):
+such a key (Key.rot; RAYOPT_ROT) has ROT = 9 slots more a row, R[i][j]
+row-major, after every other slot, live on the rotated rows only (K9's
+image row too: its reference-sphere tail reads its rotation).  A key
+without it compiles to the code it did before.
 
 The live slots of a row (curvature, conic, offset x, y, z, mu: K5's and
 K7's six cotangent columns, then a figured key's na even and no odd
 coefficients, then an anamorphic key's curvature_dx and conic_dx, then
 a grating key's grating_dy, then a DOE key's nd coefficients, then a
-freeform key's nxy XY coefficients; K9 puts n_before between the six
-and the coefficients and n_after before the DOE coefficients,
-OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] + nxy a row) are the fields
+freeform key's nxy XY coefficients, then a rot key's nine rotation
+entries; K9 puts n_before between the six and the coefficients and
+n_after before the DOE coefficients, OPD_SLOTS + na + no [+ 2] [+ 1]
+[+ 1 + nd] + nxy [+ ROT] a row) are the fields
 asked for, minus what the
 row's specs bake out (cuda_grad._baked_out_rows: curvature of a flat
 row, conic of a flat or spherical row -- both live on an aspheric row,
@@ -68,10 +75,11 @@ on-axis row, mu of a passthrough row, the coefficients of a row that
 reads no figure: neither aspheric nor a biconic or toroid, grating_dy
 of a row that is no grating, the DOE coefficients -- and K9's n_after
 -- of a row that is no DOE, the XY coefficients of a row that is not
-freeform); the axial offset is never baked out.
+freeform, the rotation of a row that is not rotated); the axial offset
+is never baked out.
 K9's image row is read only by the reference-sphere tail, which reads
-its offset (the transverse part only off axis), its rotation and its
-n_before, never its curvature, conic or mu; every other row's n_before
+its offset (the transverse part only off axis), its rotation (a rot
+key's slots there) and its n_before, never its curvature, conic or mu; every other row's n_before
 carries its optical path.  Row 0 has none.  A slot that is not live comes back as
 an exact zero.
 
@@ -129,6 +137,11 @@ OPD_FIELDS = FIELDS[:4] + ("n_before",) + FIELDS[4:]
 #: OPD_FIELDS and n_after, read only by a DOE row (its optical path
 #: psi(r2) n_after) before doe; xy_poly last
 OPD_DIFF = OPD_FIELDS[:10] + ("n_after",) + OPD_FIELDS[10:]
+#: a rot key's slots a row: the rotation R[i][j], row-major, last.  "rot"
+#: is differentiated only when asked for by name (never by default: a
+#: rotated row's key without it is the key it was)
+ROT = 9
+ROT_FIELD = "rot"
 HEADERS = ("trace_common.cuh", "step_vjp.cuh", "grad_spec.cuh",
            "df32_common.cuh", "df32_spec.cuh")
 AUX = 5            # K9's aux vector: centre x, y, z, radius, lam_scale
@@ -271,19 +284,33 @@ def _phase(specs, nd):
         + ("doe",)*nd
 
 
+def carries_rot(specs, fields):
+    """Whether an adjoint key differentiates the rows' rotation (a rot
+    key: ROT slots more a row, last): "rot" is among `fields` and some
+    row of `specs` but row 0 is rotated (row 0's rotation is never a
+    slot, as in the reference)."""
+    return ROT_FIELD in fields and any(s.rotated for s in specs[1:])
+
+
+def _rot(specs, fields):
+    """The slot fields of a rot key's last slots (carries_rot)."""
+    return (ROT_FIELD,)*ROT if carries_rot(specs, fields) else ()
+
+
 def live_slots(specs, fields=FIELDS, widths=(0, 0), nd=0, nxy=0):
     """One mask a row of the slots K5 and K7 reduce -- SLOTS bits, then
     with `widths` = (na, no) (the key's, figure_widths) one a
     coefficient, then for anamorphic specs (carries_anamorphic)
     curvature_dx and conic_dx, then for grating specs (carries_grating)
     grating_dy and nd (the key's, doe_width) DOE coefficients, then nxy
-    (the key's, xy_width) XY coefficients: the `fields` asked for, minus
-    the rows the specs bake them out of (the axial offset, slot 4, never
-    is; baked_out_rows).  Row 0 has none."""
-    return _live_slots(specs, fields, FIELDS,
+    (the key's, xy_width) XY coefficients, then with "rot" in `fields`
+    (carries_rot) the ROT rotation entries: the `fields` asked for,
+    minus the rows the specs bake them out of (the axial offset, slot 4,
+    never is; baked_out_rows).  Row 0 has none."""
+    return _live_slots(specs, fields, FIELDS + (ROT_FIELD,),
                        SLOT_FIELDS[:SLOTS] + _coefficients(widths)
                        + _anamorphic(specs) + _phase(specs, nd)
-                       + ("xy_poly",)*nxy)
+                       + ("xy_poly",)*nxy + _rot(specs, fields))
 
 
 def _opd_phase(specs, nd):
@@ -299,27 +326,33 @@ def opd_live_slots(specs, fields=OPD_DIFF, widths=(0, 0), nd=0, nxy=0):
     with `widths` one a coefficient, then for anamorphic specs
     curvature_dx and conic_dx, then for grating specs grating_dy and
     with nd (the key's, doe_width) n_after and nd DOE coefficients, then
-    nxy (the key's, xy_width) XY coefficients (live_slots' layout with
-    n_before, slot 6, between mu and the coefficients, and n_after
+    nxy (the key's, xy_width) XY coefficients, then with "rot" in
+    `fields` (carries_rot) the ROT rotation entries (live_slots' layout
+    with n_before, slot 6, between mu and the coefficients, and n_after
     before the DOE's): OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] + nxy
-    slots, refused past LIVE_BITS; live_slots' rule with
+    [+ ROT] slots, refused past LIVE_BITS; live_slots' rule with
     n_before on every row but row 0 and n_after on a DOE row only (the
     one row whose optical path reads it), except on the image row,
     which the reference-sphere tail reads only through its offset (the
-    transverse part only off axis) and its n_before, whatever its
-    figure."""
+    transverse part only off axis), its rotation (where rotated) and its
+    n_before, whatever its figure."""
     if len(specs) < 3:
         raise ValueError("the OPD needs object, exit and image rows, got "
                          "%d rows" % len(specs))
     slot_fields = (SLOT_FIELDS + _coefficients(widths) + _anamorphic(specs)
-                   + _opd_phase(specs, nd) + ("xy_poly",)*nxy)
-    masks = list(_live_slots(specs, fields, OPD_DIFF, slot_fields))
+                   + _opd_phase(specs, nd) + ("xy_poly",)*nxy
+                   + _rot(specs, fields))
+    masks = list(_live_slots(specs, fields, OPD_DIFF + (ROT_FIELD,),
+                             slot_fields))
     if nd:
         q = slot_fields.index("n_after")
         masks = [m & ~(1 << q) if not sp.doe else m
                  for m, sp in zip(masks, specs)]
     tail = (1 << 4) | (1 << 6) | ((1 << 2) | (1 << 3)
                                   if specs[-1].off_axis else 0)
+    if ROT_FIELD in slot_fields:
+        q = slot_fields.index(ROT_FIELD)
+        tail |= ((1 << ROT) - 1) << q
     masks[-1] &= tail
     return tuple(masks)
 
@@ -332,7 +365,9 @@ def _live_slots(specs, fields, known, slot_fields):
                          % (", ".join(known), ", ".join(sorted(unknown))))
     if len(slot_fields) > LIVE_BITS:
         raise ValueError("%d slots a row, above the %d a row word holds"
-                         % (len(slot_fields), LIVE_BITS))
+                         "%s" % (len(slot_fields), LIVE_BITS,
+                                 " (with the %d rotation slots)" % ROT
+                                 if ROT_FIELD in slot_fields else ""))
     baked = {f: set(baked_out_rows(specs, f)) for f in known}
     masks = []
     for j in range(len(specs)):
@@ -370,7 +405,10 @@ class Key(NamedTuple):
     adjoint their slots, K9 also n_after's) and the XY-monomial
     coefficients a row carries (nxy: a freeform table's xy_poly width, 0
     without a freeform row; a packed row then carries them last, an
-    adjoint their slots, last)."""
+    adjoint their slots, last) and, for an adjoint, whether it
+    differentiates the rows' rotation (rot, carries_rot: ROT slots more a
+    row, last; its saved states one row more, the state leaving the last
+    row its reverse steps through)."""
 
     kernel: str
     dtype: str
@@ -387,6 +425,7 @@ class Key(NamedTuple):
     grating: bool = False
     nd: int = 0
     nxy: int = 0
+    rot: bool = False
 
     @property
     def name(self):
@@ -406,6 +445,8 @@ class Key(NamedTuple):
             text += " doe %d" % self.nd
         if self.nxy:
             text += " xy %d" % self.nxy
+        if self.rot:
+            text += " rot"
         return "%s_%s" % (self.kernel,
                           hashlib.sha256(text.encode()).hexdigest()[:16])
 
@@ -425,12 +466,13 @@ class Key(NamedTuple):
     def slots(self):
         """An adjoint's cotangent columns a row: SLOTS (K9: OPD_SLOTS),
         the coefficients, the anamorphic words, grating_dy, the DOE
-        coefficients (K9: n_after, then the coefficients) and the XY
-        coefficients."""
+        coefficients (K9: n_after, then the coefficients), the XY
+        coefficients and a rot key's ROT."""
         k9 = self.kernel == "k9"
         return (OPD_SLOTS if k9 else SLOTS) \
             + self.na + self.no + self.anam_words + int(self.grating) \
-            + (self.nd + int(k9) if self.nd else 0) + self.nxy
+            + (self.nd + int(k9) if self.nd else 0) + self.nxy \
+            + (ROT if self.rot else 0)
 
     @property
     def anam_words(self):
@@ -449,9 +491,13 @@ class Key(NamedTuple):
     @property
     def dynamic_smem(self):
         """An adjoint's saved states: (rows - 1) * 6 words a thread (K9:
-        rows - 2, the rows its chain steps through before the sphere)."""
+        rows - 2, the rows its chain steps through before the sphere); a
+        rot key's one row more (the state leaving its last stepped
+        row)."""
         rows = {"k5": self.rows - 1, "k7": self.rows - 1,
                 "k9": self.rows - 2}.get(self.kernel, 0)
+        if rows and self.rot:
+            rows += 1
         return rows*6*self.block*self.word_bytes
 
     @property
@@ -694,7 +740,7 @@ def multi_most(kernel, specs, dtype, block=None, widths=(0, 0), nd=0,
 
 
 def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
-             widths=(0, 0), nd=0, nxy=0):
+             widths=(0, 0), nd=0, nxy=0, rot=False):
     """An adjoint's key, refused when a block's saved states and
     reduction outgrow the shared memory it may opt in to."""
     na, no = widths
@@ -702,7 +748,7 @@ def _adjoint(kernel, specs, masks, dtype, clip, rays, block, min_blocks,
               bool(clip), bool(rays), int(block or BLOCK_ADJOINT),
               int(min_blocks), na=na, no=no,
               anamorphic=carries_anamorphic(specs),
-              grating=carries_grating(specs), nd=nd, nxy=nxy)
+              grating=carries_grating(specs), nd=nd, nxy=nxy, rot=bool(rot))
     if key.shared_bytes > SMEM_OPTIN:
         raise ValueError(
             "%s keeps %d rows of saved state at %d threads a block in %s: "
@@ -719,25 +765,31 @@ def adjoint_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
     wanted (see live_slots), whether the ray and weight cotangents are,
     and `widths`, `nd` and `nxy` as trace_key's (a figured key's rows
     reduce their aspheric coefficients too, a grating key's grating_dy, a
-    DOE key's DOE coefficients, a freeform key's XY coefficients;
-    SLOTS + na + no [+ 2] [+ 1] + nd + nxy must fit a row word)."""
+    DOE key's DOE coefficients, a freeform key's XY coefficients, a rot
+    key's ROT rotation entries -- "rot" in `fields` and a rotated row,
+    carries_rot; SLOTS + na + no [+ 2] [+ 1] + nd + nxy [+ ROT] must fit
+    a row word)."""
+    rot = carries_rot(specs, fields)
     nd, nxy, widths = _adjoint_widths(specs, "k5", SLOTS, _phase, widths,
-                                      nd, nxy)
+                                      nd, nxy, rot)
     return _adjoint("k5", specs, live_slots(specs, fields, widths, nd, nxy),
-                    dtype, clip, rays, block, min_blocks, widths, nd, nxy)
+                    dtype, clip, rays, block, min_blocks, widths, nd, nxy,
+                    rot)
 
 
-def _adjoint_widths(specs, kernel, base, phase, widths, nd, nxy):
+def _adjoint_widths(specs, kernel, base, phase, widths, nd, nxy, rot=False):
     """An adjoint key's (nd, nxy, (na, no)): its other slots -- `base`,
-    the anamorphic two, the `phase` slots (_phase, K9 _opd_phase) and the
-    XY coefficients -- refused past LIVE_BITS with the coefficients
-    (_check_rows first)."""
+    the anamorphic two, the `phase` slots (_phase, K9 _opd_phase), the
+    XY coefficients and with `rot` the ROT rotation entries -- refused
+    past LIVE_BITS with the coefficients (_check_rows first)."""
     _check_rows(specs, kernel)
     nd, nxy = _nd(specs, nd), _nxy(specs, nxy)
-    other = base + len(_anamorphic(specs)) + len(phase(specs, nd)) + nxy
+    other = base + len(_anamorphic(specs)) + len(phase(specs, nd)) + nxy \
+        + (ROT if rot else 0)
     if other > LIVE_BITS:
-        raise ValueError("XY width %d: %d slots a row, above the %d a row "
-                         "word holds" % (nxy, other, LIVE_BITS))
+        raise ValueError("XY width %d%s: %d slots a row, above the %d a row "
+                         "word holds" % (nxy, " and %d rotation slots" % ROT
+                                         if rot else "", other, LIVE_BITS))
     return nd, nxy, _widths(specs, widths, other)
 
 
@@ -747,11 +799,13 @@ def adjoint_multi_key(specs, dtype, clip=False, fields=FIELDS, rays=True,
     """The K7 key of the spec tuple a stack of tables shares, as
     adjoint_key (the wavelength count is not part of it; a phase key's
     grating_dy and DOE coefficients and a freeform key's XY coefficients
-    are reduced per table, as mu is)."""
+    are reduced per table, as mu is, and so is a rot key's rotation)."""
+    rot = carries_rot(specs, fields)
     nd, nxy, widths = _adjoint_widths(specs, "k7", SLOTS, _phase, widths,
-                                      nd, nxy)
+                                      nd, nxy, rot)
     return _adjoint("k7", specs, live_slots(specs, fields, widths, nd, nxy),
-                    dtype, clip, rays, block, min_blocks, widths, nd, nxy)
+                    dtype, clip, rays, block, min_blocks, widths, nd, nxy,
+                    rot)
 
 
 def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_DIFF, rays=True,
@@ -763,14 +817,17 @@ def opd_adjoint_key(specs, dtype, clip=False, fields=OPD_DIFF, rays=True,
     their aspheric coefficients after n_before, an anamorphic key's
     curvature_dx and conic_dx after them, a grating key's grating_dy,
     then a DOE key's n_after and DOE coefficients, then a freeform key's
-    XY coefficients; OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] + nxy
-    must fit a row word); the three centre cotangents are always
+    XY coefficients, then a rot key's ROT rotation entries, the image
+    row's among them; OPD_SLOTS + na + no [+ 2] [+ 1] [+ 1 + nd] + nxy
+    [+ ROT] must fit a row word); the three centre cotangents are always
     reduced."""
+    rot = carries_rot(specs, fields)
     nd, nxy, widths = _adjoint_widths(specs, "k9", OPD_SLOTS, _opd_phase,
-                                      widths, nd, nxy)
+                                      widths, nd, nxy, rot)
     return _adjoint("k9", specs, opd_live_slots(specs, fields, widths, nd,
                                                 nxy),
-                    dtype, clip, rays, block, min_blocks, widths, nd, nxy)
+                    dtype, clip, rays, block, min_blocks, widths, nd, nxy,
+                    rot)
 
 
 class Df32Key(NamedTuple):
@@ -999,6 +1056,8 @@ def translation_unit(key):
         figure += "#define RAYOPT_N_DOE %d\n" % key.nd
     if key.nxy:
         figure += "#define RAYOPT_N_XY %d\n" % key.nxy
+    if key.rot:
+        figure += "#define RAYOPT_ROT 1\n"
     head = ("// %s, specialized by rayopt_tpu_torch.ops.cuda_spec\n"
             "// key: %r\n%s#include \"grad_spec.cuh\"\n\n"
             "namespace {\nusing Rows = Chain<%s>;\n}  // namespace\n\n"

@@ -27,10 +27,14 @@ kernel (K8) forward and its adjoint (K9) backward; both take the
 freeform XY rows too, so a composite merit of spot (K4/K5) and
 wavefront (K8/K9) terms moves xy_poly through either engine.
 
+Both engines move the pose too: `select` may hold "tilt" and
+"decenter" (the alignment compensator), the adjoint engine then keeping
+every row but the object's rotated and off axis (kernels.with_pose) so
+that K5 differentiates the nominal pose through its rot key.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): ray sharding over a device mesh (`mesh`), checkpointed resume
-(`checkpoint_dir`), fused multi-step dispatch (`jit_steps`), and pose
-gradients through the adjoint engine.
+(`checkpoint_dir`) and fused multi-step dispatch (`jit_steps`).
 """
 
 import functools
@@ -393,12 +397,13 @@ def optimize_system(system, select=("curvature",), fields=None,
 
 def _adjoint_merit(table, bundles, select):
     from ..ops.cuda_grad import adjoint_spot_rms
-    from ..ops.kernels import specialize
-    if any(k in select for k in ("tilt", "decenter")):
-        _not_ported("pose gradients through the adjoint engine "
-                    "(select tilt/decenter with engine='adjoint'; the rot "
-                    "cotangent)", 9)
+    from ..ops.kernels import specialize, with_pose
     specs = specialize(table)
+    if any(k in select for k in ("tilt", "decenter")):
+        # keep the nominal pose live in the static specialization, so
+        # that the adjoint differentiates it (rot and the transverse
+        # offset would otherwise bake out at zero tilt and decenter)
+        specs = with_pose(specs)
 
     def merit(tab):
         total = 0.
@@ -458,8 +463,10 @@ def optimize_grad(table, bundles, select=("curvature",), steps=100,
                CUDA bundle, specialized-engine gradient semantics from
                the nominal table's specs: "aspherics" and
                "aspherics_odd" move on its aspheric rows only, "xy_poly"
-               on its freeform rows only; select may not hold tilt or
-               decenter).  Ignored when `merit` is passed.
+               on its freeform rows only; with "tilt" or "decenter" in
+               select every row but the object's keeps its pose live,
+               kernels.with_pose, and K5 differentiates the rotation).
+               Ignored when `merit` is passed.
 
     `mesh`, `checkpoint_dir` and `jit_steps` are not ported yet and
     raise NotImplementedError.  Returns (optimized table, history of

@@ -84,8 +84,10 @@ card, run --df32, --newton (or --multi) from each tree in one call
 Gauss, NEWTON_LENSES, the phase models and the freeform Schmidt
 corrector) in both dtypes, clip off and on, and their K10-K13 plan keys
 (K10 and K12 on the first wavelength's plan, K11 and K13 on the 3
-wavelengths' plans; fast and exact, clip off and on)
-(cuda_spec.prebuild), and
+wavelengths' plans; fast and exact, clip off and on), and the double
+Gauss's pose loops' rot keys (K5, K7 and K9 for offset and rot without
+the ray cotangents, every pose live, unclipped; a tree that refuses
+"rot" leaves them out) (cuda_spec.prebuild), and
 prints {tag: [registers, stack bytes, spill bytes, SASS instructions]};
 --compare A.json B.json prints the tags whose entries differ between
 two such outputs and the counts of equal ones.  A key a tree's
@@ -484,6 +486,32 @@ def register_keys():
                         keys[tag % kname] = fn()
                     except (NotImplementedError, ValueError, TypeError):
                         pass
+        if name == "double Gauss":
+            keys.update(pose_register_keys(specs, mspecs))
+    return keys
+
+
+def pose_register_keys(specs, mspecs):
+    """{tag: key} of the double Gauss's pose loops: K5, K7 and K9 for
+    offset and rot (the rot keys of optimize_grad(select=("tilt",
+    "decenter"))) without the ray cotangents, every pose live
+    (kernels.with_pose), unclipped, in both dtypes; none in a tree
+    whose keys have no rot slots (no cuda_spec.ROT)."""
+    from rayopt_tpu_torch.ops import cuda_spec as CS
+    from rayopt_tpu_torch.ops.kernels import with_pose
+    if not hasattr(CS, "ROT"):
+        return {}
+    pspecs, pmspecs = with_pose(specs), with_pose(mspecs)
+    fields = ("offset", "rot")
+    keys = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "double Gauss %s pose %%s rot" % str(dtype)[6:]
+        keys[tag % "K5"] = CS.adjoint_key(pspecs, dtype, False, fields,
+                                          False)
+        keys[tag % "K7"] = CS.adjoint_multi_key(pmspecs, dtype, False,
+                                                fields, False)
+        keys[tag % "K9"] = CS.opd_adjoint_key(pspecs, dtype, False, fields,
+                                              False)
     return keys
 
 

@@ -2949,3 +2949,268 @@ def _prebuild_df32_freeform():
                          CS.df32_multi_key(plans, "k11", True),
                          CS.df32_multi_key(plans, "k13")]
     CS.prebuild(keys)
+
+
+# -- the rot cotangent: K5, K7 and K9 rot keys (pose gradients) ----------
+
+_POSE_IMAGE_TILT = (1e-3, 2e-3, 0.)
+#: the pose lenses (chip_smoke.pose_lenses): (build, {row: tilt}, {row:
+#: decenter}, bench half width, every pose live); the image row tilted
+#: on each
+_POSE_CASES = {
+    "double Gauss": (double_gauss, {3: (4e-3, -2e-3, 0.),
+                                    12: _POSE_IMAGE_TILT},
+                     {9: (.04, -.02, 0.)}, 11.6, True),
+    "aspheric double Gauss": (_aspheric_double_gauss,
+                              {7: (3e-3, -1e-3, 0.), 2: (2e-3, 1e-3, 0.),
+                               12: _POSE_IMAGE_TILT}, {5: (.03, .02, 0.)},
+                              11.6, False),
+    "biconic": (lambda: _anamorphic_system("biconic"),
+                {1: (8e-3, -5e-3, 0.), 3: _POSE_IMAGE_TILT},
+                {1: (.05, -.03, 0.)}, 4., False),
+    "toroid": (lambda: _anamorphic_system("toroid"),
+               {1: (6e-3, 4e-3, 0.), 3: _POSE_IMAGE_TILT},
+               {2: (.04, .02, 0.)}, 4., False),
+    "hybrid achromat": (lambda: _phase_system("hybrid_achromat")[0],
+                        {2: (5e-3, -3e-3, 0.), 3: _POSE_IMAGE_TILT},
+                        {1: (.03, 0., 0.)}, 6., False),
+    "spectrograph": (lambda: _phase_system("spectrograph")[0],
+                     {1: (2e-3, -1e-3, 0.), 2: _POSE_IMAGE_TILT}, {}, 10.,
+                     False),
+    "figured schmidt": (lambda: _freeform_system("figured schmidt")[0],
+                        {1: (4e-3, -3e-3, 0.), 4: _POSE_IMAGE_TILT},
+                        {1: (.1, -.05, 0.)}, 17., False)}
+
+
+def _posed(table, tilts, decs):
+    from rayopt_tpu_torch.ops.tables import lower_pose
+    shape = table.offset.shape
+    t = torch.zeros(shape[-2:], dtype=torch.float64)
+    d = torch.zeros_like(t)
+    for j, v in tilts.items():
+        t[j] = torch.tensor(v, dtype=torch.float64)
+    for j, v in decs.items():
+        d[j] = torch.tensor(v, dtype=torch.float64)
+    dev = table.offset.device
+    return lower_pose(table.replace(tilt=t.expand(shape).to(dev),
+                                    decenter=d.expand(shape).to(dev)))
+
+
+def _pose_case(name, device):
+    """(system, posed table, its specs, posed stack of 3 tables, its
+    specs, bench half width) of a pose lens: the stack is the system's
+    wavelengths, a one-glass lens's table with mu grown by 0, 1 and 2 %
+    of mu - 1 (the anamorphic lenses) or at 1, 0.9 and 1.1 times its
+    wavelength (the phase lenses)."""
+    from rayopt_tpu_torch.ops.kernels import with_pose
+    build, tilts, decs, half, live = _POSE_CASES[name]
+    s = build()
+    tab = s.table(device=device)
+    if name in ("biconic", "toroid"):
+        tabs = stack_tables([tab.replace(mu=1 + (tab.mu - 1)*(1 + .01*li))
+                             for li in range(3)])
+    elif name in ("hybrid achromat", "spectrograph"):
+        lam = list(s.wavelengths)
+        if len(lam) < 3:
+            lam = [lam[0], .9*lam[0], 1.1*lam[0]]
+        tabs = s.tables(lam, device=device)
+    else:
+        tabs = s.tables(device=device)
+    tab, tabs = _posed(tab, tilts, decs), _posed(tabs, tilts, decs)
+    specs, mspecs = specialize(tab), CT.multi_specs(tabs, None)
+    if live:
+        specs, mspecs = with_pose(specs), with_pose(mspecs)
+    return s, tab, specs, tabs, mspecs, half
+
+
+def _pose_state(n, half, dtype, device, widen=1.):
+    """The bench bundle of a pose lens: x, y uniform in +-half mm (times
+    `widen`), u = (0, 0, 1), ray 0 on the axis (the chief ray)."""
+    rng = np.random.RandomState(11)
+    xy = rng.uniform(-half*widen, half*widen, (2, n))
+    xy[:, 0] = 0.
+    zero, one = np.zeros(n), np.ones(n)
+    return tuple(torch.from_numpy(np.ascontiguousarray(c)).to(device, dtype)
+                 for c in (*xy, zero, zero, zero, one))
+
+
+def _pose_aux(s, tab, specs, state):
+    from rayopt_tpu_torch.ops.geometric import trace_rays_final
+    y0 = torch.stack([c[:1] for c in state[:3]], 1).double()
+    u0 = torch.stack([c[:1] for c in state[3:]], 1).double()
+    yr, _, _ = trace_rays_final(tab, y0, u0, specs=specs)
+    return torch.cat([yr[0], torch.tensor(
+        [-s.image.pupil.distance, s.wavelengths[0]/s.scale],
+        dtype=torch.float64, device=state[0].device)]).to(state[0].dtype)
+
+
+def _pose_columns(got, want, rel, floor):
+    """Each parameter column (the last axis) within `rel` of its largest
+    plain value floored at `floor` of the key's largest; a zero column
+    exactly zero."""
+    g, w = got.double().cpu(), want.double().cpu()
+    dims = tuple(range(w.dim() - 1))
+    scale = w.abs().amax(dim=dims)
+    err = (g - w).abs().amax(dim=dims)
+    held = torch.where(scale > 0, torch.clamp(scale, min=floor*float(
+        scale.max())), torch.zeros_like(scale))
+    assert bool(torch.isfinite(g).all())
+    bad = (err > rel*held).nonzero()[:, 0].tolist()
+    assert not bad, "columns %s: errors %s of %s" % (
+        bad, err[bad].tolist(), held[bad].tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("name", list(_POSE_CASES))
+def test_pose_rot_keys_match_plain_on_card(cuda_device, name, dtype, clip):
+    """The K5, K7 and K9 rot keys (every field and rot, with the ray
+    cotangents) against their plain versions on a tilted sphere, conic,
+    asphere, biconic, toroid, DOE, grating and freeform row, the image
+    row tilted (its two uses of the rotation), at 2^14 rays, clip off
+    and on (the clipped bundle 1.5x wide): float64 each column within
+    1e-9 of its largest, floored at 1e-9 of the key's (K9: 1e-5; the
+    ray cotangents' positions and directions within 1e-9 of each kind's
+    largest, as chip_smoke's compare_ray_grads); float32 the rot block
+    within 1e-3 of its largest (K5, K7; the spectrograph's not held: its
+    off-axis centroid cancels float32 moments) and K9's within 1e-2 of
+    the float64 plain version's sums of |term| (the Schmidt plates' not
+    held: their ~7e6-wave paths)."""
+    s, tab, specs, tabs, mspecs, half = _pose_case(name, cuda_device)
+    state = _pose_state(1 << 14, half, dtype, cuda_device,
+                        1.5 if clip else 1.)
+    w = torch.full((1 << 14,), 1./(1 << 14), dtype=dtype, device=cuda_device)
+    every, every9 = CS.FIELDS + ("rot",), CS.OPD_DIFF + ("rot",)
+    rot = CS.ROT
+    launches = (CG.merit_adjoint.rot_launches,
+                CG.merit_adjoint_multi.rot_launches,
+                CG.opd_adjoint.rot_launches)
+    ct = _rms_cotangent(CG.weighted_moments_reference(tab, specs, state, w,
+                                                      clip))
+    pg, st, gw = CG.merit_adjoint(tab, specs, state, w, ct, clip,
+                                  fields=every)
+    pr, sr, wr = CG.merit_adjoint_reference(tab, specs, state, w, ct, clip,
+                                            rot=True)
+    mom = CG.weighted_moments_multi_reference(tabs, mspecs, state, w, clip)
+    m = mom.detach().double().cpu().requires_grad_()
+    CG.union_spot_rms_from_moments(m).backward()
+    mct = m.grad.to(device=cuda_device, dtype=dtype).contiguous()
+    pm, _, _ = CG.merit_adjoint_multi(tabs, mspecs, state, w, mct, clip,
+                                      fields=every)
+    pmr, _, _ = CG.merit_adjoint_multi_reference(tabs, mspecs, state, w,
+                                                 mct, clip, rot=True)
+    aux = _pose_aux(s, tab, specs, state)
+    k = CG.opd_chain(tab, specs, state, aux, clip)[0]
+    kk = k.detach().double().cpu().requires_grad_()
+    CG.wavefront_rms_of(kk - kk[0]).backward()
+    cts = (kk.grad.to(device=cuda_device, dtype=dtype).contiguous(),
+           torch.zeros_like(k), torch.zeros_like(k))
+    po, so, co = CG.opd_adjoint(tab, specs, state, aux, cts, clip,
+                                fields=every9)
+    torch.cuda.synchronize()
+    assert (CG.merit_adjoint.rot_launches, CG.merit_adjoint_multi.rot_launches,
+            CG.opd_adjoint.rot_launches) == tuple(v + 1 for v in launches)
+    rows = [j for j, sp in enumerate(specs) if j and sp.rotated]
+    assert pr[rows][:, -rot:].abs().max() > 0
+    assert not pg[[j for j in range(len(specs)) if j not in rows]][
+        :, -rot:].any()
+    if dtype == torch.float64:
+        _pose_columns(pg, pr, 1e-9, 1e-9)
+        _pose_columns(pm, pmr, 1e-9, 1e-9)
+        por, sor, cor = CG.opd_adjoint_reference(tab, specs, state, aux, cts,
+                                                 clip, rot=True)
+        _pose_columns(po, por, 1e-9, 1e-5)
+        # positions, directions and the centre each held to their
+        # largest (a component can vanish: the initial z of a collimated
+        # ray)
+        for got, want in ((st[:3], sr[:3]), (st[3:], sr[3:]),
+                          (so[:3], sor[:3]), (so[3:], sor[3:]),
+                          ((co,), (cor,))):
+            scale = max(float(r.abs().max()) for r in want)
+            for g, r in zip(got, want):
+                nptest.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=0, atol=1e-9*scale)
+        return
+    if name != "spectrograph":
+        for got, want in ((pg, pr), (pm, pmr)):
+            g, r = got[..., -rot:].double(), want[..., -rot:].double()
+            assert float((g - r).abs().max()) <= 1e-3*float(r.abs().max())
+    if name != "figured schmidt":
+        s64 = tuple(c.double() for c in state)
+        c64 = tuple(c.double() for c in cts)
+        base = CG.opd_adjoint_reference(tab, specs, s64, aux.double(), c64,
+                                        clip, rot=True)[0][:, -rot:]
+        mass = CG.opd_adjoint_reference(
+            tab, specs, s64, aux.double(), tuple(c.abs() for c in c64), clip,
+            rot=True)[0][:, -rot:]
+        assert float((po[:, -rot:].double() - base).abs().max()) <= \
+            1e-2*float(mass.abs().max())
+
+
+@pytest.mark.cuda
+def test_pose_rot_keys_match_central_differences_on_card(cuda_device):
+    """On the posed double Gauss (every pose live), float64, 2^14 rays:
+    d/d(tilt, decenter) through K5 (the spot RMS of K4's moments), K7
+    (the union spot RMS of K6's) and K9 (the wavefront RMS of K8's k,
+    ray 0 the chief ray) against central differences (step 1e-6) of the
+    forward kernels' merits, within 1e-6; row 0's tilt gradient is
+    zero."""
+    from rayopt_tpu_torch.ops.tables import lower_pose
+    s, tab, specs, tabs, mspecs, half = _pose_case("double Gauss",
+                                                   cuda_device)
+    n = 1 << 14
+    state = _pose_state(n, half, torch.float64, cuda_device)
+    w = torch.full((n,), 1./n, dtype=torch.float64, device=cuda_device)
+    nsurf, nlam = tab.curvature.shape[0], tabs.curvature.shape[0]
+    y0, u0 = torch.stack(state[:3], 1), torch.stack(state[3:], 1)
+    aux = _pose_aux(s, tab, specs, state)
+    kw = dict(ref=0, radius=float(aux[3]), wavelength=s.wavelengths[0],
+              scale=s.scale, finite=s.object.finite)
+    zero = torch.zeros((nsurf, 3), dtype=torch.float64, device=cuda_device)
+
+    def grads(kname):
+        tilt = zero.clone().requires_grad_()
+        dec = zero.clone().requires_grad_()
+        tb = tab.replace(tilt=tilt, decenter=dec)
+        if kname == "K5":
+            v = CT.spot_rms_from_moments(*CG.spot_moments(tb, state, w,
+                                                          specs=specs))
+        elif kname == "K7":
+            v = CG.union_spot_rms_from_moments(CG.spot_moments_multi(
+                tabs.replace(tilt=tilt.expand(nlam, -1, -1),
+                             decenter=dec.expand(nlam, -1, -1)), state,
+                w/nlam, specs=mspecs))
+        else:
+            v = CG.adjoint_wavefront_rms(tb, y0, u0, w, specs=specs, **kw)
+        v.backward()
+        return {"tilt": tilt.grad, "decenter": dec.grad}
+
+    def forward(kname, tilt, dec):
+        tb = lower_pose(tab.replace(tilt=tilt, decenter=dec))
+        if kname == "K5":
+            return float(CT.spot_rms_from_moments(*CG.weighted_moments(
+                tb, specs, state, w)))
+        if kname == "K7":
+            tbs = lower_pose(tabs.replace(tilt=tilt.expand(nlam, -1, -1),
+                                          decenter=dec.expand(nlam, -1, -1)))
+            return float(CG.union_spot_rms_from_moments(
+                CG.weighted_moments_multi(tbs, mspecs, state, w/nlam)))
+        k = CG.opd_chain(tb, specs, state, _pose_aux(s, tb, specs, state))[0]
+        return float(CG.wavefront_rms_of(k - k[0], w))
+    h = 1e-6
+    for kname in ("K5", "K7", "K9"):
+        g = grads(kname)
+        assert not g["tilt"][0].any()
+        for field, row, comp in (("tilt", 3, 1), ("tilt", 12, 0),
+                                 ("decenter", 9, 0), ("decenter", 5, 1)):
+            side = []
+            for sgn in (1., -1.):
+                v = zero.clone()
+                v[row, comp] = sgn*h
+                side.append(forward(kname, v, zero) if field == "tilt"
+                            else forward(kname, zero, v))
+            fd = (side[0] - side[1])/(2*h)
+            nptest.assert_allclose(float(g[field][row, comp]), fd, rtol=1e-6,
+                                   err_msg="%s %s[%d, %d]" % (kname, field,
+                                                              row, comp))

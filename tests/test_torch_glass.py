@@ -480,7 +480,8 @@ def test_glass_gradient_through_glass_tables_matches_jax():
 def test_adjoint_multi_baked_out_and_pose():
     """On a stack, a baked-out parameter warns and gets exactly zero, the
     wrapper runs the plain versions without counting launches, and a
-    differentiated tilt raises (no rot cotangent, item 9)."""
+    differentiated tilt (K7's rot cotangent, every row kept rotated)
+    gets the autograd engine's gradient with the same specs."""
     tt = _model_doublet(tmodels).tables()
     specs = CT.multi_specs(tt, None)
     y, u, w = (torch.from_numpy(a) for a in _bundle(128, 6, .25, .002))
@@ -506,8 +507,12 @@ def test_adjoint_multi_baked_out_and_pose():
         CG.merit_adjoint_multi(tt, specs, state, w, ct[:2])
     tilt = torch.zeros(tuple(tt.offset.shape), dtype=F64,
                        requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CG.polychromatic_spot_rms(tt.replace(tilt=tilt), y, u, w)
+    CG.polychromatic_spot_rms(tt.replace(tilt=tilt), y, u, w).backward()
+    tilt2 = tilt.detach().clone().requires_grad_()
+    TGL.polychromatic_spot_rms(tt.replace(tilt=tilt2), y, u, w,
+                               specs=TK.with_pose(specs)).backward()
+    assert tilt.grad[:, 1:].abs().max() > 0
+    _close(tilt.grad, tilt2.grad, "tilt")
 
 
 @pytest.mark.parametrize("case", ["posed_cooke", "bk7_clipped"])

@@ -488,11 +488,24 @@ def test_unported_options_raise():
     tb = TGR.bundles_from_system(ts, fields=(0.,), nrays=8)
     for kw, item in ((dict(mesh=object()), "16"),
                      (dict(checkpoint_dir="ckpt"), "6"),
-                     (dict(jit_steps=4), "6"),
-                     (dict(engine="adjoint", select=("tilt",)), "9"),
-                     (dict(engine="adjoint", select=("decenter",)), "9")):
+                     (dict(jit_steps=4), "6")):
         with pytest.raises(NotImplementedError, match="item " + item):
             TGR.optimize_grad(tt, tb, steps=1, **kw)
+    # the adjoint engine moves the pose (the rot cotangent): one step over
+    # tilt, or decenter, equals the autograd engine's with the same
+    # specs, every pose live (kernels.with_pose)
+    specs = TK.with_pose(TK.specialize(tt))
+    for sel in (("tilt",), ("decenter",)):
+        ta, ha = TGR.optimize_grad(tt, tb, steps=1, lr=1e-4, select=sel,
+                                   engine="adjoint")
+        tx, hx = TGR.optimize_grad(
+            tt, tb, steps=1, lr=1e-4, select=sel,
+            merit=lambda t: sum(TGR.spot_rms(
+                TGR._bundle_table(t, b)[0], *b[:3], specs=specs)
+                for b in tb))
+        _close(ha, hx, sel[0])
+        _close(getattr(ta, sel[0]), getattr(tx, sel[0]), sel[0])
+        assert getattr(ta, sel[0])[1:].abs().max() > 0
     with pytest.raises(ValueError, match="engine"):
         TGR.optimize_grad(tt, tb, steps=1, engine="pallas")
     with pytest.raises(NotImplementedError, match="item 16"):
@@ -508,9 +521,14 @@ def test_unported_options_raise():
         float(TGR.spot_rms(ft, *tb[0][:3], biconic=True)),
         float(TGR.spot_rms(ft, *tb[0][:3], specs=TK.specialize(ft))),
         rtol=1e-12)
-    # the adjoint engine does not differentiate rot: a tilt that
-    # requires grad keeps every row rotated, and raises
+    # the adjoint engine differentiates rot: a tilt that requires grad
+    # keeps every row rotated (diff_pose), and its gradient is the
+    # autograd engine's with the same specs
     tilt = torch.zeros(tt.nsurfaces, 3, dtype=torch.float64,
                        requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        CG.adjoint_spot_rms(tt.replace(tilt=tilt), *tb[0][:3])
+    CG.adjoint_spot_rms(tt.replace(tilt=tilt), *tb[0][:3]).backward()
+    tilt2 = tilt.detach().clone().requires_grad_()
+    TGR.spot_rms(tt.replace(tilt=tilt2), *tb[0][:3],
+                 specs=specs).backward()
+    assert tilt.grad[1:].abs().max() > 0
+    _close(tilt.grad, tilt2.grad, "tilt")
